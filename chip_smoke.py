@@ -1,0 +1,544 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+Run from the repository root, on a machine with a CUDA card and the CUDA
+toolkit:
+
+    python3 chip_smoke.py
+
+It imports neither JAX nor the JAX package.  Phases, in order; any failure
+exits non-zero and prints no result:
+
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
+2. hold each kernel against its plain PyTorch version on the card at the
+   main path's shapes — outputs and measured bytes bitwise equal, scatter
+   collisions included;
+3. run a P=4 store through the same 20 windows on the card and on the CPU:
+   states and results bitwise equal after every window;
+4. drive the main path — ``KVStore.op_window`` on the remote-DMA backend —
+   at a deployment's size: P=8 participants, K=2**22 keys, 8-byte values,
+   windows of 512 lanes per participant; prefill 80% of K, then 20 windows
+   of 60/20/10/10 GET/UPDATE/INSERT/DELETE over distinct uniform keys and
+   20 windows of 95/5 GET/UPDATE over zipf(0.99) keys; every GET and every
+   ``found`` is checked against a numpy oracle of the window semantics;
+5. report the end-to-end numbers, each kernel's launches on the main path,
+   its time beside its plain version's and its bound, the card's name and
+   power limit, and last the result line.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# KVStore op codes (checked against repro_torch.core's at start-up)
+NOP, GET, INSERT, UPDATE, DELETE = 0, 1, 2, 3, 4
+
+# the main path's configuration (benchmarks/bench_kvstore.py's store shape)
+P = 8
+KEYS = 2 ** 22
+B = 512
+W = 2
+FILL = 0.8
+MIX_WINDOWS = 20
+ZIPF_WINDOWS = 20
+ZIPF_THETA = 0.99
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(ok, what):
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters):
+    """Mean device time of ``fn()`` over ``iters`` calls, after warm-up."""
+    import torch
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def kernel_cases(torch, rdma, slots):
+    """Inputs at the main path's shapes: R = B request lanes per
+    participant for descriptors, N = P·B served/committed lanes per home on
+    a (P, slots, W+3) int32 row buffer."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    dev = "cuda"
+    N = P * B
+    width = W + 3
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    buf = ints(-2 ** 31, 2 ** 31 - 1, (P, slots, width))
+    cases = {
+        "build_descriptors": [
+            ("random", (ints(0, P, (P, B)), ints(0, slots, (P, B)),
+                        ints(0, 2, (P, B))), dict(wire=ints(0, 2, (P, B)),
+                                                  op=rdma.OP_WRITE,
+                                                  row_nbytes=4 * width))],
+        "gather_rows": [
+            ("random", (buf, ints(0, slots, (P, N)), ints(0, 2, (P, N))), {}),
+            ("all masked", (buf, ints(0, slots, (P, N)),
+                            torch.zeros((P, N), dtype=torch.int32,
+                                        device=dev)), {})],
+        "scatter_rows": [],
+    }
+    vals = ints(-2 ** 31, 2 ** 31 - 1, (P, N, width))
+    for name, idx in [("random", ints(0, slots, (P, N))),
+                      ("all lanes one row", torch.full((P, N), 7,
+                                                       dtype=torch.int32,
+                                                       device=dev)),
+                      ("random duplicates", ints(0, 64, (P, N)))]:
+        apply = ints(0, 2, (P, N))
+        cases["scatter_rows"].append(
+            (name, (buf, idx, vals, apply, apply * ints(0, 2, (P, N))), {}))
+    return cases
+
+
+PLAIN = {"build_descriptors": "_build_desc_ref", "gather_rows": "_gather_ref",
+         "scatter_rows": "_scatter_ref"}
+
+
+def plain_call(torch, rdma, name, args, kw):
+    """The kernel's plain PyTorch version on the same (card) tensors."""
+    if name == "build_descriptors":
+        tg, ix, en = args
+        return rdma._build_desc_ref(tg, ix, en, kw.get("wire", en),
+                                    kw["op"], kw["row_nbytes"])
+    buf = args[0]
+    row_nbytes = buf.shape[2] * buf.element_size()
+    return getattr(rdma, PLAIN[name])(*args, row_nbytes)
+
+
+def max_abs_err(torch, got, exp):
+    err = 0.0
+    for a, b in zip(got, exp):
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"shape/dtype {tuple(a.shape)} {a.dtype} vs "
+              f"{tuple(b.shape)} {b.dtype}")
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
+
+
+def phase_kernels(torch, rdma, slots):
+    cases = kernel_cases(torch, rdma, slots)
+    errs = {}
+    for name, runs in cases.items():
+        kern = getattr(rdma, name)
+        errs[name] = 0.0
+        for label, args, kw in runs:
+            before = kern.launches
+            got = kern(*args, **kw)
+            torch.cuda.synchronize()
+            check(kern.launches == before + 1, f"{name} did not launch")
+            exp = plain_call(torch, rdma, name, args, kw)
+            e = max_abs_err(torch, got, exp)
+            check(e == 0.0, f"{name} ({label}) differs from its plain "
+                            f"version: max abs err {e}")
+            errs[name] = max(errs[name], e)
+            log(f"  {name} [{label}]: bitwise equal to the plain version")
+    return cases, errs
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the same windows on the card and on the CPU
+# ---------------------------------------------------------------------------
+
+def phase_parity(torch, pt):
+    Pp, Bp, keys = 4, 8, np.arange(1, 41, dtype=np.uint32)
+    cfg = dict(slots_per_node=8, value_width=W, num_locks=8,
+               index_capacity=48)
+    stores = {}
+    for dev in ("cuda", "cpu"):
+        mgr = pt.make_manager(Pp, device=dev, backend="pallas")
+        kv = pt.KVStore(None, "kv", mgr, **cfg)
+        stores[dev] = [kv, kv.init_state()]
+    rng = np.random.default_rng(SEED + 1)
+    for w in range(20):
+        if w % 5 == 4:       # every lane hammers one key
+            ks = np.full((Pp, Bp), keys[w % keys.size], np.uint32)
+        else:
+            ks = rng.choice(keys, size=(Pp, Bp)).astype(np.uint32)
+        ops = rng.choice([GET, UPDATE, INSERT, DELETE, NOP],
+                         size=(Pp, Bp), p=[.3, .2, .3, .1, .1]).astype(np.int32)
+        vals = rng.integers(-2 ** 31, 2 ** 31, (Pp, Bp, W)).astype(np.int32)
+        out = {}
+        for dev, s in stores.items():
+            s[1], res = s[0].op_window(s[1], ops, ks, vals)
+            out[dev] = (pt.state_to_numpy(s[1]), res)
+        for name in pt.KVStoreState._fields:
+            a = getattr(out["cuda"][0], name)
+            b = getattr(out["cpu"][0], name)
+            for x, y in zip(a if isinstance(a, tuple) else [a],
+                            b if isinstance(b, tuple) else [b]):
+                check(x.dtype == y.dtype and np.array_equal(x, y),
+                      f"window {w}: state leaf {name} differs cuda vs cpu")
+        for x, y in zip(out["cuda"][1], out["cpu"][1]):
+            check(torch.equal(x.cpu(), y), f"window {w}: result differs")
+    st = pt.state_to_numpy(stores["cpu"][1])
+    log(f"  20 windows bitwise equal on cuda and cpu (free slots left per "
+        f"participant: {st.free_top.tolist()}, index overflow: "
+        f"{st.idx_overflow.tolist()})")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path at a deployment's size
+# ---------------------------------------------------------------------------
+
+class Oracle:
+    """Sequential replay of the window semantics: GETs see the state at the
+    window start; mutations apply in (participant, lane) order; an INSERT
+    takes a slot of its writer's node and fails on a present key or a full
+    node."""
+
+    def __init__(self, keys, slots):
+        self.present = np.zeros(keys + 1, dtype=bool)
+        self.value = np.zeros((keys + 1, W), dtype=np.int32)
+        self.home = np.zeros(keys + 1, dtype=np.int64)
+        self.free = np.full(P, slots, dtype=np.int64)
+
+    def window(self, ops, keys, vals):
+        """Expected (GET values, found) of one (P, B) window."""
+        flat_k = keys.reshape(-1).astype(np.int64)
+        exp_found = np.zeros(P * B, dtype=bool)
+        exp_val = np.zeros((P * B, W), dtype=np.int32)
+        is_get = ops.reshape(-1) == GET
+        exp_found[is_get] = self.present[flat_k[is_get]]
+        exp_val[is_get] = np.where(exp_found[is_get, None],
+                                   self.value[flat_k[is_get]], 0)
+        flat_v = vals.reshape(-1, W)
+        for n in np.flatnonzero(~is_get & (ops.reshape(-1) != NOP)):
+            op, k, p = ops.reshape(-1)[n], flat_k[n], n // B
+            if op == INSERT:
+                ok = not self.present[k] and self.free[p] > 0
+                if ok:
+                    self.present[k], self.home[k] = True, p
+                    self.free[p] -= 1
+            else:
+                ok = bool(self.present[k])
+                if ok and op == DELETE:
+                    self.present[k] = False
+                    self.free[self.home[k]] += 1
+            if ok and op in (INSERT, UPDATE):
+                self.value[k] = flat_v[n]
+            exp_found[n] = ok
+        return exp_val.reshape(P, B, W), exp_found.reshape(P, B)
+
+
+def zipf_sampler(rng):
+    ranks = np.arange(1, KEYS + 1, dtype=np.float64)
+    cdf = np.cumsum(1.0 / ranks ** ZIPF_THETA)
+    cdf /= cdf[-1]
+    scramble = rng.permutation(KEYS) + 1          # rank → key
+    return lambda n: scramble[np.minimum(np.searchsorted(cdf, rng.random(n)),
+                                         KEYS - 1)].astype(np.uint32)
+
+
+def mixed_window(rng, w):
+    """The examples/kvstore_app.py mix: 60/20/10/10 GET/UPDATE/INSERT/DELETE
+    over P·B distinct uniform keys."""
+    span = P * B
+    ks = rng.choice(KEYS, size=span, replace=False).astype(np.uint32) + 1
+    ops = rng.choice([GET, UPDATE, INSERT, DELETE], size=span,
+                     p=[.6, .2, .1, .1]).astype(np.int32)
+    vals = np.stack([ks.astype(np.int32) * 5 + w,
+                     np.full(span, w, np.int32)], 1)
+    return ops.reshape(P, B), ks.reshape(P, B), vals.reshape(P, B, W)
+
+
+def zipf_window(zipf, rng, w):
+    """YCSB-B: 95/5 GET/UPDATE over zipf keys, duplicates allowed."""
+    span = P * B
+    ks = zipf(span)
+    ops = np.where(rng.random(span) < 0.95, GET, UPDATE).astype(np.int32)
+    vals = np.stack([ks.astype(np.int32) * 7 + w,
+                     np.full(span, -w, np.int32)], 1)
+    return ops.reshape(P, B), ks.reshape(P, B), vals.reshape(P, B, W)
+
+
+def profiled_windows(torch, kv, st, oracle, windows, label):
+    """Run ``windows`` under torch.profiler: the device's busy share of the
+    wall time (kernels, copies and fills on the card), the host reads
+    (``item``/``bool``, ``nonzero``) per window and the busiest device
+    operations.  Every window is oracle-checked."""
+    from torch.profiler import ProfilerActivity, profile
+    results = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for ops, ks, vals in windows:
+            st, res = kv.op_window(st, ops, ks, vals)
+            results.append(res)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    for i, ((ops, ks, vals), res) in enumerate(zip(windows, results)):
+        verify(res, oracle.window(ops, ks, vals), f"profiled {label} {i}")
+    device_us, by_name, host_reads = 0.0, {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            device_us += us
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
+        elif e.name in ("aten::_local_scalar_dense", "aten::nonzero"):
+            host_reads[e.name] = host_reads.get(e.name, 0) + 1
+    n = len(windows)
+    top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:6]
+    out = dict(windows=n, wall_ms_per_window=wall_us / n / 1e3,
+               device_busy_share=(device_us / wall_us) if device_us else None,
+               host_reads_per_window={k: v / n for k, v in host_reads.items()},
+               top_device_ms_per_window={k[:60]: v / n / 1e3 for k, v in top})
+    log(f"  profile ({label}): {json.dumps(out)}")
+    return st, out
+
+
+def timed_window(torch, kv, st, ops, keys, vals):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, res = kv.op_window(st, ops, keys, vals)
+    torch.cuda.synchronize()
+    return st, res, time.perf_counter() - t0
+
+
+def verify(res, exp, what):
+    exp_val, exp_found = exp
+    found = res.found.cpu().numpy()
+    check(np.array_equal(found, exp_found),
+          f"{what}: {int((found != exp_found).sum())} lanes' found differ "
+          f"from the oracle")
+    check(np.array_equal(res.value.cpu().numpy(), exp_val),
+          f"{what}: GET values differ from the oracle")
+
+
+def phase_main_path(torch, pt, rdma, slots):
+    mgr = pt.make_manager(P, backend="pallas")
+    kv = pt.KVStore(None, "kv", mgr, slots_per_node=slots, value_width=W,
+                    num_locks=4096, index_capacity=4 * KEYS)
+    st = kv.init_state()
+    torch.cuda.synchronize()
+    log(f"  store: P={P} K={KEYS} slots/node={slots} index={4 * KEYS} "
+        f"locks=4096 window={B}/participant; device memory "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
+    rng = np.random.default_rng(SEED + 2)
+    oracle = Oracle(KEYS, slots)
+    span = P * B
+    n_fill = int(KEYS * FILL)
+    fill_keys = np.arange(1, n_fill + 1, dtype=np.uint32)
+    for k in rdma.KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- prefill: 80% of K through INSERT windows
+    t_fill = 0.0
+    n_windows = 0
+    for i in range(0, n_fill, span):
+        chunk = fill_keys[i:i + span]
+        ops = np.full(span, NOP, np.int32)
+        ks = np.ones(span, np.uint32)
+        vals = np.zeros((span, W), np.int32)
+        ops[:chunk.size] = INSERT
+        ks[:chunk.size] = chunk
+        vals[:chunk.size, 0] = chunk.astype(np.int32) * 3
+        ops, ks, vals = ops.reshape(P, B), ks.reshape(P, B), \
+            vals.reshape(P, B, W)
+        st, res, dt = timed_window(torch, kv, st, ops, ks, vals)
+        t_fill += dt
+        n_windows += 1
+        verify(res, oracle.window(ops, ks, vals),
+               f"prefill window {i // span}")
+    check(int(oracle.present.sum()) == n_fill, "prefill lost keys")
+    log(f"  prefill: {n_fill} inserts in {n_windows} windows, oracle-checked")
+
+    # -- the examples/kvstore_app.py mix over distinct uniform keys
+    mix_t = []
+    for w in range(MIX_WINDOWS):
+        ops, ks, vals = mixed_window(rng, w)
+        st, res, dt = timed_window(torch, kv, st, ops, ks, vals)
+        mix_t.append(dt)
+        verify(res, oracle.window(ops, ks, vals), f"mixed window {w}")
+    log(f"  {MIX_WINDOWS} mixed windows oracle-checked")
+
+    # -- YCSB-B: 95/5 GET/UPDATE over zipf keys, duplicates allowed
+    zipf = zipf_sampler(rng)
+    zipf_t = []
+    for w in range(ZIPF_WINDOWS):
+        ops, ks, vals = zipf_window(zipf, rng, w)
+        st, res, dt = timed_window(torch, kv, st, ops, ks, vals)
+        zipf_t.append(dt)
+        verify(res, oracle.window(ops, ks, vals), f"zipf window {w}")
+    log(f"  {ZIPF_WINDOWS} zipf windows oracle-checked")
+
+    # -- where a window's time goes: two more windows of each mix under
+    # the profiler (untimed above, oracle-checked like the rest)
+    profiles = {}
+    for label, gen in [("mixed", lambda w: mixed_window(rng, w)),
+                       ("zipf", lambda w: zipf_window(zipf, rng, w))]:
+        st, profiles[label] = profiled_windows(
+            torch, kv, st, oracle, [gen(100 + w) for w in range(2)], label)
+
+    # -- a final read of random keys through get_batch
+    probe = rng.integers(1, KEYS + 1, size=(P, B)).astype(np.uint32)
+    _st, values, found = kv.get_batch(st, probe)
+    exp_found = oracle.present[probe.astype(np.int64)]
+    check(np.array_equal(found.cpu().numpy(), exp_found),
+          "get_batch found differs from the oracle")
+    check(np.array_equal(values.cpu().numpy(),
+                         np.where(exp_found[..., None],
+                                  oracle.value[probe.astype(np.int64)], 0)),
+          "get_batch values differ from the oracle")
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in rdma.KERNELS}
+    log(f"  get_batch of {P * B} random keys oracle-checked")
+    peak = torch.cuda.max_memory_allocated()
+    return dict(
+        prefill_ops=n_fill, prefill_windows=n_windows, prefill_s=t_fill,
+        prefill_ops_per_s=n_fill / t_fill,
+        mix_window_p50_ms=float(np.percentile(mix_t, 50)) * 1e3,
+        mix_window_p99_ms=float(np.percentile(mix_t, 99)) * 1e3,
+        mix_ops_per_s=span * len(mix_t) / float(np.sum(mix_t)),
+        zipf_window_p50_ms=float(np.percentile(zipf_t, 50)) * 1e3,
+        zipf_window_p99_ms=float(np.percentile(zipf_t, 99)) * 1e3,
+        zipf_ops_per_s=span * len(zipf_t) / float(np.sum(zipf_t)),
+        peak_device_gib=peak / 2 ** 30, profile=profiles), launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: per-kernel numbers
+# ---------------------------------------------------------------------------
+
+def kernel_bytes(name, args, kw):
+    """Least bytes the function must move on these inputs: each input read
+    once and each output written once, counting only the rows this data
+    needs (served rows of a gather, committed rows of a scatter)."""
+    if name == "build_descriptors":
+        n = args[0].numel()
+        return 4 * n * 4 + n * 32 + P * 4
+    if name == "gather_rows":
+        buf, idx, mask = args
+        row = buf.shape[2] * buf.element_size()
+        lanes = idx.numel()
+        served = int((mask != 0).sum())
+        return lanes * 8 + served * row + lanes * row + P * 4
+    buf, idx, vals, apply, wire = args
+    row = buf.shape[2] * buf.element_size()
+    lanes = idx.numel()
+    # the function returns a new buffer: read the old one, write the new
+    return 2 * buf.numel() * buf.element_size() + lanes * 12 \
+        + int((apply != 0).sum()) * row + P * 4
+
+
+def phase_report(torch, rdma, cases, errs, launches):
+    rows = []
+    replaces = {"build_descriptors": 94, "gather_rows": 149,
+                "scatter_rows": 209}
+    for name, runs in cases.items():
+        _label, args, kw = runs[0]
+        kern = getattr(rdma, name)
+        ms = cuda_ms(lambda: kern(*args, **kw), 50)
+        plain_ms = cuda_ms(lambda: plain_call(torch, rdma, name, args, kw), 10)
+        nbytes = kernel_bytes(name, args, kw)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/remote_dma.cu",
+            replaces=f"src/repro/kernels/remote_dma.py:{replaces[name]}",
+            launches=launches[name], max_abs_err=errs[name], ms=ms,
+            plain_ms=plain_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes", library_ms=None))
+    return rows
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    src = os.path.join(ROOT, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"chip_smoke: no src/repro_torch beside {__file__}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, src)
+    import repro_torch.core as pt
+    from repro_torch.kernels import _nvcc
+    from repro_torch.kernels import remote_dma as rdma
+    if (NOP, GET, INSERT, UPDATE, DELETE) != (pt.NOP, pt.GET, pt.INSERT,
+                                              pt.UPDATE, pt.DELETE):
+        print("chip_smoke: op codes differ from repro_torch.core's",
+              file=sys.stderr)
+        return 1
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    slots = KEYS // P + 4
+    t0 = time.perf_counter()
+    try:
+        log("phase 1: build")
+        _nvcc.build("remote_dma")
+        for name, out in _nvcc.BUILD_LOGS.items():
+            log(f"  nvcc {name}.cu:\n" + "\n".join(
+                "    " + ln for ln in out.strip().splitlines()))
+        log(f"  built in {time.perf_counter() - t0:.1f} s")
+        log("phase 2: kernels against their plain versions")
+        cases, errs = phase_kernels(torch, rdma, slots)
+        log("phase 3: the same windows on cuda and cpu")
+        phase_parity(torch, pt)
+        log("phase 4: main path")
+        t4 = time.perf_counter()
+        metrics, launches = phase_main_path(torch, pt, rdma, slots)
+        log(f"  main path took {time.perf_counter() - t4:.1f} s")
+        for name, n in launches.items():
+            check(n > 0, f"{name} was not launched on the main path")
+        log("phase 5: report")
+        kernels = phase_report(torch, rdma, cases, errs, launches)
+    except SmokeFailure as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        return 1
+    log(json.dumps(dict(metrics=metrics, card=card, total_s=time.perf_counter()
+                        - t0)))
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

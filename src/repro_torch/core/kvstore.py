@@ -1,0 +1,636 @@
+"""KVStore channel — the paper's linearizable key-value store (§6, App. C),
+the counterpart of ``repro/core/kvstore.py``.
+
+Composition, as in the reference: values and their consistency metadata live
+in a :class:`SharedRegion` striped across participants, each row
+``[payload | counter | valid | checksum]``; every participant keeps a local
+open-addressing hash index key → (node, slot, counter) in device memory;
+insertions, deletions and updates take ticket locks ``key % NUM_LOCKS``;
+index updates travel as tracker records applied by every participant and
+acknowledged through an SST; lookups take no locks and validate the row they
+read by checksum, counter and valid bit.
+
+:meth:`KVStore.op_window` runs a ``(P, B)`` window of mixed
+NOP/GET/INSERT/UPDATE/DELETE lanes in one round-set: GETs linearize at the
+window start; mutations linearize in per-lock FIFO order, which is
+(participant, window slot) lexicographic; each service round serves every
+lock queue's longest conflict-free prefix, so the round count is the
+per-lock conflict depth.
+
+This slice ports the locked, writer-local window path (``lockfree=False``,
+``placement="local"``, ``cache_slots=0``, ``track_heat=False``) on the
+scheduled implementation; the constructor refuses the other knobs.  The
+port's stacked form puts the participant dimension first on every tensor.
+Where every participant computes the same quantity from gathered data —
+the schedule masks, the tracker records' order — it is computed once for
+all of them.  The reference's data-dependent ``lax.while_loop``s (service
+rounds, tracker waves, GET retries) become Python loops keyed on one host
+read each.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import colls
+from .ack import AckKey, join
+from .backends import get_backend
+from .cache import ReadCache, ReadCacheState, hash_u32
+from .channel import Channel
+from .hottracker import HotTracker, HotTrackerState
+from .lock import TicketLockArray, TicketLockArrayState
+from .ownedvar import checksum
+from .region import SharedRegion, SharedRegionState
+from .runtime import Manager, resolve_device
+from .sst import SST, SSTState
+from .u32 import MASK32, as_u32, i2u, u2i
+
+# op codes (MOVE re-homes a live row — the §10 migration lane)
+NOP, GET, INSERT, UPDATE, DELETE, MOVE = 0, 1, 2, 3, 4, 5
+
+# placement policies (DESIGN.md §10.1): who hosts an INSERTed row
+PLACEMENTS = ("local", "hashed", "explicit")
+
+# local-index slot states (DESIGN.md §7) and the (C, 5) int32 index row
+# [state | key_bits | node | slot | ctr_bits]
+_EMPTY, _USED, _TOMB = 0, 1, 2
+IDX_STATE, IDX_KEY, IDX_NODE, IDX_SLOT, IDX_CTR = range(5)
+MAX_GET_RETRIES = 3
+DEFAULT_MAX_PROBE = 32
+
+
+class KVResult(NamedTuple):
+    value: torch.Tensor    # (P, B, W) int32 payload (zeros when not found)
+    found: torch.Tensor    # (P, B) bool — GET: key present; mods: succeeded
+    retries: torch.Tensor  # (P, B) int32 — GET checksum retries (0 clean)
+
+
+class KVStoreState(NamedTuple):
+    locks: TicketLockArrayState
+    rows: SharedRegionState    # (P, S, W+3) int32: payload|ctr|valid|csum
+    slot_ctr: torch.Tensor     # (P, S) uint32 — per-slot reuse counters
+    free_stack: torch.Tensor   # (P, S) int32 — host-local free slots
+    free_top: torch.Tensor     # (P,) int32
+    idx: torch.Tensor          # (P, C, 5) int32 local hash index
+    idx_overflow: torch.Tensor  # (P,) bool — a probe window ran out of space
+    acks: SSTState             # tracker ack counters
+    cache: ReadCacheState      # read tier (zero-line in this slice)
+    heat: HotTrackerState      # read-heat tier (zero-row in this slice)
+
+
+def _first_true(mask):
+    """Index of the first True along the last dimension (0 if none)."""
+    return mask.to(torch.uint8).argmax(-1)
+
+
+def _tensor(x, dtype, device):
+    """A tensor, array or nested list as a ``dtype`` tensor on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x))
+    return x.to(device=device, dtype=dtype)
+
+
+def _take(t, i):
+    """``t[..., i[...]]`` along the last dimension."""
+    return t.gather(-1, i[..., None])[..., 0]
+
+
+class KVStore(Channel):
+    def __init__(self, parent, name: str, mgr: Manager, *,
+                 slots_per_node: int, value_width: int = 2,
+                 num_locks: int = 8, index_capacity: int | None = None,
+                 index_max_probe: int | None = None,
+                 cache_slots: int = 0, coalesce_reads: bool = True,
+                 placement: str = "local", track_heat: bool = False,
+                 heat_decay: float = 0.9, lockfree: bool = False,
+                 reference_impl: bool = False, backend=None):
+        if placement not in PLACEMENTS:
+            raise ValueError(f"placement must be one of {PLACEMENTS}, "
+                             f"got {placement!r}")
+        later = {"cache_slots > 0": cache_slots,
+                 f"placement={placement!r}": placement != "local",
+                 "track_heat=True": track_heat, "lockfree=True": lockfree,
+                 "reference_impl=True": reference_impl}
+        missing = [k for k, on in later.items() if on]
+        if missing:
+            raise NotImplementedError(
+                f"{', '.join(missing)}: the port runs the locked "
+                f"writer-local window path only so far")
+        super().__init__(parent, name, mgr)
+        self.backend = get_backend(backend, default=mgr.backend)
+        self.S = int(slots_per_node)
+        self.W = int(value_width)
+        self.L = int(num_locks)
+        self.C = int(index_capacity or (self.S * self.P * 2))
+        self.PROBE = min(self.C, int(index_max_probe or DEFAULT_MAX_PROBE))
+        self.coalesce_reads = bool(coalesce_reads)
+        self.locks = TicketLockArray(self, "locks", mgr, num_locks=self.L)
+        self.rows_region = SharedRegion(self, "data", mgr, slots=self.S,
+                                        item_shape=(self.W + 3,),
+                                        dtype=torch.int32,
+                                        backend=self.backend)
+        self.acks = SST(self, "tracker_acks", mgr)
+        # the local index is private memory, accounted like a process heap
+        self.declare_region("index", (self.C, 5), torch.int32)
+
+    # -- row encoding ------------------------------------------------------------
+    def encode_row(self, payload, ctr, valid):
+        """(..., W) int32 payload, (...) uint32 ctr, valid → (..., W+3)
+        int32 rows ``[payload | ctr | valid | checksum]``."""
+        ctr = torch.as_tensor(ctr, device=self.device)
+        valid = torch.as_tensor(valid, device=self.device).expand(ctr.shape)
+        body = torch.cat([torch.as_tensor(payload, device=self.device)
+                          .to(torch.int32).reshape(ctr.shape + (self.W,)),
+                          u2i(ctr)[..., None],
+                          valid.to(torch.int32)[..., None]], dim=-1)
+        return torch.cat([body, u2i(checksum(body))[..., None]], dim=-1)
+
+    def decode_row(self, row):
+        """(..., W+3) rows → (payload, ctr, valid, checksum_ok)."""
+        payload = row[..., :self.W]
+        ctr = i2u(row[..., self.W])
+        valid = row[..., self.W + 1] != 0
+        csum_ok = checksum(row[..., :self.W + 2]) == i2u(row[..., self.W + 2])
+        return payload, ctr, valid, csum_ok
+
+    # -- state ----------------------------------------------------------------
+    def init_state(self) -> KVStoreState:
+        P, dev = self.P, self.device
+        return KVStoreState(
+            locks=self.locks.init_state(),
+            rows=self.rows_region.init_state(),
+            slot_ctr=torch.zeros((P, self.S), dtype=torch.int64, device=dev),
+            free_stack=torch.arange(self.S, dtype=torch.int32, device=dev)
+            .expand(P, self.S).clone(),
+            free_top=torch.full((P,), self.S, dtype=torch.int32, device=dev),
+            idx=torch.zeros((P, self.C, 5), dtype=torch.int32, device=dev),
+            idx_overflow=torch.zeros((P,), dtype=torch.bool, device=dev),
+            acks=self.acks.init_state(),
+            cache=ReadCache.empty_state(P, self.W + 3, dev),
+            heat=HotTracker.empty_state(P, dev))
+
+    def _lanes_in(self, ops, keys, values=None):
+        """Caller's (P, B) window → device tensors of the store's types."""
+        ops = _tensor(ops, torch.int32, self.device)
+        B = ops.shape[1]
+        keys = as_u32(keys, self.device).reshape(self.P, B)
+        if values is None:
+            return ops, keys
+        values = _tensor(values, torch.int32, self.device)
+        return ops, keys, values.reshape(self.P, B, self.W)
+
+    # -- local index (open-addressing hash table, DESIGN.md §7) ------------------
+    def _probe_window(self, key):
+        """Probe positions for ``key`` (any shape): the PROBE-length linear
+        window starting at ``hash(key) % C``, wrapping.  (..., PROBE)."""
+        h = hash_u32(key) % self.C
+        return (h[..., None] + torch.arange(self.PROBE, device=key.device)) \
+            % self.C
+
+    def _probe(self, idx, keys):
+        """One bounded linear-probe pass for (P, B) ``keys`` over each
+        participant's (C, 5) index → (has_match, match_pos, has_free,
+        free_pos), each (P, B).
+
+        A *match* is a USED position holding the key with no EMPTY position
+        before it in the window (tombstones do not end a chain); a *free*
+        position is EMPTY or tombstone, and an insert takes the first one."""
+        pos_w = self._probe_window(keys)                         # (P, B, PROBE)
+        homes = torch.arange(self.P, device=idx.device)[:, None, None]
+        w = idx[homes, pos_w]                                    # (P, B, PROBE, 5)
+        states = w[..., IDX_STATE]
+        emp = (states == _EMPTY).to(torch.int64)
+        before_empty = (emp.cumsum(-1) - emp) == 0
+        match = before_empty & (states == _USED) \
+            & (w[..., IDX_KEY] == u2i(keys)[..., None])
+        free = (states == _EMPTY) | (states == _TOMB)
+        return (match.any(-1), _take(pos_w, _first_true(match)),
+                free.any(-1), _take(pos_w, _first_true(free)))
+
+    def _index_lookup(self, st: KVStoreState, keys):
+        """(P, B) keys → (found, pos, node, slot, ctr); a missing key reports
+        position 0, as the reference does."""
+        found, mpos, _hf, _fp = self._probe(st.idx, keys)
+        pos = torch.where(found, mpos, torch.zeros_like(mpos))
+        homes = torch.arange(self.P, device=pos.device)[:, None]
+        row = st.idx[homes, pos]                                 # (P, B, 5)
+        return (found, pos, row[..., IDX_NODE], row[..., IDX_SLOT],
+                i2u(row[..., IDX_CTR]))
+
+    # -- lock-free GETs (paper Fig. 3 read path) -------------------------------------
+    def _get_window(self, st: KVStoreState, keys, pred, look=None):
+        """(P, B) lock-free GETs → (values (P, B, W), found (P, B), tries,
+        state).  Without the read tier this is the uncached path, and the
+        state comes back unchanged."""
+        values, found, tries = self._get_window_reference(st, keys, pred,
+                                                          look=look)
+        return values, found, tries, st
+
+    def _get_window_reference(self, st: KVStoreState, keys, pred, look=None):
+        """The uncached read path (Fig. 3 / §7): every live GET lane pays the
+        one-sided read, the Appendix C case analysis is applied per lane, and
+        the whole window re-reads while any lane anywhere read a torn row
+        (at most :data:`MAX_GET_RETRIES` times).  Returns (values, found,
+        tries)."""
+        if look is None:
+            found_idx, _pos, node, slot, ctr = self._index_lookup(st, keys)
+        else:
+            found_idx, node, slot, ctr = look
+        live = pred & found_idx
+
+        def read_all():
+            rows = self.backend.read_batch(
+                st.rows.buf, node.to(torch.int32), slot.to(torch.int32),
+                preds=live, ledger=self.mgr.traffic,
+                verb=f"{self.full_name}.get_batch",
+                coalesce=self.coalesce_reads)                    # (P, B, W+3)
+            return self.decode_row(rows)
+
+        payload, row_ctr, valid, csum_ok = read_all()
+        tries = 0
+        while tries < MAX_GET_RETRIES and bool((live & ~csum_ok).any()):
+            payload, row_ctr, valid, csum_ok = read_all()
+            tries += 1
+        found = live & csum_ok & (row_ctr == ctr) & valid
+        values = torch.where(found[..., None], payload,
+                             torch.zeros_like(payload))
+        return values, found, tries
+
+    # -- tracker application ----------------------------------------------------------
+    def _apply_tracker_vectorized(self, st: KVStoreState, recs):
+        """Apply the gathered (N, 5) tracker records in record order at every
+        participant: rec = [kind (0/1=ins/2=del/3=move), key_bits, node,
+        slot, ctr_bits], participant-major, so record order IS
+        participant-then-window order.  Returns (state, applied (P, N)).
+
+        Wave-scheduled as in the reference: per wave, a record is eligible
+        when no earlier record of its key is still pending (and no blocked
+        record precedes it); eligible deletes hit distinct USED positions,
+        eligible inserts race for free positions with the earliest record
+        winning, and the losers retry next wave against the updated table.
+        Each wave's winners touch distinct positions and commit in one row
+        scatter.  The records are the same at every participant, so their
+        order and same-key precedence are computed once, by one stable sort
+        — no (N, N) mask.  The waves run while any participant has a pending
+        record; a participant with none is left as it is (nothing is
+        eligible, so nothing is written or retired), which is what the
+        reference's per-participant loop does for it."""
+        P, N = self.P, recs.shape[0]
+        dev = recs.device
+        me = self.my_id()[:, None]
+        kind, key_b, node, slot, ctr_b = recs.unbind(1)
+        key = i2u(key_b)
+        live = kind != 0
+        is_ins, is_del, is_mov = kind == 1, kind == 2, kind == 3
+        is_put = is_ins | is_mov      # records that place a [USED|key|...] row
+        applied = torch.zeros((P, N), dtype=torch.bool, device=dev)
+        if not bool(live.any()):
+            # a dead round (UPDATE/GET only): no wave, and every commit
+            # below would be a no-op
+            return st, applied
+        pending = live[None].expand(P, N).clone()
+        pos_w = self._probe_window(key)[None].expand(P, N, self.PROBE)
+        homes = torch.arange(P, device=dev)[:, None, None]
+        # inserts and move-reinserts place [USED|key|node|slot|ctr] (the
+        # record's new location), deletes [TOMB|0|node|slot|ctr]
+        upd = torch.stack(
+            [torch.where(is_put, _USED, _TOMB).to(torch.int32),
+             torch.where(is_put, key_b, torch.zeros_like(key_b)), node, slot,
+             ctr_b], dim=-1)
+        key_seg = colls.segments(key)
+        idx = st.idx.clone()          # the waves commit into this copy
+        old_node = torch.zeros((P, N), dtype=torch.int32, device=dev)
+        old_slot = torch.zeros((P, N), dtype=torch.int32, device=dev)
+        while bool(pending.any()):
+            blocked = colls.count_before_same(key_seg, pending) > 0
+            elig = pending & ~blocked & ~colls.exclusive_any(blocked)
+            w = idx[homes, pos_w]                                # (P, N, PROBE, 5)
+            states = w[..., IDX_STATE]
+            emp = (states == _EMPTY).to(torch.int64)
+            before_empty = (emp.cumsum(-1) - emp) == 0
+            m = before_empty & (states == _USED) \
+                & (w[..., IDX_KEY] == key_b[None, :, None])
+            free = (states == _EMPTY) | (states == _TOMB)
+            am = _first_true(m)
+            mpos = _take(pos_w, am)
+            fpos = _take(pos_w, _first_true(free))
+            # a MOVE reinserts at its first free-or-own position
+            fpos_m = _take(pos_w, _first_true(free | m))
+            tgt = torch.where(is_ins, fpos, torch.where(is_mov, fpos_m, mpos))
+            valid_tgt = torch.where(is_ins, free.any(-1), m.any(-1))
+            cand = elig & valid_tgt
+            # placement races: the earliest candidate wins, losers retry
+            lost = is_put & (colls.count_before_same(
+                colls.segments(tgt), cand & is_put) > 0)
+            win = cand & ~lost
+            fail = elig & ~valid_tgt \
+                & (is_del | is_mov | ~colls.exclusive_any(pending))
+            mrow = w.gather(2, am[..., None, None].expand(P, N, 1, 5))[:, :, 0]
+            mwin = win & is_mov
+            old_node = torch.where(mwin, mrow[..., IDX_NODE], old_node)
+            old_slot = torch.where(mwin, mrow[..., IDX_SLOT], old_slot)
+            # movers' tombstones first, then everyone's committed rows (a
+            # mover landing in place is tombstoned, then overwritten)
+            tomb = torch.stack(
+                [torch.full_like(mrow[..., 0], _TOMB),
+                 torch.zeros_like(mrow[..., 0]), mrow[..., IDX_NODE],
+                 mrow[..., IDX_SLOT], mrow[..., IDX_CTR]], dim=-1)
+            colls.put_rows_(idx, mpos, tomb, mwin)
+            colls.put_rows_(idx, tgt, upd, win)
+            pending = pending & ~(win | fail)
+            applied = applied | win
+
+        # ---- post-loop commits: slot GC at the hosting node, in record
+        # order (deletes free the record's slot, moves the vacated one)
+        host_free = applied & ((is_del & (node == me))
+                               | (is_mov & (old_node == me)))
+        gc_slot = torch.where(is_mov, old_slot, slot)
+        hf = host_free.to(torch.int64)
+        back = (st.free_top[:, None] + hf.cumsum(1) - hf).clamp(0, self.S - 1)
+        # §10.2 self-invalidation: the old home bumps the vacated slot's
+        # reuse counter
+        bump = applied & is_mov & (old_node == me)
+        st = st._replace(
+            idx=idx,
+            idx_overflow=st.idx_overflow | (live & is_ins & ~applied).any(1),
+            free_stack=colls.put_rows(st.free_stack, back, gc_slot,
+                                      host_free),
+            free_top=(st.free_top + hf.sum(1)).to(torch.int32),
+            slot_ctr=colls.put_rows(st.slot_ctr, old_slot, 1, bump,
+                                    accumulate=True) & MASK32)
+        return st, applied
+
+    # -- the precomputed service schedule ---------------------------------------------
+    def _service_schedule(self, op, key, lock_id, ticket, want):
+        """Each lane's service round, computed once per window from the
+        gathered lane metadata: (round_no (P, B) int32 — 0 for lanes that
+        take no lock, write_winner (P, B) bool — False for an UPDATE whose
+        row write a later same-key UPDATE in the same round supersedes).
+        The gathered metadata is the same at every participant, so the
+        (P·B)² masks are built once for all of them."""
+        P, B = op.shape
+        g_lock, g_tick = lock_id.reshape(-1), ticket.reshape(-1)
+        g_key, g_op, g_want = key.reshape(-1), op.reshape(-1), want.reshape(-1)
+        queued = g_want[None, :] & (g_lock[None, :] == g_lock[:, None])
+        later = queued & (g_tick[None, :] > g_tick[:, None])     # [i,j]: j>i
+        round_all, winner_all = self._schedule_core(g_key, g_op, g_want,
+                                                    queued, later)
+        return round_all.reshape(P, B), winner_all.reshape(P, B)
+
+    @staticmethod
+    def _schedule_core(g_key, g_op, g_want, queued, later):
+        """The schedule arithmetic over all N = P·B gathered lanes.
+
+        Two lanes on one lock conflict and serialize in ticket order when
+        they share a key and are not both UPDATEs, or when an allocating
+        lane (INSERT, MOVE) queues behind a freeing one (DELETE, MOVE).  A
+        lane is *bad* when it conflicts with an earlier lane of its queue;
+        its round is 1 + the number of bad lanes at or before it.
+        ``queued[i, j]``: lane j wants lane i's lock; ``later`` ⊆ ``queued``.
+        Returns (round_all (N,) int32, winner_all (N,) bool)."""
+        N = g_key.shape[0]
+        eye = torch.eye(N, dtype=torch.bool, device=g_key.device)
+        at_or_before = queued & ~later
+        before = at_or_before & ~eye
+        both_upd = (g_op[:, None] == UPDATE) & (g_op[None, :] == UPDATE)
+        alloc_i = (g_op[:, None] == INSERT) | (g_op[:, None] == MOVE)
+        free_j = (g_op[None, :] == DELETE) | (g_op[None, :] == MOVE)
+        same_key = g_key[None, :] == g_key[:, None]
+        conflict = (same_key & ~both_upd) | (alloc_i & free_j)
+        bad = (before & conflict).any(1)
+        round_all = torch.where(
+            g_want, 1 + (at_or_before & bad[None, :]).sum(1),
+            torch.zeros((), dtype=torch.int64, device=g_key.device)
+        ).to(torch.int32)
+        same_round = round_all[None, :] == round_all[:, None]
+        superseded = both_upd & same_key & same_round & later
+        return round_all, ~superseded.any(1)
+
+    # -- one service round over the whole (P, B) window ---------------------------------
+    def _service_window(self, st: KVStoreState, op, key, value, pending,
+                        look, serve, write_winner):
+        """One service round: every pending lane the schedule serves this
+        round (``serve``) executes — the writer-local branch of the
+        reference.  Concurrent mutations hold distinct locks, hence act on
+        distinct keys and live slots, which makes the batched allocation,
+        the (P·B, 5) tracker sweep and the single batched write race-free.
+
+        ``look`` is each lane's (found, node, slot, ctr) view of the index;
+        it is refreshed from this round's applied records and returned for
+        the next round.  Returns (state, pending, holding, success, look)."""
+        P, B = op.shape
+        S = self.S
+        ar = torch.arange(P, device=op.device)
+        me = ar[:, None]
+        holding = pending & serve
+        found, node, slot, ctr = look
+        do_ins = holding & (op == INSERT) & ~found
+        do_upd = holding & (op == UPDATE) & found
+        do_del = holding & (op == DELETE) & found
+
+        # ---- INSERT phase 1: allocate local slots, write rows with valid=0.
+        # Insert lane j takes the (rank_j)-th slot from the top of the free
+        # stack; ranks past the stack depth fail (capacity exhaustion).
+        ins = do_ins.to(torch.int32)
+        ins_rank = ins.cumsum(1, dtype=torch.int32) - ins
+        do_ins = do_ins & (ins_rank < st.free_top[:, None])
+        my_slot = st.free_stack.gather(
+            1, (st.free_top[:, None] - 1 - ins_rank).clamp(0, S - 1).long())
+        free_top = (st.free_top - do_ins.sum(1)).to(torch.int32)
+        new_ctr = (st.slot_ctr.gather(1, my_slot.long()) + 1) & MASK32
+        rows_inv = self.rows_region.local_write_batch(
+            st.rows, my_slot, self.encode_row(value, new_ctr, False),
+            preds=do_ins)
+        st = st._replace(
+            rows=rows_inv, free_top=free_top,
+            slot_ctr=colls.put_rows(st.slot_ctr, my_slot, new_ctr, do_ins))
+
+        # ---- tracker broadcast: B records per participant, one sweep
+        kind = torch.where(do_ins, 1, torch.where(do_del, 2, 0))
+        rec = torch.stack(
+            [kind.to(torch.int32), u2i(key),
+             torch.where(do_ins, me, node).to(torch.int32),
+             torch.where(do_ins, my_slot, slot).to(torch.int32),
+             u2i(torch.where(do_ins, new_ctr, ctr))], dim=-1)   # (P, B, 5)
+        recs = rec.reshape(P * B, 5)                 # the gather, participant-major
+        n_recs = (recs[:, 0] != 0).sum()
+        st, applied = self._apply_tracker_vectorized(st, recs)
+        my_applied = applied.reshape(P, P, B)[ar, ar]
+        # acknowledge all applied records through the SST in one push;
+        # inserters require every peer caught up before setting valid
+        acks, _a = self.acks.push_accumulate(st.acks, n_recs)
+        table = self.acks.rows(acks)
+        all_acked = (table >= table[ar, ar][:, None]).all(1)
+        st = st._replace(acks=acks)
+
+        # ---- index overflow: un-indexed inserts fail and return their slots
+        ins_ok = do_ins & my_applied
+        fails = do_ins & ~my_applied
+        f = fails.to(torch.int64)
+        back = (st.free_top[:, None] + f.cumsum(1) - f).clamp(0, S - 1)
+        st = st._replace(
+            free_stack=colls.put_rows(st.free_stack, back, my_slot, fails),
+            free_top=(st.free_top + f.sum(1)).to(torch.int32))
+
+        # ---- UPDATE / DELETE: every row write of the round in ONE batched
+        # one-sided write; superseded same-key UPDATEs are masked out, so
+        # the batch is collision-free
+        row_upd = self.encode_row(value, ctr, True)
+        row_del = self.encode_row(torch.zeros_like(value), ctr, False)
+        rows2, _ = self.rows_region.write_batch(
+            st.rows, node, slot, torch.where(do_upd[..., None], row_upd,
+                                             row_del),
+            preds=(do_upd & write_winner) | do_del, assume_unique=True)
+        st = st._replace(rows=rows2)
+
+        # ---- INSERT phase 2: mark valid after every peer acknowledged
+        gate = join(AckKey([acks]), ins_ok & all_acked[:, None])
+        st = st._replace(rows=self.rows_region.local_write_batch(
+            st.rows, my_slot, self.encode_row(value, new_ctr, True),
+            preds=gate))
+
+        # ---- refresh the per-lane index view from this round's records
+        # (each live key is in at most one record)
+        rec_key = i2u(recs[:, 1])
+        same = rec_key[None, None, :] == key[:, :, None]         # (P, B, N)
+        m_ins = (applied & (recs[:, 0] == 1))[:, None, :] & same
+        hit_ins = m_ins.any(2)
+        hit_del = ((applied & (recs[:, 0] == 2))[:, None, :] & same).any(2)
+        r = recs[_first_true(m_ins)]                             # (P, B, 5)
+        look = (hit_ins | (found & ~hit_del),
+                torch.where(hit_ins, r[..., 2], node),
+                torch.where(hit_ins, r[..., 3], slot),
+                torch.where(hit_ins, i2u(r[..., 4]), ctr))
+        success = ins_ok | do_upd | do_del
+        return st, pending & ~holding, holding, success, look
+
+    # -- windows --------------------------------------------------------------------
+    def op_window(self, st: KVStoreState, ops, keys, values):
+        """Every participant submits a window of mixed operations; the whole
+        (P, B) window executes in one round-set.  Service rounds run until
+        every mutation completed.  Returns (state, KVResult).
+
+        ops (P, B) int in {NOP, GET, INSERT, UPDATE, DELETE, MOVE}; keys
+        (P, B) uint32 (nonzero); values (P, B, W) int32.  MOVE lanes need
+        the placed path, which this slice lacks: they take their lock and
+        complete as failures with no effect, as on the reference's
+        writer-local path."""
+        ops, keys, values = self._lanes_in(ops, keys, values)
+        P, B = ops.shape
+        lock_id = (keys % self.L).to(torch.int32)
+        want_lock = (ops == INSERT) | (ops == UPDATE) | (ops == DELETE) \
+            | (ops == MOVE)
+        # one index probe for the whole window; the service rounds keep the
+        # per-lane view current from the tracker records
+        found0, _pos, node0, slot0, ctr0 = self._index_lookup(st, keys)
+        look = (found0, node0, slot0, ctr0)
+
+        lstate, ticket = self.locks.acquire_window(st.locks, lock_id,
+                                                   want_lock)
+        # every acquired ticket completes within this window, so the
+        # end-of-window release bumps now_serving by the acquire totals
+        lock_totals = (lstate.next_ticket - st.locks.next_ticket) & MASK32
+        st = st._replace(locks=lstate)
+
+        # lock-free GETs against the pre-window state
+        get_val, get_found, retries, st = self._get_window(
+            st, keys, ops == GET, look=look)
+
+        round_no, write_winner = self._service_schedule(
+            ops, keys, lock_id, ticket, want_lock)
+        pending = want_lock
+        succ = torch.zeros_like(want_lock)
+        # the reference loops while any lane anywhere is pending; every
+        # wanting lane is served in its scheduled round, so that is exactly
+        # max(round_no) rounds
+        for r in range(1, int(round_no.max()) + 1):
+            st, pending, _held, s_now, look = self._service_window(
+                st, ops, keys, values, pending, look, serve=round_no == r,
+                write_winner=write_winner)
+            succ = succ | s_now
+
+        # deferred batched release, after every critical-section effect
+        # (program order is the release fence, §5.4)
+        st = st._replace(locks=st.locks._replace(
+            now_serving=(st.locks.now_serving + lock_totals) & MASK32))
+        is_get = ops == GET
+        return st, KVResult(
+            value=torch.where(is_get[..., None], get_val,
+                              torch.zeros_like(get_val)),
+            found=torch.where(is_get, get_found, succ),
+            retries=torch.full((P, B), retries, dtype=torch.int32,
+                               device=ops.device))
+
+    def op_round(self, st: KVStoreState, op, key, value):
+        """Every participant submits one operation: the B=1 window.
+        op (P,), key (P,), value (P, W) → (state, KVResult of (P,) lanes)."""
+        st, res = self.op_window(
+            st, _tensor(op, torch.int32, self.device).reshape(self.P, 1),
+            as_u32(key, self.device).reshape(self.P, 1),
+            _tensor(value, torch.int32, self.device).reshape(self.P, 1,
+                                                              self.W))
+        return st, KVResult(value=res.value[:, 0], found=res.found[:, 0],
+                            retries=res.retries[:, 0])
+
+    def get_batch(self, st: KVStoreState, keys, pred=None):
+        """R lock-free GETs per participant in one collective round.
+        keys (P, R) uint32; ``pred`` optional (P, R) bool lane mask.
+        Returns (state, values (P, R, W), found (P, R))."""
+        keys = as_u32(keys, self.device)
+        if pred is None:
+            pred = torch.ones(keys.shape, dtype=torch.bool, device=self.device)
+        else:
+            pred = torch.as_tensor(pred, device=self.device)
+        values, found, _tries, st = self._get_window(st, keys, pred)
+        return st, values, found
+
+
+# ---------------------------------------------------------------------------
+# state exchange with numpy (the JAX package's state, leaf for leaf)
+# ---------------------------------------------------------------------------
+
+_NESTED = {"locks": TicketLockArrayState, "rows": SharedRegionState,
+           "acks": SSTState, "cache": ReadCacheState,
+           "heat": HotTrackerState}
+
+
+def _leaf_in(a, device):
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _leaf_out(t):
+    a = t.detach().cpu().numpy()
+    if a.dtype == np.int64:      # the port's uint32 holders
+        a = (a & MASK32).astype(np.uint32)
+    return a
+
+
+def _map_state(fn, state):
+    out = {}
+    for name in KVStoreState._fields:
+        leaf = getattr(state, name)
+        if name in _NESTED:
+            cls = _NESTED[name]
+            out[name] = cls(*(fn(getattr(leaf, f)) for f in cls._fields))
+        else:
+            out[name] = fn(leaf)
+    return KVStoreState(**out)
+
+
+def state_from_numpy(np_state, device=None) -> KVStoreState:
+    """A KVStore state whose leaves are numpy arrays — the JAX package's
+    ``KVStoreState`` after ``jax.tree.map(np.asarray, ...)`` or the output
+    of :func:`state_to_numpy` — as the port's state on ``device``."""
+    dev = resolve_device(device)
+    return _map_state(lambda a: _leaf_in(a, dev), np_state)
+
+
+def state_to_numpy(state: KVStoreState) -> KVStoreState:
+    """The port's state with numpy leaves of the JAX state's dtypes (uint32
+    where the reference has uint32, bool where it has bool)."""
+    return _map_state(_leaf_out, state)

@@ -1,0 +1,76 @@
+"""Build-at-first-use for the port's CUDA sources (plain C interface, ctypes).
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
+``kernels/build/lib<name>-<hash>.so``, where the hash covers the source and
+the flags, so an edited source rebuilds and an unchanged one loads from the
+build directory.  A build writes to a temporary name and renames it into
+place, so concurrent processes never load a half-written library.
+:func:`build` starts one ``nvcc`` per source, all at once, and waits for all.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent / "build"
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: nvcc's output (``-Xptxas -v``: registers, shared memory, spills) per
+#: library built by this process.
+BUILD_LOGS: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.access(os.path.join(cand, "bin", "nvcc"), os.X_OK):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    return BUILD / f"lib{name}-{digest}.so"
+
+
+def build(*names: str) -> dict[str, Path]:
+    """Compile every named source whose library is missing, in parallel."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    paths = {n: _lib_path(n) for n in names}
+    todo = {n: p for n, p in paths.items() if not p.exists()}
+    procs = {}
+    try:
+        for n, p in todo.items():
+            tmp = p.with_name(f"{p.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        tmp)
+        for n, (proc, tmp) in procs.items():
+            out, _ = proc.communicate()
+            BUILD_LOGS[n] = out
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {n}.cu:\n{out}")
+            os.replace(tmp, paths[n])
+    finally:
+        for proc, tmp in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """A ctypes handle of ``csrc/<name>.cu``'s library, built if needed."""
+    return ctypes.CDLL(str(build(name)[name]))

@@ -1,0 +1,244 @@
+"""Remote-DMA kernels of the colls verb layer (DESIGN.md §15), for Hopper.
+
+The counterpart of ``repro/kernels/remote_dma.py``.  A requester builds
+fixed-width transfer *descriptors* (the NIC work-queue-entry analogue), the
+home serves or commits the described rows, and every kernel **counts the
+bytes it moves** from the same masks that drive its copies.
+
+Every function works on the port's stacked tensors: a leading participant
+dimension P, so one launch covers all P requesters or homes.  On a CUDA
+tensor a wrapper launches its hand-written kernel from
+``csrc/remote_dma.cu`` (built with ``nvcc`` for ``sm_90a`` at first use) or
+raises; on a CPU tensor it runs the kernel's plain PyTorch version below,
+which the CPU tests hold against the JAX package.  Each wrapper counts its
+kernel launches in ``<wrapper>.launches``.
+
+Descriptor layout (8 × int32 = :data:`DESC_BYTES` bytes)::
+
+    word 0  op        1 = read, 2 = write
+    word 1  target    home participant id
+    word 2  index     row within the home's buffer
+    word 3  enabled   lane rides the wire iff != 0
+    word 4  length    row payload bytes
+    word 5  seq       lane sequence number (application order)
+    word 6-7          reserved (zero)
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _nvcc
+
+#: int32 words per transfer descriptor.
+DESC_WORDS = 8
+#: Bytes of one remote-DMA descriptor on the wire.
+DESC_BYTES = DESC_WORDS * 4
+
+OP_READ = 1
+OP_WRITE = 2
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "rdma_build_descriptors": [_P] * 6 + [_I] * 4 + [_P],
+    "rdma_gather_rows": [_P] * 5 + [_I] * 5 + [_P],
+    "rdma_scatter_rows": [_P] * 7 + [_I] * 5 + [_P],
+}
+_lib_handle = None
+
+
+def _lib():
+    global _lib_handle
+    if _lib_handle is None:
+        lib = _nvcc.load("remote_dma")
+        for fn, argtypes in _SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.rdma_error_string.argtypes = [ctypes.c_int]
+        lib.rdma_error_string.restype = ctypes.c_char_p
+        _lib_handle = lib
+    return _lib_handle
+
+
+def _on_card(*tensors) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors (the
+    plain version); anything else, or a mix, is refused."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(f"remote-DMA kernels take tensors on one CUDA device or "
+                     f"on the CPU, got {sorted(str(t.device) for t in tensors)}")
+
+
+def _check(code: int):
+    if code != 0:
+        msg = _lib().rdma_error_string(code).decode()
+        raise RuntimeError(f"remote-DMA kernel launch failed: {msg} ({code})")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _words(x):
+    """The int32 bit pattern of a 4-byte tensor (the kernels move words)."""
+    if x.element_size() != 4:
+        raise TypeError(f"the CUDA kernels move 4-byte words, got {x.dtype}")
+    return x.contiguous().view(torch.int32)
+
+
+def _i32(x):
+    return x.to(torch.int32).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# descriptor build (requester side)
+# ---------------------------------------------------------------------------
+
+def _build_desc_ref(targets, indices, en, wire, op, row_nbytes):
+    P, R = targets.shape
+    desc = torch.zeros((P, R, DESC_WORDS), dtype=torch.int32,
+                       device=targets.device)
+    desc[..., 0] = op
+    desc[..., 1] = targets
+    desc[..., 2] = indices
+    desc[..., 3] = (en != 0).to(torch.int32)
+    desc[..., 4] = row_nbytes
+    desc[..., 5] = torch.arange(R, dtype=torch.int32, device=targets.device)
+    nb = (wire != 0).sum(1, dtype=torch.int32) * DESC_BYTES
+    return desc, nb
+
+
+def build_descriptors(targets, indices, en, *, wire=None, op=OP_READ,
+                      row_nbytes=0):
+    """(P, R) request lanes → ((P, R, :data:`DESC_WORDS`) int32 descriptors,
+    (P,) int32 measured descriptor bytes: :data:`DESC_BYTES` per ``wire``
+    lane; ``wire`` defaults to ``en``).
+
+    Replaces the Pallas kernel ``build_descriptors`` of
+    ``repro/kernels/remote_dma.py``.  Bound by device-memory bytes
+    (~48 B per lane), so in practice by launch latency."""
+    targets, indices, en = _i32(targets), _i32(indices), _i32(en)
+    wire = en if wire is None else _i32(wire)
+    if not _on_card(targets, indices, en, wire):
+        return _build_desc_ref(targets, indices, en, wire, int(op),
+                               int(row_nbytes))
+    P, R = targets.shape
+    desc = torch.empty((P, R, DESC_WORDS), dtype=torch.int32,
+                       device=targets.device)
+    nb = torch.zeros((P,), dtype=torch.int32, device=targets.device)
+    _check(_lib().rdma_build_descriptors(
+        targets.data_ptr(), indices.data_ptr(), en.data_ptr(),
+        wire.data_ptr(), desc.data_ptr(), nb.data_ptr(), P, R, int(op),
+        int(row_nbytes), _stream(targets)))
+    build_descriptors.launches += 1
+    return desc, nb
+
+
+build_descriptors.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# row serve (home side, reads)
+# ---------------------------------------------------------------------------
+
+def _gather_ref(buf, indices, mask, row_nbytes):
+    homes = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    m = mask != 0
+    rows = torch.where(m[..., None], buf[homes, indices.long()],
+                       torch.zeros((), dtype=buf.dtype, device=buf.device))
+    return rows, m.sum(1, dtype=torch.int32) * row_nbytes
+
+
+def gather_rows(buf, indices, mask):
+    """Serve N described rows at every home: lane i of home p receives
+    ``buf[p, indices[p, i]]`` iff ``mask[p, i]`` (zeros otherwise), plus the
+    (P,) int32 measured payload bytes — one row width per served lane.
+    ``buf``: (P, slots, width); ``indices`` (P, N), pre-clipped to range.
+
+    Replaces the Pallas kernel ``gather_rows`` of
+    ``repro/kernels/remote_dma.py``.  Bound by device-memory bytes (the
+    (P, N, width) output dominates), so in practice by launch latency."""
+    indices, mask = _i32(indices), _i32(mask)
+    row_nbytes = int(buf.shape[2]) * buf.element_size()
+    if not _on_card(buf, indices, mask):
+        return _gather_ref(buf, indices, mask, row_nbytes)
+    P, slots, width = buf.shape
+    N = indices.shape[1]
+    words = _words(buf)
+    out = torch.empty((P, N, width), dtype=torch.int32, device=buf.device)
+    nb = torch.zeros((P,), dtype=torch.int32, device=buf.device)
+    _check(_lib().rdma_gather_rows(
+        words.data_ptr(), indices.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        nb.data_ptr(), P, slots, N, width, row_nbytes, _stream(buf)))
+    gather_rows.launches += 1
+    return out.view(buf.dtype), nb
+
+
+gather_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# row commit (home side, writes)
+# ---------------------------------------------------------------------------
+
+def _scatter_ref(buf, indices, values, apply_mask, wire_mask, row_nbytes):
+    P, slots = buf.shape[:2]
+    n = indices.shape[1]
+    # sequential in-order application == last-writer-wins, computed as a
+    # winner mask so one scatter commits the surviving rows
+    win = apply_mask != 0
+    order = torch.arange(n, device=buf.device)
+    later_same = (indices[:, None, :] == indices[:, :, None]) \
+        & win[:, None, :] & (order[None, :] > order[:, None])[None]
+    win = win & ~later_same.any(2)
+    out = buf.clone()
+    homes = torch.arange(P, device=buf.device)[:, None].expand(P, n)
+    out[homes[win], indices.long()[win]] = values[win]
+    return out, (wire_mask != 0).sum(1, dtype=torch.int32) * row_nbytes
+
+
+def scatter_rows(buf, indices, values, apply_mask, wire_mask):
+    """Commit N described rows into every home's buffer **in lane order**:
+    lane i of home p stores ``values[p, i]`` at ``indices[p, i]`` iff
+    ``apply_mask[p, i]``, and among lanes on one row the last one wins.
+    Measured payload bytes count ``wire_mask`` lanes.  ``buf``
+    (P, slots, width) is not modified; returns (new buf, (P,) int32 bytes).
+
+    Replaces the Pallas kernel ``scatter_rows`` of
+    ``repro/kernels/remote_dma.py``, whose sequential loop made the last
+    lane win.  GPU threads commit in no order, so the kernel elects each
+    row's winner first (atomic max of the lane id), then only the winner
+    stores.  Bound by device-memory bytes: the copy of ``buf`` that keeps
+    the call functional moves far more than the committed rows."""
+    indices, apply_mask, wire_mask = (_i32(indices), _i32(apply_mask),
+                                      _i32(wire_mask))
+    row_nbytes = int(buf.shape[2]) * buf.element_size()
+    if not _on_card(buf, indices, values, apply_mask, wire_mask):
+        return _scatter_ref(buf, indices, values, apply_mask, wire_mask,
+                            row_nbytes)
+    P, slots, width = buf.shape
+    N = indices.shape[1]
+    if values.dtype != buf.dtype or values.shape != (P, N, width):
+        raise ValueError(f"values must be {buf.dtype} of shape "
+                         f"{(P, N, width)}, got {values.dtype} "
+                         f"{tuple(values.shape)}")
+    out = _words(buf).clone()
+    vals = _words(values)
+    winner = torch.full((P, slots), -1, dtype=torch.int32, device=buf.device)
+    nb = torch.zeros((P,), dtype=torch.int32, device=buf.device)
+    _check(_lib().rdma_scatter_rows(
+        indices.data_ptr(), apply_mask.data_ptr(), wire_mask.data_ptr(),
+        vals.data_ptr(), winner.data_ptr(), out.data_ptr(), nb.data_ptr(),
+        P, slots, N, width, row_nbytes, _stream(buf)))
+    scatter_rows.launches += 1
+    return out.view(buf.dtype), nb
+
+
+scatter_rows.launches = 0
+
+KERNELS = (build_descriptors, gather_rows, scatter_rows)
