@@ -9,21 +9,35 @@ toolkit:
 It imports neither JAX nor the JAX package.  Phases, in order; any failure
 exits non-zero and prints no result:
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
-2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes — outputs and measured bytes bitwise equal, scatter
-   collisions included;
-3. run a P=4 store through the same 20 windows on the card and on the CPU:
-   states and results bitwise equal after every window;
-4. drive the main path — ``KVStore.op_window`` on the remote-DMA backend —
-   at a deployment's size: P=8 participants, K=2**22 keys, 8-byte values,
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
+   one process per source, all at once;
+2. hold each kernel against its plain PyTorch version on the card: the
+   remote-DMA kernels at the KVStore path's shapes (outputs and measured
+   bytes bitwise equal, scatter collisions included), the attention kernels
+   at the serving path's full-width shapes and at odd ones (float32 within
+   2e-5, bfloat16 within 2e-2 of the float32 plain result on the same
+   inputs);
+3. run the same work on the card and on the CPU: a P=4 store through 20
+   windows (states and results bitwise equal after every window) and the
+   smoke llama3.2-3b ServingEngine in float32 with one set of weights
+   (equal tokens, bitwise equal page-table state);
+4. the KVStore path — ``KVStore.op_window`` on the remote-DMA backend — at a
+   deployment's size: P=8 participants, K=2**22 keys, 8-byte values,
    windows of 512 lanes per participant; prefill 80% of K, then 20 windows
    of 60/20/10/10 GET/UPDATE/INSERT/DELETE over distinct uniform keys and
    20 windows of 95/5 GET/UPDATE over zipf(0.99) keys; every GET and every
    ``found`` is checked against a numpy oracle of the window semantics;
-5. report the end-to-end numbers, each kernel's launches on the main path,
-   its time beside its plain version's and its bound, the card's name and
-   power limit, and last the result line.
+5. the serving path — ``ServingEngine.generate`` on llama3.2-3b at its full
+   published width (28 layers, d=3072, bf16, random weights drawn on the
+   card from a seeded generator): 8 requests of 512 prompt tokens, 32
+   generated tokens each, batches of 4; page-table, locality and logit
+   checks;
+6. report the end-to-end numbers of both paths, each kernel's launches on
+   its path, its time beside its plain version's, one PyTorch call's and
+   its bound, the card's name and power limit, and last the result line.
+
+Kernel launch counts are set to 0 just before each path and read just after
+it, so the checks of phase 2 and 3 and the timings of phase 6 count nowhere.
 """
 from __future__ import annotations
 
@@ -51,6 +65,16 @@ ZIPF_WINDOWS = 20
 ZIPF_THETA = 0.99
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12              # H100 SXM float32 peak outside the tensor cores
+
+# the serving path's configuration
+SERVE_ARCH = "llama3.2-3b"
+SERVE_REQUESTS = 8
+SERVE_PROMPT = 512
+SERVE_GEN = 32
+SERVE_BATCH = 4
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 class SmokeFailure(Exception):
@@ -178,6 +202,88 @@ def phase_kernels(torch, rdma, slots):
     return cases, errs
 
 
+def attention_cases(torch):
+    """(label, args, kw) per attention case: the serving path's full-width
+    shapes (llama3.2-3b: 24 query heads, 8 kv heads, head_dim 128; prefill
+    of 4 prompts of 512 tokens, decode against a 544-slot cache) in bf16 and
+    float32, then odd shapes and masks."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def rn(shape, dt):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    def lens(values):
+        return torch.tensor(values, dtype=torch.int32, device="cuda")
+
+    flash, decode = [], []
+    Bf, Hq, Hkv, D = SERVE_BATCH, 24, 8, 128
+    for label, (B, hq, hkv, sq, sk, d), kw in [
+            ("full width", (Bf, Hq, Hkv, SERVE_PROMPT, SERVE_PROMPT, D),
+             dict(causal=True)),
+            ("offset causal", (2, 6, 2, 100, 300, D), dict(causal=True)),
+            ("window", (2, 8, 4, 200, 200, 64), dict(causal=True, window=48)),
+            ("padded Sk", (1, 4, 2, 130, 130, D), dict(causal=True)),
+            ("Sq not a tile multiple", (3, 4, 4, 77, 77, 16),
+             dict(causal=False)),
+            ("rows with no key", (1, 2, 1, 16, 8, 8), dict(causal=True))]:
+        for dt in (torch.bfloat16, torch.float32):
+            flash.append((f"{label} {str(dt)[6:]}",
+                          (rn((B, hq, sq, d), dt), rn((B, hkv, sk, d), dt),
+                           rn((B, hkv, sk, d), dt)), kw))
+    S = SERVE_PROMPT + SERVE_GEN
+    for label, (B, hq, hkv, s, d), ln in [
+            ("full width", (Bf, Hq, Hkv, S, D), [0, 1, S, 300]),
+            ("smoke shapes", (2, 4, 2, 48, 12), [48, 5]),
+            ("group of 16", (3, 16, 1, 100, 64), [100, 63, 64])]:
+        for dt in (torch.bfloat16, torch.float32):
+            decode.append((f"{label} {str(dt)[6:]}",
+                           (rn((B, hq, d), dt), rn((B, hkv, s, d), dt),
+                            rn((B, hkv, s, d), dt), lens(ln)), {}))
+    return {"flash_attention": flash, "decode_attention": decode}
+
+
+def attention_plain(name, args, kw):
+    """The kernel's plain PyTorch version, in float32, on the same (card)
+    inputs."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    if name == "flash_attention":
+        q, k, v = (t.float() for t in args)
+        offset = fa._padded(k.shape[2]) - fa._padded(q.shape[2])
+        return ref.mha(q, k, v, offset=offset, **kw)
+    q, kc, vc, ln = args
+    return ref.decode_attention(q.float(), kc.float(), vc.float(), ln)
+
+
+def phase_attention_kernels(torch, kernels):
+    cases = attention_cases(torch)
+    errs = {}
+    for name, runs in cases.items():
+        kern = kernels[name]
+        errs[name] = 0.0
+        for label, args, kw in runs:
+            before = kern.launches
+            got = kern(*args, **kw)
+            torch.cuda.synchronize()
+            check(kern.launches == before + 1, f"{name} did not launch")
+            check(got.dtype == args[0].dtype and got.shape == args[0].shape,
+                  f"{name} ({label}): {got.dtype} {tuple(got.shape)}")
+            exp = attention_plain(name, args, kw)
+            e = float((got.float() - exp).abs().max())
+            tol = ATTN_TOL[str(got.dtype)[6:]]
+            check(e <= tol, f"{name} ({label}) differs from its plain "
+                            f"version: max abs err {e} > {tol}")
+            if label.startswith("rows with no key"):
+                check(not got[:, :, :8].any(), f"{name} ({label}): rows "
+                                               f"with no visible key not 0")
+            if name == "decode_attention":
+                check(not got[args[3] == 0].any(),
+                      f"{name} ({label}): length-0 rows not zero")
+            errs[name] = max(errs[name], e)
+            log(f"  {name} [{label}]: max abs err {e:.3g} (tolerance {tol})")
+    return cases, errs
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the same windows on the card and on the CPU
 # ---------------------------------------------------------------------------
@@ -217,6 +323,47 @@ def phase_parity(torch, pt):
     log(f"  20 windows bitwise equal on cuda and cpu (free slots left per "
         f"participant: {st.free_top.tolist()}, index overflow: "
         f"{st.idx_overflow.tolist()})")
+
+
+def phase_serving_parity(torch, pt):
+    """The smoke llama3.2-3b engine of the CPU tests, float32, one set of
+    weights: generated tokens equal and the page-table state bitwise equal
+    on the card and on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+    cfg = get_smoke_config(SERVE_ARCH).replace(dtype="float32")
+    params = build_model(cfg).init(torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(1, cfg.vocab, size=(12,)).astype(np.int32)
+               for _ in range(4)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = ServingEngine(cfg, max_batch=2, max_seq=48, device=dev,
+                            params=tree_to(params, dev))
+        out[dev] = (eng.generate(prompts, gen_len=4),
+                    pt.state_to_numpy(eng._kv_state), eng.stats())
+    check(out["cuda"][0] == out["cpu"][0],
+          f"smoke engine tokens differ: cuda {out['cuda'][0]} vs cpu "
+          f"{out['cpu'][0]}")
+    for name in pt.KVStoreState._fields:
+        a, b = getattr(out["cuda"][1], name), getattr(out["cpu"][1], name)
+        for x, y in zip(a if isinstance(a, tuple) else [a],
+                        b if isinstance(b, tuple) else [b]):
+            check(x.dtype == y.dtype and np.array_equal(x, y),
+                  f"smoke engine page-table leaf {name} differs cuda vs cpu")
+    check(out["cuda"][2]["kv_ops"] == out["cpu"][2]["kv_ops"],
+          "smoke engine kv_ops differ")
+    log(f"  smoke engine: tokens {out['cuda'][0]} equal on cuda and cpu, "
+        f"page table bitwise equal, kv_ops {out['cuda'][2]['kv_ops']}")
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -349,6 +496,8 @@ def verify(res, exp, what):
 
 
 def phase_main_path(torch, pt, rdma, slots):
+    """The KVStore path: returns its metrics and the remote-DMA kernels'
+    launches, counted from 0 over this path alone."""
     mgr = pt.make_manager(P, backend="pallas")
     kv = pt.KVStore(None, "kv", mgr, slots_per_node=slots, value_width=W,
                     num_locks=4096, index_capacity=4 * KEYS)
@@ -441,7 +590,156 @@ def phase_main_path(torch, pt, rdma, slots):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: per-kernel numbers
+# phase 5: the serving path at full width
+# ---------------------------------------------------------------------------
+
+class ServeProbe:
+    """Wraps a ServingEngine's prefill, decode step and page lookups: host
+    clock around each call (synchronised), finite-logit checks, the
+    lookups' ``found`` lanes, and ``torch.profiler`` over one decode round
+    (its page lookups and its decode step)."""
+
+    def __init__(self, torch, eng, profile_round):
+        self.torch = torch
+        self.prefill_s, self.decode_s, self.reads_s = [], [], []
+        self.finite, self.found = [], []
+        self.rounds = 0
+        self.profile_round = profile_round
+        self.prof = None
+        self.busy = None
+        p, d, r = eng._prefill, eng._decode, eng._kv_reads
+        eng._prefill = lambda *a: self._timed(p, self.prefill_s, a)
+        eng._decode = lambda *a: self._decode(d, a)
+        eng._kv_reads = lambda keys: self._reads(r, keys)
+
+    def _timed(self, fn, sink, args):
+        torch = self.torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        sink.append(time.perf_counter() - t0)
+        self.finite.append(bool(torch.isfinite(out[0]).all()))
+        return out
+
+    def _reads(self, fn, keys):
+        self.rounds += 1
+        if self.rounds == self.profile_round:
+            from torch.profiler import ProfilerActivity, profile
+            self.torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(keys)
+        self.reads_s.append(time.perf_counter() - t0)
+        self.found += [bool(f) for f, _v in res]
+        return res
+
+    def _decode(self, fn, args):
+        out = self._timed(fn, self.decode_s, args)
+        if self.prof is not None and self.busy is None:
+            self.torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - self.t0) * 1e6
+            self.prof.__exit__(None, None, None)
+            cuda = self.torch.autograd.DeviceType.CUDA
+            device_us, dev_by, host_by = 0.0, {}, {}
+            for e in self.prof.events():
+                if e.device_type == cuda:
+                    us = e.time_range.elapsed_us()
+                    device_us += us
+                    dev_by[e.name[:50]] = dev_by.get(e.name[:50], 0.0) + us
+            for e in self.prof.key_averages():
+                if e.self_cpu_time_total > 0:
+                    host_by[e.key[:50]] = (e.count,
+                                           e.self_cpu_time_total / 1e3)
+            self.busy = dict(
+                wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
+                device_busy_share=device_us / wall_us,
+                top_device_ms={k: v / 1e3 for k, v in sorted(
+                    dev_by.items(), key=lambda kv: -kv[1])[:6]},
+                top_host_ops_count_ms=dict(sorted(
+                    host_by.items(), key=lambda kv: -kv[1][1])[:8]))
+        return out
+
+
+def phase_serving(torch, kernels):
+    from repro_torch.configs import get_config
+    from repro_torch.core.kvstore import DELETE, GET, INSERT
+    from repro_torch.serving import ServingEngine
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, max_batch=SERVE_BATCH,
+                        max_seq=SERVE_PROMPT + SERVE_GEN)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(eng.params))
+    log(f"  {SERVE_ARCH}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.dtype}, {n_params:,} "
+        f"parameters drawn on the card in {time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(1, cfg.vocab, size=(SERVE_PROMPT,))
+               .astype(np.int32) for _ in range(SERVE_REQUESTS)]
+    probe = ServeProbe(torch, eng, profile_round=10)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, gen_len=SERVE_GEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    stats = eng.stats()
+    check(len(outs) == SERVE_REQUESTS
+          and all(len(o) == SERVE_GEN for o in outs), "wrong output shape")
+    check(all(0 <= t < cfg.vocab for o in outs for t in o),
+          "a token lies outside the vocabulary")
+    check(all(probe.finite), "a logit is not finite")
+    check(stats["kv_ops"][INSERT] == stats["kv_ops"][DELETE],
+          f"kv_ops INSERT != DELETE: {stats['kv_ops']}")
+    check(stats["kv_ops"][GET] == SERVE_REQUESTS * SERVE_GEN
+          and len(probe.found) == SERVE_REQUESTS * SERVE_GEN
+          and all(probe.found), "a decode page lookup was not found")
+    check(stats["locality"]["local_fraction"] == 1.0,
+          f"local fraction {stats['locality']['local_fraction']}")
+    check(probe.busy is not None, "the decode round was not profiled")
+    n_prefill_tok = SERVE_REQUESTS * SERVE_PROMPT
+    n_decode_tok = len(probe.decode_s) * SERVE_BATCH
+    log(f"  {SERVE_REQUESTS} requests x {SERVE_GEN} tokens in {wall:.2f} s; "
+        f"kv_ops {stats['kv_ops']}, locality "
+        f"{stats['locality']['local_fraction']}, all {len(probe.found)} "
+        f"decode page lookups found, every logit finite; "
+        f"launches {launches}")
+    metrics = dict(
+        arch=SERVE_ARCH, dtype=cfg.dtype, params=n_params,
+        requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT, gen_len=SERVE_GEN,
+        max_batch=SERVE_BATCH, generate_s=wall,
+        tokens_per_s=SERVE_REQUESTS * SERVE_GEN / wall,
+        prefill_calls=len(probe.prefill_s),
+        prefill_tokens_per_s=n_prefill_tok / sum(probe.prefill_s),
+        prefill_ms_per_call=1e3 * float(np.mean(probe.prefill_s)),
+        decode_steps=len(probe.decode_s),
+        decode_tokens_per_s=n_decode_tok / sum(probe.decode_s),
+        decode_step_p50_ms=1e3 * float(np.percentile(probe.decode_s, 50)),
+        decode_step_p99_ms=1e3 * float(np.percentile(probe.decode_s, 99)),
+        page_lookup_p50_ms=1e3 * float(np.percentile(probe.reads_s, 50)),
+        peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        decode_round_profile=probe.busy,
+        read_cache=stats["read_cache"], locality=stats["locality"])
+    return metrics, launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+# ---------------------------------------------------------------------------
+# phase 6: per-kernel numbers
 # ---------------------------------------------------------------------------
 
 def kernel_bytes(name, args, kw):
@@ -485,6 +783,65 @@ def phase_report(torch, rdma, cases, errs, launches):
     return rows
 
 
+def attention_report(torch, kernels, errs, launches):
+    """Per-call times at the serving path's shapes, in bf16: the prefill's
+    causal attention over 4 prompts of 512 tokens, and a decode step at the
+    middle of the path (every cache holding 528 positions of 544).  The
+    library yardstick is one ``scaled_dot_product_attention`` call (with a
+    length mask for decode); the port never calls it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    B, Hq, Hkv, D, S = SERVE_BATCH, 24, 8, 128, SERVE_PROMPT
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v = rn(B, Hq, S, D), rn(B, Hkv, S, D), rn(B, Hkv, S, D)
+    fa = kernels["flash_attention"]
+    pairs = B * Hq * S * (S + 1) // 2          # visible (query, key) pairs
+    flops = 4 * D * pairs
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    flash = dict(
+        ms=cuda_ms(lambda: fa(q, k, v, causal=True), 50),
+        plain_ms=cuda_ms(lambda: ref.mha(q, k, v, causal=True), 10),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 50),
+        flops=flops, nbytes=nbytes)
+
+    Smax, L = SERVE_PROMPT + SERVE_GEN, SERVE_PROMPT + SERVE_GEN // 2
+    qd, kc, vc = rn(B, Hq, D), rn(B, Hkv, Smax, D), rn(B, Hkv, Smax, D)
+    lens = torch.full((B,), L, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(Smax, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    da = kernels["decode_attention"]
+    decode = dict(
+        ms=cuda_ms(lambda: da(qd, kc, vc, lens), 200),
+        plain_ms=cuda_ms(lambda: ref.decode_attention(qd, kc, vc, lens), 20),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True), 200),
+        flops=4 * Hq * D * B * L,
+        nbytes=2 * (2 * B * Hkv * L * D + 2 * qd.numel()) + 4 * B)
+    rows = []
+    for name, m, line in [("flash_attention", flash, 82),
+                          ("decode_attention", decode, 63)]:
+        t_ops = m["flops"] / BF16_FLOPS * 1e3
+        t_bytes = m["nbytes"] / HBM_BYTES_PER_S * 1e3
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=f"src/repro/kernels/{name}.py:{line}",
+            launches=launches[name], max_abs_err=errs[name], ms=m["ms"],
+            plain_ms=m["plain_ms"], bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops > t_bytes else "bytes",
+            library_ms=m["library_ms"]))
+        log(f"  {name}: {m['ms']:.4f} ms/call, bound {max(t_ops, t_bytes):.4f}"
+            f" ms ({m['flops'] / 1e9:.2f} GFLOP, {m['nbytes'] / 1e6:.2f} MB),"
+            f" plain {m['plain_ms']:.4f} ms, sdpa {m['library_ms']:.4f} ms")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -499,6 +856,10 @@ def main() -> int:
     import repro_torch.core as pt
     from repro_torch.kernels import _nvcc
     from repro_torch.kernels import remote_dma as rdma
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    attn = {"flash_attention": flash_attention,
+            "decode_attention": decode_attention}
     if (NOP, GET, INSERT, UPDATE, DELETE) != (pt.NOP, pt.GET, pt.INSERT,
                                               pt.UPDATE, pt.DELETE):
         print("chip_smoke: op codes differ from repro_torch.core's",
@@ -506,32 +867,43 @@ def main() -> int:
         return 1
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     slots = KEYS // P + 4
     t0 = time.perf_counter()
     try:
         log("phase 1: build")
-        _nvcc.build("remote_dma")
+        _nvcc.build("remote_dma", "flash_attention", "decode_attention")
         for name, out in _nvcc.BUILD_LOGS.items():
             log(f"  nvcc {name}.cu:\n" + "\n".join(
                 "    " + ln for ln in out.strip().splitlines()))
         log(f"  built in {time.perf_counter() - t0:.1f} s")
         log("phase 2: kernels against their plain versions")
         cases, errs = phase_kernels(torch, rdma, slots)
-        log("phase 3: the same windows on cuda and cpu")
+        _attn_cases, attn_errs = phase_attention_kernels(torch, attn)
+        log("phase 3: the same work on cuda and cpu")
         phase_parity(torch, pt)
-        log("phase 4: main path")
+        phase_serving_parity(torch, pt)
+        log("phase 4: the KVStore path")
         t4 = time.perf_counter()
         metrics, launches = phase_main_path(torch, pt, rdma, slots)
-        log(f"  main path took {time.perf_counter() - t4:.1f} s")
+        log(f"  KVStore path took {time.perf_counter() - t4:.1f} s")
         for name, n in launches.items():
-            check(n > 0, f"{name} was not launched on the main path")
-        log("phase 5: report")
+            check(n > 0, f"{name} was not launched on the KVStore path")
+        log("phase 5: the serving path")
+        t5 = time.perf_counter()
+        serve_metrics, attn_launches = phase_serving(torch, attn)
+        log(f"  serving path took {time.perf_counter() - t5:.1f} s")
+        for name, n in attn_launches.items():
+            check(n > 0, f"{name} was not launched on the serving path")
+        log("phase 6: report")
         kernels = phase_report(torch, rdma, cases, errs, launches)
+        kernels += attention_report(torch, attn, attn_errs, attn_launches)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    log(json.dumps(dict(metrics=metrics, card=card, total_s=time.perf_counter()
-                        - t0)))
+    log(json.dumps(dict(kvstore=metrics, serving=serve_metrics, card=card,
+                        total_s=time.perf_counter() - t0)))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

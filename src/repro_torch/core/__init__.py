@@ -1,13 +1,14 @@
 """LOCO core, ported to PyTorch: the channel-object model on one card.
 
-Public surface of this slice — the KVStore window path and what it is built
-from:
+Public surface so far — the KVStore window path (with its read tier and
+placement policies), the shared queue, and what they are built from:
 
 * runtime/binding: :class:`Runtime`, :class:`Manager`, :func:`make_manager`
 * consistency:     :class:`AckKey`, :class:`FenceScope`, :func:`join`
 * channels:        :class:`SharedRegion`, :class:`OwnedVar`,
                    :class:`AtomicVar`, :class:`SST`,
-                   :class:`TicketLockArray`, :class:`KVStore`
+                   :class:`TicketLockArray`, :class:`KVStore`,
+                   :class:`ReadCache`, :class:`SharedQueue`
 * backends:        :class:`CollsBackend`, :class:`OneSidedBackend`,
                    :class:`ActiveMessageBackend`,
                    :class:`PallasDmaBackend`, :func:`get_backend`
@@ -27,6 +28,7 @@ from .kvstore import (DELETE, GET, INSERT, MOVE, NOP, PLACEMENTS, UPDATE,
 from .lock import (NO_TICKET, TicketLockArray, TicketLockArrayState,
                    window_fifo_ranks)
 from .ownedvar import OwnedVar, OwnedVarState, checksum
+from .queue import SharedQueue, SharedQueueState, queue_state_to_numpy
 from .region import SharedRegion, SharedRegionState
 from .runtime import Manager, Runtime, TrafficLedger, make_manager
 from .sst import SST, SSTState
@@ -41,6 +43,7 @@ __all__ = [
     "state_from_numpy", "state_to_numpy", "NO_TICKET", "TicketLockArray",
     "TicketLockArrayState", "window_fifo_ranks", "OwnedVar",
     "OwnedVarState", "checksum", "hash_u32", "ReadCache", "ReadCacheState",
+    "SharedQueue", "SharedQueueState", "queue_state_to_numpy",
     "SharedRegion", "SharedRegionState", "Manager", "Runtime",
     "TrafficLedger", "make_manager", "SST", "SSTState",
 ]

@@ -17,15 +17,20 @@ window start; mutations linearize in per-lock FIFO order, which is
 lock queue's longest conflict-free prefix, so the round count is the
 per-lock conflict depth.
 
-This slice ports the locked, writer-local window path (``lockfree=False``,
-``placement="local"``, ``cache_slots=0``, ``track_heat=False``) on the
-scheduled implementation; the constructor refuses the other knobs.  The
-port's stacked form puts the participant dimension first on every tensor.
-Where every participant computes the same quantity from gathered data —
-the schedule masks, the tracker records' order — it is computed once for
-all of them.  The reference's data-dependent ``lax.while_loop``s (service
-rounds, tracker waves, GET retries) become Python loops keyed on one host
-read each.
+The port covers the locked window path (``lockfree=False``) on the
+scheduled implementation, with the read tier (``cache_slots > 0``, DESIGN.md
+§8: a counter-validated cache of remote rows in front of the coalesced read,
+kept coherent by invalidations that ride the tracker records) and the
+placement policies (``placement="local" | "hashed" | "explicit"``, §10.1:
+non-local INSERTs allocate at their home through the placed service round's
+request/grant round-trip).  MOVE lanes (§10.2, ``migrate_window``), heat
+tracking, the lock-free fast path and the reference-impl store are refused.
+The port's stacked form puts the participant dimension first on every
+tensor.  Where every participant computes the same quantity from gathered
+data — the schedule masks, the tracker records' order — it is computed once
+for all of them.  The reference's data-dependent ``lax.while_loop``s
+(service rounds, tracker waves, GET retries, the all-hit skip of the cached
+read) become Python loops keyed on one host read each.
 """
 from __future__ import annotations
 
@@ -76,8 +81,8 @@ class KVStoreState(NamedTuple):
     idx: torch.Tensor          # (P, C, 5) int32 local hash index
     idx_overflow: torch.Tensor  # (P,) bool — a probe window ran out of space
     acks: SSTState             # tracker ack counters
-    cache: ReadCacheState      # read tier (zero-line in this slice)
-    heat: HotTrackerState      # read-heat tier (zero-row in this slice)
+    cache: ReadCacheState      # read tier (zero-line when cache_slots == 0)
+    heat: HotTrackerState      # read-heat tier (zero-row: not ported)
 
 
 def _first_true(mask):
@@ -97,6 +102,23 @@ def _take(t, i):
     return t.gather(-1, i[..., None])[..., 0]
 
 
+def _refresh_look(recs, applied, key, look):
+    """A service round's per-lane index view, refreshed from the round's
+    applied tracker records: an applied insert re-points its key, an applied
+    delete clears it (each live key is in at most one record per round)."""
+    found, node, slot, ctr = look
+    rec_key = i2u(recs[:, 1])
+    same = rec_key[None, None, :] == key[:, :, None]             # (P, B, N)
+    m_ins = (applied & (recs[:, 0] == 1))[:, None, :] & same
+    hit_ins = m_ins.any(2)
+    hit_del = ((applied & (recs[:, 0] == 2))[:, None, :] & same).any(2)
+    r = recs[_first_true(m_ins)]                                 # (P, B, 5)
+    return (hit_ins | (found & ~hit_del),
+            torch.where(hit_ins, r[..., 2], node),
+            torch.where(hit_ins, r[..., 3], slot),
+            torch.where(hit_ins, i2u(r[..., 4]), ctr))
+
+
 class KVStore(Channel):
     def __init__(self, parent, name: str, mgr: Manager, *,
                  slots_per_node: int, value_width: int = 2,
@@ -109,15 +131,13 @@ class KVStore(Channel):
         if placement not in PLACEMENTS:
             raise ValueError(f"placement must be one of {PLACEMENTS}, "
                              f"got {placement!r}")
-        later = {"cache_slots > 0": cache_slots,
-                 f"placement={placement!r}": placement != "local",
-                 "track_heat=True": track_heat, "lockfree=True": lockfree,
+        later = {"track_heat=True": track_heat, "lockfree=True": lockfree,
                  "reference_impl=True": reference_impl}
         missing = [k for k, on in later.items() if on]
         if missing:
             raise NotImplementedError(
-                f"{', '.join(missing)}: the port runs the locked "
-                f"writer-local window path only so far")
+                f"{', '.join(missing)}: the port runs the locked window "
+                f"path only so far")
         super().__init__(parent, name, mgr)
         self.backend = get_backend(backend, default=mgr.backend)
         self.S = int(slots_per_node)
@@ -126,6 +146,10 @@ class KVStore(Channel):
         self.C = int(index_capacity or (self.S * self.P * 2))
         self.PROBE = min(self.C, int(index_max_probe or DEFAULT_MAX_PROBE))
         self.coalesce_reads = bool(coalesce_reads)
+        self.placement = placement
+        self.cache = ReadCache(self, "readcache", mgr, lines=cache_slots,
+                               row_width=self.W + 3,
+                               backing_slots=self.S) if cache_slots else None
         self.locks = TicketLockArray(self, "locks", mgr, num_locks=self.L)
         self.rows_region = SharedRegion(self, "data", mgr, slots=self.S,
                                         item_shape=(self.W + 3,),
@@ -168,7 +192,8 @@ class KVStore(Channel):
             idx=torch.zeros((P, self.C, 5), dtype=torch.int32, device=dev),
             idx_overflow=torch.zeros((P,), dtype=torch.bool, device=dev),
             acks=self.acks.init_state(),
-            cache=ReadCache.empty_state(P, self.W + 3, dev),
+            cache=(self.cache.init_state() if self.cache is not None
+                   else ReadCache.empty_state(P, self.W + 3, dev)),
             heat=HotTracker.empty_state(P, dev))
 
     def _lanes_in(self, ops, keys, values=None):
@@ -221,23 +246,29 @@ class KVStore(Channel):
 
     # -- lock-free GETs (paper Fig. 3 read path) -------------------------------------
     def _get_window(self, st: KVStoreState, keys, pred, look=None):
-        """(P, B) lock-free GETs → (values (P, B, W), found (P, B), tries,
-        state).  Without the read tier this is the uncached path, and the
-        state comes back unchanged."""
-        values, found, tries = self._get_window_reference(st, keys, pred,
-                                                          look=look)
-        return values, found, tries, st
+        """(P, B) lock-free GETs through the read tier → (values (P, B, W),
+        found (P, B), tries, state).  A cache-less store runs the uncached
+        path and returns the state unchanged; a cached store returns it
+        with this window's refills."""
+        if look is None:
+            found_idx, _pos, node, slot, ctr = self._index_lookup(st, keys)
+            look = (found_idx, node, slot, ctr)
+        if self.cache is None:
+            values, found, tries = self._get_window_reference(st, keys, pred,
+                                                              look)
+            return values, found, tries, st
+        values, found, tries, cache = self._get_window_cached(st, keys, pred,
+                                                              look)
+        return values, found, tries, st._replace(cache=cache)
 
-    def _get_window_reference(self, st: KVStoreState, keys, pred, look=None):
+    def _get_window_reference(self, st: KVStoreState, keys, pred, look):
         """The uncached read path (Fig. 3 / §7): every live GET lane pays the
         one-sided read, the Appendix C case analysis is applied per lane, and
         the whole window re-reads while any lane anywhere read a torn row
-        (at most :data:`MAX_GET_RETRIES` times).  Returns (values, found,
+        (at most :data:`MAX_GET_RETRIES` times).  ``look`` is the lanes'
+        (found, node, slot, ctr) index view.  Returns (values, found,
         tries)."""
-        if look is None:
-            found_idx, _pos, node, slot, ctr = self._index_lookup(st, keys)
-        else:
-            found_idx, node, slot, ctr = look
+        found_idx, node, slot, ctr = look
         live = pred & found_idx
 
         def read_all():
@@ -257,6 +288,54 @@ class KVStore(Channel):
         values = torch.where(found[..., None], payload,
                              torch.zeros_like(payload))
         return values, found, tries
+
+    def _get_window_cached(self, st: KVStoreState, keys, pred, look):
+        """The cached read path (DESIGN.md §8.2).  A remote lane whose
+        (node, slot) tag-matches a line whose row re-validates — checksum
+        clean, valid bit set, row counter equal to the index's — is served
+        from local memory at zero modeled wire bytes.  Miss lanes take the
+        coalesced one-sided read and refill their lines with the rows they
+        accept (no negative caching); the fetch retries while any lane
+        anywhere read a torn row.  A window with no miss anywhere issues no
+        read at all — the reference's zero-iteration loop, one host read
+        here.  Returns (values, found, tries, cache)."""
+        P, B = keys.shape
+        me = self.my_id()[:, None]
+        found_idx, node, slot, ctr = look
+        node = node.to(torch.int32)
+        slot = slot.to(torch.int32)
+        live = pred & found_idx
+        remote = live & (node != me)
+        crows, tag_hit = self.cache.lookup(st.cache, node, slot)
+        cpay, cctr, cvalid, cok = self.decode_row(crows)
+        hit = remote & tag_hit & cok & (cctr == ctr) & cvalid
+        miss = live & ~hit
+        cache = st.cache
+        payload = torch.zeros((P, B, self.W), dtype=torch.int32,
+                              device=keys.device)
+        row_ctr = torch.zeros((P, B), dtype=torch.int64, device=keys.device)
+        valid = torch.zeros_like(miss)
+        csum_ok = ~miss
+        rounds = 0
+        while rounds < 1 + MAX_GET_RETRIES and bool((miss & ~csum_ok).any()):
+            rows = self.backend.read_batch(
+                st.rows.buf, node, slot, preds=miss, ledger=self.mgr.traffic,
+                verb=f"{self.full_name}.get_batch",
+                coalesce=self.coalesce_reads)                    # (P, B, W+3)
+            payload, row_ctr, valid, ok = self.decode_row(rows)
+            acc = miss & ok & (row_ctr == ctr) & valid & (node != me)
+            cache = self.cache.fill(cache, node, slot, rows, acc)
+            csum_ok = ok | ~miss
+            rounds += 1
+        found_miss = miss & csum_ok & (row_ctr == ctr) & valid
+        found = hit | found_miss
+        zero = torch.zeros_like(payload)
+        values = torch.where(hit[..., None], cpay,
+                             torch.where(found_miss[..., None], payload, zero))
+        if self.mgr.traffic.enabled:
+            self.mgr.traffic.record_cache(f"{self.full_name}.readcache",
+                                          hit.sum(1), remote.sum(1))
+        return values, found, max(rounds - 1, 0), cache
 
     # -- tracker application ----------------------------------------------------------
     def _apply_tracker_vectorized(self, st: KVStoreState, recs):
@@ -455,6 +534,13 @@ class KVStore(Channel):
              torch.where(do_ins, my_slot, slot).to(torch.int32),
              u2i(torch.where(do_ins, new_ctr, ctr))], dim=-1)   # (P, B, 5)
         recs = rec.reshape(P * B, 5)                 # the gather, participant-major
+        if self.cache is not None:
+            # read-tier coherence (§8.3): an UPDATE/DELETE lane's record
+            # names the row it is about to write; every participant drops
+            # its cached copy (INSERTs need none: slot reuse bumps the
+            # counter the hit protocol validates)
+            st = st._replace(cache=self.cache.invalidate(
+                st.cache, recs[:, 2], recs[:, 3], (do_upd | do_del).reshape(-1)))
         n_recs = (recs[:, 0] != 0).sum()
         st, applied = self._apply_tracker_vectorized(st, recs)
         my_applied = applied.reshape(P, P, B)[ar, ar]
@@ -491,37 +577,171 @@ class KVStore(Channel):
             st.rows, my_slot, self.encode_row(value, new_ctr, True),
             preds=gate))
 
-        # ---- refresh the per-lane index view from this round's records
-        # (each live key is in at most one record)
-        rec_key = i2u(recs[:, 1])
-        same = rec_key[None, None, :] == key[:, :, None]         # (P, B, N)
-        m_ins = (applied & (recs[:, 0] == 1))[:, None, :] & same
-        hit_ins = m_ins.any(2)
-        hit_del = ((applied & (recs[:, 0] == 2))[:, None, :] & same).any(2)
-        r = recs[_first_true(m_ins)]                             # (P, B, 5)
-        look = (hit_ins | (found & ~hit_del),
-                torch.where(hit_ins, r[..., 2], node),
-                torch.where(hit_ins, r[..., 3], slot),
-                torch.where(hit_ins, i2u(r[..., 4]), ctr))
         success = ins_ok | do_upd | do_del
-        return st, pending & ~holding, holding, success, look
+        return (st, pending & ~holding, holding, success,
+                _refresh_look(recs, applied, key, look))
+
+    # -- the placed service round (explicit locality tier, DESIGN.md §10) -------
+    def _service_window_placed(self, st: KVStoreState, op, key, value,
+                               pending, look, serve, write_winner, homes,
+                               any_alloc):
+        """One service round under non-local placement: INSERT slots are
+        allocated at each lane's *home* (P, B) through a request/grant
+        round-trip, and the rows travel on the batched one-sided write.
+        Each home grants its requests in global (participant, lane) order
+        from its own free stack, so homes equal to the writers land the
+        writer-local path's slot choices.  The round-trip runs in every
+        round of a window with an allocating lane anywhere (``any_alloc``,
+        from the window's lanes) and in no round of any other window.
+
+        The reference's MOVE pre-read rides the round-trip with no lane
+        enabled (the port refuses MOVE lanes); it is kept because it records
+        the reference's ``move_read`` ledger row.  Returns (state, pending,
+        holding, success, look) as :meth:`_service_window` does."""
+        P, B = op.shape
+        S = self.S
+        ar = torch.arange(P, device=op.device)
+        me = ar[:, None]
+        holding = pending & serve
+        found, node, slot, ctr = look
+        node = node.to(torch.int32)
+        slot = slot.to(torch.int32)
+        do_ins = holding & (op == INSERT) & ~found
+        do_upd = holding & (op == UPDATE) & found
+        do_del = holding & (op == DELETE) & found
+
+        # ---- allocation at the home nodes: one (P·B, 2) request gather,
+        # one (P·B, 3) grant psum
+        N = P * B
+        grant = torch.zeros((P, N), dtype=torch.bool, device=op.device)
+        a_slot = torch.zeros((P, N), dtype=torch.int32, device=op.device)
+        aok = torch.zeros_like(do_ins)
+        my_slot = torch.zeros((P, B), dtype=torch.int32, device=op.device)
+        new_ctr = torch.zeros((P, B), dtype=torch.int64, device=op.device)
+        if any_alloc:
+            self.backend.read_batch(
+                st.rows.buf, node, slot, preds=torch.zeros_like(do_ins),
+                ledger=self.mgr.traffic, verb=f"{self.full_name}.move_read",
+                coalesce=False)
+            g_want, g_home = do_ins.reshape(-1), homes.reshape(-1)
+            mine = g_want[None, :] & (g_home[None, :] == me)       # (P, N)
+            mn = mine.to(torch.int64)
+            rank = mn.cumsum(1) - mn
+            grant = mine & (rank < st.free_top[:, None])
+            a_slot = st.free_stack.gather(
+                1, (st.free_top[:, None] - 1 - rank).clamp(0, S - 1))
+            a_ctr = (st.slot_ctr.gather(1, a_slot.long()) + 1) & MASK32
+            tbl = torch.where(grant[..., None], torch.stack(
+                [torch.ones_like(a_slot), a_slot, u2i(a_ctr)], -1),
+                torch.zeros((), dtype=torch.int32, device=op.device))
+            tbl = tbl.sum(0, dtype=torch.int32).reshape(P, B, 3)   # the psum
+            colls.record_rounds(self.mgr.traffic, f"{self.full_name}.alloc",
+                                self.backend.alloc_rounds)
+            st = st._replace(
+                slot_ctr=colls.put_rows(st.slot_ctr, a_slot, a_ctr, grant),
+                free_top=(st.free_top - grant.sum(1)).to(torch.int32))
+            aok, my_slot, new_ctr = tbl[..., 0] != 0, tbl[..., 1], \
+                i2u(tbl[..., 2])
+        do_ins = do_ins & aok
+
+        # ---- INSERT phase 1: the writer one-sided-writes the invalid row
+        # at its home (a self lane is a local store, zero wire bytes)
+        rows_inv, _ = self.rows_region.write_batch(
+            st.rows, homes, my_slot, self.encode_row(value, new_ctr, False),
+            preds=do_ins, assume_unique=True)
+        st = st._replace(rows=rows_inv)
+
+        # ---- tracker broadcast: kind-1 records name the NEW location
+        kind = torch.where(do_ins, 1, torch.where(do_del, 2, 0))
+        rec = torch.stack(
+            [kind.to(torch.int32), u2i(key),
+             torch.where(do_ins, homes, node).to(torch.int32),
+             torch.where(do_ins, my_slot, slot).to(torch.int32),
+             u2i(torch.where(do_ins, new_ctr, ctr))], dim=-1)    # (P, B, 5)
+        recs = rec.reshape(N, 5)                     # the gather, participant-major
+        if self.cache is not None:
+            # §8.3: invalidate the PRE-mutation location of every mutated
+            # row (the lane's index view)
+            st = st._replace(cache=self.cache.invalidate(
+                st.cache, node.reshape(-1), slot.reshape(-1),
+                (do_upd | do_del).reshape(-1)))
+        n_recs = (recs[:, 0] != 0).sum()
+        st, applied = self._apply_tracker_vectorized(st, recs)
+        my_applied = applied.reshape(P, P, B)[ar, ar]
+        acks, _a = self.acks.push_accumulate(st.acks, n_recs)
+        table = self.acks.rows(acks)
+        all_acked = (table >= table[ar, ar][:, None]).all(1)
+        st = st._replace(acks=acks)
+
+        # ---- failed placements return their slots to the HOME stacks (the
+        # grant table is global, so each home sees its own failures)
+        fail = grant & ~applied
+        f = fail.to(torch.int64)
+        back = (st.free_top[:, None] + f.cumsum(1) - f).clamp(0, S - 1)
+        st = st._replace(
+            free_stack=colls.put_rows(st.free_stack, back, a_slot, fail),
+            free_top=(st.free_top + f.sum(1)).to(torch.int32))
+        ins_ok = do_ins & my_applied
+
+        # ---- the round's one-sided row writes in ONE batched write: UPDATE
+        # winners and DELETE clears, and the ack-gated INSERT valid rows
+        row_upd = self.encode_row(value, ctr, True)
+        row_del = self.encode_row(torch.zeros_like(value), ctr, False)
+        row_ins = self.encode_row(value, new_ctr, True)
+        gate = join(AckKey([acks]), ins_ok & all_acked[:, None])
+        prim = torch.where(do_upd[..., None], row_upd,
+                           torch.where(do_del[..., None], row_del, row_ins))
+        rows2, _ = self.rows_region.write_batch(
+            st.rows, torch.where(do_ins, homes, node),
+            torch.where(do_ins, my_slot, slot), prim,
+            preds=(do_upd & write_winner) | do_del | gate,
+            assume_unique=True)
+        st = st._replace(rows=rows2)
+        success = ins_ok | do_upd | do_del
+        return (st, pending & ~holding, holding, success,
+                _refresh_look(recs, applied, key, look))
+
+    def _lane_homes(self, ops, keys, targets):
+        """(P, B) int32 home nodes under the store's placement policy, or
+        ``None`` for the writer-local path (placement ``"local"`` with no
+        explicit targets).  Targets name homes under ``"explicit"`` only;
+        the reference's other use of them, MOVE destinations, is refused
+        before this point."""
+        if targets is None and self.placement == "local":
+            return None
+        if self.placement == "hashed":
+            return (keys % self.P).to(torch.int32)
+        if self.placement == "explicit":
+            if targets is None:
+                raise ValueError(
+                    "placement='explicit' stores need per-lane targets=")
+            return _tensor(targets, torch.int32, self.device).reshape(
+                ops.shape).clamp(0, self.P - 1)
+        return self.my_id()[:, None].expand(ops.shape).to(torch.int32)
 
     # -- windows --------------------------------------------------------------------
-    def op_window(self, st: KVStoreState, ops, keys, values):
+    def op_window(self, st: KVStoreState, ops, keys, values, targets=None):
         """Every participant submits a window of mixed operations; the whole
         (P, B) window executes in one round-set.  Service rounds run until
         every mutation completed.  Returns (state, KVResult).
 
-        ops (P, B) int in {NOP, GET, INSERT, UPDATE, DELETE, MOVE}; keys
-        (P, B) uint32 (nonzero); values (P, B, W) int32.  MOVE lanes need
-        the placed path, which this slice lacks: they take their lock and
-        complete as failures with no effect, as on the reference's
-        writer-local path."""
+        ops (P, B) int in {NOP, GET, INSERT, UPDATE, DELETE}; keys (P, B)
+        uint32 (nonzero); values (P, B, W) int32.  ``targets`` (P, B) int:
+        per-lane placement hints (§10.1), the home of INSERT lanes under
+        ``placement="explicit"``.  A window holding a MOVE lane raises
+        ``NotImplementedError``: migration (``migrate_window``) is not
+        ported yet."""
         ops, keys, values = self._lanes_in(ops, keys, values)
+        has_move, any_alloc = torch.stack(
+            [(ops == MOVE).any(), (ops == INSERT).any()]).tolist()
+        if has_move:
+            raise NotImplementedError(
+                "MOVE lanes (migrate_window, DESIGN.md §10.2) are not ported "
+                "yet")
+        homes = self._lane_homes(ops, keys, targets)
         P, B = ops.shape
         lock_id = (keys % self.L).to(torch.int32)
-        want_lock = (ops == INSERT) | (ops == UPDATE) | (ops == DELETE) \
-            | (ops == MOVE)
+        want_lock = (ops == INSERT) | (ops == UPDATE) | (ops == DELETE)
         # one index probe for the whole window; the service rounds keep the
         # per-lane view current from the tracker records
         found0, _pos, node0, slot0, ctr0 = self._index_lookup(st, keys)
@@ -546,9 +766,16 @@ class KVStore(Channel):
         # wanting lane is served in its scheduled round, so that is exactly
         # max(round_no) rounds
         for r in range(1, int(round_no.max()) + 1):
-            st, pending, _held, s_now, look = self._service_window(
-                st, ops, keys, values, pending, look, serve=round_no == r,
-                write_winner=write_winner)
+            if homes is None:
+                st, pending, _held, s_now, look = self._service_window(
+                    st, ops, keys, values, pending, look,
+                    serve=round_no == r, write_winner=write_winner)
+            else:
+                st, pending, _held, s_now, look = \
+                    self._service_window_placed(
+                        st, ops, keys, values, pending, look,
+                        serve=round_no == r, write_winner=write_winner,
+                        homes=homes, any_alloc=any_alloc)
             succ = succ | s_now
 
         # deferred batched release, after every critical-section effect

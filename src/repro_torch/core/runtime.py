@@ -54,9 +54,9 @@ class RegionInfo:
 
 
 class TrafficLedger:
-    """Per-verb traffic accounting (DESIGN.md §2.3, §14, §15): modeled wire
-    bytes, modeled collective rounds and the bytes the remote-DMA kernels
-    measure.
+    """Per-verb traffic accounting (DESIGN.md §2.3, §8, §14, §15): modeled
+    wire bytes, modeled collective rounds, read-cache hits and lookups, and
+    the bytes the remote-DMA kernels measure.
 
     A verb reports one (P,) tensor — each participant's bytes — which is
     summed on the device into the verb's running total; nothing is read to
@@ -81,6 +81,7 @@ class TrafficLedger:
         self.counts: Dict[str, Dict[str, Any]] = {}
         self.round_counts: Dict[str, Dict[str, float]] = {}
         self.dma_counts: Dict[str, Dict[str, Any]] = {}
+        self.cache_counts: Dict[str, Dict[str, Any]] = {}
         return self
 
     @staticmethod
@@ -104,6 +105,13 @@ class TrafficLedger:
         per kernel call (§15)."""
         self._add(self.dma_counts, verb, nbytes)
 
+    def record_cache(self, name: str, hits, lookups):
+        """Add read-cache ``hits`` out of ``lookups`` (per-participant
+        tensors, summed on the device) against channel ``name`` (§8)."""
+        e = self.cache_counts.setdefault(name, {"hits": 0.0, "lookups": 0.0})
+        for k, v in (("hits", hits), ("lookups", lookups)):
+            e[k] = e[k] + torch.as_tensor(v).to(torch.float64).sum()
+
     @staticmethod
     def _read(table):
         return {k: {"calls": v["calls"], "bytes": float(v["bytes"])}
@@ -117,6 +125,15 @@ class TrafficLedger:
 
     def dma_summary(self) -> Dict[str, Dict[str, float]]:
         return self._read(self.dma_counts)
+
+    def cache_summary(self) -> Dict[str, Dict[str, float]]:
+        """Per-channel read-tier counters with derived hit rates."""
+        out = {}
+        for k, v in sorted(self.cache_counts.items()):
+            hits, lookups = float(v["hits"]), float(v["lookups"])
+            out[k] = {"hits": hits, "lookups": lookups,
+                      "hit_rate": hits / lookups if lookups else 0.0}
+        return out
 
     def total_bytes(self) -> float:
         return sum(e["bytes"] for e in self.summary().values())

@@ -74,3 +74,53 @@ def build(*names: str) -> dict[str, Path]:
 def load(name: str) -> ctypes.CDLL:
     """A ctypes handle of ``csrc/<name>.cu``'s library, built if needed."""
     return ctypes.CDLL(str(build(name)[name]))
+
+
+class Library:
+    """A CUDA source's library, built and bound at its first call.
+
+    ``signatures`` maps each exported C function to its ctypes argument
+    types; every one returns a ``cudaError_t`` as int, and the library
+    exports ``<error_fn>(int) -> const char*`` to name it."""
+
+    def __init__(self, name: str, signatures: dict, error_fn: str):
+        self.name, self.signatures, self.error_fn = name, signatures, error_fn
+        self._lib = None
+
+    def _handle(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = load(self.name)
+            for fn, argtypes in self.signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            err = getattr(lib, self.error_fn)
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def call(self, fn: str, *args):
+        """Launch ``fn`` and raise if the launch was refused or failed."""
+        code = getattr(self._handle(), fn)(*args)
+        if code != 0:
+            msg = getattr(self._handle(), self.error_fn)(code).decode()
+            raise RuntimeError(f"{self.name} kernel launch failed: {msg} "
+                               f"({code})")
+
+
+def on_card(what: str, *tensors) -> bool:
+    """True for tensors on one CUDA device (launch the kernel), False for
+    CPU tensors (the plain version); anything else, or a mix, is refused."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(f"{what} takes tensors on one CUDA device or on the "
+                     f"CPU, got {sorted(str(t.device) for t in tensors)}")
+
+
+def stream(t) -> int:
+    """The current CUDA stream of ``t``'s device, as a pointer."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,76 @@
+"""Flash-decode for Hopper: one query token per sequence against its KV
+cache, the counterpart of ``repro/kernels/decode_attention.py`` and of its
+wrapper ``repro/kernels/ops.py::decode_attention``.
+
+On a CUDA tensor :func:`decode_attention` launches the hand-written kernel
+of ``csrc/decode_attention.cu`` (built with ``nvcc`` for ``sm_90a`` at first
+use) or raises; on a CPU tensor it runs the kernel's plain PyTorch version,
+:func:`repro_torch.kernels.ref.decode_attention`.
+``decode_attention.launches`` counts kernel launches.
+
+The reference wrapper pads the cache to its key tile; padded positions lie
+past every length, so they change nothing, and the port's kernel stops at
+``lengths[b]`` instead.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _nvcc
+from . import ref
+
+#: Largest head dimension and query-head group (Hq / Hkv) the kernel takes.
+MAX_HEAD_DIM = 128
+MAX_GROUP = 16
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_LIB = _nvcc.Library(
+    "decode_attention",
+    {"decode_attention_fwd": [_I] + [_P] * 5 + [_I] * 5 + [_L] * 6
+     + [ctypes.c_float, _P]},
+    "decode_error_string")
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale=None):
+    """q (B, Hq, D); caches (B, Hkv, S, D); lengths (B,) int — valid cache
+    positions per sequence.  Returns (B, Hq, D) in q's dtype; a sequence of
+    length 0 gets zeros.  Caches may have any strides with a contiguous
+    last dimension."""
+    B, Hq, D = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    if Hq % Hkv or k_cache.shape != v_cache.shape or \
+            k_cache.shape[0] != B or k_cache.shape[3] != D or \
+            tuple(lengths.shape) != (B,):
+        raise ValueError(f"decode_attention: q {tuple(q.shape)}, caches "
+                         f"{tuple(k_cache.shape)} {tuple(v_cache.shape)}, "
+                         f"lengths {tuple(lengths.shape)}")
+    scale = sm_scale if sm_scale is not None else 1.0 / D ** 0.5
+    if not _nvcc.on_card("decode_attention", q, k_cache, v_cache, lengths):
+        return ref.decode_attention(q, k_cache, v_cache, lengths,
+                                    sm_scale=scale)
+    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype or \
+            v_cache.dtype != q.dtype:
+        raise TypeError(f"decode_attention takes float32 or bfloat16 q and "
+                        f"caches of one dtype, got {q.dtype}, "
+                        f"{k_cache.dtype}, {v_cache.dtype}")
+    if D > MAX_HEAD_DIM or Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"decode_attention takes head_dim <= {MAX_HEAD_DIM} "
+                         f"and Hq/Hkv <= {MAX_GROUP}, got {D} and "
+                         f"{Hq // Hkv}")
+    q = q.contiguous()
+    k_cache, v_cache = (t if t.stride(-1) == 1 else t.contiguous()
+                        for t in (k_cache, v_cache))
+    lengths = lengths.to(torch.int32).contiguous()
+    out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
+    _LIB.call("decode_attention_fwd", _DTYPES[q.dtype], q.data_ptr(),
+              k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+              out.data_ptr(), B, Hq, Hkv, S, D, *k_cache.stride()[:3],
+              *v_cache.stride()[:3], float(scale), _nvcc.stream(q))
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -1,0 +1,80 @@
+"""Plain PyTorch versions of the attention kernels, the counterparts of
+``repro/kernels/ref.py``'s ``repeat_kv``, ``mha`` and ``decode_attention``.
+
+They follow the semantics of the reference's **Pallas kernels**
+(``repro/kernels/flash_attention.py``, ``decode_attention.py``), because that
+is what the port's CUDA kernels compute: scores, probabilities and the PV
+product stay in float32, and the result is cast to the query's dtype once.
+CPU tensors take these functions through the kernel wrappers
+(:mod:`.flash_attention`, :mod:`.decode_attention`); ``chip_smoke.py`` calls
+them directly on the card to hold the kernels against them.
+
+One deliberate difference from ``repro.kernels.ref``: a query row with no
+visible key returns **zeros** here, as the Pallas kernels do (their
+``l == 0 → l_safe = 1``), where ``ref.mha`` returns a uniform average of V
+(the softmax of a row of equal ``NEG_INF`` scores).
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, Hkv, S, D) → (B, Hkv·n_rep, S, D) for GQA: query head h reads
+    kv head h // n_rep."""
+    if n_rep == 1:
+        return k
+    b, h, s, d = k.shape
+    return k[:, :, None].expand(b, h, n_rep, s, d).reshape(b, h * n_rep, s, d)
+
+
+def _masked_softmax_pv(logits, mask, v):
+    """Softmax over the last dimension restricted to ``mask``, then the PV
+    product, all in float32; a row with no visible key gives zeros."""
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    m = logits.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(logits - m), torch.zeros_like(logits))
+    l = p.sum(-1, keepdim=True)
+    out = torch.matmul(p, v)
+    return out / torch.where(l == 0, torch.ones_like(l), l)
+
+
+def mha(q, k, v, *, causal=True, window=None, sm_scale=None, offset=None):
+    """Multi-head attention.  q (B, Hq, Sq, D); k, v (B, Hkv, Sk, D) with
+    Hq % Hkv == 0.  Query i sees key j iff ``j <= i + offset`` (causal) and
+    ``j > i + offset - window`` (window); ``offset`` defaults to ``Sk - Sq``
+    (decode-style alignment).  Returns (B, Hq, Sq, D) in q's dtype."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
+    offset = sk - sq if offset is None else int(offset)
+    kf = repeat_kv(k.float(), hq // hkv)
+    vf = repeat_kv(v.float(), hq // hkv)
+    logits = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos + offset
+    if window is not None:
+        mask &= kpos > qpos + offset - window
+    return _masked_softmax_pv(logits, mask, vf).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale=None):
+    """One query token per sequence against a cache.  q (B, Hq, D); caches
+    (B, Hkv, S, D); lengths (B,) int — valid cache positions per sequence.
+    The G = Hq/Hkv query heads of kv head h are q's heads h·G … h·G+G-1.
+    Returns (B, Hq, D) in q's dtype; ``lengths[b] == 0`` gives zeros."""
+    b, hq, d = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
+    g = hq // hkv
+    qg = q.float().reshape(b, hkv, g, d)
+    logits = torch.matmul(qg, k_cache.float().transpose(-1, -2)) * scale
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < lengths.to(q.device).long()[:, None])[:, None, None, :]
+    out = _masked_softmax_pv(logits, mask, v_cache.float())   # (B,Hkv,G,D)
+    return out.reshape(b, hq, d).to(q.dtype)

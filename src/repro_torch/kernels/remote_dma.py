@@ -46,42 +46,11 @@ _SIGNATURES = {
     "rdma_gather_rows": [_P] * 5 + [_I] * 5 + [_P],
     "rdma_scatter_rows": [_P] * 7 + [_I] * 5 + [_P],
 }
-_lib_handle = None
-
-
-def _lib():
-    global _lib_handle
-    if _lib_handle is None:
-        lib = _nvcc.load("remote_dma")
-        for fn, argtypes in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.rdma_error_string.argtypes = [ctypes.c_int]
-        lib.rdma_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
+_LIB = _nvcc.Library("remote_dma", _SIGNATURES, "rdma_error_string")
 
 
 def _on_card(*tensors) -> bool:
-    """True for CUDA tensors (launch the kernel), False for CPU tensors (the
-    plain version); anything else, or a mix, is refused."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return True
-    raise ValueError(f"remote-DMA kernels take tensors on one CUDA device or "
-                     f"on the CPU, got {sorted(str(t.device) for t in tensors)}")
-
-
-def _check(code: int):
-    if code != 0:
-        msg = _lib().rdma_error_string(code).decode()
-        raise RuntimeError(f"remote-DMA kernel launch failed: {msg} ({code})")
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return _nvcc.on_card("the remote-DMA kernels", *tensors)
 
 
 def _words(x):
@@ -131,10 +100,10 @@ def build_descriptors(targets, indices, en, *, wire=None, op=OP_READ,
     desc = torch.empty((P, R, DESC_WORDS), dtype=torch.int32,
                        device=targets.device)
     nb = torch.zeros((P,), dtype=torch.int32, device=targets.device)
-    _check(_lib().rdma_build_descriptors(
-        targets.data_ptr(), indices.data_ptr(), en.data_ptr(),
-        wire.data_ptr(), desc.data_ptr(), nb.data_ptr(), P, R, int(op),
-        int(row_nbytes), _stream(targets)))
+    _LIB.call("rdma_build_descriptors",
+              targets.data_ptr(), indices.data_ptr(), en.data_ptr(),
+              wire.data_ptr(), desc.data_ptr(), nb.data_ptr(), P, R, int(op),
+              int(row_nbytes), _nvcc.stream(targets))
     build_descriptors.launches += 1
     return desc, nb
 
@@ -172,9 +141,10 @@ def gather_rows(buf, indices, mask):
     words = _words(buf)
     out = torch.empty((P, N, width), dtype=torch.int32, device=buf.device)
     nb = torch.zeros((P,), dtype=torch.int32, device=buf.device)
-    _check(_lib().rdma_gather_rows(
-        words.data_ptr(), indices.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        nb.data_ptr(), P, slots, N, width, row_nbytes, _stream(buf)))
+    _LIB.call("rdma_gather_rows",
+              words.data_ptr(), indices.data_ptr(), mask.data_ptr(),
+              out.data_ptr(), nb.data_ptr(), P, slots, N, width, row_nbytes,
+              _nvcc.stream(buf))
     gather_rows.launches += 1
     return out.view(buf.dtype), nb
 
@@ -231,10 +201,11 @@ def scatter_rows(buf, indices, values, apply_mask, wire_mask):
     vals = _words(values)
     winner = torch.full((P, slots), -1, dtype=torch.int32, device=buf.device)
     nb = torch.zeros((P,), dtype=torch.int32, device=buf.device)
-    _check(_lib().rdma_scatter_rows(
-        indices.data_ptr(), apply_mask.data_ptr(), wire_mask.data_ptr(),
-        vals.data_ptr(), winner.data_ptr(), out.data_ptr(), nb.data_ptr(),
-        P, slots, N, width, row_nbytes, _stream(buf)))
+    _LIB.call("rdma_scatter_rows",
+              indices.data_ptr(), apply_mask.data_ptr(), wire_mask.data_ptr(),
+              vals.data_ptr(), winner.data_ptr(), out.data_ptr(),
+              nb.data_ptr(), P, slots, N, width, row_nbytes,
+              _nvcc.stream(buf))
     scatter_rows.launches += 1
     return out.view(buf.dtype), nb
 

@@ -1,0 +1,65 @@
+"""Serving launcher: continuous batching on the channel substrate, the
+counterpart of ``repro/launch/serve.py``.
+
+A SharedQueue admits requests, a KVStore keeps the paged KV cache's page
+table, and a dense LM runs prefill and decode with the port's attention
+kernels.  Weights are random, drawn on the device from a seeded generator.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
+      --smoke --device cpu --requests 8 --prompt-len 32 --gen-len 16
+
+``--device`` defaults to the card.  The replication and fault-injection
+flags of the reference wait for ROADMAP Queue A item 8.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.kvstore import DELETE, INSERT
+from repro_torch.serving.engine import ServingEngine
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--dtype", default="float32")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (the card, default) or 'cpu'")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = cfg.replace(dtype=args.dtype)
+    engine = ServingEngine(cfg, max_batch=args.max_batch,
+                           max_seq=args.prompt_len + args.gen_len,
+                           device=args.device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, size=(args.prompt_len,))
+               .astype(np.int32) for _ in range(args.requests)]
+    t0 = time.time()
+    outs = engine.generate(prompts, gen_len=args.gen_len)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.time() - t0
+    n_tokens = args.requests * args.gen_len
+    print(f"[serve] {args.requests} requests × {args.gen_len} tokens on "
+          f"{engine.device} in {dt:.2f}s → {n_tokens / dt:.1f} tok/s")
+    print(f"[serve] sample output: {outs[0][:8]}")
+    stats = engine.stats()
+    print(f"[serve] page-table (kvstore) stats: {stats}")
+    if stats["kv_ops"].get(INSERT, 0) != stats["kv_ops"].get(DELETE, 0):
+        raise SystemExit("[serve] every admitted page must be deleted")
+    return outs, stats
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,124 @@
+"""The port's attention kernels (their plain versions, which CPU tensors
+take) against the JAX package's Pallas kernels run in interpret mode, through
+the reference wrappers ``repro.kernels.ops.flash_attention`` /
+``decode_attention``.  Inputs are float32, made with numpy from a seed.
+
+Tolerance: ``atol=2e-5, rtol=1e-5`` — both sides accumulate in float32, the
+Pallas kernel block by block with an online softmax and the plain version in
+one pass, so they differ by float32 rounding only.  The CUDA kernels run only
+on the card; chip_smoke.py holds them against these plain versions there."""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.kernels import decode_attention as pdec  # noqa: E402
+from repro_torch.kernels import flash_attention as pfa  # noqa: E402
+from repro_torch.kernels import ref as pref  # noqa: E402
+
+TOL = dict(atol=2e-5, rtol=1e-5)
+
+
+def _inputs(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+@pytest.mark.parametrize("B, Hq, Hkv, Sq, Sk, D, causal, window", [
+    (2, 4, 4, 16, 16, 16, True, None),       # MHA, causal
+    (1, 4, 2, 24, 24, 12, True, None),       # GQA 2, head_dim 12
+    (2, 6, 2, 16, 40, 16, True, None),       # GQA 3, Sq < Sk: causal offset
+    (1, 2, 1, 32, 32, 16, False, None),      # no mask
+    (1, 4, 2, 40, 40, 8, True, 8),           # sliding window
+    (1, 2, 2, 130, 130, 16, True, None),     # Sk padded to the tile: kv_valid
+    (1, 3, 1, 16, 130, 16, True, None),      # padding shifts the diagonal
+    (1, 2, 1, 130, 130, 8, False, None),     # padded, unmasked
+])
+def test_flash_attention_matches_pallas(B, Hq, Hkv, Sq, Sk, D, causal,
+                                        window):
+    q, k, v = _inputs(Sq * 7 + Sk, (B, Hq, Sq, D), (B, Hkv, Sk, D),
+                      (B, Hkv, Sk, D))
+    ref = np.asarray(jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v), causal=causal,
+                                          window=window))
+    got = pfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal,
+                              window=window)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("B, Hq, Hkv, S, D, lengths", [
+    (3, 4, 4, 32, 16, [1, 17, 32]),
+    (2, 4, 2, 48, 12, [48, 5]),
+    (4, 6, 2, 64, 16, [1, 64, 33, 2]),
+    (1, 3, 1, 300, 16, [257]),               # cache padded to the tile
+])
+def test_decode_attention_matches_pallas(B, Hq, Hkv, S, D, lengths):
+    q, kc, vc = _inputs(S + B, (B, Hq, D), (B, Hkv, S, D), (B, Hkv, S, D))
+    lens = np.asarray(lengths, np.int32)
+    ref = np.asarray(jops.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                           jnp.asarray(vc),
+                                           jnp.asarray(lens)))
+    got = pdec.decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                                torch.from_numpy(vc), torch.from_numpy(lens))
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+def test_rows_with_no_visible_key_are_zeros():
+    """Sq > Sk aligns the diagonal below row 0: the first Sq - Sk rows see no
+    key.  The Pallas kernels return zeros there (and for a zero-length
+    decode), and so does the port — not ``ref.mha``'s uniform average."""
+    q, k, v = _inputs(5, (1, 2, 16, 8), (1, 1, 8, 8), (1, 1, 8, 8))
+    ref = np.asarray(jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v)))
+    got = pfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v)).numpy()
+    np.testing.assert_allclose(got, ref, **TOL)
+    assert not got[:, :, :8].any() and got[:, :, 8:].any()
+
+    q, kc, vc = _inputs(6, (2, 4, 8), (2, 2, 16, 8), (2, 2, 16, 8))
+    lens = np.asarray([0, 16], np.int32)
+    ref = np.asarray(jops.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                           jnp.asarray(vc),
+                                           jnp.asarray(lens)))
+    got = pdec.decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                                torch.from_numpy(vc),
+                                torch.from_numpy(lens)).numpy()
+    np.testing.assert_allclose(got, ref, **TOL)
+    assert not got[0].any() and got[1].any()
+
+
+def test_plain_versions_follow_repeat_kv():
+    """The grouped decode equals the full mha over the cache prefix, and
+    repeat_kv maps query head h to kv head h // G."""
+    q, kc, vc = _inputs(7, (2, 6, 16), (2, 2, 20, 16), (2, 2, 20, 16))
+    k_t = torch.from_numpy(kc)
+    rep = pref.repeat_kv(k_t, 3)
+    for h in range(6):
+        assert torch.equal(rep[:, h], k_t[:, h // 3])
+    got = pref.decode_attention(torch.from_numpy(q), k_t,
+                                torch.from_numpy(vc),
+                                torch.tensor([20, 20], dtype=torch.int32))
+    full = pref.mha(torch.from_numpy(q)[:, :, None], k_t,
+                    torch.from_numpy(vc), causal=False)[:, :, 0]
+    np.testing.assert_allclose(got.numpy(), full.numpy(), **TOL)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    q = torch.zeros((1, 3, 4, 8))
+    k = torch.zeros((1, 2, 4, 8))
+    with pytest.raises(ValueError):
+        pfa.flash_attention(q, k, k)           # Hq % Hkv != 0
+    with pytest.raises(ValueError):
+        pdec.decode_attention(q[:, :, 0], k, k, torch.zeros(2))
+    launches = (pfa.flash_attention.launches,
+                pdec.decode_attention.launches)
+    pfa.flash_attention(torch.zeros((1, 2, 4, 8)), k, k)
+    assert (pfa.flash_attention.launches,
+            pdec.decode_attention.launches) == launches, \
+        "CPU tensors take the plain version: no launch is counted"

@@ -9,6 +9,11 @@ window each KVStoreState leaf, each KVResult leaf and a ``get_batch`` of
 every key must be equal bit for bit, and so must the traffic-ledger rows
 (modeled bytes, rounds and the bytes the DMA kernels measured).  All data
 is integer: the tolerance is exact equality.
+
+The read tier (``cache_slots``) and the placement policies (``"explicit"``
+with per-lane ``targets=``, ``"hashed"``) run the same way on both the
+one-sided and the remote-DMA backend, with ``get_batch(pred=...)`` repeated
+so the cache hits, and the ledger's cache tier compared too.
 """
 import numpy as np
 import pytest
@@ -26,25 +31,41 @@ KEYS = np.arange(1, 97, dtype=np.uint32)
 class _Pair:
     """The same store configuration in both packages, ledger enabled."""
 
-    def __init__(self, name, **cfg):
+    def __init__(self, name, backend="pallas", **cfg):
         core = reference_core()
-        self.jmgr = core.make_manager(P, backend="pallas")
+        self.jmgr = core.make_manager(P, backend=backend)
         locked_ledger(self.jmgr)
         self.jkv = core.KVStore(None, name, self.jmgr, **cfg)
         self.jstep = jax.jit(lambda s, o, k, v: self.jmgr.runtime.run(
             self.jkv.op_window, s, o, k, v))
+        self.jstep_t = jax.jit(lambda s, o, k, v, t: self.jmgr.runtime.run(
+            lambda *a: self.jkv.op_window(*a[:4], targets=a[4]),
+            s, o, k, v, t))
         self.jget = jax.jit(lambda s, k: self.jmgr.runtime.run(
             lambda st, kk: self.jkv.get_batch(st, kk), s, k))
-        self.tmgr = pt.make_manager(P, device="cpu", backend="pallas")
+        self.jget_p = jax.jit(lambda s, k, p: self.jmgr.runtime.run(
+            lambda st, kk, pp: self.jkv.get_batch(st, kk, pred=pp), s, k, p))
+        self.tmgr = pt.make_manager(P, device="cpu", backend=backend)
         self.tmgr.traffic.enable()
         self.tkv = pt.KVStore(None, name, self.tmgr, **cfg)
         self.jst = self.jkv.init_state()
         self.tst = self.tkv.init_state()
 
-    def window(self, ops, keys, vals):
-        self.jst, jres = self.jstep(self.jst, ops, keys, vals)
-        self.tst, tres = self.tkv.op_window(self.tst, ops, keys, vals)
+    def window(self, ops, keys, vals, targets=None):
+        if targets is None:
+            self.jst, jres = self.jstep(self.jst, ops, keys, vals)
+        else:
+            self.jst, jres = self.jstep_t(self.jst, ops, keys, vals, targets)
+        self.tst, tres = self.tkv.op_window(self.tst, ops, keys, vals,
+                                            targets=targets)
         return jax_to_numpy(jres), torch_to_numpy(tres)
+
+    def reads(self, keys, pred):
+        """get_batch(pred=...) on both stores, keeping the new states (the
+        read tier's refills)."""
+        self.jst, jv, jf = self.jget_p(self.jst, keys, pred)
+        self.tst, tv, tf = self.tkv.get_batch(self.tst, keys, pred=pred)
+        return (np.asarray(jv), np.asarray(jf)), (tv.numpy(), tf.numpy())
 
     def get_all(self):
         keys = np.broadcast_to(KEYS, (P, KEYS.size))
@@ -65,7 +86,9 @@ class _Pair:
         assert jl.summary() == tl.summary()
         assert jl.rounds_summary() == tl.rounds_summary()
         assert jl.dma_summary() == tl.dma_summary()
-        assert tl.total_dma_bytes() > 0
+        assert jl.cache_summary() == tl.cache_summary()
+        if self.tkv.backend.name == "pallas":
+            assert tl.total_dma_bytes() > 0
 
 
 def _lanes(op, keys, vals=None):
@@ -195,13 +218,95 @@ def test_port_continues_from_a_jax_state(store):
     assert_trees_equal(jax_to_numpy(jst), pt.state_to_numpy(tst), "state")
 
 
+@pytest.mark.parametrize("backend", ["onesided", "pallas"])
+@pytest.mark.parametrize("placement", ["explicit", "hashed"])
+def test_placed_cached_windows_bitwise(backend, placement):
+    """Non-local placement (INSERTs allocate at their home through the
+    request/grant round-trip) with the read tier on: mixed windows with
+    per-lane targets, then repeated ``get_batch(pred=...)`` rounds — the
+    second of each pair served from the cache — and UPDATE/DELETE windows
+    whose invalidations the next reads must see."""
+    s = _Pair(f"kv_{placement}_{backend}", backend=backend,
+              slots_per_node=8, value_width=W, num_locks=8,
+              index_capacity=64, cache_slots=2 * 8 * P, placement=placement)
+    rng = np.random.default_rng(31)
+    keys = KEYS[:40]
+
+    def targets():
+        return rng.integers(0, P, (P, B)).astype(np.int32) \
+            if placement == "explicit" else None
+
+    def reads(i):
+        ks = rng.choice(keys, size=(P, B)).astype(np.uint32)
+        pred = rng.random((P, B)) < 0.75
+        for rep in range(2):
+            j, t = s.reads(ks, pred)
+            for a, b_ in zip(j, t):
+                np.testing.assert_array_equal(a, b_, err_msg=f"reads {i}.{rep}")
+            s.assert_equal(f"after reads {i}.{rep}")
+
+    windows = [_lanes(pt.INSERT, keys[:P * B])]
+    for _ in range(4):
+        ops = rng.choice([pt.GET, pt.UPDATE, pt.INSERT, pt.DELETE, pt.NOP],
+                         size=(P, B), p=[.3, .25, .2, .15, .1])
+        ks = rng.choice(keys, size=(P, B)).astype(np.uint32)
+        vals = rng.integers(-2 ** 31, 2 ** 31, (P, B, W), dtype=np.int64)
+        windows.append((ops.astype(np.int32), ks, vals.astype(np.int32)))
+    for i, w in enumerate(windows):
+        jres, tres = s.window(*w, targets=targets())
+        assert_trees_equal(jres, tres, f"window {i} result")
+        s.assert_equal(f"after window {i}")
+        reads(i)
+    tl = s.tmgr.traffic
+    assert tl.cache_summary()[f"{s.tkv.full_name}.readcache"]["hits"] > 0
+    assert any(k.endswith(".alloc") for k in tl.rounds_summary())
+    s.assert_ledgers_equal()
+
+
+def test_cache_only_store_bitwise():
+    """The read tier on a writer-local store: GET lanes inside op_window
+    refill the cache too, and the windows' invalidations ride the tracker
+    records."""
+    s = _Pair("kv_cached_local", slots_per_node=16, value_width=W,
+              num_locks=L, index_capacity=128, cache_slots=16)
+    rng = np.random.default_rng(32)
+    for i, w in enumerate([_lanes(pt.INSERT, KEYS[:P * B]), _mixed(rng),
+                           _lanes(pt.GET, KEYS[:P * B]), _mixed(rng),
+                           _lanes(pt.GET, KEYS[:P * B])]):
+        jres, tres = s.window(*w)
+        assert_trees_equal(jres, tres, f"window {i} result")
+        s.assert_equal(f"after window {i}")
+    s.assert_ledgers_equal()
+
+
 def test_unported_knobs_are_refused():
+    """The knobs the port does not run yet raise; the read tier and the
+    placement policies, ported now, build stores with their state; a MOVE
+    lane is refused in their place."""
     mgr = pt.make_manager(P, device="cpu")
     for knob in [dict(cache_slots=4), dict(placement="hashed"),
                  dict(track_heat=True), dict(lockfree=True),
                  dict(reference_impl=True)]:
+        if "cache_slots" in knob or "placement" in knob:
+            kv = pt.KVStore(None, f"kv_{len(mgr.channels)}", mgr,
+                            slots_per_node=4, **knob)
+            st = kv.init_state()
+            assert st.cache.tags.shape == (P, knob.get("cache_slots", 0), 2)
+            assert kv.placement == knob.get("placement", "local")
+            continue
         with pytest.raises(NotImplementedError):
             pt.KVStore(None, f"kv_{len(mgr.channels)}", mgr,
                        slots_per_node=4, **knob)
+    kv = pt.KVStore(None, "kv_move", mgr, slots_per_node=4)
+    ops = np.full((P, 2), pt.GET, np.int32)
+    ops[1, 1] = pt.MOVE
+    with pytest.raises(NotImplementedError, match="MOVE"):
+        kv.op_window(kv.init_state(), ops, np.ones((P, 2), np.uint32),
+                     np.zeros((P, 2, 2), np.int32))
     with pytest.raises(ValueError):
         pt.KVStore(None, "kv_bad", mgr, slots_per_node=4, placement="nope")
+    kx = pt.KVStore(None, "kv_explicit", mgr, slots_per_node=4,
+                    placement="explicit")
+    with pytest.raises(ValueError, match="targets"):
+        kx.op_window(kx.init_state(), np.full((P, 1), pt.INSERT, np.int32),
+                     np.ones((P, 1), np.uint32), np.zeros((P, 1, 2), np.int32))

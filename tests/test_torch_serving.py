@@ -1,0 +1,91 @@
+"""The port's ServingEngine against the JAX package's, mirroring
+tests/test_serving_and_roofline.py::TestServingEngine: the llama3.2-3b smoke
+config in float32, max_batch=2, max_seq=48, four 12-token prompts, 4
+generated tokens each.  The port's engine carries the JAX engine's weights
+(``params_from_jax``) and runs on the CPU.
+
+Checked: the generated tokens are equal; ``stats()["kv_ops"]`` and
+``["locality"]`` are equal; the page-table ``KVStoreState`` (read cache
+included) and the admission queue's state are bitwise equal.  The logits
+agree to float32 rounding (tests/test_torch_model.py), so greedy tokens are
+compared exactly."""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+from torch_port_ref import (assert_trees_equal, jax_to_numpy,  # noqa: E402
+                            reference_core)
+
+import repro_torch.core as pt  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core.queue import queue_state_to_numpy  # noqa: E402
+from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.serving import MAX_WINDOW, P_NODES, ServingEngine  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def engines():
+    reference_core()
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro.serving.engine import ServingEngine as JaxEngine
+    jcfg = jax_smoke("llama3.2-3b").replace(dtype="float32")
+    jeng = JaxEngine(jcfg, max_batch=2, max_seq=48)
+    cfg = get_smoke_config("llama3.2-3b").replace(dtype="float32")
+    eng = ServingEngine(cfg, max_batch=2, max_seq=48, device="cpu",
+                        params=params_from_jax(jax_to_numpy(jeng.params),
+                                               device="cpu"))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, size=(12,)).astype(np.int32)
+               for _ in range(4)]
+    return jeng.generate(prompts, gen_len=4), jeng, \
+        eng.generate(prompts, gen_len=4), eng
+
+
+def test_tokens_and_stats_match_the_reference(engines):
+    jouts, jeng, outs, eng = engines
+    assert outs == [[int(t) for t in o] for o in jouts]
+    assert len(outs) == 4 and all(len(o) == 4 for o in outs)
+    js, ts = jeng.stats(), eng.stats()
+    assert ts["kv_ops"] == js["kv_ops"]
+    assert ts["locality"] == js["locality"]
+    assert ts["kv_ops"][pt.INSERT] == ts["kv_ops"][pt.DELETE]
+    assert ts["locality"]["local_fraction"] == 1.0
+    assert ts["registered_region_bytes"] == js["registered_region_bytes"]
+    assert eng.pages.L >= P_NODES * MAX_WINDOW
+
+
+def test_channel_states_match_the_reference(engines):
+    _jo, jeng, _o, eng = engines
+    assert_trees_equal(jax_to_numpy(jeng._kv_state),
+                       pt.state_to_numpy(eng._kv_state), "page table")
+    assert_trees_equal(jax_to_numpy(jeng._q_state),
+                       queue_state_to_numpy(eng._q_state), "admission queue")
+
+
+def test_unported_engine_options_are_refused():
+    cfg = get_smoke_config("llama3.2-3b")
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        ServingEngine(cfg, replicas=1, device="cpu")
+
+
+def test_engine_defaults_to_the_card(monkeypatch):
+    """Without ``device`` the engine (and the launcher) run on the card;
+    with none present they raise instead of falling back to the CPU."""
+    import torch
+    from repro_torch.launch.serve import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("llama3.2-3b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--arch", "llama3.2-3b", "--smoke"])
+
+
+def test_serve_launcher_runs_on_the_cpu(capsys):
+    from repro_torch.launch.serve import main
+    outs, stats = main(["--arch", "llama3.2-3b", "--smoke", "--device",
+                        "cpu", "--requests", "3", "--prompt-len", "8",
+                        "--gen-len", "3", "--max-batch", "2"])
+    assert len(outs) == 3 and all(len(o) == 3 for o in outs)
+    assert stats["kv_ops"][pt.INSERT] == stats["kv_ops"][pt.DELETE]
+    assert "[serve] 3 requests" in capsys.readouterr().out

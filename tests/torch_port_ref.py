@@ -78,8 +78,14 @@ def locked_ledger(mgr):
         jax.debug.callback(lambda b: _add(ledger.dma_counts, verb, bytes=b),
                            jnp.asarray(nbytes, jnp.float32))
 
+    def record_cache(name, hits, lookups):
+        jax.debug.callback(lambda h, lk: _add(ledger.cache_counts, name,
+                                              hits=h, lookups=lk),
+                           jnp.asarray(hits, jnp.float32),
+                           jnp.asarray(lookups, jnp.float32))
+
     ledger.record, ledger.record_rounds = record, record_rounds
-    ledger.record_dma = record_dma
+    ledger.record_dma, ledger.record_cache = record_dma, record_cache
     return ledger.enable()
 
 
