@@ -9,30 +9,36 @@ toolkit:
 It imports neither JAX nor the JAX package.  Phases, in order; any failure
 exits non-zero and prints no result:
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
-   one process per source, all at once;
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (five
+   sources) with nvcc, one process per source, all at once;
 2. hold each kernel against its plain PyTorch version on the card: the
    remote-DMA kernels at the KVStore path's shapes (outputs and measured
    bytes bitwise equal, scatter collisions included), the attention kernels
-   at the serving path's full-width shapes and at odd ones (float32 within
-   2e-5, bfloat16 within 2e-2 of the float32 plain result on the same
-   inputs);
+   at the serving paths' full-width shapes (head_dim 128, and 256 with a
+   2048-token window and one kv head) and at odd ones (float32 within 2e-5,
+   bfloat16 within 2e-2 of the float32 plain result on the same inputs),
+   the RG-LRU and WKV6 kernels at their serving shapes and at odd ones, in
+   float32 and bfloat16, outputs and final states (tolerances at
+   ``REC_TOL``);
 3. run the same work on the card and on the CPU: a P=4 store through 20
    windows (states and results bitwise equal after every window) and the
-   smoke llama3.2-3b ServingEngine in float32 with one set of weights
-   (equal tokens, bitwise equal page-table state);
+   smoke llama3.2-3b, recurrentgemma-2b and rwkv6-7b ServingEngines in
+   float32 with one set of weights each (equal tokens, bitwise equal
+   page-table state);
 4. the KVStore path — ``KVStore.op_window`` on the remote-DMA backend — at a
    deployment's size: P=8 participants, K=2**22 keys, 8-byte values,
    windows of 512 lanes per participant; prefill 80% of K, then 20 windows
    of 60/20/10/10 GET/UPDATE/INSERT/DELETE over distinct uniform keys and
    20 windows of 95/5 GET/UPDATE over zipf(0.99) keys; every GET and every
    ``found`` is checked against a numpy oracle of the window semantics;
-5. the serving path — ``ServingEngine.generate`` on llama3.2-3b at its full
-   published width (28 layers, d=3072, bf16, random weights drawn on the
-   card from a seeded generator): 8 requests of 512 prompt tokens, 32
-   generated tokens each, batches of 4; page-table, locality and logit
-   checks;
-6. report the end-to-end numbers of both paths, each kernel's launches on
+5. the serving paths — ``ServingEngine.generate`` at full published width
+   and depth, bf16, random weights drawn on the card from a seeded
+   generator, 8 requests of 32 generated tokens in batches of 4 — on
+   llama3.2-3b (512-token prompts), recurrentgemma-2b (2304-token prompts,
+   so its 2048-token window and ring-buffer cache bind) and rwkv6-7b
+   (512-token prompts), one after the other, each engine freed before the
+   next; page-table, locality, logit and launch-count checks;
+6. report the end-to-end numbers of every path, each kernel's launches on
    its path, its time beside its plain version's, one PyTorch call's and
    its bound, the card's name and power limit, and last the result line.
 
@@ -41,6 +47,7 @@ it, so the checks of phase 2 and 3 and the timings of phase 6 count nowhere.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -68,13 +75,28 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12              # H100 SXM float32 peak outside the tensor cores
 
-# the serving path's configuration
+# the serving paths' configurations (phase 5)
 SERVE_ARCH = "llama3.2-3b"
 SERVE_REQUESTS = 8
 SERVE_PROMPT = 512
 SERVE_GEN = 32
 SERVE_BATCH = 4
+RG_PROMPT = 2304               # recurrentgemma: past its 2048-token window
+SERVE_PATHS = [
+    dict(arch=SERVE_ARCH, prompt=SERVE_PROMPT),
+    dict(arch="recurrentgemma-2b", prompt=RG_PROMPT),
+    dict(arch="rwkv6-7b", prompt=SERVE_PROMPT),
+]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# RG-LRU and WKV6 against their plain versions, as max abs error over
+# max(1, max |plain|).  float32 rglru: the same operations in the same
+# order, apart from fused multiply-adds, and the recurrence contracts
+# (|a| < 1), so rounding does not grow; float32 wkv6: every output sums 64
+# products in another order, over a state summed across up to 512 steps;
+# bfloat16 outputs add one rounding to bf16 (2^-8 relative).  Final states
+# are float32 on both sides, so they take the float32 tolerance.
+REC_TOL = {("rglru_scan", "float32"): 1e-5, ("wkv6", "float32"): 1e-4,
+           ("rglru_scan", "bfloat16"): 1e-2, ("wkv6", "bfloat16"): 1e-2}
 
 
 class SmokeFailure(Exception):
@@ -203,10 +225,13 @@ def phase_kernels(torch, rdma, slots):
 
 
 def attention_cases(torch):
-    """(label, args, kw) per attention case: the serving path's full-width
-    shapes (llama3.2-3b: 24 query heads, 8 kv heads, head_dim 128; prefill
-    of 4 prompts of 512 tokens, decode against a 544-slot cache) in bf16 and
-    float32, then odd shapes and masks."""
+    """(label, args, kw) per attention case: the serving paths' full-width
+    shapes in bf16 and float32 — llama3.2-3b (24 query heads, 8 kv heads,
+    head_dim 128; prefill of 4 prompts of 512 tokens, decode against a
+    544-slot cache) and recurrentgemma-2b's local attention (10 query heads
+    on 1 kv head, head_dim 256; prefill of 4 prompts of 2304 tokens with a
+    2048-token window, decode against the 2048-slot ring) — then odd shapes
+    and masks."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
 
     def rn(shape, dt):
@@ -220,6 +245,10 @@ def attention_cases(torch):
     for label, (B, hq, hkv, sq, sk, d), kw in [
             ("full width", (Bf, Hq, Hkv, SERVE_PROMPT, SERVE_PROMPT, D),
              dict(causal=True)),
+            ("D=256 window full width", (Bf, 10, 1, RG_PROMPT, RG_PROMPT, 256),
+             dict(causal=True, window=2048)),
+            ("D=256 odd", (2, 10, 1, 140, 140, 200), dict(causal=True,
+                                                          window=50)),
             ("offset causal", (2, 6, 2, 100, 300, D), dict(causal=True)),
             ("window", (2, 8, 4, 200, 200, 64), dict(causal=True, window=48)),
             ("padded Sk", (1, 4, 2, 130, 130, D), dict(causal=True)),
@@ -233,6 +262,9 @@ def attention_cases(torch):
     S = SERVE_PROMPT + SERVE_GEN
     for label, (B, hq, hkv, s, d), ln in [
             ("full width", (Bf, Hq, Hkv, S, D), [0, 1, S, 300]),
+            ("D=256 ring full width", (Bf, 10, 1, 2048, 256),
+             [2048, 2048, 1, 1000]),
+            ("D=256 odd", (3, 10, 1, 70, 136), [70, 0, 33]),
             ("smoke shapes", (2, 4, 2, 48, 12), [48, 5]),
             ("group of 16", (3, 16, 1, 100, 64), [100, 63, 64])]:
         for dt in (torch.bfloat16, torch.float32):
@@ -284,6 +316,94 @@ def phase_attention_kernels(torch, kernels):
     return cases, errs
 
 
+def recurrent_cases(torch):
+    """(label, args) per recurrent case, in bf16 and float32: the serving
+    paths' full-width shapes — recurrentgemma-2b's RG-LRU over 4 prompts of
+    2304 tokens and 2560 channels, rwkv6-7b's WKV over 4 prompts of 512
+    tokens and 64 heads of 64, its inputs (B, H, S, D) views of (B, S, H, D)
+    projections as the model passes them — then odd shapes (S not a
+    multiple of any chunk; D = 100 channels; head size 16).  Inputs follow
+    the models' ranges: log_a = -8·softplus(Λ)·r lies in (-0.106, 0); the
+    decay w = exp(-exp(w0 + δ)) with w0 = -4."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    def log_a(*shape):
+        return -0.106 * torch.rand(shape, generator=g, device="cuda")
+
+    def bhsd(B, H, S, D, fn=rn):
+        return fn(B, S, H, D).transpose(1, 2)
+
+    def decay(*shape):
+        return torch.exp(-torch.exp(-4.0 + 0.5 * rn(*shape)))
+
+    rglru, wkv = [], []
+    for label, (B, S, D) in [("full width", (SERVE_BATCH, RG_PROMPT, 2560)),
+                             ("S=37 D=100", (3, 37, 100))]:
+        x, la = rn(B, S, D), log_a(B, S, D)
+        for dt in (torch.bfloat16, torch.float32):
+            rglru.append((f"{label} {str(dt)[6:]}", (x.to(dt), la.to(dt))))
+    for label, (B, H, S, D) in [("full width", (SERVE_BATCH, 64, 512, 64)),
+                                ("S=37", (2, 3, 37, 64)),
+                                ("S=45 D=16", (2, 4, 45, 16))]:
+        r, k, v = (bhsd(B, H, S, D) for _ in range(3))
+        w = bhsd(B, H, S, D, decay)
+        u = 0.1 * rn(H, D)
+        for dt in (torch.bfloat16, torch.float32):
+            wkv.append((f"{label} {str(dt)[6:]}",
+                        tuple(t.to(dt) for t in (r, k, v, w, u))))
+    return {"rglru_scan": rglru, "wkv6": wkv}
+
+
+def recurrent_plain(name, args):
+    """The kernel's plain PyTorch version, in float32, on the same (card)
+    inputs."""
+    from repro_torch.kernels import ref
+    fn = ref.rglru if name == "rglru_scan" else ref.wkv6
+    return fn(*(t.float() for t in args))
+
+
+def rel_err(got, exp):
+    """max |got - exp| over max(1, max |exp|)."""
+    scale = max(1.0, float(exp.abs().max()))
+    return float((got.float() - exp).abs().max()) / scale
+
+
+def phase_recurrent_kernels(torch, kernels):
+    cases = recurrent_cases(torch)
+    errs = {}
+    for name, runs in cases.items():
+        kern = kernels[name]
+        errs[name] = 0.0
+        for label, args in runs:
+            before = kern.launches
+            out, state = kern(*args)
+            torch.cuda.synchronize()
+            check(kern.launches == before + 1, f"{name} did not launch")
+            exp_out, exp_state = recurrent_plain(name, args)
+            check(out.dtype == args[0].dtype and out.shape == args[0].shape
+                  and state.dtype == torch.float32
+                  and state.shape == exp_state.shape,
+                  f"{name} ({label}): {out.dtype} {tuple(out.shape)}, "
+                  f"{state.dtype} {tuple(state.shape)}")
+            e_out, e_state = rel_err(out, exp_out), rel_err(state, exp_state)
+            tol = REC_TOL[(name, str(out.dtype)[6:])]
+            tol_state = REC_TOL[(name, "float32")]
+            check(e_out <= tol and e_state <= tol_state,
+                  f"{name} ({label}) differs from its plain version: output "
+                  f"{e_out} (tolerance {tol}), final state {e_state} "
+                  f"(tolerance {tol_state}), relative to max(1, max |plain|)")
+            errs[name] = max(errs[name],
+                             float((out.float() - exp_out).abs().max()),
+                             float((state - exp_state).abs().max()))
+            log(f"  {name} [{label}]: relative err output {e_out:.3g} "
+                f"(tolerance {tol}), final state {e_state:.3g} (tolerance "
+                f"{tol_state})")
+    return cases, errs
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the same windows on the card and on the CPU
 # ---------------------------------------------------------------------------
@@ -326,13 +446,18 @@ def phase_parity(torch, pt):
 
 
 def phase_serving_parity(torch, pt):
-    """The smoke llama3.2-3b engine of the CPU tests, float32, one set of
+    for path in SERVE_PATHS:
+        serving_parity(torch, pt, path["arch"])
+
+
+def serving_parity(torch, pt, arch):
+    """The smoke engine of ``arch`` from the CPU tests, float32, one set of
     weights: generated tokens equal and the page-table state bitwise equal
     on the card and on the CPU."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import build_model
     from repro_torch.serving import ServingEngine
-    cfg = get_smoke_config(SERVE_ARCH).replace(dtype="float32")
+    cfg = get_smoke_config(arch).replace(dtype="float32")
     params = build_model(cfg).init(torch.Generator().manual_seed(SEED))
     rng = np.random.default_rng(SEED + 4)
     prompts = [rng.integers(1, cfg.vocab, size=(12,)).astype(np.int32)
@@ -344,18 +469,19 @@ def phase_serving_parity(torch, pt):
         out[dev] = (eng.generate(prompts, gen_len=4),
                     pt.state_to_numpy(eng._kv_state), eng.stats())
     check(out["cuda"][0] == out["cpu"][0],
-          f"smoke engine tokens differ: cuda {out['cuda'][0]} vs cpu "
+          f"smoke {arch} engine tokens differ: cuda {out['cuda'][0]} vs cpu "
           f"{out['cpu'][0]}")
     for name in pt.KVStoreState._fields:
         a, b = getattr(out["cuda"][1], name), getattr(out["cpu"][1], name)
         for x, y in zip(a if isinstance(a, tuple) else [a],
                         b if isinstance(b, tuple) else [b]):
             check(x.dtype == y.dtype and np.array_equal(x, y),
-                  f"smoke engine page-table leaf {name} differs cuda vs cpu")
+                  f"smoke {arch} engine page-table leaf {name} differs cuda "
+                  f"vs cpu")
     check(out["cuda"][2]["kv_ops"] == out["cpu"][2]["kv_ops"],
-          "smoke engine kv_ops differ")
-    log(f"  smoke engine: tokens {out['cuda'][0]} equal on cuda and cpu, "
-        f"page table bitwise equal, kv_ops {out['cuda'][2]['kv_ops']}")
+          f"smoke {arch} engine kv_ops differ")
+    log(f"  smoke {arch} engine: tokens {out['cuda'][0]} equal on cuda and "
+        f"cpu, page table bitwise equal, kv_ops {out['cuda'][2]['kv_ops']}")
 
 
 def tree_to(tree, device):
@@ -665,22 +791,48 @@ class ServeProbe:
         return out
 
 
-def phase_serving(torch, kernels):
+def expected_launches(cfg, requests, gen):
+    """Each model kernel's launches on one ``generate`` of ``requests``
+    prompts in batches of SERVE_BATCH: one prefill per batch (flash per
+    attention layer, rglru per recurrent layer, wkv6 per rwkv layer), then
+    gen - 1 decode steps (decode attention per attention layer)."""
+    from repro_torch.models.transformer import layer_kinds
+    prefills = -(-requests // SERVE_BATCH)
+    steps = prefills * (gen - 1)
+    if cfg.family == "ssm":
+        return {"wkv6": cfg.n_layers * prefills}
+    kinds = layer_kinds(cfg)
+    n_rec = kinds.count("rec")
+    n_attn = len(kinds) - n_rec
+    out = {"flash_attention": n_attn * prefills,
+           "decode_attention": n_attn * steps}
+    if n_rec:
+        out["rglru_scan"] = n_rec * prefills
+    return out
+
+
+def phase_serving(torch, kernels, path):
+    """One serving path: ``path["arch"]`` at full published width and depth
+    (bf16, random weights drawn on the card), SERVE_REQUESTS prompts of
+    ``path["prompt"]`` tokens, SERVE_GEN tokens each.  Returns its metrics
+    and every model kernel's launches, counted from 0 over this path."""
     from repro_torch.configs import get_config
     from repro_torch.core.kvstore import DELETE, GET, INSERT
     from repro_torch.serving import ServingEngine
-    cfg = get_config(SERVE_ARCH)
+    arch, prompt = path["arch"], path["prompt"]
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     eng = ServingEngine(cfg, max_batch=SERVE_BATCH,
-                        max_seq=SERVE_PROMPT + SERVE_GEN)
+                        max_seq=prompt + SERVE_GEN)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(eng.params))
-    log(f"  {SERVE_ARCH}: {cfg.n_layers} layers, d={cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.dtype}, {n_params:,} "
-        f"parameters drawn on the card in {time.perf_counter() - t0:.3f} s")
+    log(f"  {arch}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, "
+        f"{cfg.dtype}, {n_params:,} parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
     rng = np.random.default_rng(SEED + 5)
-    prompts = [rng.integers(1, cfg.vocab, size=(SERVE_PROMPT,))
-               .astype(np.int32) for _ in range(SERVE_REQUESTS)]
+    prompts = [rng.integers(1, cfg.vocab, size=(prompt,)).astype(np.int32)
+               for _ in range(SERVE_REQUESTS)]
     probe = ServeProbe(torch, eng, profile_round=10)
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
@@ -690,7 +842,12 @@ def phase_serving(torch, kernels):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
+    expected = expected_launches(cfg, SERVE_REQUESTS, SERVE_GEN)
     stats = eng.stats()
+    for name, n in launches.items():
+        check(n == expected.get(name, 0) and (n > 0) == (name in expected),
+              f"{arch}: {name} launched {n} times, expected "
+              f"{expected.get(name, 0)}")
     check(len(outs) == SERVE_REQUESTS
           and all(len(o) == SERVE_GEN for o in outs), "wrong output shape")
     check(all(0 <= t < cfg.vocab for o in outs for t in o),
@@ -704,7 +861,7 @@ def phase_serving(torch, kernels):
     check(stats["locality"]["local_fraction"] == 1.0,
           f"local fraction {stats['locality']['local_fraction']}")
     check(probe.busy is not None, "the decode round was not profiled")
-    n_prefill_tok = SERVE_REQUESTS * SERVE_PROMPT
+    n_prefill_tok = SERVE_REQUESTS * prompt
     n_decode_tok = len(probe.decode_s) * SERVE_BATCH
     log(f"  {SERVE_REQUESTS} requests x {SERVE_GEN} tokens in {wall:.2f} s; "
         f"kv_ops {stats['kv_ops']}, locality "
@@ -712,13 +869,15 @@ def phase_serving(torch, kernels):
         f"decode page lookups found, every logit finite; "
         f"launches {launches}")
     metrics = dict(
-        arch=SERVE_ARCH, dtype=cfg.dtype, params=n_params,
-        requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT, gen_len=SERVE_GEN,
+        arch=arch, dtype=cfg.dtype, params=n_params,
+        requests=SERVE_REQUESTS, prompt_len=prompt, gen_len=SERVE_GEN,
         max_batch=SERVE_BATCH, generate_s=wall,
         tokens_per_s=SERVE_REQUESTS * SERVE_GEN / wall,
         prefill_calls=len(probe.prefill_s),
         prefill_tokens_per_s=n_prefill_tok / sum(probe.prefill_s),
         prefill_ms_per_call=1e3 * float(np.mean(probe.prefill_s)),
+        prefill_ms_p50=1e3 * float(np.percentile(probe.prefill_s, 50)),
+        prefill_ms_p99=1e3 * float(np.percentile(probe.prefill_s, 99)),
         decode_steps=len(probe.decode_s),
         decode_tokens_per_s=n_decode_tok / sum(probe.decode_s),
         decode_step_p50_ms=1e3 * float(np.percentile(probe.decode_s, 50)),
@@ -727,7 +886,7 @@ def phase_serving(torch, kernels):
         peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         decode_round_profile=probe.busy,
         read_cache=stats["read_cache"], locality=stats["locality"])
-    return metrics, launches
+    return metrics, {name: launches[name] for name in expected}
 
 
 def _leaves(tree):
@@ -783,16 +942,16 @@ def phase_report(torch, rdma, cases, errs, launches):
     return rows
 
 
-def attention_report(torch, kernels, errs, launches):
-    """Per-call times at the serving path's shapes, in bf16: the prefill's
-    causal attention over 4 prompts of 512 tokens, and a decode step at the
-    middle of the path (every cache holding 528 positions of 544).  The
-    library yardstick is one ``scaled_dot_product_attention`` call (with a
-    length mask for decode); the port never calls it."""
+def attention_timings(torch, kernels, B, Hq, Hkv, D, S, window, slots, L):
+    """Per-call times of both attention kernels in bf16 at one serving
+    path's shapes: prefill's causal attention over B prompts of S tokens
+    (over the last ``window`` keys, if any), and a decode step against
+    ``slots``-slot caches holding L positions each.  The library yardstick
+    is one ``scaled_dot_product_attention`` call (with a window or length
+    mask where the kernel masks); the port never calls it."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    B, Hq, Hkv, D, S = SERVE_BATCH, 24, 8, 128, SERVE_PROMPT
 
     def rn(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(
@@ -800,20 +959,33 @@ def attention_report(torch, kernels, errs, launches):
 
     q, k, v = rn(B, Hq, S, D), rn(B, Hkv, S, D), rn(B, Hkv, S, D)
     fa = kernels["flash_attention"]
-    pairs = B * Hq * S * (S + 1) // 2          # visible (query, key) pairs
-    flops = 4 * D * pairs
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    flash = dict(
-        ms=cuda_ms(lambda: fa(q, k, v, causal=True), 50),
-        plain_ms=cuda_ms(lambda: ref.mha(q, k, v, causal=True), 10),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 50),
-        flops=flops, nbytes=nbytes)
+    visible = np.arange(1, S + 1) if window is None \
+        else np.minimum(np.arange(1, S + 1), window)
+    pairs = B * Hq * int(visible.sum())        # visible (query, key) pairs
+    iters = 50 if S * S * D <= 2 ** 26 else 10
+    if window is None:
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+    else:
+        pos = torch.arange(S, device="cuda")
+        wmask = (pos[None, :] <= pos[:, None]) \
+            & (pos[None, :] > pos[:, None] - window)
 
-    Smax, L = SERVE_PROMPT + SERVE_GEN, SERVE_PROMPT + SERVE_GEN // 2
-    qd, kc, vc = rn(B, Hq, D), rn(B, Hkv, Smax, D), rn(B, Hkv, Smax, D)
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=wmask,
+                                                  enable_gqa=True)
+    flash = dict(
+        ms=cuda_ms(lambda: fa(q, k, v, causal=True, window=window), iters),
+        plain_ms=cuda_ms(lambda: ref.mha(q, k, v, causal=True,
+                                         window=window), max(iters // 5, 2)),
+        library_ms=cuda_ms(library, iters),
+        flops=4 * D * pairs, nbytes=2 * (2 * q.numel() + k.numel()
+                                         + v.numel()))
+
+    qd, kc, vc = rn(B, Hq, D), rn(B, Hkv, slots, D), rn(B, Hkv, slots, D)
     lens = torch.full((B,), L, dtype=torch.int32, device="cuda")
-    mask = (torch.arange(Smax, device="cuda")[None, :]
+    mask = (torch.arange(slots, device="cuda")[None, :]
             < lens[:, None])[:, None, None, :]
     da = kernels["decode_attention"]
     decode = dict(
@@ -823,22 +995,107 @@ def attention_report(torch, kernels, errs, launches):
             qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True), 200),
         flops=4 * Hq * D * B * L,
         nbytes=2 * (2 * B * Hkv * L * D + 2 * qd.numel()) + 4 * B)
+    return {"flash_attention": flash, "decode_attention": decode}
+
+
+def timing_row(m, launches, err, peak):
+    """The JSON line's numbers for one kernel at one set of shapes; the
+    bound is the larger of bytes at the memory rate and operations at
+    ``peak``."""
+    t_ops = m["flops"] / peak * 1e3
+    t_bytes = m["nbytes"] / HBM_BYTES_PER_S * 1e3
+    return dict(launches=launches, max_abs_err=err, ms=m["ms"],
+                plain_ms=m["plain_ms"], bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops > t_bytes else "bytes",
+                library_ms=m["library_ms"])
+
+
+def attention_report(torch, kernels, errs, launches):
+    """Rows of both attention kernels at llama3.2-3b's shapes (head_dim 128:
+    4 prompts of 512 tokens; a decode step mid-path, every cache holding 528
+    positions of 544), each with a ``d256`` entry of the same numbers at
+    recurrentgemma-2b's (head_dim 256, 10 query heads on 1 kv head: 4
+    prompts of 2304 tokens under a 2048-token window; a decode step against
+    the full 2048-slot ring).  ``launches`` maps each serving path's arch to
+    its kernels' launches."""
+    d128 = attention_timings(torch, kernels, SERVE_BATCH, 24, 8, 128,
+                             SERVE_PROMPT, None, SERVE_PROMPT + SERVE_GEN,
+                             SERVE_PROMPT + SERVE_GEN // 2)
+    d256 = attention_timings(torch, kernels, SERVE_BATCH, 10, 1, 256,
+                             RG_PROMPT, 2048, 2048, 2048)
     rows = []
-    for name, m, line in [("flash_attention", flash, 82),
-                          ("decode_attention", decode, 63)]:
-        t_ops = m["flops"] / BF16_FLOPS * 1e3
-        t_bytes = m["nbytes"] / HBM_BYTES_PER_S * 1e3
-        rows.append(dict(
-            name=name, route="cuda",
-            source=f"src/repro_torch/kernels/csrc/{name}.cu",
-            replaces=f"src/repro/kernels/{name}.py:{line}",
-            launches=launches[name], max_abs_err=errs[name], ms=m["ms"],
-            plain_ms=m["plain_ms"], bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops > t_bytes else "bytes",
-            library_ms=m["library_ms"]))
-        log(f"  {name}: {m['ms']:.4f} ms/call, bound {max(t_ops, t_bytes):.4f}"
-            f" ms ({m['flops'] / 1e9:.2f} GFLOP, {m['nbytes'] / 1e6:.2f} MB),"
-            f" plain {m['plain_ms']:.4f} ms, sdpa {m['library_ms']:.4f} ms")
+    for name, line in [("flash_attention", 82), ("decode_attention", 63)]:
+        row = dict(name=name, route="cuda",
+                   source=f"src/repro_torch/kernels/csrc/{name}.cu",
+                   replaces=f"src/repro/kernels/{name}.py:{line}")
+        row.update(timing_row(d128[name], launches[SERVE_ARCH][name],
+                              errs[name], BF16_FLOPS))
+        row["d256"] = timing_row(d256[name],
+                                 launches["recurrentgemma-2b"][name],
+                                 errs[name], BF16_FLOPS)
+        rows.append(row)
+        for label, m, r in [("D=128", d128[name], row),
+                            ("D=256", d256[name], row["d256"])]:
+            log(f"  {name} {label}: {m['ms']:.4f} ms/call, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+                f"{m['flops'] / 1e9:.2f} GFLOP, {m['nbytes'] / 1e6:.2f} MB),"
+                f" plain {m['plain_ms']:.4f} ms, sdpa {m['library_ms']:.4f} "
+                f"ms, launches {r['launches']}")
+    return rows
+
+
+def recurrent_report(torch, kernels, errs, launches):
+    """Rows of the RG-LRU and WKV6 kernels at their serving paths' shapes in
+    bf16: recurrentgemma-2b's scan over 4 prompts of 2304 tokens and 2560
+    channels, rwkv6-7b's WKV over 4 prompts of 512 tokens and 64 heads of
+    64 (inputs as (B, H, S, D) views of (B, S, H, D) projections).  Their
+    operations are elementwise and per-head products the kernels run on the
+    CUDA cores, so the bound takes the float32 peak; operations counted:
+    eight per RG-LRU element (two exponentials, a square root, the update),
+    5·D² + 5·D per WKV step and head (the read-out r·S, the update
+    w·S + k·vᵀ, the bonus).  No PyTorch call computes either recurrence, so
+    there is no library yardstick."""
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    B, S, D = SERVE_BATCH, RG_PROMPT, 2560
+    x = rn(B, S, D).to(torch.bfloat16)
+    la = (-0.106 * torch.rand((B, S, D), generator=g, device="cuda")).to(
+        torch.bfloat16)
+    rg = kernels["rglru_scan"]
+    m_rg = dict(ms=cuda_ms(lambda: rg(x, la), 50),
+                plain_ms=cuda_ms(lambda: ref.rglru(x, la), 2),
+                library_ms=None, flops=8 * x.numel(),
+                nbytes=3 * 2 * x.numel() + 4 * B * D)
+
+    B, H, S, D = SERVE_BATCH, 64, SERVE_PROMPT, 64
+    r, k, v = (rn(B, S, H, D).to(torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(-4.0 + 0.5 * rn(B, S, H, D))).to(
+        torch.bfloat16).transpose(1, 2)
+    u = (0.1 * rn(H, D)).to(torch.bfloat16)
+    wk = kernels["wkv6"]
+    m_wk = dict(ms=cuda_ms(lambda: wk(r, k, v, w, u), 50),
+                plain_ms=cuda_ms(lambda: ref.wkv6(r, k, v, w, u), 2),
+                library_ms=None, flops=B * H * S * (5 * D * D + 5 * D),
+                nbytes=5 * 2 * r.numel() + 2 * u.numel() + 4 * B * H * D * D)
+    rows = []
+    for name, m, arch, line in [
+            ("rglru_scan", m_rg, "recurrentgemma-2b", 46),
+            ("wkv6", m_wk, "rwkv6-7b", 55)]:
+        row = dict(name=name, route="cuda",
+                   source=f"src/repro_torch/kernels/csrc/{name}.cu",
+                   replaces=f"src/repro/kernels/{name}.py:{line}")
+        row.update(timing_row(m, launches[arch][name], errs[name],
+                              F32_FLOPS))
+        rows.append(row)
+        log(f"  {name}: {m['ms']:.4f} ms/call, bound {row['bound_ms']:.4f} "
+            f"ms ({row['bound_by']}; {m['flops'] / 1e9:.2f} GFLOP, "
+            f"{m['nbytes'] / 1e6:.2f} MB), plain {m['plain_ms']:.4f} ms, "
+            f"library none, launches {row['launches']}")
     return rows
 
 
@@ -858,8 +1115,11 @@ def main() -> int:
     from repro_torch.kernels import remote_dma as rdma
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    attn = {"flash_attention": flash_attention,
-            "decode_attention": decode_attention}
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.wkv6 import wkv6
+    model_kernels = {"flash_attention": flash_attention,
+                     "decode_attention": decode_attention,
+                     "rglru_scan": rglru_scan, "wkv6": wkv6}
     if (NOP, GET, INSERT, UPDATE, DELETE) != (pt.NOP, pt.GET, pt.INSERT,
                                               pt.UPDATE, pt.DELETE):
         print("chip_smoke: op codes differ from repro_torch.core's",
@@ -873,14 +1133,17 @@ def main() -> int:
     t0 = time.perf_counter()
     try:
         log("phase 1: build")
-        _nvcc.build("remote_dma", "flash_attention", "decode_attention")
+        _nvcc.build("remote_dma", "flash_attention", "decode_attention",
+                    "rglru_scan", "wkv6")
         for name, out in _nvcc.BUILD_LOGS.items():
             log(f"  nvcc {name}.cu:\n" + "\n".join(
                 "    " + ln for ln in out.strip().splitlines()))
         log(f"  built in {time.perf_counter() - t0:.1f} s")
         log("phase 2: kernels against their plain versions")
         cases, errs = phase_kernels(torch, rdma, slots)
-        _attn_cases, attn_errs = phase_attention_kernels(torch, attn)
+        _attn_cases, attn_errs = phase_attention_kernels(torch,
+                                                         model_kernels)
+        _rec_cases, rec_errs = phase_recurrent_kernels(torch, model_kernels)
         log("phase 3: the same work on cuda and cpu")
         phase_parity(torch, pt)
         phase_serving_parity(torch, pt)
@@ -890,15 +1153,23 @@ def main() -> int:
         log(f"  KVStore path took {time.perf_counter() - t4:.1f} s")
         for name, n in launches.items():
             check(n > 0, f"{name} was not launched on the KVStore path")
-        log("phase 5: the serving path")
-        t5 = time.perf_counter()
-        serve_metrics, attn_launches = phase_serving(torch, attn)
-        log(f"  serving path took {time.perf_counter() - t5:.1f} s")
-        for name, n in attn_launches.items():
-            check(n > 0, f"{name} was not launched on the serving path")
+        log("phase 5: the serving paths")
+        serve_metrics, serve_launches = {}, {}
+        for path in SERVE_PATHS:
+            t5 = time.perf_counter()
+            arch = path["arch"]
+            serve_metrics[arch], serve_launches[arch] = phase_serving(
+                torch, model_kernels, path)
+            log(f"  {arch} serving path took "
+                f"{time.perf_counter() - t5:.1f} s")
+            gc.collect()                 # the engine's weights go first
+            torch.cuda.empty_cache()
         log("phase 6: report")
         kernels = phase_report(torch, rdma, cases, errs, launches)
-        kernels += attention_report(torch, attn, attn_errs, attn_launches)
+        kernels += attention_report(torch, model_kernels, attn_errs,
+                                    serve_launches)
+        kernels += recurrent_report(torch, model_kernels, rec_errs,
+                                    serve_launches)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,11 +1,14 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.  The
-port carries the dense architectures its serving path runs."""
-from . import llama32_3b, qwen3_8b
-from .base import ArchConfig
+port carries the architectures its serving path runs: the dense family,
+recurrentgemma (hybrid) and rwkv6 (ssm)."""
+from . import llama32_3b, qwen3_8b, recurrentgemma_2b, rwkv6_7b
+from .base import ArchConfig, HybridConfig
 
 _MODULES = {
     "llama3.2-3b": llama32_3b,
     "qwen3-8b": qwen3_8b,
+    "recurrentgemma-2b": recurrentgemma_2b,
+    "rwkv6-7b": rwkv6_7b,
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -27,4 +30,5 @@ def get_smoke_config(arch_id: str) -> ArchConfig:
     return _module(arch_id).smoke()
 
 
-__all__ = ["ARCH_IDS", "ArchConfig", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "ArchConfig", "HybridConfig", "get_config",
+           "get_smoke_config"]

@@ -3,9 +3,9 @@
 
 The reference's module imports ``jax.numpy`` for :attr:`ArchConfig.dtype_`,
 so the port keeps its own copy; ``dtype_`` returns a ``torch.dtype``.  Only
-the fields of the dense family the port builds are carried over (the
-reference's MoE, MLA, hybrid and cross-attention records, and gemma's GeGLU
-and embedding scale, come with their families).
+the fields of the families the port builds (dense, hybrid, ssm) are carried
+over; the reference's MoE, MLA and cross-attention records come with their
+families.
 """
 from __future__ import annotations
 
@@ -14,6 +14,15 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+
+@dataclass(frozen=True)
+class HybridConfig:
+    """RecurrentGemma/Griffin: pattern of recurrent and local-attn blocks."""
+    lru_width: int = 0           # defaults to d_model
+    window: int = 2048
+    pattern_period: int = 3      # 2 recurrent + 1 local-attention
+    conv_width: int = 4
 
 
 @dataclass(frozen=True)
@@ -28,10 +37,13 @@ class ArchConfig:
     vocab: int
     head_dim: Optional[int] = None         # default d_model // n_heads
     qk_norm: bool = False                  # qwen3
+    act: str = "silu"                      # silu (SwiGLU) | gelu (GeGLU)
     norm_eps: float = 1e-6
     rope_theta: float = 500000.0
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    hybrid: Optional[HybridConfig] = None
+    scale_embed: bool = False              # gemma-style sqrt(d) embed scale
 
     @property
     def head_dim_(self) -> int:

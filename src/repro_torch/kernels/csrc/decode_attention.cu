@@ -21,6 +21,10 @@
 // then updates (m, l); the 256 threads finally accumulate the G x D outputs
 // from the tile's V rows.
 //
+// The kernel is templated on the head-dimension cap DMax: 128 (each lane
+// covers 4 of D's elements) or 256 (8 elements, as recurrentgemma's local
+// attention with head_dim 256 and G = 10 query heads on one kv head).
+//
 // Bound: device-memory bytes (the cache is read once; ~2 FLOP per byte), so
 // the design keeps every cache byte to one read.  With one block per
 // (b, kv head) the grid is small (B*Hkv blocks); splitting S across blocks
@@ -36,11 +40,9 @@
 namespace {
 
 constexpr int kBK = 64;        // keys per tile
-constexpr int kDMax = 128;     // largest head dimension
 constexpr int kGMax = 16;      // largest query-head group
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kAcc = kGMax * kDMax / kThreads;  // outputs per thread
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -64,8 +66,10 @@ struct Args {
   float scale;
 };
 
-template <typename T>
+template <typename T, int kDMax>
 __global__ void __launch_bounds__(kThreads) decode_kernel(Args a) {
+  constexpr int kLane = kDMax / 32;                // D elements per lane
+  constexpr int kAcc = kGMax * kDMax / kThreads;  // outputs per thread
   __shared__ float qs[kGMax * kDMax];
   __shared__ float ps[kGMax][kBK];
   __shared__ float m_s[kGMax], l_s[kGMax], alpha_s[kGMax];
@@ -96,19 +100,21 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Args a) {
   __syncthreads();
 
   for (int k0 = 0; k0 < len; k0 += kBK) {
-    // scores: warp w takes keys w, w+8, ...; lane owns D columns lane*4..+3
+    // scores: warp w takes keys w, w+8, ...; lane owns D columns
+    // lane*kLane .. lane*kLane+kLane-1
     for (int kk = warp; kk < kBK; kk += kWarps) {
       const int j = k0 + kk;
-      float kv[4];
+      float kv[kLane];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = lane * 4 + e;
+      for (int e = 0; e < kLane; ++e) {
+        const int d = lane * kLane + e;
         kv[e] = (j < len && d < D) ? to_f(k[j * a.k_ss + d]) : 0.f;
       }
       for (int g = 0; g < G; ++g) {
-        const float* qg = qs + g * kDMax + lane * 4;
-        float part = qg[0] * kv[0] + qg[1] * kv[1] + qg[2] * kv[2] +
-                     qg[3] * kv[3];
+        const float* qg = qs + g * kDMax + lane * kLane;
+        float part = qg[0] * kv[0];
+#pragma unroll
+        for (int e = 1; e < kLane; ++e) part += qg[e] * kv[e];
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
           part += __shfl_xor_sync(0xffffffffu, part, off);
@@ -187,17 +193,21 @@ int decode_attention_fwd(int dtype, const void* q, const void* k,
                          long long k_sh, long long k_ss, long long v_sb,
                          long long v_sh, long long v_ss, float scale,
                          void* stream) {
-  if (D < 1 || D > kDMax || Hkv < 1 || Hq % Hkv != 0 || Hq / Hkv > kGMax)
+  if (D < 1 || D > 256 || Hkv < 1 || Hq % Hkv != 0 || Hq / Hkv > kGMax)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Hq == 0) return 0;
   const Args a{q,    k,    v,    lengths, out,  Hq,   Hkv,  S,
                D,    k_sb, k_sh, k_ss,    v_sb, v_sh, v_ss, scale};
   const dim3 grid(Hkv, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    decode_kernel<float><<<grid, kThreads, 0, s>>>(a);
+  if (dtype == 0 && D <= 128)
+    decode_kernel<float, 128><<<grid, kThreads, 0, s>>>(a);
+  else if (dtype == 0)
+    decode_kernel<float, 256><<<grid, kThreads, 0, s>>>(a);
+  else if (dtype == 1 && D <= 128)
+    decode_kernel<__nv_bfloat16, 128><<<grid, kThreads, 0, s>>>(a);
   else if (dtype == 1)
-    decode_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
+    decode_kernel<__nv_bfloat16, 256><<<grid, kThreads, 0, s>>>(a);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

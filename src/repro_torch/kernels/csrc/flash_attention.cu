@@ -18,7 +18,11 @@
 // (b, h, 64-row query tile) and loops over 64-key tiles itself.  Q, K and V
 // tiles are staged in shared memory as float32 (Q and K transposed, so the
 // score loop reads 16-byte vectors without bank conflicts); each of the 256
-// threads holds a 4x4 block of scores and a 4x8 block of the output rows.
+// threads holds a 4x4 block of scores and a 4 x (DMax/16) block of the
+// output rows.  The kernel is templated on the head-dimension cap DMax: 128
+// (D <= 128, 117 KB of shared memory, 4x8 outputs a thread) or 256 (D <= 256,
+// as recurrentgemma's local attention: 222,208 B of the 232,448 a block may
+// use, 4x16 outputs a thread, one block per SM).
 // Tiles wholly above the causal diagonal, wholly outside the window or past
 // kv_limit are skipped: they contribute nothing.
 //
@@ -39,14 +43,16 @@ namespace {
 
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per tile
-constexpr int kDMax = 128;     // largest head dimension
 constexpr int kThreads = 256;  // 16 x 16 threads
 constexpr int kQS = kBQ + 4;   // shared-memory row strides, in floats
 constexpr int kKS = kBK + 4;
 constexpr int kPS = kBQ + 4;
 constexpr float kNegInf = -1e30f;
-constexpr size_t kSmemBytes =
-    sizeof(float) * (kDMax * kQS + kDMax * kKS + kBK * kDMax + kBK * kPS);
+
+// shared memory of the kernel for head dimensions up to kDMax
+constexpr size_t smem_bytes(int kDMax) {
+  return sizeof(float) * (kDMax * kQS + kDMax * kKS + kBK * kDMax + kBK * kPS);
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -70,8 +76,9 @@ struct Args {
   int causal, window, kv_limit, offset;
 };
 
-template <typename T>
+template <typename T, int kDMax>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
+  constexpr int kCols = kDMax / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;                // [kDMax][kQS]  q tile, transposed
   float* Kt = Qt + kDMax * kQS;    // [kDMax][kKS]  k tile, transposed
@@ -79,7 +86,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   float* Pt = Vs + kBK * kDMax;    // [kBK][kPS]    probabilities, transposed
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;   // score columns tx*4.., output columns tx*4, 64+tx*4
+  const int tx = tid & 15;   // score columns tx*4.., output columns 64*g+tx*4..
   const int ty = tid >> 4;   // rows ty*4 .. ty*4+3
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -104,13 +111,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   if (a.window > 0) k_begin = max(0, q0 + a.offset - a.window + 1);
   k_begin = (k_begin / kBK) * kBK;
 
-  float m[4], l[4], acc[4][8];
+  float m[4], l[4], acc[4][kCols];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     m[r] = kNegInf;
     l[r] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
   }
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
@@ -178,22 +185,28 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
       l[r] = l[r] * alpha + sum;
       m[r] = m_new;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] *= alpha;
+      for (int c = 0; c < kCols; ++c) acc[r][c] *= alpha;
     }
     __syncthreads();
 
     for (int kk = 0; kk < kBK; ++kk) {
       const float4 pp = *reinterpret_cast<const float4*>(Pt + kk * kPS + ty * 4);
-      const float4 va =
-          *reinterpret_cast<const float4*>(Vs + kk * kDMax + tx * 4);
-      const float4 vb =
-          *reinterpret_cast<const float4*>(Vs + kk * kDMax + 64 + tx * 4);
       const float pr[4] = {pp.x, pp.y, pp.z, pp.w};
-      const float vc[8] = {va.x, va.y, va.z, va.w, vb.x, vb.y, vb.z, vb.w};
+      float vc[kCols];
+#pragma unroll
+      for (int g = 0; g < kCols / 4; ++g) {
+        const float4 vg = *reinterpret_cast<const float4*>(
+            Vs + kk * kDMax + 64 * g + tx * 4);
+        vc[4 * g] = vg.x;
+        vc[4 * g + 1] = vg.y;
+        vc[4 * g + 2] = vg.z;
+        vc[4 * g + 3] = vg.w;
+      }
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(pr[r], vc[c], acc[r][c]);
+        for (int c = 0; c < kCols; ++c)
+          acc[r][c] = fmaf(pr[r], vc[c], acc[r][c]);
     }
   }
 
@@ -205,27 +218,34 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
     if (i >= a.Sq) continue;
     const float l_safe = l[r] == 0.f ? 1.f : l[r];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = (c < 4 ? 0 : 64) + tx * 4 + (c & 3);
+    for (int c = 0; c < kCols; ++c) {
+      const int col = 64 * (c / 4) + tx * 4 + (c & 3);
       if (col < D) store(o + static_cast<long long>(i) * D + col,
                          acc[r][c] / l_safe);
     }
   }
 }
 
-template <typename T>
+template <typename T, int kDMax>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
+  constexpr size_t kSmemBytes = smem_bytes(kDMax);
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<T, kDMax>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kSmemBytes));
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.Hq, a.B);
-  flash_fwd_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(a);
+  flash_fwd_kernel<T, kDMax><<<grid, kThreads, kSmemBytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const Args& a, cudaStream_t stream) {
+  return a.D <= 128 ? launch<T, 128>(a, stream) : launch<T, 256>(a, stream);
 }
 
 }  // namespace
@@ -244,15 +264,15 @@ int flash_attention_fwd(int dtype, const void* q, const void* k,
                         long long k_ss, long long v_sb, long long v_sh,
                         long long v_ss, float scale, int causal, int window,
                         int kv_limit, int offset, void* stream) {
-  if (D < 1 || D > kDMax || Hkv < 1 || Hq % Hkv != 0)
+  if (D < 1 || D > 256 || Hkv < 1 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
   const Args a{q,    k,    v,    out,  B,     Hq,     Hkv,    Sq,
                Sk,   D,    q_sb, q_sh, q_ss,  k_sb,   k_sh,   k_ss,
                v_sb, v_sh, v_ss, scale, causal, window, kv_limit, offset};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch<float>(a, s));
-  if (dtype == 1) return static_cast<int>(launch<__nv_bfloat16>(a, s));
+  if (dtype == 0) return static_cast<int>(dispatch<float>(a, s));
+  if (dtype == 1) return static_cast<int>(dispatch<__nv_bfloat16>(a, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -22,7 +22,7 @@ from . import _nvcc
 from . import ref
 
 #: Largest head dimension and query-head group (Hq / Hkv) the kernel takes.
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 MAX_GROUP = 16
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

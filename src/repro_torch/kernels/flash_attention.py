@@ -28,7 +28,7 @@ from . import _nvcc
 from .ref import mha
 
 #: Largest head dimension the kernel takes.
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _LIB = _nvcc.Library(

@@ -1,13 +1,16 @@
-"""Plain PyTorch versions of the attention kernels, the counterparts of
-``repro/kernels/ref.py``'s ``repeat_kv``, ``mha`` and ``decode_attention``.
+"""Plain PyTorch versions of the model kernels, the counterparts of
+``repro/kernels/ref.py``'s ``repeat_kv``, ``mha``, ``decode_attention``,
+``rglru`` and ``wkv6``.
 
 They follow the semantics of the reference's **Pallas kernels**
 (``repro/kernels/flash_attention.py``, ``decode_attention.py``), because that
 is what the port's CUDA kernels compute: scores, probabilities and the PV
 product stay in float32, and the result is cast to the query's dtype once.
 CPU tensors take these functions through the kernel wrappers
-(:mod:`.flash_attention`, :mod:`.decode_attention`); ``chip_smoke.py`` calls
-them directly on the card to hold the kernels against them.
+(:mod:`.flash_attention`, :mod:`.decode_attention`, :mod:`.rglru_scan`,
+:mod:`.wkv6`); ``chip_smoke.py`` calls them directly on the card to hold the
+kernels against them.  The recurrences run as Python loops over time, one
+step at a time in float32, as the Pallas kernels' inner loops do.
 
 One deliberate difference from ``repro.kernels.ref``: a query row with no
 visible key returns **zeros** here, as the Pallas kernels do (their
@@ -78,3 +81,44 @@ def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale=None):
             < lengths.to(q.device).long()[:, None])[:, None, None, :]
     out = _masked_softmax_pv(logits, mask, v_cache.float())   # (B,Hkv,G,D)
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def rglru(x, log_a):
+    """RG-LRU scan (RecurrentGemma, arXiv:2402.19427 eq. 5–6):
+    ``h_t = a_t·h_{t-1} + sqrt(1 - a_t²)·x_t`` elementwise, with ``a_t =
+    exp(log_a_t)`` and ``h_{-1} = 0``.  x, log_a (B, S, D).  Returns (y (B,
+    S, D) in x's dtype, h_final (B, D) float32)."""
+    la = log_a.float()
+    a = torch.exp(la)
+    bx = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * la), min=0.0)) \
+        * x.float()
+    h = torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(x.shape[1]):
+        h = a[:, t] * h + bx[:, t]
+        ys.append(h)
+    y = torch.stack(ys, 1) if ys else torch.zeros_like(x, dtype=torch.float32)
+    return y.to(x.dtype), h
+
+
+def wkv6(r, k, v, w, u):
+    """RWKV-6 (Finch) WKV (arXiv:2404.05892 eq. 18–19), per head with a
+    D×D state S starting at zero:
+    ``y_t = r_tᵀ S_{t-1} + (Σ_d r_d u_d k_d)·v_t`` and
+    ``S_t = diag(w_t) S_{t-1} + k_t v_tᵀ``.
+    r, k, v, w (B, H, S, D); u (H, D).  Returns (y (B, H, S, D) in r's
+    dtype, S_final (B, H, D, D) float32)."""
+    B, H, S, D = r.shape
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()
+    s = torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(S):
+        r_t, k_t, v_t = rf[:, :, t], kf[:, :, t], vf[:, :, t]
+        y = torch.einsum("bhi,bhij->bhj", r_t, s) \
+            + (r_t * uf * k_t).sum(-1, keepdim=True) * v_t
+        s = wf[:, :, t, :, None] * s + k_t[..., None] * v_t[..., None, :]
+        ys.append(y)
+    y = torch.stack(ys, 2) if ys else torch.zeros_like(rf)
+    return y.to(r.dtype), s

@@ -2,11 +2,17 @@
 counterpart of ``repro/launch/serve.py``.
 
 A SharedQueue admits requests, a KVStore keeps the paged KV cache's page
-table, and a dense LM runs prefill and decode with the port's attention
-kernels.  Weights are random, drawn on the device from a seeded generator.
+table, and the model — a dense LM, recurrentgemma or rwkv6 (``--arch``:
+any of ``repro_torch.configs.ARCH_IDS``) — runs prefill and decode with the
+port's kernels.  Weights are random, drawn on the device from a seeded
+generator.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
       --smoke --device cpu --requests 8 --prompt-len 32 --gen-len 16
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch recurrentgemma-2b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+      --smoke --device cpu
 
 ``--device`` defaults to the card.  The replication and fault-injection
 flags of the reference wait for ROADMAP Queue A item 8.
@@ -19,14 +25,14 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.kvstore import DELETE, INSERT
 from repro_torch.serving.engine import ServingEngine
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, default=32)

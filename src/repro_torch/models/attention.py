@@ -1,6 +1,6 @@
-"""GQA attention blocks, the counterpart of the GQA part of
-``repro/models/attention.py`` (MLA and cross-attention wait for the families
-that use them).
+"""GQA/MQA attention blocks with sliding windows, the counterpart of the GQA
+part of ``repro/models/attention.py`` (MLA and cross-attention wait for the
+families that use them).
 
 The inner attention is always the port's kernel wrapper: on a CUDA tensor
 :func:`~repro_torch.kernels.flash_attention.flash_attention` (prefill) and
@@ -51,10 +51,11 @@ def _project_qkv(params, cfg: ArchConfig, x):
     return q, k, v
 
 
-def attention(params, cfg: ArchConfig, x, *, positions=None):
-    """Full-sequence (prefill) causal self-attention.  x (B, S, d) → (out (B, S,
-    d), KVCache of this call's rotated k and v in (B, Hkv, S, hd) layout —
-    strided views of the projections, not copies)."""
+def attention(params, cfg: ArchConfig, x, *, positions=None, window=None):
+    """Full-sequence (prefill) causal self-attention, over the last
+    ``window`` keys when one is given.  x (B, S, d) → (out (B, S, d), KVCache
+    of this call's rotated k and v in (B, Hkv, S, hd) layout — strided views
+    of the projections, not copies)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x)
     pos = positions if positions is not None \
@@ -62,27 +63,31 @@ def attention(params, cfg: ArchConfig, x, *, positions=None):
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-    out = flash_attention(qh, kh, vh, causal=True)
+    out = flash_attention(qh, kh, vh, causal=True, window=window)
     out = out.transpose(1, 2).reshape(B, S, -1)
     return out @ params["wo"], KVCache(kh, vh)
 
 
-def attention_decode(params, cfg: ArchConfig, x, cache: KVCache, pos):
+def attention_decode(params, cfg: ArchConfig, x, cache: KVCache, pos, *,
+                     window=None):
     """One-token decode.  x (B, 1, d); ``cache`` holds S_max slots; ``pos``
     (B,) — each sequence's current length, the new token's index.
 
     The new k/v are written **in place** at slot ``pos[b]``, where the
     reference rewrites the whole cache with a masked ``where``; a ``pos``
-    past the cache writes nothing, as there.  Returns (out (B, 1, d),
-    cache)."""
+    past the cache writes nothing, as there.  With a ``window`` the cache is
+    a ring buffer (recurrentgemma's local attention): position p lives at
+    slot ``p % S_max``.  The query sees ``min(pos + 1, S_max)`` slots.
+    Returns (out (B, 1, d), cache)."""
     B = x.shape[0]
     q, k, v = _project_qkv(params, cfg, x)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)[:, 0]     # (B, Hq, hd)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)[:, 0]     # (B, Hkv, hd)
     v = v[:, 0]
     S_max = cache.k.shape[2]
-    in_range = (pos < S_max)[:, None, None]
-    slot = pos.clamp(0, S_max - 1).long()
+    slot = pos % S_max if window is not None else pos
+    in_range = (slot < S_max)[:, None, None]
+    slot = slot.clamp(0, S_max - 1).long()
     rows = torch.arange(B, device=x.device)
     for buf, new in ((cache.k, k), (cache.v, v)):
         buf[rows, :, slot] = torch.where(in_range, new.to(buf.dtype),

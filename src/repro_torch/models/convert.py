@@ -2,11 +2,18 @@
 
 :func:`params_from_jax` takes the tree of ``repro.models.build_model(cfg)
 .init(key)`` with numpy leaves (``jax.tree.map(np.asarray, params)``) and
-returns the port's dict: the same leaves under the same names, with the
-reference's stacked ``StackParams.super`` (one ``(n, …)`` array per leaf)
-unstacked into a per-layer list.  The parity tests use it; a run on the card
-initialises its own weights there (``Model.init``) and never builds the
-model on the host.
+returns the port's dict: the same leaves under the same names, with stacked
+layers unstacked into the port's per-layer list —
+
+* the LM family's ``StackParams``: its prefix, then superblock i's
+  positions 0 … period−1 for every i (each position one ``(n, …)`` array
+  per leaf), then its suffix — the reference's layer order, as
+  ``transformer.layer_kinds`` lists it;
+* rwkv6's ``{"ln0", "blocks": (L, …)}``: ``ln0`` at the top level and the
+  blocks as ``layers``.
+
+The parity tests use it; a run on the card initialises its own weights
+there (``Model.init``) and never builds the model on the host.
 """
 from __future__ import annotations
 
@@ -30,21 +37,34 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def _first_leaf(tree):
+    return _first_leaf(next(iter(tree.values()))) \
+        if isinstance(tree, dict) else tree
+
+
+def _unstack(stacked, dev):
+    """One ``(n, …)``-leaved dict → n per-layer dicts."""
+    n = len(np.asarray(_first_leaf(stacked)))
+    return [_map(lambda a, i=i: _tensor(np.asarray(a)[i], dev), stacked)
+            for i in range(n)]
+
+
 def params_from_jax(np_tree, device=None):
-    """A dense LM's JAX parameter tree (numpy leaves) → the port's params on
-    ``device`` (default: the card)."""
+    """A JAX LM or rwkv6 parameter tree (numpy leaves) → the port's params
+    on ``device`` (default: the card)."""
     dev = resolve_device(device)
+    out = {k: _map(lambda a: _tensor(a, dev), np_tree[k])
+           for k in ("embed", "final_norm")}
     stack = np_tree["stack"]
+    if isinstance(stack, dict) and "blocks" in stack:          # rwkv6
+        out["ln0"] = _map(lambda a: _tensor(a, dev), stack["ln0"])
+        out["layers"] = _unstack(stack["blocks"], dev)
+        return out
     prefix, sup, suffix = (stack.prefix, stack.super, stack.suffix) \
         if hasattr(stack, "super") else (stack["prefix"], stack["super"],
                                          stack["suffix"])
-    if prefix or suffix or len(sup) != 1:
-        raise NotImplementedError("params_from_jax converts the dense plan "
-                                  "([attn] × L) only")
-    n = len(np.asarray(sup[0]["ln1"]["scale"]))
-    layers = [_map(lambda a, i=i: _tensor(np.asarray(a)[i], dev), sup[0])
-              for i in range(n)]
-    return {"embed": _map(lambda a: _tensor(a, dev), np_tree["embed"]),
-            "layers": layers,
-            "final_norm": _map(lambda a: _tensor(a, dev),
-                               np_tree["final_norm"])}
+    per_position = [_unstack(s, dev) for s in sup]
+    out["layers"] = [_map(lambda a: _tensor(a, dev), p) for p in prefix] \
+        + [layer for group in zip(*per_position) for layer in group] \
+        + [_map(lambda a: _tensor(a, dev), p) for p in suffix]
+    return out

@@ -37,6 +37,19 @@ def rmsnorm(params, x, eps=1e-6):
     return (y * (1.0 + params["scale"])).to(x.dtype)
 
 
+def init_layernorm(d, device):
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm(params, x, eps=1e-5):
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(x.dtype)
+
+
 # -------------------------------------------------------------------- RoPE
 def rope_freqs(head_dim, theta, device=None):
     """(head_dim/2,) float32 inverse frequencies, computed in float64 as the
@@ -68,10 +81,12 @@ def init_mlp(gen, d, d_ff, dtype):
             "wo": dense_init(gen, d_ff, d, dtype)}
 
 
-def mlp(params, x):
-    """SwiGLU: (silu(x W_gate) · x W_up) W_o."""
-    return (F.silu(x @ params["wi_gate"]) * (x @ params["wi_up"])) \
-        @ params["wo"]
+def mlp(params, x, act="silu"):
+    """SwiGLU (``act="silu"``) or GeGLU (``act="gelu"``, tanh-approximate
+    GeLU): (act(x W_gate) · x W_up) W_o."""
+    gate = x @ params["wi_gate"]
+    g = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
+    return (g * (x @ params["wi_up"])) @ params["wo"]
 
 
 # --------------------------------------------------------------- embeddings

@@ -1,5 +1,5 @@
 """Model factory, the counterpart of ``repro/models/model.py``'s
-``build_model`` / ``_build_lm`` for the dense LM family.
+``build_model`` / ``_build_lm`` / ``_build_rwkv``.
 
 ``build_model(cfg)`` returns a :class:`Model` of functions:
 
@@ -9,8 +9,11 @@
   decode_step(params, token, caches, pos[, batch]) → (logits, caches)
   init_cache(batch_size, s_max, device=None) → caches
 
-``batch`` is a dict ``{"tokens": (B, S) int}``.  ``train_loss`` waits for the
-training slice; the other families raise ``NotImplementedError``.
+``batch`` is a dict ``{"tokens": (B, S) int}``; ``caches`` is one entry per
+layer.  The LM family covers the dense models and the hybrid one
+(recurrentgemma); rwkv6 (family ``ssm``) has its own stack.  ``train_loss``
+waits for the training slice; the other families raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,8 +23,10 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.runtime import resolve_device
+from . import rwkv6 as W
 from . import transformer as T
-from .layers import embed, init_embedding, init_rmsnorm, rmsnorm, unembed
+from .layers import (embed, init_embedding, init_layernorm, init_rmsnorm,
+                     layernorm, rmsnorm, unembed)
 
 
 class Model(NamedTuple):
@@ -34,15 +39,34 @@ class Model(NamedTuple):
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported; the port "
-            f"builds dense models only (the other families are ROADMAP "
-            f"Queue A item 11)")
-    return _build_lm(cfg)
+    if cfg.family in ("dense", "hybrid"):
+        return _build_lm(cfg)
+    if cfg.family == "ssm":
+        return _build_rwkv(cfg)
+    raise NotImplementedError(
+        f"{cfg.name}: family {cfg.family!r} is not ported; the port builds "
+        f"the dense, hybrid and ssm families (the others are ROADMAP Queue A "
+        f"item 11)")
 
 
+def _tokens(params, batch):
+    return torch.as_tensor(batch["tokens"]).to(
+        params["embed"]["table"].device).long()
+
+
+def _last_pos(tokens):
+    return torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.int32,
+                      device=tokens.device)
+
+
+# ---------------------------------------------------------------- LM family
 def _build_lm(cfg: ArchConfig) -> Model:
+    # the reference multiplies by sqrt(d) cast to the model dtype first (in
+    # bf16, 50.5 for d = 2560); the product of two such values is exact in
+    # float32, so one rounding to the model dtype gives the reference's bits
+    embed_scale = float(torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype_)) \
+        if cfg.scale_embed else None
+
     def init(generator: torch.Generator):
         """Random weights, drawn from ``generator`` on its device."""
         return {"embed": init_embedding(generator, cfg.vocab, cfg.d_model,
@@ -50,15 +74,14 @@ def _build_lm(cfg: ArchConfig) -> Model:
                 "layers": T.init_stack(generator, cfg),
                 "final_norm": init_rmsnorm(cfg.d_model, generator.device)}
 
-    def _tokens(params, batch):
-        return torch.as_tensor(batch["tokens"]).to(
-            params["embed"]["table"].device).long()
+    def _embed_in(params, tokens):
+        x = embed(params["embed"], tokens)
+        return x * embed_scale if embed_scale is not None else x
 
     def logits(params, batch):
-        tokens = _tokens(params, batch)
-        x = embed(params["embed"], tokens)
-        for p in params["layers"]:
-            x, _kv = T.apply_block_train(p, cfg, x)
+        x = _embed_in(params, _tokens(params, batch))
+        for kind, p in zip(T.layer_kinds(cfg), params["layers"]):
+            x, _cache = T.apply_block_train(p, cfg, kind, x)
         h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return unembed(params["embed"], h, cfg.tie_embeddings)
 
@@ -68,20 +91,58 @@ def _build_lm(cfg: ArchConfig) -> Model:
 
     def prefill(params, batch, s_max):
         tokens = _tokens(params, batch)
-        x = embed(params["embed"], tokens)
+        x = _embed_in(params, tokens)
         x, caches = T.fill_stack_cache(params["layers"], cfg, x, s_max)
         h = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
         lg = unembed(params["embed"], h, cfg.tie_embeddings)[:, 0]
-        pos = torch.full((tokens.shape[0],), tokens.shape[1],
-                         dtype=torch.int32, device=tokens.device)
-        return lg, caches, pos
+        return lg, caches, _last_pos(tokens)
 
     def decode_step(params, token, caches, pos, batch=None):
-        x = embed(params["embed"], _tokens(params, {"tokens": token}))
+        x = _embed_in(params, _tokens(params, {"tokens": token}))
         x, caches = T.apply_stack_decode(params["layers"], cfg, x, caches,
                                          pos)
         h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         lg = unembed(params["embed"], h, cfg.tie_embeddings)[:, 0]
         return lg, caches
+
+    return Model(cfg, init, logits, prefill, decode_step, init_cache)
+
+
+# --------------------------------------------------------------------- rwkv6
+def _build_rwkv(cfg: ArchConfig) -> Model:
+    def init(generator: torch.Generator):
+        """Random weights, drawn from ``generator`` on its device: an untied
+        embedding and head, ``ln0`` before the first block."""
+        return {"embed": init_embedding(generator, cfg.vocab, cfg.d_model,
+                                        cfg.dtype_, False),
+                "ln0": init_layernorm(cfg.d_model, generator.device),
+                "layers": W.init_rwkv_stack(generator, cfg),
+                "final_norm": init_rmsnorm(cfg.d_model, generator.device)}
+
+    def _hidden(params, tokens, states=None):
+        x = layernorm(params["ln0"], embed(params["embed"], tokens),
+                      cfg.norm_eps)
+        return W.apply_rwkv_stack(params["layers"], cfg, x, states)
+
+    def logits(params, batch):
+        x, _states = _hidden(params, _tokens(params, batch))
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return unembed(params["embed"], x, False)
+
+    def init_cache(batch_size, s_max, device=None):
+        return W.init_rwkv_caches(cfg, batch_size, resolve_device(device))
+
+    def prefill(params, batch, s_max):
+        tokens = _tokens(params, batch)
+        x, states = _hidden(params, tokens)
+        x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+        return unembed(params["embed"], x, False)[:, 0], states, \
+            _last_pos(tokens)
+
+    def decode_step(params, token, states, pos, batch=None):
+        x, states = _hidden(params, _tokens(params, {"tokens": token}),
+                            states)
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return unembed(params["embed"], x, False)[:, 0], states
 
     return Model(cfg, init, logits, prefill, decode_step, init_cache)

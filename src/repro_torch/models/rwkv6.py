@@ -1,0 +1,191 @@
+"""RWKV-6 "Finch" blocks (arXiv:2404.05892), the counterpart of
+``repro/models/rwkv6.py``: attention-free token mixing with a
+data-dependent per-channel decay, and squared-ReLU channel mixing.
+
+Time mixing (per layer):
+  token shift  x'_t = lerp(x_t, x_{t-1}, μ_*)  per projection
+  r, k, v, g   linear projections (g gated through silu)
+  w_t          data-dependent decay: w = exp(-exp(w0 + tanh(x'_w A) B))
+  wkv          the WKV6 recurrence
+  out          groupnorm(per head) → ⊙ silu(g) → output linear
+
+Channel mixing: token shift, k = relu(x' Wk)², out = σ(x' Wr) ⊙ (k Wv).
+
+Prefill runs the WKV through :func:`~repro_torch.kernels.wkv6.wkv6` (the
+CUDA kernel on the card, its plain version on the CPU) from a zero state,
+as the reference's ``impl="pallas"`` branch does: v, w and u are cast to
+r's dtype first.  Decode is the one-token recurrence written out in float32
+from the carried state.
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..kernels.wkv6 import wkv6
+from .layers import dense_init, init_layernorm, layernorm
+
+_DECAY_LORA = 64
+
+
+def init_time_mix(gen, cfg: ArchConfig):
+    d, dt, dev = cfg.d_model, cfg.dtype_, gen.device
+    hd = cfg.n_heads * cfg.head_dim_
+    return {
+        "mu": torch.full((5, d), 0.5, dtype=dt, device=dev),  # r,k,v,w,g
+        "wr": dense_init(gen, d, hd, dt),
+        "wk": dense_init(gen, d, hd, dt),
+        "wv": dense_init(gen, d, hd, dt),
+        "wg": dense_init(gen, d, hd, dt),
+        "w0": torch.full((hd,), -4.0, dtype=torch.float32, device=dev),
+        "w_lora_a": dense_init(gen, d, _DECAY_LORA, dt),
+        "w_lora_b": dense_init(gen, _DECAY_LORA, hd, dt),
+        "u": torch.randn((cfg.n_heads, cfg.head_dim_), generator=gen,
+                         device=dev, dtype=torch.float32) * 0.1,
+        "ln_x": init_layernorm(hd, dev),
+        "wo": dense_init(gen, hd, d, dt),
+    }
+
+
+def init_channel_mix(gen, cfg: ArchConfig):
+    d, dt = cfg.d_model, cfg.dtype_
+    return {
+        "mu": torch.full((2, d), 0.5, dtype=dt, device=gen.device),  # k, r
+        "wk": dense_init(gen, d, cfg.d_ff, dt),
+        "wv": dense_init(gen, cfg.d_ff, d, dt),
+        "wr": dense_init(gen, d, d, dt),
+    }
+
+
+class RWKVState(NamedTuple):
+    wkv: torch.Tensor       # (B, H, D, D) float32
+    shift_t: torch.Tensor   # (B, d) last input of the time-mix sublayer
+    shift_c: torch.Tensor   # (B, d) last input of the channel-mix sublayer
+
+
+def init_rwkv_state(cfg: ArchConfig, batch: int, device) -> RWKVState:
+    hd = cfg.head_dim_
+    return RWKVState(
+        wkv=torch.zeros((batch, cfg.n_heads, hd, hd), dtype=torch.float32,
+                        device=device),
+        shift_t=torch.zeros((batch, cfg.d_model), dtype=cfg.dtype_,
+                            device=device),
+        shift_c=torch.zeros((batch, cfg.d_model), dtype=cfg.dtype_,
+                            device=device))
+
+
+def _groupnorm_heads(params, y, H, hd, eps=64e-5):
+    """RWKV's GroupNorm with one group per head."""
+    B, S, _ = y.shape
+    y4 = y.reshape(B, S, H, hd).float()
+    mu = y4.mean(-1, keepdim=True)
+    var = y4.var(-1, unbiased=False, keepdim=True)
+    yn = (y4 - mu) * torch.rsqrt(var + eps)
+    yn = yn * params["scale"].reshape(H, hd) + params["bias"].reshape(H, hd)
+    return yn.reshape(B, S, H * hd).to(y.dtype)
+
+
+def _token_shift(x, prev):
+    """x (B, S, d) → x shifted right by one; position 0 sees ``prev``."""
+    return torch.cat([prev[:, None], x[:, :-1]], dim=1)
+
+
+def _decay(params, xw):
+    """Data-dependent decay in (0, 1), float32."""
+    delta = torch.tanh(xw @ params["w_lora_a"]) @ params["w_lora_b"]
+    return torch.exp(-torch.exp(params["w0"] + delta.float()))
+
+
+def _wkv6_step(r, k, v, w, u, s):
+    """One token of the WKV from state ``s``, in float32.  r, k, v, w (B, H,
+    D); u (H, D); s (B, H, D, D).  Returns (y (B, H, D) in r's dtype, new
+    s)."""
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    y = torch.einsum("bhi,bhij->bhj", rf, s) \
+        + (rf * u.float() * kf).sum(-1, keepdim=True) * vf
+    s = wf[..., None] * s + kf[..., None] * vf[..., None, :]
+    return y.to(r.dtype), s
+
+
+def time_mix(params, x, cfg: ArchConfig, state=None):
+    """x (B, S, d) → (out (B, S, d), wkv state (B, H, D, D), x[:, -1]).
+    Without ``state`` (prefill) the WKV starts from zero and runs through
+    the kernel; with it (decode, S = 1) one step runs from ``state``."""
+    B, S, d = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim_
+    prev = state.shift_t if state is not None else x.new_zeros((B, d))
+    xs = _token_shift(x, prev)
+    mu = params["mu"]
+    xr, xk, xv, xw, xg = (x + (xs - x) * mu[i] for i in range(5))
+    r = (xr @ params["wr"]).reshape(B, S, H, hd)
+    k = (xk @ params["wk"]).reshape(B, S, H, hd)
+    v = (xv @ params["wv"]).reshape(B, S, H, hd)
+    g = xg @ params["wg"]
+    w = _decay(params, xw).reshape(B, S, H, hd)
+    if state is None:
+        rt, kt, vt, wt = (t.transpose(1, 2) for t in (r, k, v, w))
+        y, s_fin = wkv6(rt, kt, vt.to(r.dtype), wt.to(r.dtype),
+                        params["u"].to(r.dtype))
+        y = y.transpose(1, 2)
+    else:
+        y, s_fin = _wkv6_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0],
+                              params["u"], state.wkv)
+        y = y[:, None]
+    y = _groupnorm_heads(params["ln_x"], y.reshape(B, S, H * hd), H, hd)
+    y = y * F.silu(g)
+    return y @ params["wo"], s_fin, x[:, -1]
+
+
+def channel_mix(params, x, state=None):
+    """x (B, S, d) → (out (B, S, d), x[:, -1])."""
+    B, S, d = x.shape
+    prev = state.shift_c if state is not None else x.new_zeros((B, d))
+    xs = _token_shift(x, prev)
+    mu = params["mu"]
+    xk = x + (xs - x) * mu[0]
+    xr = x + (xs - x) * mu[1]
+    k = torch.square(torch.relu(xk @ params["wk"]))
+    r = torch.sigmoid(xr @ params["wr"])
+    return r * (k @ params["wv"]), x[:, -1]
+
+
+# ------------------------------------------------------------------ the stack
+def init_rwkv_block(gen, cfg: ArchConfig):
+    return {"ln1": init_layernorm(cfg.d_model, gen.device),
+            "time": init_time_mix(gen, cfg),
+            "ln2": init_layernorm(cfg.d_model, gen.device),
+            "chan": init_channel_mix(gen, cfg)}
+
+
+def init_rwkv_stack(gen, cfg: ArchConfig) -> List[dict]:
+    return [init_rwkv_block(gen, cfg) for _ in range(cfg.n_layers)]
+
+
+def init_rwkv_caches(cfg: ArchConfig, batch: int, device) -> List[RWKVState]:
+    return [init_rwkv_state(cfg, batch, device) for _ in range(cfg.n_layers)]
+
+
+def apply_rwkv_block(p, cfg: ArchConfig, x, state=None):
+    """One block over x (B, S, d): prefill from zero state (``state`` None)
+    or one decode step.  Returns (x', RWKVState); the shift states are the
+    *normalised* sublayer inputs' last tokens."""
+    h, s_fin, sh_t = time_mix(p["time"], layernorm(p["ln1"], x, cfg.norm_eps),
+                              cfg, state)
+    x = x + h
+    h, sh_c = channel_mix(p["chan"], layernorm(p["ln2"], x, cfg.norm_eps),
+                          state)
+    return x + h, RWKVState(wkv=s_fin, shift_t=sh_t, shift_c=sh_c)
+
+
+def apply_rwkv_stack(layers, cfg: ArchConfig, x, states=None):
+    """x (B, S, d), already through ``ln0`` → (hidden, per-layer states):
+    prefill without ``states``, a decode step with them."""
+    new = []
+    for i, p in enumerate(layers):
+        x, st = apply_rwkv_block(p, cfg, x,
+                                 None if states is None else states[i])
+        new.append(st)
+    return x, new

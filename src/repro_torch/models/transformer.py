@@ -1,10 +1,19 @@
-"""Decoder-only transformer stack, the counterpart of the dense plan of
-``repro/models/transformer.py`` (``[attn] × L``).
+"""Decoder-only transformer stack, the counterpart of the dense and hybrid
+plans of ``repro/models/transformer.py``.
 
-The reference scans stacked ``(n, …)`` parameters with ``layer_scan``; the
-port keeps one parameter dict per layer in a list and loops over it in
-Python.  Other layer plans (MoE, MLA, hybrid, cross-attention) wait for their
-families (ROADMAP Queue A item 11).
+A stack is a flat list of block kinds (:func:`layer_kinds`), in the
+reference's layer order: ``attn × L`` for the dense family, and for the
+hybrid family (recurrentgemma) ``[rec, rec, local] × n`` followed by the
+``rec`` layers left over.  The reference scans stacked ``(n, …)``
+parameters per superblock position with ``layer_scan``; the port keeps one
+parameter dict per layer in a list and loops over it in Python.  Other
+layer plans (MoE, MLA, cross-attention) wait for their families (ROADMAP
+Queue A item 11).
+
+Kinds: ``attn`` (causal GQA attention), ``local`` (attention over the last
+``hybrid.window`` keys, with a ring-buffer decode cache of ``min(s_max,
+window)`` slots) and ``rec`` (the RG-LRU block with a :class:`RecState`
+cache); each is followed by the gated MLP.
 """
 from __future__ import annotations
 
@@ -14,52 +23,91 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import attention as A
+from . import rglru as R
 from .layers import init_mlp, init_rmsnorm, mlp, rmsnorm
 
 
-def init_block(gen, cfg: ArchConfig):
-    return {"ln1": init_rmsnorm(cfg.d_model, gen.device),
-            "ln2": init_rmsnorm(cfg.d_model, gen.device),
-            "attn": A.init_attention(gen, cfg),
-            "ffn": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype_)}
+def layer_kinds(cfg: ArchConfig) -> List[str]:
+    """Every layer's block kind, in order."""
+    if cfg.family == "hybrid":
+        period = cfg.hybrid.pattern_period
+        block = ["rec"] * (period - 1) + ["local"]
+        n = cfg.n_layers // period
+        return block * n + ["rec"] * (cfg.n_layers - n * period)
+    return ["attn"] * cfg.n_layers
 
 
-def apply_block_train(params, cfg: ArchConfig, x, positions=None):
-    """x (B, S, d) → (x', KVCache).  Where the reference returns an auxiliary
-    loss (zero for a dense block), the port returns the block's rotated k/v,
-    which prefill stores as the decode cache."""
+def _window(cfg: ArchConfig, kind: str):
+    return cfg.hybrid.window if kind == "local" else None
+
+
+def init_block(gen, cfg: ArchConfig, kind: str):
+    p = {"ln1": init_rmsnorm(cfg.d_model, gen.device),
+         "ln2": init_rmsnorm(cfg.d_model, gen.device)}
+    if kind == "rec":
+        p["temporal"] = R.init_rglru(gen, cfg)
+    else:
+        p["attn"] = A.init_attention(gen, cfg)
+    p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype_)
+    return p
+
+
+def apply_block_train(params, cfg: ArchConfig, kind: str, x, positions=None):
+    """x (B, S, d) → (x', cache).  Where the reference returns an auxiliary
+    loss (zero for these blocks), the port returns what prefill stores as
+    the decode cache: the attention's rotated k/v, or the recurrent block's
+    final :class:`RecState`."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    a_out, kv = A.attention(params["attn"], cfg, h, positions=positions)
-    x = x + a_out
+    if kind == "rec":
+        out, cache = R.rglru_block(params["temporal"], h)
+    else:
+        out, cache = A.attention(params["attn"], cfg, h, positions=positions,
+                                 window=_window(cfg, kind))
+    x = x + out
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + mlp(params["ffn"], h), kv
+    return x + mlp(params["ffn"], h, cfg.act), cache
 
 
-def apply_block_decode(params, cfg: ArchConfig, x, cache: A.KVCache, pos):
-    """x (B, 1, d), pos (B,) → (x', cache), the cache updated in place."""
+def apply_block_decode(params, cfg: ArchConfig, kind: str, x, cache, pos):
+    """x (B, 1, d), pos (B,) → (x', cache); an attention cache is updated in
+    place."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    a_out, cache = A.attention_decode(params["attn"], cfg, h, cache, pos)
-    x = x + a_out
+    if kind == "rec":
+        out, cache = R.rglru_block_decode(params["temporal"], h, cache)
+    else:
+        out, cache = A.attention_decode(params["attn"], cfg, h, cache, pos,
+                                        window=_window(cfg, kind))
+    x = x + out
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + mlp(params["ffn"], h), cache
+    return x + mlp(params["ffn"], h, cfg.act), cache
 
 
 def init_stack(gen, cfg: ArchConfig) -> List[dict]:
-    return [init_block(gen, cfg) for _ in range(cfg.n_layers)]
+    return [init_block(gen, cfg, kind) for kind in layer_kinds(cfg)]
 
 
-def init_stack_cache(cfg: ArchConfig, batch: int, s_max: int,
-                     device) -> List[A.KVCache]:
-    shape = (batch, cfg.n_kv_heads, s_max, cfg.head_dim_)
-    return [A.KVCache(torch.zeros(shape, dtype=cfg.dtype_, device=device),
-                      torch.zeros(shape, dtype=cfg.dtype_, device=device))
-            for _ in range(cfg.n_layers)]
+def _cache_slots(cfg: ArchConfig, kind: str, s_max: int) -> int:
+    return min(s_max, cfg.hybrid.window) if kind == "local" else s_max
+
+
+def init_stack_cache(cfg: ArchConfig, batch: int, s_max: int, device):
+    caches = []
+    for kind in layer_kinds(cfg):
+        if kind == "rec":
+            caches.append(R.init_rec_state(cfg, batch, device))
+            continue
+        shape = (batch, cfg.n_kv_heads, _cache_slots(cfg, kind, s_max),
+                 cfg.head_dim_)
+        caches.append(A.KVCache(
+            torch.zeros(shape, dtype=cfg.dtype_, device=device),
+            torch.zeros(shape, dtype=cfg.dtype_, device=device)))
+    return caches
 
 
 def apply_stack_decode(params, cfg: ArchConfig, x, caches, pos):
     new = []
-    for p, c in zip(params, caches):
-        x, c = apply_block_decode(p, cfg, x, c, pos)
+    for kind, p, c in zip(layer_kinds(cfg), params, caches):
+        x, c = apply_block_decode(p, cfg, kind, x, c, pos)
         new.append(c)
     return x, new
 
@@ -67,25 +115,34 @@ def apply_stack_decode(params, cfg: ArchConfig, x, caches, pos):
 def fill_stack_cache(params, cfg: ArchConfig, x, s_max: int,
                      positions=None):
     """Prefill: run the stack over the prompt, returning the final hidden
-    states and every layer's cache padded to ``s_max``."""
+    states and every layer's decode cache: the recurrent state, or the k/v
+    laid out in ``s_max`` (``min(s_max, window)`` for a local layer)
+    slots."""
     caches = []
-    for p in params:
-        x, kv = apply_block_train(p, cfg, x, positions)
-        caches.append(_block_prefill_cache(kv, s_max))
+    for kind, p in zip(layer_kinds(cfg), params):
+        x, c = apply_block_train(p, cfg, kind, x, positions)
+        caches.append(c if kind == "rec" else
+                      _block_prefill_cache(c, _cache_slots(cfg, kind, s_max),
+                                           ring=kind == "local"))
     return x, caches
 
 
-def _block_prefill_cache(kv: A.KVCache, s_max: int) -> A.KVCache:
-    """The decode cache from the prompt's k/v, zero-padded to ``s_max``: the
-    reference recomputes k/v from the block input, the port reuses the
-    attention's own (the same values)."""
+def _block_prefill_cache(kv: A.KVCache, slots: int, ring: bool) -> A.KVCache:
+    """The decode cache from the prompt's k/v: zero-padded to ``slots``, or,
+    for a ring buffer (``ring``) holding no more slots than the prompt has
+    tokens, its last ``slots`` positions with position p at slot
+    ``p % slots``.  The reference recomputes k/v from the block input; the
+    port reuses the attention's own (the same values)."""
     B, H, S, D = kv.k.shape
-    if S > s_max:
-        raise ValueError(f"a {S}-token prompt does not fit a {s_max}-slot "
+    if ring and S >= slots:
+        return A.KVCache(*(torch.roll(t[:, :, S - slots:], S % slots, dims=2)
+                           for t in kv))
+    if S > slots:
+        raise ValueError(f"a {S}-token prompt does not fit a {slots}-slot "
                          f"cache")
     out = []
     for t in kv:
-        c = torch.zeros((B, H, s_max, D), dtype=t.dtype, device=t.device)
+        c = torch.zeros((B, H, slots, D), dtype=t.dtype, device=t.device)
         c[:, :, :S] = t
         out.append(c)
     return A.KVCache(*out)

@@ -36,6 +36,8 @@ def _inputs(seed, *shapes):
     (1, 2, 2, 130, 130, 16, True, None),     # Sk padded to the tile: kv_valid
     (1, 3, 1, 16, 130, 16, True, None),      # padding shifts the diagonal
     (1, 2, 1, 130, 130, 8, False, None),     # padded, unmasked
+    (1, 10, 1, 40, 40, 256, True, 16),       # head_dim 256, MQA G=10, window
+    (1, 10, 1, 136, 136, 256, True, 64),     # the same, padded, tiles skipped
 ])
 def test_flash_attention_matches_pallas(B, Hq, Hkv, Sq, Sk, D, causal,
                                         window):
@@ -56,6 +58,7 @@ def test_flash_attention_matches_pallas(B, Hq, Hkv, Sq, Sk, D, causal,
     (2, 4, 2, 48, 12, [48, 5]),
     (4, 6, 2, 64, 16, [1, 64, 33, 2]),
     (1, 3, 1, 300, 16, [257]),               # cache padded to the tile
+    (2, 10, 1, 48, 256, [48, 17]),           # head_dim 256, MQA G=10
 ])
 def test_decode_attention_matches_pallas(B, Hq, Hkv, S, D, lengths):
     q, kc, vc = _inputs(S + B, (B, Hq, D), (B, Hkv, S, D), (B, Hkv, S, D))

@@ -32,16 +32,22 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["recurrentgemma-2b", "rwkv6-7b"])
 def test_configs_match_the_reference(arch):
     from repro.configs import get_config as jax_config
     for port, ref in [(get_config(arch), jax_config(arch)),
                       (get_smoke_config(arch), jax_smoke(arch))]:
         for f in ("name", "family", "n_layers", "d_model", "n_heads",
                   "n_kv_heads", "d_ff", "vocab", "head_dim_", "qk_norm",
-                  "norm_eps", "rope_theta", "tie_embeddings", "dtype"):
+                  "act", "norm_eps", "rope_theta", "tie_embeddings", "dtype",
+                  "scale_embed"):
             assert getattr(port, f) == getattr(ref, f), f
-        assert (ref.act, ref.scale_embed) == ("silu", False)
+        if ref.hybrid is None:
+            assert port.hybrid is None
+        else:
+            for f in ("lru_width", "window", "pattern_period", "conv_width"):
+                assert getattr(port.hybrid, f) == getattr(ref.hybrid, f), f
+        assert (ref.moe, ref.mla, ref.cross) == (None, None, None)
         assert port.dtype_ == torch.bfloat16
         assert port.replace(dtype="float32").dtype_ == torch.float32
 
@@ -102,11 +108,11 @@ def test_prefill_and_decode_match_the_reference(arch):
         np.testing.assert_allclose(c.v.numpy(), jc.v[i], **TOL)
 
 
-def test_unported_families_are_refused():
-    cfg = get_smoke_config("llama3.2-3b")
-    for bad in (cfg.replace(family="ssm"), cfg.replace(family="hybrid")):
-        with pytest.raises(NotImplementedError, match="Queue A item 11"):
-            build_model(bad)
+@pytest.mark.parametrize("family", ["moe", "vlm", "audio"])
+def test_unported_families_are_refused(family):
+    cfg = get_smoke_config("llama3.2-3b").replace(family=family)
+    with pytest.raises(NotImplementedError, match="Queue A item 11"):
+        build_model(cfg)
 
 
 def test_init_draws_from_the_generator():

@@ -1,14 +1,15 @@
 """The port's ServingEngine against the JAX package's, mirroring
-tests/test_serving_and_roofline.py::TestServingEngine: the llama3.2-3b smoke
-config in float32, max_batch=2, max_seq=48, four 12-token prompts, 4
-generated tokens each.  The port's engine carries the JAX engine's weights
+tests/test_serving_and_roofline.py::TestServingEngine: the smoke configs of
+llama3.2-3b (dense), recurrentgemma-2b (hybrid) and rwkv6-7b (ssm) in
+float32, max_batch=2, max_seq=48, four 12-token prompts, 4 generated tokens
+each.  The port's engine carries the JAX engine's weights
 (``params_from_jax``) and runs on the CPU.
 
 Checked: the generated tokens are equal; ``stats()["kv_ops"]`` and
 ``["locality"]`` are equal; the page-table ``KVStoreState`` (read cache
 included) and the admission queue's state are bitwise equal.  The logits
-agree to float32 rounding (tests/test_torch_model.py), so greedy tokens are
-compared exactly."""
+agree to float32 rounding (tests/test_torch_model.py,
+tests/test_torch_recurrent.py), so greedy tokens are compared exactly."""
 import numpy as np
 import pytest
 
@@ -23,14 +24,15 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serving import MAX_WINDOW, P_NODES, ServingEngine  # noqa: E402
 
 
-@pytest.fixture(scope="module")
-def engines():
+@pytest.fixture(scope="module",
+                params=["llama3.2-3b", "recurrentgemma-2b", "rwkv6-7b"])
+def engines(request):
     reference_core()
     from repro.configs import get_smoke_config as jax_smoke
     from repro.serving.engine import ServingEngine as JaxEngine
-    jcfg = jax_smoke("llama3.2-3b").replace(dtype="float32")
+    jcfg = jax_smoke(request.param).replace(dtype="float32")
     jeng = JaxEngine(jcfg, max_batch=2, max_seq=48)
-    cfg = get_smoke_config("llama3.2-3b").replace(dtype="float32")
+    cfg = get_smoke_config(request.param).replace(dtype="float32")
     eng = ServingEngine(cfg, max_batch=2, max_seq=48, device="cpu",
                         params=params_from_jax(jax_to_numpy(jeng.params),
                                                device="cpu"))
