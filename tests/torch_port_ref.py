@@ -39,6 +39,14 @@ def reference_core():
     return core
 
 
+# Imported here, while the module loads: pytest collects every test file
+# before it runs a test, an xdist worker too, so each process that collects
+# a port test has ``repro.core`` in ``sys.modules`` before its first test.
+# Tests that import ``repro.core`` themselves (``tests/test_examples.py``,
+# through the examples) then pass whichever file their process ran first.
+reference_core()
+
+
 def locked_ledger(mgr):
     """Give a reference manager an enabled traffic ledger whose host
     callbacks update their totals under a lock.
