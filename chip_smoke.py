@@ -9,7 +9,7 @@ toolkit:
 It imports neither JAX nor the JAX package.  Phases, in order; any failure
 exits non-zero and prints no result:
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (five
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (six
    sources) with nvcc, one process per source, all at once;
 2. hold each kernel against its plain PyTorch version on the card: the
    remote-DMA kernels at the KVStore path's shapes (outputs and measured
@@ -19,25 +19,31 @@ exits non-zero and prints no result:
    bfloat16 within 2e-2 of the float32 plain result on the same inputs),
    the RG-LRU and WKV6 kernels at their serving shapes and at odd ones, in
    float32 and bfloat16, outputs and final states (tolerances at
-   ``REC_TOL``);
+   ``REC_TOL``), and the grouped matmul at llama4-maverick's expert shapes
+   (prefill: 3072 slot rows in blocks of 24; decode: 1024 rows in blocks of
+   8; 128 experts of 5120 x 8192 and 8192 x 5120) and at odd ones, in
+   float32 and bfloat16 (tolerances at ``GMM_TOL``);
 3. run the same work on the card and on the CPU: a P=4 store through 20
    windows (states and results bitwise equal after every window) and the
-   smoke llama3.2-3b, recurrentgemma-2b and rwkv6-7b ServingEngines in
-   float32 with one set of weights each (equal tokens, bitwise equal
-   page-table state);
+   smoke llama3.2-3b, recurrentgemma-2b, rwkv6-7b and llama4-maverick
+   ServingEngines in float32 with one set of weights each (equal tokens,
+   bitwise equal page-table state);
 4. the KVStore path — ``KVStore.op_window`` on the remote-DMA backend — at a
    deployment's size: P=8 participants, K=2**22 keys, 8-byte values,
    windows of 512 lanes per participant; prefill 80% of K, then 20 windows
    of 60/20/10/10 GET/UPDATE/INSERT/DELETE over distinct uniform keys and
    20 windows of 95/5 GET/UPDATE over zipf(0.99) keys; every GET and every
    ``found`` is checked against a numpy oracle of the window semantics;
-5. the serving paths — ``ServingEngine.generate`` at full published width
-   and depth, bf16, random weights drawn on the card from a seeded
-   generator, 8 requests of 32 generated tokens in batches of 4 — on
-   llama3.2-3b (512-token prompts), recurrentgemma-2b (2304-token prompts,
-   so its 2048-token window and ring-buffer cache bind) and rwkv6-7b
-   (512-token prompts), one after the other, each engine freed before the
-   next; page-table, locality, logit and launch-count checks;
+5. the serving paths — ``ServingEngine.generate`` at full published width,
+   bf16, random weights drawn on the card from a seeded generator, 8
+   requests of 32 generated tokens in batches of 4 — on llama3.2-3b
+   (512-token prompts), recurrentgemma-2b (2304-token prompts, so its
+   2048-token window and ring-buffer cache bind), rwkv6-7b (512-token
+   prompts) at full depth, and llama4-maverick-400b-a17b (512-token
+   prompts) cut to 4 of its 48 layers, two [dense, MoE] periods, so that
+   its bf16 weights (65.3 GiB) fit the card; one after the other, each
+   engine freed before the next; page-table, locality, logit and
+   launch-count checks;
 6. report the end-to-end numbers of every path, each kernel's launches on
    its path, its time beside its plain version's, one PyTorch call's and
    its bound, the card's name and power limit, and last the result line.
@@ -82,10 +88,13 @@ SERVE_PROMPT = 512
 SERVE_GEN = 32
 SERVE_BATCH = 4
 RG_PROMPT = 2304               # recurrentgemma: past its 2048-token window
+MOE_ARCH = "llama4-maverick-400b-a17b"
+MOE_LAYERS = 4                 # of 48: two [attn_dense, attn_moe] periods
 SERVE_PATHS = [
     dict(arch=SERVE_ARCH, prompt=SERVE_PROMPT),
     dict(arch="recurrentgemma-2b", prompt=RG_PROMPT),
     dict(arch="rwkv6-7b", prompt=SERVE_PROMPT),
+    dict(arch=MOE_ARCH, prompt=SERVE_PROMPT, n_layers=MOE_LAYERS),
 ]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # RG-LRU and WKV6 against their plain versions, as max abs error over
@@ -97,6 +106,15 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # are float32 on both sides, so they take the float32 tolerance.
 REC_TOL = {("rglru_scan", "float32"): 1e-5, ("wkv6", "float32"): 1e-4,
            ("rglru_scan", "bfloat16"): 1e-2, ("wkv6", "bfloat16"): 1e-2}
+# The grouped matmul against its plain version on the same inputs and dtype,
+# as max abs error over max(1, max |plain|): both sum up to 8192 float32
+# products in other orders (rounding walks of ~2^-24·sqrt(8192) of the
+# output's size); in bfloat16 each side then rounds once, so the outputs may
+# differ by one bfloat16 step (2^-8 relative).
+GMM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# llama4-maverick's expert shapes: d_model 5120, d_ff_expert 8192, 128
+# experts; capacity 24 slots for a 4 x 512-token prefill, 8 for a decode step
+MOE_D, MOE_F, MOE_E, MOE_C_PREFILL, MOE_C_DECODE = 5120, 8192, 128, 24, 8
 
 
 class SmokeFailure(Exception):
@@ -402,6 +420,73 @@ def phase_recurrent_kernels(torch, kernels):
                 f"(tolerance {tol}), final state {e_state:.3g} (tolerance "
                 f"{tol_state})")
     return cases, errs
+
+
+def gmm_cases():
+    """(label, E, Din, Dout, T, block_t, block_expert, misaligned w) per
+    grouped-matmul case: llama4-maverick's expert products as its MoE layers
+    make them (gate/up: 5120 -> 8192, wo: 8192 -> 5120; prefill: 128 experts
+    x 24 slots; decode: x 8; block i on expert i), then odd ones — ragged
+    Din and Dout, Dout not a multiple of the 16-byte vector, a block of more
+    than one 32-row chunk, one-row blocks, a weight tensor off 16-byte
+    alignment (the kernel's scalar path), Din = 0 — with unsorted block
+    experts that repeat."""
+    cases = []
+    for din, dout in ((MOE_D, MOE_F), (MOE_F, MOE_D)):
+        for phase, c in (("prefill", MOE_C_PREFILL), ("decode", MOE_C_DECODE)):
+            cases.append((f"{phase} {din}->{dout}", MOE_E, din, dout,
+                          MOE_E * c, c, "arange", False))
+    cases += [("Din 100 Dout 77 block_t 7", 3, 100, 77, 35, 7, "random",
+               False),
+              ("Din 37 Dout 264 block_t 40", 4, 37, 264, 120, 40, "random",
+               False),
+              ("block_t 1", 5, 513, 136, 9, 1, "random", False),
+              ("misaligned w", 3, 64, 512, 48, 8, "random", True),
+              ("Din 0", 2, 0, 16, 16, 8, "random", False)]
+    return cases
+
+
+def phase_gmm_kernel(torch, kernels):
+    """The grouped matmul against its plain version, on the same inputs in
+    the same dtype; the weights of a full-width case (21.5 GB in float32)
+    live only while their case runs."""
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    kern = kernels["gmm"]
+    err = 0.0
+    for label, E, din, dout, T, bt, order, misaligned in gmm_cases():
+        w32 = torch.randn((E, din, dout), generator=g, device="cuda")
+        w32.mul_(1.0 / max(din, 1) ** 0.5)
+        x32 = torch.randn((T, din), generator=g, device="cuda")
+        be = torch.arange(E, dtype=torch.int32, device="cuda") \
+            if order == "arange" else torch.randint(
+                0, E, (T // bt,), generator=g, device="cuda",
+                dtype=torch.int32)
+        for dt in (torch.bfloat16, torch.float32):
+            x, w = x32.to(dt), w32.to(dt)
+            if misaligned:      # the same values one element into a buffer
+                buf = torch.empty(w.numel() + 1, dtype=dt, device="cuda")
+                buf[1:].copy_(w.view(-1))
+                w = buf[1:].view(E, din, dout)
+            before = kern.launches
+            got = kern(x, w, be, bt)
+            torch.cuda.synchronize()
+            check(kern.launches == before + 1, "gmm did not launch")
+            exp = ref.gmm(x, w, be, bt)
+            check(got.dtype == dt and got.shape == (T, dout),
+                  f"gmm ({label}): {got.dtype} {tuple(got.shape)}")
+            e = rel_err(got, exp)
+            tol = GMM_TOL[str(dt)[6:]]
+            check(e <= tol, f"gmm ({label} {str(dt)[6:]}) differs from its "
+                            f"plain version: {e} relative to max(1, max "
+                            f"|plain|) > {tol}")
+            err = max(err, float((got.float() - exp.float()).abs().max()))
+            log(f"  gmm [{label} {str(dt)[6:]}]: relative err {e:.3g} "
+                f"(tolerance {tol})")
+            del x, w, got, exp
+        del w32, x32
+        torch.cuda.empty_cache()
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -795,7 +880,8 @@ def expected_launches(cfg, requests, gen):
     """Each model kernel's launches on one ``generate`` of ``requests``
     prompts in batches of SERVE_BATCH: one prefill per batch (flash per
     attention layer, rglru per recurrent layer, wkv6 per rwkv layer), then
-    gen - 1 decode steps (decode attention per attention layer)."""
+    gen - 1 decode steps (decode attention per attention layer), and three
+    grouped matmuls (gate, up, wo) per MoE layer in each of both."""
     from repro_torch.models.transformer import layer_kinds
     prefills = -(-requests // SERVE_BATCH)
     steps = prefills * (gen - 1)
@@ -803,24 +889,30 @@ def expected_launches(cfg, requests, gen):
         return {"wkv6": cfg.n_layers * prefills}
     kinds = layer_kinds(cfg)
     n_rec = kinds.count("rec")
+    n_moe = kinds.count("attn_moe")
     n_attn = len(kinds) - n_rec
     out = {"flash_attention": n_attn * prefills,
            "decode_attention": n_attn * steps}
     if n_rec:
         out["rglru_scan"] = n_rec * prefills
+    if n_moe:
+        out["gmm"] = 3 * n_moe * (prefills + steps)
     return out
 
 
 def phase_serving(torch, kernels, path):
     """One serving path: ``path["arch"]`` at full published width and depth
-    (bf16, random weights drawn on the card), SERVE_REQUESTS prompts of
-    ``path["prompt"]`` tokens, SERVE_GEN tokens each.  Returns its metrics
-    and every model kernel's launches, counted from 0 over this path."""
+    (or ``path["n_layers"]`` layers, where given), bf16, random weights
+    drawn on the card, SERVE_REQUESTS prompts of ``path["prompt"]`` tokens,
+    SERVE_GEN tokens each.  Returns its metrics and every model kernel's
+    launches, counted from 0 over this path."""
     from repro_torch.configs import get_config
     from repro_torch.core.kvstore import DELETE, GET, INSERT
     from repro_torch.serving import ServingEngine
     arch, prompt = path["arch"], path["prompt"]
     cfg = get_config(arch)
+    if "n_layers" in path:
+        cfg = cfg.replace(n_layers=path["n_layers"])
     t0 = time.perf_counter()
     eng = ServingEngine(cfg, max_batch=SERVE_BATCH,
                         max_seq=prompt + SERVE_GEN)
@@ -869,7 +961,7 @@ def phase_serving(torch, kernels, path):
         f"decode page lookups found, every logit finite; "
         f"launches {launches}")
     metrics = dict(
-        arch=arch, dtype=cfg.dtype, params=n_params,
+        arch=arch, n_layers=cfg.n_layers, dtype=cfg.dtype, params=n_params,
         requests=SERVE_REQUESTS, prompt_len=prompt, gen_len=SERVE_GEN,
         max_batch=SERVE_BATCH, generate_s=wall,
         tokens_per_s=SERVE_REQUESTS * SERVE_GEN / wall,
@@ -1099,6 +1191,50 @@ def recurrent_report(torch, kernels, errs, launches):
     return rows
 
 
+def gmm_report(torch, kernels, err, launches):
+    """The grouped matmul's row at llama4-maverick's gate/up product in
+    bf16: 128 experts of 5120 x 8192, block i of the slot rows on expert i;
+    at the prefill shape (24 slots per expert), with a ``decode`` entry of
+    the same numbers at the decode shape (8 slots).  Each call reads every
+    expert's weights once (10.7 GB), so bytes bound it; operations are
+    counted at the bf16 tensor-core peak.  The library yardstick is one
+    ``torch.bmm`` of the (E, C, 5120) slots by the (E, 5120, 8192) weights —
+    the same function when block i takes expert i; the port never calls
+    it."""
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    w = torch.randn((MOE_E, MOE_D, MOE_F), generator=g, device="cuda",
+                    dtype=torch.bfloat16).mul_(MOE_D ** -0.5)
+    be = torch.arange(MOE_E, dtype=torch.int32, device="cuda")
+    kern = kernels["gmm"]
+    m = {}
+    for phase, c in (("prefill", MOE_C_PREFILL), ("decode", MOE_C_DECODE)):
+        T = MOE_E * c
+        x = torch.randn((T, MOE_D), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        xe = x.view(MOE_E, c, MOE_D)
+        m[phase] = dict(
+            ms=cuda_ms(lambda: kern(x, w, be, c), 20),
+            plain_ms=cuda_ms(lambda: ref.gmm(x, w, be, c), 2),
+            library_ms=cuda_ms(lambda: torch.bmm(xe, w), 20),
+            flops=2 * T * MOE_D * MOE_F,
+            nbytes=2 * (x.numel() + w.numel() + T * MOE_F) + 4 * MOE_E)
+    row = dict(name="gmm", route="cuda",
+               source="src/repro_torch/kernels/csrc/moe_gmm.cu",
+               replaces="src/repro/kernels/moe_gmm.py:37")
+    n = launches[MOE_ARCH]["gmm"]
+    row.update(timing_row(m["prefill"], n, err, BF16_FLOPS))
+    row["decode"] = timing_row(m["decode"], n, err, BF16_FLOPS)
+    for phase, r in (("prefill", row), ("decode", row["decode"])):
+        mm = m[phase]
+        log(f"  gmm {phase}: {mm['ms']:.4f} ms/call, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"{mm['flops'] / 1e9:.2f} GFLOP, {mm['nbytes'] / 1e9:.3f} GB), "
+            f"plain {mm['plain_ms']:.4f} ms, bmm {mm['library_ms']:.4f} ms, "
+            f"launches {n}")
+    return [row]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1115,11 +1251,12 @@ def main() -> int:
     from repro_torch.kernels import remote_dma as rdma
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gmm import gmm
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.wkv6 import wkv6
     model_kernels = {"flash_attention": flash_attention,
                      "decode_attention": decode_attention,
-                     "rglru_scan": rglru_scan, "wkv6": wkv6}
+                     "rglru_scan": rglru_scan, "wkv6": wkv6, "gmm": gmm}
     if (NOP, GET, INSERT, UPDATE, DELETE) != (pt.NOP, pt.GET, pt.INSERT,
                                               pt.UPDATE, pt.DELETE):
         print("chip_smoke: op codes differ from repro_torch.core's",
@@ -1134,7 +1271,7 @@ def main() -> int:
     try:
         log("phase 1: build")
         _nvcc.build("remote_dma", "flash_attention", "decode_attention",
-                    "rglru_scan", "wkv6")
+                    "rglru_scan", "wkv6", "moe_gmm")
         for name, out in _nvcc.BUILD_LOGS.items():
             log(f"  nvcc {name}.cu:\n" + "\n".join(
                 "    " + ln for ln in out.strip().splitlines()))
@@ -1144,6 +1281,7 @@ def main() -> int:
         _attn_cases, attn_errs = phase_attention_kernels(torch,
                                                          model_kernels)
         _rec_cases, rec_errs = phase_recurrent_kernels(torch, model_kernels)
+        gmm_err = phase_gmm_kernel(torch, model_kernels)
         log("phase 3: the same work on cuda and cpu")
         phase_parity(torch, pt)
         phase_serving_parity(torch, pt)
@@ -1170,6 +1308,7 @@ def main() -> int:
                                     serve_launches)
         kernels += recurrent_report(torch, model_kernels, rec_errs,
                                     serve_launches)
+        kernels += gmm_report(torch, model_kernels, gmm_err, serve_launches)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,14 +1,16 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.  The
 port carries the architectures its serving path runs: the dense family,
-recurrentgemma (hybrid) and rwkv6 (ssm)."""
-from . import llama32_3b, qwen3_8b, recurrentgemma_2b, rwkv6_7b
-from .base import ArchConfig, HybridConfig
+recurrentgemma (hybrid), rwkv6 (ssm) and llama4-maverick (moe)."""
+from . import (llama4_maverick_400b_a17b, llama32_3b, qwen3_8b,
+               recurrentgemma_2b, rwkv6_7b)
+from .base import ArchConfig, HybridConfig, MoEConfig
 
 _MODULES = {
     "llama3.2-3b": llama32_3b,
     "qwen3-8b": qwen3_8b,
     "recurrentgemma-2b": recurrentgemma_2b,
     "rwkv6-7b": rwkv6_7b,
+    "llama4-maverick-400b-a17b": llama4_maverick_400b_a17b,
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -30,5 +32,5 @@ def get_smoke_config(arch_id: str) -> ArchConfig:
     return _module(arch_id).smoke()
 
 
-__all__ = ["ARCH_IDS", "ArchConfig", "HybridConfig", "get_config",
-           "get_smoke_config"]
+__all__ = ["ARCH_IDS", "ArchConfig", "HybridConfig", "MoEConfig",
+           "get_config", "get_smoke_config"]

@@ -3,17 +3,31 @@
 
 The reference's module imports ``jax.numpy`` for :attr:`ArchConfig.dtype_`,
 so the port keeps its own copy; ``dtype_`` returns a ``torch.dtype``.  Only
-the fields of the families the port builds (dense, hybrid, ssm) are carried
-over; the reference's MoE, MLA and cross-attention records come with their
-families.
+the fields of the families the port builds (dense, hybrid, ssm, and the MoE
+family without MLA) are carried over; the reference's MLA and
+cross-attention records come with their families.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional
 
 import torch
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0
+    d_ff_shared: int = 0
+    first_k_dense: int = 0       # leading dense layers (deepseek-v3: 3)
+    d_ff_dense: int = 0          # FFN width of dense (non-MoE) layers
+    moe_every_k: int = 1         # MoE every k-th layer (llama4-maverick: 2)
+    capacity_factor: float = 1.25
+    router_impl: str = "a2a"     # 'a2a' (sorted all-to-all EP) | 'dense'
 
 
 @dataclass(frozen=True)
@@ -42,8 +56,19 @@ class ArchConfig:
     rope_theta: float = 500000.0
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    moe: Optional[MoEConfig] = None
+    # DeepSeek MLA dims (the reference's MLAConfig); the port has no MLA
+    # attention yet, and build_model refuses a config that sets this
+    mla: Optional[Any] = None
     hybrid: Optional[HybridConfig] = None
     scale_embed: bool = False              # gemma-style sqrt(d) embed scale
+
+    def is_moe_layer(self, i: int) -> bool:
+        mo = self.moe
+        if mo is None:
+            return False
+        return (i >= mo.first_k_dense
+                and (i % mo.moe_every_k) == (mo.moe_every_k - 1))
 
     @property
     def head_dim_(self) -> int:

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the model kernels, the counterparts of
 ``repro/kernels/ref.py``'s ``repeat_kv``, ``mha``, ``decode_attention``,
-``rglru`` and ``wkv6``.
+``rglru``, ``wkv6`` and ``gmm``.
 
 They follow the semantics of the reference's **Pallas kernels**
 (``repro/kernels/flash_attention.py``, ``decode_attention.py``), because that
@@ -8,9 +8,10 @@ is what the port's CUDA kernels compute: scores, probabilities and the PV
 product stay in float32, and the result is cast to the query's dtype once.
 CPU tensors take these functions through the kernel wrappers
 (:mod:`.flash_attention`, :mod:`.decode_attention`, :mod:`.rglru_scan`,
-:mod:`.wkv6`); ``chip_smoke.py`` calls them directly on the card to hold the
-kernels against them.  The recurrences run as Python loops over time, one
-step at a time in float32, as the Pallas kernels' inner loops do.
+:mod:`.wkv6`, :mod:`.moe_gmm`); ``chip_smoke.py`` calls them directly on the
+card to hold the kernels against them.  The recurrences run as Python
+loops over time, one step at a time in float32, as the Pallas kernels'
+inner loops do.
 
 One deliberate difference from ``repro.kernels.ref``: a query row with no
 visible key returns **zeros** here, as the Pallas kernels do (their
@@ -122,3 +123,17 @@ def wkv6(r, k, v, w, u):
         ys.append(y)
     y = torch.stack(ys, 2) if ys else torch.zeros_like(rf)
     return y.to(r.dtype), s
+
+
+def gmm(x, w, block_expert, block_t):
+    """Grouped matmul: block i of ``block_t`` rows of x times
+    ``w[block_expert[i]]`` in float32, cast to x's dtype.  x (T, Din), w (E,
+    Din, Dout), block_expert (T // block_t,).  One product per block: the
+    reference oracle's (nb, Din, Dout) float32 gather of w would take 21.5 GB
+    at llama4-maverick's widths."""
+    out = torch.empty((x.shape[0], w.shape[2]), dtype=x.dtype,
+                      device=x.device)
+    for i, e in enumerate(block_expert.tolist()):
+        rows = slice(i * block_t, (i + 1) * block_t)
+        out[rows] = (x[rows].float() @ w[e].float()).to(x.dtype)
+    return out

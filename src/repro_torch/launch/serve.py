@@ -2,10 +2,10 @@
 counterpart of ``repro/launch/serve.py``.
 
 A SharedQueue admits requests, a KVStore keeps the paged KV cache's page
-table, and the model — a dense LM, recurrentgemma or rwkv6 (``--arch``:
-any of ``repro_torch.configs.ARCH_IDS``) — runs prefill and decode with the
-port's kernels.  Weights are random, drawn on the device from a seeded
-generator.
+table, and the model — a dense LM, recurrentgemma, rwkv6 or llama4-maverick
+(``--arch``: any of ``repro_torch.configs.ARCH_IDS``) — runs prefill and
+decode with the port's kernels.  Weights are random, drawn on the device
+from a seeded generator.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
       --smoke --device cpu --requests 8 --prompt-len 32 --gen-len 16
@@ -13,6 +13,8 @@ generator.
       --arch recurrentgemma-2b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llama4-maverick-400b-a17b --smoke --device cpu
 
 ``--device`` defaults to the card.  The replication and fault-injection
 flags of the reference wait for ROADMAP Queue A item 8.

@@ -8,7 +8,9 @@ layers unstacked into the port's per-layer list —
 * the LM family's ``StackParams``: its prefix, then superblock i's
   positions 0 … period−1 for every i (each position one ``(n, …)`` array
   per leaf), then its suffix — the reference's layer order, as
-  ``transformer.layer_kinds`` lists it;
+  ``transformer.layer_kinds`` lists it; an MoE layer's ``ffn`` subtree
+  (``router`` in float32, ``experts`` of ``(E, d, f)`` leaves, ``shared``)
+  comes across like any other;
 * rwkv6's ``{"ln0", "blocks": (L, …)}``: ``ln0`` at the top level and the
   blocks as ``layers``.
 

@@ -10,10 +10,12 @@
   init_cache(batch_size, s_max, device=None) → caches
 
 ``batch`` is a dict ``{"tokens": (B, S) int}``; ``caches`` is one entry per
-layer.  The LM family covers the dense models and the hybrid one
-(recurrentgemma); rwkv6 (family ``ssm``) has its own stack.  ``train_loss``
-waits for the training slice; the other families raise
-``NotImplementedError``.
+layer.  The LM family covers the dense models, the hybrid one
+(recurrentgemma) and the MoE family with GQA attention (llama4-maverick;
+as in the reference, a ``family="moe"`` config without ``moe`` gets the
+dense plan); rwkv6 (family ``ssm``) has its own stack.  ``train_loss``
+waits for the training slice; MLA configs (deepseek-v3) and the other
+families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,14 +41,18 @@ class Model(NamedTuple):
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA attention is not ported; it comes with the "
+            f"deepseek-v3 (MLA) slice, ROADMAP Queue A item 11")
+    if cfg.family in ("dense", "hybrid", "moe"):
         return _build_lm(cfg)
     if cfg.family == "ssm":
         return _build_rwkv(cfg)
     raise NotImplementedError(
         f"{cfg.name}: family {cfg.family!r} is not ported; the port builds "
-        f"the dense, hybrid and ssm families (the others are ROADMAP Queue A "
-        f"item 11)")
+        f"the dense, hybrid, ssm and moe families (the others are ROADMAP "
+        f"Queue A item 11)")
 
 
 def _tokens(params, batch):

@@ -1,19 +1,24 @@
-"""Decoder-only transformer stack, the counterpart of the dense and hybrid
-plans of ``repro/models/transformer.py``.
+"""Decoder-only transformer stack, the counterpart of the dense, hybrid and
+MoE (GQA) plans of ``repro/models/transformer.py``.
 
 A stack is a flat list of block kinds (:func:`layer_kinds`), in the
-reference's layer order: ``attn × L`` for the dense family, and for the
-hybrid family (recurrentgemma) ``[rec, rec, local] × n`` followed by the
-``rec`` layers left over.  The reference scans stacked ``(n, …)``
+reference's layer order: ``attn × L`` for the dense family; for the hybrid
+family (recurrentgemma) ``[rec, rec, local] × n`` followed by the ``rec``
+layers left over; for an MoE config ``[attn_dense] × (moe_every_k - 1) +
+[attn_moe]`` repeated (llama4: ``[attn_dense, attn_moe] × L/2``), or, where
+``moe_every_k`` is 1, ``[attn_dense] × first_k_dense`` followed by
+``attn_moe`` layers.  The reference scans stacked ``(n, …)``
 parameters per superblock position with ``layer_scan``; the port keeps one
-parameter dict per layer in a list and loops over it in Python.  Other
-layer plans (MoE, MLA, cross-attention) wait for their families (ROADMAP
-Queue A item 11).
+parameter dict per layer in a list and loops over it in Python.  The MLA
+and cross-attention plans wait for their families (ROADMAP Queue A item
+11).
 
-Kinds: ``attn`` (causal GQA attention), ``local`` (attention over the last
-``hybrid.window`` keys, with a ring-buffer decode cache of ``min(s_max,
-window)`` slots) and ``rec`` (the RG-LRU block with a :class:`RecState`
-cache); each is followed by the gated MLP.
+Kinds: ``attn`` / ``attn_dense`` / ``attn_moe`` (causal GQA attention),
+``local`` (attention over the last ``hybrid.window`` keys, with a
+ring-buffer decode cache of ``min(s_max, window)`` slots) and ``rec`` (the
+RG-LRU block with a :class:`RecState` cache).  Each is followed by its FFN:
+the MoE block for ``*_moe`` kinds, else the gated MLP (``d_ff_dense`` wide
+in an MoE config).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import attention as A
+from . import moe as M
 from . import rglru as R
 from .layers import init_mlp, init_rmsnorm, mlp, rmsnorm
 
@@ -34,11 +40,30 @@ def layer_kinds(cfg: ArchConfig) -> List[str]:
         block = ["rec"] * (period - 1) + ["local"]
         n = cfg.n_layers // period
         return block * n + ["rec"] * (cfg.n_layers - n * period)
+    mo = cfg.moe
+    if mo is not None:
+        if mo.moe_every_k > 1:
+            if cfg.n_layers % mo.moe_every_k:
+                raise ValueError(f"{cfg.name}: {cfg.n_layers} layers is not "
+                                 f"a multiple of moe_every_k "
+                                 f"{mo.moe_every_k}")
+            block = ["attn_dense"] * (mo.moe_every_k - 1) + ["attn_moe"]
+            return block * (cfg.n_layers // mo.moe_every_k)
+        return ["attn_dense"] * mo.first_k_dense \
+            + ["attn_moe"] * (cfg.n_layers - mo.first_k_dense)
     return ["attn"] * cfg.n_layers
 
 
 def _window(cfg: ArchConfig, kind: str):
     return cfg.hybrid.window if kind == "local" else None
+
+
+def _ffn_width(cfg: ArchConfig) -> int:
+    """A dense layer's FFN width: ``d_ff_dense`` (else ``d_ff``) in an MoE
+    config."""
+    if cfg.moe is not None:
+        return cfg.moe.d_ff_dense or cfg.d_ff
+    return cfg.d_ff
 
 
 def init_block(gen, cfg: ArchConfig, kind: str):
@@ -48,8 +73,21 @@ def init_block(gen, cfg: ArchConfig, kind: str):
         p["temporal"] = R.init_rglru(gen, cfg)
     else:
         p["attn"] = A.init_attention(gen, cfg)
-    p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype_)
+    if kind == "attn_moe":
+        p["ffn"] = M.init_moe(gen, cfg)
+    else:
+        p["ffn"] = init_mlp(gen, cfg.d_model, _ffn_width(cfg),
+                            cfg.dtype_)
     return p
+
+
+def _apply_ffn(params, cfg: ArchConfig, kind: str, h):
+    """The block's FFN on h (B, S, d).  The MoE block's load-balance loss is
+    a training term; serving drops it, as the reference's decode does."""
+    if kind == "attn_moe":
+        out, _aux = M.moe_block_local(params["ffn"], h, cfg)
+        return out
+    return mlp(params["ffn"], h, cfg.act)
 
 
 def apply_block_train(params, cfg: ArchConfig, kind: str, x, positions=None):
@@ -65,7 +103,7 @@ def apply_block_train(params, cfg: ArchConfig, kind: str, x, positions=None):
                                  window=_window(cfg, kind))
     x = x + out
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + mlp(params["ffn"], h, cfg.act), cache
+    return x + _apply_ffn(params, cfg, kind, h), cache
 
 
 def apply_block_decode(params, cfg: ArchConfig, kind: str, x, cache, pos):
@@ -79,7 +117,7 @@ def apply_block_decode(params, cfg: ArchConfig, kind: str, x, cache, pos):
                                         window=_window(cfg, kind))
     x = x + out
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + mlp(params["ffn"], h, cfg.act), cache
+    return x + _apply_ffn(params, cfg, kind, h), cache
 
 
 def init_stack(gen, cfg: ArchConfig) -> List[dict]:

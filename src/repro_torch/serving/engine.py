@@ -13,10 +13,11 @@ The engine's KV-cache page table is a :class:`~repro_torch.core.KVStore`:
 
 Requests are admitted through a :class:`~repro_torch.core.queue.SharedQueue`.
 The model is any family :func:`repro_torch.models.build_model` builds — a
-dense LM, recurrentgemma (hybrid) or rwkv6 (ssm) — and the engine is
-family-agnostic, as the reference's is: it hands the model's prefill caches
-back to its decode step.  On the card prefill and decode run the port's
-kernels (attention, RG-LRU, WKV6).  The P participants are the port's
+dense LM, recurrentgemma (hybrid), rwkv6 (ssm) or llama4-maverick (moe) —
+and the engine is family-agnostic, as the reference's is: it hands the
+model's prefill caches back to its decode step.  On the card prefill and
+decode run the port's kernels (attention, RG-LRU, WKV6, the grouped
+matmul).  The P participants are the port's
 stacked binding on one device.
 
 Replication (``replicas``) and fault injection (``fault_plan``) wait for the

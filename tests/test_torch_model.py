@@ -32,8 +32,11 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["recurrentgemma-2b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ARCHS + ["recurrentgemma-2b", "rwkv6-7b",
+                                          "llama4-maverick-400b-a17b"])
 def test_configs_match_the_reference(arch):
+    import dataclasses
+
     from repro.configs import get_config as jax_config
     for port, ref in [(get_config(arch), jax_config(arch)),
                       (get_smoke_config(arch), jax_smoke(arch))]:
@@ -47,7 +50,17 @@ def test_configs_match_the_reference(arch):
         else:
             for f in ("lru_width", "window", "pattern_period", "conv_width"):
                 assert getattr(port.hybrid, f) == getattr(ref.hybrid, f), f
-        assert (ref.moe, ref.mla, ref.cross) == (None, None, None)
+        if ref.moe is None:
+            assert port.moe is None
+        else:
+            fields = [f.name for f in dataclasses.fields(ref.moe)]
+            assert [f.name for f in dataclasses.fields(port.moe)] == fields
+            for f in fields:
+                assert getattr(port.moe, f) == getattr(ref.moe, f), f
+            assert [port.is_moe_layer(i) for i in range(port.n_layers)] == \
+                [ref.is_moe_layer(i) for i in range(ref.n_layers)]
+        assert (ref.mla, ref.cross) == (None, None)
+        assert port.mla is None
         assert port.dtype_ == torch.bfloat16
         assert port.replace(dtype="float32").dtype_ == torch.float32
 
@@ -108,10 +121,24 @@ def test_prefill_and_decode_match_the_reference(arch):
         np.testing.assert_allclose(c.v.numpy(), jc.v[i], **TOL)
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["deepseek-v3", "vlm", "audio"])
 def test_unported_families_are_refused(family):
-    cfg = get_smoke_config("llama3.2-3b").replace(family=family)
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
+    if family == "deepseek-v3":
+        # the reference's smoke deepseek-v3 as a port config: an MoE config
+        # with MLA attention, which waits for the MLA slice
+        import dataclasses
+
+        from repro_torch.configs import MoEConfig
+        ref = jax_smoke("deepseek-v3-671b")
+        cfg = get_smoke_config("llama4-maverick-400b-a17b").replace(
+            name=ref.name, n_layers=ref.n_layers, n_kv_heads=ref.n_kv_heads,
+            d_ff=ref.d_ff, mla=ref.mla,
+            moe=MoEConfig(**dataclasses.asdict(ref.moe)))
+        match = f"{ref.name}: MLA attention .* Queue A item 11"
+    else:
+        cfg = get_smoke_config("llama3.2-3b").replace(family=family)
+        match = "Queue A item 11"
+    with pytest.raises(NotImplementedError, match=match):
         build_model(cfg)
 
 

@@ -1,15 +1,16 @@
 """The port's ServingEngine against the JAX package's, mirroring
 tests/test_serving_and_roofline.py::TestServingEngine: the smoke configs of
-llama3.2-3b (dense), recurrentgemma-2b (hybrid) and rwkv6-7b (ssm) in
-float32, max_batch=2, max_seq=48, four 12-token prompts, 4 generated tokens
-each.  The port's engine carries the JAX engine's weights
+llama3.2-3b (dense), recurrentgemma-2b (hybrid), rwkv6-7b (ssm) and
+llama4-maverick-400b-a17b (moe) in float32, max_batch=2, max_seq=48, four
+12-token prompts, 4 generated tokens each.  The port's engine carries the JAX engine's weights
 (``params_from_jax``) and runs on the CPU.
 
 Checked: the generated tokens are equal; ``stats()["kv_ops"]`` and
 ``["locality"]`` are equal; the page-table ``KVStoreState`` (read cache
 included) and the admission queue's state are bitwise equal.  The logits
 agree to float32 rounding (tests/test_torch_model.py,
-tests/test_torch_recurrent.py), so greedy tokens are compared exactly."""
+tests/test_torch_recurrent.py, tests/test_torch_moe.py), so greedy tokens
+are compared exactly."""
 import numpy as np
 import pytest
 
@@ -25,7 +26,8 @@ from repro_torch.serving import MAX_WINDOW, P_NODES, ServingEngine  # noqa: E402
 
 
 @pytest.fixture(scope="module",
-                params=["llama3.2-3b", "recurrentgemma-2b", "rwkv6-7b"])
+                params=["llama3.2-3b", "recurrentgemma-2b", "rwkv6-7b",
+                        "llama4-maverick-400b-a17b"])
 def engines(request):
     reference_core()
     from repro.configs import get_smoke_config as jax_smoke
@@ -83,11 +85,19 @@ def test_engine_defaults_to_the_card(monkeypatch):
         main(["--arch", "llama3.2-3b", "--smoke"])
 
 
-def test_serve_launcher_runs_on_the_cpu(capsys):
+def _serve_on_the_cpu(capsys, arch):
     from repro_torch.launch.serve import main
-    outs, stats = main(["--arch", "llama3.2-3b", "--smoke", "--device",
+    outs, stats = main(["--arch", arch, "--smoke", "--device",
                         "cpu", "--requests", "3", "--prompt-len", "8",
                         "--gen-len", "3", "--max-batch", "2"])
     assert len(outs) == 3 and all(len(o) == 3 for o in outs)
     assert stats["kv_ops"][pt.INSERT] == stats["kv_ops"][pt.DELETE]
     assert "[serve] 3 requests" in capsys.readouterr().out
+
+
+def test_serve_launcher_runs_on_the_cpu(capsys):
+    _serve_on_the_cpu(capsys, "llama3.2-3b")
+
+
+def test_serve_launcher_takes_llama4_maverick(capsys):
+    _serve_on_the_cpu(capsys, "llama4-maverick-400b-a17b")
