@@ -9,11 +9,16 @@ toolkit:
 It imports neither JAX nor the JAX package.  Phases, in order; any failure
 exits non-zero and prints no result:
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (six
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (seven
    sources) with nvcc, one process per source, all at once;
 2. hold each kernel against its plain PyTorch version on the card: the
    remote-DMA kernels at the KVStore path's shapes (outputs and measured
-   bytes bitwise equal, scatter collisions included), the attention kernels
+   bytes bitwise equal, scatter collisions included), the remote-copy
+   kernel at the ring hop's shapes (P=4 with 648 words, P=8 with 20,488)
+   and the bare ring entries (640 and 20,480 words) and at odd ones (a
+   width not a multiple of four, a misaligned view, zero words, no
+   senders, every receiver from one sender, a permutation), outputs and
+   both byte vectors bitwise equal, the attention kernels
    at the serving paths' full-width shapes (head_dim 128, and 256 with a
    2048-token window and one kv head) and at odd ones (float32 within 2e-5,
    bfloat16 within 2e-2 of the float32 plain result on the same inputs),
@@ -24,32 +29,47 @@ exits non-zero and prints no result:
    8; 128 experts of 5120 x 8192 and 8192 x 5120) and at odd ones, in
    float32 and bfloat16 (tolerances at ``GMM_TOL``);
 3. run the same work on the card and on the CPU: a P=4 store through 20
-   windows (states and results bitwise equal after every window) and the
+   windows (states and results bitwise equal after every window), the
    smoke llama3.2-3b, recurrentgemma-2b, rwkv6-7b and llama4-maverick
    ServingEngines in float32 with one set of weights each (equal tokens,
-   bitwise equal page-table state);
+   bitwise equal page-table state), and the smoke llama3.2-3b engine with
+   two page-table replicas on the remote-DMA backend, its log leader killed
+   and revived (equal tokens; page table, replicas, log and detector
+   bitwise equal);
 4. the KVStore path — ``KVStore.op_window`` on the remote-DMA backend — at a
    deployment's size: P=8 participants, K=2**22 keys, 8-byte values,
    windows of 512 lanes per participant; prefill 80% of K, then 20 windows
    of 60/20/10/10 GET/UPDATE/INSERT/DELETE over distinct uniform keys and
    20 windows of 95/5 GET/UPDATE over zipf(0.99) keys; every GET and every
    ``found`` is checked against a numpy oracle of the window semantics;
+4b. the failover scenario of ``benchmarks/bench_failover.py`` on that
+   store shape: a leader and two follower stores behind a ReplicatedLog,
+   the prefill and 20 mixed windows each appended and synced, the leader
+   killed (detected, a follower promoted, the in-flight window retried, a
+   zombie publish fenced) and revived (replay rejoin); the leader's results
+   against the oracle, every follower bitwise equal to the leader at the
+   end;
 5. the serving paths — ``ServingEngine.generate`` at full published width,
    bf16, random weights drawn on the card from a seeded generator, 8
    requests of 32 generated tokens in batches of 4 — on llama3.2-3b
-   (512-token prompts), recurrentgemma-2b (2304-token prompts, so its
+   (512-token prompts), then llama3.2-3b again with two page-table replicas
+   on the remote-DMA backend, 24 requests of 16 tokens, its log leader
+   killed and revived (detection, promotion, the flush of buffered windows
+   and a snapshot rejoin), recurrentgemma-2b (2304-token prompts, so its
    2048-token window and ring-buffer cache bind), rwkv6-7b (512-token
    prompts) at full depth, and llama4-maverick-400b-a17b (512-token
    prompts) cut to 4 of its 48 layers, two [dense, MoE] periods, so that
    its bf16 weights (65.3 GiB) fit the card; one after the other, each
    engine freed before the next; page-table, locality, logit and
-   launch-count checks;
+   launch-count checks, and on the replicated path the replication checks;
 6. report the end-to-end numbers of every path, each kernel's launches on
    its path, its time beside its plain version's, one PyTorch call's and
    its bound, the card's name and power limit, and last the result line.
 
 Kernel launch counts are set to 0 just before each path and read just after
 it, so the checks of phase 2 and 3 and the timings of phase 6 count nowhere.
+On every replicated path the remote-copy kernel's launches must equal the
+ring's publishes.
 """
 from __future__ import annotations
 
@@ -90,8 +110,21 @@ SERVE_BATCH = 4
 RG_PROMPT = 2304               # recurrentgemma: past its 2048-token window
 MOE_ARCH = "llama4-maverick-400b-a17b"
 MOE_LAYERS = 4                 # of 48: two [attn_dense, attn_moe] periods
+# the replicated paths: the failover phase (participant 0, the log leader,
+# dies before mixed window FO_KILL and comes back before FO_REVIVE — its
+# cursor gap is then the ring's capacity, so the replay rejoin runs) and
+# phase 5's replicated llama3.2-3b path (48 mutation windows for 24 requests
+# in batches of 4; killed before window REP_KILL, revived at REP_REVIVE, a
+# gap past the engine's 3-entry ring, so the snapshot rejoin runs)
+LOG_CAPACITY = 4
+DETECT_THRESHOLD = 2
+FO_KILL, FO_REVIVE = 8, 10
+REP_REQUESTS, REP_GEN, REP_KILL, REP_REVIVE = 24, 16, 5, 13
 SERVE_PATHS = [
     dict(arch=SERVE_ARCH, prompt=SERVE_PROMPT),
+    dict(arch=SERVE_ARCH, prompt=SERVE_PROMPT, requests=REP_REQUESTS,
+         gen=REP_GEN, replicas=2, backend="pallas",
+         plan=dict(kills={0: REP_KILL}, revives={0: REP_REVIVE})),
     dict(arch="recurrentgemma-2b", prompt=RG_PROMPT),
     dict(arch="rwkv6-7b", prompt=SERVE_PROMPT),
     dict(arch=MOE_ARCH, prompt=SERVE_PROMPT, n_layers=MOE_LAYERS),
@@ -240,6 +273,60 @@ def phase_kernels(torch, rdma, slots):
             errs[name] = max(errs[name], e)
             log(f"  {name} [{label}]: bitwise equal to the plain version")
     return cases, errs
+
+
+def copy_cases(torch):
+    """(label, src, dst, sender) at the ring hop's shapes — the packed
+    publish of the engine's log (P = 4, a 640-word entry and its metadata,
+    648 words) and of the failover phase's (P = 8, 20,480 + 8 words) — at
+    the bare entries, and at odd ones."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+
+    def words(n_rows, n):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, (n_rows, n), generator=g,
+                             device="cuda", dtype=torch.int32)
+
+    def bcast(n_rows, owner):
+        s = torch.full((n_rows,), owner, dtype=torch.int32, device="cuda")
+        s[owner] = -1
+        return s
+
+    cases = []
+    for n_rows, n in [(4, 648), (8, 20488), (4, 640), (8, 20480), (4, 643)]:
+        cases.append((f"broadcast P={n_rows} n={n}", words(n_rows, n),
+                      words(n_rows, n), bcast(n_rows, 1)))
+    flat_s, flat_d = words(1, 4 * 101 + 1)[0], words(1, 4 * 101 + 1)[0]
+    cases.append(("misaligned view P=4 n=101", flat_s[1:].view(4, 101),
+                  flat_d[1:].view(4, 101), bcast(4, 2)))
+    cases.append(("n=0", words(4, 0), words(4, 0), bcast(4, 0)))
+    full = (words(8, 20480), words(8, 20480))
+    cases.append(("no senders", *full,
+                  torch.full((8,), -1, dtype=torch.int32, device="cuda")))
+    cases.append(("every receiver from one sender", *full,
+                  torch.full((8,), 3, dtype=torch.int32, device="cuda")))
+    cases.append(("permutation", *full,
+                  torch.randperm(8, generator=g, device="cuda").to(
+                      torch.int32)))
+    return cases
+
+
+def phase_copy_kernel(torch, rdma):
+    """remote_copy against _remote_copy_ref on the same card tensors:
+    outputs and both byte vectors bitwise equal."""
+    cases = copy_cases(torch)
+    for label, src, dst, sender in cases:
+        before = rdma.remote_copy.launches
+        got = rdma.remote_copy(src, dst, sender)
+        torch.cuda.synchronize()
+        check(rdma.remote_copy.launches == before + 1,
+              "remote_copy did not launch")
+        exp = rdma._remote_copy_ref(src, dst, sender)
+        e = max_abs_err(torch, got, exp)
+        check(e == 0.0, f"remote_copy ({label}) differs from its plain "
+                        f"version: max abs err {e}")
+        log(f"  remote_copy [{label}]: bitwise equal to the plain version, "
+            f"bytes included")
+    return cases
 
 
 def attention_cases(torch):
@@ -531,8 +618,8 @@ def phase_parity(torch, pt):
 
 
 def phase_serving_parity(torch, pt):
-    for path in SERVE_PATHS:
-        serving_parity(torch, pt, path["arch"])
+    for arch in dict.fromkeys(path["arch"] for path in SERVE_PATHS):
+        serving_parity(torch, pt, arch)
 
 
 def serving_parity(torch, pt, arch):
@@ -567,6 +654,69 @@ def serving_parity(torch, pt, arch):
           f"smoke {arch} engine kv_ops differ")
     log(f"  smoke {arch} engine: tokens {out['cuda'][0]} equal on cuda and "
         f"cpu, page table bitwise equal, kv_ops {out['cuda'][2]['kv_ops']}")
+
+
+def np_tree(x):
+    """A (nested) NamedTuple of tensors as numpy leaves, the port's int64
+    uint32 holders back as uint32."""
+    if isinstance(x, tuple):
+        vals = [np_tree(v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    a = x.detach().cpu().numpy()
+    return (a & 0xFFFFFFFF).astype(np.uint32) if a.dtype == np.int64 else a
+
+
+def trees_equal(a, b):
+    """Bitwise equality of two numpy trees: same structure, dtypes, bits."""
+    if isinstance(a, tuple):
+        return type(a) is type(b) and len(a) == len(b) and all(
+            trees_equal(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def phase_replicated_parity(torch, pt, devices=("cuda", "cpu")):
+    """The smoke llama3.2-3b engine with two page-table replicas on the
+    remote-DMA backend, its log leader killed before mutation window 1 and
+    revived at window 6 (a cursor gap past the 3-entry ring: the snapshot
+    rejoin runs), float32, one set of weights, on the card and on the CPU:
+    equal tokens, and the page table, every replica, the log and the
+    detector bitwise equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import FaultPlan
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+    cfg = get_smoke_config(SERVE_ARCH).replace(dtype="float32")
+    params = build_model(cfg).init(torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 6)
+    prompts = [rng.integers(1, cfg.vocab, size=(12,)).astype(np.int32)
+               for _ in range(4)]
+    out = {}
+    for dev in devices:
+        eng = ServingEngine(cfg, max_batch=2, max_seq=48, replicas=2,
+                            fault_plan=FaultPlan(kills={0: 1},
+                                                 revives={0: 6}),
+                            backend="pallas", device=dev,
+                            params=tree_to(params, dev))
+        toks = eng.generate(prompts, gen_len=4)
+        out[dev] = (toks, np_tree((eng._kv_state, eng._rep_states,
+                                   eng._log_state, eng._det_state)),
+                    eng.stats()["replication"], eng.page_log.ring.publishes)
+    card, cpu = (out[d] for d in devices)
+    check(card[0] == cpu[0], f"replicated smoke engine tokens differ: cuda "
+                             f"{card[0]} vs cpu {cpu[0]}")
+    for i, part in enumerate(("page table", "replicas", "log", "detector")):
+        check(trees_equal(card[1][i], cpu[1][i]),
+              f"replicated smoke engine: {part} state differs cuda vs cpu")
+    rep = card[2]
+    check(rep == cpu[2] and card[3] == cpu[3],
+          "replication stats differ cuda vs cpu")
+    check(rep["detected_failovers"] == 1 and rep["rejoins_snapshot"] == 1
+          and rep["diverged_leaves"] == [0, 0] and rep["dropped"] == 0,
+          f"replicated smoke engine: {rep}")
+    log(f"  replicated smoke {SERVE_ARCH} engine (pallas, kill 1, revive 6): "
+        f"tokens {card[0]} equal on cuda and cpu; page table, replicas, log "
+        f"and detector bitwise equal; {card[3]} ring publishes; replication "
+        f"{rep}")
 
 
 def tree_to(tree, device):
@@ -801,6 +951,276 @@ def phase_main_path(torch, pt, rdma, slots):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the failover scenario on the KVStore path's store
+# ---------------------------------------------------------------------------
+
+def phase_failover(torch, pt, rdma, slots):
+    """Steps 1-7 of benchmarks/bench_failover.py at the KVStore path's size,
+    on the remote-DMA backend: a leader store, two follower stores and a
+    ReplicatedLog(window=B, capacity=4), a FailureDetector(threshold=2).
+    Prefill 80% of K and run MIX_WINDOWS mixed windows, each appended and
+    synced.  Participant 0, the leader, dies before mixed window FO_KILL:
+    the window before it is acked but unsynced; heartbeat windows run until
+    the detector's verdict; a follower is promoted; the followers catch up;
+    the in-flight window is retried through the new leader; a zombie publish
+    at the stale epoch is fenced.  Participant 0 comes back before window
+    FO_REVIVE with a cursor gap of the ring's capacity and rejoins by
+    ring-tail replay.  A participant's slice of a window is NOP while it is
+    dead or behind the log, and in the window before its death: a slice
+    replayed late would commit in another order than on the leader.  Every
+    GET and ``found`` of the leader is checked against the oracle; the
+    followers must equal the leader bitwise at the end.  Returns the
+    metrics and the launches of the path's kernels."""
+    from repro_torch.core import (FailureDetector, ReplicatedLog,
+                                  diverging_leaves)
+    mgr = pt.make_manager(P, backend="pallas")
+    mgr.traffic.enable()
+    kw = dict(slots_per_node=slots, value_width=W, num_locks=4096,
+              index_capacity=4 * KEYS)
+    lead = pt.KVStore(None, "fo_lead", mgr, **kw)
+    fols = [pt.KVStore(None, f"fo_foll{i}", mgr, **kw) for i in range(2)]
+    rlog = ReplicatedLog(None, "fo_log", mgr, store=lead, window=B,
+                         capacity=LOG_CAPACITY)
+    det = FailureDetector(None, "fo_det", mgr, threshold=DETECT_THRESHOLD)
+    st = dict(lead=lead.init_state(),
+              fols=tuple(f.init_state() for f in fols),
+              log=rlog.init_state(), det=det.init_state())
+    torch.cuda.synchronize()
+    log(f"  three stores of P={P} K={KEYS} and a log of {rlog.entry_width}-"
+        f"word entries; device memory "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
+    alive = np.ones(P, bool)
+    oracle = Oracle(KEYS, slots)
+    rng = np.random.default_rng(SEED + 7)
+    kernels = rdma.KERNELS + (rdma.remote_copy,)
+    for k in kernels:
+        k.launches = 0
+    rlog.ring.publishes = 0
+    torch.cuda.reset_peak_memory_stats()
+
+    def mask():
+        return torch.from_numpy(alive.copy()).cuda()
+
+    def apply(ops, ks, vals, what):
+        st["lead"], res = lead.op_window(st["lead"], ops, ks, vals)
+        verify(res, oracle.window(ops, ks, vals), what)
+
+    def heartbeat():
+        st["log"], st["det"], verdict = rlog.heartbeat_and_detect(
+            st["log"], st["det"], det, pred=mask())
+        return verdict[0].cpu().numpy()
+
+    def append(ops, ks, vals):
+        a = mask()
+        st["log"], ok = rlog.append(st["log"], ops, ks, vals,
+                                    pred=a[st["log"].ring.owner.long()])
+        return bool(ok[0])
+
+    def sync():
+        st["log"], st["fols"], n = rlog.sync(st["log"], fols, st["fols"],
+                                             max_entries=1, pred=mask())
+        return int(n.cpu().numpy()[alive].min())   # at every live lane
+
+    def lag():
+        return int(rlog.lag(st["log"])[0])
+
+    def converged(lanes=None):
+        sel = None if lanes is None else torch.from_numpy(lanes).cuda()
+        return all(diverging_leaves(st["lead"], f, lanes=sel) == []
+                   for f in st["fols"])
+
+    def window(w, quiet=()):
+        ops, ks, vals = mixed_window(rng, w)
+        for p in quiet:
+            ops[p] = NOP
+        return ops, ks, vals
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # -- 1. prefill through the log, each window appended and synced
+    span = P * B
+    n_fill = int(KEYS * FILL)
+    fill_keys = np.arange(1, n_fill + 1, dtype=np.uint32)
+    t_fill = time.perf_counter()
+    n_fill_windows = 0
+    for i in range(0, n_fill, span):
+        chunk = fill_keys[i:i + span]
+        ops = np.full(span, NOP, np.int32)
+        ks = np.ones(span, np.uint32)
+        vals = np.zeros((span, W), np.int32)
+        ops[:chunk.size] = INSERT
+        ks[:chunk.size] = chunk
+        vals[:chunk.size, 0] = chunk.astype(np.int32) * 3
+        ops, ks, vals = ops.reshape(P, B), ks.reshape(P, B), \
+            vals.reshape(P, B, W)
+        apply(ops, ks, vals, f"replicated prefill window {i // span}")
+        check(append(ops, ks, vals), "a prefill window was not acked")
+        check(sync() == 1, "a prefill window was not replayed")
+        n_fill_windows += 1
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter() - t_fill
+    acked = n_fill_windows
+    log(f"  replicated prefill: {n_fill} inserts in {n_fill_windows} windows "
+        f"in {t_fill:.1f} s, each appended and synced, oracle-checked")
+
+    # -- steady state: apply, heartbeat, append, sync
+    def steady(w, quiet=()):
+        ops, ks, vals = window(w, quiet)
+
+        def step():
+            apply(ops, ks, vals, f"mixed window {w}")
+            heartbeat()
+            ok = append(ops, ks, vals)
+            return ok, sync()
+        (ok, n), dt = timed(step)
+        check(ok and n == 1 and lag() == 0,
+              f"mixed window {w}: ok {ok}, replayed {n}, lag {lag()}")
+        return dt
+
+    steady_t = [steady(w) for w in range(FO_KILL - 1)]
+    acked += FO_KILL - 1
+
+    # -- 2. the last window before the crash: acked, not synced
+    ops, ks, vals = window(FO_KILL - 1, quiet=(0,))
+    apply(ops, ks, vals, f"mixed window {FO_KILL - 1}")
+    heartbeat()
+    check(append(ops, ks, vals), "the pre-crash window must be acked")
+    acked += 1
+    check(lag() == 1, "the pre-crash window must stay unsynced")
+
+    # -- 3a. participant 0 dies: heartbeat windows until the verdict
+    alive[0] = False
+    detect = 0
+    verdict = np.ones(P, bool)
+    while verdict[0]:
+        verdict = heartbeat()
+        detect += 1
+        check(detect <= 2 * DETECT_THRESHOLD, "no verdict on participant 0")
+    check(detect == DETECT_THRESHOLD and not verdict[0] and verdict[1:].all(),
+          f"verdict {verdict.tolist()} after {detect} windows")
+
+    # -- 3. promotion, driven by the verdict
+    (st["log"], winner), promote_s = timed(lambda: rlog.promote(
+        st["log"], torch.from_numpy(verdict.copy()).cuda()))
+    winner = int(winner[0])
+    check(winner == 1, f"equal cursors: rank 1 must win, got {winner}")
+
+    # -- 4. bounded catch-up, then zero acked-window loss on the live lanes
+    catchup = 0
+    while lag():
+        sync()
+        catchup += 1
+        check(catchup <= LOG_CAPACITY, "catch-up must be bounded by the ring")
+    check(converged(lanes=alive), "a follower lost acked windows across the "
+                                  "failover")
+
+    # -- 5. the in-flight window retries through the new leader
+    ops, ks, vals = window(FO_KILL, quiet=(0,))
+
+    def retry():
+        apply(ops, ks, vals, f"retried window {FO_KILL}")
+        heartbeat()
+        a = mask()
+        st["log"], st["fols"], ok, _n = rlog.append_with_retry(
+            st["log"], ops, ks, vals, fols, st["fols"], max_attempts=2,
+            pred=a[st["log"].ring.owner.long()], sync_pred=a)
+        return bool(ok[0])
+    ok, retry_s = timed(retry)
+    check(ok and lag() == 0, "the retried window must publish and drain")
+    acked += 1
+
+    # -- 6. a zombie publish from the dead leader is fenced at delivery
+    zops = np.full((P, B), NOP, np.int32)
+    zops[1, 0] = UPDATE
+    zks = np.ones((P, B), np.uint32)
+    zks[1, 0] = 1
+    zvals = np.full((P, B, W), -777, np.int32)
+    st["log"], landed = rlog.zombie_publish(st["log"], zops, zks, zvals,
+                                            zombie=0, stale_epoch=0)
+    check(bool(landed[0]), "the zombie write must land in the ring")
+    check(sync() == 0, "a fenced entry must not apply")
+    fenced = int(st["log"].fenced[0])
+    check(fenced >= 1, "the zombie entry must be counted as fenced")
+
+    # -- 7. more windows through the new leader, participant 0 still dead
+    steady_t += [steady(w, quiet=(0,)) for w in range(FO_KILL + 1, FO_REVIVE)]
+    acked += FO_REVIVE - FO_KILL - 1
+
+    # -- participant 0 comes back: replay rejoin from the ring's tail
+    alive[0] = True
+    node = torch.zeros((P,), dtype=torch.int64).cuda()
+    check(not bool(rlog.needs_snapshot(st["log"], node)[0]),
+          "the gap must fit the ring: replay rejoin")
+    gap = int((st["log"].ring.head[1] - st["log"].ring.acks.cached[1, 0])
+              & 0xFFFFFFFF)
+
+    def rejoin():
+        st["log"] = rlog.readmit(st["log"], node)
+        st["det"] = det.readmit(st["det"], 0)
+        n = 0
+        while lag():
+            sync()
+            n += 1
+            check(n <= LOG_CAPACITY, "replay must be bounded by the ring")
+        return n
+    replayed, rejoin_s = timed(rejoin)
+    check(replayed == gap == LOG_CAPACITY,
+          f"replayed {replayed} entries for a gap of {gap}")
+    check(converged(), "the rejoined participant's replicas differ")
+
+    steady_t += [steady(w) for w in range(FO_REVIVE, MIX_WINDOWS)]
+    acked += MIX_WINDOWS - FO_REVIVE
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    publishes = rlog.ring.publishes
+
+    # -- the invariants
+    lg = st["log"]
+    epoch = int(rlog.epoch(lg)[0])
+    check(lag() == 0 and converged(),
+          "zero acked-window loss: every follower equals the leader")
+    check(epoch == 1 and int(lg.failovers[0]) == 1,
+          f"epoch {epoch}, failovers {int(lg.failovers[0])}")
+    check(int(lg.dropped[0]) == 0, "an append was dropped")
+    check(int(lg.published[0]) == acked,
+          f"published {int(lg.published[0])} != acked {acked}")
+    ledger_fenced = sum(mgr.traffic.fenced_summary().values())
+    check(ledger_fenced >= 1, "the ledger's fenced tier must count the "
+                              "zombie")
+    check(launches["remote_copy"] == publishes > 0,
+          f"remote_copy launched {launches['remote_copy']} times for "
+          f"{publishes} ring publishes")
+    for name in ("build_descriptors", "gather_rows", "scatter_rows"):
+        check(launches[name] > 0, f"{name} was not launched on the failover "
+                                  f"path")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  failover: epoch 0 -> 1, winner {winner}, detection in {detect} "
+        f"windows, promotion {promote_s * 1e3:.2f} ms, catch-up {catchup} "
+        f"syncs, retry {retry_s * 1e3:.2f} ms, fenced {fenced} (ledger "
+        f"{ledger_fenced}), replay rejoin of {replayed} entries in "
+        f"{rejoin_s * 1e3:.2f} ms; {acked} acked windows, every follower "
+        f"bitwise equal to the leader; {publishes} ring publishes; launches "
+        f"{launches}")
+    return dict(
+        prefill_ops=n_fill, prefill_windows=n_fill_windows,
+        prefill_s=t_fill, prefill_ops_per_s=n_fill / t_fill,
+        steady_windows=len(steady_t),
+        steady_window_p50_ms=float(np.percentile(steady_t, 50)) * 1e3,
+        steady_window_p99_ms=float(np.percentile(steady_t, 99)) * 1e3,
+        detection_windows=detect, promotion_ms=promote_s * 1e3,
+        catchup_syncs=catchup, retry_ms=retry_s * 1e3, fenced=fenced,
+        ledger_fenced=ledger_fenced, replay_rejoin_entries=replayed,
+        replay_rejoin_ms=rejoin_s * 1e3, acked_windows=acked,
+        ring_publishes=publishes, epoch=epoch, peak_device_gib=peak), \
+        launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the serving path at full width
 # ---------------------------------------------------------------------------
 
@@ -900,22 +1320,61 @@ def expected_launches(cfg, requests, gen):
     return out
 
 
-def phase_serving(torch, kernels, path):
+def path_label(path):
+    return path["arch"] + (" replicated" if path.get("replicas") else "")
+
+
+def replication_probe(torch, eng):
+    """Host clock (synchronised) around the replicated engine's promotions
+    and rejoins."""
+    times = {"promote": [], "rejoin": []}
+
+    def wrap(obj, name, sink):
+        fn = getattr(obj, name)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            sink.append(time.perf_counter() - t0)
+            return out
+        setattr(obj, name, timed)
+
+    wrap(eng.page_log, "promote", times["promote"])
+    wrap(eng, "_handle_revive", times["rejoin"])
+    return times
+
+
+def phase_serving(torch, kernels, path, rdma):
     """One serving path: ``path["arch"]`` at full published width and depth
     (or ``path["n_layers"]`` layers, where given), bf16, random weights
-    drawn on the card, SERVE_REQUESTS prompts of ``path["prompt"]`` tokens,
-    SERVE_GEN tokens each.  Returns its metrics and every model kernel's
-    launches, counted from 0 over this path."""
+    drawn on the card, ``path["requests"]`` (default SERVE_REQUESTS) prompts
+    of ``path["prompt"]`` tokens, ``path["gen"]`` (SERVE_GEN) tokens each.
+    With ``path["replicas"]`` the page table is replicated behind the log on
+    ``path["backend"]``, and ``path["plan"]`` kills and revives the log
+    leader.  Returns its metrics and every model kernel's launches (and, on
+    a replicated path, the remote-DMA and remote-copy kernels'), counted
+    from 0 over this path."""
     from repro_torch.configs import get_config
     from repro_torch.core.kvstore import DELETE, GET, INSERT
+    from repro_torch.distributed import FaultPlan
     from repro_torch.serving import ServingEngine
     arch, prompt = path["arch"], path["prompt"]
+    requests = path.get("requests", SERVE_REQUESTS)
+    gen = path.get("gen", SERVE_GEN)
+    replicas = path.get("replicas", 0)
+    label = path_label(path)
     cfg = get_config(arch)
     if "n_layers" in path:
         cfg = cfg.replace(n_layers=path["n_layers"])
     t0 = time.perf_counter()
-    eng = ServingEngine(cfg, max_batch=SERVE_BATCH,
-                        max_seq=prompt + SERVE_GEN)
+    eng = ServingEngine(cfg, max_batch=SERVE_BATCH, max_seq=prompt + gen,
+                        replicas=replicas,
+                        fault_plan=(FaultPlan(**path["plan"])
+                                    if "plan" in path else None),
+                        detect_threshold=DETECT_THRESHOLD,
+                        backend=path.get("backend"))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(eng.params))
     log(f"  {arch}: {cfg.n_layers} layers, d={cfg.d_model}, "
@@ -924,47 +1383,80 @@ def phase_serving(torch, kernels, path):
         f"{time.perf_counter() - t0:.3f} s")
     rng = np.random.default_rng(SEED + 5)
     prompts = [rng.integers(1, cfg.vocab, size=(prompt,)).astype(np.int32)
-               for _ in range(SERVE_REQUESTS)]
+               for _ in range(requests)]
     probe = ServeProbe(torch, eng, profile_round=10)
+    rep_times = replication_probe(torch, eng) if replicas else None
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
+    dma = rdma.KERNELS + (rdma.remote_copy,) if replicas else ()
+    for k in list(kernels.values()) + list(dma):
         k.launches = 0
     t0 = time.perf_counter()
-    outs = eng.generate(prompts, gen_len=SERVE_GEN)
+    outs = eng.generate(prompts, gen_len=gen)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
-    expected = expected_launches(cfg, SERVE_REQUESTS, SERVE_GEN)
+    dma_launches = {k.__name__: k.launches for k in dma}
+    expected = expected_launches(cfg, requests, gen)
     stats = eng.stats()
     for name, n in launches.items():
         check(n == expected.get(name, 0) and (n > 0) == (name in expected),
-              f"{arch}: {name} launched {n} times, expected "
+              f"{label}: {name} launched {n} times, expected "
               f"{expected.get(name, 0)}")
-    check(len(outs) == SERVE_REQUESTS
-          and all(len(o) == SERVE_GEN for o in outs), "wrong output shape")
+    check(len(outs) == requests and all(len(o) == gen for o in outs),
+          "wrong output shape")
     check(all(0 <= t < cfg.vocab for o in outs for t in o),
           "a token lies outside the vocabulary")
     check(all(probe.finite), "a logit is not finite")
     check(stats["kv_ops"][INSERT] == stats["kv_ops"][DELETE],
           f"kv_ops INSERT != DELETE: {stats['kv_ops']}")
-    check(stats["kv_ops"][GET] == SERVE_REQUESTS * SERVE_GEN
-          and len(probe.found) == SERVE_REQUESTS * SERVE_GEN
+    check(stats["kv_ops"][GET] == requests * gen
+          and len(probe.found) == requests * gen
           and all(probe.found), "a decode page lookup was not found")
     check(stats["locality"]["local_fraction"] == 1.0,
           f"local fraction {stats['locality']['local_fraction']}")
     check(probe.busy is not None, "the decode round was not profiled")
-    n_prefill_tok = SERVE_REQUESTS * prompt
+    n_prefill_tok = requests * prompt
     n_decode_tok = len(probe.decode_s) * SERVE_BATCH
-    log(f"  {SERVE_REQUESTS} requests x {SERVE_GEN} tokens in {wall:.2f} s; "
+    log(f"  {requests} requests x {gen} tokens in {wall:.2f} s; "
         f"kv_ops {stats['kv_ops']}, locality "
         f"{stats['locality']['local_fraction']}, all {len(probe.found)} "
         f"decode page lookups found, every logit finite; "
-        f"launches {launches}")
+        f"launches {launches | dma_launches}")
+    rep_metrics = {}
+    if replicas:
+        rep = stats["replication"]
+        publishes = eng.page_log.ring.publishes
+        check(rep["detected_failovers"] == 1 and rep["rejoins_snapshot"] >= 1
+              and rep["dropped"] == 0 and rep["lag"] == 0
+              and rep["diverged_leaves"] == [0, 0]
+              and eng.replica_divergence() == [0, 0],
+              f"{label}: replication {rep}")
+        check(dma_launches["remote_copy"] == publishes > 0,
+              f"{label}: remote_copy launched "
+              f"{dma_launches['remote_copy']} times for {publishes} ring "
+              f"publishes")
+        for name, n in dma_launches.items():
+            check(n > 0, f"{label}: {name} was not launched")
+        kill = path["plan"]["kills"][0]
+        rep_metrics = dict(
+            replication=rep, ring_publishes=publishes,
+            dma_launches=dma_launches,
+            detection_windows=rep["detector"]["detections"][0] - kill,
+            promotion_ms=[1e3 * t for t in rep_times["promote"]],
+            snapshot_rejoin_ms=[1e3 * t for t in rep_times["rejoin"]],
+            rejoin_chunks=rep["rejoin_chunks"])
+        log(f"  replication: detection in "
+            f"{rep_metrics['detection_windows']} windows, promotion "
+            f"{rep_metrics['promotion_ms']} ms, snapshot rejoin "
+            f"{rep_metrics['snapshot_rejoin_ms']} ms in "
+            f"{rep['rejoin_chunks']} chunks, {publishes} ring publishes, "
+            f"diverged leaves {rep['diverged_leaves']}")
     metrics = dict(
         arch=arch, n_layers=cfg.n_layers, dtype=cfg.dtype, params=n_params,
-        requests=SERVE_REQUESTS, prompt_len=prompt, gen_len=SERVE_GEN,
-        max_batch=SERVE_BATCH, generate_s=wall,
-        tokens_per_s=SERVE_REQUESTS * SERVE_GEN / wall,
+        requests=requests, prompt_len=prompt, gen_len=gen,
+        max_batch=SERVE_BATCH, replicas=replicas,
+        backend=stats["backend"], generate_s=wall,
+        tokens_per_s=requests * gen / wall,
         prefill_calls=len(probe.prefill_s),
         prefill_tokens_per_s=n_prefill_tok / sum(probe.prefill_s),
         prefill_ms_per_call=1e3 * float(np.mean(probe.prefill_s)),
@@ -977,8 +1469,10 @@ def phase_serving(torch, kernels, path):
         page_lookup_p50_ms=1e3 * float(np.percentile(probe.reads_s, 50)),
         peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         decode_round_profile=probe.busy,
-        read_cache=stats["read_cache"], locality=stats["locality"])
-    return metrics, {name: launches[name] for name in expected}
+        read_cache=stats["read_cache"], locality=stats["locality"],
+        **rep_metrics)
+    return metrics, {name: launches[name] for name in expected} \
+        | dma_launches
 
 
 def _leaves(tree):
@@ -1235,6 +1729,39 @@ def gmm_report(torch, kernels, err, launches):
     return [row]
 
 
+def copy_report(torch, rdma, cases, launches):
+    """remote_copy's row: at the failover phase's hop (P = 8, a 20,480-word
+    entry packed with its metadata into 20,488 words), with a ``serving``
+    entry at the replicated engine's (P = 4, 648 words), each a broadcast
+    from one owner.  Bound: 2·P·n·4 bytes (every row read and written) at
+    the memory rate.  The library yardstick is ``src.index_select(0,
+    sender.clamp(min=0))``, one PyTorch call that moves the same bytes; the
+    port never calls it.  ``launches`` maps each path to the kernel's
+    launches there."""
+    m = {}
+    for label, src, dst, sender in cases[:2]:
+        n_rows, n = src.shape
+        m[n_rows] = dict(
+            ms=cuda_ms(lambda: rdma.remote_copy(src, dst, sender), 200),
+            plain_ms=cuda_ms(lambda: rdma._remote_copy_ref(src, dst, sender),
+                             50),
+            library_ms=cuda_ms(lambda: src.index_select(
+                0, sender.clamp(min=0)), 200),
+            nbytes=2 * n_rows * n * 4, flops=0, shape=label)
+    row = dict(name="remote_copy", route="cuda",
+               source="src/repro_torch/kernels/csrc/remote_copy.cu",
+               replaces="src/repro/kernels/remote_dma.py:239")
+    row.update(timing_row(m[8], launches["failover"], 0.0, F32_FLOPS))
+    row["serving"] = timing_row(m[4], launches["serving"], 0.0, F32_FLOPS)
+    for n_rows, r in ((8, row), (4, row["serving"])):
+        mm = m[n_rows]
+        log(f"  remote_copy {mm['shape']}: {mm['ms']:.4f} ms/call, bound "
+            f"{r['bound_ms']:.6f} ms (bytes; {mm['nbytes'] / 1e3:.1f} KB), "
+            f"plain {mm['plain_ms']:.4f} ms, index_select "
+            f"{mm['library_ms']:.4f} ms, launches {r['launches']}")
+    return [row]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1271,13 +1798,14 @@ def main() -> int:
     try:
         log("phase 1: build")
         _nvcc.build("remote_dma", "flash_attention", "decode_attention",
-                    "rglru_scan", "wkv6", "moe_gmm")
+                    "rglru_scan", "wkv6", "moe_gmm", "remote_copy")
         for name, out in _nvcc.BUILD_LOGS.items():
             log(f"  nvcc {name}.cu:\n" + "\n".join(
                 "    " + ln for ln in out.strip().splitlines()))
         log(f"  built in {time.perf_counter() - t0:.1f} s")
         log("phase 2: kernels against their plain versions")
         cases, errs = phase_kernels(torch, rdma, slots)
+        copy_cases_ = phase_copy_kernel(torch, rdma)
         _attn_cases, attn_errs = phase_attention_kernels(torch,
                                                          model_kernels)
         _rec_cases, rec_errs = phase_recurrent_kernels(torch, model_kernels)
@@ -1285,20 +1813,29 @@ def main() -> int:
         log("phase 3: the same work on cuda and cpu")
         phase_parity(torch, pt)
         phase_serving_parity(torch, pt)
+        phase_replicated_parity(torch, pt)
         log("phase 4: the KVStore path")
         t4 = time.perf_counter()
         metrics, launches = phase_main_path(torch, pt, rdma, slots)
         log(f"  KVStore path took {time.perf_counter() - t4:.1f} s")
         for name, n in launches.items():
             check(n > 0, f"{name} was not launched on the KVStore path")
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("phase 4b: the failover scenario on the KVStore path's store")
+        t4 = time.perf_counter()
+        fo_metrics, fo_launches = phase_failover(torch, pt, rdma, slots)
+        log(f"  failover path took {time.perf_counter() - t4:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
         log("phase 5: the serving paths")
         serve_metrics, serve_launches = {}, {}
         for path in SERVE_PATHS:
             t5 = time.perf_counter()
-            arch = path["arch"]
-            serve_metrics[arch], serve_launches[arch] = phase_serving(
-                torch, model_kernels, path)
-            log(f"  {arch} serving path took "
+            label = path_label(path)
+            serve_metrics[label], serve_launches[label] = phase_serving(
+                torch, model_kernels, path, rdma)
+            log(f"  {label} serving path took "
                 f"{time.perf_counter() - t5:.1f} s")
             gc.collect()                 # the engine's weights go first
             torch.cuda.empty_cache()
@@ -1309,10 +1846,15 @@ def main() -> int:
         kernels += recurrent_report(torch, model_kernels, rec_errs,
                                     serve_launches)
         kernels += gmm_report(torch, model_kernels, gmm_err, serve_launches)
+        kernels += copy_report(torch, rdma, copy_cases_, {
+            "failover": fo_launches["remote_copy"],
+            "serving": serve_launches[path_label(SERVE_PATHS[1])][
+                "remote_copy"]})
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    log(json.dumps(dict(kvstore=metrics, serving=serve_metrics, card=card,
+    log(json.dumps(dict(kvstore=metrics, failover=fo_metrics,
+                        serving=serve_metrics, card=card,
                         total_s=time.perf_counter() - t0)))
     log(card)
     log(json.dumps({"kernels": kernels}))

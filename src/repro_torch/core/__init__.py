@@ -1,14 +1,17 @@
 """LOCO core, ported to PyTorch: the channel-object model on one card.
 
 Public surface so far — the KVStore window path (with its read tier and
-placement policies), the shared queue, and what they are built from:
+placement policies), the shared queue, the replication tier (ring, log,
+failure detector) and what they are built from:
 
 * runtime/binding: :class:`Runtime`, :class:`Manager`, :func:`make_manager`
 * consistency:     :class:`AckKey`, :class:`FenceScope`, :func:`join`
 * channels:        :class:`SharedRegion`, :class:`OwnedVar`,
                    :class:`AtomicVar`, :class:`SST`,
                    :class:`TicketLockArray`, :class:`KVStore`,
-                   :class:`ReadCache`, :class:`SharedQueue`
+                   :class:`ReadCache`, :class:`SharedQueue`,
+                   :class:`Ringbuffer`, :class:`ReplicatedLog`,
+                   :class:`FailureDetector`
 * backends:        :class:`CollsBackend`, :class:`OneSidedBackend`,
                    :class:`ActiveMessageBackend`,
                    :class:`PallasDmaBackend`, :func:`get_backend`
@@ -21,6 +24,7 @@ from .backends import (AM_HDR_BYTES, BACKENDS, DMA_DESC_BYTES,
                        PallasDmaBackend, get_backend)
 from .cache import ReadCache, ReadCacheState, hash_u32
 from .channel import Channel
+from .detector import FailureDetector, FailureDetectorState
 from .hottracker import HotTracker, HotTrackerState
 from .kvstore import (DELETE, GET, INSERT, MOVE, NOP, PLACEMENTS, UPDATE,
                       KVResult, KVStore, KVStoreState, state_from_numpy,
@@ -30,6 +34,9 @@ from .lock import (NO_TICKET, TicketLockArray, TicketLockArrayState,
 from .ownedvar import OwnedVar, OwnedVarState, checksum
 from .queue import SharedQueue, SharedQueueState, queue_state_to_numpy
 from .region import SharedRegion, SharedRegionState
+from .replog import (MAX_EPOCHS, RETRY_STAGES, RejoinState, ReplicatedLog,
+                     ReplicatedLogState, diverging_leaves)
+from .ringbuffer import Ringbuffer, RingbufferState
 from .runtime import Manager, Runtime, TrafficLedger, make_manager
 from .sst import SST, SSTState
 
@@ -46,4 +53,7 @@ __all__ = [
     "SharedQueue", "SharedQueueState", "queue_state_to_numpy",
     "SharedRegion", "SharedRegionState", "Manager", "Runtime",
     "TrafficLedger", "make_manager", "SST", "SSTState",
+    "FailureDetector", "FailureDetectorState", "MAX_EPOCHS", "RETRY_STAGES",
+    "RejoinState", "ReplicatedLog", "ReplicatedLogState", "diverging_leaves",
+    "Ringbuffer", "RingbufferState",
 ]

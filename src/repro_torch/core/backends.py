@@ -15,15 +15,19 @@ the counterpart of ``repro/core/backends.py``.
   |row|) per unique remote read and per remote write lane.
 
 Execution is bitwise-identical across backends; only the modeled bytes and
-rounds differ.  This slice ports the batched verbs, which is what the
-KVStore window path uses; the scalar ``read``/``write`` verbs and the
-ringbuffer publish hook wait for the channels that call them.
+rounds differ.  The port has the batched verbs (the KVStore window path and
+the rejoin snapshot reads) and the ring publish: its ledger model
+(:meth:`CollsBackend.record_publish`) and its wire hop
+(:meth:`CollsBackend.publish_hop`), which the ``pallas`` backend runs on the
+remote-copy kernel.  The scalar ``read``/``write`` verbs wait for the
+channels that call them.
 """
 from __future__ import annotations
 
 import torch
 
 from . import colls
+from .u32 import i2u, u2i
 
 #: Modeled bytes of one active-message op descriptor.
 AM_HDR_BYTES = 16
@@ -55,6 +59,17 @@ class CollsBackend:
         """Modeled wire bytes of one remote row read."""
         raise NotImplementedError
 
+    def record_publish(self, ledger, verb, slot_nbytes, n_moved):
+        """Ledger model of a ringbuffer publish of ``n_moved`` (P,) slots."""
+        raise NotImplementedError
+
+    def publish_hop(self, values, owner):
+        """The ring publish's wire hop: every participant receives the
+        owner's copy of each (P, ...) tensor in ``values``; ``owner`` is the
+        ring state's (P,) owner.  A view of the owner's row, as
+        :func:`colls.bcast_from` realizes it."""
+        return [colls.bcast_from(v, owner) for v in values]
+
 
 class OneSidedBackend(CollsBackend):
     """LOCO's one-sided verbs: delegates straight to :mod:`.colls`, whose
@@ -79,6 +94,13 @@ class OneSidedBackend(CollsBackend):
 
     def row_read_bytes(self, row_nbytes: int) -> float:
         return 2.0 * row_nbytes
+
+    def record_publish(self, ledger, verb, slot_nbytes, n_moved):
+        # the owner pushes each slot, consumers validate by counter
+        # read-back: 2·|slot| per moved slot, one round
+        colls._record(ledger, verb, 2.0 * slot_nbytes
+                      * torch.as_tensor(n_moved).to(torch.float64))
+        colls.record_rounds(ledger, verb, 1.0)
 
 
 class ActiveMessageBackend(CollsBackend):
@@ -120,6 +142,39 @@ class ActiveMessageBackend(CollsBackend):
 
     def row_read_bytes(self, row_nbytes: int) -> float:
         return float(AM_HDR_BYTES + row_nbytes)
+
+    def record_publish(self, ledger, verb, slot_nbytes, n_moved):
+        # one (hdr + slot) message per moved slot, no read-back, one round
+        colls._record(ledger, verb, float(AM_HDR_BYTES + slot_nbytes)
+                      * torch.as_tensor(n_moved).to(torch.float64))
+        colls.record_rounds(ledger, verb, 1.0)
+
+
+def _to_words(v):
+    """A (P, ...) tensor as (P, k) int32 words, bit for bit: 4-byte dtypes
+    are reinterpreted, uint32 holders (int64) keep their low 32 bits, bools
+    become 0/1."""
+    P = v.shape[0]
+    if v.dtype == torch.bool:
+        w = v.to(torch.int32)
+    elif v.dtype == torch.int64:
+        w = u2i(v)
+    elif v.element_size() == 4:
+        w = v.contiguous().view(torch.int32)
+    else:
+        raise TypeError(f"the ring hop carries 4-byte words, uint32 holders "
+                        f"and bools, got {v.dtype}")
+    return w.reshape(P, -1)
+
+
+def _from_words(w, like):
+    """Inverse of :func:`_to_words` for a tensor shaped like ``like``."""
+    w = w.reshape(like.shape)
+    if like.dtype == torch.bool:
+        return w != 0
+    if like.dtype == torch.int64:
+        return i2u(w)
+    return w.view(like.dtype)
 
 
 class _DmaEngine:
@@ -170,6 +225,37 @@ class PallasDmaBackend(CollsBackend):
 
     def row_read_bytes(self, row_nbytes: int) -> float:
         return float(DMA_DESC_BYTES + row_nbytes)
+
+    def record_publish(self, ledger, verb, slot_nbytes, n_moved):
+        # one descriptor + slot payload per moved slot, delivery confirmed by
+        # the DMA completion (no counter read-back), one round
+        colls._record(ledger, verb, float(DMA_DESC_BYTES + slot_nbytes)
+                      * torch.as_tensor(n_moved).to(torch.float64))
+        colls.record_rounds(ledger, verb, 1.0)
+
+    def publish_hop(self, values, owner):
+        """The hop on the remote-copy kernel: the values are packed bit for
+        bit into one (P, n) int32 word buffer (n padded to a multiple of
+        four) and copied from the owner's row into every other row in one
+        launch; the owner keeps its own.  Values are bitwise those of the
+        one-sided hop.  The kernel's measured bytes are not filed: the
+        reference's emulated broadcast files no measured row for a publish
+        either."""
+        words = [_to_words(v) for v in values]
+        n = sum(w.shape[1] for w in words)
+        # rows of whole 16-byte units take the kernel's vector path
+        words.append(words[0].new_zeros((words[0].shape[0], -n % 4)))
+        words = torch.cat(words, dim=1)
+        me = torch.arange(owner.shape[0], device=owner.device)
+        sender = torch.where(owner.to(torch.int64) == me, -1,
+                             owner.to(torch.int64))
+        out, _sent, _recv = colls._dma().remote_copy(words, words, sender)
+        res, off = [], 0
+        for v in values:
+            k = v[0].numel()
+            res.append(_from_words(out[:, off:off + k], v))
+            off += k
+        return res
 
 
 #: Singleton registry — backends are stateless, one instance each.

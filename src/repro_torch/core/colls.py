@@ -122,8 +122,13 @@ def count_before_same(seg, flags):
 # collectives
 # ---------------------------------------------------------------------------
 
-def bcast_from(value, owner: int):
-    """Broadcast participant ``owner``'s value to all: (P, ...) → (P, ...)."""
+def bcast_from(value, owner):
+    """Broadcast participant ``owner``'s value to all: (P, ...) → (P, ...).
+    ``owner`` is an int, or a (P,) tensor holding each participant's view of
+    the owner — the same id everywhere, as every state that names an owner
+    is (then participant q receives ``value[owner[q]]``)."""
+    if isinstance(owner, torch.Tensor):
+        return value[owner.to(torch.int64)]
     return value[owner].expand_as(value)
 
 

@@ -704,23 +704,27 @@ class KVStore(Channel):
     def _lane_homes(self, ops, keys, targets):
         """(P, B) int32 home nodes under the store's placement policy, or
         ``None`` for the writer-local path (placement ``"local"`` with no
-        explicit targets).  Targets name homes under ``"explicit"`` only;
-        the reference's other use of them, MOVE destinations, is refused
-        before this point."""
+        explicit targets).  MOVE lanes home at their explicit target when
+        one is given, else at the policy home."""
         if targets is None and self.placement == "local":
             return None
+        t = None if targets is None else _tensor(
+            targets, torch.int32, self.device).reshape(ops.shape).clamp(
+                0, self.P - 1)
         if self.placement == "hashed":
-            return (keys % self.P).to(torch.int32)
-        if self.placement == "explicit":
-            if targets is None:
+            ph = (keys % self.P).to(torch.int32)
+        elif self.placement == "explicit":
+            if t is None:
                 raise ValueError(
                     "placement='explicit' stores need per-lane targets=")
-            return _tensor(targets, torch.int32, self.device).reshape(
-                ops.shape).clamp(0, self.P - 1)
-        return self.my_id()[:, None].expand(ops.shape).to(torch.int32)
+            ph = t
+        else:
+            ph = self.my_id()[:, None].expand(ops.shape).to(torch.int32)
+        return ph if t is None else torch.where(ops == MOVE, t, ph)
 
     # -- windows --------------------------------------------------------------------
-    def op_window(self, st: KVStoreState, ops, keys, values, targets=None):
+    def op_window(self, st: KVStoreState, ops, keys, values, targets=None,
+                  targets_are_homes=False):
         """Every participant submits a window of mixed operations; the whole
         (P, B) window executes in one round-set.  Service rounds run until
         every mutation completed.  Returns (state, KVResult).
@@ -728,7 +732,9 @@ class KVStore(Channel):
         ops (P, B) int in {NOP, GET, INSERT, UPDATE, DELETE}; keys (P, B)
         uint32 (nonzero); values (P, B, W) int32.  ``targets`` (P, B) int:
         per-lane placement hints (§10.1), the home of INSERT lanes under
-        ``placement="explicit"``.  A window holding a MOVE lane raises
+        ``placement="explicit"``.  ``targets_are_homes=True`` (the replay
+        entry point) bypasses the placement policy: ``targets`` ARE the
+        per-lane homes.  A window holding a MOVE lane raises
         ``NotImplementedError``: migration (``migrate_window``) is not
         ported yet."""
         ops, keys, values = self._lanes_in(ops, keys, values)
@@ -738,7 +744,11 @@ class KVStore(Channel):
             raise NotImplementedError(
                 "MOVE lanes (migrate_window, DESIGN.md §10.2) are not ported "
                 "yet")
-        homes = self._lane_homes(ops, keys, targets)
+        if targets_are_homes:
+            homes = _tensor(targets, torch.int32, self.device).reshape(
+                ops.shape).clamp(0, self.P - 1)
+        else:
+            homes = self._lane_homes(ops, keys, targets)
         P, B = ops.shape
         lock_id = (keys % self.L).to(torch.int32)
         want_lock = (ops == INSERT) | (ops == UPDATE) | (ops == DELETE)
@@ -800,6 +810,53 @@ class KVStore(Channel):
                                                               self.W))
         return st, KVResult(value=res.value[:, 0], found=res.found[:, 0],
                             retries=res.retries[:, 0])
+
+    # -- replication records (the ReplicatedLog's entries, DESIGN.md §9.3) --
+    @property
+    def record_width(self) -> int:
+        """int32 words of one exported mutation record:
+        ``[op | key_bits | value…W | home]``."""
+        return 3 + self.W
+
+    def export_window_records(self, ops, keys, values, targets=None):
+        """Encode a (P, B) window as replication records: (P, B,
+        record_width) int32 rows ``[op | key_bits | value… | home]`` with
+        non-mutating lanes (NOP/GET) masked to NOP.  The last column is the
+        lane's home resolved under the store's placement policy, so a
+        replica replays the leader's placement whatever its own policy."""
+        ops = _tensor(ops, torch.int32, self.device)
+        P, B = ops.shape
+        keys = as_u32(keys, self.device).reshape(P, B)
+        values = _tensor(values, torch.int32, self.device).reshape(P, B,
+                                                                   self.W)
+        mut = (ops == INSERT) | (ops == UPDATE) | (ops == DELETE) \
+            | (ops == MOVE)
+        homes = self._lane_homes(ops, keys, targets)
+        if homes is None:
+            # writer-local: home IS the writer, and MOVE lanes are no-ops
+            # there, so their records are masked too
+            mut = mut & (ops != MOVE)
+            homes = self.my_id()[:, None].expand(P, B).to(torch.int32)
+        return torch.cat([
+            torch.where(mut, ops, torch.full_like(ops, NOP))[..., None],
+            u2i(keys)[..., None], values, homes.to(torch.int32)[..., None]],
+            dim=-1)
+
+    def replay_window_records(self, st: KVStoreState, recs, pred=True):
+        """Apply one exported (P, B, record_width) record window through
+        :meth:`op_window` with the records' homes as the per-lane homes
+        (``targets_are_homes``).  ``pred`` ((P,) or a bool) False masks a
+        participant's whole window to NOP — an absent log entry replays as
+        the identity.  Returns (state, KVResult)."""
+        recs = _tensor(recs, torch.int32, self.device)
+        pred = torch.as_tensor(pred, device=self.device).to(torch.bool) \
+            .expand(self.P)
+        ops = torch.where(pred[:, None], recs[..., 0],
+                          torch.full_like(recs[..., 0], NOP))
+        return self.op_window(st, ops, i2u(recs[..., 1]),
+                              recs[..., 2:2 + self.W],
+                              targets=recs[..., 2 + self.W],
+                              targets_are_homes=True)
 
     def get_batch(self, st: KVStoreState, keys, pred=None):
         """R lock-free GETs per participant in one collective round.

@@ -54,9 +54,10 @@ class RegionInfo:
 
 
 class TrafficLedger:
-    """Per-verb traffic accounting (DESIGN.md §2.3, §8, §14, §15): modeled
-    wire bytes, modeled collective rounds, read-cache hits and lookups, and
-    the bytes the remote-DMA kernels measure.
+    """Per-verb traffic accounting (DESIGN.md §2.3, §8, §12, §14, §15):
+    modeled wire bytes, modeled collective rounds, read-cache hits and
+    lookups, the bytes the remote-DMA kernels measure, and the per-channel
+    counts of checksum failures (corrupt) and stale-epoch entries (fenced).
 
     A verb reports one (P,) tensor — each participant's bytes — which is
     summed on the device into the verb's running total; nothing is read to
@@ -82,6 +83,8 @@ class TrafficLedger:
         self.round_counts: Dict[str, Dict[str, float]] = {}
         self.dma_counts: Dict[str, Dict[str, Any]] = {}
         self.cache_counts: Dict[str, Dict[str, Any]] = {}
+        self.corrupt_counts: Dict[str, Any] = {}
+        self.fenced_counts: Dict[str, Any] = {}
         return self
 
     @staticmethod
@@ -112,6 +115,19 @@ class TrafficLedger:
         for k, v in (("hits", hits), ("lookups", lookups)):
             e[k] = e[k] + torch.as_tensor(v).to(torch.float64).sum()
 
+    def record_corrupt(self, name: str, count):
+        """Add checksum-validation failures (a per-participant tensor, summed
+        on the device) against channel ``name``: a receive found a slot whose
+        seq matched its cursor but whose checksum did not (§12)."""
+        self.corrupt_counts[name] = self.corrupt_counts.get(name, 0.0) \
+            + torch.as_tensor(count).to(torch.float64).sum()
+
+    def record_fenced(self, name: str, count):
+        """Add stale-epoch entries rejected by the failover fence (§12.1), a
+        per-participant tensor, against channel ``name``."""
+        self.fenced_counts[name] = self.fenced_counts.get(name, 0.0) \
+            + torch.as_tensor(count).to(torch.float64).sum()
+
     @staticmethod
     def _read(table):
         return {k: {"calls": v["calls"], "bytes": float(v["bytes"])}
@@ -134,6 +150,14 @@ class TrafficLedger:
             out[k] = {"hits": hits, "lookups": lookups,
                       "hit_rate": hits / lookups if lookups else 0.0}
         return out
+
+    def corrupt_summary(self) -> Dict[str, float]:
+        """Per-channel checksum-validation-failure counts (§12)."""
+        return {k: float(v) for k, v in sorted(self.corrupt_counts.items())}
+
+    def fenced_summary(self) -> Dict[str, float]:
+        """Per-channel stale-epoch fenced-entry counts (§12.1)."""
+        return {k: float(v) for k, v in sorted(self.fenced_counts.items())}
 
     def total_bytes(self) -> float:
         return sum(e["bytes"] for e in self.summary().values())

@@ -3,9 +3,10 @@ counterpart of ``repro/core/sst.py``.
 
 An array of single-writer multiple-reader registers, one per participant:
 participant i writes row i and reads all rows.  Composed from P owned_var
-sub-channels ("<sst>/ov<i>").  This slice ports the scalar uint32 register
-table the KVStore tracker acknowledges through: ``push_accumulate`` and
-``rows``.
+sub-channels ("<sst>/ov<i>").  The port holds uint32 registers of any
+``shape``: the scalar cursors and ack counters of the KVStore tracker and the
+ring, and the ``[epoch, cursor, heartbeat]`` rows of the replicated log's
+promotion table.
 """
 from __future__ import annotations
 
@@ -23,35 +24,42 @@ from .u32 import MASK32
 
 class SSTState(NamedTuple):
     # cached[p, i]: participant p's cached copy of participant i's register
-    cached: torch.Tensor  # (P, P) uint32 (int64 holder)
+    cached: torch.Tensor  # (P, P, *shape) uint32 (int64 holder)
     csum: torch.Tensor    # (P, P) uint32 (int64 holder)
 
 
 class SST(Channel):
-    """Shared state table of per-participant scalar uint32 registers."""
+    """Shared state table of per-participant uint32 registers of
+    ``shape``."""
 
-    def __init__(self, parent, name: str, mgr: Manager):
+    def __init__(self, parent, name: str, mgr: Manager, *, shape=()):
         super().__init__(parent, name, mgr)
-        self.vars = [OwnedVar(self, f"ov{i}", mgr, owner=i, shape=(),
+        self.shape = tuple(shape)
+        self.vars = [OwnedVar(self, f"ov{i}", mgr, owner=i, shape=self.shape,
                               dtype=torch.uint32) for i in range(self.P)]
         self.row_nbytes = self.vars[0].nbytes
 
+    def _csum(self, rows):
+        return checksum(rows, item_dims=len(self.shape))
+
     def init_state(self, value: int = 0) -> SSTState:
-        v = torch.full((self.P, self.P), int(value) & MASK32,
+        v = torch.full((self.P, self.P) + self.shape, int(value) & MASK32,
                        dtype=torch.int64, device=self.device)
-        return SSTState(cached=v, csum=checksum(v, item_dims=0))
+        return SSTState(cached=v, csum=self._csum(v))
 
     def store_mine(self, state: SSTState, value, pred=True) -> SSTState:
-        """Local store of each participant's own register (row ``me``)."""
+        """Local store of each participant's own register (row ``me``):
+        ``value`` (P, *shape), ``pred`` a (P,) mask or a bool."""
         me = self.my_id()
         value = torch.as_tensor(value, device=self.device).to(torch.int64) \
-            .expand(self.P) & MASK32
-        row = torch.where(torch.as_tensor(pred, device=self.device), value,
-                          state.cached[me, me])
+            .expand((self.P,) + self.shape) & MASK32
+        pred = torch.as_tensor(pred, device=self.device).expand(self.P)
+        pred = pred.reshape((self.P,) + (1,) * len(self.shape))
+        row = torch.where(pred, value, state.cached[me, me])
         cached = state.cached.clone()
         csum = state.csum.clone()
         cached[me, me] = row
-        csum[me, me] = checksum(row, item_dims=0)
+        csum[me, me] = self._csum(row)
         return SSTState(cached=cached, csum=csum)
 
     def push_accumulate(self, state: SSTState, delta, pred=True):
@@ -77,6 +85,26 @@ class SST(Channel):
                                  ALL_PEERS, self.row_nbytes)
         return new, ack
 
+    def load_row(self, state: SSTState, i):
+        """Local read of cached row ``i`` (an int or a (P,) tensor, one row
+        per participant) → (value (P, *shape), checksum_ok (P,))."""
+        me = self.my_id()
+        i = torch.as_tensor(i, device=self.device).to(torch.int64) \
+            .expand(self.P)
+        val = state.cached[me, i]
+        return val, self._csum(val) == state.csum[me, i]
+
     def rows(self, state: SSTState):
-        """All cached rows, (P viewers, P)."""
+        """All cached rows, (P viewers, P, *shape)."""
         return state.cached
+
+    def pull_all(self, state: SSTState):
+        """Refresh all cached rows from their owners (readers' pull)."""
+        me = self.my_id()
+        rows = state.cached[me, me]
+        csums = state.csum[me, me]
+        new = SSTState(cached=colls.gather_rows(rows).clone(),
+                       csum=colls.gather_rows(csums).clone())
+        ack = make_ack((rows, csums), "read", self.full_name, ALL_PEERS,
+                       self.row_nbytes * self.P)
+        return new, ack

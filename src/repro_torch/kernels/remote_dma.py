@@ -13,6 +13,9 @@ raises; on a CPU tensor it runs the kernel's plain PyTorch version below,
 which the CPU tests hold against the JAX package.  Each wrapper counts its
 kernel launches in ``<wrapper>.launches``.
 
+:func:`remote_copy` is the ring broadcast's wire hop, the counterpart of the
+TPU-only ``remote_copy_tpu``; its kernel lives in ``csrc/remote_copy.cu``.
+
 Descriptor layout (8 × int32 = :data:`DESC_BYTES` bytes)::
 
     word 0  op        1 = read, 2 = write
@@ -47,6 +50,10 @@ _SIGNATURES = {
     "rdma_scatter_rows": [_P] * 7 + [_I] * 5 + [_P],
 }
 _LIB = _nvcc.Library("remote_dma", _SIGNATURES, "rdma_error_string")
+_COPY_LIB = _nvcc.Library(
+    "remote_copy",
+    {"remote_copy": [_P] * 6 + [_I, ctypes.c_longlong, _I, _I, _P]},
+    "remote_copy_error_string")
 
 
 def _on_card(*tensors) -> bool:
@@ -212,4 +219,66 @@ def scatter_rows(buf, indices, values, apply_mask, wire_mask):
 
 scatter_rows.launches = 0
 
+# ---------------------------------------------------------------------------
+# the wire hop between participants (the ring broadcast)
+# ---------------------------------------------------------------------------
+
+def _remote_copy_ref(src, dst, sender):
+    P, n = src.shape
+    me = torch.arange(P, device=src.device)
+    s = sender.to(torch.int64)
+    peer = (s >= 0) & (s < P) & (s != me)
+    out = torch.where(peer[:, None], src[s.clamp(0, P - 1)], dst)
+    row_nbytes = n * src.element_size()
+    recv = peer.to(torch.int32) * row_nbytes
+    sent = ((s[None, :] == me[:, None]) & peer[None, :]).sum(
+        1, dtype=torch.int32) * row_nbytes
+    return out, sent, recv
+
+
+def remote_copy(src, dst, sender):
+    """The wire hop of the stacked binding: receiver ``q`` takes row
+    ``sender[q]`` of ``src``; a sender of -1, ``q`` itself or any value
+    outside [0, P) means ``q`` receives nothing and keeps ``dst[q]``.
+    ``src`` and ``dst`` are (P, n) buffers of one 4-byte dtype, ``sender`` a
+    (P,) int.  Returns (out, sent_bytes (P,) int32, recv_bytes (P,) int32):
+    the byte counts stand in for the DMA send and recv semaphores — a row's
+    bytes at its receiver and at its sender, counted from the same map that
+    drives the copy.  A broadcast from participant ``o`` is
+    ``sender = o`` everywhere but at ``o``.
+
+    Replaces the TPU kernel ``remote_copy_tpu`` of
+    ``repro/kernels/remote_dma.py``, a remote-DMA send/wait pair to a peer
+    chip.  Here the P participants share one card, so the copy runs between
+    their slices of device memory.  Bound by device-memory bytes."""
+    if src.shape != dst.shape or src.dim() != 2 or src.dtype != dst.dtype:
+        raise ValueError(f"src and dst must be (P, n) of one dtype, got "
+                         f"{src.dtype} {tuple(src.shape)} and {dst.dtype} "
+                         f"{tuple(dst.shape)}")
+    P, n = src.shape
+    sender = _i32(sender).reshape(-1)
+    if sender.shape[0] != P:
+        raise ValueError(f"sender must be ({P},), got {tuple(sender.shape)}")
+    if not _on_card(src, dst, sender):
+        return _remote_copy_ref(src, dst, sender)
+    row_nbytes = n * src.element_size()
+    if row_nbytes >= 2 ** 31:
+        raise ValueError(f"a row of {row_nbytes} bytes overflows the int32 "
+                         f"byte counters")
+    a, b = _words(src), _words(dst)
+    out = torch.empty_like(a)
+    sent = torch.zeros((P,), dtype=torch.int32, device=src.device)
+    recv = torch.zeros((P,), dtype=torch.int32, device=src.device)
+    vec = int(n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (a, b, out)))
+    _COPY_LIB.call("remote_copy", a.data_ptr(), b.data_ptr(),
+                   sender.data_ptr(), out.data_ptr(), sent.data_ptr(),
+                   recv.data_ptr(), P, n, row_nbytes, vec,
+                   _nvcc.stream(src))
+    remote_copy.launches += 1
+    return out.view(src.dtype), sent, recv
+
+
+remote_copy.launches = 0
+
+#: The kernels of the KVStore window path (the ring hop is :func:`remote_copy`).
 KERNELS = (build_descriptors, gather_rows, scatter_rows)

@@ -15,9 +15,16 @@ from a seeded generator.
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch llama4-maverick-400b-a17b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
+      --smoke --device cpu --replicas 2 --kill-leader-at 1 --revive-at 6 \\
+      --backend pallas
 
-``--device`` defaults to the card.  The replication and fault-injection
-flags of the reference wait for ROADMAP Queue A item 8.
+``--device`` defaults to the card.  ``--replicas N`` keeps N follower copies
+of the page table behind a replicated log; ``--kill-leader-at W`` crashes
+the log leader before mutation window W (the failure detector finds it, a
+follower is promoted) and ``--revive-at W`` brings it back (snapshot or
+replay rejoin).  ``--backend`` picks the channels' execution protocol
+(``pallas``: the remote-DMA and remote-copy kernels).
 """
 from __future__ import annotations
 
@@ -28,7 +35,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.core.backends import BACKENDS
 from repro_torch.core.kvstore import DELETE, INSERT
+from repro_torch.distributed import FaultPlan
 from repro_torch.serving.engine import ServingEngine
 
 
@@ -43,13 +52,36 @@ def main(argv=None):
     ap.add_argument("--dtype", default="float32")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the card, default) or 'cpu'")
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="follower page-table replicas behind a "
+                         "ReplicatedLog")
+    ap.add_argument("--kill-leader-at", type=int, default=None,
+                    metavar="WINDOW",
+                    help="crash the log leader before mutation window "
+                         "WINDOW (needs --replicas >= 1)")
+    ap.add_argument("--revive-at", type=int, default=None, metavar="WINDOW",
+                    help="revive the killed leader at mutation window "
+                         "WINDOW (needs --kill-leader-at)")
+    ap.add_argument("--detect-threshold", type=int, default=2,
+                    help="missed heartbeat windows before a death verdict")
+    ap.add_argument("--backend", default=None, choices=sorted(BACKENDS),
+                    help="execution protocol of the engine's channels")
     args = ap.parse_args(argv)
 
+    plan = None
+    if args.kill_leader_at is not None:
+        plan = FaultPlan(kills={0: args.kill_leader_at},
+                         revives=({} if args.revive_at is None
+                                  else {0: args.revive_at}))
+    elif args.revive_at is not None:
+        raise SystemExit("--revive-at requires --kill-leader-at")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(dtype=args.dtype)
     engine = ServingEngine(cfg, max_batch=args.max_batch,
                            max_seq=args.prompt_len + args.gen_len,
-                           device=args.device)
+                           replicas=args.replicas, fault_plan=plan,
+                           detect_threshold=args.detect_threshold,
+                           backend=args.backend, device=args.device)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab, size=(args.prompt_len,))
                .astype(np.int32) for _ in range(args.requests)]
@@ -63,7 +95,11 @@ def main(argv=None):
           f"{engine.device} in {dt:.2f}s → {n_tokens / dt:.1f} tok/s")
     print(f"[serve] sample output: {outs[0][:8]}")
     stats = engine.stats()
+    rep = stats.pop("replication", None)
     print(f"[serve] page-table (kvstore) stats: {stats}")
+    if rep is not None:
+        print(f"[serve] replication: {rep}")
+        stats["replication"] = rep
     if stats["kv_ops"].get(INSERT, 0) != stats["kv_ops"].get(DELETE, 0):
         raise SystemExit("[serve] every admitted page must be deleted")
     return outs, stats

@@ -92,9 +92,32 @@ def locked_ledger(mgr):
                            jnp.asarray(hits, jnp.float32),
                            jnp.asarray(lookups, jnp.float32))
 
+    def _count(table, name, n):
+        with lock:
+            table[name] = table.get(name, 0.0) + float(n)
+
+    def record_corrupt(name, count):
+        jax.debug.callback(lambda n: _count(ledger.corrupt_counts, name, n),
+                           jnp.asarray(count, jnp.float32))
+
+    def record_fenced(name, count):
+        jax.debug.callback(lambda n: _count(ledger.fenced_counts, name, n),
+                           jnp.asarray(count, jnp.float32))
+
     ledger.record, ledger.record_rounds = record, record_rounds
     ledger.record_dma, ledger.record_cache = record_dma, record_cache
+    ledger.record_corrupt, ledger.record_fenced = record_corrupt, record_fenced
     return ledger.enable()
+
+
+def ledger_rows(ledger):
+    """Every tier of a traffic ledger — modeled bytes, rounds, measured DMA
+    bytes, read-cache counters, checksum failures, fenced entries — as plain
+    dicts (the reference's and the port's have the same methods)."""
+    return {"bytes": ledger.summary(), "rounds": ledger.rounds_summary(),
+            "dma": ledger.dma_summary(), "cache": ledger.cache_summary(),
+            "corrupt": ledger.corrupt_summary(),
+            "fenced": ledger.fenced_summary()}
 
 
 def jax_to_numpy(tree):
