@@ -312,8 +312,10 @@ def copy_cases(torch):
 
 def phase_copy_kernel(torch, rdma):
     """remote_copy against _remote_copy_ref on the same card tensors:
-    outputs and both byte vectors bitwise equal."""
+    outputs and both byte vectors bitwise equal.  Returns the cases and
+    each case's measured max abs err by label."""
     cases = copy_cases(torch)
+    errs = {}
     for label, src, dst, sender in cases:
         before = rdma.remote_copy.launches
         got = rdma.remote_copy(src, dst, sender)
@@ -324,9 +326,22 @@ def phase_copy_kernel(torch, rdma):
         e = max_abs_err(torch, got, exp)
         check(e == 0.0, f"remote_copy ({label}) differs from its plain "
                         f"version: max abs err {e}")
+        errs[label] = e
         log(f"  remote_copy [{label}]: bitwise equal to the plain version, "
             f"bytes included")
-    return cases
+    return cases, errs
+
+
+def copy_nbytes(sender, n):
+    """Bytes remote_copy must move for ``sender`` over (P, n) int32 rows:
+    each distinct row read once — a sender's row of src, and dst's row of
+    each receiver that keeps its own — all P rows written once, the sender
+    map read and the two (P,) byte counters written."""
+    s = sender.tolist()
+    P = len(s)
+    peers = [v for q, v in enumerate(s) if 0 <= v < P and v != q]
+    rows_read = len(set(peers)) + P - len(peers)
+    return (rows_read + P) * n * 4 + 4 * P + 2 * 4 * P
 
 
 def attention_cases(torch):
@@ -1729,15 +1744,16 @@ def gmm_report(torch, kernels, err, launches):
     return [row]
 
 
-def copy_report(torch, rdma, cases, launches):
+def copy_report(torch, rdma, cases, errs, launches):
     """remote_copy's row: at the failover phase's hop (P = 8, a 20,480-word
     entry packed with its metadata into 20,488 words), with a ``serving``
     entry at the replicated engine's (P = 4, 648 words), each a broadcast
-    from one owner.  Bound: 2·P·n·4 bytes (every row read and written) at
-    the memory rate.  The library yardstick is ``src.index_select(0,
-    sender.clamp(min=0))``, one PyTorch call that moves the same bytes; the
-    port never calls it.  ``launches`` maps each path to the kernel's
-    launches there."""
+    from one owner.  Bound: :func:`copy_nbytes` of the timed sender map
+    ((P + 2)·n·4 bytes for a broadcast, plus the map and the counters) at
+    the memory rate; max_abs_err is phase 2's at the same case.  The
+    library yardstick is ``src.index_select(0, sender.clamp(min=0))``, one
+    PyTorch call that moves the same rows; the port never calls it.
+    ``launches`` maps each path to the kernel's launches there."""
     m = {}
     for label, src, dst, sender in cases[:2]:
         n_rows, n = src.shape
@@ -1747,12 +1763,15 @@ def copy_report(torch, rdma, cases, launches):
                              50),
             library_ms=cuda_ms(lambda: src.index_select(
                 0, sender.clamp(min=0)), 200),
-            nbytes=2 * n_rows * n * 4, flops=0, shape=label)
+            nbytes=copy_nbytes(sender, n), flops=0, err=errs[label],
+            shape=label)
     row = dict(name="remote_copy", route="cuda",
                source="src/repro_torch/kernels/csrc/remote_copy.cu",
                replaces="src/repro/kernels/remote_dma.py:239")
-    row.update(timing_row(m[8], launches["failover"], 0.0, F32_FLOPS))
-    row["serving"] = timing_row(m[4], launches["serving"], 0.0, F32_FLOPS)
+    row.update(timing_row(m[8], launches["failover"], m[8]["err"],
+                          F32_FLOPS))
+    row["serving"] = timing_row(m[4], launches["serving"], m[4]["err"],
+                                F32_FLOPS)
     for n_rows, r in ((8, row), (4, row["serving"])):
         mm = m[n_rows]
         log(f"  remote_copy {mm['shape']}: {mm['ms']:.4f} ms/call, bound "
@@ -1805,7 +1824,7 @@ def main() -> int:
         log(f"  built in {time.perf_counter() - t0:.1f} s")
         log("phase 2: kernels against their plain versions")
         cases, errs = phase_kernels(torch, rdma, slots)
-        copy_cases_ = phase_copy_kernel(torch, rdma)
+        copy_cases_, copy_errs = phase_copy_kernel(torch, rdma)
         _attn_cases, attn_errs = phase_attention_kernels(torch,
                                                          model_kernels)
         _rec_cases, rec_errs = phase_recurrent_kernels(torch, model_kernels)
@@ -1846,7 +1865,7 @@ def main() -> int:
         kernels += recurrent_report(torch, model_kernels, rec_errs,
                                     serve_launches)
         kernels += gmm_report(torch, model_kernels, gmm_err, serve_launches)
-        kernels += copy_report(torch, rdma, copy_cases_, {
+        kernels += copy_report(torch, rdma, copy_cases_, copy_errs, {
             "failover": fo_launches["remote_copy"],
             "serving": serve_launches[path_label(SERVE_PATHS[1])][
                 "remote_copy"]})

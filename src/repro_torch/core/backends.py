@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import colls
-from .u32 import i2u, u2i
+from .u32 import from_words, to_words
 
 #: Modeled bytes of one active-message op descriptor.
 AM_HDR_BYTES = 16
@@ -150,33 +150,6 @@ class ActiveMessageBackend(CollsBackend):
         colls.record_rounds(ledger, verb, 1.0)
 
 
-def _to_words(v):
-    """A (P, ...) tensor as (P, k) int32 words, bit for bit: 4-byte dtypes
-    are reinterpreted, uint32 holders (int64) keep their low 32 bits, bools
-    become 0/1."""
-    P = v.shape[0]
-    if v.dtype == torch.bool:
-        w = v.to(torch.int32)
-    elif v.dtype == torch.int64:
-        w = u2i(v)
-    elif v.element_size() == 4:
-        w = v.contiguous().view(torch.int32)
-    else:
-        raise TypeError(f"the ring hop carries 4-byte words, uint32 holders "
-                        f"and bools, got {v.dtype}")
-    return w.reshape(P, -1)
-
-
-def _from_words(w, like):
-    """Inverse of :func:`_to_words` for a tensor shaped like ``like``."""
-    w = w.reshape(like.shape)
-    if like.dtype == torch.bool:
-        return w != 0
-    if like.dtype == torch.int64:
-        return i2u(w)
-    return w.view(like.dtype)
-
-
 class _DmaEngine:
     """Measured-byte sink the DMA backend threads through the colls wire
     path: each remote-DMA kernel reports the (P,) bytes it moved and the
@@ -241,7 +214,7 @@ class PallasDmaBackend(CollsBackend):
         one-sided hop.  The kernel's measured bytes are not filed: the
         reference's emulated broadcast files no measured row for a publish
         either."""
-        words = [_to_words(v) for v in values]
+        words = [to_words(v) for v in values]
         n = sum(w.shape[1] for w in words)
         # rows of whole 16-byte units take the kernel's vector path
         words.append(words[0].new_zeros((words[0].shape[0], -n % 4)))
@@ -253,7 +226,7 @@ class PallasDmaBackend(CollsBackend):
         res, off = [], 0
         for v in values:
             k = v[0].numel()
-            res.append(_from_words(out[:, off:off + k], v))
+            res.append(from_words(out[:, off:off + k], v))
             off += k
         return res
 

@@ -58,12 +58,13 @@ class ReadCache(Channel):
         self.declare_region("tags", (self.N, 2), torch.int32)
         self.declare_region("rows", (self.N, self.RW), torch.int32)
 
-    def init_state(self) -> ReadCacheState:
+    def init_state(self, device=None) -> ReadCacheState:
+        dev = self.device if device is None else device
         return ReadCacheState(
             tags=torch.full((self.P, self.N, 2), -1, dtype=torch.int32,
-                            device=self.device),
+                            device=dev),
             rows=torch.zeros((self.P, self.N, self.RW), dtype=torch.int32,
-                             device=self.device))
+                             device=dev))
 
     @staticmethod
     def empty_state(P: int, row_width: int, device) -> ReadCacheState:

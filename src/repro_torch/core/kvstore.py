@@ -180,19 +180,22 @@ class KVStore(Channel):
         return payload, ctr, valid, csum_ok
 
     # -- state ----------------------------------------------------------------
-    def init_state(self) -> KVStoreState:
-        P, dev = self.P, self.device
+    def init_state(self, device=None) -> KVStoreState:
+        """A fresh stacked state on the store's device, or on ``device``
+        (the meta device gives its shapes without allocating)."""
+        P = self.P
+        dev = self.device if device is None else device
         return KVStoreState(
-            locks=self.locks.init_state(),
-            rows=self.rows_region.init_state(),
+            locks=self.locks.init_state(device),
+            rows=self.rows_region.init_state(device),
             slot_ctr=torch.zeros((P, self.S), dtype=torch.int64, device=dev),
             free_stack=torch.arange(self.S, dtype=torch.int32, device=dev)
             .expand(P, self.S).clone(),
             free_top=torch.full((P,), self.S, dtype=torch.int32, device=dev),
             idx=torch.zeros((P, self.C, 5), dtype=torch.int32, device=dev),
             idx_overflow=torch.zeros((P,), dtype=torch.bool, device=dev),
-            acks=self.acks.init_state(),
-            cache=(self.cache.init_state() if self.cache is not None
+            acks=self.acks.init_state(device=device),
+            cache=(self.cache.init_state(device) if self.cache is not None
                    else ReadCache.empty_state(P, self.W + 3, dev)),
             heat=HotTracker.empty_state(P, dev))
 

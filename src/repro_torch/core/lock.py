@@ -59,9 +59,9 @@ class TicketLockArray(Channel):
         self.declare_region("next", (self.L,), torch.uint32)
         self.declare_region("serving", (self.L,), torch.uint32)
 
-    def init_state(self) -> TicketLockArrayState:
+    def init_state(self, device=None) -> TicketLockArrayState:
         z = torch.zeros((self.P, self.L), dtype=torch.int64,
-                        device=self.device)
+                        device=self.device if device is None else device)
         return TicketLockArrayState(next_ticket=z, now_serving=z.clone())
 
     def acquire_window(self, state: TicketLockArrayState, lock_ids, want):

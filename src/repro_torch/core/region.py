@@ -37,10 +37,10 @@ class SharedRegion(Channel):
         self.backend = get_backend(backend, default=mgr.backend)
         self.declare_region("buf", (self.slots, *self.item_shape), dtype)
 
-    def init_state(self) -> SharedRegionState:
+    def init_state(self, device=None) -> SharedRegionState:
         return SharedRegionState(buf=torch.zeros(
             (self.P, self.slots, *self.item_shape), dtype=self.dtype,
-            device=self.device))
+            device=self.device if device is None else device))
 
     @property
     def item_nbytes(self) -> int:

@@ -45,7 +45,7 @@ from .ownedvar import checksum
 from .ringbuffer import Ringbuffer, RingbufferState
 from .runtime import Manager
 from .sst import SST, SSTState
-from .u32 import MASK32, i2u, u2i
+from .u32 import MASK32, from_words, i2u, to_words, u2i
 
 _U32_MAX = 0xFFFFFFFF
 
@@ -466,36 +466,11 @@ class ReplicatedLog(Channel):
         return self.promote_republish(st, alive)
 
     # -- follower rejoin (DESIGN.md §13.3) -------------------------------------
-    @staticmethod
-    def _snap_leaf_words(leaf):
-        """A stacked leaf as (P, n) uint32 words (bit-pattern preserving):
-        bools 0/1, uint32 holders their bits, floats their float32 bits,
-        other integers their int32 bits."""
-        flat = leaf.reshape(leaf.shape[0], -1)
-        if flat.dtype == torch.bool:
-            return flat.to(torch.int64)
-        if flat.dtype == torch.int64:
-            return flat & MASK32
-        if flat.is_floating_point():
-            return i2u(flat.to(torch.float32).view(torch.int32))
-        return i2u(flat.to(torch.int32))
-
-    @staticmethod
-    def _snap_words_leaf(words, like):
-        """Inverse of :meth:`_snap_leaf_words` for a leaf shaped ``like``."""
-        words = words.reshape(like.shape)
-        if like.dtype == torch.bool:
-            return words != 0
-        if like.dtype == torch.int64:
-            return words
-        if like.is_floating_point():
-            return u2i(words).view(torch.float32).to(like.dtype)
-        return u2i(words).to(like.dtype)
-
     def _snap_flatten(self, fstate: KVStoreState):
         """The replicated leaves (local policy skipped) as one (P, total)
-        uint32 word stream in the reference's leaf order."""
-        words = [self._snap_leaf_words(leaf)
+        uint32 word stream in the reference's leaf order, bit-pattern
+        preserving (:func:`~.u32.to_words`)."""
+        words = [i2u(to_words(leaf))
                  for name, field in zip(fstate._fields, fstate)
                  if name not in _LOCAL_POLICY_FIELDS
                  for leaf in _leaves(field)]
@@ -516,22 +491,17 @@ class ReplicatedLog(Channel):
             out = []
             for leaf in _leaves(field):
                 n = leaf[0].numel()
-                out.append(self._snap_words_leaf(words[:, off:off + n], leaf))
+                out.append(from_words(u2i(words[:, off:off + n]), leaf))
                 off += n
             new_fields.append(_unflatten(field, out)[0])
         return type(fstate)(*new_fields)
 
     def snapshot_words(self) -> int:
         """Per-follower word count of the §13.3 snapshot stream, from the
-        store's state shapes (built on the meta device: nothing is
+        store's state shapes (a state on the meta device: nothing is
         allocated)."""
         if self._snap_total is None:
-            rt = self.store.mgr.runtime
-            saved, rt.device = rt.device, torch.device("meta")
-            try:
-                spec = self.store.init_state()
-            finally:
-                rt.device = saved
+            spec = self.store.init_state(device=torch.device("meta"))
             self._snap_total = sum(
                 leaf[0].numel() for name, field in zip(spec._fields, spec)
                 if name not in _LOCAL_POLICY_FIELDS

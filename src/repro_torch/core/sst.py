@@ -42,9 +42,10 @@ class SST(Channel):
     def _csum(self, rows):
         return checksum(rows, item_dims=len(self.shape))
 
-    def init_state(self, value: int = 0) -> SSTState:
+    def init_state(self, value: int = 0, device=None) -> SSTState:
         v = torch.full((self.P, self.P) + self.shape, int(value) & MASK32,
-                       dtype=torch.int64, device=self.device)
+                       dtype=torch.int64,
+                       device=self.device if device is None else device)
         return SSTState(cached=v, csum=self._csum(v))
 
     def store_mine(self, state: SSTState, value, pred=True) -> SSTState:

@@ -39,3 +39,30 @@ def u2i(x: torch.Tensor) -> torch.Tensor:
 def i2u(x: torch.Tensor) -> torch.Tensor:
     """int32 bits → uint32 (int64 holder)."""
     return x.to(torch.int64) & MASK32
+
+
+def to_words(v: torch.Tensor) -> torch.Tensor:
+    """A (P, ...) tensor as (P, k) int32 words, bit for bit: uint32 holders
+    (int64) keep their low 32 bits, bools become 0/1, floats carry their
+    float32 bits and other integers their int32 bits."""
+    if v.dtype == torch.bool:
+        w = v.to(torch.int32)
+    elif v.dtype == torch.int64:
+        w = u2i(v)
+    elif v.is_floating_point():
+        w = v.to(torch.float32).contiguous().view(torch.int32)
+    else:
+        w = v.to(torch.int32)
+    return w.reshape(v.shape[0], -1)
+
+
+def from_words(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`to_words` for a tensor shaped like ``like``."""
+    w = w.reshape(like.shape)
+    if like.dtype == torch.bool:
+        return w != 0
+    if like.dtype == torch.int64:
+        return i2u(w)
+    if like.is_floating_point():
+        return w.view(torch.float32).to(like.dtype)
+    return w.to(like.dtype)

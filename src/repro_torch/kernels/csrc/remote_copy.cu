@@ -15,11 +15,13 @@
 // bytes to its own recv counter and to its sender's send counter, from the
 // same sender map that drives the copy.
 //
-// Bound: device-memory bytes (every row is read once and written once; there
-// is no arithmetic).  The design is the plain coalesced copy: a grid of
-// (chunk, receiver) blocks, 16 bytes per thread when n is a multiple of four
-// words and every pointer is 16-byte aligned, 4-byte words otherwise, with a
-// grid-stride loop over the row.  At the ring's shapes (a few KB to a few
+// Bound: device-memory bytes, as there is no arithmetic: each distinct row
+// read once (the senders' rows of src, and dst's rows of the receivers that
+// keep their own) and all P rows written once; a broadcast reads 2 rows.
+// The design is the plain coalesced copy: a grid of (chunk, receiver)
+// blocks, 16 bytes per thread when n is a multiple of four words and every
+// pointer is 16-byte aligned, 4-byte words otherwise, with a grid-stride
+// loop over the row.  At the ring's shapes (a few KB to a few
 // hundred KB per call) launch latency bounds it.
 //
 // The C entry point launches on the caller's stream, allocates nothing and

@@ -267,8 +267,7 @@ def remote_copy(src, dst, sender):
                          f"byte counters")
     a, b = _words(src), _words(dst)
     out = torch.empty_like(a)
-    sent = torch.zeros((P,), dtype=torch.int32, device=src.device)
-    recv = torch.zeros((P,), dtype=torch.int32, device=src.device)
+    sent, recv = torch.zeros((2, P), dtype=torch.int32, device=src.device)
     vec = int(n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (a, b, out)))
     _COPY_LIB.call("remote_copy", a.data_ptr(), b.data_ptr(),
                    sender.data_ptr(), out.data_ptr(), sent.data_ptr(),
