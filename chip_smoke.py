@@ -10,7 +10,9 @@ It imports neither JAX nor the JAX package.  Phases, in order; any failure
 exits non-zero and prints no result:
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (seven
-   sources) with nvcc, one process per source, all at once;
+   sources) with nvcc, one process per source, all at once, and check with
+   ``cuobjdump -sass`` that the bf16 flash kernels run on the tensor cores
+   (HMMA instructions);
 2. hold each kernel against its plain PyTorch version on the card: the
    remote-DMA kernels at the KVStore path's shapes (outputs and measured
    bytes bitwise equal, scatter collisions included), the remote-copy
@@ -20,8 +22,15 @@ exits non-zero and prints no result:
    senders, every receiver from one sender, a permutation), outputs and
    both byte vectors bitwise equal, the attention kernels
    at the serving paths' full-width shapes (head_dim 128, and 256 with a
-   2048-token window and one kv head) and at odd ones (float32 within 2e-5,
-   bfloat16 within 2e-2 of the float32 plain result on the same inputs),
+   2048-token window and one kv head; flash inputs as the models pass
+   them, (B, H, S, D) views of (B, S, H, D) projections) and at odd ones —
+   views at head_dim 64, 128, 200 and 256, Sq and Sk not multiples of the
+   tile, bf16 rows off 16 bytes (the flash kernel's CUDA-core route; each
+   flash case checks the route taken), decode lengths 0, 1, 64, 65 and S in
+   one batch, S not a multiple of the split's chunk, a sequence with one
+   live chunk — (float32 within 2e-5, bfloat16 within 2e-2 of the float32
+   plain result on the same inputs), then every decode arrival counter is
+   checked to be 0,
    the RG-LRU and WKV6 kernels at their serving shapes and at odd ones, in
    float32 and bfloat16, outputs and final states (tolerances at
    ``REC_TOL``), and the grouped matmul at llama4-maverick's expert shapes
@@ -64,7 +73,10 @@ exits non-zero and prints no result:
    launch-count checks, and on the replicated path the replication checks;
 6. report the end-to-end numbers of every path, each kernel's launches on
    its path, its time beside its plain version's, one PyTorch call's and
-   its bound, the card's name and power limit, and last the result line.
+   its bound (the attention rows also with the kernel's and SDPA's device
+   time per call from ``torch.profiler``, which tells host-bound rows from
+   kernel-bound ones), the card's name and power limit, and last the
+   result line.
 
 Kernel launch counts are set to 0 just before each path and read just after
 it, so the checks of phase 2 and 3 and the timings of phase 6 count nowhere.
@@ -170,6 +182,25 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
+def sass_mma_count(_nvcc, name, kernel):
+    """HMMA (tensor-core) instructions in the SASS of each function of
+    ``csrc/<name>.cu``'s library whose name holds ``kernel``, by
+    ``cuobjdump -sass``."""
+    lib = _nvcc.build(name)[name]
+    tool = os.path.join(os.path.dirname(_nvcc._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            if kernel in fn:
+                counts[fn] = 0
+        elif fn in counts and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def cuda_ms(fn, iters):
     """Mean device time of ``fn()`` over ``iters`` calls, after warm-up."""
     import torch
@@ -184,6 +215,35 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters):
+    """Device time of one ``fn()`` call from ``torch.profiler`` over
+    ``iters`` calls: for each kernel, copy or fill the calls ran on the
+    card, its mean duration times the number of times one call runs it —
+    without the host time between launches that :func:`cuda_ms` also sees
+    when the calls are host-bound.  Means, not sums, because a session
+    may drop some of its device records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    for _attempt in range(3):      # a session now and then records nothing
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        if by_name:
+            return sum(us / n * max(1, round(n / iters))
+                       for us, n in by_name.values()) / 1e3
+    raise SmokeFailure("torch.profiler saw no device time in 3 sessions")
 
 
 # ---------------------------------------------------------------------------
@@ -360,25 +420,53 @@ def attention_cases(torch):
     def lens(values):
         return torch.tensor(values, dtype=torch.int32, device="cuda")
 
+    def bhsd(B, H, S, D, dt):
+        """(B, H, S, D) view of a (B, S, H, D) projection, as the models
+        pass q, k and v."""
+        return rn((B, S, H, D), dt).transpose(1, 2)
+
+    def misaligned(B, H, S, D, dt):
+        """(B, H, S, D) one element into its buffer: bf16 rows off 16
+        bytes, for the CUDA-core route."""
+        flat = rn((B * H * S * D + 1,), dt)
+        return flat[1:].view(B, H, S, D)
+
     flash, decode = [], []
     Bf, Hq, Hkv, D = SERVE_BATCH, 24, 8, 128
-    for label, (B, hq, hkv, sq, sk, d), kw in [
+    for label, (B, hq, hkv, sq, sk, d), kw, make in [
             ("full width", (Bf, Hq, Hkv, SERVE_PROMPT, SERVE_PROMPT, D),
-             dict(causal=True)),
+             dict(causal=True), bhsd),
             ("D=256 window full width", (Bf, 10, 1, RG_PROMPT, RG_PROMPT, 256),
-             dict(causal=True, window=2048)),
+             dict(causal=True, window=2048), bhsd),
             ("D=256 odd", (2, 10, 1, 140, 140, 200), dict(causal=True,
-                                                          window=50)),
-            ("offset causal", (2, 6, 2, 100, 300, D), dict(causal=True)),
-            ("window", (2, 8, 4, 200, 200, 64), dict(causal=True, window=48)),
-            ("padded Sk", (1, 4, 2, 130, 130, D), dict(causal=True)),
+                                                          window=50), None),
+            ("offset causal", (2, 6, 2, 100, 300, D), dict(causal=True), None),
+            ("window", (2, 8, 4, 200, 200, 64), dict(causal=True, window=48),
+             None),
+            ("padded Sk", (1, 4, 2, 130, 130, D), dict(causal=True), None),
             ("Sq not a tile multiple", (3, 4, 4, 77, 77, 16),
-             dict(causal=False)),
-            ("rows with no key", (1, 2, 1, 16, 8, 8), dict(causal=True))]:
+             dict(causal=False), None),
+            ("rows with no key", (1, 2, 1, 16, 8, 8), dict(causal=True), None),
+            ("views D=64 Sq=200", (2, 8, 2, 200, 200, 64), dict(causal=True),
+             bhsd),
+            ("views D=128 Sq=100", (2, 8, 4, 100, 100, 128), dict(causal=True),
+             bhsd),
+            ("views D=256 window Sq=333", (1, 10, 1, 333, 333, 256),
+             dict(causal=True, window=100), bhsd),
+            ("views D=200", (2, 4, 2, 150, 150, 200), dict(causal=True), bhsd),
+            ("Sk ragged", (2, 8, 4, 70, 190, 128), dict(causal=False), bhsd),
+            ("Sk ragged causal", (2, 8, 4, 64, 150, 128), dict(causal=True),
+             bhsd),
+            ("misaligned rows", (2, 8, 4, 100, 100, 128), dict(causal=True),
+             misaligned)]:
         for dt in (torch.bfloat16, torch.float32):
-            flash.append((f"{label} {str(dt)[6:]}",
-                          (rn((B, hq, sq, d), dt), rn((B, hkv, sk, d), dt),
-                           rn((B, hkv, sk, d), dt)), kw))
+            if make is None:
+                args = (rn((B, hq, sq, d), dt), rn((B, hkv, sk, d), dt),
+                        rn((B, hkv, sk, d), dt))
+            else:
+                args = (make(B, hq, sq, d, dt), make(B, hkv, sk, d, dt),
+                        make(B, hkv, sk, d, dt))
+            flash.append((f"{label} {str(dt)[6:]}", args, kw))
     S = SERVE_PROMPT + SERVE_GEN
     for label, (B, hq, hkv, s, d), ln in [
             ("full width", (Bf, Hq, Hkv, S, D), [0, 1, S, 300]),
@@ -386,12 +474,25 @@ def attention_cases(torch):
              [2048, 2048, 1, 1000]),
             ("D=256 odd", (3, 10, 1, 70, 136), [70, 0, 33]),
             ("smoke shapes", (2, 4, 2, 48, 12), [48, 5]),
-            ("group of 16", (3, 16, 1, 100, 64), [100, 63, 64])]:
+            ("group of 16", (3, 16, 1, 100, 64), [100, 63, 64]),
+            ("lengths 0 1 64 65 S, S=300", (5, 8, 2, 300, 128),
+             [0, 1, 64, 65, 300]),
+            ("S=1000 not a chunk multiple", (1, 10, 1, 1000, 256), [1000]),
+            ("one live chunk", (2, 10, 1, 2048, 256), [50, 64])]:
         for dt in (torch.bfloat16, torch.float32):
             decode.append((f"{label} {str(dt)[6:]}",
                            (rn((B, hq, d), dt), rn((B, hkv, s, d), dt),
                             rn((B, hkv, s, d), dt), lens(ln)), {}))
     return {"flash_attention": flash, "decode_attention": decode}
+
+
+def flash_route(args):
+    """The flash kernel the wrapper picks for these inputs."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = args
+    return fa._variant(q.dtype, q.shape[3],
+                       (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]),
+                       (q.data_ptr(), k.data_ptr(), v.data_ptr()))
 
 
 def attention_plain(name, args, kw):
@@ -428,11 +529,26 @@ def phase_attention_kernels(torch, kernels):
             if label.startswith("rows with no key"):
                 check(not got[:, :, :8].any(), f"{name} ({label}): rows "
                                                f"with no visible key not 0")
+            route = ""
             if name == "decode_attention":
                 check(not got[args[3] == 0].any(),
                       f"{name} ({label}): length-0 rows not zero")
+            else:
+                route = flash_route(args)
+                want = "simt" if "float32" in label or "misaligned" in label \
+                    or args[0].shape[3] % 8 else "mma"
+                check(route == want, f"{name} ({label}) took the {route} "
+                                     f"kernel, not {want}")
+                route = f", {route} kernel"
             errs[name] = max(errs[name], e)
-            log(f"  {name} [{label}]: max abs err {e:.3g} (tolerance {tol})")
+            log(f"  {name} [{label}]: max abs err {e:.3g} (tolerance {tol})"
+                f"{route}")
+    from repro_torch.kernels import decode_attention as dec
+    check(dec._ARRIVALS and all(not bool(b.any())
+                                for b in dec._ARRIVALS.values()),
+          "decode_attention left an arrival counter non-zero")
+    log(f"  decode_attention arrival counters all zero "
+        f"({sum(b.numel() for b in dec._ARRIVALS.values())} counters)")
     return cases, errs
 
 
@@ -1576,11 +1692,14 @@ def attention_timings(torch, kernels, B, Hq, Hkv, D, S, window, slots, L):
         def library():
             return F.scaled_dot_product_attention(q, k, v, attn_mask=wmask,
                                                   enable_gqa=True)
+    def kernel():
+        return fa(q, k, v, causal=True, window=window)
     flash = dict(
-        ms=cuda_ms(lambda: fa(q, k, v, causal=True, window=window), iters),
+        ms=cuda_ms(kernel, iters), device_ms=device_ms(kernel, iters),
         plain_ms=cuda_ms(lambda: ref.mha(q, k, v, causal=True,
                                          window=window), max(iters // 5, 2)),
         library_ms=cuda_ms(library, iters),
+        library_device_ms=device_ms(library, iters),
         flops=4 * D * pairs, nbytes=2 * (2 * q.numel() + k.numel()
                                          + v.numel()))
 
@@ -1589,11 +1708,16 @@ def attention_timings(torch, kernels, B, Hq, Hkv, D, S, window, slots, L):
     mask = (torch.arange(slots, device="cuda")[None, :]
             < lens[:, None])[:, None, None, :]
     da = kernels["decode_attention"]
+
+    def sdpa_decode():
+        return F.scaled_dot_product_attention(
+            qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True)
     decode = dict(
         ms=cuda_ms(lambda: da(qd, kc, vc, lens), 200),
+        device_ms=device_ms(lambda: da(qd, kc, vc, lens), 200),
         plain_ms=cuda_ms(lambda: ref.decode_attention(qd, kc, vc, lens), 20),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True), 200),
+        library_ms=cuda_ms(sdpa_decode, 200),
+        library_device_ms=device_ms(sdpa_decode, 200),
         flops=4 * Hq * D * B * L,
         nbytes=2 * (2 * B * Hkv * L * D + 2 * qd.numel()) + 4 * B)
     return {"flash_attention": flash, "decode_attention": decode}
@@ -1605,10 +1729,14 @@ def timing_row(m, launches, err, peak):
     ``peak``."""
     t_ops = m["flops"] / peak * 1e3
     t_bytes = m["nbytes"] / HBM_BYTES_PER_S * 1e3
-    return dict(launches=launches, max_abs_err=err, ms=m["ms"],
-                plain_ms=m["plain_ms"], bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops > t_bytes else "bytes",
-                library_ms=m["library_ms"])
+    row = dict(launches=launches, max_abs_err=err, ms=m["ms"],
+               plain_ms=m["plain_ms"], bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops > t_bytes else "bytes",
+               library_ms=m["library_ms"])
+    for key in ("device_ms", "library_device_ms"):
+        if key in m:
+            row[key] = m[key]
+    return row
 
 
 def attention_report(torch, kernels, errs, launches):
@@ -1617,8 +1745,12 @@ def attention_report(torch, kernels, errs, launches):
     positions of 544), each with a ``d256`` entry of the same numbers at
     recurrentgemma-2b's (head_dim 256, 10 query heads on 1 kv head: 4
     prompts of 2304 tokens under a 2048-token window; a decode step against
-    the full 2048-slot ring).  ``launches`` maps each serving path's arch to
-    its kernels' launches."""
+    the full 2048-slot ring).  ``ms`` and ``library_ms`` are wrapper times
+    (CUDA events around a loop of calls, host work included);
+    ``device_ms`` and ``library_device_ms`` the device time per call from
+    ``torch.profiler``.  A row whose ``ms`` is well above its
+    ``device_ms`` is host-bound.  ``launches`` maps each serving path's
+    arch to its kernels' launches."""
     d128 = attention_timings(torch, kernels, SERVE_BATCH, 24, 8, 128,
                              SERVE_PROMPT, None, SERVE_PROMPT + SERVE_GEN,
                              SERVE_PROMPT + SERVE_GEN // 2)
@@ -1637,11 +1769,13 @@ def attention_report(torch, kernels, errs, launches):
         rows.append(row)
         for label, m, r in [("D=128", d128[name], row),
                             ("D=256", d256[name], row["d256"])]:
-            log(f"  {name} {label}: {m['ms']:.4f} ms/call, bound "
+            log(f"  {name} {label}: {m['ms']:.4f} ms/call (device "
+                f"{m['device_ms']:.4f}), bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
                 f"{m['flops'] / 1e9:.2f} GFLOP, {m['nbytes'] / 1e6:.2f} MB),"
                 f" plain {m['plain_ms']:.4f} ms, sdpa {m['library_ms']:.4f} "
-                f"ms, launches {r['launches']}")
+                f"ms (device {m['library_device_ms']:.4f}), launches "
+                f"{r['launches']}")
     return rows
 
 
@@ -1822,6 +1956,10 @@ def main() -> int:
             log(f"  nvcc {name}.cu:\n" + "\n".join(
                 "    " + ln for ln in out.strip().splitlines()))
         log(f"  built in {time.perf_counter() - t0:.1f} s")
+        hmma = sass_mma_count(_nvcc, "flash_attention", "flash_fwd_mma")
+        check(len(hmma) == 3 and all(n > 0 for n in hmma.values()),
+              f"the bf16 flash kernels lack tensor-core HMMA: {hmma}")
+        log(f"  cuobjdump -sass, HMMA per tensor-core flash kernel: {hmma}")
         log("phase 2: kernels against their plain versions")
         cases, errs = phase_kernels(torch, rdma, slots)
         copy_cases_, copy_errs = phase_copy_kernel(torch, rdma)

@@ -8,6 +8,14 @@ use) or raises; on a CPU tensor it runs the kernel's plain PyTorch version,
 :func:`repro_torch.kernels.ref.decode_attention`.
 ``decode_attention.launches`` counts kernel launches.
 
+The kernel splits the cache's S slots into chunks across blocks
+(:func:`_split`, from S alone: the wrapper never reads ``lengths`` on the
+host) and combines the chunks' partials in the same launch; the plain
+version of that algorithm is :func:`repro_torch.kernels.ref.
+decode_attention_split`.  The combine keeps one int32 arrival counter per
+(b, kv head) in a buffer made once per device and stream
+(:data:`_ARRIVALS`); the kernel leaves every counter at 0.
+
 The reference wrapper pads the cache to its key tile; padded positions lie
 past every length, so they change nothing, and the port's kernel stops at
 ``lengths[b]`` instead.
@@ -25,13 +33,41 @@ from . import ref
 MAX_HEAD_DIM = 256
 MAX_GROUP = 16
 
+#: Keys a split's chunk holds: a multiple of the kernel's 64-key tile.
+CHUNK = 64
+#: Blocks the split aims for: two per SM of an H100 (132 SMs).
+TARGET_BLOCKS = 2 * 132
+
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _LIB = _nvcc.Library(
     "decode_attention",
-    {"decode_attention_fwd": [_I] + [_P] * 5 + [_I] * 5 + [_L] * 6
+    {"decode_attention_fwd": [_I] + [_P] * 7 + [_I] * 8 + [_L] * 6
      + [ctypes.c_float, _P]},
     "decode_error_string")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: (device, stream) -> the int32 arrival counters of the split combine.
+_ARRIVALS: dict = {}
+
+
+def _split(B: int, Hkv: int, S: int) -> tuple[int, int]:
+    """(splits, chunk) for a (B, Hkv, S, D) cache: chunks of a multiple of
+    :data:`CHUNK` keys, no smaller, so that B·Hkv·splits reaches
+    :data:`TARGET_BLOCKS` where S allows; one split when S fits one chunk.
+    Every split's chunk starts below S."""
+    want = -(-TARGET_BLOCKS // max(1, B * Hkv))
+    chunk = max(CHUNK, -(-S // (want * CHUNK)) * CHUNK)
+    return max(1, -(-S // chunk)), chunk
+
+
+def _arrivals(device, stream: int, n: int):
+    """The zeroed int32 arrival counters of ``device`` and ``stream``, at
+    least ``n`` of them; made once and kept (the kernel resets each counter
+    it uses)."""
+    buf = _ARRIVALS.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _ARRIVALS[(device, stream)] = buf
+    return buf
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale=None):
@@ -65,10 +101,23 @@ def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale=None):
                         for t in (k_cache, v_cache))
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
+    strides = (*k_cache.stride()[:3], *v_cache.stride()[:3])
+    per16 = 16 // q.element_size()
+    vec = int(D % per16 == 0 and all(st % per16 == 0 for st in strides)
+              and k_cache.data_ptr() % 16 == 0
+              and v_cache.data_ptr() % 16 == 0)
+    splits, chunk = _split(B, Hkv, S)
+    stream = _nvcc.stream(q)
+    ws = arrivals = None
+    if splits > 1:       # both live until the launch is queued
+        arrivals = _arrivals(q.device, stream, B * Hkv)
+        ws = torch.empty((B, Hq, splits, D + 2), dtype=torch.float32,
+                         device=q.device)
     _LIB.call("decode_attention_fwd", _DTYPES[q.dtype], q.data_ptr(),
               k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-              out.data_ptr(), B, Hq, Hkv, S, D, *k_cache.stride()[:3],
-              *v_cache.stride()[:3], float(scale), _nvcc.stream(q))
+              out.data_ptr(), 0 if ws is None else ws.data_ptr(),
+              0 if arrivals is None else arrivals.data_ptr(), B, Hq, Hkv, S,
+              D, chunk, splits, vec, *strides, float(scale), stream)
     decode_attention.launches += 1
     return out
 

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the model kernels, the counterparts of
 ``repro/kernels/ref.py``'s ``repeat_kv``, ``mha``, ``decode_attention``,
-``rglru``, ``wkv6`` and ``gmm``.
+``rglru``, ``wkv6`` and ``gmm``, and the split algorithm of the decode
+kernel (:func:`decode_attention_split`).
 
 They follow the semantics of the reference's **Pallas kernels**
 (``repro/kernels/flash_attention.py``, ``decode_attention.py``), because that
@@ -81,6 +82,47 @@ def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale=None):
     mask = (torch.arange(s, device=q.device)[None, :]
             < lengths.to(q.device).long()[:, None])[:, None, None, :]
     out = _masked_softmax_pv(logits, mask, v_cache.float())   # (B,Hkv,G,D)
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def decode_attention_split(q, k_cache, v_cache, lengths, chunk, *,
+                           sm_scale=None):
+    """:func:`decode_attention` as the CUDA kernel computes it: the S cache
+    slots cut into chunks of ``chunk`` keys, each chunk's float32 partial
+    (m, l, acc) over its valid keys — m = -1e30 and l = 0 for a chunk with
+    none — then one combine per head: the global max M over chunks with
+    l > 0, weights exp(m - M), and ``L == 0 → 1`` so length 0 gives zeros.
+    Same arguments as :func:`decode_attention`; returns (B, Hq, D) in q's
+    dtype."""
+    b, hq, d = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
+    g = hq // hkv
+    n = max(1, -(-s // chunk))
+    pad = n * chunk - s
+    qg = q.float().reshape(b, hkv, g, d)
+    kf = torch.nn.functional.pad(k_cache.float(), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v_cache.float(), (0, 0, 0, pad))
+    logits = torch.matmul(qg, kf.transpose(-1, -2)) * scale  # (B,Hkv,G,nC)
+    valid = (torch.arange(n * chunk, device=q.device)[None, :]
+             < lengths.to(q.device).long().clamp(max=s)[:, None])[
+                 :, None, None, :]
+    logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+    logits = logits.reshape(b, hkv, g, n, chunk)
+    valid = valid.reshape(b, 1, 1, n, chunk)
+    m = logits.amax(-1)                                        # (B,Hkv,G,n)
+    p = torch.where(valid, torch.exp(logits - m[..., None]),
+                    torch.zeros_like(logits))
+    l = p.sum(-1)
+    acc = torch.einsum("bhgnc,bhncd->bhgnd", p,
+                       vf.reshape(b, hkv, n, chunk, d))
+    live = l > 0
+    big = torch.where(live, m, torch.full_like(m, NEG_INF)).amax(
+        -1, keepdim=True)
+    w = torch.where(live, torch.exp(m - big), torch.zeros_like(m))
+    total = (w * l).sum(-1, keepdim=True)
+    out = (w[..., None] * acc).sum(-2) / torch.where(
+        total == 0, torch.ones_like(total), total)
     return out.reshape(b, hq, d).to(q.dtype)
 
 

@@ -236,6 +236,18 @@ def _remote_copy_ref(src, dst, sender):
     return out, sent, recv
 
 
+def _check_counter_range(P: int, row_nbytes: int) -> None:
+    """Refuse a hop whose int32 byte counters could wrap.  A sender adds
+    one row for each of its receivers, at most P - 1 of them, so its
+    ``sent`` count reaches (P - 1)·row_nbytes; a receiver's ``recv`` is one
+    row, which that bounds for any P > 1 (and which the kernel takes as an
+    int, so P = 1 is held to one row).  The counters stay int32, as the
+    reference's ``s32`` semaphores are."""
+    if max(P - 1, 1) * row_nbytes >= 2 ** 31:
+        raise ValueError(f"remote_copy: {P - 1} rows of {row_nbytes} bytes "
+                         f"overflow the int32 byte counters")
+
+
 def remote_copy(src, dst, sender):
     """The wire hop of the stacked binding: receiver ``q`` takes row
     ``sender[q]`` of ``src``; a sender of -1, ``q`` itself or any value
@@ -259,12 +271,10 @@ def remote_copy(src, dst, sender):
     sender = _i32(sender).reshape(-1)
     if sender.shape[0] != P:
         raise ValueError(f"sender must be ({P},), got {tuple(sender.shape)}")
+    row_nbytes = n * src.element_size()
+    _check_counter_range(P, row_nbytes)
     if not _on_card(src, dst, sender):
         return _remote_copy_ref(src, dst, sender)
-    row_nbytes = n * src.element_size()
-    if row_nbytes >= 2 ** 31:
-        raise ValueError(f"a row of {row_nbytes} bytes overflows the int32 "
-                         f"byte counters")
     a, b = _words(src), _words(dst)
     out = torch.empty_like(a)
     sent, recv = torch.zeros((2, P), dtype=torch.int32, device=src.device)

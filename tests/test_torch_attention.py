@@ -125,3 +125,106 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     assert (pfa.flash_attention.launches,
             pdec.decode_attention.launches) == launches, \
         "CPU tensors take the plain version: no launch is counted"
+
+
+@pytest.mark.parametrize("chunk_kind", ["1", "3", "S"])
+@pytest.mark.parametrize("Hq, Hkv", [(2, 2), (16, 1)])     # G = 1 and 16
+def test_split_decode_matches_pallas(chunk_kind, Hq, Hkv):
+    """The CUDA decode kernel's algorithm — per-chunk partials (m, l, acc),
+    then the combine — in its plain version against the Pallas kernel.
+    Lengths 0, 1, a chunk edge and S in one batch: the length-0 row (every
+    chunk empty: zeros) and chunks past a sequence's length (m = -1e30,
+    l = 0, skipped) are both pinned."""
+    S, D = 12, 16
+    chunk = {"1": 1, "3": 3, "S": S}[chunk_kind]
+    lens = np.asarray([0, 1, min(2 * chunk, S), S], np.int32)
+    B = lens.size
+    q, kc, vc = _inputs(S + Hq + chunk, (B, Hq, D), (B, Hkv, S, D),
+                        (B, Hkv, S, D))
+    ref = np.asarray(jops.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                           jnp.asarray(vc),
+                                           jnp.asarray(lens)))
+    got = pref.decode_attention_split(torch.from_numpy(q),
+                                      torch.from_numpy(kc),
+                                      torch.from_numpy(vc),
+                                      torch.from_numpy(lens), chunk)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    assert not got[0].any() and got[1:].all()
+
+
+@pytest.mark.parametrize("B, Hkv, S, expected", [
+    (4, 8, 544, (9, 64)),        # llama3.2-3b's decode: 288 blocks
+    (4, 1, 2048, (32, 64)),      # recurrentgemma-2b's ring: 128 blocks
+    (1, 1, 64, (1, 64)),         # S fits one chunk: no partials
+    (2, 2, 1, (1, 64)),
+    (1, 1, 65, (2, 64)),
+    (64, 8, 131072, (1, 131072)),  # the grid is full without a split
+    (2, 4, 100_000, None),
+    (3, 1, 0, (1, 64)),
+])
+def test_split_count_follows_the_slot_count(B, Hkv, S, expected):
+    splits, chunk = pdec._split(B, Hkv, S)
+    assert chunk % pdec.CHUNK == 0 and chunk >= pdec.CHUNK
+    assert splits * chunk >= S and (splits - 1) * chunk < max(S, 1)
+    if S <= pdec.CHUNK:
+        assert splits == 1
+    if expected is not None:
+        assert (splits, chunk) == expected
+    if chunk > pdec.CHUNK:      # larger chunks only once the grid is full
+        assert B * Hkv * splits >= pdec.TARGET_BLOCKS // 2
+
+
+_ALIGNED = dict(D=128, strides=(8 * 512 * 128, 128, 8 * 128) * 3,
+                ptrs=(0x7f0000000000, 0x7f0000100000, 0x7f0000200000))
+
+
+@pytest.mark.parametrize("change, expected", [
+    ({}, "mma"),                                   # (B, S, H, D) views
+    (dict(D=64), "mma"),
+    (dict(D=200, strides=(200 * 64,) * 9), "mma"),  # zero-filled to 256
+    (dict(dtype=torch.float32), "simt"),           # float32 stays exact
+    (dict(D=12, strides=(12,) * 9), "simt"),       # rows of 24 bytes
+    (dict(ptrs=(0x7f0000000002, 0x7f0000100000, 0x7f0000200000)), "simt"),
+    (dict(strides=(8 * 512 * 128, 128, 8 * 128 + 1) + (1024,) * 6), "simt"),
+    (dict(dtype=torch.float16), "simt"),
+])
+def test_flash_variant_dispatch(change, expected):
+    """bf16 rows that 16-byte copies can take go to the tensor-core kernel;
+    float32 and unaligned bf16 rows to the CUDA-core kernel."""
+    kw = dict(dtype=torch.bfloat16, **_ALIGNED)
+    kw.update(change)
+    assert pfa._variant(kw["dtype"], kw["D"], kw["strides"],
+                        kw["ptrs"]) == expected
+
+
+@pytest.mark.parametrize("P, row_nbytes, refused", [
+    (8, 307_000_000, True),      # 7 rows of 307 MB pass 2**31 bytes
+    (2, 2 ** 31, True),
+    (8, 20_488 * 4, False),      # the failover phase's ring hop
+    (4, 648 * 4, False),         # the replicated engine's
+    (8, (2 ** 31 - 1) // 7, False),
+])
+def test_remote_copy_refuses_what_its_counters_cannot_hold(P, row_nbytes,
+                                                           refused):
+    """A sender's int32 ``sent`` count reaches (P - 1)·row_nbytes; the
+    guard refuses that before the CPU branch, so the kernel and the plain
+    version refuse alike.  A zero-stride view stands in for the rows."""
+    from repro_torch.kernels import remote_dma as rdma
+    n = row_nbytes // 4
+    if refused:
+        with pytest.raises(ValueError, match="int32 byte counters"):
+            rdma._check_counter_range(P, row_nbytes)
+        src = torch.zeros((1, 1), dtype=torch.int32).expand(P, n)
+        with pytest.raises(ValueError, match="int32 byte counters"):
+            rdma.remote_copy(src, src, torch.zeros(P, dtype=torch.int32))
+        return
+    rdma._check_counter_range(P, row_nbytes)
+    if n <= 20_488:
+        src = torch.arange(P * n, dtype=torch.int32).reshape(P, n)
+        sender = torch.full((P,), 1, dtype=torch.int32)
+        sender[1] = -1
+        out, sent, recv = rdma.remote_copy(src, torch.zeros_like(src),
+                                           sender)
+        assert torch.equal(out[0], src[1]) and int(sent[1]) == \
+            (P - 1) * row_nbytes and int(recv[0]) == row_nbytes

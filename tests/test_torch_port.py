@@ -1,6 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and the port's entry points run on the
-card unless the caller asks for the CPU."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
+``chip_compare.py`` import neither JAX nor the JAX package, and the port's
+entry points run on the card unless the caller asks for the CPU."""
 import ast
 from pathlib import Path
 
@@ -11,7 +11,7 @@ import repro_torch.core as pt
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]
 
 
 def _imported_modules(path):
