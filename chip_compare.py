@@ -9,15 +9,24 @@ compare with (``git archive <commit> | tar -x -C <dir>``):
     python3 chip_compare.py <parent dir> <change dir>
 
 Each turn is one process that imports ``chip_smoke`` and ``repro_torch``
-from its tree, builds that tree's kernels, serves llama3.2-3b (512-token
-prompts) and recurrentgemma-2b (2304-token prompts) as ``chip_smoke.py``'s
-phase 5 does (with its checks and launch counts), and times both attention
-kernels at those paths' shapes in bf16: wrapper time (CUDA events around a
-loop of calls) and device time per call (``torch.profiler``).  It prints one
-``TURN {json}`` line per turn, a table of every number per turn, and last
-one JSON object of all turns.  Imports neither JAX nor the JAX package.
-Host-bound numbers move up to 2x between calls, so only turns of one run
-compare.
+from its tree and builds that tree's kernels, then, with that tree's code:
+
+* serves llama4-maverick-400b-a17b at full width and 4 layers (512-token
+  prompts) as ``chip_smoke.py``'s phase 5 does, with its checks and launch
+  counts;
+* times ``models/moe.py::moe_block_local`` at full width on one MoE
+  layer's weights (128 experts of 5120 x 8192, top-1, a shared expert;
+  bf16, drawn from a seed) for a decode step's 4 tokens and a prefill's
+  2,048 (4 prompts of 512);
+* times ``remote_copy`` at both ring-hop shapes (P = 8 with 20,488 words,
+  P = 4 with 648; a broadcast) with an int32 and an int64 sender map, and
+  ``index_select`` of the same rows beside it.
+
+Times are the wrapper's (CUDA events around a loop of calls) and the
+device time per call (``torch.profiler``).  It prints one ``TURN {json}``
+line per turn, a table of every number per turn, and last one JSON object
+of all turns.  Imports neither JAX nor the JAX package.  Host-bound numbers
+move up to 2x between calls, so only turns of one run compare.
 """
 from __future__ import annotations
 
@@ -29,11 +38,9 @@ import sys
 
 SERVE_KEYS = ("prefill_ms_p50", "decode_step_p50_ms", "decode_step_p99_ms",
               "tokens_per_s")
-# (label, B, Hq, Hkv, S, D, window or cache length): chip_smoke's shapes
-FLASH = [("flash D128", 4, 24, 8, 512, 128, None),
-         ("flash D256", 4, 10, 1, 2304, 256, 2048)]
-DECODE = [("decode D128", 4, 24, 8, 544, 128, 528),
-          ("decode D256", 4, 10, 1, 2048, 256, 2048)]
+# (label, B, S): the MoE block's input, B sequences of S tokens
+MOE = [("moe_block 4 tokens", 4, 1), ("moe_block 2048 tokens", 4, 512)]
+TIMED = ("ms", "device_ms")
 
 
 def turn(root: str, tag: str) -> dict:
@@ -41,6 +48,7 @@ def turn(root: str, tag: str) -> dict:
     sys.path[:0] = [root, os.path.join(root, "src")]
     import torch
     import chip_smoke as cs
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _nvcc
     from repro_torch.kernels import remote_dma as rdma
     from repro_torch.kernels.decode_attention import decode_attention
@@ -48,6 +56,7 @@ def turn(root: str, tag: str) -> dict:
     from repro_torch.kernels.moe_gmm import gmm
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.models import moe
     if not os.path.abspath(cs.__file__).startswith(os.path.abspath(root)):
         raise RuntimeError(f"chip_smoke came from {cs.__file__}, not {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -58,32 +67,38 @@ def turn(root: str, tag: str) -> dict:
     _nvcc.build("remote_dma", "flash_attention", "decode_attention",
                 "rglru_scan", "wkv6", "moe_gmm", "remote_copy")
     res = {"tag": tag, "root": root, "card": cs.card_line()}
-    for path in (cs.SERVE_PATHS[0], cs.SERVE_PATHS[2]):
-        m, launches = cs.phase_serving(torch, kernels, path, rdma)
-        res[path["arch"]] = {k: m[k] for k in SERVE_KEYS}
-        res[path["arch"]]["attention launches"] = [
-            launches["flash_attention"], launches["decode_attention"]]
-        gc.collect()
-        torch.cuda.empty_cache()
-    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 6)
-
-    def rn(*shape):
-        return torch.randn(shape, generator=g, device="cuda").to(
-            torch.bfloat16)
+    path = next(p for p in cs.SERVE_PATHS if p["arch"] == cs.MOE_ARCH)
+    m, launches = cs.phase_serving(torch, kernels, path, rdma)
+    res[cs.MOE_ARCH] = {k: m[k] for k in SERVE_KEYS}
+    res[cs.MOE_ARCH]["gmm launches"] = launches["gmm"]
+    gc.collect()
+    torch.cuda.empty_cache()
 
     def timed(label, fn, iters):
         res[label] = {"ms": cs.cuda_ms(fn, iters),
                       "device_ms": device_ms(torch, fn, iters)}
 
-    for label, B, Hq, Hkv, S, D, window in FLASH:
-        q, k, v = rn(B, Hq, S, D), rn(B, Hkv, S, D), rn(B, Hkv, S, D)
-        timed(label, lambda: flash_attention(q, k, v, causal=True,
-                                             window=window),
-              50 if D == 128 else 10)
-    for label, B, Hq, Hkv, S, D, L in DECODE:
-        q, k, v = rn(B, Hq, D), rn(B, Hkv, S, D), rn(B, Hkv, S, D)
-        lens = torch.full((B,), L, dtype=torch.int32, device="cuda")
-        timed(label, lambda: decode_attention(q, k, v, lens), 200)
+    cfg = get_config(cs.MOE_ARCH)
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 12)
+    params = moe.init_moe(g, cfg)
+    for label, B, S in MOE:
+        x = torch.randn((B, S, cfg.d_model), generator=g, device="cuda").to(
+            cfg.dtype_)
+        timed(label, lambda: moe.moe_block_local(params, x, cfg),
+              20 if S == 1 else 10)
+    del params, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for label, src, dst, sender in cs.copy_cases(torch)[:2]:
+        n_rows, n = src.shape
+        for dt in (torch.int32, torch.int64):
+            s = sender.to(dt)
+            timed(f"remote_copy P={n_rows} {str(dt)[6:]} map",
+                  lambda: rdma.remote_copy(src, dst, s), 200)
+        idx = sender.clamp(min=0)
+        timed(f"index_select P={n_rows}", lambda: src.index_select(0, idx),
+              200)
     return res
 
 
@@ -138,11 +153,11 @@ def main(argv) -> int:
             return 1
         turns.append(json.loads(lines[-1][5:]))
         print(lines[-1], flush=True)
-    rows = [(f"{arch} {k}", arch, k) for arch in ("llama3.2-3b",
-                                                  "recurrentgemma-2b")
-            for k in SERVE_KEYS]
-    rows += [(f"{label} {k}", label, k) for label, *_ in FLASH + DECODE
-             for k in ("ms", "device_ms")]
+    arch = "llama4-maverick-400b-a17b"
+    rows = [(f"{arch} {k}", arch, k) for k in SERVE_KEYS]
+    rows += [(f"{group} {k}", group, k) for group in turns[0]
+             if isinstance(turns[0][group], dict) and group != arch
+             for k in TIMED]
     print(f"{'':44s}" + "".join(f"{t['tag']:>12s}" for t in turns))
     for name, group, key in rows:
         print(f"{name:44s}" + "".join(f"{t[group][key]:12.4f}"

@@ -11,16 +11,19 @@ exits non-zero and prints no result:
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (seven
    sources) with nvcc, one process per source, all at once, and check with
-   ``cuobjdump -sass`` that the bf16 flash kernels run on the tensor cores
-   (HMMA instructions);
+   ``cuobjdump -sass`` that the bf16 flash and grouped-matmul kernels run on
+   the tensor cores (HMMA instructions), and from ``-Xptxas -v`` that the
+   grouped-matmul ones do not spill;
 2. hold each kernel against its plain PyTorch version on the card: the
    remote-DMA kernels at the KVStore path's shapes (outputs and measured
    bytes bitwise equal, scatter collisions included), the remote-copy
    kernel at the ring hop's shapes (P=4 with 648 words, P=8 with 20,488)
    and the bare ring entries (640 and 20,480 words) and at odd ones (a
    width not a multiple of four, a misaligned view, zero words, no
-   senders, every receiver from one sender, a permutation), outputs and
-   both byte vectors bitwise equal, the attention kernels
+   senders, every receiver from one sender, a permutation; int64 maps,
+   values an int32 cast would wrap among them), outputs and both byte
+   vectors bitwise equal, and one device operation per call (no fill,
+   memset or cast, by ``torch.profiler``), the attention kernels
    at the serving paths' full-width shapes (head_dim 128, and 256 with a
    2048-token window and one kv head; flash inputs as the models pass
    them, (B, H, S, D) views of (B, S, H, D) projections) and at odd ones —
@@ -35,8 +38,11 @@ exits non-zero and prints no result:
    float32 and bfloat16, outputs and final states (tolerances at
    ``REC_TOL``), and the grouped matmul at llama4-maverick's expert shapes
    (prefill: 3072 slot rows in blocks of 24; decode: 1024 rows in blocks of
-   8; 128 experts of 5120 x 8192 and 8192 x 5120) and at odd ones, in
-   float32 and bfloat16 (tolerances at ``GMM_TOL``);
+   8; 128 experts of 5120 x 8192 and 8192 x 5120), every row counted and
+   with per-block row counts (a decode step's 4 live blocks of 128, partial
+   prefill counts), and at odd ones (all-zero counts, partial counts over
+   garbage rows), in float32 and bfloat16 (tolerances at ``GMM_TOL``; each
+   case on the kernel it should take, rows past the counts exactly zero);
 3. run the same work on the card and on the CPU: a P=4 store through 20
    windows (states and results bitwise equal after every window), the
    smoke llama3.2-3b, recurrentgemma-2b, rwkv6-7b and llama4-maverick
@@ -73,10 +79,10 @@ exits non-zero and prints no result:
    launch-count checks, and on the replicated path the replication checks;
 6. report the end-to-end numbers of every path, each kernel's launches on
    its path, its time beside its plain version's, one PyTorch call's and
-   its bound (the attention rows also with the kernel's and SDPA's device
-   time per call from ``torch.profiler``, which tells host-bound rows from
-   kernel-bound ones), the card's name and power limit, and last the
-   result line.
+   its bound (the attention, grouped-matmul and remote-copy rows also with
+   the kernel's device time per call from ``torch.profiler``, which tells
+   host-bound rows from kernel-bound ones, and the attention rows with
+   SDPA's), the card's name and power limit, and last the result line.
 
 Kernel launch counts are set to 0 just before each path and read just after
 it, so the checks of phase 2 and 3 and the timings of phase 6 count nowhere.
@@ -201,6 +207,36 @@ def sass_mma_count(_nvcc, name, kernel):
     return counts
 
 
+def ptxas_usage(_nvcc, name, kernel):
+    """Registers and spill bytes (stores, loads) of each function of
+    ``csrc/<name>.cu`` whose name holds ``kernel``, from ``nvcc -Xptxas -v``:
+    this process's build log, or a fresh build into a temporary file when
+    the library was already built."""
+    out = _nvcc.BUILD_LOGS.get(name)
+    if out is None:
+        tmp = _nvcc.BUILD / f"ptxas-{name}-{os.getpid()}.so"
+        try:
+            out = subprocess.run(
+                [_nvcc._nvcc(), *_nvcc.FLAGS, "-o", str(tmp),
+                 str(_nvcc.CSRC / f"{name}.cu")], capture_output=True,
+                text=True, check=True, timeout=600).stdout
+        finally:
+            tmp.unlink(missing_ok=True)
+    usage, fn = {}, None
+    for line in out.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+            fn = fn if kernel in fn else None
+        elif fn and "spill stores" in line:
+            parts = line.replace(",", "").split()
+            usage[fn] = [None, int(parts[parts.index("spill") - 2]),
+                         int(parts[parts.index("loads") - 3])]
+        elif fn and "Used" in line and "registers" in line:
+            usage[fn][0] = int(line.split("Used", 1)[1].split()[0])
+            fn = None
+    return usage
+
+
 def cuda_ms(fn, iters):
     """Mean device time of ``fn()`` over ``iters`` calls, after warm-up."""
     import torch
@@ -215,6 +251,28 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ops(torch, fn, iters):
+    """The device operations (kernels, copies, fills) of ``iters`` calls of
+    ``fn()`` under ``torch.profiler``, as {name: count}; a session that
+    recorded fewer than ``iters`` of them is retried."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _attempt in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ops = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                ops[e.name] = ops.get(e.name, 0) + 1
+        if sum(ops.values()) >= iters:
+            return ops
+    return ops
 
 
 def device_ms(fn, iters):
@@ -367,6 +425,15 @@ def copy_cases(torch):
     cases.append(("permutation", *full,
                   torch.randperm(8, generator=g, device="cuda").to(
                       torch.int32)))
+    # int64 maps, taken as they are: the hop shapes, and values that an
+    # int32 cast would wrap into [0, P)
+    for n_rows, n in [(8, 20488), (4, 648)]:
+        cases.append((f"int64 map broadcast P={n_rows} n={n}",
+                      words(n_rows, n), words(n_rows, n),
+                      bcast(n_rows, 2).to(torch.int64)))
+    cases.append(("int64 map past int32", *full, torch.tensor(
+        [2 ** 32 + 1, -1, 2 ** 33, 1, -2 ** 32 + 3, 0, 5, 2 ** 31],
+        dtype=torch.int64, device="cuda")))
     return cases
 
 
@@ -389,6 +456,14 @@ def phase_copy_kernel(torch, rdma):
         errs[label] = e
         log(f"  remote_copy [{label}]: bitwise equal to the plain version, "
             f"bytes included")
+    for label, src, dst, sender in cases[:2] + cases[-3:-1]:
+        ops = device_ops(torch, lambda: rdma.remote_copy(src, dst, sender),
+                         50)
+        check(list(ops.values()) == [50] and "remote_copy_kernel" in
+              next(iter(ops)), f"remote_copy ({label}): 50 calls ran "
+                               f"{ops} on the card, not one kernel each")
+        log(f"  remote_copy [{label}]: one device operation per call "
+            f"(torch.profiler, 50 calls)")
     return cases, errs
 
 
@@ -641,38 +716,83 @@ def phase_recurrent_kernels(torch, kernels):
 
 
 def gmm_cases():
-    """(label, E, Din, Dout, T, block_t, block_expert, misaligned w) per
-    grouped-matmul case: llama4-maverick's expert products as its MoE layers
-    make them (gate/up: 5120 -> 8192, wo: 8192 -> 5120; prefill: 128 experts
-    x 24 slots; decode: x 8; block i on expert i), then odd ones — ragged
-    Din and Dout, Dout not a multiple of the 16-byte vector, a block of more
-    than one 32-row chunk, one-row blocks, a weight tensor off 16-byte
-    alignment (the kernel's scalar path), Din = 0 — with unsorted block
-    experts that repeat."""
+    """(label, E, Din, Dout, T, block_t, block_expert, misaligned w, counts)
+    per grouped-matmul case: llama4-maverick's expert products as its MoE
+    layers make them (gate/up: 5120 -> 8192, wo: 8192 -> 5120; prefill: 128
+    experts x 24 slots; decode: x 8; block i on expert i), every row counted
+    and with the row counts the model passes (a decode step's 4 tokens on 4
+    of the 128 blocks, one row each; partial prefill counts), then odd ones
+    — ragged Din and Dout, Dout not a multiple of the 16-byte vector, a
+    block of more than one chunk of rows, one-row blocks, a weight tensor
+    off 16-byte alignment (the CUDA-core kernel in bf16), Din = 0, counts
+    that are all zero and partial counts over garbage rows — with unsorted
+    block experts that repeat.  x holds random values past every count."""
     cases = []
     for din, dout in ((MOE_D, MOE_F), (MOE_F, MOE_D)):
         for phase, c in (("prefill", MOE_C_PREFILL), ("decode", MOE_C_DECODE)):
             cases.append((f"{phase} {din}->{dout}", MOE_E, din, dout,
-                          MOE_E * c, c, "arange", False))
-    cases += [("Din 100 Dout 77 block_t 7", 3, 100, 77, 35, 7, "random",
-               False),
+                          MOE_E * c, c, "arange", False, None))
+    cases += [("decode 5120->8192 model counts", MOE_E, MOE_D, MOE_F,
+               MOE_E * MOE_C_DECODE, MOE_C_DECODE, "arange", False,
+               "model decode"),
+              ("prefill 8192->5120 partial counts", MOE_E, MOE_F, MOE_D,
+               MOE_E * MOE_C_PREFILL, MOE_C_PREFILL, "arange", False,
+               "partial"),
+              ("Din 100 Dout 77 block_t 7", 3, 100, 77, 35, 7, "random",
+               False, None),
               ("Din 37 Dout 264 block_t 40", 4, 37, 264, 120, 40, "random",
-               False),
-              ("block_t 1", 5, 513, 136, 9, 1, "random", False),
-              ("misaligned w", 3, 64, 512, 48, 8, "random", True),
-              ("Din 0", 2, 0, 16, 16, 8, "random", False)]
+               False, None),
+              ("block_t 1", 5, 513, 136, 9, 1, "random", False, None),
+              ("misaligned w", 3, 64, 512, 48, 8, "random", True, None),
+              ("Din 0", 2, 0, 16, 16, 8, "random", False, None),
+              ("all-zero counts", 4, 64, 256, 64, 16, "random", False,
+               "zero"),
+              ("partial counts block_t 24", 5, 136, 264, 120, 24, "random",
+               False, "partial"),
+              ("partial counts block_t 100", 3, 128, 136, 300, 100, "random",
+               False, "partial"),
+              ("partial counts Din 100 Dout 77 block_t 7", 3, 100, 77, 35, 7,
+               "random", False, "partial"),
+              ("partial counts misaligned w", 3, 64, 512, 48, 8, "random",
+               True, "partial")]
     return cases
+
+
+def gmm_counts(torch, g, kind, E, nb, bt):
+    """The (nb,) int32 row counts of a case, on the card: None, all zero,
+    the model's decode step (4 blocks of one row) or partial (0, a third,
+    block_t, block_t - 1, then drawn)."""
+    if kind is None:
+        return None
+    counts = torch.zeros(nb, dtype=torch.int32, device="cuda")
+    if kind == "model decode":
+        counts[torch.randperm(nb, generator=g, device="cuda")[:4]] = 1
+    elif kind == "partial":
+        counts = torch.randint(0, bt + 1, (nb,), generator=g, device="cuda",
+                               dtype=torch.int32)
+        counts[:4] = torch.tensor([0, max(1, bt // 3), bt, bt - 1])[:nb]
+    return counts
+
+
+def gmm_route(x, w, out):
+    """The grouped-matmul kernel the wrapper picks for these tensors."""
+    from repro_torch.kernels import moe_gmm
+    return moe_gmm._variant(x.dtype, w.shape[1], w.shape[2],
+                            (x.data_ptr(), w.data_ptr(), out.data_ptr()))
 
 
 def phase_gmm_kernel(torch, kernels):
     """The grouped matmul against its plain version, on the same inputs in
-    the same dtype; the weights of a full-width case (21.5 GB in float32)
-    live only while their case runs."""
+    the same dtype, each case on the kernel it should take (bf16 with
+    widths and pointers 16-byte copies can take on the tensor cores, the
+    rest on the CUDA cores), rows past a count exactly zero; the weights of
+    a full-width case (21.5 GB in float32) live only while their case
+    runs."""
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda").manual_seed(SEED + 9)
     kern = kernels["gmm"]
     err = 0.0
-    for label, E, din, dout, T, bt, order, misaligned in gmm_cases():
+    for label, E, din, dout, T, bt, order, misaligned, kind in gmm_cases():
         w32 = torch.randn((E, din, dout), generator=g, device="cuda")
         w32.mul_(1.0 / max(din, 1) ** 0.5)
         x32 = torch.randn((T, din), generator=g, device="cuda")
@@ -680,6 +800,7 @@ def phase_gmm_kernel(torch, kernels):
             if order == "arange" else torch.randint(
                 0, E, (T // bt,), generator=g, device="cuda",
                 dtype=torch.int32)
+        counts = gmm_counts(torch, g, kind, E, T // bt, bt)
         for dt in (torch.bfloat16, torch.float32):
             x, w = x32.to(dt), w32.to(dt)
             if misaligned:      # the same values one element into a buffer
@@ -687,20 +808,30 @@ def phase_gmm_kernel(torch, kernels):
                 buf[1:].copy_(w.view(-1))
                 w = buf[1:].view(E, din, dout)
             before = kern.launches
-            got = kern(x, w, be, bt)
+            got = kern(x, w, be, bt, counts)
             torch.cuda.synchronize()
             check(kern.launches == before + 1, "gmm did not launch")
-            exp = ref.gmm(x, w, be, bt)
+            exp = ref.gmm(x, w, be, bt, counts)
+            what = f"gmm ({label} {str(dt)[6:]})"
             check(got.dtype == dt and got.shape == (T, dout),
-                  f"gmm ({label}): {got.dtype} {tuple(got.shape)}")
+                  f"{what}: {got.dtype} {tuple(got.shape)}")
+            route = gmm_route(x, w, got)
+            want = "mma" if dt == torch.bfloat16 and din % 8 == 0 \
+                and dout % 8 == 0 and not misaligned else "simt"
+            check(route == want, f"{what} took the {route} kernel, not "
+                                 f"{want}")
+            if counts is not None:
+                past = torch.arange(bt, device="cuda")[None, :] \
+                    >= counts[:, None]
+                check(not got[past.reshape(-1)].any(),
+                      f"{what}: rows past the counts not zero")
             e = rel_err(got, exp)
             tol = GMM_TOL[str(dt)[6:]]
-            check(e <= tol, f"gmm ({label} {str(dt)[6:]}) differs from its "
-                            f"plain version: {e} relative to max(1, max "
-                            f"|plain|) > {tol}")
+            check(e <= tol, f"{what} differs from its plain version: {e} "
+                            f"relative to max(1, max |plain|) > {tol}")
             err = max(err, float((got.float() - exp.float()).abs().max()))
             log(f"  gmm [{label} {str(dt)[6:]}]: relative err {e:.3g} "
-                f"(tolerance {tol})")
+                f"(tolerance {tol}), {route} kernel")
             del x, w, got, exp
         del w32, x32
         torch.cuda.empty_cache()
@@ -1836,14 +1967,19 @@ def recurrent_report(torch, kernels, errs, launches):
 
 def gmm_report(torch, kernels, err, launches):
     """The grouped matmul's row at llama4-maverick's gate/up product in
-    bf16: 128 experts of 5120 x 8192, block i of the slot rows on expert i;
-    at the prefill shape (24 slots per expert), with a ``decode`` entry of
-    the same numbers at the decode shape (8 slots).  Each call reads every
-    expert's weights once (10.7 GB), so bytes bound it; operations are
-    counted at the bf16 tensor-core peak.  The library yardstick is one
-    ``torch.bmm`` of the (E, C, 5120) slots by the (E, 5120, 8192) weights —
-    the same function when block i takes expert i; the port never calls
-    it."""
+    bf16: 128 experts of 5120 x 8192, block i of the slot rows on expert i.
+    The row is the prefill shape (24 slots per expert, every row counted:
+    each call reads every expert's weights once, 10.7 GB); its ``decode``
+    entry is a decode step as the model makes it (8 slots per expert, the
+    step's 4 tokens on 4 experts, one row each, the other slot rows zero and
+    past their counts), bound by the bytes of the 4 experts' weights, the
+    whole output and the live x rows; its ``decode_full`` entry is the
+    decode shape with every row counted, as this row's earlier decode
+    entry was timed.  Operations are counted at the bf16 tensor-core peak.
+    The library yardstick is one ``torch.bmm`` of the (E, C, 5120) slots by
+    the (E, 5120, 8192) weights — the same function when block i takes
+    expert i and the rows past the counts are zeros; it reads every expert.
+    The port never calls it."""
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     w = torch.randn((MOE_E, MOE_D, MOE_F), generator=g, device="cuda",
@@ -1851,27 +1987,45 @@ def gmm_report(torch, kernels, err, launches):
     be = torch.arange(MOE_E, dtype=torch.int32, device="cuda")
     kern = kernels["gmm"]
     m = {}
-    for phase, c in (("prefill", MOE_C_PREFILL), ("decode", MOE_C_DECODE)):
+    for phase, c, kind in (("prefill", MOE_C_PREFILL, None),
+                           ("decode", MOE_C_DECODE, "model decode"),
+                           ("decode_full", MOE_C_DECODE, None)):
         T = MOE_E * c
         x = torch.randn((T, MOE_D), generator=g, device="cuda",
                         dtype=torch.bfloat16)
+        counts = gmm_counts(torch, g, kind, MOE_E, MOE_E, c)
+        if counts is None:
+            rows, experts = T, MOE_E
+        else:                  # zeros past the counts, as dispatch leaves x
+            live = torch.arange(c, device="cuda")[None, :] < counts[:, None]
+            x.mul_(live.reshape(-1, 1))
+            rows = int(counts.sum())
+            experts = int((counts > 0).sum())
         xe = x.view(MOE_E, c, MOE_D)
+
+        def kernel():
+            return kern(x, w, be, c, counts)
         m[phase] = dict(
-            ms=cuda_ms(lambda: kern(x, w, be, c), 20),
-            plain_ms=cuda_ms(lambda: ref.gmm(x, w, be, c), 2),
+            ms=cuda_ms(kernel, 20), device_ms=device_ms(kernel, 20),
+            plain_ms=cuda_ms(lambda: ref.gmm(x, w, be, c, counts), 2),
             library_ms=cuda_ms(lambda: torch.bmm(xe, w), 20),
-            flops=2 * T * MOE_D * MOE_F,
-            nbytes=2 * (x.numel() + w.numel() + T * MOE_F) + 4 * MOE_E)
+            flops=2 * rows * MOE_D * MOE_F,
+            nbytes=2 * (rows * MOE_D + experts * MOE_D * MOE_F
+                        + T * MOE_F) + 4 * MOE_E * (1 + (counts is not None)),
+            experts=experts)
     row = dict(name="gmm", route="cuda",
                source="src/repro_torch/kernels/csrc/moe_gmm.cu",
                replaces="src/repro/kernels/moe_gmm.py:37")
     n = launches[MOE_ARCH]["gmm"]
     row.update(timing_row(m["prefill"], n, err, BF16_FLOPS))
-    row["decode"] = timing_row(m["decode"], n, err, BF16_FLOPS)
-    for phase, r in (("prefill", row), ("decode", row["decode"])):
+    for phase in ("decode", "decode_full"):
+        row[phase] = timing_row(m[phase], n, err, BF16_FLOPS)
+    for phase, r in (("prefill", row), ("decode", row["decode"]),
+                     ("decode_full", row["decode_full"])):
         mm = m[phase]
-        log(f"  gmm {phase}: {mm['ms']:.4f} ms/call, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+        log(f"  gmm {phase}: {mm['ms']:.4f} ms/call (device "
+            f"{mm['device_ms']:.4f}), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {mm['experts']} experts read, "
             f"{mm['flops'] / 1e9:.2f} GFLOP, {mm['nbytes'] / 1e9:.3f} GB), "
             f"plain {mm['plain_ms']:.4f} ms, bmm {mm['library_ms']:.4f} ms, "
             f"launches {n}")
@@ -1893,6 +2047,8 @@ def copy_report(torch, rdma, cases, errs, launches):
         n_rows, n = src.shape
         m[n_rows] = dict(
             ms=cuda_ms(lambda: rdma.remote_copy(src, dst, sender), 200),
+            device_ms=device_ms(lambda: rdma.remote_copy(src, dst, sender),
+                                200),
             plain_ms=cuda_ms(lambda: rdma._remote_copy_ref(src, dst, sender),
                              50),
             library_ms=cuda_ms(lambda: src.index_select(
@@ -1908,7 +2064,8 @@ def copy_report(torch, rdma, cases, errs, launches):
                                 F32_FLOPS)
     for n_rows, r in ((8, row), (4, row["serving"])):
         mm = m[n_rows]
-        log(f"  remote_copy {mm['shape']}: {mm['ms']:.4f} ms/call, bound "
+        log(f"  remote_copy {mm['shape']}: {mm['ms']:.4f} ms/call (device "
+            f"{mm['device_ms']:.5f}), bound "
             f"{r['bound_ms']:.6f} ms (bytes; {mm['nbytes'] / 1e3:.1f} KB), "
             f"plain {mm['plain_ms']:.4f} ms, index_select "
             f"{mm['library_ms']:.4f} ms, launches {r['launches']}")
@@ -1960,6 +2117,16 @@ def main() -> int:
         check(len(hmma) == 3 and all(n > 0 for n in hmma.values()),
               f"the bf16 flash kernels lack tensor-core HMMA: {hmma}")
         log(f"  cuobjdump -sass, HMMA per tensor-core flash kernel: {hmma}")
+        hmma = sass_mma_count(_nvcc, "moe_gmm", "gmm_mma")
+        check(len(hmma) == 3 and all(n > 0 for n in hmma.values()),
+              f"the bf16 gmm kernels lack tensor-core HMMA: {hmma}")
+        log(f"  cuobjdump -sass, HMMA per tensor-core gmm kernel: {hmma}")
+        usage = ptxas_usage(_nvcc, "moe_gmm", "gmm_mma")
+        check(len(usage) == 3 and all(u[0] and not u[1] and not u[2]
+                                      for u in usage.values()),
+              f"the tensor-core gmm kernels spill: {usage}")
+        log("  -Xptxas -v, tensor-core gmm kernels [registers, spill stores, "
+            f"spill loads]: {usage}")
         log("phase 2: kernels against their plain versions")
         cases, errs = phase_kernels(torch, rdma, slots)
         copy_cases_, copy_errs = phase_copy_kernel(torch, rdma)

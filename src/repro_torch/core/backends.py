@@ -219,9 +219,10 @@ class PallasDmaBackend(CollsBackend):
         # rows of whole 16-byte units take the kernel's vector path
         words.append(words[0].new_zeros((words[0].shape[0], -n % 4)))
         words = torch.cat(words, dim=1)
-        me = torch.arange(owner.shape[0], device=owner.device)
-        sender = torch.where(owner.to(torch.int64) == me, -1,
-                             owner.to(torch.int64))
+        # the map in the owner's dtype (int32): the kernel takes it as is
+        me = torch.arange(owner.shape[0], dtype=owner.dtype,
+                          device=owner.device)
+        sender = torch.where(owner == me, -1, owner)
         out, _sent, _recv = colls._dma().remote_copy(words, words, sender)
         res, off = [], 0
         for v in values:

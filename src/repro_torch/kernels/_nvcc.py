@@ -121,6 +121,8 @@ def on_card(what: str, *tensors) -> bool:
 
 
 def stream(t) -> int:
-    """The current CUDA stream of ``t``'s device, as a pointer."""
+    """The current CUDA stream of ``t``'s device, as a pointer, read
+    without building a ``torch.cuda.Stream`` object (per-launch host
+    work)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -167,15 +167,21 @@ def wkv6(r, k, v, w, u):
     return y.to(r.dtype), s
 
 
-def gmm(x, w, block_expert, block_t):
+def gmm(x, w, block_expert, block_t, block_rows=None):
     """Grouped matmul: block i of ``block_t`` rows of x times
     ``w[block_expert[i]]`` in float32, cast to x's dtype.  x (T, Din), w (E,
-    Din, Dout), block_expert (T // block_t,).  One product per block: the
-    reference oracle's (nb, Din, Dout) float32 gather of w would take 21.5 GB
-    at llama4-maverick's widths."""
-    out = torch.empty((x.shape[0], w.shape[2]), dtype=x.dtype,
+    Din, Dout), block_expert (T // block_t,).  ``block_rows`` (T // block_t,)
+    or None: only the first ``block_rows[i]`` rows of block i (clamped to
+    [0, block_t]) are products, the rest are zeros whatever x holds there;
+    None counts every row.  One product per block: the reference oracle's
+    (nb, Din, Dout) float32 gather of w would take 21.5 GB at
+    llama4-maverick's widths."""
+    out = torch.zeros((x.shape[0], w.shape[2]), dtype=x.dtype,
                       device=x.device)
-    for i, e in enumerate(block_expert.tolist()):
-        rows = slice(i * block_t, (i + 1) * block_t)
-        out[rows] = (x[rows].float() @ w[e].float()).to(x.dtype)
+    nb = x.shape[0] // block_t
+    counts = [block_t] * nb if block_rows is None else block_rows.tolist()
+    for i, (e, n) in enumerate(zip(block_expert.tolist(), counts)):
+        rows = slice(i * block_t, i * block_t + min(max(n, 0), block_t))
+        if rows.stop > rows.start:
+            out[rows] = (x[rows].float() @ w[e].float()).to(x.dtype)
     return out

@@ -52,7 +52,8 @@ _SIGNATURES = {
 _LIB = _nvcc.Library("remote_dma", _SIGNATURES, "rdma_error_string")
 _COPY_LIB = _nvcc.Library(
     "remote_copy",
-    {"remote_copy": [_P] * 6 + [_I, ctypes.c_longlong, _I, _I, _P]},
+    {"remote_copy": [_P] * 3 + [_I] + [_P] * 3
+     + [_I, ctypes.c_longlong, _I, _I, _P]},
     "remote_copy_error_string")
 
 
@@ -64,6 +65,8 @@ def _words(x):
     """The int32 bit pattern of a 4-byte tensor (the kernels move words)."""
     if x.element_size() != 4:
         raise TypeError(f"the CUDA kernels move 4-byte words, got {x.dtype}")
+    if x.dtype == torch.int32 and x.is_contiguous():
+        return x
     return x.contiguous().view(torch.int32)
 
 
@@ -253,11 +256,14 @@ def remote_copy(src, dst, sender):
     ``sender[q]`` of ``src``; a sender of -1, ``q`` itself or any value
     outside [0, P) means ``q`` receives nothing and keeps ``dst[q]``.
     ``src`` and ``dst`` are (P, n) buffers of one 4-byte dtype, ``sender`` a
-    (P,) int.  Returns (out, sent_bytes (P,) int32, recv_bytes (P,) int32):
-    the byte counts stand in for the DMA send and recv semaphores — a row's
-    bytes at its receiver and at its sender, counted from the same map that
-    drives the copy.  A broadcast from participant ``o`` is
-    ``sender = o`` everywhere but at ``o``.
+    (P,) int (int32 and int64 are taken as they are; other integer types
+    are widened to int64).  Returns (out, sent_bytes (P,) int32, recv_bytes
+    (P,) int32): the byte counts stand in for the DMA send and recv
+    semaphores — a row's bytes at its receiver and at its sender, counted
+    from the same map that drives the copy.  On the card the three are
+    views of one allocation, written by one kernel launch and no other
+    device operation.  A broadcast from participant ``o`` is ``sender = o``
+    everywhere but at ``o``.
 
     Replaces the TPU kernel ``remote_copy_tpu`` of
     ``repro/kernels/remote_dma.py``, a remote-DMA send/wait pair to a peer
@@ -268,23 +274,34 @@ def remote_copy(src, dst, sender):
                          f"{src.dtype} {tuple(src.shape)} and {dst.dtype} "
                          f"{tuple(dst.shape)}")
     P, n = src.shape
-    sender = _i32(sender).reshape(-1)
+    if sender.dim() != 1:
+        sender = sender.reshape(-1)
+    if sender.dtype not in (torch.int32, torch.int64):
+        sender = sender.to(torch.int64)
     if sender.shape[0] != P:
         raise ValueError(f"sender must be ({P},), got {tuple(sender.shape)}")
     row_nbytes = n * src.element_size()
     _check_counter_range(P, row_nbytes)
     if not _on_card(src, dst, sender):
         return _remote_copy_ref(src, dst, sender)
+    # the hop is launch-bound: the host work here is kept to one
+    # allocation, pointer arithmetic and three views
     a, b = _words(src), _words(dst)
-    out = torch.empty_like(a)
-    sent, recv = torch.zeros((2, P), dtype=torch.int32, device=src.device)
-    vec = int(n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (a, b, out)))
+    if not sender.is_contiguous():
+        sender = sender.contiguous()
+    # out first, so that it keeps the allocation's 16-byte alignment
+    buf = torch.empty(P * n + 2 * P, dtype=torch.int32, device=src.device)
+    out_p = buf.data_ptr()
+    vec = int(n % 4 == 0 and (a.data_ptr() | b.data_ptr() | out_p) % 16 == 0)
     _COPY_LIB.call("remote_copy", a.data_ptr(), b.data_ptr(),
-                   sender.data_ptr(), out.data_ptr(), sent.data_ptr(),
-                   recv.data_ptr(), P, n, row_nbytes, vec,
-                   _nvcc.stream(src))
+                   sender.data_ptr(), int(sender.dtype == torch.int64),
+                   out_p, out_p + 4 * P * n, out_p + 4 * (P * n + P), P, n,
+                   row_nbytes, vec, _nvcc.stream(src))
     remote_copy.launches += 1
-    return out.view(src.dtype), sent, recv
+    out = buf.as_strided((P, n), (n, 1))
+    return (out if src.dtype == torch.int32 else out.view(src.dtype),
+            buf.as_strided((P,), (1,), P * n),
+            buf.as_strided((P,), (1,), P * n + P))
 
 
 remote_copy.launches = 0

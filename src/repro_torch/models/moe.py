@@ -8,7 +8,12 @@ matmul :func:`~repro_torch.kernels.moe_gmm.gmm` over the (E·C, d) slot rows
 with ``block_t = C`` and ``block_expert = arange(E)``: the same function as
 the reference's batched einsums, which its module docstring names the
 moe_gmm kernel's job.  On a CUDA tensor that is the hand-written kernel; on
-a CPU tensor its plain version.
+a CPU tensor its plain version.  ``moe_block_local`` also hands it each
+expert's kept assignments, min(#assigned, C), counted on the device
+(:func:`expert_rows`): expert e's slots past that count are zero rows
+(``dispatch`` fills only kept slots), so its outputs there are zeros, and
+the kernel writes them without reading the weights.  An expert with no
+token costs no weight bytes; in a decode step most hold none.
 
 Capacity semantics are the reference's: each expert accepts at most
 C = ceil(T·k/E · capacity_factor) tokens, rounded up to 8; an assignment
@@ -99,16 +104,30 @@ def combine(y_recv, slot_of, kept_w, T: int):
     return torch.einsum("tkd,tk->td", picked, kept_w)
 
 
-def expert_ffn(eparams, x_e, act="silu"):
+def expert_rows(slot_of, E: int, C: int):
+    """Kept assignments per expert, min(#assigned, C), as an (E,) int32
+    tensor on the device: a scatter-add of each assignment's slot // C into
+    E + 1 buckets, where the dropped ones (slot E·C) land in the last.  No
+    value is read on the host."""
+    flat = slot_of.reshape(-1)
+    counts = torch.zeros(E + 1, dtype=torch.int32, device=flat.device)
+    counts.scatter_add_(0, flat // C, torch.ones_like(flat,
+                                                      dtype=torch.int32))
+    return counts[:E]
+
+
+def expert_ffn(eparams, x_e, act="silu", rows=None):
     """Batched expert MLP.  x_e (E, N, d) → (E, N, d): three grouped matmuls
-    over the E·N slot rows, block i of N rows on expert i."""
+    over the E·N slot rows, block i of N rows on expert i.  ``rows`` (E,)
+    or None: expert i's rows past ``rows[i]`` come out zero (None: every
+    row counts)."""
     E, N, d = x_e.shape
-    rows = x_e.reshape(E * N, d)
+    flat = x_e.reshape(E * N, d)
     experts = torch.arange(E, dtype=torch.int32, device=x_e.device)
-    gate = gmm(rows, eparams["wi_gate"], experts, N)
-    up = gmm(rows, eparams["wi_up"], experts, N)
+    gate = gmm(flat, eparams["wi_gate"], experts, N, rows)
+    up = gmm(flat, eparams["wi_up"], experts, N, rows)
     g = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
-    return gmm(g * up, eparams["wo"], experts, N).reshape(E, N, -1)
+    return gmm(g * up, eparams["wo"], experts, N, rows).reshape(E, N, -1)
 
 
 def moe_block_local(params, x, cfg: ArchConfig):
@@ -120,7 +139,8 @@ def moe_block_local(params, x, cfg: ArchConfig):
     w, e, logits = route(params, xt, mo)
     C = capacity(B * S, mo)
     x_send, slot, kept_w = dispatch(xt, e, w, mo.n_experts, C)
-    y = expert_ffn(params["experts"], x_send, cfg.act)
+    y = expert_ffn(params["experts"], x_send, cfg.act,
+                   expert_rows(slot, mo.n_experts, C))
     out = combine(y, slot, kept_w, B * S)
     if mo.n_shared_experts:
         out = out + mlp(params["shared"], xt, cfg.act)

@@ -103,6 +103,131 @@ def test_gmm_matches_pallas_and_ref(E, T, Din, Dout, BT, order, dtype):
                                    **GMM_TOL[dtype])
 
 
+def _counts_and_zeroed(rng, x, BT):
+    """Row counts per block with 0, a partial count and block_t among them
+    (the rest drawn), and x with its rows past the counts zeroed, as the
+    MoE block's dispatch leaves its slots."""
+    nb = x.shape[0] // BT
+    counts = rng.integers(0, BT + 1, size=nb)
+    counts[:3] = [0, max(1, BT // 3), BT][:nb]
+    past = np.arange(BT)[None, :] >= counts[:, None]
+    x = np.where(past.reshape(-1)[:, None], np.zeros_like(x), x)
+    return counts, x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E, T, Din, Dout, BT", [
+    (4, 512, 256, 256, 128),
+    (8, 1024, 512, 256, 128),
+    (2, 256, 128, 512, 64),
+    (6, 96, 128, 256, 8),                    # the decode block_t
+    (5, 168, 256, 128, 24),                  # the prefill block_t
+])
+def test_gmm_with_row_counts_matches_pallas_and_ref(E, T, Din, Dout, BT,
+                                                    dtype):
+    """Blocks with no counted row, partial counts and full ones, on x whose
+    rows past the counts are zeros: the reference (which has no counts)
+    then computes the same function."""
+    rng = np.random.default_rng(18 + T + BT)
+    x = rng.standard_normal((T, Din)).astype(np.float32)
+    counts, x = _counts_and_zeroed(rng, x, BT)
+    jdt = getattr(jnp, dtype)
+    x = jnp.asarray(x, jdt)
+    w = jnp.asarray(rng.standard_normal((E, Din, Dout)).astype(np.float32)
+                    * 0.2, jdt)
+    be = jnp.asarray(rng.integers(0, E, size=(T // BT,)), jnp.int32)
+    tdt = getattr(torch, dtype)
+    got = gmm(torch.tensor(_f32(x)).to(tdt), torch.tensor(_f32(w)).to(tdt),
+              torch.tensor(np.asarray(be)), BT,
+              torch.tensor(counts, dtype=torch.int32))
+    assert got.dtype == tdt and got.shape == (T, Dout)
+    for want in (jops.gmm(x, w, be, block_t=BT, block_n=128, block_k=128),
+                 jref.gmm(x, w, be, BT)):
+        np.testing.assert_allclose(got.float().numpy(), _f32(want),
+                                   **GMM_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_zeroes_the_rows_past_the_counts(dtype):
+    """Rows past a count come out zero even where x holds values there;
+    the counted rows are the products of their own rows."""
+    rng = np.random.default_rng(12)
+    E, BT, nb, Din, Dout = 3, 8, 5, 24, 16
+    x = torch.from_numpy(rng.standard_normal((nb * BT, Din)).astype(
+        np.float32)).to(dtype)
+    w = torch.from_numpy(rng.standard_normal((E, Din, Dout)).astype(
+        np.float32)).to(dtype)
+    be = torch.tensor([2, 0, 1, 2, 0])
+    counts = torch.tensor([0, 3, BT, 1, -2], dtype=torch.int64)
+    got = gmm(x, w, be, BT, counts)
+    full = gmm(x, w, be, BT)
+    for i, n in enumerate([0, 3, BT, 1, 0]):
+        rows = slice(i * BT, (i + 1) * BT)
+        assert not got[rows][n:].any(), f"block {i}: rows past {n}"
+        torch.testing.assert_close(got[rows][:n], full[rows][:n], atol=1e-5,
+                                   rtol=1e-5)
+        torch.testing.assert_close(
+            got[rows][:n].float(),
+            (x[rows][:n].float() @ w[int(be[i])].float()).to(dtype).float(),
+            atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("bad, match", [
+    ("shape", "block_rows"), ("float", "block_rows"), ("device", "CPU")])
+def test_gmm_refuses_row_counts_it_cannot_take(bad, match):
+    x = torch.zeros((16, 8))
+    w = torch.zeros((3, 8, 5))
+    be = torch.zeros(2, dtype=torch.int32)
+    rows = {"shape": torch.zeros(3, dtype=torch.int32),
+            "float": torch.zeros(2),
+            "device": torch.zeros(2, dtype=torch.int32, device="meta")}[bad]
+    with pytest.raises(ValueError, match=match):
+        gmm(x, w, be, 8, rows)
+
+
+@pytest.mark.parametrize("dtype, Din, Dout, w_off, want", [
+    (torch.bfloat16, 5120, 8192, 0, "mma"),       # llama4's gate and up
+    (torch.bfloat16, 8192, 5120, 0, "mma"),       # and its wo
+    (torch.float32, 5120, 8192, 0, "simt"),       # float32 stays exact
+    (torch.bfloat16, 64, 77, 0, "simt"),          # Dout % 8 != 0
+    (torch.bfloat16, 100, 64, 0, "simt"),         # Din % 8 != 0
+    (torch.bfloat16, 64, 512, 2, "simt"),         # w one element in
+])
+def test_gmm_variant_routes_by_dtype_width_and_alignment(dtype, Din, Dout,
+                                                         w_off, want):
+    from repro_torch.kernels.moe_gmm import _variant
+    assert _variant(dtype, Din, Dout, (4096, 8192 + w_off, 12288)) == want
+
+
+@pytest.mark.parametrize("top_k, cf, S", [(1, 1.25, 10), (2, 1.25, 10),
+                                          (1, 0.5, 40)])
+def test_moe_block_local_passes_the_kept_row_counts(block, monkeypatch,
+                                                    top_k, cf, S):
+    """Every grouped matmul of the block gets each expert's kept
+    assignments, min(#assigned, C), the drops past capacity excluded."""
+    cfg, jcfg, _jp, p = block
+    cfg, _jcfg = _with_moe(cfg, jcfg, top_k=top_k, capacity_factor=cf)
+    x = np.random.default_rng(8).standard_normal(
+        (2, S, cfg.d_model)).astype(np.float32)
+    seen = []
+
+    def spy(x_, w_, be_, bt_, rows_=None):
+        seen.append(rows_)
+        return gmm(x_, w_, be_, bt_, rows_)
+
+    monkeypatch.setattr(PM, "gmm", spy)
+    PM.moe_block_local(p, torch.from_numpy(x), cfg)
+    _w, e, _l = PM.route(p, torch.from_numpy(x.reshape(2 * S, -1)), cfg.moe)
+    E, C = cfg.moe.n_experts, PM.capacity(2 * S, cfg.moe)
+    want = np.minimum(np.bincount(e.numpy().ravel(), minlength=E), C)
+    assert len(seen) == 3
+    for rows in seen:
+        assert rows.dtype == torch.int32
+        np.testing.assert_array_equal(rows.numpy(), want)
+    if cf < 1:
+        assert (np.bincount(e.numpy().ravel(), minlength=E) > C).any()
+
+
 def test_gmm_refuses_what_the_kernel_does_not_take():
     x = torch.zeros((16, 8))
     w = torch.zeros((3, 8, 5))

@@ -392,3 +392,22 @@ def test_remote_copy_takes_a_misaligned_float_view():
     assert sent.tolist() == [0, 0, 72, 0] and recv.tolist() == [36, 0, 0, 36]
     with pytest.raises(ValueError, match="sender"):
         rdma.remote_copy(src, dst, torch.tensor([0, 1]))
+
+
+@pytest.mark.parametrize("label,src,dst,sender", _copy_cases()[::2],
+                         ids=lambda x: x if isinstance(x, str) else "")
+def test_remote_copy_takes_an_int32_or_int64_sender(label, src, dst,
+                                                    sender):
+    """The map is taken as the caller holds it, int32 or int64 (the kernel
+    has a variant for each, so no cast runs per hop): both give the same
+    copy and counters, the oracle's."""
+    got = [rdma.remote_copy(torch.from_numpy(src), torch.from_numpy(dst),
+                            torch.from_numpy(sender.astype(dt)))
+           for dt in (np.int32, np.int64)]
+    eo, es, er = _copy_oracle(src, dst, sender)
+    for out, sent, recv in got:
+        np.testing.assert_array_equal(out.numpy(), eo, err_msg=label)
+        np.testing.assert_array_equal(sent.numpy(), es, err_msg=label)
+        np.testing.assert_array_equal(recv.numpy(), er, err_msg=label)
+    for a, b in zip(*got):
+        assert a.dtype == b.dtype and torch.equal(a, b), label
