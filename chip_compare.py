@@ -6,24 +6,31 @@ Run from the repository root on a machine with a CUDA card, the CUDA
 toolkit and, beside this checkout, an unpacked copy of the commit to
 compare with (``git archive <commit> | tar -x -C <dir>``):
 
-    python3 chip_compare.py <parent dir> <change dir>
+    python3 chip_compare.py [--groups moe,copy,dma] <parent dir> <change dir>
 
 Each turn is one process that imports ``chip_smoke`` and ``repro_torch``
-from its tree and builds that tree's kernels, then, with that tree's code:
+from its tree and builds that tree's kernels, then, with that tree's code,
+runs the groups asked for (all three by default):
 
-* serves llama4-maverick-400b-a17b at full width and 4 layers (512-token
-  prompts) as ``chip_smoke.py``'s phase 5 does, with its checks and launch
-  counts;
-* times ``models/moe.py::moe_block_local`` at full width on one MoE
-  layer's weights (128 experts of 5120 x 8192, top-1, a shared expert;
-  bf16, drawn from a seed) for a decode step's 4 tokens and a prefill's
-  2,048 (4 prompts of 512);
-* times ``remote_copy`` at both ring-hop shapes (P = 8 with 20,488 words,
-  P = 4 with 648; a broadcast) with an int32 and an int64 sender map, and
-  ``index_select`` of the same rows beside it.
+* ``moe``: serves llama4-maverick-400b-a17b at full width and 4 layers
+  (512-token prompts) as ``chip_smoke.py``'s phase 5 does, with its checks
+  and launch counts, and times ``models/moe.py::moe_block_local`` at full
+  width on one MoE layer's weights (128 experts of 5120 x 8192, top-1, a
+  shared expert; bf16, drawn from a seed) for a decode step's 4 tokens and
+  a prefill's 2,048 (4 prompts of 512);
+* ``copy``: times ``remote_copy`` at both ring-hop shapes (P = 8 with
+  20,488 words, P = 4 with 648; a broadcast) with an int32 and an int64
+  sender map, and ``index_select`` of the same rows beside it;
+* ``dma``: the map's verbs on the remote-DMA backend at the KVStore
+  path's shapes (P = 8, 512 lanes a participant, 2**22 / 8 + 4 slots of
+  5 int32 words, a ledger enabled): ``build_descriptors`` and
+  ``gather_rows`` on the arguments the verbs pass them (bool masks, the
+  read verb's index as a stride-0 broadcast of one vector), and
+  ``PallasDmaBackend().read_batch`` and ``.write_batch`` whole.
 
-Times are the wrapper's (CUDA events around a loop of calls) and the
-device time per call (``torch.profiler``).  It prints one ``TURN {json}``
+Times are the wrapper's (CUDA events around a loop of calls), the device
+time per call and the device operations (kernels, copies, fills) per call
+(both from ``torch.profiler``).  It prints one ``TURN {json}``
 line per turn, a table of every number per turn, and last one JSON object
 of all turns.  Imports neither JAX nor the JAX package.  Host-bound numbers
 move up to 2x between calls, so only turns of one run compare.
@@ -40,10 +47,15 @@ SERVE_KEYS = ("prefill_ms_p50", "decode_step_p50_ms", "decode_step_p99_ms",
               "tokens_per_s")
 # (label, B, S): the MoE block's input, B sequences of S tokens
 MOE = [("moe_block 4 tokens", 4, 1), ("moe_block 2048 tokens", 4, 512)]
-TIMED = ("ms", "device_ms")
+TIMED = ("ms", "device_ms", "device_ops")
+# the CUDA sources each group's turn builds
+SOURCES = {"moe": ("flash_attention", "decode_attention", "rglru_scan",
+                   "wkv6", "moe_gmm", "remote_copy", "remote_dma"),
+           "copy": ("remote_copy",), "dma": ("remote_dma",)}
+GROUPS = tuple(SOURCES)
 
 
-def turn(root: str, tag: str) -> dict:
+def turn(root: str, tag: str, groups) -> dict:
     """One tree's numbers, in this process."""
     sys.path[:0] = [root, os.path.join(root, "src")]
     import torch
@@ -64,49 +76,102 @@ def turn(root: str, tag: str) -> dict:
     kernels = {"flash_attention": flash_attention,
                "decode_attention": decode_attention,
                "rglru_scan": rglru_scan, "wkv6": wkv6, "gmm": gmm}
-    _nvcc.build("remote_dma", "flash_attention", "decode_attention",
-                "rglru_scan", "wkv6", "moe_gmm", "remote_copy")
+    _nvcc.build(*sorted({n for g in groups for n in SOURCES[g]}))
     res = {"tag": tag, "root": root, "card": cs.card_line()}
-    path = next(p for p in cs.SERVE_PATHS if p["arch"] == cs.MOE_ARCH)
-    m, launches = cs.phase_serving(torch, kernels, path, rdma)
-    res[cs.MOE_ARCH] = {k: m[k] for k in SERVE_KEYS}
-    res[cs.MOE_ARCH]["gmm launches"] = launches["gmm"]
-    gc.collect()
-    torch.cuda.empty_cache()
 
     def timed(label, fn, iters):
-        res[label] = {"ms": cs.cuda_ms(fn, iters),
-                      "device_ms": device_ms(torch, fn, iters)}
+        res[label] = {"ms": cs.cuda_ms(fn, iters)}
+        res[label]["device_ms"], res[label]["device_ops"] = device_time(
+            torch, fn, iters)
 
-    cfg = get_config(cs.MOE_ARCH)
-    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 12)
-    params = moe.init_moe(g, cfg)
-    for label, B, S in MOE:
-        x = torch.randn((B, S, cfg.d_model), generator=g, device="cuda").to(
-            cfg.dtype_)
-        timed(label, lambda: moe.moe_block_local(params, x, cfg),
-              20 if S == 1 else 10)
-    del params, x
-    gc.collect()
-    torch.cuda.empty_cache()
+    if "moe" in groups:
+        path = next(p for p in cs.SERVE_PATHS if p["arch"] == cs.MOE_ARCH)
+        m, launches = cs.phase_serving(torch, kernels, path, rdma)
+        res[cs.MOE_ARCH] = {k: m[k] for k in SERVE_KEYS}
+        res[cs.MOE_ARCH]["gmm launches"] = launches["gmm"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(cs.MOE_ARCH)
+        g = torch.Generator(device="cuda").manual_seed(cs.SEED + 12)
+        params = moe.init_moe(g, cfg)
+        for label, B, S in MOE:
+            x = torch.randn((B, S, cfg.d_model), generator=g,
+                            device="cuda").to(cfg.dtype_)
+            timed(label, lambda: moe.moe_block_local(params, x, cfg),
+                  20 if S == 1 else 10)
+        del params, x
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    for label, src, dst, sender in cs.copy_cases(torch)[:2]:
-        n_rows, n = src.shape
-        for dt in (torch.int32, torch.int64):
-            s = sender.to(dt)
-            timed(f"remote_copy P={n_rows} {str(dt)[6:]} map",
-                  lambda: rdma.remote_copy(src, dst, s), 200)
-        idx = sender.clamp(min=0)
-        timed(f"index_select P={n_rows}", lambda: src.index_select(0, idx),
-              200)
+    if "copy" in groups:
+        for label, src, dst, sender in cs.copy_cases(torch)[:2]:
+            n_rows, n = src.shape
+            for dt in (torch.int32, torch.int64):
+                s = sender.to(dt)
+                timed(f"remote_copy P={n_rows} {str(dt)[6:]} map",
+                      lambda: rdma.remote_copy(src, dst, s), 200)
+            idx = sender.clamp(min=0)
+            timed(f"index_select P={n_rows}",
+                  lambda: src.index_select(0, idx), 200)
+
+    if "dma" in groups:
+        dma_verbs(torch, cs, rdma, timed)
     return res
 
 
-def device_ms(torch, fn, iters):
-    """Device time of one call: each kernel's mean duration under
-    ``torch.profiler`` times the number of times a call runs it (the same
-    measure as ``chip_smoke.device_ms``, kept here so that both trees are
-    timed alike)."""
+def dma_verbs(torch, cs, rdma, timed):
+    """The read verb's and the write verb's wire path at the KVStore path's
+    shapes: the two kernels on the arguments the verbs pass them, and the
+    verbs whole on the remote-DMA backend with a ledger enabled.  Inputs
+    are made here from a seed, alike in both trees."""
+    from repro_torch.core.backends import PallasDmaBackend
+    from repro_torch.core.runtime import TrafficLedger
+    P, R, width = cs.P, cs.B, cs.W + 3
+    slots = cs.KEYS // cs.P + 4
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 13)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    buf = ints(-2 ** 31, 2 ** 31 - 1, (P, slots, width))
+    targets, indices = ints(0, P, (P, R)), ints(0, slots, (P, R))
+    preds = ints(0, 2, (P, R)) != 0
+    me = torch.arange(P, dtype=torch.int32, device="cuda")[:, None]
+    remote = preds & (targets != me)
+    timed("build_descriptors, read verb (bool en)",
+          lambda: rdma.build_descriptors(targets, indices, remote,
+                                         op=rdma.OP_READ,
+                                         row_nbytes=4 * width), 200)
+    timed("build_descriptors, write verb (bool en, wire)",
+          lambda: rdma.build_descriptors(targets, indices, preds,
+                                         wire=remote, op=rdma.OP_WRITE,
+                                         row_nbytes=4 * width), 200)
+    # the read verb's home side: every home sees all P·R lanes, one index
+    # vector broadcast to every home, a bool mask of the lanes it serves
+    idx = indices.reshape(-1)
+    mask = (targets.reshape(-1)[None, :] == me) & remote.reshape(-1)[None, :]
+    timed("gather_rows, read verb (broadcast index, bool mask)",
+          lambda: rdma.gather_rows(buf, idx[None, :].expand(P, -1), mask),
+          200)
+    values = ints(-2 ** 31, 2 ** 31 - 1, (P, R, width))
+    ledger = TrafficLedger().enable()
+    backend = PallasDmaBackend()
+    timed("PallasDmaBackend.read_batch",
+          lambda: backend.read_batch(buf, targets, indices, preds=preds,
+                                     ledger=ledger, verb="read"), 50)
+    timed("PallasDmaBackend.write_batch",
+          lambda: backend.write_batch(buf, targets, indices, values,
+                                      preds=preds, ledger=ledger,
+                                      verb="write"), 20)
+
+
+def device_time(torch, fn, iters):
+    """(device ms, device operations) of one call under
+    ``torch.profiler``: each kernel, copy or fill's mean duration times the
+    number of times a call runs it (the same measure as
+    ``chip_smoke.device_ms``, kept here so that both trees are timed
+    alike), and the device operations recorded, over the calls."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -122,16 +187,21 @@ def device_ms(torch, fn, iters):
             us, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     if not by_name:
-        return None
-    return sum(us / n * max(1, round(n / iters))
-               for us, n in by_name.values()) / 1e3
+        return None, None
+    return (sum(us / n * max(1, round(n / iters))
+                for us, n in by_name.values()) / 1e3,
+            sum(n for _us, n in by_name.values()) / iters)
 
 
 def main(argv) -> int:
-    if len(argv) == 4 and argv[1] == "--turn":
-        print("TURN " + json.dumps(turn(argv[2], argv[3])), flush=True)
+    if len(argv) == 5 and argv[1] == "--turn":
+        print("TURN " + json.dumps(turn(argv[2], argv[3],
+                                        argv[4].split(","))), flush=True)
         return 0
-    if len(argv) != 3:
+    groups = ",".join(GROUPS)
+    if len(argv) == 5 and argv[1] == "--groups":
+        groups, argv = argv[2], argv[:1] + argv[3:]
+    if len(argv) != 3 or not set(groups.split(",")) <= set(GROUPS):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -143,7 +213,8 @@ def main(argv) -> int:
     for root, tag in ((parent, "parent"), (change, "change"),
                       (change, "change"), (parent, "parent")):
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--turn", root, tag], capture_output=True,
+                              "--turn", root, tag, groups],
+                             capture_output=True,
                              text=True, timeout=1200)
         lines = [ln for ln in out.stdout.splitlines()
                  if ln.startswith("TURN ")]
@@ -154,14 +225,15 @@ def main(argv) -> int:
         turns.append(json.loads(lines[-1][5:]))
         print(lines[-1], flush=True)
     arch = "llama4-maverick-400b-a17b"
-    rows = [(f"{arch} {k}", arch, k) for k in SERVE_KEYS]
+    rows = [(f"{arch} {k}", arch, k) for k in SERVE_KEYS if arch in turns[0]]
     rows += [(f"{group} {k}", group, k) for group in turns[0]
              if isinstance(turns[0][group], dict) and group != arch
              for k in TIMED]
-    print(f"{'':44s}" + "".join(f"{t['tag']:>12s}" for t in turns))
+    print(f"{'':64s}" + "".join(f"{t['tag']:>12s}" for t in turns))
     for name, group, key in rows:
-        print(f"{name:44s}" + "".join(f"{t[group][key]:12.4f}"
-                                      for t in turns))
+        print(f"{name:64s}" + "".join(
+            f"{t[group][key]:12.4f}" if t[group][key] is not None
+            else f"{'-':>12s}" for t in turns))
     print(turns[0]["card"])
     print(json.dumps({"turns": turns}))
     return 0

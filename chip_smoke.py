@@ -16,10 +16,14 @@ exits non-zero and prints no result:
    grouped-matmul ones do not spill;
 2. hold each kernel against its plain PyTorch version on the card: the
    remote-DMA kernels at the KVStore path's shapes (outputs and measured
-   bytes bitwise equal, scatter collisions included), the remote-copy
-   kernel at the ring hop's shapes (P=4 with 648 words, P=8 with 20,488)
-   and the bare ring entries (640 and 20,480 words) and at odd ones (a
-   width not a multiple of four, a misaligned view, zero words, no
+   bytes bitwise equal, scatter collisions included), on the argument forms
+   the verbs pass them (bool masks, the read verb's index one vector
+   broadcast to every home with ``expand``) and on int32 masks and
+   contiguous indices, the descriptor build and the row gather on the
+   verbs' forms one device operation per call (``torch.profiler``), the
+   remote-copy kernel at the ring hop's shapes (P=4 with 648 words, P=8
+   with 20,488) and the bare ring entries (640 and 20,480 words) and at odd
+   ones (a width not a multiple of four, a misaligned view, zero words, no
    senders, every receiver from one sender, a permutation; int64 maps,
    values an int32 cast would wrap among them), outputs and both byte
    vectors bitwise equal, and one device operation per call (no fill,
@@ -79,10 +83,11 @@ exits non-zero and prints no result:
    launch-count checks, and on the replicated path the replication checks;
 6. report the end-to-end numbers of every path, each kernel's launches on
    its path, its time beside its plain version's, one PyTorch call's and
-   its bound (the attention, grouped-matmul and remote-copy rows also with
-   the kernel's device time per call from ``torch.profiler``, which tells
-   host-bound rows from kernel-bound ones, and the attention rows with
-   SDPA's), the card's name and power limit, and last the result line.
+   its bound (every row also with the kernel's device time per call from
+   ``torch.profiler``, which tells host-bound rows from kernel-bound ones,
+   the remote-DMA rows, timed on the verbs' argument forms, with their
+   device operations per call, and the attention rows with SDPA's), the
+   card's name and power limit, and last the result line.
 
 Kernel launch counts are set to 0 just before each path and read just after
 it, so the checks of phase 2 and 3 and the timings of phase 6 count nowhere.
@@ -311,7 +316,12 @@ def device_ms(fn, iters):
 def kernel_cases(torch, rdma, slots):
     """Inputs at the main path's shapes: R = B request lanes per
     participant for descriptors, N = P·B served/committed lanes per home on
-    a (P, slots, W+3) int32 row buffer."""
+    a (P, slots, W+3) int32 row buffer.  Each kernel's first cases are the
+    argument forms the verbs pass (``colls._serve_scatter`` and
+    ``remote_write_batch``): int32 targets and indices, bool masks, the
+    read verb's ``wire`` left to default to ``en``, and one index vector
+    broadcast to every home with ``expand`` (row stride 0); the first case
+    is the one phase 6 times.  Then int32 masks and contiguous indices."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     dev = "cuda"
     N = P * B
@@ -321,21 +331,57 @@ def kernel_cases(torch, rdma, slots):
         return torch.randint(lo, hi, shape, generator=g, device=dev,
                              dtype=torch.int32)
 
+    def bools(shape):
+        return ints(0, 2, shape) != 0
+
+    def verb_masks(targets, en):
+        """The read verb's home mask: lane l of the P·B flattened lanes is
+        served by home h iff it targets h and rides the wire."""
+        homes = torch.arange(P, dtype=torch.int32, device=dev)[:, None]
+        return (targets.reshape(-1)[None, :] == homes) & en.reshape(-1)[None, :]
+
     buf = ints(-2 ** 31, 2 ** 31 - 1, (P, slots, width))
+    tg, ix = ints(0, P, (P, B)), ints(0, slots, (P, B))
+    preds, remote = bools((P, B)), bools((P, B))
     cases = {
         "build_descriptors": [
-            ("random", (ints(0, P, (P, B)), ints(0, slots, (P, B)),
-                        ints(0, 2, (P, B))), dict(wire=ints(0, 2, (P, B)),
-                                                  op=rdma.OP_WRITE,
-                                                  row_nbytes=4 * width))],
+            ("write verb: bool en and wire",
+             (tg, ix, preds), dict(wire=preds & remote, op=rdma.OP_WRITE,
+                                   row_nbytes=4 * width)),
+            ("read verb: bool en, wire defaults to en",
+             (tg, ix, remote), dict(op=rdma.OP_READ, row_nbytes=4 * width)),
+            ("int32 masks", (ints(0, P, (P, B)), ints(0, slots, (P, B)),
+                             ints(0, 2, (P, B))),
+             dict(wire=ints(0, 2, (P, B)), op=rdma.OP_WRITE,
+                  row_nbytes=4 * width)),
+            ("bool en, int32 wire", (tg, ix, preds),
+             dict(wire=ints(0, 2, (P, B)), op=rdma.OP_WRITE,
+                  row_nbytes=4 * width)),
+            ("no wire lane", (tg, ix, torch.zeros((P, B), dtype=torch.bool,
+                                                  device=dev)),
+             dict(op=rdma.OP_READ, row_nbytes=4 * width))],
         "gather_rows": [
-            ("random", (buf, ints(0, slots, (P, N)), ints(0, 2, (P, N))), {}),
-            ("all masked", (buf, ints(0, slots, (P, N)),
-                            torch.zeros((P, N), dtype=torch.int32,
-                                        device=dev)), {})],
+            ("read verb: broadcast index, bool mask",
+             (buf, ints(0, slots, (N,))[None, :].expand(P, -1),
+              verb_masks(tg, remote)), {}),
+            ("read verb: all masked",
+             (buf, ints(0, slots, (N,))[None, :].expand(P, -1),
+              torch.zeros((P, N), dtype=torch.bool, device=dev)), {}),
+            ("int32 mask, contiguous index",
+             (buf, ints(0, slots, (P, N)), ints(0, 2, (P, N))), {}),
+            ("all masked, int32",
+             (buf, ints(0, slots, (P, N)),
+              torch.zeros((P, N), dtype=torch.int32, device=dev)), {})],
         "scatter_rows": [],
     }
     vals = ints(-2 ** 31, 2 ** 31 - 1, (P, N, width))
+    # the write verb's forms: one index vector broadcast to every home,
+    # bool apply and wire masks
+    win = verb_masks(tg, preds)
+    cases["scatter_rows"].append(
+        ("write verb: broadcast index, bool masks",
+         (buf, ints(0, slots, (N,))[None, :].expand(P, -1), vals, win,
+          win & bools((P, N))), {}))
     for name, idx in [("random", ints(0, slots, (P, N))),
                       ("all lanes one row", torch.full((P, N), 7,
                                                        dtype=torch.int32,
@@ -345,6 +391,13 @@ def kernel_cases(torch, rdma, slots):
         cases["scatter_rows"].append(
             (name, (buf, idx, vals, apply, apply * ints(0, 2, (P, N))), {}))
     return cases
+
+
+#: Phase-2 cases on the verbs' argument forms whose calls must each be one
+#: device operation: the kernel's launch and nothing else (no cast, copy or
+#: fill), by ``torch.profiler``.
+ONE_OP = {"build_descriptors": ("build_desc_kernel", 2),
+          "gather_rows": ("gather_rows_kernel", 2)}
 
 
 PLAIN = {"build_descriptors": "_build_desc_ref", "gather_rows": "_gather_ref",
@@ -390,6 +443,15 @@ def phase_kernels(torch, rdma, slots):
                             f"version: max abs err {e}")
             errs[name] = max(errs[name], e)
             log(f"  {name} [{label}]: bitwise equal to the plain version")
+    for name, (kernel, n_cases) in ONE_OP.items():
+        kern = getattr(rdma, name)
+        for label, args, kw in cases[name][:n_cases]:
+            ops = device_ops(torch, lambda: kern(*args, **kw), 50)
+            check(list(ops.values()) == [50] and kernel in next(iter(ops)),
+                  f"{name} ({label}): 50 calls ran {ops} on the card, not "
+                  f"one kernel each")
+            log(f"  {name} [{label}]: one device operation per call "
+                f"(torch.profiler, 50 calls)")
     return cases, errs
 
 
@@ -1749,44 +1811,87 @@ def _leaves(tree):
 # phase 6: per-kernel numbers
 # ---------------------------------------------------------------------------
 
+def footprint(t):
+    """Bytes of ``t``'s distinct elements: a dimension of stride 0 (a
+    broadcast with ``expand``) is read once, not once per index."""
+    n = t.element_size()
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n
+
+
 def kernel_bytes(name, args, kw):
     """Least bytes the function must move on these inputs: each input read
     once and each output written once, counting only the rows this data
-    needs (served rows of a gather, committed rows of a scatter)."""
+    needs (served rows of a gather, committed rows of a scatter), a mask at
+    its own width (a bool is one byte) and a broadcast index once."""
     if name == "build_descriptors":
-        n = args[0].numel()
-        return 4 * n * 4 + n * 32 + P * 4
+        tg, ix, en = args
+        wire = kw.get("wire", en)
+        masks = footprint(en) + (footprint(wire) if wire is not en else 0)
+        return footprint(tg) + footprint(ix) + masks + tg.numel() * 32 + P * 4
     if name == "gather_rows":
         buf, idx, mask = args
         row = buf.shape[2] * buf.element_size()
-        lanes = idx.numel()
         served = int((mask != 0).sum())
-        return lanes * 8 + served * row + lanes * row + P * 4
+        return footprint(idx) + footprint(mask) + served * row \
+            + idx.numel() * row + P * 4
     buf, idx, vals, apply, wire = args
     row = buf.shape[2] * buf.element_size()
-    lanes = idx.numel()
     # the function returns a new buffer: read the old one, write the new
-    return 2 * buf.numel() * buf.element_size() + lanes * 12 \
+    return 2 * buf.numel() * buf.element_size() + footprint(idx) \
+        + footprint(apply) + footprint(wire) \
         + int((apply != 0).sum()) * row + P * 4
 
 
 def phase_report(torch, rdma, cases, errs, launches):
+    """Rows of the three map kernels, each timed on its first phase-2 case
+    (the arguments the verbs pass; ``build_descriptors`` the write verb's,
+    with the read verb's in its ``read_verb`` entry): the wrapper's time,
+    the device time and the device operations per call (``torch.profiler``),
+    the plain version's time and the bound at the memory rate.  No one
+    PyTorch call computes any of the three functions, so there is no
+    library yardstick."""
     rows = []
     replaces = {"build_descriptors": 94, "gather_rows": 149,
                 "scatter_rows": 209}
-    for name, runs in cases.items():
-        _label, args, kw = runs[0]
+
+    def measure(name, args, kw):
         kern = getattr(rdma, name)
-        ms = cuda_ms(lambda: kern(*args, **kw), 50)
-        plain_ms = cuda_ms(lambda: plain_call(torch, rdma, name, args, kw), 10)
+        ops = device_ops(torch, lambda: kern(*args, **kw), 50)
         nbytes = kernel_bytes(name, args, kw)
-        rows.append(dict(
-            name=name, route="cuda",
-            source="src/repro_torch/kernels/csrc/remote_dma.cu",
-            replaces=f"src/repro/kernels/remote_dma.py:{replaces[name]}",
-            launches=launches[name], max_abs_err=errs[name], ms=ms,
-            plain_ms=plain_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-            bound_by="bytes", library_ms=None))
+        return dict(
+            launches=launches[name], max_abs_err=errs[name],
+            ms=cuda_ms(lambda: kern(*args, **kw), 200),
+            device_ms=device_ms(lambda: kern(*args, **kw), 200),
+            # per operation, its count over the calls, rounded: a profiler run
+            # may drop some device records (as device_ms allows for)
+            device_ops_per_call=sum(max(1, round(n / 50))
+                                    for n in ops.values()),
+            plain_ms=cuda_ms(lambda: plain_call(torch, rdma, name, args, kw),
+                             10),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None)
+
+    for name, runs in cases.items():
+        label, args, kw = runs[0]
+        row = dict(name=name, route="cuda",
+                   source="src/repro_torch/kernels/csrc/remote_dma.cu",
+                   replaces=f"src/repro/kernels/remote_dma.py:"
+                            f"{replaces[name]}")
+        row.update(measure(name, args, kw))
+        row["args"] = label
+        if name == "build_descriptors":
+            row["read_verb"] = measure(name, *runs[1][1:])
+            row["read_verb"]["args"] = runs[1][0]
+        rows.append(row)
+        for r in (row, row.get("read_verb")):
+            if r is not None:
+                log(f"  {name} [{r['args']}]: {r['ms']:.4f} ms/call (device "
+                    f"{r['device_ms']:.5f}, {r['device_ops_per_call']} "
+                    f"device ops a call), bound {r['bound_ms']:.6f} ms "
+                    f"(bytes), plain {r['plain_ms']:.4f} ms, launches "
+                    f"{r['launches']}")
     return rows
 
 
@@ -1933,6 +2038,7 @@ def recurrent_report(torch, kernels, errs, launches):
         torch.bfloat16)
     rg = kernels["rglru_scan"]
     m_rg = dict(ms=cuda_ms(lambda: rg(x, la), 50),
+                device_ms=device_ms(lambda: rg(x, la), 20),
                 plain_ms=cuda_ms(lambda: ref.rglru(x, la), 2),
                 library_ms=None, flops=8 * x.numel(),
                 nbytes=3 * 2 * x.numel() + 4 * B * D)
@@ -1945,6 +2051,7 @@ def recurrent_report(torch, kernels, errs, launches):
     u = (0.1 * rn(H, D)).to(torch.bfloat16)
     wk = kernels["wkv6"]
     m_wk = dict(ms=cuda_ms(lambda: wk(r, k, v, w, u), 50),
+                device_ms=device_ms(lambda: wk(r, k, v, w, u), 20),
                 plain_ms=cuda_ms(lambda: ref.wkv6(r, k, v, w, u), 2),
                 library_ms=None, flops=B * H * S * (5 * D * D + 5 * D),
                 nbytes=5 * 2 * r.numel() + 2 * u.numel() + 4 * B * H * D * D)
@@ -1958,7 +2065,8 @@ def recurrent_report(torch, kernels, errs, launches):
         row.update(timing_row(m, launches[arch][name], errs[name],
                               F32_FLOPS))
         rows.append(row)
-        log(f"  {name}: {m['ms']:.4f} ms/call, bound {row['bound_ms']:.4f} "
+        log(f"  {name}: {m['ms']:.4f} ms/call (device "
+            f"{m['device_ms']:.4f}), bound {row['bound_ms']:.4f} "
             f"ms ({row['bound_by']}; {m['flops'] / 1e9:.2f} GFLOP, "
             f"{m['nbytes'] / 1e6:.2f} MB), plain {m['plain_ms']:.4f} ms, "
             f"library none, launches {row['launches']}")

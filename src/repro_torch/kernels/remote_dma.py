@@ -44,9 +44,10 @@ OP_WRITE = 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
-    "rdma_build_descriptors": [_P] * 6 + [_I] * 4 + [_P],
-    "rdma_gather_rows": [_P] * 5 + [_I] * 5 + [_P],
+    "rdma_build_descriptors": [_P] * 5 + [_I] * 4 + [_P],
+    "rdma_gather_rows": [_P, _P, _L, _P, _P, _I, _L] + [_I] * 3 + [_P],
     "rdma_scatter_rows": [_P] * 7 + [_I] * 5 + [_P],
 }
 _LIB = _nvcc.Library("remote_dma", _SIGNATURES, "rdma_error_string")
@@ -74,6 +75,15 @@ def _i32(x):
     return x.to(torch.int32).contiguous()
 
 
+def _mask(x):
+    """A lane mask as the kernels read it: contiguous bool, one byte a lane
+    (a lane is on iff != 0).  The verbs pass bool masks, taken as they are;
+    any other dtype is converted."""
+    if x.dtype != torch.bool:
+        x = x != 0
+    return x.contiguous()
+
+
 # ---------------------------------------------------------------------------
 # descriptor build (requester side)
 # ---------------------------------------------------------------------------
@@ -96,26 +106,36 @@ def build_descriptors(targets, indices, en, *, wire=None, op=OP_READ,
                       row_nbytes=0):
     """(P, R) request lanes → ((P, R, :data:`DESC_WORDS`) int32 descriptors,
     (P,) int32 measured descriptor bytes: :data:`DESC_BYTES` per ``wire``
-    lane; ``wire`` defaults to ``en``).
+    lane; ``wire`` defaults to ``en``).  ``en`` and ``wire`` are masks (a
+    lane is on iff != 0), bool ones taken as they are.  On the card, with
+    int32 targets and indices and bool masks as the verbs pass them, the
+    descriptors and the counter are views of one allocation, written by one
+    kernel launch and no other device operation.
 
     Replaces the Pallas kernel ``build_descriptors`` of
     ``repro/kernels/remote_dma.py``.  Bound by device-memory bytes
-    (~48 B per lane), so in practice by launch latency."""
-    targets, indices, en = _i32(targets), _i32(indices), _i32(en)
-    wire = en if wire is None else _i32(wire)
-    if not _on_card(targets, indices, en, wire):
+    (~48 B per lane), so in practice by the host's launch work."""
+    targets, indices, en = _i32(targets), _i32(indices), _mask(en)
+    wire = en if wire is None else _mask(wire)
+    args = (targets, indices, en, wire)
+    if targets.dim() != 2 or any(t.shape != targets.shape for t in args):
+        raise ValueError(f"targets, indices, en and wire must be (P, R), "
+                         f"got {[tuple(t.shape) for t in args]}")
+    if not _on_card(*args):
         return _build_desc_ref(targets, indices, en, wire, int(op),
                                int(row_nbytes))
     P, R = targets.shape
-    desc = torch.empty((P, R, DESC_WORDS), dtype=torch.int32,
-                       device=targets.device)
-    nb = torch.zeros((P,), dtype=torch.int32, device=targets.device)
+    n = P * R * DESC_WORDS
+    # descriptors first, so that they keep the allocation's 16-byte alignment
+    buf = torch.empty(n + P, dtype=torch.int32, device=targets.device)
     _LIB.call("rdma_build_descriptors",
               targets.data_ptr(), indices.data_ptr(), en.data_ptr(),
-              wire.data_ptr(), desc.data_ptr(), nb.data_ptr(), P, R, int(op),
+              wire.data_ptr(), buf.data_ptr(), P, R, int(op),
               int(row_nbytes), _nvcc.stream(targets))
     build_descriptors.launches += 1
-    return desc, nb
+    return (buf.as_strided((P, R, DESC_WORDS),
+                           (R * DESC_WORDS, DESC_WORDS, 1)),
+            buf.as_strided((P,), (1,), n))
 
 
 build_descriptors.launches = 0
@@ -133,30 +153,56 @@ def _gather_ref(buf, indices, mask, row_nbytes):
     return rows, m.sum(1, dtype=torch.int32) * row_nbytes
 
 
+def _row_index(indices, N):
+    """(P, N) row indices as the gather kernel reads them: int32 with unit
+    column stride and a row stride of 0 (one (N,) vector for every home,
+    as ``expand`` gives it) or N (contiguous), taken as they are; any
+    other dtype or layout is converted.  Returns (indices, row stride)."""
+    if indices.dtype != torch.int32:
+        indices = indices.to(torch.int32)
+    st = indices.stride()
+    if (st[1] == 1 or N <= 1) and st[0] in (0, N):
+        return indices, st[0]
+    return indices.contiguous(), N
+
+
 def gather_rows(buf, indices, mask):
     """Serve N described rows at every home: lane i of home p receives
     ``buf[p, indices[p, i]]`` iff ``mask[p, i]`` (zeros otherwise), plus the
     (P,) int32 measured payload bytes — one row width per served lane.
-    ``buf``: (P, slots, width); ``indices`` (P, N), pre-clipped to range.
+    ``buf``: (P, slots, width); ``indices`` (P, N), pre-clipped to range,
+    int32 taken as it is when contiguous or a stride-0 broadcast of one
+    (N,) vector (``idx[None, :].expand(P, -1)``, as the read verb passes
+    it); ``mask`` (P, N), bool taken as it is.  On the card, on those
+    forms, the rows and the counter are views of one allocation, written by
+    one kernel launch and no other device operation.
 
     Replaces the Pallas kernel ``gather_rows`` of
     ``repro/kernels/remote_dma.py``.  Bound by device-memory bytes (the
-    (P, N, width) output dominates), so in practice by launch latency."""
-    indices, mask = _i32(indices), _i32(mask)
-    row_nbytes = int(buf.shape[2]) * buf.element_size()
+    (P, N, width) output dominates), so in practice by the host's launch
+    work."""
+    P, slots, width = buf.shape
+    if indices.dim() != 2 or indices.shape[0] != P \
+            or mask.shape != indices.shape:
+        raise ValueError(f"indices and mask must be ({P}, N), got "
+                         f"{tuple(indices.shape)} and {tuple(mask.shape)}")
+    N = indices.shape[1]
+    row_nbytes = width * buf.element_size()
+    indices, idx_stride = _row_index(indices, N)
+    mask = _mask(mask)
     if not _on_card(buf, indices, mask):
         return _gather_ref(buf, indices, mask, row_nbytes)
-    P, slots, width = buf.shape
-    N = indices.shape[1]
     words = _words(buf)
-    out = torch.empty((P, N, width), dtype=torch.int32, device=buf.device)
-    nb = torch.zeros((P,), dtype=torch.int32, device=buf.device)
+    n = P * N * width
+    out = torch.empty(n + P, dtype=torch.int32, device=buf.device)
     _LIB.call("rdma_gather_rows",
-              words.data_ptr(), indices.data_ptr(), mask.data_ptr(),
-              out.data_ptr(), nb.data_ptr(), P, slots, N, width, row_nbytes,
-              _nvcc.stream(buf))
+              words.data_ptr(), indices.data_ptr(), idx_stride,
+              mask.data_ptr(), out.data_ptr(), P, slots, N, width,
+              row_nbytes, _nvcc.stream(buf))
     gather_rows.launches += 1
-    return out.view(buf.dtype), nb
+    rows = out.as_strided((P, N, width), (N * width, width, 1))
+    return (rows if buf.dtype == torch.int32 else rows.view(buf.dtype),
+            out.as_strided((P,), (1,), n))
 
 
 gather_rows.launches = 0

@@ -62,6 +62,106 @@ def test_gather_rows_matches_reference(dtype):
     assert (rows[1] == 0).all() and int(nb[1]) == 0
 
 
+MASK_DTYPES = {"int32": np.int32, "bool": np.bool_}
+
+
+@pytest.mark.parametrize("wire_dtype", ["int32", "bool", None])
+@pytest.mark.parametrize("en_dtype", ["int32", "bool"])
+def test_build_descriptors_mask_forms_match_reference(en_dtype, wire_dtype):
+    """The masks as the verbs pass them: bool (the read verb's ``leader``,
+    the write verb's ``preds`` and ``remote_lane``) or int32, and ``wire``
+    left to default to ``en``; bitwise the reference kernel's output."""
+    rng = np.random.default_rng(7)
+    P, R = 3, 13
+    tg = rng.integers(0, 4, (P, R)).astype(np.int32)
+    ix = rng.integers(0, 8, (P, R)).astype(np.int32)
+    en = rng.integers(0, 2, (P, R)).astype(MASK_DTYPES[en_dtype])
+    en[2] = 0                                  # a participant with no lane
+    kw = {}
+    if wire_dtype is not None:
+        wire = rng.integers(0, 2, (P, R)).astype(MASK_DTYPES[wire_dtype])
+        kw["wire"] = _t(wire)
+    d, nb = rdma.build_descriptors(_t(tg), _t(ix), _t(en), op=rdma.OP_READ,
+                                   row_nbytes=20, **kw)
+    assert d.dtype == nb.dtype == torch.int32
+    assert d.shape == (P, R, rdma.DESC_WORDS) and nb.shape == (P,)
+    for p in range(P):
+        jkw = {} if wire_dtype is None else {"wire": jnp.asarray(wire[p])}
+        dj, nbj = jrdma.build_descriptors(
+            jnp.asarray(tg[p]), jnp.asarray(ix[p]), jnp.asarray(en[p]),
+            op=jrdma.OP_READ, row_nbytes=20, **jkw)
+        np.testing.assert_array_equal(d[p].numpy(), np.asarray(dj))
+        on = en[p] if wire_dtype is None else wire[p]
+        assert int(nb[p]) == int(nbj) == int((on != 0).sum()) * 32
+    if wire_dtype is None:
+        assert int(nb[2]) == 0
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "broadcast"])
+@pytest.mark.parametrize("mask_dtype", ["int32", "bool"])
+def test_gather_rows_argument_forms_match_reference(mask_dtype, layout):
+    """The index and mask as the read verb passes them: one (N,) index
+    vector broadcast to every home with ``expand`` (row stride 0) or a
+    contiguous (P, N) index, and a bool or int32 mask with an all-masked
+    home; bitwise the reference kernel's output for every home."""
+    rng = np.random.default_rng(3)
+    P, S, N = 3, 8, 12
+    buf = rng.integers(-99, 99, (P, S, 5)).astype(np.int32)
+    if layout == "broadcast":
+        vec = rng.integers(0, S, (N,)).astype(np.int32)
+        ix_t = _t(vec)[None, :].expand(P, -1)
+        ix = np.broadcast_to(vec, (P, N))
+        assert ix_t.stride() == (0, 1)
+    else:
+        ix = rng.integers(0, S, (P, N)).astype(np.int32)
+        ix_t = _t(ix)
+    mask = rng.integers(0, 2, (P, N)).astype(MASK_DTYPES[mask_dtype])
+    mask[1] = 0                                        # an all-masked home
+    rows, nb = rdma.gather_rows(_t(buf), ix_t, _t(mask))
+    assert rows.shape == (P, N, 5) and nb.dtype == torch.int32
+    for p in range(P):
+        rj, nbj = jrdma.gather_rows(jnp.asarray(buf[p]), jnp.asarray(ix[p]),
+                                    jnp.asarray(mask[p]))
+        np.testing.assert_array_equal(rows[p].numpy(), np.asarray(rj))
+        assert int(nb[p]) == int(nbj) == int((mask[p] != 0).sum()) * 5 * 4
+    assert (rows[1] == 0).all() and int(nb[1]) == 0
+
+
+@pytest.mark.parametrize("kernel", ["build_descriptors", "gather_rows"])
+def test_wrappers_neither_mutate_nor_keep_their_inputs(kernel):
+    """The wrappers take bool masks and broadcast indices as they are: the
+    inputs come back unchanged, the outputs share no memory with them, and
+    nothing keeps a reference to them after the call."""
+    import weakref
+    rng = np.random.default_rng(11)
+    P, S, N = 2, 6, 7
+    if kernel == "build_descriptors":
+        args = [_t(rng.integers(0, 4, (P, N)).astype(np.int32)),
+                _t(rng.integers(0, 8, (P, N)).astype(np.int32)),
+                _t(rng.integers(0, 2, (P, N)).astype(bool))]
+        kw = {"wire": _t(rng.integers(0, 2, (P, N)).astype(bool)),
+              "op": rdma.OP_WRITE, "row_nbytes": 12}
+        fn = rdma.build_descriptors
+    else:
+        args = [_t(rng.integers(-9, 9, (P, S, 3)).astype(np.int32)),
+                _t(rng.integers(0, S, (N,)).astype(np.int32))[None].expand(
+                    P, -1),
+                _t(rng.integers(0, 2, (P, N)).astype(bool))]
+        kw = {}
+        fn = rdma.gather_rows
+    inputs = args + [kw[k] for k in ("wire",) if k in kw]
+    before = [(x.clone(), x.stride()) for x in inputs]
+    outs = fn(*args, **kw)
+    for x, (b, stride) in zip(inputs, before):
+        assert torch.equal(x, b) and x.dtype == b.dtype
+        assert x.stride() == stride
+    in_storage = {x.untyped_storage().data_ptr() for x in inputs}
+    assert not in_storage & {o.untyped_storage().data_ptr() for o in outs}
+    refs = [weakref.ref(x) for x in inputs]
+    del args, kw, inputs, x, outs
+    assert all(r() is None for r in refs)
+
+
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
 def test_scatter_rows_matches_reference_with_collisions(dtype):
     """Duplicate target rows: last writer in lane order wins, bitwise."""
