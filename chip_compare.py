@@ -6,11 +6,11 @@ Run from the repository root on a machine with a CUDA card, the CUDA
 toolkit and, beside this checkout, an unpacked copy of the commit to
 compare with (``git archive <commit> | tar -x -C <dir>``):
 
-    python3 chip_compare.py [--groups moe,copy,dma] <parent dir> <change dir>
+    python3 chip_compare.py [--groups moe,copy,dma,rwkv] <parent dir> <change dir>
 
 Each turn is one process that imports ``chip_smoke`` and ``repro_torch``
 from its tree and builds that tree's kernels, then, with that tree's code,
-runs the groups asked for (all three by default):
+runs the groups asked for (all four by default):
 
 * ``moe``: serves llama4-maverick-400b-a17b at full width and 4 layers
   (512-token prompts) as ``chip_smoke.py``'s phase 5 does, with its checks
@@ -25,8 +25,15 @@ runs the groups asked for (all three by default):
   path's shapes (P = 8, 512 lanes a participant, 2**22 / 8 + 4 slots of
   5 int32 words, a ledger enabled): ``build_descriptors`` and
   ``gather_rows`` on the arguments the verbs pass them (bool masks, the
-  read verb's index as a stride-0 broadcast of one vector), and
-  ``PallasDmaBackend().read_batch`` and ``.write_batch`` whole.
+  read verb's index as a stride-0 broadcast of one vector),
+  ``scatter_rows`` on the write verb's (that broadcast index, bool apply
+  and wire masks, the home buffer whole), and
+  ``PallasDmaBackend().read_batch`` and ``.write_batch`` whole;
+* ``rwkv``: times ``wkv6`` in bf16 at rwkv6-7b's prefill shape (4 prompts
+  of 512 tokens, 64 heads of 64, inputs as (B, H, S, D) views of
+  (B, S, H, D) projections) and serves rwkv6-7b at full width and depth
+  (512-token prompts) as ``chip_smoke.py``'s phase 5 does, with its
+  checks and launch counts.
 
 Times are the wrapper's (CUDA events around a loop of calls), the device
 time per call and the device operations (kernels, copies, fills) per call
@@ -51,8 +58,11 @@ TIMED = ("ms", "device_ms", "device_ops")
 # the CUDA sources each group's turn builds
 SOURCES = {"moe": ("flash_attention", "decode_attention", "rglru_scan",
                    "wkv6", "moe_gmm", "remote_copy", "remote_dma"),
-           "copy": ("remote_copy",), "dma": ("remote_dma",)}
+           "copy": ("remote_copy",), "dma": ("remote_dma",),
+           "rwkv": ("wkv6",)}
 GROUPS = tuple(SOURCES)
+# the architectures a group serves, each timed by SERVE_KEYS
+SERVED = ("llama4-maverick-400b-a17b", "rwkv6-7b")
 
 
 def turn(root: str, tag: str, groups) -> dict:
@@ -116,12 +126,32 @@ def turn(root: str, tag: str, groups) -> dict:
 
     if "dma" in groups:
         dma_verbs(torch, cs, rdma, timed)
+
+    if "rwkv" in groups:
+        g = torch.Generator(device="cuda").manual_seed(cs.SEED + 14)
+        B, H, S, D = cs.SERVE_BATCH, 64, cs.SERVE_PROMPT, 64
+        r, k, v = (torch.randn((B, S, H, D), generator=g, device="cuda")
+                   .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+        w = torch.exp(-torch.exp(-4.0 + 0.5 * torch.randn(
+            (B, S, H, D), generator=g, device="cuda"))).to(
+                torch.bfloat16).transpose(1, 2)
+        u = (0.1 * torch.randn((H, D), generator=g, device="cuda")).to(
+            torch.bfloat16)
+        timed("wkv6 bf16, B=4 H=64 S=512 D=64",
+              lambda: wkv6(r, k, v, w, u), 50)
+        del r, k, v, w, u
+        path = next(p for p in cs.SERVE_PATHS if p["arch"] == "rwkv6-7b")
+        m, launches = cs.phase_serving(torch, kernels, path, rdma)
+        res["rwkv6-7b"] = {k: m[k] for k in SERVE_KEYS}
+        res["rwkv6-7b"]["wkv6 launches"] = launches["wkv6"]
+        gc.collect()
+        torch.cuda.empty_cache()
     return res
 
 
 def dma_verbs(torch, cs, rdma, timed):
     """The read verb's and the write verb's wire path at the KVStore path's
-    shapes: the two kernels on the arguments the verbs pass them, and the
+    shapes: the three kernels on the arguments the verbs pass them, and the
     verbs whole on the remote-DMA backend with a ledger enabled.  Inputs
     are made here from a seed, alike in both trees."""
     from repro_torch.core.backends import PallasDmaBackend
@@ -154,6 +184,17 @@ def dma_verbs(torch, cs, rdma, timed):
     timed("gather_rows, read verb (broadcast index, bool mask)",
           lambda: rdma.gather_rows(buf, idx[None, :].expand(P, -1), mask),
           200)
+    # the write verb's home side: the same broadcast index, every lane's
+    # payload, bool masks of the lanes a home applies and of those that
+    # came over the wire
+    win = (targets.reshape(-1)[None, :] == me) & preds.reshape(-1)[None, :]
+    origin = torch.arange(P * R, device="cuda")[None, :] // R
+    wire = win & (origin != me)
+    payload = ints(-2 ** 31, 2 ** 31 - 1, (P, P * R, width))
+    timed("scatter_rows, write verb (broadcast index, bool masks)",
+          lambda: rdma.scatter_rows(buf, idx[None, :].expand(P, -1), payload,
+                                    win, wire), 200)
+    del payload
     values = ints(-2 ** 31, 2 ** 31 - 1, (P, R, width))
     ledger = TrafficLedger().enable()
     backend = PallasDmaBackend()
@@ -224,10 +265,10 @@ def main(argv) -> int:
             return 1
         turns.append(json.loads(lines[-1][5:]))
         print(lines[-1], flush=True)
-    arch = "llama4-maverick-400b-a17b"
-    rows = [(f"{arch} {k}", arch, k) for k in SERVE_KEYS if arch in turns[0]]
+    rows = [(f"{arch} {k}", arch, k) for arch in SERVED if arch in turns[0]
+            for k in SERVE_KEYS]
     rows += [(f"{group} {k}", group, k) for group in turns[0]
-             if isinstance(turns[0][group], dict) and group != arch
+             if isinstance(turns[0][group], dict) and group not in SERVED
              for k in TIMED]
     print(f"{'':64s}" + "".join(f"{t['tag']:>12s}" for t in turns))
     for name, group, key in rows:

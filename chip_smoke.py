@@ -19,8 +19,10 @@ exits non-zero and prints no result:
    bytes bitwise equal, scatter collisions included), on the argument forms
    the verbs pass them (bool masks, the read verb's index one vector
    broadcast to every home with ``expand``) and on int32 masks and
-   contiguous indices, the descriptor build and the row gather on the
-   verbs' forms one device operation per call (``torch.profiler``), the
+   contiguous indices, all three on the verbs' forms one device operation
+   per call (``torch.profiler``), the row commit also with 1-word rows,
+   homes of a word count not a multiple of four and a base off 16 bytes,
+   the
    remote-copy kernel at the ring hop's shapes (P=4 with 648 words, P=8
    with 20,488) and the bare ring entries (640 and 20,480 words) and at odd
    ones (a width not a multiple of four, a misaligned view, zero words, no
@@ -38,9 +40,11 @@ exits non-zero and prints no result:
    live chunk — (float32 within 2e-5, bfloat16 within 2e-2 of the float32
    plain result on the same inputs), then every decode arrival counter is
    checked to be 0,
-   the RG-LRU and WKV6 kernels at their serving shapes and at odd ones, in
-   float32 and bfloat16, outputs and final states (tolerances at
-   ``REC_TOL``), and the grouped matmul at llama4-maverick's expert shapes
+   the RG-LRU and WKV6 kernels at their serving shapes and at odd ones
+   (WKV6 also with strong decays, w exactly 0 and 2048 steps), in float32
+   and bfloat16, outputs and final states (tolerances at ``REC_TOL``; each
+   WKV6 case on the kernel it should take: bf16 on the chunked tensor-core
+   one, float32 on the sequential one), and the grouped matmul at llama4-maverick's expert shapes
    (prefill: 3072 slot rows in blocks of 24; decode: 1024 rows in blocks of
    8; 128 experts of 5120 x 8192 and 8192 x 5120), every row counted and
    with per-block row counts (a decode step's 4 live blocks of 128, partial
@@ -80,13 +84,16 @@ exits non-zero and prints no result:
    prompts) cut to 4 of its 48 layers, two [dense, MoE] periods, so that
    its bf16 weights (65.3 GiB) fit the card; one after the other, each
    engine freed before the next; page-table, locality, logit and
-   launch-count checks, and on the replicated path the replication checks;
+   launch-count checks (rwkv6-7b's WKV6 launches all on the chunked
+   kernel), and on the replicated path the replication checks;
 6. report the end-to-end numbers of every path, each kernel's launches on
    its path, its time beside its plain version's, one PyTorch call's and
    its bound (every row also with the kernel's device time per call from
    ``torch.profiler``, which tells host-bound rows from kernel-bound ones,
-   the remote-DMA rows, timed on the verbs' argument forms, with their
-   device operations per call, and the attention rows with SDPA's), the
+   the remote-DMA and recurrent rows with their device operations per
+   call, the remote-DMA rows timed on the verbs' argument forms, WKV6's
+   with the sequential form's bound beside the chunked one's, and the
+   attention rows with SDPA's), the
    card's name and power limit, and last the result line.
 
 Kernel launch counts are set to 0 just before each path and read just after
@@ -321,7 +328,8 @@ def kernel_cases(torch, rdma, slots):
     ``remote_write_batch``): int32 targets and indices, bool masks, the
     read verb's ``wire`` left to default to ``en``, and one index vector
     broadcast to every home with ``expand`` (row stride 0); the first case
-    is the one phase 6 times.  Then int32 masks and contiguous indices."""
+    is the one phase 6 times.  Then int32 masks and contiguous indices,
+    and the row commit's odd layouts on the write verb's forms."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     dev = "cuda"
     N = P * B
@@ -390,6 +398,21 @@ def kernel_cases(torch, rdma, slots):
         apply = ints(0, 2, (P, N))
         cases["scatter_rows"].append(
             (name, (buf, idx, vals, apply, apply * ints(0, 2, (P, N))), {}))
+    # odd layouts on the write verb's forms: rows one word wide (the log's
+    # rejoin); homes of 1023 x 5 words, not a multiple of 4, so that home
+    # starts fall off 16 bytes; a buffer whose base is off 16 bytes (the
+    # word-by-word route); duplicates in each
+    for name, n_slots, width, off in [("1-word rows", slots, 1, 0),
+                                      ("home words % 4 == 3", 1023, 5, 0),
+                                      ("base off 16 bytes", 4099, 5, 1)]:
+        flat = ints(-2 ** 31, 2 ** 31 - 1, (P * n_slots * width + off,))
+        b = flat[off:].view(P, n_slots, width)
+        apply = bools((P, N))
+        cases["scatter_rows"].append(
+            (f"write verb, {name}",
+             (b, ints(0, min(n_slots, 512), (N,))[None, :].expand(P, -1),
+              ints(-2 ** 31, 2 ** 31 - 1, (P, N, width)), apply,
+              apply & bools((P, N))), {}))
     return cases
 
 
@@ -397,7 +420,8 @@ def kernel_cases(torch, rdma, slots):
 #: device operation: the kernel's launch and nothing else (no cast, copy or
 #: fill), by ``torch.profiler``.
 ONE_OP = {"build_descriptors": ("build_desc_kernel", 2),
-          "gather_rows": ("gather_rows_kernel", 2)}
+          "gather_rows": ("gather_rows_kernel", 2),
+          "scatter_rows": ("scatter_rows_kernel", 1)}
 
 
 PLAIN = {"build_descriptors": "_build_desc_ref", "gather_rows": "_gather_ref",
@@ -695,9 +719,11 @@ def recurrent_cases(torch):
     2304 tokens and 2560 channels, rwkv6-7b's WKV over 4 prompts of 512
     tokens and 64 heads of 64, its inputs (B, H, S, D) views of (B, S, H, D)
     projections as the model passes them — then odd shapes (S not a
-    multiple of any chunk; D = 100 channels; head size 16).  Inputs follow
-    the models' ranges: log_a = -8·softplus(Λ)·r lies in (-0.106, 0); the
-    decay w = exp(-exp(w0 + δ)) with w0 = -4."""
+    multiple of any chunk; D = 100 channels; head sizes 16, 32 and 48), and
+    for WKV6 strong decays (w = exp(-exp(2 + δ))), w exactly 0 (a fifth of
+    it, and one whole step) and 2048 steps at full width.  Inputs otherwise
+    follow the models' ranges: log_a = -8·softplus(Λ)·r lies in (-0.106,
+    0); the decay w = exp(-exp(w0 + δ)) with w0 = -4."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
 
     def rn(*shape):
@@ -712,17 +738,33 @@ def recurrent_cases(torch):
     def decay(*shape):
         return torch.exp(-torch.exp(-4.0 + 0.5 * rn(*shape)))
 
+    def strong(*shape):              # w ~ e^-7.4, from ~0.2 down to 0
+        return torch.exp(-torch.exp(2.0 + 0.5 * rn(*shape)))
+
+    def zeros(*shape):               # a fifth of w exactly 0, a step all 0
+        w = decay(*shape)
+        w = torch.where(torch.rand(shape, generator=g, device="cuda") < 0.2,
+                        torch.zeros_like(w), w)
+        w[:, 9] = 0.0
+        return w
+
     rglru, wkv = [], []
     for label, (B, S, D) in [("full width", (SERVE_BATCH, RG_PROMPT, 2560)),
                              ("S=37 D=100", (3, 37, 100))]:
         x, la = rn(B, S, D), log_a(B, S, D)
         for dt in (torch.bfloat16, torch.float32):
             rglru.append((f"{label} {str(dt)[6:]}", (x.to(dt), la.to(dt))))
-    for label, (B, H, S, D) in [("full width", (SERVE_BATCH, 64, 512, 64)),
-                                ("S=37", (2, 3, 37, 64)),
-                                ("S=45 D=16", (2, 4, 45, 16))]:
+    for label, (B, H, S, D), fn in [
+            ("full width", (SERVE_BATCH, 64, 512, 64), decay),
+            ("S=37", (2, 3, 37, 64), decay),
+            ("S=45 D=16", (2, 4, 45, 16), decay),
+            ("S=70 D=32", (2, 3, 70, 32), decay),
+            ("S=23 D=48", (2, 3, 23, 48), decay),
+            ("strong decays S=200", (2, 16, 200, 64), strong),
+            ("w = 0 S=200", (2, 16, 200, 64), zeros),
+            ("full width S=2048", (SERVE_BATCH, 64, 2048, 64), decay)]:
         r, k, v = (bhsd(B, H, S, D) for _ in range(3))
-        w = bhsd(B, H, S, D, decay)
+        w = bhsd(B, H, S, D, fn)
         u = 0.1 * rn(H, D)
         for dt in (torch.bfloat16, torch.float32):
             wkv.append((f"{label} {str(dt)[6:]}",
@@ -752,9 +794,17 @@ def phase_recurrent_kernels(torch, kernels):
         errs[name] = 0.0
         for label, args in runs:
             before = kern.launches
+            routes = dict(getattr(kern, "routes", {}))
             out, state = kern(*args)
             torch.cuda.synchronize()
             check(kern.launches == before + 1, f"{name} did not launch")
+            route = ""
+            if name == "wkv6":
+                want = "chunked" if args[0].dtype == torch.bfloat16 \
+                    else "simt"
+                check(kern.routes[want] == routes[want] + 1,
+                      f"{name} ({label}) did not take the {want} kernel")
+                route = f", {want} kernel"
             exp_out, exp_state = recurrent_plain(name, args)
             check(out.dtype == args[0].dtype and out.shape == args[0].shape
                   and state.dtype == torch.float32
@@ -773,7 +823,7 @@ def phase_recurrent_kernels(torch, kernels):
                              float((state - exp_state).abs().max()))
             log(f"  {name} [{label}]: relative err output {e_out:.3g} "
                 f"(tolerance {tol}), final state {e_state:.3g} (tolerance "
-                f"{tol_state})")
+                f"{tol_state}){route}")
     return cases, errs
 
 
@@ -1714,11 +1764,16 @@ def phase_serving(torch, kernels, path, rdma):
     dma = rdma.KERNELS + (rdma.remote_copy,) if replicas else ()
     for k in list(kernels.values()) + list(dma):
         k.launches = 0
+    routes = dict(getattr(kernels["wkv6"], "routes", {}))
     t0 = time.perf_counter()
     outs = eng.generate(prompts, gen_len=gen)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
+    if routes:
+        chunked = kernels["wkv6"].routes["chunked"] - routes["chunked"]
+        check(chunked == launches["wkv6"], f"{label}: {chunked} of "
+              f"{launches['wkv6']} wkv6 launches took the chunked kernel")
     dma_launches = {k.__name__: k.launches for k in dma}
     expected = expected_launches(cfg, requests, gen)
     stats = eng.stats()
@@ -1962,8 +2017,8 @@ def attention_timings(torch, kernels, B, Hq, Hkv, D, S, window, slots, L):
 def timing_row(m, launches, err, peak):
     """The JSON line's numbers for one kernel at one set of shapes; the
     bound is the larger of bytes at the memory rate and operations at
-    ``peak``."""
-    t_ops = m["flops"] / peak * 1e3
+    ``peak`` (or ``m["ops_ms"]``, for operations of more than one type)."""
+    t_ops = m.get("ops_ms", m["flops"] / peak * 1e3)
     t_bytes = m["nbytes"] / HBM_BYTES_PER_S * 1e3
     row = dict(launches=launches, max_abs_err=err, ms=m["ms"],
                plain_ms=m["plain_ms"], bound_ms=max(t_ops, t_bytes),
@@ -2015,17 +2070,35 @@ def attention_report(torch, kernels, errs, launches):
     return rows
 
 
+def wkv6_ops(B, H, S, D):
+    """(tensor-core, CUDA-core) operations of the chunked WKV6 form on these
+    shapes, per chunk of 16 steps and head: the read-out (r ⊙ P)ᵀ S0 and
+    the update (k ⊙ Q) vᵀ, 2·16·D² each, and A·V, 2·16²·D, on the tensor
+    cores; the scores A in float32, 3 operations (r·k, the product with
+    the decays, the next decay) per channel for each of the 120 pairs s < t
+    and 16 diagonal ones, and the decay products P and Q, 2 per step and
+    channel, on the CUDA cores."""
+    chunks = B * H * -(-S // 16)
+    return (chunks * (4 * 16 * D * D + 2 * 16 * 16 * D),
+            chunks * (3 * 136 * D + 2 * 16 * D))
+
+
 def recurrent_report(torch, kernels, errs, launches):
     """Rows of the RG-LRU and WKV6 kernels at their serving paths' shapes in
     bf16: recurrentgemma-2b's scan over 4 prompts of 2304 tokens and 2560
     channels, rwkv6-7b's WKV over 4 prompts of 512 tokens and 64 heads of
-    64 (inputs as (B, H, S, D) views of (B, S, H, D) projections).  Their
-    operations are elementwise and per-head products the kernels run on the
-    CUDA cores, so the bound takes the float32 peak; operations counted:
-    eight per RG-LRU element (two exponentials, a square root, the update),
-    5·D² + 5·D per WKV step and head (the read-out r·S, the update
-    w·S + k·vᵀ, the bonus).  No PyTorch call computes either recurrence, so
-    there is no library yardstick."""
+    64 (inputs as (B, H, S, D) views of (B, S, H, D) projections).  The
+    RG-LRU's operations are elementwise, on the CUDA cores, so its bound
+    takes the float32 peak (eight operations an element: two exponentials,
+    a square root, the update).  WKV6's bound is the least of the two forms
+    the card could run: its bytes against the chunked form's operations
+    (:func:`wkv6_ops`, tensor-core ones at the bf16 peak plus CUDA-core
+    ones at the float32 peak); ``bound_sequential_ms`` beside it is the
+    sequential form's 5·D² + 5·D operations per step and head (the
+    read-out r·S, the update w·S + k·vᵀ, the bonus) at the float32 peak,
+    the bound of the CUDA-core kernel.  Both rows also carry the device
+    operations a call (``torch.profiler``).  No PyTorch call computes
+    either recurrence, so there is no library yardstick."""
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda").manual_seed(SEED + 8)
 
@@ -2039,6 +2112,7 @@ def recurrent_report(torch, kernels, errs, launches):
     rg = kernels["rglru_scan"]
     m_rg = dict(ms=cuda_ms(lambda: rg(x, la), 50),
                 device_ms=device_ms(lambda: rg(x, la), 20),
+                ops=device_ops(torch, lambda: rg(x, la), 20),
                 plain_ms=cuda_ms(lambda: ref.rglru(x, la), 2),
                 library_ms=None, flops=8 * x.numel(),
                 nbytes=3 * 2 * x.numel() + 4 * B * D)
@@ -2050,11 +2124,15 @@ def recurrent_report(torch, kernels, errs, launches):
         torch.bfloat16).transpose(1, 2)
     u = (0.1 * rn(H, D)).to(torch.bfloat16)
     wk = kernels["wkv6"]
+    tc, cc = wkv6_ops(B, H, S, D)
     m_wk = dict(ms=cuda_ms(lambda: wk(r, k, v, w, u), 50),
                 device_ms=device_ms(lambda: wk(r, k, v, w, u), 20),
+                ops=device_ops(torch, lambda: wk(r, k, v, w, u), 20),
                 plain_ms=cuda_ms(lambda: ref.wkv6(r, k, v, w, u), 2),
-                library_ms=None, flops=B * H * S * (5 * D * D + 5 * D),
+                library_ms=None, flops=tc + cc,
+                ops_ms=(tc / BF16_FLOPS + cc / F32_FLOPS) * 1e3,
                 nbytes=5 * 2 * r.numel() + 2 * u.numel() + 4 * B * H * D * D)
+    seq_ms = B * H * S * (5 * D * D + 5 * D) / F32_FLOPS * 1e3
     rows = []
     for name, m, arch, line in [
             ("rglru_scan", m_rg, "recurrentgemma-2b", 46),
@@ -2064,12 +2142,22 @@ def recurrent_report(torch, kernels, errs, launches):
                    replaces=f"src/repro/kernels/{name}.py:{line}")
         row.update(timing_row(m, launches[arch][name], errs[name],
                               F32_FLOPS))
+        row["device_ops_per_call"] = sum(max(1, round(n / 20))
+                                         for n in m["ops"].values())
+        extra = ""
+        if name == "wkv6":
+            row["bound_sequential_ms"] = seq_ms
+            extra = (f"; sequential form {seq_ms:.4f} ms (operations); "
+                     f"chunked {tc / 1e9:.2f} GFLOP on tensor cores, "
+                     f"{cc / 1e9:.3f} on CUDA cores")
         rows.append(row)
         log(f"  {name}: {m['ms']:.4f} ms/call (device "
-            f"{m['device_ms']:.4f}), bound {row['bound_ms']:.4f} "
+            f"{m['device_ms']:.4f}, {row['device_ops_per_call']} device "
+            f"ops a call: {m['ops']}), bound {row['bound_ms']:.4f} "
             f"ms ({row['bound_by']}; {m['flops'] / 1e9:.2f} GFLOP, "
-            f"{m['nbytes'] / 1e6:.2f} MB), plain {m['plain_ms']:.4f} ms, "
-            f"library none, launches {row['launches']}")
+            f"{m['nbytes'] / 1e6:.2f} MB{extra}), plain "
+            f"{m['plain_ms']:.4f} ms, library none, launches "
+            f"{row['launches']}")
     return rows
 
 

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the model kernels, the counterparts of
 ``repro/kernels/ref.py``'s ``repeat_kv``, ``mha``, ``decode_attention``,
-``rglru``, ``wkv6`` and ``gmm``, and the split algorithm of the decode
-kernel (:func:`decode_attention_split`).
+``rglru``, ``wkv6`` and ``gmm``, the split algorithm of the decode kernel
+(:func:`decode_attention_split`) and the chunked algebra of the bf16 WKV6
+kernel (:func:`wkv6_chunked`).
 
 They follow the semantics of the reference's **Pallas kernels**
 (``repro/kernels/flash_attention.py``, ``decode_attention.py``), because that
@@ -164,6 +165,60 @@ def wkv6(r, k, v, w, u):
         s = wf[:, :, t, :, None] * s + k_t[..., None] * v_t[..., None, :]
         ys.append(y)
     y = torch.stack(ys, 2) if ys else torch.zeros_like(rf)
+    return y.to(r.dtype), s
+
+
+def wkv6_chunked(r, k, v, w, u, chunk=16):
+    """:func:`wkv6` as the bf16 CUDA kernel computes it, in float32: time
+    cut into chunks of ``chunk`` steps (the last one padded with r = k = v
+    = 0 and w = 1, which leaves the state as it is), and per chunk, from
+    its starting state S0, with the decays' products within the chunk
+    ``P_t = Π_{τ≤t} w_τ`` (reference: the chunk's start) and
+    ``Q_s = Π_{s<τ<L} w_τ`` (reference: its end)::
+
+        y_t   = (r_t ⊙ P_{t-1})ᵀ S0 + Σ_{s≤t} A[t, s] v_s
+        A[t, s] = Σ_i r_t,i k_s,i Π_{s<τ<t} w_τ,i   (s < t)
+        A[t, t] = Σ_i r_t,i u_i k_t,i
+        S_end = diag(P_{L-1}) S0 + Σ_s (k_s ⊙ Q_s) v_sᵀ
+
+    The scores are taken in two sub-chunks of L/2 steps: within each, as
+    running products of w over the steps from s to t; across them (t ≥ L/2
+    > s) as one product of two factors referenced to the middle of the
+    chunk, ``(r_t ⊙ Π_{L/2≤τ<t} w_τ) · (k_s ⊙ Π_{s<τ<L/2} w_τ)``.  Every
+    factor is a product of decays, at most 1 where w ≤ 1, and w = 0 gives
+    exact zeros: no logarithm, no quotient, nothing to overflow.  Same
+    arguments and results as :func:`wkv6`; ``chunk`` even."""
+    B, H, S, D = r.shape
+    L, M = chunk, chunk // 2
+    pad = -S % L
+    rf, kf, vf = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+                  for t in (r, k, v))
+    wf = torch.nn.functional.pad(w.float(), (0, 0, 0, pad), value=1.0)
+    uf = u.float()
+
+    def prefix(x):                    # Π_{τ<t} x_τ along dim 2
+        return torch.cat([torch.ones_like(x[:, :, :1]),
+                          torch.cumprod(x[:, :, :-1], 2)], 2)
+
+    def suffix(x):                    # Π_{τ>t} x_τ along dim 2
+        return torch.flip(prefix(torch.flip(x, [2])), [2])
+
+    s = torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
+    ys = []
+    for c0 in range(0, S + pad, L):
+        rc, kc, vc, wc = (t[:, :, c0:c0 + L] for t in (rf, kf, vf, wf))
+        a = torch.diag_embed((rc * uf[:, None] * kc).sum(-1))   # A[t, t]
+        for h0 in (0, M):             # within a sub-chunk, s < t
+            for j in range(h0, h0 + M - 1):
+                e = prefix(wc[:, :, j + 1:h0 + M])   # Π_{j<τ<t}, t > j
+                a[:, :, j + 1:h0 + M, j] = (rc[:, :, j + 1:h0 + M]
+                                            * kc[:, :, j:j + 1] * e).sum(-1)
+        a[:, :, M:, :M] = (rc[:, :, M:] * prefix(wc[:, :, M:])) \
+            @ (kc[:, :, :M] * suffix(wc[:, :, :M])).transpose(-1, -2)
+        ys.append((rc * prefix(wc)) @ s + a @ vc)
+        s = torch.prod(wc, 2)[..., None] * s \
+            + (kc * suffix(wc)).transpose(-1, -2) @ vc
+    y = torch.cat(ys, 2)[:, :, :S] if ys else torch.zeros_like(rf)
     return y.to(r.dtype), s
 
 

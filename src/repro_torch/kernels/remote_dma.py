@@ -48,7 +48,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "rdma_build_descriptors": [_P] * 5 + [_I] * 4 + [_P],
     "rdma_gather_rows": [_P, _P, _L, _P, _P, _I, _L] + [_I] * 3 + [_P],
-    "rdma_scatter_rows": [_P] * 7 + [_I] * 5 + [_P],
+    "rdma_scatter_rows": [_P, _P, _L] + [_P] * 4 + [_I, _L] + [_I] * 3
+    + [_P],
 }
 _LIB = _nvcc.Library("remote_dma", _SIGNATURES, "rdma_error_string")
 _COPY_LIB = _nvcc.Library(
@@ -234,36 +235,52 @@ def scatter_rows(buf, indices, values, apply_mask, wire_mask):
     ``apply_mask[p, i]``, and among lanes on one row the last one wins.
     Measured payload bytes count ``wire_mask`` lanes.  ``buf``
     (P, slots, width) is not modified; returns (new buf, (P,) int32 bytes).
+    ``indices`` (P, N): int32 taken as it is when contiguous or a stride-0
+    broadcast of one (N,) vector (``idx[None, :].expand(P, -1)``, as the
+    write verb passes it); the masks (P, N), bool taken as they are;
+    ``values`` (P, N, width) of buf's dtype.  On the card, on those forms,
+    the new buffer and the counter are views of one allocation, written by
+    one kernel launch and no other device operation; a lane whose index lies
+    outside [0, slots) is not committed there.
 
     Replaces the Pallas kernel ``scatter_rows`` of
     ``repro/kernels/remote_dma.py``, whose sequential loop made the last
-    lane win.  GPU threads commit in no order, so the kernel elects each
-    row's winner first (atomic max of the lane id), then only the winner
-    stores.  Bound by device-memory bytes: the copy of ``buf`` that keeps
-    the call functional moves far more than the committed rows."""
-    indices, apply_mask, wire_mask = (_i32(indices), _i32(apply_mask),
-                                      _i32(wire_mask))
-    row_nbytes = int(buf.shape[2]) * buf.element_size()
+    lane win.  GPU threads commit in no order, so each block elects the
+    last applied lane of each row in its stripe of the buffer (a shared
+    atomic max of the lane id), then copies the stripe with the elected
+    rows taken from ``values``.  Bound by device-memory bytes: one read and
+    one write of the home buffer, which the functional contract forces."""
+    P, slots, width = buf.shape
+    if indices.dim() != 2 or indices.shape[0] != P \
+            or apply_mask.shape != indices.shape \
+            or wire_mask.shape != indices.shape:
+        raise ValueError(f"indices and masks must be ({P}, N), got "
+                         f"{tuple(indices.shape)}, {tuple(apply_mask.shape)} "
+                         f"and {tuple(wire_mask.shape)}")
+    N = indices.shape[1]
+    row_nbytes = width * buf.element_size()
+    indices, idx_stride = _row_index(indices, N)
+    apply_mask, wire_mask = _mask(apply_mask), _mask(wire_mask)
     if not _on_card(buf, indices, values, apply_mask, wire_mask):
         return _scatter_ref(buf, indices, values, apply_mask, wire_mask,
                             row_nbytes)
-    P, slots, width = buf.shape
-    N = indices.shape[1]
     if values.dtype != buf.dtype or values.shape != (P, N, width):
         raise ValueError(f"values must be {buf.dtype} of shape "
                          f"{(P, N, width)}, got {values.dtype} "
                          f"{tuple(values.shape)}")
-    out = _words(buf).clone()
-    vals = _words(values)
-    winner = torch.full((P, slots), -1, dtype=torch.int32, device=buf.device)
-    nb = torch.zeros((P,), dtype=torch.int32, device=buf.device)
+    words, vals = _words(buf), _words(values)
+    n = P * slots * width
+    # the new buffer first, so that it keeps the allocation's alignment
+    out = torch.empty(n + P, dtype=torch.int32, device=buf.device)
     _LIB.call("rdma_scatter_rows",
-              indices.data_ptr(), apply_mask.data_ptr(), wire_mask.data_ptr(),
-              vals.data_ptr(), winner.data_ptr(), out.data_ptr(),
-              nb.data_ptr(), P, slots, N, width, row_nbytes,
+              words.data_ptr(), indices.data_ptr(), idx_stride,
+              apply_mask.data_ptr(), wire_mask.data_ptr(), vals.data_ptr(),
+              out.data_ptr(), P, slots, N, width, row_nbytes,
               _nvcc.stream(buf))
     scatter_rows.launches += 1
-    return out.view(buf.dtype), nb
+    new = out.as_strided((P, slots, width), (slots * width, width, 1))
+    return (new if buf.dtype == torch.int32 else new.view(buf.dtype),
+            out.as_strided((P,), (1,), n))
 
 
 scatter_rows.launches = 0

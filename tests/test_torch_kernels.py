@@ -127,7 +127,8 @@ def test_gather_rows_argument_forms_match_reference(mask_dtype, layout):
     assert (rows[1] == 0).all() and int(nb[1]) == 0
 
 
-@pytest.mark.parametrize("kernel", ["build_descriptors", "gather_rows"])
+@pytest.mark.parametrize("kernel", ["build_descriptors", "gather_rows",
+                                    "scatter_rows"])
 def test_wrappers_neither_mutate_nor_keep_their_inputs(kernel):
     """The wrappers take bool masks and broadcast indices as they are: the
     inputs come back unchanged, the outputs share no memory with them, and
@@ -149,6 +150,12 @@ def test_wrappers_neither_mutate_nor_keep_their_inputs(kernel):
                 _t(rng.integers(0, 2, (P, N)).astype(bool))]
         kw = {}
         fn = rdma.gather_rows
+    if kernel == "scatter_rows":
+        apply = rng.integers(0, 2, (P, N)).astype(bool)
+        args = args[:2] + [
+            _t(rng.integers(-9, 9, (P, N, 3)).astype(np.int32)), _t(apply),
+            _t(apply & rng.integers(0, 2, (P, N)).astype(bool))]
+        fn = rdma.scatter_rows
     inputs = args + [kw[k] for k in ("wire",) if k in kw]
     before = [(x.clone(), x.stride()) for x in inputs]
     outs = fn(*args, **kw)
@@ -189,6 +196,47 @@ def test_scatter_rows_matches_reference_with_collisions(dtype):
     np.testing.assert_array_equal(out[2, 4].numpy(), vals[2, -1])
     # the function is functional: the input buffer is untouched
     np.testing.assert_array_equal(_t(buf).numpy(), buf)
+
+
+@pytest.mark.parametrize("case", ["one row", "random duplicates",
+                                  "all masked", "1-word rows"])
+def test_scatter_rows_write_verb_forms_match_reference(case):
+    """The arguments as the write verb passes them: one (N,) index vector
+    broadcast to every home with ``expand`` (row stride 0), bool apply and
+    wire masks.  Every lane on one row, random duplicates, every lane
+    masked, and rows one word wide; bitwise the reference kernel's output
+    (interpret mode) and its plain version's for every home."""
+    rng = np.random.default_rng(5)
+    P, S, N = 3, 9, 14
+    width = 1 if case == "1-word rows" else 5
+    buf = rng.integers(-99, 99, (P, S, width)).astype(np.int32)
+    vec = {"one row": np.full((N,), 4),
+           "all masked": rng.integers(0, S, (N,))}.get(
+               case, rng.integers(0, 3, (N,))).astype(np.int32)
+    ix_t = _t(vec)[None, :].expand(P, -1)
+    assert ix_t.stride() == (0, 1)
+    vals = rng.integers(-99, 99, (P, N, width)).astype(np.int32)
+    ap = rng.integers(0, 2, (P, N)).astype(bool)
+    if case == "all masked":
+        ap[:] = False
+    wire = ap & rng.integers(0, 2, (P, N)).astype(bool)
+    out, nb = rdma.scatter_rows(_t(buf), ix_t, _t(vals), _t(ap), _t(wire))
+    assert out.shape == (P, S, width) and nb.dtype == torch.int32
+    for p in range(P):
+        args = [jnp.asarray(x) for x in (buf[p], vec, vals[p], ap[p],
+                                         wire[p])]
+        for force_ref in (False, True):
+            oj, nbj = jrdma.scatter_rows(*args, force_ref=force_ref)
+            np.testing.assert_array_equal(out[p].numpy(), np.asarray(oj))
+            assert int(nb[p]) == int(nbj) == int(wire[p].sum()) * width * 4
+    if case == "all masked":
+        np.testing.assert_array_equal(out.numpy(), buf)
+    if case == "one row":
+        for p in range(P):
+            if ap[p].any():
+                last = np.flatnonzero(ap[p])[-1]
+                np.testing.assert_array_equal(out[p, 4].numpy(),
+                                              vals[p, last])
 
 
 def test_scatter_rows_all_masked_is_identity():

@@ -1,8 +1,9 @@
 """The port's recurrent families against the JAX package's, in float32 on
 the CPU: the RG-LRU and WKV6 kernels' plain versions (which CPU tensors
 take) against the Pallas kernels run in interpret mode through
-``repro.kernels.ops`` and against ``repro.kernels.ref``; the recurrent
-blocks (``rglru_block``, ``rglru_block_decode``, ``time_mix``,
+``repro.kernels.ops`` and against ``repro.kernels.ref``, and the chunked
+algebra of the bf16 WKV6 kernel (``ref.wkv6_chunked``) against them; the
+recurrent blocks (``rglru_block``, ``rglru_block_decode``, ``time_mix``,
 ``channel_mix``) against ``repro.models``; and the smoke recurrentgemma
 (as it is, and with five layers so that the plan has a suffix) and rwkv6
 models: prefill, ``logits``, four decode steps and every layer's cache leaf.
@@ -83,6 +84,59 @@ def test_wkv6_matches_pallas_and_ref(B, H, S, D):
                    jref.wkv6(*map(jnp.asarray, (r, k, v, w, u)))):
         _close(y, ry)
         _close(s, rs)
+
+
+def _decays(rng, kind, shape):
+    z = rng.standard_normal(shape)
+    if kind == "strong decays":                  # w ≈ e^-7.4, down to ~0.2
+        return np.exp(-np.exp(2.0 + 0.5 * z)).astype(np.float32)
+    w = np.exp(-np.exp(-4.0 + 0.5 * z))          # rwkv6-7b's range
+    if kind == "w = 0":
+        w[rng.uniform(size=shape) < 0.2] = 0.0
+        w[:, :, 5] = 0.0                         # a step that erases S
+    return w.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind, B, H, S, D", [
+    ("strong decays", 2, 2, 40, 32), ("w = 0", 1, 2, 48, 64),
+    ("S not a multiple of the chunk", 2, 3, 37, 64),
+    ("D = 16", 2, 4, 45, 16)])
+def test_wkv6_chunked_matches_the_sequential_form(kind, B, H, S, D):
+    """The bf16 CUDA kernel's algebra, :func:`ref.wkv6_chunked` (chunks of
+    16 steps, decay products referenced to the chunk's start and end),
+    against the port's sequential plain version and the reference's Pallas
+    kernel (interpret mode) and oracle, in float32 within ``TOL``.  Strong
+    decays and exact zeros in w are where a factorisation through
+    logarithms or quotients of decays would overflow or divide by 0."""
+    rng = np.random.default_rng(S * D + H)
+    r, k, v = (rng.standard_normal((B, H, S, D)).astype(np.float32)
+               for _ in range(3))
+    w = _decays(rng, kind, (B, H, S, D))
+    u = (rng.standard_normal((H, D)) * 0.1).astype(np.float32)
+    y, s = pref.wkv6_chunked(*(torch.from_numpy(t) for t in (r, k, v, w, u)))
+    assert y.shape == (B, H, S, D) and s.shape == (B, H, D, D)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    ry, rs = pref.wkv6(*(torch.from_numpy(t) for t in (r, k, v, w, u)))
+    _close(y, ry)
+    _close(s, rs)
+    for jy, js in (jops.wkv6(*map(jnp.asarray, (r, k, v, w, u))),
+                   jref.wkv6(*map(jnp.asarray, (r, k, v, w, u)))):
+        _close(y, jy)
+        _close(s, js)
+
+
+def test_wkv6_variant_routes_aligned_bf16_to_the_chunked_kernel():
+    """bf16 rows that 16-byte copies take go to the tensor-core kernel;
+    float32, and bf16 with a stride or base off 16 bytes, to the CUDA-core
+    one."""
+    from repro_torch.kernels.wkv6 import _variant
+    model = (512 * 64 * 64, 64, 64 * 64)        # (B, S, H, D) as (B, H, S, D)
+    assert _variant(torch.bfloat16, model * 4, (0, 256, 512, 1024)) \
+        == "chunked"
+    assert _variant(torch.float32, model * 4, (0, 256, 512, 1024)) == "simt"
+    assert _variant(torch.bfloat16, model * 3 + (512 * 64 * 64, 64, 4100),
+                    (0, 256, 512, 1024)) == "simt"
+    assert _variant(torch.bfloat16, model * 4, (0, 256, 514, 1024)) == "simt"
 
 
 def test_recurrent_wrappers_refuse_what_the_kernels_do_not_take():
