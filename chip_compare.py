@@ -6,11 +6,11 @@ Run from the repository root on a machine with a CUDA card, the CUDA
 toolkit and, beside this checkout, an unpacked copy of the commit to
 compare with (``git archive <commit> | tar -x -C <dir>``):
 
-    python3 chip_compare.py [--groups moe,copy,dma,rwkv] <parent dir> <change dir>
+    python3 chip_compare.py [--groups moe,copy,dma,rwkv,rglru] <parent dir> <change dir>
 
 Each turn is one process that imports ``chip_smoke`` and ``repro_torch``
 from its tree and builds that tree's kernels, then, with that tree's code,
-runs the groups asked for (all four by default):
+runs the groups asked for (all five by default):
 
 * ``moe``: serves llama4-maverick-400b-a17b at full width and 4 layers
   (512-token prompts) as ``chip_smoke.py``'s phase 5 does, with its checks
@@ -33,7 +33,12 @@ runs the groups asked for (all four by default):
   of 512 tokens, 64 heads of 64, inputs as (B, H, S, D) views of
   (B, S, H, D) projections) and serves rwkv6-7b at full width and depth
   (512-token prompts) as ``chip_smoke.py``'s phase 5 does, with its
-  checks and launch counts.
+  checks and launch counts;
+* ``rglru``: times ``rglru_scan`` in bf16 at recurrentgemma-2b's prefill
+  shape (4 prompts of 2304 tokens, 2560 channels, log_a in the model's
+  range) and serves recurrentgemma-2b at full width and depth (2304-token
+  prompts) as ``chip_smoke.py``'s phase 5 does, with its checks and launch
+  counts.
 
 Times are the wrapper's (CUDA events around a loop of calls), the device
 time per call and the device operations (kernels, copies, fills) per call
@@ -59,10 +64,11 @@ TIMED = ("ms", "device_ms", "device_ops")
 SOURCES = {"moe": ("flash_attention", "decode_attention", "rglru_scan",
                    "wkv6", "moe_gmm", "remote_copy", "remote_dma"),
            "copy": ("remote_copy",), "dma": ("remote_dma",),
-           "rwkv": ("wkv6",)}
+           "rwkv": ("wkv6",),
+           "rglru": ("flash_attention", "decode_attention", "rglru_scan")}
 GROUPS = tuple(SOURCES)
 # the architectures a group serves, each timed by SERVE_KEYS
-SERVED = ("llama4-maverick-400b-a17b", "rwkv6-7b")
+SERVED = ("llama4-maverick-400b-a17b", "rwkv6-7b", "recurrentgemma-2b")
 
 
 def turn(root: str, tag: str, groups) -> dict:
@@ -144,6 +150,25 @@ def turn(root: str, tag: str, groups) -> dict:
         m, launches = cs.phase_serving(torch, kernels, path, rdma)
         res["rwkv6-7b"] = {k: m[k] for k in SERVE_KEYS}
         res["rwkv6-7b"]["wkv6 launches"] = launches["wkv6"]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if "rglru" in groups:
+        g = torch.Generator(device="cuda").manual_seed(cs.SEED + 15)
+        B, S, D = cs.SERVE_BATCH, cs.RG_PROMPT, 2560
+        x = torch.randn((B, S, D), generator=g, device="cuda").to(
+            torch.bfloat16)
+        la = (-0.106 * torch.rand((B, S, D), generator=g, device="cuda")).to(
+            torch.bfloat16)
+        timed(f"rglru_scan bf16, B={B} S={S} D={D}",
+              lambda: rglru_scan(x, la), 50)
+        del x, la
+        path = next(p for p in cs.SERVE_PATHS
+                    if p["arch"] == "recurrentgemma-2b")
+        m, launches = cs.phase_serving(torch, kernels, path, rdma)
+        res["recurrentgemma-2b"] = {k: m[k] for k in SERVE_KEYS}
+        res["recurrentgemma-2b"]["rglru_scan launches"] = \
+            launches["rglru_scan"]
         gc.collect()
         torch.cuda.empty_cache()
     return res

@@ -41,10 +41,14 @@ exits non-zero and prints no result:
    plain result on the same inputs), then every decode arrival counter is
    checked to be 0,
    the RG-LRU and WKV6 kernels at their serving shapes and at odd ones
-   (WKV6 also with strong decays, w exactly 0 and 2048 steps), in float32
-   and bfloat16, outputs and final states (tolerances at ``REC_TOL``; each
-   WKV6 case on the kernel it should take: bf16 on the chunked tensor-core
-   one, float32 on the sequential one), and the grouped matmul at llama4-maverick's expert shapes
+   (RG-LRU also with runs of log_a = 0, strong decays, 4096 steps at full
+   width, D = 2568 and a base off 16 bytes; WKV6 also with strong decays,
+   w exactly 0 and 2048 steps), in float32 and bfloat16, outputs and final
+   states (tolerances at ``REC_TOL``; each RG-LRU case on the copies it
+   should take: 16-byte ones where every row starts on 16 bytes, else one
+   element at a time; each WKV6 case on the kernel it should take: bf16 on
+   the chunked tensor-core one, float32 on the sequential one), and the
+   grouped matmul at llama4-maverick's expert shapes
    (prefill: 3072 slot rows in blocks of 24; decode: 1024 rows in blocks of
    8; 128 experts of 5120 x 8192 and 8192 x 5120), every row counted and
    with per-block row counts (a decode step's 4 live blocks of 128, partial
@@ -84,8 +88,9 @@ exits non-zero and prints no result:
    prompts) cut to 4 of its 48 layers, two [dense, MoE] periods, so that
    its bf16 weights (65.3 GiB) fit the card; one after the other, each
    engine freed before the next; page-table, locality, logit and
-   launch-count checks (rwkv6-7b's WKV6 launches all on the chunked
-   kernel), and on the replicated path the replication checks;
+   launch-count checks (recurrentgemma-2b's RG-LRU launches all on
+   16-byte copies, rwkv6-7b's WKV6 launches all on the chunked kernel),
+   and on the replicated path the replication checks;
 6. report the end-to-end numbers of every path, each kernel's launches on
    its path, its time beside its plain version's, one PyTorch call's and
    its bound (every row also with the kernel's device time per call from
@@ -161,8 +166,11 @@ SERVE_PATHS = [
 ]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # RG-LRU and WKV6 against their plain versions, as max abs error over
-# max(1, max |plain|).  float32 rglru: the same operations in the same
-# order, apart from fused multiply-adds, and the recurrence contracts
+# max(1, max |plain|).  float32 rglru: the same operations per step (the
+# square root the hardware's, within an ulp), but the kernel's tiled scan
+# adds each run's start state through the run's product of a (y = hl +
+# A·h_in, runs of 8 or 16 steps, 8 runs folded a tile), a few more
+# roundings of the size of h a step, and the recurrence contracts
 # (|a| < 1), so rounding does not grow; float32 wkv6: every output sums 64
 # products in another order, over a state summed across up to 512 steps;
 # bfloat16 outputs add one rounding to bf16 (2^-8 relative).  Final states
@@ -720,10 +728,14 @@ def recurrent_cases(torch):
     tokens and 64 heads of 64, its inputs (B, H, S, D) views of (B, S, H, D)
     projections as the model passes them — then odd shapes (S not a
     multiple of any chunk; D = 100 channels; head sizes 16, 32 and 48), and
-    for WKV6 strong decays (w = exp(-exp(2 + δ))), w exactly 0 (a fifth of
-    it, and one whole step) and 2048 steps at full width.  Inputs otherwise
-    follow the models' ranges: log_a = -8·softplus(Λ)·r lies in (-0.106,
-    0); the decay w = exp(-exp(w0 + δ)) with w0 = -4."""
+    for RG-LRU runs of log_a = 0 (a fifth of it, and steps 100-399 all 0:
+    a = 1, gate 0), strong decays (log_a in [-30, -10]), 4096 steps at full
+    width, D = 2568 (no multiple of the kernel's 32 channels a block, but of
+    16 bytes) and x and log_a one element past 16 bytes (one-element
+    copies), for WKV6 strong decays (w = exp(-exp(2 + δ))), w exactly 0 (a
+    fifth of it, and one whole step) and 2048 steps at full width.  Inputs
+    otherwise follow the models' ranges: log_a = -8·softplus(Λ)·r lies in
+    (-0.106, 0); the decay w = exp(-exp(w0 + δ)) with w0 = -4."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
 
     def rn(*shape):
@@ -748,12 +760,36 @@ def recurrent_cases(torch):
         w[:, 9] = 0.0
         return w
 
+    def log_a_zeros(*shape):         # a fifth of log_a 0, a run of steps 0
+        la = log_a(*shape)
+        la = torch.where(torch.rand(shape, generator=g, device="cuda") < 0.2,
+                         torch.zeros_like(la), la)
+        la[:, 100:400] = 0.0
+        return la
+
+    def log_a_strong(*shape):        # a from e^-10 down to e^-30
+        return -10.0 - 20.0 * torch.rand(shape, generator=g, device="cuda")
+
+    def off16(t):                    # the same values one element past 16 B
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
     rglru, wkv = [], []
-    for label, (B, S, D) in [("full width", (SERVE_BATCH, RG_PROMPT, 2560)),
-                             ("S=37 D=100", (3, 37, 100))]:
-        x, la = rn(B, S, D), log_a(B, S, D)
+    for label, (B, S, D), fn, place in [
+            ("full width", (SERVE_BATCH, RG_PROMPT, 2560), log_a, None),
+            ("S=37 D=100", (3, 37, 100), log_a, None),
+            ("log_a = 0 runs S=600", (2, 600, 2560), log_a_zeros, None),
+            ("strong decays S=300", (2, 300, 2560), log_a_strong, None),
+            ("full width S=4096", (SERVE_BATCH, 4096, 2560), log_a, None),
+            ("S=129 D=2568", (2, 129, 2568), log_a, None),
+            ("base off 16 bytes S=200 D=256", (2, 200, 256), log_a, off16)]:
+        x, la = rn(B, S, D), fn(B, S, D)
         for dt in (torch.bfloat16, torch.float32):
-            rglru.append((f"{label} {str(dt)[6:]}", (x.to(dt), la.to(dt))))
+            args = (x.to(dt), la.to(dt))
+            if place is not None:
+                args = tuple(place(t) for t in args)
+            rglru.append((f"{label} {str(dt)[6:]}", args))
     for label, (B, H, S, D), fn in [
             ("full width", (SERVE_BATCH, 64, 512, 64), decay),
             ("S=37", (2, 3, 37, 64), decay),
@@ -798,13 +834,16 @@ def phase_recurrent_kernels(torch, kernels):
             out, state = kern(*args)
             torch.cuda.synchronize()
             check(kern.launches == before + 1, f"{name} did not launch")
-            route = ""
             if name == "wkv6":
                 want = "chunked" if args[0].dtype == torch.bfloat16 \
                     else "simt"
-                check(kern.routes[want] == routes[want] + 1,
-                      f"{name} ({label}) did not take the {want} kernel")
-                route = f", {want} kernel"
+            else:        # 16-byte copies where every row starts on 16 bytes
+                row = args[0].shape[2] * args[0].element_size()
+                want = "scalar" if row % 16 or any(
+                    t.data_ptr() % 16 for t in (*args, out)) else "vector"
+            check(kern.routes[want] == routes[want] + 1,
+                  f"{name} ({label}) did not take the {want} route")
+            route = f", {want} route"
             exp_out, exp_state = recurrent_plain(name, args)
             check(out.dtype == args[0].dtype and out.shape == args[0].shape
                   and state.dtype == torch.float32
@@ -1764,16 +1803,18 @@ def phase_serving(torch, kernels, path, rdma):
     dma = rdma.KERNELS + (rdma.remote_copy,) if replicas else ()
     for k in list(kernels.values()) + list(dma):
         k.launches = 0
-    routes = dict(getattr(kernels["wkv6"], "routes", {}))
+    routes = {name: dict(getattr(kernels[name], "routes", {}))
+              for name in ("rglru_scan", "wkv6")}
     t0 = time.perf_counter()
     outs = eng.generate(prompts, gen_len=gen)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
-    if routes:
-        chunked = kernels["wkv6"].routes["chunked"] - routes["chunked"]
-        check(chunked == launches["wkv6"], f"{label}: {chunked} of "
-              f"{launches['wkv6']} wkv6 launches took the chunked kernel")
+    for name, want in (("rglru_scan", "vector"), ("wkv6", "chunked")):
+        if routes[name]:
+            n = kernels[name].routes[want] - routes[name][want]
+            check(n == launches[name], f"{label}: {n} of {launches[name]} "
+                  f"{name} launches took the {want} route")
     dma_launches = {k.__name__: k.launches for k in dma}
     expected = expected_launches(cfg, requests, gen)
     stats = eng.stats()
@@ -2323,6 +2364,9 @@ def main() -> int:
               f"the tensor-core gmm kernels spill: {usage}")
         log("  -Xptxas -v, tensor-core gmm kernels [registers, spill stores, "
             f"spill loads]: {usage}")
+        usage = ptxas_usage(_nvcc, "rglru_scan", "rglru_tile")
+        log("  -Xptxas -v, RG-LRU kernels [registers, spill stores, spill "
+            f"loads]: {usage}")
         log("phase 2: kernels against their plain versions")
         cases, errs = phase_kernels(torch, rdma, slots)
         copy_cases_, copy_errs = phase_copy_kernel(torch, rdma)

@@ -10,88 +10,266 @@
 // elementwise over channels, in float32.  The recurrence is sequential in
 // time and independent per (b, channel).  The TPU kernel makes time its
 // sequential minor grid dimension and carries h in VMEM scratch between time
-// blocks; here one thread owns one (b, channel) and loops over time itself,
-// with h in a register, so nothing carries between thread blocks.
+// blocks.
 //
-// Bound: device-memory bytes (x and log_a read once, y written once; about
-// ten FLOP per element).  Two things stand in the way.  One thread per
-// channel makes a small grid (B*D threads: 10,240 at the serving shape), and
-// each step would wait one memory latency for its inputs.  So blocks are one
-// warp, and the B*D/32 blocks spread over every SM; and each thread loads
-// kChunk time steps of x and log_a into registers one chunk ahead of the
-// steps it runs, so a chunk's loads are in flight while the previous chunk
-// computes and the loop streams.  A time-chunked two-pass scan, which would
-// put more threads on the card, is later work.  The ragged S edge is masked
-// here; nothing is padded in memory.  x, log_a and y are contiguous; the C
-// entry point launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError().
+// Bound: device-memory bytes.  x and log_a are read once and y is written
+// once (141.6 MB at the serving shape B = 4, S = 2304, D = 2560 in bf16,
+// 0.042 ms at 3.35 TB/s).  The arithmetic is near it: two exponentials, a
+// square root, the update and the chunked form's products come to a few
+// dozen instructions an element, so the SMs' issue rate is the second
+// limit.
+// One thread per channel that walks all of time, as a plain port would,
+// gives only B * D threads (320 warps at the serving shape), each waiting
+// on its own loads: latency, not bytes, then bounds it.  So the scan is
+// chunked in time inside a block, and reads memory in one pass:
+//
+// - A block owns kC = 32 channels of one batch row, one a lane, and walks
+//   time in tiles of kT steps (128 in bf16, 64 in float32: 16 KB of x and
+//   log_a).  Tiles come into shared memory through a ring of two stages by
+//   16-byte cp.async copies, so the next tile is in flight while one is
+//   scanned: about 5 MB in flight over the card at the serving shape.
+//   More stages, or larger tiles, were slower on the card.
+// - Within a tile, warp w takes steps w*kK .. w*kK + kK - 1 (kK = kT / 8)
+//   and scans them from h = 0, keeping for each step its local state hl_t
+//   and the running product A_t = prod a of its run in registers; it
+//   publishes its run's end pair (A_end, h_end) in shared memory.
+// - After a barrier, each thread folds the end pairs of the warps before
+//   its own into the carry from the previous tile (h_in <- A_end * h_in +
+//   h_end, at most kW = 8 fused multiply-adds), writes y_t = hl_t + A_t *
+//   h_in over its x in shared memory, and folds the rest into the next
+//   tile's carry.  The serial chain a tile is kK + kW steps, not kT.
+// - The tile of y leaves in 16-byte stores from shared memory.
+//
+// A_t is a product of a, not the exp of a sum: with log_a <= 0 nothing
+// overflows, strong decays underflow to 0 as in the sequential form, and
+// log_a = 0 (a = 1, gate 0) carries h exactly.  Both exponentials are
+// expf, rounded as the plain version's: 1 - exp(2 log_a) cancels near
+// log_a = 0, which would magnify a cheaper exponential's few-ulp error by
+// 1 / (1 - exp(2 log_a)); the square root is the hardware's (sqrt.approx, relative error ~2^-23),
+// without sqrtf's slow path.  Steps past S and channels past D load as
+// zeros (a = 1, gate 0: the state carries through them unchanged) and are
+// not stored; nothing is padded in memory.  Rows that do not start on 16
+// bytes (D * sizeof % 16 != 0, or a base address off 16 bytes) take the
+// same kernel with one-element copies (kVec16 = false;
+// kernels/rglru_scan.py::_variant picks).  Against a decoupled look-back
+// over a grid split in time, this needs no flags in device memory and no
+// second device operation, and the B * D / kC blocks (320 at the serving
+// shape, three an SM at most) are all resident at once.  x, log_a and y
+// are contiguous; the C entry point launches on the caller's stream,
+// allocates nothing and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 32;  // channels per block: one warp
-constexpr int kChunk = 16;    // time steps loaded ahead
+constexpr int kC = 32;           // channels a block, one a lane
+constexpr int kW = 8;            // warps a block
+constexpr int kThreads = kW * 32;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// steps t0 .. t0+kChunk-1 of one channel (those below S) into registers
 template <typename T>
-__device__ __forceinline__ void load_chunk(const T* x, const T* la, int t0,
-                                           int S, int D, float (&xv)[kChunk],
-                                           float (&lv)[kChunk]) {
+struct Smem {
+  static constexpr int kK = sizeof(T) == 2 ? 16 : 8;  // steps a warp scans
+  static constexpr int kT = kW * kK;                   // steps a tile
+  static constexpr int kStages = 2;
+  T x[kStages][kT][kC];  // a tile of x, then of y once it is scanned
+  T la[kStages][kT][kC];
+  float end_a[kW][kC];   // each warp's run: the product of its a
+  float end_h[kW][kC];   // and its last state, from h = 0
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void put(float& p, float v) { p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16& p, float v) {
+  p = __float2bfloat16(v);
+}
+
+// the hardware's square root (one MUFU.SQRT, ~1 ulp; sqrt(0) = 0), in place
+// of sqrtf's correctly rounded one and its slow path
+__device__ __forceinline__ float sqrt_approx(float v) {
+  float r;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with valid == false the 16 bytes are zeros and
+// nothing is read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Steps t0 .. t0 + kT - 1 of channels d0 .. d0 + kC - 1 of one batch row
+// (x and la point at the row's step 0) into one stage; steps past S and
+// channels past D as zeros.  kVec16: 16-byte cp.async copies (D * sizeof a
+// multiple of 16, so a copy lies wholly inside D or wholly past it), else
+// one element a thread at a time, as raw bits.
+template <typename T, bool kVec16>
+__device__ __forceinline__ void load_tile(T (*sx)[kC], T (*sla)[kC],
+                                          const T* x, const T* la, int t0,
+                                          int d0, int S, int D) {
+  constexpr int kT = Smem<T>::kT;
+  if constexpr (kVec16) {
+    constexpr int kV = 16 / sizeof(T), kP = kC / kV;
 #pragma unroll
-  for (int i = 0; i < kChunk; ++i) {
-    if (t0 + i < S) {
-      const long long o = static_cast<long long>(t0 + i) * D;
-      xv[i] = to_f(x[o]);
-      lv[i] = to_f(la[o]);
+    for (int j = 0; j < kT * kP / kThreads; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int r = i / kP, c = i % kP * kV;
+      const bool ok = t0 + r < S && d0 + c < D;
+      const long long o = ok ? static_cast<long long>(t0 + r) * D + d0 + c
+                             : 0;
+      cp_async16(&sx[r][c], x + o, ok);
+      cp_async16(&sla[r][c], la + o, ok);
+    }
+  } else {
+    using Bits = std::conditional_t<sizeof(T) == 2, uint16_t, uint32_t>;
+#pragma unroll 4
+    for (int j = 0; j < kT * kC / kThreads; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int r = i / kC, c = i % kC;
+      const bool ok = t0 + r < S && d0 + c < D;
+      const long long o = static_cast<long long>(t0 + r) * D + d0 + c;
+      reinterpret_cast<Bits&>(sx[r][c]) =
+          ok ? reinterpret_cast<const Bits*>(x)[o] : Bits(0);
+      reinterpret_cast<Bits&>(sla[r][c]) =
+          ok ? reinterpret_cast<const Bits*>(la)[o] : Bits(0);
     }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    rglru_kernel(const T* x, const T* la, T* y, float* h_out, int S, int D) {
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  const int b = blockIdx.y;
-  if (d >= D) return;
-  const long long base = static_cast<long long>(b) * S * D + d;
-  x += base;
-  la += base;
-  y += base;
-
-  float xn[kChunk], ln[kChunk];
-  load_chunk(x, la, 0, S, D, xn, ln);
-  float h = 0.f;
-  for (int t0 = 0; t0 < S; t0 += kChunk) {
-    float xc[kChunk], lc[kChunk];
+// A tile of y from shared memory to steps t0 .. of channels d0 .. of one
+// batch row, those below S and D.
+template <typename T, bool kVec16>
+__device__ __forceinline__ void store_tile(T* y, const T (*sy)[kC], int t0,
+                                           int d0, int S, int D) {
+  constexpr int kT = Smem<T>::kT;
+  if constexpr (kVec16) {
+    constexpr int kV = 16 / sizeof(T), kP = kC / kV;
 #pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
-      xc[i] = xn[i];
-      lc[i] = ln[i];
+    for (int j = 0; j < kT * kP / kThreads; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int r = i / kP, c = i % kP * kV;
+      if (t0 + r < S && d0 + c < D)
+        *reinterpret_cast<uint4*>(y + static_cast<long long>(t0 + r) * D +
+                                  d0 + c) =
+            *reinterpret_cast<const uint4*>(&sy[r][c]);
     }
-    if (t0 + kChunk < S) load_chunk(x, la, t0 + kChunk, S, D, xn, ln);
-#pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
-      if (t0 + i < S) {
-        const float a = expf(lc[i]);
-        const float gate = sqrtf(fmaxf(1.f - expf(2.f * lc[i]), 0.f));
-        h = a * h + gate * xc[i];
-        store(y + static_cast<long long>(t0 + i) * D, h);
-      }
+  } else {
+#pragma unroll 4
+    for (int j = 0; j < kT * kC / kThreads; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int r = i / kC, c = i % kC;
+      if (t0 + r < S && d0 + c < D)
+        y[static_cast<long long>(t0 + r) * D + d0 + c] = sy[r][c];
     }
   }
-  h_out[static_cast<long long>(b) * D + d] = h;
+}
+
+template <typename T, bool kVec16>
+__global__ void __launch_bounds__(kThreads, 3)
+    rglru_tile_kernel(const T* __restrict__ x, const T* __restrict__ la,
+                      T* __restrict__ y, float* __restrict__ h_out, int S,
+                      int D) {
+  using L = Smem<T>;
+  constexpr int kK = L::kK, kT = L::kT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  L& sm = *reinterpret_cast<L*>(smem_raw);
+  const int w = threadIdx.x / 32, c = threadIdx.x % 32;
+  const int d0 = blockIdx.x * kC, b = blockIdx.y;
+  const long long row = static_cast<long long>(b) * S * D;
+  x += row;
+  la += row;
+  y += row;
+  const int n_tiles = (S + kT - 1) / kT;
+
+#pragma unroll
+  for (int s = 0; s < L::kStages - 1; ++s) {
+    if (s < n_tiles)
+      load_tile<T, kVec16>(sm.x[s], sm.la[s], x, la, s * kT, d0, S, D);
+    cp_async_commit();
+  }
+  float carry = 0.f;  // the state before the tile, of channel d0 + c
+  for (int i = 0; i < n_tiles; ++i) {
+    // tile i is in; every thread is past tile i - 1, whose stage (y
+    // stored) takes tile i + kStages - 1
+    cp_async_wait<L::kStages - 2>();
+    __syncthreads();
+    const int next = i + L::kStages - 1;
+    if (next < n_tiles)
+      load_tile<T, kVec16>(sm.x[next % L::kStages], sm.la[next % L::kStages],
+                           x, la, next * kT, d0, S, D);
+    cp_async_commit();
+
+    T(*sx)[kC] = sm.x[i % L::kStages];
+    const T(*sla)[kC] = sm.la[i % L::kStages];
+    float hl[kK], ap[kK];
+    float h = 0.f, A = 1.f;
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      const float lv = to_f(sla[w * kK + k][c]);
+      const float a = expf(lv);
+      const float gate = sqrt_approx(fmaxf(1.f - expf(2.f * lv), 0.f));
+      h = a * h + gate * to_f(sx[w * kK + k][c]);
+      A *= a;
+      hl[k] = h;
+      ap[k] = A;
+    }
+    sm.end_a[w][c] = A;
+    sm.end_h[w][c] = h;
+    __syncthreads();
+    float h_in = 0.f;
+#pragma unroll
+    for (int j = 0; j < kW; ++j) {
+      if (j == w) h_in = carry;
+      carry = fmaf(sm.end_a[j][c], carry, sm.end_h[j][c]);
+    }
+#pragma unroll
+    for (int k = 0; k < kK; ++k)
+      put(sx[w * kK + k][c], fmaf(ap[k], h_in, hl[k]));
+    __syncthreads();
+    store_tile<T, kVec16>(y, sx, i * kT, d0, S, D);
+  }
+  if (w == 0 && d0 + c < D)
+    h_out[static_cast<long long>(b) * D + d0 + c] = carry;
+}
+
+template <typename T, bool kVec16>
+cudaError_t launch(const void* x, const void* la, void* y, float* h_final,
+                   int B, int S, int D, cudaStream_t s) {
+  constexpr int kSmem = sizeof(Smem<T>);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rglru_tile_kernel<T, kVec16>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((D + kC - 1) / kC, B);
+  rglru_tile_kernel<T, kVec16><<<grid, kThreads, kSmem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(la),
+      static_cast<T*>(y), h_final, S, D);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -103,24 +281,27 @@ const char* rglru_error_string(int code) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, log_a and y alike); h_final float32.
-int rglru_scan_fwd(int dtype, const void* x, const void* log_a, void* y,
-                   float* h_final, int B, int S, int D, void* stream) {
-  if (B < 0 || S < 0 || D < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || D == 0) return 0;
-  const dim3 grid((D + kThreads - 1) / kThreads, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    rglru_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(log_a),
-        static_cast<float*>(y), h_final, S, D);
-  else if (dtype == 1)
-    rglru_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(log_a),
-        static_cast<__nv_bfloat16*>(y), h_final, S, D);
-  else
+// vec16: 1 if every row of x, log_a and y starts on 16 bytes (16-byte
+// copies), 0 for one-element copies.
+int rglru_scan_fwd(int dtype, int vec16, const void* x, const void* log_a,
+                   void* y, float* h_final, int B, int S, int D,
+                   void* stream) {
+  if (B < 0 || S < 0 || D < 0 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (B == 0 || D == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0)
+    err = vec16 ? launch<float, true>(x, log_a, y, h_final, B, S, D, s)
+                : launch<float, false>(x, log_a, y, h_final, B, S, D, s);
+  else if (dtype == 1)
+    err = vec16
+              ? launch<__nv_bfloat16, true>(x, log_a, y, h_final, B, S, D, s)
+              : launch<__nv_bfloat16, false>(x, log_a, y, h_final, B, S, D,
+                                             s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

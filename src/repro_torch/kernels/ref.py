@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the model kernels, the counterparts of
 ``repro/kernels/ref.py``'s ``repeat_kv``, ``mha``, ``decode_attention``,
 ``rglru``, ``wkv6`` and ``gmm``, the split algorithm of the decode kernel
-(:func:`decode_attention_split`) and the chunked algebra of the bf16 WKV6
-kernel (:func:`wkv6_chunked`).
+(:func:`decode_attention_split`) and the chunked algebras of the RG-LRU
+kernel (:func:`rglru_chunked`) and of the bf16 WKV6 kernel
+(:func:`wkv6_chunked`).
 
 They follow the semantics of the reference's **Pallas kernels**
 (``repro/kernels/flash_attention.py``, ``decode_attention.py``), because that
@@ -144,6 +145,42 @@ def rglru(x, log_a):
         ys.append(h)
     y = torch.stack(ys, 1) if ys else torch.zeros_like(x, dtype=torch.float32)
     return y.to(x.dtype), h
+
+
+def rglru_chunked(x, log_a, tile=128, sub=16):
+    """:func:`rglru` as the CUDA kernel computes it, in float32: time cut
+    into tiles of ``tile`` steps (the last one padded with x = 0 and log_a
+    = 0, a = 1 and gate 0, which leave the state as it is), each tile into
+    runs of ``sub`` steps.  Each run is scanned from h = 0, keeping its
+    local states ``hl_t`` and the running products of its a, ``A_t``; the
+    runs' end pairs then fold, in order, into the carry from the previous
+    tile, ``h_in ← A_end·h_in + h_end``, and ``y_t = hl_t + A_t·h_in`` with
+    the h_in before the run.  A_t is a product of a (at most 1), never the
+    exp of a sum, so nothing overflows.  Same arguments and results as
+    :func:`rglru`; ``sub`` divides ``tile``.  The defaults are the bf16
+    kernel's; in float32 it runs tiles of 64 and runs of 8."""
+    B, S, D = x.shape
+    runs = tile // sub
+    pad = -S % tile
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
+    la = torch.nn.functional.pad(log_a.float(), (0, 0, 0, pad))
+    a = torch.exp(la)
+    bx = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * la), min=0.0)) * xf
+    a, bx = (t.reshape(B, -1, runs, sub, D) for t in (a, bx))
+    hl, ap = torch.empty_like(bx), torch.empty_like(a)
+    h, A = torch.zeros_like(bx[:, :, :, 0]), torch.ones_like(a[:, :, :, 0])
+    for k in range(sub):                       # every run at once
+        h = a[:, :, :, k] * h + bx[:, :, :, k]
+        A = A * a[:, :, :, k]
+        hl[:, :, :, k], ap[:, :, :, k] = h, A
+    carry = torch.zeros((B, D), dtype=torch.float32, device=x.device)
+    ys = []
+    for i in range(hl.shape[1]):
+        for j in range(runs):
+            ys.append(hl[:, i, j] + ap[:, i, j] * carry[:, None])
+            carry = ap[:, i, j, -1] * carry + hl[:, i, j, -1]
+    y = torch.cat(ys, 1)[:, :S] if ys else torch.zeros_like(xf)
+    return y.to(x.dtype), carry
 
 
 def wkv6(r, k, v, w, u):

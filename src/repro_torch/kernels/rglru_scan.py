@@ -4,12 +4,16 @@ and of its wrapper ``repro/kernels/ops.py::rglru``.
 On a CUDA tensor :func:`rglru_scan` launches the hand-written kernel of
 ``csrc/rglru_scan.cu`` (built with ``nvcc`` for ``sm_90a`` at first use) or
 raises; on a CPU tensor it runs the kernel's plain PyTorch version,
-:func:`repro_torch.kernels.ref.rglru`.  ``rglru_scan.launches`` counts
-kernel launches.
+:func:`repro_torch.kernels.ref.rglru`.  The kernel scans tiles of time in
+parallel inside a block; its algebra is
+:func:`repro_torch.kernels.ref.rglru_chunked`.  ``rglru_scan.launches``
+counts kernel launches, and ``rglru_scan.routes`` how many staged their
+tiles each way (:func:`_variant`).
 
 The reference wrapper pads S to its time block with ``log_a = 0`` (a = 1,
 gate = 0), so the final state carries through the padding unchanged; the
-port's kernel stops at S instead, which gives the same ``h_final``.
+port's kernel reads the steps past S as those zeros, which gives the same
+``h_final``.
 """
 from __future__ import annotations
 
@@ -22,9 +26,21 @@ from . import ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LIB = _nvcc.Library("rglru_scan",
-                     {"rglru_scan_fwd": [_I] + [_P] * 4 + [_I] * 3 + [_P]},
+                     {"rglru_scan_fwd": [_I] * 2 + [_P] * 4 + [_I] * 3
+                      + [_P]},
                      "rglru_error_string")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _variant(dtype, D, ptrs) -> str:
+    """How the kernel stages its tiles: ``"vector"`` (16-byte copies in and
+    out) when every row starts on 16 bytes — ``D`` elements of ``dtype`` a
+    multiple of 16 bytes and each base address (``ptrs``: x, log_a, y) a
+    multiple of 16 — else ``"scalar"`` (one element a copy).  Both are the
+    same tiled scan."""
+    if D * dtype.itemsize % 16 or any(p % 16 for p in ptrs):
+        return "scalar"
+    return "vector"
 
 
 def rglru_scan(x, log_a):
@@ -43,11 +59,15 @@ def rglru_scan(x, log_a):
     x, log_a = x.contiguous(), log_a.contiguous()
     y = torch.empty_like(x)
     h = torch.empty((B, D), dtype=torch.float32, device=x.device)
-    _LIB.call("rglru_scan_fwd", _DTYPES[x.dtype], x.data_ptr(),
-              log_a.data_ptr(), y.data_ptr(), h.data_ptr(), B, S, D,
-              _nvcc.stream(x))
+    route = _variant(x.dtype, D, (x.data_ptr(), log_a.data_ptr(),
+                                  y.data_ptr()))
+    _LIB.call("rglru_scan_fwd", _DTYPES[x.dtype], int(route == "vector"),
+              x.data_ptr(), log_a.data_ptr(), y.data_ptr(), h.data_ptr(),
+              B, S, D, _nvcc.stream(x))
     rglru_scan.launches += 1
+    rglru_scan.routes[route] += 1
     return y, h
 
 
 rglru_scan.launches = 0
+rglru_scan.routes = {"vector": 0, "scalar": 0}

@@ -2,7 +2,8 @@
 the CPU: the RG-LRU and WKV6 kernels' plain versions (which CPU tensors
 take) against the Pallas kernels run in interpret mode through
 ``repro.kernels.ops`` and against ``repro.kernels.ref``, and the chunked
-algebra of the bf16 WKV6 kernel (``ref.wkv6_chunked``) against them; the
+algebras of the RG-LRU kernel (``ref.rglru_chunked``) and of the bf16 WKV6
+kernel (``ref.wkv6_chunked``) against them; the
 recurrent blocks (``rglru_block``, ``rglru_block_decode``, ``time_mix``,
 ``channel_mix``) against ``repro.models``; and the smoke recurrentgemma
 (as it is, and with five layers so that the plan has a suffix) and rwkv6
@@ -68,6 +69,67 @@ def test_rglru_matches_pallas_and_ref(B, S, D):
                    jref.rglru(jnp.asarray(x), jnp.asarray(log_a))):
         _close(y, ry)
         _close(h, rh)
+
+
+def _log_a(rng, kind, shape):
+    if kind == "strong decays":                  # a from e^-10 down to e^-30
+        return -rng.uniform(10.0, 30.0, shape).astype(np.float32)
+    log_a = -rng.uniform(1e-3, 2.0, shape)
+    if kind == "log_a = 0 runs":                 # a = 1, gate 0: h carries
+        log_a[rng.uniform(size=shape) < 0.2] = 0.0
+        log_a[:, 3:40] = 0.0
+    return log_a.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind, B, S, D, tile, sub", [
+    ("S off the tile", 2, 37, 32, 128, 16),
+    ("S off the tile", 1, 300, 64, 64, 8),
+    ("S = 1", 3, 1, 8, 128, 16),
+    ("log_a = 0 runs", 2, 200, 32, 64, 8),
+    ("strong decays", 2, 150, 32, 128, 16),
+    ("D = 100", 2, 37, 100, 32, 8),
+    ("tile and sub off S", 2, 50, 16, 24, 6)])
+def test_rglru_chunked_matches_the_sequential_form(kind, B, S, D, tile,
+                                                   sub):
+    """The CUDA kernel's algebra, :func:`ref.rglru_chunked` (tiles of
+    ``tile`` steps, runs of ``sub`` scanned from h = 0 and folded through
+    their end pairs; the bf16 kernel's 128 and 16 and the float32 one's 64
+    and 8 first), against the port's
+    sequential plain version and the reference's Pallas kernel (interpret
+    mode) and oracle, in float32 within ``TOL``.  Strong decays underflow
+    the runs' products of a to 0; log_a = 0 must carry h exactly."""
+    rng = np.random.default_rng(S * D + tile)
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    log_a = _log_a(rng, kind, (B, S, D))
+    y, h = pref.rglru_chunked(torch.from_numpy(x), torch.from_numpy(log_a),
+                              tile, sub)
+    assert y.shape == (B, S, D) and h.shape == (B, D)
+    assert y.dtype == torch.float32 and h.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    ry, rh = pref.rglru(torch.from_numpy(x), torch.from_numpy(log_a))
+    _close(y, ry)
+    _close(h, rh)
+    for jy, jh in (jops.rglru(jnp.asarray(x), jnp.asarray(log_a)),
+                   jref.rglru(jnp.asarray(x), jnp.asarray(log_a))):
+        _close(y, jy)
+        _close(h, jh)
+
+
+def test_rglru_variant_routes_rows_off_16_bytes_to_scalar_copies():
+    """Rows that start on 16 bytes take the kernel's 16-byte copies; a row
+    of D elements that is no multiple of 16 bytes, or a base address off
+    16 bytes, one-element copies.  CPU tensors count no route."""
+    from repro_torch.kernels.rglru_scan import _variant
+    aligned = (0, 4096, 8192)
+    assert _variant(torch.bfloat16, 2560, aligned) == "vector"
+    assert _variant(torch.float32, 2560, aligned) == "vector"
+    assert _variant(torch.float32, 100, aligned) == "vector"
+    assert _variant(torch.bfloat16, 100, aligned) == "scalar"
+    assert _variant(torch.bfloat16, 2560, (2, 4096, 8192)) == "scalar"
+    assert _variant(torch.float32, 2560, (0, 4100, 8192)) == "scalar"
+    before = dict(rglru_scan.routes)
+    rglru_scan(torch.zeros((1, 4, 8)), torch.zeros((1, 4, 8)))
+    assert rglru_scan.routes == before
 
 
 @pytest.mark.parametrize("B, H, S, D", [(2, 3, 37, 16), (1, 2, 16, 64),
