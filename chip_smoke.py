@@ -21,9 +21,9 @@ exits non-zero and prints no result:
    broadcast to every home with ``expand``) and on int32 masks and
    contiguous indices, all three on the verbs' forms one device operation
    per call (``torch.profiler``), the row commit also with 1-word rows,
-   homes of a word count not a multiple of four and a base off 16 bytes,
-   the
-   remote-copy kernel at the ring hop's shapes (P=4 with 648 words, P=8
+   homes of a word count not a multiple of four, a base off 16 bytes and
+   indices outside [0, slots) (one in [-slots, 0) wraps, any other is
+   dropped, as the reference's oracle does), the remote-copy kernel at the ring hop's shapes (P=4 with 648 words, P=8
    with 20,488) and the bare ring entries (640 and 20,480 words) and at odd
    ones (a width not a multiple of four, a misaligned view, zero words, no
    senders, every receiver from one sender, a permutation; int64 maps,
@@ -56,7 +56,11 @@ exits non-zero and prints no result:
    garbage rows), in float32 and bfloat16 (tolerances at ``GMM_TOL``; each
    case on the kernel it should take, rows past the counts exactly zero);
 3. run the same work on the card and on the CPU: a P=4 store through 20
-   windows (states and results bitwise equal after every window), the
+   windows (states and results bitwise equal after every window), a P=4
+   lock-free store through the same windows and then all-UPDATE and
+   pure-GET ones (its fastpath ledger rows equal too), a P=4 heat-tracked
+   store under skewed readers through a rebalance and a mixed window (heat
+   counters bitwise equal too), the
    smoke llama3.2-3b, recurrentgemma-2b, rwkv6-7b and llama4-maverick
    ServingEngines in float32 with one set of weights each (equal tokens,
    bitwise equal page-table state), and the smoke llama3.2-3b engine with
@@ -69,6 +73,18 @@ exits non-zero and prints no result:
    of 60/20/10/10 GET/UPDATE/INSERT/DELETE over distinct uniform keys and
    20 windows of 95/5 GET/UPDATE over zipf(0.99) keys; every GET and every
    ``found`` is checked against a numpy oracle of the window semantics;
+4a. from the prefilled state on, a lock-free twin (``lockfree=True``, a
+   copy of the state) runs the same windows: bitwise equal to the locked
+   store after every one, oracle-checked, the fast path taken by every zipf
+   window and by no mixed one (the ledger's fastpath rows), and a fast
+   window's launches exactly one read verb and one write verb;
+4c. the migration scenario of ``benchmarks/bench_locality.py`` on the
+   final state: a heat-tracked twin with a fresh heat leaf, 10 skewed read
+   windows (reader r reads zipf(0.99) keys of its shard k = r mod P, 10%
+   uniform noise), up to 4 ``rebalance(max_moves=4096)`` passes (moves and
+   backlog consistent with the proposals), the first read window again
+   (its modeled wire bytes must fall), every GET and a mixed window after
+   the migration oracle-checked;
 4b. the failover scenario of ``benchmarks/bench_failover.py`` on that
    store shape: a leader and two follower stores behind a ReplicatedLog,
    the prefill and 20 mixed windows each appended and synced, the leader
@@ -120,7 +136,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # KVStore op codes (checked against repro_torch.core's at start-up)
-NOP, GET, INSERT, UPDATE, DELETE = 0, 1, 2, 3, 4
+NOP, GET, INSERT, UPDATE, DELETE, MOVE = 0, 1, 2, 3, 4, 5
 
 # the main path's configuration (benchmarks/bench_kvstore.py's store shape)
 P = 8
@@ -132,6 +148,12 @@ MIX_WINDOWS = 20
 ZIPF_WINDOWS = 20
 ZIPF_THETA = 0.99
 SEED = 0
+# phase 4c, the migration scenario of benchmarks/bench_locality.py at the
+# main path's size: skewed read windows, then rebalance passes
+MIGRATION_READS = 10
+READ_NOISE = 0.10
+REBALANCE_MOVES = 4096
+REBALANCE_PASSES = 4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12              # H100 SXM float32 peak outside the tensor cores
@@ -337,7 +359,8 @@ def kernel_cases(torch, rdma, slots):
     read verb's ``wire`` left to default to ``en``, and one index vector
     broadcast to every home with ``expand`` (row stride 0); the first case
     is the one phase 6 times.  Then int32 masks and contiguous indices,
-    and the row commit's odd layouts on the write verb's forms."""
+    the row commit's indices outside [0, slots) and its odd layouts on the
+    write verb's forms."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     dev = "cuda"
     N = P * B
@@ -410,6 +433,17 @@ def kernel_cases(torch, rdma, slots):
     # rejoin); homes of 1023 x 5 words, not a multiple of 4, so that home
     # starts fall off 16 bytes; a buffer whose base is off 16 bytes (the
     # word-by-word route); duplicates in each
+    # indices outside [0, slots): one in [-slots, 0) wraps to the end of the
+    # buffer, one >= slots or < -slots is dropped; the edges -1, -slots,
+    # slots, slots + 3 and -slots - 1 in every home, the rest drawn from
+    # [-2 slots, 2 slots), on an int32 index and bool masks
+    odd = ints(-2 * slots, 2 * slots, (P, N))
+    odd[:, :5] = torch.tensor([-1, -slots, slots, slots + 3, -slots - 1],
+                              dtype=torch.int32, device=dev)
+    apply = bools((P, N))
+    cases["scatter_rows"].append(
+        ("indices outside [0, slots)",
+         (buf, odd, vals, apply, apply & bools((P, N))), {}))
     for name, n_slots, width, off in [("1-word rows", slots, 1, 0),
                                       ("home words % 4 == 3", 1023, 5, 0),
                                       ("base off 16 bytes", 4099, 5, 1)]:
@@ -993,16 +1027,52 @@ def phase_gmm_kernel(torch, kernels):
 # phase 3: the same windows on the card and on the CPU
 # ---------------------------------------------------------------------------
 
+def parity_run(torch, pt, label, cfg, steps, ledger=False):
+    """Run ``steps`` — callables (store, state) -> (state, outputs) — on a
+    P=4 store of ``cfg`` on the remote-DMA backend, once on the card and
+    once on the CPU: every state leaf and every output bitwise equal after
+    every step.  Returns {device: (store, state, manager)}."""
+    stores = {}
+    for dev in ("cuda", "cpu"):
+        mgr = pt.make_manager(4, device=dev, backend="pallas")
+        if ledger:
+            mgr.traffic.enable()
+        kv = pt.KVStore(None, "kv", mgr, **cfg)
+        stores[dev] = [kv, kv.init_state(), mgr]
+    for i, step in enumerate(steps):
+        out = {}
+        for dev, s in stores.items():
+            s[1], res = step(s[0], s[1])
+            out[dev] = (pt.state_to_numpy(s[1]), res)
+        for name in pt.KVStoreState._fields:
+            a = getattr(out["cuda"][0], name)
+            b = getattr(out["cpu"][0], name)
+            for x, y in zip(a if isinstance(a, tuple) else [a],
+                            b if isinstance(b, tuple) else [b]):
+                check(x.dtype == y.dtype and np.array_equal(x, y),
+                      f"{label} step {i}: state leaf {name} differs cuda vs "
+                      f"cpu")
+        for x, y in zip(out["cuda"][1], out["cpu"][1]):
+            check(torch.equal(x.cpu(), y),
+                  f"{label} step {i}: result differs cuda vs cpu")
+    return {dev: tuple(s) for dev, s in stores.items()}
+
+
+def window_step(ops, ks, vals, **kw):
+    return lambda kv, st: kv.op_window(st, ops, ks, vals, **kw)
+
+
 def phase_parity(torch, pt):
+    """Phase 3's map stores on the card and on the CPU: the locked store
+    through 20 windows; a lock-free store through the same 20, then
+    all-UPDATE and pure-GET windows (the fast path), its fastpath ledger
+    rows equal too; a heat-tracked store under skewed readers, one
+    rebalance, then a mixed window."""
     Pp, Bp, keys = 4, 8, np.arange(1, 41, dtype=np.uint32)
     cfg = dict(slots_per_node=8, value_width=W, num_locks=8,
                index_capacity=48)
-    stores = {}
-    for dev in ("cuda", "cpu"):
-        mgr = pt.make_manager(Pp, device=dev, backend="pallas")
-        kv = pt.KVStore(None, "kv", mgr, **cfg)
-        stores[dev] = [kv, kv.init_state()]
     rng = np.random.default_rng(SEED + 1)
+    windows = []
     for w in range(20):
         if w % 5 == 4:       # every lane hammers one key
             ks = np.full((Pp, Bp), keys[w % keys.size], np.uint32)
@@ -1011,23 +1081,74 @@ def phase_parity(torch, pt):
         ops = rng.choice([GET, UPDATE, INSERT, DELETE, NOP],
                          size=(Pp, Bp), p=[.3, .2, .3, .1, .1]).astype(np.int32)
         vals = rng.integers(-2 ** 31, 2 ** 31, (Pp, Bp, W)).astype(np.int32)
-        out = {}
-        for dev, s in stores.items():
-            s[1], res = s[0].op_window(s[1], ops, ks, vals)
-            out[dev] = (pt.state_to_numpy(s[1]), res)
-        for name in pt.KVStoreState._fields:
-            a = getattr(out["cuda"][0], name)
-            b = getattr(out["cpu"][0], name)
-            for x, y in zip(a if isinstance(a, tuple) else [a],
-                            b if isinstance(b, tuple) else [b]):
-                check(x.dtype == y.dtype and np.array_equal(x, y),
-                      f"window {w}: state leaf {name} differs cuda vs cpu")
-        for x, y in zip(out["cuda"][1], out["cpu"][1]):
-            check(torch.equal(x.cpu(), y), f"window {w}: result differs")
+        windows.append((ops, ks, vals))
+    stores = parity_run(torch, pt, "locked store", cfg,
+                        [window_step(*w) for w in windows])
     st = pt.state_to_numpy(stores["cpu"][1])
     log(f"  20 windows bitwise equal on cuda and cpu (free slots left per "
         f"participant: {st.free_top.tolist()}, index overflow: "
         f"{st.idx_overflow.tolist()})")
+
+    # the lock-free store: the same windows, then commuting ones
+    live = keys[:16]
+    fast = [(np.full((Pp, Bp), UPDATE, np.int32),
+             rng.choice(live, size=(Pp, Bp)).astype(np.uint32),
+             rng.integers(-2 ** 31, 2 ** 31, (Pp, Bp, W)).astype(np.int32)),
+            (np.full((Pp, Bp), GET, np.int32),
+             rng.choice(keys, size=(Pp, Bp)).astype(np.uint32),
+             np.zeros((Pp, Bp, W), np.int32)),
+            (np.where(rng.random((Pp, Bp)) < .5, UPDATE, GET).astype(
+                np.int32), np.full((Pp, Bp), live[3], np.uint32),
+             rng.integers(-2 ** 31, 2 ** 31, (Pp, Bp, W)).astype(np.int32))]
+    stores = parity_run(torch, pt, "lock-free store",
+                        dict(cfg, lockfree=True),
+                        [window_step(*w) for w in windows + fast],
+                        ledger=True)
+    rows = {dev: s[2].traffic.fastpath_summary() for dev, s in stores.items()}
+    check(rows["cuda"] == rows["cpu"], f"fastpath rows differ: {rows}")
+    r = rows["cuda"]["kv"]
+    check(r["windows"] == len(windows) + len(fast) and
+          r["fast_windows"] >= len(fast),
+          f"lock-free store's fastpath rows {r}")
+    log(f"  lock-free store: {len(windows) + len(fast)} windows bitwise "
+        f"equal on cuda and cpu; fastpath rows equal, {r}")
+
+    # the heat-tracked store: skewed readers, a rebalance, a mixed window
+    hcfg = dict(slots_per_node=16, value_width=W, num_locks=16,
+                index_capacity=128, track_heat=True)
+    hkeys = np.arange(1, Pp * Bp + 1, dtype=np.uint32)
+    steps = [window_step(np.full((Pp, Bp), INSERT, np.int32),
+                         hkeys.reshape(Pp, Bp),
+                         np.stack([hkeys * 3, hkeys * 5], -1).astype(
+                             np.int32).reshape(Pp, Bp, W))]
+    for _ in range(4):
+        # reader r reads keys k = r mod 4, now and then another one
+        rk = np.stack([rng.choice(hkeys[hkeys % Pp == r], Bp)
+                       for r in range(Pp)]).astype(np.uint32)
+        noise = rng.random((Pp, Bp)) < READ_NOISE
+        rk[noise] = rng.choice(hkeys, int(noise.sum()))
+
+        def read(kv, st, rk=rk):
+            st, values, found = kv.get_batch(st, rk)
+            return st, (values, found)
+        steps.append(read)
+    moved = []
+
+    def rebalance(kv, st):
+        st, n = kv.rebalance(st, 16)
+        moved.append(int(n[0]))
+        return st, (n,)
+    steps.append(rebalance)
+    mix = rng.choice([GET, UPDATE, INSERT, DELETE], size=(Pp, Bp)).astype(
+        np.int32)
+    steps.append(window_step(
+        mix, rng.choice(np.arange(1, 49, dtype=np.uint32), (Pp, Bp)),
+        rng.integers(-2 ** 31, 2 ** 31, (Pp, Bp, W)).astype(np.int32)))
+    parity_run(torch, pt, "heat-tracked store", hcfg, steps)
+    check(moved[0] == moved[1] > 0, f"rebalance moved {moved} rows")
+    log(f"  heat-tracked store: prefill, 4 skewed read windows, a rebalance "
+        f"({moved[0]} moves) and a mixed window bitwise equal on cuda and "
+        f"cpu, heat counters included")
 
 
 def phase_serving_parity(torch, pt):
@@ -1269,12 +1390,49 @@ def verify(res, exp, what):
           f"{what}: GET values differ from the oracle")
 
 
+def tree_clone(tree):
+    """A copy of every tensor of a (nested) NamedTuple state."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(tree_clone(v) for v in tree))
+    return tree.clone()
+
+
+def differing_leaves(torch, a, b, prefix=""):
+    """Paths of the leaves on which two states differ (bitwise, on the
+    device)."""
+    if isinstance(a, tuple):
+        out = []
+        for f in a._fields:
+            out += differing_leaves(torch, getattr(a, f), getattr(b, f),
+                                    f"{prefix}{f}.")
+        return out
+    same = a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    return [] if same else [prefix.rstrip(".")]
+
+
+def kernel_counts(rdma):
+    return {k.__name__: k.launches for k in rdma.KERNELS}
+
+
+def window_stats(times, span):
+    return dict(p50_ms=float(np.percentile(times, 50)) * 1e3,
+                p99_ms=float(np.percentile(times, 99)) * 1e3,
+                ops_per_s=span * len(times) / float(np.sum(times)))
+
+
 def phase_main_path(torch, pt, rdma, slots):
-    """The KVStore path: returns its metrics and the remote-DMA kernels'
-    launches, counted from 0 over this path alone."""
+    """The KVStore path: the locked store and, from the prefilled state on
+    (phase 4a), its lock-free twin run the same windows, the twin bitwise
+    equal to the locked store after every one; then the migration scenario
+    (phase 4c) on the final state.  The timed and profiled windows run with
+    the traffic ledger off on both stores; the twin's fast-path rows come
+    from an untimed replay of the same windows with its ledger on.  Returns
+    the metrics and the remote-DMA kernels' launches, counted from 0 over
+    this path alone."""
+    cfg = dict(slots_per_node=slots, value_width=W, num_locks=4096,
+               index_capacity=4 * KEYS)
     mgr = pt.make_manager(P, backend="pallas")
-    kv = pt.KVStore(None, "kv", mgr, slots_per_node=slots, value_width=W,
-                    num_locks=4096, index_capacity=4 * KEYS)
+    kv = pt.KVStore(None, "kv", mgr, **cfg)
     st = kv.init_state()
     torch.cuda.synchronize()
     log(f"  store: P={P} K={KEYS} slots/node={slots} index={4 * KEYS} "
@@ -1309,33 +1467,109 @@ def phase_main_path(torch, pt, rdma, slots):
                f"prefill window {i // span}")
     check(int(oracle.present.sum()) == n_fill, "prefill lost keys")
     log(f"  prefill: {n_fill} inserts in {n_windows} windows, oracle-checked")
+    # the locked store's peak over its prefill, before any twin exists
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+
+    # -- 4a: the lock-free twin, from a copy of the prefilled state
+    lf_mgr = pt.make_manager(P, backend="pallas")
+    lf = pt.KVStore(None, "kv", lf_mgr, lockfree=True, **cfg)
+    lst = tree_clone(st)
+    torch.cuda.synchronize()
+    log(f"  4a: lock-free twin from the prefilled state; device memory "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
+
+    def both(ops, ks, vals, what, counts=None, record=None):
+        """The window on the locked store, then on the twin: both
+        oracle-checked, the twin's state bitwise the locked one's."""
+        nonlocal st, lst
+        exp = oracle.window(ops, ks, vals)
+        if record is not None:
+            record.append(((ops, ks, vals), exp))
+        st, res, dt = timed_window(torch, kv, st, ops, ks, vals)
+        verify(res, exp, what)
+        before = kernel_counts(rdma)
+        lst, lres, ldt = timed_window(torch, lf, lst, ops, ks, vals)
+        after = kernel_counts(rdma)
+        verify(lres, exp, f"lock-free {what}")
+        diff = differing_leaves(torch, st, lst)
+        check(not diff, f"{what}: the lock-free twin differs from the locked "
+                        f"store on {diff}")
+        if counts is not None:
+            counts.append({k: after[k] - before[k] for k in after})
+        return dt, ldt
+
+    def fastpath_replay(start, recorded, what):
+        """The recorded windows again on a copy of the twin's state from
+        before them, untimed and with the twin's ledger on: every result
+        oracle-checked, the end state bitwise the timed twin's.  Returns
+        the twin's fastpath row over these windows."""
+        lf_mgr.traffic.reset()
+        lf_mgr.traffic.enable()
+        rst = start
+        for i, (win, exp) in enumerate(recorded):
+            rst, res = lf.op_window(rst, *win)
+            verify(res, exp, f"ledger replay of {what} {i}")
+        lf_mgr.traffic.disable()
+        diff = differing_leaves(torch, rst, lst)
+        check(not diff, f"the ledger replay of the {what}s ends off the timed "
+                        f"twin on {diff}")
+        return lf_mgr.traffic.fastpath_summary()["kv"]
 
     # -- the examples/kvstore_app.py mix over distinct uniform keys
-    mix_t = []
+    mix_t, lf_mix_t, recorded = [], [], []
+    start = tree_clone(lst)
     for w in range(MIX_WINDOWS):
-        ops, ks, vals = mixed_window(rng, w)
-        st, res, dt = timed_window(torch, kv, st, ops, ks, vals)
+        dt, ldt = both(*mixed_window(rng, w), f"mixed window {w}",
+                       record=recorded)
         mix_t.append(dt)
-        verify(res, oracle.window(ops, ks, vals), f"mixed window {w}")
-    log(f"  {MIX_WINDOWS} mixed windows oracle-checked")
+        lf_mix_t.append(ldt)
+    mix_fast = fastpath_replay(start, recorded, "mixed window")
+    check(mix_fast["windows"] == MIX_WINDOWS and mix_fast["fast_rate"] == 0.0,
+          f"every mixed window holds INSERT and DELETE lanes, so none may "
+          f"take the fast path: {mix_fast}")
+    log(f"  {MIX_WINDOWS} mixed windows oracle-checked; the lock-free twin "
+        f"bitwise equal after each, fastpath {mix_fast}")
 
     # -- YCSB-B: 95/5 GET/UPDATE over zipf keys, duplicates allowed
     zipf = zipf_sampler(rng)
-    zipf_t = []
+    zipf_t, lf_zipf_t, lf_counts, recorded = [], [], [], []
+    start = tree_clone(lst)
     for w in range(ZIPF_WINDOWS):
-        ops, ks, vals = zipf_window(zipf, rng, w)
-        st, res, dt = timed_window(torch, kv, st, ops, ks, vals)
+        dt, ldt = both(*zipf_window(zipf, rng, w), f"zipf window {w}",
+                       counts=lf_counts, record=recorded)
         zipf_t.append(dt)
-        verify(res, oracle.window(ops, ks, vals), f"zipf window {w}")
-    log(f"  {ZIPF_WINDOWS} zipf windows oracle-checked")
+        lf_zipf_t.append(ldt)
+    zipf_fast = fastpath_replay(start, recorded, "zipf window")
+    del start, recorded
+    check(zipf_fast["windows"] == ZIPF_WINDOWS
+          and zipf_fast["fast_rate"] == 1.0,
+          f"every zipf window must take the fast path: {zipf_fast}")
+    # a fast window's launches: the GETs' read verb (descriptors + row
+    # gather) and ONE write verb (descriptors + row commit), nothing else
+    one_write = {"build_descriptors": 2, "gather_rows": 1, "scatter_rows": 1}
+    check(all(c == one_write for c in lf_counts),
+          f"a fast zipf window's launches differ from one read verb and one "
+          f"write verb: {lf_counts}")
+    log(f"  {ZIPF_WINDOWS} zipf windows oracle-checked; the lock-free twin "
+        f"bitwise equal after each, fastpath {zipf_fast}, launches a window "
+        f"{lf_counts[0]}")
 
     # -- where a window's time goes: two more windows of each mix under
-    # the profiler (untimed above, oracle-checked like the rest)
-    profiles = {}
+    # the profiler on each store (untimed above, oracle-checked, the twin
+    # bitwise equal at the end)
+    profiles, lf_profiles = {}, {}
     for label, gen in [("mixed", lambda w: mixed_window(rng, w)),
                        ("zipf", lambda w: zipf_window(zipf, rng, w))]:
-        st, profiles[label] = profiled_windows(
-            torch, kv, st, oracle, [gen(100 + w) for w in range(2)], label)
+        wins = [gen(100 + w) for w in range(2)]
+        probe = Oracle.__new__(Oracle)
+        probe.__dict__ = {k: v.copy() for k, v in oracle.__dict__.items()}
+        st, profiles[label] = profiled_windows(torch, kv, st, oracle, wins,
+                                               label)
+        lst, lf_profiles[label] = profiled_windows(
+            torch, lf, lst, probe, wins, f"lock-free {label}")
+        diff = differing_leaves(torch, st, lst)
+        check(not diff, f"profiled {label}: the twin differs on {diff}")
 
     # -- a final read of random keys through get_batch
     probe = rng.integers(1, KEYS + 1, size=(P, B)).astype(np.uint32)
@@ -1347,20 +1581,138 @@ def phase_main_path(torch, pt, rdma, slots):
                          np.where(exp_found[..., None],
                                   oracle.value[probe.astype(np.int64)], 0)),
           "get_batch values differ from the oracle")
-    torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in rdma.KERNELS}
     log(f"  get_batch of {P * B} random keys oracle-checked")
-    peak = torch.cuda.max_memory_allocated()
+    del lst, _st
+    torch.cuda.synchronize()
+    peak_twin = torch.cuda.max_memory_allocated()
+
+    # -- 4c: the migration scenario on the final state
+    migration = phase_migration(torch, pt, cfg, st, oracle, slots)
+    torch.cuda.synchronize()
+    launches = kernel_counts(rdma)
+    zs, lzs = window_stats(zipf_t, span), window_stats(lf_zipf_t, span)
+    ms, lms = window_stats(mix_t, span), window_stats(lf_mix_t, span)
     return dict(
         prefill_ops=n_fill, prefill_windows=n_windows, prefill_s=t_fill,
         prefill_ops_per_s=n_fill / t_fill,
-        mix_window_p50_ms=float(np.percentile(mix_t, 50)) * 1e3,
-        mix_window_p99_ms=float(np.percentile(mix_t, 99)) * 1e3,
-        mix_ops_per_s=span * len(mix_t) / float(np.sum(mix_t)),
-        zipf_window_p50_ms=float(np.percentile(zipf_t, 50)) * 1e3,
-        zipf_window_p99_ms=float(np.percentile(zipf_t, 99)) * 1e3,
-        zipf_ops_per_s=span * len(zipf_t) / float(np.sum(zipf_t)),
-        peak_device_gib=peak / 2 ** 30, profile=profiles), launches
+        mix_window_p50_ms=ms["p50_ms"], mix_window_p99_ms=ms["p99_ms"],
+        mix_ops_per_s=ms["ops_per_s"],
+        zipf_window_p50_ms=zs["p50_ms"], zipf_window_p99_ms=zs["p99_ms"],
+        zipf_ops_per_s=zs["ops_per_s"],
+        peak_device_gib=peak / 2 ** 30,
+        peak_device_gib_with_twin=peak_twin / 2 ** 30, profile=profiles,
+        lockfree=dict(mix=dict(lms, fastpath=mix_fast),
+                      zipf=dict(lzs, fastpath=zipf_fast,
+                                launches_per_window=lf_counts[0]),
+                      profile=lf_profiles),
+        migration=migration), launches
+
+
+def reader_keys(rng, n_keys):
+    """One (P, B) skewed read window (benchmarks/bench_locality.py): reader
+    r draws zipf(0.99) ranks from its shard {k = r mod P}, rank i being key
+    (i - 1)·P + r (key 0 read as P), and 10% of the lanes are uniform
+    noise."""
+    shard = n_keys // P
+    ranks = np.arange(1, shard + 1, dtype=np.float64)
+    cdf = np.cumsum(1.0 / ranks ** ZIPF_THETA)
+    cdf /= cdf[-1]
+    rank = np.minimum(np.searchsorted(cdf, rng.random((P, B))), shard - 1)
+    keys = rank.astype(np.int64) * P + np.arange(P)[:, None]
+    keys = np.where(keys == 0, P, keys)
+    noise = rng.random((P, B)) < READ_NOISE
+    keys[noise] = rng.integers(1, n_keys + 1, size=int(noise.sum()))
+    return keys.astype(np.uint32)
+
+
+def phase_migration(torch, pt, cfg, st, oracle, slots):
+    """Phase 4c: a heat-tracked twin of the store gets the final state's
+    leaves and a fresh heat leaf; MIGRATION_READS skewed read windows feed
+    the HotTracker; ``rebalance(REBALANCE_MOVES)`` runs up to
+    REBALANCE_PASSES times (moves plus backlog must equal the proposals
+    each pass made); the first read window is read again and its modeled
+    wire bytes must fall; every GET, and a mixed window after the
+    migration, are oracle-checked."""
+    mgr = pt.make_manager(P, backend="pallas")
+    mgr.traffic.enable()
+    kv = pt.KVStore(None, "kv", mgr, track_heat=True, **cfg)
+    hst = st._replace(heat=kv.hot.init_state())
+    rng = np.random.default_rng(SEED + 9)
+    reads = [reader_keys(rng, KEYS) for _ in range(MIGRATION_READS)]
+
+    def read(keys, what):
+        nonlocal hst
+        hst, values, found = kv.get_batch(hst, keys)
+        k = keys.astype(np.int64)
+        exp = oracle.present[k]
+        check(np.array_equal(found.cpu().numpy(), exp),
+              f"{what}: found differs from the oracle")
+        check(np.array_equal(values.cpu().numpy(), np.where(
+            exp[..., None], oracle.value[k], 0)),
+            f"{what}: values differ from the oracle")
+
+    def wire_bytes(keys):
+        """Modeled wire bytes of one read window (its state is dropped)."""
+        mgr.traffic.reset()
+        kv.get_batch(hst, keys)
+        return mgr.traffic.total_bytes()
+
+    wire_before = wire_bytes(reads[0])
+    for i, keys in enumerate(reads):
+        read(keys, f"skewed read window {i}")
+    passes = []
+    for i in range(REBALANCE_PASSES):
+        _k, _d, valid, _a, _av = kv.rebalance_proposals(
+            hst, REBALANCE_MOVES, with_alts=True)
+        n_prop = int(valid.sum())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hst, n_moved = kv.rebalance(hst, REBALANCE_MOVES)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        moved, backlog = int(n_moved[0]), int(hst.heat.backlog[0])
+        check(0 <= moved <= n_prop and moved + backlog == n_prop
+              and (n_moved == moved).all(),
+              f"rebalance pass {i}: {moved} moves and backlog {backlog} for "
+              f"{n_prop} proposals")
+        passes.append(dict(proposals=n_prop, moves=moved, backlog=backlog,
+                           ms=dt * 1e3))
+        if n_prop == 0:
+            break
+    check(sum(p["moves"] for p in passes) > 0, "rebalance moved no row")
+    # the oracle follows the moves: homes and free slots from the index,
+    # once the index holds exactly the oracle's keys, each in one entry
+    # with a home on the cluster, and every home's free stack is its slots
+    # less the rows it homes
+    idx = hst.idx[0].cpu().numpy()
+    used = idx[:, 0] == 1
+    homes = idx[used]
+    keys = homes[:, 1].astype(np.uint32).astype(np.int64)
+    check(np.array_equal(np.sort(keys), np.flatnonzero(oracle.present)),
+          "the index's keys differ from the oracle's across migration")
+    check(bool(((homes[:, 2] >= 0) & (homes[:, 2] < P)).all()),
+          "an index entry names a home off the cluster")
+    free = slots - np.bincount(homes[:, 2], minlength=P)
+    check(np.array_equal(hst.free_top.cpu().numpy(), free),
+          f"the homes' free stacks differ from their rows: "
+          f"{hst.free_top.tolist()} vs {free.tolist()}")
+    oracle.home[keys] = homes[:, 2]
+    oracle.free = free
+    wire_after = wire_bytes(reads[0])
+    read(reads[0], "skewed read window 0 after migration")
+    check(wire_after < wire_before,
+          f"the skewed read window's modeled wire bytes did not fall: "
+          f"{wire_before} -> {wire_after}")
+    ops, ks, vals = mixed_window(rng, 200)
+    hst, res = kv.op_window(hst, ops, ks, vals)
+    verify(res, oracle.window(ops, ks, vals), "mixed window after migration")
+    out = dict(read_windows=MIGRATION_READS, passes=passes,
+               moves=sum(p["moves"] for p in passes),
+               backlog=passes[-1]["backlog"],
+               rebalance_ms=[p["ms"] for p in passes],
+               wire_bytes_before=wire_before, wire_bytes_after=wire_after)
+    log(f"  4c migration: {json.dumps(out)}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2331,8 +2683,8 @@ def main() -> int:
     model_kernels = {"flash_attention": flash_attention,
                      "decode_attention": decode_attention,
                      "rglru_scan": rglru_scan, "wkv6": wkv6, "gmm": gmm}
-    if (NOP, GET, INSERT, UPDATE, DELETE) != (pt.NOP, pt.GET, pt.INSERT,
-                                              pt.UPDATE, pt.DELETE):
+    if (NOP, GET, INSERT, UPDATE, DELETE, MOVE) != (
+            pt.NOP, pt.GET, pt.INSERT, pt.UPDATE, pt.DELETE, pt.MOVE):
         print("chip_smoke: op codes differ from repro_torch.core's",
               file=sys.stderr)
         return 1
@@ -2378,7 +2730,8 @@ def main() -> int:
         phase_parity(torch, pt)
         phase_serving_parity(torch, pt)
         phase_replicated_parity(torch, pt)
-        log("phase 4: the KVStore path")
+        log("phase 4: the KVStore path (4a: its lock-free twin; 4c: the "
+            "migration scenario)")
         t4 = time.perf_counter()
         metrics, launches = phase_main_path(torch, pt, rdma, slots)
         log(f"  KVStore path took {time.perf_counter() - t4:.1f} s")

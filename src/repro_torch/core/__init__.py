@@ -1,15 +1,17 @@
 """LOCO core, ported to PyTorch: the channel-object model on one card.
 
-Public surface so far — the KVStore window path (with its read tier and
-placement policies), the shared queue, the replication tier (ring, log,
-failure detector) and what they are built from:
+Public surface so far — the KVStore window path (with its read tier,
+placement policies, lock-free fast path and locality migration), the shared
+queue, the replication tier (ring, log, failure detector) and what they are
+built from:
 
 * runtime/binding: :class:`Runtime`, :class:`Manager`, :func:`make_manager`
 * consistency:     :class:`AckKey`, :class:`FenceScope`, :func:`join`
 * channels:        :class:`SharedRegion`, :class:`OwnedVar`,
                    :class:`AtomicVar`, :class:`SST`,
                    :class:`TicketLockArray`, :class:`KVStore`,
-                   :class:`ReadCache`, :class:`SharedQueue`,
+                   :class:`ReadCache`, :class:`HotTracker`,
+                   :class:`SharedQueue`,
                    :class:`Ringbuffer`, :class:`ReplicatedLog`,
                    :class:`FailureDetector`
 * backends:        :class:`CollsBackend`, :class:`OneSidedBackend`,

@@ -58,6 +58,14 @@ def record_rounds(ledger, verb, rounds):
         ledger.record_rounds(verb, rounds)
 
 
+def record_fastpath(ledger, name, fast, windows):
+    """Report lock-skipped windows (DESIGN.md §11): ``fast`` windows out of
+    ``windows`` executed were classified commuting and served without any
+    lock or tracker round (no-op when disabled)."""
+    if ledger is not None and ledger.enabled:
+        ledger.record_fastpath(name, fast, windows)
+
+
 def _dma():
     """The remote-DMA kernel module, imported where it is used."""
     from ..kernels import remote_dma

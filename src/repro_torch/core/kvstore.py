@@ -17,20 +17,26 @@ window start; mutations linearize in per-lock FIFO order, which is
 lock queue's longest conflict-free prefix, so the round count is the
 per-lock conflict depth.
 
-The port covers the locked window path (``lockfree=False``) on the
-scheduled implementation, with the read tier (``cache_slots > 0``, DESIGN.md
-§8: a counter-validated cache of remote rows in front of the coalesced read,
-kept coherent by invalidations that ride the tracker records) and the
-placement policies (``placement="local" | "hashed" | "explicit"``, §10.1:
-non-local INSERTs allocate at their home through the placed service round's
-request/grant round-trip).  MOVE lanes (§10.2, ``migrate_window``), heat
-tracking, the lock-free fast path and the reference-impl store are refused.
+The port covers the scheduled implementation whole: the locked window path;
+the lock-free fast path (``lockfree=True``, DESIGN.md §11: a window whose
+lock-wanting lanes are all UPDATEs is served by one counter-validated
+batched write, with no lock, tracker or ack round, and any other window falls
+back to the locked schedule); the read tier (``cache_slots > 0``, §8: a
+counter-validated cache of remote rows in front of the coalesced read, kept
+coherent by invalidations that ride the tracker records); the placement
+policies (``placement="local" | "hashed" | "explicit"``, §10.1: non-local
+INSERTs allocate at their home through the placed service round's
+request/grant round-trip); and the locality migration (§10.2–§10.3): MOVE
+lanes (``migrate_window``), read-heat tracking (``track_heat=True``) and
+``rebalance``.  Only the reference-impl store (``reference_impl=True``, the
+flat-scan executable specification) is refused.
 The port's stacked form puts the participant dimension first on every
 tensor.  Where every participant computes the same quantity from gathered
-data — the schedule masks, the tracker records' order — it is computed once
-for all of them.  The reference's data-dependent ``lax.while_loop``s
-(service rounds, tracker waves, GET retries, the all-hit skip of the cached
-read) become Python loops keyed on one host read each.
+data — the schedule masks, the tracker records' order, the rebalance
+proposals — it is computed once for all of them.  The reference's
+data-dependent ``lax.while_loop``s (service rounds, tracker waves, GET
+retries, the all-hit skip of the cached read, the lock-free gates) become
+Python loops or branches keyed on host reads.
 """
 from __future__ import annotations
 
@@ -82,7 +88,7 @@ class KVStoreState(NamedTuple):
     idx_overflow: torch.Tensor  # (P,) bool — a probe window ran out of space
     acks: SSTState             # tracker ack counters
     cache: ReadCacheState      # read tier (zero-line when cache_slots == 0)
-    heat: HotTrackerState      # read-heat tier (zero-row: not ported)
+    heat: HotTrackerState      # read-heat tier (zero-row when untracked)
 
 
 def _first_true(mask):
@@ -104,19 +110,21 @@ def _take(t, i):
 
 def _refresh_look(recs, applied, key, look):
     """A service round's per-lane index view, refreshed from the round's
-    applied tracker records: an applied insert re-points its key, an applied
-    delete clears it (each live key is in at most one record per round)."""
+    applied tracker records: an applied insert or move re-points its key, an
+    applied delete clears it (each live key is in at most one record per
+    round)."""
     found, node, slot, ctr = look
     rec_key = i2u(recs[:, 1])
     same = rec_key[None, None, :] == key[:, :, None]             # (P, B, N)
-    m_ins = (applied & (recs[:, 0] == 1))[:, None, :] & same
-    hit_ins = m_ins.any(2)
+    put = (recs[:, 0] == 1) | (recs[:, 0] == 3)
+    m_put = (applied & put)[:, None, :] & same
+    hit_put = m_put.any(2)
     hit_del = ((applied & (recs[:, 0] == 2))[:, None, :] & same).any(2)
-    r = recs[_first_true(m_ins)]                                 # (P, B, 5)
-    return (hit_ins | (found & ~hit_del),
-            torch.where(hit_ins, r[..., 2], node),
-            torch.where(hit_ins, r[..., 3], slot),
-            torch.where(hit_ins, i2u(r[..., 4]), ctr))
+    r = recs[_first_true(m_put)]                                 # (P, B, 5)
+    return (hit_put | (found & ~hit_del),
+            torch.where(hit_put, r[..., 2], node),
+            torch.where(hit_put, r[..., 3], slot),
+            torch.where(hit_put, i2u(r[..., 4]), ctr))
 
 
 class KVStore(Channel):
@@ -131,13 +139,13 @@ class KVStore(Channel):
         if placement not in PLACEMENTS:
             raise ValueError(f"placement must be one of {PLACEMENTS}, "
                              f"got {placement!r}")
-        later = {"track_heat=True": track_heat, "lockfree=True": lockfree,
-                 "reference_impl=True": reference_impl}
-        missing = [k for k, on in later.items() if on]
-        if missing:
+        if lockfree and reference_impl:
+            raise ValueError("lockfree=True requires the scheduled "
+                             "implementation (reference_impl=False)")
+        if reference_impl:
             raise NotImplementedError(
-                f"{', '.join(missing)}: the port runs the locked window "
-                f"path only so far")
+                "reference_impl=True: the flat-scan executable "
+                "specification is not ported yet")
         super().__init__(parent, name, mgr)
         self.backend = get_backend(backend, default=mgr.backend)
         self.S = int(slots_per_node)
@@ -145,11 +153,16 @@ class KVStore(Channel):
         self.L = int(num_locks)
         self.C = int(index_capacity or (self.S * self.P * 2))
         self.PROBE = min(self.C, int(index_max_probe or DEFAULT_MAX_PROBE))
+        # op_window's default: the §11 lock-free commuting fast path
+        self.lockfree = bool(lockfree)
         self.coalesce_reads = bool(coalesce_reads)
         self.placement = placement
         self.cache = ReadCache(self, "readcache", mgr, lines=cache_slots,
                                row_width=self.W + 3,
                                backing_slots=self.S) if cache_slots else None
+        # the GET paths feed the heat channel rebalance() reads (§10.3)
+        self.hot = HotTracker(self, "heat", mgr, nodes=self.P, slots=self.S,
+                              decay=heat_decay) if track_heat else None
         self.locks = TicketLockArray(self, "locks", mgr, num_locks=self.L)
         self.rows_region = SharedRegion(self, "data", mgr, slots=self.S,
                                         item_shape=(self.W + 3,),
@@ -197,7 +210,8 @@ class KVStore(Channel):
             acks=self.acks.init_state(device=device),
             cache=(self.cache.init_state(device) if self.cache is not None
                    else ReadCache.empty_state(P, self.W + 3, dev)),
-            heat=HotTracker.empty_state(P, dev))
+            heat=(self.hot.init_state(device) if self.hot is not None
+                  else HotTracker.empty_state(P, dev)))
 
     def _lanes_in(self, ops, keys, values=None):
         """Caller's (P, B) window → device tensors of the store's types."""
@@ -250,12 +264,15 @@ class KVStore(Channel):
     # -- lock-free GETs (paper Fig. 3 read path) -------------------------------------
     def _get_window(self, st: KVStoreState, keys, pred, look=None):
         """(P, B) lock-free GETs through the read tier → (values (P, B, W),
-        found (P, B), tries, state).  A cache-less store runs the uncached
-        path and returns the state unchanged; a cached store returns it
-        with this window's refills."""
+        found (P, B), tries, state).  The returned state carries this
+        window's heat observations on a heat-tracked store and its refills
+        on a cached one, and nothing else."""
         if look is None:
             found_idx, _pos, node, slot, ctr = self._index_lookup(st, keys)
             look = (found_idx, node, slot, ctr)
+        if self.hot is not None:
+            st = st._replace(heat=self.hot.observe(
+                st.heat, look[1], look[2], pred & look[0]))
         if self.cache is None:
             values, found, tries = self._get_window_reference(st, keys, pred,
                                                               look)
@@ -442,6 +459,11 @@ class KVStore(Channel):
             free_top=(st.free_top + hf.sum(1)).to(torch.int32),
             slot_ctr=colls.put_rows(st.slot_ctr, old_slot, 1, bump,
                                     accumulate=True) & MASK32)
+        if self.hot is not None:
+            # vacated rows start cold for their next tenant (§10.3)
+            st = st._replace(heat=self.hot.forget(
+                st.heat, torch.where(is_mov, old_node, node), gc_slot,
+                applied & (is_del | is_mov)))
         return st, applied
 
     # -- the precomputed service schedule ---------------------------------------------
@@ -587,20 +609,28 @@ class KVStore(Channel):
     # -- the placed service round (explicit locality tier, DESIGN.md §10) -------
     def _service_window_placed(self, st: KVStoreState, op, key, value,
                                pending, look, serve, write_winner, homes,
-                               any_alloc):
+                               any_alloc, has_move):
         """One service round under non-local placement: INSERT slots are
         allocated at each lane's *home* (P, B) through a request/grant
-        round-trip, and the rows travel on the batched one-sided write.
-        Each home grants its requests in global (participant, lane) order
-        from its own free stack, so homes equal to the writers land the
-        writer-local path's slot choices.  The round-trip runs in every
-        round of a window with an allocating lane anywhere (``any_alloc``,
-        from the window's lanes) and in no round of any other window.
+        round-trip, the rows travel on the batched one-sided write, and
+        MOVE lanes re-home live rows (§10.2).  Each home grants its requests
+        in global (participant, lane) order from its own free stack, so
+        homes equal to the writers land the writer-local path's slot
+        choices.  The round-trip runs in every round of a window with an
+        allocating lane anywhere (``any_alloc``, from the window's lanes)
+        and in no round of any other window.
 
-        The reference's MOVE pre-read rides the round-trip with no lane
-        enabled (the port refuses MOVE lanes); it is kept because it records
-        the reference's ``move_read`` ledger row.  Returns (state, pending,
-        holding, success, look) as :meth:`_service_window` does."""
+        A MOVE lane holds its key's lock, so one clean pre-read of the row
+        at its old home suffices; it rides the round-trip.  The mover
+        allocates at the destination, emits one kind-3 tracker record naming
+        the new location (every participant applies it as tombstone and
+        reinsert in one wave; the old home frees the vacated slot and bumps
+        its reuse counter), and once every peer acknowledged it writes the
+        row at the destination and clears the old one, both in the round's
+        batched write (2B lanes in a window with a MOVE lane,
+        ``has_move``).  A MOVE whose destination is the current home
+        succeeds with no effect.  Returns (state, pending, holding, success,
+        look) as :meth:`_service_window` does."""
         P, B = op.shape
         S = self.S
         ar = torch.arange(P, device=op.device)
@@ -612,21 +642,26 @@ class KVStore(Channel):
         do_ins = holding & (op == INSERT) & ~found
         do_upd = holding & (op == UPDATE) & found
         do_del = holding & (op == DELETE) & found
+        is_move = holding & (op == MOVE) & found
+        do_move = is_move & (homes != node)
+        move_noop = is_move & (homes == node)
 
-        # ---- allocation at the home nodes: one (P·B, 2) request gather,
-        # one (P·B, 3) grant psum
+        # ---- the MOVE pre-read and the allocation at the home nodes: one
+        # (P·B, 2) request gather, one (P·B, 3) grant psum
         N = P * B
+        alloc_want = do_ins | do_move
         grant = torch.zeros((P, N), dtype=torch.bool, device=op.device)
         a_slot = torch.zeros((P, N), dtype=torch.int32, device=op.device)
         aok = torch.zeros_like(do_ins)
         my_slot = torch.zeros((P, B), dtype=torch.int32, device=op.device)
         new_ctr = torch.zeros((P, B), dtype=torch.int64, device=op.device)
+        moved = torch.zeros_like(value)
         if any_alloc:
-            self.backend.read_batch(
-                st.rows.buf, node, slot, preds=torch.zeros_like(do_ins),
+            moved = self.backend.read_batch(
+                st.rows.buf, node, slot, preds=do_move,
                 ledger=self.mgr.traffic, verb=f"{self.full_name}.move_read",
-                coalesce=False)
-            g_want, g_home = do_ins.reshape(-1), homes.reshape(-1)
+                coalesce=False)[..., :self.W]
+            g_want, g_home = alloc_want.reshape(-1), homes.reshape(-1)
             mine = g_want[None, :] & (g_home[None, :] == me)       # (P, N)
             mn = mine.to(torch.int64)
             rank = mn.cumsum(1) - mn
@@ -646,6 +681,8 @@ class KVStore(Channel):
             aok, my_slot, new_ctr = tbl[..., 0] != 0, tbl[..., 1], \
                 i2u(tbl[..., 2])
         do_ins = do_ins & aok
+        do_move = do_move & aok
+        placed = do_ins | do_move
 
         # ---- INSERT phase 1: the writer one-sided-writes the invalid row
         # at its home (a self lane is a local store, zero wire bytes)
@@ -654,20 +691,22 @@ class KVStore(Channel):
             preds=do_ins, assume_unique=True)
         st = st._replace(rows=rows_inv)
 
-        # ---- tracker broadcast: kind-1 records name the NEW location
-        kind = torch.where(do_ins, 1, torch.where(do_del, 2, 0))
+        # ---- tracker broadcast: kind-1/3 records name the NEW location, a
+        # kind-3's old one is recovered from the index at apply time
+        kind = torch.where(do_ins, 1, torch.where(
+            do_del, 2, torch.where(do_move, 3, 0)))
         rec = torch.stack(
             [kind.to(torch.int32), u2i(key),
-             torch.where(do_ins, homes, node).to(torch.int32),
-             torch.where(do_ins, my_slot, slot).to(torch.int32),
-             u2i(torch.where(do_ins, new_ctr, ctr))], dim=-1)    # (P, B, 5)
+             torch.where(placed, homes, node).to(torch.int32),
+             torch.where(placed, my_slot, slot).to(torch.int32),
+             u2i(torch.where(placed, new_ctr, ctr))], dim=-1)    # (P, B, 5)
         recs = rec.reshape(N, 5)                     # the gather, participant-major
         if self.cache is not None:
             # §8.3: invalidate the PRE-mutation location of every mutated
-            # row (the lane's index view)
+            # row (the lane's index view; a MOVE vacates its old home)
             st = st._replace(cache=self.cache.invalidate(
                 st.cache, node.reshape(-1), slot.reshape(-1),
-                (do_upd | do_del).reshape(-1)))
+                (do_upd | do_del | do_move).reshape(-1)))
         n_recs = (recs[:, 0] != 0).sum()
         st, applied = self._apply_tracker_vectorized(st, recs)
         my_applied = applied.reshape(P, P, B)[ar, ar]
@@ -685,22 +724,31 @@ class KVStore(Channel):
             free_stack=colls.put_rows(st.free_stack, back, a_slot, fail),
             free_top=(st.free_top + f.sum(1)).to(torch.int32))
         ins_ok = do_ins & my_applied
+        move_ok = do_move & my_applied
 
         # ---- the round's one-sided row writes in ONE batched write: UPDATE
-        # winners and DELETE clears, and the ack-gated INSERT valid rows
+        # winners and DELETE clears, the ack-gated INSERT valid rows and MOVE
+        # destination rows, and (a window with a MOVE lane) the ack-gated
+        # clears of the moved rows' old slots
         row_upd = self.encode_row(value, ctr, True)
         row_del = self.encode_row(torch.zeros_like(value), ctr, False)
         row_ins = self.encode_row(value, new_ctr, True)
-        gate = join(AckKey([acks]), ins_ok & all_acked[:, None])
-        prim = torch.where(do_upd[..., None], row_upd,
-                           torch.where(do_del[..., None], row_del, row_ins))
+        row_mov = self.encode_row(moved, new_ctr, True)
+        gate = join(AckKey([acks]), (ins_ok | move_ok) & all_acked[:, None])
+        prim = torch.where(do_upd[..., None], row_upd, torch.where(
+            do_del[..., None], row_del,
+            torch.where(do_ins[..., None], row_ins, row_mov)))
+        tgt = torch.where(placed, homes, node)
+        idx = torch.where(placed, my_slot, slot)
+        preds = (do_upd & write_winner) | do_del | gate
+        if has_move:
+            tgt, idx = torch.cat([tgt, node], 1), torch.cat([idx, slot], 1)
+            prim = torch.cat([prim, row_del], 1)
+            preds = torch.cat([preds, gate & do_move], 1)
         rows2, _ = self.rows_region.write_batch(
-            st.rows, torch.where(do_ins, homes, node),
-            torch.where(do_ins, my_slot, slot), prim,
-            preds=(do_upd & write_winner) | do_del | gate,
-            assume_unique=True)
+            st.rows, tgt, idx, prim, preds=preds, assume_unique=True)
         st = st._replace(rows=rows2)
-        success = ins_ok | do_upd | do_del
+        success = ins_ok | do_upd | do_del | move_ok | move_noop
         return (st, pending & ~holding, holding, success,
                 _refresh_look(recs, applied, key, look))
 
@@ -727,26 +775,37 @@ class KVStore(Channel):
 
     # -- windows --------------------------------------------------------------------
     def op_window(self, st: KVStoreState, ops, keys, values, targets=None,
-                  targets_are_homes=False):
+                  targets_are_homes=False, lockfree=None):
         """Every participant submits a window of mixed operations; the whole
         (P, B) window executes in one round-set.  Service rounds run until
         every mutation completed.  Returns (state, KVResult).
 
-        ops (P, B) int in {NOP, GET, INSERT, UPDATE, DELETE}; keys (P, B)
-        uint32 (nonzero); values (P, B, W) int32.  ``targets`` (P, B) int:
-        per-lane placement hints (§10.1), the home of INSERT lanes under
-        ``placement="explicit"``.  ``targets_are_homes=True`` (the replay
-        entry point) bypasses the placement policy: ``targets`` ARE the
-        per-lane homes.  A window holding a MOVE lane raises
-        ``NotImplementedError``: migration (``migrate_window``) is not
-        ported yet."""
+        ops (P, B) int in {NOP, GET, INSERT, UPDATE, DELETE, MOVE}; keys
+        (P, B) uint32 (nonzero); values (P, B, W) int32.  ``targets`` (P, B)
+        int: per-lane placement hints (§10.1), the home of INSERT lanes
+        under ``placement="explicit"`` and the destination of MOVE lanes.
+        MOVE lanes need the placed path (a non-local placement or explicit
+        ``targets``); under the writer-local path they take their lock and
+        fail (``found=False``) with no effect.  ``targets_are_homes=True``
+        (the replay entry point) bypasses the placement policy: ``targets``
+        ARE the per-lane homes.
+
+        ``lockfree`` (default: the store's constructor knob) runs the §11
+        fast path: a window whose lock-wanting lanes are all UPDATEs
+        (pure-GET windows included) is served by one batched
+        counter-validated write, with no service round, tracker sweep or
+        SST push; any other window falls back to the locked schedule.  Both
+        paths commit identical state bits for identical windows.  The
+        window's uniform flags (a MOVE or allocating lane anywhere, a
+        lock-wanting lane anywhere, the fast classification) cost one host
+        read together."""
+        lockfree = self.lockfree if lockfree is None else bool(lockfree)
         ops, keys, values = self._lanes_in(ops, keys, values)
-        has_move, any_alloc = torch.stack(
-            [(ops == MOVE).any(), (ops == INSERT).any()]).tolist()
-        if has_move:
-            raise NotImplementedError(
-                "MOVE lanes (migrate_window, DESIGN.md §10.2) are not ported "
-                "yet")
+        want_lock = (ops == INSERT) | (ops == UPDATE) | (ops == DELETE) \
+            | (ops == MOVE)
+        has_move, any_alloc, any_want, win_fast = torch.stack(
+            [(ops == MOVE).any(), ((ops == INSERT) | (ops == MOVE)).any(),
+             want_lock.any(), ~(want_lock & (ops != UPDATE)).any()]).tolist()
         if targets_are_homes:
             homes = _tensor(targets, torch.int32, self.device).reshape(
                 ops.shape).clamp(0, self.P - 1)
@@ -754,31 +813,64 @@ class KVStore(Channel):
             homes = self._lane_homes(ops, keys, targets)
         P, B = ops.shape
         lock_id = (keys % self.L).to(torch.int32)
-        want_lock = (ops == INSERT) | (ops == UPDATE) | (ops == DELETE)
         # one index probe for the whole window; the service rounds keep the
         # per-lane view current from the tracker records
         found0, _pos, node0, slot0, ctr0 = self._index_lookup(st, keys)
         look = (found0, node0, slot0, ctr0)
 
-        lstate, ticket = self.locks.acquire_window(st.locks, lock_id,
-                                                   want_lock)
-        # every acquired ticket completes within this window, so the
-        # end-of-window release bumps now_serving by the acquire totals
-        lock_totals = (lstate.next_ticket - st.locks.next_ticket) & MASK32
-        st = st._replace(locks=lstate)
+        # the locked path acquires and schedules every window; the §11
+        # path only a window with a lock-wanting lane anywhere
+        lock_totals = None
+        if any_want or not lockfree:
+            lstate, ticket = self.locks.acquire_window(st.locks, lock_id,
+                                                       want_lock)
+            # every acquired ticket completes within this window, so the
+            # end-of-window release bumps now_serving by the acquire totals
+            lock_totals = (lstate.next_ticket - st.locks.next_ticket) & MASK32
+            st = st._replace(locks=lstate)
+            round_no, write_winner = self._service_schedule(
+                ops, keys, lock_id, ticket, want_lock)
 
         # lock-free GETs against the pre-window state
         get_val, get_found, retries, st = self._get_window(
             st, keys, ops == GET, look=look)
 
-        round_no, write_winner = self._service_schedule(
-            ops, keys, lock_id, ticket, want_lock)
         pending = want_lock
         succ = torch.zeros_like(want_lock)
+        fast = lockfree and win_fast
+        if lockfree:
+            # a found UPDATE of a fast window succeeds whether or not its
+            # write wins, as in the locked round
+            do_upd_fast = (ops == UPDATE) & found0 & win_fast
+            if any_want and win_fast:
+                if self.cache is not None:
+                    # the §8.3 invalidation the locked round's tracker
+                    # records would carry: an UPDATE overwrites the live row
+                    # its index view names
+                    st = st._replace(cache=self.cache.invalidate(
+                        st.cache, node0.reshape(-1).to(torch.int32),
+                        slot0.reshape(-1).to(torch.int32),
+                        ((ops == UPDATE) & found0).reshape(-1)))
+                # the fast serve: commuting UPDATEs are ONE batched
+                # counter-validated write of the rows the index view names;
+                # superseded same-key lanes are winner-masked as in the
+                # locked round
+                rows, _ = self.rows_region.write_batch(
+                    st.rows, node0.to(torch.int32), slot0.to(torch.int32),
+                    self.encode_row(values, ctr0, True),
+                    preds=do_upd_fast & write_winner, assume_unique=True)
+                st = st._replace(rows=rows)
+            pending = want_lock & (not win_fast)
+            succ = do_upd_fast
+            # one count a window: the classification is the same at every
+            # participant, and the reference records it once
+            colls.record_fastpath(self.mgr.traffic, self.full_name,
+                                  float(win_fast), 1.0)
         # the reference loops while any lane anywhere is pending; every
-        # wanting lane is served in its scheduled round, so that is exactly
+        # pending lane is served in its scheduled round, so that is exactly
         # max(round_no) rounds
-        for r in range(1, int(round_no.max()) + 1):
+        n_rounds = int(round_no.max()) if any_want and not fast else 0
+        for r in range(1, n_rounds + 1):
             if homes is None:
                 st, pending, _held, s_now, look = self._service_window(
                     st, ops, keys, values, pending, look,
@@ -788,13 +880,14 @@ class KVStore(Channel):
                     self._service_window_placed(
                         st, ops, keys, values, pending, look,
                         serve=round_no == r, write_winner=write_winner,
-                        homes=homes, any_alloc=any_alloc)
+                        homes=homes, any_alloc=any_alloc, has_move=has_move)
             succ = succ | s_now
 
         # deferred batched release, after every critical-section effect
         # (program order is the release fence, §5.4)
-        st = st._replace(locks=st.locks._replace(
-            now_serving=(st.locks.now_serving + lock_totals) & MASK32))
+        if lock_totals is not None:
+            st = st._replace(locks=st.locks._replace(
+                now_serving=(st.locks.now_serving + lock_totals) & MASK32))
         is_get = ops == GET
         return st, KVResult(
             value=torch.where(is_get[..., None], get_val,
@@ -813,6 +906,109 @@ class KVStore(Channel):
                                                               self.W))
         return st, KVResult(value=res.value[:, 0], found=res.found[:, 0],
                             retries=res.retries[:, 0])
+
+    # -- online migration and rebalancing (the §10 locality tier) ----------------
+    def migrate_window(self, st: KVStoreState, keys, dests, preds=None):
+        """Re-home a (P, B) lane window of live rows in one round-set: lane
+        (p, b) moves ``keys[p, b]`` to node ``dests[p, b]``.  MOVE lanes of
+        :meth:`op_window`, so migrations take the key's ticket lock and
+        linearize with concurrent windows like any mutation.  Returns
+        (state, moved (P, B) bool): a lane fails when the key is absent,
+        the destination's free stack is exhausted or ``preds`` masks it; a
+        move to the key's current home succeeds with no effect."""
+        keys = as_u32(keys, self.device).reshape(self.P, -1)
+        B = keys.shape[1]
+        if preds is None:
+            preds = torch.ones((self.P, B), dtype=torch.bool,
+                               device=self.device)
+        preds = torch.as_tensor(preds, device=self.device).to(torch.bool) \
+            .reshape(self.P, B)
+        ops = torch.where(preds, MOVE, NOP).to(torch.int32)
+        st, res = self.op_window(
+            st, ops, keys,
+            torch.zeros((self.P, B, self.W), dtype=torch.int32,
+                        device=self.device),
+            targets=_tensor(dests, torch.int32, self.device).reshape(
+                self.P, B))
+        return st, res.found
+
+    def rebalance_proposals(self, st: KVStoreState, max_moves: int,
+                            min_heat: float = 1.0, with_alts: bool = False):
+        """Up to ``max_moves`` MOVE proposals for rows whose dominant reader
+        is remote (§10.3), from the HotTracker's decayed counters; needs
+        ``track_heat=True``.  Every live index entry is scored by
+        (dominant-reader heat − current-home heat) and the top ones are
+        taken, ties to the lower index position as ``lax.top_k`` breaks
+        them.  The list is the same for every participant, so it is
+        computed once (the index is identical everywhere) and dealt
+        round-robin: proposal j rides lane j // P of participant j % P.
+
+        Returns (keys (P, B), dests (P, B), valid (P, B)) with
+        B = ceil(max_moves / P); invalid lanes are padding.  ``with_alts``
+        adds (alts (P, B), alt_valid (P, B)): each row's second-hottest
+        reader, for the backlog spill, valid where it improves locality
+        (heat ≥ ``min_heat``, above the current home's, another node)."""
+        if self.hot is None:
+            raise ValueError("rebalance needs a heat-tracked store "
+                             "(track_heat=True)")
+        P = self.P
+        B = -(-int(max_moves) // P)
+        M = min(B * P, self.C)
+        B = -(-M // P)
+        g = st.heat.heat                                   # (P, P·S)
+        dom = g.argmax(0)                                  # dominant reader
+        dom_heat = g.amax(0)
+        idx = st.idx[0]
+        node = idx[:, IDX_NODE].clamp(0, P - 1).long()
+        lid = self.hot.line_of(node, idx[:, IDX_SLOT])
+        home_heat = g[node, lid]
+        want = (idx[:, IDX_STATE] == _USED) & (dom[lid] != node) \
+            & (dom_heat[lid] >= min_heat)
+        score = torch.where(want, dom_heat[lid] - home_heat,
+                            torch.full((), -1.0, device=g.device))
+        top_score, top_pos = torch.sort(score, descending=True, stable=True)
+        top_score, top_pos = top_score[:M], top_pos[:M]
+        lane = self.my_id()[:, None] \
+            + torch.arange(B, device=g.device)[None, :] * P
+        sel = lane.clamp(0, M - 1)
+        # the caller's bound is exact even where the P-lane grid rounds
+        # past it
+        valid = (top_score > 0.0)[sel] & (lane < min(int(max_moves), M))
+        keys = i2u(idx[top_pos, IDX_KEY])[sel]
+        dests = dom[lid[top_pos]].to(torch.int32)[sel]
+        if not with_alts:
+            return keys, dests, valid
+        # the second-hottest reader: the argmax with the dominant one's
+        # heat masked out
+        g_wo = torch.where(torch.arange(P, device=g.device)[:, None]
+                           == dom[None, :],
+                           torch.full((), -torch.inf, device=g.device), g)
+        alt, alt_heat = g_wo.argmax(0), g_wo.amax(0)
+        l_top = lid[top_pos]
+        alts = alt[l_top].to(torch.int32)
+        altv = (alt_heat[l_top] >= min_heat) \
+            & (alt_heat[l_top] > home_heat[top_pos]) \
+            & (alt[l_top] != node[top_pos])
+        return keys, dests, valid, alts[sel], altv[sel]
+
+    def rebalance(self, st: KVStoreState, max_moves: int,
+                  min_heat: float = 1.0):
+        """Propose and execute one migration window: rows whose dominant
+        reader is remote move to it.  A proposal that fails (destination
+        full, key gone) spills to its second-hottest reader in a second
+        window when that one improves locality; what still fails is
+        deferred, not dropped (its heat persists), and counted in
+        ``st.heat.backlog``.  Returns (state, n_moved (P,) int32 — the
+        cluster-wide count of executed moves, on every participant)."""
+        keys, dests, valid, alts, altv = self.rebalance_proposals(
+            st, max_moves, min_heat=min_heat, with_alts=True)
+        st, moved = self.migrate_window(st, keys, dests, preds=valid)
+        st, spilled = self.migrate_window(st, keys, alts,
+                                          preds=valid & ~moved & altv)
+        n_moved = (moved.sum() + spilled.sum()).to(torch.int32)
+        backlog = valid.sum().to(torch.int32) - n_moved
+        st = st._replace(heat=st.heat._replace(backlog=backlog.repeat(self.P)))
+        return st, n_moved.repeat(self.P)
 
     # -- replication records (the ReplicatedLog's entries, DESIGN.md §9.3) --
     @property

@@ -1,10 +1,12 @@
 """Ticket locks over network memory — LOCO §5.4, after Mellor-Crummey &
 Scott; the counterpart of ``repro/core/lock.py``.
 
-This slice ports the KVStore's lock stripe: :class:`TicketLockArray` with its
-windowed acquire and release, and :func:`window_fifo_ranks`, the fused
-windowed fetch-and-add that resolves a whole window's tickets at once.  The
-scalar :class:`TicketLock` waits for a later slice.
+The port holds the KVStore's lock stripe: :class:`TicketLockArray` with its
+windowed acquire (and its prepared form, the reference's surface for a
+caller that resolved the ranks itself) and release, and
+:func:`window_fifo_ranks`, the fused windowed fetch-and-add that resolves a
+whole window's tickets at once.  The scalar :class:`TicketLock` waits for a
+later slice.
 """
 from __future__ import annotations
 
@@ -69,6 +71,18 @@ class TicketLockArray(Channel):
         lock_ids (P, B) int; want (P, B) bool.  Returns (state, tickets
         (P, B) uint32) with NO_TICKET where not wanting."""
         rank, totals = window_fifo_ranks(lock_ids, want, self.L)
+        return self.acquire_window_prepared(state, lock_ids, want, rank,
+                                            totals)
+
+    def acquire_window_prepared(self, state: TicketLockArrayState, lock_ids,
+                                want, rank, totals):
+        """Apply an already-resolved window acquire: ``(rank (P, B),
+        totals (L,))`` as :func:`window_fifo_ranks` computes them.  The
+        reference's lock-free window plan (DESIGN.md §11) calls it with the
+        ranks its own lane gather resolved; in the stacked port
+        :meth:`acquire_window` resolves them once for every participant and
+        calls it.  Returns (state, tickets (P, B) uint32) with NO_TICKET
+        where not wanting."""
         ticket = (state.next_ticket.gather(1, lock_ids.long()) + rank) \
             & MASK32
         new = state._replace(

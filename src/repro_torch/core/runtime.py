@@ -54,10 +54,11 @@ class RegionInfo:
 
 
 class TrafficLedger:
-    """Per-verb traffic accounting (DESIGN.md §2.3, §8, §12, §14, §15):
+    """Per-verb traffic accounting (DESIGN.md §2.3, §8, §11, §12, §14, §15):
     modeled wire bytes, modeled collective rounds, read-cache hits and
-    lookups, the bytes the remote-DMA kernels measure, and the per-channel
-    counts of checksum failures (corrupt) and stale-epoch entries (fenced).
+    lookups, lock-free-served windows, the bytes the remote-DMA kernels
+    measure, and the per-channel counts of checksum failures (corrupt) and
+    stale-epoch entries (fenced).
 
     A verb reports one (P,) tensor — each participant's bytes — which is
     summed on the device into the verb's running total; nothing is read to
@@ -83,6 +84,7 @@ class TrafficLedger:
         self.round_counts: Dict[str, Dict[str, float]] = {}
         self.dma_counts: Dict[str, Dict[str, Any]] = {}
         self.cache_counts: Dict[str, Dict[str, Any]] = {}
+        self.fastpath_counts: Dict[str, Dict[str, Any]] = {}
         self.corrupt_counts: Dict[str, Any] = {}
         self.fenced_counts: Dict[str, Any] = {}
         return self
@@ -114,6 +116,16 @@ class TrafficLedger:
         e = self.cache_counts.setdefault(name, {"hits": 0.0, "lookups": 0.0})
         for k, v in (("hits", hits), ("lookups", lookups)):
             e[k] = e[k] + torch.as_tensor(v).to(torch.float64).sum()
+
+    def record_fastpath(self, name: str, fast, windows):
+        """Add ``fast`` lock-free-served windows out of ``windows`` executed
+        against channel ``name`` (§11): a fast window was classified
+        commuting and served without its lock, tracker and ack rounds.  The
+        classification is known on the host, so the counts are floats."""
+        e = self.fastpath_counts.setdefault(
+            name, {"fast_windows": 0.0, "windows": 0.0})
+        e["fast_windows"] += float(fast)
+        e["windows"] += float(windows)
 
     def record_corrupt(self, name: str, count):
         """Add checksum-validation failures (a per-participant tensor, summed
@@ -149,6 +161,15 @@ class TrafficLedger:
             hits, lookups = float(v["hits"]), float(v["lookups"])
             out[k] = {"hits": hits, "lookups": lookups,
                       "hit_rate": hits / lookups if lookups else 0.0}
+        return out
+
+    def fastpath_summary(self) -> Dict[str, Dict[str, float]]:
+        """Per-channel lock-skipped-window counters with derived rates."""
+        out = {}
+        for k, v in sorted(self.fastpath_counts.items()):
+            fast, windows = float(v["fast_windows"]), float(v["windows"])
+            out[k] = {"fast_windows": fast, "windows": windows,
+                      "fast_rate": fast / windows if windows else 0.0}
         return out
 
     def corrupt_summary(self) -> Dict[str, float]:

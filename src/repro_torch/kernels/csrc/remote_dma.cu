@@ -28,7 +28,8 @@
 //
 // Rows are moved as 32-bit words: the wrapper passes any 4-byte dtype as its
 // int32 bit pattern.  Gather indices must already lie in [0, slots) (the
-// verbs clip); a scatter lane outside it is not committed.
+// verbs clip); a scatter index in [-slots, 0) wraps, and one outside
+// [-slots, slots) is not committed.
 // Each C entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError(); the Python wrapper raises on a non-zero code.
 
@@ -149,8 +150,9 @@ __global__ void gather_rows_kernel(const int32_t* __restrict__ buf,
 // thread where buf and out share their alignment (vec), taking each word of
 // an elected row from values in place of buf.  Every output word is written
 // once, by the one CTA that owns it: no global atomics, no order between
-// CTAs, no winner array in device memory.  A lane whose row lies outside
-// [0, slots) falls in no stripe and is never written.  CTA (0, p) also
+// CTAs, no winner array in device memory.  An index in [-slots, 0) wraps
+// to the end of the buffer; any other index outside [0, slots) falls in no
+// stripe and is never written.  CTA (0, p) also
 // counts home p's wire lanes and stores nbytes[p] = row_nbytes per wire
 // lane, once.
 __global__ void __launch_bounds__(kThreads)
@@ -172,7 +174,9 @@ __global__ void __launch_bounds__(kThreads)
   const int32_t* ix = idx + p * idx_stride;
   const uint8_t* ap = apply + static_cast<int64_t>(p) * N;
   for (int lane = threadIdx.x; lane < N; lane += kThreads) {
-    const int64_t row = static_cast<int64_t>(ix[lane]) - r0;
+    int64_t r = ix[lane];
+    if (r < 0) r += slots;  // [-slots, 0) wraps; the rest falls outside
+    const int64_t row = r - r0;
     if (ap[lane] != 0 && row >= 0 && row < rows) atomicMax(win + row, lane);
   }
   __syncthreads();

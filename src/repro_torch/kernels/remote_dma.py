@@ -216,16 +216,21 @@ gather_rows.launches = 0
 def _scatter_ref(buf, indices, values, apply_mask, wire_mask, row_nbytes):
     P, slots = buf.shape[:2]
     n = indices.shape[1]
+    # an index in [-slots, 0) wraps to the end of the buffer and any other
+    # index outside [0, slots) is dropped, as the reference's
+    # ``.at[row].set(mode="drop")`` does
+    rows = indices.long()
+    rows = torch.where(rows < 0, rows + slots, rows)
     # sequential in-order application == last-writer-wins, computed as a
-    # winner mask so one scatter commits the surviving rows
-    win = apply_mask != 0
+    # winner mask on the wrapped rows so one scatter commits the survivors
+    win = (apply_mask != 0) & (rows >= 0) & (rows < slots)
     order = torch.arange(n, device=buf.device)
-    later_same = (indices[:, None, :] == indices[:, :, None]) \
+    later_same = (rows[:, None, :] == rows[:, :, None]) \
         & win[:, None, :] & (order[None, :] > order[:, None])[None]
     win = win & ~later_same.any(2)
     out = buf.clone()
     homes = torch.arange(P, device=buf.device)[:, None].expand(P, n)
-    out[homes[win], indices.long()[win]] = values[win]
+    out[homes[win], rows[win]] = values[win]
     return out, (wire_mask != 0).sum(1, dtype=torch.int32) * row_nbytes
 
 
@@ -240,8 +245,10 @@ def scatter_rows(buf, indices, values, apply_mask, wire_mask):
     write verb passes it); the masks (P, N), bool taken as they are;
     ``values`` (P, N, width) of buf's dtype.  On the card, on those forms,
     the new buffer and the counter are views of one allocation, written by
-    one kernel launch and no other device operation; a lane whose index lies
-    outside [0, slots) is not committed there.
+    one kernel launch and no other device operation.  Both versions wrap an
+    index in [-slots, 0) to the end of the buffer and commit no lane whose
+    index lies outside [-slots, slots), as the reference's oracle does; the
+    last lane wins among lanes on one wrapped row.
 
     Replaces the Pallas kernel ``scatter_rows`` of
     ``repro/kernels/remote_dma.py``, whose sequential loop made the last

@@ -248,6 +248,40 @@ def test_scatter_rows_all_masked_is_identity():
     assert torch.equal(out, buf) and nb.tolist() == [0, 0]
 
 
+@pytest.mark.parametrize("case", ["outside only", "mixed"])
+def test_scatter_rows_indices_outside_the_buffer_match_reference(case):
+    """Lanes at -1, -slots, slots and slots + 3 (and -slots - 1): the
+    reference's oracle wraps an index in [-slots, 0) and drops every other
+    one outside the buffer, and so does the plain version, bitwise.  The
+    in-range lanes of the mixed case avoid the rows the negative lanes wrap
+    to: the reference elects its winner on the raw index, so one row named
+    both as -1 and as slots - 1 has no defined order there."""
+    rng = np.random.default_rng(7)
+    P, S, width = 2, 6, 5
+    odd = [-1, -S, S, S + 3, -S - 1]
+    ix = np.tile(np.asarray(odd * 2, np.int32), (P, 1))
+    if case == "mixed":
+        inner = rng.integers(1, S - 1, (P, 6)).astype(np.int32)
+        ix = np.concatenate([ix, inner, ix[:, :4]], axis=1)
+    n = ix.shape[1]
+    buf = rng.integers(-99, 99, (P, S, width)).astype(np.int32)
+    vals = rng.integers(-99, 99, (P, n, width)).astype(np.int32)
+    ap = rng.integers(0, 2, (P, n)).astype(bool)
+    ap[:, :len(odd)] = True
+    wire = ap & rng.integers(0, 2, (P, n)).astype(bool)
+    out, nb = rdma.scatter_rows(_t(buf), _t(ix), _t(vals), _t(ap), _t(wire))
+    for p in range(P):
+        oj, nbj = jrdma._scatter_ref(
+            *(jnp.asarray(x) for x in (buf[p], ix[p], vals[p], ap[p],
+                                       wire[p])), width * 4)
+        np.testing.assert_array_equal(out[p].numpy(), np.asarray(oj))
+        assert int(nb[p]) == int(nbj)
+    # the wrapped lanes landed: the last applied lane on row S - 1 wins
+    for p in range(P):
+        last = max(i for i in range(n) if ap[p, i] and ix[p, i] == -1)
+        np.testing.assert_array_equal(out[p, S - 1].numpy(), vals[p, last])
+
+
 def test_cpu_tensors_take_the_plain_version():
     before = [k.launches for k in rdma.KERNELS]
     rdma.build_descriptors(torch.zeros((2, 3)), torch.zeros((2, 3)),

@@ -22,6 +22,8 @@ jax = pytest.importorskip("jax")
 from torch_port_ref import (assert_trees_equal, jax_to_numpy,  # noqa: E402
                             locked_ledger, reference_core, torch_to_numpy)
 
+import torch  # noqa: E402
+
 import repro_torch.core as pt  # noqa: E402
 
 P, B, W, L = 4, 8, 2, 16
@@ -280,29 +282,41 @@ def test_cache_only_store_bitwise():
 
 
 def test_unported_knobs_are_refused():
-    """The knobs the port does not run yet raise; the read tier and the
-    placement policies, ported now, build stores with their state; a MOVE
-    lane is refused in their place."""
+    """Only the reference-impl store is still refused.  The read tier, the
+    placement policies, the lock-free fast path and heat tracking build
+    stores with their state leaves; a MOVE lane with no target under
+    writer-local placement takes its lock and fails with no effect."""
     mgr = pt.make_manager(P, device="cpu")
     for knob in [dict(cache_slots=4), dict(placement="hashed"),
-                 dict(track_heat=True), dict(lockfree=True),
-                 dict(reference_impl=True)]:
-        if "cache_slots" in knob or "placement" in knob:
-            kv = pt.KVStore(None, f"kv_{len(mgr.channels)}", mgr,
-                            slots_per_node=4, **knob)
-            st = kv.init_state()
-            assert st.cache.tags.shape == (P, knob.get("cache_slots", 0), 2)
-            assert kv.placement == knob.get("placement", "local")
-            continue
-        with pytest.raises(NotImplementedError):
-            pt.KVStore(None, f"kv_{len(mgr.channels)}", mgr,
-                       slots_per_node=4, **knob)
+                 dict(lockfree=True), dict(track_heat=True)]:
+        kv = pt.KVStore(None, f"kv_{len(mgr.channels)}", mgr,
+                        slots_per_node=4, **knob)
+        st = kv.init_state()
+        assert st.cache.tags.shape == (P, knob.get("cache_slots", 0), 2)
+        assert kv.placement == knob.get("placement", "local")
+        assert kv.lockfree == knob.get("lockfree", False)
+        rows = P * 4 if knob.get("track_heat") else 0
+        assert st.heat.heat.shape == (P, rows)
+        assert st.heat.heat.dtype == torch.float32
+        assert st.heat.backlog.shape == (P,)
+    with pytest.raises(NotImplementedError, match="reference_impl"):
+        pt.KVStore(None, f"kv_{len(mgr.channels)}", mgr, slots_per_node=4,
+                   reference_impl=True)
     kv = pt.KVStore(None, "kv_move", mgr, slots_per_node=4)
+    st = kv.init_state()
+    ins = np.full((P, 2), pt.NOP, np.int32)
+    ins[:, 0] = pt.INSERT
+    keys = np.arange(1, 2 * P + 1, dtype=np.uint32).reshape(P, 2)
+    st, res = kv.op_window(st, ins, keys, np.ones((P, 2, 2), np.int32))
+    assert res.found[:, 0].all()
     ops = np.full((P, 2), pt.GET, np.int32)
     ops[1, 1] = pt.MOVE
-    with pytest.raises(NotImplementedError, match="MOVE"):
-        kv.op_window(kv.init_state(), ops, np.ones((P, 2), np.uint32),
-                     np.zeros((P, 2, 2), np.int32))
+    st2, res = kv.op_window(st, ops, keys, np.zeros((P, 2, 2), np.int32))
+    assert not res.found[1, 1]
+    a, b = pt.state_to_numpy(st), pt.state_to_numpy(st2)
+    for name in pt.KVStoreState._fields:
+        if name != "locks":
+            assert_trees_equal(getattr(a, name), getattr(b, name), name)
     with pytest.raises(ValueError):
         pt.KVStore(None, "kv_bad", mgr, slots_per_node=4, placement="nope")
     kx = pt.KVStore(None, "kv_explicit", mgr, slots_per_node=4,

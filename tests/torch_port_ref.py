@@ -92,6 +92,12 @@ def locked_ledger(mgr):
                            jnp.asarray(hits, jnp.float32),
                            jnp.asarray(lookups, jnp.float32))
 
+    def record_fastpath(name, fast, windows):
+        jax.debug.callback(lambda f, w: _add(ledger.fastpath_counts, name,
+                                             fast_windows=f, windows=w),
+                           jnp.asarray(fast, jnp.float32),
+                           jnp.asarray(windows, jnp.float32))
+
     def _count(table, name, n):
         with lock:
             table[name] = table.get(name, 0.0) + float(n)
@@ -107,15 +113,18 @@ def locked_ledger(mgr):
     ledger.record, ledger.record_rounds = record, record_rounds
     ledger.record_dma, ledger.record_cache = record_dma, record_cache
     ledger.record_corrupt, ledger.record_fenced = record_corrupt, record_fenced
+    ledger.record_fastpath = record_fastpath
     return ledger.enable()
 
 
 def ledger_rows(ledger):
     """Every tier of a traffic ledger — modeled bytes, rounds, measured DMA
-    bytes, read-cache counters, checksum failures, fenced entries — as plain
-    dicts (the reference's and the port's have the same methods)."""
+    bytes, read-cache counters, lock-free-served windows, checksum failures,
+    fenced entries — as plain dicts (the reference's and the port's have the
+    same methods)."""
     return {"bytes": ledger.summary(), "rounds": ledger.rounds_summary(),
             "dma": ledger.dma_summary(), "cache": ledger.cache_summary(),
+            "fastpath": ledger.fastpath_summary(),
             "corrupt": ledger.corrupt_summary(),
             "fenced": ledger.fenced_summary()}
 
