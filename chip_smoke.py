@@ -92,6 +92,29 @@ exits non-zero and prints no result:
    zombie publish fenced) and revived (replay rejoin); the leader's results
    against the oracle, every follower bitwise equal to the leader at the
    end;
+4d. the channel objects' scalar verbs on the remote-DMA backend (each
+   scalar read is one descriptor and one row-gather launch, each write one
+   descriptor and one row-commit launch), once on the card and once on the
+   CPU, bitwise equal: ``benchmarks/bench_lock.py``'s single contended
+   TicketLock (P=8, 12 rounds, one holder a round) and its transfer
+   transactions (P=8, 2,728 accounts in a SharedRegion, 341 locks, 12
+   rounds with the lock the account's and 12 with it the account // 8's:
+   balances conserved, each completed transfer moved exactly 1, exactly
+   4/2/2 descriptor/gather/commit launches a round),
+   ``benchmarks/bench_barrier.py``'s crossings at P = 2, 4, 8 (count =
+   crossings), OwnedVar push/pull and AtomicVar fetch_add/compare_swap, the
+   queue's scalar reference paths (= its B=1 windows), and
+   ``repro_torch.examples.kvstore_app`` on the card on the remote-DMA
+   backend with its online oracle (every map kernel launched);
+4e. ``benchmarks/bench_kvstore.py``'s reference variant (P=8, 1,024 keys,
+   index 4,096, 132 slots, 256 locks, windows of 32): a hash store and a
+   ``reference_impl=True`` store in step through the 80% prefill, 10 mixed
+   and 10 zipf(0.99) windows (results lane for lane equal, every key on
+   the same home with the same value), the spec store bitwise equal on the
+   card and the CPU after every window, ``op_round`` bitwise
+   ``_op_round_reference`` over 6 rounds, ``migrate_window`` result for
+   result ``_migrate_reference`` on a placed store; the prefill time of
+   each store and their ratio are printed;
 5. the serving paths — ``ServingEngine.generate`` at full published width,
    bf16, random weights drawn on the card from a seeded generator, 8
    requests of 32 generated tokens in batches of 4 — on llama3.2-3b
@@ -118,7 +141,9 @@ exits non-zero and prints no result:
    card's name and power limit, and last the result line.
 
 Kernel launch counts are set to 0 just before each path and read just after
-it, so the checks of phase 2 and 3 and the timings of phase 6 count nowhere.
+it, so the checks of phase 2 and 3 and the timings of phase 6 count nowhere;
+the map kernels' rows carry phase 4d's and 4e's counts beside the KVStore
+path's.
 On every replicated path the remote-copy kernel's launches must equal the
 ring's publishes.
 """
@@ -1986,6 +2011,444 @@ def phase_failover(torch, pt, rdma, slots):
 
 
 # ---------------------------------------------------------------------------
+# phase 4d: the paper's channel objects' scalar verbs
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_lock.py: P = 8, 341 locks over 8 · 341 accounts, 12
+# rounds; MPI-style windows couple 8 accounts to one lock
+LOCK_P, N_LOCKS, LOCK_ROUNDS = 8, 341, 12
+N_ACCOUNTS = LOCK_P * N_LOCKS
+MPI_WINDOW = N_ACCOUNTS // N_LOCKS
+# benchmarks/bench_barrier.py: crossings at P = 2, 4, 8, 20 each
+BARRIER_PS, BARRIER_CROSSINGS = (2, 4, 8), 20
+
+
+def reset_launches(rdma):
+    for k in rdma.KERNELS:
+        k.launches = 0
+
+
+def equal_on_both(label, traces):
+    """``traces`` {device: [numpy tree, ...]}: every step bitwise equal on
+    the card and on the CPU."""
+    card, cpu = traces["cuda"], traces["cpu"]
+    check(len(card) == len(cpu), f"{label}: step counts differ")
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        check(trees_equal(a, b), f"{label} step {i}: differs cuda vs cpu")
+
+
+def lock_single(torch, pt, dev):
+    """bench_lock.py's single contended TicketLock: every participant
+    without a ticket takes one, the holder releases (global fence)."""
+    mgr = pt.make_manager(LOCK_P, device=dev, backend="pallas")
+    lk = pt.TicketLock(None, "single", mgr)
+    st = lk.init_state()
+    t = torch.full((LOCK_P,), pt.NO_TICKET, dtype=torch.int64,
+                   device=mgr.device)
+    trace, times = [], []
+    for _ in range(LOCK_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, t2 = lk.acquire(st, want=t == pt.NO_TICKET)
+        t = torch.where(t == pt.NO_TICKET, t2, t)
+        holds = lk.holds(st, t)
+        st = lk.release(st, holds)
+        t = torch.where(holds, pt.NO_TICKET, t)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        trace.append(np_tree((st, t, holds)))
+    return trace, times
+
+
+def transfers(torch, pt, rdma, dev, window):
+    """bench_lock.py's transfer transactions (``_txn_round``): participant
+    p moves 1 from account a to account b under the ticket locks of both,
+    with two scalar reads and two scalar writes a round on a SharedRegion
+    of the accounts.  ``window`` 1 is LOCO's coupling (the lock is the
+    account's), 8 MPI-style (the lock is the account // 8's).  A pair whose
+    two locks coincide is drawn again: bench_lock.py's round would wait for
+    its own second ticket forever.  Every round: the balances against a
+    numpy model of the completed transfers (so their sum never changes and
+    each completed transfer moved exactly 1), and on the card the launches
+    of the two reads and two writes."""
+    P, slots = LOCK_P, N_ACCOUNTS // LOCK_P
+    mgr = pt.make_manager(P, device=dev, backend="pallas")
+    locks = pt.TicketLockArray(None, "locks", mgr, num_locks=N_LOCKS)
+    region = pt.SharedRegion(None, "accts", mgr, slots=slots, item_shape=(),
+                             dtype=torch.int32)
+    rng = np.random.default_rng(SEED + 11 + window)
+    model = rng.integers(0, 1000, (P, slots)).astype(np.int32)
+    total = int(model.sum())
+    st_l = locks.init_state()
+    st_r = region.init_state()._replace(
+        buf=torch.from_numpy(model.copy()).to(mgr.device))
+    nt = pt.NO_TICKET
+    ta = torch.full((P,), nt, dtype=torch.int64, device=mgr.device)
+    tb = ta.clone()
+
+    def draw(n):
+        a = rng.integers(0, N_ACCOUNTS, n)
+        b = (a + 1 + rng.integers(0, N_ACCOUNTS - 1, n)) % N_ACCOUNTS
+        same = (a // window) % N_LOCKS == (b // window) % N_LOCKS
+        while same.any():
+            b[same] = (a[same] + 1 + rng.integers(
+                0, N_ACCOUNTS - 1, int(same.sum()))) % N_ACCOUNTS
+            same = (a // window) % N_LOCKS == (b // window) % N_LOCKS
+        return a, b
+
+    aa, ab = draw(P)
+    one_round = {"build_descriptors": 4, "gather_rows": 2, "scatter_rows": 2}
+    trace, times, done_total = [], [], 0
+    for rnd in range(LOCK_ROUNDS):
+        acct_a, acct_b = aa // window, ab // window      # bench_lock.py's
+        A = torch.from_numpy(acct_a).to(mgr.device)
+        Bc = torch.from_numpy(acct_b).to(mgr.device)
+        la, lb = A % N_LOCKS, Bc % N_LOCKS
+        before = kernel_counts(rdma)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        need = ta == nt
+        st_l, t1 = locks.acquire(st_l, la, need)
+        st_l, t2 = locks.acquire(st_l, lb, need)
+        ta, tb = torch.where(need, t1, ta), torch.where(need, t2, tb)
+        holds = locks.holds(st_l, la, ta) & locks.holds(st_l, lb, tb)
+        bal_a, _ = region.read(st_r, A % P, A // P)
+        bal_b, _ = region.read(st_r, Bc % P, Bc // P)
+        st_r, _ = region.write(st_r, A % P, A // P, bal_a - 1, pred=holds)
+        st_r, _ = region.write(st_r, Bc % P, Bc // P, bal_b + 1, pred=holds)
+        st_l = locks.release(st_l, la, holds)
+        st_l = locks.release(st_l, lb, holds & (la != lb))
+        ta = torch.where(holds, nt, ta)
+        tb = torch.where(holds, nt, tb)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if dev == "cuda":
+            got = {k: n - before[k] for k, n in kernel_counts(rdma).items()}
+            check(got == one_round, f"transfer round {rnd} (window "
+                  f"{window}): launches {got}, not one read verb and one "
+                  f"write verb twice {one_round}")
+        done = holds.cpu().numpy()
+        for p in np.flatnonzero(done):
+            model[acct_a[p] % P, acct_a[p] // P] -= 1
+            model[acct_b[p] % P, acct_b[p] // P] += 1
+        buf = st_r.buf.cpu().numpy()
+        check(np.array_equal(buf, model) and int(buf.sum()) == total,
+              f"transfer round {rnd} (window {window}): balances off the "
+              f"completed transfers (sum {int(buf.sum())}, was {total})")
+        done_total += int(done.sum())
+        trace.append(np_tree((st_l, st_r, ta, tb, holds)))
+        if done.any():
+            fa, fb = draw(P)
+            aa, ab = np.where(done, fa, aa), np.where(done, fb, ab)
+    check(done_total > 0, f"no transfer completed (window {window})")
+    return trace, times, done_total
+
+
+def barrier_crossings(torch, pt, dev, P):
+    mgr = pt.make_manager(P, device=dev, backend="pallas")
+    bar = pt.Barrier(None, f"bar{P}", mgr)
+    st = bar.init_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(BARRIER_CROSSINGS):
+        st = bar.wait(st)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return [np_tree(st)], dt / BARRIER_CROSSINGS
+
+
+def registers(torch, pt, dev):
+    """OwnedVar push and pull and AtomicVar fetch_add and compare_swap at
+    P = 8 from seeded words: a 4-word owned var (checksummed) and a uint32
+    atomic near its wrap."""
+    P = LOCK_P
+    mgr = pt.make_manager(P, device=dev, backend="pallas")
+    ov = pt.OwnedVar(None, "ov", mgr, owner=3, shape=(4,), dtype=torch.int32)
+    av = pt.AtomicVar(None, "av", mgr, host=5, dtype=torch.uint32)
+    rng = np.random.default_rng(SEED + 12)
+    me = mgr.runtime.my_id()
+    ost, ast = ov.init_state(), av.init_state(2 ** 32 - 20)
+    trace = []
+    for _ in range(4):
+        v = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (P, 4)).astype(
+            np.int32)).to(mgr.device)
+        ost = ov.store_mine(ost, v, pred=me == 3)
+        ost, _ = ov.push(ost)
+        trace.append(np_tree((ost,) + ov.load(ost)))
+        ost = ov.store_mine(ost, v + 1, pred=me == 3)
+        ost, _ = ov.pull(ost)
+        trace.append(np_tree((ost,) + ov.load(ost)))
+        amt = torch.from_numpy(rng.integers(0, 9, P)).to(mgr.device)
+        pred = torch.from_numpy(rng.random(P) < .7).to(mgr.device)
+        ast, old, _ = av.fetch_add(ast, amt, pred=pred)
+        exp = torch.where(pred, ast.official, old)
+        ast, old2, ok, _ = av.compare_swap(ast, exp, old + 7, pred=~pred)
+        check(int(ok.sum()) <= 1, "compare_swap: more than one winner")
+        trace.append(np_tree((ast, old, old2, ok)))
+    return trace
+
+
+def queue_paths(torch, pt, dev, scalar):
+    """SharedQueue at P = 8 through 16 rounds of pushes and pops: its scalar
+    reference paths (``scalar``) or its B=1 windows."""
+    P = LOCK_P
+    mgr = pt.make_manager(P, device=dev, backend="pallas")
+    q = pt.SharedQueue(None, "q", mgr, slots_per_node=2, width=2)
+    enq = q._enqueue_reference if scalar else q.enqueue
+    deq = q._dequeue_reference if scalar else q.dequeue
+    rng = np.random.default_rng(SEED + 13)
+    st, trace = q.init_state(), []
+    for rnd in range(16):
+        ew = torch.from_numpy(rng.random(P) < (.9 if rnd < 4 else .5))
+        dw = torch.from_numpy(rng.random(P) < (.1 if rnd < 4 else .7))
+        ev = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (P, 2)).astype(
+            np.int32))
+        st, g = enq(st, ev.to(mgr.device), ew.to(mgr.device))
+        st, v, ok = deq(st, dw.to(mgr.device))
+        trace.append(np_tree((st, g, v, ok)))
+    return trace
+
+
+def phase_channels(torch, pt, rdma):
+    """The channel objects' scalar verbs on the remote-DMA backend, each
+    run once on the card and once on the CPU with bitwise-equal states and
+    results: bench_lock.py's single contended TicketLock and its transfer
+    transactions in both couplings (exact launches a round, balances
+    conserved), bench_barrier.py's crossings, OwnedVar and AtomicVar, the
+    queue's scalar paths against its B=1 windows, and the KV-store example
+    on the remote-DMA backend with its online oracle.  Returns the metrics and the remote-DMA
+    kernels' launches, counted from 0 over this phase."""
+    import contextlib
+    import io
+    from repro_torch.examples import kvstore_app
+    reset_launches(rdma)
+    out = {}
+    traces = {}
+    for dev in ("cuda", "cpu"):
+        traces[dev], t = lock_single(torch, pt, dev)
+        if dev == "cuda":
+            out["lock_single_round_ms_p50"] = float(np.median(t)) * 1e3
+    equal_on_both("single TicketLock", traces)
+    served = sum(int(tr[2].sum()) for tr in traces["cuda"])
+    check(all(int(tr[2].sum()) == 1 for tr in traces["cuda"]),
+          "single TicketLock: a round without exactly one holder")
+    log(f"  single TicketLock, P={LOCK_P}, {LOCK_ROUNDS} rounds: one holder "
+        f"a round ({served} served), bitwise equal on cuda and cpu; round "
+        f"p50 {out['lock_single_round_ms_p50']:.3f} ms")
+
+    for name, window in (("loco", 1), ("mpi", MPI_WINDOW)):
+        traces = {}
+        for dev in ("cuda", "cpu"):
+            traces[dev], t, done = transfers(torch, pt, rdma, dev, window)
+            if dev == "cuda":
+                out[f"txn_{name}"] = dict(
+                    done=done, txn_per_round=done / LOCK_ROUNDS,
+                    round_ms_p50=float(np.median(t)) * 1e3)
+        equal_on_both(f"{name} transfers", traces)
+        r = out[f"txn_{name}"]
+        log(f"  {name} transfers (lock = account // {window}): {r['done']} "
+            f"done in {LOCK_ROUNDS} rounds, balances conserved, each moved "
+            f"1, launches a round 4/2/2, bitwise equal on cuda and cpu; "
+            f"round p50 {r['round_ms_p50']:.3f} ms")
+
+    for P in BARRIER_PS:
+        traces = {}
+        for dev in ("cuda", "cpu"):
+            traces[dev], per = barrier_crossings(torch, pt, dev, P)
+            if dev == "cuda":
+                out[f"barrier_p{P}_ms"] = per * 1e3
+        equal_on_both(f"barrier P={P}", traces)
+        count = traces["cuda"][0].count
+        check(np.array_equal(count, np.full(P, BARRIER_CROSSINGS)),
+              f"barrier P={P}: count {count}")
+    log(f"  barrier crossings ({BARRIER_CROSSINGS} each) bitwise equal on "
+        f"cuda and cpu, count = crossings; ms a crossing: " + ", ".join(
+            f"P={P} {out[f'barrier_p{P}_ms']:.3f}" for P in BARRIER_PS))
+
+    equal_on_both("OwnedVar and AtomicVar",
+                  {dev: registers(torch, pt, dev) for dev in ("cuda", "cpu")})
+    traces = {dev: queue_paths(torch, pt, dev, True) for dev in ("cuda", "cpu")}
+    equal_on_both("queue scalar paths", traces)
+    equal_on_both("queue scalar paths vs B=1 windows",
+                  {"cuda": traces["cuda"],
+                   "cpu": queue_paths(torch, pt, "cuda", False)})
+    log(f"  OwnedVar push/pull and AtomicVar fetch_add/compare_swap at "
+        f"P={LOCK_P}, and the queue's scalar paths (= its B=1 windows), "
+        f"bitwise equal on cuda and cpu")
+
+    buf = io.StringIO()
+    before = kernel_counts(rdma)
+    with contextlib.redirect_stdout(buf):
+        kvstore_app.main(device="cuda", backend="pallas")
+    text = buf.getvalue()
+    got = {k: n - before[k] for k, n in kernel_counts(rdma).items()}
+    check("linearizability holds." in text, f"kvstore_app: {text}")
+    check(all(n > 0 for n in got.values()),
+          f"kvstore_app on pallas left a map kernel unlaunched: {got}")
+    log("  repro_torch.examples.kvstore_app on the card (pallas): "
+        + " / ".join(text.strip().splitlines()) + f"; launches {got}")
+    torch.cuda.synchronize()
+    return out, kernel_counts(rdma)
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: the map's executable specification store
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_kvstore.py's reference variant: P = 8, keyspace 1024,
+# index_capacity 4 · keyspace, keyspace // P + 4 slots, max(64, P · window)
+# locks, windows of 32.  The flat scan is O(C) a lane, which is why the
+# reference's benchmark holds the spec store at this size.
+SPEC_KEYS, SPEC_B = 1024, 32
+SPEC_CFG = dict(slots_per_node=SPEC_KEYS // P + 4, value_width=W,
+                num_locks=max(64, P * SPEC_B), index_capacity=4 * SPEC_KEYS)
+SPEC_MIX, SPEC_ZIPF = 10, 10
+
+
+def spec_windows(rng):
+    """(kind, ops, keys, values) windows: the 80% prefill in windows of
+    P · 32 inserts, then 10 mixed (60/20/10/10 GET/UPDATE/INSERT/DELETE,
+    distinct uniform keys) and 10 zipf(0.99) 95/5 GET/UPDATE."""
+    span = P * SPEC_B
+    out = []
+    fill = np.arange(1, int(SPEC_KEYS * FILL) + 1, dtype=np.uint32)
+    for i in range(0, fill.size, span):
+        chunk = fill[i:i + span]
+        ops = np.full(span, NOP, np.int32)
+        ks = np.ones(span, np.uint32)
+        ops[:chunk.size], ks[:chunk.size] = INSERT, chunk
+        vals = np.stack([ks.astype(np.int32) * 3, np.zeros(span, np.int32)],
+                        1)
+        out.append(("prefill", ops, ks, vals))
+    for w in range(SPEC_MIX):
+        ks = rng.choice(SPEC_KEYS, span, replace=False).astype(np.uint32) + 1
+        ops = rng.choice([GET, UPDATE, INSERT, DELETE], span,
+                         p=[.6, .2, .1, .1]).astype(np.int32)
+        out.append(("mixed", ops, ks, np.stack(
+            [ks.astype(np.int32) * 5 + w, np.full(span, w, np.int32)], 1)))
+    ranks = np.arange(1, SPEC_KEYS + 1, dtype=np.float64)
+    cdf = np.cumsum(1.0 / ranks ** ZIPF_THETA)
+    cdf /= cdf[-1]
+    scramble = rng.permutation(SPEC_KEYS) + 1
+    for w in range(SPEC_ZIPF):
+        ks = scramble[np.minimum(np.searchsorted(cdf, rng.random(span)),
+                                 SPEC_KEYS - 1)].astype(np.uint32)
+        ops = np.where(rng.random(span) < .95, GET, UPDATE).astype(np.int32)
+        out.append(("zipf", ops, ks, np.stack(
+            [ks.astype(np.int32) * 7 + w, np.full(span, -w, np.int32)], 1)))
+    return [(kind, o.reshape(P, SPEC_B), k.reshape(P, SPEC_B),
+             v.reshape(P, SPEC_B, W)) for kind, o, k, v in out]
+
+
+def phase_spec_store(torch, pt, rdma):
+    """bench_kvstore.py's reference variant on the remote-DMA backend: a
+    hash store and a reference-impl store (flat-scan index, sequential
+    tracker sweep, one ticket served per lock a round) in step on the card
+    through the prefill, the mixed and the zipf windows — results equal
+    lane for lane, logical contents equal by the flat-scan lookup of every
+    key — and the reference-impl store again on the CPU, bitwise equal to
+    the card's after every window; then ``_op_round_reference`` against
+    ``op_round`` and ``_migrate_reference`` against ``migrate_window``.
+    Returns the metrics and the remote-DMA kernels' launches, counted from
+    0 over this phase."""
+    rng = np.random.default_rng(SEED + 14)
+    windows = spec_windows(rng)
+    stores = {}
+    for label, dev, ref in (("hash", "cuda", False), ("spec", "cuda", True),
+                            ("spec cpu", "cpu", True)):
+        mgr = pt.make_manager(P, device=dev, backend="pallas")
+        kv = pt.KVStore(None, "kv", mgr, reference_impl=ref, **SPEC_CFG)
+        stores[label] = [kv, kv.init_state()]
+    reset_launches(rdma)
+    prefill_s = {"hash": 0.0, "spec": 0.0}
+    for i, (kind, ops, ks, vals) in enumerate(windows):
+        res = {}
+        for label, s in stores.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s[1], r = s[0].op_window(s[1], ops, ks, vals)
+            torch.cuda.synchronize()
+            if kind == "prefill" and label in prefill_s:
+                prefill_s[label] += time.perf_counter() - t0
+            res[label] = np_tree(r)
+        check(trees_equal(res["hash"], res["spec"]),
+              f"spec store {kind} window {i}: results differ from the hash "
+              f"store's")
+        check(trees_equal(res["spec"], res["spec cpu"]),
+              f"spec store {kind} window {i}: results differ cuda vs cpu")
+        check(trees_equal(pt.state_to_numpy(stores["spec"][1]),
+                          pt.state_to_numpy(stores["spec cpu"][1])),
+              f"spec store {kind} window {i}: state differs cuda vs cpu")
+        if kind == "prefill":
+            check(bool(res["hash"].found[ops == INSERT].all()),
+                  "a prefill insert failed")
+    # the logical contents: every key on the same home in both indexes,
+    # with the same value (slot choices differ by design)
+    every = torch.arange(1, SPEC_KEYS + 1, device=stores["spec"][0].device) \
+        .expand(P, SPEC_KEYS)
+    looks = {label: [x.cpu().numpy() for x in stores[label][0]
+                     ._index_lookup_reference(stores[label][1], every)]
+             for label in ("hash", "spec")}
+    fh, fs = looks["hash"][0], looks["spec"][0]
+    check(np.array_equal(fh, fs) and np.array_equal(
+        looks["hash"][2][fh], looks["spec"][2][fs]),
+        "the flat-scan lookup of every key differs hash vs spec store")
+    gets = {label: np_tree(stores[label][0].get_batch(stores[label][1],
+                                                      every)[1:])
+            for label in ("hash", "spec")}
+    check(trees_equal(gets["hash"], gets["spec"]),
+          "get_batch of every key differs hash vs spec store")
+    live = int(fh[0].sum())
+    ratio = prefill_s["spec"] / prefill_s["hash"]
+    log(f"  {len(windows)} windows (prefill, {SPEC_MIX} mixed, {SPEC_ZIPF} "
+        f"zipf) of {SPEC_B}/participant: results lane for lane the hash "
+        f"store's, {live} live keys the same in both indexes, the spec "
+        f"store bitwise equal on cuda and cpu after every window")
+    log(f"  prefill of {int(SPEC_KEYS * FILL)} keys: hash "
+        f"{prefill_s['hash'] * 1e3:.1f} ms, spec "
+        f"{prefill_s['spec'] * 1e3:.1f} ms, spec/hash {ratio:.2f} "
+        f"({card_line()})")
+
+    # _op_round_reference against op_round from the hash store's state
+    kv, st = stores["hash"]
+    st_a = st_b = st
+    for rnd in range(6):
+        op = rng.choice([NOP, GET, INSERT, UPDATE, DELETE], P,
+                        p=[.1, .3, .3, .15, .15]).astype(np.int32)
+        key = rng.integers(1, SPEC_KEYS + 1, P).astype(np.uint32)
+        val = rng.integers(-2 ** 31, 2 ** 31, (P, W)).astype(np.int32)
+        st_a, ra = kv.op_round(st_a, op, key, val)
+        st_b, rb = kv._op_round_reference(st_b, op, key, val)
+        check(not differing_leaves(torch, st_a, st_b)
+              and trees_equal(np_tree(ra), np_tree(rb)),
+              f"op_round differs from _op_round_reference in round {rnd}: "
+              f"{differing_leaves(torch, st_a, st_b)}")
+
+    # _migrate_reference against migrate_window on a placed store
+    mgr = pt.make_manager(P, device="cuda", backend="pallas")
+    pkv = pt.KVStore(None, "kv_placed", mgr, placement="hashed", **SPEC_CFG)
+    keys = np.arange(1, P * SPEC_B + 1, dtype=np.uint32).reshape(P, SPEC_B)
+    pst, r = pkv.op_window(pkv.init_state(),
+                           np.full((P, SPEC_B), INSERT, np.int32), keys,
+                           np.stack([keys * 3, keys * 5], -1).astype(
+                               np.int32))
+    mk = keys[:, :4]
+    dests = rng.integers(0, P, mk.shape).astype(np.int32)
+    st_w, moved_w = pkv.migrate_window(pst, mk, dests)
+    st_r, moved_r = pkv._migrate_reference(pst, mk, dests)
+    got_w = np_tree(pkv.get_batch(st_w, keys)[1:])
+    got_r = np_tree(pkv.get_batch(st_r, keys)[1:])
+    check(torch.equal(moved_w, moved_r) and trees_equal(got_w, got_r),
+          "migrate_window and _migrate_reference disagree")
+    log(f"  op_round = _op_round_reference bitwise over 6 rounds; "
+        f"migrate_window = _migrate_reference on a placed store "
+        f"({int(moved_w.sum())} of {mk.size} moved)")
+    torch.cuda.synchronize()
+    return dict(prefill_s=prefill_s, prefill_spec_over_hash=ratio,
+                windows=len(windows), live_keys=live), kernel_counts(rdma)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the serving path at full width
 # ---------------------------------------------------------------------------
 
@@ -2292,14 +2755,16 @@ def kernel_bytes(name, args, kw):
         + int((apply != 0).sum()) * row + P * 4
 
 
-def phase_report(torch, rdma, cases, errs, launches):
+def phase_report(torch, rdma, cases, errs, launches, other_paths):
     """Rows of the three map kernels, each timed on its first phase-2 case
     (the arguments the verbs pass; ``build_descriptors`` the write verb's,
     with the read verb's in its ``read_verb`` entry): the wrapper's time,
     the device time and the device operations per call (``torch.profiler``),
     the plain version's time and the bound at the memory rate.  No one
     PyTorch call computes any of the three functions, so there is no
-    library yardstick."""
+    library yardstick.  ``launches`` are the KVStore path's;
+    ``other_paths`` ({path: launches}) are the scalar-verb phases', each
+    under ``launches_<path>``."""
     rows = []
     replaces = {"build_descriptors": 94, "gather_rows": 149,
                 "scatter_rows": 209}
@@ -2329,6 +2794,8 @@ def phase_report(torch, rdma, cases, errs, launches):
                             f"{replaces[name]}")
         row.update(measure(name, args, kw))
         row["args"] = label
+        for path, counts in other_paths.items():
+            row[f"launches_{path}"] = counts[name]
         if name == "build_descriptors":
             row["read_verb"] = measure(name, *runs[1][1:])
             row["read_verb"]["args"] = runs[1][0]
@@ -2745,6 +3212,22 @@ def main() -> int:
         log(f"  failover path took {time.perf_counter() - t4:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
+        log("phase 4d: the channel objects' scalar verbs")
+        t4 = time.perf_counter()
+        chan_metrics, chan_launches = phase_channels(torch, pt, rdma)
+        log(f"  channel phase took {time.perf_counter() - t4:.1f} s; "
+            f"launches {chan_launches}")
+        log("phase 4e: the map's executable specification store")
+        t4 = time.perf_counter()
+        spec_metrics, spec_launches = phase_spec_store(torch, pt, rdma)
+        log(f"  spec store phase took {time.perf_counter() - t4:.1f} s; "
+            f"launches {spec_launches}")
+        for label, counts in (("channel", chan_launches),
+                              ("spec store", spec_launches)):
+            for name, n in counts.items():
+                check(n > 0, f"{name} was not launched in the {label} phase")
+        gc.collect()
+        torch.cuda.empty_cache()
         log("phase 5: the serving paths")
         serve_metrics, serve_launches = {}, {}
         for path in SERVE_PATHS:
@@ -2757,7 +3240,9 @@ def main() -> int:
             gc.collect()                 # the engine's weights go first
             torch.cuda.empty_cache()
         log("phase 6: report")
-        kernels = phase_report(torch, rdma, cases, errs, launches)
+        kernels = phase_report(torch, rdma, cases, errs, launches,
+                               {"channels": chan_launches,
+                                "spec_store": spec_launches})
         kernels += attention_report(torch, model_kernels, attn_errs,
                                     serve_launches)
         kernels += recurrent_report(torch, model_kernels, rec_errs,
@@ -2771,6 +3256,7 @@ def main() -> int:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     log(json.dumps(dict(kvstore=metrics, failover=fo_metrics,
+                        channels=chan_metrics, spec_store=spec_metrics,
                         serving=serve_metrics, card=card,
                         total_s=time.perf_counter() - t0)))
     log(card)

@@ -1,15 +1,17 @@
 """LOCO core, ported to PyTorch: the channel-object model on one card.
 
-Public surface so far — the KVStore window path (with its read tier,
-placement policies, lock-free fast path and locality migration), the shared
-queue, the replication tier (ring, log, failure detector) and what they are
-built from:
+Public surface so far — the paper's channel objects and their scalar verbs,
+the KVStore (its window path with the read tier, placement policies,
+lock-free fast path and locality migration, and its executable
+specification, ``reference_impl=True``), the shared queue, the replication
+tier (ring, log, failure detector) and what they are built from:
 
 * runtime/binding: :class:`Runtime`, :class:`Manager`, :func:`make_manager`
 * consistency:     :class:`AckKey`, :class:`FenceScope`, :func:`join`
 * channels:        :class:`SharedRegion`, :class:`OwnedVar`,
-                   :class:`AtomicVar`, :class:`SST`,
-                   :class:`TicketLockArray`, :class:`KVStore`,
+                   :class:`AtomicVar`, :class:`SST`, :class:`Barrier`,
+                   :class:`TicketLock`, :class:`TicketLockArray`,
+                   :class:`KVStore`,
                    :class:`ReadCache`, :class:`HotTracker`,
                    :class:`SharedQueue`,
                    :class:`Ringbuffer`, :class:`ReplicatedLog`,
@@ -21,6 +23,7 @@ built from:
 """
 from .ack import ALL_PEERS, AckKey, FenceScope, OpDesc, join, make_ack
 from .atomic import AtomicVar, AtomicVarState
+from .barrier import Barrier, BarrierState
 from .backends import (AM_HDR_BYTES, BACKENDS, DMA_DESC_BYTES,
                        ActiveMessageBackend, CollsBackend, OneSidedBackend,
                        PallasDmaBackend, get_backend)
@@ -31,8 +34,8 @@ from .hottracker import HotTracker, HotTrackerState
 from .kvstore import (DELETE, GET, INSERT, MOVE, NOP, PLACEMENTS, UPDATE,
                       KVResult, KVStore, KVStoreState, state_from_numpy,
                       state_to_numpy)
-from .lock import (NO_TICKET, TicketLockArray, TicketLockArrayState,
-                   window_fifo_ranks)
+from .lock import (NO_TICKET, TicketLock, TicketLockArray,
+                   TicketLockArrayState, TicketLockState, window_fifo_ranks)
 from .ownedvar import OwnedVar, OwnedVarState, checksum
 from .queue import SharedQueue, SharedQueueState, queue_state_to_numpy
 from .region import SharedRegion, SharedRegionState
@@ -46,11 +49,12 @@ __all__ = [
     "ALL_PEERS", "AckKey", "FenceScope", "OpDesc", "join", "make_ack",
     "AM_HDR_BYTES", "BACKENDS", "DMA_DESC_BYTES", "ActiveMessageBackend",
     "CollsBackend", "OneSidedBackend", "PallasDmaBackend", "get_backend",
-    "AtomicVar", "AtomicVarState", "Channel",
+    "AtomicVar", "AtomicVarState", "Barrier", "BarrierState", "Channel",
     "NOP", "GET", "INSERT", "UPDATE", "DELETE", "MOVE", "PLACEMENTS",
     "HotTracker", "HotTrackerState", "KVResult", "KVStore", "KVStoreState",
-    "state_from_numpy", "state_to_numpy", "NO_TICKET", "TicketLockArray",
-    "TicketLockArrayState", "window_fifo_ranks", "OwnedVar",
+    "state_from_numpy", "state_to_numpy", "NO_TICKET", "TicketLock",
+    "TicketLockArray", "TicketLockArrayState", "TicketLockState",
+    "window_fifo_ranks", "OwnedVar",
     "OwnedVarState", "checksum", "hash_u32", "ReadCache", "ReadCacheState",
     "SharedQueue", "SharedQueueState", "queue_state_to_numpy",
     "SharedRegion", "SharedRegionState", "Manager", "Runtime",

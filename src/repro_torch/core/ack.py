@@ -7,14 +7,18 @@ of dependency tokens (the tensors an operation produced) plus static
 ``optimization_barrier`` over the tokens in scope, because XLA reorders
 collectives freely.  Eager PyTorch runs every operation of the port in
 program order on one stream, so an operation is complete for every later
-one: :func:`join` is an ordering no-op that returns its arguments.  The
-handles and their descriptors are kept so the channel code reads as in the
-reference.
+one: :func:`join` is an ordering no-op that returns its arguments, and
+:meth:`AckKey.query` is a constant True.  The handles and their descriptors
+are kept so the channel code reads as in the reference, and so
+:meth:`repro_torch.core.runtime.Manager.fence` can pick the operations a
+scope covers.
 """
 from __future__ import annotations
 
 import enum
 from typing import Any, NamedTuple, Sequence, Tuple
+
+import torch
 
 
 class FenceScope(enum.IntEnum):
@@ -62,12 +66,43 @@ class AckKey:
     def empty() -> "AckKey":
         return AckKey()
 
+    def query(self) -> torch.Tensor:
+        """True once the tracked operations are complete: a 0-d bool on the
+        device of the first tensor token (the CPU without one).  Every
+        operation of the port is queued on one stream in program order, so
+        any kernel that consumes this flag, or anything issued after this
+        call, runs after the tracked operations; the flag is a constant and
+        reading it asks nothing of the host."""
+        return torch.ones((), dtype=torch.bool, device=_device_of(self.tokens))
+
+    def wait(self) -> torch.Tensor:
+        """Blocking wait: consuming the completion flag (:meth:`query`)."""
+        return self.query()
+
+    def tokens_for_peer(self, peer: int):
+        """The tokens of the tracked operations that target ``peer`` (or
+        every peer) — what a PAIR-scope fence orders."""
+        return [tok for tok, d in zip(self.tokens, self.descs)
+                if d.peers == ALL_PEERS or peer in d.peers]
+
     @property
     def nbytes(self) -> int:
         return sum(d.nbytes for d in self.descs)
 
     def __repr__(self):
         return f"AckKey({len(self.tokens)} ops, {self.nbytes}B)"
+
+
+def _device_of(tokens):
+    """The device of the first tensor among (nested tuples of) tokens."""
+    for tok in tokens:
+        if isinstance(tok, torch.Tensor):
+            return tok.device
+        if isinstance(tok, (tuple, list)):
+            dev = _device_of(tok)
+            if dev is not None:
+                return dev
+    return None
 
 
 def make_ack(token: Any, kind: str, channel: str, peers: Tuple,

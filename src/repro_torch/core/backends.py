@@ -15,12 +15,12 @@ the counterpart of ``repro/core/backends.py``.
   |row|) per unique remote read and per remote write lane.
 
 Execution is bitwise-identical across backends; only the modeled bytes and
-rounds differ.  The port has the batched verbs (the KVStore window path and
-the rejoin snapshot reads) and the ring publish: its ledger model
-(:meth:`CollsBackend.record_publish`) and its wire hop
-(:meth:`CollsBackend.publish_hop`), which the ``pallas`` backend runs on the
-remote-copy kernel.  The scalar ``read``/``write`` verbs wait for the
-channels that call them.
+rounds differ.  Every backend runs its scalar verbs (``read``/``write``,
+one request per participant) as batches of one of its batched verbs, so on
+``pallas`` every verb rides the kernels.
+The ring publish has its ledger model (:meth:`CollsBackend.record_publish`)
+and its wire hop (:meth:`CollsBackend.publish_hop`), which the ``pallas``
+backend runs on the remote-copy kernel.
 """
 from __future__ import annotations
 
@@ -38,13 +38,33 @@ DMA_DESC_BYTES = 32
 
 
 class CollsBackend:
-    """Protocol contract for the batched one-sided verbs: execution must be
+    """Protocol contract for the one-sided verbs: execution must be
     bitwise-identical across backends, only the modeled wire bytes and round
     counts may differ."""
 
     name = "abstract"
     #: rounds the placed-path slot-allocation round-trip costs (kvstore §10)
     alloc_rounds = 2.0
+
+    def read(self, local_buf, target, index, pred=True, ledger=None,
+             verb="remote_read"):
+        """The scalar read: this backend's batched read with one uncoalesced
+        lane per participant (on ``pallas`` it launches the descriptor and
+        row-gather kernels on the card).  Returns (P, *item)."""
+        return self.read_batch(
+            local_buf, *colls.scalar_lanes(local_buf, target, index, pred),
+            ledger=ledger, verb=verb, coalesce=False)[:, 0]
+
+    def write(self, local_buf, target, index, value, pred=True, ledger=None,
+              verb="remote_write"):
+        """The scalar write: this backend's batched write with one lane per
+        participant (on ``pallas`` it launches the descriptor and row-commit
+        kernels on the card).  Returns the new buffer."""
+        targets, indices, preds = colls.scalar_lanes(local_buf, target,
+                                                     index, pred)
+        return self.write_batch(local_buf, targets, indices,
+                                colls.scalar_value(local_buf, value),
+                                preds=preds, ledger=ledger, verb=verb)
 
     def read_batch(self, local_buf, targets, indices, preds=None,
                    ledger=None, verb="remote_read_batch", coalesce=True):
@@ -112,6 +132,7 @@ class ActiveMessageBackend(CollsBackend):
     alloc_rounds = 0.0
 
     def _record(self, ledger, verb, local_buf, targets, preds, rounds):
+        """Record (hdr + |row|) per enabled remote lane of (P, R) lanes."""
         me = colls.my_id(local_buf.shape[0], targets.device)[:, None]
         if preds is None:
             preds = torch.ones(targets.shape, dtype=torch.bool,

@@ -20,9 +20,21 @@ from __future__ import annotations
 import torch
 
 
+def axis_size(local_buf) -> int:
+    """The number of participants P: the leading dimension of any stacked
+    tensor (the reference's static size of the named axis)."""
+    return int(local_buf.shape[0])
+
+
 def my_id(P: int, device) -> torch.Tensor:
     """(P,) participant ids — the stacked ``axis_index``."""
     return torch.arange(P, device=device)
+
+
+def _per_participant(x, P, device, dtype=None):
+    """A scalar or a (P,) value as a (P,) tensor on ``device``."""
+    x = torch.as_tensor(x, device=device)
+    return (x if dtype is None else x.to(dtype)).expand(P)
 
 
 def _item_nbytes(local_buf) -> int:
@@ -159,6 +171,61 @@ def window_prefix(x):
     flat = x.reshape(-1)
     excl = (flat.cumsum(0) - flat).reshape(x.shape)
     return excl, flat.sum().expand(x.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# scalar one-sided verbs: one request per participant
+# ---------------------------------------------------------------------------
+
+def scalar_lanes(local_buf, target, index, pred):
+    """A scalar verb's target, index and pred — one value, or one a
+    participant — as the (P, 1) int32, int32 and bool lanes of a batch of
+    one."""
+    P, dev = local_buf.shape[0], local_buf.device
+    return tuple(_per_participant(x, P, dev, dt)[:, None]
+                 for x, dt in ((target, torch.int32), (index, torch.int32),
+                               (pred, torch.bool)))
+
+
+def scalar_value(local_buf, value):
+    """A scalar write's value — one item, or one a participant — as the
+    (P, 1, *item) values of a batch of one."""
+    return torch.as_tensor(value, device=local_buf.device) \
+        .to(local_buf.dtype) \
+        .expand((local_buf.shape[0],) + tuple(local_buf.shape[2:]))[:, None]
+
+
+def remote_read(local_buf, target, index, pred=True, ledger=None,
+                verb: str = "remote_read"):
+    """One-sided READ: participant q reads row ``index[q]`` of participant
+    ``target[q]``'s buffer — :func:`remote_read_batch` with one uncoalesced
+    lane per participant.
+
+    local_buf (P, slots, *item); target, index (P,) int (or one int for
+    all); pred (P,) bool or a bool.  Returns (P, *item): each value as
+    stored at its target, zeros where ``pred`` is False.  A ``target == me``
+    request is a local read at zero modeled wire bytes.  Ledger: 2·|item|
+    bytes per remote read, 2 rounds."""
+    return remote_read_batch(local_buf,
+                             *scalar_lanes(local_buf, target, index, pred),
+                             ledger=ledger, verb=verb, coalesce=False)[:, 0]
+
+
+def remote_write(local_buf, target, index, value, pred=True, ledger=None,
+                 verb: str = "remote_write"):
+    """One-sided WRITE: participant q writes ``value[q]`` into row
+    ``index[q]`` of participant ``target[q]``'s buffer; ``value`` (P,
+    *item) — :func:`remote_write_batch` with one lane per participant.
+    Racy writes to one row land in increasing participant order, so the
+    highest id's write wins — a fixed total order standing in for RDMA's
+    unspecified outcome.  A target outside the cluster is dropped; a
+    ``target == me`` write is a local store at zero modeled wire bytes.
+    Returns the new (P, slots, *item) buffer.  Ledger: |item| bytes per
+    remote write, 1 round."""
+    targets, indices, preds = scalar_lanes(local_buf, target, index, pred)
+    return remote_write_batch(local_buf, targets, indices,
+                              scalar_value(local_buf, value), preds=preds,
+                              ledger=ledger, verb=verb)
 
 
 # ---------------------------------------------------------------------------

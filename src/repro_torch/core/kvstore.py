@@ -28,8 +28,12 @@ policies (``placement="local" | "hashed" | "explicit"``, §10.1: non-local
 INSERTs allocate at their home through the placed service round's
 request/grant round-trip); and the locality migration (§10.2–§10.3): MOVE
 lanes (``migrate_window``), read-heat tracking (``track_heat=True``) and
-``rebalance``.  Only the reference-impl store (``reference_impl=True``, the
-flat-scan executable specification) is refused.
+``rebalance``.  It covers the executable specifications too:
+``reference_impl=True`` builds a store on the O(C) flat-scan index and the
+sequential tracker sweep whose windows serve one ticket per lock a round
+(the holds test, released every round), ``_op_round_reference`` is the
+scalar round built on the scalar verbs, and ``_migrate_reference`` runs a
+migration window one lane at a time.
 The port's stacked form puts the participant dimension first on every
 tensor.  Where every participant computes the same quantity from gathered
 data — the schedule masks, the tracker records' order, the rebalance
@@ -142,10 +146,6 @@ class KVStore(Channel):
         if lockfree and reference_impl:
             raise ValueError("lockfree=True requires the scheduled "
                              "implementation (reference_impl=False)")
-        if reference_impl:
-            raise NotImplementedError(
-                "reference_impl=True: the flat-scan executable "
-                "specification is not ported yet")
         super().__init__(parent, name, mgr)
         self.backend = get_backend(backend, default=mgr.backend)
         self.S = int(slots_per_node)
@@ -155,6 +155,9 @@ class KVStore(Channel):
         self.PROBE = min(self.C, int(index_max_probe or DEFAULT_MAX_PROBE))
         # op_window's default: the §11 lock-free commuting fast path
         self.lockfree = bool(lockfree)
+        # the executable specification: O(C) flat-scan index, sequential
+        # tracker sweep, one ticket served per lock a round
+        self.reference_impl = bool(reference_impl)
         self.coalesce_reads = bool(coalesce_reads)
         self.placement = placement
         self.cache = ReadCache(self, "readcache", mgr, lines=cache_slots,
@@ -252,16 +255,67 @@ class KVStore(Channel):
                 free.any(-1), _take(pos_w, _first_true(free)))
 
     def _index_lookup(self, st: KVStoreState, keys):
-        """(P, B) keys → (found, pos, node, slot, ctr); a missing key reports
-        position 0, as the reference does."""
-        found, mpos, _hf, _fp = self._probe(st.idx, keys)
-        pos = torch.where(found, mpos, torch.zeros_like(mpos))
+        """(P, B) keys → (found, pos, node, slot, ctr); the O(PROBE) hash
+        probe, or the O(C) flat scan on a reference-impl store.  A missing
+        key reports position 0 in both, as argmax over all-False does."""
+        if self.reference_impl:
+            return self._index_lookup_reference(st, keys)
+        return self._index_lookup_hash(st, keys)
+
+    def _index_row(self, st: KVStoreState, found, pos):
+        pos = torch.where(found, pos, torch.zeros_like(pos))
         homes = torch.arange(self.P, device=pos.device)[:, None]
         row = st.idx[homes, pos]                                 # (P, B, 5)
         return (found, pos, row[..., IDX_NODE], row[..., IDX_SLOT],
                 i2u(row[..., IDX_CTR]))
 
-    # -- lock-free GETs (paper Fig. 3 read path) -------------------------------------
+    def _index_lookup_hash(self, st: KVStoreState, keys):
+        found, mpos, _hf, _fp = self._probe(st.idx, keys)
+        return self._index_row(st, found, mpos)
+
+    def _index_lookup_reference(self, st: KVStoreState, keys):
+        """The flat associative scan — O(C) per key, the executable
+        specification the hash probe is pinned against: the first USED
+        position holding the key."""
+        match = (st.idx[:, None, :, IDX_STATE] == _USED) \
+            & (st.idx[:, None, :, IDX_KEY] == u2i(keys)[..., None])  # (P,B,C)
+        return self._index_row(st, match.any(-1), _first_true(match))
+
+    # -- lock-free GET (paper Fig. 3 read path) -------------------------------------
+    def _get(self, st: KVStoreState, key, pred):
+        """The scalar read path — part of the ``_op_round_reference`` spec:
+        key, pred (P,) → (value (P, W), found (P,), tries).  Each live lane
+        reads its row with the scalar one-sided verb, re-read while any lane
+        anywhere read a torn row (at most :data:`MAX_GET_RETRIES` times).  A
+        cache-enabled store routes it through the read tier as a window of
+        one (its refills are dropped: this path returns no state)."""
+        key = as_u32(key, self.device).reshape(self.P, 1)
+        pred = torch.as_tensor(pred, device=self.device).expand(self.P)
+        if self.cache is not None:
+            values, found, tries, _st = self._get_window(st, key,
+                                                         pred[:, None])
+            return values[:, 0], found[:, 0], tries
+        found_idx, _pos, node, slot, ctr = (
+            x[:, 0] for x in self._index_lookup(st, key))
+        live = pred & found_idx
+
+        def read_once():
+            row = self.backend.read(st.rows.buf, node, slot, pred=live,
+                                    ledger=self.mgr.traffic,
+                                    verb=f"{self.full_name}.get")
+            return self.decode_row(row)
+
+        payload, row_ctr, valid, csum_ok = read_once()
+        tries = 0
+        while tries < MAX_GET_RETRIES and bool((live & ~csum_ok).any()):
+            payload, row_ctr, valid, csum_ok = read_once()
+            tries += 1
+        # the Appendix C case analysis
+        found = live & csum_ok & (row_ctr == ctr) & valid
+        value = torch.where(found[:, None], payload,
+                            torch.zeros_like(payload))
+        return value, found, tries
+
     def _get_window(self, st: KVStoreState, keys, pred, look=None):
         """(P, B) lock-free GETs through the read tier → (values (P, B, W),
         found (P, B), tries, state).  The returned state carries this
@@ -358,6 +412,79 @@ class KVStore(Channel):
         return values, found, max(rounds - 1, 0), cache
 
     # -- tracker application ----------------------------------------------------------
+    def _apply_tracker(self, st: KVStoreState, recs):
+        """Apply the gathered (N, 5) tracker records at every participant:
+        the wave scheduler, or the sequential sweep on a reference-impl
+        store (each pairs its own index placement with its own lookup).
+        Returns (state, applied (P, N))."""
+        if self.reference_impl:
+            return self._apply_tracker_reference(st, recs)
+        return self._apply_tracker_vectorized(st, recs)
+
+    def _apply_tracker_reference(self, st: KVStoreState, recs):
+        """The sequential sweep — the executable specification.  The live
+        records go first in their order (the reference's stable live-first
+        partition) and apply one at a time at every participant at once:
+        an insert takes the first EMPTY position anywhere (O(C)), a delete
+        clears its entry back to EMPTY (the flat scan needs no tombstones)
+        and the hosting node frees the slot, a MOVE re-points its entry in
+        place while the old host frees the vacated slot, bumps its reuse
+        counter and forgets its heat.  The records are the same at every
+        participant, so they are read to the host once and the sweep takes
+        one step per live record."""
+        P, N, S = self.P, recs.shape[0], self.S
+        dev = recs.device
+        ar = torch.arange(P, device=dev)
+        applied = torch.zeros((P, N), dtype=torch.bool, device=dev)
+        idx, free_stack = st.idx.clone(), st.free_stack.clone()
+        free_top, slot_ctr = st.free_top, st.slot_ctr
+        overflow, heat = st.idx_overflow, st.heat
+        for n, (kind, key_b, node, slot, ctr_b) in enumerate(
+                recs.cpu().tolist()):
+            if kind not in (1, 2, 3):
+                continue
+            state, keys = idx[..., IDX_STATE], idx[..., IDX_KEY]
+            if kind == 1:
+                free = state == _EMPTY                              # (P, C)
+                do = free.any(1)
+                overflow = overflow | ~do
+                pos = _first_true(free)
+            else:
+                match = (state == _USED) & (keys == key_b)
+                do = match.any(1)
+                pos = _first_true(match)
+            old = idx[ar, pos]                                      # (P, 5)
+            new = torch.tensor([_USED, key_b, node, slot, ctr_b],
+                               dtype=torch.int32, device=dev).expand(P, 5)
+            if kind == 2:
+                new = torch.cat([torch.zeros_like(old[:, :2]), old[:, 2:]], 1)
+            idx[ar, pos] = torch.where(do[:, None], new, old)
+            # slot GC at the hosting node; a MOVE frees the vacated slot
+            if kind == 3:
+                gone_node, gone_slot = old[:, IDX_NODE], old[:, IDX_SLOT]
+            else:
+                gone_node = torch.full_like(old[:, 0], node)
+                gone_slot = torch.full_like(old[:, 0], slot)
+            frees = do & (gone_node == ar) if kind != 1 \
+                else torch.zeros_like(do)
+            top = free_top.long().clamp(0, S - 1)
+            free_stack[ar, top] = torch.where(frees, gone_slot,
+                                              free_stack[ar, top])
+            free_top = torch.where(frees, free_top + 1, free_top)
+            if kind == 3:
+                slot_ctr = colls.put_rows(
+                    slot_ctr, gone_slot[:, None].clamp(0, S - 1), 1,
+                    (frees & (gone_slot >= 0) & (gone_slot < S))[:, None],
+                    accumulate=True) & MASK32
+            if self.hot is not None and kind != 1:
+                heat = self.hot.forget(heat, gone_node[:, None],
+                                       gone_slot[:, None], do[:, None])
+            applied[:, n] = do
+        return st._replace(idx=idx, free_stack=free_stack,
+                           free_top=free_top.to(torch.int32),
+                           slot_ctr=slot_ctr, idx_overflow=overflow,
+                           heat=heat), applied
+
     def _apply_tracker_vectorized(self, st: KVStoreState, recs):
         """Apply the gathered (N, 5) tracker records in record order at every
         participant: rec = [kind (0/1=ins/2=del/3=move), key_bits, node,
@@ -466,6 +593,88 @@ class KVStore(Channel):
                 applied & (is_del | is_mov)))
         return st, applied
 
+    # -- the scalar service round (the executable specification) ---------------------
+    def _service_round(self, st: KVStoreState, op, key, value, lock_id,
+                       ticket, pending):
+        """One scalar service round — part of the ``_op_round_reference``
+        spec.  Every participant whose ticket its lock serves executes its
+        one operation: an INSERT allocates a local slot and writes the row
+        invalid, every participant applies the round's P tracker records and
+        acknowledges them through the SST, an UPDATE or DELETE writes its
+        row with the scalar one-sided verb, the INSERT sets its row valid
+        once every peer acknowledged, and the holder releases its lock.
+        op, key, lock_id, ticket, pending (P,); value (P, W).  Returns
+        (state, pending, holding, success)."""
+        P, S = self.P, self.S
+        ar = torch.arange(P, device=self.device)
+        holding = pending & self.locks.holds(st.locks, lock_id, ticket)
+        found, _pos, node, slot, ctr = (
+            x[:, 0] for x in self._index_lookup(st, key[:, None]))
+        do_ins = holding & (op == INSERT) & ~found
+        do_upd = holding & (op == UPDATE) & found
+        do_del = holding & (op == DELETE) & found
+
+        # ---- INSERT phase 1: allocate a local slot, write the row invalid
+        do_ins = do_ins & (st.free_top > 0)
+        my_slot = st.free_stack[ar, (st.free_top.long() - 1).clamp(min=0)]
+        free_top = torch.where(do_ins, st.free_top - 1, st.free_top)
+        new_ctr = (st.slot_ctr[ar, my_slot.long()] + 1) & MASK32
+        st = st._replace(
+            rows=self.rows_region.local_write(
+                st.rows, my_slot, self.encode_row(value, new_ctr, False),
+                pred=do_ins),
+            slot_ctr=colls.put_rows(st.slot_ctr, my_slot[:, None],
+                                    new_ctr[:, None], do_ins[:, None]),
+            free_top=free_top)
+
+        # ---- the tracker: P records, one a participant, applied by all
+        kind = torch.where(do_ins, 1, torch.where(do_del, 2, 0))
+        recs = torch.stack(
+            [kind.to(torch.int32), u2i(key),
+             torch.where(do_ins, ar, node).to(torch.int32),
+             torch.where(do_ins, my_slot, slot).to(torch.int32),
+             u2i(torch.where(do_ins, new_ctr, ctr))], dim=-1)    # (P, 5)
+        if self.cache is not None:
+            # read-tier coherence (§8.3) on the scalar spec path too
+            st = st._replace(cache=self.cache.invalidate(
+                st.cache, recs[:, 2], recs[:, 3], do_upd | do_del))
+        n_recs = (recs[:, 0] != 0).sum()
+        st, applied = self._apply_tracker(st, recs)
+        acks, _a = self.acks.push_accumulate(st.acks, n_recs)
+        table = self.acks.rows(acks)
+        all_acked = (table >= table[ar, ar][:, None]).all(1)
+        st = st._replace(acks=acks)
+
+        # ---- index overflow: an un-indexed insert fails, returns its slot
+        ins_ok = do_ins & applied[ar, ar]
+        fail = do_ins & ~applied[ar, ar]
+        top = st.free_top.long().clamp(0, S - 1)
+        free_stack = st.free_stack.clone()
+        free_stack[ar, top] = torch.where(fail, my_slot, free_stack[ar, top])
+        st = st._replace(free_stack=free_stack,
+                         free_top=torch.where(fail, st.free_top + 1,
+                                              st.free_top))
+
+        # ---- UPDATE: the full row (value, same ctr, valid); DELETE: the
+        # payload cleared and valid unset, ctr kept — two scalar writes
+        rows, _ = self.rows_region.write(
+            st.rows, node, slot, self.encode_row(value, ctr, True),
+            pred=do_upd)
+        rows, _ = self.rows_region.write(
+            rows, node, slot,
+            self.encode_row(torch.zeros_like(value), ctr, False),
+            pred=do_del)
+
+        # ---- INSERT phase 2: valid once every peer acknowledged
+        gate = join(AckKey([acks]), ins_ok & all_acked)
+        st = st._replace(rows=self.rows_region.local_write(
+            rows, my_slot, self.encode_row(value, new_ctr, True), pred=gate))
+
+        # ---- release, after the critical section's effects
+        st = st._replace(locks=self.locks.release(st.locks, lock_id,
+                                                  holding))
+        return st, pending & ~holding, holding, ins_ok | do_upd | do_del
+
     # -- the precomputed service schedule ---------------------------------------------
     def _service_schedule(self, op, key, lock_id, ticket, want):
         """Each lane's service round, computed once per window from the
@@ -513,13 +722,37 @@ class KVStore(Channel):
         return round_all, ~superseded.any(1)
 
     # -- one service round over the whole (P, B) window ---------------------------------
+    def _serving(self, st: KVStoreState, pending, serve, write_winner,
+                 lock_id, ticket):
+        """(holding, write_winner) of a service round: the lanes the
+        schedule serves (``serve``), or with ``serve=None`` — the
+        specification's serving — each lane whose ticket its lock serves
+        now, one a lock, so no two same-key writes share a round."""
+        if serve is None:
+            holding = pending & self.locks.holds(st.locks, lock_id, ticket)
+            return holding, torch.ones_like(holding)
+        return pending & serve, write_winner
+
+    def _release_round(self, st: KVStoreState, serve, lock_id, holding):
+        """The specification's release at the end of every round
+        (``serve=None``), after the round's effects; the scheduled path
+        releases once, at the end of its window."""
+        if serve is None:
+            st = st._replace(locks=self.locks.release_window(
+                st.locks, lock_id, holding))
+        return st
+
     def _service_window(self, st: KVStoreState, op, key, value, pending,
-                        look, serve, write_winner):
-        """One service round: every pending lane the schedule serves this
-        round (``serve``) executes — the writer-local branch of the
-        reference.  Concurrent mutations hold distinct locks, hence act on
-        distinct keys and live slots, which makes the batched allocation,
-        the (P·B, 5) tracker sweep and the single batched write race-free.
+                        look, serve, write_winner, lock_id=None,
+                        ticket=None):
+        """One service round: every pending lane served this round
+        executes — the writer-local branch of the reference.  The schedule
+        says which lanes (``serve``); with ``serve=None`` (a reference-impl
+        store) the lanes whose tickets their locks serve do, and release
+        their locks at the end of the round.  Concurrent mutations hold
+        distinct locks, hence act on distinct keys and live slots, which
+        makes the batched allocation, the (P·B, 5) tracker sweep and the
+        single batched write race-free.
 
         ``look`` is each lane's (found, node, slot, ctr) view of the index;
         it is refreshed from this round's applied records and returned for
@@ -528,7 +761,8 @@ class KVStore(Channel):
         S = self.S
         ar = torch.arange(P, device=op.device)
         me = ar[:, None]
-        holding = pending & serve
+        holding, write_winner = self._serving(st, pending, serve,
+                                              write_winner, lock_id, ticket)
         found, node, slot, ctr = look
         do_ins = holding & (op == INSERT) & ~found
         do_upd = holding & (op == UPDATE) & found
@@ -567,7 +801,7 @@ class KVStore(Channel):
             st = st._replace(cache=self.cache.invalidate(
                 st.cache, recs[:, 2], recs[:, 3], (do_upd | do_del).reshape(-1)))
         n_recs = (recs[:, 0] != 0).sum()
-        st, applied = self._apply_tracker_vectorized(st, recs)
+        st, applied = self._apply_tracker(st, recs)
         my_applied = applied.reshape(P, P, B)[ar, ar]
         # acknowledge all applied records through the SST in one push;
         # inserters require every peer caught up before setting valid
@@ -601,6 +835,7 @@ class KVStore(Channel):
         st = st._replace(rows=self.rows_region.local_write_batch(
             st.rows, my_slot, self.encode_row(value, new_ctr, True),
             preds=gate))
+        st = self._release_round(st, serve, lock_id, holding)
 
         success = ins_ok | do_upd | do_del
         return (st, pending & ~holding, holding, success,
@@ -609,7 +844,8 @@ class KVStore(Channel):
     # -- the placed service round (explicit locality tier, DESIGN.md §10) -------
     def _service_window_placed(self, st: KVStoreState, op, key, value,
                                pending, look, serve, write_winner, homes,
-                               any_alloc, has_move):
+                               any_alloc, has_move, lock_id=None,
+                               ticket=None):
         """One service round under non-local placement: INSERT slots are
         allocated at each lane's *home* (P, B) through a request/grant
         round-trip, the rows travel on the batched one-sided write, and
@@ -629,13 +865,15 @@ class KVStore(Channel):
         row at the destination and clears the old one, both in the round's
         batched write (2B lanes in a window with a MOVE lane,
         ``has_move``).  A MOVE whose destination is the current home
-        succeeds with no effect.  Returns (state, pending, holding, success,
+        succeeds with no effect.  ``serve=None`` serves and releases as in
+        :meth:`_service_window`.  Returns (state, pending, holding, success,
         look) as :meth:`_service_window` does."""
         P, B = op.shape
         S = self.S
         ar = torch.arange(P, device=op.device)
         me = ar[:, None]
-        holding = pending & serve
+        holding, write_winner = self._serving(st, pending, serve,
+                                              write_winner, lock_id, ticket)
         found, node, slot, ctr = look
         node = node.to(torch.int32)
         slot = slot.to(torch.int32)
@@ -708,7 +946,7 @@ class KVStore(Channel):
                 st.cache, node.reshape(-1), slot.reshape(-1),
                 (do_upd | do_del | do_move).reshape(-1)))
         n_recs = (recs[:, 0] != 0).sum()
-        st, applied = self._apply_tracker_vectorized(st, recs)
+        st, applied = self._apply_tracker(st, recs)
         my_applied = applied.reshape(P, P, B)[ar, ar]
         acks, _a = self.acks.push_accumulate(st.acks, n_recs)
         table = self.acks.rows(acks)
@@ -747,7 +985,8 @@ class KVStore(Channel):
             preds = torch.cat([preds, gate & do_move], 1)
         rows2, _ = self.rows_region.write_batch(
             st.rows, tgt, idx, prim, preds=preds, assume_unique=True)
-        st = st._replace(rows=rows2)
+        st = self._release_round(st._replace(rows=rows2), serve, lock_id,
+                                 holding)
         success = ins_ok | do_upd | do_del | move_ok | move_noop
         return (st, pending & ~holding, holding, success,
                 _refresh_look(recs, applied, key, look))
@@ -800,6 +1039,9 @@ class KVStore(Channel):
         lock-wanting lane anywhere, the fast classification) cost one host
         read together."""
         lockfree = self.lockfree if lockfree is None else bool(lockfree)
+        if lockfree and self.reference_impl:
+            raise ValueError("lockfree op_window requires the scheduled "
+                             "implementation (reference_impl=False)")
         ops, keys, values = self._lanes_in(ops, keys, values)
         want_lock = (ops == INSERT) | (ops == UPDATE) | (ops == DELETE) \
             | (ops == MOVE)
@@ -819,17 +1061,24 @@ class KVStore(Channel):
         look = (found0, node0, slot0, ctr0)
 
         # the locked path acquires and schedules every window; the §11
-        # path only a window with a lock-wanting lane anywhere
-        lock_totals = None
+        # path only a window with a lock-wanting lane anywhere; the
+        # specification acquires and serves one ticket a lock a round,
+        # releasing as it goes, and its placed rounds make the allocation
+        # round-trip whether or not a lane allocates
+        lock_totals = ticket = write_winner = None
         if any_want or not lockfree:
             lstate, ticket = self.locks.acquire_window(st.locks, lock_id,
                                                        want_lock)
-            # every acquired ticket completes within this window, so the
-            # end-of-window release bumps now_serving by the acquire totals
-            lock_totals = (lstate.next_ticket - st.locks.next_ticket) & MASK32
+            if not self.reference_impl:
+                # every acquired ticket completes within this window, so the
+                # end-of-window release bumps now_serving by the acquire
+                # totals
+                lock_totals = (lstate.next_ticket - st.locks.next_ticket) \
+                    & MASK32
+                round_no, write_winner = self._service_schedule(
+                    ops, keys, lock_id, ticket, want_lock)
             st = st._replace(locks=lstate)
-            round_no, write_winner = self._service_schedule(
-                ops, keys, lock_id, ticket, want_lock)
+        any_alloc = any_alloc or self.reference_impl
 
         # lock-free GETs against the pre-window state
         get_val, get_found, retries, st = self._get_window(
@@ -866,22 +1115,31 @@ class KVStore(Channel):
             # participant, and the reference records it once
             colls.record_fastpath(self.mgr.traffic, self.full_name,
                                   float(win_fast), 1.0)
-        # the reference loops while any lane anywhere is pending; every
-        # pending lane is served in its scheduled round, so that is exactly
-        # max(round_no) rounds
-        n_rounds = int(round_no.max()) if any_want and not fast else 0
-        for r in range(1, n_rounds + 1):
+        def serve_round(st, pending, look, serve):
+            kw = dict(serve=serve, write_winner=write_winner,
+                      lock_id=lock_id, ticket=ticket)
             if homes is None:
-                st, pending, _held, s_now, look = self._service_window(
-                    st, ops, keys, values, pending, look,
-                    serve=round_no == r, write_winner=write_winner)
-            else:
-                st, pending, _held, s_now, look = \
-                    self._service_window_placed(
-                        st, ops, keys, values, pending, look,
-                        serve=round_no == r, write_winner=write_winner,
-                        homes=homes, any_alloc=any_alloc, has_move=has_move)
-            succ = succ | s_now
+                return self._service_window(st, ops, keys, values, pending,
+                                            look, **kw)
+            return self._service_window_placed(
+                st, ops, keys, values, pending, look, homes=homes,
+                any_alloc=any_alloc, has_move=has_move, **kw)
+
+        if self.reference_impl:
+            # rounds while any lane anywhere is pending: a host read a round
+            while bool(pending.any()):
+                st, pending, _held, s_now, look = serve_round(
+                    st, pending, look, None)
+                succ = succ | s_now
+        else:
+            # the reference loops while any lane anywhere is pending; every
+            # pending lane is served in its scheduled round, so that is
+            # exactly max(round_no) rounds
+            n_rounds = int(round_no.max()) if any_want and not fast else 0
+            for r in range(1, n_rounds + 1):
+                st, pending, _held, s_now, look = serve_round(
+                    st, pending, look, round_no == r)
+                succ = succ | s_now
 
         # deferred batched release, after every critical-section effect
         # (program order is the release fence, §5.4)
@@ -907,6 +1165,36 @@ class KVStore(Channel):
         return st, KVResult(value=res.value[:, 0], found=res.found[:, 0],
                             retries=res.retries[:, 0])
 
+    def _op_round_reference(self, st: KVStoreState, op, key, value):
+        """The scalar op_round — the executable specification :meth:`op_round`
+        is pinned against bit for bit: a ticket from the lock stripe's
+        scalar acquire, the scalar lock-free GET (:meth:`_get`) against the
+        pre-round state, then scalar service rounds (:meth:`_service_round`)
+        until no participant is pending, a host read a round.  op, key (P,);
+        value (P, W) → (state, KVResult of (P,) lanes)."""
+        op = _tensor(op, torch.int32, self.device).reshape(self.P)
+        key = as_u32(key, self.device).reshape(self.P)
+        value = _tensor(value, torch.int32, self.device).reshape(self.P,
+                                                                 self.W)
+        lock_id = key % self.L
+        want_lock = (op == INSERT) | (op == UPDATE) | (op == DELETE)
+        lstate, ticket = self.locks.acquire(st.locks, lock_id, want_lock)
+        st = st._replace(locks=lstate)
+        get_val, get_found, retries = self._get(st, key, op == GET)
+        pending, succ = want_lock, torch.zeros_like(want_lock)
+        while bool(pending.any()):
+            with self.mgr.no_tracking():
+                st, pending, _held, s_now = self._service_round(
+                    st, op, key, value, lock_id, ticket, pending)
+            succ = succ | s_now
+        is_get = op == GET
+        return st, KVResult(
+            value=torch.where(is_get[:, None], get_val,
+                              torch.zeros_like(get_val)),
+            found=torch.where(is_get, get_found, succ),
+            retries=torch.full((self.P,), retries, dtype=torch.int32,
+                               device=self.device))
+
     # -- online migration and rebalancing (the §10 locality tier) ----------------
     def migrate_window(self, st: KVStoreState, keys, dests, preds=None):
         """Re-home a (P, B) lane window of live rows in one round-set: lane
@@ -931,6 +1219,26 @@ class KVStore(Channel):
             targets=_tensor(dests, torch.int32, self.device).reshape(
                 self.P, B))
         return st, res.found
+
+    def _migrate_reference(self, st: KVStoreState, keys, dests, preds=None):
+        """The migration specification: the (P, B) lanes run as B
+        single-lane MOVE windows one after the other, lane b of every
+        participant in window b.  :meth:`migrate_window` is pinned against
+        it result for result (slot choices may differ when several lanes
+        target one destination).  Returns (state, moved (P, B))."""
+        keys = as_u32(keys, self.device).reshape(self.P, -1)
+        B = keys.shape[1]
+        dests = _tensor(dests, torch.int32, self.device).reshape(self.P, B)
+        preds = torch.ones((self.P, B), dtype=torch.bool, device=self.device) \
+            if preds is None else torch.as_tensor(
+                preds, device=self.device).to(torch.bool).reshape(self.P, B)
+        moved = []
+        for b in range(B):
+            st, ok = self.migrate_window(st, keys[:, b:b + 1],
+                                         dests[:, b:b + 1],
+                                         preds=preds[:, b:b + 1])
+            moved.append(ok[:, 0])
+        return st, torch.stack(moved, 1)
 
     def rebalance_proposals(self, st: KVStoreState, max_moves: int,
                             min_heat: float = 1.0, with_alts: bool = False):

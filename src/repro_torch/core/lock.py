@@ -1,12 +1,17 @@
 """Ticket locks over network memory — LOCO §5.4, after Mellor-Crummey &
 Scott; the counterpart of ``repro/core/lock.py``.
 
-The port holds the KVStore's lock stripe: :class:`TicketLockArray` with its
-windowed acquire (and its prepared form, the reference's surface for a
-caller that resolved the ranks itself) and release, and
-:func:`window_fifo_ranks`, the fused windowed fetch-and-add that resolves a
-whole window's tickets at once.  The scalar :class:`TicketLock` waits for a
-later slice.
+:class:`TicketLock` is the paper's lock: ``next_ticket`` and
+``now_serving`` are atomic_vars; acquire is a remote fetch-and-add on
+next_ticket, the holder is the participant whose ticket equals now_serving,
+and release increments now_serving after a fence of the caller's scope.
+Contended requests serialize across rounds in FIFO ticket order.
+
+:class:`TicketLockArray` is the KVStore's lock stripe, with its windowed
+acquire (and its prepared form, for a caller that resolved the ranks
+itself), release and holds test, whose single-request forms are windows of
+one; :func:`window_fifo_ranks` is the fused windowed fetch-and-add that
+resolves a whole window's tickets at once.
 """
 from __future__ import annotations
 
@@ -15,6 +20,8 @@ from typing import NamedTuple
 import torch
 
 from . import colls
+from .ack import FenceScope
+from .atomic import AtomicVar, AtomicVarState
 from .channel import Channel
 from .runtime import Manager
 from .u32 import MASK32
@@ -39,6 +46,56 @@ def window_fifo_ranks(lids, gflags, num_locks):
     totals = torch.zeros((num_locks,), dtype=torch.int64, device=lids.device)
     totals.scatter_add_(0, flat, flags.to(torch.int64))
     return rank.reshape(lids.shape), totals
+
+
+class TicketLockState(NamedTuple):
+    next_ticket: AtomicVarState
+    now_serving: AtomicVarState
+
+
+class TicketLock(Channel):
+    """One ticket lock whose two atomic_vars are hosted at ``host``."""
+
+    def __init__(self, parent, name: str, mgr: Manager, *, host: int = 0):
+        super().__init__(parent, name, mgr)
+        self.next_ticket = AtomicVar(self, "next", mgr, host=host,
+                                     dtype=torch.uint32)
+        self.now_serving = AtomicVar(self, "serving", mgr, host=host,
+                                     dtype=torch.uint32)
+
+    def init_state(self) -> TicketLockState:
+        return TicketLockState(next_ticket=self.next_ticket.init_state(0),
+                               now_serving=self.now_serving.init_state(0))
+
+    def acquire(self, state: TicketLockState, want=True):
+        """Fetch a ticket (remote fetch-and-add).  Returns (state, tickets
+        (P,) uint32), NO_TICKET for participants that do not want one."""
+        want = colls._per_participant(want, self.P, self.device, torch.bool)
+        nt, my_ticket, _ack = self.next_ticket.fetch_add(
+            state.next_ticket, 1, pred=want)
+        return state._replace(next_ticket=nt), \
+            torch.where(want, my_ticket, NO_TICKET)
+
+    def holds(self, state: TicketLockState, ticket):
+        """Does each participant hold the lock this round?  (A local read of
+        its cached now_serving.)"""
+        return torch.as_tensor(ticket, device=self.device) \
+            == self.now_serving.load_cached(state.now_serving)
+
+    def refresh(self, state: TicketLockState):
+        """Re-pull now_serving from its host (the spin read)."""
+        ns, _ack = self.now_serving.pull(state.now_serving)
+        return state._replace(now_serving=ns)
+
+    def release(self, state: TicketLockState, holding,
+                fence_scope: FenceScope = FenceScope.GLOBAL):
+        """Release by the holder: fence prior operations (the caller's
+        scope, §5.4), then increment now_serving.  At most one participant
+        may pass ``holding=True`` a round."""
+        ns_state = self.mgr.fence(state.now_serving, scope=fence_scope)
+        ns, _old, _ack = self.now_serving.fetch_add(ns_state, 1,
+                                                    pred=holding)
+        return state._replace(now_serving=ns)
 
 
 class TicketLockArrayState(NamedTuple):
@@ -88,6 +145,32 @@ class TicketLockArray(Channel):
         new = state._replace(
             next_ticket=(state.next_ticket + totals[None]) & MASK32)
         return new, torch.where(want, ticket, NO_TICKET)
+
+    def _one(self, x, dtype):
+        """A single-request argument as (P, 1) lanes."""
+        return colls._per_participant(x, self.P, self.device, dtype)[:, None]
+
+    def acquire(self, state: TicketLockArrayState, lock_id, want):
+        """Single-request form, a window of one: lock_id, want (P,).
+        Returns (state, tickets (P,))."""
+        new, ticket = self.acquire_window(
+            state, self._one(lock_id, torch.int64),
+            self._one(want, torch.bool))
+        return new, ticket[:, 0]
+
+    def holds(self, state: TicketLockArrayState, lock_id, ticket):
+        """Does each lane hold its lock?  Elementwise over matching (P, ...)
+        ``lock_id`` and ``ticket``."""
+        lock_id = torch.as_tensor(lock_id, device=self.device)
+        serving = state.now_serving.gather(
+            1, lock_id.to(torch.int64).reshape(self.P, -1))
+        return torch.as_tensor(ticket, device=self.device) \
+            == serving.reshape(lock_id.shape)
+
+    def release(self, state: TicketLockArrayState, lock_id, holding):
+        """Single-request form, a window of one: lock_id, holding (P,)."""
+        return self.release_window(state, self._one(lock_id, torch.int64),
+                                   self._one(holding, torch.bool))
 
     def release_window(self, state: TicketLockArrayState, lock_ids,
                        holding):

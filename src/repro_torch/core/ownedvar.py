@@ -1,9 +1,12 @@
 """owned_var — single-writer multi-reader register (LOCO §5.1.1), the
 counterpart of ``repro/core/ownedvar.py``.
 
-This slice ports what the KVStore path needs: the 32-bit :func:`checksum`
-every encoded row carries, and the :class:`OwnedVar` channel as the SST's
-named per-participant register (its push/pull verbs wait for a later slice).
+Each owned_var has one authoritative copy at its *owner* and cached copies at
+every other participant, updated by owner pushes or reader pulls.  Values of
+at most the atomic word size are inherently atomic; larger ones carry the
+32-bit :func:`checksum` (the one every KVStore row carries too), and
+:meth:`OwnedVar.load` reports a mismatch, which the reader answers by
+reading again.
 """
 from __future__ import annotations
 
@@ -12,9 +15,13 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from . import colls
+from .ack import ALL_PEERS, make_ack
 from .channel import Channel
 from .runtime import Manager
 from .u32 import MASK32, mul32
+
+_ATOMIC_WORD_BYTES = 4
 
 
 def value_nbytes(shape, dtype: torch.dtype) -> int:
@@ -56,7 +63,8 @@ class OwnedVarState(NamedTuple):
 
 
 class OwnedVar(Channel):
-    """Single-writer multi-reader register owned by participant ``owner``."""
+    """Single-writer multi-reader register owned by participant ``owner``.
+    A ``torch.uint32`` register is held in int64, masked to 32 bits."""
 
     def __init__(self, parent, name: str, mgr: Manager, *, owner: int,
                  shape: Tuple[int, ...] = (), dtype=torch.float32):
@@ -65,4 +73,62 @@ class OwnedVar(Channel):
         self.shape = tuple(shape)
         self.dtype = dtype
         self.nbytes = value_nbytes(self.shape, dtype)
+        self.needs_checksum = self.nbytes > _ATOMIC_WORD_BYTES
         self.declare_region("val", self.shape, dtype)
+
+    def _value(self, value):
+        """``value`` as (P, *shape) of the register's type."""
+        v = torch.as_tensor(value, device=self.device)
+        if self.dtype == torch.uint32:
+            v = v.to(torch.int64) & MASK32
+        else:
+            v = v.to(self.dtype)
+        return v.expand((self.P,) + self.shape)
+
+    def _csum(self, cached):
+        return checksum(cached, item_dims=len(self.shape))
+
+    def init_state(self, value=None) -> OwnedVarState:
+        """Stacked initial state: every copy holds ``value`` (default 0)."""
+        v = self._value(0 if value is None else value).clone()
+        return OwnedVarState(cached=v, csum=self._csum(v))
+
+    def store_mine(self, state: OwnedVarState, value,
+                   pred=True) -> OwnedVarState:
+        """Local store into each participant's own copy where ``pred``
+        (meaningful at the owner; paper Fig. 1a)."""
+        pred = colls._per_participant(pred, self.P, self.device, torch.bool)
+        cached = torch.where(colls._lanes(pred, state.cached),
+                             self._value(value), state.cached)
+        return OwnedVarState(cached=cached, csum=self._csum(cached))
+
+    def _from_owner(self, state: OwnedVarState):
+        return OwnedVarState(
+            cached=colls.bcast_from(state.cached, self.owner).clone(),
+            csum=colls.bcast_from(state.csum, self.owner).clone())
+
+    def push(self, state: OwnedVarState):
+        """The owner pushes its copy to every cached copy (one-sided
+        write).  Returns (state, ack)."""
+        new = self._from_owner(state)
+        ack = make_ack(tuple(new), "write", self.full_name, ALL_PEERS,
+                       self.nbytes)
+        return new, self.mgr.track(ack)
+
+    def pull(self, state: OwnedVarState):
+        """Readers refresh their cached copies from the owner (one-sided
+        read).  Returns (state, ack)."""
+        new = self._from_owner(state)
+        ack = make_ack(tuple(new), "read", self.full_name, (self.owner,),
+                       self.nbytes)
+        return new, self.mgr.track(ack)
+
+    def load(self, state: OwnedVarState):
+        """Local load of each cached copy → (value (P, *shape),
+        checksum_ok (P,)).  A word-size value is always whole; a larger one
+        is checked against its stored checksum, and a mismatch means the
+        read raced a torn update and must be retried (§5.1.1)."""
+        if not self.needs_checksum:
+            return state.cached, torch.ones(self.P, dtype=torch.bool,
+                                            device=self.device)
+        return state.cached, self._csum(state.cached) == state.csum

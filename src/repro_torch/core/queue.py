@@ -12,9 +12,11 @@ verify the slot it claimed was produced by the matching enqueue ticket.
 lane window of pushes/pops in one round-set: flow control and ticket issue
 ride one ranked prefix scan over all P·B lanes in (participant, lane) order,
 and slot traffic moves through the batched one-sided verbs with per-lane
-``preds``.  :meth:`enqueue` / :meth:`dequeue` are the B=1 wrappers.
-Payloads are int32 (the reference's ``dtype`` knob, and its scalar
-reference paths, wait for the channels that need them).
+``preds``.  :meth:`enqueue` / :meth:`dequeue` are the B=1 wrappers;
+:meth:`_enqueue_reference` / :meth:`_dequeue_reference` are the scalar
+paths on the atomic_vars' fetch-and-add and the region's scalar verbs, the
+executable specification the B=1 windows are pinned against.  Payloads are
+int32 (the reference's ``dtype`` knob waits for a channel that needs it).
 """
 from __future__ import annotations
 
@@ -55,10 +57,20 @@ class SharedQueue(Channel):
                                    backend=backend)
         self.backend = self.region.backend
 
+    @staticmethod
+    def _to_lane(seq_u32):
+        """Bit-preserving encode of uint32 seqs into the payload's int32
+        lane."""
+        return u2i(torch.as_tensor(seq_u32))
+
+    @staticmethod
+    def _from_lane(lane):
+        return i2u(lane)
+
     def init_state(self) -> SharedQueueState:
         slots = self.region.init_state()
         buf = slots.buf.clone()
-        buf[..., 0] = u2i(torch.tensor(EMPTY_SEQ))       # every slot empty
+        buf[..., 0] = self._to_lane(EMPTY_SEQ)           # every slot empty
         return SharedQueueState(head=self.head.init_state(0),
                                 tail=self.tail.init_state(0),
                                 slots=slots._replace(buf=buf))
@@ -88,7 +100,8 @@ class SharedQueue(Channel):
         tail_st, tickets, _ack = self.tail.fetch_add_window(state.tail, 1,
                                                             preds=grant)
         node, row = self._slot_of(tickets)
-        entries = torch.cat([u2i(tickets)[..., None], values], dim=-1)
+        entries = torch.cat([self._to_lane(tickets)[..., None], values],
+                            dim=-1)
         slots, _ack2 = self.region.write_batch(state.slots, node, row,
                                                entries, preds=grant,
                                                assume_unique=True)
@@ -109,12 +122,12 @@ class SharedQueue(Channel):
         node, row = self._slot_of(tickets)
         entries, _ack2 = self.region.read_batch(state.slots, node, row,
                                                 preds=grant)
-        ok = grant & (i2u(entries[..., 0]) == tickets)
+        ok = grant & (self._from_lane(entries[..., 0]) == tickets)
         values = torch.where(ok[..., None], entries[..., 1:],
                              torch.zeros_like(entries[..., 1:]))
         # clear the consumed slots (ABA safety on wrap)
         empty = torch.zeros_like(entries)
-        empty[..., 0] = u2i(torch.tensor(EMPTY_SEQ))
+        empty[..., 0] = self._to_lane(EMPTY_SEQ)
         slots, _ack3 = self.region.write_batch(state.slots, node, row, empty,
                                                preds=ok, assume_unique=True)
         return state._replace(head=head_st, slots=slots), values, ok
@@ -133,6 +146,54 @@ class SharedQueue(Channel):
         new, values, ok = self.dequeue_window(
             state, torch.as_tensor(want).expand(self.P).reshape(self.P, 1))
         return new, values[:, 0], ok[:, 0]
+
+    def _flow(self, state: SharedQueueState, want):
+        """Scalar flow control: (rank (P,), items (P,)) — each request's
+        rank in participant order and the queue's item count tail − head."""
+        head_now = colls.bcast_from(state.head.official, 0)
+        tail_now = colls.bcast_from(state.tail.official, 0)
+        rank, _total, _g = colls.prefix_sums(want.to(torch.int64))
+        return rank, u2i(tail_now - head_now).to(torch.int64)
+
+    def _enqueue_reference(self, state: SharedQueueState, value, want=True):
+        """The scalar enqueue — the executable specification the B=1 window
+        is pinned against: the tail's fetch-and-add and one scalar
+        one-sided write of (seq, payload).  value (P, width); want (P,).
+        Returns (state, grant (P,))."""
+        want = colls._per_participant(want, self.P, self.device, torch.bool)
+        rank, used = self._flow(state, want)
+        grant = want & (rank < self.capacity - used)
+        tail_st, ticket, _ack = self.tail.fetch_add(state.tail, 1,
+                                                    pred=grant)
+        node, row = self._slot_of(ticket)
+        entry = torch.cat([self._to_lane(ticket)[:, None],
+                           torch.as_tensor(value, device=self.device)
+                           .to(self.dtype).reshape(self.P, self.width)], 1)
+        slots, _ack2 = self.region.write(state.slots, node, row, entry,
+                                         pred=grant)
+        return state._replace(tail=tail_st, slots=slots), grant
+
+    def _dequeue_reference(self, state: SharedQueueState, want=True):
+        """The scalar dequeue — the executable specification: the head's
+        fetch-and-add, one scalar one-sided read of the claimed slot (a
+        non-granted lane costs nothing on the wire) and one write that
+        clears it.  Returns (state, value (P, width), ok (P,)); a failed
+        pop returns zeros."""
+        want = colls._per_participant(want, self.P, self.device, torch.bool)
+        rank, avail = self._flow(state, want)
+        grant = want & (rank < avail)
+        head_st, ticket, _ack = self.head.fetch_add(state.head, 1,
+                                                    pred=grant)
+        node, row = self._slot_of(ticket)
+        entry, _ack2 = self.region.read(state.slots, node, row, pred=grant)
+        ok = grant & (self._from_lane(entry[:, 0]) == ticket)
+        value = torch.where(ok[:, None], entry[:, 1:],
+                            torch.zeros_like(entry[:, 1:]))
+        empty = torch.zeros_like(entry)
+        empty[:, 0] = self._to_lane(EMPTY_SEQ)
+        slots, _ack3 = self.region.write(state.slots, node, row, empty,
+                                         pred=ok)
+        return state._replace(head=head_st, slots=slots), value, ok
 
 
 def queue_state_to_numpy(state: SharedQueueState) -> SharedQueueState:

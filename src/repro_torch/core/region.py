@@ -47,6 +47,33 @@ class SharedRegion(Channel):
         return int(np.prod(self.item_shape, dtype=np.int64) or 1) \
             * self.dtype.itemsize
 
+    def _local_rows(self, index):
+        """(P,) row indices of my own buffer, as JAX indexes one: a negative
+        index counts from the end."""
+        index = colls._per_participant(index, self.P, self.device,
+                                       torch.int64)
+        return torch.where(index < 0, index + self.slots, index)
+
+    def local_read(self, state: SharedRegionState, index):
+        """Each participant's own row ``index`` (no collective), clamped into
+        the buffer as a JAX gather clamps.  Returns (P, *item)."""
+        rows = self._local_rows(index).clamp(0, self.slots - 1)
+        return state.buf[self.my_id(), rows]
+
+    def local_write(self, state: SharedRegionState, index, value,
+                    pred=True) -> SharedRegionState:
+        """Each participant stores ``value`` (P, *item) into its own row
+        ``index`` where ``pred``; a row outside the buffer is dropped, as a
+        JAX scatter drops it."""
+        rows = self._local_rows(index)
+        keep = colls._per_participant(pred, self.P, self.device, torch.bool) \
+            & (rows >= 0) & (rows < self.slots)
+        value = torch.as_tensor(value, device=self.device).expand(
+            (self.P,) + self.item_shape)
+        return state._replace(buf=colls.put_rows(
+            state.buf, rows.clamp(0, self.slots - 1)[:, None],
+            value[:, None], keep[:, None]))
+
     def local_write_batch(self, state: SharedRegionState, indices, values,
                           preds=None) -> SharedRegionState:
         """Masked batch of local row writes (no collective, one scatter).
@@ -60,6 +87,29 @@ class SharedRegion(Channel):
         return state._replace(buf=colls.put_rows(state.buf, rows, values,
                                                  preds))
 
+    def read(self, state: SharedRegionState, target, index, pred=True):
+        """One-sided read of row ``index`` at participant ``target``, one per
+        participant: (P,) ints or one for all.  Returns (values (P, *item),
+        ack)."""
+        val = self.backend.read(state.buf, target, index, pred=pred,
+                                ledger=self.mgr.traffic,
+                                verb=f"{self.full_name}.read")
+        ack = make_ack(val, "read", self.full_name, ALL_PEERS,
+                       self.item_nbytes)
+        return val, self.mgr.track(ack)
+
+    def write(self, state: SharedRegionState, target, index, value,
+              pred=True):
+        """One-sided write of ``value`` (P, *item) to row ``index`` at
+        participant ``target``, one per participant; racy writes to one row
+        land in participant order.  Returns (state, ack)."""
+        buf = self.backend.write(state.buf, target, index, value, pred=pred,
+                                 ledger=self.mgr.traffic,
+                                 verb=f"{self.full_name}.write")
+        ack = make_ack(buf, "write", self.full_name, ALL_PEERS,
+                       self.item_nbytes)
+        return state._replace(buf=buf), self.mgr.track(ack)
+
     def read_batch(self, state: SharedRegionState, targets, indices,
                    preds=None, coalesce=True):
         """Batched one-sided read of (P, R) lanes; ``coalesce`` dedupes
@@ -70,7 +120,7 @@ class SharedRegion(Channel):
                                        coalesce=coalesce)
         ack = make_ack(vals, "read", self.full_name, ALL_PEERS,
                        self.item_nbytes * int(targets.shape[1]))
-        return vals, ack
+        return vals, self.mgr.track(ack)
 
     def write_batch(self, state: SharedRegionState, targets, indices, values,
                     preds=None, assume_unique=False):
@@ -83,4 +133,4 @@ class SharedRegion(Channel):
         new = state._replace(buf=buf)
         ack = make_ack(buf, "write", self.full_name, ALL_PEERS,
                        self.item_nbytes * int(targets.shape[1]))
-        return new, ack
+        return new, self.mgr.track(ack)

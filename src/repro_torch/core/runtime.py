@@ -12,11 +12,15 @@ device memory.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
+
+from .ack import ALL_PEERS, AckKey, FenceScope, join
 
 
 def resolve_device(device=None) -> torch.device:
@@ -31,16 +35,34 @@ def resolve_device(device=None) -> torch.device:
 
 class Runtime:
     """The stacked binding of P participants on one ``device``: channel
-    methods take and return stacked tensors, so they are called directly
-    where the reference wraps them in ``Runtime.run``."""
+    methods take and return stacked tensors, so they may be called directly
+    where the reference wraps them in :meth:`run`."""
 
     def __init__(self, num_participants: int, device=None):
         self.P = int(num_participants)
         self.device = resolve_device(device)
 
+    def run(self, fn: Callable, *args):
+        """Execute ``fn`` for every participant at once: ``fn`` takes the
+        stacked (P, ...) ``args`` and returns stacked outputs.  The
+        reference's ``jax.vmap``/``shard_map`` over a per-participant
+        program is the identity of the stacked form."""
+        return fn(*args)
+
     def my_id(self) -> torch.Tensor:
         """(P,) participant ids — the stacked ``axis_index``."""
         return torch.arange(self.P, device=self.device)
+
+    def stack(self, per_participant_values: List[Any]):
+        """Stack P per-participant values (tensors, arrays, numbers, or
+        NamedTuples of them) leaf by leaf into the runtime's (P, ...)
+        layout on its device."""
+        first = per_participant_values[0]
+        if isinstance(first, tuple):
+            return type(first)(*(self.stack(list(leaves))
+                                 for leaves in zip(*per_participant_values)))
+        return torch.stack([torch.as_tensor(v, device=self.device)
+                            for v in per_participant_values])
 
 
 @dataclass
@@ -191,20 +213,34 @@ class TrafficLedger:
 
 
 class Manager:
-    """LOCO manager: channel registry, memory ledger and traffic ledger.
+    """LOCO manager: channel registry, memory ledger, traffic ledger and
+    fence provider.
 
     ``backend`` selects the default execution protocol for every channel
     built under this manager (DESIGN.md §14): a name from
     :data:`repro_torch.core.backends.BACKENDS`, a backend instance, or
-    ``None`` for the one-sided reference backend."""
+    ``None`` for the ``REPRO_DEFAULT_BACKEND`` environment default (falling
+    back to the one-sided reference backend).
+
+    Fences (paper §5.3): inside a :meth:`tracking` scope the channels'
+    operations register their ack keys (:meth:`track`) and :meth:`fence`
+    joins the ones its scope covers.  Outside a scope nothing is kept: the
+    port runs in program order on one stream, so a fence orders nothing
+    that is not ordered already, and an eager loop of operations would
+    otherwise keep every token it produced alive."""
 
     def __init__(self, runtime: Runtime, backend=None):
         from .backends import get_backend  # local import: avoids a cycle
         self.runtime = runtime
-        self.backend = get_backend(backend)
+        self.backend = get_backend(
+            backend, default=os.environ.get("REPRO_DEFAULT_BACKEND"))
         self.channels: Dict[str, Any] = {}
         self.regions: Dict[str, RegionInfo] = {}
         self.traffic = TrafficLedger()
+        # fence statistics per scope, as the reference's benchmarks report
+        self.fence_counts = {s: 0 for s in FenceScope}
+        self._outstanding = None     # a list inside a tracking() scope
+        self._paused = False
 
     @property
     def P(self) -> int:
@@ -235,7 +271,62 @@ class Manager:
     def traffic_ledger_bytes(self) -> float:
         return self.traffic.total_bytes()
 
+    # -- outstanding-op tracking --------------------------------------------
+    @contextlib.contextmanager
+    def tracking(self):
+        """Scope within which issued ack keys are tracked for fences;
+        channel operations call :meth:`track`, ``fence`` drains."""
+        prev, self._outstanding = self._outstanding, []
+        try:
+            yield self
+        finally:
+            self._outstanding = prev
 
+    @contextlib.contextmanager
+    def no_tracking(self):
+        """Suspend tracking (the reference's loop bodies, whose tokens must
+        not escape the loop)."""
+        prev, self._paused = self._paused, True
+        try:
+            yield
+        finally:
+            self._paused = prev
+
+    def track(self, ack: AckKey) -> AckKey:
+        """Register ``ack`` as outstanding inside a :meth:`tracking` scope;
+        returns it."""
+        if self._outstanding is not None and not self._paused:
+            self._outstanding.append(ack)
+        return ack
+
+    def outstanding(self) -> AckKey:
+        """The union of the tracked ack keys not yet fenced."""
+        acc = AckKey.empty()
+        for a in self._outstanding or ():
+            acc = acc | a
+        return acc
+
+    def fence(self, *args, scope: FenceScope = FenceScope.GLOBAL,
+              peer: int | None = None):
+        """Order ``args`` after the outstanding operations ``scope`` covers
+        and return them (one value if one argument).
+
+        GLOBAL and THREAD join every outstanding operation and drain the
+        list; PAIR joins the operations that target ``peer`` (or every
+        peer) and leaves the others outstanding."""
+        self.fence_counts[scope] += 1
+        out_ack = self.outstanding()
+        if scope != FenceScope.PAIR:
+            if self._outstanding is not None:
+                self._outstanding = []
+            return join(out_ack, *args, scope=FenceScope.GLOBAL)
+        kept = [(tok, d) for tok, d in zip(out_ack.tokens, out_ack.descs)
+                if not (d.peers == ALL_PEERS
+                        or (peer is not None and peer in d.peers))]
+        if self._outstanding is not None:
+            self._outstanding = [AckKey([t for t, _ in kept],
+                                        [d for _, d in kept])]
+        return join(out_ack, *args, peer=peer, scope=FenceScope.PAIR)
 
 def make_manager(num_participants: int, device=None,
                  backend=None) -> Manager:

@@ -84,7 +84,7 @@ class SST(Channel):
         for i, v in enumerate(self.vars):
             ack = ack | make_ack((rows[i], csums[i]), "write", v.full_name,
                                  ALL_PEERS, self.row_nbytes)
-        return new, ack
+        return new, self.mgr.track(ack)
 
     def load_row(self, state: SSTState, i):
         """Local read of cached row ``i`` (an int or a (P,) tensor, one row
@@ -108,4 +108,4 @@ class SST(Channel):
                        csum=colls.gather_rows(csums).clone())
         ack = make_ack((rows, csums), "read", self.full_name, ALL_PEERS,
                        self.row_nbytes * self.P)
-        return new, ack
+        return new, self.mgr.track(ack)

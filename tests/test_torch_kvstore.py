@@ -282,26 +282,31 @@ def test_cache_only_store_bitwise():
 
 
 def test_unported_knobs_are_refused():
-    """Only the reference-impl store is still refused.  The read tier, the
-    placement policies, the lock-free fast path and heat tracking build
-    stores with their state leaves; a MOVE lane with no target under
-    writer-local placement takes its lock and fails with no effect."""
+    """No knob is refused any more but the pair the reference refuses too:
+    ``lockfree=True`` with ``reference_impl=True``.  The read tier, the
+    placement policies, the lock-free fast path, heat tracking and the
+    reference-impl store build stores with their state leaves; a MOVE lane
+    with no target under writer-local placement takes its lock and fails
+    with no effect."""
     mgr = pt.make_manager(P, device="cpu")
     for knob in [dict(cache_slots=4), dict(placement="hashed"),
-                 dict(lockfree=True), dict(track_heat=True)]:
+                 dict(lockfree=True), dict(track_heat=True),
+                 dict(reference_impl=True)]:
         kv = pt.KVStore(None, f"kv_{len(mgr.channels)}", mgr,
                         slots_per_node=4, **knob)
         st = kv.init_state()
         assert st.cache.tags.shape == (P, knob.get("cache_slots", 0), 2)
         assert kv.placement == knob.get("placement", "local")
         assert kv.lockfree == knob.get("lockfree", False)
+        assert kv.reference_impl == knob.get("reference_impl", False)
+        assert st.idx.shape == (P, kv.C, 5) and st.idx.dtype == torch.int32
         rows = P * 4 if knob.get("track_heat") else 0
         assert st.heat.heat.shape == (P, rows)
         assert st.heat.heat.dtype == torch.float32
         assert st.heat.backlog.shape == (P,)
-    with pytest.raises(NotImplementedError, match="reference_impl"):
+    with pytest.raises(ValueError, match="lockfree"):
         pt.KVStore(None, f"kv_{len(mgr.channels)}", mgr, slots_per_node=4,
-                   reference_impl=True)
+                   lockfree=True, reference_impl=True)
     kv = pt.KVStore(None, "kv_move", mgr, slots_per_node=4)
     st = kv.init_state()
     ins = np.full((P, 2), pt.NOP, np.int32)
