@@ -13,7 +13,7 @@ exits non-zero and prints no result:
    sources) with nvcc, one process per source, all at once, and check with
    ``cuobjdump -sass`` that the bf16 flash and grouped-matmul kernels run on
    the tensor cores (HMMA instructions), and from ``-Xptxas -v`` that the
-   grouped-matmul ones do not spill;
+   tensor-core flash and grouped-matmul ones do not spill;
 2. hold each kernel against its plain PyTorch version on the card: the
    remote-DMA kernels at the KVStore path's shapes (outputs and measured
    bytes bitwise equal, scatter collisions included), on the argument forms
@@ -33,13 +33,19 @@ exits non-zero and prints no result:
    at the serving paths' full-width shapes (head_dim 128, and 256 with a
    2048-token window and one kv head; flash inputs as the models pass
    them, (B, H, S, D) views of (B, S, H, D) projections) and at odd ones —
-   views at head_dim 64, 128, 200 and 256, Sq and Sk not multiples of the
-   tile, bf16 rows off 16 bytes (the flash kernel's CUDA-core route; each
+   views at head_dim 64, 128, 160, 200 and 256, Sq and Sk not multiples of
+   the tile, bf16 rows off 16 bytes (the flash kernel's CUDA-core route; each
    flash case checks the route taken), decode lengths 0, 1, 64, 65 and S in
    one batch, S not a multiple of the split's chunk, a sequence with one
-   live chunk — (float32 within 2e-5, bfloat16 within 2e-2 of the float32
-   plain result on the same inputs), then every decode arrival counter is
-   checked to be 0,
+   live chunk, a group of 20 query heads (two group tiles) — and at
+   deepseek-v3's MLA shapes: the expanded prefill (4 prompts of 512 tokens,
+   128 heads, q and k 192 wide, v zero-padded from 128 to 192; the padded
+   output columns must be zero) and the absorbed decode (128 query heads on
+   one kv head of the 576-wide latent cache, 544 slots, lengths 0, 1, 64, 65
+   and S, full-width and one-live-split batches, bf16; float32 at D = 576
+   must be refused) — (float32 within 2e-5, bfloat16 within 2e-2 of the
+   float32 plain result on the same inputs), then every decode arrival
+   counter is checked to be 0,
    the RG-LRU and WKV6 kernels at their serving shapes and at odd ones
    (RG-LRU also with runs of log_a = 0, strong decays, 4096 steps at full
    width, D = 2568 and a base off 16 bytes; WKV6 also with strong decays,
@@ -52,8 +58,10 @@ exits non-zero and prints no result:
    (prefill: 3072 slot rows in blocks of 24; decode: 1024 rows in blocks of
    8; 128 experts of 5120 x 8192 and 8192 x 5120), every row counted and
    with per-block row counts (a decode step's 4 live blocks of 128, partial
-   prefill counts), and at odd ones (all-zero counts, partial counts over
-   garbage rows), in float32 and bfloat16 (tolerances at ``GMM_TOL``; each
+   prefill counts), at deepseek-v3's (256 experts of 7168 x 2048 and 2048 x
+   7168; prefill: 20,480 slot rows in blocks of 80; decode: 2,048 in blocks
+   of 8, a step's 4 tokens routed top-8), and at odd ones (all-zero
+   counts, partial counts over garbage rows), in float32 and bfloat16 (tolerances at ``GMM_TOL``; each
    case on the kernel it should take, rows past the counts exactly zero);
 3. run the same work on the card and on the CPU: a P=4 store through 20
    windows (states and results bitwise equal after every window), a P=4
@@ -61,8 +69,9 @@ exits non-zero and prints no result:
    pure-GET ones (its fastpath ledger rows equal too), a P=4 heat-tracked
    store under skewed readers through a rebalance and a mixed window (heat
    counters bitwise equal too), the
-   smoke llama3.2-3b, recurrentgemma-2b, rwkv6-7b and llama4-maverick
-   ServingEngines in float32 with one set of weights each (equal tokens,
+   smoke engine of every served architecture (llama3.2-3b, gemma-2b,
+   internlm2-20b, recurrentgemma-2b, rwkv6-7b, llama4-maverick and
+   deepseek-v3) in float32 with one set of weights each (equal tokens,
    bitwise equal page-table state), and the smoke llama3.2-3b engine with
    two page-table replicas on the remote-DMA backend, its log leader killed
    and revived (equal tokens; page table, replicas, log and detector
@@ -123,12 +132,16 @@ exits non-zero and prints no result:
    killed and revived (detection, promotion, the flush of buffered windows
    and a snapshot rejoin), recurrentgemma-2b (2304-token prompts, so its
    2048-token window and ring-buffer cache bind), rwkv6-7b (512-token
-   prompts) at full depth, and llama4-maverick-400b-a17b (512-token
-   prompts) cut to 4 of its 48 layers, two [dense, MoE] periods, so that
-   its bf16 weights (65.3 GiB) fit the card; one after the other, each
-   engine freed before the next; page-table, locality, logit and
-   launch-count checks (recurrentgemma-2b's RG-LRU launches all on
-   16-byte copies, rwkv6-7b's WKV6 launches all on the chunked kernel),
+   prompts) at full depth, llama4-maverick-400b-a17b (512-token prompts)
+   cut to 4 of its 48 layers, two [dense, MoE] periods, so that its bf16
+   weights (65.3 GiB) fit the card, gemma-2b and internlm2-20b (512-token
+   prompts) at full depth, and deepseek-v3-671b (512-token prompts) cut to
+   5 of its 61 layers, [mla_dense] x 3 + [mla_moe] x 2 (50.9 GiB of bf16
+   with its MTP weights: MLA prefill on the flash kernel, the absorbed
+   decode on the decode kernel at D = 576, 256 experts top-8 on the
+   grouped matmul); one after the other, each engine freed before the
+   next; page-table, locality, logit and launch-count checks
+   (recurrentgemma-2b's RG-LRU launches all on 16-byte copies, rwkv6-7b's WKV6 launches all on the chunked kernel),
    and on the replicated path the replication checks;
 6. report the end-to-end numbers of every path, each kernel's launches on
    its path, its time beside its plain version's, one PyTorch call's and
@@ -136,8 +149,9 @@ exits non-zero and prints no result:
    ``torch.profiler``, which tells host-bound rows from kernel-bound ones,
    the remote-DMA and recurrent rows with their device operations per
    call, the remote-DMA rows timed on the verbs' argument forms, WKV6's
-   with the sequential form's bound beside the chunked one's, and the
-   attention rows with SDPA's), the
+   with the sequential form's bound beside the chunked one's, the
+   attention rows with SDPA's, and the attention and grouped-matmul rows
+   with an entry at deepseek-v3's MLA and expert shapes), the
    card's name and power limit, and last the result line.
 
 Kernel launch counts are set to 0 just before each path and read just after
@@ -192,6 +206,8 @@ SERVE_BATCH = 4
 RG_PROMPT = 2304               # recurrentgemma: past its 2048-token window
 MOE_ARCH = "llama4-maverick-400b-a17b"
 MOE_LAYERS = 4                 # of 48: two [attn_dense, attn_moe] periods
+DS_ARCH = "deepseek-v3-671b"
+DS_LAYERS = 5                  # of 61: [mla_dense] x 3 + [mla_moe] x 2
 # the replicated paths: the failover phase (participant 0, the log leader,
 # dies before mixed window FO_KILL and comes back before FO_REVIVE — its
 # cursor gap is then the ring's capacity, so the replay rejoin runs) and
@@ -210,6 +226,9 @@ SERVE_PATHS = [
     dict(arch="recurrentgemma-2b", prompt=RG_PROMPT),
     dict(arch="rwkv6-7b", prompt=SERVE_PROMPT),
     dict(arch=MOE_ARCH, prompt=SERVE_PROMPT, n_layers=MOE_LAYERS),
+    dict(arch="gemma-2b", prompt=SERVE_PROMPT),
+    dict(arch="internlm2-20b", prompt=SERVE_PROMPT),
+    dict(arch=DS_ARCH, prompt=SERVE_PROMPT, n_layers=DS_LAYERS),
 ]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # RG-LRU and WKV6 against their plain versions, as max abs error over
@@ -233,6 +252,12 @@ GMM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # llama4-maverick's expert shapes: d_model 5120, d_ff_expert 8192, 128
 # experts; capacity 24 slots for a 4 x 512-token prefill, 8 for a decode step
 MOE_D, MOE_F, MOE_E, MOE_C_PREFILL, MOE_C_DECODE = 5120, 8192, 128, 24, 8
+# deepseek-v3's: d_model 7168, d_ff_expert 2048, 256 experts, top-8;
+# capacity 80 slots for a 4 x 512-token prefill, 8 for a decode step; MLA
+# with 128 heads: prefill q and k 128 + 64 wide, v 128; decode over the
+# kv_lora 512 + rope 64 latent cache
+DS_D, DS_F, DS_E, DS_K, DS_C_PREFILL, DS_C_DECODE = 7168, 2048, 256, 8, 80, 8
+DS_HEADS, DS_DQK, DS_DV, DS_DLAT, DS_DROPE = 128, 192, 128, 576, 64
 
 
 class SmokeFailure(Exception):
@@ -659,6 +684,12 @@ def attention_cases(torch):
         flat = rn((B * H * S * D + 1,), dt)
         return flat[1:].view(B, H, S, D)
 
+    def mla_v(B, H, S, D, dt):
+        """MLA's prefill v: (B, H, S, 192) view of a (B, S, H, 128)
+        projection zero-padded to 192, as ``mla_attention`` passes it."""
+        return torch.nn.functional.pad(rn((B, S, H, DS_DV), dt),
+                                       (0, D - DS_DV)).transpose(1, 2)
+
     flash, decode = [], []
     Bf, Hq, Hkv, D = SERVE_BATCH, 24, 8, 128
     for label, (B, hq, hkv, sq, sk, d), kw, make in [
@@ -682,18 +713,23 @@ def attention_cases(torch):
             ("views D=256 window Sq=333", (1, 10, 1, 333, 333, 256),
              dict(causal=True, window=100), bhsd),
             ("views D=200", (2, 4, 2, 150, 150, 200), dict(causal=True), bhsd),
+            ("views D=160", (2, 8, 2, 150, 150, 160), dict(causal=True), bhsd),
             ("Sk ragged", (2, 8, 4, 70, 190, 128), dict(causal=False), bhsd),
             ("Sk ragged causal", (2, 8, 4, 64, 150, 128), dict(causal=True),
              bhsd),
             ("misaligned rows", (2, 8, 4, 100, 100, 128), dict(causal=True),
-             misaligned)]:
+             misaligned),
+            ("MLA prefill full width", (Bf, DS_HEADS, DS_HEADS, SERVE_PROMPT,
+                                        SERVE_PROMPT, DS_DQK),
+             dict(causal=True, sm_scale=DS_DQK ** -0.5), bhsd)]:
         for dt in (torch.bfloat16, torch.float32):
             if make is None:
                 args = (rn((B, hq, sq, d), dt), rn((B, hkv, sk, d), dt),
                         rn((B, hkv, sk, d), dt))
             else:
                 args = (make(B, hq, sq, d, dt), make(B, hkv, sk, d, dt),
-                        make(B, hkv, sk, d, dt))
+                        (mla_v if label.startswith("MLA") else make)(
+                            B, hkv, sk, d, dt))
             flash.append((f"{label} {str(dt)[6:]}", args, kw))
     S = SERVE_PROMPT + SERVE_GEN
     for label, (B, hq, hkv, s, d), ln in [
@@ -706,12 +742,44 @@ def attention_cases(torch):
             ("lengths 0 1 64 65 S, S=300", (5, 8, 2, 300, 128),
              [0, 1, 64, 65, 300]),
             ("S=1000 not a chunk multiple", (1, 10, 1, 1000, 256), [1000]),
-            ("one live chunk", (2, 10, 1, 2048, 256), [50, 64])]:
-        for dt in (torch.bfloat16, torch.float32):
+            ("one live chunk", (2, 10, 1, 2048, 256), [50, 64]),
+            ("group of 20", (3, 40, 2, 130, 128), [130, 0, 65]),
+            ("MLA lengths 0 1 64 65 S", (5, DS_HEADS, 1, S, DS_DLAT),
+             [0, 1, 64, 65, S]),
+            ("MLA full width", (Bf, DS_HEADS, 1, S, DS_DLAT),
+             [S, S - 16, 300, 1]),
+            ("MLA one live chunk", (2, DS_HEADS, 1, S, DS_DLAT), [50, 64]),
+            ("MLA D=300 group of 20", (2, 20, 1, 100, 300), [100, 7])]:
+        # float32 past D = 256 is refused (mla_decode_f32_refused)
+        for dt in (torch.bfloat16,) if d > 256 else (torch.bfloat16,
+                                                     torch.float32):
+            kw = dict(sm_scale=DS_DQK ** -0.5) if label.startswith("MLA") \
+                else {}
             decode.append((f"{label} {str(dt)[6:]}",
                            (rn((B, hq, d), dt), rn((B, hkv, s, d), dt),
-                            rn((B, hkv, s, d), dt), lens(ln)), {}))
+                            rn((B, hkv, s, d), dt), lens(ln)), kw))
     return {"flash_attention": flash, "decode_attention": decode}
+
+
+def mla_decode_f32_refused(torch, kernels):
+    """The decode kernel takes float32 only up to D = 256 (its two 64-key
+    float32 tiles at D = 576 would not fit a block's shared memory): the
+    wrapper must refuse MLA's latent shape in float32 with a clear error,
+    and launch nothing."""
+    from repro_torch.kernels import decode_attention as dec
+    kern = kernels["decode_attention"]
+    q = torch.zeros((1, DS_HEADS, DS_DLAT), device="cuda")
+    kc = torch.zeros((1, 1, 64, DS_DLAT), device="cuda")
+    ln = torch.ones(1, dtype=torch.int32, device="cuda")
+    before = kern.launches
+    try:
+        kern(q, kc, kc, ln)
+    except ValueError as e:
+        check(kern.launches == before and f"<= {dec.MAX_HEAD_DIM_F32}" in
+              str(e), f"decode_attention's float32 refusal: {e}")
+        log(f"  decode_attention [MLA float32]: refused ({e})")
+        return
+    raise SmokeFailure("decode_attention took float32 at D = 576")
 
 
 def flash_route(args):
@@ -733,7 +801,7 @@ def attention_plain(name, args, kw):
         offset = fa._padded(k.shape[2]) - fa._padded(q.shape[2])
         return ref.mha(q, k, v, offset=offset, **kw)
     q, kc, vc, ln = args
-    return ref.decode_attention(q.float(), kc.float(), vc.float(), ln)
+    return ref.decode_attention(q.float(), kc.float(), vc.float(), ln, **kw)
 
 
 def phase_attention_kernels(torch, kernels):
@@ -757,6 +825,9 @@ def phase_attention_kernels(torch, kernels):
             if label.startswith("rows with no key"):
                 check(not got[:, :, :8].any(), f"{name} ({label}): rows "
                                                f"with no visible key not 0")
+            if label.startswith("MLA prefill"):
+                check(not got[..., DS_DV:].any(), f"{name} ({label}): the "
+                      f"zero-padded v gave non-zero output columns")
             route = ""
             if name == "decode_attention":
                 check(not got[args[3] == 0].any(),
@@ -771,6 +842,7 @@ def phase_attention_kernels(torch, kernels):
             errs[name] = max(errs[name], e)
             log(f"  {name} [{label}]: max abs err {e:.3g} (tolerance {tol})"
                 f"{route}")
+    mla_decode_f32_refused(torch, kernels)
     from repro_torch.kernels import decode_attention as dec
     check(dec._ARRIVALS and all(not bool(b.any())
                                 for b in dec._ARRIVALS.values()),
@@ -942,6 +1014,13 @@ def gmm_cases():
         for phase, c in (("prefill", MOE_C_PREFILL), ("decode", MOE_C_DECODE)):
             cases.append((f"{phase} {din}->{dout}", MOE_E, din, dout,
                           MOE_E * c, c, "arange", False, None))
+    for din, dout in ((DS_D, DS_F), (DS_F, DS_D)):
+        for phase, c, kind in (("prefill", DS_C_PREFILL, None),
+                               ("prefill", DS_C_PREFILL, "partial"),
+                               ("decode", DS_C_DECODE, "top-8 decode")):
+            cases.append((f"deepseek {phase} {din}->{dout}"
+                          + (f" {kind} counts" if kind else ""), DS_E, din,
+                          dout, DS_E * c, c, "arange", False, kind))
     cases += [("decode 5120->8192 model counts", MOE_E, MOE_D, MOE_F,
                MOE_E * MOE_C_DECODE, MOE_C_DECODE, "arange", False,
                "model decode"),
@@ -970,13 +1049,17 @@ def gmm_cases():
 
 def gmm_counts(torch, g, kind, E, nb, bt):
     """The (nb,) int32 row counts of a case, on the card: None, all zero,
-    the model's decode step (4 blocks of one row) or partial (0, a third,
-    block_t, block_t - 1, then drawn)."""
+    the model's decode step (llama4: 4 blocks of one row; deepseek-v3,
+    ``"top-8 decode"``: each of the step's 4 tokens on 8 distinct experts)
+    or partial (0, a third, block_t, block_t - 1, then drawn)."""
     if kind is None:
         return None
     counts = torch.zeros(nb, dtype=torch.int32, device="cuda")
     if kind == "model decode":
         counts[torch.randperm(nb, generator=g, device="cuda")[:4]] = 1
+    elif kind == "top-8 decode":
+        for _ in range(SERVE_BATCH):
+            counts[torch.randperm(nb, generator=g, device="cuda")[:DS_K]] += 1
     elif kind == "partial":
         counts = torch.randint(0, bt + 1, (nb,), generator=g, device="cuda",
                                dtype=torch.int32)
@@ -2537,7 +2620,7 @@ def expected_launches(cfg, requests, gen):
         return {"wkv6": cfg.n_layers * prefills}
     kinds = layer_kinds(cfg)
     n_rec = kinds.count("rec")
-    n_moe = kinds.count("attn_moe")
+    n_moe = sum(kind.endswith("_moe") for kind in kinds)
     n_attn = len(kinds) - n_rec
     out = {"flash_attention": n_attn * prefills,
            "decode_attention": n_attn * steps}
@@ -2605,10 +2688,16 @@ def phase_serving(torch, kernels, path, rdma):
                         backend=path.get("backend"))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(eng.params))
-    log(f"  {arch}: {cfg.n_layers} layers, d={cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, "
-        f"{cfg.dtype}, {n_params:,} parameters drawn on the card in "
-        f"{time.perf_counter() - t0:.3f} s")
+    m = cfg.mla
+    heads = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}"
+             if m is None else
+             f"MLA {cfg.n_heads} heads (q, k {m.qk_nope_head_dim} + "
+             f"{m.qk_rope_head_dim}, v {m.v_head_dim}, latent "
+             f"{m.kv_lora_rank} + {m.qk_rope_head_dim})")
+    log(f"  {arch}: {cfg.n_layers} layers, d={cfg.d_model}, {heads}, "
+        f"{cfg.dtype}, {n_params:,} parameters "
+        f"({n_params * cfg.dtype_.itemsize / 2 ** 30:.1f} GiB) drawn on the "
+        f"card in {time.perf_counter() - t0:.3f} s")
     rng = np.random.default_rng(SEED + 5)
     prompts = [rng.integers(1, cfg.vocab, size=(prompt,)).astype(np.int32)
                for _ in range(requests)]
@@ -2874,6 +2963,81 @@ def attention_timings(torch, kernels, B, Hq, Hkv, D, S, window, slots, L):
     return {"flash_attention": flash, "decode_attention": decode}
 
 
+def mla_attention_timings(torch, kernels):
+    """Per-call times of both attention kernels in bf16 at deepseek-v3's
+    MLA shapes: the expanded prefill (4 prompts of 512 tokens, 128 heads, q
+    and k 192 wide, v zero-padded from 128 to 192, as ``mla_attention``
+    passes them) and the absorbed decode step (128 query heads on one kv
+    head of the 576-wide latent cache, 544 slots holding 528 positions,
+    scale 1/sqrt(192), the cache passed as keys and values as
+    ``mla_decode`` passes it).  Bounds count what the function needs, not
+    the port's padding: q and k 192 wide, v and the output 128 wide, QK
+    192 and PV 128 deep for the prefill; q, the latent cache rows up to
+    each length read once, the output 512 wide, QK 576 and PV 512 deep for
+    the decode.  The library yardsticks are one
+    ``scaled_dot_product_attention`` call each: causal over the unpadded
+    128-wide v, and the decode query against the latent cache, its first
+    512 columns as values, with ``enable_gqa`` and a length mask; the port
+    never calls them."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    B, H, S = SERVE_BATCH, DS_HEADS, SERVE_PROMPT
+    scale = DS_DQK ** -0.5
+    q, k = (rn(B, S, H, DS_DQK).transpose(1, 2) for _ in range(2))
+    v = rn(B, S, H, DS_DV)
+    vp = F.pad(v, (0, DS_DQK - DS_DV)).transpose(1, 2)
+    v = v.transpose(1, 2)
+    fa = kernels["flash_attention"]
+    pairs = B * H * S * (S + 1) // 2
+
+    def prefill():
+        return fa(q, k, vp, causal=True, sm_scale=scale)
+
+    def prefill_library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              scale=scale)
+    flash = dict(
+        ms=cuda_ms(prefill, 10), device_ms=device_ms(prefill, 10),
+        plain_ms=cuda_ms(lambda: ref.mha(q, k, vp, causal=True,
+                                         sm_scale=scale), 2),
+        library_ms=cuda_ms(prefill_library, 10),
+        library_device_ms=device_ms(prefill_library, 10),
+        flops=2 * (DS_DQK + DS_DV) * pairs,
+        nbytes=2 * B * H * S * (2 * DS_DQK + 2 * DS_DV))
+
+    slots, L = SERVE_PROMPT + SERVE_GEN, SERVE_PROMPT + SERVE_GEN // 2
+    qd, kc = rn(B, H, DS_DLAT), rn(B, 1, slots, DS_DLAT)
+    vc = kc[..., :DS_DLAT - DS_DROPE]
+    lens = torch.full((B,), L, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(slots, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    da = kernels["decode_attention"]
+
+    def step():
+        return da(qd, kc, kc, lens, sm_scale=scale)
+
+    def step_library():
+        return F.scaled_dot_product_attention(
+            qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True,
+            scale=scale)
+    decode = dict(
+        ms=cuda_ms(step, 200), device_ms=device_ms(step, 200),
+        plain_ms=cuda_ms(lambda: ref.decode_attention(qd, kc, kc, lens,
+                                                      sm_scale=scale), 20),
+        library_ms=cuda_ms(step_library, 200),
+        library_device_ms=device_ms(step_library, 200),
+        flops=2 * H * (2 * DS_DLAT - DS_DROPE) * B * L,
+        nbytes=2 * (B * L * DS_DLAT + qd.numel() + B * H * vc.shape[-1])
+        + 4 * B)
+    return {"flash_attention": flash, "decode_attention": decode}
+
+
 def timing_row(m, launches, err, peak):
     """The JSON line's numbers for one kernel at one set of shapes; the
     bound is the larger of bytes at the memory rate and operations at
@@ -2896,17 +3060,20 @@ def attention_report(torch, kernels, errs, launches):
     positions of 544), each with a ``d256`` entry of the same numbers at
     recurrentgemma-2b's (head_dim 256, 10 query heads on 1 kv head: 4
     prompts of 2304 tokens under a 2048-token window; a decode step against
-    the full 2048-slot ring).  ``ms`` and ``library_ms`` are wrapper times
-    (CUDA events around a loop of calls, host work included);
+    the full 2048-slot ring), and an ``mla`` entry at deepseek-v3's MLA
+    shapes (:func:`mla_attention_timings`).  ``ms`` and ``library_ms`` are
+    wrapper times (CUDA events around a loop of calls, host work included);
     ``device_ms`` and ``library_device_ms`` the device time per call from
     ``torch.profiler``.  A row whose ``ms`` is well above its
-    ``device_ms`` is host-bound.  ``launches`` maps each serving path's
-    arch to its kernels' launches."""
+    ``device_ms`` is host-bound.  ``launches`` maps each serving path to
+    its kernels' launches: the row's are llama3.2-3b's, each entry's its
+    model's, and ``launches_paths`` lists every path's."""
     d128 = attention_timings(torch, kernels, SERVE_BATCH, 24, 8, 128,
                              SERVE_PROMPT, None, SERVE_PROMPT + SERVE_GEN,
                              SERVE_PROMPT + SERVE_GEN // 2)
     d256 = attention_timings(torch, kernels, SERVE_BATCH, 10, 1, 256,
                              RG_PROMPT, 2048, 2048, 2048)
+    mla = mla_attention_timings(torch, kernels)
     rows = []
     for name, line in [("flash_attention", 82), ("decode_attention", 63)]:
         row = dict(name=name, route="cuda",
@@ -2917,9 +3084,14 @@ def attention_report(torch, kernels, errs, launches):
         row["d256"] = timing_row(d256[name],
                                  launches["recurrentgemma-2b"][name],
                                  errs[name], BF16_FLOPS)
+        row["mla"] = timing_row(mla[name], launches[DS_ARCH][name],
+                                errs[name], BF16_FLOPS)
+        row["launches_paths"] = {path: n[name] for path, n in
+                                 launches.items() if name in n}
         rows.append(row)
         for label, m, r in [("D=128", d128[name], row),
-                            ("D=256", d256[name], row["d256"])]:
+                            ("D=256", d256[name], row["d256"]),
+                            ("MLA", mla[name], row["mla"])]:
             log(f"  {name} {label}: {m['ms']:.4f} ms/call (device "
                 f"{m['device_ms']:.4f}), bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
@@ -3035,56 +3207,72 @@ def gmm_report(torch, kernels, err, launches):
     The library yardstick is one ``torch.bmm`` of the (E, C, 5120) slots by
     the (E, 5120, 8192) weights — the same function when block i takes
     expert i and the rows past the counts are zeros; it reads every expert.
-    The port never calls it."""
+    The port never calls it.  The ``deepseek_prefill`` and
+    ``deepseek_decode`` entries are the same numbers at deepseek-v3's gate
+    product (256 experts of 7168 x 2048; prefill: 80 slots each, every row
+    counted; decode: 8 slots each, the step's 4 tokens on 8 experts each),
+    with deepseek-v3's launches."""
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
-    w = torch.randn((MOE_E, MOE_D, MOE_F), generator=g, device="cuda",
-                    dtype=torch.bfloat16).mul_(MOE_D ** -0.5)
-    be = torch.arange(MOE_E, dtype=torch.int32, device="cuda")
     kern = kernels["gmm"]
     m = {}
-    for phase, c, kind in (("prefill", MOE_C_PREFILL, None),
-                           ("decode", MOE_C_DECODE, "model decode"),
-                           ("decode_full", MOE_C_DECODE, None)):
-        T = MOE_E * c
-        x = torch.randn((T, MOE_D), generator=g, device="cuda",
-                        dtype=torch.bfloat16)
-        counts = gmm_counts(torch, g, kind, MOE_E, MOE_E, c)
-        if counts is None:
-            rows, experts = T, MOE_E
-        else:                  # zeros past the counts, as dispatch leaves x
-            live = torch.arange(c, device="cuda")[None, :] < counts[:, None]
-            x.mul_(live.reshape(-1, 1))
-            rows = int(counts.sum())
-            experts = int((counts > 0).sum())
-        xe = x.view(MOE_E, c, MOE_D)
+    for arch, E, D, F, phases in (
+            (MOE_ARCH, MOE_E, MOE_D, MOE_F,
+             (("prefill", MOE_C_PREFILL, None),
+              ("decode", MOE_C_DECODE, "model decode"),
+              ("decode_full", MOE_C_DECODE, None))),
+            (DS_ARCH, DS_E, DS_D, DS_F,
+             (("deepseek_prefill", DS_C_PREFILL, None),
+              ("deepseek_decode", DS_C_DECODE, "top-8 decode")))):
+        w = torch.randn((E, D, F), generator=g, device="cuda",
+                        dtype=torch.bfloat16).mul_(D ** -0.5)
+        be = torch.arange(E, dtype=torch.int32, device="cuda")
+        for phase, c, kind in phases:
+            T = E * c
+            x = torch.randn((T, D), generator=g, device="cuda",
+                            dtype=torch.bfloat16)
+            counts = gmm_counts(torch, g, kind, E, E, c)
+            if counts is None:
+                rows, experts = T, E
+            else:              # zeros past the counts, as dispatch leaves x
+                live = torch.arange(c, device="cuda")[None, :] \
+                    < counts[:, None]
+                x.mul_(live.reshape(-1, 1))
+                rows = int(counts.sum())
+                experts = int((counts > 0).sum())
+            xe = x.view(E, c, D)
 
-        def kernel():
-            return kern(x, w, be, c, counts)
-        m[phase] = dict(
-            ms=cuda_ms(kernel, 20), device_ms=device_ms(kernel, 20),
-            plain_ms=cuda_ms(lambda: ref.gmm(x, w, be, c, counts), 2),
-            library_ms=cuda_ms(lambda: torch.bmm(xe, w), 20),
-            flops=2 * rows * MOE_D * MOE_F,
-            nbytes=2 * (rows * MOE_D + experts * MOE_D * MOE_F
-                        + T * MOE_F) + 4 * MOE_E * (1 + (counts is not None)),
-            experts=experts)
+            def kernel():
+                return kern(x, w, be, c, counts)
+            m[phase] = dict(
+                ms=cuda_ms(kernel, 20), device_ms=device_ms(kernel, 20),
+                plain_ms=cuda_ms(lambda: ref.gmm(x, w, be, c, counts), 2),
+                library_ms=cuda_ms(lambda: torch.bmm(xe, w), 20),
+                flops=2 * rows * D * F,
+                nbytes=2 * (rows * D + experts * D * F + T * F)
+                + 4 * E * (1 + (counts is not None)),
+                experts=experts, launches=launches[arch]["gmm"])
+        del w
+        torch.cuda.empty_cache()
     row = dict(name="gmm", route="cuda",
                source="src/repro_torch/kernels/csrc/moe_gmm.cu",
                replaces="src/repro/kernels/moe_gmm.py:37")
-    n = launches[MOE_ARCH]["gmm"]
-    row.update(timing_row(m["prefill"], n, err, BF16_FLOPS))
-    for phase in ("decode", "decode_full"):
-        row[phase] = timing_row(m[phase], n, err, BF16_FLOPS)
-    for phase, r in (("prefill", row), ("decode", row["decode"]),
-                     ("decode_full", row["decode_full"])):
+    row.update(timing_row(m["prefill"], m["prefill"]["launches"], err,
+                          BF16_FLOPS))
+    subs = ("decode", "decode_full", "deepseek_prefill", "deepseek_decode")
+    for phase in subs:
+        row[phase] = timing_row(m[phase], m[phase]["launches"], err,
+                                BF16_FLOPS)
+    row["launches_paths"] = {path: n["gmm"] for path, n in launches.items()
+                             if "gmm" in n}
+    for phase, r in (("prefill", row),) + tuple((p, row[p]) for p in subs):
         mm = m[phase]
         log(f"  gmm {phase}: {mm['ms']:.4f} ms/call (device "
             f"{mm['device_ms']:.4f}), bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}; {mm['experts']} experts read, "
             f"{mm['flops'] / 1e9:.2f} GFLOP, {mm['nbytes'] / 1e9:.3f} GB), "
             f"plain {mm['plain_ms']:.4f} ms, bmm {mm['library_ms']:.4f} ms, "
-            f"launches {n}")
+            f"launches {mm['launches']}")
     return [row]
 
 
@@ -3170,9 +3358,15 @@ def main() -> int:
                 "    " + ln for ln in out.strip().splitlines()))
         log(f"  built in {time.perf_counter() - t0:.1f} s")
         hmma = sass_mma_count(_nvcc, "flash_attention", "flash_fwd_mma")
-        check(len(hmma) == 3 and all(n > 0 for n in hmma.values()),
+        check(len(hmma) == 4 and all(n > 0 for n in hmma.values()),
               f"the bf16 flash kernels lack tensor-core HMMA: {hmma}")
         log(f"  cuobjdump -sass, HMMA per tensor-core flash kernel: {hmma}")
+        usage = ptxas_usage(_nvcc, "flash_attention", "flash_fwd_mma")
+        check(len(usage) == 4 and all(u[0] and not u[1] and not u[2]
+                                      for u in usage.values()),
+              f"the tensor-core flash kernels spill: {usage}")
+        log("  -Xptxas -v, tensor-core flash kernels [registers, spill "
+            f"stores, spill loads]: {usage}")
         hmma = sass_mma_count(_nvcc, "moe_gmm", "gmm_mma")
         check(len(hmma) == 3 and all(n > 0 for n in hmma.values()),
               f"the bf16 gmm kernels lack tensor-core HMMA: {hmma}")

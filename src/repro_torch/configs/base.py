@@ -4,14 +4,14 @@
 The reference's module imports ``jax.numpy`` for :attr:`ArchConfig.dtype_`,
 so the port keeps its own copy; ``dtype_`` returns a ``torch.dtype``.  Only
 the fields of the families the port builds (dense, hybrid, ssm, and the MoE
-family without MLA) are carried over; the reference's MLA and
-cross-attention records come with their families.
+family with GQA or MLA attention) are carried over; the reference's
+cross-attention record comes with its families.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 
@@ -28,6 +28,16 @@ class MoEConfig:
     moe_every_k: int = 1         # MoE every k-th layer (llama4-maverick: 2)
     capacity_factor: float = 1.25
     router_impl: str = "a2a"     # 'a2a' (sorted all-to-all EP) | 'dense'
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek multi-head latent attention dims."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -57,10 +67,9 @@ class ArchConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     moe: Optional[MoEConfig] = None
-    # DeepSeek MLA dims (the reference's MLAConfig); the port has no MLA
-    # attention yet, and build_model refuses a config that sets this
-    mla: Optional[Any] = None
+    mla: Optional[MLAConfig] = None
     hybrid: Optional[HybridConfig] = None
+    mtp_depth: int = 0                     # deepseek multi-token prediction
     scale_embed: bool = False              # gemma-style sqrt(d) embed scale
 
     def is_moe_layer(self, i: int) -> bool:

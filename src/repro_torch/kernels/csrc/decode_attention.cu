@@ -19,27 +19,36 @@
 // slots [s*chunk, (s+1)*chunk), chunk a multiple of 64 that the wrapper picks
 // from the slot count S alone (never from lengths, which stay on the card),
 // so that B*Hkv*splits fills the SMs.  As in the Pallas grid, a block scores
-// all G query heads of its kv head against each cache row.  It walks its
+// the query heads of its kv head against each cache row, at most kGMax = 16
+// of them: a larger group (MLA's absorbed decode: 128 query heads on one
+// latent kv head) is tiled over the grid's y axis, so the grid is (split,
+// kv head x group tile, b) and each group tile re-reads the same cache chunk
+// (from L2 after the first).  It walks its
 // chunk up to lengths[b] in 64-key tiles staged in shared memory by 16-byte
 // cp.async copies (K of the next tile loads during this tile's PV; rows the
 // copies cannot take are staged element by element): 4 threads per key
 // score up to 4 heads each, one warp per head updates (m, l), and each
-// thread accumulates its share of the G x D outputs from the tile's V rows.
+// thread accumulates its share of the 16 x D outputs from the tile's V rows:
+// column d of every head for each full pass of 256 columns, and of the
+// columns left over (D % 256) one column of every (256 / left)-th head.
 //
 // With one split the block writes the output.  Otherwise it writes its
 // partial (m, l, acc) per head to a float32 workspace (B, Hq, splits, D + 2),
-// and one thread fences and takes a ticket on the (b, kv head)'s arrival
-// counter.  The last block to arrive combines the splits (the global max,
-// alpha-rescaled sums, l == 0 -> l_safe = 1), writes the output and resets
-// the counter to 0, so one launch does the whole call and the counters are
-// all zero between calls.  A block whose chunk starts at or past lengths[b]
-// writes m = -1e30, l = 0 and zeros, and reads nothing of the cache; its
-// weight in the combine is 0.
+// and one thread fences and takes a ticket on the arrival counter of its
+// (b, kv head, group tile).  The last block to arrive combines the splits
+// (the global max, alpha-rescaled sums, l == 0 -> l_safe = 1), writes the
+// output and resets the counter to 0, so one launch does the whole call
+// and the counters are all zero between calls.  A block whose chunk starts
+// at or past lengths[b] writes m = -1e30, l = 0 and zeros, and reads
+// nothing of the cache; its weight in the combine is 0.
 //
-// Templated on the head-dimension cap DMax, 128 or 256 (recurrentgemma's
-// local attention: head_dim 256, G = 10 query heads on one kv head); G is at
-// most 16, and a later change can tile G over the grid, since the workspace
-// is indexed by query head.  Strided caches (element strides, D contiguous)
+// Templated on the head-dimension cap DMax: 128, 256 (recurrentgemma's local
+// attention: head_dim 256, G = 10 query heads on one kv head) and, in bf16
+// only, 576 (MLA's latent cache, 512 + 64 wide, G = 128): two bf16 tiles of
+// 64 x 584 and the float32 query rows take 190 KB of shared memory, and the
+// float32 tiles would not fit, so float32 stops at D = 256.  The group size
+// is free: the workspace is indexed by query head.  Strided caches (element
+// strides, D contiguous)
 // are read in place; q and out are contiguous (B, Hq, D).  The C entry point
 // launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
@@ -51,7 +60,7 @@
 namespace {
 
 constexpr int kBK = 64;        // keys per tile
-constexpr int kGMax = 16;      // largest query-head group
+constexpr int kGMax = 16;      // query heads a block: the group tile
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kKeyThreads = kThreads / kBK;  // threads (head groups) a key
@@ -117,7 +126,8 @@ struct Args {
   float* ws;       // B*Hq*splits*(D + 2) floats of partials: acc rows
                    // [B][Hq][splits][D], then (m, l) [B][Hq][splits][2];
                    // unused with one split
-  int* arrivals;   // (B * Hkv,) arrival counters, 0 between calls
+  int* arrivals;   // (B * Hkv * group tiles,) arrival counters, 0 between
+                   // calls
   int Hq, Hkv, S, D, chunk, splits, vec;
   long long k_sb, k_sh, k_ss;  // element strides; the D axis is contiguous
   long long v_sb, v_sh, v_ss;
@@ -179,7 +189,7 @@ __device__ __forceinline__ void load_cols<1>(const float* p, float* f) {
 
 // out[g, c*V .. c*V + V) = inv_l[g] * sum over splits s of w[g, s] *
 // part[g, s, c*V ..] for every head g < G and column group c of the block's
-// kv head; each thread takes (g, c) items and keeps 16 splits' loads in
+// group tile; each thread takes (g, c) items and keeps 16 splits' loads in
 // flight, since the workspace rows come from L2 and latency, not bytes,
 // bounds one block's walk over them
 template <int V, typename T>
@@ -223,9 +233,21 @@ template <typename T, int kDMax>
 // instance (kAcc = 16 accumulators beside the combine's loads) out of spills
 __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Args a) {
   using L = Tile<T, kDMax>;
-  // thread tid owns column d = tid % kDMax of heads g0, g0 + kHeadStep, ...
-  constexpr int kAcc = kGMax * kDMax / kThreads;  // outputs per thread
-  constexpr int kHeadStep = kThreads / kDMax;
+  // thread tid owns column tid + j*kThreads of every head for j < kFull,
+  // and column kFull*kThreads + tid % kRem of heads tid / kRem + i*kRemStep
+  // (kRem = kDMax % kThreads columns left over): DMax 128 -> 1 column of 8
+  // heads, 256 -> 1 of 16, 576 -> 2 of 16 and 1 of 4, 36 outputs a thread
+  constexpr int kFull = kDMax / kThreads;
+  constexpr int kRem = kDMax % kThreads;
+  constexpr int kRemDiv = kRem ? kRem : 1;  // a divisor where kRem is 0
+  constexpr int kRemStep = kThreads / kRemDiv;
+  constexpr int kRemHeads = kRem ? kGMax / kRemStep : 0;
+  constexpr int kCols = kFull + (kRem ? 1 : 0);  // columns a thread owns
+  constexpr int kAcc = kFull * kGMax + kRemHeads;  // outputs a thread
+  static_assert(kThreads % kRemDiv == 0 &&
+                    (kRem == 0 || kGMax % kRemStep == 0),
+                "the columns left over must split the threads evenly");
+  static_assert(kAcc * kThreads == kGMax * kDMax, "every output owned once");
   __shared__ __align__(16) float qs[kGMax * kDMax];
   __shared__ __align__(16) float ps[kGMax][kBK];
   __shared__ float m_s[kGMax], l_s[kGMax], alpha_s[kGMax];
@@ -237,15 +259,19 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Args a) {
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int split = blockIdx.x;
-  const int hk = blockIdx.y;
   const int b = blockIdx.z;
-  const int G = a.Hq / a.Hkv;
+  const int group = a.Hq / a.Hkv;
+  const int tiles = (group + kGMax - 1) / kGMax;  // group tiles a kv head
+  const int hk = blockIdx.y / tiles;
+  const int gt = blockIdx.y - hk * tiles;
+  const int G = min(kGMax, group - gt * kGMax);   // this block's heads
+  const int h0 = hk * group + gt * kGMax;         // its first query head
   const int D = a.D;
   const int len = max(0, min(a.lengths[b], a.S));
   const int c0 = split * a.chunk;
   const int c1 = min(c0 + a.chunk, len);  // this block's keys: [c0, c1)
   const T* q = static_cast<const T*>(a.q) +
-               (static_cast<long long>(b) * a.Hq + hk * G) * D;
+               (static_cast<long long>(b) * a.Hq + h0) * D;
   const T* k = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
   const T* v = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
 
@@ -271,7 +297,17 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Args a) {
   }
   const int kk = tid % kBK;          // the key this thread scores
   const int hg = tid / kBK;          // its heads: hg, hg + 4, ...
-  const int d = tid % kDMax, g0 = tid / kDMax;  // its output column, heads
+  // its outputs: acc[c * kGMax + u] is column col(c) of head u for a full
+  // pass c < kFull; acc[kFull * kGMax + u] column col(kFull) of head
+  // g_rem + u * kRemStep
+  const int g_rem = tid / kRemDiv;
+  auto col = [tid](int c) {
+    return c < kFull ? tid + c * kThreads : kFull * kThreads + tid % kRemDiv;
+  };
+  auto head = [g_rem](int i) {
+    return i < kFull * kGMax ? i % kGMax
+                             : g_rem + (i - kFull * kGMax) * kRemStep;
+  };
   const int nv = (D + L::kVec - 1) / L::kVec;
 
   for (int k0 = c0; k0 < c1; k0 += kBK) {
@@ -342,28 +378,33 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Args a) {
     cp_async_wait1();  // V of this tile is in
     __syncthreads();
 
-    // PV: each V element is read once for all of the thread's heads, and
-    // each head's probabilities four keys at a time (shared-memory load
-    // issue, not arithmetic, bounds this loop)
-    if (d < D) {
+    // PV: each V element is read once for all of the thread's heads of
+    // its column, and each head's probabilities four keys at a time
+    // (shared-memory load issue, not arithmetic, bounds this loop)
 #pragma unroll
-      for (int i = 0; i < kAcc; ++i)
-        if (g0 + i * kHeadStep < G) acc[i] *= alpha_s[g0 + i * kHeadStep];
-      const T* vcol = Vs + d;
-      for (int j = 0; j < n; j += 4) {  // rows and p past n are zeros
-        const float v0 = to_f(vcol[j * L::kStride]);
-        const float v1 = to_f(vcol[(j + 1) * L::kStride]);
-        const float v2 = to_f(vcol[(j + 2) * L::kStride]);
-        const float v3 = to_f(vcol[(j + 3) * L::kStride]);
+    for (int i = 0; i < kAcc; ++i)
+      if (head(i) < G) acc[i] *= alpha_s[head(i)];
+    for (int j = 0; j < n; j += 4) {  // rows and p past n are zeros
 #pragma unroll
-        for (int i = 0; i < kAcc; ++i) {
-          const int g = g0 + i * kHeadStep;
-          if (g < G) {
-            const float4 p = *reinterpret_cast<const float4*>(&ps[g][j]);
-            acc[i] = fmaf(p.x, v0, acc[i]);
-            acc[i] = fmaf(p.y, v1, acc[i]);
-            acc[i] = fmaf(p.z, v2, acc[i]);
-            acc[i] = fmaf(p.w, v3, acc[i]);
+      for (int c = 0; c < kCols; ++c) {
+        const int d = col(c);
+        if (d < D) {
+          const T* vcol = Vs + d;
+          const float v0 = to_f(vcol[j * L::kStride]);
+          const float v1 = to_f(vcol[(j + 1) * L::kStride]);
+          const float v2 = to_f(vcol[(j + 2) * L::kStride]);
+          const float v3 = to_f(vcol[(j + 3) * L::kStride]);
+#pragma unroll
+          for (int u = 0; u < (c < kFull ? kGMax : kRemHeads); ++u) {
+            const int i = c * kGMax + u;
+            if (head(i) < G) {
+              const float4 p =
+                  *reinterpret_cast<const float4*>(&ps[head(i)][j]);
+              acc[i] = fmaf(p.x, v0, acc[i]);
+              acc[i] = fmaf(p.y, v1, acc[i]);
+              acc[i] = fmaf(p.z, v2, acc[i]);
+              acc[i] = fmaf(p.w, v3, acc[i]);
+            }
           }
         }
       }
@@ -377,12 +418,11 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Args a) {
   }
   __syncthreads();  // m_s, l_s as the last tile left them
 
-  T* out = static_cast<T*>(a.o) +
-           (static_cast<long long>(b) * a.Hq + hk * G) * D;
+  T* out = static_cast<T*>(a.o) + (static_cast<long long>(b) * a.Hq + h0) * D;
   if (a.splits == 1) {
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) {
-      const int g = g0 + i * kHeadStep;
+      const int g = head(i), d = col(i / kGMax);
       if (g < G && d < D) {
         const float l = l_s[g];
         store(out + g * D + d, acc[i] / (l == 0.f ? 1.f : l));
@@ -391,17 +431,17 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Args a) {
     return;
   }
 
-  // this split's partial: head h = hk*G + g's acc row at
+  // this split's partial: head h = h0 + g's acc row at
   // ((b*Hq + h) * splits + split) * D, its (m, l) at the same index * 2
   // past the acc rows
-  const long long first = (static_cast<long long>(b) * a.Hq + hk * G) *
-                          a.splits;  // (b, hk*G, split 0)
+  const long long first = (static_cast<long long>(b) * a.Hq + h0) *
+                          a.splits;  // (b, h0, split 0)
   float* part = a.ws + first * D;
   float* stats = a.ws + static_cast<long long>(gridDim.z) * a.Hq * a.splits *
                             D + first * 2;
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) {  // zeros from an empty chunk
-    const int g = g0 + i * kHeadStep;
+    const int g = head(i), d = col(i / kGMax);
     if (g < G && d < D)
       part[(static_cast<long long>(g) * a.splits + split) * D + d] = acc[i];
   }
@@ -412,7 +452,8 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Args a) {
   // the barrier orders the block's writes before thread 0's fence, which
   // orders them before its ticket: one fence and one atomic a block
   __syncthreads();
-  int* arrivals = a.arrivals + b * a.Hkv + hk;
+  int* arrivals = a.arrivals + static_cast<long long>(b) * gridDim.y +
+                  blockIdx.y;
   if (tid == 0) {
     __threadfence();
     last_s = atomicAdd(arrivals, 1) == a.splits - 1;
@@ -465,7 +506,8 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid(a.splits, a.Hkv, B);
+  const int tiles = (a.Hq / a.Hkv + kGMax - 1) / kGMax;
+  const dim3 grid(a.splits, a.Hkv * tiles, B);
   decode_kernel<T, kDMax><<<grid, kThreads, kSmemBytes, stream>>>(a);
   return cudaGetLastError();
 }
@@ -478,9 +520,9 @@ const char* decode_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, caches and out alike).  ws and
-// arrivals are used only when splits > 1; vec: the caches' rows take
-// 16-byte copies.
+// dtype: 0 = float32 (D <= 256), 1 = bfloat16 (D <= 576) (q, caches and out
+// alike).  ws and arrivals (B * Hkv * ceil(G / 16) counters) are used only
+// when splits > 1; vec: the caches' rows take 16-byte copies.
 int decode_attention_fwd(int dtype, const void* q, const void* k,
                          const void* v, const int32_t* lengths, void* out,
                          float* ws, int* arrivals, int B, int Hq, int Hkv,
@@ -488,7 +530,11 @@ int decode_attention_fwd(int dtype, const void* q, const void* k,
                          long long k_sb, long long k_sh, long long k_ss,
                          long long v_sb, long long v_sh, long long v_ss,
                          float scale, void* stream) {
-  if (D < 1 || D > 256 || Hkv < 1 || Hq % Hkv != 0 || Hq / Hkv > kGMax ||
+  // the combine's weights, kGMax x splits floats, reuse the tile memory of
+  // the smallest instance
+  if (D < 1 || D > (dtype == 0 ? 256 : 576) || Hkv < 1 || Hq % Hkv != 0 ||
+      static_cast<long long>(Hkv) * ((Hq / Hkv + kGMax - 1) / kGMax) >
+          65535 ||
       splits < 1 || chunk < kBK || chunk % kBK != 0 ||
       kGMax * splits * sizeof(float) > 2 * Tile<__nv_bfloat16, 128>::kBytes)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -501,8 +547,9 @@ int decode_attention_fwd(int dtype, const void* q, const void* k,
     return static_cast<int>(D <= 128 ? launch<float, 128>(a, B, s)
                                      : launch<float, 256>(a, B, s));
   if (dtype == 1)
-    return static_cast<int>(D <= 128 ? launch<__nv_bfloat16, 128>(a, B, s)
-                                     : launch<__nv_bfloat16, 256>(a, B, s));
+    return static_cast<int>(D <= 128   ? launch<__nv_bfloat16, 128>(a, B, s)
+                            : D <= 256 ? launch<__nv_bfloat16, 256>(a, B, s)
+                                       : launch<__nv_bfloat16, 576>(a, B, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

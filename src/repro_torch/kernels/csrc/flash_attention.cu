@@ -28,7 +28,9 @@
 // the tile's 64 query rows.  Q is staged once in shared memory as bf16; K and
 // V tiles of 64 keys (32 at D = 256, where a 64-key S and P beside O's 128
 // float32 accumulators spill registers; the smaller ring also fits two
-// blocks on an SM) come in through a 2-stage cp.async ring (16-byte copies),
+// blocks on an SM; 48 at D = 192, MLA's prefill, where 64 keys spill and 48
+// keep 244 registers) come in through a 2-stage cp.async ring (16-byte
+// copies),
 // so tile t+1 loads while tile t computes.  Shared rows are padded by 16
 // bytes, which makes every ldmatrix phase hit 8 distinct bank groups.
 // S = Q.K^T runs on mma.sync m16n8k16 (bf16 in, float32 accumulate) with
@@ -38,8 +40,9 @@
 // m16n8 is the A layout of m16k16), V's B fragments come from ldmatrix.trans,
 // and O accumulates in float32 registers, rescaled per tile.  Masks are
 // applied in registers, only on tiles that cross the diagonal, the window
-// edge or kv_limit; the query tiles with the most keys start first.  Templated on D up to 64, 128 or 256; a D in between is
-// zero-filled up to the template in shared memory.  Numerics: P is rounded to
+// edge or kv_limit; the query tiles with the most keys start first.
+// Templated on D up to 64, 128, 192 or 256; a D in between is zero-filled
+// up to the template in shared memory.  Numerics: P is rounded to
 // bf16 before the PV product (the Pallas kernel keeps it float32), and l sums
 // the rounded values, so each output is a convex combination of V's rows.
 //
@@ -361,8 +364,8 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
   }
 }
 
-// kKT keys a tile: 64, or 32 at kDP = 256, where S and P of a 64-key tile
-// would push the 128 float32 accumulators of O into spills
+// kKT keys a tile: 64, or 32 at kDP = 256 and 48 at kDP = 192, where S and P
+// of a 64-key tile would push the float32 accumulators of O into spills
 template <int kDP, int kKT>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_fwd_mma_kernel(Args a) {
@@ -565,7 +568,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 template <int kDP>
 cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
-  constexpr int kKT = kDP == 256 ? 32 : 64;
+  constexpr int kKT = kDP == 256 ? 32 : kDP == 192 ? 48 : 64;
   constexpr size_t kSmemBytes = mma_smem_bytes<kDP, kKT>();
   static bool configured = false;
   if (!configured) {
@@ -628,6 +631,7 @@ int flash_attention_fwd_mma(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 64) return static_cast<int>(launch_mma<64>(a, s));
   if (D <= 128) return static_cast<int>(launch_mma<128>(a, s));
+  if (D <= 192) return static_cast<int>(launch_mma<192>(a, s));
   return static_cast<int>(launch_mma<256>(a, s));
 }
 

@@ -9,12 +9,14 @@ use) or raises; on a CPU tensor it runs the kernel's plain PyTorch version,
 ``decode_attention.launches`` counts kernel launches.
 
 The kernel splits the cache's S slots into chunks across blocks
-(:func:`_split`, from S alone: the wrapper never reads ``lengths`` on the
-host) and combines the chunks' partials in the same launch; the plain
-version of that algorithm is :func:`repro_torch.kernels.ref.
-decode_attention_split`.  The combine keeps one int32 arrival counter per
-(b, kv head) in a buffer made once per device and stream
-(:data:`_ARRIVALS`); the kernel leaves every counter at 0.
+(:func:`_split`, from the shapes alone: the wrapper never reads ``lengths``
+on the host), takes a kv head's query heads in tiles of :data:`GROUP_TILE`
+(MLA's absorbed decode has 128 on one latent kv head) and combines the
+chunks' partials in the same launch; the plain version of that algorithm is
+:func:`repro_torch.kernels.ref.decode_attention_split`.  The combine keeps
+one int32 arrival counter per (b, kv head, group tile) in a buffer made
+once per device and stream (:data:`_ARRIVALS`); the kernel leaves every
+counter at 0.
 
 The reference wrapper pads the cache to its key tile; padded positions lie
 past every length, so they change nothing, and the port's kernel stops at
@@ -29,9 +31,15 @@ import torch
 from . import _nvcc
 from . import ref
 
-#: Largest head dimension and query-head group (Hq / Hkv) the kernel takes.
-MAX_HEAD_DIM = 256
-MAX_GROUP = 16
+#: Largest head dimension the kernel takes: MLA's latent cache (512 + 64)
+#: in bfloat16; float32 stops at :data:`MAX_HEAD_DIM_F32`, since its two
+#: 64-key tiles at D = 576 would not fit a block's shared memory.
+MAX_HEAD_DIM = 576
+MAX_HEAD_DIM_F32 = 256
+#: Largest query-head group (Hq / Hkv): MLA's 128 heads on one kv head.
+MAX_GROUP = 128
+#: Query heads a block takes; a larger group is tiled over the grid.
+GROUP_TILE = 16
 
 #: Keys a split's chunk holds: a multiple of the kernel's 64-key tile.
 CHUNK = 64
@@ -49,12 +57,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARRIVALS: dict = {}
 
 
-def _split(B: int, Hkv: int, S: int) -> tuple[int, int]:
-    """(splits, chunk) for a (B, Hkv, S, D) cache: chunks of a multiple of
-    :data:`CHUNK` keys, no smaller, so that B·Hkv·splits reaches
-    :data:`TARGET_BLOCKS` where S allows; one split when S fits one chunk.
-    Every split's chunk starts below S."""
-    want = -(-TARGET_BLOCKS // max(1, B * Hkv))
+def _group_tiles(G: int) -> int:
+    return max(1, -(-G // GROUP_TILE))
+
+
+def _split(B: int, Hkv: int, S: int, G: int = 1) -> tuple[int, int]:
+    """(splits, chunk) for a (B, Hkv, S, D) cache read by G query heads a
+    kv head: chunks of a multiple of :data:`CHUNK` keys, no smaller, so that
+    B·Hkv·(group tiles)·splits reaches :data:`TARGET_BLOCKS` where S
+    allows; one split when S fits one chunk.  Every split's chunk starts
+    below S."""
+    want = -(-TARGET_BLOCKS // max(1, B * Hkv * _group_tiles(G)))
     chunk = max(CHUNK, -(-S // (want * CHUNK)) * CHUNK)
     return max(1, -(-S // chunk)), chunk
 
@@ -92,10 +105,11 @@ def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale=None):
         raise TypeError(f"decode_attention takes float32 or bfloat16 q and "
                         f"caches of one dtype, got {q.dtype}, "
                         f"{k_cache.dtype}, {v_cache.dtype}")
-    if D > MAX_HEAD_DIM or Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"decode_attention takes head_dim <= {MAX_HEAD_DIM} "
-                         f"and Hq/Hkv <= {MAX_GROUP}, got {D} and "
-                         f"{Hq // Hkv}")
+    max_d = MAX_HEAD_DIM if q.dtype == torch.bfloat16 else MAX_HEAD_DIM_F32
+    if D > max_d or Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"decode_attention takes head_dim <= {max_d} in "
+                         f"{str(q.dtype)[6:]} and Hq/Hkv <= {MAX_GROUP}, got "
+                         f"{D} and {Hq // Hkv}")
     q = q.contiguous()
     k_cache, v_cache = (t if t.stride(-1) == 1 else t.contiguous()
                         for t in (k_cache, v_cache))
@@ -106,11 +120,12 @@ def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale=None):
     vec = int(D % per16 == 0 and all(st % per16 == 0 for st in strides)
               and k_cache.data_ptr() % 16 == 0
               and v_cache.data_ptr() % 16 == 0)
-    splits, chunk = _split(B, Hkv, S)
+    splits, chunk = _split(B, Hkv, S, Hq // Hkv)
     stream = _nvcc.stream(q)
     ws = arrivals = None
     if splits > 1:       # both live until the launch is queued
-        arrivals = _arrivals(q.device, stream, B * Hkv)
+        arrivals = _arrivals(q.device, stream,
+                             B * Hkv * _group_tiles(Hq // Hkv))
         ws = torch.empty((B, Hq, splits, D + 2), dtype=torch.float32,
                          device=q.device)
     _LIB.call("decode_attention_fwd", _DTYPES[q.dtype], q.data_ptr(),

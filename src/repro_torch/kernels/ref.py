@@ -94,8 +94,9 @@ def decode_attention_split(q, k_cache, v_cache, lengths, chunk, *,
     (m, l, acc) over its valid keys — m = -1e30 and l = 0 for a chunk with
     none — then one combine per head: the global max M over chunks with
     l > 0, weights exp(m - M), and ``L == 0 → 1`` so length 0 gives zeros.
-    Same arguments as :func:`decode_attention`; returns (B, Hq, D) in q's
-    dtype."""
+    Every step is per query head, so the kernel's tiling of a kv head's
+    query heads over the grid changes nothing here.  Same arguments as
+    :func:`decode_attention`; returns (B, Hq, D) in q's dtype."""
     b, hq, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5

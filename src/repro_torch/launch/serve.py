@@ -2,7 +2,8 @@
 counterpart of ``repro/launch/serve.py``.
 
 A SharedQueue admits requests, a KVStore keeps the paged KV cache's page
-table, and the model — a dense LM, recurrentgemma, rwkv6 or llama4-maverick
+table, and the model — a dense LM (llama3.2-3b, qwen3-8b, gemma-2b,
+internlm2-20b), recurrentgemma, rwkv6, llama4-maverick or deepseek-v3
 (``--arch``: any of ``repro_torch.configs.ARCH_IDS``) — runs prefill and
 decode with the port's kernels.  Weights are random, drawn on the device
 from a seeded generator.
@@ -15,6 +16,10 @@ from a seeded generator.
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch llama4-maverick-400b-a17b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v3-671b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
+      --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
       --smoke --device cpu --replicas 2 --kill-leader-at 1 --revive-at 6 \\
       --backend pallas

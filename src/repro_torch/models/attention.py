@@ -1,6 +1,6 @@
-"""GQA/MQA attention blocks with sliding windows, the counterpart of the GQA
-part of ``repro/models/attention.py`` (MLA and cross-attention wait for the
-families that use them).
+"""GQA/MQA attention blocks with sliding windows and DeepSeek's MLA, the
+counterpart of ``repro/models/attention.py`` (cross-attention waits for the
+families that use it).
 
 The inner attention is always the port's kernel wrapper: on a CUDA tensor
 :func:`~repro_torch.kernels.flash_attention.flash_attention` (prefill) and
@@ -8,12 +8,21 @@ The inner attention is always the port's kernel wrapper: on a CUDA tensor
 launch the hand-written kernels; on a CPU tensor they run the kernels' plain
 versions.  The reference's ``impl``/``decode_impl`` knobs have no
 counterpart.
+
+MLA prefill runs the expanded form: q and k of ``qk_nope + qk_rope`` (192 at
+full width) and v of ``v_head_dim`` (128) per head.  The flash kernel takes
+one head dimension for q, k and v, so v is zero-padded to q's width and the
+output sliced back; zero columns of V give zero columns of the output, so
+the result is exact.  MLA decode runs the matrix-absorbed form against the
+compressed cache (``ckv ‖ krope``, 512 + 64 = 576 wide): every query head
+attends the one latent "kv head", a query-head group of ``n_heads`` (128).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.decode_attention import decode_attention
@@ -94,4 +103,122 @@ def attention_decode(params, cfg: ArchConfig, x, cache: KVCache, pos, *,
                                          buf[rows, :, slot])
     lengths = torch.clamp(pos + 1, max=S_max)
     out = decode_attention(q, cache.k, cache.v, lengths)
+    return out.reshape(B, 1, -1) @ params["wo"], cache
+
+
+# ------------------------------------------------------------------ MLA block
+def init_mla(gen, cfg: ArchConfig):
+    m, d, H, dt = cfg.mla, cfg.d_model, cfg.n_heads, cfg.dtype_
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": dense_init(gen, d, m.q_lora_rank, dt),
+        "q_a_norm": init_rmsnorm(m.q_lora_rank, gen.device),
+        "wq_b": dense_init(gen, m.q_lora_rank, H * qk, dt),
+        "wkv_a": dense_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim, dt),
+        "kv_a_norm": init_rmsnorm(m.kv_lora_rank, gen.device),
+        "wkv_b": dense_init(gen, m.kv_lora_rank,
+                            H * (m.qk_nope_head_dim + m.v_head_dim), dt),
+        "wo": dense_init(gen, H * m.v_head_dim, d, dt),
+    }
+
+
+class MLACache(NamedTuple):
+    ckv: torch.Tensor      # (B, S, kv_lora_rank)  compressed latents
+    krope: torch.Tensor    # (B, S, qk_rope_head_dim)
+
+
+def _mla_scale(m) -> float:
+    """The reference's softmax scale on both paths: 1/sqrt(qk_nope +
+    qk_rope), also where decode attends the wider latent keys."""
+    return 1.0 / (m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5
+
+
+def _mla_query(params, cfg: ArchConfig, x):
+    """x (B, S, d) → q (B, S, H, qk_nope + qk_rope), before RoPE."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    q_a = rmsnorm(params["q_a_norm"], x @ params["wq_a"], cfg.norm_eps)
+    return (q_a @ params["wq_b"]).reshape(
+        B, S, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+
+def _mla_latents(params, cfg: ArchConfig, x, positions):
+    """x (B, S, d) → the compressed cache rows: ckv (B, S, kv_lora_rank),
+    normed, and krope (B, S, qk_rope), rotated."""
+    R = cfg.mla.kv_lora_rank
+    kv_a = x @ params["wkv_a"]
+    ckv = rmsnorm(params["kv_a_norm"], kv_a[..., :R], cfg.norm_eps)
+    krope = apply_rope(kv_a[:, :, None, R:], positions, cfg.rope_theta)
+    return ckv, krope[:, :, 0]
+
+
+def _mla_qkv(params, cfg: ArchConfig, x, positions):
+    """Expanded (non-absorbed) q, k, v for prefill.  x (B, S, d) → q, k (B,
+    S, H, qk_nope + qk_rope), v (B, S, H, v_head_dim), and the cache rows
+    ckv (B, S, kv_lora_rank) and krope (B, S, qk_rope)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H, nope = cfg.n_heads, m.qk_nope_head_dim
+    q = _mla_query(params, cfg, x)
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    ckv, krope = _mla_latents(params, cfg, x, positions)
+    kv = (ckv @ params["wkv_b"]).reshape(B, S, H, nope + m.v_head_dim)
+    k = torch.cat([kv[..., :nope],
+                   krope[:, :, None].expand(B, S, H, m.qk_rope_head_dim)],
+                  dim=-1)
+    q = torch.cat([q[..., :nope], q_rope], dim=-1)
+    return q, k, kv[..., nope:], ckv, krope
+
+
+def mla_attention(params, cfg: ArchConfig, x, *, positions=None):
+    """Prefill MLA (expanded form), causal.  x (B, S, d) → (out (B, S, d),
+    MLACache of this call's ckv and krope).  v is zero-padded to q's width
+    for the flash kernel and the output sliced back to ``v_head_dim``."""
+    B, S, _ = x.shape
+    m = cfg.mla
+    pos = positions if positions is not None \
+        else torch.arange(S, device=x.device)[None, :]
+    q, k, v, ckv, krope = _mla_qkv(params, cfg, x, pos)
+    v = F.pad(v, (0, q.shape[-1] - m.v_head_dim))
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=True,
+                          sm_scale=_mla_scale(m))[..., :m.v_head_dim]
+    out = out.transpose(1, 2).reshape(B, S, -1)
+    return out @ params["wo"], MLACache(ckv, krope)
+
+
+def mla_decode(params, cfg: ArchConfig, x, cache: MLACache, pos):
+    """Matrix-absorbed MLA decode against the compressed cache.  x (B, 1,
+    d); ``pos`` (B,) — the new token's index.  Per head h the score is
+    ``q_nope_h · W_UK_h c_t + q_rope_h · k_rope_t``, so the query absorbs
+    W_UK into a (kv_lora_rank + qk_rope)-wide row and the cache stays (c_kv
+    ‖ k_rope).  The new row is written with the reference's masked
+    ``where`` (a new cache; a ``pos`` past the cache writes nothing), then
+    every query head attends the one latent kv head through the decode
+    kernel with keys ``ckv ‖ krope``.  The reference's values are ``ckv``
+    zero-padded by qk_rope columns; the keys serve as values here, since
+    output column c depends on value column c alone and only the first
+    kv_lora_rank columns, which are ``ckv`` in both, are kept.  Returns
+    (out (B, 1, d), the new MLACache)."""
+    m = cfg.mla
+    B, H = x.shape[0], cfg.n_heads
+    nope, R = m.qk_nope_head_dim, m.kv_lora_rank
+    ckv_new, krope_new = _mla_latents(params, cfg, x, pos[:, None])
+    S = cache.ckv.shape[1]
+    mask = (torch.arange(S, device=x.device)[None, :]
+            == pos.long()[:, None])[:, :, None]
+    cache = MLACache(torch.where(mask, ckv_new.to(cache.ckv.dtype),
+                                 cache.ckv),
+                     torch.where(mask, krope_new.to(cache.krope.dtype),
+                                 cache.krope))
+    q = _mla_query(params, cfg, x)
+    q_rope = apply_rope(q[..., nope:], pos[:, None], cfg.rope_theta)[:, 0]
+    w_kv_b = params["wkv_b"].reshape(R, H, nope + m.v_head_dim)
+    q_abs = torch.einsum("bhn,rhn->bhr", q[:, 0, :, :nope],
+                         w_kv_b[..., :nope])                    # (B, H, R)
+    q_full = torch.cat([q_abs, q_rope], dim=-1)           # (B, H, R + rope)
+    keys = torch.cat([cache.ckv, cache.krope], dim=-1)[:, None]
+    ctx = decode_attention(q_full, keys, keys, pos + 1,
+                           sm_scale=_mla_scale(m))[..., :R]
+    out = torch.einsum("bhr,rhv->bhv", ctx, w_kv_b[..., nope:])
     return out.reshape(B, 1, -1) @ params["wo"], cache

@@ -12,7 +12,11 @@ layers unstacked into the port's per-layer list —
   (``router`` in float32, ``experts`` of ``(E, d, f)`` leaves, ``shared``)
   comes across like any other;
 * rwkv6's ``{"ln0", "blocks": (L, …)}``: ``ln0`` at the top level and the
-  blocks as ``layers``.
+  blocks as ``layers``;
+* deepseek-v3's ``mtp`` subtree (``proj``, ``norm_h``, ``norm_e`` and one
+  unstacked ``mla_dense`` block) as it is; MLA layers' ``attn`` leaves
+  (``wq_a``, ``q_a_norm``, ``wq_b``, ``wkv_a``, ``kv_a_norm``, ``wkv_b``,
+  ``wo``) keep their names.
 
 The parity tests use it; a run on the card initialises its own weights
 there (``Model.init``) and never builds the model on the host.
@@ -56,7 +60,7 @@ def params_from_jax(np_tree, device=None):
     on ``device`` (default: the card)."""
     dev = resolve_device(device)
     out = {k: _map(lambda a: _tensor(a, dev), np_tree[k])
-           for k in ("embed", "final_norm")}
+           for k in ("embed", "final_norm", "mtp") if k in np_tree}
     stack = np_tree["stack"]
     if isinstance(stack, dict) and "blocks" in stack:          # rwkv6
         out["ln0"] = _map(lambda a: _tensor(a, dev), stack["ln0"])

@@ -11,11 +11,15 @@
 
 ``batch`` is a dict ``{"tokens": (B, S) int}``; ``caches`` is one entry per
 layer.  The LM family covers the dense models, the hybrid one
-(recurrentgemma) and the MoE family with GQA attention (llama4-maverick;
-as in the reference, a ``family="moe"`` config without ``moe`` gets the
-dense plan); rwkv6 (family ``ssm``) has its own stack.  ``train_loss``
-waits for the training slice; MLA configs (deepseek-v3) and the other
-families raise ``NotImplementedError``.
+(recurrentgemma) and the MoE family with GQA attention (llama4-maverick)
+or MLA (deepseek-v3; as in the reference, a ``family="moe"`` config
+without ``moe`` gets the dense plan); rwkv6 (family ``ssm``) has its own
+stack.  A config with ``mtp_depth`` (deepseek-v3) also draws the
+reference's multi-token-prediction subtree ``mtp`` (``proj``, ``norm_h``,
+``norm_e`` and one ``mla_dense`` block), so the two parameter trees line
+up leaf for leaf; nothing on the serving path reads it.  ``train_loss``,
+the MTP term in it included, waits for the training slice (ROADMAP Queue
+A item 10); the vlm and audio families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,8 +31,8 @@ from ..configs.base import ArchConfig
 from ..core.runtime import resolve_device
 from . import rwkv6 as W
 from . import transformer as T
-from .layers import (embed, init_embedding, init_layernorm, init_rmsnorm,
-                     layernorm, rmsnorm, unembed)
+from .layers import (dense_init, embed, init_embedding, init_layernorm,
+                     init_rmsnorm, layernorm, rmsnorm, unembed)
 
 
 class Model(NamedTuple):
@@ -41,10 +45,6 @@ class Model(NamedTuple):
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported; it comes with the "
-            f"deepseek-v3 (MLA) slice, ROADMAP Queue A item 11")
     if cfg.family in ("dense", "hybrid", "moe"):
         return _build_lm(cfg)
     if cfg.family == "ssm":
@@ -74,11 +74,22 @@ def _build_lm(cfg: ArchConfig) -> Model:
         if cfg.scale_embed else None
 
     def init(generator: torch.Generator):
-        """Random weights, drawn from ``generator`` on its device."""
-        return {"embed": init_embedding(generator, cfg.vocab, cfg.d_model,
-                                        cfg.dtype_, cfg.tie_embeddings),
-                "layers": T.init_stack(generator, cfg),
-                "final_norm": init_rmsnorm(cfg.d_model, generator.device)}
+        """Random weights, drawn from ``generator`` on its device, with the
+        ``mtp`` subtree where the config has ``mtp_depth``."""
+        p = {"embed": init_embedding(generator, cfg.vocab, cfg.d_model,
+                                     cfg.dtype_, cfg.tie_embeddings),
+             "layers": T.init_stack(generator, cfg),
+             "final_norm": init_rmsnorm(cfg.d_model, generator.device)}
+        if cfg.mtp_depth:
+            dev = generator.device
+            p["mtp"] = {
+                "proj": dense_init(generator, 2 * cfg.d_model, cfg.d_model,
+                                   cfg.dtype_),
+                "norm_h": init_rmsnorm(cfg.d_model, dev),
+                "norm_e": init_rmsnorm(cfg.d_model, dev),
+                "block": T.init_block(generator, cfg, "mla_dense"
+                                      if cfg.mla is not None else "attn")}
+        return p
 
     def _embed_in(params, tokens):
         x = embed(params["embed"], tokens)

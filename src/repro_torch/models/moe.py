@@ -18,8 +18,9 @@ token costs no weight bytes; in a decode step most hold none.
 Capacity semantics are the reference's: each expert accepts at most
 C = ceil(T·k/E · capacity_factor) tokens, rounded up to 8; an assignment
 past its expert's capacity is dropped, goes to the sentinel slot E·C, and
-contributes zero.  The expert-parallel ``moe_block_a2a`` waits for the
-port's distributed binding (ROADMAP Queue A item 11).
+contributes zero.  The expert-parallel ``moe_block_a2a`` comes with
+ROADMAP Queue A item 9 on the stacked binding, and across cards with the
+port's distributed binding (item 12).
 """
 from __future__ import annotations
 

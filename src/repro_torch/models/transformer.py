@@ -1,30 +1,33 @@
 """Decoder-only transformer stack, the counterpart of the dense, hybrid and
-MoE (GQA) plans of ``repro/models/transformer.py``.
+MoE (GQA and MLA) plans of ``repro/models/transformer.py``.
 
 A stack is a flat list of block kinds (:func:`layer_kinds`), in the
 reference's layer order: ``attn × L`` for the dense family; for the hybrid
 family (recurrentgemma) ``[rec, rec, local] × n`` followed by the ``rec``
-layers left over; for an MoE config ``[attn_dense] × (moe_every_k - 1) +
-[attn_moe]`` repeated (llama4: ``[attn_dense, attn_moe] × L/2``), or, where
-``moe_every_k`` is 1, ``[attn_dense] × first_k_dense`` followed by
-``attn_moe`` layers.  The reference scans stacked ``(n, …)``
-parameters per superblock position with ``layer_scan``; the port keeps one
-parameter dict per layer in a list and loops over it in Python.  The MLA
-and cross-attention plans wait for their families (ROADMAP Queue A item
-11).
+layers left over; for an MoE config, with mixer ``m`` = ``mla`` where the
+config has MLA dims and ``attn`` otherwise, ``[m_dense] × (moe_every_k -
+1) + [m_moe]`` repeated (llama4: ``[attn_dense, attn_moe] × L/2``), or,
+where ``moe_every_k`` is 1, ``[m_dense] × first_k_dense`` followed by
+``m_moe`` layers (deepseek-v3: ``[mla_dense] × 3 + [mla_moe] × 58``).  The
+reference scans stacked ``(n, …)`` parameters per superblock position with
+``layer_scan``; the port keeps one parameter dict per layer in a list and
+loops over it in Python.  The cross-attention plans wait for their
+families (ROADMAP Queue A item 11).
 
 Kinds: ``attn`` / ``attn_dense`` / ``attn_moe`` (causal GQA attention),
-``local`` (attention over the last ``hybrid.window`` keys, with a
-ring-buffer decode cache of ``min(s_max, window)`` slots) and ``rec`` (the
-RG-LRU block with a :class:`RecState` cache).  Each is followed by its FFN:
-the MoE block for ``*_moe`` kinds, else the gated MLP (``d_ff_dense`` wide
-in an MoE config).
+``mla_dense`` / ``mla_moe`` (causal MLA, with an :class:`MLACache` of the
+compressed latents; no window), ``local`` (attention over the last
+``hybrid.window`` keys, with a ring-buffer decode cache of ``min(s_max,
+window)`` slots) and ``rec`` (the RG-LRU block with a :class:`RecState`
+cache).  Each is followed by its FFN: the MoE block for ``*_moe`` kinds,
+else the gated MLP (``d_ff_dense`` wide in an MoE config).
 """
 from __future__ import annotations
 
 from typing import List
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from . import attention as A
@@ -42,16 +45,26 @@ def layer_kinds(cfg: ArchConfig) -> List[str]:
         return block * n + ["rec"] * (cfg.n_layers - n * period)
     mo = cfg.moe
     if mo is not None:
+        mixer = "mla" if cfg.mla is not None else "attn"
         if mo.moe_every_k > 1:
             if cfg.n_layers % mo.moe_every_k:
                 raise ValueError(f"{cfg.name}: {cfg.n_layers} layers is not "
                                  f"a multiple of moe_every_k "
                                  f"{mo.moe_every_k}")
-            block = ["attn_dense"] * (mo.moe_every_k - 1) + ["attn_moe"]
+            block = [f"{mixer}_dense"] * (mo.moe_every_k - 1) \
+                + [f"{mixer}_moe"]
             return block * (cfg.n_layers // mo.moe_every_k)
-        return ["attn_dense"] * mo.first_k_dense \
-            + ["attn_moe"] * (cfg.n_layers - mo.first_k_dense)
+        return [f"{mixer}_dense"] * mo.first_k_dense \
+            + [f"{mixer}_moe"] * (cfg.n_layers - mo.first_k_dense)
     return ["attn"] * cfg.n_layers
+
+
+def _is_mla(kind: str) -> bool:
+    return kind.startswith("mla")
+
+
+def _is_moe(kind: str) -> bool:
+    return kind.endswith("_moe")
 
 
 def _window(cfg: ArchConfig, kind: str):
@@ -71,9 +84,11 @@ def init_block(gen, cfg: ArchConfig, kind: str):
          "ln2": init_rmsnorm(cfg.d_model, gen.device)}
     if kind == "rec":
         p["temporal"] = R.init_rglru(gen, cfg)
+    elif _is_mla(kind):
+        p["attn"] = A.init_mla(gen, cfg)
     else:
         p["attn"] = A.init_attention(gen, cfg)
-    if kind == "attn_moe":
+    if _is_moe(kind):
         p["ffn"] = M.init_moe(gen, cfg)
     else:
         p["ffn"] = init_mlp(gen, cfg.d_model, _ffn_width(cfg),
@@ -84,7 +99,7 @@ def init_block(gen, cfg: ArchConfig, kind: str):
 def _apply_ffn(params, cfg: ArchConfig, kind: str, h):
     """The block's FFN on h (B, S, d).  The MoE block's load-balance loss is
     a training term; serving drops it, as the reference's decode does."""
-    if kind == "attn_moe":
+    if _is_moe(kind):
         out, _aux = M.moe_block_local(params["ffn"], h, cfg)
         return out
     return mlp(params["ffn"], h, cfg.act)
@@ -93,11 +108,14 @@ def _apply_ffn(params, cfg: ArchConfig, kind: str, h):
 def apply_block_train(params, cfg: ArchConfig, kind: str, x, positions=None):
     """x (B, S, d) → (x', cache).  Where the reference returns an auxiliary
     loss (zero for these blocks), the port returns what prefill stores as
-    the decode cache: the attention's rotated k/v, or the recurrent block's
-    final :class:`RecState`."""
+    the decode cache: the attention's rotated k/v, MLA's compressed
+    latents, or the recurrent block's final :class:`RecState`."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "rec":
         out, cache = R.rglru_block(params["temporal"], h)
+    elif _is_mla(kind):
+        out, cache = A.mla_attention(params["attn"], cfg, h,
+                                     positions=positions)
     else:
         out, cache = A.attention(params["attn"], cfg, h, positions=positions,
                                  window=_window(cfg, kind))
@@ -107,11 +125,13 @@ def apply_block_train(params, cfg: ArchConfig, kind: str, x, positions=None):
 
 
 def apply_block_decode(params, cfg: ArchConfig, kind: str, x, cache, pos):
-    """x (B, 1, d), pos (B,) → (x', cache); an attention cache is updated in
-    place."""
+    """x (B, 1, d), pos (B,) → (x', cache); a GQA attention cache is
+    updated in place, an MLA cache rewritten as the reference does."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "rec":
         out, cache = R.rglru_block_decode(params["temporal"], h, cache)
+    elif _is_mla(kind):
+        out, cache = A.mla_decode(params["attn"], cfg, h, cache, pos)
     else:
         out, cache = A.attention_decode(params["attn"], cfg, h, cache, pos,
                                         window=_window(cfg, kind))
@@ -134,6 +154,13 @@ def init_stack_cache(cfg: ArchConfig, batch: int, s_max: int, device):
         if kind == "rec":
             caches.append(R.init_rec_state(cfg, batch, device))
             continue
+        if _is_mla(kind):
+            m = cfg.mla
+            caches.append(A.MLACache(*(
+                torch.zeros((batch, s_max, w), dtype=cfg.dtype_,
+                            device=device)
+                for w in (m.kv_lora_rank, m.qk_rope_head_dim))))
+            continue
         shape = (batch, cfg.n_kv_heads, _cache_slots(cfg, kind, s_max),
                  cfg.head_dim_)
         caches.append(A.KVCache(
@@ -153,16 +180,31 @@ def apply_stack_decode(params, cfg: ArchConfig, x, caches, pos):
 def fill_stack_cache(params, cfg: ArchConfig, x, s_max: int,
                      positions=None):
     """Prefill: run the stack over the prompt, returning the final hidden
-    states and every layer's decode cache: the recurrent state, or the k/v
-    laid out in ``s_max`` (``min(s_max, window)`` for a local layer)
-    slots."""
+    states and every layer's decode cache: the recurrent state, MLA's
+    latents zero-padded to ``s_max`` slots, or the k/v laid out in
+    ``s_max`` (``min(s_max, window)`` for a local layer) slots."""
     caches = []
     for kind, p in zip(layer_kinds(cfg), params):
         x, c = apply_block_train(p, cfg, kind, x, positions)
-        caches.append(c if kind == "rec" else
-                      _block_prefill_cache(c, _cache_slots(cfg, kind, s_max),
-                                           ring=kind == "local"))
+        if _is_mla(kind):
+            c = _mla_prefill_cache(c, s_max)
+        elif kind != "rec":
+            c = _block_prefill_cache(c, _cache_slots(cfg, kind, s_max),
+                                     ring=kind == "local")
+        caches.append(c)
     return x, caches
+
+
+def _mla_prefill_cache(c: A.MLACache, slots: int) -> A.MLACache:
+    """MLA's decode cache from the prompt's (B, S, ·) latents: zero-padded
+    to ``slots`` (MLA layers have no window, so no ring).  The reference
+    recomputes the latents from the block input; the port reuses the
+    attention's own (the same values)."""
+    S = c.ckv.shape[1]
+    if S > slots:
+        raise ValueError(f"a {S}-token prompt does not fit a {slots}-slot "
+                         f"cache")
+    return A.MLACache(*(F.pad(t, (0, 0, 0, slots - S)) for t in c))
 
 
 def _block_prefill_cache(kv: A.KVCache, slots: int, ring: bool) -> A.KVCache:

@@ -128,7 +128,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 @pytest.mark.parametrize("chunk_kind", ["1", "3", "S"])
-@pytest.mark.parametrize("Hq, Hkv", [(2, 2), (16, 1)])     # G = 1 and 16
+@pytest.mark.parametrize("Hq, Hkv", [(2, 2), (16, 1), (40, 2)])
+# G = 1, 16 and 20: a group past 16 query heads runs in two group tiles
 def test_split_decode_matches_pallas(chunk_kind, Hq, Hkv):
     """The CUDA decode kernel's algorithm — per-chunk partials (m, l, acc),
     then the combine — in its plain version against the Pallas kernel.
@@ -165,6 +166,7 @@ def test_split_decode_matches_pallas(chunk_kind, Hq, Hkv):
 ])
 def test_split_count_follows_the_slot_count(B, Hkv, S, expected):
     splits, chunk = pdec._split(B, Hkv, S)
+    assert pdec._split(B, Hkv, S, pdec.GROUP_TILE) == (splits, chunk)
     assert chunk % pdec.CHUNK == 0 and chunk >= pdec.CHUNK
     assert splits * chunk >= S and (splits - 1) * chunk < max(S, 1)
     if S <= pdec.CHUNK:
@@ -173,6 +175,22 @@ def test_split_count_follows_the_slot_count(B, Hkv, S, expected):
         assert (splits, chunk) == expected
     if chunk > pdec.CHUNK:      # larger chunks only once the grid is full
         assert B * Hkv * splits >= pdec.TARGET_BLOCKS // 2
+
+
+@pytest.mark.parametrize("B, Hkv, S, G, expected", [
+    (4, 1, 544, 128, (9, 64)),    # MLA's absorbed decode: 8 group tiles
+    (4, 1, 544, 17, (9, 64)),     # 2 group tiles: S caps the splits
+    (1, 1, 2048, 16, (32, 64)),   # one tile: 33 splits wanted
+    (1, 1, 4096, 128, (32, 128)),  # 8 tiles: 33 wanted, chunks of 128
+    (1, 1, 4096, 16, (64, 64)),
+])
+def test_split_count_counts_the_group_tiles(B, Hkv, S, G, expected):
+    """A group of more than GROUP_TILE query heads is tiled over the grid,
+    and the split count aims at TARGET_BLOCKS over B·Hkv·tiles blocks."""
+    tiles = -(-G // pdec.GROUP_TILE)
+    assert pdec._group_tiles(G) == tiles
+    assert pdec._split(B, Hkv, S, G) == expected
+    assert pdec._split(B, Hkv, S, G) == pdec._split(B, Hkv * tiles, S)
 
 
 _ALIGNED = dict(D=128, strides=(8 * 512 * 128, 128, 8 * 128) * 3,

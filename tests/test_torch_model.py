@@ -1,5 +1,6 @@
 """The port's dense LM against the JAX package's, on the smoke configs of
-llama3.2-3b and qwen3-8b (qk-norm, explicit head_dim) in float32.
+llama3.2-3b, qwen3-8b (qk-norm, explicit head_dim), gemma-2b (GeGLU, MQA,
+tied embeddings) and internlm2-20b (GQA) in float32.
 
 Weights come from the reference's ``build_model(cfg).init(PRNGKey(0))``,
 carried across with ``params_from_jax``; inputs are made with numpy from a
@@ -25,7 +26,7 @@ from repro_torch.models import layers as players  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-5)
-ARCHS = ["llama3.2-3b", "qwen3-8b"]
+ARCHS = ["llama3.2-3b", "qwen3-8b", "gemma-2b", "internlm2-20b"]
 
 
 def _np(tree):
@@ -33,7 +34,8 @@ def _np(tree):
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["recurrentgemma-2b", "rwkv6-7b",
-                                          "llama4-maverick-400b-a17b"])
+                                          "llama4-maverick-400b-a17b",
+                                          "deepseek-v3-671b"])
 def test_configs_match_the_reference(arch):
     import dataclasses
 
@@ -43,7 +45,7 @@ def test_configs_match_the_reference(arch):
         for f in ("name", "family", "n_layers", "d_model", "n_heads",
                   "n_kv_heads", "d_ff", "vocab", "head_dim_", "qk_norm",
                   "act", "norm_eps", "rope_theta", "tie_embeddings", "dtype",
-                  "scale_embed"):
+                  "scale_embed", "mtp_depth"):
             assert getattr(port, f) == getattr(ref, f), f
         if ref.hybrid is None:
             assert port.hybrid is None
@@ -59,8 +61,11 @@ def test_configs_match_the_reference(arch):
                 assert getattr(port.moe, f) == getattr(ref.moe, f), f
             assert [port.is_moe_layer(i) for i in range(port.n_layers)] == \
                 [ref.is_moe_layer(i) for i in range(ref.n_layers)]
-        assert (ref.mla, ref.cross) == (None, None)
-        assert port.mla is None
+        if ref.mla is None:
+            assert port.mla is None
+        else:
+            assert dataclasses.asdict(port.mla) == dataclasses.asdict(ref.mla)
+        assert ref.cross is None
         assert port.dtype_ == torch.bfloat16
         assert port.replace(dtype="float32").dtype_ == torch.float32
 
@@ -121,25 +126,31 @@ def test_prefill_and_decode_match_the_reference(arch):
         np.testing.assert_allclose(c.v.numpy(), jc.v[i], **TOL)
 
 
-@pytest.mark.parametrize("family", ["deepseek-v3", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["vlm", "audio"])
 def test_unported_families_are_refused(family):
-    if family == "deepseek-v3":
-        # the reference's smoke deepseek-v3 as a port config: an MoE config
-        # with MLA attention, which waits for the MLA slice
-        import dataclasses
-
-        from repro_torch.configs import MoEConfig
-        ref = jax_smoke("deepseek-v3-671b")
-        cfg = get_smoke_config("llama4-maverick-400b-a17b").replace(
-            name=ref.name, n_layers=ref.n_layers, n_kv_heads=ref.n_kv_heads,
-            d_ff=ref.d_ff, mla=ref.mla,
-            moe=MoEConfig(**dataclasses.asdict(ref.moe)))
-        match = f"{ref.name}: MLA attention .* Queue A item 11"
-    else:
-        cfg = get_smoke_config("llama3.2-3b").replace(family=family)
-        match = "Queue A item 11"
-    with pytest.raises(NotImplementedError, match=match):
+    cfg = get_smoke_config("llama3.2-3b").replace(family=family)
+    with pytest.raises(NotImplementedError, match="Queue A item 11"):
         build_model(cfg)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "gemma-2b",
+                                  "internlm2-20b"])
+def test_new_configs_build_and_serve_through_the_launcher(arch, capsys):
+    """The smoke model builds (deepseek-v3: MLA, the MoE prefix and the MTP
+    subtree) and ``launch.serve --arch <id> --smoke --device cpu`` serves,
+    every admitted page deleted."""
+    from repro_torch.core.kvstore import DELETE, INSERT
+    from repro_torch.launch.serve import main
+    cfg = get_smoke_config(arch)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    assert ("mtp" in params) == bool(cfg.mtp_depth)
+    outs, stats = main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--requests", "3", "--prompt-len", "8",
+                        "--gen-len", "3", "--max-batch", "2"])
+    assert len(outs) == 3 and all(len(o) == 3 for o in outs)
+    assert all(0 <= t < cfg.vocab for o in outs for t in o)
+    assert stats["kv_ops"][INSERT] == stats["kv_ops"][DELETE] > 0
+    assert "[serve] 3 requests" in capsys.readouterr().out
 
 
 def test_init_draws_from_the_generator():
