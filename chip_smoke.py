@@ -9,11 +9,12 @@ toolkit:
 It imports neither JAX nor the JAX package.  Phases, in order; any failure
 exits non-zero and prints no result:
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (seven
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (eight
    sources) with nvcc, one process per source, all at once, and check with
    ``cuobjdump -sass`` that the bf16 flash and grouped-matmul kernels run on
    the tensor cores (HMMA instructions), and from ``-Xptxas -v`` that the
-   tensor-core flash and grouped-matmul ones do not spill;
+   tensor-core flash and grouped-matmul ones do not spill (the flash
+   backward kernels' registers and spills are printed);
 2. hold each kernel against its plain PyTorch version on the card: the
    remote-DMA kernels at the KVStore path's shapes (outputs and measured
    bytes bitwise equal, scatter collisions included), on the argument forms
@@ -63,6 +64,14 @@ exits non-zero and prints no result:
    of 8, a step's 4 tokens routed top-8), and at odd ones (all-zero
    counts, partial counts over garbage rows), in float32 and bfloat16 (tolerances at ``GMM_TOL``; each
    case on the kernel it should take, rows past the counts exactly zero);
+2b. hold flash attention's backward (``csrc/flash_attention_bwd.cu``)
+   against its plain version: D 64, 128, 192 (v zero-padded from 128, as
+   MLA's, whose padded columns must get zero gradient) and 256, groups of
+   1, 3, 5 and 8, causal, a 2048-token window, Sq != Sk, S 1, 17 and
+   4096, bidirectional, bf16 and float32 (tolerance ``ATTN_TOL`` relative
+   to the plain gradient's max), the forward's log-sum-exp against the
+   plain one's, two calls bitwise equal, and a call's device operations
+   (the three kernels once each) under ``torch.profiler``;
 3. run the same work on the card and on the CPU: a P=4 store through 20
    windows (states and results bitwise equal after every window), a P=4
    lock-free store through the same windows and then all-UPDATE and
@@ -75,7 +84,9 @@ exits non-zero and prints no result:
    bitwise equal page-table state), and the smoke llama3.2-3b engine with
    two page-table replicas on the remote-DMA backend, its log leader killed
    and revived (equal tokens; page table, replicas, log and detector
-   bitwise equal);
+   bitwise equal), and one float32 training step of the smoke llama3.2-3b
+   with AdamW, with Adafactor and with AdamW over 2 microbatches (loss,
+   parameters and optimizer state within 1e-4);
 4. the KVStore path — ``KVStore.op_window`` on the remote-DMA backend — at a
    deployment's size: P=8 participants, K=2**22 keys, 8-byte values,
    windows of 512 lanes per participant; prefill 80% of K, then 20 windows
@@ -143,6 +154,19 @@ exits non-zero and prints no result:
    next; page-table, locality, logit and launch-count checks
    (recurrentgemma-2b's RG-LRU launches all on 16-byte copies, rwkv6-7b's WKV6 launches all on the chunked kernel),
    and on the replicated path the replication checks;
+7. the training path — ``repro_torch.launch.train.run``, the code of
+   ``python -m repro_torch.launch.train`` — on llama3.2-3b at full width
+   and depth (28 layers, 3,212,749,824 parameters), bf16, 2 x 4096 tokens
+   a step, ``remat="block"``, AdamW, 6 steps on one repeated
+   SyntheticTokens batch: every loss finite, the last below the first,
+   exactly 56 flash forward launches (each layer's forward and its
+   recompute) and 28 backward calls a step and no other model kernel;
+   step p50 / p99, tokens/s and peak memory; one more step under
+   ``torch.profiler`` (device busy share, the flash forward's and
+   backward's shares); each kernel wrapper without a backward (``gmm``,
+   ``rglru_scan``, ``wkv6``, ``decode_attention``) refusing a
+   grad-requiring input on the card; and a checkpoint round trip of the
+   smoke model's bf16 state on the card, bitwise;
 6. report the end-to-end numbers of every path, each kernel's launches on
    its path, its time beside its plain version's, one PyTorch call's and
    its bound (every row also with the kernel's device time per call from
@@ -151,11 +175,14 @@ exits non-zero and prints no result:
    call, the remote-DMA rows timed on the verbs' argument forms, WKV6's
    with the sequential form's bound beside the chunked one's, the
    attention rows with SDPA's, and the attention and grouped-matmul rows
-   with an entry at deepseek-v3's MLA and expert shapes), the
-   card's name and power limit, and last the result line.
+   with an entry at deepseek-v3's MLA and expert shapes; the flash
+   backward's row at the training shape, with the backward of SDPA's
+   output beside it), the card's name and power limit, and last the
+   result line.
 
 Kernel launch counts are set to 0 just before each path and read just after
-it, so the checks of phase 2 and 3 and the timings of phase 6 count nowhere;
+it, so the checks of phases 2, 2b and 3 and the timings of phase 6 count
+nowhere;
 the map kernels' rows carry phase 4d's and 4e's counts beside the KVStore
 path's.
 On every replicated path the remote-copy kernel's launches must equal the
@@ -231,6 +258,11 @@ SERVE_PATHS = [
     dict(arch=DS_ARCH, prompt=SERVE_PROMPT, n_layers=DS_LAYERS),
 ]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# phase 7, the training path: llama3.2-3b at full width and depth, bf16,
+# batches of TRAIN_BATCH x TRAIN_SEQ tokens (the train_4k shape's length),
+# remat per block, AdamW, TRAIN_STEPS steps on one repeated batch
+TRAIN_ARCH = "llama3.2-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6
 # RG-LRU and WKV6 against their plain versions, as max abs error over
 # max(1, max |plain|).  float32 rglru: the same operations per step (the
 # square root the hardware's, within an ulp), but the kernel's tiled scan
@@ -1132,6 +1164,141 @@ def phase_gmm_kernel(torch, kernels):
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: flash attention's backward against its plain version
+# ---------------------------------------------------------------------------
+
+def flash_bwd_cases():
+    """(label, (B, Hq, Hkv, Sq, Sk, D), masks and scale, v's width): the
+    training shape's head width and group at S = 4096, D 64 / 128 / 192
+    (MLA: v zero-padded from 128) / 256, groups of 1, 3, 5 and 8, causal,
+    a 2048-token window, Sq != Sk, S = 1 and 17, bidirectional."""
+    return [
+        ("train shape G=3 S=4096", (1, 6, 2, 4096, 4096, 128),
+         dict(causal=True), 128),
+        ("D=64 G=1", (2, 4, 4, 300, 300, 64), dict(causal=True), 64),
+        ("D=128 G=8 window 2048 S=4096", (1, 8, 1, 4096, 4096, 128),
+         dict(causal=True, window=2048), 128),
+        ("D=256 G=5 window 2048", (1, 10, 2, 2304, 2304, 256),
+         dict(causal=True, window=2048), 256),
+        ("MLA D=192 v padded from 128", (2, 4, 4, 512, 512, DS_DQK),
+         dict(causal=True, sm_scale=DS_DQK ** -0.5), DS_DV),
+        ("Sq != Sk", (2, 6, 2, 100, 300, 128), dict(causal=True), 128),
+        ("S=1", (2, 4, 2, 1, 1, 64), dict(causal=True), 64),
+        ("S=17 bidirectional", (1, 5, 1, 17, 17, 128), dict(causal=False),
+         128),
+        ("D=256 ragged Sk bidirectional", (1, 3, 1, 70, 190, 256),
+         dict(causal=False), 256)]
+
+
+def bwd_rel_err(got, exp, floor):
+    """max |got - exp| over the plain gradient's max |exp|, or over
+    ``floor`` where that is smaller: a gradient that vanishes exactly (at
+    S = 1, P = 1 and dP = Dsum, so dq = dk = 0) leaves both sides with
+    rounding noise alone."""
+    return float((got.float() - exp).abs().max()) / max(
+        float(exp.abs().max()), floor)
+
+
+def phase_flash_bwd_kernel(torch):
+    """Each case in bf16 and float32, inputs (B, H, S, D) views of (B, S, H,
+    D) projections as the models pass them: the forward with ``lse`` (the
+    training call, offset Sk - Sq) against ``ref.mha_lse``, then the
+    backward kernel against ``ref.flash_attention_bwd`` on the same q, k,
+    v, out, lse and dout (tolerance ``ATTN_TOL`` relative to the plain
+    gradient's max), a second call bitwise equal to the first, MLA's padded
+    v columns' gradient zero; and the device operations of one backward
+    call under ``torch.profiler``.  The floor of the relative error's
+    denominator is 1e-2 of the largest |dO|·|v| product, a term of dP and
+    Dsum; it binds only where a gradient vanishes (each case logs both).
+    Returns the largest relative errors."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+
+    def proj(B, S, H, width, D, dt):
+        t = torch.randn((B, S, H, width), generator=g, device="cuda").to(dt)
+        return F.pad(t, (0, D - width)).transpose(1, 2)
+
+    errs = {"lse": 0.0, "grad": 0.0}
+    ops = None
+    for label, (B, Hq, Hkv, Sq, Sk, D), kw, width in flash_bwd_cases():
+        for dt in (torch.bfloat16, torch.float32):
+            tag = f"{label} {str(dt)[6:]}"
+            tol = ATTN_TOL[str(dt)[6:]]
+            q, k = proj(B, Sq, Hq, D, D, dt), proj(B, Sk, Hkv, D, D, dt)
+            v = proj(B, Sk, Hkv, width, D, dt)
+            dout = proj(B, Sq, Hq, width, D, dt)
+            mask = dict(causal=kw["causal"], window=kw.get("window"),
+                        sm_scale=kw.get("sm_scale") or D ** -0.5,
+                        offset=Sk - Sq)
+            before = fa.flash_attention.launches
+            out, lse = fa._forward(q, k, v, mask["causal"], mask["window"],
+                                   mask["sm_scale"], mask["offset"], True)
+            torch.cuda.synchronize()
+            check(fa.flash_attention.launches == before + 1,
+                  f"flash_attention with lse ({tag}) did not launch")
+            _o, lse_plain = ref.mha_lse(q.float(), k.float(), v.float(),
+                                        **mask)
+            live = lse_plain > -1e29
+            check(torch.equal(live, lse > -1e29), f"flash lse ({tag}): rows "
+                  f"with no visible key differ")
+            e_lse = float((lse - lse_plain)[live].abs().max()) / max(
+                1.0, float(lse_plain[live].abs().max())) if live.any() \
+                else 0.0
+            check(e_lse <= tol, f"flash lse ({tag}) differs from its plain "
+                                f"version: {e_lse} > {tol}")
+
+            def bwd():
+                return fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                              **mask)
+            before = fa.flash_attention_bwd.launches
+            got = bwd()
+            torch.cuda.synchronize()
+            check(fa.flash_attention_bwd.launches == before + 1,
+                  f"flash_attention_bwd ({tag}) did not launch")
+            again = bwd()
+            check(all(torch.equal(a.view(torch.int16) if a.dtype ==
+                                  torch.bfloat16 else a,
+                                  b.view(torch.int16) if b.dtype ==
+                                  torch.bfloat16 else b)
+                      for a, b in zip(got, again)),
+                  f"flash_attention_bwd ({tag}): two calls differ")
+            plain = ref.flash_attention_bwd(
+                q.float(), k.float(), v.float(), out.float(), lse,
+                dout.float(), **mask)
+            es = []
+            floor = 1e-2 * float(dout.abs().max()) * float(v.abs().max())
+            for name, a, b, like in zip(("dq", "dk", "dv"), got, plain,
+                                        (q, k, v)):
+                check(a.dtype == dt and a.shape == like.shape,
+                      f"flash_attention_bwd ({tag}) {name}: {a.dtype} "
+                      f"{tuple(a.shape)}")
+                es.append(bwd_rel_err(a, b, floor))
+                check(es[-1] <= tol, f"flash_attention_bwd ({tag}) {name} "
+                      f"differs from its plain version: {es[-1]} > {tol}")
+            if width < D:
+                check(not got[2][..., width:].any(), f"flash_attention_bwd "
+                      f"({tag}): the padded v columns got a gradient")
+            if ops is None:
+                ops = device_ops(torch, bwd, 5)
+                check(sum(ops.values()) == 15 and len(ops) == 3,
+                      f"flash_attention_bwd: device operations of 5 calls "
+                      f"{ops}, expected the 3 kernels once a call")
+            errs["lse"] = max(errs["lse"], e_lse)
+            errs["grad"] = max(errs["grad"], *es)
+            peaks = "/".join(f"{float(b.abs().max()):.3g}" for b in plain)
+            log(f"  flash_attention_bwd [{tag}]: lse err {e_lse:.3g}, "
+                f"dq/dk/dv err {es[0]:.3g}/{es[1]:.3g}/{es[2]:.3g} of the "
+                f"plain max {peaks} (floor {floor:.3g}; tolerance {tol}), "
+                f"two calls bitwise equal")
+    log(f"  flash_attention_bwd: device operations of 5 calls "
+        f"{json.dumps(ops)}")
+    errs["device_ops_per_call"] = {k: n / 5 for k, n in ops.items()}
+    return errs
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the same windows on the card and on the CPU
 # ---------------------------------------------------------------------------
 
@@ -1367,6 +1534,51 @@ def tree_to(tree, device):
     if isinstance(tree, list):
         return [tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def train_parity(torch):
+    """One float32 training step of the smoke llama3.2-3b from one set of
+    weights and one batch, on the card and on the CPU, with AdamW, with
+    Adafactor and with AdamW over 2 microbatches: the loss, every parameter
+    and every optimizer-state leaf within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import build_model
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import flatten, tree_map
+    cfg = get_smoke_config(TRAIN_ARCH).replace(dtype="float32")
+    params0 = build_model(cfg).init(torch.Generator().manual_seed(SEED))
+    batch = SyntheticTokens(cfg, 4, 32, SEED).get_batch(0)
+    for label, tkw in (("AdamW", {}),
+                       ("Adafactor", dict(optimizer="adafactor")),
+                       ("AdamW, microbatch=2", dict(microbatch=2))):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            _model, opt, step = make_train_step(
+                cfg, TrainConfig(lr=1e-3, **tkw), dev)
+            params = tree_map(lambda t: t.detach().to(dev, copy=True),
+                              params0)
+            params, state, met = step(params, opt.init(params), batch)
+            res[dev] = (flatten({"params": params, "opt": state}),
+                        float(met["loss"]))
+        worst = 0.0
+        for (path, a), (_p, b) in zip(*(res[d][0] for d in ("cuda", "cpu"))):
+            check(a.device.type == "cuda" and a.shape == b.shape,
+                  f"train step ({label}) {path}: {a.device} "
+                  f"{tuple(a.shape)} vs {tuple(b.shape)}")
+            d = float((a.detach().cpu().float() - b.detach().float())
+                      .abs().max()) if a.numel() else 0.0
+            check(d <= 1e-4, f"train step ({label}) {path}: cuda and cpu "
+                             f"differ by {d}")
+            worst = max(worst, d)
+        check(abs(res["cuda"][1] - res["cpu"][1]) <= 1e-4 * abs(
+            res["cpu"][1]), f"train step ({label}): loss {res['cuda'][1]} "
+            f"vs {res['cpu'][1]}")
+        log(f"  smoke {TRAIN_ARCH} train step ({label}): loss "
+            f"{res['cuda'][1]:.6f} / {res['cpu'][1]:.6f}, "
+            f"{len(res['cuda'][0])} parameter and state leaves within "
+            f"{worst:.3g} cuda vs cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -2808,6 +3020,191 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the training path at full width and depth
+# ---------------------------------------------------------------------------
+
+class RepeatedBatch:
+    """A pipeline that hands the trainer ``pipe``'s step-0 batch at every
+    step, so the loss must fall as the model learns it."""
+
+    def __init__(self, pipe):
+        self.batch, self.seq = pipe.batch, pipe.seq
+        self._tokens = pipe.get_batch(0)
+
+    def get_batch(self, step):
+        return self._tokens
+
+
+def profiled_step(torch, train_step, params, state, batch):
+    """One training step under ``torch.profiler``: its wall time, the
+    device's busy share of it, and the flash kernels' forward and backward
+    shares of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        params, state, met = train_step(params, state, batch)
+        float(met["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device_us, by_name = 0.0, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            device_us += us
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
+    fwd = sum(us for n, us in by_name.items() if "::flash_fwd" in n)
+    bwd = sum(us for n, us in by_name.items()
+              if any(k in n for k in ("::dsum_kernel", "::dkdv_kernel",
+                                      "::dq_kernel")))
+    check(device_us > 0, "the profiled training step recorded no device "
+                         "time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return params, state, dict(
+        wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
+        device_busy_share=device_us / wall_us,
+        flash_fwd_ms=fwd / 1e3, flash_fwd_share=fwd / device_us,
+        flash_bwd_ms=bwd / 1e3, flash_bwd_share=bwd / device_us,
+        top_device_ms={k[:60]: v / 1e3 for k, v in top})
+
+
+def guard_refusals(torch, kernels):
+    """Each kernel wrapper without a ported backward refuses, on the card,
+    an input that requires grad while grad is enabled (its output would
+    carry no gradient), and launches nothing."""
+    def rn(*shape, grad=False):
+        return torch.randn(shape, device="cuda").requires_grad_(grad)
+
+    be = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+    lens = torch.ones(2, dtype=torch.int32, device="cuda")
+    calls = {
+        "gmm": lambda: kernels["gmm"](rn(16, 32), rn(2, 32, 32, grad=True),
+                                      be, 8),
+        "rglru_scan": lambda: kernels["rglru_scan"](rn(1, 8, 32, grad=True),
+                                                    -rn(1, 8, 32).abs()),
+        "wkv6": lambda: kernels["wkv6"](rn(1, 2, 8, 16, grad=True),
+                                        rn(1, 2, 8, 16), rn(1, 2, 8, 16),
+                                        rn(1, 2, 8, 16).sigmoid(),
+                                        rn(2, 16)),
+        "decode_attention": lambda: kernels["decode_attention"](
+            rn(2, 4, 64, grad=True), rn(2, 2, 16, 64), rn(2, 2, 16, 64),
+            lens)}
+    for name, call in calls.items():
+        before = kernels[name].launches
+        try:
+            call()
+        except RuntimeError as e:
+            check("no backward" in str(e) and name in str(e)
+                  and kernels[name].launches == before,
+                  f"{name}'s refusal of a grad-requiring input: {e}")
+            continue
+        raise SmokeFailure(f"{name} took a grad-requiring input on the card")
+    log(f"  {', '.join(calls)}: each refuses a grad-requiring CUDA input")
+
+
+def checkpoint_round_trip(torch):
+    """The smoke llama3.2-3b's bf16 parameters and AdamW state on the card
+    after one step: saved async and blocking, ``keep_last`` 1, restored
+    onto the card bitwise."""
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import flatten, leaves
+    cfg = get_smoke_config(TRAIN_ARCH)
+    model, opt, step = make_train_step(cfg, TrainConfig(), "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    params, state, _m = step(params, opt.init(params),
+                             SyntheticTokens(cfg, 2, 64, SEED).get_batch(0))
+    tree = {"params": params, "opt": state}
+    with tempfile.TemporaryDirectory() as d:
+        ck = CheckpointManager(d, keep_last=1)
+        ck.save(1, tree)
+        ck.save(2, tree, blocking=True)
+        check(ck.steps() == [2], f"checkpoint steps {ck.steps()}")
+        got = ck.restore(2, tree)
+    n = 0
+    for (path, a), b in zip(flatten(tree), leaves(got)):
+        bits = (lambda t: t.view(torch.int16)
+                if t.dtype == torch.bfloat16 else t)
+        check(b.device == a.device and b.dtype == a.dtype
+              and torch.equal(bits(a.detach()), bits(b)),
+              f"checkpoint leaf {path} did not round-trip")
+        n += 1
+    log(f"  checkpoint of the smoke {TRAIN_ARCH} state on the card: {n} "
+        f"leaves ({cfg.dtype} parameters, float32 moments) restored "
+        f"bitwise")
+
+
+def phase_train(torch, kernels):
+    """``repro_torch.launch.train.run`` on llama3.2-3b at full width and
+    depth: bf16, TRAIN_BATCH x TRAIN_SEQ tokens a step, ``remat="block"``,
+    AdamW, TRAIN_STEPS steps on one repeated SyntheticTokens batch.  Every
+    loss finite and the last below the first; per step exactly two flash
+    forward launches a layer (the forward and its recompute) and one
+    backward call; no other model kernel.  Then one more step under
+    ``torch.profiler``, the guard of the kernels without a backward, and a
+    checkpoint round trip.  Returns the metrics and the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.launch import train as launcher
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = TrainConfig(remat="block", optimizer="adamw")
+    pipe = RepeatedBatch(SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ, SEED))
+    counted = dict(kernels, flash_attention_bwd=flash_attention_bwd)
+    torch.cuda.reset_peak_memory_stats()
+    for k in counted.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    run = launcher.run(cfg, tcfg, pipe, steps=TRAIN_STEPS, device="cuda",
+                       log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counted.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
+                "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    for name, n in launches.items():
+        check(n == expected.get(name, 0), f"training path: {name} launched "
+              f"{n} times, expected {expected.get(name, 0)}")
+    losses = run["losses"]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"training losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    step_s, n_params, gnorms = run["step_s"], run["n_params"], \
+        run["grad_norms"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"  {TRAIN_ARCH}: {n_params:,} parameters, {TRAIN_STEPS} "
+        f"steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {wall:.1f} s; "
+        f"losses {losses}; launches {launches}; peak {peak:.2f} GiB")
+    params, state, prof = profiled_step(torch, run["train_step"],
+                                        run["params"], run["opt_state"],
+                                        pipe.get_batch(0))
+    log(f"  profiled step: {json.dumps(prof)}")
+    del run, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    guard_refusals(torch, kernels)
+    checkpoint_round_trip(torch)
+    metrics = dict(
+        arch=TRAIN_ARCH, n_layers=cfg.n_layers, dtype=cfg.dtype,
+        params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=TRAIN_STEPS, remat=tcfg.remat, optimizer=tcfg.optimizer,
+        losses=losses, grad_norms=gnorms,
+        first_step_ms=1e3 * step_s[0],
+        step_ms_p50=1e3 * float(np.percentile(step_s, 50)),
+        step_ms_p99=1e3 * float(np.percentile(step_s, 99)),
+        tokens_per_s=tokens / float(np.percentile(step_s, 50)),
+        peak_device_gib=peak, step_profile=prof, launches=launches)
+    return metrics, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: per-kernel numbers
 # ---------------------------------------------------------------------------
 
@@ -3102,6 +3499,64 @@ def attention_report(torch, kernels, errs, launches):
     return rows
 
 
+def flash_bwd_report(torch, errs, launches):
+    """The backward kernel's row at llama3.2-3b's training shape (B
+    TRAIN_BATCH, 24 query heads on 8 kv heads, S TRAIN_SEQ, D 128, bf16,
+    causal; q, k, v and dout (B, H, S, D) views of (B, S, H, D) memory, out
+    and lse from the forward kernel).  Bound: the five products of the
+    backward over the visible half, 10 * D FLOP a visible (query, key) pair
+    a head at the bf16 tensor-core peak, against each input read once and
+    each gradient written once.  The library yardstick is
+    ``torch.autograd.grad`` through one ``scaled_dot_product_attention``
+    output (causal, GQA); the port never calls it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    B, Hq, Hkv, S, D = TRAIN_BATCH, 24, 8, TRAIN_SEQ, 128
+
+    def bhsd(H):
+        return torch.randn((B, S, H, D), generator=g, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+
+    q, k, v, dout = bhsd(Hq), bhsd(Hkv), bhsd(Hkv), bhsd(Hq)
+    out, lse = fa._forward(q, k, v, True, None, D ** -0.5, 0, True)
+
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                             enable_gqa=True)
+
+    def library():
+        return torch.autograd.grad(lib_out, (qg, kg, vg), dout,
+                                   retain_graph=True)
+    pairs = B * Hq * S * (S + 1) // 2
+    m = dict(ms=cuda_ms(kernel, 5), device_ms=device_ms(kernel, 5),
+             plain_ms=cuda_ms(lambda: ref.flash_attention_bwd(
+                 q, k, v, out, lse, dout, causal=True), 1),
+             library_ms=cuda_ms(library, 5),
+             library_device_ms=device_ms(library, 5),
+             flops=10 * D * pairs,
+             nbytes=2 * (3 * q.numel() + 2 * out.numel() + 2 * k.numel()
+                         + 2 * v.numel()) + 4 * lse.numel())
+    row = dict(name="flash_attention_bwd", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+               replaces="src/repro/models/flash_xla.py:112")
+    row.update(timing_row(m, launches, errs["grad"], BF16_FLOPS))
+    row["launches_paths"] = {f"{TRAIN_ARCH} train": launches}
+    row["device_ops_per_call"] = errs["device_ops_per_call"]
+    row["lse_max_rel_err"] = errs["lse"]
+    log(f"  flash_attention_bwd train shape: {m['ms']:.4f} ms/call (device "
+        f"{m['device_ms']:.4f}), bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}; {m['flops'] / 1e9:.1f} GFLOP, "
+        f"{m['nbytes'] / 1e6:.1f} MB), plain {m['plain_ms']:.4f} ms, sdpa "
+        f"backward {m['library_ms']:.4f} ms (device "
+        f"{m['library_device_ms']:.4f}), launches {launches}")
+    return [row]
+
+
 def wkv6_ops(B, H, S, D):
     """(tensor-core, CUDA-core) operations of the chunked WKV6 form on these
     shapes, per chunk of 16 steps and head: the read-out (r ⊙ P)ᵀ S0 and
@@ -3351,8 +3806,9 @@ def main() -> int:
     t0 = time.perf_counter()
     try:
         log("phase 1: build")
-        _nvcc.build("remote_dma", "flash_attention", "decode_attention",
-                    "rglru_scan", "wkv6", "moe_gmm", "remote_copy")
+        _nvcc.build("remote_dma", "flash_attention", "flash_attention_bwd",
+                    "decode_attention", "rglru_scan", "wkv6", "moe_gmm",
+                    "remote_copy")
         for name, out in _nvcc.BUILD_LOGS.items():
             log(f"  nvcc {name}.cu:\n" + "\n".join(
                 "    " + ln for ln in out.strip().splitlines()))
@@ -3380,6 +3836,9 @@ def main() -> int:
         usage = ptxas_usage(_nvcc, "rglru_scan", "rglru_tile")
         log("  -Xptxas -v, RG-LRU kernels [registers, spill stores, spill "
             f"loads]: {usage}")
+        usage = ptxas_usage(_nvcc, "flash_attention_bwd", "_kernel")
+        log("  -Xptxas -v, flash backward kernels [registers, spill stores, "
+            f"spill loads]: {usage}")
         log("phase 2: kernels against their plain versions")
         cases, errs = phase_kernels(torch, rdma, slots)
         copy_cases_, copy_errs = phase_copy_kernel(torch, rdma)
@@ -3387,10 +3846,13 @@ def main() -> int:
                                                          model_kernels)
         _rec_cases, rec_errs = phase_recurrent_kernels(torch, model_kernels)
         gmm_err = phase_gmm_kernel(torch, model_kernels)
+        log("phase 2b: flash attention's backward against its plain version")
+        bwd_errs = phase_flash_bwd_kernel(torch)
         log("phase 3: the same work on cuda and cpu")
         phase_parity(torch, pt)
         phase_serving_parity(torch, pt)
         phase_replicated_parity(torch, pt)
+        train_parity(torch)
         log("phase 4: the KVStore path (4a: its lock-free twin; 4c: the "
             "migration scenario)")
         t4 = time.perf_counter()
@@ -3433,12 +3895,22 @@ def main() -> int:
                 f"{time.perf_counter() - t5:.1f} s")
             gc.collect()                 # the engine's weights go first
             torch.cuda.empty_cache()
+        log("phase 7: the training path")
+        t7 = time.perf_counter()
+        train_metrics, train_launches = phase_train(torch, model_kernels)
+        log(f"  training path took {time.perf_counter() - t7:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
         log("phase 6: report")
         kernels = phase_report(torch, rdma, cases, errs, launches,
                                {"channels": chan_launches,
                                 "spec_store": spec_launches})
-        kernels += attention_report(torch, model_kernels, attn_errs,
-                                    serve_launches)
+        kernels += attention_report(
+            torch, model_kernels, attn_errs,
+            serve_launches | {f"{TRAIN_ARCH} train": {
+                "flash_attention": train_launches["flash_attention"]}})
+        kernels += flash_bwd_report(torch, bwd_errs,
+                                    train_launches["flash_attention_bwd"])
         kernels += recurrent_report(torch, model_kernels, rec_errs,
                                     serve_launches)
         kernels += gmm_report(torch, model_kernels, gmm_err, serve_launches)
@@ -3451,7 +3923,8 @@ def main() -> int:
         return 1
     log(json.dumps(dict(kvstore=metrics, failover=fo_metrics,
                         channels=chan_metrics, spec_store=spec_metrics,
-                        serving=serve_metrics, card=card,
+                        serving=serve_metrics, training=train_metrics,
+                        card=card,
                         total_s=time.perf_counter() - t0)))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -5,13 +5,18 @@ The reference's module imports ``jax.numpy`` for :attr:`ArchConfig.dtype_`,
 so the port keeps its own copy; ``dtype_`` returns a ``torch.dtype``.  Only
 the fields of the families the port builds (dense, hybrid, ssm, and the MoE
 family with GQA or MLA attention) are carried over; the reference's
-cross-attention record comes with its families.
+cross-attention record comes with its families.  :class:`ShapeConfig`,
+:data:`LM_SHAPES` and :class:`TrainConfig` are the reference's, field for
+field; the port's trainer reads ``microbatch``, ``remat``, ``optimizer``,
+``adam_dtype``, ``xent_chunks``, ``lr``, ``weight_decay``, ``grad_clip`` and
+``seed``, and the sharding knobs (``zero_stage``, ``grad_compression``,
+``act_shard``, ``fence_scope``) wait for the port's distributed binding.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -89,3 +94,38 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One (arch × shape) benchmark cell."""
+    name: str                   # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                   # 'train' | 'prefill' | 'decode'
+
+
+LM_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Run-level knobs threaded through train/serve steps."""
+    microbatch: int = 0              # 0 → no gradient accumulation
+    remat: str = "block"             # none | block | full
+    optimizer: str = "adamw"         # adamw | adafactor
+    adam_dtype: str = "float32"      # moment dtype (bf16 for giant MoEs)
+    zero_stage: int = 2              # 0: replicated opt state; 2/3: sharded
+    grad_compression: str = "none"   # none | int8ef
+    xent_chunks: int = 1             # chunk the unembed+loss (memory knob)
+    act_shard: str = "none"          # none | replicated | seq (Megatron-SP)
+    fence_scope: str = "global"      # global | pair  (paper §5.3 knob)
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    seed: int = 0

@@ -110,14 +110,33 @@ class Library:
 
 def on_card(what: str, *tensors) -> bool:
     """True for tensors on one CUDA device (launch the kernel), False for
-    CPU tensors (the plain version); anything else, or a mix, is refused."""
+    CPU tensors (the plain version); anything else, or a mix, is refused.
+    On the card a kernel's output has no ``grad_fn``, so a call that
+    autograd would need to differentiate is refused too
+    (:func:`refuse_grad`); on the CPU the plain version is differentiable
+    and runs."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return False
     if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        refuse_grad(what, *tensors)
         return True
     raise ValueError(f"{what} takes tensors on one CUDA device or on the "
                      f"CPU, got {sorted(str(t.device) for t in tensors)}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise ``RuntimeError`` when grad is enabled and one of ``tensors``
+    requires grad: the kernel ``what`` has no backward ported, and its
+    output would silently carry no gradient.  An
+    ``autograd.Function.forward`` runs with grad disabled, so a kernel
+    wrapped in one with its backward passes."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: no backward of this kernel is ported yet, so on the "
+            f"card it refuses inputs that require grad while grad is "
+            f"enabled (run it under torch.no_grad(), or train on the CPU)")
 
 
 def stream(t) -> int:

@@ -19,6 +19,13 @@
 // need no transposing copy.  Each C entry point launches on the caller's
 // stream, allocates nothing and returns cudaGetLastError().
 //
+// Training: given a non-null `lse` (B, Hq, Sq) float32, both kernels also
+// write each row's log-sum-exp, the natural log over the scaled scores
+// after the mask, lse = m + log(l) (-1e30 for a row with no visible key),
+// as repro/models/flash_xla.py::_fwd_scan returns it; the backward
+// (flash_attention_bwd.cu) recomputes the probabilities from it.  Serving
+// passes null and nothing is written.
+//
 // Bound: at the serving paths' prefill shapes the work is operations
 // (~4*B*Hq*D FLOP per visible (query, key) pair), far above the card's ridge
 // point.  Two kernels, chosen by the wrapper from dtype, D and alignment:
@@ -93,6 +100,7 @@ struct Args {
   long long v_sb, v_sh, v_ss;
   float scale;
   int causal, window, kv_limit, offset;
+  float* lse;  // (B, Hq, Sq) or null
 };
 
 template <typename T, int kDMax>
@@ -236,6 +244,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
     const int i = q0 + ty * 4 + r;
     if (i >= a.Sq) continue;
     const float l_safe = l[r] == 0.f ? 1.f : l[r];
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(static_cast<long long>(b) * a.Hq + h) * a.Sq + i] =
+          m[r] + logf(l_safe);
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = 64 * (c / 4) + tx * 4 + (c & 3);
@@ -546,6 +557,13 @@ __global__ void __launch_bounds__(kMmaThreads)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+    // m is the max in log2 units of the scaled scores and l sums exp2(s -
+    // m), so the natural-log lse is m ln 2 + log l
+    const int i = row_lo + r * 8;
+    if (a.lse != nullptr && t4 == 0 && i < a.Sq)
+      a.lse[(static_cast<long long>(b) * a.Hq + h) * a.Sq + i] =
+          m[r] == neg_inf ? kNegInf
+                          : m[r] * 0.6931471805599453f + logf(l[r]);
   }
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) +
                      (static_cast<long long>(b) * a.Hq + h) *
@@ -592,20 +610,22 @@ const char* flash_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike); lse: null, or
+// (B, Hq, Sq) float32 to receive each row's log-sum-exp.
 int flash_attention_fwd(int dtype, const void* q, const void* k,
                         const void* v, void* out, int B, int Hq, int Hkv,
                         int Sq, int Sk, int D, long long q_sb, long long q_sh,
                         long long q_ss, long long k_sb, long long k_sh,
                         long long k_ss, long long v_sb, long long v_sh,
                         long long v_ss, float scale, int causal, int window,
-                        int kv_limit, int offset, void* stream) {
+                        int kv_limit, int offset, float* lse, void* stream) {
   if (D < 1 || D > 256 || Hkv < 1 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  const Args a{q,    k,    v,    out,  B,     Hq,     Hkv,    Sq,
-               Sk,   D,    q_sb, q_sh, q_ss,  k_sb,   k_sh,   k_ss,
-               v_sb, v_sh, v_ss, scale, causal, window, kv_limit, offset};
+  const Args a{q,    k,    v,    out,   B,      Hq,     Hkv,      Sq,
+               Sk,   D,    q_sb, q_sh,  q_ss,   k_sb,   k_sh,     k_ss,
+               v_sb, v_sh, v_ss, scale, causal, window, kv_limit, offset,
+               lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(dispatch<float>(a, s));
   if (dtype == 1) return static_cast<int>(dispatch<__nv_bfloat16>(a, s));
@@ -620,14 +640,15 @@ int flash_attention_fwd_mma(const void* q, const void* k, const void* v,
                             long long q_ss, long long k_sb, long long k_sh,
                             long long k_ss, long long v_sb, long long v_sh,
                             long long v_ss, float scale, int causal,
-                            int window, int kv_limit, int offset,
+                            int window, int kv_limit, int offset, float* lse,
                             void* stream) {
   if (D < 8 || D > 256 || D % 8 != 0 || Hkv < 1 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  const Args a{q,    k,    v,    out,  B,     Hq,     Hkv,    Sq,
-               Sk,   D,    q_sb, q_sh, q_ss,  k_sb,   k_sh,   k_ss,
-               v_sb, v_sh, v_ss, scale, causal, window, kv_limit, offset};
+  const Args a{q,    k,    v,    out,   B,      Hq,     Hkv,      Sq,
+               Sk,   D,    q_sb, q_sh,  q_ss,   k_sb,   k_sh,     k_ss,
+               v_sb, v_sh, v_ss, scale, causal, window, kv_limit, offset,
+               lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 64) return static_cast<int>(launch_mma<64>(a, s));
   if (D <= 128) return static_cast<int>(launch_mma<128>(a, s));

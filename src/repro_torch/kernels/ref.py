@@ -1,9 +1,12 @@
 """Plain PyTorch versions of the model kernels, the counterparts of
 ``repro/kernels/ref.py``'s ``repeat_kv``, ``mha``, ``decode_attention``,
 ``rglru``, ``wkv6`` and ``gmm``, the split algorithm of the decode kernel
-(:func:`decode_attention_split`) and the chunked algebras of the RG-LRU
+(:func:`decode_attention_split`), the chunked algebras of the RG-LRU
 kernel (:func:`rglru_chunked`) and of the bf16 WKV6 kernel
-(:func:`wkv6_chunked`).
+(:func:`wkv6_chunked`), and the training pair of the flash kernels:
+:func:`mha_lse` (the forward with each row's log-sum-exp) and
+:func:`flash_attention_bwd` (the FlashAttention-2 backward of
+``repro/models/flash_xla.py::_flash_bwd``).
 
 They follow the semantics of the reference's **Pallas kernels**
 (``repro/kernels/flash_attention.py``, ``decode_attention.py``), because that
@@ -37,15 +40,34 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return k[:, :, None].expand(b, h, n_rep, s, d).reshape(b, h * n_rep, s, d)
 
 
-def _masked_softmax_pv(logits, mask, v):
+def _masked_softmax_pv(logits, mask, v, with_lse=False):
     """Softmax over the last dimension restricted to ``mask``, then the PV
-    product, all in float32; a row with no visible key gives zeros."""
+    product, all in float32; a row with no visible key gives zeros.  With
+    ``with_lse`` also each row's natural-log log-sum-exp of the masked
+    logits, ``m + log(l)``, which is ``NEG_INF`` for a row with no visible
+    key (``flash_xla._fwd_scan``'s ``l == 0 → l_safe = 1``)."""
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     m = logits.amax(-1, keepdim=True)
     p = torch.where(mask, torch.exp(logits - m), torch.zeros_like(logits))
     l = p.sum(-1, keepdim=True)
     out = torch.matmul(p, v)
-    return out / torch.where(l == 0, torch.ones_like(l), l)
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    if with_lse:
+        return out / l_safe, (m + torch.log(l_safe))[..., 0]
+    return out / l_safe
+
+
+def _attention_mask(sq, sk, causal, window, offset, device):
+    """(Sq, Sk) bool: query i sees key j iff ``j <= i + offset`` (causal)
+    and ``j > i + offset - window`` (window)."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos + offset
+    if window is not None:
+        mask &= kpos > qpos + offset - window
+    return mask
 
 
 def mha(q, k, v, *, causal=True, window=None, sm_scale=None, offset=None):
@@ -53,6 +75,20 @@ def mha(q, k, v, *, causal=True, window=None, sm_scale=None, offset=None):
     Hq % Hkv == 0.  Query i sees key j iff ``j <= i + offset`` (causal) and
     ``j > i + offset - window`` (window); ``offset`` defaults to ``Sk - Sq``
     (decode-style alignment).  Returns (B, Hq, Sq, D) in q's dtype."""
+    out, _lse = _mha(q, k, v, causal, window, sm_scale, offset, False)
+    return out
+
+
+def mha_lse(q, k, v, *, causal=True, window=None, sm_scale=None,
+            offset=None):
+    """:func:`mha` and each row's log-sum-exp: (out (B, Hq, Sq, D) in q's
+    dtype, lse (B, Hq, Sq) float32), the natural log over ``scale·q·kᵀ``
+    after the mask, as ``flash_xla._fwd_scan`` returns it (``NEG_INF`` for
+    a row with no visible key)."""
+    return _mha(q, k, v, causal, window, sm_scale, offset, True)
+
+
+def _mha(q, k, v, causal, window, sm_scale, offset, with_lse):
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
@@ -60,14 +96,44 @@ def mha(q, k, v, *, causal=True, window=None, sm_scale=None, offset=None):
     kf = repeat_kv(k.float(), hq // hkv)
     vf = repeat_kv(v.float(), hq // hkv)
     logits = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
-    qpos = torch.arange(sq, device=q.device)[:, None]
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos + offset
-    if window is not None:
-        mask &= kpos > qpos + offset - window
-    return _masked_softmax_pv(logits, mask, vf).to(q.dtype)
+    mask = _attention_mask(sq, sk, causal, window, offset, q.device)
+    if with_lse:
+        out, lse = _masked_softmax_pv(logits, mask, vf, True)
+        return out.to(q.dtype), lse
+    return _masked_softmax_pv(logits, mask, vf).to(q.dtype), None
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
+                        window=None, sm_scale=None, offset=None):
+    """The FlashAttention-2 backward of :func:`mha_lse`, written out in
+    float32 as ``flash_xla._flash_bwd`` computes it: ``Dsum = rowsum(dO∘O)``,
+    ``P = exp(S − lse)`` on the visible keys (0 elsewhere) with ``S =
+    scale·q·kᵀ``, ``dV = Pᵀ·dO``, ``dP = dO·Vᵀ``, ``dS = P∘(dP − Dsum)``,
+    ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``, the G = Hq/Hkv query heads of
+    a kv head summed into its dK and dV.  q, out, dout (B, Hq, Sq, D); k, v
+    (B, Hkv, Sk, D); lse (B, Hq, Sq) float32.  ``offset`` defaults to ``Sk −
+    Sq``.  Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
+    offset = sk - sq if offset is None else int(offset)
+    qf = q.float() * scale
+    kf = repeat_kv(k.float(), g)
+    vf = repeat_kv(v.float(), g)
+    do = dout.float()
+    dsum = (do * out.float()).sum(-1, keepdim=True)
+    mask = _attention_mask(sq, sk, causal, window, offset, q.device)
+    s = torch.matmul(qf, kf.transpose(-1, -2))
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]),
+                    torch.zeros_like(s))
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    ds = p * (torch.matmul(do, vf.transpose(-1, -2)) - dsum)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dk = dk.reshape(b, hkv, g, sk, d).sum(2)
+    dv = dv.reshape(b, hkv, g, sk, v.shape[-1]).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale=None):

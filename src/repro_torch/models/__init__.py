@@ -1,5 +1,5 @@
-"""The port's models: the dense LM family the serving slice runs
-(:func:`build_model`), the counterpart of ``repro/models``."""
-from .model import Model, build_model
+"""The port's models (:func:`build_model`), the counterpart of
+``repro/models``."""
+from .model import Model, build_model, param_stacks
 
-__all__ = ["Model", "build_model"]
+__all__ = ["Model", "build_model", "param_stacks"]

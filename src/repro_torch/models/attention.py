@@ -16,6 +16,13 @@ output sliced back; zero columns of V give zero columns of the output, so
 the result is exact.  MLA decode runs the matrix-absorbed form against the
 compressed cache (``ckv ‖ krope``, 512 + 64 = 576 wide): every query head
 attends the one latent "kv head", a query-head group of ``n_heads`` (128).
+
+Training: where grad is enabled and q, k or v requires grad, the prefill
+attention goes through
+:class:`~repro_torch.kernels.flash_attention.FlashAttention` (the same
+forward kernels, and the hand-written backward); otherwise, as in serving,
+through ``flash_attention``.  MLA's zero-padded v columns get zero
+gradient, which the pad's backward drops.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.decode_attention import decode_attention
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import FlashAttention, flash_attention
 from .layers import apply_rope, dense_init, init_rmsnorm, rmsnorm
 
 
@@ -40,6 +47,16 @@ def init_attention(gen, cfg: ArchConfig):
         p["q_norm"] = init_rmsnorm(hd, gen.device)
         p["k_norm"] = init_rmsnorm(hd, gen.device)
     return p
+
+
+def _flash(q, k, v, *, causal=True, window=None, sm_scale=None):
+    """Full-sequence attention: :class:`FlashAttention` when autograd needs
+    its gradient, else the serving call."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, sm_scale)
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           sm_scale=sm_scale)
 
 
 class KVCache(NamedTuple):
@@ -72,7 +89,7 @@ def attention(params, cfg: ArchConfig, x, *, positions=None, window=None):
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-    out = flash_attention(qh, kh, vh, causal=True, window=window)
+    out = _flash(qh, kh, vh, causal=True, window=window)
     out = out.transpose(1, 2).reshape(B, S, -1)
     return out @ params["wo"], KVCache(kh, vh)
 
@@ -180,9 +197,8 @@ def mla_attention(params, cfg: ArchConfig, x, *, positions=None):
         else torch.arange(S, device=x.device)[None, :]
     q, k, v, ckv, krope = _mla_qkv(params, cfg, x, pos)
     v = F.pad(v, (0, q.shape[-1] - m.v_head_dim))
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=True,
-                          sm_scale=_mla_scale(m))[..., :m.v_head_dim]
+    out = _flash(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 causal=True, sm_scale=_mla_scale(m))[..., :m.v_head_dim]
     out = out.transpose(1, 2).reshape(B, S, -1)
     return out @ params["wo"], MLACache(ckv, krope)
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def dense_init(gen: torch.Generator, d_in, d_out, dtype, scale=None):
@@ -105,3 +106,19 @@ def unembed(params, x, tie):
     if tie:
         return x @ params["table"].T
     return x @ params["head"]
+
+
+# -------------------------------------------------------------------- remat
+REMAT = ("none", "block", "full")
+
+
+def remat_call(remat: str, fn, *args):
+    """``fn(*args)``; under ``remat`` ``"block"`` or ``"full"`` its
+    activations are recomputed in the backward pass from ``args``
+    (``torch.utils.checkpoint``, non-reentrant), as the reference's
+    ``jax.checkpoint`` of a block; ``"none"`` keeps them."""
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+    if remat == "none":
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)

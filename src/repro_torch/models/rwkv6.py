@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.wkv6 import wkv6
-from .layers import dense_init, init_layernorm, layernorm
+from .layers import dense_init, init_layernorm, layernorm, remat_call
 
 _DECAY_LORA = 64
 
@@ -189,3 +189,16 @@ def apply_rwkv_stack(layers, cfg: ArchConfig, x, states=None):
                                  None if states is None else states[i])
         new.append(st)
     return x, new
+
+
+def _train_block(p, cfg: ArchConfig, x):
+    return apply_rwkv_block(p, cfg, x)[0]
+
+
+def apply_rwkv_train(layers, cfg: ArchConfig, x, remat: str = "block"):
+    """x (B, S, d), already through ``ln0`` → the final hidden states, each
+    block recomputed in the backward pass under ``remat`` ``"block"`` or
+    ``"full"`` (the reference's ``apply_rwkv_train``)."""
+    for p in layers:
+        x = remat_call(remat, _train_block, p, cfg, x)
+    return x

@@ -21,6 +21,14 @@ compressed latents; no window), ``local`` (attention over the last
 window)`` slots) and ``rec`` (the RG-LRU block with a :class:`RecState`
 cache).  Each is followed by its FFN: the MoE block for ``*_moe`` kinds,
 else the gated MLP (``d_ff_dense`` wide in an MoE config).
+
+Training runs :func:`apply_stack_train`: every block returns its MoE
+load-balance loss beside its output, as the reference's
+``apply_block_train`` does, and ``remat`` checkpoints each block
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).  Serving's
+:func:`apply_block_train` and :func:`fill_stack_cache` return the decode
+cache in the loss's place.  :func:`layer_stacks` says which layers the
+reference stores as one stacked leaf, which its Adafactor sees.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ from ..configs.base import ArchConfig
 from . import attention as A
 from . import moe as M
 from . import rglru as R
-from .layers import init_mlp, init_rmsnorm, mlp, rmsnorm
+from .layers import init_mlp, init_rmsnorm, mlp, remat_call, rmsnorm
 
 
 def layer_kinds(cfg: ArchConfig) -> List[str]:
@@ -57,6 +65,26 @@ def layer_kinds(cfg: ArchConfig) -> List[str]:
         return [f"{mixer}_dense"] * mo.first_k_dense \
             + [f"{mixer}_moe"] * (cfg.n_layers - mo.first_k_dense)
     return ["attn"] * cfg.n_layers
+
+
+def layer_stacks(cfg: ArchConfig) -> List[List[int]]:
+    """The layers the reference stacks into one ``(n, …)`` leaf per
+    parameter (its layer plan's superblock positions, ``n`` ≥ 1), as lists
+    of indices into :func:`layer_kinds`; prefix and suffix layers, which
+    the reference keeps unstacked, are in none."""
+    L = cfg.n_layers
+    if cfg.family == "hybrid":
+        period = cfg.hybrid.pattern_period
+        n = L // period
+    elif cfg.moe is not None and cfg.moe.moe_every_k > 1:
+        period, n = cfg.moe.moe_every_k, L // cfg.moe.moe_every_k
+    elif cfg.moe is not None:
+        first = cfg.moe.first_k_dense
+        return [list(range(first, L))] if L > first else []
+    else:
+        period, n = 1, L
+    return [[pos + period * i for i in range(n)]
+            for pos in range(period)] if n > 0 else []
 
 
 def _is_mla(kind: str) -> bool:
@@ -97,19 +125,15 @@ def init_block(gen, cfg: ArchConfig, kind: str):
 
 
 def _apply_ffn(params, cfg: ArchConfig, kind: str, h):
-    """The block's FFN on h (B, S, d).  The MoE block's load-balance loss is
-    a training term; serving drops it, as the reference's decode does."""
+    """The block's FFN on h (B, S, d) → (out, the MoE block's load-balance
+    loss, or None for a dense FFN)."""
     if _is_moe(kind):
-        out, _aux = M.moe_block_local(params["ffn"], h, cfg)
-        return out
-    return mlp(params["ffn"], h, cfg.act)
+        return M.moe_block_local(params["ffn"], h, cfg)
+    return mlp(params["ffn"], h, cfg.act), None
 
 
-def apply_block_train(params, cfg: ArchConfig, kind: str, x, positions=None):
-    """x (B, S, d) → (x', cache).  Where the reference returns an auxiliary
-    loss (zero for these blocks), the port returns what prefill stores as
-    the decode cache: the attention's rotated k/v, MLA's compressed
-    latents, or the recurrent block's final :class:`RecState`."""
+def _block(params, cfg: ArchConfig, kind: str, x, positions):
+    """x (B, S, d) → (x', the mixer's cache, the FFN's aux loss or None)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "rec":
         out, cache = R.rglru_block(params["temporal"], h)
@@ -121,7 +145,40 @@ def apply_block_train(params, cfg: ArchConfig, kind: str, x, positions=None):
                                  window=_window(cfg, kind))
     x = x + out
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + _apply_ffn(params, cfg, kind, h), cache
+    f_out, aux = _apply_ffn(params, cfg, kind, h)
+    return x + f_out, cache, aux
+
+
+def apply_block_train(params, cfg: ArchConfig, kind: str, x, positions=None):
+    """x (B, S, d) → (x', cache).  Where the reference returns an auxiliary
+    loss, the port's serving block returns what prefill stores as the
+    decode cache: the attention's rotated k/v, MLA's compressed latents, or
+    the recurrent block's final :class:`RecState` (:func:`train_block`
+    returns the loss)."""
+    x, cache, _aux = _block(params, cfg, kind, x, positions)
+    return x, cache
+
+
+def train_block(params, cfg: ArchConfig, kind: str, x, positions=None):
+    """x (B, S, d) → (x', aux), the reference's ``apply_block_train``: aux
+    is the MoE block's load-balance loss, a float32 zero for the others."""
+    x, _cache, aux = _block(params, cfg, kind, x, positions)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
+
+
+def apply_stack_train(params, cfg: ArchConfig, x, remat: str = "block"):
+    """The stack for training: x (B, S, d) → (x', sum of the blocks' aux
+    losses).  ``remat`` ``"block"`` or ``"full"`` recomputes each block in
+    the backward pass from its input (``torch.utils.checkpoint``,
+    non-reentrant), as the reference's ``jax.checkpoint`` of each block;
+    ``"none"`` keeps every activation."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, p in zip(layer_kinds(cfg), params):
+        x, aux = remat_call(remat, train_block, p, cfg, kind, x)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def apply_block_decode(params, cfg: ArchConfig, kind: str, x, cache, pos):
@@ -137,7 +194,7 @@ def apply_block_decode(params, cfg: ArchConfig, kind: str, x, cache, pos):
                                         window=_window(cfg, kind))
     x = x + out
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + _apply_ffn(params, cfg, kind, h), cache
+    return x + _apply_ffn(params, cfg, kind, h)[0], cache
 
 
 def init_stack(gen, cfg: ArchConfig) -> List[dict]:

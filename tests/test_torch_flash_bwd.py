@@ -1,0 +1,147 @@
+"""The port's training attention against the JAX package's, on the CPU:
+``ref.mha_lse`` (the forward with each row's log-sum-exp) and
+``ref.flash_attention_bwd`` (the FlashAttention-2 backward, the plain
+version of ``csrc/flash_attention_bwd.cu``), and ``FlashAttention``
+through ``torch.autograd.grad``, against ``flash_attention_xla`` (its
+forward residuals and ``jax.vjp``) on the cases of
+``tests/test_flash_xla.py`` — GQA 8/2, Sq 64 ≠ Sk 192 (the ``Sk − Sq``
+offset), a window of 32, bidirectional — plus S and D off the 16-tile.
+
+Inputs are made with numpy from a seed; the loss is ``sum(sin(o))`` and
+the tolerance ``atol=rtol=2e-4``, as the reference's own test: both sides
+sum float32 products in other orders (the reference over key blocks of
+48, with padding).  Also here: the routing of the model's attention to
+``FlashAttention`` when autograd needs it, and the decision of the kernel
+wrappers' guard (``_nvcc.refuse_grad``), which the card reaches through
+``on_card``.  The CUDA kernels run only on the card; chip_smoke.py holds
+them against these plain versions there."""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.models import flash_xla  # noqa: E402
+from repro_torch.kernels import _nvcc  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    FlashAttention, flash_attention_bwd)
+from repro_torch.models import attention as A  # noqa: E402
+
+jax.config.update("jax_default_matmul_precision", "highest")
+
+TOL = dict(atol=2e-4, rtol=2e-4)
+CASES = [(1, 4, 4, 64, 64, 32, True, None),
+         (2, 8, 2, 128, 128, 32, True, None),      # GQA 8/2
+         (1, 2, 2, 64, 192, 32, True, None),       # offset Sk - Sq
+         (1, 2, 2, 128, 128, 32, True, 32),        # sliding window
+         (1, 2, 2, 96, 96, 32, False, None),       # bidirectional
+         (1, 6, 2, 50, 50, 24, True, None)]        # S and D off the tile
+IDS = ["mha", "gqa", "offset", "window", "bidirectional", "ragged"]
+
+
+def _inputs(B, Hq, Hkv, Sq, Sk, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Hq, Sq, D)).astype(np.float32),
+            rng.standard_normal((B, Hkv, Sk, D)).astype(np.float32),
+            rng.standard_normal((B, Hkv, Sk, D)).astype(np.float32))
+
+
+def _reference(q, k, v, causal, window):
+    """flash_attention_xla's output, lse (B, Hq, Sq) and gradients of
+    sum(sin(o))."""
+    jq, jk, jv = (jnp.asarray(t) for t in (q, k, v))
+
+    def f(q, k, v):
+        return flash_xla.flash_attention_xla(q, k, v, causal, window, None,
+                                             None, 48)
+
+    out, vjp = jax.vjp(f, jq, jk, jv)
+    grads = vjp(jnp.cos(out))
+    _o, (_q, _k, _v, _of, lse) = flash_xla._flash_fwd(
+        jq, jk, jv, causal, window, None, None, 48)
+    return (np.asarray(out), np.asarray(lse).reshape(q.shape[:3]),
+            [np.asarray(g) for g in grads])
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window", CASES, ids=IDS)
+def test_plain_forward_lse_and_backward_match_flash_xla(B, Hq, Hkv, Sq, Sk,
+                                                        D, causal, window):
+    q, k, v = _inputs(B, Hq, Hkv, Sq, Sk, D)
+    jout, jlse, jgrads = _reference(q, k, v, causal, window)
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    out, lse = ref.mha_lse(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(out.numpy(), jout, **TOL)
+    np.testing.assert_allclose(lse.numpy(), jlse, **TOL)
+    dout = torch.cos(out)
+    got = ref.flash_attention_bwd(tq, tk, tv, out, lse, dout, causal=causal,
+                                  window=window)
+    for g, jg, name in zip(got, jgrads, "qkv"):
+        np.testing.assert_allclose(g.numpy(), jg, **TOL,
+                                   err_msg=f"grad d{name}")
+    # the wrapper on CPU tensors is the plain version
+    for a, b in zip(flash_attention_bwd(tq, tk, tv, out, lse, dout,
+                                        causal=causal, window=window), got):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window", CASES, ids=IDS)
+def test_flash_attention_function_matches_jax_vjp(B, Hq, Hkv, Sq, Sk, D,
+                                                  causal, window):
+    q, k, v = _inputs(B, Hq, Hkv, Sq, Sk, D, seed=1)
+    jout, _jlse, jgrads = _reference(q, k, v, causal, window)
+    ts = [torch.from_numpy(t).requires_grad_(True) for t in (q, k, v)]
+    out = FlashAttention.apply(*ts, causal, window, None)
+    assert "FlashAttention" in out.grad_fn.name()
+    np.testing.assert_allclose(out.detach().numpy(), jout, **TOL)
+    grads = torch.autograd.grad(torch.sin(out).sum(), ts)
+    for g, jg, name in zip(grads, jgrads, "qkv"):
+        np.testing.assert_allclose(g.numpy(), jg, **TOL,
+                                   err_msg=f"grad d{name}")
+
+
+def test_model_attention_takes_flash_attention_only_for_grad():
+    """The blocks' attention goes through FlashAttention when autograd
+    needs its gradient (its backward is the hand-written kernel on the
+    card), and through the serving call otherwise."""
+    q, k, v = (torch.from_numpy(t) for t in _inputs(1, 4, 2, 24, 24, 16))
+    assert A._flash(q, k, v, causal=True).grad_fn is None
+    qg = q.clone().requires_grad_(True)
+    out = A._flash(qg, k, v, causal=True, window=8)
+    assert "FlashAttention" in out.grad_fn.name()
+    with torch.no_grad():
+        assert A._flash(qg, k, v, causal=True).grad_fn is None
+    torch.testing.assert_close(
+        out, ref.mha(q, k, v, causal=True, window=8), rtol=0, atol=0)
+
+
+def test_the_guard_refuses_only_what_autograd_would_differentiate():
+    """``refuse_grad`` is what ``on_card`` asks before a kernel without a
+    ported backward launches: it raises, naming the kernel, only when grad
+    is enabled and an input requires grad."""
+    x = torch.ones(3)
+    w = torch.ones(3, requires_grad=True)
+    _nvcc.refuse_grad("gmm", x, x)
+    with pytest.raises(RuntimeError, match="gmm: no backward"):
+        _nvcc.refuse_grad("gmm", x, w)
+    with torch.no_grad():
+        _nvcc.refuse_grad("gmm", x, w)
+    # an autograd.Function's forward runs with grad disabled
+    seen = []
+
+    class Probe(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t):
+            _nvcc.refuse_grad("probe", t)
+            seen.append(torch.is_grad_enabled())
+            return t * 2
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * 2
+
+    Probe.apply(w)
+    assert seen == [False]
+    # on the CPU the plain versions run and stay differentiable
+    assert _nvcc.on_card("gmm", x, w) is False
