@@ -6,11 +6,11 @@ Run from the repository root on a machine with a CUDA card, the CUDA
 toolkit and, beside this checkout, an unpacked copy of the commit to
 compare with (``git archive <commit> | tar -x -C <dir>``):
 
-    python3 chip_compare.py [--groups moe,copy,dma,rwkv,rglru] <parent dir> <change dir>
+    python3 chip_compare.py [--groups moe,copy,dma,rwkv,rglru,bwd] <parent dir> <change dir>
 
 Each turn is one process that imports ``chip_smoke`` and ``repro_torch``
 from its tree and builds that tree's kernels, then, with that tree's code,
-runs the groups asked for (all five by default):
+runs the groups asked for (all six by default):
 
 * ``moe``: serves llama4-maverick-400b-a17b at full width and 4 layers
   (512-token prompts) as ``chip_smoke.py``'s phase 5 does, with its checks
@@ -38,11 +38,20 @@ runs the groups asked for (all five by default):
   shape (4 prompts of 2304 tokens, 2560 channels, log_a in the model's
   range) and serves recurrentgemma-2b at full width and depth (2304-token
   prompts) as ``chip_smoke.py``'s phase 5 does, with its checks and launch
-  counts.
+  counts;
+* ``bwd``: times ``flash_attention_bwd`` at llama3.2-3b's training shape
+  (B 2, 24 query heads on 8 kv heads, S 4096, D 128, bf16, causal; q, k,
+  v and dout (B, H, S, D) views of (B, S, H, D) memory, out and lse from
+  the forward kernel) and trains llama3.2-3b at full width and depth for
+  3 steps of 2 x 4096 tokens (``remat="block"``, AdamW) as
+  ``chip_smoke.py``'s phase 7 does, on one repeated batch: step ms and
+  tokens/s over the steps after the first, the first step's ms, losses
+  finite.
 
 Times are the wrapper's (CUDA events around a loop of calls), the device
 time per call and the device operations (kernels, copies, fills) per call
-(both from ``torch.profiler``).  It prints one ``TURN {json}``
+(both from ``torch.profiler``); training steps are timed on the host clock
+to the loss's read.  It prints one ``TURN {json}``
 line per turn, a table of every number per turn, and last one JSON object
 of all turns.  Imports neither JAX nor the JAX package.  Host-bound numbers
 move up to 2x between calls, so only turns of one run compare.
@@ -60,12 +69,16 @@ SERVE_KEYS = ("prefill_ms_p50", "decode_step_p50_ms", "decode_step_p99_ms",
 # (label, B, S): the MoE block's input, B sequences of S tokens
 MOE = [("moe_block 4 tokens", 4, 1), ("moe_block 2048 tokens", 4, 512)]
 TIMED = ("ms", "device_ms", "device_ops")
+TRAIN_KEYS = ("step_ms_p50", "tokens_per_s", "first_step_ms")
+LEAD_MARKS = 128           # marker kernels before a profiled session's calls
+TRAIN_STEPS = 3
 # the CUDA sources each group's turn builds
 SOURCES = {"moe": ("flash_attention", "decode_attention", "rglru_scan",
                    "wkv6", "moe_gmm", "remote_copy", "remote_dma"),
            "copy": ("remote_copy",), "dma": ("remote_dma",),
            "rwkv": ("wkv6",),
-           "rglru": ("flash_attention", "decode_attention", "rglru_scan")}
+           "rglru": ("flash_attention", "decode_attention", "rglru_scan"),
+           "bwd": ("flash_attention", "flash_attention_bwd")}
 GROUPS = tuple(SOURCES)
 # the architectures a group serves, each timed by SERVE_KEYS
 SERVED = ("llama4-maverick-400b-a17b", "rwkv6-7b", "recurrentgemma-2b")
@@ -171,7 +184,51 @@ def turn(root: str, tag: str, groups) -> dict:
             launches["rglru_scan"]
         gc.collect()
         torch.cuda.empty_cache()
+
+    if "bwd" in groups:
+        flash_bwd_and_training(torch, cs, timed, res)
     return res
+
+
+def flash_bwd_and_training(torch, cs, timed, res):
+    """Flash attention's backward at the training shape, then a few
+    training steps of llama3.2-3b as phase 7 runs them.  Inputs and
+    weights are made here from a seed, alike in both trees."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as launcher
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 13)
+    B, Hq, Hkv, S, D = cs.TRAIN_BATCH, 24, 8, cs.TRAIN_SEQ, 128
+
+    def bhsd(H):
+        return torch.randn((B, S, H, D), generator=g, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+
+    q, k, v, dout = bhsd(Hq), bhsd(Hkv), bhsd(Hkv), bhsd(Hq)
+    out, lse = fa._forward(q, k, v, True, None, D ** -0.5, 0, True)
+    timed(f"flash_attention_bwd bf16, B={B} H=24/8 S={S} D={D} causal",
+          lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=True), 10)
+    del q, k, v, dout, out, lse
+    cfg = get_config(cs.TRAIN_ARCH)
+    pipe = cs.RepeatedBatch(SyntheticTokens(cfg, cs.TRAIN_BATCH,
+                                            cs.TRAIN_SEQ, cs.SEED))
+    run = launcher.run(cfg, TrainConfig(remat="block", optimizer="adamw"),
+                       pipe, steps=TRAIN_STEPS, device="cuda",
+                       log_every=TRAIN_STEPS)
+    if not all(np.isfinite(run["losses"])):
+        raise RuntimeError(f"training losses {run['losses']}")
+    step_s = float(np.percentile(run["step_s"][1:], 50))
+    res[f"{cs.TRAIN_ARCH} train"] = dict(
+        step_ms_p50=1e3 * step_s,
+        tokens_per_s=cs.TRAIN_BATCH * cs.TRAIN_SEQ / step_s,
+        first_step_ms=1e3 * run["step_s"][0], losses=run["losses"])
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def dma_verbs(torch, cs, rdma, timed):
@@ -235,21 +292,26 @@ def dma_verbs(torch, cs, rdma, timed):
 def device_time(torch, fn, iters):
     """(device ms, device operations) of one call under
     ``torch.profiler``: each kernel, copy or fill's mean duration times the
-    number of times a call runs it (the same measure as
-    ``chip_smoke.device_ms``, kept here so that both trees are timed
-    alike), and the device operations recorded, over the calls."""
+    number of times a call runs it, and the device operations recorded,
+    over the calls.  Kept here so that both trees are timed alike; like
+    ``chip_smoke.profiled_calls`` it leads the calls with marker kernels,
+    not counted, which absorb the device records a session may lose at
+    its start."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
+        for _ in range(LEAD_MARKS):
+            torch.cuda._sleep(1000)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and "spin_kernel" not in e.name:
             us, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     if not by_name:
@@ -294,7 +356,7 @@ def main(argv) -> int:
             for k in SERVE_KEYS]
     rows += [(f"{group} {k}", group, k) for group in turns[0]
              if isinstance(turns[0][group], dict) and group not in SERVED
-             for k in TIMED]
+             for k in (TRAIN_KEYS if group.endswith(" train") else TIMED)]
     print(f"{'':64s}" + "".join(f"{t['tag']:>12s}" for t in turns))
     for name, group, key in rows:
         print(f"{name:64s}" + "".join(

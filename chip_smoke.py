@@ -68,10 +68,13 @@ exits non-zero and prints no result:
    against its plain version: D 64, 128, 192 (v zero-padded from 128, as
    MLA's, whose padded columns must get zero gradient) and 256, groups of
    1, 3, 5 and 8, causal, a 2048-token window, Sq != Sk, S 1, 17 and
-   4096, bidirectional, bf16 and float32 (tolerance ``ATTN_TOL`` relative
-   to the plain gradient's max), the forward's log-sum-exp against the
-   plain one's, two calls bitwise equal, and a call's device operations
-   (the three kernels once each) under ``torch.profiler``;
+   4096, bidirectional, D 40 and 96 (zero-filled on the tensor cores),
+   bf16 rows off 16 bytes, bf16 and float32 (tolerance ``ATTN_TOL``
+   relative to the plain gradient's max), each case on the route
+   ``_bwd_variant`` picks (bf16 rows on 16 bytes at D <= 128 on the
+   tensor cores, the rest on the CUDA cores), the forward's log-sum-exp
+   against the plain one's, two calls bitwise equal, and a call's device
+   operations (the three kernels once each) under ``torch.profiler``;
 3. run the same work on the card and on the CPU: a P=4 store through 20
    windows (states and results bitwise equal after every window), a P=4
    lock-free store through the same windows and then all-UPDATE and
@@ -221,6 +224,23 @@ READ_NOISE = 0.10
 REBALANCE_MOVES = 4096
 REBALANCE_PASSES = 4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
+# a profiler session's counted calls: PREROLL_S of host time after the
+# session starts, then LEAD_MARKS marker kernels (torch.cuda._sleep), the
+# calls, one marker.  On the card a session loses a prefix of its device
+# records, never a later one: most often its first record, now and then a
+# few milliseconds' worth, now and then all of them.  The preroll puts the
+# calls past most such losses; a lead marker seen shows that the loss
+# stopped before the calls.  A session that is not whole is run again, up
+# to PROFILER_SESSIONS times
+MARK_KERNEL = "spin_kernel"
+MARK_CYCLES = 1000
+LEAD_MARKS = 128
+PREROLL_S = 0.1
+PROFILER_SESSIONS = 5
+# the most lead markers one profiler session lost this run, and the
+# sessions that were not whole
+MARKS_LOST = [0]
+SESSIONS_RUN_AGAIN = [0]
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12              # H100 SXM float32 peak outside the tensor cores
 
@@ -346,6 +366,12 @@ def ptxas_usage(_nvcc, name, kernel):
                 text=True, check=True, timeout=600).stdout
         finally:
             tmp.unlink(missing_ok=True)
+    return parse_ptxas(out, kernel)
+
+
+def parse_ptxas(out, kernel):
+    """{function: [registers, spill store bytes, spill load bytes]} of the
+    functions whose name holds ``kernel`` in ``-Xptxas -v`` output."""
     usage, fn = {}, None
     for line in out.splitlines():
         if "Function properties for" in line:
@@ -377,26 +403,65 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ops(torch, fn, iters):
-    """The device operations (kernels, copies, fills) of ``iters`` calls of
-    ``fn()`` under ``torch.profiler``, as {name: count}; a session that
-    recorded fewer than ``iters`` of them is retried."""
+def profiled_calls(torch, fn, iters):
+    """One ``torch.profiler`` session of ``iters`` calls of ``fn()``, after
+    :data:`PREROLL_S` and :data:`LEAD_MARKS` marker kernels and before one:
+    ({name: [count, total µs]} of the device operations (kernels, copies,
+    fills) but the markers, lead markers seen, tail marker seen)."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    for _attempt in range(3):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        time.sleep(PREROLL_S)
+        for _ in range(LEAD_MARKS):
+            torch.cuda._sleep(MARK_CYCLES)
+        for _ in range(iters):
+            fn()
+        torch.cuda._sleep(MARK_CYCLES)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        ops = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                ops[e.name] = ops.get(e.name, 0) + 1
-        if sum(ops.values()) >= iters:
+    ops, marks, first = {}, [], float("inf")
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if MARK_KERNEL in e.name:
+            marks.append(e.time_range.start)
+            continue
+        n, us = ops.get(e.name, (0, 0.0))
+        ops[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        first = min(first, e.time_range.start)
+    lead = sum(t < first for t in marks)
+    return ops, lead, len(marks) - lead
+
+
+def whole_session(torch, fn, iters):
+    """The operations of the first of up to :data:`PROFILER_SESSIONS`
+    sessions of :func:`profiled_calls` that is whole: a lead marker and the
+    tail marker seen, each operation's count a positive multiple of
+    ``iters``.  Each session that is not logs its counts; when none is, the
+    check fails."""
+    for _session in range(PROFILER_SESSIONS):
+        ops, lead, tail = profiled_calls(torch, fn, iters)
+        MARKS_LOST[0] = max(MARKS_LOST[0], LEAD_MARKS - lead)
+        counts = {k[:60]: n for k, (n, _us) in ops.items()}
+        if lead and tail and ops \
+                and not any(n % iters for n, _us in ops.values()):
             return ops
-    return ops
+        SESSIONS_RUN_AGAIN[0] += 1
+        log(f"  profiler: session of {iters} calls not whole ({lead} of "
+            f"{LEAD_MARKS} lead markers, {tail} of 1 tail marker seen): "
+            f"{json.dumps(counts)}")
+    raise SmokeFailure(f"torch.profiler lost device records in each of "
+                       f"{PROFILER_SESSIONS} sessions of {iters} calls; "
+                       f"the last: {counts}")
+
+
+def device_ops(torch, fn, iters):
+    """The device operations of ``iters`` calls of ``fn()`` under
+    ``torch.profiler``, as {name: count}, from a whole session
+    (:func:`whole_session`)."""
+    fn()
+    return {name: n for name, (n, _us) in
+            whole_session(torch, fn, iters).items()}
 
 
 def device_ms(fn, iters):
@@ -404,28 +469,12 @@ def device_ms(fn, iters):
     ``iters`` calls: for each kernel, copy or fill the calls ran on the
     card, its mean duration times the number of times one call runs it —
     without the host time between launches that :func:`cuda_ms` also sees
-    when the calls are host-bound.  Means, not sums, because a session
-    may drop some of its device records."""
+    when the calls are host-bound."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
-    for _attempt in range(3):      # a session now and then records nothing
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                us, n = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-        if by_name:
-            return sum(us / n * max(1, round(n / iters))
-                       for us, n in by_name.values()) / 1e3
-    raise SmokeFailure("torch.profiler saw no device time in 3 sessions")
+    return sum(us / n * max(1, round(n / iters)) for n, us in
+               whole_session(torch, fn, iters).values()) / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -1171,7 +1220,10 @@ def flash_bwd_cases():
     """(label, (B, Hq, Hkv, Sq, Sk, D), masks and scale, v's width): the
     training shape's head width and group at S = 4096, D 64 / 128 / 192
     (MLA: v zero-padded from 128) / 256, groups of 1, 3, 5 and 8, causal,
-    a 2048-token window, Sq != Sk, S = 1 and 17, bidirectional."""
+    a 2048-token window, Sq != Sk, S = 1 and 17, bidirectional; D 40 and
+    96, which the tensor-core instances at 64 and 128 take zero-filled;
+    and rows one element into their buffer (bf16 rows off 16 bytes, for
+    the CUDA-core route)."""
     return [
         ("train shape G=3 S=4096", (1, 6, 2, 4096, 4096, 128),
          dict(causal=True), 128),
@@ -1187,7 +1239,13 @@ def flash_bwd_cases():
         ("S=17 bidirectional", (1, 5, 1, 17, 17, 128), dict(causal=False),
          128),
         ("D=256 ragged Sk bidirectional", (1, 3, 1, 70, 190, 256),
-         dict(causal=False), 256)]
+         dict(causal=False), 256),
+        ("D=96 G=2 zero-filled", (2, 4, 2, 200, 200, 96),
+         dict(causal=True), 96),
+        ("D=40 G=4 zero-filled Sq != Sk", (1, 8, 2, 60, 130, 40),
+         dict(causal=True), 40),
+        ("misaligned rows D=128 G=2", (2, 8, 4, 100, 100, 128),
+         dict(causal=True), 128)]
 
 
 def bwd_rel_err(got, exp, floor):
@@ -1207,28 +1265,41 @@ def phase_flash_bwd_kernel(torch):
     v, out, lse and dout (tolerance ``ATTN_TOL`` relative to the plain
     gradient's max), a second call bitwise equal to the first, MLA's padded
     v columns' gradient zero; and the device operations of one backward
-    call under ``torch.profiler``.  The floor of the relative error's
-    denominator is 1e-2 of the largest |dO|·|v| product, a term of dP and
-    Dsum; it binds only where a gradient vanishes (each case logs both).
-    Returns the largest relative errors."""
+    call under ``torch.profiler``, on each route.  Each call runs on the
+    route ``_bwd_variant`` picks (``flash_attention_bwd.routes``): every
+    bf16 case at D <= 128 with rows on 16 bytes on the tensor cores
+    (``"mma"``; D 40 and 96 zero-filled to an instance's width), against
+    both the plain version that rounds P and dS to bf16 as the kernels do
+    and the unrounded one; float32, bf16 at D 192 and 256 and bf16 rows
+    off 16 bytes on the CUDA cores (``"simt"``, against the unrounded
+    one).  The floor of the relative error's denominator is 1e-2
+    of the largest |dO|·|v| product, a term of dP and Dsum; it binds only
+    where a gradient vanishes (each case logs both).  Returns the largest
+    relative errors."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda").manual_seed(SEED + 12)
 
-    def proj(B, S, H, width, D, dt):
+    def proj(B, S, H, width, D, dt, misaligned):
         t = torch.randn((B, S, H, width), generator=g, device="cuda").to(dt)
-        return F.pad(t, (0, D - width)).transpose(1, 2)
+        t = F.pad(t, (0, D - width))
+        if misaligned:
+            flat = torch.empty(t.numel() + 1, dtype=dt, device="cuda")
+            t = flat[1:].view(t.shape).copy_(t)
+        return t.transpose(1, 2)
 
     errs = {"lse": 0.0, "grad": 0.0}
-    ops = None
+    ops = {}
     for label, (B, Hq, Hkv, Sq, Sk, D), kw, width in flash_bwd_cases():
         for dt in (torch.bfloat16, torch.float32):
             tag = f"{label} {str(dt)[6:]}"
             tol = ATTN_TOL[str(dt)[6:]]
-            q, k = proj(B, Sq, Hq, D, D, dt), proj(B, Sk, Hkv, D, D, dt)
-            v = proj(B, Sk, Hkv, width, D, dt)
-            dout = proj(B, Sq, Hq, width, D, dt)
+            odd = "misaligned" in label
+            q = proj(B, Sq, Hq, D, D, dt, odd)
+            k = proj(B, Sk, Hkv, D, D, dt, odd)
+            v = proj(B, Sk, Hkv, width, D, dt, odd)
+            dout = proj(B, Sq, Hq, width, D, dt, odd)
             mask = dict(causal=kw["causal"], window=kw.get("window"),
                         sm_scale=kw.get("sm_scale") or D ** -0.5,
                         offset=Sk - Sq)
@@ -1252,11 +1323,23 @@ def phase_flash_bwd_kernel(torch):
             def bwd():
                 return fa.flash_attention_bwd(q, k, v, out, lse, dout,
                                               **mask)
+            route = "mma" if dt == torch.bfloat16 and D <= 128 \
+                and not odd else "simt"
+            picked = fa._bwd_variant(
+                dt, D, [st for t in (q, k, v, out, dout)
+                        for st in t.stride()[:3]],
+                [t.data_ptr() for t in (q, k, v, out, dout)])
+            check(picked == route, f"flash_attention_bwd ({tag}): "
+                  f"_bwd_variant picked {picked}, not {route}")
             before = fa.flash_attention_bwd.launches
+            routes = dict(fa.flash_attention_bwd.routes)
             got = bwd()
             torch.cuda.synchronize()
             check(fa.flash_attention_bwd.launches == before + 1,
                   f"flash_attention_bwd ({tag}) did not launch")
+            check(fa.flash_attention_bwd.routes[route] == routes[route] + 1,
+                  f"flash_attention_bwd ({tag}) did not run on {route}: "
+                  f"{routes} -> {fa.flash_attention_bwd.routes}")
             again = bwd()
             check(all(torch.equal(a.view(torch.int16) if a.dtype ==
                                   torch.bfloat16 else a,
@@ -1267,34 +1350,47 @@ def phase_flash_bwd_kernel(torch):
             plain = ref.flash_attention_bwd(
                 q.float(), k.float(), v.float(), out.float(), lse,
                 dout.float(), **mask)
-            es = []
+            rounded = ref.flash_attention_bwd(
+                q.float(), k.float(), v.float(), out.float(), lse,
+                dout.float(), **mask, round_p=torch.bfloat16) \
+                if route == "mma" else plain
+            es, es_unrounded = [], []
             floor = 1e-2 * float(dout.abs().max()) * float(v.abs().max())
-            for name, a, b, like in zip(("dq", "dk", "dv"), got, plain,
-                                        (q, k, v)):
+            for name, a, b, c, like in zip(("dq", "dk", "dv"), got, rounded,
+                                           plain, (q, k, v)):
                 check(a.dtype == dt and a.shape == like.shape,
                       f"flash_attention_bwd ({tag}) {name}: {a.dtype} "
                       f"{tuple(a.shape)}")
                 es.append(bwd_rel_err(a, b, floor))
-                check(es[-1] <= tol, f"flash_attention_bwd ({tag}) {name} "
-                      f"differs from its plain version: {es[-1]} > {tol}")
+                es_unrounded.append(bwd_rel_err(a, c, floor))
+                check(max(es[-1], es_unrounded[-1]) <= tol,
+                      f"flash_attention_bwd ({tag}) {name} differs from its "
+                      f"plain version: {es[-1]} (rounding P and dS as the "
+                      f"route does), {es_unrounded[-1]} (unrounded) > {tol}")
             if width < D:
                 check(not got[2][..., width:].any(), f"flash_attention_bwd "
                       f"({tag}): the padded v columns got a gradient")
-            if ops is None:
-                ops = device_ops(torch, bwd, 5)
-                check(sum(ops.values()) == 15 and len(ops) == 3,
-                      f"flash_attention_bwd: device operations of 5 calls "
-                      f"{ops}, expected the 3 kernels once a call")
+            if route not in ops:
+                ops[route] = device_ops(torch, bwd, 5)
+                check(sum(ops[route].values()) == 15
+                      and len(ops[route]) == 3,
+                      f"flash_attention_bwd ({route}): device operations "
+                      f"of 5 calls {ops[route]}, expected the 3 kernels "
+                      f"once a call")
             errs["lse"] = max(errs["lse"], e_lse)
-            errs["grad"] = max(errs["grad"], *es)
+            errs["grad"] = max(errs["grad"], *es, *es_unrounded)
             peaks = "/".join(f"{float(b.abs().max()):.3g}" for b in plain)
-            log(f"  flash_attention_bwd [{tag}]: lse err {e_lse:.3g}, "
-                f"dq/dk/dv err {es[0]:.3g}/{es[1]:.3g}/{es[2]:.3g} of the "
-                f"plain max {peaks} (floor {floor:.3g}; tolerance {tol}), "
-                f"two calls bitwise equal")
+            unrounded = "" if route == "simt" else (
+                " (unrounded plain: " + "/".join(
+                    f"{e:.3g}" for e in es_unrounded) + ")")
+            log(f"  flash_attention_bwd [{tag}, {route}]: lse err "
+                f"{e_lse:.3g}, dq/dk/dv err {es[0]:.3g}/{es[1]:.3g}/"
+                f"{es[2]:.3g}{unrounded} of the plain max {peaks} (floor "
+                f"{floor:.3g}; tolerance {tol}), two calls bitwise equal")
     log(f"  flash_attention_bwd: device operations of 5 calls "
         f"{json.dumps(ops)}")
-    errs["device_ops_per_call"] = {k: n / 5 for k, n in ops.items()}
+    errs["device_ops_per_call"] = {
+        route: {k: n / 5 for k, n in o.items()} for route, o in ops.items()}
     return errs
 
 
@@ -3057,7 +3153,8 @@ def profiled_step(torch, train_step, params, state, batch):
     fwd = sum(us for n, us in by_name.items() if "::flash_fwd" in n)
     bwd = sum(us for n, us in by_name.items()
               if any(k in n for k in ("::dsum_kernel", "::dkdv_kernel",
-                                      "::dq_kernel")))
+                                      "::dq_kernel", "::dkdv_mma_kernel",
+                                      "::dq_mma_kernel")))
     check(device_us > 0, "the profiled training step recorded no device "
                          "time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -3145,7 +3242,7 @@ def phase_train(torch, kernels):
     AdamW, TRAIN_STEPS steps on one repeated SyntheticTokens batch.  Every
     loss finite and the last below the first; per step exactly two flash
     forward launches a layer (the forward and its recompute) and one
-    backward call; no other model kernel.  Then one more step under
+    backward call, on the tensor cores; no other model kernel.  Then one more step under
     ``torch.profiler``, the guard of the kernels without a backward, and a
     checkpoint round trip.  Returns the metrics and the launches."""
     from repro_torch.configs import get_config
@@ -3160,18 +3257,23 @@ def phase_train(torch, kernels):
     torch.cuda.reset_peak_memory_stats()
     for k in counted.values():
         k.launches = 0
+    flash_attention_bwd.routes = {"mma": 0, "simt": 0}
     t0 = time.perf_counter()
     run = launcher.run(cfg, tcfg, pipe, steps=TRAIN_STEPS, device="cuda",
                        log_every=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in counted.items()}
+    routes = dict(flash_attention_bwd.routes)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     expected = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
                 "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
     for name, n in launches.items():
         check(n == expected.get(name, 0), f"training path: {name} launched "
               f"{n} times, expected {expected.get(name, 0)}")
+    check(routes == {"mma": cfg.n_layers * TRAIN_STEPS, "simt": 0},
+          f"training path: flash_attention_bwd routes {routes}, expected "
+          f"every call on the tensor cores")
     losses = run["losses"]
     check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
           f"training losses {losses}")
@@ -3181,7 +3283,8 @@ def phase_train(torch, kernels):
     tokens = TRAIN_BATCH * TRAIN_SEQ
     log(f"  {TRAIN_ARCH}: {n_params:,} parameters, {TRAIN_STEPS} "
         f"steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {wall:.1f} s; "
-        f"losses {losses}; launches {launches}; peak {peak:.2f} GiB")
+        f"losses {losses}; launches {launches}; backward routes {routes}; "
+        f"peak {peak:.2f} GiB")
     params, state, prof = profiled_step(torch, run["train_step"],
                                         run["params"], run["opt_state"],
                                         pipe.get_batch(0))
@@ -3200,7 +3303,8 @@ def phase_train(torch, kernels):
         step_ms_p50=1e3 * float(np.percentile(step_s, 50)),
         step_ms_p99=1e3 * float(np.percentile(step_s, 99)),
         tokens_per_s=tokens / float(np.percentile(step_s, 50)),
-        peak_device_gib=peak, step_profile=prof, launches=launches)
+        peak_device_gib=peak, step_profile=prof, launches=launches,
+        flash_bwd_routes=routes)
     return metrics, launches
 
 
@@ -3508,7 +3612,12 @@ def flash_bwd_report(torch, errs, launches):
     a head at the bf16 tensor-core peak, against each input read once and
     each gradient written once.  The library yardstick is
     ``torch.autograd.grad`` through one ``scaled_dot_product_attention``
-    output (causal, GQA); the port never calls it."""
+    output (causal, GQA); the port never calls it.  ``variant`` is the
+    route the calls took (``flash_attention_bwd.routes``).  One call is
+    first held against the plain version that rounds P and dS to bf16 and
+    the unrounded one (``ATTN_TOL``, relative to the plain gradient's max,
+    floor as in phase 2b): ``max_abs_err`` is that error,
+    ``cases_max_rel_err`` phase 2b's largest."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -3533,22 +3642,47 @@ def flash_bwd_report(torch, errs, launches):
         return torch.autograd.grad(lib_out, (qg, kg, vg), dout,
                                    retain_graph=True)
     pairs = B * Hq * S * (S + 1) // 2
+    routes = dict(fa.flash_attention_bwd.routes)
+    got = kernel()
+    floor = 1e-2 * float(dout.abs().max()) * float(v.abs().max())
+    err = 0.0
+    for round_p in (torch.bfloat16, None):
+        exp = ref.flash_attention_bwd(q.float(), k.float(), v.float(),
+                                      out.float(), lse, dout.float(),
+                                      causal=True, round_p=round_p)
+        for name, a, b in zip(("dq", "dk", "dv"), got, exp):
+            e = bwd_rel_err(a, b, floor)
+            check(e <= ATTN_TOL["bfloat16"], f"flash_attention_bwd at the "
+                  f"training shape: {name} differs from its plain version "
+                  f"(round_p {round_p}): {e} > {ATTN_TOL['bfloat16']}")
+            err = max(err, e)
+        del exp
+    del got
     m = dict(ms=cuda_ms(kernel, 5), device_ms=device_ms(kernel, 5),
              plain_ms=cuda_ms(lambda: ref.flash_attention_bwd(
-                 q, k, v, out, lse, dout, causal=True), 1),
+                 q, k, v, out, lse, dout, causal=True,
+                 round_p=torch.bfloat16), 1),
              library_ms=cuda_ms(library, 5),
              library_device_ms=device_ms(library, 5),
              flops=10 * D * pairs,
              nbytes=2 * (3 * q.numel() + 2 * out.numel() + 2 * k.numel()
                          + 2 * v.numel()) + 4 * lse.numel())
+    variant = [r for r, n in fa.flash_attention_bwd.routes.items()
+               if n != routes[r]]
+    check(variant == ["mma"], f"flash_attention_bwd at the training shape "
+          f"ran on {variant}, not the tensor cores")
     row = dict(name="flash_attention_bwd", route="cuda",
                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-               replaces="src/repro/models/flash_xla.py:112")
-    row.update(timing_row(m, launches, errs["grad"], BF16_FLOPS))
+               replaces="src/repro/models/flash_xla.py:112",
+               variant=variant[0])
+    row.update(timing_row(m, launches, err, BF16_FLOPS))
+    row["cases_max_rel_err"] = errs["grad"]
     row["launches_paths"] = {f"{TRAIN_ARCH} train": launches}
     row["device_ops_per_call"] = errs["device_ops_per_call"]
     row["lse_max_rel_err"] = errs["lse"]
-    log(f"  flash_attention_bwd train shape: {m['ms']:.4f} ms/call (device "
+    log(f"  flash_attention_bwd train shape ({variant[0]}): dq/dk/dv err "
+        f"{err:.3g} of the plain max, rounded and unrounded (tolerance "
+        f"{ATTN_TOL['bfloat16']}); {m['ms']:.4f} ms/call (device "
         f"{m['device_ms']:.4f}), bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']}; {m['flops'] / 1e9:.1f} GFLOP, "
         f"{m['nbytes'] / 1e6:.1f} MB), plain {m['plain_ms']:.4f} ms, sdpa "
@@ -3836,7 +3970,17 @@ def main() -> int:
         usage = ptxas_usage(_nvcc, "rglru_scan", "rglru_tile")
         log("  -Xptxas -v, RG-LRU kernels [registers, spill stores, spill "
             f"loads]: {usage}")
+        hmma = sass_mma_count(_nvcc, "flash_attention_bwd", "mma_kernel")
+        check(len(hmma) == 4 and all(n > 0 for n in hmma.values()),
+              f"the bf16 flash backward kernels lack tensor-core HMMA: "
+              f"{hmma}")
+        log("  cuobjdump -sass, HMMA per tensor-core flash backward kernel: "
+            f"{hmma}")
         usage = ptxas_usage(_nvcc, "flash_attention_bwd", "_kernel")
+        mma = {fn: u for fn, u in usage.items() if "mma_kernel" in fn}
+        check(len(mma) == 4 and all(u[0] and not u[1] and not u[2]
+                                    for u in mma.values()),
+              f"the tensor-core flash backward kernels spill: {mma}")
         log("  -Xptxas -v, flash backward kernels [registers, spill stores, "
             f"spill loads]: {usage}")
         log("phase 2: kernels against their plain versions")
@@ -3921,9 +4065,14 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    log(f"  profiler: at most {MARKS_LOST[0]} of {LEAD_MARKS} lead marker "
+        f"records lost by one session; {SESSIONS_RUN_AGAIN[0]} sessions "
+        f"not whole, run again")
     log(json.dumps(dict(kvstore=metrics, failover=fo_metrics,
                         channels=chan_metrics, spec_store=spec_metrics,
                         serving=serve_metrics, training=train_metrics,
+                        profiler_marks_lost=MARKS_LOST[0],
+                        profiler_sessions_run_again=SESSIONS_RUN_AGAIN[0],
                         card=card,
                         total_s=time.perf_counter() - t0)))
     log(card)

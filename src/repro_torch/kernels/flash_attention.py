@@ -30,7 +30,13 @@ backward :func:`flash_attention_bwd`, the hand-written kernels of
 :func:`repro_torch.kernels.ref.flash_attention_bwd` on the CPU).  Its causal
 offset is flash_xla's ``Sk - Sq``, not the serving wrapper's padded one.
 ``flash_attention_bwd.launches`` counts backward calls; each call launches
-three kernels (the ``Dsum`` pre-pass, dk/dv, dq).
+three kernels (the ``Dsum`` pre-pass, dk/dv, dq).  :func:`_bwd_variant`
+picks them as :func:`_variant` picks the forward's: bfloat16 rows that
+16-byte copies can take, at a head dimension up to 128, go to the
+tensor-core kernels (P and dS rounded to bf16 before their products, plain
+version ``ref.flash_attention_bwd(..., round_p=torch.bfloat16)``), the rest
+to the CUDA-core ones; ``flash_attention_bwd.routes`` counts calls by
+route.
 """
 from __future__ import annotations
 
@@ -51,10 +57,12 @@ _LIB = _nvcc.Library(
     "flash_attention",
     {"flash_attention_fwd": [_I] + _ARGS, "flash_attention_fwd_mma": _ARGS},
     "flash_error_string")
+_BWD_ARGS = [_P] * 10 + [_I] * 6 + [_L] * 15 + [ctypes.c_float] + [_I] * 3 \
+    + [_P]
 _BWD_LIB = _nvcc.Library(
     "flash_attention_bwd",
-    {"flash_attention_bwd": [_I] + [_P] * 10 + [_I] * 6 + [_L] * 15
-     + [ctypes.c_float] + [_I] * 3 + [_P]},
+    {"flash_attention_bwd": [_I] + _BWD_ARGS,
+     "flash_attention_bwd_mma": _BWD_ARGS},
     "flash_bwd_error_string")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -70,6 +78,24 @@ def _variant(dtype, D, strides, ptrs) -> str:
     if any(st % 8 for st in strides) or any(p % 16 for p in ptrs):
         return "simt"
     return "mma"
+
+
+#: Largest head dimension the tensor-core backward takes: at 16 keys a
+#: warp, dK's and dV's float32 accumulators are D registers a lane, and at
+#: D 192 or 256 they and the tile products' fragments pass the
+#: 255-register limit (ptxas spills them).
+MMA_BWD_MAX_HEAD_DIM = 128
+
+
+def _bwd_variant(dtype, D, strides, ptrs) -> str:
+    """Which backward kernels take these inputs: ``"mma"`` (tensor cores)
+    for bfloat16 at D <= :data:`MMA_BWD_MAX_HEAD_DIM` whose every row starts
+    on 16 bytes — D a multiple of 8, each element stride of q, k, v, out and
+    dout (``strides``) a multiple of 8 and each base address (``ptrs``) a
+    multiple of 16 — else ``"simt"`` (CUDA cores, float32 arithmetic)."""
+    if D > MMA_BWD_MAX_HEAD_DIM:
+        return "simt"
+    return _variant(dtype, D, strides, ptrs)
 
 
 def _padded(n: int, block: int = 128) -> int:
@@ -154,8 +180,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
     the gradient of ``out``; ``offset`` defaults to ``Sk - Sq``.  On the
     card the kernels of ``csrc/flash_attention_bwd.cu`` (q, k, v, out and
     dout of one dtype, any strides with a contiguous last dimension; dq, dk
-    and dv come back contiguous in that dtype); on the CPU the plain
-    version."""
+    and dv come back contiguous in that dtype) on the route
+    :func:`_bwd_variant` picks, counted in ``flash_attention_bwd.routes``;
+    on the CPU the plain version."""
     _check_shapes(q, k, v, "flash_attention_bwd")
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -179,18 +206,23 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
     dq = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Hkv, Sk, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    strides = tuple(st for t in (q, k, v, out, dout) for st in t.stride()[:3])
-    _BWD_LIB.call("flash_attention_bwd", _DTYPES[q.dtype],
-                  *(t.data_ptr() for t in (q, k, v, out, dout, lse, dsum, dq,
-                                           dk, dv)),
-                  B, Hq, Hkv, Sq, Sk, D, *strides, float(scale),
-                  int(bool(causal)), 0 if window is None else int(window),
-                  offset, _nvcc.stream(q))
+    ins = (q, k, v, out, dout)
+    strides = tuple(st for t in ins for st in t.stride()[:3])
+    args = (*(t.data_ptr() for t in (*ins, lse, dsum, dq, dk, dv)),
+            B, Hq, Hkv, Sq, Sk, D, *strides, float(scale), int(bool(causal)),
+            0 if window is None else int(window), offset, _nvcc.stream(q))
+    route = _bwd_variant(q.dtype, D, strides, [t.data_ptr() for t in ins])
+    if route == "mma":
+        _BWD_LIB.call("flash_attention_bwd_mma", *args)
+    else:
+        _BWD_LIB.call("flash_attention_bwd", _DTYPES[q.dtype], *args)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.routes[route] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.routes = {"mma": 0, "simt": 0}
 
 
 class FlashAttention(torch.autograd.Function):

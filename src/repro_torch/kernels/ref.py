@@ -104,7 +104,8 @@ def _mha(q, k, v, causal, window, sm_scale, offset, with_lse):
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
-                        window=None, sm_scale=None, offset=None):
+                        window=None, sm_scale=None, offset=None,
+                        round_p=None):
     """The FlashAttention-2 backward of :func:`mha_lse`, written out in
     float32 as ``flash_xla._flash_bwd`` computes it: ``Dsum = rowsum(dO∘O)``,
     ``P = exp(S − lse)`` on the visible keys (0 elsewhere) with ``S =
@@ -112,7 +113,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
     ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``, the G = Hq/Hkv query heads of
     a kv head summed into its dK and dV.  q, out, dout (B, Hq, Sq, D); k, v
     (B, Hkv, Sk, D); lse (B, Hq, Sq) float32.  ``offset`` defaults to ``Sk −
-    Sq``.  Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    Sq``.  Returns (dq, dk, dv) in q's, k's and v's dtypes.
+
+    With ``round_p`` (a dtype: ``torch.bfloat16``) P is rounded to it before
+    ``Pᵀ·dO`` and dS (made from the unrounded P) before ``dS·K`` and
+    ``dSᵀ·Q``, as the tensor-core kernels feed both to their products; the
+    sums stay float32."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -127,8 +133,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
     s = torch.matmul(qf, kf.transpose(-1, -2))
     p = torch.where(mask, torch.exp(s - lse.float()[..., None]),
                     torch.zeros_like(s))
-    dv = torch.matmul(p.transpose(-1, -2), do)
+    pr = p if round_p is None else p.to(round_p).float()
+    dv = torch.matmul(pr.transpose(-1, -2), do)
     ds = p * (torch.matmul(do, vf.transpose(-1, -2)) - dsum)
+    if round_p is not None:
+        ds = ds.to(round_p).float()
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf)
     dk = dk.reshape(b, hkv, g, sk, d).sum(2)

@@ -145,3 +145,106 @@ def test_the_guard_refuses_only_what_autograd_would_differentiate():
     assert seen == [False]
     # on the CPU the plain versions run and stay differentiable
     assert _nvcc.on_card("gmm", x, w) is False
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core route's arithmetic: P and dS rounded to bf16
+# ---------------------------------------------------------------------------
+
+#: Relative to the gradient's largest magnitude.  The tensor-core route
+#: rounds P and dS to bf16 once before their products (relative error
+#: 2⁻⁹ each), takes Dsum from the bf16 output where the reference takes
+#: its float32 output, and both sides round the gradients to bf16 once.
+BF16_TOL = 1e-2
+
+
+def _bf16_inputs(B, Hq, Hkv, Sq, Sk, D, seed):
+    """q, k, v and dout drawn with numpy and rounded to bf16."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(torch.bfloat16)
+            for shape in ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D),
+                          (B, Hq, Sq, D))]
+
+
+def _rel(got, exp):
+    return float((got.float() - exp.float()).abs().max()) / float(
+        exp.float().abs().max())
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window", CASES, ids=IDS)
+def test_rounded_plain_backward_matches_jax_vjp_in_bf16(B, Hq, Hkv, Sq, Sk,
+                                                        D, causal, window):
+    """``ref.flash_attention_bwd(..., round_p=torch.bfloat16)``, the plain
+    version of the tensor-core kernels, against ``jax.vjp`` of
+    ``flash_attention_xla`` on the same bf16 q, k, v and cotangent."""
+    q, k, v, dout = _bf16_inputs(B, Hq, Hkv, Sq, Sk, D, seed=2)
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                       for t in (q, k, v, dout))
+
+    def f(q, k, v):
+        return flash_xla.flash_attention_xla(q, k, v, causal, window, None,
+                                             None, 48)
+
+    jout, vjp = jax.vjp(f, jq, jk, jv)
+    jgrads = vjp(jdo)
+    out, lse = ref.mha_lse(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(jout.astype(jnp.float32)),
+                               atol=1e-2, rtol=1e-2)
+    got = ref.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                  window=window, round_p=torch.bfloat16)
+    for g, jg, name in zip(got, jgrads, "qkv"):
+        assert g.dtype == torch.bfloat16
+        exp = torch.from_numpy(np.array(jg.astype(jnp.float32)))
+        assert _rel(g, exp) <= BF16_TOL, f"grad d{name}: {_rel(g, exp)}"
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window", CASES, ids=IDS)
+def test_rounded_plain_backward_stays_near_the_unrounded_one(B, Hq, Hkv, Sq,
+                                                             Sk, D, causal,
+                                                             window):
+    """Rounding P and dS moves each float32 gradient by far less than its
+    bf16 tolerance, and does move it (the rounding is not skipped)."""
+    q, k, v, dout = (t.float() for t in _bf16_inputs(B, Hq, Hkv, Sq, Sk, D,
+                                                     seed=3))
+    out, lse = ref.mha_lse(q, k, v, causal=causal, window=window)
+    kw = dict(causal=causal, window=window)
+    plain = ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    rounded = ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw,
+                                      round_p=torch.bfloat16)
+    for a, b, name in zip(rounded, plain, "qkv"):
+        assert a.dtype == torch.float32
+        assert 0 < _rel(a, b) <= BF16_TOL / 2, f"grad d{name}: {_rel(a, b)}"
+
+
+def test_bwd_variant_routes_aligned_bf16_up_to_d128_to_the_tensor_cores():
+    """``_bwd_variant``: bf16 with every stride a multiple of 8 elements and
+    every base on 16 bytes takes ``"mma"`` at D 64 and 128 (and any D % 8 ==
+    0 up to 128); float32, D % 8 != 0, a stride or a base off 16 bytes, and
+    D 192 or 256 (no tensor-core instance) take ``"simt"``."""
+    from repro_torch.kernels.flash_attention import (MMA_BWD_MAX_HEAD_DIM,
+                                                     _bwd_variant)
+    bf, f32 = torch.bfloat16, torch.float32
+    strides = [4096 * 24 * 128, 128, 24 * 128] * 5
+    ptrs = [0x7f0000000000 + 4096 * i for i in range(5)]
+    assert MMA_BWD_MAX_HEAD_DIM == 128
+    for D in (64, 128, 24, 40, 8):
+        assert _bwd_variant(bf, D, strides, ptrs) == "mma", D
+    assert _bwd_variant(f32, 128, strides, ptrs) == "simt"
+    assert _bwd_variant(bf, 100, strides, ptrs) == "simt"
+    assert _bwd_variant(bf, 192, strides, ptrs) == "simt"
+    assert _bwd_variant(bf, 256, strides, ptrs) == "simt"
+    odd = list(strides)
+    odd[13] = 100 * 24 + 4          # dout's sequence stride
+    assert _bwd_variant(bf, 128, odd, ptrs) == "simt"
+    off = list(ptrs)
+    off[3] += 8                     # out's base 8 bytes off
+    assert _bwd_variant(bf, 128, strides, off) == "simt"
+    # the wrapper on CPU tensors takes neither kernel and counts no route
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    routes = dict(flash_attention_bwd.routes)
+    q, k, v, dout = _bf16_inputs(1, 2, 1, 16, 16, 64, seed=4)
+    out, lse = ref.mha_lse(q, k, v)
+    flash_attention_bwd(q, k, v, out, lse, dout)
+    assert flash_attention_bwd.routes == routes
