@@ -44,7 +44,14 @@ exits non-zero and prints no result:
    output columns must be zero) and the absorbed decode (128 query heads on
    one kv head of the 576-wide latent cache, 544 slots, lengths 0, 1, 64, 65
    and S, full-width and one-live-split batches, bf16; float32 at D = 576
-   must be refused) — (float32 within 2e-5, bfloat16 within 2e-2 of the
+   must be refused) and at the cross-attention paths' (whisper's
+   bidirectional encoder, 20 heads of 64 over 1,500 frames; its cross
+   prefill, 224 queries over 1,500 keys; its cross decode over the full
+   1,500-slot context and its self decode at lengths 224, 225, 256 and 1;
+   llama-3.2-vision's cross prefill, 512 queries over 1,601 keys, 32 heads
+   on 8 of 128, and its cross decode at every length 1,601: non-causal
+   with Sq != Sk and a ragged last key tile) — (float32 within 2e-5,
+   bfloat16 within 2e-2 of the
    float32 plain result on the same inputs), then every decode arrival
    counter is checked to be 0,
    the RG-LRU and WKV6 kernels at their serving shapes and at odd ones
@@ -82,9 +89,13 @@ exits non-zero and prints no result:
    store under skewed readers through a rebalance and a mixed window (heat
    counters bitwise equal too), the
    smoke engine of every served architecture (llama3.2-3b, gemma-2b,
-   internlm2-20b, recurrentgemma-2b, rwkv6-7b, llama4-maverick and
-   deepseek-v3) in float32 with one set of weights each (equal tokens,
-   bitwise equal page-table state), and the smoke llama3.2-3b engine with
+   internlm2-20b, recurrentgemma-2b, rwkv6-7b, llama4-maverick,
+   deepseek-v3, whisper-large-v3 and llama-3.2-vision-11b: nine) in
+   float32 with one set of weights each (equal tokens, bitwise equal
+   page-table state), the smoke llama-3.2-vision and whisper models with
+   the vlm's gates seeded non-zero and a random seeded context (prefill,
+   three decode steps and every cache leaf within 1e-4; another context
+   must move the logits), and the smoke llama3.2-3b engine with
    two page-table replicas on the remote-DMA backend, its log leader killed
    and revived (equal tokens; page table, replicas, log and detector
    bitwise equal), and one float32 training step of the smoke llama3.2-3b
@@ -153,8 +164,15 @@ exits non-zero and prints no result:
    5 of its 61 layers, [mla_dense] x 3 + [mla_moe] x 2 (50.9 GiB of bf16
    with its MTP weights: MLA prefill on the flash kernel, the absorbed
    decode on the decode kernel at D = 576, 256 experts top-8 on the
-   grouped matmul); one after the other, each engine freed before the
-   next; page-table, locality, logit and launch-count checks
+   grouped matmul), whisper-large-v3 at full width and depth (32 encoder
+   and 32 decoder layers, 224-token prompts, half its 448-token text
+   context, over 1,500 zero frames: flash per encoder layer and for each
+   decoder layer's self and cross attention, decode attention twice per
+   decoder layer a step) and llama-3.2-vision-11b at full width and depth
+   (40 layers, [attn x 4, cross] x 8, 512-token prompts over 1,601 zero
+   context tokens; its cross layers on the same kernels); one after the
+   other, each engine freed before the next; page-table, locality, logit
+   and launch-count checks
    (recurrentgemma-2b's RG-LRU launches all on 16-byte copies, rwkv6-7b's WKV6 launches all on the chunked kernel),
    and on the replicated path the replication checks;
 7. the training path — ``repro_torch.launch.train.run``, the code of
@@ -178,7 +196,9 @@ exits non-zero and prints no result:
    call, the remote-DMA rows timed on the verbs' argument forms, WKV6's
    with the sequential form's bound beside the chunked one's, the
    attention rows with SDPA's, and the attention and grouped-matmul rows
-   with an entry at deepseek-v3's MLA and expert shapes; the flash
+   with an entry at deepseek-v3's MLA and expert shapes, the attention
+   rows also at whisper's encoder and cross-decode shapes and
+   llama-3.2-vision's cross prefill; the flash
    backward's row at the training shape, with the backward of SDPA's
    output beside it), the card's name and power limit, and last the
    result line.
@@ -255,6 +275,11 @@ MOE_ARCH = "llama4-maverick-400b-a17b"
 MOE_LAYERS = 4                 # of 48: two [attn_dense, attn_moe] periods
 DS_ARCH = "deepseek-v3-671b"
 DS_LAYERS = 5                  # of 61: [mla_dense] x 3 + [mla_moe] x 2
+# whisper: 224-token prompts, half of its published 448-token text context
+# (the most text it conditions on), over its 1,500 frames; llama-3.2-vision:
+# 512-token prompts over its 1,601 context tokens (cross_shape reads both)
+WHISPER_ARCH, WHISPER_PROMPT = "whisper-large-v3", 224
+VISION_ARCH = "llama-3.2-vision-11b"
 # the replicated paths: the failover phase (participant 0, the log leader,
 # dies before mixed window FO_KILL and comes back before FO_REVIVE — its
 # cursor gap is then the ring's capacity, so the replay rejoin runs) and
@@ -276,6 +301,8 @@ SERVE_PATHS = [
     dict(arch="gemma-2b", prompt=SERVE_PROMPT),
     dict(arch="internlm2-20b", prompt=SERVE_PROMPT),
     dict(arch=DS_ARCH, prompt=SERVE_PROMPT, n_layers=DS_LAYERS),
+    dict(arch=WHISPER_ARCH, prompt=WHISPER_PROMPT),
+    dict(arch=VISION_ARCH, prompt=SERVE_PROMPT),
 ]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # phase 7, the training path: llama3.2-3b at full width and depth, bf16,
@@ -738,6 +765,15 @@ def copy_nbytes(sender, n):
     return (rows_read + P) * n * 4 + 4 * P + 2 * 4 * P
 
 
+def cross_shape(arch):
+    """(query heads, kv heads, head dim, context tokens) of a cross family's
+    published config, the shapes phase 5 serves it at."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
+            cfg.cross.n_context_tokens)
+
+
 def attention_cases(torch):
     """(label, args, kw) per attention case: the serving paths' full-width
     shapes in bf16 and float32 — llama3.2-3b (24 query heads, 8 kv heads,
@@ -745,8 +781,17 @@ def attention_cases(torch):
     544-slot cache) and recurrentgemma-2b's local attention (10 query heads
     on 1 kv head, head_dim 256; prefill of 4 prompts of 2304 tokens with a
     2048-token window, decode against the 2048-slot ring) — then odd shapes
-    and masks."""
+    and masks, then the cross-attention paths': whisper's bidirectional
+    encoder (20 heads of 64 over 1,500 frames, G 1), its decoder's cross
+    prefill (224 queries over 1,500 keys) and both its decodes (the full
+    1,500-slot context cache; the 256-slot self cache at lengths 224, 225,
+    256 and 1), and llama-3.2-vision's cross prefill (512 queries over
+    1,601 context keys, 32 heads on 8) and cross decode (every length
+    1,601) — non-causal with Sq ≠ Sk and a ragged last key tile (1,500 =
+    11·128 + 92, 1,601 = 12·128 + 65)."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    wh, wkv, wd, wctx = cross_shape(WHISPER_ARCH)
+    vh, vkv, vd, vctx = cross_shape(VISION_ARCH)
 
     def rn(shape, dt):
         return torch.randn(shape, generator=g, device="cuda").to(dt)
@@ -802,7 +847,13 @@ def attention_cases(torch):
              misaligned),
             ("MLA prefill full width", (Bf, DS_HEADS, DS_HEADS, SERVE_PROMPT,
                                         SERVE_PROMPT, DS_DQK),
-             dict(causal=True, sm_scale=DS_DQK ** -0.5), bhsd)]:
+             dict(causal=True, sm_scale=DS_DQK ** -0.5), bhsd),
+            ("whisper encoder", (Bf, wh, wkv, wctx, wctx, wd),
+             dict(causal=False), bhsd),
+            ("whisper cross", (Bf, wh, wkv, WHISPER_PROMPT, wctx, wd),
+             dict(causal=False), bhsd),
+            ("vision cross", (Bf, vh, vkv, SERVE_PROMPT, vctx, vd),
+             dict(causal=False), bhsd)]:
         for dt in (torch.bfloat16, torch.float32):
             if make is None:
                 args = (rn((B, hq, sq, d), dt), rn((B, hkv, sk, d), dt),
@@ -830,7 +881,12 @@ def attention_cases(torch):
             ("MLA full width", (Bf, DS_HEADS, 1, S, DS_DLAT),
              [S, S - 16, 300, 1]),
             ("MLA one live chunk", (2, DS_HEADS, 1, S, DS_DLAT), [50, 64]),
-            ("MLA D=300 group of 20", (2, 20, 1, 100, 300), [100, 7])]:
+            ("MLA D=300 group of 20", (2, 20, 1, 100, 300), [100, 7]),
+            ("whisper cross", (Bf, wh, wkv, wctx, wd), [wctx] * Bf),
+            ("whisper self", (Bf, wh, wkv, WHISPER_PROMPT + SERVE_GEN, wd),
+             [WHISPER_PROMPT, WHISPER_PROMPT + 1,
+              WHISPER_PROMPT + SERVE_GEN, 1]),
+            ("vision cross", (Bf, vh, vkv, vctx, vd), [vctx] * Bf)]:
         # float32 past D = 256 is refused (mla_decode_f32_refused)
         for dt in (torch.bfloat16,) if d > 256 else (torch.bfloat16,
                                                      torch.float32):
@@ -1559,6 +1615,70 @@ def serving_parity(torch, pt, arch):
           f"smoke {arch} engine kv_ops differ")
     log(f"  smoke {arch} engine: tokens {out['cuda'][0]} equal on cuda and "
         f"cpu, page table bitwise equal, kv_ops {out['cuda'][2]['kv_ops']}")
+
+
+def cross_model_parity(torch):
+    """The smoke llama-3.2-vision and whisper models in float32 on the card
+    and on the CPU from one set of weights, with the vlm's gates set to
+    seeded non-zero values (at the init's 0 a cross layer adds nothing) and
+    a random seeded context: prefill's logits, three decode steps' logits
+    and every cache leaf within 1e-4; and another context must move the
+    card's logits."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.tree import flatten
+    for arch in (VISION_ARCH, WHISPER_ARCH):
+        cfg = get_smoke_config(arch).replace(dtype="float32")
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(SEED))
+        rng = np.random.default_rng(SEED + 12)
+        for layer in params.get("layers", []):
+            for name in ("gate_attn", "gate_ffn"):
+                if name in layer:
+                    layer[name] = torch.tensor(
+                        float(rng.uniform(0.3, 1.2) * rng.choice([-1, 1])))
+        B, S, s_max = 2, 10, 16
+        tokens = torch.from_numpy(
+            rng.integers(1, cfg.vocab, (B, S)).astype(np.int32))
+        ctx, other_ctx = (torch.from_numpy(rng.standard_normal(
+            (B, cfg.cross.n_context_tokens, cfg.d_model)).astype(np.float32))
+            for _ in range(2))
+        steps = [torch.from_numpy(rng.integers(1, cfg.vocab, (B, 1))
+                                  .astype(np.int32)) for _ in range(3)]
+        res = {}
+        for dev in ("cuda", "cpu"):
+            p = tree_to(params, dev)
+            lg, cache, pos = model.prefill(
+                p, {"tokens": tokens.to(dev), "context": ctx.to(dev)}, s_max)
+            outs = [lg]
+            for tok in steps:
+                lg, cache = model.decode_step(p, tok.to(dev), cache, pos)
+                pos = pos + 1
+                outs.append(lg)
+            res[dev] = (outs, flatten(cache))
+            if dev == "cuda":
+                other, _c, _p = model.prefill(
+                    p, {"tokens": tokens.to(dev),
+                        "context": other_ctx.to(dev)}, s_max)
+                moved = float((other - outs[0]).abs().max())
+                check(moved > 1e-3, f"smoke {arch}: another context moved "
+                                    f"the card's logits by only {moved}")
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(res["cuda"][0], res["cpu"][0])):
+            d = float((a.cpu() - b).abs().max())
+            check(d <= 1e-4, f"smoke {arch} logits {i}: cuda and cpu differ "
+                             f"by {d}")
+            worst = max(worst, d)
+        for (path, a), (_p, b) in zip(res["cuda"][1], res["cpu"][1]):
+            d = float((a.cpu() - b).abs().max())
+            check(a.device.type == "cuda" and d <= 1e-4,
+                  f"smoke {arch} cache {path}: {a.device}, cuda and cpu "
+                  f"differ by {d}")
+            worst = max(worst, d)
+        log(f"  smoke {arch} model (seeded gates, random context): prefill, "
+            f"3 decode steps and {len(res['cuda'][1])} cache leaves within "
+            f"{worst:.3g} cuda vs cpu; another context moves the logits by "
+            f"{moved:.3g}")
 
 
 def np_tree(x):
@@ -2918,14 +3038,19 @@ class ServeProbe:
 def expected_launches(cfg, requests, gen):
     """Each model kernel's launches on one ``generate`` of ``requests``
     prompts in batches of SERVE_BATCH: one prefill per batch (flash per
-    attention layer, rglru per recurrent layer, wkv6 per rwkv layer), then
-    gen - 1 decode steps (decode attention per attention layer), and three
-    grouped matmuls (gate, up, wo) per MoE layer in each of both."""
+    attention layer, a vlm's cross layers among them, rglru per recurrent
+    layer, wkv6 per rwkv layer; whisper: flash per encoder layer and twice
+    per decoder layer, self and cross), then gen - 1 decode steps (decode
+    attention per attention layer; whisper twice per decoder layer), and
+    three grouped matmuls (gate, up, wo) per MoE layer in each of both."""
     from repro_torch.models.transformer import layer_kinds
     prefills = -(-requests // SERVE_BATCH)
     steps = prefills * (gen - 1)
     if cfg.family == "ssm":
         return {"wkv6": cfg.n_layers * prefills}
+    if cfg.family == "audio":
+        return {"flash_attention": (cfg.n_enc_layers + 2 * cfg.n_layers)
+                * prefills, "decode_attention": 2 * cfg.n_layers * steps}
     kinds = layer_kinds(cfg)
     n_rec = kinds.count("rec")
     n_moe = sum(kind.endswith("_moe") for kind in kinds)
@@ -3002,6 +3127,10 @@ def phase_serving(torch, kernels, path, rdma):
              f"MLA {cfg.n_heads} heads (q, k {m.qk_nope_head_dim} + "
              f"{m.qk_rope_head_dim}, v {m.v_head_dim}, latent "
              f"{m.kv_lora_rank} + {m.qk_rope_head_dim})")
+    if cfg.cross is not None:
+        heads += (f", {cfg.n_enc_layers} encoder layers over"
+                  if cfg.n_enc_layers else ", cross layers over") + \
+            f" a zero context of {cfg.cross.n_context_tokens} positions"
     log(f"  {arch}: {cfg.n_layers} layers, d={cfg.d_model}, {heads}, "
         f"{cfg.dtype}, {n_params:,} parameters "
         f"({n_params * cfg.dtype_.itemsize / 2 ** 30:.1f} GiB) drawn on the "
@@ -3539,6 +3668,70 @@ def mla_attention_timings(torch, kernels):
     return {"flash_attention": flash, "decode_attention": decode}
 
 
+def cross_attention_timings(torch, kernels):
+    """Per-call times of both attention kernels in bf16 at the
+    cross-attention paths' shapes, inputs as the models pass them ((B, H,
+    S, D) views of (B, S, H, D) projections; decode caches contiguous):
+    flash ``whisper_encoder`` (4 x 20 heads of 64, 1,500 frames,
+    bidirectional), flash ``vision_cross`` (4 x 32 query heads on 8, 512
+    queries over 1,601 context keys, head_dim 128, non-causal) and decode
+    ``whisper_cross`` (4 x 20 heads of 64 against the full 1,500-slot
+    context cache).  The library yardstick is one
+    ``scaled_dot_product_attention`` call on the same inputs (no mask:
+    every key is visible); the port never calls it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    def bhsd(B, H, S, D):
+        return rn(B, S, H, D).transpose(1, 2)
+
+    out = {}
+    fa = kernels["flash_attention"]
+    wh, wkv, wd, wctx = cross_shape(WHISPER_ARCH)
+    vh, vkv, vd, vctx = cross_shape(VISION_ARCH)
+    for key, (B, Hq, Hkv, Sq, Sk, D) in [
+            ("whisper_encoder", (SERVE_BATCH, wh, wkv, wctx, wctx, wd)),
+            ("vision_cross", (SERVE_BATCH, vh, vkv, SERVE_PROMPT, vctx,
+                              vd))]:
+        q, k, v = bhsd(B, Hq, Sq, D), bhsd(B, Hkv, Sk, D), bhsd(B, Hkv, Sk, D)
+
+        def kernel(q=q, k=k, v=v):
+            return fa(q, k, v, causal=False)
+
+        def library(q=q, k=k, v=v):
+            return F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+        out[key] = dict(
+            ms=cuda_ms(kernel, 20), device_ms=device_ms(kernel, 20),
+            plain_ms=cuda_ms(lambda: ref.mha(q, k, v, causal=False), 3),
+            library_ms=cuda_ms(library, 20),
+            library_device_ms=device_ms(library, 20),
+            flops=4 * D * B * Hq * Sq * Sk,
+            nbytes=2 * (2 * q.numel() + k.numel() + v.numel()))
+    B, H, S, D = SERVE_BATCH, wh, wctx, wd
+    qd, kc, vc = rn(B, H, D), rn(B, H, S, D), rn(B, H, S, D)
+    lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    da = kernels["decode_attention"]
+
+    def step():
+        return da(qd, kc, vc, lens)
+
+    def step_library():
+        return F.scaled_dot_product_attention(qd[:, :, None], kc, vc)
+    out["whisper_cross"] = dict(
+        ms=cuda_ms(step, 200), device_ms=device_ms(step, 200),
+        plain_ms=cuda_ms(lambda: ref.decode_attention(qd, kc, vc, lens), 20),
+        library_ms=cuda_ms(step_library, 200),
+        library_device_ms=device_ms(step_library, 200),
+        flops=4 * H * D * B * S,
+        nbytes=2 * (kc.numel() + vc.numel() + 2 * qd.numel()) + 4 * B)
+    return out
+
+
 def timing_row(m, launches, err, peak):
     """The JSON line's numbers for one kernel at one set of shapes; the
     bound is the larger of bytes at the memory rate and operations at
@@ -3562,7 +3755,10 @@ def attention_report(torch, kernels, errs, launches):
     recurrentgemma-2b's (head_dim 256, 10 query heads on 1 kv head: 4
     prompts of 2304 tokens under a 2048-token window; a decode step against
     the full 2048-slot ring), and an ``mla`` entry at deepseek-v3's MLA
-    shapes (:func:`mla_attention_timings`).  ``ms`` and ``library_ms`` are
+    shapes (:func:`mla_attention_timings`); the flash row also has
+    ``whisper_encoder`` and ``vision_cross`` entries and the decode row a
+    ``whisper_cross`` one at the cross-attention paths' shapes
+    (:func:`cross_attention_timings`).  ``ms`` and ``library_ms`` are
     wrapper times (CUDA events around a loop of calls, host work included);
     ``device_ms`` and ``library_device_ms`` the device time per call from
     ``torch.profiler``.  A row whose ``ms`` is well above its
@@ -3575,6 +3771,10 @@ def attention_report(torch, kernels, errs, launches):
     d256 = attention_timings(torch, kernels, SERVE_BATCH, 10, 1, 256,
                              RG_PROMPT, 2048, 2048, 2048)
     mla = mla_attention_timings(torch, kernels)
+    cross = cross_attention_timings(torch, kernels)
+    entries = {"flash_attention": [("whisper_encoder", WHISPER_ARCH),
+                                   ("vision_cross", VISION_ARCH)],
+               "decode_attention": [("whisper_cross", WHISPER_ARCH)]}
     rows = []
     for name, line in [("flash_attention", 82), ("decode_attention", 63)]:
         row = dict(name=name, route="cuda",
@@ -3587,12 +3787,16 @@ def attention_report(torch, kernels, errs, launches):
                                  errs[name], BF16_FLOPS)
         row["mla"] = timing_row(mla[name], launches[DS_ARCH][name],
                                 errs[name], BF16_FLOPS)
+        for key, arch in entries[name]:
+            row[key] = timing_row(cross[key], launches[arch][name],
+                                  errs[name], BF16_FLOPS)
         row["launches_paths"] = {path: n[name] for path, n in
                                  launches.items() if name in n}
         rows.append(row)
         for label, m, r in [("D=128", d128[name], row),
                             ("D=256", d256[name], row["d256"]),
-                            ("MLA", mla[name], row["mla"])]:
+                            ("MLA", mla[name], row["mla"])] + [
+                (key, cross[key], row[key]) for key, _a in entries[name]]:
             log(f"  {name} {label}: {m['ms']:.4f} ms/call (device "
                 f"{m['device_ms']:.4f}), bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
@@ -3995,6 +4199,7 @@ def main() -> int:
         log("phase 3: the same work on cuda and cpu")
         phase_parity(torch, pt)
         phase_serving_parity(torch, pt)
+        cross_model_parity(torch)
         phase_replicated_parity(torch, pt)
         train_parity(torch)
         log("phase 4: the KVStore path (4a: its lock-free twin; 4c: the "

@@ -1,11 +1,14 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.  The
-port carries the architectures its serving path runs: the dense family
-(llama3.2-3b, qwen3-8b, gemma-2b, internlm2-20b), recurrentgemma (hybrid),
-rwkv6 (ssm), llama4-maverick and deepseek-v3 (moe)."""
+port carries all ten of the reference registry's architectures, under its
+ids: the dense family (llama3.2-3b, qwen3-8b, gemma-2b, internlm2-20b),
+recurrentgemma (hybrid), rwkv6 (ssm), llama4-maverick and deepseek-v3
+(moe), llama-3.2-vision (vlm: gated cross-attention layers over a context)
+and whisper (audio: an encoder-decoder)."""
 from . import (deepseek_v3_671b, gemma_2b, internlm2_20b,
-               llama4_maverick_400b_a17b, llama32_3b, qwen3_8b,
-               recurrentgemma_2b, rwkv6_7b)
-from .base import ArchConfig, HybridConfig, MLAConfig, MoEConfig
+               llama4_maverick_400b_a17b, llama32_3b, llama32_vision_11b,
+               qwen3_8b, recurrentgemma_2b, rwkv6_7b, whisper_large_v3)
+from .base import (ArchConfig, CrossAttnConfig, HybridConfig, MLAConfig,
+                   MoEConfig)
 
 _MODULES = {
     "llama3.2-3b": llama32_3b,
@@ -16,6 +19,8 @@ _MODULES = {
     "rwkv6-7b": rwkv6_7b,
     "llama4-maverick-400b-a17b": llama4_maverick_400b_a17b,
     "deepseek-v3-671b": deepseek_v3_671b,
+    "llama-3.2-vision-11b": llama32_vision_11b,
+    "whisper-large-v3": whisper_large_v3,
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -37,5 +42,5 @@ def get_smoke_config(arch_id: str) -> ArchConfig:
     return _module(arch_id).smoke()
 
 
-__all__ = ["ARCH_IDS", "ArchConfig", "HybridConfig", "MLAConfig",
-           "MoEConfig", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "ArchConfig", "CrossAttnConfig", "HybridConfig",
+           "MLAConfig", "MoEConfig", "get_config", "get_smoke_config"]

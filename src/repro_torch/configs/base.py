@@ -2,10 +2,10 @@
 ``repro/configs/base.py``.
 
 The reference's module imports ``jax.numpy`` for :attr:`ArchConfig.dtype_`,
-so the port keeps its own copy; ``dtype_`` returns a ``torch.dtype``.  Only
-the fields of the families the port builds (dense, hybrid, ssm, and the MoE
-family with GQA or MLA attention) are carried over; the reference's
-cross-attention record comes with its families.  :class:`ShapeConfig`,
+so the port keeps its own copy; ``dtype_`` returns a ``torch.dtype``.  The
+fields of every family the port builds (dense, hybrid, ssm, the MoE family
+with GQA or MLA attention, the vlm's cross-attention layers and whisper's
+encoder) are carried over.  :class:`ShapeConfig`,
 :data:`LM_SHAPES` and :class:`TrainConfig` are the reference's, field for
 field; the port's trainer reads ``microbatch``, ``remat``, ``optimizer``,
 ``adam_dtype``, ``xent_chunks``, ``lr``, ``weight_decay``, ``grad_clip`` and
@@ -55,6 +55,14 @@ class HybridConfig:
 
 
 @dataclass(frozen=True)
+class CrossAttnConfig:
+    """VLM (llama3.2-vision) / enc-dec (whisper) cross-attention."""
+    every_k: int = 5             # vlm: cross-attn layer every k layers
+    n_context_tokens: int = 1601  # stubbed frontend sequence length
+    context_dim: int = 0         # 0 → d_model
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str                  # dense|moe|vlm|audio|hybrid|ssm
@@ -74,6 +82,8 @@ class ArchConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     hybrid: Optional[HybridConfig] = None
+    cross: Optional[CrossAttnConfig] = None
+    n_enc_layers: int = 0                  # whisper encoder stack
     mtp_depth: int = 0                     # deepseek multi-token prediction
     scale_embed: bool = False              # gemma-style sqrt(d) embed scale
 

@@ -8,8 +8,11 @@ a resumed run recomputes it from the restored step counter.
     deterministic strided windows.
 
 Both expose ``get_batch(step)`` → ``{"tokens": (B, S + 1) int32}`` as numpy
-arrays; :func:`place_batch` moves a batch to a device.  The reference's
-context synthesizer for the vlm and audio families comes with them.
+arrays; :func:`place_batch` moves a batch to a device.  For the vlm and
+audio families :class:`SyntheticTokens` adds the reference's context
+synthesizer for the stubbed frontend: ``"context"`` (B, n_ctx, d), values
+in [-1, 1) on a 1/1000 grid from a second Philox stream, bit for bit the
+reference's, as a CPU tensor in the model dtype (numpy has no bfloat16).
 """
 from __future__ import annotations
 
@@ -40,7 +43,17 @@ class SyntheticTokens:
     def get_batch(self, step: int) -> Dict[str, np.ndarray]:
         toks = _philox(self.seed, step,
                        (self.batch, self.seq + 1)) % self.cfg.vocab
-        return {"tokens": toks.astype(np.int32)}
+        out = {"tokens": toks.astype(np.int32)}
+        if self.cfg.family in ("vlm", "audio"):
+            n = self.cfg.cross.n_context_tokens
+            raw = _philox(self.seed ^ 0xC0FFEE, step,
+                          (self.batch, n, self.cfg.d_model))
+            # float32 first, then one round-to-nearest-even to the model
+            # dtype, as the reference's two numpy casts
+            out["context"] = torch.from_numpy(
+                (raw % 2000 - 1000).astype(np.float32) / 1000.0
+            ).to(self.cfg.dtype_)
+        return out
 
 
 @dataclasses.dataclass

@@ -19,7 +19,10 @@ memory; the wrapper reproduces the reference's tile choice only to compute
 the same ``offset``.  (When Sq ≠ Sk and only one of them is padded, that
 offset is not ``Sk - Sq``: the reference's padding shifts the diagonal.  The
 port keeps the reference's result; the serving path never meets the case,
-since its prefill has Sq = Sk.)
+since its causal prefill has Sq = Sk.)  The offset places only the causal
+diagonal and the window: a non-causal call without a window, as
+cross-attention's (Sq ≠ Sk over a ragged last key tile) and whisper's
+bidirectional encoder are, sees every key below Sk whatever it is.
 
 Training goes through :class:`FlashAttention`, the counterpart of the
 reference's ``repro/models/flash_xla.py::flash_attention_xla`` (the JAX

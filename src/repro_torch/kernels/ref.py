@@ -204,15 +204,33 @@ def decode_attention_split(q, k_cache, v_cache, lengths, chunk, *,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
+def _rglru_terms(x, log_a):
+    """The RG-LRU's float32 decay ``a = exp(log_a)`` and gated input
+    ``sqrt(max(1 - exp(2·log_a), 0))·x``, the reference's formula in
+    float32.  Near log_a = 0 the difference cancels and magnifies the
+    exponential's error by ``1 / (1 - exp(2·log_a))`` (500 at log_a =
+    -1e-3).  On the CPU each exponential is therefore taken in float64 and
+    rounded once to float32, the correctly rounded value, whatever accuracy
+    the math library's float32 exponential has in the process (one with
+    ~14 bits moves y by 2.6e-4 on the tests' inputs).  On the card it is
+    CUDA's float32 ``expf``, the kernel's own, so that the kernel and this
+    plain version round alike (on an H100 the correctly rounded exponential
+    moves recurrentgemma's full-width float32 output 8.8e-5 from the
+    kernel's)."""
+    la = log_a.double() if log_a.device.type == "cpu" else log_a.float()
+    a = torch.exp(la).float()
+    gate = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * la).float(),
+                                  min=0.0))
+    return a, gate * x.float()
+
+
 def rglru(x, log_a):
     """RG-LRU scan (RecurrentGemma, arXiv:2402.19427 eq. 5–6):
     ``h_t = a_t·h_{t-1} + sqrt(1 - a_t²)·x_t`` elementwise, with ``a_t =
-    exp(log_a_t)`` and ``h_{-1} = 0``.  x, log_a (B, S, D).  Returns (y (B,
+    exp(log_a_t)`` and ``h_{-1} = 0`` (the terms as
+    :func:`_rglru_terms` takes them).  x, log_a (B, S, D).  Returns (y (B,
     S, D) in x's dtype, h_final (B, D) float32)."""
-    la = log_a.float()
-    a = torch.exp(la)
-    bx = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * la), min=0.0)) \
-        * x.float()
+    a, bx = _rglru_terms(x, log_a)
     h = torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32,
                     device=x.device)
     ys = []
@@ -239,9 +257,8 @@ def rglru_chunked(x, log_a, tile=128, sub=16):
     runs = tile // sub
     pad = -S % tile
     xf = torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
-    la = torch.nn.functional.pad(log_a.float(), (0, 0, 0, pad))
-    a = torch.exp(la)
-    bx = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * la), min=0.0)) * xf
+    a, bx = _rglru_terms(xf, torch.nn.functional.pad(log_a.float(),
+                                                     (0, 0, 0, pad)))
     a, bx = (t.reshape(B, -1, runs, sub, D) for t in (a, bx))
     hl, ap = torch.empty_like(bx), torch.empty_like(a)
     h, A = torch.zeros_like(bx[:, :, :, 0]), torch.ones_like(a[:, :, :, 0])

@@ -3,9 +3,10 @@ counterpart of ``repro/launch/serve.py``.
 
 A SharedQueue admits requests, a KVStore keeps the paged KV cache's page
 table, and the model — a dense LM (llama3.2-3b, qwen3-8b, gemma-2b,
-internlm2-20b), recurrentgemma, rwkv6, llama4-maverick or deepseek-v3
-(``--arch``: any of ``repro_torch.configs.ARCH_IDS``) — runs prefill and
-decode with the port's kernels.  Weights are random, drawn on the device
+internlm2-20b), recurrentgemma, rwkv6, llama4-maverick, deepseek-v3,
+llama-3.2-vision or whisper (``--arch``: any of
+``repro_torch.configs.ARCH_IDS``) — runs prefill and decode with the port's
+kernels; the vlm and whisper get a zero context, as in the reference.  Weights are random, drawn on the device
 from a seeded generator.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
@@ -20,6 +21,10 @@ from a seeded generator.
       --arch deepseek-v3-671b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch whisper-large-v3 --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llama-3.2-vision-11b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
       --smoke --device cpu --replicas 2 --kill-leader-at 1 --revive-at 6 \\
       --backend pallas

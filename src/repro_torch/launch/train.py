@@ -15,7 +15,9 @@ device from a generator seeded with ``TrainConfig.seed``; a run with
 ``--ckpt-dir`` resumes from its latest checkpoint and saves at the end.
 The card trains the dense family (llama3.2-3b, qwen3-8b, gemma-2b,
 internlm2-20b); the other families' kernels have no backward ported yet
-and refuse training there, so they train with ``--device cpu``.
+and refuse training there, so they train with ``--device cpu``.  A vlm
+or whisper batch carries the pipeline's synthesized ``context`` beside its
+tokens.
 """
 from __future__ import annotations
 

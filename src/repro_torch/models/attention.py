@@ -1,6 +1,5 @@
-"""GQA/MQA attention blocks with sliding windows and DeepSeek's MLA, the
-counterpart of ``repro/models/attention.py`` (cross-attention waits for the
-families that use it).
+"""GQA/MQA attention blocks with sliding windows, cross-attention and
+DeepSeek's MLA, the counterpart of ``repro/models/attention.py``.
 
 The inner attention is always the port's kernel wrapper: on a CUDA tensor
 :func:`~repro_torch.kernels.flash_attention.flash_attention` (prefill) and
@@ -8,6 +7,13 @@ The inner attention is always the port's kernel wrapper: on a CUDA tensor
 launch the hand-written kernels; on a CPU tensor they run the kernels' plain
 versions.  The reference's ``impl``/``decode_impl`` knobs have no
 counterpart.
+
+Cross-attention (the vlm's gated cross layers, whisper's decoder) projects
+q from the layer's input and k, v from a context ``kv_x`` of its own length
+(the stubbed frontend's output, or whisper's encoder output): a
+non-causal flash call with Sq ≠ Sk, no RoPE.  Its decode attends a cache
+that prefill filled from the context once and that stays as it is, every
+sequence seeing all ``n_ctx`` slots.
 
 MLA prefill runs the expanded form: q and k of ``qk_nope + qk_rope`` (192 at
 full width) and v of ``v_head_dim`` (128) per head.  The flash kernel takes
@@ -38,6 +44,8 @@ from .layers import apply_rope, dense_init, init_rmsnorm, rmsnorm
 
 
 def init_attention(gen, cfg: ArchConfig):
+    """q, k, v and o projections (+ qk-norm scales); a cross-attention
+    layer has the same leaves."""
     d, hd, dt = cfg.d_model, cfg.head_dim_, cfg.dtype_
     p = {"wq": dense_init(gen, d, cfg.n_heads * hd, dt),
          "wk": dense_init(gen, d, cfg.n_kv_heads * hd, dt),
@@ -64,38 +72,45 @@ class KVCache(NamedTuple):
     v: torch.Tensor    # (B, Hkv, S, D)
 
 
-def _project_qkv(params, cfg: ArchConfig, x):
-    """x (B, S, d) → q (B, S, Hq, hd), k and v (B, S, Hkv, hd)."""
+def _project_qkv(params, cfg: ArchConfig, x, kv_x=None):
+    """x (B, S, d) → q (B, S, Hq, hd); k and v (B, Skv, Hkv, hd) from
+    ``kv_x`` (B, Skv, d), x itself by default."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
+    kv_x = x if kv_x is None else kv_x
     q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = (x @ params["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ params["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    k = (kv_x @ params["wk"]).reshape(B, kv_x.shape[1], cfg.n_kv_heads, hd)
+    v = (kv_x @ params["wv"]).reshape(B, kv_x.shape[1], cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
     return q, k, v
 
 
-def attention(params, cfg: ArchConfig, x, *, positions=None, window=None):
-    """Full-sequence (prefill) causal self-attention, over the last
-    ``window`` keys when one is given.  x (B, S, d) → (out (B, S, d), KVCache
-    of this call's rotated k and v in (B, Hkv, S, hd) layout — strided views
-    of the projections, not copies)."""
+def attention(params, cfg: ArchConfig, x, *, positions=None, causal=True,
+              window=None, kv_x=None, use_rope=True):
+    """Full-sequence (prefill, training, encoder) attention: causal unless
+    ``causal`` is False, over the last ``window`` keys when one is given,
+    RoPE on q and k where ``use_rope``.  With a context ``kv_x`` (B, Sctx,
+    d) it is cross-attention: k and v come from the context, and it is
+    neither causal nor rotated.  x (B, S, d) → (out (B, S, d), KVCache of
+    this call's k and v in (B, Hkv, Skv, hd) layout — strided views of the
+    projections, not copies)."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(params, cfg, x)
-    pos = positions if positions is not None \
-        else torch.arange(S, device=x.device)[None, :]
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
+    q, k, v = _project_qkv(params, cfg, x, kv_x)
+    if use_rope and kv_x is None:
+        pos = positions if positions is not None \
+            else torch.arange(S, device=x.device)[None, :]
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-    out = _flash(qh, kh, vh, causal=True, window=window)
+    out = _flash(qh, kh, vh, causal=causal and kv_x is None, window=window)
     out = out.transpose(1, 2).reshape(B, S, -1)
     return out @ params["wo"], KVCache(kh, vh)
 
 
 def attention_decode(params, cfg: ArchConfig, x, cache: KVCache, pos, *,
-                     window=None):
+                     window=None, use_rope=True):
     """One-token decode.  x (B, 1, d); ``cache`` holds S_max slots; ``pos``
     (B,) — each sequence's current length, the new token's index.
 
@@ -104,12 +119,14 @@ def attention_decode(params, cfg: ArchConfig, x, cache: KVCache, pos, *,
     past the cache writes nothing, as there.  With a ``window`` the cache is
     a ring buffer (recurrentgemma's local attention): position p lives at
     slot ``p % S_max``.  The query sees ``min(pos + 1, S_max)`` slots.
-    Returns (out (B, 1, d), cache)."""
+    ``use_rope`` rotates q and k at ``pos``.  Returns (out (B, 1, d),
+    cache)."""
     B = x.shape[0]
     q, k, v = _project_qkv(params, cfg, x)
-    q = apply_rope(q, pos[:, None], cfg.rope_theta)[:, 0]     # (B, Hq, hd)
-    k = apply_rope(k, pos[:, None], cfg.rope_theta)[:, 0]     # (B, Hkv, hd)
-    v = v[:, 0]
+    if use_rope:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    q, k, v = q[:, 0], k[:, 0], v[:, 0]          # (B, Hq | Hkv, hd)
     S_max = cache.k.shape[2]
     slot = pos % S_max if window is not None else pos
     in_range = (slot < S_max)[:, None, None]
@@ -121,6 +138,27 @@ def attention_decode(params, cfg: ArchConfig, x, cache: KVCache, pos, *,
     lengths = torch.clamp(pos + 1, max=S_max)
     out = decode_attention(q, cache.k, cache.v, lengths)
     return out.reshape(B, 1, -1) @ params["wo"], cache
+
+
+def context_lengths(cache: KVCache):
+    """(B,) int32 of the context cache's slot count: every sequence sees
+    all of it.  Built once a decode step and shared by its cross layers."""
+    return torch.full((cache.k.shape[0],), cache.k.shape[2],
+                      dtype=torch.int32, device=cache.k.device)
+
+
+def cross_attention_decode(params, cfg: ArchConfig, x, cache: KVCache,
+                           lengths):
+    """One-token cross-attention over a context cache that prefill filled:
+    only q is projected (the reference projects the token's k and v too,
+    and drops them), no RoPE, nothing is written.  ``lengths`` is
+    :func:`context_lengths` of the cache.  x (B, 1, d) → out (B, 1, d)."""
+    B = x.shape[0]
+    q = (x @ params["wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim_)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+    out = decode_attention(q[:, 0], cache.k, cache.v, lengths)
+    return out.reshape(B, 1, -1) @ params["wo"]
 
 
 # ------------------------------------------------------------------ MLA block

@@ -13,6 +13,11 @@ layers unstacked into the port's per-layer list —
   comes across like any other;
 * rwkv6's ``{"ln0", "blocks": (L, …)}``: ``ln0`` at the top level and the
   blocks as ``layers``;
+* whisper's ``{"enc_pos", "dec_pos", "embed", "enc", "dec", "ln_enc",
+  "ln_dec"}``: the same keys, ``embed`` a bare ``(vocab, d)`` array and the
+  stacked ``enc`` and ``dec`` unstacked into per-layer lists;
+* the vlm's cross layers keep their ``gate_attn`` / ``gate_ffn`` scalars in
+  float32;
 * deepseek-v3's ``mtp`` subtree (``proj``, ``norm_h``, ``norm_e`` and one
   unstacked ``mla_dense`` block) as it is; MLA layers' ``attn`` leaves
   (``wq_a``, ``q_a_norm``, ``wq_b``, ``wkv_a``, ``kv_a_norm``, ``wkv_b``,
@@ -56,9 +61,13 @@ def _unstack(stacked, dev):
 
 
 def params_from_jax(np_tree, device=None):
-    """A JAX LM or rwkv6 parameter tree (numpy leaves) → the port's params
-    on ``device`` (default: the card)."""
+    """A JAX LM, rwkv6 or whisper parameter tree (numpy leaves) → the
+    port's params on ``device`` (default: the card)."""
     dev = resolve_device(device)
+    if "enc" in np_tree:                                       # whisper
+        return {k: (_unstack(v, dev) if k in ("enc", "dec")
+                    else _map(lambda a: _tensor(a, dev), v))
+                for k, v in np_tree.items()}
     out = {k: _map(lambda a: _tensor(a, dev), np_tree[k])
            for k in ("embed", "final_norm", "mtp") if k in np_tree}
     stack = np_tree["stack"]

@@ -90,6 +90,18 @@ def mlp(params, x, act="silu"):
     return (g * (x @ params["wi_up"])) @ params["wo"]
 
 
+def init_ffn_nogate(gen, d, d_ff, dtype):
+    """Whisper-style two-matrix FFN."""
+    return {"wi": dense_init(gen, d, d_ff, dtype),
+            "wo": dense_init(gen, d_ff, d, dtype)}
+
+
+def ffn_nogate(params, x):
+    """gelu(x W_i) W_o with the tanh-approximate GeLU, as the reference's
+    ``jax.nn.gelu(approximate=True)``."""
+    return F.gelu(x @ params["wi"], approximate="tanh") @ params["wo"]
+
+
 # --------------------------------------------------------------- embeddings
 def init_embedding(gen, vocab, d, dtype, tie):
     p = {"table": embed_init(gen, vocab, d, dtype)}

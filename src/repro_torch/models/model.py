@@ -1,5 +1,5 @@
 """Model factory, the counterpart of ``repro/models/model.py``'s
-``build_model`` / ``_build_lm`` / ``_build_rwkv``.
+``build_model`` / ``_build_lm`` / ``_build_encdec`` / ``_build_rwkv``.
 
 ``build_model(cfg, remat=..., xent_chunks=...)`` returns a :class:`Model` of
 functions:
@@ -12,16 +12,21 @@ functions:
   init_cache(batch_size, s_max, device=None) → caches
   input_specs(shape)                   → dict of meta tensors
 
-``batch`` is a dict ``{"tokens": (B, S) int}``; ``caches`` is one entry per
-layer.  The LM family covers the dense models, the hybrid one
-(recurrentgemma) and the MoE family with GQA attention (llama4-maverick)
-or MLA (deepseek-v3; as in the reference, a ``family="moe"`` config
-without ``moe`` gets the dense plan); rwkv6 (family ``ssm``) has its own
-stack.  A config with ``mtp_depth`` (deepseek-v3) also draws the
+``batch`` is a dict ``{"tokens": (B, S) int}`` plus, for the vlm and audio
+families, ``{"context": (B, n_ctx, d)}``, the stubbed modality frontend's
+output in the model dtype; ``caches`` is one entry per layer (whisper's an
+:class:`~repro_torch.models.encdec.EncDecCache`).  The LM family covers
+the dense models, the hybrid one (recurrentgemma), the MoE family with GQA
+attention (llama4-maverick) or MLA (deepseek-v3; as in the reference, a
+``family="moe"`` config without ``moe`` gets the dense plan) and the vlm
+(llama-3.2-vision: its cross layers read the context at prefill and in
+training, and decode attends the cross caches prefill filled); rwkv6
+(family ``ssm``) and whisper (family ``audio``, :mod:`.encdec`) have their
+own stacks.  A config with ``mtp_depth`` (deepseek-v3) also draws the
 reference's multi-token-prediction subtree ``mtp`` (``proj``, ``norm_h``,
 ``norm_e`` and one ``mla_dense`` block), so the two parameter trees line
 up leaf for leaf; ``train_loss`` reads it (the MTP term), the serving
-path does not.  The vlm and audio families raise ``NotImplementedError``.
+path does not.
 
 ``train_loss`` is the reference's: next-token cross-entropy of
 ``tokens[:, :-1]`` → ``tokens[:, 1:]`` through the training stack
@@ -40,6 +45,7 @@ import torch
 
 from ..configs.base import ArchConfig, ShapeConfig
 from ..core.runtime import resolve_device
+from . import encdec as E
 from . import rwkv6 as W
 from . import transformer as T
 from .layers import (dense_init, embed, init_embedding, init_layernorm,
@@ -65,19 +71,28 @@ def build_model(cfg: ArchConfig, *, remat: str = "block",
     """``remat``: ``"none"``, ``"block"`` or ``"full"`` (each training
     block recomputed in the backward pass; the reference's knob);
     ``xent_chunks``: sequence chunks of the unembedding and loss."""
-    if cfg.family in ("dense", "hybrid", "moe"):
-        return _build_lm(cfg, remat, xent_chunks)
+    if cfg.family == "audio":
+        return _build_encdec(cfg, remat)
     if cfg.family == "ssm":
         return _build_rwkv(cfg, remat)
-    raise NotImplementedError(
-        f"{cfg.name}: family {cfg.family!r} is not ported; the port builds "
-        f"the dense, hybrid, ssm and moe families (the others are ROADMAP "
-        f"Queue A item 11)")
+    return _build_lm(cfg, remat, xent_chunks)
+
+
+def _device(params):
+    """The parameters' device: the embedding table's (whisper's is a bare
+    array, the others' a ``{"table"}`` dict)."""
+    e = params["embed"]
+    return (e if isinstance(e, torch.Tensor) else e["table"]).device
 
 
 def _tokens(params, batch):
-    return torch.as_tensor(batch["tokens"]).to(
-        params["embed"]["table"].device).long()
+    return torch.as_tensor(batch["tokens"]).to(_device(params)).long()
+
+
+def _context(params, batch):
+    """``batch["context"]`` on the parameters' device, or None."""
+    ctx = batch.get("context")
+    return None if ctx is None else torch.as_tensor(ctx).to(_device(params))
 
 
 def _last_pos(tokens):
@@ -133,18 +148,28 @@ def _input_specs(cfg: ArchConfig, shape: ShapeConfig, init_cache):
     """The inputs of a (config, shape) cell as meta tensors of the
     reference's shapes and dtypes: a train cell's batch is (B, S + 1)
     tokens, a prefill cell's (B, S), a decode cell's one token, each
-    sequence's position and a cache of ``seq_len`` slots."""
+    sequence's position and a cache of ``seq_len`` slots; the vlm and audio
+    families' batches add the context (B, n_ctx, d) in the model dtype (a
+    decode cell's as its ``batch``)."""
     B, S = shape.global_batch, shape.seq_len
 
     def tok(*dims):
         return torch.empty(dims, dtype=torch.int32, device="meta")
 
+    ctx = {}
+    if cfg.family in ("vlm", "audio"):
+        ctx["context"] = torch.empty(
+            (B, cfg.cross.n_context_tokens, cfg.d_model), dtype=cfg.dtype_,
+            device="meta")
     if shape.kind == "train":
-        return {"batch": {"tokens": tok(B, S + 1)}}
+        return {"batch": {"tokens": tok(B, S + 1)} | ctx}
     if shape.kind == "prefill":
-        return {"batch": {"tokens": tok(B, S)}}
-    return {"token": tok(B, 1), "pos": tok(B),
-            "cache": init_cache(B, S, device="meta")}
+        return {"batch": {"tokens": tok(B, S)} | ctx}
+    specs = {"token": tok(B, 1), "pos": tok(B),
+             "cache": init_cache(B, S, device="meta")}
+    if ctx:
+        specs["batch"] = ctx
+    return specs
 
 
 # ---------------------------------------------------------------- LM family
@@ -177,13 +202,15 @@ def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int) -> Model:
         x = embed(params["embed"], tokens)
         return x * embed_scale if embed_scale is not None else x
 
-    def _hidden(params, tokens):
+    def _hidden(params, tokens, context):
         x, aux = T.apply_stack_train(params["layers"], cfg,
-                                     _embed_in(params, tokens), remat)
+                                     _embed_in(params, tokens), remat,
+                                     context)
         return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
     def logits(params, batch):
-        h, _aux = _hidden(params, _tokens(params, batch))
+        h, _aux = _hidden(params, _tokens(params, batch),
+                          _context(params, batch))
         return unembed(params["embed"], h, cfg.tie_embeddings)
 
     def train_loss(params, batch):
@@ -191,7 +218,7 @@ def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int) -> Model:
         cross-entropy (+ MoE aux, + MTP), metrics ``xent``, ``moe_aux``
         and, with MTP, ``mtp``."""
         tokens, inputs, labels = _split_tokens(params, batch)
-        h, aux = _hidden(params, inputs)
+        h, aux = _hidden(params, inputs, _context(params, batch))
         if xent_chunks > 1:
             loss = _xent_chunked(params["embed"], h, labels,
                                  cfg.tie_embeddings, xent_chunks)
@@ -226,7 +253,8 @@ def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int) -> Model:
     def prefill(params, batch, s_max):
         tokens = _tokens(params, batch)
         x = _embed_in(params, tokens)
-        x, caches = T.fill_stack_cache(params["layers"], cfg, x, s_max)
+        x, caches = T.fill_stack_cache(params["layers"], cfg, x, s_max,
+                                       context=_context(params, batch))
         h = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
         lg = unembed(params["embed"], h, cfg.tie_embeddings)[:, 0]
         return lg, caches, _last_pos(tokens)
@@ -238,6 +266,44 @@ def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int) -> Model:
         h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         lg = unembed(params["embed"], h, cfg.tie_embeddings)[:, 0]
         return lg, caches
+
+    def input_specs(shape: ShapeConfig):
+        return _input_specs(cfg, shape, init_cache)
+
+    return Model(cfg, init, train_loss, logits, prefill, decode_step,
+                 init_cache, input_specs)
+
+
+# ------------------------------------------------------------------- whisper
+def _build_encdec(cfg: ArchConfig, remat: str) -> Model:
+    def init(generator: torch.Generator):
+        """Random weights, drawn from ``generator`` on its device."""
+        return E.init_encdec(generator, cfg)
+
+    def logits(params, batch):
+        enc_out = E.encode(params, cfg, _context(params, batch), remat)
+        return E.decode_train(params, cfg, _tokens(params, batch), enc_out,
+                              remat)
+
+    def train_loss(params, batch):
+        _tokens_all, inputs, labels = _split_tokens(params, batch)
+        lg = logits(params, {"tokens": inputs,
+                             "context": _context(params, batch)})
+        loss = _xent(lg, labels)
+        return loss, {"xent": loss}
+
+    def init_cache(batch_size, s_max, device=None):
+        return E.init_cache(cfg, batch_size, s_max, resolve_device(device))
+
+    def prefill(params, batch, s_max):
+        tokens = _tokens(params, batch)
+        lg, cache = E.prefill(params, cfg, tokens, _context(params, batch),
+                              s_max)
+        return lg, cache, _last_pos(tokens)
+
+    def decode_step(params, token, cache, pos, batch=None):
+        return E.decode_step(params, cfg,
+                             _tokens(params, {"tokens": token}), cache, pos)
 
     def input_specs(shape: ShapeConfig):
         return _input_specs(cfg, shape, init_cache)

@@ -1,5 +1,5 @@
-"""Decoder-only transformer stack, the counterpart of the dense, hybrid and
-MoE (GQA and MLA) plans of ``repro/models/transformer.py``.
+"""Decoder-only transformer stack, the counterpart of the dense, hybrid,
+MoE (GQA and MLA) and vlm plans of ``repro/models/transformer.py``.
 
 A stack is a flat list of block kinds (:func:`layer_kinds`), in the
 reference's layer order: ``attn × L`` for the dense family; for the hybrid
@@ -8,19 +8,26 @@ layers left over; for an MoE config, with mixer ``m`` = ``mla`` where the
 config has MLA dims and ``attn`` otherwise, ``[m_dense] × (moe_every_k -
 1) + [m_moe]`` repeated (llama4: ``[attn_dense, attn_moe] × L/2``), or,
 where ``moe_every_k`` is 1, ``[m_dense] × first_k_dense`` followed by
-``m_moe`` layers (deepseek-v3: ``[mla_dense] × 3 + [mla_moe] × 58``).  The
+``m_moe`` layers (deepseek-v3: ``[mla_dense] × 3 + [mla_moe] × 58``); for
+the vlm family ``[attn × (k − 1), cross] × L/k`` with k =
+``cross.every_k`` (llama-3.2-vision: ``[attn × 4, cross] × 8``).  The
 reference scans stacked ``(n, …)`` parameters per superblock position with
 ``layer_scan``; the port keeps one parameter dict per layer in a list and
-loops over it in Python.  The cross-attention plans wait for their
-families (ROADMAP Queue A item 11).
+loops over it in Python.
 
 Kinds: ``attn`` / ``attn_dense`` / ``attn_moe`` (causal GQA attention),
 ``mla_dense`` / ``mla_moe`` (causal MLA, with an :class:`MLACache` of the
 compressed latents; no window), ``local`` (attention over the last
 ``hybrid.window`` keys, with a ring-buffer decode cache of ``min(s_max,
-window)`` slots) and ``rec`` (the RG-LRU block with a :class:`RecState`
-cache).  Each is followed by its FFN: the MoE block for ``*_moe`` kinds,
-else the gated MLP (``d_ff_dense`` wide in an MoE config).
+window)`` slots), ``rec`` (the RG-LRU block with a :class:`RecState`
+cache) and ``cross`` (gated cross-attention over the context: k and v
+projected from the context, no RoPE, not causal; both sublayers scaled by
+``tanh`` of the layer's float32 ``gate_attn`` / ``gate_ffn`` scalars; its
+decode cache is the context's k/v, ``n_ctx`` slots filled at prefill and
+never written).  Each is followed by its FFN: the MoE block for ``*_moe``
+kinds, else the gated MLP (``d_ff_dense`` wide in an MoE config).  Blocks
+take the context (``context``, (B, n_ctx, d)) as an argument; only the
+cross kind reads it.
 
 Training runs :func:`apply_stack_train`: every block returns its MoE
 load-balance loss beside its output, as the reference's
@@ -51,6 +58,12 @@ def layer_kinds(cfg: ArchConfig) -> List[str]:
         block = ["rec"] * (period - 1) + ["local"]
         n = cfg.n_layers // period
         return block * n + ["rec"] * (cfg.n_layers - n * period)
+    if cfg.family == "vlm":
+        k = cfg.cross.every_k
+        if cfg.n_layers % k:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers is not a "
+                             f"multiple of cross.every_k {k}")
+        return (["attn"] * (k - 1) + ["cross"]) * (cfg.n_layers // k)
     mo = cfg.moe
     if mo is not None:
         mixer = "mla" if cfg.mla is not None else "attn"
@@ -75,6 +88,9 @@ def layer_stacks(cfg: ArchConfig) -> List[List[int]]:
     L = cfg.n_layers
     if cfg.family == "hybrid":
         period = cfg.hybrid.pattern_period
+        n = L // period
+    elif cfg.family == "vlm":
+        period = cfg.cross.every_k
         n = L // period
     elif cfg.moe is not None and cfg.moe.moe_every_k > 1:
         period, n = cfg.moe.moe_every_k, L // cfg.moe.moe_every_k
@@ -114,6 +130,12 @@ def init_block(gen, cfg: ArchConfig, kind: str):
         p["temporal"] = R.init_rglru(gen, cfg)
     elif _is_mla(kind):
         p["attn"] = A.init_mla(gen, cfg)
+    elif kind == "cross":
+        p["attn"] = A.init_attention(gen, cfg)
+        p["gate_attn"] = torch.zeros((), dtype=torch.float32,
+                                     device=gen.device)
+        p["gate_ffn"] = torch.zeros((), dtype=torch.float32,
+                                    device=gen.device)
     else:
         p["attn"] = A.init_attention(gen, cfg)
     if _is_moe(kind):
@@ -132,7 +154,13 @@ def _apply_ffn(params, cfg: ArchConfig, kind: str, h):
     return mlp(params["ffn"], h, cfg.act), None
 
 
-def _block(params, cfg: ArchConfig, kind: str, x, positions):
+def _gate(params, name, x, out):
+    """A cross layer's sublayer output scaled by ``tanh`` of its float32
+    gate, cast to the activations' dtype first, as the reference does."""
+    return torch.tanh(params[name]).to(x.dtype) * out
+
+
+def _block(params, cfg: ArchConfig, kind: str, x, positions, context):
     """x (B, S, d) → (x', the mixer's cache, the FFN's aux loss or None)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "rec":
@@ -140,61 +168,86 @@ def _block(params, cfg: ArchConfig, kind: str, x, positions):
     elif _is_mla(kind):
         out, cache = A.mla_attention(params["attn"], cfg, h,
                                      positions=positions)
+    elif kind == "cross":
+        if context is None:
+            raise ValueError(f"{cfg.name}: a cross-attention layer needs "
+                             f"the batch's context")
+        out, cache = A.attention(params["attn"], cfg, h, kv_x=context,
+                                 use_rope=False)
+        out = _gate(params, "gate_attn", x, out)
     else:
         out, cache = A.attention(params["attn"], cfg, h, positions=positions,
                                  window=_window(cfg, kind))
     x = x + out
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
     f_out, aux = _apply_ffn(params, cfg, kind, h)
+    if kind == "cross":
+        f_out = _gate(params, "gate_ffn", x, f_out)
     return x + f_out, cache, aux
 
 
-def apply_block_train(params, cfg: ArchConfig, kind: str, x, positions=None):
+def apply_block_train(params, cfg: ArchConfig, kind: str, x, positions=None,
+                      context=None):
     """x (B, S, d) → (x', cache).  Where the reference returns an auxiliary
     loss, the port's serving block returns what prefill stores as the
-    decode cache: the attention's rotated k/v, MLA's compressed latents, or
-    the recurrent block's final :class:`RecState` (:func:`train_block`
-    returns the loss)."""
-    x, cache, _aux = _block(params, cfg, kind, x, positions)
+    decode cache: the attention's rotated k/v (a cross layer's: the
+    context's), MLA's compressed latents, or the recurrent block's final
+    :class:`RecState` (:func:`train_block` returns the loss)."""
+    x, cache, _aux = _block(params, cfg, kind, x, positions, context)
     return x, cache
 
 
-def train_block(params, cfg: ArchConfig, kind: str, x, positions=None):
+def train_block(params, cfg: ArchConfig, kind: str, x, positions=None,
+                context=None):
     """x (B, S, d) → (x', aux), the reference's ``apply_block_train``: aux
     is the MoE block's load-balance loss, a float32 zero for the others."""
-    x, _cache, aux = _block(params, cfg, kind, x, positions)
+    x, _cache, aux = _block(params, cfg, kind, x, positions, context)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
 
 
-def apply_stack_train(params, cfg: ArchConfig, x, remat: str = "block"):
+def apply_stack_train(params, cfg: ArchConfig, x, remat: str = "block",
+                      context=None):
     """The stack for training: x (B, S, d) → (x', sum of the blocks' aux
     losses).  ``remat`` ``"block"`` or ``"full"`` recomputes each block in
     the backward pass from its input (``torch.utils.checkpoint``,
     non-reentrant), as the reference's ``jax.checkpoint`` of each block;
-    ``"none"`` keeps every activation."""
+    ``"none"`` keeps every activation.  ``context`` feeds the cross
+    layers."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p in zip(layer_kinds(cfg), params):
-        x, aux = remat_call(remat, train_block, p, cfg, kind, x)
+        x, aux = remat_call(remat, train_block, p, cfg, kind, x, None,
+                            context)
         aux_total = aux_total + aux
     return x, aux_total
 
 
-def apply_block_decode(params, cfg: ArchConfig, kind: str, x, cache, pos):
+def apply_block_decode(params, cfg: ArchConfig, kind: str, x, cache, pos,
+                       ctx_lengths=None):
     """x (B, 1, d), pos (B,) → (x', cache); a GQA attention cache is
-    updated in place, an MLA cache rewritten as the reference does."""
+    updated in place, an MLA cache rewritten as the reference does, a cross
+    layer's context cache read (through ``ctx_lengths``,
+    :func:`~repro_torch.models.attention.context_lengths`) and returned as
+    it is."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "rec":
         out, cache = R.rglru_block_decode(params["temporal"], h, cache)
     elif _is_mla(kind):
         out, cache = A.mla_decode(params["attn"], cfg, h, cache, pos)
+    elif kind == "cross":
+        out = A.cross_attention_decode(params["attn"], cfg, h, cache,
+                                       ctx_lengths)
+        out = _gate(params, "gate_attn", x, out)
     else:
         out, cache = A.attention_decode(params["attn"], cfg, h, cache, pos,
                                         window=_window(cfg, kind))
     x = x + out
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + _apply_ffn(params, cfg, kind, h)[0], cache
+    f_out = _apply_ffn(params, cfg, kind, h)[0]
+    if kind == "cross":
+        f_out = _gate(params, "gate_ffn", x, f_out)
+    return x + f_out, cache
 
 
 def init_stack(gen, cfg: ArchConfig) -> List[dict]:
@@ -202,10 +255,14 @@ def init_stack(gen, cfg: ArchConfig) -> List[dict]:
 
 
 def _cache_slots(cfg: ArchConfig, kind: str, s_max: int) -> int:
+    if kind == "cross":
+        return cfg.cross.n_context_tokens
     return min(s_max, cfg.hybrid.window) if kind == "local" else s_max
 
 
 def init_stack_cache(cfg: ArchConfig, batch: int, s_max: int, device):
+    """Every layer's empty decode cache; a cross layer's holds
+    ``cross.n_context_tokens`` slots."""
     caches = []
     for kind in layer_kinds(cfg):
         if kind == "rec":
@@ -227,24 +284,30 @@ def init_stack_cache(cfg: ArchConfig, batch: int, s_max: int, device):
 
 
 def apply_stack_decode(params, cfg: ArchConfig, x, caches, pos):
+    kinds = layer_kinds(cfg)
+    ctx_lengths = A.context_lengths(caches[kinds.index("cross")]) \
+        if "cross" in kinds else None
     new = []
-    for kind, p, c in zip(layer_kinds(cfg), params, caches):
-        x, c = apply_block_decode(p, cfg, kind, x, c, pos)
+    for kind, p, c in zip(kinds, params, caches):
+        x, c = apply_block_decode(p, cfg, kind, x, c, pos, ctx_lengths)
         new.append(c)
     return x, new
 
 
 def fill_stack_cache(params, cfg: ArchConfig, x, s_max: int,
-                     positions=None):
+                     positions=None, context=None):
     """Prefill: run the stack over the prompt, returning the final hidden
     states and every layer's decode cache: the recurrent state, MLA's
-    latents zero-padded to ``s_max`` slots, or the k/v laid out in
-    ``s_max`` (``min(s_max, window)`` for a local layer) slots."""
+    latents zero-padded to ``s_max`` slots, a cross layer's k/v of the
+    whole ``context``, or the k/v laid out in ``s_max`` (``min(s_max,
+    window)`` for a local layer) slots."""
     caches = []
     for kind, p in zip(layer_kinds(cfg), params):
-        x, c = apply_block_train(p, cfg, kind, x, positions)
+        x, c = apply_block_train(p, cfg, kind, x, positions, context)
         if _is_mla(kind):
             c = _mla_prefill_cache(c, s_max)
+        elif kind == "cross":
+            c = A.KVCache(*(t.contiguous() for t in c))
         elif kind != "rec":
             c = _block_prefill_cache(c, _cache_slots(cfg, kind, s_max),
                                      ring=kind == "local")

@@ -13,11 +13,14 @@ The engine's KV-cache page table is a :class:`~repro_torch.core.KVStore`:
 
 Requests are admitted through a :class:`~repro_torch.core.queue.SharedQueue`.
 The model is any family :func:`repro_torch.models.build_model` builds — a
-dense LM, recurrentgemma (hybrid), rwkv6 (ssm) or llama4-maverick (moe) —
-and the engine is family-agnostic, as the reference's is: it hands the
-model's prefill caches back to its decode step.  On the card prefill and
-decode run the port's kernels (attention, RG-LRU, WKV6, the grouped
-matmul).  The P participants are the port's
+dense LM, recurrentgemma (hybrid), rwkv6 (ssm), llama4-maverick or
+deepseek-v3 (moe), llama-3.2-vision (vlm) or whisper (audio) — and the
+engine is family-agnostic, as the reference's is: it hands the model's
+prefill caches back to its decode step.  A vlm or audio model gets, at each
+prefill, the reference's stand-in for its frontend: a zero context of
+``(max_batch, n_context_tokens, d_model)`` in the model dtype.  On the card
+prefill and decode run the port's kernels (attention, RG-LRU, WKV6, the
+grouped matmul).  The P participants are the port's
 stacked binding on one device.
 
 With ``replicas=N`` the engine keeps N follower copies of the page table fed
@@ -393,6 +396,11 @@ class ServingEngine:
             for j, (_r, p) in enumerate(active):
                 toks[j, -len(p):] = p
             batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+            if self.cfg.family in ("vlm", "audio"):
+                batch["context"] = torch.zeros(
+                    (self.max_batch, self.cfg.cross.n_context_tokens,
+                     self.cfg.d_model), dtype=self.cfg.dtype_,
+                    device=self.device)
             logits, cache, pos = self._prefill(self.params, batch,
                                                self.max_seq)
             next_tok = logits.argmax(-1).to(torch.int32)

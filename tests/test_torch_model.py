@@ -35,7 +35,9 @@ def _np(tree):
 
 @pytest.mark.parametrize("arch", ARCHS + ["recurrentgemma-2b", "rwkv6-7b",
                                           "llama4-maverick-400b-a17b",
-                                          "deepseek-v3-671b"])
+                                          "deepseek-v3-671b",
+                                          "llama-3.2-vision-11b",
+                                          "whisper-large-v3"])
 def test_configs_match_the_reference(arch):
     import dataclasses
 
@@ -45,7 +47,7 @@ def test_configs_match_the_reference(arch):
         for f in ("name", "family", "n_layers", "d_model", "n_heads",
                   "n_kv_heads", "d_ff", "vocab", "head_dim_", "qk_norm",
                   "act", "norm_eps", "rope_theta", "tie_embeddings", "dtype",
-                  "scale_embed", "mtp_depth"):
+                  "scale_embed", "mtp_depth", "n_enc_layers"):
             assert getattr(port, f) == getattr(ref, f), f
         if ref.hybrid is None:
             assert port.hybrid is None
@@ -65,7 +67,11 @@ def test_configs_match_the_reference(arch):
             assert port.mla is None
         else:
             assert dataclasses.asdict(port.mla) == dataclasses.asdict(ref.mla)
-        assert ref.cross is None
+        if ref.cross is None:
+            assert port.cross is None
+        else:
+            assert dataclasses.asdict(port.cross) == \
+                dataclasses.asdict(ref.cross)
         assert port.dtype_ == torch.bfloat16
         assert port.replace(dtype="float32").dtype_ == torch.float32
 
@@ -127,10 +133,27 @@ def test_prefill_and_decode_match_the_reference(arch):
 
 
 @pytest.mark.parametrize("family", ["vlm", "audio"])
-def test_unported_families_are_refused(family):
-    cfg = get_smoke_config("llama3.2-3b").replace(family=family)
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        build_model(cfg)
+def test_unported_families_are_refused(family, capsys):
+    """The two families the port refused until it carried them (vlm:
+    llama-3.2-vision, audio: whisper) are refused no longer: the smoke
+    model builds and ``launch.serve --arch <id> --smoke --device cpu``
+    serves it (a zero context, as in the reference), every admitted page
+    deleted."""
+    from repro_torch.core.kvstore import DELETE, INSERT
+    from repro_torch.launch.serve import main
+    arch = {"vlm": "llama-3.2-vision-11b", "audio": "whisper-large-v3"}[
+        family]
+    cfg = get_smoke_config(arch)
+    assert cfg.family == family
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    assert ("enc" in params) == (family == "audio")
+    outs, stats = main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--requests", "3", "--prompt-len", "8",
+                        "--gen-len", "3", "--max-batch", "2"])
+    assert len(outs) == 3 and all(len(o) == 3 for o in outs)
+    assert all(0 <= t < cfg.vocab for o in outs for t in o)
+    assert stats["kv_ops"][INSERT] == stats["kv_ops"][DELETE] > 0
+    assert "[serve] 3 requests" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v3-671b", "gemma-2b",

@@ -1,8 +1,10 @@
 """The port's ServingEngine against the JAX package's, mirroring
 tests/test_serving_and_roofline.py::TestServingEngine: the smoke configs of
-llama3.2-3b (dense), recurrentgemma-2b (hybrid), rwkv6-7b (ssm) and
-llama4-maverick-400b-a17b (moe) in float32, max_batch=2, max_seq=48, four
-12-token prompts, 4 generated tokens each.  The port's engine carries the JAX engine's weights
+llama3.2-3b (dense), recurrentgemma-2b (hybrid), rwkv6-7b (ssm),
+llama4-maverick-400b-a17b (moe), llama-3.2-vision-11b (vlm) and
+whisper-large-v3 (audio; both engines hand these two a zero context) in
+float32, max_batch=2, max_seq=48, four 12-token prompts, 4 generated tokens
+each.  The port's engine carries the JAX engine's weights
 (``params_from_jax``) and runs on the CPU.
 
 Checked: the generated tokens are equal; ``stats()["kv_ops"]`` and
@@ -31,7 +33,8 @@ from repro_torch.serving import MAX_WINDOW, P_NODES, ServingEngine  # noqa: E402
 
 @pytest.fixture(scope="module",
                 params=["llama3.2-3b", "recurrentgemma-2b", "rwkv6-7b",
-                        "llama4-maverick-400b-a17b"])
+                        "llama4-maverick-400b-a17b", "llama-3.2-vision-11b",
+                        "whisper-large-v3"])
 def engines(request):
     reference_core()
     from repro.configs import get_smoke_config as jax_smoke

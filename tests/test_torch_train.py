@@ -2,11 +2,14 @@
 float32: ``train_loss`` and every gradient leaf on the smoke configs of
 llama3.2-3b, gemma-2b, qwen3-8b, recurrentgemma-2b, rwkv6-7b,
 llama4-maverick (the MoE aux term) and deepseek-v3 (MLA, MoE aux and the
-MTP term), and llama3.2-3b's with the loss in 4 sequence chunks; the
+MTP term), and llama3.2-3b's with the loss in 4 sequence chunks;
+``train_loss`` and every gradient of the llama-3.2-vision (seeded non-zero
+gates) and whisper smoke models on the pipeline's context, against
+``jax.value_and_grad`` of the reference's ``train_loss``; the
 parameters and optimizer moments after two AdamW steps and
 one Adafactor step; microbatching; the loss falling on a repeated batch;
-the Philox pipeline; checkpoints; the launcher with a resume; and
-``input_specs``.
+the Philox pipeline and its context synthesizer; checkpoints; the launcher
+with a resume; and ``input_specs``.
 
 The reference runs as its trainer builds it: ``make_train_step`` on a
 (1, 1) mesh (attention ``impl="chunked"``, ``remat="block"``, the MoE
@@ -104,6 +107,51 @@ def test_train_loss_and_grads_match_the_reference(arch, xent_chunks):
     for (path, w), g in zip(want, grads):
         np.testing.assert_allclose(g.numpy(), w.numpy(), **GRAD_TOL,
                                    err_msg=f"{arch} grad {path}")
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-large-v3"])
+def test_cross_families_train_loss_and_grads_match_the_reference(arch):
+    """The vlm and audio families' ``train_loss`` and every gradient leaf on
+    a pipeline batch with its context, against ``jax.value_and_grad`` of
+    the reference model's ``train_loss`` (``impl="chunked"``,
+    ``remat="block"``); the vlm's gates are seeded non-zero first (at 0 a
+    cross layer's weights get no gradient)."""
+    from test_torch_cross import seeded_gates
+
+    from repro.models import build_model as jax_build
+    jcfg, cfg = _configs(arch)
+    jmodel = jax_build(jcfg, impl="chunked", remat="block")
+    jparams = _np(jmodel.init(jax.random.PRNGKey(0)))
+    if cfg.family == "vlm":
+        jparams = seeded_gates(jparams, np.random.default_rng(27))
+    batch = JaxTokens(jcfg, batch=B, seq=S, seed=0).get_batch(0)
+    assert batch["context"].shape == (B, cfg.cross.n_context_tokens,
+                                      cfg.d_model)
+    (jloss, _jmet), jgrads = jax.jit(jax.value_and_grad(
+        jmodel.train_loss, has_aux=True))(
+            jax.tree.map(jnp.asarray, jparams),
+            jax.tree.map(jnp.asarray, batch))
+    model = build_model(cfg)
+    params = params_from_jax(jparams, device="cpu")
+    ps = leaves(params)
+    for p in ps:
+        p.requires_grad_(True)
+    loss, met = model.train_loss(
+        params, {"tokens": batch["tokens"],
+                 "context": torch.from_numpy(batch["context"])})
+    grads = torch.autograd.grad(loss, ps)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(met["xent"].detach()), float(jloss),
+                               rtol=1e-5)
+    want = flatten(params_from_jax(_np(jgrads), device="cpu"))
+    assert [p for p, _ in want] == [p for p, _ in flatten(params)]
+    moved = 0
+    for (path, w), g in zip(want, grads):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **GRAD_TOL,
+                                   err_msg=f"{arch} grad {path}")
+        moved += bool(g.abs().max() > 0)
+    assert moved == len(grads)
 
 
 def _stacked_state(jtree, port_tree, port_params, shared_cols=False):
@@ -218,6 +266,34 @@ def test_pipelines_are_bitwise_the_reference(tmp_path):
     assert placed["tokens"].dtype == torch.int32
 
 
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-large-v3"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_context_synthesizer_is_bitwise_the_reference(arch, dtype):
+    """The vlm and audio families' batches carry the reference's context,
+    bit for bit, in the model dtype (a CPU tensor: numpy has no bfloat16);
+    ``place_batch`` takes it."""
+    from repro.configs import get_smoke_config as jax_smoke
+    jcfg = jax_smoke(arch).replace(dtype=dtype)
+    cfg = get_smoke_config(arch).replace(dtype=dtype)
+    for seed in (0, 5):
+        ours, theirs = SyntheticTokens(cfg, 3, 9, seed), \
+            JaxTokens(jcfg, 3, 9, seed)
+        for step in range(2):
+            a, b = ours.get_batch(step), theirs.get_batch(step)
+            assert a.keys() == b.keys() == {"tokens", "context"}
+            np.testing.assert_array_equal(a["tokens"], b["tokens"])
+            ctx = a["context"]
+            assert ctx.dtype == cfg.dtype_ and ctx.device.type == "cpu"
+            assert tuple(ctx.shape) == b["context"].shape == (
+                3, cfg.cross.n_context_tokens, cfg.d_model)
+            bits = np.uint16 if dtype == "bfloat16" else np.uint32
+            got = ctx.view(torch.int16 if dtype == "bfloat16"
+                           else torch.int32).numpy().view(bits)
+            np.testing.assert_array_equal(got, b["context"].view(bits))
+    placed = place_batch(ours.get_batch(0), "cpu")
+    assert placed["context"].dtype == cfg.dtype_
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_checkpoint_round_trips_bitwise(tmp_path, dtype):
     cfg = get_smoke_config("llama3.2-3b").replace(dtype=dtype)
@@ -271,7 +347,8 @@ def test_launcher_resumes_where_it_stopped(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "recurrentgemma-2b",
-                                  "rwkv6-7b"])
+                                  "rwkv6-7b", "llama-3.2-vision-11b",
+                                  "whisper-large-v3"])
 def test_input_specs_match_the_reference(arch):
     from repro.models import build_model as jax_build
     jcfg, cfg = _configs(arch)
@@ -284,6 +361,16 @@ def test_input_specs_match_the_reference(arch):
         for key in ("batch", "token", "pos"):
             if key not in want:
                 continue
+            if key == "batch":
+                assert want[key].keys() == got[key].keys()
+                if "context" in want[key]:
+                    w, g = want[key]["context"], got[key]["context"]
+                    assert g.device.type == "meta"
+                    assert tuple(g.shape) == w.shape
+                    assert g.dtype == cfg.dtype_ and str(w.dtype) == \
+                        str(g.dtype)[6:]
+                if "tokens" not in want[key]:
+                    continue
             w = want[key]["tokens"] if key == "batch" else want[key]
             g = got[key]["tokens"] if key == "batch" else got[key]
             assert g.device.type == "meta"
