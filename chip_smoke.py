@@ -9,12 +9,13 @@ toolkit:
 It imports neither JAX nor the JAX package.  Phases, in order; any failure
 exits non-zero and prints no result:
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (eight
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nine
    sources) with nvcc, one process per source, all at once, and check with
    ``cuobjdump -sass`` that the bf16 flash and grouped-matmul kernels run on
    the tensor cores (HMMA instructions), and from ``-Xptxas -v`` that the
    tensor-core flash and grouped-matmul ones do not spill (the flash
-   backward kernels' registers and spills are printed);
+   backward kernels', the RG-LRU kernels' and the WKV6 backward kernels'
+   registers and spills are printed);
 2. hold each kernel against its plain PyTorch version on the card: the
    remote-DMA kernels at the KVStore path's shapes (outputs and measured
    bytes bitwise equal, scatter collisions included), on the argument forms
@@ -82,6 +83,21 @@ exits non-zero and prints no result:
    tensor cores, the rest on the CUDA cores), the forward's log-sum-exp
    against the plain one's, two calls bitwise equal, and a call's device
    operations (the three kernels once each) under ``torch.profiler``;
+   also at the vlm's and whisper's training shapes (whisper's encoder, 20
+   heads of 64 over 1,500² frames, bidirectional; its cross-attention,
+   224 queries over 1,500 keys; the vision cross layers', 512 over 1,601,
+   32 heads on 8 of 128), on the tensor cores in bf16;
+2c. hold the recurrences' backward kernels against their plain versions
+   (``ref.rglru_bwd``, ``ref.wkv6_bwd``; tolerances ``BWD_TOL``):
+   ``rglru_scan_bwd`` (``csrc/rglru_scan.cu``) at recurrentgemma-2b's
+   training shape (2 x 4,096 x 2,560) with dh_final zero and seeded, D =
+   100, runs of log_a = 0, strong decays, D = 2568 and a base off 16
+   bytes, bf16 and float32, each on the copies ``_variant`` picks;
+   ``wkv6_bwd`` (``csrc/wkv6_bwd.cu``) in float32 at rwkv6-7b's (2 x 64
+   heads of 64 x 4,096 steps), D 16/32/48/64 with S off its 16-step
+   chunk, ds_final zero and seeded, strong decays and w exactly 0; two
+   calls bitwise equal, and a call's device operations (one kernel; three)
+   under ``torch.profiler``;
 3. run the same work on the card and on the CPU: a P=4 store through 20
    windows (states and results bitwise equal after every window), a P=4
    lock-free store through the same windows and then all-UPDATE and
@@ -99,8 +115,13 @@ exits non-zero and prints no result:
    two page-table replicas on the remote-DMA backend, its log leader killed
    and revived (equal tokens; page table, replicas, log and detector
    bitwise equal), and one float32 training step of the smoke llama3.2-3b
-   with AdamW, with Adafactor and with AdamW over 2 microbatches (loss,
-   parameters and optimizer state within 1e-4);
+   with AdamW, with Adafactor and with AdamW over 2 microbatches, and of
+   the smoke recurrentgemma-2b, rwkv6-7b, llama-3.2-vision (gates seeded
+   non-zero) and whisper with AdamW on the pipeline's random context (the
+   loss within 1e-4, every gradient leaf within ``GRAD_TOL`` of its
+   largest, the update of the same gradients within 1e-4, and for
+   llama3.2-3b the step's parameters and optimizer state within 1e-4 end
+   to end);
 4. the KVStore path — ``KVStore.op_window`` on the remote-DMA backend — at a
    deployment's size: P=8 participants, K=2**22 keys, 8-byte values,
    windows of 512 lanes per participant; prefill 80% of K, then 20 windows
@@ -184,10 +205,23 @@ exits non-zero and prints no result:
    recompute) and 28 backward calls a step and no other model kernel;
    step p50 / p99, tokens/s and peak memory; one more step under
    ``torch.profiler`` (device busy share, the flash forward's and
-   backward's shares); each kernel wrapper without a backward (``gmm``,
-   ``rglru_scan``, ``wkv6``, ``decode_attention``) refusing a
-   grad-requiring input on the card; and a checkpoint round trip of the
-   smoke model's bf16 state on the card, bitwise;
+   backward's shares); then, at full width and depth, FAMILY_STEPS steps
+   each of recurrentgemma-2b (2 x 4,096 tokens, AdamW: exactly 36 RG-LRU
+   scans and 18 backward calls a step, all on 16-byte copies, 16 flash
+   forwards and 8 backward calls on the CUDA cores at D 256), rwkv6-7b (2
+   x 4,096, Adafactor: exactly 64 WKV forwards on the float32 sequential
+   kernel and 32 backward calls), whisper-large-v3 (2 x 224 tokens over
+   1,500 frames, AdamW: 192 flash forwards and 96 backward calls, on the
+   tensor cores) and llama-3.2-vision-11b (2 x 512 over 1,601 context
+   tokens, Adafactor with bf16 moments: 80 and 40), each with the
+   pipeline's synthesized context where it has one, the same loss, launch
+   and route checks (no gmm, no decode attention), numbers and one
+   profiled step (the recurrences' forward and backward shares too);
+   ``gmm``, ``decode_attention`` and the bare ``rglru_scan`` and ``wkv6``
+   refusing a grad-requiring input on the card, ``RGLRUScan`` and
+   ``WKV6Train`` taking one and launching their backward kernels; and a
+   checkpoint round trip of the smoke model's bf16 state on the card,
+   bitwise;
 6. report the end-to-end numbers of every path, each kernel's launches on
    its path, its time beside its plain version's, one PyTorch call's and
    its bound (every row also with the kernel's device time per call from
@@ -200,12 +234,13 @@ exits non-zero and prints no result:
    rows also at whisper's encoder and cross-decode shapes and
    llama-3.2-vision's cross prefill; the flash
    backward's row at the training shape, with the backward of SDPA's
-   output beside it), the card's name and power limit, and last the
-   result line.
+   output beside it; the RG-LRU's and WKV6's backward rows at their
+   training shapes, with their device operations a call), the card's
+   name and power limit, and last the result line.
 
 Kernel launch counts are set to 0 just before each path and read just after
-it, so the checks of phases 2, 2b and 3 and the timings of phase 6 count
-nowhere;
+it, so the checks of phases 2, 2b, 2c and 3 and the timings of phase 6
+count nowhere;
 the map kernels' rows carry phase 4d's and 4e's counts beside the KVStore
 path's.
 On every replicated path the remote-copy kernel's launches must equal the
@@ -310,6 +345,19 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # remat per block, AdamW, TRAIN_STEPS steps on one repeated batch
 TRAIN_ARCH = "llama3.2-3b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6
+# the other families' training paths, at full width and depth, batches of
+# TRAIN_BATCH: recurrentgemma-2b and rwkv6-7b at train_4k's 4,096-token
+# length; whisper-large-v3 with phase 5's 224-token text over its 1,500
+# frames and llama-3.2-vision-11b with 512 tokens over its 1,601 context
+# tokens (the pipeline's synthesized context); FAMILY_STEPS steps each
+FAMILY_STEPS = 3
+TRAIN_PATHS = [
+    dict(arch="recurrentgemma-2b", seq=TRAIN_SEQ, optimizer="adamw"),
+    dict(arch="rwkv6-7b", seq=TRAIN_SEQ, optimizer="adafactor"),
+    dict(arch=WHISPER_ARCH, seq=WHISPER_PROMPT, optimizer="adamw"),
+    dict(arch=VISION_ARCH, seq=SERVE_PROMPT, optimizer="adafactor",
+         adam_dtype="bfloat16"),
+]
 # RG-LRU and WKV6 against their plain versions, as max abs error over
 # max(1, max |plain|).  float32 rglru: the same operations per step (the
 # square root the hardware's, within an ulp), but the kernel's tiled scan
@@ -322,6 +370,27 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6
 # are float32 on both sides, so they take the float32 tolerance.
 REC_TOL = {("rglru_scan", "float32"): 1e-5, ("wkv6", "float32"): 1e-4,
            ("rglru_scan", "bfloat16"): 1e-2, ("wkv6", "bfloat16"): 1e-2}
+# The recurrences' backward kernels against their plain versions on the
+# same inputs, element by element (:func:`elementwise_err`): |got - plain|
+# <= rtol·|plain| + atol·s, s the root mean square of the plain output.
+# Not against max |plain|: dlog_a's term a²x/b grows as 1/b where log_a
+# nears 0 (b = sqrt(1 - a²) ~ 2e-4 at the training shape's smallest
+# |log_a|), so its largest element is ~800x its RMS, and a limit scaled by
+# it would pass a gate term wrong on every ordinary element.  atol·s: the
+# float32 scans' rounding, which in dlog_a meets the 1/b factor where g is
+# near 0 (an H100 reading: at most 0.2 of the limit, dlog_a at the
+# training shape; dx and the WKV gradients at most 0.05).  rtol: float32
+# outputs 1e-4, for reorderings of float32 sums; bf16 outputs round once
+# to bf16, up to 2^-8 of the value, so 2^-7 (readings at most 0.498).
+# Copies of the RG-LRU kernel with planted faults (``chip_bwd_faults.py``)
+# fail it: its gate term dropped, 1% high, or 1% high only where b > 1/16,
+# which the max-scaled limit passed in bf16.
+BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -7, 1e-4)}
+# A training step's gradients, card against CPU, per leaf: max |card -
+# cpu| <= 1e-4·max(1e-3, max |cpu|).  Float32 sums in other orders; the
+# largest H100 reading is 1.13e-5 of the leaf's scale (rwkv6's
+# ``time/wr``, through the WKV over 32 steps), 9x under the limit.
+GRAD_TOL = (1e-4, 1e-3)
 # The grouped matmul against its plain version on the same inputs and dtype,
 # as max abs error over max(1, max |plain|): both sum up to 8192 float32
 # products in other orders (rounding walks of ~2^-24·sqrt(8192) of the
@@ -1090,6 +1159,18 @@ def rel_err(got, exp):
     return float((got.float() - exp).abs().max()) / scale
 
 
+def elementwise_err(torch, got, exp, rtol, atol):
+    """max over elements of |got - exp| / (rtol·|exp| + atol·s), s the root
+    mean square of ``exp``: at most 1 where every element is within its
+    limit."""
+    exp = exp.float()
+    s = float(exp.double().square().mean().sqrt()) if exp.numel() else 0.0
+    lim = (rtol * exp.abs() + atol * s).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    return float(((got.float() - exp).abs() / lim).max()) \
+        if exp.numel() else 0.0
+
+
 def phase_recurrent_kernels(torch, kernels):
     cases = recurrent_cases(torch)
     errs = {}
@@ -1132,6 +1213,170 @@ def phase_recurrent_kernels(torch, kernels):
                 f"(tolerance {tol}), final state {e_state:.3g} (tolerance "
                 f"{tol_state}){route}")
     return cases, errs
+
+
+def recurrent_bwd_cases(torch):
+    """(label, args) per backward case.  rglru_scan_bwd (x, log_a, dy,
+    dh_final), bf16 and float32: recurrentgemma-2b's training shape (2 x
+    4,096 steps x 2,560 channels) with dh_final None and seeded, S = 37 at
+    D = 100 (bf16 rows of 200 bytes take one-element copies), runs of
+    log_a = 0 (a = 1, b = 0: the gate's term 0), strong decays (log_a in
+    [-30, -10]), D = 2568 and a base off 16 bytes.  wkv6_bwd (r, k, v, w,
+    u, dy, ds_final), float32, inputs (B, H, S, D) views of (B, S, H, D)
+    memory as the model passes them: rwkv6-7b's training shape (2 x 64
+    heads of 64 x 4,096 steps), D 16/32/48/64 at S off the 16-step chunk
+    with ds_final seeded and None, strong decays and w exactly 0.  Ranges
+    as in :func:`recurrent_cases`."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    def uni(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device="cuda")
+
+    def log_a(*shape):
+        return uni(-0.106, 0.0, *shape)
+
+    def log_a_zeros(*shape):
+        la = log_a(*shape)
+        la = torch.where(uni(0, 1, *shape) < 0.2, torch.zeros_like(la), la)
+        la[:, 100:400] = 0.0
+        return la
+
+    def off16(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    rglru = []
+    for label, (B, S, D), fn, seeded, place in [
+            ("train shape", (TRAIN_BATCH, TRAIN_SEQ, 2560), log_a, False,
+             None),
+            ("train shape dh_final", (TRAIN_BATCH, TRAIN_SEQ, 2560), log_a,
+             True, None),
+            ("S=37 D=100 dh_final", (3, 37, 100), log_a, True, None),
+            ("log_a = 0 runs S=600", (2, 600, 2560), log_a_zeros, True,
+             None),
+            ("strong decays S=300", (2, 300, 2560),
+             lambda *sh: uni(-30.0, -10.0, *sh), False, None),
+            ("S=129 D=2568", (2, 129, 2568), log_a, True, None),
+            ("base off 16 bytes S=200 D=256", (2, 200, 256), log_a, True,
+             off16)]:
+        x, la, dy = rn(B, S, D), fn(B, S, D), rn(B, S, D)
+        dh = rn(B, D) if seeded else None
+        for dt in (torch.bfloat16, torch.float32):
+            args = tuple(t.to(dt) for t in (x, la, dy))
+            if place is not None:
+                args = tuple(place(t) for t in args)
+            rglru.append((f"{label} {str(dt)[6:]}", (*args, dh)))
+
+    def bhsd(B, H, S, D):
+        return rn(B, S, H, D).transpose(1, 2)
+
+    wkv = []
+    for label, (B, H, S, D), decay, seeded in [
+            ("train shape", (TRAIN_BATCH, 64, TRAIN_SEQ, 64), "mild", False),
+            ("S=37 D=64 ds_final", (2, 3, 37, 64), "mild", True),
+            ("S=45 D=16 ds_final", (2, 4, 45, 16), "mild", True),
+            ("S=70 D=32", (2, 3, 70, 32), "mild", False),
+            ("S=23 D=48 ds_final", (2, 3, 23, 48), "mild", True),
+            ("strong decays S=200", (2, 16, 200, 64), "strong", True),
+            ("w = 0 S=200", (2, 16, 200, 64), "zeros", True)]:
+        r, k, v, dy = (bhsd(B, H, S, D) for _ in range(4))
+        delta = 0.5 * bhsd(B, H, S, D)
+        w = torch.exp(-torch.exp((2.0 if decay == "strong" else -4.0)
+                                 + delta))
+        if decay == "zeros":        # a fifth of w exactly 0, a step all 0
+            w = torch.where(uni(0, 1, *w.shape) < 0.2, torch.zeros_like(w), w)
+            w[:, :, 9] = 0.0
+        u = 0.1 * rn(H, D)
+        ds = rn(B, H, D, D) if seeded else None
+        wkv.append((f"{label} float32", (r, k, v, w, u, dy, ds)))
+    return {"rglru_scan_bwd": rglru, "wkv6_bwd": wkv}
+
+
+def bits_equal(torch, a, b):
+    """Two tensors equal bit for bit (bf16 compared as int16)."""
+    view = (lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16
+            else t)
+    return torch.equal(view(a), view(b))
+
+
+def phase_recurrent_bwd_kernels(torch):
+    """Each backward case against its plain version on the same (card)
+    inputs in float32 (``ref.rglru_bwd``, ``ref.wkv6_bwd``), element by
+    element within ``BWD_TOL``; each output's dtype and shape; a second
+    call bitwise equal to the first; each RG-LRU case on the copies
+    ``_variant`` should pick
+    (16-byte where x, log_a, dy, dx and dlog_a rows all start on 16 bytes);
+    and the device operations of a call under ``torch.profiler`` (the
+    RG-LRU backward one kernel, on each route; the WKV backward its three).
+    Returns the largest absolute errors and the operations a call."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rglru_scan import _variant, rglru_scan_bwd
+    from repro_torch.kernels.wkv6 import wkv6_bwd
+    kernels = {"rglru_scan_bwd": rglru_scan_bwd, "wkv6_bwd": wkv6_bwd}
+    plain = {"rglru_scan_bwd": ref.rglru_bwd, "wkv6_bwd": ref.wkv6_bwd}
+    expected_ops = {"rglru_scan_bwd": 1, "wkv6_bwd": 3}
+    errs, ops = {}, {}
+    for name, runs in recurrent_bwd_cases(torch).items():
+        kern = kernels[name]
+        errs[name] = 0.0
+        for label, args in runs:
+            before = kern.launches
+            routes = dict(getattr(kern, "routes", {}))
+            got = kern(*args)
+            torch.cuda.synchronize()
+            check(kern.launches == before + 1, f"{name} ({label}) did not "
+                                               f"launch")
+            route = ""
+            if name == "rglru_scan_bwd":
+                x = args[0]
+                want = _variant(x.dtype, x.shape[2], tuple(
+                    t.data_ptr() for t in (*args[:3], *got)))
+                aligned = x.shape[2] * x.element_size() % 16 == 0 and all(
+                    t.data_ptr() % 16 == 0 for t in (*args[:3], *got))
+                check(want == ("vector" if aligned else "scalar"),
+                      f"{name} ({label}): _variant picked {want}")
+                check(kern.routes[want] == routes[want] + 1,
+                      f"{name} ({label}) did not take the {want} route")
+                route = f", {want} route"
+                key = f"{name} {want}"
+            else:
+                key = name
+            again = kern(*args)
+            check(all(bits_equal(torch, a, b) for a, b in zip(got, again)),
+                  f"{name} ({label}): two calls differ")
+            exp = plain[name](*(t.float() if t is not None else None
+                                for t in args))
+            tol = BWD_TOL[str(args[0].dtype)[6:]]
+            es = []
+            for i, (a, b) in enumerate(zip(got, exp)):
+                like = args[i]     # dx, dlog_a; dr, dk, dv, dw, du
+                check(a.dtype == like.dtype and a.shape == like.shape,
+                      f"{name} ({label}) output {i}: {a.dtype} "
+                      f"{tuple(a.shape)}")
+                es.append(elementwise_err(torch, a, b, *tol))
+                errs[name] = max(errs[name],
+                                 float((a.float() - b).abs().max()))
+            check(max(es) <= 1.0, f"{name} ({label}) differs from its plain "
+                  f"version: {es} of the limit (rtol, atol) {tol}")
+            if key not in ops:
+                o = device_ops(torch, lambda: kern(*args), 5)
+                check(sum(o.values()) == 5 * expected_ops[name]
+                      and len(o) == expected_ops[name],
+                      f"{name} ({label}): device operations of 5 calls {o}, "
+                      f"expected {expected_ops[name]} kernels once a call")
+                ops[key] = {k[:60]: n / 5 for k, n in o.items()}
+            log(f"  {name} [{label}]: err "
+                + "/".join(f"{e:.3g}" for e in es)
+                + f" of the limit (rtol, atol) {tol}, two calls bitwise "
+                f"equal{route}")
+            del got, again, exp
+    log(f"  backward device operations a call: {json.dumps(ops)}")
+    errs["device_ops_per_call"] = ops
+    return errs
 
 
 def gmm_cases():
@@ -1278,8 +1523,12 @@ def flash_bwd_cases():
     (MLA: v zero-padded from 128) / 256, groups of 1, 3, 5 and 8, causal,
     a 2048-token window, Sq != Sk, S = 1 and 17, bidirectional; D 40 and
     96, which the tensor-core instances at 64 and 128 take zero-filled;
-    and rows one element into their buffer (bf16 rows off 16 bytes, for
-    the CUDA-core route)."""
+    rows one element into their buffer (bf16 rows off 16 bytes, for
+    the CUDA-core route); and the vlm's and whisper's training shapes at
+    TRAIN_BATCH: whisper's bidirectional encoder (20 heads of 64 over
+    1,500 frames) and its cross-attention (224 queries over 1,500 keys),
+    the vision cross layers' (512 queries over 1,601 context tokens, 32
+    heads on 8 of 128)."""
     return [
         ("train shape G=3 S=4096", (1, 6, 2, 4096, 4096, 128),
          dict(causal=True), 128),
@@ -1301,7 +1550,14 @@ def flash_bwd_cases():
         ("D=40 G=4 zero-filled Sq != Sk", (1, 8, 2, 60, 130, 40),
          dict(causal=True), 40),
         ("misaligned rows D=128 G=2", (2, 8, 4, 100, 100, 128),
-         dict(causal=True), 128)]
+         dict(causal=True), 128),
+        ("whisper encoder 20 of 64 1500^2 bidirectional",
+         (TRAIN_BATCH, 20, 20, 1500, 1500, 64), dict(causal=False), 64),
+        ("whisper cross 224 x 1500", (TRAIN_BATCH, 20, 20, WHISPER_PROMPT,
+                                      1500, 64), dict(causal=False), 64),
+        ("vision cross 512 x 1601 G=4", (TRAIN_BATCH, 32, 8, SERVE_PROMPT,
+                                         1601, 128), dict(causal=False),
+         128)]
 
 
 def bwd_rel_err(got, exp, floor):
@@ -1397,11 +1653,7 @@ def phase_flash_bwd_kernel(torch):
                   f"flash_attention_bwd ({tag}) did not run on {route}: "
                   f"{routes} -> {fa.flash_attention_bwd.routes}")
             again = bwd()
-            check(all(torch.equal(a.view(torch.int16) if a.dtype ==
-                                  torch.bfloat16 else a,
-                                  b.view(torch.int16) if b.dtype ==
-                                  torch.bfloat16 else b)
-                      for a, b in zip(got, again)),
+            check(all(bits_equal(torch, a, b) for a, b in zip(got, again)),
                   f"flash_attention_bwd ({tag}): two calls differ")
             plain = ref.flash_attention_bwd(
                 q.float(), k.float(), v.float(), out.float(), lse,
@@ -1753,48 +2005,121 @@ def tree_to(tree, device):
 
 
 def train_parity(torch):
-    """One float32 training step of the smoke llama3.2-3b from one set of
-    weights and one batch, on the card and on the CPU, with AdamW, with
-    Adafactor and with AdamW over 2 microbatches: the loss, every parameter
-    and every optimizer-state leaf within 1e-4."""
+    """One float32 training step from one set of weights and one batch, on
+    the card and on the CPU (:func:`train_step_parity`): the smoke
+    llama3.2-3b with AdamW, with Adafactor and with AdamW over 2
+    microbatches, each also end to end; the smoke recurrentgemma-2b (RG-LRU
+    and local attention) and rwkv6-7b (the WKV's training form), the smoke
+    llama-3.2-vision (its gates seeded non-zero: at 0 a cross layer's
+    weights get no gradient) and whisper on the pipeline's random context,
+    with AdamW."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.configs.base import TrainConfig
-    from repro_torch.data import SyntheticTokens
     from repro_torch.models import build_model
-    from repro_torch.train import make_train_step
-    from repro_torch.tree import flatten, tree_map
-    cfg = get_smoke_config(TRAIN_ARCH).replace(dtype="float32")
-    params0 = build_model(cfg).init(torch.Generator().manual_seed(SEED))
-    batch = SyntheticTokens(cfg, 4, 32, SEED).get_batch(0)
     for label, tkw in (("AdamW", {}),
                        ("Adafactor", dict(optimizer="adafactor")),
                        ("AdamW, microbatch=2", dict(microbatch=2))):
-        res = {}
-        for dev in ("cuda", "cpu"):
-            _model, opt, step = make_train_step(
-                cfg, TrainConfig(lr=1e-3, **tkw), dev)
-            params = tree_map(lambda t: t.detach().to(dev, copy=True),
-                              params0)
-            params, state, met = step(params, opt.init(params), batch)
-            res[dev] = (flatten({"params": params, "opt": state}),
-                        float(met["loss"]))
-        worst = 0.0
-        for (path, a), (_p, b) in zip(*(res[d][0] for d in ("cuda", "cpu"))):
-            check(a.device.type == "cuda" and a.shape == b.shape,
-                  f"train step ({label}) {path}: {a.device} "
-                  f"{tuple(a.shape)} vs {tuple(b.shape)}")
-            d = float((a.detach().cpu().float() - b.detach().float())
-                      .abs().max()) if a.numel() else 0.0
-            check(d <= 1e-4, f"train step ({label}) {path}: cuda and cpu "
-                             f"differ by {d}")
-            worst = max(worst, d)
-        check(abs(res["cuda"][1] - res["cpu"][1]) <= 1e-4 * abs(
-            res["cpu"][1]), f"train step ({label}): loss {res['cuda'][1]} "
-            f"vs {res['cpu'][1]}")
-        log(f"  smoke {TRAIN_ARCH} train step ({label}): loss "
-            f"{res['cuda'][1]:.6f} / {res['cpu'][1]:.6f}, "
-            f"{len(res['cuda'][0])} parameter and state leaves within "
-            f"{worst:.3g} cuda vs cpu")
+        cfg = get_smoke_config(TRAIN_ARCH).replace(dtype="float32")
+        params0 = build_model(cfg).init(torch.Generator().manual_seed(SEED))
+        train_step_parity(torch, cfg, params0, label, tkw, end_to_end=True)
+    for arch in ("recurrentgemma-2b", "rwkv6-7b", VISION_ARCH,
+                 WHISPER_ARCH):
+        cfg = get_smoke_config(arch).replace(dtype="float32")
+        params0 = build_model(cfg).init(torch.Generator().manual_seed(SEED))
+        rng = np.random.default_rng(SEED + 15)
+        for layer in params0.get("layers", []):
+            for name in ("gate_attn", "gate_ffn"):
+                if name in layer:
+                    layer[name] = torch.tensor(
+                        float(rng.uniform(0.3, 1.2) * rng.choice([-1, 1])))
+        train_step_parity(torch, cfg, params0, "AdamW", {})
+
+
+def train_step_parity(torch, cfg, params0, label, tkw, end_to_end=False):
+    """One step of ``cfg`` from ``params0`` on a 4 x 32-token pipeline
+    batch (with its context, for the vlm and whisper), card against CPU:
+    the loss within 1e-4 relative; every gradient leaf within ``GRAD_TOL``
+    of the leaf's largest CPU gradient (what the model's kernels and their
+    backward compute); every parameter and optimizer-state leaf after the
+    card's update within 1e-4 of the CPU's update of the same (the card's)
+    gradients; and, with ``end_to_end`` (the llama3.2-3b cases), the whole
+    train step's parameters and state on each device within 1e-4, else
+    that difference logged.  End to end, the other families' parameters
+    are ill-conditioned in AdamW's first step: its update ``g / (|g| +
+    eps)`` at |g| near eps = 1e-8 turns a gradient's float32 rounding into
+    up to 2·lr (1.13e-4 on rwkv6's ``embed/head`` on an H100)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticTokens, place_batch
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import flatten, leaves, tree_map, unflatten
+    batch = SyntheticTokens(cfg, 4, 32, SEED).get_batch(0)
+    what = f"{cfg.name} train step ({label})"
+    fresh = {dev: (lambda dev=dev: tree_map(
+        lambda t: t.detach().to(dev, copy=True), params0))
+        for dev in ("cuda", "cpu")}
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model, opt, step = make_train_step(
+            cfg, TrainConfig(lr=1e-3, **tkw), dev)
+        params = fresh[dev]()
+        ps = [p.requires_grad_(True) for p in leaves(params)]
+        loss, _met = model.train_loss(params, place_batch(batch, dev))
+        grads = [g.detach() for g in torch.autograd.grad(loss, ps)]
+        res[dev] = (float(loss.detach()), grads, opt, step)
+    (loss_c, g_c, opt_c, step_c), (loss_h, g_h, opt_h, step_h) = (
+        res["cuda"], res["cpu"])
+    check(abs(loss_c - loss_h) <= 1e-4 * abs(loss_h),
+          f"{what}: loss {loss_c} vs {loss_h}")
+    worst_g = 0.0
+    for (path, _t), a, b in zip(flatten(params0), g_c, g_h):
+        d = float((a.cpu() - b).abs().max()) if a.numel() else 0.0
+        scale = max(GRAD_TOL[1], float(b.abs().max()) if b.numel()
+                    else 0.0)
+        check(a.device.type == "cuda" and a.shape == b.shape
+              and d <= GRAD_TOL[0] * scale,
+              f"{what}: gradient {path} {a.device}, cuda and cpu differ by "
+              f"{d}, past {GRAD_TOL[0]} of {scale}")
+        worst_g = max(worst_g, d / scale)
+
+    def update(opt, params, grads):
+        with torch.no_grad():
+            p, st, _stats = opt.update(unflatten(params, grads),
+                                       opt.init(params), params)
+        return flatten({"params": p, "opt": st})
+    g_c_host = [g.cpu() for g in g_c]   # the update clips in place
+    card = update(opt_c, fresh["cuda"](), g_c)
+    same = update(opt_h, fresh["cpu"](), g_c_host)
+    worst = 0.0
+    for (path, a), (_p, b) in zip(card, same):
+        d = float((a.detach().cpu().float() - b.float()).abs().max()) \
+            if a.numel() else 0.0
+        check(a.device.type == "cuda" and a.shape == b.shape and d <= 1e-4,
+              f"{what}: update {path} {a.device}, cuda and cpu differ by "
+              f"{d} on the same gradients")
+        worst = max(worst, d)
+    if end_to_end:
+        pairs = []
+        for dev, opt, step in (("cuda", opt_c, step_c), ("cpu", opt_h,
+                                                         step_h)):
+            params = fresh[dev]()
+            params, state, _met = step(params, opt.init(params), batch)
+            pairs.append(flatten({"params": params, "opt": state}))
+    else:
+        pairs = [card, update(opt_h, fresh["cpu"](), g_h)]
+    e2e = 0.0
+    for (path, a), (_p, b) in zip(*pairs):
+        check(a.device.type == "cuda" and a.shape == b.shape,
+              f"{what} {path}: {a.device} {tuple(a.shape)} vs "
+              f"{tuple(b.shape)}")
+        d = float((a.detach().cpu().float() - b.detach().float())
+                  .abs().max()) if a.numel() else 0.0
+        check(d <= 1e-4 or not end_to_end,
+              f"{what} {path}: cuda and cpu differ by {d} end to end")
+        e2e = max(e2e, d)
+    log(f"  smoke {what}: loss {loss_c:.6f} / {loss_h:.6f}, {len(g_c)} "
+        f"gradient leaves within {worst_g:.3g} of their largest, "
+        f"{len(card)} parameter and state leaves after the update within "
+        f"{worst:.3g} cuda vs cpu on the same gradients, {e2e:.3g} end to "
+        f"end{'' if end_to_end else ' (logged, not held)'}")
 
 
 # ---------------------------------------------------------------------------
@@ -3260,10 +3585,22 @@ class RepeatedBatch:
         return self._tokens
 
 
+# device kernels by group, as their names contain these parts
+KERNEL_GROUPS = {
+    "flash_fwd": ("::flash_fwd",),
+    "flash_bwd": ("::dsum_kernel", "::dkdv_kernel", "::dq_kernel",
+                  "::dkdv_mma_kernel", "::dq_mma_kernel"),
+    "rglru_fwd": ("::rglru_tile_kernel",),
+    "rglru_bwd": ("::rglru_bwd_kernel",),
+    "wkv6_fwd": ("::wkv6_kernel", "::wkv6_chunk_kernel"),
+    "wkv6_bwd": ("::wkv6_bwd_",)}
+
+
 def profiled_step(torch, train_step, params, state, batch):
     """One training step under ``torch.profiler``: its wall time, the
-    device's busy share of it, and the flash kernels' forward and backward
-    shares of the device time."""
+    device's busy share of it, and each kernel group's (``KERNEL_GROUPS``:
+    the flash forward and backward, the recurrences' forward and backward)
+    time and share of the device time, where the step ran it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -3279,26 +3616,31 @@ def profiled_step(torch, train_step, params, state, batch):
             us = e.time_range.elapsed_us()
             device_us += us
             by_name[e.name] = by_name.get(e.name, 0.0) + us
-    fwd = sum(us for n, us in by_name.items() if "::flash_fwd" in n)
-    bwd = sum(us for n, us in by_name.items()
-              if any(k in n for k in ("::dsum_kernel", "::dkdv_kernel",
-                                      "::dq_kernel", "::dkdv_mma_kernel",
-                                      "::dq_mma_kernel")))
     check(device_us > 0, "the profiled training step recorded no device "
                          "time")
+    out = dict(wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
+               device_busy_share=device_us / wall_us)
+    for group, parts in KERNEL_GROUPS.items():
+        us = sum(t for n, t in by_name.items()
+                 if any(k in n for k in parts))
+        if us:
+            out[f"{group}_ms"] = us / 1e3
+            out[f"{group}_share"] = us / device_us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return params, state, dict(
-        wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
-        device_busy_share=device_us / wall_us,
-        flash_fwd_ms=fwd / 1e3, flash_fwd_share=fwd / device_us,
-        flash_bwd_ms=bwd / 1e3, flash_bwd_share=bwd / device_us,
-        top_device_ms={k[:60]: v / 1e3 for k, v in top})
+    out["top_device_ms"] = {k[:60]: v / 1e3 for k, v in top}
+    return params, state, out
 
 
 def guard_refusals(torch, kernels):
-    """Each kernel wrapper without a ported backward refuses, on the card,
-    an input that requires grad while grad is enabled (its output would
-    carry no gradient), and launches nothing."""
+    """On the card, ``gmm`` and ``decode_attention`` (no backward ported:
+    MoE training waits for expert sharding, decode is not trained) and the
+    bare ``rglru_scan`` and ``wkv6`` (whose training entry points are the
+    autograd Functions) refuse an input that requires grad while grad is
+    enabled (their outputs would carry no gradient), and launch nothing;
+    the Functions, ``RGLRUScan`` and ``WKV6Train``, take the same inputs
+    and their backward launches the backward kernels."""
+    from repro_torch.kernels.rglru_scan import RGLRUScan, rglru_scan_bwd
+    from repro_torch.kernels.wkv6 import WKV6Train, wkv6_bwd
     def rn(*shape, grad=False):
         return torch.randn(shape, device="cuda").requires_grad_(grad)
 
@@ -3326,7 +3668,25 @@ def guard_refusals(torch, kernels):
                   f"{name}'s refusal of a grad-requiring input: {e}")
             continue
         raise SmokeFailure(f"{name} took a grad-requiring input on the card")
-    log(f"  {', '.join(calls)}: each refuses a grad-requiring CUDA input")
+    x = rn(1, 8, 32, grad=True)
+    la = (-rn(1, 8, 32).abs()).requires_grad_(True)
+    q = [rn(1, 2, 8, 16, grad=True) for _ in range(3)]
+    w = rn(1, 2, 8, 16).sigmoid().requires_grad_(True)
+    u = rn(2, 16, grad=True)
+    for fn, ins, fwd, bwd in [
+            (RGLRUScan.apply, (x, la), kernels["rglru_scan"],
+             rglru_scan_bwd),
+            (WKV6Train.apply, (*q, w, u), kernels["wkv6"], wkv6_bwd)]:
+        before = (fwd.launches, bwd.launches)
+        y, _state = fn(*ins)
+        grads = torch.autograd.grad(y.float().sum(), ins)
+        torch.cuda.synchronize()
+        check((fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+              and all(torch.isfinite(g).all() for g in grads),
+              f"{fn.__self__.__name__} on grad-requiring CUDA inputs: "
+              f"launches {before} -> {(fwd.launches, bwd.launches)}")
+    log(f"  {', '.join(calls)}: each refuses a grad-requiring CUDA input; "
+        f"RGLRUScan and WKV6Train take it and run their backward kernels")
 
 
 def checkpoint_round_trip(torch):
@@ -3354,10 +3714,8 @@ def checkpoint_round_trip(torch):
         got = ck.restore(2, tree)
     n = 0
     for (path, a), b in zip(flatten(tree), leaves(got)):
-        bits = (lambda t: t.view(torch.int16)
-                if t.dtype == torch.bfloat16 else t)
         check(b.device == a.device and b.dtype == a.dtype
-              and torch.equal(bits(a.detach()), bits(b)),
+              and bits_equal(torch, a.detach(), b),
               f"checkpoint leaf {path} did not round-trip")
         n += 1
     log(f"  checkpoint of the smoke {TRAIN_ARCH} state on the card: {n} "
@@ -3365,75 +3723,137 @@ def checkpoint_round_trip(torch):
         f"bitwise")
 
 
-def phase_train(torch, kernels):
-    """``repro_torch.launch.train.run`` on llama3.2-3b at full width and
-    depth: bf16, TRAIN_BATCH x TRAIN_SEQ tokens a step, ``remat="block"``,
-    AdamW, TRAIN_STEPS steps on one repeated SyntheticTokens batch.  Every
-    loss finite and the last below the first; per step exactly two flash
-    forward launches a layer (the forward and its recompute) and one
-    backward call, on the tensor cores; no other model kernel.  Then one more step under
-    ``torch.profiler``, the guard of the kernels without a backward, and a
-    checkpoint round trip.  Returns the metrics and the launches."""
+def train_launches(cfg):
+    """Each model kernel's launches a training step of ``cfg`` under
+    ``remat="block"``, from its layer plan: every attention (self, local,
+    cross; whisper's encoder layer once, its decoder layer twice) two flash
+    forwards (the forward and its recompute) and one backward call; every
+    RG-LRU layer two scans and one backward; every rwkv6 layer two WKVs
+    and one backward; nothing else.  Returns ({name: launches}, {name:
+    {route: launches}}): the flash backward's calls on the tensor cores at
+    D <= 128 in bf16, else the CUDA cores; the RG-LRU's on 16-byte copies
+    (its rows are 5,120 bytes); the WKV's forward on the float32
+    sequential kernel."""
+    from repro_torch.models.transformer import layer_kinds
+    if cfg.family == "audio":
+        attn, rec, rwkv = cfg.n_enc_layers + 2 * cfg.n_layers, 0, 0
+    elif cfg.family == "ssm":
+        attn, rec, rwkv = 0, 0, cfg.n_layers
+    else:
+        kinds = layer_kinds(cfg)
+        rec = kinds.count("rec")
+        attn, rwkv = len(kinds) - rec, 0
+    bwd_route = "mma" if cfg.dtype == "bfloat16" and cfg.head_dim_ <= 128 \
+        else "simt"
+    launches = {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
+                "rglru_scan": 2 * rec, "rglru_scan_bwd": rec,
+                "wkv6": 2 * rwkv, "wkv6_bwd": rwkv}
+    routes = {"flash_attention_bwd": {"mma": 0, "simt": 0} | {
+        bwd_route: attn},
+        "rglru_scan": {"vector": 2 * rec, "scalar": 0},
+        "rglru_scan_bwd": {"vector": rec, "scalar": 0},
+        "wkv6": {"chunked": 0, "simt": 2 * rwkv}}
+    return ({k: n for k, n in launches.items() if n},
+            {k: r for k, r in routes.items() if sum(r.values())})
+
+
+def train_path(torch, kernels, arch, seq, steps, optimizer,
+               adam_dtype="float32"):
+    """``repro_torch.launch.train.run`` on ``arch`` at full width and
+    depth: bf16, TRAIN_BATCH x ``seq`` tokens a step (with the pipeline's
+    context for the vlm and whisper), ``remat="block"``, ``optimizer``,
+    ``steps`` steps on one repeated SyntheticTokens batch.  Every loss
+    finite and the last below the first; per step exactly the launches and
+    routes of :func:`train_launches` and no other model kernel (no gmm, no
+    decode attention); then one more step under ``torch.profiler``.
+    Returns the metrics and the launches."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data import SyntheticTokens
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.launch import train as launcher
-    cfg = get_config(TRAIN_ARCH)
-    tcfg = TrainConfig(remat="block", optimizer="adamw")
-    pipe = RepeatedBatch(SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ, SEED))
-    counted = dict(kernels, flash_attention_bwd=flash_attention_bwd)
+    cfg = get_config(arch)
+    tcfg = TrainConfig(remat="block", optimizer=optimizer,
+                       adam_dtype=adam_dtype)
+    pipe = RepeatedBatch(SyntheticTokens(cfg, TRAIN_BATCH, seq, SEED))
+    per_step, want_routes = train_launches(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for k in counted.values():
+    for k in kernels.values():
         k.launches = 0
-    flash_attention_bwd.routes = {"mma": 0, "simt": 0}
+        if hasattr(k, "routes"):
+            k.routes = dict.fromkeys(k.routes, 0)
     t0 = time.perf_counter()
-    run = launcher.run(cfg, tcfg, pipe, steps=TRAIN_STEPS, device="cuda",
+    run = launcher.run(cfg, tcfg, pipe, steps=steps, device="cuda",
                        log_every=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in counted.items()}
-    routes = dict(flash_attention_bwd.routes)
+    launches = {name: k.launches for name, k in kernels.items()}
+    routes = {name: dict(k.routes) for name, k in kernels.items()
+              if name in want_routes}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    expected = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
-                "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
     for name, n in launches.items():
-        check(n == expected.get(name, 0), f"training path: {name} launched "
-              f"{n} times, expected {expected.get(name, 0)}")
-    check(routes == {"mma": cfg.n_layers * TRAIN_STEPS, "simt": 0},
-          f"training path: flash_attention_bwd routes {routes}, expected "
-          f"every call on the tensor cores")
+        check(n == steps * per_step.get(name, 0), f"{arch} training: {name} "
+              f"launched {n} times, expected {steps * per_step.get(name, 0)}")
+    for name, r in want_routes.items():
+        want = {k: steps * n for k, n in r.items()}
+        check(routes[name] == want, f"{arch} training: {name} routes "
+              f"{routes[name]}, expected {want}")
     losses = run["losses"]
-    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
-          f"training losses {losses}")
-    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
-    step_s, n_params, gnorms = run["step_s"], run["n_params"], \
-        run["grad_norms"]
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    log(f"  {TRAIN_ARCH}: {n_params:,} parameters, {TRAIN_STEPS} "
-        f"steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {wall:.1f} s; "
-        f"losses {losses}; launches {launches}; backward routes {routes}; "
-        f"peak {peak:.2f} GiB")
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"{arch} training losses {losses}")
+    check(losses[-1] < losses[0], f"{arch}: the loss did not fall: "
+                                  f"{losses}")
+    step_s, n_params = run["step_s"], run["n_params"]
+    tokens = TRAIN_BATCH * seq
+    log(f"  {arch}: {n_params:,} parameters, {steps} steps of "
+        f"{TRAIN_BATCH} x {seq} tokens in {wall:.1f} s; losses {losses}; "
+        f"launches {launches}; routes {routes}; peak {peak:.2f} GiB")
     params, state, prof = profiled_step(torch, run["train_step"],
                                         run["params"], run["opt_state"],
                                         pipe.get_batch(0))
     log(f"  profiled step: {json.dumps(prof)}")
-    del run, params, state
-    gc.collect()
-    torch.cuda.empty_cache()
-    guard_refusals(torch, kernels)
-    checkpoint_round_trip(torch)
     metrics = dict(
-        arch=TRAIN_ARCH, n_layers=cfg.n_layers, dtype=cfg.dtype,
-        params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-        steps=TRAIN_STEPS, remat=tcfg.remat, optimizer=tcfg.optimizer,
-        losses=losses, grad_norms=gnorms,
-        first_step_ms=1e3 * step_s[0],
+        arch=arch, n_layers=cfg.n_layers, dtype=cfg.dtype, params=n_params,
+        batch=TRAIN_BATCH, seq=seq, steps=steps, remat=tcfg.remat,
+        optimizer=tcfg.optimizer, adam_dtype=tcfg.adam_dtype, losses=losses,
+        grad_norms=run["grad_norms"], first_step_ms=1e3 * step_s[0],
         step_ms_p50=1e3 * float(np.percentile(step_s, 50)),
         step_ms_p99=1e3 * float(np.percentile(step_s, 99)),
         tokens_per_s=tokens / float(np.percentile(step_s, 50)),
         peak_device_gib=peak, step_profile=prof, launches=launches,
-        flash_bwd_routes=routes)
+        routes=routes, wall_s=wall)
+    if cfg.cross is not None:
+        metrics["context_tokens"] = cfg.cross.n_context_tokens
+    del run, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return metrics, {k: n for k, n in launches.items() if n}
+
+
+def phase_train(torch, kernels):
+    """The training paths: llama3.2-3b (TRAIN_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ tokens, AdamW), then each of ``TRAIN_PATHS`` (FAMILY_STEPS
+    steps) through :func:`train_path`; then the guard of the bare kernels
+    and the Functions, and a checkpoint round trip.  Returns the metrics
+    and the launches by arch."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd
+    from repro_torch.kernels.wkv6 import wkv6_bwd
+    counted = dict(kernels, flash_attention_bwd=flash_attention_bwd,
+                   rglru_scan_bwd=rglru_scan_bwd, wkv6_bwd=wkv6_bwd)
+    metrics, launches = {}, {}
+    for path in [dict(arch=TRAIN_ARCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+                      optimizer="adamw")] + TRAIN_PATHS:
+        path = dict(path)
+        path.setdefault("steps", FAMILY_STEPS)
+        t7 = time.perf_counter()
+        metrics[path["arch"]], launches[path["arch"]] = train_path(
+            torch, counted, **path)
+        log(f"  {path['arch']} training path took "
+            f"{time.perf_counter() - t7:.1f} s")
+    guard_refusals(torch, kernels)
+    checkpoint_round_trip(torch)
     return metrics, launches
 
 
@@ -3879,9 +4299,10 @@ def flash_bwd_report(torch, errs, launches):
                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                replaces="src/repro/models/flash_xla.py:112",
                variant=variant[0])
-    row.update(timing_row(m, launches, err, BF16_FLOPS))
+    row.update(timing_row(m, launches[f"{TRAIN_ARCH} train"], err,
+                          BF16_FLOPS))
     row["cases_max_rel_err"] = errs["grad"]
-    row["launches_paths"] = {f"{TRAIN_ARCH} train": launches}
+    row["launches_paths"] = launches
     row["device_ops_per_call"] = errs["device_ops_per_call"]
     row["lse_max_rel_err"] = errs["lse"]
     log(f"  flash_attention_bwd train shape ({variant[0]}): dq/dk/dv err "
@@ -3983,6 +4404,84 @@ def recurrent_report(torch, kernels, errs, launches):
             f"{m['nbytes'] / 1e6:.2f} MB{extra}), plain "
             f"{m['plain_ms']:.4f} ms, library none, launches "
             f"{row['launches']}")
+    return rows
+
+
+def recurrent_bwd_report(torch, errs, launches):
+    """Rows of the two backward kernels at their training paths' shapes:
+    ``rglru_scan_bwd`` at recurrentgemma-2b's (B TRAIN_BATCH, S TRAIN_SEQ,
+    2,560 channels, bf16, dh_final None as the model leaves it), bound by
+    its bytes (x, log_a and dy read once, dx and dlog_a written once) and
+    its ~14 float32 operations an element (two exponentials, a square
+    root, a²x/b, the two scans' updates, dx and dlog_a); ``wkv6_bwd`` at
+    rwkv6-7b's (B TRAIN_BATCH, 64 heads of 64, S TRAIN_SEQ, float32, inputs
+    (B, H, S, D) views of (B, S, H, D) memory), bound by its bytes (r, k,
+    v, w, dy and u read, the five gradients written) and its 12·D²
+    float32 operations a step and head (the updates of S and G and the
+    four products dr, dk, dv, dw).  No PyTorch call computes either
+    backward, so there is no library yardstick.  ``launches`` is the
+    kernel's count on its training path; ``max_abs_err`` phase 2c's
+    largest."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd
+    from repro_torch.kernels.wkv6 import wkv6_bwd
+    g = torch.Generator(device="cuda").manual_seed(SEED + 16)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    B, S, D = TRAIN_BATCH, TRAIN_SEQ, 2560
+    x, dy = (rn(B, S, D).to(torch.bfloat16) for _ in range(2))
+    la = (-0.106 * torch.rand((B, S, D), generator=g, device="cuda")).to(
+        torch.bfloat16)
+
+    def rg():
+        return rglru_scan_bwd(x, la, dy)
+    m_rg = dict(ms=cuda_ms(rg, 20), device_ms=device_ms(rg, 10),
+                ops=device_ops(torch, rg, 10),
+                plain_ms=cuda_ms(lambda: ref.rglru_bwd(x, la, dy), 1),
+                library_ms=None, flops=14 * x.numel(),
+                nbytes=5 * 2 * x.numel())
+    del x, dy, la
+
+    H, D = 64, 64
+
+    def bhsd():
+        return rn(B, S, H, D).transpose(1, 2)
+    r, k, v, dy = (bhsd() for _ in range(4))
+    w = torch.exp(-torch.exp(-4.0 + 0.5 * bhsd()))
+    u = 0.1 * rn(H, D)
+
+    def wk():
+        return wkv6_bwd(r, k, v, w, u, dy)
+    m_wk = dict(ms=cuda_ms(wk, 5), device_ms=device_ms(wk, 5),
+                ops=device_ops(torch, wk, 5),
+                plain_ms=cuda_ms(lambda: ref.wkv6_bwd(r, k, v, w, u, dy), 1),
+                library_ms=None, flops=12 * B * H * S * D * D,
+                nbytes=4 * (9 * r.numel() + 2 * u.numel()))
+    rows = []
+    for name, m, arch, replaces, n_ops in [
+            ("rglru_scan_bwd", m_rg, "recurrentgemma-2b",
+             "src/repro/kernels/ref.py:83", 10),
+            ("wkv6_bwd", m_wk, "rwkv6-7b", "src/repro/models/rwkv6.py:233",
+             5)]:
+        source = "rglru_scan.cu" if name == "rglru_scan_bwd" else \
+            "wkv6_bwd.cu"
+        row = dict(name=name, route="cuda",
+                   source=f"src/repro_torch/kernels/csrc/{source}",
+                   replaces=replaces)
+        row.update(timing_row(m, launches[arch][name], errs[name],
+                              F32_FLOPS))
+        row["device_ops_per_call"] = sum(max(1, round(n / n_ops))
+                                         for n in m["ops"].values())
+        row["launches_paths"] = {f"{arch} train": launches[arch][name]}
+        rows.append(row)
+        log(f"  {name}: {m['ms']:.4f} ms/call (device "
+            f"{m['device_ms']:.4f}, {row['device_ops_per_call']} device "
+            f"ops a call: {m['ops']}), bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}; {m['flops'] / 1e9:.2f} GFLOP, "
+            f"{m['nbytes'] / 1e6:.2f} MB), plain {m['plain_ms']:.4f} ms, "
+            f"library none, launches {row['launches']}")
     return rows
 
 
@@ -4145,8 +4644,8 @@ def main() -> int:
     try:
         log("phase 1: build")
         _nvcc.build("remote_dma", "flash_attention", "flash_attention_bwd",
-                    "decode_attention", "rglru_scan", "wkv6", "moe_gmm",
-                    "remote_copy")
+                    "decode_attention", "rglru_scan", "wkv6", "wkv6_bwd",
+                    "moe_gmm", "remote_copy")
         for name, out in _nvcc.BUILD_LOGS.items():
             log(f"  nvcc {name}.cu:\n" + "\n".join(
                 "    " + ln for ln in out.strip().splitlines()))
@@ -4171,9 +4670,12 @@ def main() -> int:
               f"the tensor-core gmm kernels spill: {usage}")
         log("  -Xptxas -v, tensor-core gmm kernels [registers, spill stores, "
             f"spill loads]: {usage}")
-        usage = ptxas_usage(_nvcc, "rglru_scan", "rglru_tile")
-        log("  -Xptxas -v, RG-LRU kernels [registers, spill stores, spill "
-            f"loads]: {usage}")
+        usage = ptxas_usage(_nvcc, "rglru_scan", "rglru_")
+        log("  -Xptxas -v, RG-LRU kernels, forward and backward [registers, "
+            f"spill stores, spill loads]: {usage}")
+        usage = ptxas_usage(_nvcc, "wkv6_bwd", "wkv6_bwd_")
+        log("  -Xptxas -v, WKV6 backward kernels [registers, spill stores, "
+            f"spill loads]: {usage}")
         hmma = sass_mma_count(_nvcc, "flash_attention_bwd", "mma_kernel")
         check(len(hmma) == 4 and all(n > 0 for n in hmma.values()),
               f"the bf16 flash backward kernels lack tensor-core HMMA: "
@@ -4196,6 +4698,9 @@ def main() -> int:
         gmm_err = phase_gmm_kernel(torch, model_kernels)
         log("phase 2b: flash attention's backward against its plain version")
         bwd_errs = phase_flash_bwd_kernel(torch)
+        log("phase 2c: the recurrences' backward against their plain "
+            "versions")
+        rec_bwd_errs = phase_recurrent_bwd_kernels(torch)
         log("phase 3: the same work on cuda and cpu")
         phase_parity(torch, pt)
         phase_serving_parity(torch, pt)
@@ -4244,10 +4749,10 @@ def main() -> int:
                 f"{time.perf_counter() - t5:.1f} s")
             gc.collect()                 # the engine's weights go first
             torch.cuda.empty_cache()
-        log("phase 7: the training path")
+        log("phase 7: the training paths")
         t7 = time.perf_counter()
         train_metrics, train_launches = phase_train(torch, model_kernels)
-        log(f"  training path took {time.perf_counter() - t7:.1f} s")
+        log(f"  training paths took {time.perf_counter() - t7:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
         log("phase 6: report")
@@ -4256,10 +4761,15 @@ def main() -> int:
                                 "spec_store": spec_launches})
         kernels += attention_report(
             torch, model_kernels, attn_errs,
-            serve_launches | {f"{TRAIN_ARCH} train": {
-                "flash_attention": train_launches["flash_attention"]}})
-        kernels += flash_bwd_report(torch, bwd_errs,
-                                    train_launches["flash_attention_bwd"])
+            serve_launches | {
+                f"{arch} train": {"flash_attention": n["flash_attention"]}
+                for arch, n in train_launches.items()
+                if "flash_attention" in n})
+        kernels += flash_bwd_report(torch, bwd_errs, {
+            f"{arch} train": n["flash_attention_bwd"]
+            for arch, n in train_launches.items()
+            if "flash_attention_bwd" in n})
+        kernels += recurrent_bwd_report(torch, rec_bwd_errs, train_launches)
         kernels += recurrent_report(torch, model_kernels, rec_errs,
                                     serve_launches)
         kernels += gmm_report(torch, model_kernels, gmm_err, serve_launches)

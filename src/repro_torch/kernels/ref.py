@@ -3,7 +3,9 @@
 ``rglru``, ``wkv6`` and ``gmm``, the split algorithm of the decode kernel
 (:func:`decode_attention_split`), the chunked algebras of the RG-LRU
 kernel (:func:`rglru_chunked`) and of the bf16 WKV6 kernel
-(:func:`wkv6_chunked`), and the training pair of the flash kernels:
+(:func:`wkv6_chunked`), the backward versions of the two recurrences,
+:func:`rglru_bwd` and :func:`wkv6_bwd`, and the training pair of the
+flash kernels:
 :func:`mha_lse` (the forward with each row's log-sum-exp) and
 :func:`flash_attention_bwd` (the FlashAttention-2 backward of
 ``repro/models/flash_xla.py::_flash_bwd``).
@@ -204,24 +206,38 @@ def decode_attention_split(q, k_cache, v_cache, lengths, chunk, *,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
-def _rglru_terms(x, log_a):
-    """The RG-LRU's float32 decay ``a = exp(log_a)`` and gated input
-    ``sqrt(max(1 - exp(2·log_a), 0))·x``, the reference's formula in
-    float32.  Near log_a = 0 the difference cancels and magnifies the
-    exponential's error by ``1 / (1 - exp(2·log_a))`` (500 at log_a =
-    -1e-3).  On the CPU each exponential is therefore taken in float64 and
-    rounded once to float32, the correctly rounded value, whatever accuracy
-    the math library's float32 exponential has in the process (one with
-    ~14 bits moves y by 2.6e-4 on the tests' inputs).  On the card it is
-    CUDA's float32 ``expf``, the kernel's own, so that the kernel and this
-    plain version round alike (on an H100 the correctly rounded exponential
-    moves recurrentgemma's full-width float32 output 8.8e-5 from the
-    kernel's)."""
-    la = log_a.double() if log_a.device.type == "cpu" else log_a.float()
-    a = torch.exp(la).float()
-    gate = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * la).float(),
+def _acc(t):
+    """The dtype the plain recurrences compute in: float64 for float64
+    inputs (``torch.autograd.gradcheck``), else float32."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _rglru_decay(log_a):
+    """The RG-LRU's decay ``a = exp(log_a)`` and input gate ``sqrt(max(1 -
+    exp(2·log_a), 0))``, the reference's formula in float32 (float64 for
+    float64 ``log_a``).  Near log_a = 0 the difference cancels and
+    magnifies the exponential's error by ``1 / (1 - exp(2·log_a))`` (500
+    at log_a = -1e-3).  On the CPU each exponential is therefore taken in
+    float64 and rounded once to float32, the correctly rounded value,
+    whatever accuracy the math library's float32 exponential has in the
+    process (one with ~14 bits moves y by 2.6e-4 on the tests' inputs).
+    On the card it is CUDA's float32 ``expf``, the kernel's own, so that
+    the kernel and this plain version round alike (on an H100 the
+    correctly rounded exponential moves recurrentgemma's full-width
+    float32 output 8.8e-5 from the kernel's)."""
+    acc = _acc(log_a)
+    la = log_a.double() if log_a.device.type == "cpu" else log_a.to(acc)
+    a = torch.exp(la).to(acc)
+    gate = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * la).to(acc),
                                   min=0.0))
-    return a, gate * x.float()
+    return a, gate
+
+
+def _rglru_terms(x, log_a):
+    """The RG-LRU's decay ``a`` and gated input ``sqrt(max(1 -
+    exp(2·log_a), 0))·x`` (:func:`_rglru_decay`)."""
+    a, gate = _rglru_decay(log_a)
+    return a, gate * x.to(a.dtype)
 
 
 def rglru(x, log_a):
@@ -231,14 +247,59 @@ def rglru(x, log_a):
     :func:`_rglru_terms` takes them).  x, log_a (B, S, D).  Returns (y (B,
     S, D) in x's dtype, h_final (B, D) float32)."""
     a, bx = _rglru_terms(x, log_a)
-    h = torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32,
+    h = torch.zeros((x.shape[0], x.shape[2]), dtype=a.dtype,
                     device=x.device)
     ys = []
     for t in range(x.shape[1]):
         h = a[:, t] * h + bx[:, t]
         ys.append(h)
-    y = torch.stack(ys, 1) if ys else torch.zeros_like(x, dtype=torch.float32)
+    y = torch.stack(ys, 1) if ys else torch.zeros_like(x, dtype=a.dtype)
     return y.to(x.dtype), h
+
+
+def rglru_bwd(x, log_a, dy, dh_final=None):
+    """The vjp of :func:`rglru` (``jax.vjp`` of the reference's
+    ``kref.rglru``): given ``dy`` (B, S, D), the gradient of y, and
+    ``dh_final`` (B, D) or None (zero), the gradient of h_final, returns
+    (dx in x's dtype, dlog_a in log_a's dtype).  With ``g_t`` the
+    gradient of h_t, the reverse scan ``g_t = dy_t + a_{t+1}·g_{t+1}``
+    seeded by ``g_{S-1} = dy_{S-1} + dh_final``, and ``b_t = sqrt(max(1 -
+    a_t², 0))``::
+
+        dx_t     = b_t·g_t
+        dlog_a_t = g_t·(a_t·h_{t-1} - a_t²·x_t / b_t)
+
+    h is recomputed in float32 (float64 for float64 inputs) by the
+    forward's recurrence, and the terms come from :func:`_rglru_decay`,
+    as :func:`rglru` takes them.  Where the clamp binds (``1 -
+    exp(2·log_a) <= 0``, b = 0: log_a = 0, a = 1) the gate's term is
+    taken as 0, the clamp's flat side: there ``dx = 0`` and ``dlog_a =
+    g·a·h_{t-1}``.  The reference's gradient is not finite at log_a = 0
+    (sqrt′(0) meets the ``maximum``); the model never reaches it, since
+    log_a = -8·softplus(Λ)·r < 0."""
+    a, b = _rglru_decay(log_a)
+    xf = x.to(a.dtype)
+    B, S, D = x.shape
+    open_ = b > 0
+    q = torch.where(open_, a * a * xf / torch.where(open_, b,
+                                                    torch.ones_like(b)),
+                    torch.zeros_like(b))
+    h = torch.zeros((B, D), dtype=a.dtype, device=x.device)
+    h_prev = []
+    for t in range(S):
+        h_prev.append(h)
+        h = a[:, t] * h + b[:, t] * xf[:, t]
+    e = torch.zeros_like(h) if dh_final is None else dh_final.to(a.dtype)
+    dx, dla = [None] * S, [None] * S
+    for t in reversed(range(S)):          # e = a_{t+1}·g_{t+1}
+        g = dy[:, t].to(a.dtype) + e
+        dx[t] = b[:, t] * g
+        dla[t] = g * (a[:, t] * h_prev[t] - q[:, t])
+        e = a[:, t] * g
+    if S == 0:
+        return torch.zeros_like(x), torch.zeros_like(log_a)
+    return (torch.stack(dx, 1).to(x.dtype),
+            torch.stack(dla, 1).to(log_a.dtype))
 
 
 def rglru_chunked(x, log_a, tile=128, sub=16):
@@ -284,9 +345,9 @@ def wkv6(r, k, v, w, u):
     r, k, v, w (B, H, S, D); u (H, D).  Returns (y (B, H, S, D) in r's
     dtype, S_final (B, H, D, D) float32)."""
     B, H, S, D = r.shape
-    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
-    uf = u.float()
-    s = torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
+    acc = _acc(r)
+    rf, kf, vf, wf, uf = (t.to(acc) for t in (r, k, v, w, u))
+    s = torch.zeros((B, H, D, D), dtype=acc, device=r.device)
     ys = []
     for t in range(S):
         r_t, k_t, v_t = rf[:, :, t], kf[:, :, t], vf[:, :, t]
@@ -296,6 +357,66 @@ def wkv6(r, k, v, w, u):
         ys.append(y)
     y = torch.stack(ys, 2) if ys else torch.zeros_like(rf)
     return y.to(r.dtype), s
+
+
+def wkv6_bwd(r, k, v, w, u, dy, ds_final=None, chunk=64):
+    """The vjp of :func:`wkv6` (``jax.vjp`` of the reference's
+    ``kref.wkv6``, and of its training form ``wkv6_chunked``), in float32
+    (float64 for float64 inputs).  Given ``dy`` (B, H, S, D), the gradient
+    of y, and ``ds_final`` (B, H, D, D) or None (zero), the gradient of
+    S_final, with G_t the gradient of the state S_t (G_{S-1} =
+    ``ds_final``) and ``vdy_t = v_t·dy_t``::
+
+        dr_t = S_{t-1}·dy_t + (u ⊙ k_t)·vdy_t
+        dk_t = G_t·v_t + (r_t ⊙ u)·vdy_t
+        dv_t = G_tᵀ·k_t + (Σ r_t ⊙ u ⊙ k_t)·dy_t
+        dw_t = Σ_j S_{t-1}[:, j] ⊙ G_t[:, j]
+        du   = Σ_{b,t} r_t ⊙ k_t·vdy_t
+        G_{t-1} = diag(w_t)·G_t + r_t·dy_tᵀ
+
+    The states S_{t-1} are recomputed forward from checkpoints every
+    ``chunk`` steps, one chunk at a time as the walk back reaches it, as
+    ``wkv6_chunked``'s ``jax.checkpoint`` recomputes them.  Returns (dr,
+    dk, dv, dw in r's, k's, v's and w's dtypes, du (H, D) in u's)."""
+    B, H, S, D = r.shape
+    acc = _acc(r)
+    rf, kf, vf, wf, dyf = (t.to(acc) for t in (r, k, v, w, dy))
+    uf = u.to(acc)
+    vdy = (vf * dyf).sum(-1)                                  # (B, H, S)
+    bonus = (rf * uf[:, None] * kf).sum(-1)                   # (B, H, S)
+
+    def step(s, t):
+        return wf[:, :, t, :, None] * s \
+            + kf[:, :, t, :, None] * vf[:, :, t, None, :]
+
+    s = torch.zeros((B, H, D, D), dtype=acc, device=r.device)
+    starts = []
+    for t in range(S):
+        if t % chunk == 0:
+            starts.append(s)
+        s = step(s, t)
+    g = torch.zeros_like(s) if ds_final is None else ds_final.to(acc)
+    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    du = torch.zeros((H, D), dtype=acc, device=r.device)
+    for c in reversed(range(len(starts))):
+        s, prev = starts[c], []
+        for t in range(c * chunk, min(S, (c + 1) * chunk)):
+            prev.append(s)
+            s = step(s, t)
+        for t in reversed(range(c * chunk, min(S, (c + 1) * chunk))):
+            s_prev = prev[t - c * chunk]
+            r_t, k_t, v_t, dy_t = (x[:, :, t] for x in (rf, kf, vf, dyf))
+            dr[:, :, t] = torch.einsum("bhij,bhj->bhi", s_prev, dy_t) \
+                + uf * k_t * vdy[:, :, t, None]
+            dk[:, :, t] = torch.einsum("bhij,bhj->bhi", g, v_t) \
+                + r_t * uf * vdy[:, :, t, None]
+            dv[:, :, t] = torch.einsum("bhij,bhi->bhj", g, k_t) \
+                + bonus[:, :, t, None] * dy_t
+            dw[:, :, t] = (s_prev * g).sum(-1)
+            du += (r_t * k_t * vdy[:, :, t, None]).sum(0)
+            g = wf[:, :, t, :, None] * g + r_t[..., None] * dy_t[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.to(u.dtype))
 
 
 def wkv6_chunked(r, k, v, w, u, chunk=16):

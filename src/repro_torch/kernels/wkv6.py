@@ -14,6 +14,16 @@ and unaligned bf16) to the sequential CUDA-core one.
 The reference wrapper pads S to its time block with ``w = 1`` and zero k,
 so the state carries through the padding unchanged; the port's kernel stops
 at S instead, which gives the same ``s_final``.
+
+Training goes through :class:`WKV6Train`, the counterpart of the
+reference's training form ``repro/models/rwkv6.py::wkv6_chunked`` (which
+its trainer runs, ``rec_impl="xla"``, with float32 w and u and every
+product in float32): float32 r, k, v, w and u in, its forward the float32
+sequential kernel (route ``"simt"``), its backward :func:`wkv6_bwd`, the
+hand-written kernels of ``csrc/wkv6_bwd.cu`` (plain version
+:func:`repro_torch.kernels.ref.wkv6_bwd` on the CPU).  The bare
+:func:`wkv6` keeps refusing, on the card, an input that requires grad
+(``_nvcc.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -32,6 +42,10 @@ _LIB = _nvcc.Library("wkv6",
                      {"wkv6_fwd": [_I] * 2 + [_P] * 7 + [_I] * 4 + [_L] * 15
                       + [_P]},
                      "wkv6_error_string")
+_BWD_LIB = _nvcc.Library("wkv6_bwd",
+                         {"wkv6_bwd": [_P] * 14 + [_I] * 4 + [_L] * 18
+                          + [_P]},
+                         "wkv6_bwd_error_string")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -89,3 +103,85 @@ def wkv6(r, k, v, w, u):
 
 wkv6.launches = 0
 wkv6.routes = {"chunked": 0, "simt": 0}
+
+
+def wkv6_bwd(r, k, v, w, u, dy, ds_final=None):
+    """Gradients (dr, dk, dv, dw, du) of :func:`wkv6`'s (y, s_final) given
+    ``dy`` (B, H, S, D), the gradient of y, and ``ds_final`` (B, H, D, D)
+    or None (zero), the gradient of s_final: the vjp of ``kref.wkv6``
+    (:func:`repro_torch.kernels.ref.wkv6_bwd` gives the terms).  On the
+    card the three kernels of ``csrc/wkv6_bwd.cu``, float32 only (the
+    training form's dtypes): r, k, v, w and dy with any strides and a
+    contiguous last dimension, D one of :data:`HEAD_DIMS`; dr, dk, dv and
+    dw come back as (B, H, S, D) views of (B, S, H, D) memory, du (H, D).
+    The kernels keep a float32 checkpoint of the state every 16 steps
+    (B·H·⌈S/16⌉·D² floats) and one du partial a (b, h), which the last
+    kernel sums over b in order: no atomics, two calls bitwise equal.
+    ``wkv6_bwd.launches`` counts calls; on the CPU the plain version."""
+    B, H, S, D = r.shape
+    if any(t.shape != r.shape for t in (k, v, w, dy)) or u.shape != (H, D) \
+            or (ds_final is not None and ds_final.shape != (B, H, D, D)):
+        ds = None if ds_final is None else tuple(ds_final.shape)
+        raise ValueError(f"wkv6_bwd: r {tuple(r.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, w {tuple(w.shape)}, u "
+                         f"{tuple(u.shape)}, dy {tuple(dy.shape)}, ds_final "
+                         f"{ds}")
+    ins = (r, k, v, w, u, dy) + (() if ds_final is None else (ds_final,))
+    if not _nvcc.on_card("wkv6_bwd", *ins):
+        return ref.wkv6_bwd(r, k, v, w, u, dy, ds_final)
+    if any(t.dtype != torch.float32 for t in ins):
+        raise TypeError(f"wkv6_bwd takes float32 inputs, got "
+                        f"{[t.dtype for t in ins]}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"wkv6_bwd takes head sizes {HEAD_DIMS}, got {D}")
+    r, k, v, w, dy = (t if t.stride(-1) == 1 else t.contiguous()
+                      for t in (r, k, v, w, dy))
+    u = u.contiguous()
+    ds = None if ds_final is None else ds_final.contiguous()
+
+    def grad():
+        return torch.empty((B, S, H, D), dtype=torch.float32,
+                           device=r.device).transpose(1, 2)
+    dr, dk, dv, dw = grad(), grad(), grad(), grad()
+    du = torch.empty((H, D), dtype=torch.float32, device=r.device)
+    ckpt = torch.empty((B, H, max(1, -(-S // 16)), D, D),
+                       dtype=torch.float32, device=r.device)
+    du_part = torch.empty((B, H, D), dtype=torch.float32, device=r.device)
+    strides = tuple(x for t in (r, k, v, w, dy) for x in t.stride()[:3])
+    _BWD_LIB.call("wkv6_bwd", *(t.data_ptr() for t in (r, k, v, w, u, dy)),
+                  None if ds is None else ds.data_ptr(),
+                  *(t.data_ptr() for t in (dr, dk, dv, dw, du, ckpt,
+                                           du_part)),
+                  B, H, S, D, *strides, *dr.stride()[:3], _nvcc.stream(r))
+    wkv6_bwd.launches += 1
+    return dr, dk, dv, dw, du
+
+
+wkv6_bwd.launches = 0
+
+
+class WKV6Train(torch.autograd.Function):
+    """The WKV for training, ``WKV6Train.apply(r, k, v, w, u)`` → (y,
+    s_final), all float32 (the reference's ``wkv6_chunked`` with float32 w
+    and u; float64 on the CPU for ``gradcheck``).  On the card the forward
+    runs :func:`wkv6`'s float32 sequential kernel and keeps its inputs; the
+    backward recomputes the states from them (:func:`wkv6_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        if r.device.type == "cuda" and any(
+                t.dtype != torch.float32 for t in (r, k, v, w, u)):
+            raise TypeError(f"WKV6Train takes float32 r, k, v, w and u on "
+                            f"the card, got "
+                            f"{[t.dtype for t in (r, k, v, w, u)]}")
+        y, s = wkv6(r, k, v, w, u)
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.set_materialize_grads(False)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        r, k, v, w, u = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        return wkv6_bwd(r, k, v, w, u, dy, ds)

@@ -14,10 +14,15 @@ checkpoints, on one device.
 device from a generator seeded with ``TrainConfig.seed``; a run with
 ``--ckpt-dir`` resumes from its latest checkpoint and saves at the end.
 The card trains the dense family (llama3.2-3b, qwen3-8b, gemma-2b,
-internlm2-20b); the other families' kernels have no backward ported yet
-and refuse training there, so they train with ``--device cpu``.  A vlm
-or whisper batch carries the pipeline's synthesized ``context`` beside its
-tokens.
+internlm2-20b), the hybrid (recurrentgemma-2b: the RG-LRU's hand-written
+backward), the ssm (rwkv6-7b: the WKV's training form and its
+hand-written backward), the vlm (llama-3.2-vision-11b) and whisper
+(whisper-large-v3), both on flash attention's backward.  The MoE family
+(llama4-maverick, deepseek-v3) trains with ``--device cpu``: at its
+published widths no MoE configuration's weights and gradients fit one
+card, so its training on the card waits for experts sharded over cards
+(ROADMAP item 12), with the grouped matmul's backward.  A vlm or whisper
+batch carries the pipeline's synthesized ``context`` beside its tokens.
 """
 from __future__ import annotations
 
@@ -45,6 +50,11 @@ def run(cfg: ArchConfig, tcfg: TrainConfig, pipe, *, steps: int,
     ``train_step``, and each step's ``losses``, ``grad_norms`` and wall
     time ``step_s`` (to the loss's read, which waits for the device)."""
     dev = resolve_device(device)
+    if dev.type == "cuda" and cfg.moe is not None:
+        raise RuntimeError(
+            f"{cfg.name}: the MoE family does not train on the card yet; "
+            f"it waits for experts sharded over cards (ROADMAP item 12) and "
+            f"the grouped matmul's backward.  Train it with --device cpu")
     print(f"[train] arch={cfg.name} device={dev}")
     model, opt, train_step = make_train_step(cfg, tcfg, dev)
     params = model.init(torch.Generator(device=dev).manual_seed(tcfg.seed))

@@ -9,9 +9,13 @@ RG-LRU: r_t = σ(W_a x_t), i_t = σ(W_x x_t),
         log a_t = -c · softplus(Λ) · r_t   (c = 8)
         h_t = a_t h_{t-1} + sqrt(1 - a_t²) · (i_t ⊙ x_t)
 
-Prefill runs the scan through :func:`~repro_torch.kernels.rglru_scan
-.rglru_scan` (the CUDA kernel on the card, its plain version on the CPU);
-decode is the one-step update written out in float32.  The reference's
+The full-sequence form (prefill and training) runs the scan through
+:class:`~repro_torch.kernels.rglru_scan.RGLRUScan`: forward
+:func:`~repro_torch.kernels.rglru_scan.rglru_scan` and backward
+:func:`~repro_torch.kernels.rglru_scan.rglru_scan_bwd` (the CUDA kernels on
+the card, their plain versions on the CPU), the reference's ``kref.rglru``
+and its vjp, which its trainer runs; decode is the one-step update written
+out in float32.  The reference's
 casts are kept: the gates multiply in the model dtype before their float32
 cast, the scan's inputs are cast to the model dtype in prefill, and decode
 keeps ``log_a`` in float32.
@@ -25,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..kernels.rglru_scan import rglru_scan
+from ..kernels.rglru_scan import RGLRUScan
 from .layers import dense_init
 
 _C = 8.0
@@ -96,7 +100,7 @@ def rglru_block(params, x):
     xr, conv_hist = _causal_conv(params, x @ params["wx_rec"])
     log_a, i_gate = _gates(params, xr)
     gated_in = (i_gate * xr.float()).to(x.dtype)
-    y, h_fin = rglru_scan(gated_in, log_a.to(x.dtype))
+    y, h_fin = RGLRUScan.apply(gated_in, log_a.to(x.dtype))
     return (y * xg) @ params["wo"], RecState(h=h_fin, conv=conv_hist)
 
 

@@ -13,9 +13,15 @@ Channel mixing: token shift, k = relu(x' Wk)², out = σ(x' Wr) ⊙ (k Wv).
 
 Prefill runs the WKV through :func:`~repro_torch.kernels.wkv6.wkv6` (the
 CUDA kernel on the card, its plain version on the CPU) from a zero state,
-as the reference's ``impl="pallas"`` branch does: v, w and u are cast to
-r's dtype first.  Decode is the one-token recurrence written out in float32
-from the carried state.
+as the reference's serving branch (``impl="pallas"``) does: v, w and u are
+cast to r's dtype first.  Training (:func:`apply_rwkv_train`, which
+``logits`` also runs) follows the reference's training form,
+``wkv6_chunked``: r, k and v upcast exactly to float32, w and u float32 as
+they are (never rounded to r's dtype), the WKV through
+:class:`~repro_torch.kernels.wkv6.WKV6Train` (the float32 sequential kernel
+and its hand-written backward on the card), y cast to r's dtype after it.
+Decode is the one-token recurrence written out in float32 from the carried
+state.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..kernels.wkv6 import wkv6
+from ..kernels.wkv6 import WKV6Train, wkv6
 from .layers import dense_init, init_layernorm, layernorm, remat_call
 
 _DECAY_LORA = 64
@@ -110,10 +116,12 @@ def _wkv6_step(r, k, v, w, u, s):
     return y.to(r.dtype), s
 
 
-def time_mix(params, x, cfg: ArchConfig, state=None):
+def time_mix(params, x, cfg: ArchConfig, state=None, train=False):
     """x (B, S, d) → (out (B, S, d), wkv state (B, H, D, D), x[:, -1]).
-    Without ``state`` (prefill) the WKV starts from zero and runs through
-    the kernel; with it (decode, S = 1) one step runs from ``state``."""
+    Without ``state`` the WKV starts from zero: in the serving form
+    (prefill) through the kernel at r's dtype, with ``train`` in the
+    training form (float32, :class:`WKV6Train`); with ``state`` (decode, S
+    = 1) one step runs from ``state``."""
     B, S, d = x.shape
     H, hd = cfg.n_heads, cfg.head_dim_
     prev = state.shift_t if state is not None else x.new_zeros((B, d))
@@ -125,7 +133,12 @@ def time_mix(params, x, cfg: ArchConfig, state=None):
     v = (xv @ params["wv"]).reshape(B, S, H, hd)
     g = xg @ params["wg"]
     w = _decay(params, xw).reshape(B, S, H, hd)
-    if state is None:
+    if state is None and train:
+        rt, kt, vt, wt = (t.transpose(1, 2) for t in (r, k, v, w))
+        y, s_fin = WKV6Train.apply(rt.float(), kt.float(), vt.float(), wt,
+                                   params["u"])
+        y = y.to(r.dtype).transpose(1, 2)
+    elif state is None:
         rt, kt, vt, wt = (t.transpose(1, 2) for t in (r, k, v, w))
         y, s_fin = wkv6(rt, kt, vt.to(r.dtype), wt.to(r.dtype),
                         params["u"].to(r.dtype))
@@ -168,12 +181,13 @@ def init_rwkv_caches(cfg: ArchConfig, batch: int, device) -> List[RWKVState]:
     return [init_rwkv_state(cfg, batch, device) for _ in range(cfg.n_layers)]
 
 
-def apply_rwkv_block(p, cfg: ArchConfig, x, state=None):
-    """One block over x (B, S, d): prefill from zero state (``state`` None)
-    or one decode step.  Returns (x', RWKVState); the shift states are the
-    *normalised* sublayer inputs' last tokens."""
+def apply_rwkv_block(p, cfg: ArchConfig, x, state=None, train=False):
+    """One block over x (B, S, d): prefill from zero state (``state`` None;
+    ``train``: the WKV's training form) or one decode step.  Returns (x',
+    RWKVState); the shift states are the *normalised* sublayer inputs' last
+    tokens."""
     h, s_fin, sh_t = time_mix(p["time"], layernorm(p["ln1"], x, cfg.norm_eps),
-                              cfg, state)
+                              cfg, state, train)
     x = x + h
     h, sh_c = channel_mix(p["chan"], layernorm(p["ln2"], x, cfg.norm_eps),
                           state)
@@ -192,7 +206,7 @@ def apply_rwkv_stack(layers, cfg: ArchConfig, x, states=None):
 
 
 def _train_block(p, cfg: ArchConfig, x):
-    return apply_rwkv_block(p, cfg, x)[0]
+    return apply_rwkv_block(p, cfg, x, train=True)[0]
 
 
 def apply_rwkv_train(layers, cfg: ArchConfig, x, remat: str = "block"):

@@ -1,6 +1,7 @@
-"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
-``chip_compare.py`` import neither JAX nor the JAX package, and the port's
-entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py``,
+``chip_compare.py`` and ``chip_bwd_faults.py`` import neither JAX nor the
+JAX package, and the port's entry points run on the card unless the
+caller asks for the CPU."""
 import ast
 from pathlib import Path
 
@@ -11,7 +12,8 @@ import repro_torch.core as pt
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py",
+       ROOT / "chip_bwd_faults.py"]
 
 
 def _imported_modules(path):
