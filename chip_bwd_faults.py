@@ -1,22 +1,23 @@
 #!/usr/bin/env python3
 """Planted faults against ``chip_smoke.py``'s phase 2c comparison of the
-RG-LRU backward kernel.
+recurrences' backward kernels, RG-LRU and WKV6.
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit:
 
     python3 chip_bwd_faults.py
 
-It builds copies of ``src/repro_torch/kernels/csrc/rglru_scan.cu`` in a
-temporary directory, each with one fault planted in the backward kernel,
-and runs each on phase 2c's training-shape, D = 100 and log_a = 0 cases,
-bf16 and float32.  For each copy, case and output it prints the reading
-of phase 2c's comparison (``chip_smoke.elementwise_err`` under
-``BWD_TOL``: above 1 fails) beside the max-scaled one it replaced (max
-|got - plain| over max(1, max |plain|), held to 1e-4 in float32 and 1e-2
-in bf16).  The kernel as it is runs first.  Exits non-zero if the kernel
-as it is fails the comparison or a planted fault passes it in the output
-it changes.
+It builds copies of ``src/repro_torch/kernels/csrc/rglru_scan.cu`` and of
+``wkv6_bwd.cu`` in temporary directories, each with one fault planted in
+a backward kernel, and runs each on phase 2c's cases of that kernel: the
+RG-LRU's training-shape, D = 100 and log_a = 0 cases, bf16 and float32;
+the WKV's training-shape and w = 0 cases.  For each copy, case and
+output it prints the reading of phase 2c's comparison
+(``chip_smoke.elementwise_err`` under ``BWD_TOL``: above 1 fails), for
+the RG-LRU beside the max-scaled one it replaced (max |got - plain| over
+max(1, max |plain|), held to 1e-4 in float32 and 1e-2 in bf16).  Each
+kernel as it is runs first.  Exits non-zero if a kernel as it is fails
+the comparison or a planted fault passes it in the output it changes.
 """
 from __future__ import annotations
 
@@ -29,19 +30,40 @@ from pathlib import Path
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GATE = "const float q = gate > 0.f ? a * a * xv / gate : 0.f;"
 DX = "put(sx[t][c], gate * g);"
-# name: (line replaced, its faulty form, the output it changes)
-FAULTS = {
-    "gate term dropped": (GATE, "const float q = 0.f;", 1),
-    "gate term 1% high": (GATE, "const float q = gate > 0.f ? "
-                          "1.01f * a * a * xv / gate : 0.f;", 1),
-    "gate term 1% high where b > 1/16": (
-        GATE, "const float q = gate > 0.f ? (gate > 0.0625f ? 1.01f : 1.f)"
-        " * a * a * xv / gate : 0.f;", 1),
-    "dx 1% high": (DX, "put(sx[t][c], 1.01f * gate * g);", 0),
+# the WKV backward: stage 1's G jump, its prefix scan, du's sum, dw's store
+JUMP = "      const float wr = sm.W[i0 + r];"
+PREFIX = ("for (int t = 0; t < kJ; ++t) {  // r_t . prod_{tau < t} w_tau\n"
+          "          sm.a[t][i] *= q;\n"
+          "          q *= sm.w[t][i];")
+DU = "    for (int c = 0; c < n; ++c)"
+DW = "                a.out[kDW][o] = pw[m];"
+# kernel: (source, outputs, cases, {fault: (line, its faulty form, the
+# output it changes)})
+KERNELS = {
+    "rglru_scan_bwd": ("rglru_scan.cu", ("dx", "dlog_a"), (
+        "train shape bfloat16", "train shape float32",
+        "S=37 D=100 dh_final bfloat16", "S=37 D=100 dh_final float32",
+        "log_a = 0 runs S=600 bfloat16", "log_a = 0 runs S=600 float32"), {
+        "gate term dropped": (GATE, "const float q = 0.f;", 1),
+        "gate term 1% high": (GATE, "const float q = gate > 0.f ? "
+                              "1.01f * a * a * xv / gate : 0.f;", 1),
+        "gate term 1% high where b > 1/16": (
+            GATE, "const float q = gate > 0.f ? (gate > 0.0625f ? 1.01f : "
+            "1.f) * a * a * xv / gate : 0.f;", 1),
+        "dx 1% high": (DX, "put(sx[t][c], 1.01f * gate * g);", 0)}),
+    "wkv6_bwd": ("wkv6_bwd.cu", ("dr", "dk", "dv", "dw", "du"), (
+        "train shape float32", "w = 0 S=200 float32"), {
+        "E^c jumps without its chunk's decay": (
+            JUMP, "      const float wr = grads ? 1.f : sm.W[i0 + r];", 1),
+        "the prefix product P' includes step t": (
+            PREFIX, "for (int t = 0; t < kJ; ++t) {\n"
+            "          q *= sm.w[t][i];\n          sm.a[t][i] *= q;", 1),
+        "du takes only the first chunk's partial": (
+            DU, "    for (int c = 0; c < 1; ++c)", 4),
+        "dw drops each chunk's last step": (
+            DW, "                a.out[kDW][o] = tl == kL - 1 ? 0.f : "
+            "pw[m];", 3)}),
 }
-CASES = ("train shape bfloat16", "train shape float32",
-         "S=37 D=100 dh_final bfloat16", "S=37 D=100 dh_final float32",
-         "log_a = 0 runs S=600 bfloat16", "log_a = 0 runs S=600 float32")
 
 
 def main() -> int:
@@ -54,47 +76,59 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.kernels import _nvcc, ref
     from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import wkv6 as wk
     print(cs.card_line(), flush=True)
-    cases = [(label, args) for label, args in
-             cs.recurrent_bwd_cases(torch)["rglru_scan_bwd"]
-             if label in CASES]
-    plain = [ref.rglru_bwd(*(t.float() if t is not None else None
-                             for t in args)) for _label, args in cases]
-    src = (_nvcc.CSRC / "rglru_scan.cu").read_text()
+    wrappers = {"rglru_scan_bwd": (rs.rglru_scan_bwd, rs._LIB, ref.rglru_bwd),
+                "wkv6_bwd": (wk.wkv6_bwd, wk._BWD_LIB, ref.wkv6_bwd)}
+    all_cases = cs.recurrent_bwd_cases(torch)
     csrc, build = _nvcc.CSRC, _nvcc.BUILD
     bad, tmps = [], []
     try:
-        for fault, (line, faulty, out) in [("none", (None, None, None)),
-                                           *FAULTS.items()]:
-            if line is not None:
-                assert src.count(line) == 1, line
-                tmp = Path(tempfile.mkdtemp())
-                tmps.append(tmp)
-                (tmp / "rglru_scan.cu").write_text(src.replace(line, faulty))
-                _nvcc.CSRC, _nvcc.BUILD = tmp, tmp / "build"
-                rs._LIB._lib = None
-            for (label, args), exp in zip(cases, plain):
-                got = rs.rglru_scan_bwd(*args)
-                tol = cs.BWD_TOL[str(args[0].dtype)[6:]]
-                new = [cs.elementwise_err(torch, a, b, *tol)
-                       for a, b in zip(got, exp)]
-                old = [cs.rel_err(a, b) for a, b in zip(got, exp)]
-                print(f"{fault} [{label}]: dx, dlog_a element-wise "
-                      f"{new[0]:.3g}, {new[1]:.3g} of the limit; max-scaled "
-                      f"{old[0]:.3g}, {old[1]:.3g}", flush=True)
-                if (out is None and max(new) > 1) or (
-                        out is not None and new[out] <= 1):
-                    bad.append(f"{fault} [{label}]")
+        for name, (source, outs, labels, faults) in KERNELS.items():
+            kern, lib, plain_fn = wrappers[name]
+            cases = [(label, args) for label, args in all_cases[name]
+                     if label in labels]
+            plain = [plain_fn(*(t.float() if t is not None else None
+                                for t in args)) for _label, args in cases]
+            src = (csrc / source).read_text()
+            for fault, (line, faulty, out) in [("none", (None, None, None)),
+                                               *faults.items()]:
+                _nvcc.CSRC, _nvcc.BUILD = csrc, build
+                if line is not None:
+                    assert src.count(line) == 1, line
+                    tmp = Path(tempfile.mkdtemp())
+                    tmps.append(tmp)
+                    (tmp / source).write_text(src.replace(line, faulty))
+                    _nvcc.CSRC, _nvcc.BUILD = tmp, tmp / "build"
+                lib._lib = None
+                for (label, args), exp in zip(cases, plain):
+                    got = kern(*args)
+                    tol = cs.BWD_TOL[str(args[0].dtype)[6:]]
+                    new = [cs.elementwise_err(torch, a, b, *tol)
+                           for a, b in zip(got, exp)]
+                    read = ", ".join(f"{o} {e:.3g}"
+                                     for o, e in zip(outs, new))
+                    if name == "rglru_scan_bwd":
+                        old = [cs.rel_err(a, b) for a, b in zip(got, exp)]
+                        read += "; max-scaled " + ", ".join(
+                            f"{o} {e:.3g}" for o, e in zip(outs, old))
+                    print(f"{name}, {fault} [{label}]: element-wise {read} "
+                          f"of the limit", flush=True)
+                    if (out is None and max(new) > 1) or (
+                            out is not None and new[out] <= 1):
+                        bad.append(f"{name}, {fault} [{label}]")
+                    del got
     finally:
         _nvcc.CSRC, _nvcc.BUILD = csrc, build
-        rs._LIB._lib = None
+        for _kern, lib, _plain in wrappers.values():
+            lib._lib = None
         for tmp in tmps:
             shutil.rmtree(tmp, ignore_errors=True)
     if bad:
         print(f"chip_bwd_faults FAILED: {bad}", file=sys.stderr)
         return 1
-    print("every planted fault fails the comparison; the kernel as it is "
-          "passes")
+    print("every planted fault fails the comparison; the kernels as they are "
+          "pass")
     return 0
 
 

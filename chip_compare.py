@@ -6,11 +6,11 @@ Run from the repository root on a machine with a CUDA card, the CUDA
 toolkit and, beside this checkout, an unpacked copy of the commit to
 compare with (``git archive <commit> | tar -x -C <dir>``):
 
-    python3 chip_compare.py [--groups moe,copy,dma,rwkv,rglru,bwd] <parent dir> <change dir>
+    python3 chip_compare.py [--groups moe,copy,dma,rwkv,rglru,bwd,wkvbwd] <parent dir> <change dir>
 
 Each turn is one process that imports ``chip_smoke`` and ``repro_torch``
 from its tree and builds that tree's kernels, then, with that tree's code,
-runs the groups asked for (all six by default):
+runs the groups asked for (all seven by default):
 
 * ``moe``: serves llama4-maverick-400b-a17b at full width and 4 layers
   (512-token prompts) as ``chip_smoke.py``'s phase 5 does, with its checks
@@ -46,7 +46,13 @@ runs the groups asked for (all six by default):
   3 steps of 2 x 4096 tokens (``remat="block"``, AdamW) as
   ``chip_smoke.py``'s phase 7 does, on one repeated batch: step ms and
   tokens/s over the steps after the first, the first step's ms, losses
-  finite.
+  finite;
+* ``wkvbwd``: times ``wkv6_bwd`` at rwkv6-7b's training shape (B 2, 64
+  heads of 64, S 4096, float32; r, k, v, w and dy (B, H, S, D) views of
+  (B, S, H, D) memory, ds_final None, as the model passes them) and trains
+  rwkv6-7b at full width and depth for 3 steps of 2 x 4096 tokens
+  (``remat="block"``, Adafactor) as ``chip_smoke.py``'s phase 7 does, on
+  one repeated batch: the same step numbers, and the peak device GiB.
 
 Times are the wrapper's (CUDA events around a loop of calls), the device
 time per call and the device operations (kernels, copies, fills) per call
@@ -69,7 +75,7 @@ SERVE_KEYS = ("prefill_ms_p50", "decode_step_p50_ms", "decode_step_p99_ms",
 # (label, B, S): the MoE block's input, B sequences of S tokens
 MOE = [("moe_block 4 tokens", 4, 1), ("moe_block 2048 tokens", 4, 512)]
 TIMED = ("ms", "device_ms", "device_ops")
-TRAIN_KEYS = ("step_ms_p50", "tokens_per_s", "first_step_ms")
+TRAIN_KEYS = ("step_ms_p50", "tokens_per_s", "first_step_ms", "peak_gib")
 LEAD_MARKS = 128           # marker kernels before a profiled session's calls
 TRAIN_STEPS = 3
 # the CUDA sources each group's turn builds
@@ -78,7 +84,8 @@ SOURCES = {"moe": ("flash_attention", "decode_attention", "rglru_scan",
            "copy": ("remote_copy",), "dma": ("remote_dma",),
            "rwkv": ("wkv6",),
            "rglru": ("flash_attention", "decode_attention", "rglru_scan"),
-           "bwd": ("flash_attention", "flash_attention_bwd")}
+           "bwd": ("flash_attention", "flash_attention_bwd"),
+           "wkvbwd": ("wkv6", "wkv6_bwd")}
 GROUPS = tuple(SOURCES)
 # the architectures a group serves, each timed by SERVE_KEYS
 SERVED = ("llama4-maverick-400b-a17b", "rwkv6-7b", "recurrentgemma-2b")
@@ -187,6 +194,8 @@ def turn(root: str, tag: str, groups) -> dict:
 
     if "bwd" in groups:
         flash_bwd_and_training(torch, cs, timed, res)
+    if "wkvbwd" in groups:
+        wkv_bwd_and_training(torch, cs, timed, res)
     return res
 
 
@@ -194,12 +203,7 @@ def flash_bwd_and_training(torch, cs, timed, res):
     """Flash attention's backward at the training shape, then a few
     training steps of llama3.2-3b as phase 7 runs them.  Inputs and
     weights are made here from a seed, alike in both trees."""
-    import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import TrainConfig
-    from repro_torch.data import SyntheticTokens
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch import train as launcher
     g = torch.Generator(device="cuda").manual_seed(cs.SEED + 13)
     B, Hq, Hkv, S, D = cs.TRAIN_BATCH, 24, 8, cs.TRAIN_SEQ, 128
 
@@ -213,19 +217,59 @@ def flash_bwd_and_training(torch, cs, timed, res):
           lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
                                          causal=True), 10)
     del q, k, v, dout, out, lse
-    cfg = get_config(cs.TRAIN_ARCH)
+    train_steps(torch, cs, res, cs.TRAIN_ARCH, "adamw")
+
+
+def wkv_bwd_and_training(torch, cs, timed, res):
+    """The WKV's backward at rwkv6-7b's training shape, then a few training
+    steps of rwkv6-7b as phase 7 runs them (Adafactor).  Inputs and
+    weights are made here from a seed, alike in both trees."""
+    from repro_torch.kernels.wkv6 import wkv6_bwd
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 16)
+    B, H, S, D = cs.TRAIN_BATCH, 64, cs.TRAIN_SEQ, 64
+
+    def bhsd():
+        return torch.randn((B, S, H, D), generator=g,
+                           device="cuda").transpose(1, 2)
+
+    r, k, v, dy = (bhsd() for _ in range(4))
+    w = torch.exp(-torch.exp(-4.0 + 0.5 * bhsd()))
+    u = 0.1 * torch.randn((H, D), generator=g, device="cuda")
+    timed(f"wkv6_bwd float32, B={B} H={H} S={S} D={D}",
+          lambda: wkv6_bwd(r, k, v, w, u, dy), 10)
+    del r, k, v, w, u, dy
+    train_steps(torch, cs, res, "rwkv6-7b", "adafactor")
+
+
+def train_steps(torch, cs, res, arch, optimizer):
+    """``TRAIN_STEPS`` training steps of ``arch`` at full width and depth
+    as phase 7 runs them (bf16, TRAIN_BATCH x TRAIN_SEQ tokens,
+    ``remat="block"``, ``optimizer``) on one repeated batch: step ms and
+    tokens/s over the steps after the first, the first step's ms, the
+    peak device GiB, losses finite."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import train as launcher
+    cfg = get_config(arch)
     pipe = cs.RepeatedBatch(SyntheticTokens(cfg, cs.TRAIN_BATCH,
                                             cs.TRAIN_SEQ, cs.SEED))
-    run = launcher.run(cfg, TrainConfig(remat="block", optimizer="adamw"),
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = launcher.run(cfg, TrainConfig(remat="block", optimizer=optimizer),
                        pipe, steps=TRAIN_STEPS, device="cuda",
                        log_every=TRAIN_STEPS)
     if not all(np.isfinite(run["losses"])):
-        raise RuntimeError(f"training losses {run['losses']}")
+        raise RuntimeError(f"{arch} training losses {run['losses']}")
     step_s = float(np.percentile(run["step_s"][1:], 50))
-    res[f"{cs.TRAIN_ARCH} train"] = dict(
+    res[f"{arch} train"] = dict(
         step_ms_p50=1e3 * step_s,
         tokens_per_s=cs.TRAIN_BATCH * cs.TRAIN_SEQ / step_s,
-        first_step_ms=1e3 * run["step_s"][0], losses=run["losses"])
+        first_step_ms=1e3 * run["step_s"][0],
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        losses=run["losses"])
     del run
     gc.collect()
     torch.cuda.empty_cache()

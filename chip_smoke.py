@@ -93,10 +93,13 @@ exits non-zero and prints no result:
    training shape (2 x 4,096 x 2,560) with dh_final zero and seeded, D =
    100, runs of log_a = 0, strong decays, D = 2568 and a base off 16
    bytes, bf16 and float32, each on the copies ``_variant`` picks;
-   ``wkv6_bwd`` (``csrc/wkv6_bwd.cu``) in float32 at rwkv6-7b's (2 x 64
-   heads of 64 x 4,096 steps), D 16/32/48/64 with S off its 16-step
-   chunk, ds_final zero and seeded, strong decays and w exactly 0; two
-   calls bitwise equal, and a call's device operations (one kernel; three)
+   ``wkv6_bwd`` (``csrc/wkv6_bwd.cu``, chunk-parallel) in float32 at
+   rwkv6-7b's (2 x 64 heads of 64 x 4,096 steps), D 16/32/48/64 with S
+   off its 64-step chunk (S = 64k - 1 and 64k + 1 among them) and S = 1,
+   ds_final zero and seeded, strong decays, w exactly 0 and a whole chunk
+   of w = 0, and a base off 16 bytes, each on the copies ``_bwd_variant``
+   picks; two calls bitwise equal, and a call's device operations (one
+   kernel; three: the chunk states, every chunk's gradients, du's sum)
    under ``torch.profiler``;
 3. run the same work on the card and on the CPU: a P=4 store through 20
    windows (states and results bitwise equal after every window), a P=4
@@ -1224,9 +1227,11 @@ def recurrent_bwd_cases(torch):
     [-30, -10]), D = 2568 and a base off 16 bytes.  wkv6_bwd (r, k, v, w,
     u, dy, ds_final), float32, inputs (B, H, S, D) views of (B, S, H, D)
     memory as the model passes them: rwkv6-7b's training shape (2 x 64
-    heads of 64 x 4,096 steps), D 16/32/48/64 at S off the 16-step chunk
-    with ds_final seeded and None, strong decays and w exactly 0.  Ranges
-    as in :func:`recurrent_cases`."""
+    heads of 64 x 4,096 steps), D 16/32/48/64 at S off the kernels' 64-step
+    chunk (S = 64k - 1 and 64k + 1 among them) with ds_final seeded and
+    None, S = 1, strong decays, w exactly 0 (a fifth of it and a whole
+    step), a whole chunk of w = 0, and a base off 16 bytes (4-byte
+    copies).  Ranges as in :func:`recurrent_cases`."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 14)
 
     def rn(*shape):
@@ -1275,14 +1280,25 @@ def recurrent_bwd_cases(torch):
         return rn(B, S, H, D).transpose(1, 2)
 
     wkv = []
-    for label, (B, H, S, D), decay, seeded in [
-            ("train shape", (TRAIN_BATCH, 64, TRAIN_SEQ, 64), "mild", False),
-            ("S=37 D=64 ds_final", (2, 3, 37, 64), "mild", True),
-            ("S=45 D=16 ds_final", (2, 4, 45, 16), "mild", True),
-            ("S=70 D=32", (2, 3, 70, 32), "mild", False),
-            ("S=23 D=48 ds_final", (2, 3, 23, 48), "mild", True),
-            ("strong decays S=200", (2, 16, 200, 64), "strong", True),
-            ("w = 0 S=200", (2, 16, 200, 64), "zeros", True)]:
+    for label, (B, H, S, D), decay, seeded, place in [
+            ("train shape", (TRAIN_BATCH, 64, TRAIN_SEQ, 64), "mild", False,
+             None),
+            ("S=37 D=64 ds_final", (2, 3, 37, 64), "mild", True, None),
+            ("S=45 D=16 ds_final", (2, 4, 45, 16), "mild", True, None),
+            ("S=70 D=32", (2, 3, 70, 32), "mild", False, None),
+            ("S=23 D=48 ds_final", (2, 3, 23, 48), "mild", True, None),
+            ("strong decays S=200", (2, 16, 200, 64), "strong", True, None),
+            ("w = 0 S=200", (2, 16, 200, 64), "zeros", True, None),
+            ("S=127 D=64 ds_final", (2, 8, 127, 64), "mild", True, None),
+            ("S=129 D=64", (2, 8, 129, 64), "mild", False, None),
+            ("S=63 D=32 ds_final", (2, 4, 63, 32), "mild", True, None),
+            ("S=193 D=48", (2, 4, 193, 48), "mild", False, None),
+            ("S=1 D=64 ds_final", (2, 8, 1, 64), "mild", True, None),
+            ("S=1 D=16", (3, 4, 1, 16), "mild", False, None),
+            ("a chunk of w = 0 S=200", (2, 16, 200, 64), "chunk zeros", True,
+             None),
+            ("base off 16 bytes S=150 D=64", (2, 8, 150, 64), "mild", True,
+             off16)]:
         r, k, v, dy = (bhsd(B, H, S, D) for _ in range(4))
         delta = 0.5 * bhsd(B, H, S, D)
         w = torch.exp(-torch.exp((2.0 if decay == "strong" else -4.0)
@@ -1290,8 +1306,12 @@ def recurrent_bwd_cases(torch):
         if decay == "zeros":        # a fifth of w exactly 0, a step all 0
             w = torch.where(uni(0, 1, *w.shape) < 0.2, torch.zeros_like(w), w)
             w[:, :, 9] = 0.0
+        if decay == "chunk zeros":  # every w of the second chunk 0
+            w[:, :, 64:128] = 0.0
         u = 0.1 * rn(H, D)
         ds = rn(B, H, D, D) if seeded else None
+        if place is not None:
+            r, k, v, w, dy = (place(t) for t in (r, k, v, w, dy))
         wkv.append((f"{label} float32", (r, k, v, w, u, dy, ds)))
     return {"rglru_scan_bwd": rglru, "wkv6_bwd": wkv}
 
@@ -1309,13 +1329,16 @@ def phase_recurrent_bwd_kernels(torch):
     element within ``BWD_TOL``; each output's dtype and shape; a second
     call bitwise equal to the first; each RG-LRU case on the copies
     ``_variant`` should pick
-    (16-byte where x, log_a, dy, dx and dlog_a rows all start on 16 bytes);
-    and the device operations of a call under ``torch.profiler`` (the
-    RG-LRU backward one kernel, on each route; the WKV backward its three).
+    (16-byte where x, log_a, dy, dx and dlog_a rows all start on 16 bytes),
+    and each WKV case on the copies ``_bwd_variant`` should pick (16-byte
+    where every stride of r, k, v, w and dy is a multiple of 4 and every
+    base on 16 bytes); and the device operations of a call under
+    ``torch.profiler`` (the RG-LRU backward one kernel, on each route; the
+    WKV backward its three, on each route).
     Returns the largest absolute errors and the operations a call."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.rglru_scan import _variant, rglru_scan_bwd
-    from repro_torch.kernels.wkv6 import wkv6_bwd
+    from repro_torch.kernels.wkv6 import _bwd_variant, wkv6_bwd
     kernels = {"rglru_scan_bwd": rglru_scan_bwd, "wkv6_bwd": wkv6_bwd}
     plain = {"rglru_scan_bwd": ref.rglru_bwd, "wkv6_bwd": ref.wkv6_bwd}
     expected_ops = {"rglru_scan_bwd": 1, "wkv6_bwd": 3}
@@ -1330,7 +1353,6 @@ def phase_recurrent_bwd_kernels(torch):
             torch.cuda.synchronize()
             check(kern.launches == before + 1, f"{name} ({label}) did not "
                                                f"launch")
-            route = ""
             if name == "rglru_scan_bwd":
                 x = args[0]
                 want = _variant(x.dtype, x.shape[2], tuple(
@@ -1339,12 +1361,20 @@ def phase_recurrent_bwd_kernels(torch):
                     t.data_ptr() % 16 == 0 for t in (*args[:3], *got))
                 check(want == ("vector" if aligned else "scalar"),
                       f"{name} ({label}): _variant picked {want}")
-                check(kern.routes[want] == routes[want] + 1,
-                      f"{name} ({label}) did not take the {want} route")
-                route = f", {want} route"
-                key = f"{name} {want}"
             else:
-                key = name
+                ins = (*args[:4], args[5])
+                want = _bwd_variant(
+                    tuple(x for t in ins for x in t.stride()[:3]),
+                    tuple(t.data_ptr() for t in ins))
+                aligned = all(x % 4 == 0 for t in ins
+                              for x in t.stride()[:3]) and all(
+                    t.data_ptr() % 16 == 0 for t in ins)
+                check(want == ("vector" if aligned else "scalar"),
+                      f"{name} ({label}): _bwd_variant picked {want}")
+            check(kern.routes[want] == routes[want] + 1,
+                  f"{name} ({label}) did not take the {want} route")
+            route = f", {want} route"
+            key = f"{name} {want}"
             again = kern(*args)
             check(all(bits_equal(torch, a, b) for a, b in zip(got, again)),
                   f"{name} ({label}): two calls differ")
@@ -3752,7 +3782,8 @@ def train_launches(cfg):
         bwd_route: attn},
         "rglru_scan": {"vector": 2 * rec, "scalar": 0},
         "rglru_scan_bwd": {"vector": rec, "scalar": 0},
-        "wkv6": {"chunked": 0, "simt": 2 * rwkv}}
+        "wkv6": {"chunked": 0, "simt": 2 * rwkv},
+        "wkv6_bwd": {"vector": rwkv, "scalar": 0}}
     return ({k: n for k, n in launches.items() if n},
             {k: r for k, r in routes.items() if sum(r.values())})
 
@@ -4674,6 +4705,9 @@ def main() -> int:
         log("  -Xptxas -v, RG-LRU kernels, forward and backward [registers, "
             f"spill stores, spill loads]: {usage}")
         usage = ptxas_usage(_nvcc, "wkv6_bwd", "wkv6_bwd_")
+        d64 = {fn: u for fn, u in usage.items() if "ILi64E" in fn}
+        check(len(d64) == 4 and all(u[0] and not u[1] for u in d64.values()),
+              f"the D = 64 WKV6 backward kernels spill: {d64}")
         log("  -Xptxas -v, WKV6 backward kernels [registers, spill stores, "
             f"spill loads]: {usage}")
         hmma = sass_mma_count(_nvcc, "flash_attention_bwd", "mma_kernel")

@@ -419,6 +419,88 @@ def wkv6_bwd(r, k, v, w, u, dy, ds_final=None, chunk=64):
             du.to(u.dtype))
 
 
+def wkv6_bwd_chunked(r, k, v, w, u, dy, ds_final=None, chunk=64):
+    """:func:`wkv6_bwd` as the CUDA kernels of ``csrc/wkv6_bwd.cu`` compute
+    it: time cut into chunks of ``chunk`` steps (the last one padded with
+    r = k = v = dy = 0 and w = 1, which leaves S and G as they are), then
+
+    1. the state before each chunk, S^c, and the gradient of the state
+       after it, E^{c+1} (E^{n} = ``ds_final``), by one jump a chunk, with
+       the chunk's decay ``W_c = Π_τ w_τ``, its exclusive prefix products
+       ``P'_l = Π_{τ<l} w_τ`` and suffix products ``Q_l = Π_{τ>l} w_τ``::
+
+           S^{c+1} = diag(W_c) S^c + Σ_l (k_l ⊙ Q_l) v_lᵀ
+           E^c     = diag(W_c) E^{c+1} + Σ_l (r_l ⊙ P'_l) dy_lᵀ
+
+    2. every chunk's gradients at once (batched over chunks): S_{t-1}
+       walked forward from S^c and G_t back from E^{c+1} over the chunk's
+       own steps, with :func:`wkv6_bwd`'s terms; du summed over b, chunks
+       and steps.
+
+    Every factor is a product of decays: w = 0 gives exact zeros, and
+    nothing is divided.  Same arguments and results as :func:`wkv6_bwd`
+    (float64 for float64 inputs, else float32)."""
+    B, H, S, D = r.shape
+    acc = _acc(r)
+    L = chunk
+    pad = -S % L
+    n = (S + pad) // L
+    if n == 0:
+        return (torch.empty_like(r), torch.empty_like(k), torch.empty_like(v),
+                torch.empty_like(w), torch.zeros_like(u))
+
+    def chunked(t, value=0.0):
+        return torch.nn.functional.pad(t.to(acc), (0, 0, 0, pad),
+                                       value=value).reshape(B, H, n, L, D)
+    rf, kf, vf, dyf = (chunked(t) for t in (r, k, v, dy))
+    wf = chunked(w, 1.0)
+    uf = u.to(acc)[:, None]                                   # (H, 1, D)
+
+    def prefix(x):                    # Π_{τ<l} x_τ along the chunk
+        return torch.cat([torch.ones_like(x[:, :, :, :1]),
+                          torch.cumprod(x[:, :, :, :-1], 3)], 3)
+
+    def suffix(x):                    # Π_{τ>l} x_τ along the chunk
+        return torch.flip(prefix(torch.flip(x, [3])), [3])
+
+    decay = torch.prod(wf, 3)[..., None]                      # (B, H, n, D, 1)
+    ks = (kf * suffix(wf)).transpose(-1, -2) @ vf
+    rs = (rf * prefix(wf)).transpose(-1, -2) @ dyf
+    zero = torch.zeros((B, H, D, D), dtype=acc, device=r.device)
+    s_c = [zero]
+    for c in range(n - 1):
+        s_c.append(decay[:, :, c] * s_c[-1] + ks[:, :, c])
+    e_c = [zero if ds_final is None else ds_final.to(acc)]
+    for c in reversed(range(1, n)):
+        e_c.append(decay[:, :, c] * e_c[-1] + rs[:, :, c])
+    s = torch.stack(s_c, 2)                                   # S^c
+    g = torch.stack(e_c[::-1], 2)                             # E^{c+1}
+
+    vdy = (vf * dyf).sum(-1)                                  # (B, H, n, L)
+    bonus = (rf * uf[:, None] * kf).sum(-1)
+    prev = []
+    for l in range(L):
+        prev.append(s)
+        s = wf[:, :, :, l, :, None] * s \
+            + kf[:, :, :, l, :, None] * vf[:, :, :, l, None, :]
+    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    for l in reversed(range(L)):
+        r_l, k_l, v_l, dy_l = (x[:, :, :, l] for x in (rf, kf, vf, dyf))
+        dr[:, :, :, l] = torch.einsum("bhnij,bhnj->bhni", prev[l], dy_l) \
+            + uf * k_l * vdy[:, :, :, l, None]
+        dk[:, :, :, l] = torch.einsum("bhnij,bhnj->bhni", g, v_l) \
+            + r_l * uf * vdy[:, :, :, l, None]
+        dv[:, :, :, l] = torch.einsum("bhnij,bhni->bhnj", g, k_l) \
+            + bonus[:, :, :, l, None] * dy_l
+        dw[:, :, :, l] = (prev[l] * g).sum(-1)
+        g = wf[:, :, :, l, :, None] * g + r_l[..., None] * dy_l[..., None, :]
+    du = (rf * kf * vdy[..., None]).sum((0, 2, 3))
+
+    def out(x, like):
+        return x.reshape(B, H, n * L, D)[:, :, :S].to(like.dtype)
+    return (out(dr, r), out(dk, k), out(dv, v), out(dw, w), du.to(u.dtype))
+
+
 def wkv6_chunked(r, k, v, w, u, chunk=16):
     """:func:`wkv6` as the bf16 CUDA kernel computes it, in float32: time
     cut into chunks of ``chunk`` steps (the last one padded with r = k = v

@@ -20,7 +20,8 @@ reference's training form ``repro/models/rwkv6.py::wkv6_chunked`` (which
 its trainer runs, ``rec_impl="xla"``, with float32 w and u and every
 product in float32): float32 r, k, v, w and u in, its forward the float32
 sequential kernel (route ``"simt"``), its backward :func:`wkv6_bwd`, the
-hand-written kernels of ``csrc/wkv6_bwd.cu`` (plain version
+hand-written chunk-parallel kernels of ``csrc/wkv6_bwd.cu`` (their algebra
+is :func:`repro_torch.kernels.ref.wkv6_bwd_chunked`; plain version
 :func:`repro_torch.kernels.ref.wkv6_bwd` on the CPU).  The bare
 :func:`wkv6` keeps refusing, on the card, an input that requires grad
 (``_nvcc.refuse_grad``).
@@ -43,9 +44,12 @@ _LIB = _nvcc.Library("wkv6",
                       + [_P]},
                      "wkv6_error_string")
 _BWD_LIB = _nvcc.Library("wkv6_bwd",
-                         {"wkv6_bwd": [_P] * 14 + [_I] * 4 + [_L] * 18
+                         {"wkv6_bwd": [_P] * 14 + [_I] * 5 + [_L] * 18
                           + [_P]},
                          "wkv6_bwd_error_string")
+#: Steps a chunk of :func:`wkv6_bwd`'s kernels: the spacing of the states
+#: and state gradients its first kernel keeps.
+BWD_CHUNK = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -61,6 +65,17 @@ def _variant(dtype, strides, ptrs) -> str:
     if any(st % 8 for st in strides) or any(p % 16 for p in ptrs):
         return "simt"
     return "chunked"
+
+
+def _bwd_variant(strides, ptrs) -> str:
+    """How :func:`wkv6_bwd`'s kernels copy their inputs: ``"vector"``
+    (16-byte copies) when every element stride of r, k, v, w and dy
+    (``strides``: their batch, head and time strides) is a multiple of 4
+    and every base address (``ptrs``) a multiple of 16, else ``"scalar"``
+    (4-byte copies)."""
+    if any(st % 4 for st in strides) or any(p % 16 for p in ptrs):
+        return "scalar"
+    return "vector"
 
 
 def wkv6(r, k, v, w, u):
@@ -114,10 +129,16 @@ def wkv6_bwd(r, k, v, w, u, dy, ds_final=None):
     training form's dtypes): r, k, v, w and dy with any strides and a
     contiguous last dimension, D one of :data:`HEAD_DIMS`; dr, dk, dv and
     dw come back as (B, H, S, D) views of (B, S, H, D) memory, du (H, D).
-    The kernels keep a float32 checkpoint of the state every 16 steps
-    (B·H·⌈S/16⌉·D² floats) and one du partial a (b, h), which the last
-    kernel sums over b in order: no atomics, two calls bitwise equal.
-    ``wkv6_bwd.launches`` counts calls; on the CPU the plain version."""
+    The first kernel keeps the state before, and the state's gradient
+    after, each chunk of :data:`BWD_CHUNK` steps (a float32 scratch of
+    B·H·⌈S/64⌉·2·DP² floats, DP the head size rounded up to 16, 32 or 64);
+    the second takes every chunk's gradients at once from them, with one
+    du partial a (b, chunk, h), which the last kernel sums in order: no
+    atomics, two calls bitwise equal.  The algebra is
+    :func:`repro_torch.kernels.ref.wkv6_bwd_chunked`.
+    ``wkv6_bwd.launches`` counts calls, ``wkv6_bwd.routes`` how many
+    copied their inputs 16 bytes at a time (``"vector"``) or 4
+    (``"scalar"``, :func:`_bwd_variant`); on the CPU the plain version."""
     B, H, S, D = r.shape
     if any(t.shape != r.shape for t in (k, v, w, dy)) or u.shape != (H, D) \
             or (ds_final is not None and ds_final.shape != (B, H, D, D)):
@@ -144,20 +165,28 @@ def wkv6_bwd(r, k, v, w, u, dy, ds_final=None):
                            device=r.device).transpose(1, 2)
     dr, dk, dv, dw = grad(), grad(), grad(), grad()
     du = torch.empty((H, D), dtype=torch.float32, device=r.device)
-    ckpt = torch.empty((B, H, max(1, -(-S // 16)), D, D),
-                       dtype=torch.float32, device=r.device)
-    du_part = torch.empty((B, H, D), dtype=torch.float32, device=r.device)
+    dp = next(n for n in (16, 32, 64) if n >= D)
+    n_chunks = -(-S // BWD_CHUNK)
+    states = torch.empty((B, H, n_chunks, 2, dp, dp), dtype=torch.float32,
+                         device=r.device)
+    du_part = torch.empty((B, n_chunks, H, dp), dtype=torch.float32,
+                          device=r.device)
     strides = tuple(x for t in (r, k, v, w, dy) for x in t.stride()[:3])
+    route = _bwd_variant(strides, tuple(t.data_ptr()
+                                        for t in (r, k, v, w, dy)))
     _BWD_LIB.call("wkv6_bwd", *(t.data_ptr() for t in (r, k, v, w, u, dy)),
                   None if ds is None else ds.data_ptr(),
-                  *(t.data_ptr() for t in (dr, dk, dv, dw, du, ckpt,
+                  *(t.data_ptr() for t in (dr, dk, dv, dw, du, states,
                                            du_part)),
-                  B, H, S, D, *strides, *dr.stride()[:3], _nvcc.stream(r))
+                  B, H, S, D, int(route == "vector"), *strides,
+                  *dr.stride()[:3], _nvcc.stream(r))
     wkv6_bwd.launches += 1
+    wkv6_bwd.routes[route] += 1
     return dr, dk, dv, dw, du
 
 
 wkv6_bwd.launches = 0
+wkv6_bwd.routes = {"vector": 0, "scalar": 0}
 
 
 class WKV6Train(torch.autograd.Function):

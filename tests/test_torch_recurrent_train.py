@@ -1,7 +1,9 @@
 """The recurrent families' training pieces against the JAX package's, on
 the CPU: the plain backward versions ``ref.rglru_bwd`` and ``ref.wkv6_bwd``
 against ``jax.vjp`` of the reference's ``kref.rglru``, ``kref.wkv6`` and
-its training form ``wkv6_chunked``; ``torch.autograd.gradcheck`` of the
+its training form ``wkv6_chunked``; ``ref.wkv6_bwd_chunked``, the WKV
+backward kernels' chunk-parallel algebra, against ``ref.wkv6_bwd`` in
+float64 and against the same vjps; ``torch.autograd.gradcheck`` of the
 two autograd Functions, ``RGLRUScan`` and ``WKV6Train``, in float64; the
 rwkv training route's WKV in bf16 against the reference's ``time_mix``
 (``impl="xla"``), w reaching the Function in float32; the argument lists
@@ -23,7 +25,10 @@ Inputs are made with numpy from a seed.  Tolerances, stated per test:
   sides): the gradients are rounded to bf16 once each, so one bf16 step
   (2^-8 relative) per element, and 2^-8 of the largest element besides;
 - ``gradcheck``: float64, its default tolerances (atol 1e-5, rtol 1e-3
-  against central differences with eps 1e-6).
+  against central differences with eps 1e-6);
+- the chunked WKV backward against the sequential one, both float64:
+  ``CHUNKED_F64_ATOL`` = 1e-10 absolute, for sums of O(100) float64
+  products of order 1 taken in another order (rounding ~1e-14).
 """
 import ctypes
 
@@ -50,6 +55,7 @@ from repro_torch.models.convert import _map, _tensor  # noqa: E402
 
 RTOL_F32, ATOL_F32 = 1e-4, 1e-6
 BF16_STEP = 2.0 ** -8
+CHUNKED_F64_ATOL = 1e-10
 
 
 def _close(got, want, dtype, what):
@@ -208,6 +214,96 @@ def test_wkv6_bwd_checkpoint_interval_changes_nothing():
             np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-12)
 
 
+def _chunked_cases():
+    """(chunk, S) for the chunked backward: S = 1, one short of the chunk,
+    the chunk, one past it, and three chunks and 5 steps (S = 0 where the
+    chunk is 1)."""
+    return [(c, S) for c in (1, 7, 16, 64)
+            for S in sorted({1, c - 1, c, c + 1, 3 * c + 5})]
+
+
+@pytest.mark.parametrize("decay", ["mild", "strong", "zeros"])
+@pytest.mark.parametrize("chunk,S", _chunked_cases(),
+                         ids=[f"chunk{c}-S{S}" for c, S in _chunked_cases()])
+def test_wkv6_bwd_chunked_matches_the_sequential_backward(chunk, S, decay):
+    """``ref.wkv6_bwd_chunked`` (chunk-boundary states and state gradients
+    by one jump a chunk, then every chunk at once) against
+    ``ref.wkv6_bwd`` in float64, ds_final seeded: S off the chunk, S = 1
+    and S = 0, mild and strong decays, w exactly 0 (a fifth of it and a
+    whole step, where S > 9; mild decays below); and with ds_final None.
+    Within ``CHUNKED_F64_ATOL``."""
+    r, k, v, w, u, dy, ds = (
+        torch.from_numpy(t).double() for t in _wkv_inputs(
+            np.random.default_rng(100 * chunk + S), 1, 2, S, 16,
+            "mild" if decay == "zeros" and S <= 9 else decay))
+    for d in (ds, None):
+        want = ref.wkv6_bwd(r, k, v, w, u, dy, d)
+        got = ref.wkv6_bwd_chunked(r, k, v, w, u, dy, d, chunk=chunk)
+        for name, g, wv in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+            assert g.dtype == torch.float64 and g.shape == wv.shape, name
+            np.testing.assert_allclose(g.numpy(), wv.numpy(), rtol=0,
+                                       atol=CHUNKED_F64_ATOL, err_msg=name)
+
+
+def test_wkv6_bwd_chunked_keeps_a_chunk_of_w_zero_exact():
+    """A whole chunk of w = 0 cuts the state and its gradient there: every
+    decay product across it is an exact zero, never a quotient, so the
+    chunked backward matches the sequential one in float64 (S = 200 over
+    chunks of 64, the second chunk all w = 0)."""
+    r, k, v, w, u, dy, ds = (
+        torch.from_numpy(t).double() for t in _wkv_inputs(
+            np.random.default_rng(7), 2, 2, 200, 32))
+    w[:, :, 64:128] = 0.0
+    want = ref.wkv6_bwd(r, k, v, w, u, dy, ds)
+    got = ref.wkv6_bwd_chunked(r, k, v, w, u, dy, ds)
+    for name, g, wv in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        assert torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.numpy(), wv.numpy(), rtol=0,
+                                   atol=CHUNKED_F64_ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+@pytest.mark.parametrize("form", ["wkv6", "wkv6_chunked"])
+@pytest.mark.parametrize("B,H,S,D,decay,seeded", WKV_CASES, ids=WKV_IDS)
+def test_wkv6_bwd_chunked_matches_the_reference_vjp(chunk, form, B, H, S, D,
+                                                    decay, seeded):
+    """``ref.wkv6_bwd_chunked`` in float32 against ``jax.vjp`` of
+    ``kref.wkv6`` and of the reference's training form ``wkv6_chunked``
+    (its chunks of 16): chunks of 16 and of the kernels' 64 steps, S off
+    both, D 16 to 64, strong decays, w exactly 0, ds_final seeded or zero;
+    float32 tolerance of the module docstring."""
+    r, k, v, w, u, dy, ds = _wkv_inputs(np.random.default_rng(S * D + 1), B,
+                                        H, S, D, decay)
+    if form == "wkv6":
+        fn = jref.wkv6
+    else:
+        def fn(r, k, v, w, u):
+            return JW.wkv6_chunked(r, k, v, w, u, chunk=16)
+    (_y, s_fin), vjp = jax.vjp(fn, *(jnp.asarray(t)
+                                     for t in (r, k, v, w, u)))
+    want = vjp((jnp.asarray(dy),
+                jnp.asarray(ds) if seeded else jnp.zeros_like(s_fin)))
+    got = ref.wkv6_bwd_chunked(
+        *(torch.from_numpy(t) for t in (r, k, v, w, u, dy)),
+        torch.from_numpy(ds) if seeded else None, chunk=chunk)
+    for name, g, wv in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        assert g.dtype == torch.float32 and g.shape == wv.shape
+        _close(g, np.asarray(wv), "float32", f"{form} chunk {chunk} {name}")
+
+
+def test_wkv6_bwd_variant_routes_rows_off_16_bytes_to_4_byte_copies():
+    """The WKV backward's inputs take 16-byte copies when every (b, h, t)
+    stride is a multiple of 4 elements and every base on 16 bytes, else
+    4-byte ones."""
+    model = (4096 * 64 * 64, 64, 64 * 64)       # (B, S, H, D) as (B, H, S, D)
+    ptrs = (0, 256, 512, 1024, 2048)
+    assert WK._bwd_variant(model * 5, ptrs) == "vector"
+    assert WK._bwd_variant(model * 4 + (4096 * 64 * 64, 64, 4098),
+                           ptrs) == "scalar"
+    assert WK._bwd_variant(model * 5, (0, 256, 516, 1024, 2048)) == "scalar"
+    assert WK._bwd_variant((45 * 3 * 48, 48, 3 * 48) * 5, ptrs) == "vector"
+
+
 # ------------------------------------------------------ the autograd functions
 def test_rglru_scan_function_gradcheck():
     """``RGLRUScan`` (plain forward and ``rglru_scan_bwd`` on the CPU) in
@@ -325,8 +421,10 @@ def test_backward_wrappers_match_their_c_signatures(name, monkeypatch):
     """On the card each backward wrapper hands its C entry point exactly
     the arguments its ctypes signature declares, pointers as ints (or None
     for a missing dh_final / ds_final) and sizes as ints, and counts one
-    launch and its route.  Rehearsed on the CPU with ``on_card`` forced
-    true and the library call recorded, since no kernel runs here."""
+    launch and its route; the WKV's list carries B, H, S, D and its copy
+    width (1 for 16-byte copies, 0 for a base off 16 bytes) before the
+    strides.  Rehearsed on the CPU with ``on_card`` forced true and the
+    library call recorded, since no kernel runs here."""
     got = []
     lib = RS._LIB if name == "rglru_scan_bwd" else WK._BWD_LIB
     monkeypatch.setattr(_nvcc, "on_card", lambda what, *t: True)
@@ -342,9 +440,17 @@ def test_backward_wrappers_match_their_c_signatures(name, monkeypatch):
             sum(before.values()) + 2
     else:
         t = torch.zeros((2, 70, 3, 16)).transpose(1, 2)
+        off = torch.zeros(2 * 70 * 3 * 16 + 1)[1:].view(2, 70, 3, 16) \
+            .transpose(1, 2)
         fn = WK.wkv6_bwd
+        before = dict(fn.routes)
         for ds in (None, torch.zeros((2, 3, 16, 16))):
             fn(t, t, t, t, torch.zeros((3, 16)), t, ds)
+        fn(off, t, t, t, torch.zeros((3, 16)), t, torch.zeros((2, 3, 16, 16)))
+        assert fn.routes == {"vector": before["vector"] + 2,
+                             "scalar": before["scalar"] + 1}
+        assert [a[14:19] for _fn, a in got] == [(2, 3, 70, 16, 1)] * 2 \
+            + [(2, 3, 70, 16, 0)]
     sig = lib.signatures[name]
     for i, (fn_name, args) in enumerate(got):
         assert fn_name == name and len(args) == len(sig)
