@@ -6,11 +6,11 @@ Run from the repository root on a machine with a CUDA card, the CUDA
 toolkit and, beside this checkout, an unpacked copy of the commit to
 compare with (``git archive <commit> | tar -x -C <dir>``):
 
-    python3 chip_compare.py [--groups moe,copy,dma,rwkv,rglru,bwd,wkvbwd] <parent dir> <change dir>
+    python3 chip_compare.py [--groups moe,copy,dma,rwkv,rglru,bwd,wkvbwd,rglrubwd] <parent dir> <change dir>
 
 Each turn is one process that imports ``chip_smoke`` and ``repro_torch``
 from its tree and builds that tree's kernels, then, with that tree's code,
-runs the groups asked for (all seven by default):
+runs the groups asked for (all eight by default):
 
 * ``moe``: serves llama4-maverick-400b-a17b at full width and 4 layers
   (512-token prompts) as ``chip_smoke.py``'s phase 5 does, with its checks
@@ -52,7 +52,15 @@ runs the groups asked for (all seven by default):
   (B, S, H, D) memory, ds_final None, as the model passes them) and trains
   rwkv6-7b at full width and depth for 3 steps of 2 x 4096 tokens
   (``remat="block"``, Adafactor) as ``chip_smoke.py``'s phase 7 does, on
-  one repeated batch: the same step numbers, and the peak device GiB.
+  one repeated batch: the same step numbers, and the peak device GiB;
+* ``rglrubwd``: times the RG-LRU backward at recurrentgemma-2b's training
+  shape (B 2, S 4096, 2560 channels, bf16, log_a in the model's range)
+  through the interface both trees share: ``RGLRUScan.apply(x, log_a)``
+  once with grad on, then ``torch.autograd.grad`` of y with a seeded dy,
+  the graph retained, in the timed loop (the backward kernels and what
+  autograd adds); then trains recurrentgemma-2b at full width and depth
+  for 3 steps of 2 x 4096 tokens (``remat="block"``, AdamW) as
+  ``chip_smoke.py``'s phase 7 does: the same step numbers.
 
 Times are the wrapper's (CUDA events around a loop of calls), the device
 time per call and the device operations (kernels, copies, fills) per call
@@ -85,7 +93,9 @@ SOURCES = {"moe": ("flash_attention", "decode_attention", "rglru_scan",
            "rwkv": ("wkv6",),
            "rglru": ("flash_attention", "decode_attention", "rglru_scan"),
            "bwd": ("flash_attention", "flash_attention_bwd"),
-           "wkvbwd": ("wkv6", "wkv6_bwd")}
+           "wkvbwd": ("wkv6", "wkv6_bwd"),
+           "rglrubwd": ("flash_attention", "flash_attention_bwd",
+                        "rglru_scan")}
 GROUPS = tuple(SOURCES)
 # the architectures a group serves, each timed by SERVE_KEYS
 SERVED = ("llama4-maverick-400b-a17b", "rwkv6-7b", "recurrentgemma-2b")
@@ -196,6 +206,8 @@ def turn(root: str, tag: str, groups) -> dict:
         flash_bwd_and_training(torch, cs, timed, res)
     if "wkvbwd" in groups:
         wkv_bwd_and_training(torch, cs, timed, res)
+    if "rglrubwd" in groups:
+        rglru_bwd_and_training(torch, cs, timed, res)
     return res
 
 
@@ -239,6 +251,29 @@ def wkv_bwd_and_training(torch, cs, timed, res):
           lambda: wkv6_bwd(r, k, v, w, u, dy), 10)
     del r, k, v, w, u, dy
     train_steps(torch, cs, res, "rwkv6-7b", "adafactor")
+
+
+def rglru_bwd_and_training(torch, cs, timed, res):
+    """The RG-LRU's backward at recurrentgemma-2b's training shape through
+    ``RGLRUScan`` (the forward once, then autograd's backward in the loop:
+    whatever each tree's Function keeps for it), then a few training steps
+    of recurrentgemma-2b as phase 7 runs them (AdamW).  Inputs and weights
+    are made here from a seed, alike in both trees."""
+    from repro_torch.kernels.rglru_scan import RGLRUScan
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 17)
+    B, S, D = cs.TRAIN_BATCH, cs.TRAIN_SEQ, 2560
+    x, dy = (torch.randn((B, S, D), generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    la = (-0.106 * torch.rand((B, S, D), generator=g, device="cuda")).to(
+        torch.bfloat16)
+    x.requires_grad_(True)
+    la.requires_grad_(True)
+    y, _h = RGLRUScan.apply(x, la)
+    timed(f"RGLRUScan backward bf16, B={B} S={S} D={D}",
+          lambda: torch.autograd.grad((y,), (x, la), (dy,),
+                                      retain_graph=True), 20)
+    del x, dy, la, y, _h
+    train_steps(torch, cs, res, "recurrentgemma-2b", "adamw")
 
 
 def train_steps(torch, cs, res, arch, optimizer):

@@ -13,9 +13,10 @@ exits non-zero and prints no result:
    sources) with nvcc, one process per source, all at once, and check with
    ``cuobjdump -sass`` that the bf16 flash and grouped-matmul kernels run on
    the tensor cores (HMMA instructions), and from ``-Xptxas -v`` that the
-   tensor-core flash and grouped-matmul ones do not spill (the flash
-   backward kernels', the RG-LRU kernels' and the WKV6 backward kernels'
-   registers and spills are printed);
+   tensor-core flash and grouped-matmul ones and the three RG-LRU ones
+   (the forward, the backward's tile aggregates and tile gradients) do not
+   spill (the flash backward kernels' and the WKV6 backward kernels'
+   registers and spills are printed too);
 2. hold each kernel against its plain PyTorch version on the card: the
    remote-DMA kernels at the KVStore path's shapes (outputs and measured
    bytes bitwise equal, scatter collisions included), on the argument forms
@@ -89,18 +90,21 @@ exits non-zero and prints no result:
    32 heads on 8 of 128), on the tensor cores in bf16;
 2c. hold the recurrences' backward kernels against their plain versions
    (``ref.rglru_bwd``, ``ref.wkv6_bwd``; tolerances ``BWD_TOL``):
-   ``rglru_scan_bwd`` (``csrc/rglru_scan.cu``) at recurrentgemma-2b's
-   training shape (2 x 4,096 x 2,560) with dh_final zero and seeded, D =
-   100, runs of log_a = 0, strong decays, D = 2568 and a base off 16
-   bytes, bf16 and float32, each on the copies ``_variant`` picks;
+   ``rglru_scan_bwd`` (``csrc/rglru_scan.cu``), each case after the
+   forward kernel kept its tile states (checked against
+   ``ref.rglru_chunked``'s), at recurrentgemma-2b's training shape (2 x
+   4,096 x 2,560) with dh_final zero and seeded, D = 100, runs of log_a =
+   0, strong decays, D = 2568, S a multiple of both tiles and one off it
+   either way, one tile, and a base off 16 bytes, bf16 and float32, each
+   on the copies ``_variant`` picks;
    ``wkv6_bwd`` (``csrc/wkv6_bwd.cu``, chunk-parallel) in float32 at
    rwkv6-7b's (2 x 64 heads of 64 x 4,096 steps), D 16/32/48/64 with S
    off its 64-step chunk (S = 64k - 1 and 64k + 1 among them) and S = 1,
    ds_final zero and seeded, strong decays, w exactly 0 and a whole chunk
    of w = 0, and a base off 16 bytes, each on the copies ``_bwd_variant``
-   picks; two calls bitwise equal, and a call's device operations (one
-   kernel; three: the chunk states, every chunk's gradients, du's sum)
-   under ``torch.profiler``;
+   picks; two calls bitwise equal, and a call's device operations (two:
+   the tile aggregates, every tile's gradients; three: the chunk states,
+   every chunk's gradients, du's sum) under ``torch.profiler``;
 3. run the same work on the card and on the CPU: a P=4 store through 20
    windows (states and results bitwise equal after every window), a P=4
    lock-free store through the same windows and then all-UPDATE and
@@ -301,6 +305,11 @@ MARKS_LOST = [0]
 SESSIONS_RUN_AGAIN = [0]
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12              # H100 SXM float32 peak outside the tensor cores
+F64_FLOPS = 34e12              # H100 SXM float64 peak outside the tensor cores
+# float64 operations counted for each exponential of the RG-LRU kernels
+# (decay() in csrc/rglru_scan.cu): an estimate of a table-free exponential
+# (a range reduction and a polynomial), 17, and the square for exp(2 log_a)
+EXP64_OPS = 18
 
 # the serving paths' configurations (phase 5)
 SERVE_ARCH = "llama3.2-3b"
@@ -363,7 +372,9 @@ TRAIN_PATHS = [
 ]
 # RG-LRU and WKV6 against their plain versions, as max abs error over
 # max(1, max |plain|).  float32 rglru: the same operations per step (the
-# square root the hardware's, within an ulp), but the kernel's tiled scan
+# decay terms from one float64 exponential rounded once on both sides, as
+# ref._rglru_decay takes them on every device; the square root the
+# hardware's, within an ulp), but the kernel's tiled scan
 # adds each run's start state through the run's product of a (y = hl +
 # A·h_in, runs of 8 or 16 steps, 8 runs folded a tile), a few more
 # roundings of the size of h a step, and the recurrence contracts
@@ -1224,7 +1235,9 @@ def recurrent_bwd_cases(torch):
     4,096 steps x 2,560 channels) with dh_final None and seeded, S = 37 at
     D = 100 (bf16 rows of 200 bytes take one-element copies), runs of
     log_a = 0 (a = 1, b = 0: the gate's term 0), strong decays (log_a in
-    [-30, -10]), D = 2568 and a base off 16 bytes.  wkv6_bwd (r, k, v, w,
+    [-30, -10]), D = 2568, S = 256 (two bf16 tiles of 128, four float32
+    tiles of 64) and one off it either way, one tile of each (S = 128,
+    64), and a base off 16 bytes.  wkv6_bwd (r, k, v, w,
     u, dy, ds_final), float32, inputs (B, H, S, D) views of (B, S, H, D)
     memory as the model passes them: rwkv6-7b's training shape (2 x 64
     heads of 64 x 4,096 steps), D 16/32/48/64 at S off the kernels' 64-step
@@ -1266,6 +1279,11 @@ def recurrent_bwd_cases(torch):
             ("strong decays S=300", (2, 300, 2560),
              lambda *sh: uni(-30.0, -10.0, *sh), False, None),
             ("S=129 D=2568", (2, 129, 2568), log_a, True, None),
+            ("S=256 D=512 dh_final", (2, 256, 512), log_a, True, None),
+            ("S=255 D=512", (2, 255, 512), log_a, False, None),
+            ("S=257 D=512 dh_final", (2, 257, 512), log_a, True, None),
+            ("S=128 D=2560 dh_final", (2, 128, 2560), log_a, True, None),
+            ("S=64 D=2560", (2, 64, 2560), log_a, False, None),
             ("base off 16 bytes S=200 D=256", (2, 200, 256), log_a, True,
              off16)]:
         x, la, dy = rn(B, S, D), fn(B, S, D), rn(B, S, D)
@@ -1323,33 +1341,66 @@ def bits_equal(torch, a, b):
     return torch.equal(view(a), view(b))
 
 
+def rglru_bwd_call(torch, args):
+    """The RG-LRU backward of a case (x, log_a, dy, dh_final) as training
+    runs it: the forward kernel first keeps its tile states
+    (``rglru_scan(x, log_a, carries)``), then ``rglru_scan_bwd`` starts
+    each tile from them.  Returns (the backward as a call, the states)."""
+    from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_bwd,
+                                                tile_states)
+    x, la, dy, dh = args
+    carries = tile_states(x)
+    rglru_scan(x, la, carries)
+    return (lambda: rglru_scan_bwd(x, la, dy, dh, carries)), carries
+
+
 def phase_recurrent_bwd_kernels(torch):
     """Each backward case against its plain version on the same (card)
     inputs in float32 (``ref.rglru_bwd``, ``ref.wkv6_bwd``), element by
-    element within ``BWD_TOL``; each output's dtype and shape; a second
-    call bitwise equal to the first; each RG-LRU case on the copies
-    ``_variant`` should pick
+    element within ``BWD_TOL``, each RG-LRU case after the forward kernel
+    kept its tile states (:func:`rglru_bwd_call`; the states against
+    ``ref.rglru_chunked``'s within ``REC_TOL``); each output's dtype and
+    shape; a second call bitwise equal to the first; each RG-LRU case on
+    the copies ``_variant`` should pick
     (16-byte where x, log_a, dy, dx and dlog_a rows all start on 16 bytes),
     and each WKV case on the copies ``_bwd_variant`` should pick (16-byte
     where every stride of r, k, v, w and dy is a multiple of 4 and every
     base on 16 bytes); and the device operations of a call under
-    ``torch.profiler`` (the RG-LRU backward one kernel, on each route; the
+    ``torch.profiler`` (the RG-LRU backward its two, on each route; the
     WKV backward its three, on each route).
     Returns the largest absolute errors and the operations a call."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rglru_scan import _variant, rglru_scan_bwd
+    from repro_torch.kernels.rglru_scan import (_variant, rglru_scan_bwd,
+                                                tile_steps)
     from repro_torch.kernels.wkv6 import _bwd_variant, wkv6_bwd
     kernels = {"rglru_scan_bwd": rglru_scan_bwd, "wkv6_bwd": wkv6_bwd}
     plain = {"rglru_scan_bwd": ref.rglru_bwd, "wkv6_bwd": ref.wkv6_bwd}
-    expected_ops = {"rglru_scan_bwd": 1, "wkv6_bwd": 3}
+    expected_ops = {"rglru_scan_bwd": 2, "wkv6_bwd": 3}
     errs, ops = {}, {}
     for name, runs in recurrent_bwd_cases(torch).items():
         kern = kernels[name]
         errs[name] = 0.0
         for label, args in runs:
+            states = ""
+            if name == "rglru_scan_bwd":
+                call, carries = rglru_bwd_call(torch, args)
+                tile = tile_steps(args[0].dtype)
+                kept = ref.rglru_chunked(args[0].float(), args[1].float(),
+                                         tile, tile // 8,
+                                         keep_states=True)[2]
+                e_kept = rel_err(carries, kept)
+                tol_kept = REC_TOL[("rglru_scan", "float32")]
+                check(e_kept <= tol_kept, f"{name} ({label}): the forward's "
+                      f"tile states differ from ref.rglru_chunked's: "
+                      f"{e_kept} (tolerance {tol_kept})")
+                states = f", tile states {e_kept:.3g}"
+                del kept
+            else:
+                def call(args=args):
+                    return kern(*args)
             before = kern.launches
             routes = dict(getattr(kern, "routes", {}))
-            got = kern(*args)
+            got = call()
             torch.cuda.synchronize()
             check(kern.launches == before + 1, f"{name} ({label}) did not "
                                                f"launch")
@@ -1375,7 +1426,7 @@ def phase_recurrent_bwd_kernels(torch):
                   f"{name} ({label}) did not take the {want} route")
             route = f", {want} route"
             key = f"{name} {want}"
-            again = kern(*args)
+            again = call()
             check(all(bits_equal(torch, a, b) for a, b in zip(got, again)),
                   f"{name} ({label}): two calls differ")
             exp = plain[name](*(t.float() if t is not None else None
@@ -1393,7 +1444,7 @@ def phase_recurrent_bwd_kernels(torch):
             check(max(es) <= 1.0, f"{name} ({label}) differs from its plain "
                   f"version: {es} of the limit (rtol, atol) {tol}")
             if key not in ops:
-                o = device_ops(torch, lambda: kern(*args), 5)
+                o = device_ops(torch, call, 5)
                 check(sum(o.values()) == 5 * expected_ops[name]
                       and len(o) == expected_ops[name],
                       f"{name} ({label}): device operations of 5 calls {o}, "
@@ -1402,7 +1453,7 @@ def phase_recurrent_bwd_kernels(torch):
             log(f"  {name} [{label}]: err "
                 + "/".join(f"{e:.3g}" for e in es)
                 + f" of the limit (rtol, atol) {tol}, two calls bitwise "
-                f"equal{route}")
+                f"equal{route}{states}")
             del got, again, exp
     log(f"  backward device operations a call: {json.dumps(ops)}")
     errs["device_ops_per_call"] = ops
@@ -3621,7 +3672,7 @@ KERNEL_GROUPS = {
     "flash_bwd": ("::dsum_kernel", "::dkdv_kernel", "::dq_kernel",
                   "::dkdv_mma_kernel", "::dq_mma_kernel"),
     "rglru_fwd": ("::rglru_tile_kernel",),
-    "rglru_bwd": ("::rglru_bwd_kernel",),
+    "rglru_bwd": ("::rglru_bwd_",),
     "wkv6_fwd": ("::wkv6_kernel", "::wkv6_chunk_kernel"),
     "wkv6_bwd": ("::wkv6_bwd_",)}
 
@@ -4365,9 +4416,11 @@ def recurrent_report(torch, kernels, errs, launches):
     bf16: recurrentgemma-2b's scan over 4 prompts of 2304 tokens and 2560
     channels, rwkv6-7b's WKV over 4 prompts of 512 tokens and 64 heads of
     64 (inputs as (B, H, S, D) views of (B, S, H, D) projections).  The
-    RG-LRU's operations are elementwise, on the CUDA cores, so its bound
-    takes the float32 peak (eight operations an element: two exponentials,
-    a square root, the update).  WKV6's bound is the least of the two forms
+    RG-LRU's operations are elementwise, on the CUDA cores: eight float32
+    ones an element (the gate's difference and square root, the update,
+    the run's product, the fold) at the float32 peak, and a float64
+    exponential (``EXP64_OPS``) at the float64 peak.  WKV6's bound is the
+    least of the two forms
     the card could run: its bytes against the chunked form's operations
     (:func:`wkv6_ops`, tensor-core ones at the bf16 peak plus CUDA-core
     ones at the float32 peak); ``bound_sequential_ms`` beside it is the
@@ -4392,6 +4445,8 @@ def recurrent_report(torch, kernels, errs, launches):
                 ops=device_ops(torch, lambda: rg(x, la), 20),
                 plain_ms=cuda_ms(lambda: ref.rglru(x, la), 2),
                 library_ms=None, flops=8 * x.numel(),
+                ops_ms=(8 / F32_FLOPS + EXP64_OPS / F64_FLOPS) * x.numel()
+                * 1e3,
                 nbytes=3 * 2 * x.numel() + 4 * B * D)
 
     B, H, S, D = SERVE_BATCH, 64, SERVE_PROMPT, 64
@@ -4441,10 +4496,13 @@ def recurrent_report(torch, kernels, errs, launches):
 def recurrent_bwd_report(torch, errs, launches):
     """Rows of the two backward kernels at their training paths' shapes:
     ``rglru_scan_bwd`` at recurrentgemma-2b's (B TRAIN_BATCH, S TRAIN_SEQ,
-    2,560 channels, bf16, dh_final None as the model leaves it), bound by
-    its bytes (x, log_a and dy read once, dx and dlog_a written once) and
-    its ~14 float32 operations an element (two exponentials, a square
-    root, a²x/b, the two scans' updates, dx and dlog_a); ``wkv6_bwd`` at
+    2,560 channels, bf16, dh_final None as the model leaves it, on the
+    tile states the forward kernel kept), bound by its bytes (x, log_a, dy
+    and the tile states read once, dx and dlog_a written once) and its
+    operations: 23 float32 ones an element (the tile aggregates' scan, the
+    runs forward and back twice, the gate's difference and square root,
+    a²x/b, dx and dlog_a) and two float64 exponentials (one in each
+    kernel, ``EXP64_OPS`` each) at the float64 rate; ``wkv6_bwd`` at
     rwkv6-7b's (B TRAIN_BATCH, 64 heads of 64, S TRAIN_SEQ, float32, inputs
     (B, H, S, D) views of (B, S, H, D) memory), bound by its bytes (r, k,
     v, w, dy and u read, the five gradients written) and its 12·D²
@@ -4454,7 +4512,6 @@ def recurrent_bwd_report(torch, errs, launches):
     kernel's count on its training path; ``max_abs_err`` phase 2c's
     largest."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rglru_scan import rglru_scan_bwd
     from repro_torch.kernels.wkv6 import wkv6_bwd
     g = torch.Generator(device="cuda").manual_seed(SEED + 16)
 
@@ -4466,14 +4523,15 @@ def recurrent_bwd_report(torch, errs, launches):
     la = (-0.106 * torch.rand((B, S, D), generator=g, device="cuda")).to(
         torch.bfloat16)
 
-    def rg():
-        return rglru_scan_bwd(x, la, dy)
+    rg, carries = rglru_bwd_call(torch, (x, la, dy, None))
     m_rg = dict(ms=cuda_ms(rg, 20), device_ms=device_ms(rg, 10),
                 ops=device_ops(torch, rg, 10),
                 plain_ms=cuda_ms(lambda: ref.rglru_bwd(x, la, dy), 1),
-                library_ms=None, flops=14 * x.numel(),
-                nbytes=5 * 2 * x.numel())
-    del x, dy, la
+                library_ms=None, flops=23 * x.numel(),
+                ops_ms=(23 / F32_FLOPS + 2 * EXP64_OPS / F64_FLOPS)
+                * x.numel() * 1e3,
+                nbytes=5 * 2 * x.numel() + 4 * carries.numel())
+    del x, dy, la, carries, rg
 
     H, D = 64, 64
 
@@ -4702,8 +4760,12 @@ def main() -> int:
         log("  -Xptxas -v, tensor-core gmm kernels [registers, spill stores, "
             f"spill loads]: {usage}")
         usage = ptxas_usage(_nvcc, "rglru_scan", "rglru_")
-        log("  -Xptxas -v, RG-LRU kernels, forward and backward [registers, "
-            f"spill stores, spill loads]: {usage}")
+        check(len(usage) == 12 and all(u[0] and not u[1]
+                                       for u in usage.values()),
+              f"the RG-LRU kernels spill: {usage}")
+        log("  -Xptxas -v, RG-LRU kernels (the forward, the backward's tile "
+            "aggregates and gradients) [registers, spill stores, spill "
+            f"loads]: {usage}")
         usage = ptxas_usage(_nvcc, "wkv6_bwd", "wkv6_bwd_")
         d64 = {fn: u for fn, u in usage.items() if "ILi64E" in fn}
         check(len(d64) == 4 and all(u[0] and not u[1] for u in d64.values()),

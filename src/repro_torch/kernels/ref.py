@@ -4,7 +4,8 @@
 (:func:`decode_attention_split`), the chunked algebras of the RG-LRU
 kernel (:func:`rglru_chunked`) and of the bf16 WKV6 kernel
 (:func:`wkv6_chunked`), the backward versions of the two recurrences,
-:func:`rglru_bwd` and :func:`wkv6_bwd`, and the training pair of the
+:func:`rglru_bwd` and :func:`wkv6_bwd`, the tiled algebra of the RG-LRU
+backward kernels (:func:`rglru_bwd_tiled`), and the training pair of the
 flash kernels:
 :func:`mha_lse` (the forward with each row's log-sum-exp) and
 :func:`flash_attention_bwd` (the FlashAttention-2 backward of
@@ -215,22 +216,19 @@ def _acc(t):
 def _rglru_decay(log_a):
     """The RG-LRU's decay ``a = exp(log_a)`` and input gate ``sqrt(max(1 -
     exp(2·log_a), 0))``, the reference's formula in float32 (float64 for
-    float64 ``log_a``).  Near log_a = 0 the difference cancels and
-    magnifies the exponential's error by ``1 / (1 - exp(2·log_a))`` (500
-    at log_a = -1e-3).  On the CPU each exponential is therefore taken in
-    float64 and rounded once to float32, the correctly rounded value,
-    whatever accuracy the math library's float32 exponential has in the
-    process (one with ~14 bits moves y by 2.6e-4 on the tests' inputs).
-    On the card it is CUDA's float32 ``expf``, the kernel's own, so that
-    the kernel and this plain version round alike (on an H100 the
-    correctly rounded exponential moves recurrentgemma's full-width
-    float32 output 8.8e-5 from the kernel's)."""
+    float64 ``log_a``), as the CUDA kernels take it (``decay()`` in
+    ``csrc/rglru_scan.cu``) on every device: ``exp(log_a)`` in float64,
+    rounded once, and ``exp(2·log_a)`` as its square in float64, rounded
+    once, the difference and the square root in the working dtype.  Near
+    log_a = 0 the difference cancels and magnifies the exponential's
+    error by ``1 / (1 - exp(2·log_a))`` (500 at log_a = -1e-3); rounded
+    once from float64 the terms are the correctly rounded ones, whatever
+    accuracy a float32 exponential has in the process (one with ~14 bits
+    moves y by 2.6e-4 on the tests' inputs) or on the device."""
     acc = _acc(log_a)
-    la = log_a.double() if log_a.device.type == "cpu" else log_a.to(acc)
-    a = torch.exp(la).to(acc)
-    gate = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * la).to(acc),
-                                  min=0.0))
-    return a, gate
+    e = torch.exp(log_a.double())
+    gate = torch.sqrt(torch.clamp(1.0 - (e * e).to(acc), min=0.0))
+    return e.to(acc), gate
 
 
 def _rglru_terms(x, log_a):
@@ -302,8 +300,22 @@ def rglru_bwd(x, log_a, dy, dh_final=None):
             torch.stack(dla, 1).to(log_a.dtype))
 
 
-def rglru_chunked(x, log_a, tile=128, sub=16):
-    """:func:`rglru` as the CUDA kernel computes it, in float32: time cut
+def _rglru_runs(x, log_a, tile, sub):
+    """x, log_a padded to whole tiles of ``tile`` steps (x = 0, log_a = 0:
+    a = 1, gate 0) in the working dtype (:func:`_acc`), with their decay
+    terms, each (B, tiles, runs, sub, D): (x, a, gate)."""
+    B, S, D = x.shape
+    acc = _acc(x)
+    pad = -S % tile
+    xf = torch.nn.functional.pad(x.to(acc), (0, 0, 0, pad))
+    a, gate = _rglru_decay(torch.nn.functional.pad(log_a.to(acc),
+                                                   (0, 0, 0, pad)))
+    return tuple(t.reshape(B, -1, tile // sub, sub, D) for t in (xf, a, gate))
+
+
+def rglru_chunked(x, log_a, tile=128, sub=16, keep_states=False):
+    """:func:`rglru` as the CUDA kernel computes it, in float32 (float64
+    for float64 inputs): time cut
     into tiles of ``tile`` steps (the last one padded with x = 0 and log_a
     = 0, a = 1 and gate 0, which leave the state as it is), each tile into
     runs of ``sub`` steps.  Each run is scanned from h = 0, keeping its
@@ -313,28 +325,113 @@ def rglru_chunked(x, log_a, tile=128, sub=16):
     the h_in before the run.  A_t is a product of a (at most 1), never the
     exp of a sum, so nothing overflows.  Same arguments and results as
     :func:`rglru`; ``sub`` divides ``tile``.  The defaults are the bf16
-    kernel's; in float32 it runs tiles of 64 and runs of 8."""
+    kernel's; in float32 it runs tiles of 64 and runs of 8.  With
+    ``keep_states`` it also returns the carry before each tile, (B,
+    ⌈S/tile⌉, D): what the kernel keeps for the backward."""
     B, S, D = x.shape
     runs = tile // sub
-    pad = -S % tile
-    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
-    a, bx = _rglru_terms(xf, torch.nn.functional.pad(log_a.float(),
-                                                     (0, 0, 0, pad)))
-    a, bx = (t.reshape(B, -1, runs, sub, D) for t in (a, bx))
+    xf, a, gate = _rglru_runs(x, log_a, tile, sub)
+    bx = gate * xf
     hl, ap = torch.empty_like(bx), torch.empty_like(a)
     h, A = torch.zeros_like(bx[:, :, :, 0]), torch.ones_like(a[:, :, :, 0])
     for k in range(sub):                       # every run at once
         h = a[:, :, :, k] * h + bx[:, :, :, k]
         A = A * a[:, :, :, k]
         hl[:, :, :, k], ap[:, :, :, k] = h, A
-    carry = torch.zeros((B, D), dtype=torch.float32, device=x.device)
-    ys = []
+    carry = torch.zeros((B, D), dtype=a.dtype, device=x.device)
+    ys, states = [], []
     for i in range(hl.shape[1]):
+        states.append(carry)
         for j in range(runs):
             ys.append(hl[:, i, j] + ap[:, i, j] * carry[:, None])
             carry = ap[:, i, j, -1] * carry + hl[:, i, j, -1]
-    y = torch.cat(ys, 1)[:, :S] if ys else torch.zeros_like(xf)
-    return y.to(x.dtype), carry
+    y = torch.cat(ys, 1)[:, :S] if ys else torch.zeros_like(x, dtype=a.dtype)
+    if not keep_states:
+        return y.to(x.dtype), carry
+    kept = torch.stack(states, 1) if states else carry.new_zeros((B, 0, D))
+    return y.to(x.dtype), carry, kept
+
+
+def rglru_bwd_tiled(x, log_a, dy, dh_final=None, tile=128, sub=16):
+    """:func:`rglru_bwd` as the CUDA kernels compute it (``csrc/
+    rglru_scan.cu``'s backward), in float32 (float64 for float64 inputs):
+    time cut into the forward's tiles of ``tile`` steps, each into runs
+    of ``sub`` (the last tile padded with x = dy = 0 and log_a = 0, a = 1
+    and gate 0, which pass h and e = a·g through unchanged), then
+
+    1. the state before each tile, as the forward keeps it
+       (:func:`rglru_chunked` with ``keep_states``);
+    2. each tile's aggregate: its runs scanned back from e = 0 (``e ←
+       a·(dy + e)``, and the run's product of a), their end pairs folded
+       last first into ``P_i = Π a`` over the tile and ``ε_i``, e at its
+       first step from e = 0 after it;
+    3. e after each tile, by the fixed-order fold ``e ← P_j·e + ε_j`` of
+       the tiles after it, last first, from ``dh_final``;
+    4. each tile's runs: the end pairs of each run forward from h = 0 and
+       back from e = 0, folded into each run's h_in and e_in, then the run
+       forward from h_in (h_{t-1}) and back from e_in (g_t), with
+       :func:`rglru_bwd`'s terms.
+
+    Same arguments and results as :func:`rglru_bwd`; ``sub`` divides
+    ``tile``.  The defaults are the bf16 kernels'; in float32 they run
+    tiles of 64 and runs of 8."""
+    B, S, D = x.shape
+    if S == 0:
+        return torch.zeros_like(x), torch.zeros_like(log_a)
+    runs = tile // sub
+    xf, a, gate = _rglru_runs(x, log_a, tile, sub)
+    dyf = torch.nn.functional.pad(dy.to(xf.dtype), (0, 0, 0, -S % tile)) \
+        .reshape(xf.shape)
+    _y, _h, states = rglru_chunked(x, log_a, tile, sub, keep_states=True)
+    n = xf.shape[1]
+
+    e_run, p_run = torch.zeros_like(a[:, :, :, 0]), \
+        torch.ones_like(a[:, :, :, 0])
+    for k in reversed(range(sub)):     # every run back from e = 0 at once
+        e_run = a[:, :, :, k] * (dyf[:, :, :, k] + e_run)
+        p_run = p_run * a[:, :, :, k]
+    h_run, a_run = torch.zeros_like(e_run), torch.ones_like(p_run)
+    for k in range(sub):               # and forward from h = 0
+        h_run = a[:, :, :, k] * h_run + gate[:, :, :, k] * xf[:, :, :, k]
+        a_run = a_run * a[:, :, :, k]
+    eps, P = torch.zeros_like(e_run[:, :, 0]), torch.ones_like(p_run[:, :, 0])
+    for j in reversed(range(runs)):    # the tiles' aggregates
+        eps = p_run[:, :, j] * eps + e_run[:, :, j]
+        P = P * p_run[:, :, j]
+    e = torch.zeros_like(eps[:, 0]) if dh_final is None \
+        else dh_final.to(a.dtype)
+    after = [None] * n                 # e at the first step after tile i
+    for i in reversed(range(n)):
+        after[i] = e
+        e = P[:, i] * e + eps[:, i]
+    h_in, e_in = torch.empty_like(h_run), torch.empty_like(e_run)
+    hc, ec = states.to(a.dtype), torch.stack(after, 1)
+    for j in range(runs):
+        h_in[:, :, j] = hc
+        hc = a_run[:, :, j] * hc + h_run[:, :, j]
+    for j in reversed(range(runs)):
+        e_in[:, :, j] = ec
+        ec = p_run[:, :, j] * ec + e_run[:, :, j]
+    open_ = gate > 0
+    q = torch.where(open_, a * a * xf / torch.where(open_, gate,
+                                                    torch.ones_like(gate)),
+                    torch.zeros_like(gate))
+    hp = torch.empty_like(xf)
+    h = h_in
+    for k in range(sub):
+        hp[:, :, :, k] = h
+        h = a[:, :, :, k] * h + gate[:, :, :, k] * xf[:, :, :, k]
+    dx, dla = torch.empty_like(xf), torch.empty_like(xf)
+    e = e_in
+    for k in reversed(range(sub)):
+        g = dyf[:, :, :, k] + e
+        dx[:, :, :, k] = gate[:, :, :, k] * g
+        dla[:, :, :, k] = g * (a[:, :, :, k] * hp[:, :, :, k] - q[:, :, :, k])
+        e = a[:, :, :, k] * g
+
+    def out(t, like):
+        return t.reshape(B, n * tile, D)[:, :S].to(like.dtype)
+    return out(dx, x), out(dla, log_a)
 
 
 def wkv6(r, k, v, w, u):

@@ -16,9 +16,11 @@ port's kernel reads the steps past S as those zeros, which gives the same
 ``h_final``.
 
 Training goes through :class:`RGLRUScan`, whose forward is
-:func:`rglru_scan` and whose backward is :func:`rglru_scan_bwd`, the
-hand-written reverse scan of the same source (plain version
-:func:`repro_torch.kernels.ref.rglru_bwd` on the CPU): the counterpart of
+:func:`rglru_scan` keeping the float32 state before each tile
+(:func:`tile_states`) and whose backward is :func:`rglru_scan_bwd`, the
+hand-written tile-parallel reverse scan of the same source (plain version
+:func:`repro_torch.kernels.ref.rglru_bwd` on the CPU; its algebra
+:func:`repro_torch.kernels.ref.rglru_bwd_tiled`): the counterpart of
 ``jax.vjp`` of the reference's ``kref.rglru``, which its trainer runs
 (``rec_impl="xla"``).  The bare :func:`rglru_scan` keeps refusing, on the
 card, an input that requires grad (``_nvcc.refuse_grad``).
@@ -34,12 +36,38 @@ from . import ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LIB = _nvcc.Library("rglru_scan",
-                     {"rglru_scan_fwd": [_I] * 2 + [_P] * 4 + [_I] * 3
+                     {"rglru_scan_fwd": [_I] * 2 + [_P] * 5 + [_I] * 3
                       + [_P],
-                      "rglru_scan_bwd": [_I] * 2 + [_P] * 7 + [_I] * 3
+                      "rglru_scan_bwd": [_I] * 2 + [_P] * 8 + [_I] * 3
                       + [_P]},
                      "rglru_error_string")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def tile_steps(dtype) -> int:
+    """The kernels' tile of time: 128 steps in bf16, 64 in float32."""
+    return 128 if dtype == torch.bfloat16 else 64
+
+
+def tile_states(x):
+    """An uninitialised float32 (B, ⌈S/kT⌉, D) buffer on x's device for
+    the state before each of the forward's tiles (:func:`tile_steps`):
+    :func:`rglru_scan` fills it on the card, and :func:`rglru_scan_bwd`
+    starts each tile from it."""
+    B, S, D = x.shape
+    return torch.empty((B, -(-S // tile_steps(x.dtype)), D),
+                       dtype=torch.float32, device=x.device)
+
+
+def _check_states(x, carries, what):
+    B, S, D = x.shape
+    shape = (B, -(-S // tile_steps(x.dtype)), D)
+    if carries.dtype != torch.float32 or tuple(carries.shape) != shape \
+            or not carries.is_contiguous() or carries.device != x.device:
+        raise ValueError(f"{what}: carries must be a contiguous float32 "
+                         f"{shape} tensor on {x.device} (tile_states), got "
+                         f"{carries.dtype} {tuple(carries.shape)} on "
+                         f"{carries.device}")
 
 
 def _variant(dtype, D, ptrs) -> str:
@@ -54,10 +82,13 @@ def _variant(dtype, D, ptrs) -> str:
     return "vector"
 
 
-def rglru_scan(x, log_a):
+def rglru_scan(x, log_a, carries=None):
     """``h_t = a_t·h_{t-1} + sqrt(1 - a_t²)·x_t`` with ``a_t = exp(log_a_t)``
     and ``h_{-1} = 0``.  x, log_a (B, S, D) of one dtype.  Returns (y (B, S,
-    D) in x's dtype, h_final (B, D) float32)."""
+    D) in x's dtype, h_final (B, D) float32).  ``carries``
+    (:func:`tile_states`), on the card, receives the float32 state before
+    each tile for :func:`rglru_scan_bwd`; serving passes None, and the
+    CPU's plain version leaves it as it is."""
     if x.dim() != 3 or log_a.shape != x.shape:
         raise ValueError(f"rglru_scan: x {tuple(x.shape)}, log_a "
                          f"{tuple(log_a.shape)}")
@@ -66,6 +97,8 @@ def rglru_scan(x, log_a):
     if x.dtype not in _DTYPES or log_a.dtype != x.dtype:
         raise TypeError(f"rglru_scan takes float32 or bfloat16 x and log_a "
                         f"of one dtype, got {x.dtype}, {log_a.dtype}")
+    if carries is not None:
+        _check_states(x, carries, "rglru_scan")
     B, S, D = x.shape
     x, log_a = x.contiguous(), log_a.contiguous()
     y = torch.empty_like(x)
@@ -74,7 +107,8 @@ def rglru_scan(x, log_a):
                                   y.data_ptr()))
     _LIB.call("rglru_scan_fwd", _DTYPES[x.dtype], int(route == "vector"),
               x.data_ptr(), log_a.data_ptr(), y.data_ptr(), h.data_ptr(),
-              B, S, D, _nvcc.stream(x))
+              None if carries is None else carries.data_ptr(), B, S, D,
+              _nvcc.stream(x))
     rglru_scan.launches += 1
     rglru_scan.routes[route] += 1
     return y, h
@@ -84,17 +118,20 @@ rglru_scan.launches = 0
 rglru_scan.routes = {"vector": 0, "scalar": 0}
 
 
-def rglru_scan_bwd(x, log_a, dy, dh_final=None):
+def rglru_scan_bwd(x, log_a, dy, dh_final=None, carries=None):
     """Gradients (dx in x's dtype, dlog_a in log_a's) of :func:`rglru_scan`
     given ``dy`` (B, S, D) in x's dtype, the gradient of y, and
     ``dh_final`` (B, D) float32 or None (zero), the gradient of h_final:
     the vjp of ``kref.rglru`` (:func:`repro_torch.kernels.ref.rglru_bwd`
-    says what it returns where log_a = 0).  On the card the kernel
-    ``rglru_scan_bwd`` of ``csrc/rglru_scan.cu`` on the copies
-    :func:`_variant` picks, counted in ``rglru_scan_bwd.launches`` and
-    ``.routes``; it recomputes h in float32 and needs a float32 scratch of
-    one state a 128-step tile (64 in float32) and channel; on the CPU the
-    plain version."""
+    says what it returns where log_a = 0).  On the card the two kernels of
+    ``csrc/rglru_scan.cu`` (each tile's aggregate, then every tile's
+    gradients; none for S = 0) on the copies :func:`_variant` picks,
+    counted in ``rglru_scan_bwd.launches`` (calls) and ``.routes``; they
+    start each tile from ``carries``, the forward's tile states
+    (:func:`tile_states`, filled by ``rglru_scan(x, log_a, carries)``, as
+    :class:`RGLRUScan` does), which the card requires, and take a float32
+    scratch of two floats a tile and channel.  On the CPU the plain
+    version, which ignores ``carries``."""
     if x.dim() != 3 or log_a.shape != x.shape or dy.shape != x.shape or (
             dh_final is not None and dh_final.shape != (x.shape[0],
                                                         x.shape[2])):
@@ -111,19 +148,25 @@ def rglru_scan_bwd(x, log_a, dy, dh_final=None):
         raise TypeError(f"rglru_scan_bwd takes float32 or bfloat16 x, log_a "
                         f"and dy of one dtype and a float32 dh_final, got "
                         f"{[t.dtype for t in ins]}")
+    if carries is None:
+        raise ValueError("rglru_scan_bwd on the card starts each tile from "
+                         "the forward's tile states: pass carries, filled "
+                         "by rglru_scan(x, log_a, carries), or train "
+                         "through RGLRUScan, which keeps them")
+    _check_states(x, carries, "rglru_scan_bwd")
     B, S, D = x.shape
     x, log_a, dy = x.contiguous(), log_a.contiguous(), dy.contiguous()
     dh = None if dh_final is None else dh_final.contiguous()
     dx, dla = torch.empty_like(x), torch.empty_like(log_a)
-    tile = 128 if x.dtype == torch.bfloat16 else 64
-    carries = torch.empty((B, max(1, -(-S // tile)), D), dtype=torch.float32,
-                          device=x.device)
+    aggs = torch.empty((B, carries.shape[1], 2, D), dtype=torch.float32,
+                       device=x.device)
     route = _variant(x.dtype, D, tuple(t.data_ptr() for t in (
         x, log_a, dy, dx, dla)))
     _LIB.call("rglru_scan_bwd", _DTYPES[x.dtype], int(route == "vector"),
               x.data_ptr(), log_a.data_ptr(), dy.data_ptr(),
-              None if dh is None else dh.data_ptr(), dx.data_ptr(),
-              dla.data_ptr(), carries.data_ptr(), B, S, D, _nvcc.stream(x))
+              None if dh is None else dh.data_ptr(), carries.data_ptr(),
+              aggs.data_ptr(), dx.data_ptr(), dla.data_ptr(), B, S, D,
+              _nvcc.stream(x))
     rglru_scan_bwd.launches += 1
     rglru_scan_bwd.routes[route] += 1
     return dx, dla
@@ -135,20 +178,23 @@ rglru_scan_bwd.routes = {"vector": 0, "scalar": 0}
 
 class RGLRUScan(torch.autograd.Function):
     """Differentiable RG-LRU scan for training: ``RGLRUScan.apply(x,
-    log_a)`` → (y, h_final) as :func:`rglru_scan`.  The forward keeps x
-    and log_a; the backward recomputes h from them
-    (:func:`rglru_scan_bwd`) instead of keeping it."""
+    log_a)`` → (y, h_final) as :func:`rglru_scan`.  When a gradient will
+    be asked for, the forward keeps x, log_a and the float32 state before
+    each tile (:func:`tile_states`, 1/64 of x's bytes in bf16), and the
+    backward (:func:`rglru_scan_bwd`) starts each tile from it instead of
+    rebuilding h."""
 
     @staticmethod
     def forward(ctx, x, log_a):
-        y, h = rglru_scan(x, log_a)
-        ctx.save_for_backward(x, log_a)
+        carries = tile_states(x) if any(ctx.needs_input_grad) else None
+        y, h = rglru_scan(x, log_a, carries)
+        ctx.save_for_backward(x, log_a, carries)
         ctx.set_materialize_grads(False)
         return y, h
 
     @staticmethod
     def backward(ctx, dy, dh):
-        x, log_a = ctx.saved_tensors
+        x, log_a, carries = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        return rglru_scan_bwd(x, log_a, dy.to(x.dtype), dh)
+        return rglru_scan_bwd(x, log_a, dy.to(x.dtype), dh, carries)

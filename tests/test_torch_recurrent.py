@@ -2,8 +2,9 @@
 the CPU: the RG-LRU and WKV6 kernels' plain versions (which CPU tensors
 take) against the Pallas kernels run in interpret mode through
 ``repro.kernels.ops`` and against ``repro.kernels.ref``, and the chunked
-algebras of the RG-LRU kernel (``ref.rglru_chunked``) and of the bf16 WKV6
-kernel (``ref.wkv6_chunked``) against them; the
+algebras of the RG-LRU kernel (``ref.rglru_chunked``, and the tile states
+it keeps for the backward) and of the bf16 WKV6 kernel
+(``ref.wkv6_chunked``) against them; the
 recurrent blocks (``rglru_block``, ``rglru_block_decode``, ``time_mix``,
 ``channel_mix``) against ``repro.models``; and the smoke recurrentgemma
 (as it is, and with five layers so that the plan has a suffix) and rwkv6
@@ -147,6 +148,39 @@ def test_rglru_chunked_matches_the_sequential_form(kind, B, S, D, tile,
                    jref.rglru(jnp.asarray(x), jnp.asarray(log_a))):
         _close(y, jy)
         _close(h, jh)
+
+
+@pytest.mark.parametrize("tile, sub, S", [
+    (128, 16, 300), (128, 16, 128), (64, 8, 129), (64, 8, 63), (7, 7, 30),
+    (1, 1, 5), (128, 16, 1)])
+def test_rglru_forward_keeps_each_tiles_state(tile, sub, S):
+    """The state the forward keeps before each tile for the backward
+    (:func:`ref.rglru_chunked` with ``keep_states``, the kernel's algebra)
+    is h at the step before the tile's first: 0 before tile 0, else the
+    sequential form's y there; in float64 against the port's sequential
+    version within 1e-12 (both are sums of the same products in another
+    order), and in float32 against the reference's oracle within
+    ``TOL``.  The last tile's state carries on to h_final."""
+    rng = np.random.default_rng(S + tile)
+    x = rng.standard_normal((2, S, 16))
+    log_a = _log_a(rng, "log_a = 0 runs" if S > 40 else "S off the tile",
+                   (2, S, 16)).astype(np.float64)
+    n = -(-S // tile)
+    for dt, (seq_y, _sh), tol in (
+            (np.float64, pref.rglru(torch.from_numpy(x),
+                                    torch.from_numpy(log_a)),
+             dict(atol=1e-12, rtol=0)),
+            (np.float32, jref.rglru(jnp.asarray(x, jnp.float32),
+                                    jnp.asarray(log_a, jnp.float32)), TOL)):
+        y, h, states = pref.rglru_chunked(torch.from_numpy(x.astype(dt)),
+                                          torch.from_numpy(log_a.astype(dt)),
+                                          tile, sub, keep_states=True)
+        assert states.shape == (2, n, 16) and states.dtype == y.dtype
+        seq_y = np.asarray(seq_y, dtype=np.float64)
+        want = np.stack([np.zeros((2, 16))] + [seq_y[:, i * tile - 1]
+                                               for i in range(1, n)], 1)
+        np.testing.assert_allclose(states.numpy(), want, **tol)
+        np.testing.assert_allclose(h.numpy(), seq_y[:, -1], **tol)
 
 
 def test_rglru_variant_routes_rows_off_16_bytes_to_scalar_copies():

@@ -7,8 +7,11 @@ float64 and against the same vjps; ``torch.autograd.gradcheck`` of the
 two autograd Functions, ``RGLRUScan`` and ``WKV6Train``, in float64; the
 rwkv training route's WKV in bf16 against the reference's ``time_mix``
 (``impl="xla"``), w reaching the Function in float32; the argument lists
-the backward wrappers hand their C entry points; and the launcher's
-refusal of an MoE arch on the card.
+the backward wrappers hand their C entry points; ``ref.rglru_bwd_tiled``,
+the RG-LRU backward kernels' tile-parallel algebra, against
+``ref.rglru_bwd`` in float64 and against ``jax.vjp``; the tile states the
+RG-LRU wrappers hand the forward and backward kernels; and the
+launcher's refusal of an MoE arch on the card.
 
 Inputs are made with numpy from a seed.  Tolerances, stated per test:
 
@@ -26,9 +29,11 @@ Inputs are made with numpy from a seed.  Tolerances, stated per test:
   (2^-8 relative) per element, and 2^-8 of the largest element besides;
 - ``gradcheck``: float64, its default tolerances (atol 1e-5, rtol 1e-3
   against central differences with eps 1e-6);
-- the chunked WKV backward against the sequential one, both float64:
-  ``CHUNKED_F64_ATOL`` = 1e-10 absolute, for sums of O(100) float64
-  products of order 1 taken in another order (rounding ~1e-14).
+- the chunked WKV backward and the tiled RG-LRU backward against the
+  sequential ones, both float64: ``CHUNKED_F64_ATOL`` = 1e-10 absolute,
+  for sums of O(100) float64 products of order 1 taken in another order
+  (rounding ~1e-14; the RG-LRU's a²x/b term, up to ~20x its x at these
+  inputs' log_a >= -1e-3, keeps it far under).
 """
 import ctypes
 
@@ -149,6 +154,63 @@ def test_rglru_bwd_at_log_a_zero_takes_the_clamps_flat_side():
     live[4:7] = False
     np.testing.assert_allclose(dx[:, live].numpy(), np.asarray(jdx)[:, live],
                                rtol=1e-5, atol=1e-6)
+
+
+def _tiled_cases():
+    """(tile, sub, S) for the tiled RG-LRU backward: the kernels' bf16 tile
+    of 128 in runs of 16, and tiles of 1, 7 and 16; S = 0, 1, one short of
+    the tile, the tile, one past it, and three tiles and 5 steps."""
+    return [(t, sub, S) for t, sub in ((1, 1), (7, 7), (16, 4), (128, 16))
+            for S in sorted({0, 1, t - 1, t, t + 1, 3 * t + 5})]
+
+
+@pytest.mark.parametrize("kind", ["mild", "log_a = 0 runs", "strong"])
+@pytest.mark.parametrize("tile,sub,S", _tiled_cases(),
+                         ids=[f"tile{t}-S{S}" for t, _s, S in _tiled_cases()])
+def test_rglru_bwd_tiled_matches_the_sequential_backward(tile, sub, S, kind):
+    """``ref.rglru_bwd_tiled`` (the forward's tile states, each tile's
+    aggregate, their fold last first from dh_final, then every tile's runs)
+    against ``ref.rglru_bwd`` in float64, dh_final seeded and None: S off
+    the tile, S = tile ± 1, S = 1 and 0, log_a in [-8, -1e-3], with runs
+    of log_a = 0 (a = 1, gate 0: a fifth of it and steps 2 to 9), or strong
+    decays (log_a in [-30, -10]).  Within ``CHUNKED_F64_ATOL``."""
+    lo, hi = (-30.0, -10.0) if kind == "strong" else (-8.0, -1e-3)
+    x, la, dy, dh = _rglru_inputs(np.random.default_rng(1000 * tile + S), 2,
+                                  S, 8, lo, hi)
+    if kind == "log_a = 0 runs":
+        la[np.random.default_rng(S).random(la.shape) < 0.2] = 0.0
+        la[:, 2:10] = 0.0
+    xt, lat, dyt, dht = (torch.from_numpy(t).double()
+                         for t in (x, la, dy, dh))
+    for d in (dht, None):
+        want = ref.rglru_bwd(xt, lat, dyt, d)
+        got = ref.rglru_bwd_tiled(xt, lat, dyt, d, tile, sub)
+        for name, g, w in zip(("dx", "dlog_a"), got, want):
+            assert g.dtype == torch.float64 and g.shape == w.shape, name
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                       atol=CHUNKED_F64_ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("tile,sub", [(64, 8), (128, 16)],
+                         ids=["float32-kernel", "bf16-kernel"])
+@pytest.mark.parametrize("seeded", [True, False], ids=["dh_final", "no_dh"])
+@pytest.mark.parametrize("S", [37, 130])
+def test_rglru_bwd_tiled_matches_the_reference_vjp(tile, sub, seeded, S):
+    """``ref.rglru_bwd_tiled`` in float32, at the float32 and the bf16
+    kernels' tiles and runs, against ``jax.vjp(kref.rglru)``: log_a in
+    [-8, -1e-3], S off both tiles, dh_final seeded or zero; float32
+    tolerance of the module docstring."""
+    x, la, dy, dh = _rglru_inputs(np.random.default_rng(S + tile), 2, S, 24)
+    (_y, _h), vjp = jax.vjp(jref.rglru, jnp.asarray(x), jnp.asarray(la))
+    want = vjp((jnp.asarray(dy),
+                jnp.asarray(dh) if seeded else jnp.zeros_like(_h)))
+    got = ref.rglru_bwd_tiled(torch.from_numpy(x), torch.from_numpy(la),
+                              torch.from_numpy(dy),
+                              torch.from_numpy(dh) if seeded else None,
+                              tile, sub)
+    for name, g, w in zip(("dx", "dlog_a"), got, want):
+        assert g.dtype == torch.float32
+        _close(g, np.asarray(w), "float32", f"tile {tile} {name}")
 
 
 # -------------------------------------------------------------------- WKV6
@@ -421,7 +483,9 @@ def test_backward_wrappers_match_their_c_signatures(name, monkeypatch):
     """On the card each backward wrapper hands its C entry point exactly
     the arguments its ctypes signature declares, pointers as ints (or None
     for a missing dh_final / ds_final) and sizes as ints, and counts one
-    launch and its route; the WKV's list carries B, H, S, D and its copy
+    launch and its route; the RG-LRU's list carries the forward's tile
+    states (``tile_states``: one float32 state a 128-step bf16 tile and
+    channel) and B, S, D; the WKV's carries B, H, S, D and its copy
     width (1 for 16-byte copies, 0 for a base off 16 bytes) before the
     strides.  Rehearsed on the CPU with ``on_card`` forced true and the
     library call recorded, since no kernel runs here."""
@@ -432,12 +496,16 @@ def test_backward_wrappers_match_their_c_signatures(name, monkeypatch):
     monkeypatch.setattr(lib, "call", lambda fn, *a: got.append((fn, a)))
     if name == "rglru_scan_bwd":
         x = torch.zeros((2, 130, 64), dtype=torch.bfloat16)
+        carries = RS.tile_states(x)
+        assert carries.shape == (2, 2, 64) and carries.dtype == torch.float32
         fn = RS.rglru_scan_bwd
         before = dict(fn.routes)
         for dh in (None, torch.zeros((2, 64))):
-            fn(x, x, x, dh)
+            fn(x, x, x, dh, carries)
         assert fn.routes["vector"] + fn.routes["scalar"] == \
             sum(before.values()) + 2
+        assert [a[6] for _fn, a in got] == [carries.data_ptr()] * 2
+        assert [a[10:13] for _fn, a in got] == [(2, 130, 64)] * 2
     else:
         t = torch.zeros((2, 70, 3, 16)).transpose(1, 2)
         off = torch.zeros(2 * 70 * 3 * 16 + 1)[1:].view(2, 70, 3, 16) \
@@ -460,6 +528,40 @@ def test_backward_wrappers_match_their_c_signatures(name, monkeypatch):
             else:
                 assert isinstance(a, int)
         assert (args[5 if name == "rglru_scan_bwd" else 6] is None) == (i == 0)
+
+
+def test_rglru_wrappers_hand_the_kernels_the_tile_states(monkeypatch):
+    """On the card ``RGLRUScan``'s forward hands the forward kernel a
+    tile-state buffer (float32, one state a 64-step float32 tile and
+    channel) and its backward hands the backward kernel that same buffer;
+    the bare ``rglru_scan`` (serving) hands it None; and the backward
+    without tile states raises, naming ``RGLRUScan``.  Rehearsed on the
+    CPU with ``on_card`` forced true and the library calls recorded."""
+    got = []
+    monkeypatch.setattr(_nvcc, "on_card", lambda what, *t: True)
+    monkeypatch.setattr(_nvcc, "stream", lambda t: 7)
+    monkeypatch.setattr(RS._LIB, "call", lambda fn, *a: got.append((fn, a)))
+    x = torch.zeros((2, 130, 24), requires_grad=True)
+    la = torch.full((2, 130, 24), -0.5, requires_grad=True)
+    y, _h = RS.RGLRUScan.apply(x, la)
+    torch.autograd.grad(y.sum(), (x, la))
+    (fwd, fa), (bwd, ba) = got
+    assert (fwd, bwd) == ("rglru_scan_fwd", "rglru_scan_bwd")
+    assert len(fa) == len(RS._LIB.signatures[fwd]) \
+        and len(ba) == len(RS._LIB.signatures[bwd])
+    assert isinstance(fa[6], int) and fa[6] == ba[6]
+    assert fa[7:10] == (2, 130, 24) == ba[10:13]
+    got.clear()
+    with torch.no_grad():
+        RS.rglru_scan(x, la)
+    assert [(fn, a[6]) for fn, a in got] == [("rglru_scan_fwd", None)]
+    got.clear()
+    with pytest.raises(ValueError, match="RGLRUScan"):
+        RS.rglru_scan_bwd(x.detach(), la.detach(), x.detach())
+    with pytest.raises(ValueError, match="carries"):
+        RS.rglru_scan_bwd(x.detach(), la.detach(), x.detach(), None,
+                          torch.zeros((2, 2, 24)))
+    assert got == []
 
 
 def test_the_bare_kernels_keep_refusing_grad_on_the_card(monkeypatch):
