@@ -132,7 +132,8 @@ def turn(root: str, tag: str, groups) -> dict:
 
     if "moe" in groups:
         path = next(p for p in cs.SERVE_PATHS if p["arch"] == cs.MOE_ARCH)
-        m, launches = cs.phase_serving(torch, kernels, path, rdma)
+        m, launches = cs.phase_serving(torch, kernels, dict(path, a2a=False),
+                                       rdma)
         res[cs.MOE_ARCH] = {k: m[k] for k in SERVE_KEYS}
         res[cs.MOE_ARCH]["gmm launches"] = launches["gmm"]
         gc.collect()

@@ -203,6 +203,17 @@ exits non-zero and prints no result:
    and launch-count checks
    (recurrentgemma-2b's RG-LRU launches all on 16-byte copies, rwkv6-7b's WKV6 launches all on the chunked kernel),
    and on the replicated path the replication checks;
+5b. after the llama4-maverick and deepseek-v3 paths, on their weights (a
+   second copy does not fit the card), the expert-parallel serving path:
+   ``make_serve_steps`` on a (1, 8) stacked mesh, 8 model shards of 16 and
+   32 experts, every MoE layer through ``make_moe_fn``'s a2a block, one
+   prefill of 4 x 512 tokens and 32 greedy decode steps, each call's
+   launches counted from 0 (exactly 6 grouped matmuls, the attention
+   kernel's per layer), finite logits, the first MoE block with the kernel
+   against the same block with ``ref.gmm`` on the card, a 64-token prefill
+   at capacity n_experts against the local path, a profiled decode step,
+   and the grouped matmul timed at the a2a calls and the local decode
+   call, beside phase 5's numbers of the local path;
 7. the training path — ``repro_torch.launch.train.run``, the code of
    ``python -m repro_torch.launch.train`` — on llama3.2-3b at full width
    and depth (28 layers, 3,212,749,824 parameters), bf16, 2 x 4096 tokens
@@ -237,7 +248,8 @@ exits non-zero and prints no result:
    call, the remote-DMA rows timed on the verbs' argument forms, WKV6's
    with the sequential form's bound beside the chunked one's, the
    attention rows with SDPA's, and the attention and grouped-matmul rows
-   with an entry at deepseek-v3's MLA and expert shapes, the attention
+   with an entry at deepseek-v3's MLA and expert shapes, the
+   grouped-matmul row with phase 5b's a2a entries, the attention
    rows also at whisper's encoder and cross-decode shapes and
    llama-3.2-vision's cross prefill; the flash
    backward's row at the training shape, with the backward of SDPA's
@@ -344,14 +356,27 @@ SERVE_PATHS = [
          plan=dict(kills={0: REP_KILL}, revives={0: REP_REVIVE})),
     dict(arch="recurrentgemma-2b", prompt=RG_PROMPT),
     dict(arch="rwkv6-7b", prompt=SERVE_PROMPT),
-    dict(arch=MOE_ARCH, prompt=SERVE_PROMPT, n_layers=MOE_LAYERS),
+    dict(arch=MOE_ARCH, prompt=SERVE_PROMPT, n_layers=MOE_LAYERS, a2a=True),
     dict(arch="gemma-2b", prompt=SERVE_PROMPT),
     dict(arch="internlm2-20b", prompt=SERVE_PROMPT),
-    dict(arch=DS_ARCH, prompt=SERVE_PROMPT, n_layers=DS_LAYERS),
+    dict(arch=DS_ARCH, prompt=SERVE_PROMPT, n_layers=DS_LAYERS, a2a=True),
     dict(arch=WHISPER_ARCH, prompt=WHISPER_PROMPT),
     dict(arch=VISION_ARCH, prompt=SERVE_PROMPT),
 ]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# phase 5b, the expert-parallel serving path: after a MoE path of phase 5,
+# on its weights, make_serve_steps on a (data, model) stacked mesh of
+# A2A_MESH (8 model shards: 16 of llama4's 128 experts a shard, 32 of
+# deepseek's 256), one prefill of SERVE_BATCH x SERVE_PROMPT tokens, then
+# A2A_DECODE greedy decode steps; the no-drop check is one prefill of
+# A2A_NODROP_PROMPT tokens at capacity n_experts on both paths, its logits
+# within ATTN_TOL's bf16 limit of the local path's: the same tokens reach
+# the same experts, whose rows sit in other blocks of the same products,
+# and the router's float32 product is batched over the shards, so the two
+# differ by bf16 roundings through the layers
+A2A_MESH = (1, 8)
+A2A_DECODE = 32
+A2A_NODROP_PROMPT = 64
 # phase 7, the training path: llama3.2-3b at full width and depth, bf16,
 # batches of TRAIN_BATCH x TRAIN_SEQ tokens (the train_4k shape's length),
 # remat per block, AdamW, TRAIN_STEPS steps on one repeated batch
@@ -3638,8 +3663,220 @@ def phase_serving(torch, kernels, path, rdma):
         decode_round_profile=probe.busy,
         read_cache=stats["read_cache"], locality=stats["locality"],
         **rep_metrics)
+    if path.get("a2a"):
+        metrics["a2a"] = phase_a2a(torch, kernels, cfg, eng.params, metrics,
+                                   launches["gmm"])
     return metrics, {name: launches[name] for name in expected} \
         | dma_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the expert-parallel serving path on a stacked mesh
+# ---------------------------------------------------------------------------
+
+def recorded_call(module, name, fn):
+    """Run ``fn()`` with ``module.name`` wrapped to record its arguments;
+    returns the first call's."""
+    orig, calls = getattr(module, name), []
+
+    def rec(*a):
+        calls.append(a)
+        return orig(*a)
+    setattr(module, name, rec)
+    try:
+        fn()
+    finally:
+        setattr(module, name, orig)
+    return calls[0]
+
+
+def gmm_entry(torch, kern, args, launches):
+    """The grouped matmul's numbers at one call's arguments (``x, w,
+    block_expert, block_t, block_rows``, block i on expert i, as at P_dp =
+    1): wrapper and device ms, the plain version's, one ``torch.bmm`` of the
+    same (experts, block_t, d) slots by w (every expert read) as the
+    library yardstick,
+    operations and bytes of the counted rows (the live experts' weights,
+    the counted x rows, every output row, the two index vectors)."""
+    from repro_torch.kernels import ref
+    x, w, be, bt, rows = args
+    nb, D, F = x.shape[0] // bt, w.shape[1], w.shape[2]
+    check(nb == w.shape[0], f"gmm_entry: {nb} blocks on {w.shape[0]} experts")
+    xb = x.view(nb, bt, D)
+    n_rows = int(rows.clamp(0, bt).sum())
+    live = int((rows > 0).sum())
+    return dict(
+        ms=cuda_ms(lambda: kern(x, w, be, bt, rows), 20),
+        device_ms=device_ms(lambda: kern(x, w, be, bt, rows), 20),
+        plain_ms=cuda_ms(lambda: ref.gmm(x, w, be, bt, rows), 2),
+        library_ms=cuda_ms(lambda: torch.bmm(xb, w), 20),
+        flops=2 * n_rows * D * F,
+        nbytes=2 * (n_rows * D + live * D * F + x.shape[0] * F) + 8 * nb,
+        experts=live, rows=n_rows, blocks=nb, block_t=bt, d=D, f=F,
+        launches=launches)
+
+
+def phase_a2a(torch, kernels, cfg, params, local, local_gmm_launches):
+    """The expert-parallel serving path of an MoE config, on the weights of
+    its phase-5 path (``params``; a second copy does not fit the card):
+    ``make_serve_steps(cfg, make_debug_mesh(*A2A_MESH))`` — every MoE layer
+    through ``make_moe_fn``'s stacked block, its three products over every
+    shard's experts at once — one prefill of SERVE_BATCH x SERVE_PROMPT
+    tokens, then A2A_DECODE greedy decode steps.  Every call's model-kernel
+    launches are counted from 0 and must be exactly its attention kernel's
+    per layer and three ``gmm`` per MoE layer; logits finite.  Then: the
+    first MoE layer's block on a prefill's and a decode step's inputs with
+    the kernel against the same block with ``ref.gmm``, both on the card
+    (GMM_TOL's bf16 limit); a no-drop prefill against the local path
+    (ATTN_TOL's bf16 limit); one profiled decode step (busy share, gmm's
+    device ms a call); and gmm's numbers at the a2a decode and prefill
+    calls and at the local decode call on the same state.  Returns the
+    metrics, the local path's (``local``; its ``local_gmm_launches``)
+    beside them."""
+    import dataclasses
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.train import make_serve_steps
+    arch = cfg.name
+    mesh = make_debug_mesh(*A2A_MESH)
+    _m, prefill, decode = make_serve_steps(cfg, mesh)
+    _ml, prefill_local, decode_local = make_serve_steps(cfg, None)
+    kinds = layer_kinds(cfg)
+    n_moe = sum(k.endswith("_moe") for k in kinds)
+    want = {"prefill": {"flash_attention": len(kinds), "gmm": 3 * n_moe},
+            "decode": {"decode_attention": len(kinds), "gmm": 3 * n_moe}}
+    total = dict.fromkeys(kernels, 0)
+
+    def counted(fn, kind, what):
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {name: k.launches for name, k in kernels.items()}
+        check(all(n == want[kind].get(name, 0) for name, n in got.items()),
+              f"{arch} a2a {what}: launches {got}, expected {want[kind]}")
+        check(bool(torch.isfinite(out[0 if kind == "prefill" else 1])
+                   .all()), f"{arch} a2a {what}: a logit is not finite")
+        for name, n in got.items():
+            total[name] += n
+        return out, dt
+
+    rng = np.random.default_rng(SEED + 11)
+    tokens = rng.integers(1, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(
+        np.int32)
+    s_max = SERVE_PROMPT + A2A_DECODE + 1
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        (lg, caches, pos), t_prefill = counted(
+            lambda: prefill(params, {"tokens": tokens}, s_max), "prefill",
+            "prefill")
+        tok = torch.argmax(lg, -1).to(torch.int32)[:, None]
+        steps = []
+        for i in range(A2A_DECODE):
+            (tok, lg, caches, pos), dt = counted(
+                lambda: decode(params, tok, caches, pos), "decode",
+                f"decode step {i}")
+            steps.append(dt)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = {name: n for name, n in total.items() if n}
+        check(launches == {"flash_attention": len(kinds),
+                           "decode_attention": len(kinds) * A2A_DECODE,
+                           "gmm": 3 * n_moe * (1 + A2A_DECODE)},
+              f"{arch} a2a: launches {launches}")
+        # the block with the kernel against the block with ref.gmm
+        errs = {}
+        for what, step in (
+                ("prefill", lambda: prefill(params, {"tokens": tokens},
+                                            s_max)),
+                ("decode", lambda: decode(params, tok, caches, pos))):
+            args = recorded_call(M, "moe_block_a2a", step)
+            got = M.moe_block_a2a(*args)[0]
+            kernel, M.gmm = M.gmm, ref.gmm
+            try:
+                exp = M.moe_block_a2a(*args)[0]
+            finally:
+                M.gmm = kernel
+            errs[what] = rel_err(got, exp)
+            check(errs[what] <= GMM_TOL["bfloat16"],
+                  f"{arch} a2a {what} block: kernel against ref.gmm "
+                  f"{errs[what]} > {GMM_TOL['bfloat16']}")
+            del args, got, exp
+        # gmm's numbers at the a2a calls and the local decode call
+        gmm = kernels["gmm"]
+        n_gmm = total["gmm"]
+        timing = {
+            "decode": gmm_entry(torch, gmm, recorded_call(
+                M, "gmm", lambda: decode(params, tok, caches, pos)), n_gmm),
+            "prefill": gmm_entry(torch, gmm, recorded_call(
+                M, "gmm", lambda: prefill(params, {"tokens": tokens},
+                                          s_max)), n_gmm),
+            "local_decode": gmm_entry(torch, gmm, recorded_call(
+                M, "gmm", lambda: decode_local(params, tok, caches, pos)),
+                local_gmm_launches)}
+        ops = whole_session(torch, lambda: decode(params, tok, caches, pos),
+                            1)
+        dev_ms = sum(us for _n, us in ops.values()) / 1e3
+        gmm_dev = sum(us for name, (_n, us) in ops.items()
+                      if "gmm" in name) / 1e3 / (3 * n_moe)
+        # nothing dropped: the a2a prefill against the local one
+        nd = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+        short = {"tokens": tokens[:1, :A2A_NODROP_PROMPT]}
+        lg_a2a = make_serve_steps(nd, mesh)[1](params, short,
+                                               A2A_NODROP_PROMPT)[0]
+        lg_loc = make_serve_steps(nd, None)[1](params, short,
+                                               A2A_NODROP_PROMPT)[0]
+        nodrop_err = rel_err(lg_a2a, lg_loc.float())
+        check(nodrop_err <= ATTN_TOL["bfloat16"],
+              f"{arch} a2a no-drop prefill against the local path: "
+              f"{nodrop_err} > {ATTN_TOL['bfloat16']}")
+        del caches, lg_a2a, lg_loc
+    p50 = float(np.percentile(steps, 50)) * 1e3
+    m = dict(
+        mesh=list(A2A_MESH), experts_per_shard=cfg.moe.n_experts
+        // A2A_MESH[1], prefill_ms=1e3 * t_prefill,
+        prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT / t_prefill,
+        decode_step_p50_ms=p50,
+        decode_step_p99_ms=float(np.percentile(steps, 99)) * 1e3,
+        decode_tokens_per_s=SERVE_BATCH * len(steps) / sum(steps),
+        peak_device_gib=peak, launches=launches,
+        profiled_decode_step=dict(device_ms=dev_ms, busy_share=dev_ms / p50,
+                                  gmm_device_ms_per_call=gmm_dev),
+        block_vs_ref_gmm=errs, nodrop_logits_err=nodrop_err,
+        gmm_timing=timing,
+        local=dict(prefill_ms=local["prefill_ms_per_call"],
+                   decode_step_p50_ms=local["decode_step_p50_ms"],
+                   decode_step_p99_ms=local["decode_step_p99_ms"],
+                   decode_tokens_per_s=local["decode_tokens_per_s"],
+                   peak_device_gib=local["peak_device_gib"],
+                   decode_round_busy_share=(local["decode_round_profile"]
+                                            or {}).get("device_busy_share")))
+    log(f"  {arch} a2a on a {A2A_MESH} stacked mesh ({m['experts_per_shard']}"
+        f" experts a shard): prefill {m['prefill_ms']:.1f} ms (local "
+        f"{m['local']['prefill_ms']:.1f}), decode step p50 {p50:.2f} / p99 "
+        f"{m['decode_step_p99_ms']:.2f} ms (local "
+        f"{m['local']['decode_step_p50_ms']:.2f} / "
+        f"{m['local']['decode_step_p99_ms']:.2f}), "
+        f"{m['decode_tokens_per_s']:.1f} decode tokens/s (local "
+        f"{m['local']['decode_tokens_per_s']:.1f}), peak {peak:.2f} GiB "
+        f"(local {m['local']['peak_device_gib']:.2f}); launches {launches}")
+    log(f"  {arch} a2a profiled decode step: device {dev_ms:.3f} ms, busy "
+        f"{dev_ms / p50:.3f} of the p50 (local decode round "
+        f"{m['local']['decode_round_busy_share']}), gmm {gmm_dev:.4f} device "
+        f"ms a call; block against ref.gmm {errs} (tolerance "
+        f"{GMM_TOL['bfloat16']}); no-drop logits against the local path "
+        f"{nodrop_err:.3g} (tolerance {ATTN_TOL['bfloat16']})")
+    for what, t in timing.items():
+        log(f"  {arch} gmm at the {what} call: {t['ms']:.4f} ms (device "
+            f"{t['device_ms']:.4f}), {t['blocks']} blocks of {t['block_t']} "
+            f"rows, {t['rows']} counted on {t['experts']} experts, plain "
+            f"{t['plain_ms']:.3f}, bmm {t['library_ms']:.4f} ms")
+    return m
 
 
 def _leaves(tree):
@@ -4574,7 +4811,7 @@ def recurrent_bwd_report(torch, errs, launches):
     return rows
 
 
-def gmm_report(torch, kernels, err, launches):
+def gmm_report(torch, kernels, err, launches, a2a):
     """The grouped matmul's row at llama4-maverick's gate/up product in
     bf16: 128 experts of 5120 x 8192, block i of the slot rows on expert i.
     The row is the prefill shape (24 slots per expert, every row counted:
@@ -4592,7 +4829,12 @@ def gmm_report(torch, kernels, err, launches):
     ``deepseek_decode`` entries are the same numbers at deepseek-v3's gate
     product (256 experts of 7168 x 2048; prefill: 80 slots each, every row
     counted; decode: 8 slots each, the step's 4 tokens on 8 experts each),
-    with deepseek-v3's launches."""
+    with deepseek-v3's launches.  The ``llama4_a2a`` and ``deepseek_a2a``
+    entries (and ``*_a2a_prefill``) are phase 5b's (``a2a``: each arch's
+    :func:`gmm_entry` numbers at the expert-parallel path's gate product, a
+    block of 8 x C rows an expert, each expert's rows compacted to its
+    front), with that path's launches; ``*_local_decode`` the local path's
+    decode call on the same state."""
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     kern = kernels["gmm"]
@@ -4644,6 +4886,18 @@ def gmm_report(torch, kernels, err, launches):
     for phase in subs:
         row[phase] = timing_row(m[phase], m[phase]["launches"], err,
                                 BF16_FLOPS)
+    for arch, tag in ((MOE_ARCH, "llama4"), (DS_ARCH, "deepseek")):
+        for what, suffix in (("decode", "_a2a"), ("prefill", "_a2a_prefill"),
+                             ("local_decode", "_local_decode")):
+            t = a2a[arch][what]
+            row[tag + suffix] = timing_row(t, t["launches"], err, BF16_FLOPS)
+            r = row[tag + suffix]
+            log(f"  gmm {tag}{suffix}: {t['ms']:.4f} ms/call (device "
+                f"{t['device_ms']:.4f}), bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}; {t['experts']} experts read, "
+                f"{t['rows']} rows, {t['nbytes'] / 1e9:.3f} GB), plain "
+                f"{t['plain_ms']:.4f} ms, bmm {t['library_ms']:.4f} ms, "
+                f"launches {t['launches']}")
     row["launches_paths"] = {path: n["gmm"] for path, n in launches.items()
                              if "gmm" in n}
     for phase, r in (("prefill", row),) + tuple((p, row[p]) for p in subs):
@@ -4841,6 +5095,9 @@ def main() -> int:
             label = path_label(path)
             serve_metrics[label], serve_launches[label] = phase_serving(
                 torch, model_kernels, path, rdma)
+            if "a2a" in serve_metrics[label]:
+                serve_launches[f"{label} a2a"] = \
+                    serve_metrics[label]["a2a"]["launches"]
             log(f"  {label} serving path took "
                 f"{time.perf_counter() - t5:.1f} s")
             gc.collect()                 # the engine's weights go first
@@ -4868,7 +5125,9 @@ def main() -> int:
         kernels += recurrent_bwd_report(torch, rec_bwd_errs, train_launches)
         kernels += recurrent_report(torch, model_kernels, rec_errs,
                                     serve_launches)
-        kernels += gmm_report(torch, model_kernels, gmm_err, serve_launches)
+        kernels += gmm_report(torch, model_kernels, gmm_err, serve_launches,
+                              {arch: serve_metrics[arch]["a2a"]["gmm_timing"]
+                               for arch in (MOE_ARCH, DS_ARCH)})
         kernels += copy_report(torch, rdma, copy_cases_, copy_errs, {
             "failover": fo_launches["remote_copy"],
             "serving": serve_launches[path_label(SERVE_PATHS[1])][

@@ -1,14 +1,34 @@
-"""Channel-layer crash schedules, the counterpart of the ``FaultPlan`` of
+"""Fault tolerance and elasticity, the counterpart of
 ``repro/distributed/fault.py`` (numpy only; copied, not imported).
 
-The training tier's elastic re-mesh (``ElasticMeshSpec``, ``run_elastic``)
-is not ported yet.
+* **Failure model**: a data-parallel slice drops out, injected as
+  :class:`DeviceFailure`.
+* **Elastic re-mesh**: channel membership is a constructor argument (the
+  paper's ``expect_num``) — recovery = rebuild the step on the next smaller
+  mesh, restore the last checkpoint into the new state, replay the data
+  pipeline from the restored step (the pipeline is a pure function of the
+  step).  On the stacked binding a mesh is a
+  :class:`~repro_torch.launch.mesh.StackedMesh`; restoring onto devices
+  with new shardings comes with the port's ``torch.distributed`` binding
+  (ROADMAP item 12).
+* **Crash schedules** for the channel layer: :class:`FaultPlan`.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+
+from ..launch.mesh import StackedMesh
+
+
+class DeviceFailure(RuntimeError):
+    """Injected/observed loss of a mesh slice."""
+
+    def __init__(self, failed_slice: int, msg: str = ""):
+        super().__init__(msg or f"lost data slice {failed_slice}")
+        self.failed_slice = failed_slice
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,3 +84,72 @@ class FaultPlan:
         """An ``inject_failure_at``-shaped dict (step → True) for the
         training tier's elastic recovery; a fresh dict per call."""
         return {int(w): True for w in self.kills.values()}
+
+
+@dataclasses.dataclass
+class ElasticMeshSpec:
+    """Allowed degraded configurations, largest first.
+
+    e.g. shapes=[(4, 2), (2, 2), (1, 2)] with axis_names=('data', 'model'):
+    lose half the data slices twice before giving up.
+    """
+    shapes: Sequence[tuple]
+    axis_names: tuple
+
+    def mesh_for(self, level: int) -> StackedMesh:
+        return StackedMesh(tuple(self.shapes[level]), tuple(self.axis_names))
+
+    @property
+    def levels(self) -> int:
+        return len(self.shapes)
+
+
+def run_elastic(spec: ElasticMeshSpec, build: Callable, ckpt,
+                total_steps: int, get_batch: Callable,
+                inject_failure_at: Optional[dict] = None,
+                log: Callable = print):
+    """Train with elastic recovery.
+
+    build(mesh) → (state, step_fn, shardings_fn) where step_fn(state, batch)
+    → (state, metrics); ``shardings_fn`` is the reference's, for restoring
+    onto a device mesh, and is not called on the stacked binding: a
+    checkpoint restores into the freshly built state
+    (``ckpt.restore(step, state)``, each leaf on that state's device and in
+    its dtype).  ``inject_failure_at``: {step: True} test hook, read from a
+    copy so the caller's plan is reusable.  Returns (state, history of
+    (step, level)).
+    """
+    level = 0
+    history: List[tuple] = []
+    # consume a private copy: the schedule is drained below (pop marks a
+    # failure delivered), and draining the caller's dict would make a
+    # fault plan single-use
+    inject_failure_at = dict(inject_failure_at or {})
+    state, step_fn, _shard_fn = build(spec.mesh_for(level))
+    step = 0
+    latest = ckpt.latest_step()
+    if latest is not None:
+        state = ckpt.restore(latest, state)
+        step = latest + 1
+        log(f"[elastic] restored step {latest}")
+    while step < total_steps:
+        try:
+            if inject_failure_at and inject_failure_at.pop(step, False):
+                raise DeviceFailure(0, f"injected at step {step}")
+            state, _metrics = step_fn(state, get_batch(step))
+            history.append((step, level))
+            step += 1
+        except DeviceFailure as e:
+            if level + 1 >= spec.levels:
+                raise RuntimeError("no smaller mesh left") from e
+            level += 1
+            log(f"[elastic] {e}; re-meshing to level {level} "
+                f"{spec.shapes[level]}")
+            state, step_fn, _shard_fn = build(spec.mesh_for(level))
+            latest = ckpt.latest_step()
+            if latest is not None:
+                state = ckpt.restore(latest, state)
+                step = latest + 1
+            else:
+                step = 0
+    return state, history

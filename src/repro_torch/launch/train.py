@@ -54,7 +54,9 @@ def run(cfg: ArchConfig, tcfg: TrainConfig, pipe, *, steps: int,
         raise RuntimeError(
             f"{cfg.name}: the MoE family does not train on the card yet; "
             f"it waits for experts sharded over cards (ROADMAP item 12) and "
-            f"the grouped matmul's backward.  Train it with --device cpu")
+            f"the grouped matmul's backward (item 10).  Train it with "
+            f"--device cpu, where a mesh also runs its experts "
+            f"expert-parallel (make_train_step(..., mesh=...))")
     print(f"[train] arch={cfg.name} device={dev}")
     model, opt, train_step = make_train_step(cfg, tcfg, dev)
     params = model.init(torch.Generator(device=dev).manual_seed(tcfg.seed))

@@ -1,7 +1,7 @@
 """Model factory, the counterpart of ``repro/models/model.py``'s
 ``build_model`` / ``_build_lm`` / ``_build_encdec`` / ``_build_rwkv``.
 
-``build_model(cfg, remat=..., xent_chunks=...)`` returns a :class:`Model` of
+``build_model(cfg, remat=..., xent_chunks=..., moe_fn=...)`` returns a :class:`Model` of
 functions:
 
   init(generator)                      → params (on the generator's device)
@@ -67,15 +67,19 @@ class Model(NamedTuple):
 
 
 def build_model(cfg: ArchConfig, *, remat: str = "block",
-                xent_chunks: int = 1) -> Model:
+                xent_chunks: int = 1, moe_fn=None) -> Model:
     """``remat``: ``"none"``, ``"block"`` or ``"full"`` (each training
     block recomputed in the backward pass; the reference's knob);
-    ``xent_chunks``: sequence chunks of the unembedding and loss."""
+    ``xent_chunks``: sequence chunks of the unembedding and loss;
+    ``moe_fn``: the MoE layers' block in training, prefill and decode, in
+    place of ``moe_block_local`` (the expert-parallel hook,
+    :func:`repro_torch.distributed.moe_ep.make_moe_fn`; the LM family
+    only, as in the reference)."""
     if cfg.family == "audio":
         return _build_encdec(cfg, remat)
     if cfg.family == "ssm":
         return _build_rwkv(cfg, remat)
-    return _build_lm(cfg, remat, xent_chunks)
+    return _build_lm(cfg, remat, xent_chunks, moe_fn)
 
 
 def _device(params):
@@ -173,7 +177,8 @@ def _input_specs(cfg: ArchConfig, shape: ShapeConfig, init_cache):
 
 
 # ---------------------------------------------------------------- LM family
-def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int) -> Model:
+def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int,
+              moe_fn=None) -> Model:
     # the reference multiplies by sqrt(d) cast to the model dtype first (in
     # bf16, 50.5 for d = 2560); the product of two such values is exact in
     # float32, so one rounding to the model dtype gives the reference's bits
@@ -205,7 +210,7 @@ def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int) -> Model:
     def _hidden(params, tokens, context):
         x, aux = T.apply_stack_train(params["layers"], cfg,
                                      _embed_in(params, tokens), remat,
-                                     context)
+                                     context, moe_fn)
         return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
     def logits(params, batch):
@@ -254,7 +259,8 @@ def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int) -> Model:
         tokens = _tokens(params, batch)
         x = _embed_in(params, tokens)
         x, caches = T.fill_stack_cache(params["layers"], cfg, x, s_max,
-                                       context=_context(params, batch))
+                                       context=_context(params, batch),
+                                       moe_fn=moe_fn)
         h = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
         lg = unembed(params["embed"], h, cfg.tie_embeddings)[:, 0]
         return lg, caches, _last_pos(tokens)
@@ -262,7 +268,7 @@ def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int) -> Model:
     def decode_step(params, token, caches, pos, batch=None):
         x = _embed_in(params, _tokens(params, {"tokens": token}))
         x, caches = T.apply_stack_decode(params["layers"], cfg, x, caches,
-                                         pos)
+                                         pos, moe_fn)
         h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         lg = unembed(params["embed"], h, cfg.tie_embeddings)[:, 0]
         return lg, caches

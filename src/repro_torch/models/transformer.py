@@ -146,10 +146,15 @@ def init_block(gen, cfg: ArchConfig, kind: str):
     return p
 
 
-def _apply_ffn(params, cfg: ArchConfig, kind: str, h):
+def _apply_ffn(params, cfg: ArchConfig, kind: str, h, moe_fn=None):
     """The block's FFN on h (B, S, d) → (out, the MoE block's load-balance
-    loss, or None for a dense FFN)."""
+    loss, or None for a dense FFN).  ``moe_fn(ffn_params, h, cfg)``, where
+    given, takes an MoE layer's place of :func:`moe.moe_block_local` (the
+    expert-parallel block, :func:`repro_torch.distributed.moe_ep.
+    make_moe_fn`)."""
     if _is_moe(kind):
+        if moe_fn is not None:
+            return moe_fn(params["ffn"], h, cfg)
         return M.moe_block_local(params["ffn"], h, cfg)
     return mlp(params["ffn"], h, cfg.act), None
 
@@ -160,7 +165,8 @@ def _gate(params, name, x, out):
     return torch.tanh(params[name]).to(x.dtype) * out
 
 
-def _block(params, cfg: ArchConfig, kind: str, x, positions, context):
+def _block(params, cfg: ArchConfig, kind: str, x, positions, context,
+           moe_fn=None):
     """x (B, S, d) → (x', the mixer's cache, the FFN's aux loss or None)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "rec":
@@ -180,51 +186,53 @@ def _block(params, cfg: ArchConfig, kind: str, x, positions, context):
                                  window=_window(cfg, kind))
     x = x + out
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    f_out, aux = _apply_ffn(params, cfg, kind, h)
+    f_out, aux = _apply_ffn(params, cfg, kind, h, moe_fn)
     if kind == "cross":
         f_out = _gate(params, "gate_ffn", x, f_out)
     return x + f_out, cache, aux
 
 
 def apply_block_train(params, cfg: ArchConfig, kind: str, x, positions=None,
-                      context=None):
+                      context=None, moe_fn=None):
     """x (B, S, d) → (x', cache).  Where the reference returns an auxiliary
     loss, the port's serving block returns what prefill stores as the
     decode cache: the attention's rotated k/v (a cross layer's: the
     context's), MLA's compressed latents, or the recurrent block's final
     :class:`RecState` (:func:`train_block` returns the loss)."""
-    x, cache, _aux = _block(params, cfg, kind, x, positions, context)
+    x, cache, _aux = _block(params, cfg, kind, x, positions, context,
+                            moe_fn)
     return x, cache
 
 
 def train_block(params, cfg: ArchConfig, kind: str, x, positions=None,
-                context=None):
+                context=None, moe_fn=None):
     """x (B, S, d) → (x', aux), the reference's ``apply_block_train``: aux
     is the MoE block's load-balance loss, a float32 zero for the others."""
-    x, _cache, aux = _block(params, cfg, kind, x, positions, context)
+    x, _cache, aux = _block(params, cfg, kind, x, positions, context,
+                            moe_fn)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
 
 
 def apply_stack_train(params, cfg: ArchConfig, x, remat: str = "block",
-                      context=None):
+                      context=None, moe_fn=None):
     """The stack for training: x (B, S, d) → (x', sum of the blocks' aux
     losses).  ``remat`` ``"block"`` or ``"full"`` recomputes each block in
     the backward pass from its input (``torch.utils.checkpoint``,
     non-reentrant), as the reference's ``jax.checkpoint`` of each block;
     ``"none"`` keeps every activation.  ``context`` feeds the cross
-    layers."""
+    layers; ``moe_fn`` (:func:`_apply_ffn`) the MoE layers."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p in zip(layer_kinds(cfg), params):
         x, aux = remat_call(remat, train_block, p, cfg, kind, x, None,
-                            context)
+                            context, moe_fn)
         aux_total = aux_total + aux
     return x, aux_total
 
 
 def apply_block_decode(params, cfg: ArchConfig, kind: str, x, cache, pos,
-                       ctx_lengths=None):
+                       ctx_lengths=None, moe_fn=None):
     """x (B, 1, d), pos (B,) → (x', cache); a GQA attention cache is
     updated in place, an MLA cache rewritten as the reference does, a cross
     layer's context cache read (through ``ctx_lengths``,
@@ -244,7 +252,7 @@ def apply_block_decode(params, cfg: ArchConfig, kind: str, x, cache, pos,
                                         window=_window(cfg, kind))
     x = x + out
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    f_out = _apply_ffn(params, cfg, kind, h)[0]
+    f_out = _apply_ffn(params, cfg, kind, h, moe_fn)[0]
     if kind == "cross":
         f_out = _gate(params, "gate_ffn", x, f_out)
     return x + f_out, cache
@@ -283,19 +291,21 @@ def init_stack_cache(cfg: ArchConfig, batch: int, s_max: int, device):
     return caches
 
 
-def apply_stack_decode(params, cfg: ArchConfig, x, caches, pos):
+def apply_stack_decode(params, cfg: ArchConfig, x, caches, pos,
+                       moe_fn=None):
     kinds = layer_kinds(cfg)
     ctx_lengths = A.context_lengths(caches[kinds.index("cross")]) \
         if "cross" in kinds else None
     new = []
     for kind, p, c in zip(kinds, params, caches):
-        x, c = apply_block_decode(p, cfg, kind, x, c, pos, ctx_lengths)
+        x, c = apply_block_decode(p, cfg, kind, x, c, pos, ctx_lengths,
+                                  moe_fn)
         new.append(c)
     return x, new
 
 
 def fill_stack_cache(params, cfg: ArchConfig, x, s_max: int,
-                     positions=None, context=None):
+                     positions=None, context=None, moe_fn=None):
     """Prefill: run the stack over the prompt, returning the final hidden
     states and every layer's decode cache: the recurrent state, MLA's
     latents zero-padded to ``s_max`` slots, a cross layer's k/v of the
@@ -303,7 +313,8 @@ def fill_stack_cache(params, cfg: ArchConfig, x, s_max: int,
     window)`` for a local layer) slots."""
     caches = []
     for kind, p in zip(layer_kinds(cfg), params):
-        x, c = apply_block_train(p, cfg, kind, x, positions, context)
+        x, c = apply_block_train(p, cfg, kind, x, positions, context,
+                                 moe_fn)
         if _is_mla(kind):
             c = _mla_prefill_cache(c, s_max)
         elif kind == "cross":

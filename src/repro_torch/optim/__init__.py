@@ -1,6 +1,6 @@
-"""The port's optimizers (:func:`make_optimizer`), the counterpart of
-``repro/optim``; gradient compression comes with the distributed
-binding."""
+"""The port's optimizers (:func:`make_optimizer`) and the int8
+error-feedback gradient compression (:mod:`.compression`), the counterpart
+of ``repro/optim``."""
 from .optimizer import (AdamState, FactoredState, Optimizer,
                         clip_by_global_norm, global_norm, make_optimizer)
 

@@ -1,5 +1,6 @@
-"""The port's training step (:func:`make_train_step`), the counterpart of
-``repro/train``."""
-from .train_step import make_train_step
+"""The port's training and serving steps (:func:`make_train_step`,
+:func:`make_serve_steps`), the counterpart of ``repro/train``."""
+from .serve_step import make_serve_steps
+from .train_step import build_for_mesh, make_train_step
 
-__all__ = ["make_train_step"]
+__all__ = ["build_for_mesh", "make_serve_steps", "make_train_step"]

@@ -1,17 +1,25 @@
 """Train-step factory, the counterpart of ``repro/train/train_step.py`` on
 one device.
 
-``make_train_step(cfg, tcfg, device)`` returns ``(model, opt,
+``make_train_step(cfg, tcfg, device, mesh)`` returns ``(model, opt,
 train_step)``; ``train_step(params, opt_state, batch)`` returns ``(params,
 opt_state, metrics)`` with the model's metrics, ``loss`` and ``grad_norm``
 as 0-d tensors on the device.  Gradients come from ``torch.autograd.grad``
 over every parameter leaf (each is made to require grad); with
 ``tcfg.microbatch`` > 1 the batch is cut along its first axis and the
 microbatches' gradients summed in float32, then divided, as the reference's
-``_accumulated_grads`` does.  The optimizer updates the parameters and its
-state in place (:mod:`repro_torch.optim.optimizer`).  The reference's
-shardings, donation and expert-parallel ``moe_fn`` hook wait for the port's
-``torch.distributed`` binding.
+``_accumulated_grads`` does.  ``tcfg.fence_scope == "grads"`` puts
+:func:`repro_torch.distributed.collectives.fence_grads` between the
+backward and the update.  The optimizer updates the parameters and its
+state in place (:mod:`repro_torch.optim.optimizer`).
+
+With a mesh (:class:`~repro_torch.launch.mesh.StackedMesh`) the model is
+:func:`build_for_mesh`'s: an MoE config with ``router_impl == "a2a"`` runs
+its MoE layers expert-parallel over the mesh's stacked shards, as the
+reference's ``moe_fn`` hook does.  The reference's ``make_act_fn``
+(sharding constraints between sublayers) has no counterpart on one
+device; its shardings, donation and ``jit_train_step`` come with the
+port's ``torch.distributed`` binding (ROADMAP item 12).
 """
 from __future__ import annotations
 
@@ -25,11 +33,24 @@ from ..optim.optimizer import make_optimizer
 from ..tree import leaves, unflatten
 
 
-def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, device=None):
-    """Returns (model, opt, train_step) for ``device`` (default: the
-    card)."""
+def build_for_mesh(cfg: ArchConfig, tcfg: TrainConfig, mesh=None):
+    """The model with ``mesh``'s hooks: the expert-parallel MoE block for an
+    MoE config with ``router_impl == "a2a"`` when a mesh is given."""
+    moe_fn = None
+    if mesh is not None and cfg.moe is not None and \
+            cfg.moe.router_impl == "a2a":
+        from ..distributed.moe_ep import make_moe_fn
+        moe_fn = make_moe_fn(cfg, mesh)
+    return build_model(cfg, remat=tcfg.remat, xent_chunks=tcfg.xent_chunks,
+                       moe_fn=moe_fn)
+
+
+def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, device=None,
+                    mesh=None):
+    """Returns (model, opt, train_step) for ``device`` (default: the card)
+    and ``mesh`` (default: none, every layer local)."""
     dev = resolve_device(device)
-    model = build_model(cfg, remat=tcfg.remat, xent_chunks=tcfg.xent_chunks)
+    model = build_for_mesh(cfg, tcfg, mesh)
     opt = make_optimizer(tcfg, param_stacks(cfg))
 
     def loss_and_grads(params, batch):
@@ -49,6 +70,9 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, device=None):
                 loss_and_grads, params, batch, tcfg.microbatch)
         else:
             loss, metrics, grads = loss_and_grads(params, batch)
+        if tcfg.fence_scope == "grads":
+            from ..distributed.collectives import fence_grads
+            grads = fence_grads(grads)
         params, opt_state, stats = opt.update(unflatten(params, grads),
                                               opt_state, params)
         return params, opt_state, dict(metrics, loss=loss, **stats)

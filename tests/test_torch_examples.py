@@ -3,7 +3,9 @@
 JAX package's examples print: the same channels, ledger bytes, SST rows and
 KVStore results in the quickstart, the same prefill, operation and oracle
 counts in the KV-store application (its online oracle checks every read),
-at a small size.  Only the wall-clock time and rate differ."""
+at a small size, and the same page-table statistics in the serving demo.
+Only the wall-clock time and rate differ, and the serving demo's sampled
+tokens, which come from each package's own random weights."""
 import importlib.util
 import os
 import re
@@ -56,3 +58,16 @@ def test_kvstore_app_prints_what_the_reference_prints(capsys):
     assert "linearizability holds." in out
     assert _untimed(out) == _untimed(
         _reference("kvstore_app", capsys, keyspace=64, rounds=4))
+
+
+def test_serve_demo_prints_what_the_reference_prints(capsys):
+    """The serving demo's page table: the same requests, tokens and
+    kvstore statistics (INSERT = DELETE; the launcher checks it)."""
+    out = _port("serve_demo").splitlines()
+    ref = _reference("serve_demo", capsys).splitlines()
+    assert out[0].startswith("[serve] 8 requests × 8 tokens on cpu in ")
+    assert ref[0].startswith("[serve] 8 requests × 8 tokens in ")
+    assert len(out[1].split(",")) == 8 and out[1].startswith(
+        "[serve] sample output: [")
+    assert out[2].startswith("[serve] page-table (kvstore) stats: ")
+    assert out[2:] == ref[2:]
