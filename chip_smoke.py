@@ -9,10 +9,12 @@ toolkit:
 It imports neither JAX nor the JAX package.  Phases, in order; any failure
 exits non-zero and prints no result:
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nine
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (ten
    sources) with nvcc, one process per source, all at once, and check with
-   ``cuobjdump -sass`` that the bf16 flash and grouped-matmul kernels run on
-   the tensor cores (HMMA instructions), and from ``-Xptxas -v`` that the
+   ``cuobjdump -sass`` that the bf16 flash and grouped-matmul kernels (the
+   grouped matmul's transposed instances, its input gradient, and its
+   weight-gradient kernel among them) run on the tensor cores (HMMA
+   instructions), and from ``-Xptxas -v`` that the
    tensor-core flash and grouped-matmul ones and the three RG-LRU ones
    (the forward, the backward's tile aggregates and tile gradients) do not
    spill (the flash backward kernels' and the WKV6 backward kernels'
@@ -87,7 +89,21 @@ exits non-zero and prints no result:
    also at the vlm's and whisper's training shapes (whisper's encoder, 20
    heads of 64 over 1,500² frames, bidirectional; its cross-attention,
    224 queries over 1,500 keys; the vision cross layers', 512 over 1,601,
-   32 heads on 8 of 128), on the tensor cores in bf16;
+   32 heads on 8 of 128), on the tensor cores in bf16; then the grouped
+   matmul's backward (``gmm_dx``: the forward's kernels reading w as its
+   transpose; ``gmm_dw``: ``csrc/moe_gmm_dw.cu``) against its plain
+   versions (``ref.gmm`` on ``w.transpose(1, 2)``, ``ref.gmm_dw``; element
+   by element within ``BWD_TOL``) at llama4-maverick's and deepseek-v3's
+   expert shapes at phase 7's batch (128 experts of 5120 <-> 8192, 80
+   slots, top-1; 256 of 7168 <-> 2048, 320 slots, top-8), both leaf
+   orientations, with a dispatch's row counts (empty, partial and full
+   experts), the a2a form (every expert on two blocks), float32 at both
+   widths with fewer experts, bf16 rows off 16 bytes, widths not
+   multiples of 8, ragged tiles, a block of two 64-row chunks, all-zero
+   counts, block_t 1 and no counts, unsorted block experts that repeat:
+   each on the route ``_variant`` picks, dx's rows past the counts and an
+   expert with no counted row's gradient exactly zero, two calls bitwise
+   equal, one device operation a call;
 2c. hold the recurrences' backward kernels against their plain versions
    (``ref.rglru_bwd``, ``ref.wkv6_bwd``; tolerances ``BWD_TOL``):
    ``rglru_scan_bwd`` (``csrc/rglru_scan.cu``), each case after the
@@ -128,7 +144,14 @@ exits non-zero and prints no result:
    loss within 1e-4, every gradient leaf within ``GRAD_TOL`` of its
    largest, the update of the same gradients within 1e-4, and for
    llama3.2-3b the step's parameters and optimizer state within 1e-4 end
-   to end);
+   to end), and of the smoke llama4-maverick and deepseek-v3 (float32,
+   AdamW) on the local path and through ``make_train_step(..., mesh=)``
+   on a (1, 4) stacked mesh (the a2a block), each card step exactly 6
+   ``gmm``, 3 ``gmm_dx`` and 3 ``gmm_dw`` launches a MoE layer (the
+   backward's on the CUDA cores), then one ``make_grad_sync(mesh,
+   compress="int8ef")`` step on a (2, 2, 2) (pod, data, model) stacked
+   mesh, its int8 payloads, their scales and the synced gradients bit for
+   bit equal on the card and the CPU;
 4. the KVStore path — ``KVStore.op_window`` on the remote-DMA backend — at a
    deployment's size: P=8 participants, K=2**22 keys, 8-byte values,
    windows of 512 lanes per participant; prefill 80% of K, then 20 windows
@@ -237,7 +260,17 @@ exits non-zero and prints no result:
    profiled step (the recurrences' forward and backward shares too);
    ``gmm``, ``decode_attention`` and the bare ``rglru_scan`` and ``wkv6``
    refusing a grad-requiring input on the card, ``RGLRUScan`` and
-   ``WKV6Train`` taking one and launching their backward kernels; and a
+   ``WKV6Train`` taking one and launching their backward kernels, and
+   ``gmm`` taking one through ``GroupedMatmul`` (``gmm_dx`` and ``gmm_dw``
+   in its backward); the smoke llama4-maverick through the same launcher
+   (bf16, 6 steps of 2 x 256 tokens; exactly 6 ``gmm``, 3 ``gmm_dx`` and 3
+   ``gmm_dw`` launches a MoE layer a step, on the tensor cores; its
+   published widths the launcher refuses for memory); ``moe_block_local``
+   forward and backward at llama4-maverick's and deepseek-v3's published
+   widths on 2 x 4,096 tokens (exactly 3 launches of each kernel, finite
+   gradients, zero for an expert with no token, ms, peak memory and the
+   kernels' share of the device time; at deepseek-v3's every gradient
+   against the same block with the plain versions on the card); and a
    checkpoint round trip of the smoke model's bf16 state on the card,
    bitwise;
 6. report the end-to-end numbers of every path, each kernel's launches on
@@ -254,8 +287,11 @@ exits non-zero and prints no result:
    llama-3.2-vision's cross prefill; the flash
    backward's row at the training shape, with the backward of SDPA's
    output beside it; the RG-LRU's and WKV6's backward rows at their
-   training shapes, with their device operations a call), the card's
-   name and power limit, and last the result line.
+   training shapes, with their device operations a call; WKV6's row with
+   the float32 training form at rwkv6-7b's training shape; the grouped
+   matmul's backward, ``gmm_dx`` and ``gmm_dw``, at llama4-maverick's and
+   deepseek-v3's training shapes with ``torch.bmm`` beside them), the
+   card's name and power limit, and last the result line.
 
 Kernel launch counts are set to 0 just before each path and read just after
 it, so the checks of phases 2, 2b, 2c and 3 and the timings of phase 6
@@ -388,7 +424,13 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6
 # frames and llama-3.2-vision-11b with 512 tokens over its 1,601 context
 # tokens (the pipeline's synthesized context); FAMILY_STEPS steps each
 FAMILY_STEPS = 3
+# the MoE family trains on the card at its smoke config (its published
+# widths are refused for memory): llama4-maverick's, TRAIN_STEPS steps of
+# TRAIN_BATCH x MOE_SMOKE_SEQ tokens
+MOE_SMOKE_SEQ = 256
 TRAIN_PATHS = [
+    dict(arch=MOE_ARCH, seq=MOE_SMOKE_SEQ, optimizer="adamw", smoke=True,
+         steps=TRAIN_STEPS),
     dict(arch="recurrentgemma-2b", seq=TRAIN_SEQ, optimizer="adamw"),
     dict(arch="rwkv6-7b", seq=TRAIN_SEQ, optimizer="adafactor"),
     dict(arch=WHISPER_ARCH, seq=WHISPER_PROMPT, optimizer="adamw"),
@@ -444,6 +486,13 @@ MOE_D, MOE_F, MOE_E, MOE_C_PREFILL, MOE_C_DECODE = 5120, 8192, 128, 24, 8
 # with 128 heads: prefill q and k 128 + 64 wide, v 128; decode over the
 # kv_lora 512 + rope 64 latent cache
 DS_D, DS_F, DS_E, DS_K, DS_C_PREFILL, DS_C_DECODE = 7168, 2048, 256, 8, 80, 8
+# their expert products at phase 7's training batch (TRAIN_BATCH x
+# TRAIN_SEQ tokens): capacity 80 slots for top-1 over 128 experts, 320 for
+# top-8 over 256
+MOE_C_TRAIN, DS_C_TRAIN = 80, 320
+# phase 3's expert-parallel smoke train steps: a (1, MOE_PARITY_TP) mesh
+# (4 model shards: 1 of llama4's 4 smoke experts a shard, 2 of deepseek's 8)
+MOE_PARITY_TP = 4
 DS_HEADS, DS_DQK, DS_DV, DS_DLAT, DS_DROPE = 128, 192, 128, 576, 64
 
 
@@ -520,6 +569,38 @@ def parse_ptxas(out, kernel):
             usage[fn][0] = int(line.split("Used", 1)[1].split()[0])
             fn = None
     return usage
+
+
+def check_gmm_build(_nvcc):
+    """The grouped matmul's tensor-core kernels, the forward's three row
+    chunks and their transposed instances (the input gradient) and the
+    weight gradient's, run on the tensor cores (HMMA in their SASS) and do
+    not spill (``-Xptxas -v``)."""
+    hmma = sass_mma_count(_nvcc, "moe_gmm", "gmm_mma")
+    check(len(hmma) == 6 and all(n > 0 for n in hmma.values()),
+          f"the bf16 gmm kernels and their transposed instances lack "
+          f"tensor-core HMMA: {hmma}")
+    log(f"  cuobjdump -sass, HMMA per tensor-core gmm kernel (Lb1: the "
+        f"transposed instance): {hmma}")
+    usage = ptxas_usage(_nvcc, "moe_gmm", "gmm_mma")
+    check(len(usage) == 6 and all(u[0] and not u[1] and not u[2]
+                                  for u in usage.values()),
+          f"the tensor-core gmm kernels spill: {usage}")
+    log("  -Xptxas -v, tensor-core gmm kernels [registers, spill stores, "
+        f"spill loads]: {usage}")
+    hmma = sass_mma_count(_nvcc, "moe_gmm_dw", "gmm_dw_mma")
+    check(len(hmma) == 1 and all(n > 0 for n in hmma.values()),
+          f"the bf16 gmm weight-gradient kernel lacks tensor-core HMMA: "
+          f"{hmma}")
+    log(f"  cuobjdump -sass, HMMA in the tensor-core gmm weight-gradient "
+        f"kernel: {hmma}")
+    usage = ptxas_usage(_nvcc, "moe_gmm_dw", "gmm_dw")
+    mma = {fn: u for fn, u in usage.items() if "gmm_dw_mma" in fn}
+    check(len(mma) == 1 and all(u[0] and not u[1] and not u[2]
+                                for u in mma.values()),
+          f"the tensor-core gmm weight-gradient kernel spills: {mma}")
+    log("  -Xptxas -v, gmm weight-gradient kernels [registers, spill "
+        f"stores, spill loads]: {usage}")
 
 
 def cuda_ms(fn, iters):
@@ -1201,13 +1282,45 @@ def rel_err(got, exp):
 def elementwise_err(torch, got, exp, rtol, atol):
     """max over elements of |got - exp| / (rtol·|exp| + atol·s), s the root
     mean square of ``exp``: at most 1 where every element is within its
-    limit."""
-    exp = exp.float()
-    s = float(exp.double().square().mean().sqrt()) if exp.numel() else 0.0
-    lim = (rtol * exp.abs() + atol * s).clamp_min(
-        torch.finfo(torch.float32).tiny)
-    return float(((got.float() - exp).abs() / lim).max()) \
-        if exp.numel() else 0.0
+    limit.  Taken a slice of the leading dimension at a time, so that a
+    full-width expert gradient (10.7 GB in bf16) needs no float32 copy."""
+    if not exp.numel():
+        return 0.0
+    step = max(1, (1 << 26) // max(1, exp[0].numel())) if exp.dim() else 1
+    parts = [(got, exp)] if exp.dim() == 0 else [
+        (got[i:i + step], exp[i:i + step])
+        for i in range(0, exp.shape[0], step)]
+    s = (sum(float(b.double().square().sum()) for _a, b in parts)
+         / exp.numel()) ** 0.5
+    worst = 0.0
+    for a, b in parts:
+        b = b.float()
+        lim = (rtol * b.abs() + atol * s).clamp_min(
+            torch.finfo(torch.float32).tiny)
+        worst = max(worst, float(((a.float() - b).abs() / lim).max()))
+    return worst
+
+
+def max_abs(t):
+    """max |t|, a slice of the leading dimension at a time."""
+    if not t.numel():
+        return 0.0
+    if t.dim() == 0:
+        return float(t.float().abs())
+    step = max(1, (1 << 26) // max(1, t[0].numel()))
+    return max(float(t[i:i + step].float().abs().max())
+               for i in range(0, t.shape[0], step))
+
+
+def max_abs_diff(a, b):
+    """max |a - b|, a slice of the leading dimension at a time."""
+    step = max(1, (1 << 26) // max(1, b[0].numel())) if b.dim() else 1
+    if not b.numel():
+        return 0.0
+    if b.dim() == 0:
+        return float((a.float() - b.float()).abs())
+    return max(float((a[i:i + step].float() - b[i:i + step].float())
+                     .abs().max()) for i in range(0, b.shape[0], step))
 
 
 def phase_recurrent_kernels(torch, kernels):
@@ -1617,6 +1730,194 @@ def phase_gmm_kernel(torch, kernels):
         del w32, x32
         torch.cuda.empty_cache()
     return err
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the grouped matmul's backward against its plain versions
+# ---------------------------------------------------------------------------
+
+def dispatch_counts(torch, g, E, C, tokens, k, edges=True):
+    """(E,) int32 row counts as a dispatch of ``tokens`` tokens, top-``k``,
+    into C slots an expert gives them: each assignment on an expert drawn
+    uniformly, min(count, C).  With ``edges`` expert 0 is empty and expert
+    1 full, so that every case holds empty, partial and full experts."""
+    e = torch.randint(0, E, (tokens * k,), generator=g, device="cuda")
+    counts = torch.bincount(e, minlength=E).clamp_(max=C).to(torch.int32)
+    if edges:
+        counts[0], counts[1] = 0, C
+    return counts
+
+
+def gmm_bwd_cases():
+    """(label, E, Din, Dout, block_t, Pd, dtype, block experts, counts,
+    misaligned) per backward case.  Both leaf orientations of llama4-
+    maverick's (wi: 5120 -> 8192, wo: 8192 -> 5120; 128 experts, 80 slots
+    each, top-1) and deepseek-v3's (7168 <-> 2048; 256 experts, 320 slots,
+    top-8) expert products at phase 7's batch of TRAIN_BATCH x TRAIN_SEQ
+    tokens, row counts as a dispatch gives them (:func:`dispatch_counts`);
+    the a2a form (Pd = 2 blocks on every expert, ``arange(E).repeat(2)``);
+    float32 at both models' widths with fewer experts (the CUDA-core
+    route); then odd ones: bf16 rows off 16 bytes and widths not multiples
+    of 8 (CUDA cores), ragged tiles and a block of more than one 64-row
+    chunk (tensor cores), unsorted block experts that repeat, counts all
+    zero, block_t 1 and no counts."""
+    bf, f32 = "bfloat16", "float32"
+    tk = TRAIN_BATCH * TRAIN_SEQ
+    cases = []
+    for din, dout in ((MOE_D, MOE_F), (MOE_F, MOE_D)):
+        cases.append((f"llama4 {din}->{dout}", MOE_E, din, dout,
+                      MOE_C_TRAIN, 1, bf, "arange", ("dispatch", tk, 1),
+                      False))
+    for din, dout in ((DS_D, DS_F), (DS_F, DS_D)):
+        cases.append((f"deepseek {din}->{dout}", DS_E, din, dout,
+                      DS_C_TRAIN, 1, bf, "arange", ("dispatch", tk, DS_K),
+                      False))
+    cases += [
+        (f"llama4 a2a Pd=2 {MOE_D}->{MOE_F}", MOE_E, MOE_D, MOE_F,
+         MOE_C_TRAIN, 2, bf, "arange", ("dispatch", tk, 1), False),
+        (f"float32 llama4 widths a2a Pd=2 {MOE_F}->{MOE_D}", 4, MOE_F, MOE_D,
+         MOE_C_TRAIN, 2, f32, "arange", ("dispatch", 4 * MOE_C_TRAIN, 1),
+         False),
+        (f"float32 deepseek widths {DS_D}->{DS_F}", 8, DS_D, DS_F,
+         DS_C_TRAIN, 1, f32, "arange", ("dispatch", 8 * DS_C_TRAIN, 1),
+         False),
+        ("bf16 rows off 16 bytes a2a Pd=2", 3, 200, 136, 24, 2, bf,
+         "arange", ("partial",), True),
+        ("Din 100 Dout 77 block_t 7", 5, 100, 77, 7, 1, bf, "random",
+         ("partial",), False),
+        ("ragged tiles Din 136 Dout 264 block_t 40", 3, 136, 264, 40, 1, bf,
+         "random", ("partial",), False),
+        ("block_t 100 (two chunks)", 3, 128, 136, 100, 1, bf, "random",
+         ("partial",), False),
+        ("all-zero counts", 4, 64, 256, 16, 1, bf, "random", ("zero",),
+         False),
+        ("block_t 1", 5, 513, 136, 1, 1, bf, "random", ("partial",), False),
+        ("no counts", 4, 256, 128, 32, 2, bf, "random", None, False),
+        ("float32 no counts", 3, 100, 77, 7, 2, f32, "random", None, False)]
+    return cases
+
+
+def gmm_bwd_inputs(torch, g, case):
+    """x (T, Din), dy (T, Dout), w (E, Din, Dout) (None past 2^31 bytes of
+    x and dy alike: only the full-width cases hold one) and the int32
+    block experts and counts of a case, on the card; x and dy hold random
+    values past every count."""
+    label, E, din, dout, bt, pd, dt, order, kind, misaligned = case
+    dt = getattr(torch, dt)
+    nb = pd * E if order == "arange" else max(2 * E, 4)
+    T = nb * bt
+
+    def rn(*shape, scale=1.0):
+        t = torch.randn(shape, generator=g, device="cuda").mul_(scale).to(dt)
+        if misaligned:      # the same values one element into a buffer
+            buf = torch.empty(t.numel() + 1, dtype=dt, device="cuda")
+            buf[1:].copy_(t.view(-1))
+            t = buf[1:].view(shape)
+        return t
+    x, dy = rn(T, din), rn(T, dout)
+    w = rn(E, din, dout, scale=max(din, 1) ** -0.5)
+    be = torch.arange(E, dtype=torch.int32, device="cuda").repeat(pd) \
+        if order == "arange" else torch.randint(
+            0, E, (nb,), generator=g, device="cuda", dtype=torch.int32)
+    if kind is None:
+        counts = None
+    elif kind[0] == "dispatch":
+        counts = torch.cat([dispatch_counts(torch, g, E, bt, kind[1],
+                                            kind[2], edges=(i == 0))
+                            for i in range(pd)])
+    else:
+        counts = gmm_counts(torch, g, kind[0], E, nb, bt)
+    return x, dy, w, be, bt, counts
+
+
+def phase_gmm_bwd_kernels(torch):
+    """Each case of :func:`gmm_bwd_cases` through ``gmm_dx`` (dy times each
+    block's weights transposed, ``csrc/moe_gmm.cu``'s transposed instance)
+    and ``gmm_dw`` (``csrc/moe_gmm_dw.cu``) against their plain versions on
+    the same (card) inputs in the same dtype (``ref.gmm`` on
+    ``w.transpose(1, 2)``, ``ref.gmm_dw``), element by element within
+    ``BWD_TOL`` (:func:`elementwise_err`); dx's rows past the counts and
+    the gradient of an expert with no counted row exactly zero; each
+    output's dtype and shape; a second call bitwise equal to the first;
+    each call on the route ``_variant`` should pick (``gmm_dx.routes``,
+    ``gmm_dw.routes``: bf16 with widths multiples of 8 and bases on 16
+    bytes on the tensor cores, the rest on the CUDA cores); and a call's
+    device operations under ``torch.profiler`` (one kernel), on each
+    kernel and route.  Returns the largest absolute errors and the
+    operations a call."""
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    errs, ops = {"gmm_dx": 0.0, "gmm_dw": 0.0}, {}
+    for case in gmm_bwd_cases():
+        label, E, din, dout, _bt, _pd, dts, _order, _kind, misaligned = case
+        x, dy, w, be, bt, counts = gmm_bwd_inputs(torch, g, case)
+        dt = x.dtype
+        want = "mma" if dt == torch.bfloat16 and din % 8 == 0 \
+            and dout % 8 == 0 and not misaligned else "simt"
+        calls = {
+            "gmm_dx": (lambda: moe_gmm.gmm_dx(dy, w, be, bt, counts),
+                       lambda: ref.gmm(dy, w.transpose(1, 2), be, bt,
+                                       counts),
+                       (x.shape[0], din), (dy, w)),
+            "gmm_dw": (lambda: moe_gmm.gmm_dw(x, dy, be, bt, counts, E),
+                       lambda: ref.gmm_dw(x, dy, be, bt, counts, E),
+                       (E, din, dout), (x, dy))}
+        msg = []
+        for name, (call, plain, shape, ins) in calls.items():
+            kern = getattr(moe_gmm, name)
+            before, routes = kern.launches, dict(kern.routes)
+            got = call()
+            torch.cuda.synchronize()
+            what = f"{name} ({label} {dts})"
+            check(kern.launches == before + 1, f"{what} did not launch")
+            route = moe_gmm._variant(dt, din, dout, tuple(
+                t.data_ptr() for t in (*ins, got)))
+            check(route == want and kern.routes[want] == routes[want] + 1,
+                  f"{what} took the {route} route, not {want}")
+            check(got.dtype == dt and tuple(got.shape) == shape,
+                  f"{what}: {got.dtype} {tuple(got.shape)}")
+            again = call()
+            check(bits_equal(torch, got, again), f"{what}: two calls differ")
+            del again
+            if counts is not None and name == "gmm_dx":
+                past = torch.arange(bt, device="cuda")[None, :] \
+                    >= counts[:, None]
+                check(not got[past.reshape(-1)].any(),
+                      f"{what}: rows past the counts not zero")
+            if name == "gmm_dw":
+                rows = torch.full((be.shape[0],), bt, device="cuda") \
+                    if counts is None else counts.clamp(0, bt)
+                live = torch.zeros(E, dtype=torch.int64, device="cuda")
+                live.index_add_(0, be.long(), rows.long())
+                dead = (live == 0).nonzero().flatten().tolist()
+                check(all(not got[e].any() for e in dead),
+                      f"{what}: an expert with no counted row has a "
+                      f"non-zero gradient")
+                if len(dead):
+                    msg.append(f"{len(dead)} empty experts zero")
+            exp = plain()
+            tol = BWD_TOL[dts]
+            e = elementwise_err(torch, got, exp, *tol)
+            check(e <= 1.0, f"{what} differs from its plain version: {e} "
+                            f"of the limit (rtol, atol) {tol}")
+            errs[name] = max(errs[name], max_abs_diff(got, exp))
+            key = f"{name} {route}"
+            if key not in ops:
+                o = device_ops(torch, call, 5)
+                check(sum(o.values()) == 5 and len(o) == 1,
+                      f"{what}: device operations of 5 calls {o}, "
+                      f"expected one kernel a call")
+                ops[key] = {k[:60]: n / 5 for k, n in o.items()}
+            msg.append(f"{name} {e:.3g} of the limit, {route} route")
+            del got, exp
+        log(f"  gmm backward [{label} {dts}]: " + "; ".join(msg)
+            + f", two calls bitwise equal (rtol, atol) {BWD_TOL[dts]}")
+        del x, dy, w, be, counts
+        torch.cuda.empty_cache()
+    log(f"  gmm backward device operations a call: {json.dumps(ops)}")
+    errs["device_ops_per_call"] = ops
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -2138,9 +2439,104 @@ def train_parity(torch):
                     layer[name] = torch.tensor(
                         float(rng.uniform(0.3, 1.2) * rng.choice([-1, 1])))
         train_step_parity(torch, cfg, params0, "AdamW", {})
+    moe_train_parity(torch)
 
 
-def train_step_parity(torch, cfg, params0, label, tkw, end_to_end=False):
+def moe_train_parity(torch):
+    """The MoE family's training step, card against CPU
+    (:func:`train_step_parity`): the smoke llama4-maverick and deepseek-v3
+    in float32 with AdamW, on the local path and through
+    ``make_train_step(..., mesh=)`` on a (1, ``MOE_PARITY_TP``) stacked
+    mesh (``router_impl="a2a"``), each card step exactly 6 ``gmm`` (the
+    forward and its ``remat="block"`` recompute), 3 ``gmm_dx`` and 3
+    ``gmm_dw`` launches a MoE layer, the backward's all on the CUDA-core
+    route (float32 stays exact: no TF32); then one
+    ``make_grad_sync(mesh, compress="int8ef")`` step on the local path's
+    card gradients (:func:`grad_sync_parity`).  The load-balance loss keeps
+    its weight: card and CPU run the same path, the a2a one's aux the mean
+    of the shards' (not the local path's)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.launch.mesh import StackedMesh
+    from repro_torch.models import build_model
+    grads = None
+    for arch in (MOE_ARCH, DS_ARCH):
+        cfg = get_smoke_config(arch).replace(dtype="float32")
+        n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+        params0 = build_model(cfg).init(torch.Generator().manual_seed(SEED))
+        want = {"gmm": 6 * n_moe, "gmm_dx": 3 * n_moe, "gmm_dw": 3 * n_moe}
+        for label, mesh in (("AdamW, local", None),
+                            (f"AdamW, (1, {MOE_PARITY_TP}) stacked mesh, a2a",
+                             StackedMesh((1, MOE_PARITY_TP),
+                                         ("data", "model")))):
+            before = {n: getattr(moe_gmm, n).launches for n in want}
+            routes = {n: dict(getattr(moe_gmm, n).routes)
+                      for n in ("gmm_dx", "gmm_dw")}
+            g = train_step_parity(torch, cfg, params0, label, {}, mesh=mesh)
+            got = {n: getattr(moe_gmm, n).launches - before[n]
+                   for n in want}
+            simt = {n: getattr(moe_gmm, n).routes["simt"] - routes[n]["simt"]
+                    for n in routes}
+            check(got == want and simt == {n: want[n] for n in routes},
+                  f"{arch} train step ({label}): launches {got}, expected "
+                  f"{want}; CUDA-core backward launches {simt}")
+            grads = g if grads is None else grads
+    grad_sync_parity(torch, grads)
+
+
+def grad_sync_parity(torch, grads):
+    """One ``make_grad_sync(mesh, compress="int8ef")`` step on a (2, 2, 2)
+    stacked (pod, data, model) mesh, on the card and on the CPU: every leaf
+    of ``grads`` (float32 gradients of a card step) times (1 + 0.1·noise)
+    drawn with numpy per participant, the same float32 values on both
+    devices.  Every int8 payload and its scale (the values the cross-pod
+    hop sends) bit for bit equal, and each synced leaf too."""
+    from repro_torch.distributed.collectives import make_grad_sync
+    from repro_torch.launch.mesh import StackedMesh
+    from repro_torch.optim import compression as C
+    mesh = StackedMesh((2, 2, 2), ("pod", "data", "model"))
+    rng = np.random.default_rng(SEED + 18)
+    stacked = {}
+    for i, g in enumerate(grads):
+        base = g.detach().float().cpu()
+        noise = torch.from_numpy(rng.standard_normal(
+            (*mesh.sizes, *base.shape)).astype(np.float32))
+        stacked[f"leaf{i}"] = base * (1 + 0.1 * noise)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sent, orig = [], C.int8_payload
+
+        def spy(*a, **kw):
+            q, scale = orig(*a, **kw)
+            sent.append((q, scale))
+            return q, scale
+        C.int8_payload = spy
+        try:
+            synced = make_grad_sync(mesh, compress="int8ef")(
+                {k: t.to(dev) for k, t in stacked.items()})
+        finally:
+            C.int8_payload = orig
+        out[dev] = (sent, synced)
+    (sent_c, synced_c), (sent_h, synced_h) = out["cuda"], out["cpu"]
+    check(len(sent_c) == len(sent_h) == len(stacked),
+          f"grad_sync: {len(sent_c)} / {len(sent_h)} int8 payloads for "
+          f"{len(stacked)} leaves")
+    for (qc, sc), (qh, sh) in zip(sent_c, sent_h):
+        check(qc.device.type == "cuda" and qc.dtype == torch.int8
+              and torch.equal(qc.cpu(), qh) and torch.equal(sc.cpu(), sh),
+              "grad_sync: an int8 payload or its scale differs between "
+              "card and CPU")
+    same = all(torch.equal(synced_c[k].cpu(), synced_h[k])
+               for k in stacked)
+    check(same, "grad_sync: a synced leaf differs between card and CPU")
+    n_bytes = sum(q.numel() for q, _s in sent_c)
+    log(f"  grad_sync on a {mesh.sizes} (pod, data, model) stacked mesh, "
+        f"int8ef: {len(sent_c)} leaves, {n_bytes:,} int8 payload bytes and "
+        f"their scales bit for bit equal card vs CPU, synced leaves too")
+
+
+def train_step_parity(torch, cfg, params0, label, tkw, end_to_end=False,
+                      mesh=None):
     """One step of ``cfg`` from ``params0`` on a 4 x 32-token pipeline
     batch (with its context, for the vlm and whisper), card against CPU:
     the loss within 1e-4 relative; every gradient leaf within ``GRAD_TOL``
@@ -2152,7 +2548,9 @@ def train_step_parity(torch, cfg, params0, label, tkw, end_to_end=False):
     that difference logged.  End to end, the other families' parameters
     are ill-conditioned in AdamW's first step: its update ``g / (|g| +
     eps)`` at |g| near eps = 1e-8 turns a gradient's float32 rounding into
-    up to 2·lr (1.13e-4 on rwkv6's ``embed/head`` on an H100)."""
+    up to 2·lr (1.13e-4 on rwkv6's ``embed/head`` on an H100).  ``mesh``
+    goes to ``make_train_step`` on both devices.  Returns the card's
+    gradients."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data import SyntheticTokens, place_batch
     from repro_torch.train import make_train_step
@@ -2165,7 +2563,7 @@ def train_step_parity(torch, cfg, params0, label, tkw, end_to_end=False):
     res = {}
     for dev in ("cuda", "cpu"):
         model, opt, step = make_train_step(
-            cfg, TrainConfig(lr=1e-3, **tkw), dev)
+            cfg, TrainConfig(lr=1e-3, **tkw), dev, mesh=mesh)
         params = fresh[dev]()
         ps = [p.requires_grad_(True) for p in leaves(params)]
         loss, _met = model.train_loss(params, place_batch(batch, dev))
@@ -2226,6 +2624,7 @@ def train_step_parity(torch, cfg, params0, label, tkw, end_to_end=False):
         f"{len(card)} parameter and state leaves after the update within "
         f"{worst:.3g} cuda vs cpu on the same gradients, {e2e:.3g} end to "
         f"end{'' if end_to_end else ' (logged, not held)'}")
+    return g_c
 
 
 # ---------------------------------------------------------------------------
@@ -3950,13 +4349,16 @@ def profiled_step(torch, train_step, params, state, batch):
 
 
 def guard_refusals(torch, kernels):
-    """On the card, ``gmm`` and ``decode_attention`` (no backward ported:
-    MoE training waits for expert sharding, decode is not trained) and the
-    bare ``rglru_scan`` and ``wkv6`` (whose training entry points are the
-    autograd Functions) refuse an input that requires grad while grad is
-    enabled (their outputs would carry no gradient), and launch nothing;
-    the Functions, ``RGLRUScan`` and ``WKV6Train``, take the same inputs
-    and their backward launches the backward kernels."""
+    """On the card ``decode_attention`` (no backward ported: decode is not
+    trained) and the bare ``rglru_scan`` and ``wkv6`` (whose training entry
+    points are the autograd Functions) refuse an input that requires grad
+    while grad is enabled (their outputs would carry no gradient), and
+    launch nothing; the Functions, ``RGLRUScan`` and ``WKV6Train``, take
+    the same inputs and their backward launches the backward kernels; and
+    ``gmm``, which refused such an input before its backward was ported,
+    takes it through ``GroupedMatmul`` and launches ``gmm_dx`` and
+    ``gmm_dw`` in its backward."""
+    from repro_torch.kernels.moe_gmm import gmm_dw, gmm_dx
     from repro_torch.kernels.rglru_scan import RGLRUScan, rglru_scan_bwd
     from repro_torch.kernels.wkv6 import WKV6Train, wkv6_bwd
     def rn(*shape, grad=False):
@@ -3965,8 +4367,6 @@ def guard_refusals(torch, kernels):
     be = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
     lens = torch.ones(2, dtype=torch.int32, device="cuda")
     calls = {
-        "gmm": lambda: kernels["gmm"](rn(16, 32), rn(2, 32, 32, grad=True),
-                                      be, 8),
         "rglru_scan": lambda: kernels["rglru_scan"](rn(1, 8, 32, grad=True),
                                                     -rn(1, 8, 32).abs()),
         "wkv6": lambda: kernels["wkv6"](rn(1, 2, 8, 16, grad=True),
@@ -4003,8 +4403,21 @@ def guard_refusals(torch, kernels):
               and all(torch.isfinite(g).all() for g in grads),
               f"{fn.__self__.__name__} on grad-requiring CUDA inputs: "
               f"launches {before} -> {(fwd.launches, bwd.launches)}")
+    g = kernels["gmm"]
+    before = (g.launches, gmm_dx.launches, gmm_dw.launches)
+    xg, wg = rn(16, 32, grad=True), rn(2, 32, 32, grad=True)
+    y = g(xg, wg, be, 8)
+    grads = torch.autograd.grad(y.sum(), (xg, wg))
+    torch.cuda.synchronize()
+    after = (g.launches, gmm_dx.launches, gmm_dw.launches)
+    check(type(y.grad_fn).__name__ == "GroupedMatmulBackward"
+          and after == tuple(n + 1 for n in before)
+          and all(torch.isfinite(t).all() for t in grads),
+          f"gmm on grad-requiring CUDA inputs: launches (gmm, gmm_dx, "
+          f"gmm_dw) {before} -> {after}")
     log(f"  {', '.join(calls)}: each refuses a grad-requiring CUDA input; "
-        f"RGLRUScan and WKV6Train take it and run their backward kernels")
+        f"RGLRUScan and WKV6Train take it and run their backward kernels; "
+        f"gmm takes it through GroupedMatmul and runs gmm_dx and gmm_dw")
 
 
 def checkpoint_round_trip(torch):
@@ -4047,12 +4460,16 @@ def train_launches(cfg):
     cross; whisper's encoder layer once, its decoder layer twice) two flash
     forwards (the forward and its recompute) and one backward call; every
     RG-LRU layer two scans and one backward; every rwkv6 layer two WKVs
-    and one backward; nothing else.  Returns ({name: launches}, {name:
+    and one backward; every MoE layer six grouped matmuls (three products,
+    each recomputed), three ``gmm_dx`` and three ``gmm_dw``, on the tensor
+    cores in bf16 with widths multiples of 8; nothing else.  Returns ({name: launches}, {name:
     {route: launches}}): the flash backward's calls on the tensor cores at
     D <= 128 in bf16, else the CUDA cores; the RG-LRU's on 16-byte copies
     (its rows are 5,120 bytes); the WKV's forward on the float32
     sequential kernel."""
     from repro_torch.models.transformer import layer_kinds
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers)) \
+        if cfg.moe is not None else 0
     if cfg.family == "audio":
         attn, rec, rwkv = cfg.n_enc_layers + 2 * cfg.n_layers, 0, 0
     elif cfg.family == "ssm":
@@ -4065,19 +4482,24 @@ def train_launches(cfg):
         else "simt"
     launches = {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
                 "rglru_scan": 2 * rec, "rglru_scan_bwd": rec,
-                "wkv6": 2 * rwkv, "wkv6_bwd": rwkv}
+                "wkv6": 2 * rwkv, "wkv6_bwd": rwkv, "gmm": 6 * n_moe,
+                "gmm_dx": 3 * n_moe, "gmm_dw": 3 * n_moe}
+    gmm_route = "mma" if cfg.dtype == "bfloat16" and n_moe and \
+        cfg.d_model % 8 == 0 and cfg.moe.d_ff_expert % 8 == 0 else "simt"
     routes = {"flash_attention_bwd": {"mma": 0, "simt": 0} | {
         bwd_route: attn},
         "rglru_scan": {"vector": 2 * rec, "scalar": 0},
         "rglru_scan_bwd": {"vector": rec, "scalar": 0},
         "wkv6": {"chunked": 0, "simt": 2 * rwkv},
-        "wkv6_bwd": {"vector": rwkv, "scalar": 0}}
+        "wkv6_bwd": {"vector": rwkv, "scalar": 0},
+        "gmm_dx": {"mma": 0, "simt": 0} | {gmm_route: 3 * n_moe},
+        "gmm_dw": {"mma": 0, "simt": 0} | {gmm_route: 3 * n_moe}}
     return ({k: n for k, n in launches.items() if n},
             {k: r for k, r in routes.items() if sum(r.values())})
 
 
 def train_path(torch, kernels, arch, seq, steps, optimizer,
-               adam_dtype="float32"):
+               adam_dtype="float32", smoke=False):
     """``repro_torch.launch.train.run`` on ``arch`` at full width and
     depth: bf16, TRAIN_BATCH x ``seq`` tokens a step (with the pipeline's
     context for the vlm and whisper), ``remat="block"``, ``optimizer``,
@@ -4085,12 +4507,14 @@ def train_path(torch, kernels, arch, seq, steps, optimizer,
     finite and the last below the first; per step exactly the launches and
     routes of :func:`train_launches` and no other model kernel (no gmm, no
     decode attention); then one more step under ``torch.profiler``.
-    Returns the metrics and the launches."""
-    from repro_torch.configs import get_config
+    ``smoke`` takes the arch's smoke config (the MoE family, whose
+    published widths the launcher refuses for memory).  Returns the
+    metrics and the launches."""
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data import SyntheticTokens
     from repro_torch.launch import train as launcher
-    cfg = get_config(arch)
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
     tcfg = TrainConfig(remat="block", optimizer=optimizer,
                        adam_dtype=adam_dtype)
     pipe = RepeatedBatch(SyntheticTokens(cfg, TRAIN_BATCH, seq, SEED))
@@ -4133,7 +4557,8 @@ def train_path(torch, kernels, arch, seq, steps, optimizer,
                                         pipe.get_batch(0))
     log(f"  profiled step: {json.dumps(prof)}")
     metrics = dict(
-        arch=arch, n_layers=cfg.n_layers, dtype=cfg.dtype, params=n_params,
+        arch=arch, smoke=smoke, n_layers=cfg.n_layers, dtype=cfg.dtype,
+        params=n_params,
         batch=TRAIN_BATCH, seq=seq, steps=steps, remat=tcfg.remat,
         optimizer=tcfg.optimizer, adam_dtype=tcfg.adam_dtype, losses=losses,
         grad_norms=run["grad_norms"], first_step_ms=1e3 * step_s[0],
@@ -4151,29 +4576,177 @@ def train_path(torch, kernels, arch, seq, steps, optimizer,
 
 
 def phase_train(torch, kernels):
-    """The training paths: llama3.2-3b (TRAIN_STEPS steps of TRAIN_BATCH x
-    TRAIN_SEQ tokens, AdamW), then each of ``TRAIN_PATHS`` (FAMILY_STEPS
-    steps) through :func:`train_path`; then the guard of the bare kernels
-    and the Functions, and a checkpoint round trip.  Returns the metrics
-    and the launches by arch."""
+    """The training paths: the full-width MoE blocks first
+    (:func:`moe_block_full_width`, llama4-maverick and deepseek-v3: the
+    largest allocations, while the card holds least), then llama3.2-3b
+    (TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens, AdamW) and each
+    of ``TRAIN_PATHS`` (FAMILY_STEPS steps unless stated) through
+    :func:`train_path`; then the guard of the bare kernels and the
+    Functions, and a checkpoint round trip.  Returns the metrics and the
+    launches by path."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.moe_gmm import gmm_dw, gmm_dx
     from repro_torch.kernels.rglru_scan import rglru_scan_bwd
     from repro_torch.kernels.wkv6 import wkv6_bwd
     counted = dict(kernels, flash_attention_bwd=flash_attention_bwd,
-                   rglru_scan_bwd=rglru_scan_bwd, wkv6_bwd=wkv6_bwd)
+                   rglru_scan_bwd=rglru_scan_bwd, wkv6_bwd=wkv6_bwd,
+                   gmm_dx=gmm_dx, gmm_dw=gmm_dw)
     metrics, launches = {}, {}
+    for arch in (MOE_ARCH, DS_ARCH):
+        t7 = time.perf_counter()
+        label = f"{arch} block"
+        metrics[label], launches[label] = moe_block_full_width(
+            torch, counted, arch)
+        log(f"  {label} took {time.perf_counter() - t7:.1f} s")
     for path in [dict(arch=TRAIN_ARCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
                       optimizer="adamw")] + TRAIN_PATHS:
         path = dict(path)
         path.setdefault("steps", FAMILY_STEPS)
+        label = path["arch"] + (" smoke" if path.get("smoke") else "")
         t7 = time.perf_counter()
-        metrics[path["arch"]], launches[path["arch"]] = train_path(
-            torch, counted, **path)
-        log(f"  {path['arch']} training path took "
+        metrics[label], launches[label] = train_path(torch, counted, **path)
+        log(f"  {label} training path took "
             f"{time.perf_counter() - t7:.1f} s")
     guard_refusals(torch, kernels)
     checkpoint_round_trip(torch)
     return metrics, launches
+
+
+def moe_block_full_width(torch, kernels, arch):
+    """``moe_block_local`` forward and backward at ``arch``'s published
+    widths (one MoE block, bf16, weights drawn one expert at a time as
+    ``init_moe`` draws them, no optimizer) on TRAIN_BATCH x TRAIN_SEQ
+    tokens, the loss a fixed random projection of the output; the
+    router's column of expert 0 zeroed, so that its logit 0 never makes a
+    token's top-k against the others' random ones.  Every gradient
+    finite, expert 0's gradient in each expert leaf exactly zero, exactly
+    3 ``gmm``, 3 ``gmm_dx`` and 3 ``gmm_dw`` launches a block; ms (host
+    clock to a synchronize), peak memory and, from one profiled call, the
+    three kernels' shares of the block's device time.  At deepseek-v3's
+    widths (22.6 GB a set of expert gradients: room for a second) every
+    gradient against the same block with ``gmm``'s plain versions on the
+    card (:class:`PlainGmm`-style Function below), within ``GMM_TOL``'s
+    bf16 limit of the leaf's largest |element|.  Returns the metrics and
+    the launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.models import moe as M
+    from repro_torch.tree import flatten
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    params = M.init_moe(gen, cfg)
+    params["router"][:, 0] = 0.0
+    flat = flatten(params)
+    ps = [t.requires_grad_(True) for _path, t in flat]
+    B, S, d = TRAIN_BATCH, TRAIN_SEQ, cfg.d_model
+    x = torch.randn((B, S, d), generator=gen, device="cuda").to(
+        cfg.dtype_).requires_grad_(True)
+    proj = torch.randn((B, S, d), generator=gen, device="cuda")
+
+    def block():
+        out, _aux = M.moe_block_local(params, x, cfg)
+        return torch.autograd.grad((out.float() * proj).sum(), ps + [x])
+
+    before = {n: k.launches for n, k in kernels.items()}
+    t0 = time.perf_counter()
+    grads = block()
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    counts = {n: k.launches - before[n] for n, k in kernels.items()
+              if k.launches != before[n]}
+    check(counts == {"gmm": 3, "gmm_dx": 3, "gmm_dw": 3},
+          f"{arch} full-width MoE block: launches {counts}, expected 3 "
+          f"gmm, 3 gmm_dx, 3 gmm_dw")
+    check(all(np.isfinite(max_abs(g)) for g in grads),
+          f"{arch} full-width MoE block: a gradient is not finite")
+    zero = [not g[0].any() for (p, _t), g in zip(flat, grads)
+            if p.startswith("experts")]
+    check(len(zero) == 3 and all(zero),
+          f"{arch} full-width MoE block: expert 0 got no token, but its "
+          f"gradient is not zero in {zero}")
+    times = []
+    for _ in range(3):
+        del grads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads = block()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del grads
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        grads = block()
+        torch.cuda.synchronize()
+    by, total = {"gmm": 0.0, "gmm_dx": 0.0, "gmm_dw": 0.0}, 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        total += us
+        if "gmm_dw" in e.name:
+            by["gmm_dw"] += us
+        elif "gmm_mma_kernel" in e.name or "gmm_kernel" in e.name:
+            by["gmm_dx" if ", true>(" in e.name else "gmm"] += us
+    check(total > 0 and all(by.values()),
+          f"{arch} full-width MoE block: profiled device time {by} of "
+          f"{total} µs")
+    metrics = dict(arch=arch, d_model=d, n_experts=cfg.moe.n_experts,
+                   top_k=cfg.moe.top_k, d_ff_expert=cfg.moe.d_ff_expert,
+                   tokens=B * S, first_ms=first_ms, ms=times,
+                   ms_p50=float(np.percentile(times, 50)),
+                   peak_device_gib=peak, held_before_gib=held,
+                   device_ms=total / 1e3,
+                   kernel_device_ms={k: v / 1e3 for k, v in by.items()},
+                   kernel_share={k: v / max(total, 1e-9)
+                                 for k, v in by.items()},
+                   launches=counts)
+    if arch == DS_ARCH:
+
+        class Plain(torch.autograd.Function):
+            """``gmm`` with its plain forward and backward on the card."""
+
+            @staticmethod
+            def forward(ctx, x_, w, be, bt, rows):
+                ctx.save_for_backward(x_, w, be, rows)
+                ctx.bt = bt
+                return ref.gmm(x_, w, be, bt, rows)
+
+            @staticmethod
+            def backward(ctx, dy):
+                x_, w, be, rows = ctx.saved_tensors
+                return (ref.gmm(dy, w.transpose(1, 2), be, ctx.bt, rows),
+                        ref.gmm_dw(x_, dy, be, ctx.bt, rows, w.shape[0]),
+                        None, None, None)
+
+        orig = M.gmm
+        M.gmm = lambda x_, w, be, bt, rows=None: Plain.apply(x_, w, be, bt,
+                                                            rows)
+        try:
+            plain = block()
+        finally:
+            M.gmm = orig
+        worst = 0.0
+        for (path, _t), a, b in zip(flat + [("x", x)], grads, plain):
+            e = max_abs_diff(a, b) / max(max_abs(b), 1e-30)
+            check(e <= GMM_TOL["bfloat16"], f"{arch} full-width MoE block: "
+                  f"gradient {path} differs from the plain versions' by "
+                  f"{e} of its largest (limit {GMM_TOL['bfloat16']})")
+            worst = max(worst, e)
+        metrics["plain_grad_max_rel_err"] = worst
+        del plain
+    log(f"  {arch} full-width MoE block ({B} x {S} tokens, forward and "
+        f"backward): {json.dumps(metrics)}")
+    del grads, params, flat, ps, x, proj
+    gc.collect()
+    torch.cuda.empty_cache()
+    return metrics, counts
 
 
 # ---------------------------------------------------------------------------
@@ -4648,7 +5221,7 @@ def wkv6_ops(B, H, S, D):
             chunks * (3 * 136 * D + 2 * 16 * D))
 
 
-def recurrent_report(torch, kernels, errs, launches):
+def recurrent_report(torch, kernels, errs, launches, train):
     """Rows of the RG-LRU and WKV6 kernels at their serving paths' shapes in
     bf16: recurrentgemma-2b's scan over 4 prompts of 2304 tokens and 2560
     channels, rwkv6-7b's WKV over 4 prompts of 512 tokens and 64 heads of
@@ -4664,8 +5237,15 @@ def recurrent_report(torch, kernels, errs, launches):
     sequential form's 5·D² + 5·D operations per step and head (the
     read-out r·S, the update w·S + k·vᵀ, the bonus) at the float32 peak,
     the bound of the CUDA-core kernel.  Both rows also carry the device
-    operations a call (``torch.profiler``).  No PyTorch call computes
-    either recurrence, so there is no library yardstick."""
+    operations a call (``torch.profiler``).  WKV6's ``train_form`` entry
+    is the float32 training form (``WKV6Train``'s forward: the sequential
+    CUDA-core kernel) at rwkv6-7b's training shape (B TRAIN_BATCH, 64
+    heads of 64, S TRAIN_SEQ, (B, H, S, D) views of (B, S, H, D) memory),
+    with the training path's launches (``train``): its bound the larger of
+    its bytes (r, k, v, w and u read, y and the final state written, in
+    float32) and the sequential form's operations at the float32 peak.
+    No PyTorch call computes either recurrence, so there is no library
+    yardstick."""
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda").manual_seed(SEED + 8)
 
@@ -4702,6 +5282,23 @@ def recurrent_report(torch, kernels, errs, launches):
                 ops_ms=(tc / BF16_FLOPS + cc / F32_FLOPS) * 1e3,
                 nbytes=5 * 2 * r.numel() + 2 * u.numel() + 4 * B * H * D * D)
     seq_ms = B * H * S * (5 * D * D + 5 * D) / F32_FLOPS * 1e3
+    del r, k, v, w, u
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    r, k, v = (rn(B, S, H, D).transpose(1, 2) for _ in range(3))
+    w = torch.exp(-torch.exp(-4.0 + 0.5 * rn(B, S, H, D))).transpose(1, 2)
+    u = 0.1 * rn(H, D)
+    before = dict(wk.routes)
+    wk(r, k, v, w, u)
+    check(wk.routes["simt"] == before["simt"] + 1,
+          "the float32 WKV training form did not take the sequential "
+          "kernel")
+    m_tf = dict(ms=cuda_ms(lambda: wk(r, k, v, w, u), 5),
+                device_ms=device_ms(lambda: wk(r, k, v, w, u), 5),
+                ops=device_ops(torch, lambda: wk(r, k, v, w, u), 5),
+                plain_ms=cuda_ms(lambda: ref.wkv6(r, k, v, w, u), 1),
+                library_ms=None, flops=B * H * S * (5 * D * D + 5 * D),
+                nbytes=4 * (5 * r.numel() + u.numel() + B * H * D * D))
+    del r, k, v, w, u
     rows = []
     for name, m, arch, line in [
             ("rglru_scan", m_rg, "recurrentgemma-2b", 46),
@@ -4715,6 +5312,20 @@ def recurrent_report(torch, kernels, errs, launches):
                                          for n in m["ops"].values())
         extra = ""
         if name == "wkv6":
+            n_train = train["rwkv6-7b"]["wkv6"]
+            tf = row["train_form"] = timing_row(m_tf, n_train, errs[name],
+                                                F32_FLOPS)
+            tf["device_ops_per_call"] = sum(max(1, round(n / 5))
+                                            for n in m_tf["ops"].values())
+            log(f"  wkv6 train_form (float32, sequential kernel, B "
+                f"{TRAIN_BATCH} H 64 S {TRAIN_SEQ} D 64): "
+                f"{m_tf['ms']:.4f} ms/call (device {m_tf['device_ms']:.4f}, "
+                f"{tf['device_ops_per_call']} device ops a call), bound "
+                f"{tf['bound_ms']:.4f} ms ({tf['bound_by']}; "
+                f"{m_tf['flops'] / 1e9:.2f} GFLOP, "
+                f"{m_tf['nbytes'] / 1e9:.3f} GB), plain "
+                f"{m_tf['plain_ms']:.4f} ms, launches {n_train} on the "
+                f"rwkv6-7b training path")
             row["bound_sequential_ms"] = seq_ms
             extra = (f"; sequential form {seq_ms:.4f} ms (operations); "
                      f"chunked {tc / 1e9:.2f} GFLOP on tensor cores, "
@@ -4911,6 +5522,103 @@ def gmm_report(torch, kernels, err, launches, a2a):
     return [row]
 
 
+def gmm_bwd_report(torch, errs, launches):
+    """Row 9b, the grouped matmul's backward: ``gmm_dx`` and ``gmm_dw`` at
+    llama4-maverick's gate/up product at phase 7's batch (128 experts of
+    5120 x 8192, 80 slots each, the counts of a top-1 dispatch of
+    TRAIN_BATCH x TRAIN_SEQ tokens on experts drawn uniformly; x and dy
+    zero past the counts, as the block leaves them), each with a
+    ``deepseek`` entry at deepseek-v3's (256 of 7168 x 2048, 320 slots,
+    top-8), in bf16 (the tensor-core route).  Bound: bytes (dx: the live
+    experts' weights, the counted dy rows, every dx row written, the index
+    vectors; dw: the counted x and dy rows, every expert's gradient
+    written) against operations (2 · counted rows · Din · Dout at the bf16
+    tensor-core peak), the larger.  The library yardstick is one
+    ``torch.bmm`` over the (E, C, ·) slots, every slot and expert read:
+    dy by wᵀ for dx, xᵀ by dy for dw; the port never calls it.
+    ``launches`` is the kernel's count on the MoE smoke training path;
+    ``launches_paths`` every training path's and the full-width blocks';
+    ``max_abs_err`` phase 2b's largest."""
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    m = {"gmm_dx": {}, "gmm_dw": {}}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for tag, E, D, F, C, k in (
+            ("llama4", MOE_E, MOE_D, MOE_F, MOE_C_TRAIN, 1),
+            ("deepseek", DS_E, DS_D, DS_F, DS_C_TRAIN, DS_K)):
+        w = torch.randn((E, D, F), generator=g, device="cuda",
+                        dtype=torch.bfloat16).mul_(D ** -0.5)
+        wt = w.transpose(1, 2)
+        be = torch.arange(E, dtype=torch.int32, device="cuda")
+        counts = dispatch_counts(torch, g, E, C, tokens, k, edges=False)
+        T = E * C
+        live = (torch.arange(C, device="cuda")[None, :]
+                < counts[:, None]).reshape(-1, 1)
+        x = torch.randn((T, D), generator=g, device="cuda",
+                        dtype=torch.bfloat16).mul_(live)
+        dy = torch.randn((T, F), generator=g, device="cuda",
+                         dtype=torch.bfloat16).mul_(live)
+        xe, dye = x.view(E, C, D), dy.view(E, C, F)
+        rows, experts = int(counts.sum()), int((counts > 0).sum())
+
+        def dx():
+            return moe_gmm.gmm_dx(dy, w, be, C, counts)
+
+        def dw():
+            return moe_gmm.gmm_dw(x, dy, be, C, counts, E)
+        m["gmm_dx"][tag] = dict(
+            ms=cuda_ms(dx, 10), device_ms=device_ms(dx, 10),
+            ops=device_ops(torch, dx, 5),
+            plain_ms=cuda_ms(lambda: ref.gmm(dy, wt, be, C, counts), 1),
+            library_ms=cuda_ms(lambda: torch.bmm(dye, wt), 10),
+            flops=2 * rows * D * F,
+            nbytes=2 * (experts * D * F + rows * F + T * D) + 8 * E,
+            experts=experts, rows=rows)
+        m["gmm_dw"][tag] = dict(
+            ms=cuda_ms(dw, 10), device_ms=device_ms(dw, 10),
+            ops=device_ops(torch, dw, 5),
+            plain_ms=cuda_ms(lambda: ref.gmm_dw(x, dy, be, C, counts, E), 1),
+            library_ms=cuda_ms(lambda: torch.bmm(xe.transpose(1, 2), dye),
+                               10),
+            flops=2 * rows * D * F,
+            nbytes=2 * (rows * (D + F) + E * D * F) + 8 * E,
+            experts=experts, rows=rows)
+        del w, wt, x, dy, xe, dye
+        gc.collect()
+        torch.cuda.empty_cache()
+    main = f"{MOE_ARCH} smoke"
+    rows_out = []
+    for name, source in (("gmm_dx", "moe_gmm.cu"),
+                         ("gmm_dw", "moe_gmm_dw.cu")):
+        mm = m[name]
+        row = dict(name=name, route="cuda",
+                   source=f"src/repro_torch/kernels/csrc/{source}",
+                   replaces="src/repro/models/moe.py:95")
+        row.update(timing_row(mm["llama4"], launches[main][name],
+                              errs[name], BF16_FLOPS))
+        row["deepseek"] = timing_row(mm["deepseek"], launches[main][name],
+                                     errs[name], BF16_FLOPS)
+        for r, t in ((row, mm["llama4"]), (row["deepseek"], mm["deepseek"])):
+            r["device_ops_per_call"] = sum(max(1, round(n / 5))
+                                           for n in t["ops"].values())
+        row["launches_paths"] = {f"{path} train": n[name]
+                                 for path, n in launches.items()
+                                 if name in n}
+        rows_out.append(row)
+        for tag, r in (("llama4", row), ("deepseek", row["deepseek"])):
+            t = mm[tag]
+            log(f"  {name} {tag}: {t['ms']:.4f} ms/call (device "
+                f"{t['device_ms']:.4f}, {r['device_ops_per_call']} device "
+                f"ops a call), bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}; {t['experts']} experts, {t['rows']} "
+                f"rows, {t['flops'] / 1e12:.3f} TFLOP, "
+                f"{t['nbytes'] / 1e9:.3f} GB), plain {t['plain_ms']:.4f} "
+                f"ms, bmm {t['library_ms']:.4f} ms, launches "
+                f"{row['launches_paths']}")
+    return rows_out
+
+
 def copy_report(torch, rdma, cases, errs, launches):
     """remote_copy's row: at the failover phase's hop (P = 8, a 20,480-word
     entry packed with its metadata into 20,488 words), with a ``serving``
@@ -4988,7 +5696,7 @@ def main() -> int:
         log("phase 1: build")
         _nvcc.build("remote_dma", "flash_attention", "flash_attention_bwd",
                     "decode_attention", "rglru_scan", "wkv6", "wkv6_bwd",
-                    "moe_gmm", "remote_copy")
+                    "moe_gmm", "moe_gmm_dw", "remote_copy")
         for name, out in _nvcc.BUILD_LOGS.items():
             log(f"  nvcc {name}.cu:\n" + "\n".join(
                 "    " + ln for ln in out.strip().splitlines()))
@@ -5003,16 +5711,7 @@ def main() -> int:
               f"the tensor-core flash kernels spill: {usage}")
         log("  -Xptxas -v, tensor-core flash kernels [registers, spill "
             f"stores, spill loads]: {usage}")
-        hmma = sass_mma_count(_nvcc, "moe_gmm", "gmm_mma")
-        check(len(hmma) == 3 and all(n > 0 for n in hmma.values()),
-              f"the bf16 gmm kernels lack tensor-core HMMA: {hmma}")
-        log(f"  cuobjdump -sass, HMMA per tensor-core gmm kernel: {hmma}")
-        usage = ptxas_usage(_nvcc, "moe_gmm", "gmm_mma")
-        check(len(usage) == 3 and all(u[0] and not u[1] and not u[2]
-                                      for u in usage.values()),
-              f"the tensor-core gmm kernels spill: {usage}")
-        log("  -Xptxas -v, tensor-core gmm kernels [registers, spill stores, "
-            f"spill loads]: {usage}")
+        check_gmm_build(_nvcc)
         usage = ptxas_usage(_nvcc, "rglru_scan", "rglru_")
         check(len(usage) == 12 and all(u[0] and not u[1]
                                        for u in usage.values()),
@@ -5048,6 +5747,9 @@ def main() -> int:
         gmm_err = phase_gmm_kernel(torch, model_kernels)
         log("phase 2b: flash attention's backward against its plain version")
         bwd_errs = phase_flash_bwd_kernel(torch)
+        log("phase 2b: the grouped matmul's backward against its plain "
+            "versions")
+        gmm_bwd_errs = phase_gmm_bwd_kernels(torch)
         log("phase 2c: the recurrences' backward against their plain "
             "versions")
         rec_bwd_errs = phase_recurrent_bwd_kernels(torch)
@@ -5124,10 +5826,11 @@ def main() -> int:
             if "flash_attention_bwd" in n})
         kernels += recurrent_bwd_report(torch, rec_bwd_errs, train_launches)
         kernels += recurrent_report(torch, model_kernels, rec_errs,
-                                    serve_launches)
+                                    serve_launches, train_launches)
         kernels += gmm_report(torch, model_kernels, gmm_err, serve_launches,
                               {arch: serve_metrics[arch]["a2a"]["gmm_timing"]
                                for arch in (MOE_ARCH, DS_ARCH)})
+        kernels += gmm_bwd_report(torch, gmm_bwd_errs, train_launches)
         kernels += copy_report(torch, rdma, copy_cases_, copy_errs, {
             "failover": fo_launches["remote_copy"],
             "serving": serve_launches[path_label(SERVE_PATHS[1])][

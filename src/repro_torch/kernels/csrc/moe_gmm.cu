@@ -60,6 +60,22 @@
 // rows ty*4 .. ty*4+3 and columns tx*8 .. tx*8+7 into 32 float registers;
 // warps whose rows all lie past the count skip the arithmetic.
 //
+// The transposed instance (kTrans, entries gmm_dx / gmm_dx_mma) is the
+// input gradient of the same function, dx = dy @ w[e]^T, for the autograd
+// Function GroupedMatmul: the kernels above with the weight tile read
+// along the other dimension, w[e] (N, K) row-major in memory for the
+// product's depth K and width N, so that the forward's w (E, Din, Dout)
+// serves as it is (no transposed copy: 10.7 GB a leaf at llama4-maverick's
+// widths).  The tensor-core kernel stages the tile n-major, k contiguous
+// (16-byte cp.async copies along k, rows padded by 16 bytes), and its B
+// fragments come from ldmatrix without .trans; the CUDA-core kernel reads
+// the tile coalesced along k and stores it k-major into a padded shared
+// tile (4-way bank conflicts instead of 32-way).  Rows past a count, the
+// ring, the m16 skipping and the epilogue are the forward's.  Bound: as
+// the forward's, the live experts' weights once; a block of more rows
+// than one chunk reads its expert's weights once a chunk (64 rows on the
+// tensor cores).
+//
 // block_expert values are clamped to [0, E) so that no read leaves w.  Each
 // C entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -131,11 +147,21 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p,
 
 // w[k0 : k0+kBK, n0 : n0+kBN] of one expert into ws, zeros past the edges.
 // kVec: Dout is a multiple of the 16-byte vector and w is 16-byte aligned,
-// so a vector lies wholly inside or wholly outside the matrix.
-template <typename T, bool kVec>
-__device__ __forceinline__ void load_w_tile(T (*ws)[kBN], const T* w, int k0,
+// so a vector lies wholly inside or wholly outside the matrix.  kTrans: the
+// expert's matrix is (Dout, Din) row-major in memory (element (k, n) at
+// n * Din + k), read along k so that a warp's loads are contiguous.
+template <typename T, bool kVec, bool kTrans, int kS>
+__device__ __forceinline__ void load_w_tile(T (*ws)[kS], const T* w, int k0,
                                             int n0, int Din, int Dout) {
-  if constexpr (kVec) {
+  if constexpr (kTrans) {
+    for (int v = threadIdx.x; v < kBK * kBN; v += kThreads) {
+      const int r = v % kBK, c = v / kBK;
+      const int k = k0 + r, n = n0 + c;
+      ws[r][c] = (k < Din && n < Dout)
+                     ? w[static_cast<long long>(n) * Din + k]
+                     : T(0.f);
+    }
+  } else if constexpr (kVec) {
     constexpr int kV = 16 / sizeof(T);        // elements per vector
     constexpr int kPerRow = kBN / kV;
     for (int v = threadIdx.x; v < kBK * kPerRow; v += kThreads) {
@@ -158,13 +184,16 @@ __device__ __forceinline__ void load_w_tile(T (*ws)[kBN], const T* w, int k0,
   }
 }
 
-template <typename T, bool kVec>
+// kTrans pads the weight tile's rows by 16 bytes (its stores run down
+// columns); the row stride stays a multiple of 16 bytes for load8
+template <typename T, bool kVec, bool kTrans>
 __global__ void __launch_bounds__(kThreads)
     gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
                const int* __restrict__ block_expert,
                const int* __restrict__ block_rows, T* __restrict__ out,
                int E, int Din, int Dout, int block_t) {
-  __shared__ __align__(16) T ws[kBK][kBN];
+  constexpr int kS = kBN + (kTrans ? 16 / static_cast<int>(sizeof(T)) : 0);
+  __shared__ __align__(16) T ws[kBK][kS];
   __shared__ float xs[kMR][kBK];
 
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
@@ -188,7 +217,7 @@ __global__ void __launch_bounds__(kThreads)
 
     // a chunk wholly past the count reads no weights (block-uniform)
     for (int k0 = 0; lrows > 0 && k0 < Din; k0 += kBK) {
-      load_w_tile<T, kVec>(ws, we, k0, n0, Din, Dout);
+      load_w_tile<T, kVec, kTrans, kS>(ws, we, k0, n0, Din, Dout);
       for (int v = threadIdx.x; v < kMR * kBK; v += kThreads) {
         const int r = v / kBK, k = v % kBK;
         xs[r][k] = (r < lrows && k0 + k < Din)
@@ -233,23 +262,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+// Din and Dout are the product's depth and width (kTrans: w[e] is (Dout,
+// Din) in memory)
+template <typename T, bool kTrans>
 int launch(const void* x, const void* w, const int* block_expert,
            const int* block_rows, void* out, int T_rows, int E, int Din,
            int Dout, int block_t, cudaStream_t s) {
   const dim3 grid(T_rows / block_t, (Dout + kBN - 1) / kBN);
   const bool vec =
       Dout % (16 / static_cast<int>(sizeof(T))) == 0 &&
-      reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+      (kTrans || reinterpret_cast<uintptr_t>(w) % 16 == 0) &&
       reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   T* ot = static_cast<T*>(out);
   if (vec)
-    gmm_kernel<T, true><<<grid, kThreads, 0, s>>>(
+    gmm_kernel<T, true, kTrans><<<grid, kThreads, 0, s>>>(
         xt, wt, block_expert, block_rows, ot, E, Din, Dout, block_t);
   else
-    gmm_kernel<T, false><<<grid, kThreads, 0, s>>>(
+    gmm_kernel<T, false, kTrans><<<grid, kThreads, 0, s>>>(
         xt, wt, block_expert, block_rows, ot, E, Din, Dout, block_t);
   return static_cast<int>(cudaGetLastError());
 }
@@ -267,14 +298,19 @@ constexpr int kStages = 4;         // cp.async ring depth
 constexpr int kWS = kMmaBN + 8;    // shared row strides in bf16: 16 bytes of
 constexpr int kXS = kMmaBK + 8;    // padding, so ldmatrix is conflict-free
 
-// one ring stage: the kMmaBK x kMmaBN weight tile, then kMT*16 rows of x
-template <int kMT>
-__host__ __device__ constexpr int stage_elems() {
-  return kMmaBK * kWS + kMT * 16 * kXS;
+// one ring stage: the weight tile (kMmaBK x kMmaBN k-major; kTrans:
+// kMmaBN x kMmaBK n-major, rows kXS apart), then kMT*16 rows of x
+template <bool kTrans>
+__host__ __device__ constexpr int w_tile_elems() {
+  return kTrans ? kMmaBN * kXS : kMmaBK * kWS;
 }
-template <int kMT>
+template <int kMT, bool kTrans>
+__host__ __device__ constexpr int stage_elems() {
+  return w_tile_elems<kTrans>() + kMT * 16 * kXS;
+}
+template <int kMT, bool kTrans>
 constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) * kStages * stage_elems<kMT>();
+  return sizeof(bf16) * kStages * stage_elems<kMT, kTrans>();
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -323,14 +359,14 @@ __device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
 
 // grid: one CTA per (block, 128 output columns), the columns of a block
 // adjacent in launch order
-template <int kMT>
+template <int kMT, bool kTrans>
 __global__ void __launch_bounds__(kMmaThreads)
     gmm_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                    const int* __restrict__ block_expert,
                    const int* __restrict__ block_rows, bf16* __restrict__ out,
                    int E, int Din, int Dout, int block_t, int n_col_tiles) {
   constexpr int kRows = kMT * 16;  // rows per chunk
-  constexpr int kStage = stage_elems<kMT>();
+  constexpr int kStage = stage_elems<kMT, kTrans>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
 
@@ -364,17 +400,27 @@ __global__ void __launch_bounds__(kMmaThreads)
     // weight tile k-step kt and the chunk's x slice into ring stage s
     auto stage = [&](int kt, int s) {
       bf16* ws = smem + s * kStage;
-      bf16* xs = ws + kMmaBK * kWS;
+      bf16* xs = ws + w_tile_elems<kTrans>();
       const int k0 = kt * kMmaBK;
 #pragma unroll
       for (int it = 0; it < kMmaBK * (kMmaBN / 8) / kMmaThreads; ++it) {
         const int i = tid + it * kMmaThreads;
-        const int r = i / (kMmaBN / 8), c = (i % (kMmaBN / 8)) * 8;
-        const bool ok = k0 + r < Din && n0 + c < Dout;
-        cp_async16(ws + r * kWS + c,
-                   ok ? we + static_cast<long long>(k0 + r) * Dout + n0 + c
-                      : we,
-                   ok);
+        if constexpr (kTrans) {        // row n of the tile: k0 .. k0+63
+          const int r = i / (kMmaBK / 8), c = (i % (kMmaBK / 8)) * 8;
+          const bool ok = n0 + r < Dout && k0 + c < Din;
+          cp_async16(ws + r * kXS + c,
+                     ok ? we + static_cast<long long>(n0 + r) * Din + k0 + c
+                        : we,
+                     ok);
+        } else {
+          const int r = i / (kMmaBN / 8), c = (i % (kMmaBN / 8)) * 8;
+          const bool ok = k0 + r < Din && n0 + c < Dout;
+          cp_async16(ws + r * kWS + c,
+                     ok ? we + static_cast<long long>(k0 + r) * Dout + n0 +
+                              c
+                        : we,
+                     ok);
+        }
       }
 #pragma unroll
       for (int it = 0; it < kRows * (kMmaBK / 8) / kMmaThreads; ++it) {
@@ -407,7 +453,7 @@ __global__ void __launch_bounds__(kMmaThreads)
         stage(kt + kStages - 1, (kt + kStages - 1) % kStages);
       cp_async_commit();
       const bf16* ws = smem + (kt % kStages) * kStage;
-      const bf16* xs = ws + kMmaBK * kWS;
+      const bf16* xs = ws + w_tile_elems<kTrans>();
 #pragma unroll
       for (int kk = 0; kk < kMmaBK / 16; ++kk) {
         unsigned a[kMT][4];
@@ -419,9 +465,14 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
         for (int dn = 0; dn < 2; ++dn) {  // column tiles 2*dn, 2*dn + 1
           unsigned b[4];
-          ldsm_x4_trans(b, ws + (kk * 16 + (lane & 7) +
-                                 ((lane >> 3) & 1) * 8) * kWS +
-                               warp * 32 + dn * 16 + (lane >> 4) * 8);
+          if constexpr (kTrans)          // n-major: fragments as stored
+            ldsm_x4(b, ws + (warp * 32 + dn * 16 + (lane & 7) +
+                             (lane >> 4) * 8) * kXS +
+                           kk * 16 + ((lane >> 3) & 1) * 8);
+          else
+            ldsm_x4_trans(b, ws + (kk * 16 + (lane & 7) +
+                                   ((lane >> 3) & 1) * 8) * kWS +
+                                 warp * 32 + dn * 16 + (lane >> 4) * 8);
 #pragma unroll
           for (int m = 0; m < kMT; ++m)
             if (m < mt_live) {
@@ -461,15 +512,16 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-template <int kMT>
+template <int kMT, bool kTrans>
 int launch_mma(const void* x, const void* w, const int* block_expert,
                const int* block_rows, void* out, int T_rows, int E, int Din,
                int Dout, int block_t, cudaStream_t s) {
-  constexpr size_t kSmem = mma_smem_bytes<kMT>();
+  constexpr size_t kSmem = mma_smem_bytes<kMT, kTrans>();
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gmm_mma_kernel<kMT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gmm_mma_kernel<kMT, kTrans>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
@@ -477,11 +529,55 @@ int launch_mma(const void* x, const void* w, const int* block_expert,
   const int n_col = (Dout + kMmaBN - 1) / kMmaBN;
   const long long ctas = static_cast<long long>(T_rows / block_t) * n_col;
   if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  gmm_mma_kernel<kMT><<<static_cast<unsigned>(ctas), kMmaThreads, kSmem,
-                        s>>>(
+  gmm_mma_kernel<kMT, kTrans><<<static_cast<unsigned>(ctas), kMmaThreads,
+                                kSmem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), block_expert,
       block_rows, static_cast<bf16*>(out), E, Din, Dout, block_t, n_col);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the checks and dispatch of the C entries below; Din and Dout are the
+// product's depth and width
+template <bool kTrans>
+int gmm_simt(int dtype, const void* x, const void* w, const int* block_expert,
+             const int* block_rows, void* out, int T, int E, int Din,
+             int Dout, int block_t, void* stream) {
+  if (T < 0 || E < 1 || Din < 0 || Dout < 0 || block_t < 1 || T % block_t)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((Dout + kBN - 1) / kBN > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (T == 0 || Dout == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, kTrans>(x, w, block_expert, block_rows, out, T, E,
+                                 Din, Dout, block_t, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, kTrans>(x, w, block_expert, block_rows, out,
+                                         T, E, Din, Dout, block_t, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool kTrans>
+int gmm_mma(const void* x, const void* w, const int* block_expert,
+            const int* block_rows, void* out, int T, int E, int Din, int Dout,
+            int block_t, void* stream) {
+  if (T < 0 || E < 1 || Din < 0 || Dout < 0 || block_t < 1 ||
+      T % block_t || Din % 8 || Dout % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (T == 0 || Dout == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (block_t <= 16)
+    return launch_mma<1, kTrans>(x, w, block_expert, block_rows, out, T, E,
+                                 Din, Dout, block_t, s);
+  if (block_t <= 32)
+    return launch_mma<2, kTrans>(x, w, block_expert, block_rows, out, T, E,
+                                 Din, Dout, block_t, s);
+  return launch_mma<4, kTrans>(x, w, block_expert, block_rows, out, T, E,
+                               Din, Dout, block_t, s);
 }
 
 }  // namespace
@@ -499,19 +595,8 @@ const char* gmm_error_string(int code) {
 int gmm_fwd(int dtype, const void* x, const void* w, const int* block_expert,
             const int* block_rows, void* out, int T, int E, int Din,
             int Dout, int block_t, void* stream) {
-  if (T < 0 || E < 1 || Din < 0 || Dout < 0 || block_t < 1 || T % block_t)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if ((Dout + kBN - 1) / kBN > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (T == 0 || Dout == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, w, block_expert, block_rows, out, T, E, Din,
-                         Dout, block_t, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, block_expert, block_rows, out, T, E,
-                                 Din, Dout, block_t, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return gmm_simt<false>(dtype, x, w, block_expert, block_rows, out, T, E,
+                         Din, Dout, block_t, stream);
 }
 
 // The tensor-core kernel: bfloat16 x, w and out, Din % 8 == 0,
@@ -520,23 +605,27 @@ int gmm_fwd(int dtype, const void* x, const void* w, const int* block_expert,
 int gmm_fwd_mma(const void* x, const void* w, const int* block_expert,
                 const int* block_rows, void* out, int T, int E, int Din,
                 int Dout, int block_t, void* stream) {
-  if (T < 0 || E < 1 || Din < 0 || Dout < 0 || block_t < 1 ||
-      T % block_t || Din % 8 || Dout % 8)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(w) % 16 ||
-      reinterpret_cast<uintptr_t>(out) % 16)
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  if (T == 0 || Dout == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (block_t <= 16)
-    return launch_mma<1>(x, w, block_expert, block_rows, out, T, E, Din,
-                         Dout, block_t, s);
-  if (block_t <= 32)
-    return launch_mma<2>(x, w, block_expert, block_rows, out, T, E, Din,
-                         Dout, block_t, s);
-  return launch_mma<4>(x, w, block_expert, block_rows, out, T, E, Din, Dout,
-                       block_t, s);
+  return gmm_mma<false>(x, w, block_expert, block_rows, out, T, E, Din, Dout,
+                        block_t, stream);
+}
+
+// The input gradient on the CUDA cores: dx (T, Din) = block i of dy (T,
+// Dout) times w[block_expert[i]]^T, w (E, Din, Dout) as the forward takes
+// it, rows past block_rows zero; the arguments are gmm_fwd's, with dy in
+// x's place and dx in out's.
+int gmm_dx(int dtype, const void* dy, const void* w, const int* block_expert,
+           const int* block_rows, void* dx, int T, int E, int Din, int Dout,
+           int block_t, void* stream) {
+  return gmm_simt<true>(dtype, dy, w, block_expert, block_rows, dx, T, E,
+                        Dout, Din, block_t, stream);
+}
+
+// The input gradient on the tensor cores (gmm_fwd_mma's conditions).
+int gmm_dx_mma(const void* dy, const void* w, const int* block_expert,
+               const int* block_rows, void* dx, int T, int E, int Din,
+               int Dout, int block_t, void* stream) {
+  return gmm_mma<true>(dy, w, block_expert, block_rows, dx, T, E, Dout, Din,
+                       block_t, stream);
 }
 
 }  // extern "C"

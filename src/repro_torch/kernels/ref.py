@@ -670,3 +670,31 @@ def gmm(x, w, block_expert, block_t, block_rows=None):
         if rows.stop > rows.start:
             out[rows] = (x[rows].float() @ w[e].float()).to(x.dtype)
     return out
+
+
+def gmm_dw(x, dy, block_expert, block_t, block_rows, E):
+    """The weight gradient of :func:`gmm`: (E, Din, Dout) in x's dtype,
+    whose row e is the sum over every block i on expert e
+    (``block_expert[i] == e``), in block order, of ``x_iᵀ @ dy_i`` over
+    the block's counted rows (``block_rows`` as in :func:`gmm`), in
+    float32 and cast once.  An expert that no block names, or whose blocks
+    hold no counted row, is zero.  One float32 product per block and one
+    expert's float32 sum at a time: a float32 (E, Din, Dout) sum would take
+    15 GB at deepseek-v3's widths."""
+    out = torch.zeros((E, x.shape[1], dy.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    nb = x.shape[0] // block_t
+    counts = [block_t] * nb if block_rows is None else block_rows.tolist()
+    blocks = {}
+    for i, (e, n) in enumerate(zip(block_expert.tolist(), counts)):
+        n = min(max(n, 0), block_t)
+        if n:
+            blocks.setdefault(e, []).append(slice(i * block_t,
+                                                  i * block_t + n))
+    for e, rows in blocks.items():
+        acc = torch.zeros(out.shape[1:], dtype=torch.float32,
+                          device=x.device)
+        for r in rows:
+            acc += x[r].float().T @ dy[r].float()
+        out[e] = acc.to(x.dtype)
+    return out

@@ -13,16 +13,19 @@ checkpoints, on one device.
 ``--device`` defaults to the card.  The weights are random, drawn on the
 device from a generator seeded with ``TrainConfig.seed``; a run with
 ``--ckpt-dir`` resumes from its latest checkpoint and saves at the end.
-The card trains the dense family (llama3.2-3b, qwen3-8b, gemma-2b,
-internlm2-20b), the hybrid (recurrentgemma-2b: the RG-LRU's hand-written
-backward), the ssm (rwkv6-7b: the WKV's training form and its
-hand-written backward), the vlm (llama-3.2-vision-11b) and whisper
-(whisper-large-v3), both on flash attention's backward.  The MoE family
-(llama4-maverick, deepseek-v3) trains with ``--device cpu``: at its
-published widths no MoE configuration's weights and gradients fit one
-card, so its training on the card waits for experts sharded over cards
-(ROADMAP item 12), with the grouped matmul's backward.  A vlm or whisper
-batch carries the pipeline's synthesized ``context`` beside its tokens.
+Every family trains on the card: the dense one, the hybrid
+(recurrentgemma-2b: the RG-LRU's hand-written backward), the ssm
+(rwkv6-7b: the WKV's training form and its hand-written backward), the
+vlm (llama-3.2-vision-11b) and whisper (whisper-large-v3), both on flash
+attention's backward, and the MoE family (llama4-maverick, deepseek-v3)
+through the grouped matmul's hand-written backward (``GroupedMatmul``).
+Before it allocates anything, :func:`run` reckons what a step must hold on
+the card (:func:`memory_reckoning`) and refuses a configuration that does
+not fit: the MoE family's published widths, at any depth that holds an
+MoE layer (one of llama4's expert leaves is 10.7 GB in bf16), wait for
+experts sharded over cards (ROADMAP item 12); their smoke configurations
+train.  A vlm or whisper batch carries the pipeline's synthesized
+``context`` beside its tokens.
 """
 from __future__ import annotations
 
@@ -37,8 +40,63 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.configs.base import ArchConfig, TrainConfig
 from repro_torch.core.runtime import resolve_device
 from repro_torch.data import FileTokens, SyntheticTokens
+from repro_torch.models import build_model
+from repro_torch.models.model import param_stacks
+from repro_torch.optim import make_optimizer
 from repro_torch.train import make_train_step
 from repro_torch.tree import leaves
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the meta device: the initialisers
+    place their tensors on ``gen.device``, so ``model.init`` with it builds
+    every leaf's shape and dtype and allocates nothing."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def memory_reckoning(cfg: ArchConfig, tcfg: TrainConfig) -> dict:
+    """Bytes a training step of ``cfg`` must hold on one device, reckoned
+    from the configuration on the meta device: the parameters and their
+    gradients in the parameters' dtypes, the optimizer's state in its
+    dtypes, and one float32 copy of the largest leaf (the optimizer's
+    per-leaf arithmetic runs in float32).  Activations are not counted, so
+    the total is a floor."""
+    params = build_model(cfg).init(_MetaGenerator())
+    state = make_optimizer(tcfg, param_stacks(cfg)).init(params)
+    ps = leaves(params)
+    out = {"params": sum(p.numel() * p.element_size() for p in ps),
+           "optimizer_state": sum(t.numel() * t.element_size()
+                                  for t in leaves(state)),
+           "largest_leaf_float32": 4 * max(p.numel() for p in ps)}
+    out["grads"] = out["params"]
+    out["total"] = sum(out.values())
+    return out
+
+
+def device_memory(dev) -> int:
+    """The card's total memory in bytes."""
+    return torch.cuda.get_device_properties(dev).total_memory
+
+
+def check_fits(cfg: ArchConfig, tcfg: TrainConfig, dev) -> None:
+    """Raise ``RuntimeError`` on the card when :func:`memory_reckoning`'s
+    floor exceeds the card's memory, naming the bytes; on the CPU nothing
+    is checked."""
+    if dev.type != "cuda":
+        return
+    need, have = memory_reckoning(cfg, tcfg), device_memory(dev)
+    if need["total"] > have:
+        parts = ", ".join(f"{k} {v / 1e9:.1f} GB" for k, v in need.items()
+                          if k != "total")
+        raise RuntimeError(
+            f"{cfg.name}: a training step needs at least "
+            f"{need['total'] / 1e9:.1f} GB on the card ({parts}), more than "
+            f"its {have / 1e9:.1f} GB; it waits for experts and parameters "
+            f"sharded over cards (ROADMAP item 12).  Train a smoke config "
+            f"or fewer layers, or with --device cpu")
 
 
 def run(cfg: ArchConfig, tcfg: TrainConfig, pipe, *, steps: int,
@@ -50,13 +108,7 @@ def run(cfg: ArchConfig, tcfg: TrainConfig, pipe, *, steps: int,
     ``train_step``, and each step's ``losses``, ``grad_norms`` and wall
     time ``step_s`` (to the loss's read, which waits for the device)."""
     dev = resolve_device(device)
-    if dev.type == "cuda" and cfg.moe is not None:
-        raise RuntimeError(
-            f"{cfg.name}: the MoE family does not train on the card yet; "
-            f"it waits for experts sharded over cards (ROADMAP item 12) and "
-            f"the grouped matmul's backward (item 10).  Train it with "
-            f"--device cpu, where a mesh also runs its experts "
-            f"expert-parallel (make_train_step(..., mesh=...))")
+    check_fits(cfg, tcfg, dev)
     print(f"[train] arch={cfg.name} device={dev}")
     model, opt, train_step = make_train_step(cfg, tcfg, dev)
     params = model.init(torch.Generator(device=dev).manual_seed(tcfg.seed))

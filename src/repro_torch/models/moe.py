@@ -15,6 +15,19 @@ expert's kept assignments, min(#assigned, C), counted on the device
 the kernel writes them without reading the weights.  An expert with no
 token costs no weight bytes; in a decode step most hold none.
 
+Training differentiates the block as written: with grad enabled ``gmm``
+runs through :class:`~repro_torch.kernels.moe_gmm.GroupedMatmul`, whose
+backward launches the input-gradient and weight-gradient kernels with the
+same block experts and row counts (dx is zero on the rows past a count,
+dw reads none of them); every other op is PyTorch's and differentiable:
+``dispatch``'s scatter (its backward a gather; the dropped assignments'
+sentinel row is sliced off, so it takes no gradient), ``combine``'s
+gather, the a2a path's index gathers (a received slot past its count is
+filled from row 0 of the send buffer, and takes the zero dx of a row past
+a count) and ``_expert_stack``'s view of the expanded leaf, whose
+backward sums over the dp shards once, so each expert leaf gets its
+gradient once.
+
 Capacity semantics are the reference's: each expert accepts at most
 C = ceil(T·k/E · capacity_factor) tokens, rounded up to 8; an assignment
 past its expert's capacity is dropped, goes to the sentinel slot E·C, and
@@ -61,9 +74,10 @@ def init_moe(gen, cfg: ArchConfig):
 def _expert_init(gen, e, d_in, d_out, dtype):
     """(e, d_in, d_out) normal / sqrt(d_in), drawn one expert at a time into
     the result: the float32 draw of a whole leaf would be 21.5 GB at
-    llama4-maverick's widths, twice over with its scaled copy."""
+    llama4-maverick's widths, twice over with its scaled copy.  On the meta
+    device (shapes only) nothing is drawn."""
     w = torch.empty((e, d_in, d_out), dtype=dtype, device=gen.device)
-    for i in range(e):
+    for i in range(e if w.device.type != "meta" else 0):
         w[i] = dense_init(gen, d_in, d_out, dtype)
     return w
 

@@ -13,7 +13,11 @@ Where the reference runs per participant under ``shard_map``/``vmap`` with
 ``pmax`` / ``psum`` over an axis name, the port takes the stacked tensor
 and reduces over its participant dimension.  ``torch.round`` and
 ``jnp.round`` both round half to even, so the payload is the reference's
-bit for bit.
+bit for bit.  Every division here divides by a tensor on the operand's
+device: PyTorch's CUDA kernels divide by a Python scalar as a product with
+its reciprocal, which can round one bit off the quotient, so a scale on
+the card would differ from the CPU's and the reference's (and with it the
+payload).
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from ..tree import tree_map
 def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x → (int8 payload, its scale max(|x|)/127 in x's dtype) for one
     tensor."""
-    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+    scale = torch.clamp(x.abs().max(), min=1e-12) / x.new_tensor(127.0)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -45,7 +49,7 @@ def int8_payload(gf: torch.Tensor, dim: int, lead: Optional[int] = None
     size 1 there."""
     lead = dim + 1 if lead is None else lead
     local = gf.abs().reshape(*gf.shape[:lead], -1).amax(-1)
-    local = torch.clamp(local, min=1e-12) / 127.0
+    local = torch.clamp(local, min=1e-12) / local.new_tensor(127.0)
     scale = local.amax(dim, keepdim=True)
     scale = scale.reshape(*scale.shape, *(1,) * (gf.dim() - lead))
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
@@ -70,7 +74,7 @@ def int8_ef_allreduce(g: torch.Tensor, dim: int,
     sent = q.float() * scale
     new_error = gf - sent
     summed = q.to(torch.int32).sum(dim, keepdim=True).float()
-    out = summed * scale / gf.shape[dim]
+    out = summed * scale / gf.new_tensor(float(gf.shape[dim]))
     return out.expand(gf.shape), new_error
 
 

@@ -11,7 +11,9 @@ the backward wrappers hand their C entry points; ``ref.rglru_bwd_tiled``,
 the RG-LRU backward kernels' tile-parallel algebra, against
 ``ref.rglru_bwd`` in float64 and against ``jax.vjp``; the tile states the
 RG-LRU wrappers hand the forward and backward kernels; and the
-launcher's refusal of an MoE arch on the card.
+launcher's memory refusal on the card (the MoE family's published widths
+are refused for the bytes a step must hold, its smoke configs pass; it
+was a refusal of every MoE arch before the grouped matmul's backward).
 
 Inputs are made with numpy from a seed.  Tolerances, stated per test:
 
@@ -586,11 +588,30 @@ def test_the_bare_kernels_keep_refusing_grad_on_the_card(monkeypatch):
 
 
 def test_the_launcher_refuses_an_moe_arch_on_the_card(monkeypatch):
-    """``launch.train.run`` refuses an MoE arch on the card before it
-    builds anything, naming ROADMAP item 12; every other family trains
-    there."""
+    """``launch.train.run`` refuses the MoE family's published widths on an
+    80 GB card for memory, before it builds anything: the message names
+    the reckoned bytes (parameters, gradients, optimizer state, one
+    float32 copy of the largest leaf) and ROADMAP item 12, at full depth
+    and at the least depth that holds an MoE layer (llama4: 2 layers;
+    deepseek-v3: 4, its first 3 dense).  The smoke MoE configs pass the
+    guard, as does deepseek-v3 cut to its 3 dense layers."""
     monkeypatch.setattr(launcher, "resolve_device",
                         lambda device: torch.device("cuda"))
-    for arch in ("llama4-maverick-400b-a17b", "deepseek-v3-671b"):
-        with pytest.raises(RuntimeError, match="ROADMAP item 12"):
-            launcher.run(get_config(arch), TrainConfig(), None, steps=1)
+    monkeypatch.setattr(launcher, "device_memory", lambda dev: 80 * 10 ** 9)
+    cuda = torch.device("cuda")
+    for arch, n_moe in (("llama4-maverick-400b-a17b", 2),
+                        ("deepseek-v3-671b", 4)):
+        cfg = get_config(arch)
+        for n in (cfg.n_layers, n_moe):
+            with pytest.raises(RuntimeError, match=r"needs at least [\d.]+ "
+                               r"GB on the card \(params [\d.]+ GB.*"
+                               r"ROADMAP item 12"):
+                launcher.run(cfg.replace(n_layers=n), TrainConfig(), None,
+                             steps=1)
+        launcher.check_fits(get_smoke_config(arch), TrainConfig(), cuda)
+    launcher.check_fits(get_config("deepseek-v3-671b").replace(n_layers=3),
+                        TrainConfig(), cuda)
+    need = launcher.memory_reckoning(get_config("llama4-maverick-400b-a17b")
+                                     .replace(n_layers=2), TrainConfig())
+    assert need["largest_leaf_float32"] == 4 * 128 * 5120 * 8192
+    assert need["grads"] == need["params"]
