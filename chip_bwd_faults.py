@@ -1,25 +1,29 @@
 #!/usr/bin/env python3
 """Planted faults against ``chip_smoke.py``'s phase 2c comparison of the
-recurrences' backward kernels, RG-LRU and WKV6.
+recurrences' backward kernels, RG-LRU and WKV6, and its phase 2b
+comparison of the grouped matmul's backward, ``gmm_dx`` and ``gmm_dw``.
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit:
 
     python3 chip_bwd_faults.py
 
-It builds copies of ``src/repro_torch/kernels/csrc/rglru_scan.cu`` and of
-``wkv6_bwd.cu`` in temporary directories, each with one fault planted in
-a backward kernel, and runs each on phase 2c's cases of that kernel: the
-RG-LRU's training-shape, D = 100 and log_a = 0 cases, bf16 and float32,
-each on the tile states the kernel as it is kept in its forward (the
-faults that cross tiles only on the cases of more than one tile); the
-WKV's training-shape and w = 0 cases.  For each copy, case and
-output it prints the reading of phase 2c's comparison
-(``chip_smoke.elementwise_err`` under ``BWD_TOL``: above 1 fails), for
-the RG-LRU beside the max-scaled one it replaced (max |got - plain| over
-max(1, max |plain|), held to 1e-4 in float32 and 1e-2 in bf16).  Each
-kernel as it is runs first.  Exits non-zero if a kernel as it is fails
-the comparison or a planted fault passes it in the output it changes.
+It builds copies of ``src/repro_torch/kernels/csrc/rglru_scan.cu``, of
+``wkv6_bwd.cu``, of ``moe_gmm_dx.cu`` and of ``moe_gmm_dw.cu`` (with the
+headers beside them) in temporary directories, each with one fault
+planted in a backward kernel, and runs each on its phase's cases of that
+kernel: the RG-LRU's training-shape, D = 100 and log_a = 0 cases, bf16 and
+float32, each on the tile states the kernel as it is kept in its forward
+(the faults that cross tiles only on the cases of more than one tile);
+the WKV's training-shape and w = 0 cases; the grouped matmul's backward
+at its bf16 training shapes and edge cases (rows past the counts hold
+random values).  For each copy, case and output it prints the reading of
+the comparison (``chip_smoke.elementwise_err`` under ``BWD_TOL``: above 1
+fails), for the RG-LRU beside the max-scaled one it replaced (max |got -
+plain| over max(1, max |plain|), held to 1e-4 in float32 and 1e-2 in
+bf16).  Each kernel as it is runs first.  Exits non-zero if a kernel as
+it is fails the comparison or a planted fault passes it in the output it
+changes.
 """
 from __future__ import annotations
 
@@ -48,6 +52,36 @@ PREFIX = ("for (int t = 0; t < kJ; ++t) {  // r_t . prod_{tau < t} w_tau\n"
           "          q *= sm.w[t][i];")
 DU = "    for (int c = 0; c < n; ++c)"
 DW = "                a.out[kDW][o] = pw[m];"
+# the grouped matmul's backward: dw's zeroing of rows past a count, dx's
+# live m64 tiles, the rows a dw step takes.  A ring stage reused one phase
+# early is not planted: a producer that re-arms a stage's barrier before
+# its phase completes breaks the mbarrier protocol and hangs the kernel
+# (seen on the card), and a stage handed back before its products finish
+# only races the refill against wgmma's reads, which a run may not show
+ZERO = "      if (step.rows % 16) {"
+TILES_MT = "  t.n_mt = (t.rows + 63) / 64;"
+STEP_ROWS = "              meta[s] = {rows, next == nb && j == n_list - 1 && " \
+    "r + kK >= b.y};"
+# the grouped matmul's phase 2b cases the faults run on
+GMM_TRAIN = ("llama4 5120->8192", "deepseek 7168->2048")
+GMM_EDGES = ("counts 63 64 65 127 128 129 320 0, block_t 320",
+             "counts 63 64 65 127 128 1, block_t 128")
+GMM_A2A = ("llama4 a2a Pd=2 5120->8192",
+           "a2a Pd=2, experts 0 and 2 counted in their second block only")
+# kernel: (source, faults {fault: (line, its faulty form, the cases it runs
+# on)}); each kernel as it is runs on every case first
+GMM = {
+    "gmm_dx": ("moe_gmm_dx.cu", {
+        "the last live m64 tile skipped": (
+            TILES_MT, "  t.n_mt = (t.rows + 63) / 64 - (t.rows > 64);",
+            GMM_TRAIN + GMM_EDGES)}),
+    "gmm_dw": ("moe_gmm_dw.cu", {
+        "rows past a count in a block's last step not zeroed": (
+            ZERO, "      if (false) {", GMM_TRAIN + GMM_EDGES),
+        "an expert's blocks after its first skipped": (
+            STEP_ROWS, "              meta[s] = {j > 0 ? 0 : rows, "
+            "next == nb && j == n_list - 1 && r + kK >= b.y};", GMM_A2A)}),
+}
 # kernel: (source, outputs, cases, {fault: (line, its faulty form, the
 # output it changes[, the cases it runs on, if not all])})
 KERNELS = {
@@ -87,6 +121,72 @@ KERNELS = {
 }
 
 
+def planted(csrc, source, src, line, faulty):
+    """A temporary directory holding ``source`` with ``line`` replaced by
+    ``faulty`` and the headers beside it."""
+    assert src.count(line) == 1, line
+    tmp = Path(tempfile.mkdtemp())
+    (tmp / source).write_text(src.replace(line, faulty))
+    for header in csrc.glob("*.cuh"):
+        shutil.copy(header, tmp / header.name)
+    return tmp
+
+
+def gmm_faults(torch, cs, _nvcc, mg, ref, tmps, csrc, build):
+    """The grouped matmul's backward faults (``GMM``) on phase 2b's cases,
+    one case's inputs at a time (a full-width case holds 10.7 GB of
+    weights and as much gradient): each kernel as it is (from ``csrc``,
+    built into ``build``), then each copy with a planted fault that runs
+    on the case; returns the (kernel, fault, case) readings that went the
+    wrong way."""
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 17)
+    calls = {"gmm_dx": (mg._DX_LIB, lambda x, dy, w, be, bt, n: mg.gmm_dx(
+                 dy, w, be, bt, n), lambda x, dy, w, be, bt, n: ref.gmm(
+                 dy, w.transpose(1, 2), be, bt, n)),
+             "gmm_dw": (mg._DW_LIB, lambda x, dy, w, be, bt, n: mg.gmm_dw(
+                 x, dy, be, bt, n, w.shape[0]), lambda x, dy, w, be, bt, n:
+                 ref.gmm_dw(x, dy, be, bt, n, w.shape[0]))}
+    copies = {}                    # (kernel, fault): its source directory
+    for name, (source, faults) in GMM.items():
+        src = (csrc / source).read_text()
+        copies[(name, "none")] = csrc
+        for fault, (line, faulty, _only) in faults.items():
+            tmps.append(planted(csrc, source, src, line, faulty))
+            copies[(name, fault)] = tmps[-1]
+    labels = set(GMM_TRAIN + GMM_EDGES + GMM_A2A)
+    bad = []
+    try:
+        for case in cs.gmm_bwd_cases():
+            if case[0] not in labels:
+                continue
+            label, args = case[0], cs.gmm_bwd_inputs(torch, g, case)
+            for name, (lib, call, plain_fn) in calls.items():
+                plain = plain_fn(*args)
+                for (kernel, fault), where in copies.items():
+                    only = labels if fault == "none" else \
+                        GMM[kernel][1][fault][2]
+                    if kernel != name or label not in only:
+                        continue
+                    _nvcc.CSRC = where
+                    _nvcc.BUILD = build if where is csrc else where / "build"
+                    lib._lib = None
+                    got = call(*args)
+                    torch.cuda.synchronize()
+                    e = cs.elementwise_err(torch, got, plain,
+                                           *cs.BWD_TOL["bfloat16"])
+                    print(f"{name}, {fault} [{label}]: element-wise {e:.3g} "
+                          f"of the limit", flush=True)
+                    if (fault == "none") == (e > 1):
+                        bad.append(f"{name}, {fault} [{label}]")
+                    del got
+                del plain
+            del args
+            torch.cuda.empty_cache()
+    finally:
+        _nvcc.CSRC, _nvcc.BUILD = csrc, build
+    return bad
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -96,6 +196,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from repro_torch.kernels import _nvcc, ref
+    from repro_torch.kernels import moe_gmm as mg
     from repro_torch.kernels import rglru_scan as rs
     from repro_torch.kernels import wkv6 as wk
     print(cs.card_line(), flush=True)
@@ -122,11 +223,8 @@ def main() -> int:
                     ("none", (None, None, None)), *faults.items()]:
                 _nvcc.CSRC, _nvcc.BUILD = csrc, build
                 if line is not None:
-                    assert src.count(line) == 1, line
-                    tmp = Path(tempfile.mkdtemp())
-                    tmps.append(tmp)
-                    (tmp / source).write_text(src.replace(line, faulty))
-                    _nvcc.CSRC, _nvcc.BUILD = tmp, tmp / "build"
+                    tmps.append(planted(csrc, source, src, line, faulty))
+                    _nvcc.CSRC, _nvcc.BUILD = tmps[-1], tmps[-1] / "build"
                 lib._lib = None
                 for (label, args), call, exp in zip(cases, calls, plain):
                     if only and label not in only[0]:
@@ -147,9 +245,11 @@ def main() -> int:
                             out is not None and new[out] <= 1):
                         bad.append(f"{name}, {fault} [{label}]")
                     del got
+        bad += gmm_faults(torch, cs, _nvcc, mg, ref, tmps, csrc, build)
     finally:
         _nvcc.CSRC, _nvcc.BUILD = csrc, build
-        for lib, _plain in wrappers.values():
+        for lib in [lib for lib, _plain in wrappers.values()] + [
+                mg._DX_LIB, mg._DW_LIB]:
             lib._lib = None
         for tmp in tmps:
             shutil.rmtree(tmp, ignore_errors=True)

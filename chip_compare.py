@@ -6,11 +6,11 @@ Run from the repository root on a machine with a CUDA card, the CUDA
 toolkit and, beside this checkout, an unpacked copy of the commit to
 compare with (``git archive <commit> | tar -x -C <dir>``):
 
-    python3 chip_compare.py [--groups moe,copy,dma,rwkv,rglru,bwd,wkvbwd,rglrubwd] <parent dir> <change dir>
+    python3 chip_compare.py [--groups moe,copy,dma,rwkv,rglru,bwd,wkvbwd,rglrubwd,gmmbwd] <parent dir> <change dir>
 
 Each turn is one process that imports ``chip_smoke`` and ``repro_torch``
 from its tree and builds that tree's kernels, then, with that tree's code,
-runs the groups asked for (all eight by default):
+runs the groups asked for (all nine by default):
 
 * ``moe``: serves llama4-maverick-400b-a17b at full width and 4 layers
   (512-token prompts) as ``chip_smoke.py``'s phase 5 does, with its checks
@@ -60,7 +60,16 @@ runs the groups asked for (all eight by default):
   the graph retained, in the timed loop (the backward kernels and what
   autograd adds); then trains recurrentgemma-2b at full width and depth
   for 3 steps of 2 x 4096 tokens (``remat="block"``, AdamW) as
-  ``chip_smoke.py``'s phase 7 does: the same step numbers.
+  ``chip_smoke.py``'s phase 7 does: the same step numbers;
+* ``gmmbwd``: times the grouped matmul's backward, ``gmm_dx`` and
+  ``gmm_dw``, at ``chip_smoke.py``'s phase-6 shapes (the gate/up product
+  at 2 x 4,096 tokens: llama4-maverick's 128 experts of 5120 x 8192, 80
+  slots, top-1; deepseek-v3's 256 of 7168 x 2048, 320 slots, top-8; the
+  counts of a dispatch, x and dy zero past them; bf16), and
+  ``models/moe.py::moe_block_local``'s forward and backward at both
+  models' published widths on 2 x 4,096 tokens, as phase 7's full-width
+  blocks (weights drawn one expert at a time, the router's column of
+  expert 0 zeroed, the loss a fixed random projection of the output).
 
 Times are the wrapper's (CUDA events around a loop of calls), the device
 time per call and the device operations (kernels, copies, fills) per call
@@ -95,7 +104,8 @@ SOURCES = {"moe": ("flash_attention", "decode_attention", "rglru_scan",
            "bwd": ("flash_attention", "flash_attention_bwd"),
            "wkvbwd": ("wkv6", "wkv6_bwd"),
            "rglrubwd": ("flash_attention", "flash_attention_bwd",
-                        "rglru_scan")}
+                        "rglru_scan"),
+           "gmmbwd": ("moe_gmm", "moe_gmm_dx", "moe_gmm_dw")}
 GROUPS = tuple(SOURCES)
 # the architectures a group serves, each timed by SERVE_KEYS
 SERVED = ("llama4-maverick-400b-a17b", "rwkv6-7b", "recurrentgemma-2b")
@@ -122,7 +132,8 @@ def turn(root: str, tag: str, groups) -> dict:
     kernels = {"flash_attention": flash_attention,
                "decode_attention": decode_attention,
                "rglru_scan": rglru_scan, "wkv6": wkv6, "gmm": gmm}
-    _nvcc.build(*sorted({n for g in groups for n in SOURCES[g]}))
+    _nvcc.build(*sorted({n for g in groups for n in SOURCES[g]
+                         if (_nvcc.CSRC / f"{n}.cu").exists()}))
     res = {"tag": tag, "root": root, "card": cs.card_line()}
 
     def timed(label, fn, iters):
@@ -209,6 +220,8 @@ def turn(root: str, tag: str, groups) -> dict:
         wkv_bwd_and_training(torch, cs, timed, res)
     if "rglrubwd" in groups:
         rglru_bwd_and_training(torch, cs, timed, res)
+    if "gmmbwd" in groups:
+        gmm_bwd_and_blocks(torch, cs, timed, res)
     return res
 
 
@@ -275,6 +288,59 @@ def rglru_bwd_and_training(torch, cs, timed, res):
                                       retain_graph=True), 20)
     del x, dy, la, y, _h
     train_steps(torch, cs, res, "recurrentgemma-2b", "adamw")
+
+
+def gmm_bwd_and_blocks(torch, cs, timed, res):
+    """The grouped matmul's backward kernels at phase 6's shapes, then one
+    MoE block's forward and backward at each model's published widths, as
+    phase 7 runs it.  Inputs and weights are made here from a seed, alike
+    in both trees, through the interfaces both share."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.models import moe
+    from repro_torch.tree import flatten
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 20)
+    tokens = cs.TRAIN_BATCH * cs.TRAIN_SEQ
+    for tag, E, D, F, C, k in (
+            ("llama4", cs.MOE_E, cs.MOE_D, cs.MOE_F, cs.MOE_C_TRAIN, 1),
+            ("deepseek", cs.DS_E, cs.DS_D, cs.DS_F, cs.DS_C_TRAIN, cs.DS_K)):
+        w = torch.randn((E, D, F), generator=g, device="cuda",
+                        dtype=torch.bfloat16).mul_(D ** -0.5)
+        be = torch.arange(E, dtype=torch.int32, device="cuda")
+        counts = cs.dispatch_counts(torch, g, E, C, tokens, k, edges=False)
+        live = (torch.arange(C, device="cuda")[None, :]
+                < counts[:, None]).reshape(-1, 1)
+        x = torch.randn((E * C, D), generator=g, device="cuda",
+                        dtype=torch.bfloat16).mul_(live)
+        dy = torch.randn((E * C, F), generator=g, device="cuda",
+                         dtype=torch.bfloat16).mul_(live)
+        timed(f"gmm_dx {tag} {E} x {D}x{F}, C {C}",
+              lambda: moe_gmm.gmm_dx(dy, w, be, C, counts), 10)
+        timed(f"gmm_dw {tag} {E} x {D}x{F}, C {C}",
+              lambda: moe_gmm.gmm_dw(x, dy, be, C, counts, E), 10)
+        del w, x, dy
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in (cs.MOE_ARCH, cs.DS_ARCH):
+        cfg = get_config(arch)
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 19)
+        params = moe.init_moe(gen, cfg)
+        params["router"][:, 0] = 0.0
+        leaves = [t.requires_grad_(True) for _path, t in flatten(params)]
+        B, S = cs.TRAIN_BATCH, cs.TRAIN_SEQ
+        x = torch.randn((B, S, cfg.d_model), generator=gen,
+                        device="cuda").to(cfg.dtype_).requires_grad_(True)
+        proj = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+
+        def block():
+            out, _aux = moe.moe_block_local(params, x, cfg)
+            return torch.autograd.grad((out.float() * proj).sum(),
+                                       leaves + [x])
+        timed(f"moe_block_local {arch} forward + backward, {B} x {S}",
+              block, 3)
+        del params, leaves, x, proj
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def train_steps(torch, cs, res, arch, optimizer):

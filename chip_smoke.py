@@ -9,12 +9,12 @@ toolkit:
 It imports neither JAX nor the JAX package.  Phases, in order; any failure
 exits non-zero and prints no result:
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (ten
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (eleven
    sources) with nvcc, one process per source, all at once, and check with
-   ``cuobjdump -sass`` that the bf16 flash and grouped-matmul kernels (the
-   grouped matmul's transposed instances, its input gradient, and its
-   weight-gradient kernel among them) run on the tensor cores (HMMA
-   instructions), and from ``-Xptxas -v`` that the
+   ``cuobjdump -sass`` that the bf16 flash and grouped-matmul kernels run
+   on the tensor cores (HMMA instructions, ``mma.sync``; the grouped
+   matmul's input-gradient and weight-gradient kernels HGMMA, Hopper's
+   ``wgmma``, and no HMMA), and from ``-Xptxas -v`` that the
    tensor-core flash and grouped-matmul ones and the three RG-LRU ones
    (the forward, the backward's tile aggregates and tile gradients) do not
    spill (the flash backward kernels' and the WKV6 backward kernels'
@@ -90,8 +90,9 @@ exits non-zero and prints no result:
    heads of 64 over 1,500² frames, bidirectional; its cross-attention,
    224 queries over 1,500 keys; the vision cross layers', 512 over 1,601,
    32 heads on 8 of 128), on the tensor cores in bf16; then the grouped
-   matmul's backward (``gmm_dx``: the forward's kernels reading w as its
-   transpose; ``gmm_dw``: ``csrc/moe_gmm_dw.cu``) against its plain
+   matmul's backward (``gmm_dx``: ``csrc/moe_gmm_dx.cu``, on the CUDA cores
+   the forward's kernel reading w as its transpose; ``gmm_dw``:
+   ``csrc/moe_gmm_dw.cu``) against its plain
    versions (``ref.gmm`` on ``w.transpose(1, 2)``, ``ref.gmm_dw``; element
    by element within ``BWD_TOL``) at llama4-maverick's and deepseek-v3's
    expert shapes at phase 7's batch (128 experts of 5120 <-> 8192, 80
@@ -100,7 +101,9 @@ exits non-zero and prints no result:
    experts), the a2a form (every expert on two blocks), float32 at both
    widths with fewer experts, bf16 rows off 16 bytes, widths not
    multiples of 8, ragged tiles, a block of two 64-row chunks, all-zero
-   counts, block_t 1 and no counts, unsorted block experts that repeat:
+   counts, block_t 1 and no counts, unsorted block experts that repeat,
+   counts of 63, 64, 65, 127, 128, 129 and 320, experts counted only in
+   their second a2a block, a block_t of 400 (two passes of dx):
    each on the route ``_variant`` picks, dx's rows past the counts and an
    expert with no counted row's gradient exactly zero, two calls bitwise
    equal, one device operation a call;
@@ -287,7 +290,10 @@ exits non-zero and prints no result:
    llama-3.2-vision's cross prefill; the flash
    backward's row at the training shape, with the backward of SDPA's
    output beside it; the RG-LRU's and WKV6's backward rows at their
-   training shapes, with their device operations a call; WKV6's row with
+   training shapes, with their device operations a call; the flash
+   backward's row also at recurrentgemma-2b's (D 256, the CUDA-core
+   route), whisper's encoder and the vision cross layers' training shapes,
+   with SDPA's backward and its backend beside each; WKV6's row with
    the float32 training form at rwkv6-7b's training shape; the grouped
    matmul's backward, ``gmm_dx`` and ``gmm_dw``, at llama4-maverick's and
    deepseek-v3's training shapes with ``torch.bmm`` beside them), the
@@ -516,10 +522,11 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def sass_mma_count(_nvcc, name, kernel):
-    """HMMA (tensor-core) instructions in the SASS of each function of
+def sass_mma_count(_nvcc, name, kernel, op="HMMA"):
+    """Tensor-core instructions in the SASS of each function of
     ``csrc/<name>.cu``'s library whose name holds ``kernel``, by
-    ``cuobjdump -sass``."""
+    ``cuobjdump -sass``: ``op`` HMMA (``mma.sync``) or HGMMA (Hopper's
+    warpgroup ``wgmma``; the name does not hold "HMMA")."""
     lib = _nvcc.build(name)[name]
     tool = os.path.join(os.path.dirname(_nvcc._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
@@ -530,7 +537,7 @@ def sass_mma_count(_nvcc, name, kernel):
             fn = line.split("Function :", 1)[1].strip()
             if kernel in fn:
                 counts[fn] = 0
-        elif fn in counts and "HMMA" in line:
+        elif fn in counts and op in line:
             counts[fn] += 1
     return counts
 
@@ -572,35 +579,40 @@ def parse_ptxas(out, kernel):
 
 
 def check_gmm_build(_nvcc):
-    """The grouped matmul's tensor-core kernels, the forward's three row
-    chunks and their transposed instances (the input gradient) and the
-    weight gradient's, run on the tensor cores (HMMA in their SASS) and do
-    not spill (``-Xptxas -v``)."""
+    """The grouped matmul's tensor-core kernels run on the tensor cores and
+    do not spill (``-Xptxas -v``): the forward's three row chunks
+    (``csrc/moe_gmm.cu``, HMMA: ``mma.sync``), the input gradient's two
+    instances (``csrc/moe_gmm_dx.cu``) and the weight gradient's kernel
+    (``csrc/moe_gmm_dw.cu``), both HGMMA (``wgmma``) and no HMMA."""
     hmma = sass_mma_count(_nvcc, "moe_gmm", "gmm_mma")
-    check(len(hmma) == 6 and all(n > 0 for n in hmma.values()),
-          f"the bf16 gmm kernels and their transposed instances lack "
-          f"tensor-core HMMA: {hmma}")
-    log(f"  cuobjdump -sass, HMMA per tensor-core gmm kernel (Lb1: the "
-        f"transposed instance): {hmma}")
+    check(len(hmma) == 3 and all(n > 0 for n in hmma.values()),
+          f"the bf16 gmm forward kernels lack tensor-core HMMA: {hmma}")
+    log(f"  cuobjdump -sass, HMMA per tensor-core gmm forward kernel: "
+        f"{hmma}")
     usage = ptxas_usage(_nvcc, "moe_gmm", "gmm_mma")
-    check(len(usage) == 6 and all(u[0] and not u[1] and not u[2]
+    check(len(usage) == 3 and all(u[0] and not u[1] and not u[2]
                                   for u in usage.values()),
           f"the tensor-core gmm kernels spill: {usage}")
     log("  -Xptxas -v, tensor-core gmm kernels [registers, spill stores, "
         f"spill loads]: {usage}")
-    hmma = sass_mma_count(_nvcc, "moe_gmm_dw", "gmm_dw_mma")
-    check(len(hmma) == 1 and all(n > 0 for n in hmma.values()),
-          f"the bf16 gmm weight-gradient kernel lacks tensor-core HMMA: "
-          f"{hmma}")
-    log(f"  cuobjdump -sass, HMMA in the tensor-core gmm weight-gradient "
-        f"kernel: {hmma}")
-    usage = ptxas_usage(_nvcc, "moe_gmm_dw", "gmm_dw")
-    mma = {fn: u for fn, u in usage.items() if "gmm_dw_mma" in fn}
-    check(len(mma) == 1 and all(u[0] and not u[1] and not u[2]
-                                for u in mma.values()),
-          f"the tensor-core gmm weight-gradient kernel spills: {mma}")
-    log("  -Xptxas -v, gmm weight-gradient kernels [registers, spill "
-        f"stores, spill loads]: {usage}")
+    for name, kernel, n, what in (
+            ("moe_gmm_dx", "gmm_dx_wgmma", 2, "input-gradient"),
+            ("moe_gmm_dw", "gmm_dw_wgmma", 1, "weight-gradient")):
+        hgmma = sass_mma_count(_nvcc, name, kernel, "HGMMA")
+        hmma = sass_mma_count(_nvcc, name, kernel)
+        check(len(hgmma) == n and all(c > 0 for c in hgmma.values())
+              and not any(hmma.values()),
+              f"the bf16 gmm {what} kernels lack wgmma (HGMMA {hgmma}, "
+              f"HMMA {hmma})")
+        log(f"  cuobjdump -sass, HGMMA per wgmma gmm {what} kernel: "
+            f"{hgmma}")
+        usage = ptxas_usage(_nvcc, name, "gmm_d")
+        mma = {fn: u for fn, u in usage.items() if kernel in fn}
+        check(len(mma) == n and all(u[0] and not u[1] and not u[2]
+                                    for u in mma.values()),
+              f"the wgmma gmm {what} kernels spill: {mma}")
+        log(f"  -Xptxas -v, gmm {what} kernels [registers, spill stores, "
+            f"spill loads]: {usage}")
 
 
 def cuda_ms(fn, iters):
@@ -1760,7 +1772,14 @@ def gmm_bwd_cases():
     route); then odd ones: bf16 rows off 16 bytes and widths not multiples
     of 8 (CUDA cores), ragged tiles and a block of more than one 64-row
     chunk (tensor cores), unsorted block experts that repeat, counts all
-    zero, block_t 1 and no counts."""
+    zero, block_t 1 and no counts; and counts at the edges of the input
+    gradient's m64 tiles and 16-row boxes (63, 64, 65, 127, 128, 129 and
+    320, in blocks of 320 and of 128: the two instances), an a2a form whose
+    experts 0 and 2 hold counted rows only in their second block, a
+    block_t of 400, above the 320 rows one pass of the input gradient
+    holds (two passes), and 4,096 narrow experts of which 7 in 8 hold no
+    row, so that the weight gradient's persistent clusters take many
+    empty experts' marker stages in a row."""
     bf, f32 = "bfloat16", "float32"
     tk = TRAIN_BATCH * TRAIN_SEQ
     cases = []
@@ -1793,7 +1812,20 @@ def gmm_bwd_cases():
          False),
         ("block_t 1", 5, 513, 136, 1, 1, bf, "random", ("partial",), False),
         ("no counts", 4, 256, 128, 32, 2, bf, "random", None, False),
-        ("float32 no counts", 3, 100, 77, 7, 2, f32, "random", None, False)]
+        ("float32 no counts", 3, 100, 77, 7, 2, f32, "random", None, False),
+        ("counts 63 64 65 127 128 129 320 0, block_t 320", 8, 256, 512, 320,
+         1, bf, "arange", ("fixed", (63, 64, 65, 127, 128, 129, 320, 0)),
+         False),
+        ("counts 63 64 65 127 128 1, block_t 128", 6, 512, 256, 128, 1, bf,
+         "arange", ("fixed", (63, 64, 65, 127, 128, 1)), False),
+        ("a2a Pd=2, experts 0 and 2 counted in their second block only", 4,
+         256, 512, 80, 2, bf, "arange", ("fixed", (0, 70, 0, 80, 33, 0, 64,
+                                                   17)), False),
+        ("block_t 400 (two passes)", 3, 128, 136, 400, 1, bf, "random",
+         ("fixed", (400, 321, 0, 320, 399, 5)), False),
+        ("4096 experts, 7 in 8 empty", 4096, 64, 128, 8, 1, bf, "arange",
+         ("fixed", tuple(0 if i % 8 else 1 + i // 8 % 8
+                         for i in range(4096))), False)]
     return cases
 
 
@@ -1825,6 +1857,10 @@ def gmm_bwd_inputs(torch, g, case):
         counts = torch.cat([dispatch_counts(torch, g, E, bt, kind[1],
                                             kind[2], edges=(i == 0))
                             for i in range(pd)])
+    elif kind[0] == "fixed":
+        check(len(kind[1]) == nb, f"{label}: {len(kind[1])} counts for "
+              f"{nb} blocks")
+        counts = torch.tensor(kind[1], dtype=torch.int32, device="cuda")
     else:
         counts = gmm_counts(torch, g, kind[0], E, nb, bt)
     return x, dy, w, be, bt, counts
@@ -1832,8 +1868,9 @@ def gmm_bwd_inputs(torch, g, case):
 
 def phase_gmm_bwd_kernels(torch):
     """Each case of :func:`gmm_bwd_cases` through ``gmm_dx`` (dy times each
-    block's weights transposed, ``csrc/moe_gmm.cu``'s transposed instance)
-    and ``gmm_dw`` (``csrc/moe_gmm_dw.cu``) against their plain versions on
+    block's weights transposed: ``csrc/moe_gmm_dx.cu``, on the CUDA cores
+    ``csrc/moe_gmm.cu``'s transposed instance) and ``gmm_dw``
+    (``csrc/moe_gmm_dw.cu``) against their plain versions on
     the same (card) inputs in the same dtype (``ref.gmm`` on
     ``w.transpose(1, 2)``, ``ref.gmm_dw``), element by element within
     ``BWD_TOL`` (:func:`elementwise_err`); dx's rows past the counts and
@@ -4302,6 +4339,16 @@ class RepeatedBatch:
         return self._tokens
 
 
+# the grouped matmul's device kernels by wrapper: a kernel is the
+# wrapper's if its name contains every part of one of the wrapper's tuples
+# (the forward's tensor-core kernel and the CUDA-core one's forward
+# instances, kTrans false; the input gradient's wgmma kernel and the
+# CUDA-core kernel's transposed instances; the weight gradient's wgmma and
+# CUDA-core kernels)
+GMM_KERNELS = {
+    "gmm": (("::gmm_mma_kernel<",), ("::gmm_kernel<", ", false>(")),
+    "gmm_dx": (("::gmm_dx_wgmma_kernel<",), ("::gmm_kernel<", ", true>(")),
+    "gmm_dw": (("::gmm_dw_wgmma_kernel(",), ("::gmm_dw_kernel<",))}
 # device kernels by group, as their names contain these parts
 KERNEL_GROUPS = {
     "flash_fwd": ("::flash_fwd",),
@@ -4690,10 +4737,9 @@ def moe_block_full_width(torch, kernels, arch):
             continue
         us = e.time_range.elapsed_us()
         total += us
-        if "gmm_dw" in e.name:
-            by["gmm_dw"] += us
-        elif "gmm_mma_kernel" in e.name or "gmm_kernel" in e.name:
-            by["gmm_dx" if ", true>(" in e.name else "gmm"] += us
+        for name, kernel in GMM_KERNELS.items():
+            if any(all(p in e.name for p in parts) for parts in kernel):
+                by[name] += us
     check(total > 0 and all(by.values()),
           f"{arch} full-width MoE block: profiled device time {by} of "
           f"{total} µs")
@@ -5119,6 +5165,111 @@ def attention_report(torch, kernels, errs, launches):
     return rows
 
 
+# row 6b's entries at the other families' training shapes: (key, arch,
+# (B, Hq, Hkv, Sq, Sk, D), causal, window)
+FLASH_BWD_ENTRIES = [
+    ("recurrentgemma_d256", "recurrentgemma-2b",
+     (TRAIN_BATCH, 10, 1, TRAIN_SEQ, TRAIN_SEQ, 256), True, 2048),
+    ("whisper_encoder", WHISPER_ARCH,
+     (TRAIN_BATCH, 20, 20, 1500, 1500, 64), False, None),
+    ("vision_cross", VISION_ARCH,
+     (TRAIN_BATCH, 32, 8, SERVE_PROMPT, 1601, 128), False, None)]
+
+
+def sdpa_backend(names):
+    """The backend SDPA took, from the names of the device kernels one call
+    ran: cuDNN's, the FlashAttention one, the memory-efficient (cutlass
+    ``fmha``) one, else the math path's separate products and softmax."""
+    joined = " ".join(names).lower()
+    for part, backend in (("cudnn", "cudnn"), ("flash", "flash"),
+                          ("fmha", "efficient"), ("efficient", "efficient")):
+        if part in joined:
+            return backend
+    return "math"
+
+
+def flash_bwd_entry(torch, g, shape, causal, window):
+    """Row 6b's numbers at one training shape in bf16: q, k, v and dout (B,
+    H, S, D) views of (B, S, H, D) memory, out and lse from the forward
+    kernel; the backward kernel's wrapper and device time, its route, its
+    largest error against the plain version (rounding P and dS to bf16 as
+    the tensor-core route does, and unrounded; relative to the plain
+    gradient's max, floor as in phase 2b) and the plain version's time;
+    the bound's operations (10 * D FLOP a visible (query, key) pair a
+    head) and bytes (as the training-shape row counts them); and
+    ``torch.autograd.grad`` through one ``scaled_dot_product_attention``
+    output with the same mask, with the backend it took."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    B, Hq, Hkv, Sq, Sk, D = shape
+
+    def bhsd(H, S):
+        return torch.randn((B, S, H, D), generator=g, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+
+    q, k, v, dout = bhsd(Hq, Sq), bhsd(Hkv, Sk), bhsd(Hkv, Sk), bhsd(Hq, Sq)
+    scale = D ** -0.5
+    out, lse = fa._forward(q, k, v, causal, window, scale, Sk - Sq, True)
+    mask = dict(causal=causal, window=window, sm_scale=scale,
+                offset=Sk - Sq)
+
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, out, lse, dout, **mask)
+
+    routes = dict(fa.flash_attention_bwd.routes)
+    got = kernel()
+    route = [r for r, n in fa.flash_attention_bwd.routes.items()
+             if n != routes[r]]
+    check(len(route) == 1, f"flash_attention_bwd at {shape}: routes "
+          f"{routes} -> {fa.flash_attention_bwd.routes}")
+    floor = 1e-2 * float(dout.abs().max()) * float(v.abs().max())
+    err = 0.0
+    for round_p in ((torch.bfloat16, None) if route[0] == "mma"
+                    else (None,)):
+        exp = ref.flash_attention_bwd(q.float(), k.float(), v.float(),
+                                      out.float(), lse, dout.float(),
+                                      **mask, round_p=round_p)
+        for name, a, b in zip(("dq", "dk", "dv"), got, exp):
+            e = bwd_rel_err(a, b, floor)
+            check(e <= ATTN_TOL["bfloat16"], f"flash_attention_bwd at "
+                  f"{shape}: {name} differs from its plain version "
+                  f"(round_p {round_p}): {e} > {ATTN_TOL['bfloat16']}")
+            err = max(err, e)
+        del exp
+    del got
+    pos_q = torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq)
+    pos_k = torch.arange(Sk, device="cuda")[None, :]
+    attn_mask = None
+    if causal:
+        attn_mask = pos_k <= pos_q
+        if window is not None:
+            attn_mask &= pos_k > pos_q - window
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=attn_mask,
+                                             enable_gqa=True, scale=scale)
+
+    def library():
+        return torch.autograd.grad(lib_out, (qg, kg, vg), dout,
+                                   retain_graph=True)
+    visible = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda") \
+        if attn_mask is None else attn_mask
+    pairs = B * Hq * int(visible.sum())
+    m = dict(ms=cuda_ms(kernel, 5), device_ms=device_ms(kernel, 5),
+             plain_ms=cuda_ms(lambda: ref.flash_attention_bwd(
+                 q, k, v, out, lse, dout, **mask), 1),
+             library_ms=cuda_ms(library, 5),
+             library_device_ms=device_ms(library, 5),
+             sdpa_backend=sdpa_backend(device_ops(torch, library, 3)),
+             flops=10 * D * pairs,
+             nbytes=2 * (3 * q.numel() + 2 * out.numel() + 2 * k.numel()
+                         + 2 * v.numel()) + 4 * lse.numel(),
+             route=route[0], err=err)
+    del q, k, v, dout, out, lse, qg, kg, vg, lib_out
+    torch.cuda.empty_cache()
+    return m
+
+
 def flash_bwd_report(torch, errs, launches):
     """The backward kernel's row at llama3.2-3b's training shape (B
     TRAIN_BATCH, 24 query heads on 8 kv heads, S TRAIN_SEQ, D 128, bf16,
@@ -5133,7 +5284,11 @@ def flash_bwd_report(torch, errs, launches):
     first held against the plain version that rounds P and dS to bf16 and
     the unrounded one (``ATTN_TOL``, relative to the plain gradient's max,
     floor as in phase 2b): ``max_abs_err`` is that error,
-    ``cases_max_rel_err`` phase 2b's largest."""
+    ``cases_max_rel_err`` phase 2b's largest.  The entries of
+    ``FLASH_BWD_ENTRIES`` (:func:`flash_bwd_entry`) are the same numbers at
+    recurrentgemma-2b's training shape (D 256 under a 2,048-token window,
+    the CUDA-core route), whisper's encoder and the vision cross layers',
+    each with its route, SDPA's backend and its family's launches."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -5197,6 +5352,22 @@ def flash_bwd_report(torch, errs, launches):
     row["launches_paths"] = launches
     row["device_ops_per_call"] = errs["device_ops_per_call"]
     row["lse_max_rel_err"] = errs["lse"]
+    del q, k, v, dout, out, lse, qg, kg, vg, lib_out
+    torch.cuda.empty_cache()
+    for key, arch, shape, causal, window in FLASH_BWD_ENTRIES:
+        e = flash_bwd_entry(torch, g, shape, causal, window)
+        entry = row[key] = timing_row(e, launches[f"{arch} train"], e["err"],
+                                      BF16_FLOPS)
+        entry.update(variant=e["route"], sdpa_backend=e["sdpa_backend"],
+                     shape=list(shape), window=window)
+        log(f"  flash_attention_bwd {key} {shape} ({e['route']}): "
+            f"{e['ms']:.4f} ms/call (device {e['device_ms']:.4f}), bound "
+            f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}; "
+            f"{e['flops'] / 1e9:.1f} GFLOP, {e['nbytes'] / 1e6:.1f} MB), "
+            f"plain {e['plain_ms']:.4f} ms, sdpa backward "
+            f"{e['library_ms']:.4f} ms (device {e['library_device_ms']:.4f}, "
+            f"{e['sdpa_backend']}), err {e['err']:.3g}, launches "
+            f"{entry['launches']}")
     log(f"  flash_attention_bwd train shape ({variant[0]}): dq/dk/dv err "
         f"{err:.3g} of the plain max, rounded and unrounded (tolerance "
         f"{ATTN_TOL['bfloat16']}); {m['ms']:.4f} ms/call (device "
@@ -5589,7 +5760,7 @@ def gmm_bwd_report(torch, errs, launches):
         torch.cuda.empty_cache()
     main = f"{MOE_ARCH} smoke"
     rows_out = []
-    for name, source in (("gmm_dx", "moe_gmm.cu"),
+    for name, source in (("gmm_dx", "moe_gmm_dx.cu"),
                          ("gmm_dw", "moe_gmm_dw.cu")):
         mm = m[name]
         row = dict(name=name, route="cuda",
@@ -5696,7 +5867,7 @@ def main() -> int:
         log("phase 1: build")
         _nvcc.build("remote_dma", "flash_attention", "flash_attention_bwd",
                     "decode_attention", "rglru_scan", "wkv6", "wkv6_bwd",
-                    "moe_gmm", "moe_gmm_dw", "remote_copy")
+                    "moe_gmm", "moe_gmm_dx", "moe_gmm_dw", "remote_copy")
         for name, out in _nvcc.BUILD_LOGS.items():
             log(f"  nvcc {name}.cu:\n" + "\n".join(
                 "    " + ln for ln in out.strip().splitlines()))

@@ -1,10 +1,11 @@
 """Build-at-first-use for the port's CUDA sources (plain C interface, ctypes).
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
-``kernels/build/lib<name>-<hash>.so``, where the hash covers the source and
-the flags, so an edited source rebuilds and an unchanged one loads from the
-build directory.  A build writes to a temporary name and renames it into
-place, so concurrent processes never load a half-written library.
+``kernels/build/lib<name>-<hash>.so``, where the hash covers the source, the
+headers beside it (``csrc/*.cuh``) and the flags, so an edited source or
+header rebuilds and an unchanged one loads from the build directory.  A
+build writes to a temporary name and renames it into place, so concurrent
+processes never load a half-written library.
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for all.
 """
 from __future__ import annotations
@@ -38,7 +39,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD / f"lib{name}-{digest}.so"
 

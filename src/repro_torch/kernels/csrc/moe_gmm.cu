@@ -60,21 +60,15 @@
 // rows ty*4 .. ty*4+3 and columns tx*8 .. tx*8+7 into 32 float registers;
 // warps whose rows all lie past the count skip the arithmetic.
 //
-// The transposed instance (kTrans, entries gmm_dx / gmm_dx_mma) is the
-// input gradient of the same function, dx = dy @ w[e]^T, for the autograd
-// Function GroupedMatmul: the kernels above with the weight tile read
-// along the other dimension, w[e] (N, K) row-major in memory for the
-// product's depth K and width N, so that the forward's w (E, Din, Dout)
-// serves as it is (no transposed copy: 10.7 GB a leaf at llama4-maverick's
-// widths).  The tensor-core kernel stages the tile n-major, k contiguous
-// (16-byte cp.async copies along k, rows padded by 16 bytes), and its B
-// fragments come from ldmatrix without .trans; the CUDA-core kernel reads
-// the tile coalesced along k and stores it k-major into a padded shared
-// tile (4-way bank conflicts instead of 32-way).  Rows past a count, the
-// ring, the m16 skipping and the epilogue are the forward's.  Bound: as
-// the forward's, the live experts' weights once; a block of more rows
-// than one chunk reads its expert's weights once a chunk (64 rows on the
-// tensor cores).
+// The CUDA-core kernel's transposed instance (kTrans, entry gmm_dx) is the
+// input gradient of the same function on float32 and on bf16 the 16-byte
+// copies cannot take, dx = dy @ w[e]^T, for the autograd Function
+// GroupedMatmul: the weight tile read along the other dimension, w[e] (N,
+// K) row-major in memory for the product's depth K and width N, so that
+// the forward's w (E, Din, Dout) serves as it is (no transposed copy: 10.7
+// GB a leaf at llama4-maverick's widths), coalesced along k and stored
+// k-major into a padded shared tile (4-way bank conflicts instead of
+// 32-way).  The bf16 tensor-core input gradient is csrc/moe_gmm_dx.cu's.
 //
 // block_expert values are clamped to [0, E) so that no read leaves w.  Each
 // C entry point launches on the caller's stream, allocates nothing and
@@ -298,19 +292,16 @@ constexpr int kStages = 4;         // cp.async ring depth
 constexpr int kWS = kMmaBN + 8;    // shared row strides in bf16: 16 bytes of
 constexpr int kXS = kMmaBK + 8;    // padding, so ldmatrix is conflict-free
 
-// one ring stage: the weight tile (kMmaBK x kMmaBN k-major; kTrans:
-// kMmaBN x kMmaBK n-major, rows kXS apart), then kMT*16 rows of x
-template <bool kTrans>
-__host__ __device__ constexpr int w_tile_elems() {
-  return kTrans ? kMmaBN * kXS : kMmaBK * kWS;
-}
-template <int kMT, bool kTrans>
+// one ring stage: the weight tile (kMmaBK x kMmaBN k-major), then kMT*16
+// rows of x
+constexpr int kWTile = kMmaBK * kWS;
+template <int kMT>
 __host__ __device__ constexpr int stage_elems() {
-  return w_tile_elems<kTrans>() + kMT * 16 * kXS;
+  return kWTile + kMT * 16 * kXS;
 }
-template <int kMT, bool kTrans>
+template <int kMT>
 constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) * kStages * stage_elems<kMT, kTrans>();
+  return sizeof(bf16) * kStages * stage_elems<kMT>();
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -359,14 +350,14 @@ __device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
 
 // grid: one CTA per (block, 128 output columns), the columns of a block
 // adjacent in launch order
-template <int kMT, bool kTrans>
+template <int kMT>
 __global__ void __launch_bounds__(kMmaThreads)
     gmm_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                    const int* __restrict__ block_expert,
                    const int* __restrict__ block_rows, bf16* __restrict__ out,
                    int E, int Din, int Dout, int block_t, int n_col_tiles) {
   constexpr int kRows = kMT * 16;  // rows per chunk
-  constexpr int kStage = stage_elems<kMT, kTrans>();
+  constexpr int kStage = stage_elems<kMT>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
 
@@ -400,27 +391,17 @@ __global__ void __launch_bounds__(kMmaThreads)
     // weight tile k-step kt and the chunk's x slice into ring stage s
     auto stage = [&](int kt, int s) {
       bf16* ws = smem + s * kStage;
-      bf16* xs = ws + w_tile_elems<kTrans>();
+      bf16* xs = ws + kWTile;
       const int k0 = kt * kMmaBK;
 #pragma unroll
       for (int it = 0; it < kMmaBK * (kMmaBN / 8) / kMmaThreads; ++it) {
         const int i = tid + it * kMmaThreads;
-        if constexpr (kTrans) {        // row n of the tile: k0 .. k0+63
-          const int r = i / (kMmaBK / 8), c = (i % (kMmaBK / 8)) * 8;
-          const bool ok = n0 + r < Dout && k0 + c < Din;
-          cp_async16(ws + r * kXS + c,
-                     ok ? we + static_cast<long long>(n0 + r) * Din + k0 + c
-                        : we,
-                     ok);
-        } else {
-          const int r = i / (kMmaBN / 8), c = (i % (kMmaBN / 8)) * 8;
-          const bool ok = k0 + r < Din && n0 + c < Dout;
-          cp_async16(ws + r * kWS + c,
-                     ok ? we + static_cast<long long>(k0 + r) * Dout + n0 +
-                              c
-                        : we,
-                     ok);
-        }
+        const int r = i / (kMmaBN / 8), c = (i % (kMmaBN / 8)) * 8;
+        const bool ok = k0 + r < Din && n0 + c < Dout;
+        cp_async16(ws + r * kWS + c,
+                   ok ? we + static_cast<long long>(k0 + r) * Dout + n0 + c
+                      : we,
+                   ok);
       }
 #pragma unroll
       for (int it = 0; it < kRows * (kMmaBK / 8) / kMmaThreads; ++it) {
@@ -453,7 +434,7 @@ __global__ void __launch_bounds__(kMmaThreads)
         stage(kt + kStages - 1, (kt + kStages - 1) % kStages);
       cp_async_commit();
       const bf16* ws = smem + (kt % kStages) * kStage;
-      const bf16* xs = ws + w_tile_elems<kTrans>();
+      const bf16* xs = ws + kWTile;
 #pragma unroll
       for (int kk = 0; kk < kMmaBK / 16; ++kk) {
         unsigned a[kMT][4];
@@ -465,14 +446,9 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
         for (int dn = 0; dn < 2; ++dn) {  // column tiles 2*dn, 2*dn + 1
           unsigned b[4];
-          if constexpr (kTrans)          // n-major: fragments as stored
-            ldsm_x4(b, ws + (warp * 32 + dn * 16 + (lane & 7) +
-                             (lane >> 4) * 8) * kXS +
-                           kk * 16 + ((lane >> 3) & 1) * 8);
-          else
-            ldsm_x4_trans(b, ws + (kk * 16 + (lane & 7) +
-                                   ((lane >> 3) & 1) * 8) * kWS +
-                                 warp * 32 + dn * 16 + (lane >> 4) * 8);
+          ldsm_x4_trans(b, ws + (kk * 16 + (lane & 7) +
+                                 ((lane >> 3) & 1) * 8) * kWS +
+                               warp * 32 + dn * 16 + (lane >> 4) * 8);
 #pragma unroll
           for (int m = 0; m < kMT; ++m)
             if (m < mt_live) {
@@ -512,15 +488,15 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-template <int kMT, bool kTrans>
+template <int kMT>
 int launch_mma(const void* x, const void* w, const int* block_expert,
                const int* block_rows, void* out, int T_rows, int E, int Din,
                int Dout, int block_t, cudaStream_t s) {
-  constexpr size_t kSmem = mma_smem_bytes<kMT, kTrans>();
+  constexpr size_t kSmem = mma_smem_bytes<kMT>();
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gmm_mma_kernel<kMT, kTrans>,
+        gmm_mma_kernel<kMT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -529,8 +505,8 @@ int launch_mma(const void* x, const void* w, const int* block_expert,
   const int n_col = (Dout + kMmaBN - 1) / kMmaBN;
   const long long ctas = static_cast<long long>(T_rows / block_t) * n_col;
   if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  gmm_mma_kernel<kMT, kTrans><<<static_cast<unsigned>(ctas), kMmaThreads,
-                                kSmem, s>>>(
+  gmm_mma_kernel<kMT><<<static_cast<unsigned>(ctas), kMmaThreads, kSmem,
+                        s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), block_expert,
       block_rows, static_cast<bf16*>(out), E, Din, Dout, block_t, n_col);
   return static_cast<int>(cudaGetLastError());
@@ -557,7 +533,6 @@ int gmm_simt(int dtype, const void* x, const void* w, const int* block_expert,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool kTrans>
 int gmm_mma(const void* x, const void* w, const int* block_expert,
             const int* block_rows, void* out, int T, int E, int Din, int Dout,
             int block_t, void* stream) {
@@ -571,13 +546,13 @@ int gmm_mma(const void* x, const void* w, const int* block_expert,
   if (T == 0 || Dout == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (block_t <= 16)
-    return launch_mma<1, kTrans>(x, w, block_expert, block_rows, out, T, E,
-                                 Din, Dout, block_t, s);
+    return launch_mma<1>(x, w, block_expert, block_rows, out, T, E, Din,
+                         Dout, block_t, s);
   if (block_t <= 32)
-    return launch_mma<2, kTrans>(x, w, block_expert, block_rows, out, T, E,
-                                 Din, Dout, block_t, s);
-  return launch_mma<4, kTrans>(x, w, block_expert, block_rows, out, T, E,
-                               Din, Dout, block_t, s);
+    return launch_mma<2>(x, w, block_expert, block_rows, out, T, E, Din,
+                         Dout, block_t, s);
+  return launch_mma<4>(x, w, block_expert, block_rows, out, T, E, Din, Dout,
+                       block_t, s);
 }
 
 }  // namespace
@@ -605,8 +580,8 @@ int gmm_fwd(int dtype, const void* x, const void* w, const int* block_expert,
 int gmm_fwd_mma(const void* x, const void* w, const int* block_expert,
                 const int* block_rows, void* out, int T, int E, int Din,
                 int Dout, int block_t, void* stream) {
-  return gmm_mma<false>(x, w, block_expert, block_rows, out, T, E, Din, Dout,
-                        block_t, stream);
+  return gmm_mma(x, w, block_expert, block_rows, out, T, E, Din, Dout,
+                 block_t, stream);
 }
 
 // The input gradient on the CUDA cores: dx (T, Din) = block i of dy (T,
@@ -618,14 +593,6 @@ int gmm_dx(int dtype, const void* dy, const void* w, const int* block_expert,
            int block_t, void* stream) {
   return gmm_simt<true>(dtype, dy, w, block_expert, block_rows, dx, T, E,
                         Dout, Din, block_t, stream);
-}
-
-// The input gradient on the tensor cores (gmm_fwd_mma's conditions).
-int gmm_dx_mma(const void* dy, const void* w, const int* block_expert,
-               const int* block_rows, void* dx, int T, int E, int Din,
-               int Dout, int block_t, void* stream) {
-  return gmm_mma<true>(dy, w, block_expert, block_rows, dx, T, E, Dout, Din,
-                       block_t, stream);
 }
 
 }  // extern "C"

@@ -19,13 +19,17 @@ without reading the weights.
 
 Training goes through :class:`GroupedMatmul`, which :func:`gmm` takes when
 grad is enabled and x or w requires grad; the reference differentiates its
-``expert_ffn`` einsums by autodiff.  Its backward is two kernels:
-:func:`gmm_dx`, the forward's kernels reading each expert's weights as
-their transpose (``csrc/moe_gmm.cu``, no copy of w), and :func:`gmm_dw`,
-the grouped weight-gradient kernels of ``csrc/moe_gmm_dw.cu`` (plain
-versions ``ref.gmm`` on ``w.transpose(1, 2)`` and ``ref.gmm_dw`` on the
-CPU).  Both take the forward's row counts: dx is zero on the rows past a
-count, whose outputs do not depend on x, and dw reads none of them.
+``expert_ffn`` einsums by autodiff.  Its backward is two kernels, each
+reading the forward's w as it is (no copy): :func:`gmm_dx`, on the tensor
+cores ``csrc/moe_gmm_dx.cu`` (wgmma fed by TMA, each expert's weights read
+once a call) and on the CUDA cores the forward's kernel reading w as its
+transpose (``csrc/moe_gmm.cu``), and :func:`gmm_dw`, the grouped
+weight-gradient kernels of ``csrc/moe_gmm_dw.cu`` (on the tensor cores
+wgmma fed by TMA, persistent over the experts' tiles); plain versions
+``ref.gmm`` on ``w.transpose(1, 2)`` and ``ref.gmm_dw`` on the CPU.  Both
+take the forward's row counts: dx is zero on the rows past a count, whose
+outputs do not depend on x, and dw sums none of them.  The tensor-core
+kernels are persistent; their C entries size the launch themselves.
 ``gmm_dx.launches`` and ``gmm_dw.launches`` count launches, and their
 ``routes`` count them by kernel, picked by :func:`_variant` as the
 forward's.
@@ -43,9 +47,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P] * 5 + [_I] * 5 + [_P]
 _LIB = _nvcc.Library("moe_gmm", {"gmm_fwd": [_I] + _ARGS,
                                  "gmm_fwd_mma": _ARGS,
-                                 "gmm_dx": [_I] + _ARGS,
-                                 "gmm_dx_mma": _ARGS},
+                                 "gmm_dx": [_I] + _ARGS},
                      "gmm_error_string")
+_DX_LIB = _nvcc.Library("moe_gmm_dx", {"gmm_dx_mma": _ARGS},
+                        "gmm_dx_error_string")
 _DW_LIB = _nvcc.Library("moe_gmm_dw", {"gmm_dw": [_I] + _ARGS,
                                        "gmm_dw_mma": _ARGS},
                         "gmm_dw_error_string")
@@ -141,10 +146,11 @@ def gmm_dx(dy, w, block_expert, block_t, block_rows=None):
     (T, Dout) times ``w[block_expert[i]]ᵀ``, accumulated in float32, rows
     past ``block_rows[i]`` zero.  w (E, Din, Dout) as the forward took it:
     the kernels read each expert's weights as their transpose, and nothing
-    is copied.  Returns (T, Din) in dy's dtype.  On CUDA tensors one of
-    ``csrc/moe_gmm.cu``'s kernels in its transposed instance, on the route
-    :func:`_variant` picks (``gmm_dx.routes``); on CPU tensors
-    ``ref.gmm(dy, w.transpose(1, 2), ...)``."""
+    is copied.  Returns (T, Din) in dy's dtype.  On CUDA tensors, on the
+    route :func:`_variant` picks (``gmm_dx.routes``), ``csrc/moe_gmm_dx.cu``
+    (``"mma"``) or the CUDA-core kernel of ``csrc/moe_gmm.cu`` in its
+    transposed instance; on CPU tensors ``ref.gmm(dy, w.transpose(1, 2),
+    ...)``."""
     if dy.dim() != 2 or w.dim() != 3 or w.shape[2] != dy.shape[1]:
         raise ValueError(f"gmm_dx: dy {tuple(dy.shape)}, w "
                          f"{tuple(w.shape)}")
@@ -160,13 +166,13 @@ def gmm_dx(dy, w, block_expert, block_t, block_rows=None):
     dx = torch.empty((T, Din), dtype=dy.dtype, device=dy.device)
     args = (dy.data_ptr(), w.data_ptr(), be.data_ptr(),
             None if rows is None else rows.data_ptr(), dx.data_ptr(), T, E,
-            Din, Dout, block_t, _nvcc.stream(dy))
+            Din, Dout, block_t)
     route = _variant(dy.dtype, Din, Dout,
                      (dy.data_ptr(), w.data_ptr(), dx.data_ptr()))
     if route == "mma":
-        _LIB.call("gmm_dx_mma", *args)
+        _DX_LIB.call("gmm_dx_mma", *args, _nvcc.stream(dy))
     else:
-        _LIB.call("gmm_dx", _DTYPES[dy.dtype], *args)
+        _LIB.call("gmm_dx", _DTYPES[dy.dtype], *args, _nvcc.stream(dy))
     gmm_dx.launches += 1
     gmm_dx.routes[route] += 1
     return dx
@@ -182,10 +188,10 @@ def gmm_dw(x, dy, block_expert, block_t, block_rows, E):
     ``x_iᵀ @ dy_i`` over each block's counted rows, cast once; an expert
     with no counted row is zero.  x (T, Din) and dy (T, Dout) of one
     dtype.  On CUDA tensors one of ``csrc/moe_gmm_dw.cu``'s kernels, on the
-    route :func:`_variant` picks (``gmm_dw.routes``): one thread block a
-    tile of one expert's gradient, which finds its expert's blocks on the
-    device and sums them in a fixed order, so two calls are bitwise equal;
-    on CPU tensors ``ref.gmm_dw``."""
+    route :func:`_variant` picks (``gmm_dw.routes``): each tile of an
+    expert's gradient finds the expert's blocks on the device and sums them
+    in a fixed order, so two calls are bitwise equal; on CPU tensors
+    ``ref.gmm_dw``."""
     if x.dim() != 2 or dy.dim() != 2 or dy.shape[0] != x.shape[0] or E < 1:
         raise ValueError(f"gmm_dw: x {tuple(x.shape)}, dy "
                          f"{tuple(dy.shape)}, E {E}")
@@ -200,13 +206,13 @@ def gmm_dw(x, dy, block_expert, block_t, block_rows, E):
     dw = torch.empty((E, Din, Dout), dtype=x.dtype, device=x.device)
     args = (x.data_ptr(), dy.data_ptr(), be.data_ptr(),
             None if rows is None else rows.data_ptr(), dw.data_ptr(), T, E,
-            Din, Dout, block_t, _nvcc.stream(x))
+            Din, Dout, block_t)
     route = _variant(x.dtype, Din, Dout,
                      (x.data_ptr(), dy.data_ptr(), dw.data_ptr()))
     if route == "mma":
-        _DW_LIB.call("gmm_dw_mma", *args)
+        _DW_LIB.call("gmm_dw_mma", *args, _nvcc.stream(x))
     else:
-        _DW_LIB.call("gmm_dw", _DTYPES[x.dtype], *args)
+        _DW_LIB.call("gmm_dw", _DTYPES[x.dtype], *args, _nvcc.stream(x))
     gmm_dw.launches += 1
     gmm_dw.routes[route] += 1
     return dw

@@ -22,7 +22,12 @@ the grouped matmul's backward and the MoE blocks' gradients.
   under ``jax.vmap`` over "model" inside ``jax.vmap`` over "data", at P_tp
   1/2/4 and P_dp 1/2, with drops (each shard's aux cotangent random);
 * the argument lists ``gmm_dx`` and ``gmm_dw`` hand their C entry points,
-  and their routing, with ``on_card`` forced, as no kernel runs here.
+  and their routing, with ``on_card`` forced, as no kernel runs here;
+* the persistent tensor-core kernels' launch geometry, as their C
+  entries size it from the tile constants in ``csrc/moe_gmm_dx.cu`` and
+  ``csrc/moe_gmm_dw.cu``: walked as the kernels walk it, every output
+  tile exactly once and a pass's stores inside its pass, at
+  ``chip_smoke.py``'s phase 2b shapes and SM counts of 132, 7 and 1.
 
 Inputs are made with numpy from a seed.  Tolerances: the grouped matmul's
 backward in float32 within 1e-5 of the largest |element| (both sides sum
@@ -35,6 +40,8 @@ block's gradients per leaf within 1e-4 of the leaf's largest
 |element| (``GRAD_TOL``, chip_smoke.py's card-against-CPU limit: float32
 through dispatch, three products, SiLU and combine in other orders)."""
 import ctypes
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -335,14 +342,14 @@ def test_backward_wrappers_match_their_c_signatures(monkeypatch, dtype, off,
     block experts and counts, and the shapes (T, E, Din, Dout, block_t),
     each pointer an int (the counts None when there are none), exactly the
     arguments each C signature declares; the entry points follow
-    ``_variant`` (``*_mma`` on the tensor-core route, the CUDA-core ones
-    with their dtype code first), and each wrapper counts one launch and
-    its route.  Rehearsed on the CPU with ``on_card`` forced true and the
-    library calls recorded, as no kernel runs here."""
+    ``_variant`` (``*_mma`` on the tensor-core route, ``gmm_dx_mma`` from
+    its own library; the CUDA-core ones with their dtype code first), the
+    stream last, and each wrapper counts one launch and its route.  Rehearsed on the CPU with ``on_card`` forced true and
+    the library calls recorded, as no kernel runs here."""
     got = []
     monkeypatch.setattr(_nvcc, "on_card", lambda what, *t: True)
     monkeypatch.setattr(_nvcc, "stream", lambda t: 7)
-    for lib in (MG._LIB, MG._DW_LIB):
+    for lib in (MG._LIB, MG._DX_LIB, MG._DW_LIB):
         monkeypatch.setattr(lib, "call",
                             lambda fn, *a, lib=lib: got.append((lib, fn, a)))
     T, E, Din, Dout, BT = 48, 3, 64, 128, 8
@@ -361,6 +368,9 @@ def test_backward_wrappers_match_their_c_signatures(monkeypatch, dtype, off,
         names = [fn for _lib, fn, _a in got]
         sfx = "_mma" if route == "mma" else ""
         assert names == [f"gmm_fwd{sfx}", f"gmm_dx{sfx}", f"gmm_dw{sfx}"]
+        libs = [lib for lib, _fn, _a in got]
+        assert libs == [MG._LIB, MG._DX_LIB if route == "mma" else MG._LIB,
+                        MG._DW_LIB]
         for lib, fn, args in got:
             sig = lib.signatures[fn]
             assert len(args) == len(sig)
@@ -371,6 +381,7 @@ def test_backward_wrappers_match_their_c_signatures(monkeypatch, dtype, off,
             if route == "simt":
                 assert args[0] == {torch.float32: 0, torch.bfloat16: 1}[dtype]
             assert a[5:10] == (T, E, Din, Dout, BT)
+            assert len(a) == 11 and a[-1] == 7
             assert (a[3] is None) == (rows is None)
             if fn != f"gmm_dw{sfx}":
                 assert a[1] == w.data_ptr()
@@ -378,3 +389,105 @@ def test_backward_wrappers_match_their_c_signatures(monkeypatch, dtype, off,
             k = getattr(MG, n)
             assert k.launches == before[n][0] + 1
             assert k.routes[route] == before[n][1][route] + 1
+
+
+# ------------------------------------------- the persistent kernels' walk
+CSRC = Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc"
+
+
+def _constants(source, *names):
+    """The ``constexpr int`` constants ``names`` of ``csrc/<source>``."""
+    text = (CSRC / source).read_text()
+    out = []
+    for name in names:
+        found = re.findall(rf"constexpr int {name} = (\d+);", text)
+        assert len(found) == 1, (source, name)
+        out.append(int(found[0]))
+    return out
+
+
+def _phase_2b_shapes():
+    """(E, Din, Dout, block_t, blocks) of every case of ``chip_smoke.py``'s
+    phase 2b (its ``gmm_bwd_cases``, blocks as ``gmm_bwd_inputs`` makes
+    them), each with Din and Dout swapped too (dx's product is Dout deep
+    and Din wide)."""
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_cases", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    shapes = set()
+    for _label, E, din, dout, bt, pd, _dt, order, _kind, _mis in \
+            cs.gmm_bwd_cases():
+        nb = pd * E if order == "arange" else max(2 * E, 4)
+        shapes |= {(E, din, dout, bt, nb), (E, dout, din, bt, nb)}
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("n_sm", [132, 7, 1])
+def test_dx_geometry_covers_every_output_tile_once(n_sm):
+    """``gmm_dx_mma``'s launch as its C entry sizes it (passes of
+    min(block_t, kPass) rows, 256-column tiles for passes of at most kWide
+    rows and 128-column ones above, min(items, SMs) persistent CTAs taking
+    items c, c + ctas, ..., each decoded as ``item_at`` does: block, pass,
+    column tile) covers every (row, column tile) of dx exactly once; a
+    pass holds at most five m64 tiles, and its m64 tiles' 64-row stores,
+    clipped to the block, stay inside the pass (so no pass writes zeros
+    over the next one's rows)."""
+    k_pass, k_wide = _constants("moe_gmm_dx.cu", "kPass", "kWide")
+    assert k_pass <= 5 * 64
+    for E, Din, Dout, bt, nb in _phase_2b_shapes():
+        T = nb * bt
+        pass_rows = min(bt, k_pass)
+        tile_n = 256 if pass_rows <= k_wide else 128
+        passes, tiles = -(-bt // pass_rows), -(-Din // tile_n)
+        items = nb * passes * tiles
+        ctas = min(items, n_sm)
+        walked = sorted(it for c in range(ctas)
+                        for it in range(c, items, ctas))
+        assert walked == list(range(items))
+        hits = np.zeros((T, tiles), np.int64)
+        for it in walked:
+            bp, tile = divmod(it, tiles)
+            blk, p = divmod(bp, passes)
+            p0 = p * pass_rows
+            span = min(pass_rows, bt - p0)
+            assert span >= 1
+            stored = min(p0 + 64 * -(-span // 64), bt)
+            assert stored == p0 + span, (bt, p0, span)
+            hits[blk * bt + p0:blk * bt + p0 + span, tile] += 1
+        assert (hits == 1).all(), (E, Din, Dout, bt, nb, n_sm)
+        assert (tiles - 1) * tile_n < Din <= tiles * tile_n
+
+
+@pytest.mark.parametrize("n_sm", [132, 7, 1])
+def test_dw_geometry_covers_every_gradient_tile_once(n_sm):
+    """``gmm_dw_mma``'s launch as its C entry sizes it: an item is (expert,
+    pair of kTileM x kTileN tile rows, tile column), the tile column
+    fastest; clusters of two CTAs, as many as fit the card at once (here
+    at most ``n_sm // 2``, and at most one an item), take items c, c +
+    clusters, ..., CTA rank r the item's tile row 2 * pair + r.  For every
+    such cluster count the items cover every tile of every expert's (Din,
+    Dout) gradient exactly once, an expert's tiles adjacent in item order;
+    a second tile row past Din is only the odd tile count's last."""
+    tm, tn = _constants("moe_gmm_dw.cu", "kTileM", "kTileN")
+    for E, Din, Dout, _bt, _nb in _phase_2b_shapes():
+        tiles_m, tiles_n = -(-Din // tm), -(-Dout // tn)
+        pairs_m = -(-tiles_m // 2)
+        items = E * pairs_m * tiles_n
+        most = min(items, max(1, n_sm // 2))
+        for pairs in sorted({most, max(1, most - 1), 1}):
+            walked = sorted(it for c in range(pairs)
+                            for it in range(c, items, pairs))
+            assert walked == list(range(items))
+            hits = np.zeros((E, 2 * pairs_m, tiles_n), np.int64)
+            experts = []
+            for it in walked:
+                e, tile = divmod(it, pairs_m * tiles_n)
+                p, col = divmod(tile, tiles_n)
+                for rank in (0, 1):
+                    hits[e, 2 * p + rank, col] += 1
+                experts.append(e)
+            assert (hits == 1).all(), (E, Din, Dout, n_sm, pairs)
+            assert hits.shape[1] - tiles_m in (0, 1)
+            assert experts == sorted(experts)
