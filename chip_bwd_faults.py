@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Planted faults against ``chip_smoke.py``'s phase 2c comparison of the
 recurrences' backward kernels, RG-LRU and WKV6, and its phase 2b
-comparison of the grouped matmul's backward, ``gmm_dx`` and ``gmm_dw``.
+comparisons of the grouped matmul's backward, ``gmm_dx`` and ``gmm_dw``,
+and of flash attention's backward on its ``wgmma`` route.
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit:
@@ -9,19 +10,30 @@ toolkit:
     python3 chip_bwd_faults.py
 
 It builds copies of ``src/repro_torch/kernels/csrc/rglru_scan.cu``, of
-``wkv6_bwd.cu``, of ``moe_gmm_dx.cu`` and of ``moe_gmm_dw.cu`` (with the
-headers beside them) in temporary directories, each with one fault
+``wkv6_bwd.cu``, of ``moe_gmm_dx.cu``, of ``moe_gmm_dw.cu`` and of
+``flash_attention_bwd_sm90.cu`` (with the headers beside them) in
+temporary directories, each with one fault
 planted in a backward kernel, and runs each on its phase's cases of that
 kernel: the RG-LRU's training-shape, D = 100 and log_a = 0 cases, bf16 and
 float32, each on the tile states the kernel as it is kept in its forward
 (the faults that cross tiles only on the cases of more than one tile);
 the WKV's training-shape and w = 0 cases; the grouped matmul's backward
 at its bf16 training shapes and edge cases (rows past the counts hold
-random values).  For each copy, case and output it prints the reading of
-the comparison (``chip_smoke.elementwise_err`` under ``BWD_TOL``: above 1
-fails), for the RG-LRU beside the max-scaled one it replaced (max |got -
-plain| over max(1, max |plain|), held to 1e-4 in float32 and 1e-2 in
-bf16).  Each kernel as it is runs first.  Exits non-zero if a kernel as
+random values); flash attention's backward at phase 2b's bf16 cases at D
+192 and 256 (a group of 5 under a 2,048-token window; a group of 2 under
+a window of 100, where a key tile's last query tile holds a third of its
+keys' pairs (under the 2,048-token window one query tile of 33 moves dk
+by less than the tolerance); MLA's D 192 with v zero-padded; a group of
+3 over a ragged Sk).  Phase 2b holds each ``wgmma`` case within the
+tolerance of both the plain version that rounds P and dS to bf16 and the
+unrounded one, whose difference is a small part of the tolerance, so no
+fault of the rounding alone is planted: the dS fault corrupts dQ's
+operand fragments instead.  For each copy, case and output it prints the
+reading of the comparison (``chip_smoke.elementwise_err`` under ``BWD_TOL``:
+above 1 fails; for flash attention phase 2b's ``bwd_rel_err`` against
+both plain versions over ``ATTN_TOL``), for the RG-LRU beside the
+max-scaled one it replaced (max |got - plain| over max(1, max |plain|),
+held to 1e-4 in float32 and 1e-2 in bf16).  Each kernel as it is runs first.  Exits non-zero if a kernel as
 it is fails the comparison or a planted fault passes it in the output it
 changes.
 """
@@ -81,6 +93,31 @@ GMM = {
         "an expert's blocks after its first skipped": (
             STEP_ROWS, "              meta[s] = {j > 0 ? 0 : rows, "
             "next == nb && j == n_list - 1 && r + kK >= b.y};", GMM_A2A)}),
+}
+# flash attention's wgmma backward (flash_attention_bwd_sm90.cu): the
+# dK/dV walk's steps over the group's heads, its window's query range,
+# dQ's dS fragments; phase 2b's bf16 cases the faults run on
+FLASH_WINDOW = "D=256 G=5 window 2048"
+FLASH_SHORT = "D=256 G=2 window 100"
+FLASH_MLA = "MLA D=192 v padded from 128"
+FLASH_RAGGED = "D=256 ragged Sk bidirectional"
+HEADS = "  const int n_steps = G * qts;"
+Q_END = "  if (a.window > 0) q_end = min(q_end, k_last - a.offset + a.window);"
+DS_FRAG = "    for (int kk = 0; kk < 4; ++kk) a_frag(f[kk], dp, kk);"
+# fault: (line, its faulty form, the outputs it changes (0 dq, 1 dk, 2
+# dv), the cases it runs on)
+FLASH = {
+    "one query head of the group left out of dK/dV": (
+        HEADS, "  const int n_steps = (G - 1) * qts;", (1, 2),
+        (FLASH_WINDOW, FLASH_SHORT, FLASH_RAGGED)),
+    "the last query tile of a window skipped": (
+        Q_END, "  if (a.window > 0) q_end = min(q_end, k_last - a.offset + "
+        "a.window - kT);", (1, 2), (FLASH_SHORT,)),
+    "dQ's dS fragments corrupt: float32 bits read as bf16 pairs": (
+        DS_FRAG, "    for (int kk = 0; kk < 4; ++kk)\n"
+        "      for (int r = 0; r < 4; ++r)\n"
+        "        f[kk][r] = __float_as_uint(dp[8 * kk + 2 * r]);", (0,),
+        (FLASH_WINDOW, FLASH_SHORT, FLASH_MLA, FLASH_RAGGED)),
 }
 # kernel: (source, outputs, cases, {fault: (line, its faulty form, the
 # output it changes[, the cases it runs on, if not all])})
@@ -187,6 +224,77 @@ def gmm_faults(torch, cs, _nvcc, mg, ref, tmps, csrc, build):
     return bad
 
 
+def flash_faults(torch, cs, _nvcc, fa, ref, tmps, csrc, build):
+    """The wgmma flash backward's faults (``FLASH``) on phase 2b's cases,
+    inputs made as phase 2b makes them ((B, H, S, D) views of (B, S, H, D)
+    memory, v and dout zero past v's width, out and lse from the forward
+    kernel): the kernels as they are, then each copy with a planted fault
+    that runs on the case; returns the (fault, case) readings that went
+    the wrong way."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 12)
+    source = "flash_attention_bwd_sm90.cu"
+    src = (csrc / source).read_text()
+    copies = {"none": (csrc, None, (0, 1, 2), None)}
+    for fault, (line, faulty, outs, only) in FLASH.items():
+        tmps.append(planted(csrc, source, src, line, faulty))
+        copies[fault] = (tmps[-1], line, outs, only)
+    tol = cs.ATTN_TOL["bfloat16"]
+    bad = []
+
+    def bhsd(B, S, H, width, D):
+        t = torch.randn((B, S, H, width), generator=g, device="cuda").to(
+            torch.bfloat16)
+        return F.pad(t, (0, D - width)).transpose(1, 2)
+
+    try:
+        for label, (B, Hq, Hkv, Sq, Sk, D), kw, width in \
+                cs.flash_bwd_cases():
+            if label not in (FLASH_WINDOW, FLASH_SHORT, FLASH_MLA,
+                             FLASH_RAGGED):
+                continue
+            q, k = bhsd(B, Sq, Hq, D, D), bhsd(B, Sk, Hkv, D, D)
+            v, dout = bhsd(B, Sk, Hkv, width, D), bhsd(B, Sq, Hq, width, D)
+            mask = dict(causal=kw["causal"], window=kw.get("window"),
+                        sm_scale=kw.get("sm_scale") or D ** -0.5,
+                        offset=Sk - Sq)
+            out, lse = fa._forward(q, k, v, mask["causal"], mask["window"],
+                                   mask["sm_scale"], mask["offset"], True)
+            plain = [ref.flash_attention_bwd(
+                q.float(), k.float(), v.float(), out.float(), lse,
+                dout.float(), **mask, round_p=r)
+                for r in (torch.bfloat16, None)]
+            floor = 1e-2 * float(dout.abs().max()) * float(v.abs().max())
+            for fault, (where, line, outs, only) in copies.items():
+                if only is not None and label not in only:
+                    continue
+                _nvcc.CSRC = where
+                _nvcc.BUILD = build if where is csrc else where / "build"
+                fa._BWD_SM90_LIB._lib = None
+                routes = dict(fa.flash_attention_bwd.routes)
+                got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **mask)
+                torch.cuda.synchronize()
+                if fa.flash_attention_bwd.routes["wgmma"] != \
+                        routes["wgmma"] + 1:
+                    bad.append(f"flash_attention_bwd, {fault} [{label}]: "
+                               f"not on the wgmma route")
+                errs = [max(cs.bwd_rel_err(a, p[i], floor) for p in plain)
+                        / tol for i, a in enumerate(got)]
+                read = ", ".join(f"d{n} {e:.3g}" for n, e in
+                                 zip("qkv", errs))
+                print(f"flash_attention_bwd, {fault} [{label}]: {read} of "
+                      f"the limit", flush=True)
+                if (line is None and max(errs) > 1) or (
+                        line is not None and min(errs[i] for i in outs) <= 1):
+                    bad.append(f"flash_attention_bwd, {fault} [{label}]")
+                del got
+            del q, k, v, dout, out, lse, plain
+            torch.cuda.empty_cache()
+    finally:
+        _nvcc.CSRC, _nvcc.BUILD = csrc, build
+    return bad
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -196,6 +304,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from repro_torch.kernels import _nvcc, ref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as mg
     from repro_torch.kernels import rglru_scan as rs
     from repro_torch.kernels import wkv6 as wk
@@ -246,10 +355,11 @@ def main() -> int:
                         bad.append(f"{name}, {fault} [{label}]")
                     del got
         bad += gmm_faults(torch, cs, _nvcc, mg, ref, tmps, csrc, build)
+        bad += flash_faults(torch, cs, _nvcc, fa, ref, tmps, csrc, build)
     finally:
         _nvcc.CSRC, _nvcc.BUILD = csrc, build
         for lib in [lib for lib, _plain in wrappers.values()] + [
-                mg._DX_LIB, mg._DW_LIB]:
+                mg._DX_LIB, mg._DW_LIB, fa._BWD_SM90_LIB]:
             lib._lib = None
         for tmp in tmps:
             shutil.rmtree(tmp, ignore_errors=True)

@@ -40,10 +40,12 @@ runs the groups asked for (all nine by default):
   prompts) as ``chip_smoke.py``'s phase 5 does, with its checks and launch
   counts;
 * ``bwd``: times ``flash_attention_bwd`` at llama3.2-3b's training shape
-  (B 2, 24 query heads on 8 kv heads, S 4096, D 128, bf16, causal; q, k,
-  v and dout (B, H, S, D) views of (B, S, H, D) memory, out and lse from
-  the forward kernel) and trains llama3.2-3b at full width and depth for
-  3 steps of 2 x 4096 tokens (``remat="block"``, AdamW) as
+  (B 2, 24 query heads on 8 kv heads, S 4096, D 128, bf16, causal) and
+  at recurrentgemma-2b's (B 2, 10 query heads on 1 kv head, S 4096, D
+  256, bf16, a 2,048-token window; q, k, v and dout (B, H, S, D) views of
+  (B, S, H, D) memory, out and lse from the forward kernel), then trains
+  llama3.2-3b and recurrentgemma-2b at full width and depth for 3 steps
+  each of 2 x 4096 tokens (``remat="block"``, AdamW) as
   ``chip_smoke.py``'s phase 7 does, on one repeated batch: step ms and
   tokens/s over the steps after the first, the first step's ms, losses
   finite;
@@ -101,7 +103,8 @@ SOURCES = {"moe": ("flash_attention", "decode_attention", "rglru_scan",
            "copy": ("remote_copy",), "dma": ("remote_dma",),
            "rwkv": ("wkv6",),
            "rglru": ("flash_attention", "decode_attention", "rglru_scan"),
-           "bwd": ("flash_attention", "flash_attention_bwd"),
+           "bwd": ("flash_attention", "flash_attention_bwd",
+                   "flash_attention_bwd_sm90", "rglru_scan"),
            "wkvbwd": ("wkv6", "wkv6_bwd"),
            "rglrubwd": ("flash_attention", "flash_attention_bwd",
                         "rglru_scan"),
@@ -226,24 +229,28 @@ def turn(root: str, tag: str, groups) -> dict:
 
 
 def flash_bwd_and_training(torch, cs, timed, res):
-    """Flash attention's backward at the training shape, then a few
-    training steps of llama3.2-3b as phase 7 runs them.  Inputs and
-    weights are made here from a seed, alike in both trees."""
+    """Flash attention's backward at llama3.2-3b's and recurrentgemma-2b's
+    training shapes, then a few training steps of each model as phase 7
+    runs them.  Inputs and weights are made here from a seed, alike in
+    both trees."""
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(cs.SEED + 13)
-    B, Hq, Hkv, S, D = cs.TRAIN_BATCH, 24, 8, cs.TRAIN_SEQ, 128
+    B, S = cs.TRAIN_BATCH, cs.TRAIN_SEQ
+    for Hq, Hkv, D, window in ((24, 8, 128, None), (10, 1, 256, 2048)):
+        def bhsd(H):
+            return torch.randn((B, S, H, D), generator=g, device="cuda").to(
+                torch.bfloat16).transpose(1, 2)
 
-    def bhsd(H):
-        return torch.randn((B, S, H, D), generator=g, device="cuda").to(
-            torch.bfloat16).transpose(1, 2)
-
-    q, k, v, dout = bhsd(Hq), bhsd(Hkv), bhsd(Hkv), bhsd(Hq)
-    out, lse = fa._forward(q, k, v, True, None, D ** -0.5, 0, True)
-    timed(f"flash_attention_bwd bf16, B={B} H=24/8 S={S} D={D} causal",
-          lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
-                                         causal=True), 10)
-    del q, k, v, dout, out, lse
+        q, k, v, dout = bhsd(Hq), bhsd(Hkv), bhsd(Hkv), bhsd(Hq)
+        out, lse = fa._forward(q, k, v, True, window, D ** -0.5, 0, True)
+        mask = "causal" if window is None else f"window {window}"
+        timed(f"flash_attention_bwd bf16, B={B} H={Hq}/{Hkv} S={S} D={D} "
+              f"{mask}",
+              lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                             causal=True, window=window), 10)
+        del q, k, v, dout, out, lse
     train_steps(torch, cs, res, cs.TRAIN_ARCH, "adamw")
+    train_steps(torch, cs, res, "recurrentgemma-2b", "adamw")
 
 
 def wkv_bwd_and_training(torch, cs, timed, res):

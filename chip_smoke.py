@@ -75,17 +75,19 @@ exits non-zero and prints no result:
    of 8, a step's 4 tokens routed top-8), and at odd ones (all-zero
    counts, partial counts over garbage rows), in float32 and bfloat16 (tolerances at ``GMM_TOL``; each
    case on the kernel it should take, rows past the counts exactly zero);
-2b. hold flash attention's backward (``csrc/flash_attention_bwd.cu``)
-   against its plain version: D 64, 128, 192 (v zero-padded from 128, as
-   MLA's, whose padded columns must get zero gradient) and 256, groups of
-   1, 3, 5 and 8, causal, a 2048-token window, Sq != Sk, S 1, 17 and
-   4096, bidirectional, D 40 and 96 (zero-filled on the tensor cores),
-   bf16 rows off 16 bytes, bf16 and float32 (tolerance ``ATTN_TOL``
-   relative to the plain gradient's max), each case on the route
-   ``_bwd_variant`` picks (bf16 rows on 16 bytes at D <= 128 on the
-   tensor cores, the rest on the CUDA cores), the forward's log-sum-exp
-   against the plain one's, two calls bitwise equal, and a call's device
-   operations (the three kernels once each) under ``torch.profiler``;
+2b. hold flash attention's backward (``csrc/flash_attention_bwd.cu`` and
+   ``csrc/flash_attention_bwd_sm90.cu``) against its plain version: D 64,
+   128, 192 (v zero-padded from 128, as MLA's, whose padded columns must
+   get zero gradient) and 256, groups of 1, 3, 5 and 8, causal, a
+   2048-token window, Sq != Sk, S 1, 17 and 4096, bidirectional, D 40,
+   96, 136 and 200 (zero-filled on the tensor cores), bf16 rows off 16
+   bytes at D 128 and 256 and bf16 at D 252 (the CUDA cores), bf16 and
+   float32 (tolerance ``ATTN_TOL`` relative to the plain gradient's max),
+   each case on the route ``_bwd_variant`` picks (bf16 rows on 16 bytes
+   at D <= 128 on ``mma.sync``, above it on ``wgmma`` fed by TMA, the rest
+   on the CUDA cores), the forward's log-sum-exp against the plain one's,
+   two calls bitwise equal, and a call's device operations (each route's
+   three kernels once each) under ``torch.profiler``;
    also at the vlm's and whisper's training shapes (whisper's encoder, 20
    heads of 64 over 1,500² frames, bidirectional; its cross-attention,
    224 queries over 1,500 keys; the vision cross layers', 512 over 1,601,
@@ -252,7 +254,8 @@ exits non-zero and prints no result:
    backward's shares); then, at full width and depth, FAMILY_STEPS steps
    each of recurrentgemma-2b (2 x 4,096 tokens, AdamW: exactly 36 RG-LRU
    scans and 18 backward calls a step, all on 16-byte copies, 16 flash
-   forwards and 8 backward calls on the CUDA cores at D 256), rwkv6-7b (2
+   forwards and 8 backward calls on the ``wgmma`` route at D 256, and the
+   flash backward's share of the profiled step), rwkv6-7b (2
    x 4,096, Adafactor: exactly 64 WKV forwards on the float32 sequential
    kernel and 32 backward calls), whisper-large-v3 (2 x 224 tokens over
    1,500 frames, AdamW: 192 flash forwards and 96 backward calls, on the
@@ -291,9 +294,11 @@ exits non-zero and prints no result:
    backward's row at the training shape, with the backward of SDPA's
    output beside it; the RG-LRU's and WKV6's backward rows at their
    training shapes, with their device operations a call; the flash
-   backward's row also at recurrentgemma-2b's (D 256, the CUDA-core
-   route), whisper's encoder and the vision cross layers' training shapes,
-   with SDPA's backward and its backend beside each; WKV6's row with
+   backward's row also at recurrentgemma-2b's (D 256, the ``wgmma``
+   route), deepseek-v3's MLA (D 192, v 128 zero-padded), whisper's
+   encoder and the vision cross layers' training shapes, with SDPA's
+   backward and its backend beside each, and a row of the ``wgmma``
+   route's own at recurrentgemma-2b's shape; WKV6's row with
    the float32 training form at rwkv6-7b's training shape; the grouped
    matmul's backward, ``gmm_dx`` and ``gmm_dw``, at llama4-maverick's and
    deepseek-v3's training shapes with ``torch.bmm`` beside them), the
@@ -553,8 +558,9 @@ def ptxas_usage(_nvcc, name, kernel):
         try:
             out = subprocess.run(
                 [_nvcc._nvcc(), *_nvcc.FLAGS, "-o", str(tmp),
-                 str(_nvcc.CSRC / f"{name}.cu")], capture_output=True,
-                text=True, check=True, timeout=600).stdout
+                 str(_nvcc.CSRC / f"{name}.cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, check=True,
+                timeout=600).stdout
         finally:
             tmp.unlink(missing_ok=True)
     return parse_ptxas(out, kernel)
@@ -576,6 +582,25 @@ def parse_ptxas(out, kernel):
             usage[fn][0] = int(line.split("Used", 1)[1].split()[0])
             fn = None
     return usage
+
+
+def check_flash_bwd_sm90_build(_nvcc):
+    """Flash attention's backward at D 192 / 256
+    (``csrc/flash_attention_bwd_sm90.cu``, route ``"wgmma"``): the dK/dV
+    and dQ walks' two instances each run HGMMA (``wgmma``) and no HMMA,
+    and none of the source's five kernels spills (``-Xptxas -v``)."""
+    name = "flash_attention_bwd_sm90"
+    for op, want in (("HGMMA", True), ("HMMA", False)):
+        n = sass_mma_count(_nvcc, name, "_wgmma_kernelILi", op)
+        check(len(n) == 4 and all((c > 0) == want for c in n.values()),
+              f"the wgmma flash backward kernels' {op} counts: {n}")
+        log(f"  cuobjdump -sass, {op} per wgmma flash backward kernel: {n}")
+    usage = ptxas_usage(_nvcc, name, "_kernel")
+    check(len(usage) == 5 and all(u[0] and not u[1] and not u[2]
+                                  for u in usage.values()),
+          f"the wgmma flash backward's kernels spill: {usage}")
+    log("  -Xptxas -v, wgmma flash backward kernels [registers, spill "
+        f"stores, spill loads]: {usage}")
 
 
 def check_gmm_build(_nvcc):
@@ -1967,9 +1992,14 @@ def flash_bwd_cases():
     (MLA: v zero-padded from 128) / 256, groups of 1, 3, 5 and 8, causal,
     a 2048-token window, Sq != Sk, S = 1 and 17, bidirectional; D 40 and
     96, which the tensor-core instances at 64 and 128 take zero-filled;
-    rows one element into their buffer (bf16 rows off 16 bytes, for
-    the CUDA-core route); and the vlm's and whisper's training shapes at
-    TRAIN_BATCH: whisper's bidirectional encoder (20 heads of 64 over
+    D 192 and 256, which the ``wgmma`` route takes in bf16 (its 256
+    instance also a ragged Sk and a window of 100, under two query
+    tiles, where each key tile's last query tile holds a third of its
+    keys' pairs), and D 136 and 200, which its 192 and 256 instances take
+    zero-filled; rows one element into their buffer, at D 128 and 256,
+    and D 252 (bf16 rows off 16 bytes or not a multiple of 8 wide, for
+    the CUDA-core route, whose 256-wide instance takes D 252 and 256);
+    and the vlm's and whisper's training shapes at TRAIN_BATCH: whisper's bidirectional encoder (20 heads of 64 over
     1,500 frames) and its cross-attention (224 queries over 1,500 keys),
     the vision cross layers' (512 queries over 1,601 context tokens, 32
     heads on 8 of 128)."""
@@ -1981,6 +2011,8 @@ def flash_bwd_cases():
          dict(causal=True, window=2048), 128),
         ("D=256 G=5 window 2048", (1, 10, 2, 2304, 2304, 256),
          dict(causal=True, window=2048), 256),
+        ("D=256 G=2 window 100", (1, 4, 2, 600, 600, 256),
+         dict(causal=True, window=100), 256),
         ("MLA D=192 v padded from 128", (2, 4, 4, 512, 512, DS_DQK),
          dict(causal=True, sm_scale=DS_DQK ** -0.5), DS_DV),
         ("Sq != Sk", (2, 6, 2, 100, 300, 128), dict(causal=True), 128),
@@ -1993,8 +2025,16 @@ def flash_bwd_cases():
          dict(causal=True), 96),
         ("D=40 G=4 zero-filled Sq != Sk", (1, 8, 2, 60, 130, 40),
          dict(causal=True), 40),
+        ("D=200 G=3 ragged Sk zero-filled", (1, 6, 2, 130, 250, 200),
+         dict(causal=True), 200),
+        ("D=136 G=2 zero-filled", (2, 4, 2, 200, 200, 136),
+         dict(causal=True), 136),
         ("misaligned rows D=128 G=2", (2, 8, 4, 100, 100, 128),
          dict(causal=True), 128),
+        ("misaligned rows D=256 G=5 window", (1, 10, 2, 600, 600, 256),
+         dict(causal=True, window=300), 256),
+        ("D=252 G=2 ragged Sk", (1, 4, 2, 150, 230, 252),
+         dict(causal=True), 252),
         ("whisper encoder 20 of 64 1500^2 bidirectional",
          (TRAIN_BATCH, 20, 20, 1500, 1500, 64), dict(causal=False), 64),
         ("whisper cross 224 x 1500", (TRAIN_BATCH, 20, 20, WHISPER_PROMPT,
@@ -2022,13 +2062,14 @@ def phase_flash_bwd_kernel(torch):
     gradient's max), a second call bitwise equal to the first, MLA's padded
     v columns' gradient zero; and the device operations of one backward
     call under ``torch.profiler``, on each route.  Each call runs on the
-    route ``_bwd_variant`` picks (``flash_attention_bwd.routes``): every
-    bf16 case at D <= 128 with rows on 16 bytes on the tensor cores
-    (``"mma"``; D 40 and 96 zero-filled to an instance's width), against
-    both the plain version that rounds P and dS to bf16 as the kernels do
-    and the unrounded one; float32, bf16 at D 192 and 256 and bf16 rows
-    off 16 bytes on the CUDA cores (``"simt"``, against the unrounded
-    one).  The floor of the relative error's denominator is 1e-2
+    route
+    ``_bwd_variant`` picks (``flash_attention_bwd.routes``): every bf16
+    case with rows on 16 bytes on the tensor cores, at D <= 128 on
+    ``"mma"`` (D 40 and 96 zero-filled to an instance's width) and at D
+    192 and 256 on ``"wgmma"``, against both the plain version that rounds
+    P and dS to bf16 as the kernels do and the unrounded one; float32 and
+    bf16 rows off 16 bytes on the CUDA cores (``"simt"``, against the
+    unrounded one).  The floor of the relative error's denominator is 1e-2
     of the largest |dO|·|v| product, a term of dP and Dsum; it binds only
     where a gradient vanishes (each case logs both).  Returns the largest
     relative errors."""
@@ -2079,8 +2120,8 @@ def phase_flash_bwd_kernel(torch):
             def bwd():
                 return fa.flash_attention_bwd(q, k, v, out, lse, dout,
                                               **mask)
-            route = "mma" if dt == torch.bfloat16 and D <= 128 \
-                and not odd else "simt"
+            route = "simt" if dt != torch.bfloat16 or odd or D % 8 else \
+                "mma" if D <= fa.MMA_BWD_MAX_HEAD_DIM else "wgmma"
             picked = fa._bwd_variant(
                 dt, D, [st for t in (q, k, v, out, dout)
                         for st in t.stride()[:3]],
@@ -2105,7 +2146,7 @@ def phase_flash_bwd_kernel(torch):
             rounded = ref.flash_attention_bwd(
                 q.float(), k.float(), v.float(), out.float(), lse,
                 dout.float(), **mask, round_p=torch.bfloat16) \
-                if route == "mma" else plain
+                if route != "simt" else plain
             es, es_unrounded = [], []
             floor = 1e-2 * float(dout.abs().max()) * float(v.abs().max())
             for name, a, b, c, like in zip(("dq", "dk", "dv"), got, rounded,
@@ -4353,7 +4394,9 @@ GMM_KERNELS = {
 KERNEL_GROUPS = {
     "flash_fwd": ("::flash_fwd",),
     "flash_bwd": ("::dsum_kernel", "::dkdv_kernel", "::dq_kernel",
-                  "::dkdv_mma_kernel", "::dq_mma_kernel"),
+                  "::dkdv_mma_kernel", "::dq_mma_kernel",
+                  "::ld_wgmma_kernel", "::dkdv_wgmma_kernel",
+                  "::dq_wgmma_kernel"),
     "rglru_fwd": ("::rglru_tile_kernel",),
     "rglru_bwd": ("::rglru_bwd_",),
     "wkv6_fwd": ("::wkv6_kernel", "::wkv6_chunk_kernel"),
@@ -4510,8 +4553,8 @@ def train_launches(cfg):
     and one backward; every MoE layer six grouped matmuls (three products,
     each recomputed), three ``gmm_dx`` and three ``gmm_dw``, on the tensor
     cores in bf16 with widths multiples of 8; nothing else.  Returns ({name: launches}, {name:
-    {route: launches}}): the flash backward's calls on the tensor cores at
-    D <= 128 in bf16, else the CUDA cores; the RG-LRU's on 16-byte copies
+    {route: launches}}): the flash backward's calls in bf16 on ``mma`` at
+    D <= 128 and on ``wgmma`` above it, else the CUDA cores; the RG-LRU's on 16-byte copies
     (its rows are 5,120 bytes); the WKV's forward on the float32
     sequential kernel."""
     from repro_torch.models.transformer import layer_kinds
@@ -4525,15 +4568,15 @@ def train_launches(cfg):
         kinds = layer_kinds(cfg)
         rec = kinds.count("rec")
         attn, rwkv = len(kinds) - rec, 0
-    bwd_route = "mma" if cfg.dtype == "bfloat16" and cfg.head_dim_ <= 128 \
-        else "simt"
+    bwd_route = "simt" if cfg.dtype != "bfloat16" or cfg.head_dim_ % 8 \
+        else "mma" if cfg.head_dim_ <= 128 else "wgmma"
     launches = {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
                 "rglru_scan": 2 * rec, "rglru_scan_bwd": rec,
                 "wkv6": 2 * rwkv, "wkv6_bwd": rwkv, "gmm": 6 * n_moe,
                 "gmm_dx": 3 * n_moe, "gmm_dw": 3 * n_moe}
     gmm_route = "mma" if cfg.dtype == "bfloat16" and n_moe and \
         cfg.d_model % 8 == 0 and cfg.moe.d_ff_expert % 8 == 0 else "simt"
-    routes = {"flash_attention_bwd": {"mma": 0, "simt": 0} | {
+    routes = {"flash_attention_bwd": {"mma": 0, "wgmma": 0, "simt": 0} | {
         bwd_route: attn},
         "rglru_scan": {"vector": 2 * rec, "scalar": 0},
         "rglru_scan_bwd": {"vector": rec, "scalar": 0},
@@ -4603,6 +4646,10 @@ def train_path(torch, kernels, arch, seq, steps, optimizer,
                                         run["params"], run["opt_state"],
                                         pipe.get_batch(0))
     log(f"  profiled step: {json.dumps(prof)}")
+    if "flash_bwd_ms" in prof:
+        log(f"  {arch}: flash attention's backward {prof['flash_bwd_ms']:.3f}"
+            f" device ms of the profiled step, "
+            f"{100 * prof['flash_bwd_share']:.2f}% of its device time")
     metrics = dict(
         arch=arch, smoke=smoke, n_layers=cfg.n_layers, dtype=cfg.dtype,
         params=n_params,
@@ -5166,14 +5213,18 @@ def attention_report(torch, kernels, errs, launches):
 
 
 # row 6b's entries at the other families' training shapes: (key, arch,
-# (B, Hq, Hkv, Sq, Sk, D), causal, window)
+# (B, Hq, Hkv, Sq, Sk, D), causal, window, v's width); deepseek-v3's MLA
+# at its published width (128 heads, q.k 192, v 128 zero-padded to 192)
+# at the training batch, a shape no training path of this script runs
 FLASH_BWD_ENTRIES = [
     ("recurrentgemma_d256", "recurrentgemma-2b",
-     (TRAIN_BATCH, 10, 1, TRAIN_SEQ, TRAIN_SEQ, 256), True, 2048),
+     (TRAIN_BATCH, 10, 1, TRAIN_SEQ, TRAIN_SEQ, 256), True, 2048, 256),
+    ("mla", DS_ARCH, (TRAIN_BATCH, DS_HEADS, DS_HEADS, TRAIN_SEQ, TRAIN_SEQ,
+                      DS_DQK), True, None, DS_DV),
     ("whisper_encoder", WHISPER_ARCH,
-     (TRAIN_BATCH, 20, 20, 1500, 1500, 64), False, None),
+     (TRAIN_BATCH, 20, 20, 1500, 1500, 64), False, None, 64),
     ("vision_cross", VISION_ARCH,
-     (TRAIN_BATCH, 32, 8, SERVE_PROMPT, 1601, 128), False, None)]
+     (TRAIN_BATCH, 32, 8, SERVE_PROMPT, 1601, 128), False, None, 128)]
 
 
 def sdpa_backend(names):
@@ -5188,27 +5239,58 @@ def sdpa_backend(names):
     return "math"
 
 
-def flash_bwd_entry(torch, g, shape, causal, window):
+def plain_bwd_by_kv_heads(torch, ref, q, k, v, out, lse, dout, mask,
+                          round_p=None, dtype=None, max_bytes=2 ** 31):
+    """``ref.flash_attention_bwd`` over runs of kv heads (each with its G
+    query heads), as many a run as keep its (B, heads, Sq, Sk) float32
+    scores under ``max_bytes``, the runs' gradients concatenated: one
+    call's values (a head's gradients depend on its own heads alone), at
+    shapes whose one call would not fit the card (MLA's 128 heads at S
+    4,096).  ``dtype`` casts the inputs first (float32: gradients in
+    float32)."""
+    B, Hq, Sq = q.shape[:3]
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    per = max(1, max_bytes // (4 * B * G * Sq * Sk))
+    parts = []
+    for h0 in range(0, Hkv, per):
+        kv, qh = slice(h0, min(Hkv, h0 + per)), slice(
+            h0 * G, min(Hkv, h0 + per) * G)
+        ins = [q[:, qh], k[:, kv], v[:, kv], out[:, qh], dout[:, qh]]
+        if dtype is not None:
+            ins = [t.to(dtype) for t in ins]
+        parts.append(ref.flash_attention_bwd(
+            *ins[:4], lse[:, qh], ins[4], **mask, round_p=round_p))
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(t, dim=1) for t in zip(*parts))
+
+
+def flash_bwd_entry(torch, g, shape, causal, window, width):
     """Row 6b's numbers at one training shape in bf16: q, k, v and dout (B,
-    H, S, D) views of (B, S, H, D) memory, out and lse from the forward
+    H, S, D) views of (B, S, H, D) memory (v's and dout's columns from
+    ``width`` on zeros, as MLA pads v), out and lse from the forward
     kernel; the backward kernel's wrapper and device time, its route, its
     largest error against the plain version (rounding P and dS to bf16 as
-    the tensor-core route does, and unrounded; relative to the plain
-    gradient's max, floor as in phase 2b) and the plain version's time;
-    the bound's operations (10 * D FLOP a visible (query, key) pair a
-    head) and bytes (as the training-shape row counts them); and
-    ``torch.autograd.grad`` through one ``scaled_dot_product_attention``
-    output with the same mask, with the backend it took."""
+    the tensor-core routes do, and unrounded; relative to the plain
+    gradient's max, floor as in phase 2b), the padded columns' gradient
+    zero, and the plain version's time; the bound's operations (10 * D
+    FLOP a visible (query, key) pair a head) and bytes (as the
+    training-shape row counts them); and ``torch.autograd.grad`` through
+    one ``scaled_dot_product_attention`` output with the same mask (v
+    unpadded), with the backend it took."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     B, Hq, Hkv, Sq, Sk, D = shape
 
-    def bhsd(H, S):
-        return torch.randn((B, S, H, D), generator=g, device="cuda").to(
-            torch.bfloat16).transpose(1, 2)
+    def bhsd(H, S, w=D):
+        t = torch.randn((B, S, H, w), generator=g, device="cuda").to(
+            torch.bfloat16)
+        return F.pad(t, (0, D - w)).transpose(1, 2)
 
-    q, k, v, dout = bhsd(Hq, Sq), bhsd(Hkv, Sk), bhsd(Hkv, Sk), bhsd(Hq, Sq)
+    q, k = bhsd(Hq, Sq), bhsd(Hkv, Sk)
+    v, dout = bhsd(Hkv, Sk, width), bhsd(Hq, Sq, width)
     scale = D ** -0.5
     out, lse = fa._forward(q, k, v, causal, window, scale, Sk - Sq, True)
     mask = dict(causal=causal, window=window, sm_scale=scale,
@@ -5224,12 +5306,13 @@ def flash_bwd_entry(torch, g, shape, causal, window):
     check(len(route) == 1, f"flash_attention_bwd at {shape}: routes "
           f"{routes} -> {fa.flash_attention_bwd.routes}")
     floor = 1e-2 * float(dout.abs().max()) * float(v.abs().max())
+    check(width == D or not got[2][..., width:].any(), f"flash_attention_bwd"
+          f" at {shape}: the padded v columns got a gradient")
     err = 0.0
-    for round_p in ((torch.bfloat16, None) if route[0] == "mma"
+    for round_p in ((torch.bfloat16, None) if route[0] != "simt"
                     else (None,)):
-        exp = ref.flash_attention_bwd(q.float(), k.float(), v.float(),
-                                      out.float(), lse, dout.float(),
-                                      **mask, round_p=round_p)
+        exp = plain_bwd_by_kv_heads(torch, ref, q, k, v, out, lse, dout,
+                                    mask, round_p, torch.float32)
         for name, a, b in zip(("dq", "dk", "dv"), got, exp):
             e = bwd_rel_err(a, b, floor)
             check(e <= ATTN_TOL["bfloat16"], f"flash_attention_bwd at "
@@ -5245,23 +5328,30 @@ def flash_bwd_entry(torch, g, shape, causal, window):
         attn_mask = pos_k <= pos_q
         if window is not None:
             attn_mask &= pos_k > pos_q - window
-    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=attn_mask,
-                                             enable_gqa=True, scale=scale)
-
-    def library():
-        return torch.autograd.grad(lib_out, (qg, kg, vg), dout,
-                                   retain_graph=True)
     visible = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda") \
         if attn_mask is None else attn_mask
     pairs = B * Hq * int(visible.sum())
+    # a plain causal mask goes to SDPA as is_causal (its fastest backends)
+    sdpa_mask = dict(attn_mask=attn_mask)
+    if causal and window is None and Sq == Sk:
+        sdpa_mask = dict(is_causal=True)
+    del visible, attn_mask
+    qg, kg, vg = (t.detach().requires_grad_(True)
+                  for t in (q, k, v[..., :width]))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, **sdpa_mask,
+                                             enable_gqa=True, scale=scale)
+
+    def library():
+        return torch.autograd.grad(lib_out, (qg, kg, vg),
+                                   dout[..., :width], retain_graph=True)
     m = dict(ms=cuda_ms(kernel, 5), device_ms=device_ms(kernel, 5),
-             plain_ms=cuda_ms(lambda: ref.flash_attention_bwd(
-                 q, k, v, out, lse, dout, **mask), 1),
+             plain_ms=cuda_ms(lambda: plain_bwd_by_kv_heads(
+                 torch, ref, q, k, v, out, lse, dout, mask), 1),
              library_ms=cuda_ms(library, 5),
              library_device_ms=device_ms(library, 5),
              sdpa_backend=sdpa_backend(device_ops(torch, library, 3)),
-             flops=10 * D * pairs,
+             # S, dQ and dK at D; dP and dV at v's width
+             flops=2 * pairs * (3 * D + 2 * width),
              nbytes=2 * (3 * q.numel() + 2 * out.numel() + 2 * k.numel()
                          + 2 * v.numel()) + 4 * lse.numel(),
              route=route[0], err=err)
@@ -5270,7 +5360,7 @@ def flash_bwd_entry(torch, g, shape, causal, window):
     return m
 
 
-def flash_bwd_report(torch, errs, launches):
+def flash_bwd_report(torch, errs, launches, wgmma_launches):
     """The backward kernel's row at llama3.2-3b's training shape (B
     TRAIN_BATCH, 24 query heads on 8 kv heads, S TRAIN_SEQ, D 128, bf16,
     causal; q, k, v and dout (B, H, S, D) views of (B, S, H, D) memory, out
@@ -5286,9 +5376,14 @@ def flash_bwd_report(torch, errs, launches):
     floor as in phase 2b): ``max_abs_err`` is that error,
     ``cases_max_rel_err`` phase 2b's largest.  The entries of
     ``FLASH_BWD_ENTRIES`` (:func:`flash_bwd_entry`) are the same numbers at
-    recurrentgemma-2b's training shape (D 256 under a 2,048-token window,
-    the CUDA-core route), whisper's encoder and the vision cross layers',
-    each with its route, SDPA's backend and its family's launches."""
+    recurrentgemma-2b's training shape (D 256 under a 2,048-token window),
+    deepseek-v3's MLA (D 192, v 128 zero-padded; no path here trains it),
+    whisper's encoder and the vision cross layers', each with its route,
+    SDPA's backend and its family's launches.  A second row,
+    ``flash_attention_bwd_wgmma``, is the ``"wgmma"`` route's kernels
+    (``csrc/flash_attention_bwd_sm90.cu``) at recurrentgemma-2b's shape,
+    with the MLA entry; its launches are the calls each training path
+    made on that route (``wgmma_launches``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -5354,12 +5449,12 @@ def flash_bwd_report(torch, errs, launches):
     row["lse_max_rel_err"] = errs["lse"]
     del q, k, v, dout, out, lse, qg, kg, vg, lib_out
     torch.cuda.empty_cache()
-    for key, arch, shape, causal, window in FLASH_BWD_ENTRIES:
-        e = flash_bwd_entry(torch, g, shape, causal, window)
-        entry = row[key] = timing_row(e, launches[f"{arch} train"], e["err"],
-                                      BF16_FLOPS)
+    for key, arch, shape, causal, window, width in FLASH_BWD_ENTRIES:
+        e = flash_bwd_entry(torch, g, shape, causal, window, width)
+        entry = row[key] = timing_row(e, launches.get(f"{arch} train", 0),
+                                      e["err"], BF16_FLOPS)
         entry.update(variant=e["route"], sdpa_backend=e["sdpa_backend"],
-                     shape=list(shape), window=window)
+                     shape=list(shape), window=window, v_width=width)
         log(f"  flash_attention_bwd {key} {shape} ({e['route']}): "
             f"{e['ms']:.4f} ms/call (device {e['device_ms']:.4f}), bound "
             f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}; "
@@ -5376,7 +5471,25 @@ def flash_bwd_report(torch, errs, launches):
         f"{m['nbytes'] / 1e6:.1f} MB), plain {m['plain_ms']:.4f} ms, sdpa "
         f"backward {m['library_ms']:.4f} ms (device "
         f"{m['library_device_ms']:.4f}), launches {launches}")
-    return [row]
+    for key in ("recurrentgemma_d256", "mla"):
+        check(row[key]["variant"] == "wgmma", f"flash_attention_bwd {key} "
+              f"ran on {row[key]['variant']}, not the wgmma route")
+    n = wgmma_launches.get("recurrentgemma-2b train", 0)
+    check(n > 0, "the wgmma flash backward was not launched on "
+                 "recurrentgemma-2b's training path")
+    wrow = dict(name="flash_attention_bwd_wgmma", route="cuda",
+                source="src/repro_torch/kernels/csrc/"
+                       "flash_attention_bwd_sm90.cu",
+                replaces="src/repro/models/flash_xla.py:112",
+                variant="wgmma", shape=row["recurrentgemma_d256"]["shape"],
+                window=2048)
+    wrow.update({k: v for k, v in row["recurrentgemma_d256"].items()
+                 if k not in ("variant", "shape", "window", "v_width")})
+    wrow.update(launches=n, launches_paths=wgmma_launches, mla=row["mla"],
+                device_ops_per_call={
+                    k: v for k, v in errs["device_ops_per_call"].items()
+                    if k.startswith("wgmma")})
+    return [row, wrow]
 
 
 def wkv6_ops(B, H, S, D):
@@ -5866,8 +5979,9 @@ def main() -> int:
     try:
         log("phase 1: build")
         _nvcc.build("remote_dma", "flash_attention", "flash_attention_bwd",
-                    "decode_attention", "rglru_scan", "wkv6", "wkv6_bwd",
-                    "moe_gmm", "moe_gmm_dx", "moe_gmm_dw", "remote_copy")
+                    "flash_attention_bwd_sm90", "decode_attention",
+                    "rglru_scan", "wkv6", "wkv6_bwd", "moe_gmm",
+                    "moe_gmm_dx", "moe_gmm_dw", "remote_copy")
         for name, out in _nvcc.BUILD_LOGS.items():
             log(f"  nvcc {name}.cu:\n" + "\n".join(
                 "    " + ln for ln in out.strip().splitlines()))
@@ -5909,6 +6023,7 @@ def main() -> int:
               f"the tensor-core flash backward kernels spill: {mma}")
         log("  -Xptxas -v, flash backward kernels [registers, spill stores, "
             f"spill loads]: {usage}")
+        check_flash_bwd_sm90_build(_nvcc)
         log("phase 2: kernels against their plain versions")
         cases, errs = phase_kernels(torch, rdma, slots)
         copy_cases_, copy_errs = phase_copy_kernel(torch, rdma)
@@ -5994,7 +6109,10 @@ def main() -> int:
         kernels += flash_bwd_report(torch, bwd_errs, {
             f"{arch} train": n["flash_attention_bwd"]
             for arch, n in train_launches.items()
-            if "flash_attention_bwd" in n})
+            if "flash_attention_bwd" in n}, {
+            f"{arch} train": m["routes"]["flash_attention_bwd"]["wgmma"]
+            for arch, m in train_metrics.items()
+            if "flash_attention_bwd" in m.get("routes", {})})
         kernels += recurrent_bwd_report(torch, rec_bwd_errs, train_launches)
         kernels += recurrent_report(torch, model_kernels, rec_errs,
                                     serve_launches, train_launches)

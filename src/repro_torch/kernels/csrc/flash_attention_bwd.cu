@@ -16,9 +16,14 @@
 // strides with D contiguous; dq, dk, dv are written contiguous in the input
 // dtype.
 //
-// Two routes, each three kernels launched in order on the caller's stream
-// by one C entry point, with no atomics, so two calls give bitwise-equal
-// gradients:
+// Three routes, chosen by the wrapper (flash_attention.py, _bwd_variant):
+// bf16 rows on 16 bytes at D <= 128 take this file's tensor-core kernels
+// (flash_attention_bwd_mma), the same rows at 128 < D <= 256 the wgmma
+// kernels of flash_attention_bwd_sm90.cu, and float32 or rows off 16
+// bytes this file's CUDA-core kernels (flash_attention_bwd).  This file's
+// two routes are each three kernels launched in order on the caller's
+// stream by one C entry point, with no atomics, so two calls give
+// bitwise-equal gradients:
 //   dsum_kernel  one warp a row: Dsum = rowsum(dO o out), float32 scratch;
 //   dK/dV walk   one block per (key tile, kv head, b): the key tile's K and
 //                V stay in shared memory while the block walks the G query
@@ -66,10 +71,11 @@
 // to 64 or 128; a D in between is zero-filled in shared memory.  At D 192
 // and 256 the dK and dV accumulators of 16 keys a warp alone (192 and 256
 // float32 registers a lane) pass the 255-register limit, so those widths
-// take the CUDA-core route.
+// take the wgmma route, whose warpgroups hold an m64 x D accumulator in
+// D / 2 registers a thread.
 //
-// flash_attention_bwd (float32, and bf16 the tensor-core route does not
-// take): everything on the CUDA cores in float32.  Every tile is staged in
+// flash_attention_bwd (float32, and bf16 rows off 16 bytes at any D):
+// everything on the CUDA cores in float32.  Every tile is staged in
 // shared memory as float32 with an odd row stride, so the column walks of
 // the products (A[row][k] with k running, B[k][col] with col across the
 // lanes) hit distinct banks; each thread of 256 holds a (T/16) x (T/16)

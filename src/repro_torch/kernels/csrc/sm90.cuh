@@ -1,9 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the grouped matmul's backward
-// kernels (moe_gmm_dx.cu, moe_gmm_dw.cu): mbarriers, TMA tile copies
-// (cp.async.bulk.tensor), wgmma with shared-memory descriptors in the
-// 128-byte swizzle, register hand-off between warpgroups (setmaxnreg), and
-// on the host the tensor maps, encoded with cuTensorMapEncodeTiled through
-// the runtime's driver entry point, so that a library needs no -lcuda.
+// kernels (moe_gmm_dx.cu, moe_gmm_dw.cu) and flash attention's backward at
+// D 192 / 256 (flash_attention_bwd_sm90.cu): mbarriers, TMA tile copies
+// (cp.async.bulk.tensor) and plain bulk copies, wgmma with shared-memory
+// descriptors in the 128-byte swizzle (A from shared memory or from
+// registers), register hand-off between warpgroups (setmaxnreg), and on
+// the host the tensor maps, dense or strided, encoded with
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
+// a library needs no -lcuda.
 //
 // Swizzled tiles: a TMA box whose rows are 64 bf16 (128 bytes) lands in
 // shared memory with the 16-byte chunks of row r permuted by r % 8; wgmma
@@ -95,6 +98,28 @@ __device__ __forceinline__ void tma_load_2d_mc(void* dst,
       "r"(c0), "r"(c1)
       : "memory");
 }
+// the box of `map` at (c0 innermost, c1, c2, c3) into dst, completing on
+// bar; elements outside the tensor land as zeros
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// `bytes` (a multiple of 16) from src to dst, both on 16 bytes, completing
+// on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
 // arrive on the barrier at bar's offset in the cluster's CTA `rank`
 __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
                                                     uint32_t rank) {
@@ -151,6 +176,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+// arrive on named barrier `id` without waiting (its other `threads` -
+// this warp's count sync on it); orders this thread's shared-memory writes
+// before the waiters' reads
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 template <int kRegs>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
@@ -158,6 +189,22 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int kRegs>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// each of r's registers pinned where it stands: the compiler moves no read
+// or write of them across this point (CUTLASS's warpgroup_fence_operand),
+// so none lands between a wgmma that owns them and its wait
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operand(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -314,6 +361,117 @@ __device__ __forceinline__ void wgmma_m64n256_mn(float (&d)[128],
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d (m64n64k16, float32, 32 a thread) += A . B, bf16 operands from shared
+// memory by descriptor; A K-major, B K-major
+__device__ __forceinline__ void wgmma_m64n64_kk(float (&d)[32], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (m64n192k16, float32, 96 a thread) += A . B, A bf16 from registers (the
+// m64k16 fragment: a warp's 16 rows as mma.sync's m16k16 A fragment), B
+// from shared memory by descriptor, MN-major
+__device__ __forceinline__ void wgmma_m64n192_rs(float (&d)[96],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64n256k16, float32, 128 a thread) += A . B, A bf16 from registers
+// (as wgmma_m64n192_rs), B from shared memory by descriptor, MN-major
+__device__ __forceinline__ void wgmma_m64n256_rs(float (&d)[128],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // ---------------------------------------------------------------------------
 // host: tensor maps
 // ---------------------------------------------------------------------------
@@ -345,27 +503,41 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a map of the dense bf16 tensor at base, `rank` dimensions `dims`
-// (innermost first), read or written in boxes of `box`, rows of 128 bytes
-// swizzled, zeros outside the tensor; false if the driver refuses
-inline bool bf16_map(CUtensorMap* map, const void* base, int rank,
-                     const uint64_t* dims, const uint32_t* box) {
+// a map of the bf16 tensor at base, `rank` (at most 4) dimensions `dims`
+// (innermost first, contiguous) whose outer dimensions lie `strides` bytes
+// apart (rank - 1 of them, each a multiple of 16), read or written in
+// boxes of `box`, rows of 128 bytes swizzled, zeros outside the tensor;
+// false if the driver refuses
+inline bool bf16_map_strided(CUtensorMap* map, const void* base, int rank,
+                             const uint64_t* dims, const uint64_t* strides,
+                             const uint32_t* box) {
   const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  cuuint64_t d[3], st[2];
-  cuuint32_t b[3], ones[3] = {1, 1, 1};
-  uint64_t dense = 2;
+  if (fn == nullptr || rank < 1 || rank > 4) return false;
+  cuuint64_t d[4], st[3];
+  cuuint32_t b[4], ones[4] = {1, 1, 1, 1};
   for (int i = 0; i < rank; ++i) {
     d[i] = dims[i];
     b[i] = box[i];
-    dense *= dims[i];
-    if (i + 1 < rank) st[i] = dense;
+    if (i + 1 < rank) st[i] = strides[i];
   }
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
             const_cast<void*>(base), d, st, b, ones,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a map of the dense bf16 tensor at base, `rank` (at most 3) dimensions
+// `dims` (innermost first), read or written in boxes of `box`, rows of
+// 128 bytes swizzled, zeros outside the tensor; false if the driver
+// refuses
+inline bool bf16_map(CUtensorMap* map, const void* base, int rank,
+                     const uint64_t* dims, const uint32_t* box) {
+  if (rank < 1 || rank > 3) return false;
+  uint64_t st[2];
+  uint64_t dense = 2;
+  for (int i = 0; i + 1 < rank; ++i) st[i] = dense *= dims[i];
+  return bf16_map_strided(map, base, rank, dims, st, box);
 }
 
 }  // namespace sm90

@@ -29,17 +29,26 @@ reference's ``repro/models/flash_xla.py::flash_attention_xla`` (the JAX
 trainer's ``impl="chunked"``) and its custom VJP: its forward launches the
 same kernels with each row's log-sum-exp written beside the output, and its
 backward :func:`flash_attention_bwd`, the hand-written kernels of
-``csrc/flash_attention_bwd.cu`` (plain version
+``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_sm90.cu``
+(plain version
 :func:`repro_torch.kernels.ref.flash_attention_bwd` on the CPU).  Its causal
 offset is flash_xla's ``Sk - Sq``, not the serving wrapper's padded one.
-``flash_attention_bwd.launches`` counts backward calls; each call launches
-three kernels (the ``Dsum`` pre-pass, dk/dv, dq).  :func:`_bwd_variant`
-picks them as :func:`_variant` picks the forward's: bfloat16 rows that
-16-byte copies can take, at a head dimension up to 128, go to the
-tensor-core kernels (P and dS rounded to bf16 before their products, plain
-version ``ref.flash_attention_bwd(..., round_p=torch.bfloat16)``), the rest
-to the CUDA-core ones; ``flash_attention_bwd.routes`` counts calls by
-route.
+``flash_attention_bwd.launches`` counts backward calls;
+``flash_attention_bwd.routes`` counts them by route.  :func:`_bwd_variant`
+picks the route from dtype, head dimension and alignment, three in all:
+
+* ``"mma"``: bfloat16 rows that 16-byte copies can take at D <= 128, the
+  ``mma.sync`` kernels of ``csrc/flash_attention_bwd.cu`` (a ``Dsum``
+  pre-pass, a dk/dv walk, a dq walk: three launches);
+* ``"wgmma"``: the same rows at 128 < D <= 256, the ``wgmma`` kernels fed
+  by TMA of ``csrc/flash_attention_bwd_sm90.cu`` (an lse/``Dsum`` pass, a
+  dk/dv walk, a dq walk: three launches);
+* ``"simt"``: float32 at any D and bf16 rows off 16 bytes, the CUDA-core
+  kernels of ``csrc/flash_attention_bwd.cu`` in float32 arithmetic (three
+  launches).
+
+The two tensor-core routes round P and dS to bf16 before their products
+(plain version ``ref.flash_attention_bwd(..., round_p=torch.bfloat16)``).
 """
 from __future__ import annotations
 
@@ -67,6 +76,13 @@ _BWD_LIB = _nvcc.Library(
     {"flash_attention_bwd": [_I] + _BWD_ARGS,
      "flash_attention_bwd_mma": _BWD_ARGS},
     "flash_bwd_error_string")
+# the wgmma route: the same arguments; its scratch's size in floats
+_BWD_SM90_LIB = _nvcc.Library(
+    "flash_attention_bwd_sm90",
+    {"flash_attention_bwd_wgmma": _BWD_ARGS,
+     "flash_bwd_wgmma_scratch_floats":
+         [_I] * 3 + [ctypes.POINTER(ctypes.c_longlong)]},
+    "flash_bwd_wgmma_error_string")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -83,22 +99,27 @@ def _variant(dtype, D, strides, ptrs) -> str:
     return "mma"
 
 
-#: Largest head dimension the tensor-core backward takes: at 16 keys a
-#: warp, dK's and dV's float32 accumulators are D registers a lane, and at
-#: D 192 or 256 they and the tile products' fragments pass the
-#: 255-register limit (ptxas spills them).
+#: Largest head dimension the ``mma.sync`` backward (route ``"mma"``)
+#: takes: at 16 keys a warp, dK's and dV's float32 accumulators are D
+#: registers a lane, and at D 192 or 256 they and the tile products'
+#: fragments pass the 255-register limit (ptxas spills them).  Wider bf16
+#: rows take route ``"wgmma"``, whose warpgroups hold an m64 x D
+#: accumulator in D / 2 registers a thread, up to :data:`MAX_HEAD_DIM`.
 MMA_BWD_MAX_HEAD_DIM = 128
 
 
 def _bwd_variant(dtype, D, strides, ptrs) -> str:
-    """Which backward kernels take these inputs: ``"mma"`` (tensor cores)
-    for bfloat16 at D <= :data:`MMA_BWD_MAX_HEAD_DIM` whose every row starts
-    on 16 bytes — D a multiple of 8, each element stride of q, k, v, out and
-    dout (``strides``) a multiple of 8 and each base address (``ptrs``) a
-    multiple of 16 — else ``"simt"`` (CUDA cores, float32 arithmetic)."""
-    if D > MMA_BWD_MAX_HEAD_DIM:
-        return "simt"
-    return _variant(dtype, D, strides, ptrs)
+    """Which backward kernels take these inputs.  bfloat16 whose every row
+    starts on 16 bytes — D a multiple of 8, each element stride of q, k, v,
+    out and dout (``strides``) a multiple of 8 and each base address
+    (``ptrs``) a multiple of 16 — goes to the tensor cores: ``"mma"``
+    (``mma.sync``) at D <= :data:`MMA_BWD_MAX_HEAD_DIM`, ``"wgmma"``
+    (``wgmma`` fed by TMA) above it; everything else to ``"simt"`` (CUDA
+    cores, float32 arithmetic)."""
+    route = _variant(dtype, D, strides, ptrs)
+    if route == "mma" and D > MMA_BWD_MAX_HEAD_DIM:
+        return "wgmma"
+    return route
 
 
 def _padded(n: int, block: int = 128) -> int:
@@ -181,11 +202,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
     """Gradients (dq, dk, dv) of attention's output ``out`` = attention(q,
     k, v) with row log-sum-exp ``lse`` (B, Hq, Sq) float32, given ``dout``,
     the gradient of ``out``; ``offset`` defaults to ``Sk - Sq``.  On the
-    card the kernels of ``csrc/flash_attention_bwd.cu`` (q, k, v, out and
-    dout of one dtype, any strides with a contiguous last dimension; dq, dk
-    and dv come back contiguous in that dtype) on the route
-    :func:`_bwd_variant` picks, counted in ``flash_attention_bwd.routes``;
-    on the CPU the plain version."""
+    card the kernels of ``csrc/flash_attention_bwd.cu`` or
+    ``csrc/flash_attention_bwd_sm90.cu`` (q, k, v, out and dout of one
+    dtype, any strides with a contiguous last dimension; dq, dk and dv come
+    back contiguous in that dtype) on the route :func:`_bwd_variant` picks,
+    counted in ``flash_attention_bwd.routes``; on the CPU the plain
+    version."""
     _check_shapes(q, k, v, "flash_attention_bwd")
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -205,27 +227,38 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
                         f"{lse.dtype}")
     q, k, v, out, dout = _row_major(q, k, v, out, dout)
     lse = lse.contiguous()
-    dsum = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    ins = (q, k, v, out, dout)
+    strides = tuple(st for t in ins for st in t.stride()[:3])
+    route = _bwd_variant(q.dtype, D, strides, [t.data_ptr() for t in ins])
+    if route == "wgmma":    # the lse/Dsum tiles, sized by the C side
+        n = ctypes.c_longlong()
+        _BWD_SM90_LIB.call("flash_bwd_wgmma_scratch_floats", B, Hq, Sq,
+                           ctypes.byref(n))
+        scratch = torch.empty(n.value, dtype=torch.float32, device=q.device)
+    else:           # Dsum
+        scratch = torch.empty((B, Hq, Sq), dtype=torch.float32,
+                              device=q.device)
     dq = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Hkv, Sk, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    ins = (q, k, v, out, dout)
-    strides = tuple(st for t in ins for st in t.stride()[:3])
-    args = (*(t.data_ptr() for t in (*ins, lse, dsum, dq, dk, dv)),
+    args = (*(t.data_ptr() for t in (*ins, lse, scratch, dq, dk, dv)),
             B, Hq, Hkv, Sq, Sk, D, *strides, float(scale), int(bool(causal)),
-            0 if window is None else int(window), offset, _nvcc.stream(q))
-    route = _bwd_variant(q.dtype, D, strides, [t.data_ptr() for t in ins])
-    if route == "mma":
-        _BWD_LIB.call("flash_attention_bwd_mma", *args)
+            0 if window is None else int(window), offset)
+    if route == "wgmma":
+        _BWD_SM90_LIB.call("flash_attention_bwd_wgmma", *args,
+                           _nvcc.stream(q))
+    elif route == "mma":
+        _BWD_LIB.call("flash_attention_bwd_mma", *args, _nvcc.stream(q))
     else:
-        _BWD_LIB.call("flash_attention_bwd", _DTYPES[q.dtype], *args)
+        _BWD_LIB.call("flash_attention_bwd", _DTYPES[q.dtype], *args,
+                      _nvcc.stream(q))
     flash_attention_bwd.launches += 1
     flash_attention_bwd.routes[route] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.routes = {"mma": 0, "simt": 0}
+flash_attention_bwd.routes = {"mma": 0, "wgmma": 0, "simt": 0}
 
 
 class FlashAttention(torch.autograd.Function):
