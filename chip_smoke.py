@@ -242,6 +242,28 @@ exits non-zero and prints no result:
    at capacity n_experts against the local path, a profiled decode step,
    and the grouped matmul timed at the a2a calls and the local decode
    call, beside phase 5's numbers of the local path;
+5c. the serving steps across processes: llama3.2-3b at full width and
+   depth and llama4-maverick at its published widths cut to 2 of 48
+   layers (one dense, one MoE; about 37 GB of bf16 weights), first
+   through the unsharded path in this process (its logits and greedy
+   tokens kept on the host, its weights freed), then through
+   ``make_serve_steps(cfg, ProcessMesh(...))`` in worlds of ranks spawned
+   from this process (``repro_torch.launch.world.spawn_world``; the
+   kernels already built): a world of 1 on NCCL, mesh (1, 1), whose
+   logits must be the unsharded path's bit for bit, and a world of 2
+   sharing the one card over gloo (NCCL refuses two ranks on one device),
+   mesh (1, 2) — about 3.2 GB of llama3.2-3b's weights and 16 GB of
+   llama4's experts a rank, tensor-parallel heads and FFN columns,
+   expert-parallel MoE with its two all-to-alls between the processes —
+   whose logits must lie within ``PM_TP_TOL`` of the unsharded path's;
+   each rank draws its blocks of the same seeded weights, prefills 4 x
+   512 tokens and runs 32 decode steps of the bound decode fed the
+   unsharded path's tokens; every logit finite; each rank's flash, decode
+   and grouped-matmul launches, counted from 0 over its path, as planned;
+   each rank's peak memory, prefill ms and decode-step p50 printed with
+   the backend, world and mesh, beside the card's name and power limit
+   (world 2's labelled as on one card over gloo, not a number between
+   cards);
 7. the training path — ``repro_torch.launch.train.run``, the code of
    ``python -m repro_torch.launch.train`` — on llama3.2-3b at full width
    and depth (28 layers, 3,212,749,824 parameters), bf16, 2 x 4096 tokens
@@ -305,8 +327,8 @@ exits non-zero and prints no result:
    card's name and power limit, and last the result line.
 
 Kernel launch counts are set to 0 just before each path and read just after
-it, so the checks of phases 2, 2b, 2c and 3 and the timings of phase 6
-count nowhere;
+it (in phase 5c in each rank), so the checks of phases 2, 2b, 2c and 3 and
+the timings of phase 6 count nowhere;
 the map kernels' rows carry phase 4d's and 4e's counts beside the KVStore
 path's.
 On every replicated path the remote-copy kernel's launches must equal the
@@ -424,6 +446,24 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 A2A_MESH = (1, 8)
 A2A_DECODE = 32
 A2A_NODROP_PROMPT = 64
+# phase 5c, the serving steps across processes (make_serve_steps on a
+# ProcessMesh): llama3.2-3b at full width and depth and llama4-maverick at
+# its published widths cut to PM_MOE_LAYERS of 48 layers (one dense, one
+# MoE), one prefill of SERVE_BATCH x SERVE_PROMPT tokens and PM_DECODE
+# decode steps fed the unsharded path's greedy tokens (so one argmax tie
+# cannot cascade), in each world of PM_WORLDS: (backend, (data, model)).
+# The card is one, and NCCL refuses two ranks on one device, so world 2
+# shares it over gloo; neither world is a number between cards.  World 1
+# must give the unsharded path's logits bit for bit; world 2's row-parallel
+# sums round bf16 partial products of each attention and MLP output (the
+# unsharded path rounds one float32 sum), a few bf16 steps apart through
+# the layers, so its logits are held within PM_TP_TOL of the unsharded
+# path's (max |diff| over max(1, max |logit|), as ATTN_TOL's)
+PM_MOE_LAYERS = 2
+PM_DECODE = 32
+PM_WORLDS = (("nccl", (1, 1)), ("gloo", (1, 2)))
+PM_TP_TOL = 5e-2
+PM_TIMEOUT_S = 600
 # phase 7, the training path: llama3.2-3b at full width and depth, bf16,
 # batches of TRAIN_BATCH x TRAIN_SEQ tokens (the train_4k shape's length),
 # remat per block, AdamW, TRAIN_STEPS steps on one repeated batch
@@ -4218,8 +4258,8 @@ def phase_a2a(torch, kernels, cfg, params, local, local_gmm_launches):
     from repro_torch.train import make_serve_steps
     arch = cfg.name
     mesh = make_debug_mesh(*A2A_MESH)
-    _m, prefill, decode = make_serve_steps(cfg, mesh)
-    _ml, prefill_local, decode_local = make_serve_steps(cfg, None)
+    _m, prefill, decode, _jit = make_serve_steps(cfg, mesh)
+    _ml, prefill_local, decode_local, _jit = make_serve_steps(cfg, None)
     kinds = layer_kinds(cfg)
     n_moe = sum(k.endswith("_moe") for k in kinds)
     want = {"prefill": {"flash_attention": len(kinds), "gmm": 3 * n_moe},
@@ -4354,6 +4394,255 @@ def phase_a2a(torch, kernels, cfg, params, local, local_gmm_launches):
             f"rows, {t['rows']} counted on {t['experts']} experts, plain "
             f"{t['plain_ms']:.3f}, bmm {t['library_ms']:.4f} ms")
     return m
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the serving steps across processes
+# ---------------------------------------------------------------------------
+
+def pm_configs():
+    """Phase 5c's models: llama3.2-3b whole, llama4 at PM_MOE_LAYERS."""
+    from repro_torch.configs import get_config
+    return {SERVE_ARCH: get_config(SERVE_ARCH),
+            MOE_ARCH: get_config(MOE_ARCH).replace(n_layers=PM_MOE_LAYERS)}
+
+
+def pm_prompt(cfg):
+    rng = np.random.default_rng(SEED + 13)
+    return rng.integers(1, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(
+        np.int32)
+
+
+def pm_planned(cfg):
+    """Each rank's model-kernel launches on one prefill and PM_DECODE
+    decode steps: flash per attention layer, decode attention per layer a
+    step, three grouped matmuls per MoE layer a call (on the rank's
+    experts)."""
+    from repro_torch.models.transformer import layer_kinds
+    kinds = layer_kinds(cfg)
+    n_moe = sum(k.endswith("_moe") for k in kinds)
+    out = {"flash_attention": len(kinds),
+           "decode_attention": len(kinds) * PM_DECODE}
+    if n_moe:
+        out["gmm"] = 3 * n_moe * (1 + PM_DECODE)
+    return out
+
+
+def pm_generator(torch, device):
+    return torch.Generator(device=device).manual_seed(SEED + 14)
+
+
+def pm_warm(torch, prefill, decode, params, cfg, s_max):
+    """One prefill and one decode step, untimed and uncounted: the first
+    calls' one-time costs (handles, module loads) stay out of the
+    numbers."""
+    lg, caches, pos = prefill(params, {"tokens": pm_prompt(cfg)}, s_max)
+    decode(params, torch.argmax(lg, -1).to(torch.int32)[:, None], caches,
+           pos)
+    torch.cuda.synchronize()
+
+
+def pm_timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def pm_unsharded(torch, cfg):
+    """The unsharded path (``make_serve_steps(cfg, None)``) on the weights
+    every rank draws its blocks of: the logits of the prefill and of
+    PM_DECODE greedy decode steps and the greedy tokens, on the host, and
+    the prefill's and steps' times (after one warm-up of each)."""
+    from repro_torch.train import make_serve_steps
+    model, prefill, decode, _jit = make_serve_steps(cfg, None)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(pm_generator(torch, "cuda"))
+    s_max = SERVE_PROMPT + PM_DECODE + 1
+    with torch.no_grad():
+        pm_warm(torch, prefill, decode, params, cfg, s_max)
+        (lg, caches, pos), t_prefill = pm_timed(torch, lambda: prefill(
+            params, {"tokens": pm_prompt(cfg)}, s_max))
+        logits = [lg.cpu()]
+        tok = torch.argmax(lg, -1).to(torch.int32)[:, None]
+        toks, steps = [tok.cpu()], []
+        for _ in range(PM_DECODE):
+            (tok, lg, caches, pos), dt = pm_timed(
+                torch, lambda: decode(params, tok, caches, pos))
+            steps.append(dt)
+            logits.append(lg.cpu())
+            toks.append(tok.cpu())
+    del params, caches
+    return logits, toks, dict(
+        prefill_ms=1e3 * t_prefill,
+        decode_step_p50_ms=1e3 * float(np.percentile(steps, 50)),
+        decode_step_p99_ms=1e3 * float(np.percentile(steps, 99)),
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def pm_rank(rank, sizes, tokens):
+    """One rank of a phase-5c world (spawned; ``init_distributed`` has
+    joined it): each model through ``make_serve_steps(cfg,
+    ProcessMesh(*sizes))`` — the rank draws its blocks of the seeded
+    weights, prefills the global batch and runs PM_DECODE steps of the
+    bound decode (``jit_decode``), step i fed ``tokens[arch][i]`` — with
+    its model-kernel launches counted from 0 over that path.  Returns its
+    numbers, and on the rank at coordinate 0 the logits, which every model
+    rank holds whole."""
+    import torch
+    from repro_torch.distributed.collectives import probe_transports
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gmm import gmm
+    from repro_torch.launch.mesh import ProcessMesh
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import MetaGenerator
+    from repro_torch.train import make_serve_steps
+    kernels = {"flash_attention": flash_attention,
+               "decode_attention": decode_attention, "gmm": gmm}
+    mesh = ProcessMesh(*sizes)
+    out = {"coords": mesh.coords, "device": str(mesh.device),
+           "backend": mesh.backend,
+           "transports": dict(probe_transports(mesh))}
+    for arch, cfg in pm_configs().items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, prefill, _decode, jit_decode = make_serve_steps(cfg, mesh)
+        t0 = time.perf_counter()
+        params = model.init(pm_generator(torch, mesh.device))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_local = sum(t.numel() for t in _leaves(params))
+        s_max = SERVE_PROMPT + PM_DECODE + 1
+        full = build_model(cfg)
+        step = jit_decode(full.init(MetaGenerator()),
+                          full.init_cache(SERVE_BATCH, s_max, device="meta"),
+                          torch.empty((SERVE_BATCH, 1), dtype=torch.int32,
+                                      device="meta"))
+        with torch.no_grad():
+            pm_warm(torch, prefill, step, params, cfg, s_max)
+            for k in kernels.values():
+                k.launches = 0
+            (lg, caches, pos), prefill_s = pm_timed(torch, lambda: prefill(
+                params, {"tokens": pm_prompt(cfg)}, s_max))
+            logits, steps, agree = [lg], [], 0
+            for i in range(PM_DECODE):
+                tok = tokens[arch][i].to(mesh.device)
+                (nxt, lg, caches, pos), dt = pm_timed(
+                    torch, lambda: step(params, tok, caches, pos))
+                steps.append(dt)
+                logits.append(lg)
+                agree += int(torch.equal(nxt.cpu(), tokens[arch][i + 1]))
+        r = dict(
+            launches={name: k.launches for name, k in kernels.items()},
+            finite=all(bool(torch.isfinite(t).all()) for t in logits),
+            greedy_steps_agreeing=agree, params_local=n_local,
+            init_s=init_s, prefill_ms=1e3 * prefill_s,
+            decode_step_p50_ms=1e3 * float(np.percentile(steps, 50)),
+            decode_step_p99_ms=1e3 * float(np.percentile(steps, 99)),
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            kv_heads_local=caches[0].k.shape[1])
+        if all(c == 0 for c in mesh.coords.values()):
+            r["logits"] = [t.cpu() for t in logits]
+        out[arch] = r
+        del params, caches, logits, lg, step
+        gc.collect()
+    return out
+
+
+def phase_process_mesh(torch, card):
+    """Phase 5c: the unsharded path of each of pm_configs() on the card
+    (its logits and greedy tokens kept on the host, its weights freed),
+    then each world of PM_WORLDS spawned from this process with the
+    kernels already built, every rank on this card: world 1's logits bit
+    for bit the unsharded path's, world 2's within PM_TP_TOL, every logit
+    finite, each rank's launches the planned ones.  Returns the metrics
+    and each rank's launches by path label."""
+    from repro_torch.launch.world import spawn_world
+    cfgs = pm_configs()
+    ref = {}
+    for arch, cfg in cfgs.items():
+        t0 = time.perf_counter()
+        ref[arch] = pm_unsharded(torch, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = ref[arch][2]
+        log(f"  {arch} ({cfg.n_layers} layers) unsharded on the card in "
+            f"{time.perf_counter() - t0:.1f} s: prefill "
+            f"{t['prefill_ms']:.1f} ms, decode step p50 "
+            f"{t['decode_step_p50_ms']:.2f} / p99 "
+            f"{t['decode_step_p99_ms']:.2f} ms, peak {t['peak_gib']:.2f} "
+            f"GiB; the parent holds "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB after it")
+    tokens = {arch: toks for arch, (_lg, toks, _t) in ref.items()}
+    metrics = {"unsharded": {arch: r[2] for arch, r in ref.items()}}
+    launches = {}
+    for backend, sizes in PM_WORLDS:
+        world = sizes[0] * sizes[1]
+        label = (f"world {world} on {backend}, mesh {sizes}" +
+                 (", on one card over gloo, not a cross-card number"
+                  if world > 1 else ""))
+        t0 = time.perf_counter()
+        try:
+            ranks = spawn_world(pm_rank, world, backend=backend, device=None,
+                                args=(sizes, tokens),
+                                timeout_s=PM_TIMEOUT_S)
+        except RuntimeError as e:
+            raise SmokeFailure(f"phase 5c {label}: {e}") from None
+        wall = time.perf_counter() - t0
+        m = dict(backend=backend, world=world, mesh=list(sizes),
+                 wall_s=wall, transports=ranks[0]["transports"],
+                 devices=[r["device"] for r in ranks], card=card, models={})
+        log(f"  {label}: {wall:.1f} s with start-up; transports "
+            f"{ranks[0]['transports']}; {card}")
+        for arch, cfg in cfgs.items():
+            want = pm_planned(cfg)
+            lead = next(r for r in ranks if "logits" in r[arch])
+            got = lead[arch]["logits"]
+            exp = ref[arch][0]
+            check(len(got) == len(exp) == PM_DECODE + 1,
+                  f"5c {label} {arch}: {len(got)} logits calls")
+            if world == 1:
+                same = [torch.equal(g, e) for g, e in zip(got, exp)]
+                check(all(same), f"5c {label} {arch}: logits differ from "
+                      f"the unsharded path's at calls "
+                      f"{[i for i, x in enumerate(same) if not x]}")
+                err = 0.0
+            else:
+                errs = [rel_err(g, e.float()) for g, e in zip(got, exp)]
+                err = max(errs)
+                check(err <= PM_TP_TOL, f"5c {label} {arch}: logits "
+                      f"{err:.4g} from the unsharded path's > {PM_TP_TOL}")
+            rows = []
+            for r in ranks:
+                n = r[arch]
+                check(n["finite"], f"5c {label} {arch} rank {r['coords']}: "
+                      f"a logit is not finite")
+                got_l = {k: v for k, v in n["launches"].items() if v}
+                check(got_l == want, f"5c {label} {arch} rank "
+                      f"{r['coords']}: launches {got_l}, planned {want}")
+                path = f"{arch} {backend} {sizes} rank {r['coords']['model']}"
+                launches[path] = got_l
+                rows.append({k: v for k, v in n.items() if k != "logits"}
+                            | {"coords": r["coords"]})
+                log(f"    {arch} rank {r['coords']}: "
+                    f"{n['params_local']:,} parameters "
+                    f"({n['kv_heads_local']} kv heads) drawn in "
+                    f"{n['init_s']:.1f} s, peak {n['peak_gib']:.2f} GiB, "
+                    f"prefill {n['prefill_ms']:.1f} ms, decode step p50 "
+                    f"{n['decode_step_p50_ms']:.2f} / p99 "
+                    f"{n['decode_step_p99_ms']:.2f} ms, greedy tokens "
+                    f"agreeing at {n['greedy_steps_agreeing']} of "
+                    f"{PM_DECODE} steps, launches {got_l}")
+            log(f"    {arch}: logits against the unsharded path's: "
+                + ("bit for bit at every call" if world == 1 else
+                   f"max {err:.4g} (tolerance {PM_TP_TOL})"))
+            m["models"][arch] = dict(n_layers=cfg.n_layers, ranks=rows,
+                                     logits_err=err, planned=want)
+        metrics[label] = m
+    return metrics, launches
 
 
 def _leaves(tree):
@@ -6090,6 +6379,14 @@ def main() -> int:
                 f"{time.perf_counter() - t5:.1f} s")
             gc.collect()                 # the engine's weights go first
             torch.cuda.empty_cache()
+        log("phase 5c: the serving steps across processes")
+        t5 = time.perf_counter()
+        pm_metrics, pm_launches = phase_process_mesh(torch, card)
+        serve_metrics["process_mesh"] = pm_metrics
+        serve_launches.update(pm_launches)
+        log(f"  process-mesh paths took {time.perf_counter() - t5:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
         log("phase 7: the training paths")
         t7 = time.perf_counter()
         train_metrics, train_launches = phase_train(torch, model_kernels)

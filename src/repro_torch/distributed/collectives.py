@@ -24,13 +24,24 @@ A gradient leaf here is stacked: its leading dimensions are the
 participants (``data_dim``, ``pod_dim`` where the mesh has pods, and any
 other mesh axis, such as ``model``, whose shards pass through untouched),
 each participant's gradient shard after them.  Every participant leaves
-with the mean over the dp dimensions.  The reference's ``shard_map`` over
-device meshes comes with the port's ``torch.distributed`` binding (ROADMAP
-item 12).
+with the mean over the dp dimensions.  The same channel over processes
+(the reference's ``shard_map`` of ``grad_sync``) is ROADMAP item 12's
+training half.
+
+The process binding's collectives come after it: :func:`psum`,
+:func:`all_gather` and :func:`all_to_all` over one named axis of a
+:class:`~repro_torch.launch.mesh.ProcessMesh`, each the identity on an
+axis of size 1 and when no mesh is given, so a path without a mesh runs
+no collective at all.  Under gloo a tensor on the card goes
+through host memory (``transport`` "host") unless :func:`probe_transports`
+found that gloo takes card tensors for that collective ("native"); NCCL
+always takes them.
 """
 from __future__ import annotations
 
 from typing import Optional
+
+import torch
 
 from ..core.ack import AckKey, join
 from ..optim import compression as C
@@ -127,3 +138,105 @@ def make_grad_sync(mesh, *, fence="global", compress="none", n_buckets=4):
         return synced
 
     return sync
+
+
+# ------------------------------------------------- process-group collectives
+_OPS = ("all_reduce", "all_gather_into_tensor", "all_to_all_single")
+
+
+def transport(mesh, op: str, x) -> str:
+    """How ``op`` moves ``x`` between ``mesh``'s ranks: "native" (the
+    backend takes the tensor where it lies) or "host" (gloo with a card
+    tensor: copied to host memory and back)."""
+    if mesh.backend != "gloo" or x.device.type == "cpu":
+        return "native"
+    return getattr(mesh, "transports", {}).get(op, "host")
+
+
+def probe_transports(mesh) -> dict:
+    """Ask gloo, on a few elements of card memory, which collectives take
+    card tensors; record "native" for those and "host" for the others on
+    ``mesh.transports``, and return it.  Every rank must call it at the
+    same point (each collective is one).  Other backends and CPU meshes
+    need no probe: every collective is "native" there."""
+    import torch.distributed as dist
+    mesh.transports = dict.fromkeys(_OPS, "native")
+    if mesh.backend != "gloo" or mesh.device.type == "cpu":
+        return mesh.transports
+    world = dist.get_world_size()
+    x = torch.ones(world, device=mesh.device)
+    calls = {"all_reduce": lambda: dist.all_reduce(x.clone()),
+             "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                 x.new_empty(world * world), x),
+             "all_to_all_single": lambda: dist.all_to_all_single(
+                 torch.empty_like(x), x)}
+    for op, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize(mesh.device)
+        except (RuntimeError, ValueError, NotImplementedError):
+            mesh.transports[op] = "host"
+    return mesh.transports
+
+
+def _run(mesh, op: str, fn, out, *inputs):
+    """``fn(out, *inputs)`` where they lie, or on host copies (copying the
+    result back into ``out``)."""
+    if transport(mesh, op, out) == "native":
+        fn(out, *inputs)
+        return out
+    host = out.cpu()
+    fn(host, *(t.cpu() for t in inputs))
+    return out.copy_(host)
+
+
+def _trivial(mesh, axis) -> bool:
+    return mesh is None or mesh.shape.get(axis, 1) == 1
+
+
+def psum(x, mesh, axis: str):
+    """The sum of ``x`` over ``axis``'s ranks, on every one of them.  A
+    bf16 or fp16 ``x`` is summed in float32 and rounded once."""
+    if _trivial(mesh, axis):
+        return x
+    import torch.distributed as dist
+    low = x.dtype in (torch.bfloat16, torch.float16)
+    y = x.float() if low else x.clone(memory_format=torch.contiguous_format)
+    _run(mesh, "all_reduce",
+         lambda o: dist.all_reduce(o, group=mesh.group(axis)), y)
+    return y.to(x.dtype) if low else y
+
+
+def all_gather(x, mesh, axis: str, dim: int = 0):
+    """Every rank's ``x`` along ``axis``, concatenated on ``dim`` in
+    coordinate order, on every one of them."""
+    if _trivial(mesh, axis):
+        return x
+    import torch.distributed as dist
+    n = mesh.shape[axis]
+    xc = x.movedim(dim, 0).contiguous()
+    out = xc.new_empty((n * xc.shape[0], *xc.shape[1:]))
+    _run(mesh, "all_gather_into_tensor",
+         lambda o, i: dist.all_gather_into_tensor(o, i,
+                                                  group=mesh.group(axis)),
+         out, xc)
+    return out.movedim(0, dim)
+
+
+def all_to_all(x, mesh, axis: str):
+    """x (P, ...), P = ``axis``'s size: block j goes to coordinate j, and
+    block s of the result came from coordinate s — the reference's
+    ``jax.lax.all_to_all(x, axis, 0, 0)``."""
+    if _trivial(mesh, axis):
+        return x
+    import torch.distributed as dist
+    if x.shape[0] != mesh.shape[axis]:
+        raise ValueError(f"all_to_all over {axis!r} of {mesh.shape[axis]} "
+                         f"takes {mesh.shape[axis]} blocks, got "
+                         f"{x.shape[0]}")
+    xc = x.contiguous()
+    out = torch.empty_like(xc)
+    _run(mesh, "all_to_all_single",
+         lambda o, i: dist.all_to_all_single(o, i, group=mesh.group(axis)),
+         out, xc)
+    return out

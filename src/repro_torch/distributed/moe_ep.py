@@ -6,16 +6,22 @@ This is the framework's clearest channel-object instantiation (DESIGN.md
 slots; tokens are one-sided-written to the expert's host shard and the
 results one-sided-read back — the two all-to-alls of
 :func:`repro_torch.models.moe.moe_block_a2a`.  The reference binds that
-per-shard math to a device mesh with ``shard_map``; here the mesh is a
-:class:`~repro_torch.launch.mesh.StackedMesh`, and this module cuts the
-model's (B, S, d) activations into the stacked (P_dp, P_tp, B_l, S_l, d)
-shards, views the experts as (P_dp, P_tp, E_local, ...) without copying
-them, and puts the output back together.
+per-shard math to a device mesh with ``shard_map``.  On a
+:class:`~repro_torch.launch.mesh.StackedMesh` this module cuts the model's
+(B, S, d) activations into the stacked (P_dp, P_tp, B_l, S_l, d) shards,
+views the experts as (P_dp, P_tp, E_local, ...) without copying them, and
+puts the output back together.  On a
+:class:`~repro_torch.launch.mesh.ProcessMesh` each rank runs
+:func:`repro_torch.models.moe.moe_block_a2a_rank` on its own tokens and
+experts, the all_to_alls between the processes.
 """
 from __future__ import annotations
 
 from ..configs.base import ArchConfig
+from ..launch.mesh import ProcessMesh
 from ..models import moe as M
+from ..models.layers import mlp
+from . import collectives as CL
 from .sharding import TP, dp_axes
 
 
@@ -36,11 +42,14 @@ def make_moe_fn(cfg: ArchConfig, mesh):
     dp axes where it divides, S over ``model`` where it divides, otherwise
     every shard of that axis holds the whole of it.  ``aux`` is the mean of
     the shards' load-balance losses over the whole mesh, the reference's
-    ``pmean`` over every axis."""
+    ``pmean`` over every axis.  On a ``ProcessMesh`` see
+    :func:`_process_moe_fn`."""
     n_tp, n_dp = mesh.shape[TP], _dp_total(mesh)
     if cfg.moe.n_experts % n_tp:
         raise ValueError(f"{cfg.name}: {cfg.moe.n_experts} experts do not "
                          f"split over a model axis of {n_tp}")
+    if isinstance(mesh, ProcessMesh):
+        return _process_moe_fn(cfg, mesh)
 
     def moe_fn(params, x, _cfg):
         B, S, d = x.shape
@@ -60,6 +69,38 @@ def make_moe_fn(cfg: ArchConfig, mesh):
             else out[:, 0]
         out = out.reshape(B, S, d) if split_b else out[0]
         return out, aux.mean()
+
+    return moe_fn
+
+
+def _process_moe_fn(cfg: ArchConfig, mesh: ProcessMesh):
+    """moe_fn of one rank of a process mesh.  x (B, S, d) is the rank's
+    batch rows (the dp split happened at the step), the same on every
+    model rank.  As the reference's ``x_spec`` lays it out, the rank takes
+    its slice of S where S divides over ``model`` (a prefill) and all of it
+    otherwise (a decode step, S = 1); the routed output's slices are
+    gathered back over ``model``.  The shared expert runs tensor-parallel
+    on all of x (its columns and rows split over ``model``, the partial
+    outputs summed) and is added token by token, after the routed output,
+    as :func:`~repro_torch.models.moe.moe_block_local` adds it.  ``aux`` is
+    the rank's own load-balance loss: the serving steps drop it, and its
+    mean over the world comes with the training half (ROADMAP item 12)."""
+    from .tensor_parallel import TensorParallel
+    n_tp, j = mesh.shape[TP], mesh.coord(TP)
+    tp = TensorParallel(cfg, mesh) if n_tp > 1 else None
+
+    def moe_fn(params, x, _cfg):
+        B, S, d = x.shape
+        split_s = n_tp > 1 and S % n_tp == 0
+        xl = x[:, j * S // n_tp:(j + 1) * S // n_tp] if split_s else x
+        out, aux = M.moe_block_a2a_rank(params, xl, cfg, mesh)
+        if split_s:
+            out = CL.all_gather(out, mesh, TP, 1)
+        if cfg.moe.n_shared_experts:
+            out = (out.reshape(B * S, d) + mlp(params["shared"],
+                                               x.reshape(B * S, d), cfg.act,
+                                               tp)).reshape(B, S, d)
+        return out, aux
 
     return moe_fn
 

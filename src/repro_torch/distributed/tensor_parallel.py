@@ -1,0 +1,223 @@
+"""Tensor parallelism on the process binding: what GSPMD partitions for the
+reference's sharded serving steps, written as explicit collectives.
+
+Each rank of a :class:`~repro_torch.launch.mesh.ProcessMesh` holds its
+block of every parameter and runs the model's own code on local tensors,
+so the port's kernels (flash and decode attention, ``gmm``) take the
+rank's heads and experts as they take a whole model's.  Collectives sit
+where the reference's specs put shard boundaries (``TensorParallel``, the
+``tp`` argument of :mod:`repro_torch.models`):
+
+* ``embed/table`` is (model, None): the lookup is masked to the rank's
+  vocabulary rows and summed over ``model``; the tied unembedding (or
+  ``embed/head``, (None, model)) gives the rank's vocabulary slice of the
+  logits, gathered over ``model``, so the argmax is taken over all of
+  them.  A vocabulary that does not divide stays whole on every rank, as
+  the reference's rule falls back;
+* attention: ``wq`` / ``wk`` / ``wv`` column-parallel over heads, ``wo``
+  row-parallel and summed over ``model``; the KV cache holds the rank's kv
+  heads;
+* the gated MLP (and an MoE layer's shared expert): ``wi_gate`` /
+  ``wi_up`` column-parallel, ``wo`` row-parallel and summed;
+* an MoE layer's routed experts run expert-parallel
+  (:func:`repro_torch.models.moe.moe_block_a2a_rank`, through
+  :func:`repro_torch.distributed.moe_ep.make_moe_fn`).
+
+Heads, not columns.  The reference's ``"?:model"`` on ``attn/w(q|k|v)``
+shards columns and may cut inside a head (the smoke configs' ``wk`` of 2
+heads of 16 over a model axis of 4 gives each shard half a head).  The
+port cuts on whole heads: ``n_heads`` must divide over ``model``; where
+``n_kv_heads`` does not divide, the axis must be a multiple of it, and
+each rank keeps the one kv head its query heads read (``Blocks(model,
+n_kv_heads)``: model ranks c·Hkv/P share kv head c·Hkv // P).
+:func:`param_layout` is :func:`~repro_torch.distributed.sharding.
+param_pspecs` with that entry on ``wk`` / ``wv``; it differs from the
+reference's spec there alone, and only where the reference would cut a
+head.  The cache follows the heads (:func:`cache_layout`) where the
+reference's ``cache_pspecs`` shards its sequence axis (GSPMD's partitioned
+softmax), so the decode kernel runs unchanged on local heads; a
+sequence-sharded decode, the flash-decode combine across ranks, is a later
+item.
+
+Over a model axis above 1 the hybrid (RG-LRU, channel-sharded), ssm
+(RWKV6, heads-sharded), MLA (deepseek-v3), audio (whisper) and vlm
+(cross layers) families are refused (:func:`check_supported`); at a model
+axis of 1 every family runs, sharded over the dp axes only.  Parameters
+are replicated over the dp axes: the reference's ``fsdp``, which gathers
+each layer's weights over the data axes, belongs to the training half.
+"""
+from __future__ import annotations
+
+import re
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..tree import tree_map
+from . import collectives as CL
+from .sharding import (TP, Blocks, leaf_cache_pspec, leaf_pspec,
+                       local_shape, map_with_path, shard)
+
+#: Families whose layers have no tensor-parallel form in the port yet.
+REFUSED = {"hybrid": "the RG-LRU recurrence (channel-sharded)",
+           "ssm": "the RWKV6 time mix (heads-sharded)",
+           "audio": "whisper's encoder-decoder",
+           "vlm": "the vision model's cross layers"}
+_KV = re.compile(r"attn/w(k|v)$")
+
+
+def check_supported(cfg: ArchConfig, n_tp: int) -> None:
+    """Raise ``ValueError`` where ``cfg`` cannot run over a model axis of
+    ``n_tp`` ranks: a refused family, MLA, heads that would be cut, or
+    widths and experts that do not divide."""
+    if n_tp == 1:
+        return
+    why = REFUSED.get(cfg.family)
+    if why is None and cfg.mla is not None:
+        why = "MLA (wq_b / wkv_b)"
+    if why is not None:
+        raise ValueError(f"{cfg.name}: the tensor-parallel serving steps do "
+                         f"not run {why} over a model axis of {n_tp} yet "
+                         f"(ROADMAP item 12); run it at a model axis of 1")
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    if hq % n_tp or (hkv % n_tp and n_tp % hkv):
+        raise ValueError(f"{cfg.name}: {hq} query / {hkv} kv heads do not "
+                         f"split whole over a model axis of {n_tp}")
+    widths = {"d_ff": cfg.d_ff}
+    if cfg.moe is not None:
+        mo = cfg.moe
+        widths = {"d_ff_dense": mo.d_ff_dense or cfg.d_ff,
+                  "n_experts": mo.n_experts}
+        if mo.n_shared_experts:
+            widths["shared width"] = mo.d_ff_shared * mo.n_shared_experts
+        if mo.router_impl != "a2a":
+            raise ValueError(f"{cfg.name}: experts over a model axis run "
+                             f"the a2a block; router_impl is "
+                             f"{mo.router_impl!r}")
+    for name, w in widths.items():
+        if w % n_tp:
+            raise ValueError(f"{cfg.name}: {name} {w} does not split over "
+                             f"a model axis of {n_tp}")
+
+
+def kv_entry(cfg: ArchConfig, n_tp: int):
+    """The kv-head dimension's spec entry over a model axis of ``n_tp``."""
+    if cfg.n_kv_heads % n_tp == 0:
+        return TP
+    return Blocks(TP, cfg.n_kv_heads)
+
+
+def leaf_layout(path: str, shape, cfg: ArchConfig, mesh) -> tuple:
+    """The block of a parameter leaf each rank holds: the reference's spec
+    (:func:`~repro_torch.distributed.sharding.leaf_pspec`), with
+    :func:`kv_entry` on ``wk`` / ``wv`` over a model axis above 1."""
+    spec = leaf_pspec(path, shape, mesh)
+    n_tp = mesh.shape[TP]
+    if n_tp > 1 and _KV.search(path):
+        return (None, kv_entry(cfg, n_tp))
+    return spec
+
+
+def param_layout(params, cfg: ArchConfig, mesh):
+    """:func:`leaf_layout` of every leaf of ``params`` (full shapes; meta
+    tensors will do)."""
+    check_supported(cfg, mesh.shape[TP])
+    return map_with_path(
+        lambda p, leaf: leaf_layout(p, tuple(leaf.shape), cfg, mesh), params)
+
+
+def cache_layout(caches, cfg: ArchConfig, mesh):
+    """The block of each decode-cache leaf a rank holds: the batch over the
+    dp axes where it divides (the reference's ``cache_pspecs``); a KV
+    cache's heads as the rank's kv heads (:func:`kv_entry`) and its
+    sequence whole, where the reference shards the sequence; nothing else
+    over ``model`` (the families whose caches shard otherwise run at a
+    model axis of 1)."""
+    n_tp = mesh.shape[TP]
+    check_supported(cfg, n_tp)
+
+    def leaf(path, t):
+        spec = list(leaf_cache_pspec(path, tuple(t.shape), mesh))
+        spec = [None if e == TP else e for e in spec]
+        if n_tp > 1 and re.search(r"\b(k|v)$", path) and t.dim() >= 4:
+            spec[-3] = kv_entry(cfg, n_tp)
+        return tuple(spec)
+
+    return map_with_path(leaf, caches)
+
+
+def shard_tree(tree, layout, mesh):
+    """Every leaf of a full ``tree`` cut to this rank's block (copies)."""
+    return tree_map(lambda t, spec: shard(t, spec, mesh).clone(), tree,
+                    layout)
+
+
+def empty_like_layout(tree, layout, mesh, device):
+    """Zeros of this rank's block shapes of a full ``tree`` (meta tensors
+    will do), on ``device``."""
+    return tree_map(lambda t, spec: torch.zeros(
+        local_shape(t.shape, spec, mesh), dtype=t.dtype, device=device),
+        tree, layout)
+
+
+class TensorParallel:
+    """What a model layer asks of the process mesh on the tensor-parallel
+    path: the sum and the gather over ``model``, and the vocabulary-sharded
+    lookup."""
+
+    def __init__(self, cfg: ArchConfig, mesh):
+        self.mesh = mesh
+        self.n = mesh.shape[TP]
+        self.index = mesh.coord(TP)
+        self.vocab_sharded = cfg.vocab % self.n == 0
+
+    def psum(self, x):
+        return CL.psum(x, self.mesh, TP)
+
+    def gather(self, x, dim: int):
+        return CL.all_gather(x, self.mesh, TP, dim)
+
+    def embed(self, table, tokens):
+        """Rows of the rank's (V / P, d) block of the table for the tokens
+        it holds, zeros for the others, summed over ``model``."""
+        n = table.shape[0]
+        local = tokens - self.index * n
+        hit = (local >= 0) & (local < n)
+        rows = table[local.clamp(0, n - 1)]
+        return self.psum(torch.where(hit[..., None], rows,
+                                     rows.new_zeros(())))
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator, mesh):
+    """This rank's parameters, drawn from ``generator`` (on its device) by
+    ``build_model(cfg).init``, keeping the rank's block of each group of
+    leaves as it is drawn (an MoE layer's experts are drawn one at a time
+    and only the rank's kept), so the peak is one layer's leaves drawn
+    whole, its routed experts aside, not the model.
+    The same seed gives every rank its block of the same model."""
+    from ..models.layers import MetaGenerator
+    from ..models.model import build_model
+    model = build_model(cfg)
+    n_tp = mesh.shape[TP]
+    if n_tp == 1:                      # every leaf whole on every rank
+        return model.init(generator)
+    full = model.init(MetaGenerator())
+    layout = param_layout(full, cfg, mesh)
+    e, j = cfg.moe.n_experts if cfg.moe else 0, mesh.coord(TP)
+    experts = (j * e // n_tp, (j + 1) * e // n_tp) if cfg.moe else None
+
+    def one(t, f, spec):
+        if tuple(t.shape) == tuple(f.shape):
+            return shard(t, spec, mesh).clone()
+        if tuple(t.shape) != local_shape(f.shape, spec, mesh):
+            raise ValueError(f"a leaf of {tuple(t.shape)} is neither "
+                             f"whole {tuple(f.shape)} nor a block")
+        return t                          # drawn as the rank's block
+
+    def keep(path, tree):
+        f, spec = full, layout
+        for k in path:
+            f, spec = f[k], spec[k]
+        return tree_map(one, tree, f, spec)
+
+    return model.init(generator, experts, keep)

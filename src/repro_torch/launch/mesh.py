@@ -1,18 +1,39 @@
-"""Meshes on the stacked binding, the counterpart of
-``repro/launch/mesh.py``.
+"""Meshes, the counterpart of ``repro/launch/mesh.py``, in two bindings.
 
-On one card a mesh is not a grid of devices: it is a list of named
-participant dimensions (:mod:`repro_torch.core.runtime`'s stacked form), so
-a tensor sharded over ``("data", "model")`` carries those two leading
-dimensions on the one device.  :class:`StackedMesh` answers what code asks
-of a ``jax.sharding.Mesh`` — ``mesh.shape[name]`` and ``mesh.axis_names``
-— and nothing else.  Meshes of devices come with the port's
-``torch.distributed`` binding (ROADMAP item 12).
+On the stacked binding a mesh is not a grid of devices: it is a list of
+named participant dimensions (:mod:`repro_torch.core.runtime`'s stacked
+form), so a tensor sharded over ``("data", "model")`` carries those two
+leading dimensions on one device.  :class:`StackedMesh` answers what code
+asks of a ``jax.sharding.Mesh`` — ``mesh.shape[name]`` and
+``mesh.axis_names`` — and nothing else.
+
+On the process binding each rank of a ``torch.distributed`` world is one
+point of the mesh and holds its own shard of every tensor.
+:class:`ProcessMesh` answers the same two questions and adds what a rank's
+program asks: the process group of each axis, this rank's coordinate on
+it, and the device its tensors live on.  It is built on
+``torch.distributed.device_mesh.init_device_mesh`` after
+:func:`init_distributed` has joined the world.  No DTensor is made: the
+port's kernels take local tensors, and the collectives are explicit
+(:mod:`repro_torch.distributed.collectives`).
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import math
 from typing import Dict, Tuple
+
+import torch
+
+from ..core.runtime import resolve_device
+
+#: The reference's axis names: (data, model), with pods before them.
+AXES_2D = ("data", "model")
+AXES_3D = ("pod", "data", "model")
+
+#: The device :func:`init_distributed` gave this rank.
+_RANK_DEVICE: list = []
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,16 +58,107 @@ class StackedMesh:
         return dict(zip(self.axis_names, self.sizes))
 
 
+def init_distributed(backend: str, world_size: int, rank: int,
+                     init_method: str, device=None,
+                     timeout_s: float = 300.0) -> torch.device:
+    """Join a ``torch.distributed`` world of ``world_size`` ranks as
+    ``rank`` (``init_method`` such as ``tcp://localhost:<port>``; nothing
+    tells a program of a cluster, so the caller names it) and return the
+    device this rank's tensors live on.
+
+    ``device`` None means the card, ``cuda:<rank mod the card count>``,
+    which is made the current device; with no card that raises, so the CPU
+    is used only when asked for (``device="cpu"``, the gloo worlds of the
+    tests).  ``backend`` is ``"nccl"`` (the cards) or ``"gloo"`` (the CPU,
+    or ranks that share one card, which NCCL refuses).  A collective that
+    waits longer than ``timeout_s`` raises."""
+    import torch.distributed as dist
+    if device is None:
+        resolve_device(None)
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    elif backend == "nccl":
+        raise ValueError("the nccl backend needs the card; use gloo on the "
+                         "CPU")
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world_size, rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    _RANK_DEVICE[:] = [dev]
+    return dev
+
+
+class ProcessMesh:
+    """This rank's view of a mesh of ``torch.distributed`` ranks.
+
+    ``ProcessMesh(n_data, n_model)`` is a (data, model) mesh and
+    ``ProcessMesh(n_pod, n_data, n_model)`` a (pod, data, model) one; the
+    world that :func:`init_distributed` joined must hold exactly that many
+    ranks, laid out row-major (the last axis, model, varies fastest).
+    ``device`` is where this rank's tensors live: the one
+    :func:`init_distributed` returned."""
+
+    def __init__(self, *sizes: int):
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+        if not dist.is_initialized() or not _RANK_DEVICE:
+            raise RuntimeError("ProcessMesh needs a torch.distributed world: "
+                               "call init_distributed first")
+        self.sizes = tuple(int(s) for s in sizes)
+        self.axis_names = {2: AXES_2D, 3: AXES_3D}.get(len(self.sizes))
+        if self.axis_names is None:
+            raise ValueError(f"a process mesh has 2 or 3 axes, not "
+                             f"{self.sizes}")
+        StackedMesh(self.sizes, self.axis_names)      # the same checks
+        world = dist.get_world_size()
+        if math.prod(self.sizes) != world:
+            raise ValueError(f"a mesh of {self.sizes} needs "
+                             f"{math.prod(self.sizes)} ranks; the world has "
+                             f"{world}")
+        self.backend = dist.get_backend()
+        self.device = _RANK_DEVICE[0]
+        # the mesh's device type sets the groups' backend; the tensors'
+        # device is ``self.device`` (a gloo world may hold card tensors)
+        self.device_mesh = init_device_mesh(
+            "cuda" if self.backend == "nccl" else "cpu", self.sizes,
+            mesh_dim_names=self.axis_names)
+        coords = self.device_mesh.get_coordinate()
+        self.coords = dict(zip(self.axis_names, (int(c) for c in coords)))
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name → size, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        """The number of ranks."""
+        return math.prod(self.sizes)
+
+    def group(self, axis: str):
+        """The process group of this rank's line along ``axis``: the ranks
+        that differ from it in that coordinate alone, in coordinate
+        order."""
+        return self.device_mesh.get_group(axis)
+
+    def coord(self, axis: str) -> int:
+        """This rank's coordinate on ``axis``."""
+        return self.coords[axis]
+
+
 def make_production_mesh(*, multi_pod: bool = False, dp: int = 16,
                          tp: int = 16) -> StackedMesh:
     """Single pod: (data=dp, model=tp), dp·tp = 256 participants (default
-    16×16).  Multi-pod: (pod=2, data=dp, model=tp) = 512."""
+    16×16).  Multi-pod: (pod=2, data=dp, model=tp) = 512.  Over processes
+    the same mesh is ``ProcessMesh(dp, tp)`` (``ProcessMesh(2, dp, tp)``)."""
     assert dp * tp == 256, (dp, tp)
     if multi_pod:
-        return StackedMesh((2, dp, tp), ("pod", "data", "model"))
-    return StackedMesh((dp, tp), ("data", "model"))
+        return StackedMesh((2, dp, tp), AXES_3D)
+    return StackedMesh((dp, tp), AXES_2D)
 
 
 def make_debug_mesh(n_data: int = 1, n_model: int = 1) -> StackedMesh:
-    """A small (data, model) mesh."""
-    return StackedMesh((n_data, n_model), ("data", "model"))
+    """A small (data, model) mesh; over processes ``ProcessMesh(n_data,
+    n_model)``."""
+    return StackedMesh((n_data, n_model), AXES_2D)

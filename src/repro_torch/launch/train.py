@@ -41,20 +41,11 @@ from repro_torch.configs.base import ArchConfig, TrainConfig
 from repro_torch.core.runtime import resolve_device
 from repro_torch.data import FileTokens, SyntheticTokens
 from repro_torch.models import build_model
+from repro_torch.models.layers import MetaGenerator
 from repro_torch.models.model import param_stacks
 from repro_torch.optim import make_optimizer
 from repro_torch.train import make_train_step
 from repro_torch.tree import leaves
-
-
-class _MetaGenerator(torch.Generator):
-    """A generator whose draws land on the meta device: the initialisers
-    place their tensors on ``gen.device``, so ``model.init`` with it builds
-    every leaf's shape and dtype and allocates nothing."""
-
-    @property
-    def device(self):
-        return torch.device("meta")
 
 
 def memory_reckoning(cfg: ArchConfig, tcfg: TrainConfig) -> dict:
@@ -64,7 +55,7 @@ def memory_reckoning(cfg: ArchConfig, tcfg: TrainConfig) -> dict:
     dtypes, and one float32 copy of the largest leaf (the optimizer's
     per-leaf arithmetic runs in float32).  Activations are not counted, so
     the total is a floor."""
-    params = build_model(cfg).init(_MetaGenerator())
+    params = build_model(cfg).init(MetaGenerator())
     state = make_optimizer(tcfg, param_stacks(cfg)).init(params)
     ps = leaves(params)
     out = {"params": sum(p.numel() * p.element_size() for p in ps),

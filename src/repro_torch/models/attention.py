@@ -29,6 +29,13 @@ attention goes through
 forward kernels, and the hand-written backward); otherwise, as in serving,
 through ``flash_attention``.  MLA's zero-padded v columns get zero
 gradient, which the pad's backward drops.
+
+Tensor parallelism (the process binding's ``tp``): a rank holds whole
+query heads — ``wq``'s columns and ``wo``'s rows of its heads — and the kv
+heads they read (``wk``/``wv``'s columns; :mod:`repro_torch.distributed.
+tensor_parallel`), so q, k, v and the cache carry the rank's heads, the
+kernels run on them unchanged, and ``tp.psum`` adds the ranks' partial
+``wo`` products.  Head counts are read from the weights, not the config.
 """
 from __future__ import annotations
 
@@ -78,9 +85,9 @@ def _project_qkv(params, cfg: ArchConfig, x, kv_x=None):
     B, S, _ = x.shape
     hd = cfg.head_dim_
     kv_x = x if kv_x is None else kv_x
-    q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = (kv_x @ params["wk"]).reshape(B, kv_x.shape[1], cfg.n_kv_heads, hd)
-    v = (kv_x @ params["wv"]).reshape(B, kv_x.shape[1], cfg.n_kv_heads, hd)
+    q = (x @ params["wq"]).reshape(B, S, -1, hd)
+    k = (kv_x @ params["wk"]).reshape(B, kv_x.shape[1], -1, hd)
+    v = (kv_x @ params["wv"]).reshape(B, kv_x.shape[1], -1, hd)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
@@ -88,7 +95,7 @@ def _project_qkv(params, cfg: ArchConfig, x, kv_x=None):
 
 
 def attention(params, cfg: ArchConfig, x, *, positions=None, causal=True,
-              window=None, kv_x=None, use_rope=True):
+              window=None, kv_x=None, use_rope=True, tp=None):
     """Full-sequence (prefill, training, encoder) attention: causal unless
     ``causal`` is False, over the last ``window`` keys when one is given,
     RoPE on q and k where ``use_rope``.  With a context ``kv_x`` (B, Sctx,
@@ -105,12 +112,12 @@ def attention(params, cfg: ArchConfig, x, *, positions=None, causal=True,
         k = apply_rope(k, pos, cfg.rope_theta)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     out = _flash(qh, kh, vh, causal=causal and kv_x is None, window=window)
-    out = out.transpose(1, 2).reshape(B, S, -1)
-    return out @ params["wo"], KVCache(kh, vh)
+    out = out.transpose(1, 2).reshape(B, S, -1) @ params["wo"]
+    return (out if tp is None else tp.psum(out)), KVCache(kh, vh)
 
 
 def attention_decode(params, cfg: ArchConfig, x, cache: KVCache, pos, *,
-                     window=None, use_rope=True):
+                     window=None, use_rope=True, tp=None):
     """One-token decode.  x (B, 1, d); ``cache`` holds S_max slots; ``pos``
     (B,) — each sequence's current length, the new token's index.
 
@@ -137,7 +144,8 @@ def attention_decode(params, cfg: ArchConfig, x, cache: KVCache, pos, *,
                                          buf[rows, :, slot])
     lengths = torch.clamp(pos + 1, max=S_max)
     out = decode_attention(q, cache.k, cache.v, lengths)
-    return out.reshape(B, 1, -1) @ params["wo"], cache
+    out = out.reshape(B, 1, -1) @ params["wo"]
+    return (out if tp is None else tp.psum(out)), cache
 
 
 def context_lengths(cache: KVCache):

@@ -4,6 +4,14 @@ Parameters are nested dicts of tensors with the reference's names and
 layouts (a dense weight is (d_in, d_out)), so a JAX parameter tree carries
 over leaf for leaf (:mod:`.convert`).  Initialisers take an explicit
 ``torch.Generator`` and allocate on its device.
+
+On the process binding's tensor-parallel path (``tp``, a
+:class:`~repro_torch.distributed.tensor_parallel.TensorParallel`) a rank
+holds a share of each weight: ``mlp``'s gate and up columns and ``wo``'s
+rows, whose partial products ``tp.psum`` adds; the embedding's vocabulary
+rows, whose lookup is masked to them and summed; the unembedding's vocab
+columns, whose logits ``tp.gather`` concatenates.  With ``tp`` None, as on
+every other path, nothing changes.
 """
 from __future__ import annotations
 
@@ -18,6 +26,16 @@ def dense_init(gen: torch.Generator, d_in, d_out, dtype, scale=None):
     w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
                     dtype=torch.float32)
     return (w * scale).to(dtype)
+
+
+class MetaGenerator(torch.Generator):
+    """A generator whose draws land on the meta device: the initialisers
+    place their tensors on ``gen.device``, so ``model.init`` with it builds
+    every leaf's shape and dtype and allocates nothing."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
 
 
 def embed_init(gen: torch.Generator, vocab, d, dtype):
@@ -82,12 +100,14 @@ def init_mlp(gen, d, d_ff, dtype):
             "wo": dense_init(gen, d_ff, d, dtype)}
 
 
-def mlp(params, x, act="silu"):
+def mlp(params, x, act="silu", tp=None):
     """SwiGLU (``act="silu"``) or GeGLU (``act="gelu"``, tanh-approximate
-    GeLU): (act(x W_gate) · x W_up) W_o."""
+    GeLU): (act(x W_gate) · x W_up) W_o; with ``tp`` the rank's columns and
+    rows, summed over the ranks."""
     gate = x @ params["wi_gate"]
     g = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
-    return (g * (x @ params["wi_up"])) @ params["wo"]
+    out = (g * (x @ params["wi_up"])) @ params["wo"]
+    return out if tp is None else tp.psum(out)
 
 
 def init_ffn_nogate(gen, d, d_ff, dtype):
@@ -110,14 +130,17 @@ def init_embedding(gen, vocab, d, dtype, tie):
     return p
 
 
-def embed(params, tokens):
+def embed(params, tokens, tp=None):
+    if tp is not None and tp.vocab_sharded:
+        return tp.embed(params["table"], tokens)
     return params["table"][tokens]
 
 
-def unembed(params, x, tie):
-    if tie:
-        return x @ params["table"].T
-    return x @ params["head"]
+def unembed(params, x, tie, tp=None):
+    logits = x @ params["table"].T if tie else x @ params["head"]
+    if tp is not None and tp.vocab_sharded:
+        return tp.gather(logits, -1)
+    return logits
 
 
 # -------------------------------------------------------------------- remat

@@ -67,19 +67,23 @@ class Model(NamedTuple):
 
 
 def build_model(cfg: ArchConfig, *, remat: str = "block",
-                xent_chunks: int = 1, moe_fn=None) -> Model:
+                xent_chunks: int = 1, moe_fn=None, tp=None) -> Model:
     """``remat``: ``"none"``, ``"block"`` or ``"full"`` (each training
     block recomputed in the backward pass; the reference's knob);
     ``xent_chunks``: sequence chunks of the unembedding and loss;
     ``moe_fn``: the MoE layers' block in training, prefill and decode, in
     place of ``moe_block_local`` (the expert-parallel hook,
     :func:`repro_torch.distributed.moe_ep.make_moe_fn`; the LM family
-    only, as in the reference)."""
+    only, as in the reference); ``tp``: the process binding's
+    tensor-parallel serving path
+    (:class:`~repro_torch.distributed.tensor_parallel.TensorParallel`; the
+    dense and GQA MoE layers' prefill and decode — its ``train_loss`` and
+    ``logits`` refuse)."""
     if cfg.family == "audio":
         return _build_encdec(cfg, remat)
     if cfg.family == "ssm":
         return _build_rwkv(cfg, remat)
-    return _build_lm(cfg, remat, xent_chunks, moe_fn)
+    return _build_lm(cfg, remat, xent_chunks, moe_fn, tp)
 
 
 def _device(params):
@@ -178,36 +182,56 @@ def _input_specs(cfg: ArchConfig, shape: ShapeConfig, init_cache):
 
 # ---------------------------------------------------------------- LM family
 def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int,
-              moe_fn=None) -> Model:
+              moe_fn=None, tp=None) -> Model:
     # the reference multiplies by sqrt(d) cast to the model dtype first (in
     # bf16, 50.5 for d = 2560); the product of two such values is exact in
     # float32, so one rounding to the model dtype gives the reference's bits
     embed_scale = float(torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype_)) \
         if cfg.scale_embed else None
 
-    def init(generator: torch.Generator):
+    def init(generator: torch.Generator, experts=None, keep=None):
         """Random weights, drawn from ``generator`` on its device, with the
-        ``mtp`` subtree where the config has ``mtp_depth``."""
-        p = {"embed": init_embedding(generator, cfg.vocab, cfg.d_model,
-                                     cfg.dtype_, cfg.tie_embeddings),
-             "layers": T.init_stack(generator, cfg),
-             "final_norm": init_rmsnorm(cfg.d_model, generator.device)}
+        ``mtp`` subtree where the config has ``mtp_depth``.
+
+        ``experts`` (lo, hi) keeps each MoE layer's experts lo … hi − 1
+        (:func:`moe.init_moe`); ``keep(path, tree)``, where given, takes
+        each group of leaves as soon as it is drawn — the embedding
+        (``("embed",)``), each layer (``("layers", i)``), the final norm
+        and the ``mtp`` subtree — and returns what the result holds in its
+        place, so a caller that keeps a block of each holds one group whole
+        at a time (:func:`repro_torch.distributed.tensor_parallel.
+        init_params`)."""
+        if keep is None:
+            def keep(path, tree):
+                return tree
+        dev = generator.device
+        p = {"embed": keep(("embed",), init_embedding(
+            generator, cfg.vocab, cfg.d_model, cfg.dtype_,
+            cfg.tie_embeddings))}
+        p["layers"] = [keep(("layers", i),
+                            T.init_block(generator, cfg, kind, experts))
+                       for i, kind in enumerate(T.layer_kinds(cfg))]
+        p["final_norm"] = keep(("final_norm",),
+                               init_rmsnorm(cfg.d_model, dev))
         if cfg.mtp_depth:
-            dev = generator.device
-            p["mtp"] = {
+            p["mtp"] = keep(("mtp",), {
                 "proj": dense_init(generator, 2 * cfg.d_model, cfg.d_model,
                                    cfg.dtype_),
                 "norm_h": init_rmsnorm(cfg.d_model, dev),
                 "norm_e": init_rmsnorm(cfg.d_model, dev),
                 "block": T.init_block(generator, cfg, "mla_dense"
-                                      if cfg.mla is not None else "attn")}
+                                      if cfg.mla is not None else "attn")})
         return p
 
     def _embed_in(params, tokens):
-        x = embed(params["embed"], tokens)
+        x = embed(params["embed"], tokens, tp)
         return x * embed_scale if embed_scale is not None else x
 
     def _hidden(params, tokens, context):
+        if tp is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: training over tensor-parallel ranks is the "
+                f"process binding's training half (ROADMAP item 12)")
         x, aux = T.apply_stack_train(params["layers"], cfg,
                                      _embed_in(params, tokens), remat,
                                      context, moe_fn)
@@ -260,17 +284,17 @@ def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int,
         x = _embed_in(params, tokens)
         x, caches = T.fill_stack_cache(params["layers"], cfg, x, s_max,
                                        context=_context(params, batch),
-                                       moe_fn=moe_fn)
+                                       moe_fn=moe_fn, tp=tp)
         h = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-        lg = unembed(params["embed"], h, cfg.tie_embeddings)[:, 0]
+        lg = unembed(params["embed"], h, cfg.tie_embeddings, tp)[:, 0]
         return lg, caches, _last_pos(tokens)
 
     def decode_step(params, token, caches, pos, batch=None):
         x = _embed_in(params, _tokens(params, {"tokens": token}))
         x, caches = T.apply_stack_decode(params["layers"], cfg, x, caches,
-                                         pos, moe_fn)
+                                         pos, moe_fn, tp)
         h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        lg = unembed(params["embed"], h, cfg.tie_embeddings)[:, 0]
+        lg = unembed(params["embed"], h, cfg.tie_embeddings, tp)[:, 0]
         return lg, caches
 
     def input_specs(shape: ShapeConfig):

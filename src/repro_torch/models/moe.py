@@ -43,9 +43,10 @@ shard dimensions, so each shard's routing and drops are the reference's.
 The expert FFN then makes the same three ``gmm`` calls as the local path,
 over every shard's experts at once, with each expert's received rows
 compacted to the front of its block, so each live expert's weights are
-read once a product however many sources sent it tokens.  Across cards
-the a2a comes with the port's ``torch.distributed`` binding (ROADMAP item
-12).
+read once a product however many sources sent it tokens.
+
+``moe_block_a2a_rank`` is the same block on the process binding: one
+rank's program, its all_to_alls between processes.
 """
 from __future__ import annotations
 
@@ -58,27 +59,36 @@ from ..kernels.moe_gmm import gmm
 from .layers import dense_init, init_mlp, mlp
 
 
-def init_moe(gen, cfg: ArchConfig):
+def init_moe(gen, cfg: ArchConfig, experts=None):
+    """The block's parameters; ``experts`` (lo, hi), where given, keeps
+    experts lo … hi − 1 of each expert leaf and draws the others only to
+    pass them (an expert-parallel rank's share, drawn as the whole block
+    would be)."""
     mo = cfg.moe
     d, f, E, dt = cfg.d_model, mo.d_ff_expert, mo.n_experts, cfg.dtype_
     p = {"router": dense_init(gen, d, E, torch.float32),
-         "experts": {"wi_gate": _expert_init(gen, E, d, f, dt),
-                     "wi_up": _expert_init(gen, E, d, f, dt),
-                     "wo": _expert_init(gen, E, f, d, dt)}}
+         "experts": {"wi_gate": _expert_init(gen, E, d, f, dt, experts),
+                     "wi_up": _expert_init(gen, E, d, f, dt, experts),
+                     "wo": _expert_init(gen, E, f, d, dt, experts)}}
     if mo.n_shared_experts:
         p["shared"] = init_mlp(gen, d, mo.d_ff_shared * mo.n_shared_experts,
                                dt)
     return p
 
 
-def _expert_init(gen, e, d_in, d_out, dtype):
+def _expert_init(gen, e, d_in, d_out, dtype, keep=None):
     """(e, d_in, d_out) normal / sqrt(d_in), drawn one expert at a time into
     the result: the float32 draw of a whole leaf would be 21.5 GB at
-    llama4-maverick's widths, twice over with its scaled copy.  On the meta
+    llama4-maverick's widths, twice over with its scaled copy.  ``keep``
+    (lo, hi) keeps experts lo … hi − 1 only, the others drawn and dropped,
+    so the generator ends where the whole leaf's draw ends.  On the meta
     device (shapes only) nothing is drawn."""
-    w = torch.empty((e, d_in, d_out), dtype=dtype, device=gen.device)
+    lo, hi = (0, e) if keep is None else keep
+    w = torch.empty((hi - lo, d_in, d_out), dtype=dtype, device=gen.device)
     for i in range(e if w.device.type != "meta" else 0):
-        w[i] = dense_init(gen, d_in, d_out, dtype)
+        drawn = dense_init(gen, d_in, d_out, dtype)
+        if lo <= i < hi:
+            w[i - lo] = drawn
     return w
 
 
@@ -253,6 +263,70 @@ def moe_block_a2a(params, x, cfg: ArchConfig):
         out = out + mlp(params["shared"], xt, cfg.act)
     aux = load_balance_loss(logits, e, mo)
     return out.reshape(Pd, Pt, B, S, d), aux
+
+
+def moe_block_a2a_rank(params, x, cfg: ArchConfig, mesh):
+    """Expert-parallel MoE forward of one rank of a
+    :class:`~repro_torch.launch.mesh.ProcessMesh`: the reference's
+    ``moe_block_a2a`` under ``shard_map``, its two ``all_to_all``s over
+    ``model`` ``torch.distributed.all_to_all_single`` between the processes
+    (:func:`repro_torch.distributed.collectives.all_to_all`).
+
+    x (B, S, d): this rank's tokens.  ``params``: ``router`` as in
+    :func:`moe_block_local`; each ``experts`` leaf (E_local, ...) the rank's
+    experts, model coordinate j holding j·E_local … (j + 1)·E_local − 1.
+    The shared expert is not applied here (the caller runs it
+    tensor-parallel).  Returns (the routed output (B, S, d), the rank's
+    load-balance loss).
+
+    The rank routes, sizes C = capacity(B·S) and dispatches its own tokens,
+    as the reference's shard does.  With each (E_local, C) block of slots
+    goes its kept-row counts, so destination j learns, for each local
+    expert e and source s, how many of s's C slots hold a token; a gather
+    moves those rows to the front of e's block of P·C rows, in source
+    order, as the stacked :func:`moe_block_a2a` compacts them, and ``gmm``
+    reads e's weights once for every source.  The results go back through
+    the same index and the second all_to_all, and the rank combines its
+    own.  On an axis of size 1 both all_to_alls are the identity."""
+    from ..distributed import collectives as CL
+    mo = cfg.moe
+    E, P = mo.n_experts, mesh.shape["model"]
+    El = params["experts"]["wi_gate"].shape[0]
+    if El * P != E:
+        raise ValueError(f"{cfg.name}: a rank holds {El} of {E} experts on "
+                         f"a model axis of {P}")
+    B, S, d = x.shape
+    T, dev = B * S, x.device
+    xt = x.reshape(T, d)
+    w, e, logits = route(params, xt, mo)
+    C = capacity(T, mo)
+    x_send, slot, kept_w = dispatch(xt, e, w, E, C)        # (E, C, d)
+    kept = expert_rows(slot, E, C)                          # (E,)
+    # rows (local expert, source) that each source kept for this rank
+    recv = CL.all_to_all(kept.view(P, El), mesh, "model").T.contiguous()
+    x_recv = CL.all_to_all(x_send.reshape(P, El, C, d), mesh, "model")
+    start = torch.cumsum(recv, -1, dtype=torch.int32) - recv
+    block_rows = recv.sum(-1, dtype=torch.int32)
+    # each received slot's row in the compacted (E_local, P·C) blocks; a
+    # slot past its source's count goes to the sentinel row n
+    n = El * P * C
+    c = torch.arange(C, device=dev)
+    block = torch.arange(El, device=dev).view(El, 1, 1)
+    dest = torch.where(c < recv[..., None],
+                       block * (P * C) + start[..., None] + c, n)
+    # received slot (e, s, c) is x_recv's row (s, e, c)
+    src = torch.arange(P * El * C, device=dev).view(P, El, C).permute(1, 0,
+                                                                      2)
+    order = torch.zeros(n + 1, dtype=torch.long, device=dev).scatter_(
+        0, dest.reshape(-1), src.reshape(-1))[:n]
+    x_e = x_recv.reshape(-1, d)[order].view(El, P * C, d)
+    experts = torch.arange(El, dtype=torch.int32, device=dev)
+    y_e = expert_ffn(params["experts"], x_e, cfg.act, block_rows, experts)
+    y_e = torch.cat([y_e.reshape(n, -1), y_e.new_zeros((1, y_e.shape[-1]))])
+    # back through the same index: slot (s, e, c) for source s
+    y_send = CL.all_to_all(y_e[dest.permute(1, 0, 2)], mesh, "model")
+    out = combine(y_send.reshape(E, C, -1), slot, kept_w, T)
+    return out.reshape(B, S, -1), load_balance_loss(logits, e, mo)
 
 
 def _expert_stack(w):

@@ -123,7 +123,9 @@ def _ffn_width(cfg: ArchConfig) -> int:
     return cfg.d_ff
 
 
-def init_block(gen, cfg: ArchConfig, kind: str):
+def init_block(gen, cfg: ArchConfig, kind: str, experts=None):
+    """One layer's parameters; ``experts`` (lo, hi), where given, keeps an
+    MoE layer's experts lo … hi − 1 (:func:`moe.init_moe`)."""
     p = {"ln1": init_rmsnorm(cfg.d_model, gen.device),
          "ln2": init_rmsnorm(cfg.d_model, gen.device)}
     if kind == "rec":
@@ -139,24 +141,25 @@ def init_block(gen, cfg: ArchConfig, kind: str):
     else:
         p["attn"] = A.init_attention(gen, cfg)
     if _is_moe(kind):
-        p["ffn"] = M.init_moe(gen, cfg)
+        p["ffn"] = M.init_moe(gen, cfg, experts)
     else:
         p["ffn"] = init_mlp(gen, cfg.d_model, _ffn_width(cfg),
                             cfg.dtype_)
     return p
 
 
-def _apply_ffn(params, cfg: ArchConfig, kind: str, h, moe_fn=None):
+def _apply_ffn(params, cfg: ArchConfig, kind: str, h, moe_fn=None,
+               tp=None):
     """The block's FFN on h (B, S, d) → (out, the MoE block's load-balance
     loss, or None for a dense FFN).  ``moe_fn(ffn_params, h, cfg)``, where
     given, takes an MoE layer's place of :func:`moe.moe_block_local` (the
     expert-parallel block, :func:`repro_torch.distributed.moe_ep.
-    make_moe_fn`)."""
+    make_moe_fn`); ``tp`` makes the dense FFN tensor-parallel."""
     if _is_moe(kind):
         if moe_fn is not None:
             return moe_fn(params["ffn"], h, cfg)
         return M.moe_block_local(params["ffn"], h, cfg)
-    return mlp(params["ffn"], h, cfg.act), None
+    return mlp(params["ffn"], h, cfg.act, tp), None
 
 
 def _gate(params, name, x, out):
@@ -166,8 +169,10 @@ def _gate(params, name, x, out):
 
 
 def _block(params, cfg: ArchConfig, kind: str, x, positions, context,
-           moe_fn=None):
-    """x (B, S, d) → (x', the mixer's cache, the FFN's aux loss or None)."""
+           moe_fn=None, tp=None):
+    """x (B, S, d) → (x', the mixer's cache, the FFN's aux loss or None);
+    ``tp`` (the process binding's tensor-parallel path) reaches the GQA
+    attention and the dense FFN, the kinds it runs."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "rec":
         out, cache = R.rglru_block(params["temporal"], h)
@@ -183,24 +188,24 @@ def _block(params, cfg: ArchConfig, kind: str, x, positions, context,
         out = _gate(params, "gate_attn", x, out)
     else:
         out, cache = A.attention(params["attn"], cfg, h, positions=positions,
-                                 window=_window(cfg, kind))
+                                 window=_window(cfg, kind), tp=tp)
     x = x + out
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    f_out, aux = _apply_ffn(params, cfg, kind, h, moe_fn)
+    f_out, aux = _apply_ffn(params, cfg, kind, h, moe_fn, tp)
     if kind == "cross":
         f_out = _gate(params, "gate_ffn", x, f_out)
     return x + f_out, cache, aux
 
 
 def apply_block_train(params, cfg: ArchConfig, kind: str, x, positions=None,
-                      context=None, moe_fn=None):
+                      context=None, moe_fn=None, tp=None):
     """x (B, S, d) → (x', cache).  Where the reference returns an auxiliary
     loss, the port's serving block returns what prefill stores as the
     decode cache: the attention's rotated k/v (a cross layer's: the
     context's), MLA's compressed latents, or the recurrent block's final
     :class:`RecState` (:func:`train_block` returns the loss)."""
     x, cache, _aux = _block(params, cfg, kind, x, positions, context,
-                            moe_fn)
+                            moe_fn, tp)
     return x, cache
 
 
@@ -232,7 +237,7 @@ def apply_stack_train(params, cfg: ArchConfig, x, remat: str = "block",
 
 
 def apply_block_decode(params, cfg: ArchConfig, kind: str, x, cache, pos,
-                       ctx_lengths=None, moe_fn=None):
+                       ctx_lengths=None, moe_fn=None, tp=None):
     """x (B, 1, d), pos (B,) → (x', cache); a GQA attention cache is
     updated in place, an MLA cache rewritten as the reference does, a cross
     layer's context cache read (through ``ctx_lengths``,
@@ -249,17 +254,13 @@ def apply_block_decode(params, cfg: ArchConfig, kind: str, x, cache, pos,
         out = _gate(params, "gate_attn", x, out)
     else:
         out, cache = A.attention_decode(params["attn"], cfg, h, cache, pos,
-                                        window=_window(cfg, kind))
+                                        window=_window(cfg, kind), tp=tp)
     x = x + out
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    f_out = _apply_ffn(params, cfg, kind, h, moe_fn)[0]
+    f_out = _apply_ffn(params, cfg, kind, h, moe_fn, tp)[0]
     if kind == "cross":
         f_out = _gate(params, "gate_ffn", x, f_out)
     return x + f_out, cache
-
-
-def init_stack(gen, cfg: ArchConfig) -> List[dict]:
-    return [init_block(gen, cfg, kind) for kind in layer_kinds(cfg)]
 
 
 def _cache_slots(cfg: ArchConfig, kind: str, s_max: int) -> int:
@@ -292,20 +293,20 @@ def init_stack_cache(cfg: ArchConfig, batch: int, s_max: int, device):
 
 
 def apply_stack_decode(params, cfg: ArchConfig, x, caches, pos,
-                       moe_fn=None):
+                       moe_fn=None, tp=None):
     kinds = layer_kinds(cfg)
     ctx_lengths = A.context_lengths(caches[kinds.index("cross")]) \
         if "cross" in kinds else None
     new = []
     for kind, p, c in zip(kinds, params, caches):
         x, c = apply_block_decode(p, cfg, kind, x, c, pos, ctx_lengths,
-                                  moe_fn)
+                                  moe_fn, tp)
         new.append(c)
     return x, new
 
 
 def fill_stack_cache(params, cfg: ArchConfig, x, s_max: int,
-                     positions=None, context=None, moe_fn=None):
+                     positions=None, context=None, moe_fn=None, tp=None):
     """Prefill: run the stack over the prompt, returning the final hidden
     states and every layer's decode cache: the recurrent state, MLA's
     latents zero-padded to ``s_max`` slots, a cross layer's k/v of the
@@ -314,7 +315,7 @@ def fill_stack_cache(params, cfg: ArchConfig, x, s_max: int,
     caches = []
     for kind, p in zip(layer_kinds(cfg), params):
         x, c = apply_block_train(p, cfg, kind, x, positions, context,
-                                 moe_fn)
+                                 moe_fn, tp)
         if _is_mla(kind):
             c = _mla_prefill_cache(c, s_max)
         elif kind == "cross":

@@ -372,7 +372,7 @@ def _model_params(arch, jcfg, seed=0):
 
 
 def _serve(steps, params, tokens, n_decode, s_max):
-    _model, prefill, decode = steps
+    _model, prefill, decode, _jit_decode = steps
     lg, caches, pos = prefill(params, {"tokens": tokens}, s_max)
     out = [lg]
     tok = torch.argmax(lg, -1).to(torch.int32)[:, None]
@@ -418,8 +418,8 @@ def test_serve_steps_match_the_reference_at_one_shard():
     jlg, jcache, jpos = jax.jit(jprefill, static_argnums=2)(
         jparams, {"tokens": jnp.asarray(tokens)}, 16)
     jdecode = jax.jit(jdecode)
-    _model, prefill, decode = make_serve_steps(cfg, make_debug_mesh(1, 1),
-                                               "cpu")
+    _model, prefill, decode, _jit_decode = make_serve_steps(
+        cfg, make_debug_mesh(1, 1), "cpu")
     with torch.no_grad():
         lg, caches, pos = prefill(params, {"tokens": tokens}, 16)
         np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **TOL)

@@ -1,0 +1,137 @@
+"""The gloo worlds of ``tests/test_torch_dist_serve.py``, run as one child
+process:
+
+    python tests/torch_dist_world.py <inputs.pt> <outputs.pt>
+
+``inputs.pt`` holds the port's parameters of each smoke model (carried
+over from the reference's with ``params_from_jax``), the prompt tokens
+and the worlds to run.  Each world is spawned on the CPU over gloo
+(:func:`repro_torch.launch.world.spawn_world`); each rank cuts its blocks
+out of the full parameters, serves the prompt through
+``make_serve_steps(cfg, ProcessMesh(...))`` — a prefill of the global
+batch, then greedy decode steps on its own rows — and returns its logits,
+tokens and caches, each MoE rank also the expert-parallel block's output
+on one input; the refusal of a family without a tensor-parallel form is
+asked too.  A world of 1 also runs the unsharded path in the same
+process, for a bitwise comparison.  Every rank's result goes to
+``outputs.pt``.  It imports neither JAX nor the JAX package.
+"""
+from __future__ import annotations
+
+import sys
+
+import torch
+
+
+def _serve(steps, params, tokens, n_decode, s_max):
+    _model, prefill, decode, _jit = steps
+    lg, caches, pos = prefill(params, {"tokens": tokens}, s_max)
+    logits, toks = [lg], []
+    tok = torch.argmax(lg, -1).to(torch.int32)[:, None]
+    for _ in range(n_decode):
+        toks.append(tok)
+        tok, lg, caches, pos = decode(params, tok, caches, pos)
+        logits.append(lg)
+    return logits, toks + [tok], caches
+
+
+def serve_rank(rank, sizes, job):
+    """One rank of a world laid out as ``sizes`` (data, model)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import tensor_parallel as TPL
+    from repro_torch.distributed.moe_ep import make_moe_fn
+    from repro_torch.launch.mesh import ProcessMesh
+    from repro_torch.models import build_model
+    from repro_torch.train import make_serve_steps
+    from repro_torch.tree import flatten
+    torch.set_num_threads(1)
+    mesh = ProcessMesh(*sizes)
+    out = {"coords": mesh.coords}
+    for name, m in job["models"].items():
+        cfg = m["cfg"]
+        params = m["params"]
+        steps = make_serve_steps(cfg, mesh)
+        local = TPL.shard_tree(params, TPL.param_layout(params, cfg, mesh),
+                               mesh)
+        bound = steps[3](params, build_model(cfg).init_cache(
+            m["tokens"].shape[0], m["s_max"], device="meta"),
+            torch.as_tensor(m["tokens"][:, :1]))
+        try:
+            bound(local, torch.as_tensor(m["tokens"][:, :1]),
+                  build_model(cfg).init_cache(m["tokens"].shape[0],
+                                              m["s_max"], device="cpu"),
+                  torch.zeros(m["tokens"].shape[0], dtype=torch.int32))
+            refused_whole_cache = mesh.size == 1
+        except ValueError:
+            refused_whole_cache = True
+        with torch.no_grad():
+            logits, toks, caches = _serve(
+                (steps[0], steps[1], bound, None), local, m["tokens"],
+                job["n_decode"], m["s_max"])
+            r = {"logits": [t.clone() for t in logits], "tokens": toks,
+                 "cache": {p: t.clone() for p, t in flatten(caches)},
+                 "init_cache": {p: tuple(t.shape) for p, t in flatten(
+                     steps[0].init_cache(m["tokens"].shape[0],
+                                         m["s_max"]))},
+                 "refused_whole_cache": refused_whole_cache}
+            if "moe_x" in m:
+                i = m["moe_layer"]
+                moe_fn = make_moe_fn(cfg, mesh)
+                r["moe_out"] = moe_fn(local["layers"][i]["ffn"],
+                                      m["moe_x"], cfg)[0]
+            if mesh.size == 1:
+                plain, plain_toks, plain_cache = _serve(
+                    make_serve_steps(cfg, None, "cpu"), params, m["tokens"],
+                    job["n_decode"], m["s_max"])
+                r["bitwise"] = all(
+                    torch.equal(a, b) for a, b in zip(logits, plain)) and \
+                    all(torch.equal(a, b) for a, b in zip(toks, plain_toks)) \
+                    and all(torch.equal(a, b) for (_p, a), (_q, b) in zip(
+                        flatten(caches), flatten(plain_cache)))
+        out[name] = r
+    if mesh.shape["model"] > 1:
+        try:
+            make_serve_steps(get_smoke_config("recurrentgemma-2b"), mesh)
+            out["refusal"] = None
+        except ValueError as e:
+            out["refusal"] = str(e)
+    out["collectives"] = collectives_rank(mesh)
+    return out
+
+
+def collectives_rank(mesh):
+    """Each collective over each named axis on values that name their
+    sender: what every rank received."""
+    from repro_torch.distributed import collectives as CL
+    r = mesh.coords
+    me = float(sum(r[a] * 10 ** i for i, a in enumerate(mesh.axis_names)))
+    out = {}
+    for axis in mesh.axis_names:
+        n = mesh.shape[axis]
+        x = torch.full((n, 3), me) + torch.arange(n)[:, None]
+        out[axis] = {
+            "all_to_all": CL.all_to_all(x, mesh, axis),
+            "all_gather": CL.all_gather(torch.full((2, 1), me), mesh, axis,
+                                        1),
+            "psum": CL.psum(torch.full((4,), me, dtype=torch.bfloat16)
+                            + torch.tensor([0, 1 / 256, 1 / 512, 0],
+                                           dtype=torch.bfloat16), mesh, axis),
+            "identity": CL.psum(x, mesh, axis) is x and
+            CL.all_gather(x, mesh, axis) is x and
+            CL.all_to_all(x, mesh, axis) is x}
+    return out
+
+
+def main(inputs, outputs):
+    from repro_torch.launch.world import spawn_world
+    job = torch.load(inputs, weights_only=False)
+    results = {}
+    for sizes in job["meshes"]:
+        results[tuple(sizes)] = spawn_world(
+            serve_rank, sizes[0] * sizes[1], backend="gloo", device="cpu",
+            args=(tuple(sizes), job), timeout_s=job["timeout_s"])
+    torch.save(results, outputs)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2])
