@@ -9,7 +9,7 @@ toolkit:
 It imports neither JAX nor the JAX package.  Phases, in order; any failure
 exits non-zero and prints no result:
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (eleven
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (twelve
    sources) with nvcc, one process per source, all at once, and check with
    ``cuobjdump -sass`` that the bf16 flash and grouped-matmul kernels run
    on the tensor cores (HMMA instructions, ``mma.sync``; the grouped
@@ -301,6 +301,30 @@ exits non-zero and prints no result:
    against the same block with the plain versions on the card); and a
    checkpoint round trip of the smoke model's bf16 state on the card,
    bitwise;
+7c. the training steps across processes, ``make_train_step(cfg, tcfg,
+   mesh=ProcessMesh(...))`` in worlds of ranks spawned from this process
+   (the kernels already built, every rank on this card): a world of 1 on
+   NCCL, mesh (1, 1), ZeRO stage 2, training llama3.2-3b at full width and
+   depth (2 x 4,096 tokens) and the smoke llama4-maverick (a2a router) 3
+   steps each, after the one-device step ran the same 3 steps in the rank,
+   every step's losses, grad norms, parameters and moments bit for bit
+   (digests of the bits); then worlds of 2 sharing the card over gloo on
+   (2, 1) at stages 2 and 3 (fsdp) and on (1, 2), training llama3.2-3b at
+   full width cut to 2 layers (2 x 1,024; on (1, 2) also the smoke llama4,
+   expert-parallel) 3 steps, held to reference steps this process ran
+   first (the first step's dp-mean gradient blocks within ``PT_GRAD_TOL``
+   leaf by leaf, losses and grad norms within ``PT_LOSS_TOL``, a bf16
+   control meeting both, every parameter element within the AdamW bound
+   of ``PT_STEP_BOUND`` / ``PT_ULPS``);
+   each rank's launches of the flash forward and backward and the grouped
+   matmul and its backward as ``train_launches`` plans, one profiled step
+   in step on every rank (its device operations by kernel row), the
+   rank's step p50, peak memory and the transports gloo used printed
+   beside the card's name and power limit (world 2's not a number between
+   cards); then ``run_elastic`` across processes: a world of 2 on (2, 1)
+   whose rank 1 leaves without a word at step 2 (no collective, no
+   ``shrink_world``), rank 0 re-forms the world alone, restores the
+   checkpoint onto (1, 1) and finishes;
 6. report the end-to-end numbers of every path, each kernel's launches on
    its path, its time beside its plain version's, one PyTorch call's and
    its bound (every row also with the kernel's device time per call from
@@ -327,8 +351,8 @@ exits non-zero and prints no result:
    card's name and power limit, and last the result line.
 
 Kernel launch counts are set to 0 just before each path and read just after
-it (in phase 5c in each rank), so the checks of phases 2, 2b, 2c and 3 and
-the timings of phase 6 count nowhere;
+it (in phases 5c and 7c in each rank), so the checks of phases 2, 2b, 2c
+and 3 and the timings of phase 6 count nowhere;
 the map kernels' rows carry phase 4d's and 4e's counts beside the KVStore
 path's.
 On every replicated path the remote-copy kernel's launches must equal the
@@ -464,6 +488,57 @@ PM_DECODE = 32
 PM_WORLDS = (("nccl", (1, 1)), ("gloo", (1, 2)))
 PM_TP_TOL = 5e-2
 PM_TIMEOUT_S = 600
+# phase 7c, the training steps across processes (make_train_step on a
+# ProcessMesh, default TrainConfig: AdamW, lr 3e-4, remat per block): a
+# world of 1 on NCCL, mesh (1, 1), ZeRO stage 2, training llama3.2-3b at
+# full width and depth on TRAIN_BATCH x TRAIN_SEQ tokens and the smoke
+# llama4-maverick (a2a router) on TRAIN_BATCH x MOE_SMOKE_SEQ, PT_STEPS
+# steps each, whose losses, grad norms, parameters and moments after each
+# step must be the one-device step's bit for bit; then each world of
+# PT_WORLDS, (backend, (data, model), ZeRO stage), two ranks sharing the
+# card over gloo (NCCL refuses two ranks on one device; not a number
+# between cards), training llama3.2-3b at full width cut to PT_LAYERS of
+# 28 layers on TRAIN_BATCH x PT_SEQ tokens (and on (1, 2) the smoke
+# llama4), held to the reference steps run in the parent.  The check that
+# tells a wrong gradient from a right one is the first step's dp-mean
+# gradient: each rank's blocks of it, as the ZeRO plan's push hands them
+# to the optimizer, against the reference's gradient at the same weights
+# and batch, leaf by leaf, ||got - want|| / ||want|| within PT_GRAD_TOL (a
+# partial gradient, a factor of 2 or a missing sum over ``model`` puts a
+# leaf 0.3 or more away).  Losses and grad norms, relative, within
+# PT_LOSS_TOL.  Both limits come from readings on an NVIDIA H100 80GB
+# HBM3 at 700 W and a bf16 control run in the parent on the dense model:
+# the same first gradient as the float32 mean of each batch row's own
+# gradient, and PT_STEPS steps with microbatches of one row, which differ
+# from the reference only in the order of their bf16 roundings.  The
+# control read 2.86e-3 on the gradient, 2.98e-5 on losses and 4.15e-5 on
+# grad norms; the worlds read 2.86e-3 ((2, 1), stages 2 and 3), 1.21e-2
+# ((1, 2)) and 1.25e-2 (llama4 on (1, 2)) on the gradient, and at most
+# 3.09e-4 on losses and 2.28e-3 on grad norms (llama4's).  PT_GRAD_TOL is
+# 2.4 times the largest gradient reading and a twelfth of what a planted
+# fault read (the router's sum over ``model`` left out: 0.367 at smoke
+# size); PT_LOSS_TOL 2.2 times the largest loss or grad-norm reading.
+# The control must meet the limits too, or they sit below bf16's own
+# spread.  Every
+# parameter element is held, as a bound and not a test of the gradient,
+# within what PT_STEPS AdamW steps can move it apart: a step moves an
+# element by lr · (|m^ / (sqrt(v^) + eps)| + wd · |p|), |m^ / sqrt(v^)|
+# stays below 1.2 over a few steps for beta1 0.9, beta2 0.95, and where
+# the two paths' bf16 gradients of an element round apart (at |g| near
+# eps, or near zero) its two moves may lie anywhere in that range, so up
+# to PT_STEP_BOUND · lr · (1 + wd · |p|) apart a step; plus PT_ULPS · |p|
+# for the bf16 roundings of the parameter itself (a few bf16 steps of
+# 2^-8); the parameters must have moved.  Then a world of 2 on (2, 1)
+# whose rank 1 leaves without a word at step 2 (``run_elastic``).
+PT_STEPS = 3
+PT_LAYERS = 2
+PT_SEQ = 1024
+PT_WORLDS = (("gloo", (2, 1), 2), ("gloo", (2, 1), 3), ("gloo", (1, 2), 2))
+PT_LOSS_TOL = 5e-3
+PT_GRAD_TOL = 3e-2
+PT_STEP_BOUND = 2.5
+PT_ULPS = 2.0 ** -6
+PT_TIMEOUT_S = 900
 # phase 7, the training path: llama3.2-3b at full width and depth, bf16,
 # batches of TRAIN_BATCH x TRAIN_SEQ tokens (the train_4k shape's length),
 # remat per block, AdamW, TRAIN_STEPS steps on one repeated batch
@@ -5132,6 +5207,586 @@ def moe_block_full_width(torch, kernels, arch):
 
 
 # ---------------------------------------------------------------------------
+# phase 7c: the training steps across processes
+# ---------------------------------------------------------------------------
+
+def pt_models(sizes):
+    """Phase 7c's models in a world of ``sizes``: (label, arch, smoke,
+    layers, seq, yardstick).  World 1: llama3.2-3b at full width and
+    depth on TRAIN_BATCH x TRAIN_SEQ and the smoke llama4-maverick on
+    TRAIN_BATCH x MOE_SMOKE_SEQ, each against the one-device step bit for
+    bit; world 2: llama3.2-3b cut to PT_LAYERS on TRAIN_BATCH x PT_SEQ,
+    and on (1, 2) also the smoke llama4, against the reference steps the
+    parent ran (the one-device step; llama4's the stacked binding's on a
+    (1, 2) mesh: its load-balance loss is the mean of the shards', as the
+    reference's ``pmean``)."""
+    if sizes == (1, 1):
+        return [(TRAIN_ARCH, TRAIN_ARCH, False, 0, TRAIN_SEQ, "bitwise"),
+                (f"{MOE_ARCH} smoke", MOE_ARCH, True, 0, MOE_SMOKE_SEQ,
+                 "bitwise")]
+    out = [(f"{TRAIN_ARCH} {PT_LAYERS} layers", TRAIN_ARCH, False,
+            PT_LAYERS, PT_SEQ, "tolerance")]
+    if sizes[1] > 1:
+        out.append((f"{MOE_ARCH} smoke", MOE_ARCH, True, 0, MOE_SMOKE_SEQ,
+                    "tolerance"))
+    return out
+
+
+def pt_config(arch, smoke, layers):
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    return cfg.replace(n_layers=layers) if layers else cfg
+
+
+def pt_batches(cfg, seq):
+    """PT_STEPS batches and one for the profiled step."""
+    from repro_torch.data import SyntheticTokens
+    pipe = SyntheticTokens(cfg, TRAIN_BATCH, seq, SEED)
+    return [pipe.get_batch(i) for i in range(PT_STEPS + 1)]
+
+
+def pt_generator(torch, device):
+    return torch.Generator(device=device).manual_seed(SEED + 15)
+
+
+def pt_digest(torch, t):
+    """A digest of ``t``'s bits: the sum of each element's bits (as a
+    signed integer of its width) times 2·i + 1, i its flat index, in
+    int64; equal tensors give equal digests, and one changed element
+    changes it."""
+    flat = t.detach().contiguous().reshape(-1)
+    bits = flat.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                      8: torch.int64}[flat.element_size()])
+    total, chunk = 0, 1 << 24
+    for lo in range(0, bits.numel(), chunk):
+        b = bits[lo:lo + chunk].long()
+        w = torch.arange(lo, lo + b.numel(), device=b.device,
+                         dtype=torch.long).mul_(2).add_(1)
+        total += int((b * w).sum())
+    return total
+
+
+def pt_digests(torch, params, state):
+    from repro_torch.tree import leaves
+    return [pt_digest(torch, t) for t in leaves(params) + leaves(state)]
+
+
+def pt_steps(torch, step, params, state, batches, digests):
+    """PT_STEPS steps: (params, state, losses and grad norms as floats,
+    each step's wall seconds, each step's digests where asked)."""
+    losses, norms, times, dig = [], [], [], []
+    for b in batches[:PT_STEPS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if digests:
+            dig.append(pt_digests(torch, params, state))
+    return params, state, losses, norms, times, dig
+
+
+def pt_profiled(torch, mesh, fn):
+    """One profiled call of ``fn`` on every rank in step: a session is kept
+    when it is whole on every rank (an all-reduce of the ranks' verdicts),
+    else every rank runs another, up to PROFILER_SESSIONS."""
+    import torch.distributed as dist
+    dev = "cpu" if mesh.backend == "gloo" else mesh.device
+    for _session in range(PROFILER_SESSIONS):
+        ops, lead, tail = profiled_calls(torch, fn, 1)
+        torn = torch.tensor([0.0 if lead and tail and ops else 1.0],
+                            device=dev)
+        dist.all_reduce(torn)
+        if float(torn) == 0.0:
+            return ops
+        SESSIONS_RUN_AGAIN[0] += 1
+    raise SmokeFailure(f"torch.profiler lost device records in each of "
+                       f"{PROFILER_SESSIONS} sessions of a training step")
+
+
+def pt_groups(ops):
+    """Device operations of a profiled step by kernel row: the flash
+    forward (row 6) and backward (row 6b), ``gmm`` (row 9), ``gmm_dx`` and
+    ``gmm_dw`` (row 9b)."""
+    out = {}
+    for group in ("flash_fwd", "flash_bwd"):
+        out[group] = sum(n for name, (n, _us) in ops.items()
+                         if any(k in name for k in KERNEL_GROUPS[group]))
+    for wrapper, names in GMM_KERNELS.items():
+        out[wrapper] = sum(n for name, (n, _us) in ops.items()
+                           if any(all(p in name for p in parts)
+                                  for parts in names))
+    return out
+
+
+def pt_within(torch, got, ref, tcfg):
+    """The largest ratio over every element of |got - ref| to the most
+    PT_STEPS AdamW steps can move it apart (PT_STEP_BOUND · lr · (1 + wd ·
+    |ref|) a step) plus PT_ULPS · |ref| of bf16 roundings."""
+    g, r = got.detach().float(), ref.to(got.device).float()
+    bound = PT_STEPS * PT_STEP_BOUND * tcfg.lr * (
+        1 + tcfg.weight_decay * r.abs()) + PT_ULPS * r.abs()
+    return float(((g - r).abs() / bound).max())
+
+
+def pt_kernels():
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.moe_gmm import gmm, gmm_dw, gmm_dx
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.wkv6 import wkv6
+    return {"flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd, "gmm": gmm,
+            "gmm_dx": gmm_dx, "gmm_dw": gmm_dw,
+            "decode_attention": decode_attention, "rglru_scan": rglru_scan,
+            "wkv6": wkv6}
+
+
+def pt_rank(rank, sizes, stage, ref_file):
+    """One rank of a phase-7c world (spawned; ``init_distributed`` has
+    joined it): each of :func:`pt_models` through ``make_train_step(cfg,
+    tcfg, mesh=ProcessMesh(*sizes))`` at ZeRO ``stage`` — the rank draws
+    its blocks of the seeded weights, runs PT_STEPS steps on the global
+    batches with its launches counted from 0, then one profiled step.  A
+    bitwise model first runs the one-device step in this rank on the same
+    weights and batches (then freed), and every step's losses, parameters
+    and moments must be its bits (digests); a tolerance model's blocks are
+    held to the parent's reference steps (``ref_file``).  Returns the
+    rank's numbers."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tensor_parallel as TPL
+    from repro_torch.distributed.collectives import probe_transports
+    from repro_torch.launch.mesh import ProcessMesh
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import MetaGenerator
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import flatten, tree_map
+    kernels = pt_kernels()
+    mesh = ProcessMesh(*sizes)
+    out = {"coords": mesh.coords, "device": str(mesh.device),
+           "backend": mesh.backend,
+           "transports": dict(probe_transports(mesh)), "models": {}}
+    refs = torch.load(ref_file, weights_only=False) if ref_file else {}
+    for label, arch, smoke, layers, seq, yard in pt_models(sizes):
+        cfg = pt_config(arch, smoke, layers)
+        tcfg = TrainConfig(remat="block", zero_stage=stage)
+        batches = pt_batches(cfg, seq)
+        r = {}
+        gc.collect()
+        torch.cuda.empty_cache()
+        if yard == "bitwise":
+            model, opt, step = make_train_step(cfg, tcfg, mesh.device)
+            params = model.init(pt_generator(torch, mesh.device))
+            state = opt.init(params)
+            params, state, want_l, want_n, t_one, want_d = pt_steps(
+                torch, step, params, state, batches, True)
+            r["one_device_step_p50_ms"] = 1e3 * float(np.percentile(t_one,
+                                                                    50))
+            del model, opt, step, params, state
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, opt, step, _jit = make_train_step(cfg, tcfg, mesh=mesh)
+        params = model.init(pt_generator(torch, mesh.device))
+        state = opt.init(params)
+        pushed, push = {}, opt.plan.grad_blocks
+        if yard != "bitwise":
+            def first_push(tree):
+                blocks = push(tree)
+                if not pushed:
+                    pushed.update({p: b.detach().clone() for (p, _t), b in
+                                   zip(flatten(tree), blocks)})
+                return blocks
+            opt.plan.grad_blocks = first_push
+        for k in kernels.values():
+            k.launches = 0
+        params, state, losses, norms, times, dig = pt_steps(
+            torch, step, params, state, batches, yard == "bitwise")
+        launches = {n: k.launches for n, k in kernels.items() if k.launches}
+        opt.plan.grad_blocks = push
+        r.update(losses=losses, grad_norms=norms, launches=launches,
+                 step_ms=[1e3 * t for t in times],
+                 step_p50_ms=1e3 * float(np.percentile(times, 50)),
+                 params_local=sum(t.numel() for _p, t in flatten(params)))
+        if yard == "bitwise":
+            r["bitwise_steps"] = [
+                a == b for a, b in zip(want_d, dig)]
+            r["bitwise_losses"] = losses == want_l and norms == want_n
+        else:
+            ref = refs[label]
+            full = build_model(cfg).init(MetaGenerator())
+            layout = TPL.param_layout(full, cfg, mesh, stage >= 3)
+            spec_list = []
+            tree_map(lambda _t, s: spec_list.append(tuple(s)), full, layout)
+            specs = dict(zip((p for p, _ in flatten(full)), spec_list))
+            worst, moved = 0.0, False
+            for path, t in flatten(params):
+                whole = ref["params"][path]
+                want = SH.shard(whole, specs[path], mesh)
+                worst = max(worst, pt_within(torch, t, want, tcfg))
+                moved |= not torch.equal(t.cpu(), SH.shard(
+                    ref["init"][path], specs[path], mesh))
+            grad_err, grad_leaf = pt_grad_err(torch, pushed, {
+                p: SH.shard(ref["grads"][p], opt.plan.spec[p], mesh)
+                for p in pushed})
+            del pushed
+            r.update(param_ratio=worst, moved=moved, grad_err=grad_err,
+                     grad_leaf=grad_leaf,
+                     loss_err=max(abs(a - b) / abs(b) for a, b in
+                                  zip(losses, ref["losses"])),
+                     grad_norm_err=max(abs(a - b) / abs(b) for a, b in
+                                       zip(norms, ref["grad_norms"])))
+        r["profiled"] = pt_groups(pt_profiled(
+            torch, mesh, lambda: step(params, state, batches[-1])))
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["models"][label] = r
+        del model, opt, step, params, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def pt_grads(torch, model, params, batch, rows=False):
+    """The gradient of ``model``'s loss at ``params`` on ``batch``, by
+    path, on the host; with ``rows`` the float32 mean of each batch row's
+    own gradient (the same gradient, each row's loss a mean over as many
+    tokens, rounded in another order: phase 7c's bf16 control)."""
+    from repro_torch.data.pipeline import place_batch
+    from repro_torch.tree import flatten, leaves
+    paths = [p for p, _ in flatten(params)]
+    ps = leaves(params)
+    for t in ps:
+        t.requires_grad_(True)
+    batch = place_batch(batch, ps[0].device)
+    parts = ([{k: v[i:i + 1] for k, v in batch.items()}
+              for i in range(TRAIN_BATCH)] if rows else [batch])
+    acc = None
+    for part in parts:
+        loss, _m = model.train_loss(params, part)
+        g = torch.autograd.grad(loss, ps)
+        if acc is None:
+            acc = [x.float() if rows else x for x in g]
+        else:
+            for a, x in zip(acc, g):
+                a.add_(x.float())
+        del loss, g
+    for t in ps:
+        t.requires_grad_(False)
+    if rows:
+        acc = [(a / len(parts)).to(t.dtype) for a, t in zip(acc, ps)]
+    return {p: a.detach().cpu() for p, a in zip(paths, acc)}
+
+
+def pt_grad_err(torch, got, want):
+    """The largest over leaves of ||got - want|| / ||want|| (float32), and
+    that leaf's path; ``got`` and ``want`` by path, ``want`` on the host
+    (each leaf, or each block, as ``got`` holds it)."""
+    worst, where = 0.0, None
+    for path, g in got.items():
+        w = want[path].to(g.device).float()
+        d = float((g.float() - w).norm())
+        n = float(w.norm())
+        e = d / n if n else (0.0 if d == 0 else float("inf"))
+        if e >= worst:
+            worst, where = e, path
+    return worst, where
+
+
+def pt_reference(torch, label, arch, smoke, layers, seq):
+    """The reference steps of a tolerance model, on the card in this
+    process: the losses, grad norms and final parameters (on the host) of
+    PT_STEPS steps on the seeded weights — the one-device step, or for
+    the MoE smoke config its stacked binding's on a (1, 2) mesh — the
+    initial parameters, and the first step's gradient.  For the dense
+    model also the bf16 control: the same first gradient as the mean of
+    each batch row's (:func:`pt_grads`) and PT_STEPS steps of the
+    one-device step with microbatches of one row, their distances from
+    the reference's by phase 7c's measures."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.mesh import StackedMesh
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import flatten
+    cfg = pt_config(arch, smoke, layers)
+    tcfg = TrainConfig(remat="block", zero_stage=2)
+    mesh = StackedMesh((1, 2), ("data", "model")) if cfg.moe else None
+    batches = pt_batches(cfg, seq)
+    model, opt, step = make_train_step(cfg, tcfg, "cuda", mesh=mesh)
+    params = model.init(pt_generator(torch, "cuda"))
+    init = {p: t.detach().cpu() for p, t in flatten(params)}
+    grads = pt_grads(torch, model, params, batches[0])
+    control = {}
+    if cfg.moe is None:
+        control["grad_err"], control["grad_leaf"] = pt_grad_err(
+            torch, pt_grads(torch, model, params, batches[0], rows=True),
+            grads)
+    state = opt.init(params)
+    params, state, losses, norms, times, _d = pt_steps(
+        torch, step, params, state, batches, False)
+    out = dict(losses=losses, grad_norms=norms, init=init, grads=grads,
+               params={p: t.detach().cpu() for p, t in flatten(params)},
+               step_p50_ms=1e3 * float(np.percentile(times, 50)))
+    del model, opt, step, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if cfg.moe is None:
+        model, opt, step = make_train_step(
+            cfg, TrainConfig(remat="block", zero_stage=2,
+                             microbatch=TRAIN_BATCH), "cuda")
+        params = model.init(pt_generator(torch, "cuda"))
+        state = opt.init(params)
+        _p, _s, c_losses, c_norms, _t, _d = pt_steps(
+            torch, step, params, state, batches, False)
+        control.update(
+            loss_err=max(abs(a - b) / abs(b) for a, b in
+                         zip(c_losses, losses)),
+            grad_norm_err=max(abs(a - b) / abs(b) for a, b in
+                              zip(c_norms, norms)))
+        del model, opt, step, params, state, _p, _s
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["control"] = control
+    return out
+
+
+def pt_elastic_rank(rank, ckpt_dir):
+    """A world of 2 on (2, 1) training the smoke llama3.2-3b (bf16) that
+    loses rank 1 at step 2: two steps, a checkpoint at step 1, then
+    ``run_elastic`` to step 4 with a failure at step 2 that rank 0 alone
+    sees — rank 1 leaves its world there without a word (its sockets
+    closed, no collective, no ``shrink_world``), as a rank that died; rank
+    0 re-forms the world alone on (1, 1), restores step 1 onto its new
+    blocks and trains steps 2 and 3."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.distributed import ElasticMeshSpec, run_elastic
+    from repro_torch.train import make_train_step
+    from repro_torch.train.train_step import state_shardings
+    cfg = get_smoke_config(TRAIN_ARCH)
+    tcfg = TrainConfig(remat="block")
+    pipe = SyntheticTokens(cfg, TRAIN_BATCH, 64, SEED)
+    ckpt = CheckpointManager(ckpt_dir, keep_last=2)
+    spec = ElasticMeshSpec(shapes=[(2, 1), (1, 1)],
+                           axis_names=("data", "model"), binding="process")
+    meshes, losses = [], []
+
+    def build(mesh):
+        meshes.append(dict(mesh.shape))
+        model, opt, train_step, _jit = make_train_step(cfg, tcfg, mesh=mesh)
+        params = model.init(pt_generator(torch, mesh.device))
+        state = {"params": params, "opt": opt.init(params)}
+
+        def step_fn(state, batch):
+            p, o, m = train_step(state["params"], state["opt"], batch)
+            losses.append((len(meshes) - 1, float(m["loss"])))
+            return {"params": p, "opt": o}, m
+
+        return state, step_fn, lambda m: state_shardings(cfg, tcfg, m)
+
+    mesh = spec.mesh_for(0)
+    state, step_fn, shard_fn = build(mesh)
+    for s in range(2):
+        state, _m = step_fn(state, pipe.get_batch(s))
+    ckpt.save(1, state, shardings=shard_fn(mesh))
+    gone = []
+
+    def get_batch(s):
+        if rank == 1 and s == 2:
+            dist.destroy_process_group()
+            gone.append(s)
+            raise SmokeFailure("rank 1 left")
+        return pipe.get_batch(s)
+
+    t0 = time.perf_counter()
+    try:
+        final, history = run_elastic(
+            spec, build, ckpt, total_steps=4, get_batch=get_batch,
+            inject_failure_at={2: True} if rank == 0 else {},
+            log=lambda *_a: None)
+    except SmokeFailure:
+        if not gone:
+            raise
+        return dict(history=[], meshes=meshes, losses=losses, left=True,
+                    elastic_s=time.perf_counter() - t0)
+    return dict(history=history, meshes=meshes, losses=losses,
+                left=final is None, elastic_s=time.perf_counter() - t0)
+
+
+def phase_train_process_mesh(torch, card):
+    """Phase 7c: the training steps across processes.  First the reference
+    steps of world 2's models in this process (their final parameters kept
+    on the host, in a file the ranks read), then each world spawned from
+    this process with the kernels already built, every rank on this card:
+    world 1 on NCCL, then the PT_WORLDS over gloo, each after its ranks'
+    bytes are reckoned; then the elastic world.  Returns the metrics and
+    each rank's launches by path label."""
+    import tempfile
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.mesh import StackedMesh
+    from repro_torch.launch.train import memory_reckoning
+    from repro_torch.launch.world import spawn_world
+    from repro_torch.models.transformer import layer_kinds
+    metrics, launches = {"card": card}, {}
+    have = torch.cuda.get_device_properties(0).total_memory
+    with tempfile.TemporaryDirectory(prefix="phase7c-") as tmp:
+        refs = {}
+        for sizes in {s for _b, s, _z in PT_WORLDS}:
+            for label, arch, smoke, layers, seq, yard in pt_models(sizes):
+                if yard == "tolerance" and label not in refs:
+                    refs[label] = pt_reference(torch, label, arch, smoke,
+                                               layers, seq)
+                    c = refs[label]["control"]
+                    log(f"  reference {label}: losses "
+                        f"{refs[label]['losses']}, step p50 "
+                        f"{refs[label]['step_p50_ms']:.1f} ms" + (
+                            f"; bf16 control: first gradient "
+                            f"{c['grad_err']:.3g} (worst leaf "
+                            f"{c['grad_leaf']}), losses "
+                            f"{c['loss_err']:.3g}, grad norms "
+                            f"{c['grad_norm_err']:.3g}" if c else ""))
+                    if c:
+                        check(c["grad_err"] <= PT_GRAD_TOL and
+                              c["loss_err"] <= PT_LOSS_TOL and
+                              c["grad_norm_err"] <= PT_LOSS_TOL,
+                              f"7c {label}: the bf16 control {c} exceeds "
+                              f"PT_GRAD_TOL {PT_GRAD_TOL} / PT_LOSS_TOL "
+                              f"{PT_LOSS_TOL}: a limit below bf16's own "
+                              f"spread")
+                        metrics.setdefault("controls", {})[label] = c
+        ref_file = os.path.join(tmp, "reference.pt")
+        torch.save(refs, ref_file)
+        del refs
+        gc.collect()
+        for backend, sizes, stage in (("nccl", (1, 1), 2),) + PT_WORLDS:
+            world = sizes[0] * sizes[1]
+            label = (f"world {world} on {backend}, mesh {sizes}, ZeRO stage "
+                     f"{stage}" + (", on one card over gloo, not a "
+                                   "cross-card number" if world > 1 else ""))
+            need = 0
+            for _l, arch, smoke, layers, _s, _y in pt_models(sizes):
+                cfg = pt_config(arch, smoke, layers)
+                need = max(need, world * memory_reckoning(
+                    cfg, TrainConfig(zero_stage=stage),
+                    StackedMesh(sizes, ("data", "model")))["total"])
+            check(need < have, f"7c {label}: its ranks need {need / 1e9:.1f} "
+                  f"GB, more than the card's {have / 1e9:.1f}")
+            t0 = time.perf_counter()
+            try:
+                ranks = spawn_world(pt_rank, world, backend=backend,
+                                    device=None,
+                                    args=(sizes, stage,
+                                          ref_file if world > 1 else None),
+                                    timeout_s=PT_TIMEOUT_S)
+            except RuntimeError as e:
+                raise SmokeFailure(f"phase 7c {label}: {e}") from None
+            wall = time.perf_counter() - t0
+            log(f"  {label}: {wall:.1f} s with start-up; the ranks' floor "
+                f"{need / 1e9:.1f} GB; transports {ranks[0]['transports']}; "
+                f"{card}")
+            m = dict(backend=backend, world=world, mesh=list(sizes),
+                     stage=stage, wall_s=wall, need_gb=need / 1e9,
+                     transports=ranks[0]["transports"], models={})
+            for mlabel, arch, smoke, layers, seq, yard in pt_models(sizes):
+                cfg = pt_config(arch, smoke, layers)
+                per_step, _routes = train_launches(cfg)
+                want = {k: PT_STEPS * n for k, n in per_step.items()}
+                rows = []
+                for r in ranks:
+                    n = r["models"][mlabel]
+                    where = f"7c {label} {mlabel} rank {r['coords']}"
+                    check(all(np.isfinite(n["losses"])), f"{where}: losses "
+                          f"{n['losses']}")
+                    check(n["launches"] == want, f"{where}: launches "
+                          f"{n['launches']}, planned {want}")
+                    prof = n["profiled"]
+                    for name, group in (("flash_attention", "flash_fwd"),
+                                        ("flash_attention_bwd", "flash_bwd"),
+                                        ("gmm", "gmm"), ("gmm_dx", "gmm_dx"),
+                                        ("gmm_dw", "gmm_dw")):
+                        check(bool(prof[group]) == bool(per_step.get(name)),
+                              f"{where}: the profiled step's {group} device "
+                              f"operations {prof[group]}, planned launches "
+                              f"{per_step.get(name, 0)}")
+                    if yard == "bitwise":
+                        check(all(n["bitwise_steps"]) and n["bitwise_losses"],
+                              f"{where}: not bit for bit the one-device "
+                              f"step: steps {n['bitwise_steps']}, losses "
+                              f"{n['bitwise_losses']}")
+                    else:
+                        check(n["moved"] and n["param_ratio"] <= 1.0,
+                              f"{where}: parameters {n['param_ratio']:.3g} "
+                              f"of their bound from the reference's "
+                              f"(moved: {n['moved']})")
+                        check(n["loss_err"] <= PT_LOSS_TOL and
+                              n["grad_norm_err"] <= PT_LOSS_TOL,
+                              f"{where}: losses {n['loss_err']:.3g}, grad "
+                              f"norms {n['grad_norm_err']:.3g} from the "
+                              f"reference's > {PT_LOSS_TOL}")
+                        check(n["grad_err"] <= PT_GRAD_TOL,
+                              f"{where}: the first step's dp-mean gradient "
+                              f"{n['grad_err']:.3g} from the reference's "
+                              f"at {n['grad_leaf']} > {PT_GRAD_TOL}")
+                    path = (f"{mlabel} {backend} {sizes} stage {stage} "
+                            f"rank {r['coords']['data']},"
+                            f"{r['coords']['model']}")
+                    launches[path] = n["launches"]
+                    rows.append({k: v for k, v in n.items()} |
+                                {"coords": r["coords"]})
+                    log(f"    {mlabel} rank {r['coords']}: "
+                        f"{n['params_local']:,} parameters, step p50 "
+                        f"{n['step_p50_ms']:.1f} ms ({n['step_ms']}), peak "
+                        f"{n['peak_gib']:.2f} GiB, losses {n['losses']}, "
+                        f"launches {n['launches']}, profiled step's device "
+                        f"operations {prof}" + (
+                            "; bit for bit the one-device step at every "
+                            f"step (its p50 {n['one_device_step_p50_ms']:.1f}"
+                            " ms in the rank)" if yard == "bitwise" else
+                            f"; first gradient {n['grad_err']:.3g} from the "
+                            f"reference's (worst leaf {n['grad_leaf']}), "
+                            f"parameters at {n['param_ratio']:.3g} of their "
+                            f"bound, losses {n['loss_err']:.3g} and grad "
+                            f"norms {n['grad_norm_err']:.3g} from the "
+                            f"reference's"))
+                m["models"][mlabel] = dict(n_layers=cfg.n_layers, seq=seq,
+                                           yardstick=yard, ranks=rows,
+                                           planned=want, kinds=len(
+                                               layer_kinds(cfg)))
+            metrics[label] = m
+        t0 = time.perf_counter()
+        try:
+            r0, r1 = spawn_world(pt_elastic_rank, 2, backend="gloo",
+                                 device=None,
+                                 args=(os.path.join(tmp, "elastic"),),
+                                 timeout_s=PT_TIMEOUT_S)
+        except RuntimeError as e:
+            raise SmokeFailure(f"phase 7c elastic: {e}") from None
+        wall = time.perf_counter() - t0
+        check(r0["history"] == [(2, 1), (3, 1)] and not r0["left"]
+              and r1["left"] and r1["history"] == []
+              and r0["meshes"] == [{"data": 2, "model": 1}] * 2
+              + [{"data": 1, "model": 1}]
+              and all(np.isfinite(v) for _b, v in r0["losses"]),
+              f"7c elastic: rank 0 {r0['history']} {r0['meshes']} "
+              f"{r0['losses']}, rank 1 {r1['history']} left {r1['left']}")
+        log(f"  elastic, a world of 2 on (2, 1) whose rank 1 left without a "
+            f"word at step 2: rank 0 re-formed the world alone, restored "
+            f"step 1 onto (1, 1) and trained steps 2-3 "
+            f"(history {r0['history']}, losses {r0['losses']}); rank 1 "
+            f"left; {wall:.1f} s with start-up")
+        metrics["elastic"] = dict(history=r0["history"], losses=r0["losses"],
+                                  wall_s=wall, elastic_s=r0["elastic_s"])
+    return metrics, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: per-kernel numbers
 # ---------------------------------------------------------------------------
 
@@ -6018,7 +6673,9 @@ def gmm_report(torch, kernels, err, launches, a2a):
     :func:`gmm_entry` numbers at the expert-parallel path's gate product, a
     block of 8 x C rows an expert, each expert's rows compacted to its
     front), with that path's launches; ``*_local_decode`` the local path's
-    decode call on the same state."""
+    decode call on the same state.  ``launches_paths`` lists every serving
+    path's launches and every training path's (``… train``: phase 7's and
+    each phase-7c rank's)."""
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     kern = kernels["gmm"]
@@ -6393,6 +7050,14 @@ def main() -> int:
         log(f"  training paths took {time.perf_counter() - t7:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
+        log("phase 7c: the training steps across processes")
+        t7 = time.perf_counter()
+        pt_metrics, pt_launches = phase_train_process_mesh(torch, card)
+        train_metrics["process_mesh"] = pt_metrics
+        train_launches.update(pt_launches)
+        log(f"  process-mesh training took {time.perf_counter() - t7:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
         log("phase 6: report")
         kernels = phase_report(torch, rdma, cases, errs, launches,
                                {"channels": chan_launches,
@@ -6413,7 +7078,11 @@ def main() -> int:
         kernels += recurrent_bwd_report(torch, rec_bwd_errs, train_launches)
         kernels += recurrent_report(torch, model_kernels, rec_errs,
                                     serve_launches, train_launches)
-        kernels += gmm_report(torch, model_kernels, gmm_err, serve_launches,
+        kernels += gmm_report(torch, model_kernels, gmm_err,
+                              serve_launches | {
+                                  f"{path} train": n
+                                  for path, n in train_launches.items()
+                                  if "gmm" in n},
                               {arch: serve_metrics[arch]["a2a"]["gmm_timing"]
                                for arch in (MOE_ARCH, DS_ARCH)})
         kernels += gmm_bwd_report(torch, gmm_bwd_errs, train_launches)

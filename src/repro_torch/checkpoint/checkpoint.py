@@ -16,6 +16,15 @@ numpy has no bfloat16, so a bf16 leaf is written as its uint16 bits with
 ``"dtype": "bfloat16"`` in the manifest and viewed back on restore: every
 leaf, optimizer state included, round-trips bitwise.  Reading the JAX
 package's checkpoints is not a goal.
+
+Across processes (a tree of each rank's blocks, ``shardings`` a tree of
+:class:`~repro_torch.distributed.sharding.NamedSharding`): :meth:`save`
+gathers each leaf whole, one leaf at a time, and the rank at coordinate 0
+writes it in the same format, synchronously, before every rank passes a
+barrier; :meth:`restore` reads each leaf whole and keeps the block its
+sharding gives the rank, as the reference's ``device_put(arr, sh)`` does.
+So a checkpoint written by one world restores onto a mesh of another
+size.
 """
 from __future__ import annotations
 
@@ -55,13 +64,39 @@ class CheckpointManager:
         self._error: Optional[BaseException] = None
 
     # ------------------------------------------------------------------ save
-    def save(self, step: int, tree: Any, blocking: bool = False):
+    def save(self, step: int, tree: Any, blocking: bool = False,
+             shardings: Any = None):
         """Copy every leaf to the host, then write them (on a worker thread
-        unless ``blocking``)."""
+        unless ``blocking``).  With ``shardings`` (every rank of a process
+        mesh calls it) each leaf is gathered whole from the ranks' blocks
+        and only the rank at coordinate 0 writes, blocking; the ranks then
+        meet at a barrier, so each sees the committed step."""
         self.wait()  # one in-flight save at a time
         flat = flatten(tree)
+        if shardings is not None:
+            self._save_gathered(step, flat, dict(flatten(shardings)))
+            return
         host = [(path, *_host(leaf)) for path, leaf in flat]
+        self._write(step, host, blocking)
 
+    def _save_gathered(self, step, flat, shardings):
+        import torch.distributed as dist
+
+        from ..distributed.sharding import gather_leaf
+        mesh = next(iter(shardings.values())).mesh
+        writer = not any(mesh.coords.values())
+        host = []
+        for path, leaf in flat:
+            sh = shardings[path]
+            whole = gather_leaf(leaf.detach(), sh.spec, sh.mesh)
+            if writer:
+                host.append((path, *_host(whole)))
+            del whole
+        if writer:
+            self._write(step, host, blocking=True)
+        dist.barrier()
+
+    def _write(self, step, host, blocking):
         def work():
             tmp = os.path.join(self.dir, f"step_{step}.tmp")
             final = os.path.join(self.dir, f"step_{step}")
@@ -123,18 +158,25 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, step: int, tree_like: Any):
+    def restore(self, step: int, tree_like: Any, shardings: Any = None):
         """A tree of ``tree_like``'s structure with step ``step``'s leaves,
-        each on its ``tree_like`` leaf's device and in its dtype."""
+        each on its ``tree_like`` leaf's device and in its dtype; with
+        ``shardings`` each leaf the block of the whole one that its
+        :class:`~repro_torch.distributed.sharding.NamedSharding` gives this
+        rank (the elastic re-mesh's restore onto a new mesh)."""
+        from ..distributed.sharding import shard
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         by_path = {e["path"]: e for e in manifest["leaves"]}
+        shs = dict(flatten(shardings)) if shardings is not None else None
         out = []
         for path, like in flatten(tree_like):
             entry = by_path[path]
             t = _tensor(np.load(os.path.join(d, entry["file"])),
                         entry["dtype"])
+            if shs is not None:
+                t = shard(t, shs[path].spec, shs[path].mesh)
             if tuple(t.shape) != tuple(like.shape):
                 raise ValueError(f"checkpoint leaf {path}: shape "
                                  f"{tuple(t.shape)}, expected "

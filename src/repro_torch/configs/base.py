@@ -8,9 +8,13 @@ with GQA or MLA attention, the vlm's cross-attention layers and whisper's
 encoder) are carried over.  :class:`ShapeConfig`,
 :data:`LM_SHAPES` and :class:`TrainConfig` are the reference's, field for
 field; the port's trainer reads ``microbatch``, ``remat``, ``optimizer``,
-``adam_dtype``, ``xent_chunks``, ``lr``, ``weight_decay``, ``grad_clip`` and
-``seed``, and the sharding knobs (``zero_stage``, ``grad_compression``,
-``act_shard``, ``fence_scope``) wait for the port's distributed binding.
+``adam_dtype``, ``xent_chunks``, ``lr``, ``weight_decay``, ``grad_clip``,
+``seed`` and ``fence_scope``, and the training step across processes
+``zero_stage`` (ZeRO's sharded moments at 2, fsdp at 3).
+``grad_compression`` is unread, as the reference's ``make_train_step``
+does not read it (the int8 channel is ``make_grad_sync``'s ``compress``);
+so is ``act_shard``, whose sharding constraints change layouts, not
+values (:mod:`repro_torch.train.train_step`).
 """
 from __future__ import annotations
 

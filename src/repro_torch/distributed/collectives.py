@@ -1,5 +1,5 @@
-"""GradChannel: LOCO-style explicit gradient synchronization on the stacked
-binding, the counterpart of ``repro/distributed/collectives.py``.
+"""GradChannel: LOCO-style explicit gradient synchronization, the
+counterpart of ``repro/distributed/collectives.py``, on both bindings.
 
 The paper's claim is that upper-level systems (here: data-parallel
 training) should be built FROM channel objects rather than ad-hoc
@@ -7,7 +7,8 @@ collectives.  This module is that construction:
 
 * each participant's gradient is its register in a conceptual SST over the
   data axes: ``push`` = every owner pushes, every peer combines (a mean
-  over the participant dimension on the stacked binding);
+  over the participant dimension on the stacked binding, an all-reduce
+  between processes);
 * multi-pod meshes use the **hierarchical schedule**: the mean inside the
   pod first, then across pods;
 * fence scopes (``core/ack.py``) order the phases: ``fence="global"``
@@ -20,22 +21,36 @@ collectives.  This module is that construction:
 * optional int8 error-feedback compression (:mod:`repro_torch.optim.
   compression`) on the cross-pod hop.
 
-A gradient leaf here is stacked: its leading dimensions are the
-participants (``data_dim``, ``pod_dim`` where the mesh has pods, and any
-other mesh axis, such as ``model``, whose shards pass through untouched),
-each participant's gradient shard after them.  Every participant leaves
-with the mean over the dp dimensions.  The same channel over processes
-(the reference's ``shard_map`` of ``grad_sync``) is ROADMAP item 12's
-training half.
+On the stacked binding (:func:`grad_sync`, :func:`make_grad_sync` with a
+:class:`~repro_torch.launch.mesh.StackedMesh`) a gradient leaf is
+stacked: its leading dimensions are the participants (``data_dim``,
+``pod_dim`` where the mesh has pods, and any other mesh axis, such as
+``model``, whose shards pass through untouched), each participant's
+gradient shard after them.  On the process binding
+(:func:`grad_sync_process`, :func:`make_grad_sync` with a
+:class:`~repro_torch.launch.mesh.ProcessMesh`) each rank holds its own
+shard, and the means are all-reduces over the ``data`` and ``pod``
+process groups: the reference's ``make_grad_sync_shardmap``.  Every
+participant leaves with the mean over the dp axes.
 
-The process binding's collectives come after it: :func:`psum`,
-:func:`all_gather` and :func:`all_to_all` over one named axis of a
+The process binding's collectives: :func:`psum`, :func:`all_gather`,
+:func:`all_to_all`, :func:`reduce_scatter`, :func:`copy_to`,
+:func:`slice_to` and :func:`gather_param` over one named axis of a
 :class:`~repro_torch.launch.mesh.ProcessMesh`, each the identity on an
 axis of size 1 and when no mesh is given, so a path without a mesh runs
-no collective at all.  Under gloo a tensor on the card goes
-through host memory (``transport`` "host") unless :func:`probe_transports`
-found that gloo takes card tensors for that collective ("native"); NCCL
-always takes them.
+no collective at all.  Where autograd needs their gradient each is a
+``torch.autograd.Function`` whose backward is its adjoint: ``psum`` (the
+row-parallel sum) passes the gradient through; ``copy_to`` (a
+column-parallel layer's input, the identity) sums it over the axis;
+``all_gather`` (the logits over ``model``) keeps the rank's own slice;
+``slice_to`` (a rank's slice, as the MoE block's ``x_spec`` cuts S)
+gathers the slices' gradients; ``all_to_all`` is its own adjoint; and
+``gather_param`` (fsdp's per-layer gather over ``data``) reduce-scatters
+the gradient back to the shards.  :func:`loss_mean` is a loss term's
+mean over the whole world (the MoE load-balance loss).  Under gloo a
+tensor on the card goes through host memory (``transport`` "host") unless
+:func:`probe_transports` found that gloo takes card tensors for that
+collective ("native"); NCCL always takes them.
 """
 from __future__ import annotations
 
@@ -74,8 +89,10 @@ def grad_sync(grads, *, data_dim: int = 0, pod_dim: Optional[int] = None,
     """Stacked gradient synchronization.  Returns (synced_grads,
     new_error_state): each leaf in float32 with every participant holding
     the mean over ``data_dim``, then over ``pod_dim`` (with
-    ``compress="int8ef"`` an int8 error-feedback mean there, each
-    participant's scale from its own shard); the error state is a tree of
+    ``compress="int8ef"`` an int8 error-feedback mean there, every
+    participant quantizing with one scale: the largest of the participants'
+    max |value| / 127, as the reference's ``pmax`` agrees it); the error
+    state is a tree of
     float32 leaves shaped as the gradients with ``"int8ef"``, else None.
     The leaves' first ``lead`` dimensions are participants (default: those
     through ``data_dim`` and ``pod_dim``).
@@ -120,14 +137,31 @@ def grad_sync(grads, *, data_dim: int = 0, pod_dim: Optional[int] = None,
 
 
 def make_grad_sync(mesh, *, fence="global", compress="none", n_buckets=4):
-    """Bind :func:`grad_sync` to a :class:`~repro_torch.launch.mesh.
-    StackedMesh`: each leaf arrives with one leading dimension a mesh axis,
-    in the mesh's order — (pod, data, model, ...) — and each participant's
-    shard after them, as the reference's gradients carry their parameter
-    sharding (a leaf replicated over ``model`` holds equal copies there).
-    It leaves with the dp mean, as the reference's
-    ``make_grad_sync_shardmap``."""
+    """Bind the gradient channel to ``mesh``, as the reference's
+    ``make_grad_sync_shardmap``: every participant leaves with the float32
+    dp mean of its gradients, int8 error feedback on the pod hop with
+    ``compress="int8ef"``.
+
+    On a :class:`~repro_torch.launch.mesh.StackedMesh` (:func:`grad_sync`)
+    each leaf arrives with one leading dimension a mesh axis, in the mesh's
+    order — (pod, data, model, ...) — and each participant's shard after
+    them, as the reference's gradients carry their parameter sharding (a
+    leaf replicated over ``model`` holds equal copies there).  On a
+    :class:`~repro_torch.launch.mesh.ProcessMesh`
+    (:func:`grad_sync_process`) each leaf is this rank's shard, and the
+    compressed pod hop's error state stays on the rank between calls."""
+    from ..launch.mesh import ProcessMesh
     axes = mesh.axis_names
+    if isinstance(mesh, ProcessMesh):
+        state = {"error": None}
+
+        def sync_process(grads):
+            synced, state["error"] = grad_sync_process(
+                grads, mesh, fence=fence, compress=compress,
+                error_state=state["error"], n_buckets=n_buckets)
+            return synced
+
+        return sync_process
 
     def sync(grads):
         synced, _err = grad_sync(
@@ -138,6 +172,47 @@ def make_grad_sync(mesh, *, fence="global", compress="none", n_buckets=4):
         return synced
 
     return sync
+
+
+def grad_sync_process(grads, mesh, *, fence: str = "global",
+                      compress: str = "none", error_state=None,
+                      n_buckets: int = 4):
+    """:func:`grad_sync` on one rank of a process mesh.  Returns
+    (synced_grads, new_error_state): each leaf in float32, the mean over
+    the ``data`` ranks (an all-reduce of the sum, divided by their number),
+    then over ``pod`` where the mesh has it — with ``compress="int8ef"``
+    :func:`repro_torch.optim.compression.int8_ef_allreduce_process` there,
+    whose residual stays on the rank.  Buckets and fences as in
+    :func:`grad_sync`."""
+    has_pod = "pod" in mesh.axis_names
+    flat = list(leaves(grads))
+    err = (list(leaves(error_state)) if error_state is not None
+           else [None] * len(flat))
+    out = [None] * len(flat)
+    new_err = [None] * len(flat)
+    pending = AckKey.empty()
+    for bucket in _bucketize(len(flat), n_buckets):
+        if fence == "global" and pending.tokens:
+            gate = [flat[i] for i in bucket]
+            gate = join(pending, *gate) if len(gate) > 1 else \
+                [join(pending, gate[0])]
+            for j, i in enumerate(bucket):
+                flat[i] = gate[j]
+        bucket_ack = AckKey.empty()
+        for i in bucket:
+            g = pmean(flat[i].float(), mesh, "data")
+            if has_pod:
+                if compress == "int8ef":
+                    g, new_err[i] = C.int8_ef_allreduce_process(
+                        g, mesh, "pod", err[i])
+                else:
+                    g = pmean(g, mesh, "pod")
+            out[i] = g
+            bucket_ack = bucket_ack | AckKey([g])
+        pending = bucket_ack if fence == "pair" else (pending | bucket_ack)
+    synced = unflatten(grads, out)
+    err_tree = unflatten(grads, new_err) if compress == "int8ef" else None
+    return synced, err_tree
 
 
 # ------------------------------------------------- process-group collectives
@@ -194,24 +269,29 @@ def _trivial(mesh, axis) -> bool:
     return mesh is None or mesh.shape.get(axis, 1) == 1
 
 
-def psum(x, mesh, axis: str):
-    """The sum of ``x`` over ``axis``'s ranks, on every one of them.  A
-    bf16 or fp16 ``x`` is summed in float32 and rounded once."""
-    if _trivial(mesh, axis):
-        return x
+def _graded(x) -> bool:
+    """Whether autograd follows ``x`` here (the collective then goes
+    through its Function)."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _low(x) -> bool:
+    return x.dtype in (torch.bfloat16, torch.float16)
+
+
+def _all_reduce(x, mesh, axis, op=None):
+    """A new tensor: ``x`` reduced (sum, or ``op``) over ``axis``; a bf16 or
+    fp16 ``x`` summed in float32 and rounded once."""
     import torch.distributed as dist
-    low = x.dtype in (torch.bfloat16, torch.float16)
-    y = x.float() if low else x.clone(memory_format=torch.contiguous_format)
+    op = dist.ReduceOp.SUM if op is None else op
+    y = x.float() if _low(x) else x.clone(
+        memory_format=torch.contiguous_format)
     _run(mesh, "all_reduce",
-         lambda o: dist.all_reduce(o, group=mesh.group(axis)), y)
-    return y.to(x.dtype) if low else y
+         lambda o: dist.all_reduce(o, op=op, group=mesh.group(axis)), y)
+    return y.to(x.dtype) if _low(x) else y
 
 
-def all_gather(x, mesh, axis: str, dim: int = 0):
-    """Every rank's ``x`` along ``axis``, concatenated on ``dim`` in
-    coordinate order, on every one of them."""
-    if _trivial(mesh, axis):
-        return x
+def _gather(x, mesh, axis, dim):
     import torch.distributed as dist
     n = mesh.shape[axis]
     xc = x.movedim(dim, 0).contiguous()
@@ -223,20 +303,253 @@ def all_gather(x, mesh, axis: str, dim: int = 0):
     return out.movedim(0, dim)
 
 
-def all_to_all(x, mesh, axis: str):
-    """x (P, ...), P = ``axis``'s size: block j goes to coordinate j, and
-    block s of the result came from coordinate s — the reference's
-    ``jax.lax.all_to_all(x, axis, 0, 0)``."""
-    if _trivial(mesh, axis):
-        return x
+def _own(x, mesh, axis, dim):
+    """This rank's slice of ``x`` along ``dim``: block ``coord(axis)`` of
+    ``axis``'s size equal blocks (a view)."""
+    n = mesh.shape[axis]
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {axis!r} of {n}")
+    w = x.shape[dim] // n
+    return x.narrow(dim, mesh.coord(axis) * w, w)
+
+
+def _reduce_scatter(x, mesh, axis, dim):
+    """This rank's block along ``dim`` of the sum over ``axis`` (bf16 and
+    fp16 summed in float32, rounded once): an all-reduce, then the rank's
+    own block, on every backend."""
+    return _own(_all_reduce(x, mesh, axis), mesh, axis, dim).contiguous()
+
+
+def _a2a(x, mesh, axis):
     import torch.distributed as dist
-    if x.shape[0] != mesh.shape[axis]:
-        raise ValueError(f"all_to_all over {axis!r} of {mesh.shape[axis]} "
-                         f"takes {mesh.shape[axis]} blocks, got "
-                         f"{x.shape[0]}")
     xc = x.contiguous()
     out = torch.empty_like(xc)
     _run(mesh, "all_to_all_single",
          lambda o, i: dist.all_to_all_single(o, i, group=mesh.group(axis)),
          out, xc)
     return out
+
+
+class _Psum(torch.autograd.Function):
+    """A row-parallel sum: all-reduce forward, the gradient passed through
+    (every rank's output feeds the same downstream value)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """A column-parallel layer's input: the identity forward, the ranks'
+    partial input gradients summed backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh, ctx.axis), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather forward; the rank's own slice of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _Slice(torch.autograd.Function):
+    """The rank's slice forward; the slices' gradients gathered
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _own(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all`` of blocks over the leading dim: its own adjoint."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _a2a(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a(g, ctx.mesh, ctx.axis), None, None
+
+
+class _GatherParam(torch.autograd.Function):
+    """fsdp's gather of a parameter shard: all-gather forward, the whole
+    gradient reduce-scattered (summed) back to the shards backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), None, None, \
+            None
+
+
+class _LossMean(torch.autograd.Function):
+    """A loss term's mean over every rank: the all-reduced sum over the
+    world's size forward; backward the gradient times ``scale`` (see
+    :func:`loss_mean`)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, scale):
+        ctx.scale = scale
+        return _world_mean(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None, None
+
+
+def _world_mean(x, mesh):
+    y = x
+    for axis in mesh.axis_names:
+        if not _trivial(mesh, axis):
+            y = _all_reduce(y, mesh, axis)
+    return y / y.new_tensor(float(mesh.size))
+
+
+def psum(x, mesh, axis: str):
+    """The sum of ``x`` over ``axis``'s ranks, on every one of them.  A
+    bf16 or fp16 ``x`` is summed in float32 and rounded once.  Under
+    autograd the gradient passes through (a row-parallel sum)."""
+    if _trivial(mesh, axis):
+        return x
+    if _graded(x):
+        return _Psum.apply(x, mesh, axis)
+    return _all_reduce(x, mesh, axis)
+
+
+def pmax(x, mesh, axis: str):
+    """The elementwise max of ``x`` over ``axis``'s ranks (no gradient)."""
+    if _trivial(mesh, axis):
+        return x
+    import torch.distributed as dist
+    return _all_reduce(x, mesh, axis, dist.ReduceOp.MAX)
+
+
+def pmean(x, mesh, axis: str):
+    """The float mean of ``x`` over ``axis``'s ranks: the sum divided by a
+    tensor holding their number (no gradient)."""
+    if _trivial(mesh, axis):
+        return x
+    return _all_reduce(x, mesh, axis) / x.new_tensor(
+        float(mesh.shape[axis]))
+
+
+def psum_axes(x, mesh, axes):
+    """:func:`psum` over each of ``axes`` in turn (no gradient)."""
+    for axis in axes:
+        if not _trivial(mesh, axis):
+            x = _all_reduce(x, mesh, axis)
+    return x
+
+
+def all_gather(x, mesh, axis: str, dim: int = 0):
+    """Every rank's ``x`` along ``axis``, concatenated on ``dim`` in
+    coordinate order, on every one of them.  Under autograd each rank
+    keeps its own slice of the gradient (the logits' gather over
+    ``model``, the MoE block's output over S)."""
+    if _trivial(mesh, axis):
+        return x
+    if _graded(x):
+        return _Gather.apply(x, mesh, axis, dim)
+    return _gather(x, mesh, axis, dim)
+
+
+def all_to_all(x, mesh, axis: str):
+    """x (P, ...), P = ``axis``'s size: block j goes to coordinate j, and
+    block s of the result came from coordinate s — the reference's
+    ``jax.lax.all_to_all(x, axis, 0, 0)``, its own adjoint under
+    autograd."""
+    if _trivial(mesh, axis):
+        return x
+    if x.shape[0] != mesh.shape[axis]:
+        raise ValueError(f"all_to_all over {axis!r} of {mesh.shape[axis]} "
+                         f"takes {mesh.shape[axis]} blocks, got "
+                         f"{x.shape[0]}")
+    if _graded(x):
+        return _AllToAll.apply(x, mesh, axis)
+    return _a2a(x, mesh, axis)
+
+
+def reduce_scatter(x, mesh, axis: str, dim: int = 0):
+    """This rank's block along ``dim`` of the sum of ``x`` over ``axis``
+    (the ZeRO gradient's push; no gradient)."""
+    if _trivial(mesh, axis):
+        return x
+    return _reduce_scatter(x, mesh, axis, dim)
+
+
+def copy_to(x, mesh, axis: str):
+    """``x`` itself, as the input of a layer whose weight is split over
+    ``axis`` (column-parallel): under autograd the ranks' partial input
+    gradients are summed over ``axis``."""
+    if _trivial(mesh, axis) or not _graded(x):
+        return x
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def slice_to(x, mesh, axis: str, dim: int):
+    """This rank's slice of ``x`` along ``dim`` over ``axis`` (a view);
+    under autograd the slices' gradients are gathered back."""
+    if _trivial(mesh, axis):
+        return x
+    if _graded(x):
+        return _Slice.apply(x, mesh, axis, dim)
+    return _own(x, mesh, axis, dim)
+
+
+def gather_param(x, mesh, axis: str, dim: int):
+    """A parameter shard split over ``axis`` on ``dim``, gathered whole
+    (fsdp); under autograd the gradient is summed over ``axis`` and each
+    rank keeps its shard's block."""
+    if _trivial(mesh, axis):
+        return x
+    if _graded(x):
+        return _GatherParam.apply(x, mesh, axis, dim)
+    return _gather(x, mesh, axis, dim)
+
+
+def loss_mean(x, mesh, summed_over: int = 1):
+    """A scalar loss term's mean over every rank of ``mesh``, the
+    reference's ``pmean`` over all its axes.  Its gradient on each rank is
+    scaled so that the data-parallel mean of the gradients, after the
+    ``summed_over`` ranks of the model axis that see different tokens have
+    their partial gradients summed, is the gradient of the world mean:
+    ``n_data / world`` = 1 / ``summed_over``'s model ranks when they are
+    summed, 1 when they hold the same tokens (``summed_over`` 1).  The
+    identity on a world of 1."""
+    if mesh is None or mesh.size == 1:
+        return x
+    scale = 1.0 / summed_over
+    if _graded(x):
+        return _LossMean.apply(x, mesh, scale)
+    return _world_mean(x, mesh)

@@ -8,9 +8,13 @@
   mesh, restore the last checkpoint into the new state, replay the data
   pipeline from the restored step (the pipeline is a pure function of the
   step).  On the stacked binding a mesh is a
-  :class:`~repro_torch.launch.mesh.StackedMesh`; restoring onto devices
-  with new shardings comes with the port's ``torch.distributed`` binding
-  (ROADMAP item 12).
+  :class:`~repro_torch.launch.mesh.StackedMesh`; on the process binding a
+  :class:`~repro_torch.launch.mesh.ProcessMesh`, the world shrunk to the
+  smaller mesh (:func:`~repro_torch.launch.mesh.shrink_world`: the ranks
+  outside it leave, and the survivors meet at an address fixed while the
+  whole world was alive, so a rank that died holds them up in no
+  collective) and the checkpoint restored onto its shardings
+  (``shardings_fn``).
 * **Crash schedules** for the channel layer: :class:`FaultPlan`.
 """
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
-from ..launch.mesh import StackedMesh
+from ..launch.mesh import ProcessMesh, StackedMesh
 
 
 class DeviceFailure(RuntimeError):
@@ -92,12 +96,38 @@ class ElasticMeshSpec:
 
     e.g. shapes=[(4, 2), (2, 2), (1, 2)] with axis_names=('data', 'model'):
     lose half the data slices twice before giving up.
+
+    ``binding``: ``"stacked"`` (a :class:`StackedMesh` a level) or
+    ``"process"`` (a :class:`ProcessMesh` over the ``torch.distributed``
+    world, which :meth:`mesh_for` shrinks to the level's size first).  On
+    the process binding the first call, which every rank of the whole
+    world makes, fixes each level's address
+    (:func:`~repro_torch.launch.mesh.rendezvous_points`); a later level
+    then needs only its own ranks: the first ``prod(shape)`` of the world,
+    in rank order.
     """
     shapes: Sequence[tuple]
     axis_names: tuple
+    binding: str = "stacked"
+    _points: list = dataclasses.field(default_factory=list, init=False,
+                                      repr=False)
 
-    def mesh_for(self, level: int) -> StackedMesh:
-        return StackedMesh(tuple(self.shapes[level]), tuple(self.axis_names))
+    def mesh_for(self, level: int):
+        """The level's mesh; on the process binding None on a rank that
+        the smaller world leaves out."""
+        shape = tuple(self.shapes[level])
+        if self.binding == "stacked":
+            return StackedMesh(shape, tuple(self.axis_names))
+        from ..launch.mesh import rendezvous_points, shrink_world
+        if not self._points:
+            self._points = rendezvous_points(len(self.shapes))
+        if not shrink_world(int(np.prod(shape)), self._points[level]):
+            return None
+        mesh = ProcessMesh(*shape)
+        if mesh.axis_names != tuple(self.axis_names):
+            raise ValueError(f"a process mesh of {shape} has axes "
+                             f"{mesh.axis_names}, not {self.axis_names}")
+        return mesh
 
     @property
     def levels(self) -> int:
@@ -111,13 +141,20 @@ def run_elastic(spec: ElasticMeshSpec, build: Callable, ckpt,
     """Train with elastic recovery.
 
     build(mesh) → (state, step_fn, shardings_fn) where step_fn(state, batch)
-    → (state, metrics); ``shardings_fn`` is the reference's, for restoring
-    onto a device mesh, and is not called on the stacked binding: a
-    checkpoint restores into the freshly built state
-    (``ckpt.restore(step, state)``, each leaf on that state's device and in
-    its dtype).  ``inject_failure_at``: {step: True} test hook, read from a
-    copy so the caller's plan is reusable.  Returns (state, history of
-    (step, level)).
+    → (state, metrics).  A checkpoint restores into the freshly built state
+    (each leaf on that state's device and in its dtype) through
+    ``shardings_fn(mesh)``: None on the stacked binding, where every leaf
+    is whole; on the process binding the tree of
+    :class:`~repro_torch.distributed.sharding.NamedSharding` that cuts
+    each rank's block (``ckpt.restore(step, state, shardings_fn(mesh))``,
+    the reference's restore onto the new mesh).  On a
+    :class:`DeviceFailure` the next level's mesh is built; on the process
+    binding the ranks outside it leave, returning (None, their history);
+    they may also die or go without a word, since the survivors re-form
+    the world without them.
+    ``inject_failure_at``: {step: True} test hook, read from a copy so the
+    caller's plan is reusable.  Returns (state, history of (step,
+    level)).
     """
     level = 0
     history: List[tuple] = []
@@ -125,11 +162,12 @@ def run_elastic(spec: ElasticMeshSpec, build: Callable, ckpt,
     # failure delivered), and draining the caller's dict would make a
     # fault plan single-use
     inject_failure_at = dict(inject_failure_at or {})
-    state, step_fn, _shard_fn = build(spec.mesh_for(level))
+    mesh = spec.mesh_for(level)
+    state, step_fn, shard_fn = build(mesh)
     step = 0
     latest = ckpt.latest_step()
     if latest is not None:
-        state = ckpt.restore(latest, state)
+        state = ckpt.restore(latest, state, shard_fn(mesh))
         step = latest + 1
         log(f"[elastic] restored step {latest}")
     while step < total_steps:
@@ -145,10 +183,16 @@ def run_elastic(spec: ElasticMeshSpec, build: Callable, ckpt,
             level += 1
             log(f"[elastic] {e}; re-meshing to level {level} "
                 f"{spec.shapes[level]}")
-            state, step_fn, _shard_fn = build(spec.mesh_for(level))
+            del state, step_fn
+            mesh = spec.mesh_for(level)
+            if mesh is None:
+                log(f"[elastic] this rank is outside the level-{level} "
+                    f"mesh; it leaves")
+                return None, history
+            state, step_fn, shard_fn = build(mesh)
             latest = ckpt.latest_step()
             if latest is not None:
-                state = ckpt.restore(latest, state)
+                state = ckpt.restore(latest, state, shard_fn(mesh))
                 step = latest + 1
             else:
                 step = 0

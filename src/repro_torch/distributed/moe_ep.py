@@ -77,31 +77,60 @@ def _process_moe_fn(cfg: ArchConfig, mesh: ProcessMesh):
     """moe_fn of one rank of a process mesh.  x (B, S, d) is the rank's
     batch rows (the dp split happened at the step), the same on every
     model rank.  As the reference's ``x_spec`` lays it out, the rank takes
-    its slice of S where S divides over ``model`` (a prefill) and all of it
-    otherwise (a decode step, S = 1); the routed output's slices are
-    gathered back over ``model``.  The shared expert runs tensor-parallel
-    on all of x (its columns and rows split over ``model``, the partial
-    outputs summed) and is added token by token, after the routed output,
-    as :func:`~repro_torch.models.moe.moe_block_local` adds it.  ``aux`` is
-    the rank's own load-balance loss: the serving steps drop it, and its
-    mean over the world comes with the training half (ROADMAP item 12)."""
+    its slice of S where S divides over ``model`` (a prefill, a training
+    step) and all of it otherwise (a decode step, S = 1); the routed
+    output's slices are gathered back over ``model``.  The shared expert
+    runs tensor-parallel on all of x (its columns and rows split over
+    ``model``, the partial outputs summed) and is added token by token,
+    after the routed output, as :func:`~repro_torch.models.moe.
+    moe_block_local` adds it (inside the a2a block where S is whole).
+
+    Under autograd the slice's backward gathers the slices' gradients and
+    the output gather's keeps the rank's slice; the a2a block's two
+    all_to_alls are their own adjoints.  The router is replicated over
+    ``model`` but routes only the rank's slice of S, so its gradient is
+    partial there: it enters through ``copy_to``, which sums that gradient
+    over ``model`` (GSPMD does so for the reference unasked).
+
+    ``aux`` is the rank's own load-balance loss: the serving steps drop it.
+    Training takes its mean over the world, the reference's ``pmean`` over
+    every axis, once for the whole stack: ``moe_fn.world_aux(aux, S)``
+    (:func:`~repro_torch.distributed.collectives.loss_mean`, the model
+    ranks' gradients summed where S was sliced)."""
     from .tensor_parallel import TensorParallel
-    n_tp, j = mesh.shape[TP], mesh.coord(TP)
+    n_tp = mesh.shape[TP]
     tp = TensorParallel(cfg, mesh) if n_tp > 1 else None
+
+    def split(S):
+        return n_tp > 1 and S % n_tp == 0
 
     def moe_fn(params, x, _cfg):
         B, S, d = x.shape
-        split_s = n_tp > 1 and S % n_tp == 0
-        xl = x[:, j * S // n_tp:(j + 1) * S // n_tp] if split_s else x
-        out, aux = M.moe_block_a2a_rank(params, xl, cfg, mesh)
-        if split_s:
+        routed = params
+        if split(S):
+            x_l = CL.slice_to(x, mesh, TP, 1)
+            routed = dict(params, router=CL.copy_to(params["router"], mesh,
+                                                    TP))
+        else:
+            x_l = x
+        def shared(xt):
+            return mlp(params["shared"], xt, cfg.act, tp)
+
+        has_shared = bool(cfg.moe.n_shared_experts)
+        out, aux = M.moe_block_a2a_rank(
+            routed, x_l, cfg, mesh,
+            shared if has_shared and not split(S) else None)
+        if split(S):
             out = CL.all_gather(out, mesh, TP, 1)
-        if cfg.moe.n_shared_experts:
-            out = (out.reshape(B * S, d) + mlp(params["shared"],
-                                               x.reshape(B * S, d), cfg.act,
-                                               tp)).reshape(B, S, d)
+            if has_shared:
+                out = (out.reshape(B * S, d) + shared(
+                    x.reshape(B * S, d))).reshape(B, S, d)
         return out, aux
 
+    def world_aux(aux, S):
+        return CL.loss_mean(aux, mesh, n_tp if split(S) else 1)
+
+    moe_fn.world_aux = world_aux
     return moe_fn
 
 

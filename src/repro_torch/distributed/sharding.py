@@ -43,6 +43,9 @@ from ..tree import flatten, unflatten
 
 DP = ("pod", "data")      # flattened data-parallel axes (pod absent → data)
 TP = "model"
+#: The reference's fsdp threshold: a leaf of this many elements or more
+#: also shards over the dp axes (``leaf_pspec``).
+FSDP_MIN_ELEMENTS = 1 << 20
 
 # (path regex, dims template).  First match wins.  Templates align to the
 # TRAILING dims of each leaf (leading layer-stack dims are replicated).
@@ -145,15 +148,15 @@ def _size(mesh, axes) -> int:
 def leaf_pspec(path: str, shape, mesh, fsdp: bool = False) -> tuple:
     """The spec of one parameter leaf of ``shape`` at ``path``: the first
     rule whose regex matches, resolved against ``mesh``; with ``fsdp`` a
-    leaf of 2²⁰ elements or more also shards its first free dim that
-    divides over the dp axes."""
+    leaf of ``FSDP_MIN_ELEMENTS`` (2²⁰) elements or more also shards its
+    first free dim that divides over the dp axes."""
     spec = ()
     for pat, template in PARAM_RULES:
         if re.search(pat, path):
             spec = _resolve_template(template, tuple(shape), mesh)
             break
     dp = dp_axes(mesh)
-    if fsdp and dp and math.prod(shape) >= (1 << 20):
+    if fsdp and dp and math.prod(shape) >= FSDP_MIN_ELEMENTS:
         dims = list(spec) + [None] * (len(shape) - len(spec))
         for i, d in enumerate(dims):
             if d is None and shape[i] % _size(mesh, dp) == 0:
@@ -318,3 +321,47 @@ def assemble(shards: Sequence[torch.Tensor], spec: tuple,
         seen.add(key)
         out[sl] = s
     return out
+
+
+# ------------------------------------------------ blocks between processes
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's layout on a process mesh: ``spec`` over ``mesh``, the
+    counterpart of ``jax.sharding.NamedSharding`` (what the checkpoint's
+    ``restore`` cuts a whole leaf by, and ``save`` gathers one by)."""
+    mesh: Any
+    spec: tuple
+
+
+def named(like, specs, mesh):
+    """A tree of :class:`NamedSharding`, one for each leaf of the tensor
+    tree ``like`` from its spec in ``specs`` (a spec is a tuple, so the walk
+    follows ``like``)."""
+    from ..tree import tree_map
+    return tree_map(lambda _t, s: NamedSharding(mesh, s), like, specs)
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes a spec entry splits over, outer first."""
+    if entry is None:
+        return ()
+    if isinstance(entry, Blocks):
+        return (entry.axis,)
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def gather_leaf(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The whole tensor from this rank's block ``x`` under ``spec``, on
+    every rank of the process ``mesh`` (each split dim all-gathered over
+    its axes, the inner axis first; a :class:`Blocks` entry keeps one of
+    each run of replicated blocks).  Every rank must call it."""
+    from . import collectives as CL
+    for dim, entry in enumerate(spec):
+        for axis in reversed(entry_axes(entry)):
+            x = CL.all_gather(x, mesh, axis, dim)
+        if isinstance(entry, Blocks):
+            n_rep = mesh.shape[entry.axis] // entry.n
+            w = x.shape[dim] // mesh.shape[entry.axis]
+            x = torch.cat([x.narrow(dim, b * n_rep * w, w)
+                           for b in range(entry.n)], dim)
+    return x

@@ -1,5 +1,6 @@
 """Tensor parallelism on the process binding: what GSPMD partitions for the
-reference's sharded serving steps, written as explicit collectives.
+reference's sharded serving and training steps, written as explicit
+collectives.
 
 Each rank of a :class:`~repro_torch.launch.mesh.ProcessMesh` holds its
 block of every parameter and runs the model's own code on local tensors,
@@ -43,8 +44,14 @@ Over a model axis above 1 the hybrid (RG-LRU, channel-sharded), ssm
 (RWKV6, heads-sharded), MLA (deepseek-v3), audio (whisper) and vlm
 (cross layers) families are refused (:func:`check_supported`); at a model
 axis of 1 every family runs, sharded over the dp axes only.  Parameters
-are replicated over the dp axes: the reference's ``fsdp``, which gathers
-each layer's weights over the data axes, belongs to the training half.
+are replicated over the dp axes, except in training at ``zero_stage`` 3,
+where ``param_layout(..., fsdp=True)`` adds the reference's fsdp split
+and the training step gathers each layer's shards over ``data`` before
+the layer runs (:mod:`repro_torch.train.train_step`).
+
+Training runs the same layers under autograd: the collectives carry
+their adjoints (:class:`TensorParallel`), and a family's kv heads must
+split whole over ``model`` (``check_supported(..., training=True)``).
 """
 from __future__ import annotations
 
@@ -66,12 +73,19 @@ REFUSED = {"hybrid": "the RG-LRU recurrence (channel-sharded)",
 _KV = re.compile(r"attn/w(k|v)$")
 
 
-def check_supported(cfg: ArchConfig, n_tp: int) -> None:
+def check_supported(cfg: ArchConfig, n_tp: int,
+                    training: bool = False) -> None:
     """Raise ``ValueError`` where ``cfg`` cannot run over a model axis of
     ``n_tp`` ranks: a refused family, MLA, heads that would be cut, or
-    widths and experts that do not divide."""
+    widths and experts that do not divide; in ``training`` also kv heads
+    that do not split whole (ranks sharing one would each hold part of
+    its gradient)."""
     if n_tp == 1:
         return
+    if training and cfg.n_kv_heads % n_tp:
+        raise ValueError(f"{cfg.name}: training over a model axis of {n_tp} "
+                         f"splits the {cfg.n_kv_heads} kv heads whole; they "
+                         f"do not divide")
     why = REFUSED.get(cfg.family)
     if why is None and cfg.mla is not None:
         why = "MLA (wq_b / wkv_b)"
@@ -107,23 +121,26 @@ def kv_entry(cfg: ArchConfig, n_tp: int):
     return Blocks(TP, cfg.n_kv_heads)
 
 
-def leaf_layout(path: str, shape, cfg: ArchConfig, mesh) -> tuple:
+def leaf_layout(path: str, shape, cfg: ArchConfig, mesh,
+                fsdp: bool = False) -> tuple:
     """The block of a parameter leaf each rank holds: the reference's spec
-    (:func:`~repro_torch.distributed.sharding.leaf_pspec`), with
-    :func:`kv_entry` on ``wk`` / ``wv`` over a model axis above 1."""
-    spec = leaf_pspec(path, shape, mesh)
+    (:func:`~repro_torch.distributed.sharding.leaf_pspec`, with ``fsdp``
+    its extra split over the dp axes), with :func:`kv_entry` on ``wk`` /
+    ``wv`` over a model axis above 1."""
+    spec = leaf_pspec(path, shape, mesh, fsdp)
     n_tp = mesh.shape[TP]
     if n_tp > 1 and _KV.search(path):
-        return (None, kv_entry(cfg, n_tp))
+        return (spec[0] if spec else None, kv_entry(cfg, n_tp))
     return spec
 
 
-def param_layout(params, cfg: ArchConfig, mesh):
+def param_layout(params, cfg: ArchConfig, mesh, fsdp: bool = False):
     """:func:`leaf_layout` of every leaf of ``params`` (full shapes; meta
     tensors will do)."""
     check_supported(cfg, mesh.shape[TP])
     return map_with_path(
-        lambda p, leaf: leaf_layout(p, tuple(leaf.shape), cfg, mesh), params)
+        lambda p, leaf: leaf_layout(p, tuple(leaf.shape), cfg, mesh, fsdp),
+        params)
 
 
 def cache_layout(caches, cfg: ArchConfig, mesh):
@@ -162,8 +179,11 @@ def empty_like_layout(tree, layout, mesh, device):
 
 class TensorParallel:
     """What a model layer asks of the process mesh on the tensor-parallel
-    path: the sum and the gather over ``model``, and the vocabulary-sharded
-    lookup."""
+    path: the sum and the gather over ``model``, the column-parallel
+    input, and the vocabulary-sharded lookup.  Under autograd each is its
+    own adjoint's partner (:mod:`repro_torch.distributed.collectives`):
+    the sum passes the gradient through, the input's gradient is summed,
+    the gather keeps the rank's slice."""
 
     def __init__(self, cfg: ArchConfig, mesh):
         self.mesh = mesh
@@ -177,6 +197,10 @@ class TensorParallel:
     def gather(self, x, dim: int):
         return CL.all_gather(x, self.mesh, TP, dim)
 
+    def copy(self, x):
+        """``x`` as a column-parallel layer's input."""
+        return CL.copy_to(x, self.mesh, TP)
+
     def embed(self, table, tokens):
         """Rows of the rank's (V / P, d) block of the table for the tokens
         it holds, zeros for the others, summed over ``model``."""
@@ -188,31 +212,39 @@ class TensorParallel:
                                      rows.new_zeros(())))
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator, mesh):
+def init_params(cfg: ArchConfig, generator: torch.Generator, mesh,
+                fsdp: bool = False):
     """This rank's parameters, drawn from ``generator`` (on its device) by
     ``build_model(cfg).init``, keeping the rank's block of each group of
     leaves as it is drawn (an MoE layer's experts are drawn one at a time
     and only the rank's kept), so the peak is one layer's leaves drawn
-    whole, its routed experts aside, not the model.
+    whole, its routed experts aside, not the model.  ``fsdp``: the blocks
+    of ``param_layout(..., fsdp=True)``, split over ``data`` too.
     The same seed gives every rank its block of the same model."""
     from ..models.layers import MetaGenerator
     from ..models.model import build_model
+    from .sharding import DP, entry_axes
     model = build_model(cfg)
     n_tp = mesh.shape[TP]
-    if n_tp == 1:                      # every leaf whole on every rank
+    split_dp = fsdp and any(mesh.shape.get(a, 1) > 1 for a in DP)
+    if n_tp == 1 and not split_dp:     # every leaf whole on every rank
         return model.init(generator)
     full = model.init(MetaGenerator())
-    layout = param_layout(full, cfg, mesh)
+    layout = param_layout(full, cfg, mesh, fsdp)
     e, j = cfg.moe.n_experts if cfg.moe else 0, mesh.coord(TP)
-    experts = (j * e // n_tp, (j + 1) * e // n_tp) if cfg.moe else None
+    experts = (j * e // n_tp, (j + 1) * e // n_tp) \
+        if cfg.moe and n_tp > 1 else None
 
     def one(t, f, spec):
         if tuple(t.shape) == tuple(f.shape):
             return shard(t, spec, mesh).clone()
-        if tuple(t.shape) != local_shape(f.shape, spec, mesh):
+        # drawn as the rank's block over ``model``: cut its dp entries
+        model_only = tuple(e if TP in entry_axes(e) else None for e in spec)
+        if tuple(t.shape) != local_shape(f.shape, model_only, mesh):
             raise ValueError(f"a leaf of {tuple(t.shape)} is neither "
                              f"whole {tuple(f.shape)} nor a block")
-        return t                          # drawn as the rank's block
+        dp_only = tuple(None if TP in entry_axes(e) else e for e in spec)
+        return shard(t, dp_only, mesh).clone() if any(dp_only) else t
 
     def keep(path, tree):
         f, spec = full, layout

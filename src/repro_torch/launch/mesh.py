@@ -32,8 +32,10 @@ from ..core.runtime import resolve_device
 AXES_2D = ("data", "model")
 AXES_3D = ("pod", "data", "model")
 
-#: The device :func:`init_distributed` gave this rank.
+#: The device :func:`init_distributed` gave this rank, and the timeout of
+#: its collectives.
 _RANK_DEVICE: list = []
+_TIMEOUT_S: list = []
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +88,54 @@ def init_distributed(backend: str, world_size: int, rank: int,
                             world_size=world_size, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
     _RANK_DEVICE[:] = [dev]
+    _TIMEOUT_S[:] = [timeout_s]
     return dev
+
+
+def rendezvous_points(k: int) -> list:
+    """``k`` addresses for worlds to come, fixed while every rank of this
+    one is alive: rank 0 picks ``k`` distinct free ports on ``MASTER_ADDR``
+    (localhost by default) and the others learn them in one broadcast over
+    the whole world.  Every rank must call it."""
+    import os
+
+    import torch.distributed as dist
+
+    from .world import free_port
+    host = os.environ.get("MASTER_ADDR", "localhost")
+    points = [None] * k
+    if dist.get_rank() == 0:
+        ports = []
+        while len(ports) < k:
+            p = free_port()
+            if p not in ports:
+                ports.append(p)
+        points = [f"tcp://{host}:{p}" for p in ports]
+    dist.broadcast_object_list(points, src=0)
+    return points
+
+
+def shrink_world(n: int, init_method: str) -> bool:
+    """Re-form the ``torch.distributed`` world over its first ``n`` ranks:
+    this rank leaves the old world without a collective on it, and ranks
+    0 … n − 1 join a new one at ``init_method`` (an address that
+    :func:`rendezvous_points` fixed while every rank was alive) on the
+    same backend and devices.  Returns whether this rank is in it.  A rank
+    ≥ n need not call it: one that died, or left without a word, holds
+    no survivor up, and no collective of the new world waits on it."""
+    import torch.distributed as dist
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if n == world:
+        return True
+    if not 0 < n < world:
+        raise ValueError(f"a world of {world} cannot shrink to {n}")
+    backend = dist.get_backend()
+    dist.destroy_process_group()
+    if rank >= n:
+        return False
+    init_distributed(backend, n, rank, init_method, _RANK_DEVICE[0],
+                     _TIMEOUT_S[0])
+    return True
 
 
 class ProcessMesh:

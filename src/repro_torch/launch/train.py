@@ -13,6 +13,18 @@ checkpoints, on one device.
 ``--device`` defaults to the card.  The weights are random, drawn on the
 device from a generator seeded with ``TrainConfig.seed``; a run with
 ``--ckpt-dir`` resumes from its latest checkpoint and saves at the end.
+
+With ``--mesh DATA,MODEL`` the launcher is one process of a
+``torch.distributed`` world that ``torchrun`` describes (``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), the counterpart of the
+reference's ``make_debug_mesh(n_data=n_dev)``: each rank trains its blocks
+through ``make_train_step(cfg, tcfg, mesh=ProcessMesh(DATA, MODEL))``
+(NCCL on the cards, gloo with ``--device cpu``), ``--zero-stage`` as the
+reference's ``TrainConfig``, and checkpoints gather to one writer::
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --arch llama3.2-3b --mesh 2,1 --steps 10 --batch 2 --seq 4096
+
 Every family trains on the card: the dense one, the hybrid
 (recurrentgemma-2b: the RG-LRU's hand-written backward), the ssm
 (rwkv6-7b: the WKV's training form and its hand-written backward), the
@@ -22,14 +34,15 @@ through the grouped matmul's hand-written backward (``GroupedMatmul``).
 Before it allocates anything, :func:`run` reckons what a step must hold on
 the card (:func:`memory_reckoning`) and refuses a configuration that does
 not fit: the MoE family's published widths, at any depth that holds an
-MoE layer (one of llama4's expert leaves is 10.7 GB in bf16), wait for
-experts sharded over cards (ROADMAP item 12); their smoke configurations
-train.  A vlm or whisper batch carries the pipeline's synthesized
-``context`` beside its tokens.
+MoE layer (one of llama4's expert leaves is 10.7 GB in bf16), and need a
+mesh whose ranks share the experts and the optimizer state; their smoke
+configurations train on one card.  A vlm or whisper batch carries the
+pipeline's synthesized ``context`` beside its tokens.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import numpy as np
@@ -48,20 +61,41 @@ from repro_torch.train import make_train_step
 from repro_torch.tree import leaves
 
 
-def memory_reckoning(cfg: ArchConfig, tcfg: TrainConfig) -> dict:
+def memory_reckoning(cfg: ArchConfig, tcfg: TrainConfig, mesh=None) -> dict:
     """Bytes a training step of ``cfg`` must hold on one device, reckoned
     from the configuration on the meta device: the parameters and their
     gradients in the parameters' dtypes, the optimizer's state in its
     dtypes, and one float32 copy of the largest leaf (the optimizer's
     per-leaf arithmetic runs in float32).  Activations are not counted, so
-    the total is a floor."""
+    the total is a floor.  With ``mesh`` (anything with the mesh's
+    ``shape``: a ``StackedMesh`` of the process mesh's sizes will do) it is
+    one rank's: its blocks of the parameters and gradients (over ``model``,
+    and over ``data`` at ``zero_stage`` 3) and of the state (ZeRO over
+    ``data`` at stage ≥ 2), as the process step lays them out."""
     params = build_model(cfg).init(MetaGenerator())
-    state = make_optimizer(tcfg, param_stacks(cfg)).init(params)
-    ps = leaves(params)
-    out = {"params": sum(p.numel() * p.element_size() for p in ps),
-           "optimizer_state": sum(t.numel() * t.element_size()
-                                  for t in leaves(state)),
-           "largest_leaf_float32": 4 * max(p.numel() for p in ps)}
+    stacks = param_stacks(cfg)
+    state = make_optimizer(tcfg, stacks).init(params)
+    if mesh is None:
+        ps, ss = leaves(params), leaves(state)
+        sizes = [p.numel() for p in ps]
+        st_bytes = sum(t.numel() * t.element_size() for t in ss)
+    else:
+        from repro_torch.distributed.sharding import local_shape
+        from repro_torch.distributed.tensor_parallel import param_layout
+        from repro_torch.distributed.zero import ZeroPlan, state_layout
+        from repro_torch.tree import tree_map
+        layout = param_layout(params, cfg, mesh, tcfg.zero_stage >= 3)
+        plan = ZeroPlan(mesh, params, layout, tcfg.zero_stage)
+        sizes, st_bytes = [], []
+        tree_map(lambda t, sp: sizes.append(
+            math.prod(local_shape(t.shape, sp, mesh))), params, layout)
+        tree_map(lambda t, sp: st_bytes.append(math.prod(
+            local_shape(t.shape, sp, mesh)) * t.element_size()), state,
+            state_layout(state, params, plan, stacks))
+        ps, st_bytes = leaves(params), sum(st_bytes)
+    out = {"params": sum(n * p.element_size() for n, p in zip(sizes, ps)),
+           "optimizer_state": st_bytes,
+           "largest_leaf_float32": 4 * max(sizes)}
     out["grads"] = out["params"]
     out["total"] = sum(out.values())
     return out
@@ -72,49 +106,69 @@ def device_memory(dev) -> int:
     return torch.cuda.get_device_properties(dev).total_memory
 
 
-def check_fits(cfg: ArchConfig, tcfg: TrainConfig, dev) -> None:
+def check_fits(cfg: ArchConfig, tcfg: TrainConfig, dev, mesh=None) -> None:
     """Raise ``RuntimeError`` on the card when :func:`memory_reckoning`'s
-    floor exceeds the card's memory, naming the bytes; on the CPU nothing
-    is checked."""
+    floor (one rank's, with ``mesh``) exceeds the card's memory, naming
+    the bytes; on the CPU nothing is checked."""
     if dev.type != "cuda":
         return
-    need, have = memory_reckoning(cfg, tcfg), device_memory(dev)
+    need, have = memory_reckoning(cfg, tcfg, mesh), device_memory(dev)
     if need["total"] > have:
         parts = ", ".join(f"{k} {v / 1e9:.1f} GB" for k, v in need.items()
                           if k != "total")
+        where = f"a rank of a {mesh.shape} mesh" if mesh is not None \
+            else "the card"
         raise RuntimeError(
             f"{cfg.name}: a training step needs at least "
-            f"{need['total'] / 1e9:.1f} GB on the card ({parts}), more than "
-            f"its {have / 1e9:.1f} GB; it waits for experts and parameters "
-            f"sharded over cards (ROADMAP item 12).  Train a smoke config "
-            f"or fewer layers, or with --device cpu")
+            f"{need['total'] / 1e9:.1f} GB on {where} ({parts}), more than "
+            f"its {have / 1e9:.1f} GB; shard it over more ranks (ROADMAP "
+            f"item 12: --mesh with a larger model axis, --zero-stage 3), "
+            f"or train a smoke config, fewer layers, or with --device cpu")
 
 
 def run(cfg: ArchConfig, tcfg: TrainConfig, pipe, *, steps: int,
         device=None, ckpt_dir: str = "", ckpt_every: int = 50,
-        log_every: int = 10) -> dict:
+        log_every: int = 10, mesh=None) -> dict:
     """Train ``cfg`` for steps [start, ``steps``) on ``pipe``'s batches,
     where start follows the latest checkpoint in ``ckpt_dir`` (0 without
     one).  Returns the final ``params`` and ``opt_state``, the
     ``train_step``, and each step's ``losses``, ``grad_norms`` and wall
-    time ``step_s`` (to the loss's read, which waits for the device)."""
-    dev = resolve_device(device)
-    check_fits(cfg, tcfg, dev)
-    print(f"[train] arch={cfg.name} device={dev}")
-    model, opt, train_step = make_train_step(cfg, tcfg, dev)
+    time ``step_s`` (to the loss's read, which waits for the device).
+    With a :class:`~repro_torch.launch.mesh.ProcessMesh` (every rank of its
+    world calls it) the rank trains its blocks on its rows of each global
+    batch, the losses are the data ranks' mean, the checkpoints gather to
+    one writer, and only the rank at coordinate 0 prints."""
+    from repro_torch.launch.mesh import StackedMesh
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    check_fits(cfg, tcfg, dev, None if mesh is None else
+               StackedMesh(mesh.sizes, mesh.axis_names))
+    lead = mesh is None or not any(mesh.coords.values())
+    say = print if lead else (lambda *_a, **_k: None)
+    say(f"[train] arch={cfg.name} device={dev}" +
+        (f" mesh={mesh.shape}" if mesh is not None else ""))
+    shardings = None
+    if mesh is None:
+        model, opt, train_step = make_train_step(cfg, tcfg, dev)
+    else:
+        from repro_torch.train.train_step import state_shardings
+        model, opt, train_step, _jit = make_train_step(cfg, tcfg,
+                                                       mesh=mesh)
+        shardings = state_shardings(cfg, tcfg, mesh)
     params = model.init(torch.Generator(device=dev).manual_seed(tcfg.seed))
     opt_state = opt.init(params)
     n_params = sum(p.numel() for p in leaves(params))
-    print(f"[train] params: {n_params / 1e6:.2f}M")
+    say(f"[train] params: {n_params / 1e6:.2f}M" +
+        (" on this rank" if mesh is not None else ""))
 
     ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start = 0
     if ckpt and ckpt.latest_step() is not None:
         restored = ckpt.restore(ckpt.latest_step(),
-                                {"params": params, "opt": opt_state})
+                                {"params": params, "opt": opt_state},
+                                shardings)
         params, opt_state = restored["params"], restored["opt"]
         start = ckpt.latest_step() + 1
-        print(f"[train] resumed from step {start - 1}")
+        say(f"[train] resumed from step {start - 1}")
 
     out = {"n_params": n_params, "start": start, "losses": [],
            "grad_norms": [], "step_s": []}
@@ -131,17 +185,38 @@ def run(cfg: ArchConfig, tcfg: TrainConfig, pipe, *, steps: int,
         tokens_seen += pipe.batch * pipe.seq
         if step % log_every == 0 or step == steps - 1:
             dt = time.time() - t0
-            print(f"[train] step {step:5d} loss {loss:8.4f} "
-                  f"gnorm {out['grad_norms'][-1]:7.3f} "
-                  f"tok/s {tokens_seen / max(dt, 1e-9):9.0f}")
+            say(f"[train] step {step:5d} loss {loss:8.4f} "
+                f"gnorm {out['grad_norms'][-1]:7.3f} "
+                f"tok/s {tokens_seen / max(dt, 1e-9):9.0f}")
         if ckpt and step and step % ckpt_every == 0:
-            ckpt.save(step, {"params": params, "opt": opt_state})
+            ckpt.save(step, {"params": params, "opt": opt_state},
+                      shardings=shardings)
     if ckpt:
         ckpt.save(steps - 1, {"params": params, "opt": opt_state},
-                  blocking=True)
-    print("[train] done")
+                  blocking=True, shardings=shardings)
+    say("[train] done")
     out.update(params=params, opt_state=opt_state, train_step=train_step)
     return out
+
+
+def mesh_from_env(sizes: str, device: str):
+    """Join the world that ``torchrun``'s environment describes (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; a world of 1 without
+    them) and return this rank's ``ProcessMesh`` of ``sizes``
+    (``"DATA,MODEL"``): NCCL on the cards, gloo on the CPU."""
+    import os
+
+    from repro_torch.launch.mesh import ProcessMesh, init_distributed
+    from repro_torch.launch.world import free_port
+    dims = tuple(int(x) for x in sizes.split(","))
+    rank = int(os.environ.get("RANK", 0))
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    addr = os.environ.get("MASTER_ADDR", "localhost")
+    port = os.environ.get("MASTER_PORT") or str(free_port())
+    cpu = device == "cpu"
+    init_distributed("gloo" if cpu else "nccl", world, rank,
+                     f"tcp://{addr}:{port}", "cpu" if cpu else None)
+    return ProcessMesh(*dims)
 
 
 def main(argv=None):
@@ -162,6 +237,10 @@ def main(argv=None):
     ap.add_argument("--dtype", default="")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the card, default) or 'cpu'")
+    ap.add_argument("--mesh", default="",
+                    help="DATA,MODEL: train as one rank of the torchrun "
+                         "world on that process mesh")
+    ap.add_argument("--zero-stage", type=int, default=2)
     args = ap.parse_args(argv)
 
     if args.arch not in ARCH_IDS:
@@ -169,14 +248,16 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.dtype:
         cfg = cfg.replace(dtype=args.dtype)
-    tcfg = TrainConfig(lr=args.lr, microbatch=args.microbatch)
+    tcfg = TrainConfig(lr=args.lr, microbatch=args.microbatch,
+                       zero_stage=args.zero_stage)
+    mesh = mesh_from_env(args.mesh, args.device) if args.mesh else None
     if args.data_path:
         pipe = FileTokens(cfg, args.data_path, args.batch, args.seq)
     else:
         pipe = SyntheticTokens(cfg, args.batch, args.seq, seed=tcfg.seed)
     out = run(cfg, tcfg, pipe, steps=args.steps, device=args.device,
               ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-              log_every=args.log_every)
+              log_every=args.log_every, mesh=mesh)
     if not np.all(np.isfinite(out["losses"])):
         raise SystemExit("[train] a loss is not finite")
     return out

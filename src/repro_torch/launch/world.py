@@ -36,7 +36,8 @@ def _rank_main(rank, fn, args, world, backend, device, port, out, timeout_s):
                          device, timeout_s)
         result = fn(rank, *args)
         torch.save(result, out / f"rank{rank}.pt")
-        dist.barrier()
+        if dist.is_initialized():   # a rank that left a shrunk world is not
+            dist.barrier()
     except BaseException:
         (out / f"rank{rank}.err").write_text(traceback.format_exc())
         raise SystemExit(1)

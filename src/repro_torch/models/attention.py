@@ -35,7 +35,9 @@ query heads — ``wq``'s columns and ``wo``'s rows of its heads — and the kv
 heads they read (``wk``/``wv``'s columns; :mod:`repro_torch.distributed.
 tensor_parallel`), so q, k, v and the cache carry the rank's heads, the
 kernels run on them unchanged, and ``tp.psum`` adds the ranks' partial
-``wo`` products.  Head counts are read from the weights, not the config.
+``wo`` products; in training the projections' input goes through
+``tp.copy``, which sums its gradient over the ranks.  Head counts are
+read from the weights, not the config.
 """
 from __future__ import annotations
 
@@ -79,9 +81,12 @@ class KVCache(NamedTuple):
     v: torch.Tensor    # (B, Hkv, S, D)
 
 
-def _project_qkv(params, cfg: ArchConfig, x, kv_x=None):
+def _project_qkv(params, cfg: ArchConfig, x, kv_x=None, tp=None):
     """x (B, S, d) → q (B, S, Hq, hd); k and v (B, Skv, Hkv, hd) from
-    ``kv_x`` (B, Skv, d), x itself by default."""
+    ``kv_x`` (B, Skv, d), x itself by default.  With ``tp`` the qk-norm
+    scales, replicated over ``model`` but each rank normalising its own
+    heads, enter through ``tp.copy``: their gradient is summed over the
+    ranks."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
     kv_x = x if kv_x is None else kv_x
@@ -89,8 +94,11 @@ def _project_qkv(params, cfg: ArchConfig, x, kv_x=None):
     k = (kv_x @ params["wk"]).reshape(B, kv_x.shape[1], -1, hd)
     v = (kv_x @ params["wv"]).reshape(B, kv_x.shape[1], -1, hd)
     if cfg.qk_norm:
-        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+        qn, kn = params["q_norm"], params["k_norm"]
+        if tp is not None:
+            qn, kn = ({"scale": tp.copy(n["scale"])} for n in (qn, kn))
+        q = rmsnorm(qn, q, cfg.norm_eps)
+        k = rmsnorm(kn, k, cfg.norm_eps)
     return q, k, v
 
 
@@ -104,7 +112,8 @@ def attention(params, cfg: ArchConfig, x, *, positions=None, causal=True,
     this call's k and v in (B, Hkv, Skv, hd) layout — strided views of the
     projections, not copies)."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(params, cfg, x, kv_x)
+    q, k, v = _project_qkv(params, cfg, x if tp is None else tp.copy(x),
+                           kv_x, tp)
     if use_rope and kv_x is None:
         pos = positions if positions is not None \
             else torch.arange(S, device=x.device)[None, :]

@@ -10,8 +10,10 @@ On the process binding's tensor-parallel path (``tp``, a
 holds a share of each weight: ``mlp``'s gate and up columns and ``wo``'s
 rows, whose partial products ``tp.psum`` adds; the embedding's vocabulary
 rows, whose lookup is masked to them and summed; the unembedding's vocab
-columns, whose logits ``tp.gather`` concatenates.  With ``tp`` None, as on
-every other path, nothing changes.
+columns, whose logits ``tp.gather`` concatenates.  Under autograd (the
+training step across processes) the input of each column-parallel
+product goes through ``tp.copy``, so the ranks' partial input gradients
+are summed.  With ``tp`` None, as on every other path, nothing changes.
 """
 from __future__ import annotations
 
@@ -104,6 +106,8 @@ def mlp(params, x, act="silu", tp=None):
     """SwiGLU (``act="silu"``) or GeGLU (``act="gelu"``, tanh-approximate
     GeLU): (act(x W_gate) · x W_up) W_o; with ``tp`` the rank's columns and
     rows, summed over the ranks."""
+    if tp is not None:
+        x = tp.copy(x)
     gate = x @ params["wi_gate"]
     g = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
     out = (g * (x @ params["wi_up"])) @ params["wo"]
@@ -137,6 +141,8 @@ def embed(params, tokens, tp=None):
 
 
 def unembed(params, x, tie, tp=None):
+    if tp is not None and tp.vocab_sharded:
+        x = tp.copy(x)
     logits = x @ params["table"].T if tie else x @ params["head"]
     if tp is not None and tp.vocab_sharded:
         return tp.gather(logits, -1)

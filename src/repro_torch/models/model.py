@@ -67,7 +67,8 @@ class Model(NamedTuple):
 
 
 def build_model(cfg: ArchConfig, *, remat: str = "block",
-                xent_chunks: int = 1, moe_fn=None, tp=None) -> Model:
+                xent_chunks: int = 1, moe_fn=None, tp=None,
+                gather=None) -> Model:
     """``remat``: ``"none"``, ``"block"`` or ``"full"`` (each training
     block recomputed in the backward pass; the reference's knob);
     ``xent_chunks``: sequence chunks of the unembedding and loss;
@@ -75,15 +76,21 @@ def build_model(cfg: ArchConfig, *, remat: str = "block",
     place of ``moe_block_local`` (the expert-parallel hook,
     :func:`repro_torch.distributed.moe_ep.make_moe_fn`; the LM family
     only, as in the reference); ``tp``: the process binding's
-    tensor-parallel serving path
+    tensor-parallel path
     (:class:`~repro_torch.distributed.tensor_parallel.TensorParallel`; the
-    dense and GQA MoE layers' prefill and decode — its ``train_loss`` and
-    ``logits`` refuse)."""
+    dense and GQA MoE layers' prefill, decode and training); ``gather``:
+    fsdp's per-layer gather on the process binding (``gather(tree)`` →
+    the tree with its data-sharded leaves whole; the LM family's training
+    stack applies it to each layer's parameters inside the layer's
+    ``remat`` region, so the backward gathers them again, and to the
+    embedding and final norm once a step).  Where ``moe_fn`` carries a
+    ``world_aux`` (the process binding's), ``train_loss`` takes the
+    blocks' load-balance loss through it: the mean over the world."""
     if cfg.family == "audio":
         return _build_encdec(cfg, remat)
     if cfg.family == "ssm":
         return _build_rwkv(cfg, remat)
-    return _build_lm(cfg, remat, xent_chunks, moe_fn, tp)
+    return _build_lm(cfg, remat, xent_chunks, moe_fn, tp, gather)
 
 
 def _device(params):
@@ -114,7 +121,7 @@ def _xent(logits, labels):
     return -lp.gather(-1, labels[..., None])[..., 0].mean()
 
 
-def _xent_chunked(embed_params, h, labels, tie, n_chunks):
+def _xent_chunked(embed_params, h, labels, tie, n_chunks, tp=None):
     """:func:`_xent` of ``unembed(h)`` with the unembedding and loss run per
     sequence chunk, each recomputed in the backward pass, so the (B, S,
     vocab) logits never exist at once.  The same value as :func:`_xent`
@@ -125,7 +132,7 @@ def _xent_chunked(embed_params, h, labels, tie, n_chunks):
         n_chunks -= 1
 
     def chunk_loss(hi, li):
-        lg = unembed(embed_params, hi, tie)
+        lg = unembed(embed_params, hi, tie, tp)
         lp = torch.log_softmax(lg.float(), dim=-1)
         return -lp.gather(-1, li[..., None])[..., 0].sum()
 
@@ -182,7 +189,7 @@ def _input_specs(cfg: ArchConfig, shape: ShapeConfig, init_cache):
 
 # ---------------------------------------------------------------- LM family
 def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int,
-              moe_fn=None, tp=None) -> Model:
+              moe_fn=None, tp=None, gather=None) -> Model:
     # the reference multiplies by sqrt(d) cast to the model dtype first (in
     # bf16, 50.5 for d = 2560); the product of two such values is exact in
     # float32, so one rounding to the model dtype gives the reference's bits
@@ -227,33 +234,41 @@ def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int,
         x = embed(params["embed"], tokens, tp)
         return x * embed_scale if embed_scale is not None else x
 
+    def _whole(params):
+        """The parameters outside the layers with fsdp's shards gathered
+        (the layers gather their own inside the stack)."""
+        if gather is None:
+            return params
+        return dict(params, **{k: gather(v) for k, v in params.items()
+                               if k != "layers"})
+
     def _hidden(params, tokens, context):
-        if tp is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: training over tensor-parallel ranks is the "
-                f"process binding's training half (ROADMAP item 12)")
         x, aux = T.apply_stack_train(params["layers"], cfg,
                                      _embed_in(params, tokens), remat,
-                                     context, moe_fn)
+                                     context, moe_fn, tp, gather)
+        if hasattr(moe_fn, "world_aux"):
+            aux = moe_fn.world_aux(aux, tokens.shape[1])
         return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
     def logits(params, batch):
+        params = _whole(params)
         h, _aux = _hidden(params, _tokens(params, batch),
                           _context(params, batch))
-        return unembed(params["embed"], h, cfg.tie_embeddings)
+        return unembed(params["embed"], h, cfg.tie_embeddings, tp)
 
     def train_loss(params, batch):
         """batch['tokens'] (B, S + 1) → (loss, metrics): next-token
         cross-entropy (+ MoE aux, + MTP), metrics ``xent``, ``moe_aux``
         and, with MTP, ``mtp``."""
+        params = _whole(params)
         tokens, inputs, labels = _split_tokens(params, batch)
         h, aux = _hidden(params, inputs, _context(params, batch))
         if xent_chunks > 1:
             loss = _xent_chunked(params["embed"], h, labels,
-                                 cfg.tie_embeddings, xent_chunks)
+                                 cfg.tie_embeddings, xent_chunks, tp)
         else:
-            loss = _xent(unembed(params["embed"], h, cfg.tie_embeddings),
-                         labels)
+            loss = _xent(unembed(params["embed"], h, cfg.tie_embeddings,
+                                 tp), labels)
         metrics = {"xent": loss, "moe_aux": aux}
         if cfg.moe is not None:
             loss = loss + MOE_AUX_WEIGHT * aux

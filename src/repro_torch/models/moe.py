@@ -46,7 +46,11 @@ compacted to the front of its block, so each live expert's weights are
 read once a product however many sources sent it tokens.
 
 ``moe_block_a2a_rank`` is the same block on the process binding: one
-rank's program, its all_to_alls between processes.
+rank's program, its all_to_alls between processes
+(:func:`repro_torch.distributed.collectives.all_to_all`, its own adjoint
+under autograd), so training differentiates it as written: gradients
+flow back through both all_to_alls, the compaction's index gathers and
+``GroupedMatmul`` on the rank's experts.
 """
 from __future__ import annotations
 
@@ -265,7 +269,7 @@ def moe_block_a2a(params, x, cfg: ArchConfig):
     return out.reshape(Pd, Pt, B, S, d), aux
 
 
-def moe_block_a2a_rank(params, x, cfg: ArchConfig, mesh):
+def moe_block_a2a_rank(params, x, cfg: ArchConfig, mesh, shared=None):
     """Expert-parallel MoE forward of one rank of a
     :class:`~repro_torch.launch.mesh.ProcessMesh`: the reference's
     ``moe_block_a2a`` under ``shard_map``, its two ``all_to_all``s over
@@ -275,9 +279,12 @@ def moe_block_a2a_rank(params, x, cfg: ArchConfig, mesh):
     x (B, S, d): this rank's tokens.  ``params``: ``router`` as in
     :func:`moe_block_local`; each ``experts`` leaf (E_local, ...) the rank's
     experts, model coordinate j holding j·E_local … (j + 1)·E_local − 1.
-    The shared expert is not applied here (the caller runs it
-    tensor-parallel).  Returns (the routed output (B, S, d), the rank's
-    load-balance loss).
+    ``shared(xt)``, where given, is the shared expert on the rank's (B·S,
+    d) tokens, added after the combine as :func:`moe_block_local` adds it
+    (so at one rank the block is the local block's graph, its gradients
+    summed in the same order); otherwise the caller runs the shared expert
+    (tensor-parallel, on all of S).  Returns (the output (B, S, d), the
+    rank's load-balance loss).
 
     The rank routes, sizes C = capacity(B·S) and dispatches its own tokens,
     as the reference's shard does.  With each (E_local, C) block of slots
@@ -326,6 +333,8 @@ def moe_block_a2a_rank(params, x, cfg: ArchConfig, mesh):
     # back through the same index: slot (s, e, c) for source s
     y_send = CL.all_to_all(y_e[dest.permute(1, 0, 2)], mesh, "model")
     out = combine(y_send.reshape(E, C, -1), slot, kept_w, T)
+    if shared is not None:
+        out = out + shared(xt)
     return out.reshape(B, S, -1), load_balance_loss(logits, e, mo)
 
 

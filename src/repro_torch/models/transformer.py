@@ -210,28 +210,35 @@ def apply_block_train(params, cfg: ArchConfig, kind: str, x, positions=None,
 
 
 def train_block(params, cfg: ArchConfig, kind: str, x, positions=None,
-                context=None, moe_fn=None):
+                context=None, moe_fn=None, tp=None, gather=None):
     """x (B, S, d) → (x', aux), the reference's ``apply_block_train``: aux
-    is the MoE block's load-balance loss, a float32 zero for the others."""
+    is the MoE block's load-balance loss, a float32 zero for the others.
+    ``tp``: the tensor-parallel path; ``gather``: fsdp's gather of the
+    block's data-sharded parameters, applied first."""
+    if gather is not None:
+        params = gather(params)
     x, _cache, aux = _block(params, cfg, kind, x, positions, context,
-                            moe_fn)
+                            moe_fn, tp)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
 
 
 def apply_stack_train(params, cfg: ArchConfig, x, remat: str = "block",
-                      context=None, moe_fn=None):
+                      context=None, moe_fn=None, tp=None, gather=None):
     """The stack for training: x (B, S, d) → (x', sum of the blocks' aux
     losses).  ``remat`` ``"block"`` or ``"full"`` recomputes each block in
     the backward pass from its input (``torch.utils.checkpoint``,
     non-reentrant), as the reference's ``jax.checkpoint`` of each block;
     ``"none"`` keeps every activation.  ``context`` feeds the cross
-    layers; ``moe_fn`` (:func:`_apply_ffn`) the MoE layers."""
+    layers; ``moe_fn`` (:func:`_apply_ffn`) the MoE layers; ``tp`` the
+    tensor-parallel layers; ``gather`` (fsdp) runs inside each block's
+    ``remat`` region, so a block's gathered weights live while it runs
+    and are gathered again for its backward."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p in zip(layer_kinds(cfg), params):
         x, aux = remat_call(remat, train_block, p, cfg, kind, x, None,
-                            context, moe_fn)
+                            context, moe_fn, tp, gather)
         aux_total = aux_total + aux
     return x, aux_total
 

@@ -1,5 +1,5 @@
 """Gradient compression with error feedback, the counterpart of
-``repro/optim/compression.py`` on the stacked binding (the cross-pod hop's
+``repro/optim/compression.py`` on both bindings (the cross-pod hop's
 distributed-optimization trick).
 
 int8 error-feedback all-reduce: quantize (g + carried error) to int8 with
@@ -10,8 +10,12 @@ gradients (Karimireddy et al., 2019) — the residual never leaves its
 participant, a LOCO private local region attached to the channel.
 
 Where the reference runs per participant under ``shard_map``/``vmap`` with
-``pmax`` / ``psum`` over an axis name, the port takes the stacked tensor
-and reduces over its participant dimension.  ``torch.round`` and
+``pmax`` / ``psum`` over an axis name, the stacked binding takes the
+stacked tensor and reduces over its participant dimension
+(:func:`int8_ef_allreduce`), and the process binding all-reduces over a
+named axis of a :class:`~repro_torch.launch.mesh.ProcessMesh`
+(:func:`int8_ef_allreduce_process`: the scale by an all-reduce MAX, the
+int8 payloads summed in int32).  ``torch.round`` and
 ``jnp.round`` both round half to even, so the payload is the reference's
 bit for bit.  Every division here divides by a tensor on the operand's
 device: PyTorch's CUDA kernels divide by a Python scalar as a product with
@@ -76,6 +80,39 @@ def int8_ef_allreduce(g: torch.Tensor, dim: int,
     summed = q.to(torch.int32).sum(dim, keepdim=True).float()
     out = summed * scale / gf.new_tensor(float(gf.shape[dim]))
     return out.expand(gf.shape), new_error
+
+
+def int8_payload_process(gf: torch.Tensor, mesh, axis: str
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`int8_payload` on one rank of a process mesh: float32 ``gf``'s
+    int8 payload and the one scale every rank of ``axis`` quantizes with —
+    this rank's max |value| / 127, then the max of those over ``axis`` (an
+    all-reduce MAX of one scalar, the reference's ``pmax``)."""
+    from ..distributed import collectives as CL
+    local = torch.clamp(gf.abs().max(), min=1e-12) / gf.new_tensor(127.0)
+    scale = CL.pmax(local, mesh, axis)
+    q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def int8_ef_allreduce_process(g: torch.Tensor, mesh, axis: str,
+                              error: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`int8_ef_allreduce` on one rank of a process mesh: the mean
+    over ``axis``'s ranks of this rank's ``g`` (+ ``error``), quantized
+    with :func:`int8_payload_process`'s one scale and the payloads summed
+    in int32.  Returns (synced float32, new error), the error never
+    leaving the rank."""
+    from ..distributed import collectives as CL
+    gf = g.float()
+    if error is not None:
+        gf = gf + error
+    q, scale = int8_payload_process(gf, mesh, axis)
+    sent = q.float() * scale
+    new_error = gf - sent
+    summed = CL.psum(q.to(torch.int32), mesh, axis).float()
+    out = summed * scale / gf.new_tensor(float(mesh.shape[axis]))
+    return out, new_error
 
 
 def compression_error_init(grads):

@@ -21,8 +21,13 @@ is the layer's, its column factor is shared by the n layers, and the port
 updates the group's rows together.  A per-layer matrix factors as it would
 alone.
 
-ZeRO sharding of the state (``opt_state_pspecs``) waits for the port's
-``torch.distributed`` binding.
+:func:`opt_state_pspecs` is the reference's ZeRO layout of the state,
+ported whole.  On the process binding the state is sharded as
+:mod:`repro_torch.distributed.zero` lays it out: it hands this module's
+update the rank's blocks, a global norm summed over the ranks
+(``norm_fn``) and Adafactor's factor means taken over the ranks that
+split a dimension (``means``); without them the arithmetic is exactly the
+one-device update's.
 """
 from __future__ import annotations
 
@@ -64,29 +69,40 @@ def global_norm(tree) -> torch.Tensor:
     return total.sqrt()
 
 
-def clip_by_global_norm(grads, max_norm):
+def clip_by_global_norm(grads, max_norm, norm_fn=global_norm):
     """Scale every gradient by ``min(1, max_norm / (norm + 1e-9))``, in
     place, the factor cast to each leaf's dtype; returns (grads, norm of
-    the unclipped gradients).  ``max_norm <= 0`` disables clipping (norm
-    0)."""
+    the unclipped gradients, by ``norm_fn``).  ``max_norm <= 0`` disables
+    clipping (norm 0)."""
     if max_norm is None or max_norm <= 0:
         return grads, torch.zeros((), dtype=torch.float32)
-    norm = global_norm(grads)
+    norm = norm_fn(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for g in leaves(grads):
         g.mul_(scale.to(g.dtype))
     return grads, norm
 
 
+def _mean(x, dim, _leaf_dim, keepdim=False):
+    return x.mean(dim, keepdim=keepdim)
+
+
 def make_optimizer(tcfg: TrainConfig,
-                   stacks: Optional[Sequence[Sequence[int]]] = None
-                   ) -> Optimizer:
+                   stacks: Optional[Sequence[Sequence[int]]] = None, *,
+                   norm_fn: Callable = global_norm,
+                   means: Optional[Callable] = None) -> Optimizer:
+    """AdamW or Adafactor by ``tcfg.optimizer``.  ``norm_fn(grads)``: the
+    clip's global norm; ``means(i)``: leaf i's mean function ``(x, dim,
+    leaf_dim, keepdim)`` for Adafactor's factors (``leaf_dim``: the leaf's
+    dimension that ``dim`` of ``x`` runs over); by default
+    :func:`global_norm` and ``x.mean(dim)``."""
     if tcfg.optimizer == "adafactor":
-        return _adafactor(tcfg, stacks or [])
+        return _adafactor(tcfg, stacks or [], norm_fn,
+                          means or (lambda _i: _mean))
     if tcfg.optimizer != "adamw":
         raise ValueError(f"optimizer must be adamw or adafactor, got "
                          f"{tcfg.optimizer!r}")
-    return _adamw(tcfg)
+    return _adamw(tcfg, norm_fn)
 
 
 def _count(count: torch.Tensor) -> tuple:
@@ -95,7 +111,8 @@ def _count(count: torch.Tensor) -> tuple:
     return count, count.to(torch.float32)
 
 
-def _adamw(tcfg: TrainConfig, b1=0.9, b2=0.95, eps=1e-8) -> Optimizer:
+def _adamw(tcfg: TrainConfig, norm_fn=global_norm, b1=0.9, b2=0.95,
+           eps=1e-8) -> Optimizer:
     mdt = getattr(torch, tcfg.adam_dtype)
 
     def init(params):
@@ -108,7 +125,7 @@ def _adamw(tcfg: TrainConfig, b1=0.9, b2=0.95, eps=1e-8) -> Optimizer:
 
     @torch.no_grad()
     def update(grads, state, params):
-        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, norm_fn)
         count, cf = _count(state.count)
         c1 = 1 - torch.tensor(b1, dtype=torch.float32,
                               device=cf.device) ** cf
@@ -148,7 +165,8 @@ def _stacked_rows(paths, stacks):
     return out
 
 
-def _adafactor(tcfg: TrainConfig, stacks, b1=0.9, decay=0.8,
+def _adafactor(tcfg: TrainConfig, stacks, norm_fn=global_norm,
+               means=lambda _i: _mean, b1=0.9, decay=0.8,
                eps=1e-30) -> Optimizer:
     """Factored second moments for leaves of two or more dimensions in the
     reference's stacked layout, full ones for the rest."""
@@ -184,15 +202,16 @@ def _adafactor(tcfg: TrainConfig, stacks, b1=0.9, decay=0.8,
             count=torch.zeros((), dtype=torch.int32,
                               device=leaves(params)[0].device))
 
-    def step_of(g, vr, vc, fac, beta2):
+    def step_of(g, vr, vc, fac, beta2, mean=_mean):
         """(step, vr', vc') for g in float32, the reference's arithmetic on
-        one leaf of its layout."""
+        one leaf of its layout (``mean``: the leaf's, see
+        :func:`make_optimizer`)."""
         if fac:
-            r2 = (g * g).mean(-1) + eps
-            c2 = (g * g).mean(-2) + eps
+            r2 = mean(g * g, -1, -1) + eps
+            c2 = mean(g * g, -2, -2) + eps
             vr2 = beta2 * vr.float() + (1 - beta2) * r2
             vc2 = beta2 * vc.float() + (1 - beta2) * c2
-            rfac = torch.rsqrt(vr2 / vr2.mean(-1, keepdim=True))
+            rfac = torch.rsqrt(vr2 / mean(vr2, -1, -2, keepdim=True))
             cfac = torch.rsqrt(vc2)
             return g * rfac[..., None] * cfac[..., None, :], vr2, vc2
         vr2 = beta2 * vr.float() + (1 - beta2) * (g * g)
@@ -205,7 +224,7 @@ def _adafactor(tcfg: TrainConfig, stacks, b1=0.9, decay=0.8,
 
     @torch.no_grad()
     def update(grads, state, params):
-        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, norm_fn)
         count, cf = _count(state.count)
         beta2 = 1.0 - cf ** -decay
         kinds, rows = layout(params)
@@ -216,20 +235,22 @@ def _adafactor(tcfg: TrainConfig, stacks, b1=0.9, decay=0.8,
                 zip(kinds, cols)):
             if stacked and p.dim() == 1:
                 key, row = rows[n]
-                groups.setdefault(key, {})[row] = (g, m, vr, vc, p)
+                groups.setdefault(key, {})[row] = (n, g, m, vr, vc, p)
                 continue
-            s, vr2, vc2 = step_of(g.float(), vr, vc, fac, beta2)
+            s, vr2, vc2 = step_of(g.float(), vr, vc, fac, beta2, means(n))
             pf, m2 = apply(s, m, p)
             p.copy_(pf)
             m.copy_(m2)
             vr.copy_(vr2)
             vc.copy_(vc2)
-        # each stack's per-layer vectors as the reference's (n, d) leaf
+        # each stack's per-layer vectors as the reference's (n, d) leaf: its
+        # dim -1 is each vector's own, its dim -2 the stack's
         for members in groups.values():
-            g, m, vr, vc, p = (list(x) for x in zip(
+            idx, g, m, vr, vc, p = (list(x) for x in zip(
                 *(members[r] for r in sorted(members))))
             gs = torch.stack([x.float() for x in g])
-            s, vr2, vc2 = step_of(gs, torch.stack(vr), vc[0], True, beta2)
+            s, vr2, vc2 = step_of(gs, torch.stack(vr), vc[0], True, beta2,
+                                  means(idx[0]))
             pf, m2 = apply(s, torch.stack(m), torch.stack(p))
             for i in range(len(p)):
                 p[i].copy_(pf[i])
@@ -240,3 +261,49 @@ def _adafactor(tcfg: TrainConfig, stacks, b1=0.9, decay=0.8,
             {"grad_norm": gnorm}
 
     return Optimizer(init, update)
+
+
+def opt_state_pspecs(state, params_pspecs, mesh, zero_stage: int):
+    """ZeRO: shard moment leaves like their params, PLUS over the data axes
+    on the first divisible dim (stage ≥ 2).  The count scalar is
+    replicated.  The reference's function on the port's spec tuples
+    (:mod:`repro_torch.distributed.sharding`): ``state`` an
+    :class:`AdamState` or :class:`FactoredState` of tensors (meta ones
+    will do), ``params_pspecs`` the parameters' spec tree; returns the
+    state's spec tree.  Factored ``vr`` / ``vc`` leaves, whose shapes
+    differ from the parameters', take the rule on a replicated spec."""
+    from ..distributed.sharding import _axes, dp_axes
+    dp = dp_axes(mesh)
+    dp_total = 1
+    for a in dp:
+        dp_total *= mesh.shape[a]
+
+    def moment_spec(leaf, pspec):
+        if leaf.dim() == 0:
+            return ()
+        dims = list(pspec) + [None] * (leaf.dim() - len(pspec))
+        used = set()
+        for d in dims:
+            if d is None:
+                continue
+            used.update(d if isinstance(d, tuple) else
+                        (getattr(d, "axis", d),))
+        if zero_stage >= 2 and dp and not used.intersection(dp):
+            for i in range(leaf.dim()):
+                if dims[i] is None and leaf.shape[i] % dp_total == 0 and \
+                        leaf.shape[i] > 0:
+                    dims[i] = _axes(dp)
+                    break
+        return tuple(dims)
+
+    if not isinstance(state, (AdamState, FactoredState)):
+        raise TypeError(type(state))
+    fields = {}
+    for name, sub in state._asdict().items():
+        if name == "count":
+            fields[name] = ()
+        elif name in ("mu", "nu"):
+            fields[name] = tree_map(moment_spec, sub, params_pspecs)
+        else:
+            fields[name] = tree_map(lambda leaf: moment_spec(leaf, ()), sub)
+    return type(state)(**fields)
