@@ -6,11 +6,11 @@ Run from the repository root on a machine with a CUDA card, the CUDA
 toolkit and, beside this checkout, an unpacked copy of the commit to
 compare with (``git archive <commit> | tar -x -C <dir>``):
 
-    python3 chip_compare.py [--groups moe,copy,dma,rwkv,rglru,bwd,wkvbwd,rglrubwd,gmmbwd] <parent dir> <change dir>
+    python3 chip_compare.py [--groups moe,copy,dma,map,rwkv,rglru,bwd,wkvbwd,rglrubwd,gmmbwd] <parent dir> <change dir>
 
 Each turn is one process that imports ``chip_smoke`` and ``repro_torch``
 from its tree and builds that tree's kernels, then, with that tree's code,
-runs the groups asked for (all nine by default):
+runs the groups asked for (all ten by default):
 
 * ``moe``: serves llama4-maverick-400b-a17b at full width and 4 layers
   (512-token prompts) as ``chip_smoke.py``'s phase 5 does, with its checks
@@ -29,6 +29,13 @@ runs the groups asked for (all nine by default):
   ``scatter_rows`` on the write verb's (that broadcast index, bool apply
   and wire masks, the home buffer whole), and
   ``PallasDmaBackend().read_batch`` and ``.write_batch`` whole;
+* ``map``: the channel layer on the stacked binding at the KVStore path's
+  shapes, on the remote-DMA backend: a barrier crossing and a single
+  contended ticket lock's round at P = 8 (``chip_smoke.py``'s phase 4d),
+  then the KVStore path's store (K = 2**22, index 4·K, 4,096 locks) through
+  64 INSERT windows of 512 lanes a participant and 20 each of the main
+  path's mixed and zipf windows, each window's host time to its results
+  (p50 over the windows; no device time);
 * ``rwkv``: times ``wkv6`` in bf16 at rwkv6-7b's prefill shape (4 prompts
   of 512 tokens, 64 heads of 64, inputs as (B, H, S, D) views of
   (B, S, H, D) projections) and serves rwkv6-7b at full width and depth
@@ -101,6 +108,7 @@ TRAIN_STEPS = 3
 SOURCES = {"moe": ("flash_attention", "decode_attention", "rglru_scan",
                    "wkv6", "moe_gmm", "remote_copy", "remote_dma"),
            "copy": ("remote_copy",), "dma": ("remote_dma",),
+           "map": ("remote_dma",),
            "rwkv": ("wkv6",),
            "rglru": ("flash_attention", "decode_attention", "rglru_scan"),
            "bwd": ("flash_attention", "flash_attention_bwd",
@@ -177,6 +185,9 @@ def turn(root: str, tag: str, groups) -> dict:
 
     if "dma" in groups:
         dma_verbs(torch, cs, rdma, timed)
+
+    if "map" in groups:
+        map_windows(torch, cs, timed, res)
 
     if "rwkv" in groups:
         g = torch.Generator(device="cuda").manual_seed(cs.SEED + 14)
@@ -440,6 +451,70 @@ def dma_verbs(torch, cs, rdma, timed):
           lambda: backend.write_batch(buf, targets, indices, values,
                                       preds=preds, ledger=ledger,
                                       verb="write"), 20)
+
+
+def map_windows(torch, cs, timed, res):
+    """The ``map`` group: the barrier crossing and the lock round timed as
+    calls, then the KVStore path's store window by window.  Inputs come
+    from a seed, alike in both trees."""
+    import time
+
+    import numpy as np
+
+    import repro_torch.core as pt
+    P, B = cs.P, cs.B
+    mgr = pt.make_manager(P, backend="pallas")
+    bar = pt.Barrier(None, "bar", mgr)
+    bst = [bar.init_state()]
+
+    def cross():
+        bst[0] = bar.wait(bst[0])
+
+    timed(f"barrier crossing P={P}", cross, 200)
+    lock = pt.TicketLock(None, "lock", mgr)
+    lst = [lock.init_state(),
+           torch.full((P,), pt.NO_TICKET, dtype=torch.int64, device="cuda")]
+
+    def lock_round():
+        st, t = lst
+        st, t2 = lock.acquire(st, want=t == pt.NO_TICKET)
+        t = torch.where(t == pt.NO_TICKET, t2, t)
+        holds = lock.holds(st, t)
+        lst[:] = [lock.release(st, holds), torch.where(holds, pt.NO_TICKET,
+                                                       t)]
+
+    timed(f"single-lock round P={P}", lock_round, 200)
+    kv = pt.KVStore(None, "kv", mgr, slots_per_node=cs.KEYS // P + 4,
+                    value_width=cs.W, num_locks=4096,
+                    index_capacity=4 * cs.KEYS)
+    st = kv.init_state()
+    rng = np.random.default_rng(cs.SEED + 16)
+    span = P * B
+
+    def fill(i):
+        ks = np.arange(i * span + 1, (i + 1) * span + 1, dtype=np.uint32)
+        return (np.full((P, B), cs.INSERT, np.int32), ks.reshape(P, B),
+                np.zeros((P, B, cs.W), np.int32))
+
+    zipf = cs.zipf_sampler(rng)
+    for label, wins in (
+            ("map fill window", [fill(i) for i in range(64)]),
+            ("map mixed window", [cs.mixed_window(rng, w)
+                                  for w in range(20)]),
+            ("map zipf window", [cs.zipf_window(zipf, rng, w)
+                                 for w in range(20)])):
+        times = []
+        for ops, ks, vals in wins:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, out = kv.op_window(st, ops, ks, vals)
+            out.found.cpu()
+            times.append(time.perf_counter() - t0)
+        res[label] = {"ms": 1e3 * float(np.median(times)),
+                      "device_ms": None, "device_ops": None}
+    del st, kv
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def device_time(torch, fn, iters):

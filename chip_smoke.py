@@ -205,6 +205,20 @@ exits non-zero and prints no result:
    ``_op_round_reference`` over 6 rounds, ``migrate_window`` result for
    result ``_migrate_reference`` on a placed store; the prefill time of
    each store and their ratio are printed;
+4f. the map across processes (``make_manager(P, mesh=ProcessMesh(P))``,
+   one participant a rank): the KVStore path's store shape (``pallas``,
+   K = 2**22, index 4·K, 4,096 locks, 512 lanes a participant) through 24
+   INSERT windows, 6 mixed and 6 zipf ``get_batch`` windows and one MOVE
+   window, first stacked in this process (oracle-checked), then on a
+   world of 1 on NCCL and a world of 8 sharing the card over gloo, each
+   spawned with the kernels built: every rank's results its rows of the
+   stacked ones, its state block the stacked row by digests after the
+   fill and every later window, its remote-DMA launches on its own block
+   as many as the stacked store's; the world of 8 also runs the
+   reference's ``tests/test_shardmap_binding.py`` programs
+   (``repro_torch.examples.process_map``) against the stacked run's by
+   digests; each rank's window p50 is printed, labelled as gloo on one
+   card and not a number between cards;
 5. the serving paths — ``ServingEngine.generate`` at full published width,
    bf16, random weights drawn on the card from a seeded generator, 8
    requests of 32 generated tokens in batches of 4 — on llama3.2-3b
@@ -354,7 +368,7 @@ Kernel launch counts are set to 0 just before each path and read just after
 it (in phases 5c and 7c in each rank), so the checks of phases 2, 2b, 2c
 and 3 and the timings of phase 6 count nowhere;
 the map kernels' rows carry phase 4d's and 4e's counts beside the KVStore
-path's.
+path's, and phase 4f's ranks' in ``launches_paths``.
 On every replicated path the remote-copy kernel's launches must equal the
 ring's publishes.
 """
@@ -2830,24 +2844,25 @@ class Oracle:
     takes a slot of its writer's node and fails on a present key or a full
     node."""
 
-    def __init__(self, keys, slots):
+    def __init__(self, keys, slots, nodes=P):
         self.present = np.zeros(keys + 1, dtype=bool)
         self.value = np.zeros((keys + 1, W), dtype=np.int32)
         self.home = np.zeros(keys + 1, dtype=np.int64)
-        self.free = np.full(P, slots, dtype=np.int64)
+        self.free = np.full(nodes, slots, dtype=np.int64)
 
     def window(self, ops, keys, vals):
-        """Expected (GET values, found) of one (P, B) window."""
+        """Expected (GET values, found) of one (nodes, B) window."""
         flat_k = keys.reshape(-1).astype(np.int64)
-        exp_found = np.zeros(P * B, dtype=bool)
-        exp_val = np.zeros((P * B, W), dtype=np.int32)
+        exp_found = np.zeros(flat_k.size, dtype=bool)
+        exp_val = np.zeros((flat_k.size, W), dtype=np.int32)
+        lanes = ops.shape[1]
         is_get = ops.reshape(-1) == GET
         exp_found[is_get] = self.present[flat_k[is_get]]
         exp_val[is_get] = np.where(exp_found[is_get, None],
                                    self.value[flat_k[is_get]], 0)
         flat_v = vals.reshape(-1, W)
         for n in np.flatnonzero(~is_get & (ops.reshape(-1) != NOP)):
-            op, k, p = ops.reshape(-1)[n], flat_k[n], n // B
+            op, k, p = ops.reshape(-1)[n], flat_k[n], n // lanes
             if op == INSERT:
                 ok = not self.present[k] and self.free[p] > 0
                 if ok:
@@ -2861,7 +2876,25 @@ class Oracle:
             if ok and op in (INSERT, UPDATE):
                 self.value[k] = flat_v[n]
             exp_found[n] = ok
-        return exp_val.reshape(P, B, W), exp_found.reshape(P, B)
+        return exp_val.reshape(ops.shape + (W,)), exp_found.reshape(ops.shape)
+
+    def move(self, keys, dests):
+        """Expected ``moved`` of one MOVE window of distinct keys: a present
+        key moves to its destination when that node has a free slot, and a
+        move to its own home succeeds with no effect."""
+        flat_k = keys.reshape(-1).astype(np.int64)
+        ok = np.zeros(flat_k.size, dtype=bool)
+        for n, (k, d) in enumerate(zip(flat_k, dests.reshape(-1))):
+            if not self.present[k]:
+                continue
+            if self.home[k] != d:
+                if self.free[d] == 0:
+                    continue
+                self.free[self.home[k]] += 1
+                self.free[d] -= 1
+                self.home[k] = d
+            ok[n] = True
+        return ok.reshape(keys.shape)
 
 
 def zipf_sampler(rng):
@@ -3983,6 +4016,299 @@ def phase_spec_store(torch, pt, rdma):
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: the map across processes
+# ---------------------------------------------------------------------------
+
+# The map's process binding, one participant a rank: a world of 1 on NCCL
+# and a world of P ranks sharing the card over gloo (NCCL refuses two ranks
+# on one device).  The store keeps the main path's shape (pallas, K = 2**22,
+# index 4·K, 4,096 locks, W = 2, B = 512 lanes a participant); what is cut
+# is the prefill, to PM4_FILL_WINDOWS INSERT windows of the main path's
+# ~820, and the mixed and zipf windows, to PM4_MIX and PM4_ZIPF of its 20.
+PM4_WORLDS = (("nccl", 1), ("gloo", P))
+PM4_FILL_WINDOWS = 24
+PM4_MIX = 6
+PM4_ZIPF = 6
+PM4_TIMEOUT_S = 600
+PM4_GLOO = "gloo on one card, not a number between cards"
+
+
+def pm4_config(nodes):
+    return dict(slots_per_node=KEYS // nodes + 4, value_width=W,
+                num_locks=4096, index_capacity=4 * KEYS)
+
+
+def pm4_windows(nodes):
+    """Phase 4f's windows for ``nodes`` participants, from the seed:
+    ("op", ops, keys, values) INSERT prefill windows of distinct keys, the
+    main path's mixed windows (60/20/10/10 GET/UPDATE/INSERT/DELETE over
+    distinct keys, half of them filled), ("get", keys) zipf windows over the
+    filled keys for ``get_batch``, and one ("move", keys, dests) window of
+    distinct filled keys."""
+    rng = np.random.default_rng(SEED + 36)
+    span = nodes * B
+    n_fill = PM4_FILL_WINDOWS * span
+    shape = (nodes, B)
+    wins = []
+    for i in range(PM4_FILL_WINDOWS):
+        ks = np.arange(i * span + 1, (i + 1) * span + 1, dtype=np.uint32)
+        vals = np.stack([ks.astype(np.int32) * 3, np.zeros(span, np.int32)],
+                        1)
+        wins.append(("op", np.full(shape, INSERT, np.int32),
+                     ks.reshape(shape), vals.reshape(shape + (W,))))
+    for w in range(PM4_MIX):
+        ks = rng.choice(2 * n_fill, size=span, replace=False) \
+            .astype(np.uint32) + 1
+        ops = rng.choice([GET, UPDATE, INSERT, DELETE], size=span,
+                         p=[.6, .2, .1, .1]).astype(np.int32)
+        vals = np.stack([ks.astype(np.int32) * 5 + w,
+                         np.full(span, w, np.int32)], 1)
+        wins.append(("op", ops.reshape(shape), ks.reshape(shape),
+                     vals.reshape(shape + (W,))))
+    cdf = np.cumsum(1.0 / np.arange(1, n_fill + 1, dtype=np.float64)
+                    ** ZIPF_THETA)
+    cdf /= cdf[-1]
+    scramble = rng.permutation(n_fill) + 1
+    for _ in range(PM4_ZIPF):
+        ks = scramble[np.minimum(np.searchsorted(cdf, rng.random(span)),
+                                 n_fill - 1)].astype(np.uint32)
+        wins.append(("get", ks.reshape(shape)))
+    ks = rng.choice(n_fill, size=span, replace=False).astype(np.uint32) + 1
+    wins.append(("move", ks.reshape(shape),
+                 rng.integers(0, nodes, shape).astype(np.int32)))
+    return wins
+
+
+def pm4_digests(torch, tree, p=None):
+    """Per-leaf digests of a (nested) tuple of tensors, each leaf's row
+    ``p`` (participant p's block) when ``p`` is given."""
+    if isinstance(tree, tuple):
+        return [d for leaf in tree for d in pm4_digests(torch, leaf, p)]
+    return [pt_digest(torch, tree if p is None else tree[p:p + 1])]
+
+
+def pm4_run(torch, kv, st, wins, cut, on_window):
+    """Run ``wins`` on ``kv`` from ``st``, ``cut(a)`` giving the held
+    participants' block of a (nodes, ...) array on the device; after window
+    i ``on_window(i, state)``.  Returns (state, the windows' results on the
+    host, seconds a window)."""
+    results, times = [], []
+    for i, (kind, *args) in enumerate(wins):
+        args = [cut(a) for a in args]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "get":
+            st, values, found = kv.get_batch(st, args[0])
+            res = (values, found)
+        elif kind == "move":
+            st, moved = kv.migrate_window(st, args[0], args[1])
+            res = (moved,)
+        else:
+            st, r = kv.op_window(st, *args)
+            res = tuple(r)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        results.append(tuple(t.cpu() for t in res))
+        on_window(i, st)
+    return st, results, times
+
+
+def pm4_kinds(wins, times):
+    """Window p50 (ms) by kind: fill, mix, get, move."""
+    kinds = (["fill"] * PM4_FILL_WINDOWS + ["mix"] * PM4_MIX
+             + ["get"] * PM4_ZIPF + ["move"])
+    check(len(kinds) == len(wins) == len(times), "4f: window count")
+    return {k: 1e3 * float(np.percentile(
+        [t for kk, t in zip(kinds, times) if kk == k], 50))
+        for k in ("fill", "mix", "get", "move")}
+
+
+def pm4_rank(rank, nodes):
+    """One rank of a phase-4f world (spawned; ``init_distributed`` has
+    joined it): ``make_manager(nodes, mesh=ProcessMesh(nodes))``, the
+    store of ``pm4_config`` on its own block on the card, the windows of
+    ``pm4_windows`` cut to its participant's rows, with its remote-DMA
+    launches counted from 0 over them; digests of its state block after the
+    prefill and after every later window; then, in a world of more than
+    one, the reference's shard_map programs on its block."""
+    import torch
+
+    import repro_torch.core as pt
+    from repro_torch.examples.process_map import shardmap_programs
+    from repro_torch.kernels import remote_dma as rdma
+    from repro_torch.launch.mesh import ProcessMesh
+    mesh = ProcessMesh(nodes)
+    mgr = pt.make_manager(nodes, mesh=mesh, backend="pallas")
+    kv = pt.KVStore(None, "kv", mgr, **pm4_config(nodes))
+    st = kv.init_state()
+    torch.cuda.synchronize()
+    state_gib = torch.cuda.memory_allocated() / 2 ** 30
+    wins = pm4_windows(nodes)
+    digests = {}
+
+    def on_window(i, s):
+        if i >= PM4_FILL_WINDOWS - 1:
+            digests[i] = pm4_digests(torch, s)
+
+    reset_launches(rdma)
+    st, results, times = pm4_run(
+        torch, kv, st, wins,
+        lambda a: torch.from_numpy(a[rank:rank + 1].copy()).to(mesh.device),
+        on_window)
+    out = dict(rank=rank, device=str(mesh.device), backend=mesh.backend,
+               transports=dict(mesh.transports), state_gib=state_gib,
+               digests=digests, results=results,
+               window_p50_ms=pm4_kinds(wins, times),
+               launches=kernel_counts(rdma))
+    del st, kv
+    if nodes > 1:
+        reset_launches(rdma)
+        prog = shardmap_programs(lambda: pt.make_manager(
+            nodes, mesh=mesh, backend="pallas"), nodes)
+        out["programs"] = {k: pm4_digests(torch, v) for k, v in prog.items()}
+        out["program_launches"] = kernel_counts(rdma)
+    return out
+
+
+def pm4_oracle_check(oracle, wins, results, label):
+    """The stacked run's results against the numpy oracle."""
+    for i, ((kind, *args), res) in enumerate(zip(wins, results)):
+        what = f"4f {label} window {i} ({kind})"
+        if kind == "op":
+            exp_val, exp_found = oracle.window(*args)
+            check(np.array_equal(res[1].numpy(), exp_found),
+                  f"{what}: found differs from the oracle")
+            check(np.array_equal(res[0].numpy(), exp_val),
+                  f"{what}: GET values differ from the oracle")
+        elif kind == "get":
+            ks = args[0].astype(np.int64)
+            check(np.array_equal(res[1].numpy(), oracle.present[ks]),
+                  f"{what}: found differs from the oracle")
+            check(np.array_equal(res[0].numpy(), np.where(
+                oracle.present[ks][..., None], oracle.value[ks], 0)),
+                f"{what}: values differ from the oracle")
+        else:
+            check(np.array_equal(res[0].numpy(), oracle.move(*args)),
+                  f"{what}: moved differs from the oracle")
+
+
+def phase_map_processes(torch, pt, rdma, card):
+    """Phase 4f: for each world of PM4_WORLDS, the stacked store of its
+    node count on the card runs ``pm4_windows`` (results held against the
+    numpy oracle, each participant's block digested after the prefill and
+    after every later window), then the world is spawned from this process
+    with the kernels already built: every rank's results its rows of the
+    stacked ones, its digests the stacked participant's, its remote-DMA
+    kernels launched on its own block as often as the stacked store
+    launches them over all participants; the world of P also runs the
+    reference's shard_map programs, each rank's states and results the
+    stacked run's rows by digests.  Returns the metrics and each rank's
+    launches by path label."""
+    from repro_torch.examples.process_map import shardmap_programs
+    from repro_torch.launch.world import spawn_world
+    metrics, launches = {}, {}
+    for backend, nodes in PM4_WORLDS:
+        label = f"world {nodes} on {backend}" + (
+            f" ({PM4_GLOO})" if nodes > 1 else "")
+        wins = pm4_windows(nodes)
+        mgr = pt.make_manager(nodes, backend="pallas")
+        kv = pt.KVStore(None, "kv", mgr, **pm4_config(nodes))
+        st = kv.init_state()
+        want = {}
+
+        def on_window(i, s):
+            if i >= PM4_FILL_WINDOWS - 1:
+                want[i] = [pm4_digests(torch, s, p) for p in range(nodes)]
+
+        reset_launches(rdma)
+        st, ref, ref_t = pm4_run(
+            torch, kv, st, wins,
+            lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda(),
+            on_window)
+        stacked_launches = kernel_counts(rdma)
+        pm4_oracle_check(Oracle(KEYS, KEYS // nodes + 4, nodes), wins, ref,
+                         label)
+        del st, kv, mgr
+        prog_want = None
+        if nodes > 1:
+            prog = shardmap_programs(
+                lambda: pt.make_manager(nodes, backend="pallas"), nodes)
+            prog_want = {k: [pm4_digests(torch, v, p) for p in range(nodes)]
+                         for k, v in prog.items()}
+            del prog
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            ranks = spawn_world(pm4_rank, nodes, backend=backend,
+                                device=None, args=(nodes,),
+                                timeout_s=PM4_TIMEOUT_S)
+        except RuntimeError as e:
+            raise SmokeFailure(f"phase 4f {label}: {e}") from None
+        wall = time.perf_counter() - t0
+        for r in ranks:
+            p = r["rank"]
+            for i, (got, exp) in enumerate(zip(r["results"], ref)):
+                check(len(got) == len(exp) and all(
+                    torch.equal(g, e[p:p + 1]) for g, e in zip(got, exp)),
+                    f"4f {label} rank {p} window {i}: results differ from "
+                    f"the stacked store's rows")
+            check(sorted(r["digests"]) == sorted(want),
+                  f"4f {label} rank {p}: digests taken after windows "
+                  f"{sorted(r['digests'])}")
+            bad = [i for i in want if r["digests"][i] != want[i][p]]
+            check(not bad, f"4f {label} rank {p}: the state block differs "
+                  f"from the stacked store's row after windows {bad}")
+            check(all(n > 0 for n in r["launches"].values()),
+                  f"4f {label} rank {p}: a map kernel was not launched on "
+                  f"the rank's block: {r['launches']}")
+            check(r["launches"] == stacked_launches,
+                  f"4f {label} rank {p}: launches {r['launches']}, the "
+                  f"stacked store's (one a verb over every participant) "
+                  f"{stacked_launches}")
+            launches[f"4f {backend} world {nodes} rank {p}"] = r["launches"]
+            if prog_want is not None:
+                bad = [k for k in prog_want
+                       if r["programs"][k] != prog_want[k][p]]
+                check(not bad, f"4f {label} rank {p}: the shard_map "
+                      f"programs' {bad} differ from the stacked run's rows")
+                check(all(n > 0 for n in r["program_launches"].values()),
+                      f"4f {label} rank {p}: the programs left a map "
+                      f"kernel unlaunched: {r['program_launches']}")
+                launches[f"4f {backend} world {nodes} rank {p} programs"] = \
+                    r["program_launches"]
+        metrics[label] = dict(
+            backend=backend, nodes=nodes, card=card, wall_s=wall,
+            transports=ranks[0]["transports"],
+            devices=sorted({r["device"] for r in ranks}),
+            state_gib_per_rank=[r["state_gib"] for r in ranks],
+            stacked_window_p50_ms=pm4_kinds(wins, ref_t),
+            rank_window_p50_ms=[r["window_p50_ms"] for r in ranks],
+            launches=[r["launches"] for r in ranks],
+            stacked_launches=stacked_launches,
+            windows=dict(fill=PM4_FILL_WINDOWS, mix=PM4_MIX, get=PM4_ZIPF,
+                         move=1),
+            programs=prog_want is not None)
+        log(f"  {label}: {wall:.1f} s with start-up; transports "
+            f"{ranks[0]['transports']}; {len(wins)} windows of {B} lanes a "
+            f"participant, every rank's results and state block (digests "
+            f"after the prefill and after each later window) bitwise the "
+            f"stacked store's rows, oracle-checked"
+            + ("; the shard_map programs bitwise the stacked run's"
+               if prog_want is not None else "") + f"; {card}")
+        log(f"    stacked store, {nodes} participants on the card: window "
+            f"p50 ms {metrics[label]['stacked_window_p50_ms']}; launches "
+            f"{stacked_launches}, each rank's the same")
+        for r in ranks:
+            log(f"    rank {r['rank']} ({r['device']}, "
+                f"{r['state_gib']:.3f} GiB): window p50 ms "
+                f"{r['window_p50_ms']}"
+                + (f" [{PM4_GLOO}]" if nodes > 1 else "")
+                + f"; launches {r['launches']}")
+    return metrics, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the serving path at full width
 # ---------------------------------------------------------------------------
 
@@ -5079,14 +5405,14 @@ def moe_block_full_width(torch, kernels, arch):
     token's top-k against the others' random ones.  Every gradient
     finite, expert 0's gradient in each expert leaf exactly zero, exactly
     3 ``gmm``, 3 ``gmm_dx`` and 3 ``gmm_dw`` launches a block; ms (host
-    clock to a synchronize), peak memory and, from one profiled call, the
-    three kernels' shares of the block's device time.  At deepseek-v3's
+    clock to a synchronize), peak memory and, from one profiled call (a
+    whole session, :func:`whole_session`), the three kernels' shares of
+    the block's device time.  At deepseek-v3's
     widths (22.6 GB a set of expert gradients: room for a second) every
     gradient against the same block with ``gmm``'s plain versions on the
     card (:class:`PlainGmm`-style Function below), within ``GMM_TOL``'s
     bf16 limit of the leaf's largest |element|.  Returns the metrics and
     the launches."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.models import moe as M
@@ -5137,20 +5463,14 @@ def moe_block_full_width(torch, kernels, arch):
         times.append(1e3 * (time.perf_counter() - t0))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del grads
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        grads = block()
-        torch.cuda.synchronize()
+    # a session that lost the first records (the forward's) is run again
     by, total = {"gmm": 0.0, "gmm_dx": 0.0, "gmm_dw": 0.0}, 0.0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
+    for op, (_n, us) in whole_session(torch, block, 1).items():
         total += us
         for name, kernel in GMM_KERNELS.items():
-            if any(all(p in e.name for p in parts) for parts in kernel):
+            if any(all(p in op for p in parts) for parts in kernel):
                 by[name] += us
+    grads = block()
     check(total > 0 and all(by.values()),
           f"{arch} full-width MoE block: profiled device time {by} of "
           f"{total} µs")
@@ -5823,7 +6143,8 @@ def kernel_bytes(name, args, kw):
         + int((apply != 0).sum()) * row + P * 4
 
 
-def phase_report(torch, rdma, cases, errs, launches, other_paths):
+def phase_report(torch, rdma, cases, errs, launches, other_paths,
+                 rank_paths):
     """Rows of the three map kernels, each timed on its first phase-2 case
     (the arguments the verbs pass; ``build_descriptors`` the write verb's,
     with the read verb's in its ``read_verb`` entry): the wrapper's time,
@@ -5832,7 +6153,8 @@ def phase_report(torch, rdma, cases, errs, launches, other_paths):
     PyTorch call computes any of the three functions, so there is no
     library yardstick.  ``launches`` are the KVStore path's;
     ``other_paths`` ({path: launches}) are the scalar-verb phases', each
-    under ``launches_<path>``."""
+    under ``launches_<path>``; ``rank_paths`` ({path: launches}) are phase
+    4f's ranks', under ``launches_paths``."""
     rows = []
     replaces = {"build_descriptors": 94, "gather_rows": 149,
                 "scatter_rows": 209}
@@ -5864,6 +6186,8 @@ def phase_report(torch, rdma, cases, errs, launches, other_paths):
         row["args"] = label
         for path, counts in other_paths.items():
             row[f"launches_{path}"] = counts[name]
+        row["launches_paths"] = {path: counts[name]
+                                 for path, counts in rank_paths.items()}
         if name == "build_descriptors":
             row["read_verb"] = measure(name, *runs[1][1:])
             row["read_verb"]["args"] = runs[1][0]
@@ -7022,6 +7346,13 @@ def main() -> int:
                 check(n > 0, f"{name} was not launched in the {label} phase")
         gc.collect()
         torch.cuda.empty_cache()
+        log("phase 4f: the map across processes")
+        t4 = time.perf_counter()
+        map_metrics, map_launches = phase_map_processes(torch, pt, rdma,
+                                                        card)
+        log(f"  map across processes took {time.perf_counter() - t4:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
         log("phase 5: the serving paths")
         serve_metrics, serve_launches = {}, {}
         for path in SERVE_PATHS:
@@ -7061,7 +7392,7 @@ def main() -> int:
         log("phase 6: report")
         kernels = phase_report(torch, rdma, cases, errs, launches,
                                {"channels": chan_launches,
-                                "spec_store": spec_launches})
+                                "spec_store": spec_launches}, map_launches)
         kernels += attention_report(
             torch, model_kernels, attn_errs,
             serve_launches | {
@@ -7098,6 +7429,7 @@ def main() -> int:
         f"not whole, run again")
     log(json.dumps(dict(kvstore=metrics, failover=fo_metrics,
                         channels=chan_metrics, spec_store=spec_metrics,
+                        map_processes=map_metrics,
                         serving=serve_metrics, training=train_metrics,
                         profiler_marks_lost=MARKS_LOST[0],
                         profiler_sessions_run_again=SESSIONS_RUN_AGAIN[0],

@@ -26,8 +26,8 @@ from .u32 import MASK32
 
 
 class AtomicVarState(NamedTuple):
-    official: torch.Tensor  # (P,) authoritative value (meaningful at host)
-    cached: torch.Tensor    # (P,) local cached copy
+    official: torch.Tensor  # (n,) authoritative value (meaningful at host)
+    cached: torch.Tensor    # (n,) local cached copy
 
 
 class AtomicVar(Channel):
@@ -47,40 +47,45 @@ class AtomicVar(Channel):
         return (x & MASK32) if self.u32 else x.to(self.dtype)
 
     def init_state(self, value=0) -> AtomicVarState:
-        v = torch.full((self.P,), value, dtype=self.holder,
+        v = torch.full((self.n_local,), value, dtype=self.holder,
                        device=self.device)
         return AtomicVarState(official=self._wrap(v), cached=self._wrap(v))
 
     def _word(self, x):
-        """A scalar or (P,) value as (P,) words of the register's type."""
-        x = colls._per_participant(x, self.P, self.device)
+        """A scalar or (n,) value as (n,) words of the register's type."""
+        x = colls._per_participant(x, self.n_local, self.device)
         return self._wrap(x.to(self.holder))
 
     def fetch_add(self, state: AtomicVarState, amount, pred=True):
         """Atomic fetch-and-add: every participant may request in the same
         round, and the requests are taken in participant order — the
-        :meth:`fetch_add_window` of one lane.  Returns (state, my_old (P,),
+        :meth:`fetch_add_window` of one lane.  Returns (state, my_old (n,),
         ack); where ``pred`` is False ``my_old`` is the pre-round official
         value."""
-        pred = colls._per_participant(pred, self.P, self.device, torch.bool)
+        pred = colls._per_participant(pred, self.n_local, self.device,
+                                      torch.bool)
         new, old, ack = self.fetch_add_window(
             state, self._word(amount)[:, None], pred[:, None])
         return new, old[:, 0], ack
 
     def _first_wins(self, old, want, value):
         """The official value after a round in which the lowest wanting
-        participant stores its ``value``: (new_val (P,), winner (P,))."""
-        first = want.to(torch.uint8).argmax()     # lowest wanting id (0: none)
-        new_val = torch.where(want.any(), self._word(value)[first[None]], old)
+        participant stores its ``value``: (new_val (n,), winner (n,)).  The
+        contenders and their values are gathered."""
+        g_want, g_value = self.rt.gather(want), self.rt.gather(
+            self._word(value))
+        first = g_want.to(torch.uint8).argmax()   # lowest wanting id (0: none)
+        new_val = torch.where(g_want.any(), g_value[first[None]], old)
         return new_val, want & (self.my_id() == first)
 
     def compare_swap(self, state: AtomicVarState, expected, desired,
                      pred=True):
         """Atomic compare-and-swap; among same-round contenders whose
         ``expected`` matches, the lowest participant id wins.  Returns
-        (state, old (P,), success (P,), ack)."""
-        old = colls.bcast_from(state.official, self.host)
-        want = colls._per_participant(pred, self.P, self.device, torch.bool) \
+        (state, old (n,), success (n,), ack)."""
+        old = colls.bcast_from(state.official, self.host, self.rt)
+        want = colls._per_participant(pred, self.n_local, self.device,
+                                      torch.bool) \
             & (self._word(expected) == old)
         new_val, success = self._first_wins(old, want, desired)
         new = AtomicVarState(official=new_val, cached=new_val.clone())
@@ -91,9 +96,10 @@ class AtomicVar(Channel):
     def store(self, state: AtomicVarState, value, pred=True):
         """Relaxed store; same-round stores resolve lowest id wins.
         Returns (state, ack)."""
-        want = colls._per_participant(pred, self.P, self.device, torch.bool)
+        want = colls._per_participant(pred, self.n_local, self.device,
+                                      torch.bool)
         new_val, _won = self._first_wins(
-            colls.bcast_from(state.official, self.host), want, value)
+            colls.bcast_from(state.official, self.host, self.rt), want, value)
         new = AtomicVarState(official=new_val, cached=new_val.clone())
         ack = make_ack(new_val, "write", self.full_name, (self.host,),
                        self.dtype.itemsize)
@@ -106,25 +112,25 @@ class AtomicVar(Channel):
     def pull(self, state: AtomicVarState):
         """Refresh the cached copies from the official copy (one-sided
         read).  Returns (state, ack)."""
-        val = colls.bcast_from(state.official, self.host).clone()
+        val = colls.bcast_from(state.official, self.host, self.rt).clone()
         ack = make_ack(val, "read", self.full_name, (self.host,),
                        self.dtype.itemsize)
         return state._replace(cached=val), self.mgr.track(ack)
 
     def fetch_add_window(self, state: AtomicVarState, amount, preds):
-        """Windowed fetch-and-add: (P, B) requests resolved in ONE ranked
+        """Windowed fetch-and-add: (n, B) requests resolved in ONE ranked
         prefix scan over all P·B lanes in (participant, lane) order.
 
-        amount: scalar or (P, B) added per enabled lane; preds (P, B) bool.
-        Returns (new_state, my_old (P, B), ack); disabled lanes report the
+        amount: scalar or (n, B) added per enabled lane; preds (n, B) bool.
+        Returns (new_state, my_old (n, B), ack); disabled lanes report the
         pre-round official value."""
         preds = torch.as_tensor(preds, device=self.device)
         amt = torch.where(preds, torch.as_tensor(amount, dtype=self.holder,
                                                  device=self.device),
                           torch.zeros((), dtype=self.holder,
                                       device=self.device))
-        old = colls.bcast_from(state.official, self.host)
-        excl, total = colls.window_prefix(amt)
+        old = colls.bcast_from(state.official, self.host, self.rt)
+        excl, total = colls.window_prefix(amt, self.rt)
         my_old = self._wrap(old[:, None] + excl)
         new_val = self._wrap(old + total)
         new = AtomicVarState(official=new_val, cached=new_val.clone())

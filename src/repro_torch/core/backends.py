@@ -21,6 +21,14 @@ one request per participant) as batches of one of its batched verbs, so on
 The ring publish has its ledger model (:meth:`CollsBackend.record_publish`)
 and its wire hop (:meth:`CollsBackend.publish_hop`), which the ``pallas``
 backend runs on the remote-copy kernel.
+
+Every verb takes the runtime ``rt`` its channel is bound to (stacked over
+the buffer's leading dimension when None).  On a process runtime each rank
+runs the same verbs on its own block: on ``pallas`` it launches the
+descriptor kernel on its own lanes and the row kernels on its own buffer
+against the gathered lanes of every participant.  The ring's hop between
+ranks is not ported yet: :meth:`CollsBackend.publish_hop` refuses a process
+runtime (ROADMAP item 12(e)).
 """
 from __future__ import annotations
 
@@ -47,16 +55,16 @@ class CollsBackend:
     alloc_rounds = 2.0
 
     def read(self, local_buf, target, index, pred=True, ledger=None,
-             verb="remote_read"):
+             verb="remote_read", rt=None):
         """The scalar read: this backend's batched read with one uncoalesced
         lane per participant (on ``pallas`` it launches the descriptor and
-        row-gather kernels on the card).  Returns (P, *item)."""
+        row-gather kernels on the card).  Returns (n, *item)."""
         return self.read_batch(
             local_buf, *colls.scalar_lanes(local_buf, target, index, pred),
-            ledger=ledger, verb=verb, coalesce=False)[:, 0]
+            ledger=ledger, verb=verb, coalesce=False, rt=rt)[:, 0]
 
     def write(self, local_buf, target, index, value, pred=True, ledger=None,
-              verb="remote_write"):
+              verb="remote_write", rt=None):
         """The scalar write: this backend's batched write with one lane per
         participant (on ``pallas`` it launches the descriptor and row-commit
         kernels on the card).  Returns the new buffer."""
@@ -64,15 +72,16 @@ class CollsBackend:
                                                      index, pred)
         return self.write_batch(local_buf, targets, indices,
                                 colls.scalar_value(local_buf, value),
-                                preds=preds, ledger=ledger, verb=verb)
+                                preds=preds, ledger=ledger, verb=verb, rt=rt)
 
     def read_batch(self, local_buf, targets, indices, preds=None,
-                   ledger=None, verb="remote_read_batch", coalesce=True):
+                   ledger=None, verb="remote_read_batch", coalesce=True,
+                   rt=None):
         raise NotImplementedError
 
     def write_batch(self, local_buf, targets, indices, values, preds=None,
                     assume_unique=False, ledger=None,
-                    verb="remote_write_batch"):
+                    verb="remote_write_batch", rt=None):
         raise NotImplementedError
 
     def row_read_bytes(self, row_nbytes: int) -> float:
@@ -83,11 +92,13 @@ class CollsBackend:
         """Ledger model of a ringbuffer publish of ``n_moved`` (P,) slots."""
         raise NotImplementedError
 
-    def publish_hop(self, values, owner):
+    def publish_hop(self, values, owner, rt=None):
         """The ring publish's wire hop: every participant receives the
         owner's copy of each (P, ...) tensor in ``values``; ``owner`` is the
         ring state's (P,) owner.  A view of the owner's row, as
-        :func:`colls.bcast_from` realizes it."""
+        :func:`colls.bcast_from` realizes it.  Stacked only (see
+        :func:`refuse_process`)."""
+        refuse_process(rt, "the ring publish's hop")
         return [colls.bcast_from(v, owner) for v in values]
 
 
@@ -99,18 +110,19 @@ class OneSidedBackend(CollsBackend):
     alloc_rounds = 2.0
 
     def read_batch(self, local_buf, targets, indices, preds=None,
-                   ledger=None, verb="remote_read_batch", coalesce=True):
+                   ledger=None, verb="remote_read_batch", coalesce=True,
+                   rt=None):
         return colls.remote_read_batch(local_buf, targets, indices,
                                        preds=preds, ledger=ledger, verb=verb,
-                                       coalesce=coalesce)
+                                       coalesce=coalesce, rt=rt)
 
     def write_batch(self, local_buf, targets, indices, values, preds=None,
                     assume_unique=False, ledger=None,
-                    verb="remote_write_batch"):
+                    verb="remote_write_batch", rt=None):
         return colls.remote_write_batch(local_buf, targets, indices, values,
                                         preds=preds,
                                         assume_unique=assume_unique,
-                                        ledger=ledger, verb=verb)
+                                        ledger=ledger, verb=verb, rt=rt)
 
     def row_read_bytes(self, row_nbytes: int) -> float:
         return 2.0 * row_nbytes
@@ -131,9 +143,9 @@ class ActiveMessageBackend(CollsBackend):
     name = "active_message"
     alloc_rounds = 0.0
 
-    def _record(self, ledger, verb, local_buf, targets, preds, rounds):
-        """Record (hdr + |row|) per enabled remote lane of (P, R) lanes."""
-        me = colls.my_id(local_buf.shape[0], targets.device)[:, None]
+    def _record(self, ledger, verb, local_buf, targets, preds, rounds, rt):
+        """Record (hdr + |row|) per enabled remote lane of (n, R) lanes."""
+        me = colls._rt(rt, local_buf).my_id()[:, None]
         if preds is None:
             preds = torch.ones(targets.shape, dtype=torch.bool,
                                device=targets.device)
@@ -144,21 +156,22 @@ class ActiveMessageBackend(CollsBackend):
         colls.record_rounds(ledger, verb, rounds)
 
     def read_batch(self, local_buf, targets, indices, preds=None,
-                   ledger=None, verb="remote_read_batch", coalesce=True):
+                   ledger=None, verb="remote_read_batch", coalesce=True,
+                   rt=None):
         out = colls.remote_read_batch(local_buf, targets, indices,
                                       preds=preds, ledger=None, verb=verb,
-                                      coalesce=coalesce)
-        self._record(ledger, verb, local_buf, targets, preds, 2.0)
+                                      coalesce=coalesce, rt=rt)
+        self._record(ledger, verb, local_buf, targets, preds, 2.0, rt)
         return out
 
     def write_batch(self, local_buf, targets, indices, values, preds=None,
                     assume_unique=False, ledger=None,
-                    verb="remote_write_batch"):
+                    verb="remote_write_batch", rt=None):
         buf = colls.remote_write_batch(local_buf, targets, indices, values,
                                        preds=preds,
                                        assume_unique=assume_unique,
-                                       ledger=None, verb=verb)
-        self._record(ledger, verb, local_buf, targets, preds, 1.0)
+                                       ledger=None, verb=verb, rt=rt)
+        self._record(ledger, verb, local_buf, targets, preds, 1.0, rt)
         return buf
 
     def row_read_bytes(self, row_nbytes: int) -> float:
@@ -189,7 +202,8 @@ class _DmaEngine:
 class PallasDmaBackend(CollsBackend):
     """One-sided verbs lowered onto the remote-DMA kernels (§15): descriptor
     build on the requester, row gather/scatter on the home, the hop between
-    them a gather in device memory.  Values are bitwise those of the
+    them a gather in device memory (stacked) or an all-gather of the
+    descriptors between ranks (process).  Values are bitwise those of the
     one-sided backend.  Cost model: (desc + |row|) per unique coalesced
     remote read and per remote write lane, over the one-sided rounds."""
 
@@ -201,21 +215,22 @@ class PallasDmaBackend(CollsBackend):
         return float(DMA_DESC_BYTES + row_nbytes) * n_lanes
 
     def read_batch(self, local_buf, targets, indices, preds=None,
-                   ledger=None, verb="remote_read_batch", coalesce=True):
+                   ledger=None, verb="remote_read_batch", coalesce=True,
+                   rt=None):
         return colls.remote_read_batch(
             local_buf, targets, indices, preds=preds, ledger=ledger,
             verb=verb, coalesce=coalesce, engine=_DmaEngine(ledger, verb),
-            cost_fn=self._cost_fn)
+            cost_fn=self._cost_fn, rt=rt)
 
     def write_batch(self, local_buf, targets, indices, values, preds=None,
                     assume_unique=False, ledger=None,
-                    verb="remote_write_batch"):
+                    verb="remote_write_batch", rt=None):
         # assume_unique is moot here: the scatter kernel commits in lane
         # order, which realizes last-writer-wins itself
         return colls.remote_write_batch(
             local_buf, targets, indices, values, preds=preds,
             assume_unique=assume_unique, ledger=ledger, verb=verb,
-            engine=_DmaEngine(ledger, verb), cost_fn=self._cost_fn)
+            engine=_DmaEngine(ledger, verb), cost_fn=self._cost_fn, rt=rt)
 
     def row_read_bytes(self, row_nbytes: int) -> float:
         return float(DMA_DESC_BYTES + row_nbytes)
@@ -227,14 +242,15 @@ class PallasDmaBackend(CollsBackend):
                       * torch.as_tensor(n_moved).to(torch.float64))
         colls.record_rounds(ledger, verb, 1.0)
 
-    def publish_hop(self, values, owner):
+    def publish_hop(self, values, owner, rt=None):
         """The hop on the remote-copy kernel: the values are packed bit for
         bit into one (P, n) int32 word buffer (n padded to a multiple of
         four) and copied from the owner's row into every other row in one
         launch; the owner keeps its own.  Values are bitwise those of the
         one-sided hop.  The kernel's measured bytes are not filed: the
         reference's emulated broadcast files no measured row for a publish
-        either."""
+        either.  Stacked only (see :func:`refuse_process`)."""
+        refuse_process(rt, "the ring publish's hop")
         words = [to_words(v) for v in values]
         n = sum(w.shape[1] for w in words)
         # rows of whole 16-byte units take the kernel's vector path
@@ -251,6 +267,18 @@ class PallasDmaBackend(CollsBackend):
             res.append(from_words(out[:, off:off + k], v))
             off += k
         return res
+
+
+def refuse_process(rt, what: str):
+    """Raise ``NotImplementedError`` when ``rt`` is a process runtime: the
+    ring, the replicated log and the failure detector (and the ring's hop
+    between ranks) run on the stacked binding only until ROADMAP item
+    12(e) ports the hop between ranks.  No stacked copy is run in their
+    place."""
+    if rt is not None and not rt.stacked:
+        raise NotImplementedError(
+            f"{what} has no process binding yet (ROADMAP item 12(e): the "
+            f"ring hop between ranks); build it on a stacked manager")
 
 
 #: Singleton registry — backends are stateless, one instance each.

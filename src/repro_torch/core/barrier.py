@@ -20,7 +20,7 @@ from .u32 import MASK32
 
 
 class BarrierState(NamedTuple):
-    count: torch.Tensor  # (P,) uint32 (int64 holder) private counters
+    count: torch.Tensor  # (n,) uint32 (int64 holder) private counters
     sst: SSTState
 
 
@@ -32,7 +32,7 @@ class Barrier(Channel):
 
     def init_state(self) -> BarrierState:
         return BarrierState(
-            count=torch.zeros((self.P,), dtype=torch.int64,
+            count=torch.zeros((self.n_local,), dtype=torch.int64,
                               device=self.device),
             sst=self.sst.init_state())
 
@@ -45,9 +45,9 @@ class Barrier(Channel):
         sst_state, _ack = self.sst.push_broadcast(sst_state)
         # wait locally: re-pull while any participant sees a row behind its
         # own count (after a fresh push, none does).  The reference's
-        # while_loop on a psum'd flag; here the exit test is one host read
-        # an iteration.
-        while bool((self.sst.rows(sst_state) < count[:, None]).any()):
+        # while_loop on a psum'd flag; here the exit test is one
+        # world-uniform host read an iteration.
+        while self.rt.any(self.sst.rows(sst_state) < count[:, None]):
             with self.mgr.no_tracking():
                 sst_state, _ack = self.sst.pull_all(sst_state)
         return BarrierState(count=count, sst=sst_state)

@@ -5,8 +5,8 @@ A small **direct-mapped cache of hot remote rows**, keyed by ``(node,
 slot)`` and validated by the per-slot reuse counter the kvstore's rows
 already carry.  The cache is private per-participant memory (declared in the
 memory ledger, never addressed by peers); consistency is the composing
-kvstore's job.  All verbs take the port's stacked lanes: a leading
-participant dimension P on every state and argument.
+kvstore's job.  All verbs take lanes led by the participants held here
+(P stacked, 1 a rank), as every state and argument is.
 
 State layout (per participant): ``tags`` (N, 2) int32 ``[node | slot]``
 (``node == -1`` marks an invalid line) and ``rows`` (N, RW) int32, the cached
@@ -35,8 +35,8 @@ def hash_u32(x: torch.Tensor) -> torch.Tensor:
 
 
 class ReadCacheState(NamedTuple):
-    tags: torch.Tensor  # (P, N, 2) int32: [node | slot]; node == -1 → invalid
-    rows: torch.Tensor  # (P, N, RW) int32 cached encoded rows
+    tags: torch.Tensor  # (n, N, 2) int32: [node | slot]; node == -1 → invalid
+    rows: torch.Tensor  # (n, N, RW) int32 cached encoded rows
 
 
 class ReadCache(Channel):
@@ -61,14 +61,16 @@ class ReadCache(Channel):
     def init_state(self, device=None) -> ReadCacheState:
         dev = self.device if device is None else device
         return ReadCacheState(
-            tags=torch.full((self.P, self.N, 2), -1, dtype=torch.int32,
+            tags=torch.full((self.n_local, self.N, 2), -1, dtype=torch.int32,
                             device=dev),
-            rows=torch.zeros((self.P, self.N, self.RW), dtype=torch.int32,
+            rows=torch.zeros((self.n_local, self.N, self.RW),
+                             dtype=torch.int32,
                              device=dev))
 
     @staticmethod
     def empty_state(P: int, row_width: int, device) -> ReadCacheState:
-        """Zero-line state for cache-less composers (same structure)."""
+        """Zero-line state for cache-less composers (same structure), for
+        ``P`` participants held here."""
         return ReadCacheState(
             tags=torch.zeros((P, 0, 2), dtype=torch.int32, device=device),
             rows=torch.zeros((P, 0, row_width), dtype=torch.int32,
@@ -76,30 +78,30 @@ class ReadCache(Channel):
 
     # -- line addressing -------------------------------------------------------
     def lines_for(self, nodes, slots):
-        """(P, R) (node, slot) lanes → (P, R) int64 line indices, computed
+        """(n, R) (node, slot) lanes → (n, R) int64 line indices, computed
         in uint32 as the reference does."""
         lid = (mul32(nodes.to(torch.int64) & MASK32, self.backing_slots)
                + (slots.to(torch.int64) & MASK32)) & MASK32
         return lid % self.N
 
     def _lanes(self, x):
-        """A lane tensor shared by every participant, (R,), as (P, R)."""
-        return x.expand(self.P, -1) if x.dim() == 1 else x
+        """A lane tensor shared by every participant, (R,), as (n, R)."""
+        return x.expand(self.n_local, -1) if x.dim() == 1 else x
 
     # -- verbs (all local, all batched) ---------------------------------------
     def lookup(self, st: ReadCacheState, nodes, slots):
-        """(P, R) lookups → (rows (P, R, RW), tag_hit (P, R)).  A tag hit
+        """(n, R) lookups → (rows (n, R, RW), tag_hit (n, R)).  A tag hit
         only says the line holds *some* copy of (node, slot); the caller
         validates the cached row's counter (§8.2) before serving it."""
         line = self.lines_for(nodes, slots)
-        homes = torch.arange(self.P, device=line.device)[:, None]
+        homes = torch.arange(line.shape[0], device=line.device)[:, None]
         tag = st.tags[homes, line]                               # (P, R, 2)
         hit = (tag[..., 0] == nodes.to(torch.int32)) \
             & (tag[..., 1] == slots.to(torch.int32))
         return st.rows[homes, line], hit
 
     def fill(self, st: ReadCacheState, nodes, slots, rows, preds):
-        """Refill the lines of the enabled (P, R) lanes; lanes that share a
+        """Refill the lines of the enabled (n, R) lanes; lanes that share a
         line resolve last-lane-wins, as the reference's ordered scatter
         does.  Returns the new state (the input state is not modified)."""
         P, R = nodes.shape
@@ -117,7 +119,7 @@ class ReadCache(Channel):
 
     def invalidate(self, st: ReadCacheState, nodes, slots, preds):
         """Drop the lines addressed by the enabled (node, slot) lanes —
-        (P, R), or (R,) lanes every participant applies (the gathered
+        (n, R), or (R,) lanes every participant applies (the gathered
         mutation records).  Conservative: a line that merely shares the
         index is dropped too, which is a miss, never a wrong value."""
         nodes, slots, preds = (self._lanes(t) for t in (nodes, slots, preds))

@@ -19,8 +19,9 @@ class Channel:
     """Base class for channel objects.
 
     Concrete channels hold static configuration only; all dynamic state lives
-    in an explicit NamedTuple of stacked tensors returned by ``init_state()``
-    and threaded through the channel's methods."""
+    in an explicit NamedTuple of tensors led by the participants held here
+    (``n_local``), returned by ``init_state()`` and threaded through the
+    channel's methods."""
 
     def __init__(self, parent: Optional["Channel"], name: str, mgr: Manager,
                  expect_num: Optional[int] = None):
@@ -57,15 +58,31 @@ class Channel:
 
     @property
     def P(self) -> int:
+        """The cluster's participant count."""
         return self.mgr.P
+
+    @property
+    def n_local(self) -> int:
+        """The participants held here: the leading dimension of every state
+        and lane tensor (P stacked, 1 a rank)."""
+        return self.mgr.n_local
+
+    @property
+    def rt(self):
+        """The runtime: the binding the collectives go through."""
+        return self.mgr.runtime
 
     @property
     def device(self):
         return self.mgr.device
 
     def my_id(self):
-        """(P,) participant ids."""
+        """(n_local,) global participant ids."""
         return self.mgr.runtime.my_id()
+
+    def local_ids(self):
+        """(n_local,) positions on the leading dimension."""
+        return self.mgr.runtime.local_ids()
 
     def __repr__(self):
         return f"<{type(self).__name__} {self.full_name!r} P={self.P}>"

@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from .backends import refuse_process
 from .channel import Channel
 from .runtime import Manager
 from .u32 import MASK32
@@ -40,6 +41,7 @@ class FailureDetector(Channel):
 
     def __init__(self, parent, name: str, mgr: Manager, *,
                  threshold: int = 2):
+        refuse_process(mgr.runtime, "FailureDetector")
         super().__init__(parent, name, mgr)
         if threshold < 1:
             raise ValueError("detector threshold must be >= 1")

@@ -6,9 +6,10 @@ per-participant vector of exponentially decayed read counters, one per
 global (node, slot) row of a backing store, fed from the lane metadata the
 store's read path already resolves.  Each participant counts only its own
 reads, so ``heat[p, lid]`` is "how hot row ``lid`` is to participant p";
-in the stacked binding the (readers, rows) heat matrix the reference
-all-gathers is the state itself, and a row's dominant reader is an argmax
-over its first dimension (:meth:`KVStore.rebalance_proposals`).
+the (readers, rows) heat matrix the reference all-gathers is
+:meth:`HotTracker.all_heat` (in the stacked binding the state itself), and
+a row's dominant reader is an argmax over its first dimension
+(:meth:`KVStore.rebalance_proposals`).
 
 Decay is applied once per observed window on every participant.  The
 reference adds +1.0 lane by lane into the decayed float32 counter; the port
@@ -28,8 +29,8 @@ from .runtime import Manager
 
 
 class HotTrackerState(NamedTuple):
-    heat: torch.Tensor     # (P, rows) float32 — decayed read count per row
-    backlog: torch.Tensor  # (P,) int32 — proposals deferred by rebalance()
+    heat: torch.Tensor     # (n, rows) float32 — decayed read count per row
+    backlog: torch.Tensor  # (n,) int32 — proposals deferred by rebalance()
 
 
 def _line_totals(flat, counts):
@@ -66,14 +67,16 @@ class HotTracker(Channel):
     def init_state(self, device=None) -> HotTrackerState:
         dev = self.device if device is None else device
         return HotTrackerState(
-            heat=torch.zeros((self.P, self.rows), dtype=torch.float32,
+            heat=torch.zeros((self.n_local, self.rows), dtype=torch.float32,
                              device=dev),
-            backlog=torch.zeros((self.P,), dtype=torch.int32, device=dev))
+            backlog=torch.zeros((self.n_local,), dtype=torch.int32,
+                                device=dev))
 
     @staticmethod
     def empty_state(P: int, device) -> HotTrackerState:
-        """Zero-row state of a heat-less store: its state keeps the
-        reference's structure whatever the knob."""
+        """Zero-row state of a heat-less store, for ``P`` participants held
+        here: its state keeps the reference's structure whatever the
+        knob."""
         return HotTrackerState(
             heat=torch.zeros((P, 0), dtype=torch.float32, device=device),
             backlog=torch.zeros((P,), dtype=torch.int32, device=device))
@@ -85,16 +88,17 @@ class HotTracker(Channel):
         return lid.clamp(0, self.rows - 1)
 
     def _flat(self, nodes, slots, preds):
-        """(P, R) lanes → flat (P·R,) positions in the (P, rows) table and
-        (P·R,) int64 flags."""
+        """(n, R) lanes → flat (n·R,) positions in the (n, rows) table and
+        (n·R,) int64 flags."""
         lid = self.line_of(nodes, slots)
-        base = torch.arange(self.P, device=lid.device)[:, None] * self.rows
+        base = torch.arange(lid.shape[0], device=lid.device)[:, None] \
+            * self.rows
         return (base + lid).reshape(-1), \
             preds.expand(lid.shape).reshape(-1).to(torch.int64)
 
     def observe(self, st: HotTrackerState, nodes, slots,
                 preds) -> HotTrackerState:
-        """Account one (P, R) read window: decay every counter once, then
+        """Account one (n, R) read window: decay every counter once, then
         add each participant's live lanes, +1 a lane."""
         heat = st.heat * self.decay
         if heat.numel() == 0:
@@ -118,8 +122,7 @@ class HotTracker(Channel):
         return st._replace(heat=heat)
 
     def all_heat(self, st: HotTrackerState):
-        """The (readers, rows) heat matrix: in the stacked binding, the
-        reference's all-gather of the per-participant vectors is the state
-        itself.  Kept so the port's surface matches the reference's name for
-        name; the port's own callers read ``st.heat`` directly."""
-        return st.heat
+        """The (readers, rows) heat matrix: the all-gather of the
+        per-participant vectors (in the stacked binding, the state
+        itself)."""
+        return self.rt.gather(st.heat)

@@ -34,13 +34,16 @@ sequential tracker sweep whose windows serve one ticket per lock a round
 (the holds test, released every round), ``_op_round_reference`` is the
 scalar round built on the scalar verbs, and ``_migrate_reference`` runs a
 migration window one lane at a time.
-The port's stacked form puts the participant dimension first on every
-tensor.  Where every participant computes the same quantity from gathered
-data — the schedule masks, the tracker records' order, the rebalance
-proposals — it is computed once for all of them.  The reference's
-data-dependent ``lax.while_loop``s (service rounds, tracker waves, GET
-retries, the all-hit skip of the cached read, the lock-free gates) become
-Python loops or branches keyed on host reads.
+Every tensor leads with the participants held here: all P on the stacked
+binding, one on a rank of the process binding (:mod:`.runtime`).  Where
+every participant computes the same quantity from gathered data — the
+schedule masks, the tracker records' order, the rebalance proposals — it is
+computed once from the gathered window (the stacked tensors themselves, or
+an all-gather between ranks) and each participant keeps its own rows.  The
+reference's data-dependent ``lax.while_loop``s (service rounds, tracker
+waves, GET retries, the all-hit skip of the cached read, the lock-free
+gates) become Python loops or branches keyed on world-uniform host reads
+(``Runtime.any``), so every rank takes the same number of iterations.
 """
 from __future__ import annotations
 
@@ -77,19 +80,20 @@ DEFAULT_MAX_PROBE = 32
 
 
 class KVResult(NamedTuple):
-    value: torch.Tensor    # (P, B, W) int32 payload (zeros when not found)
-    found: torch.Tensor    # (P, B) bool — GET: key present; mods: succeeded
-    retries: torch.Tensor  # (P, B) int32 — GET checksum retries (0 clean)
+    value: torch.Tensor    # (n, B, W) int32 payload (zeros when not found)
+    found: torch.Tensor    # (n, B) bool — GET: key present; mods: succeeded
+    retries: torch.Tensor  # (n, B) int32 — GET checksum retries (0 clean)
 
 
 class KVStoreState(NamedTuple):
+    # n = the participants held here: P stacked, 1 a rank
     locks: TicketLockArrayState
-    rows: SharedRegionState    # (P, S, W+3) int32: payload|ctr|valid|csum
-    slot_ctr: torch.Tensor     # (P, S) uint32 — per-slot reuse counters
-    free_stack: torch.Tensor   # (P, S) int32 — host-local free slots
-    free_top: torch.Tensor     # (P,) int32
-    idx: torch.Tensor          # (P, C, 5) int32 local hash index
-    idx_overflow: torch.Tensor  # (P,) bool — a probe window ran out of space
+    rows: SharedRegionState    # (n, S, W+3) int32: payload|ctr|valid|csum
+    slot_ctr: torch.Tensor     # (n, S) uint32 — per-slot reuse counters
+    free_stack: torch.Tensor   # (n, S) int32 — host-local free slots
+    free_top: torch.Tensor     # (n,) int32
+    idx: torch.Tensor          # (n, C, 5) int32 local hash index
+    idx_overflow: torch.Tensor  # (n,) bool — a probe window ran out of space
     acks: SSTState             # tracker ack counters
     cache: ReadCacheState      # read tier (zero-line when cache_slots == 0)
     heat: HotTrackerState      # read-heat tier (zero-row when untracked)
@@ -197,34 +201,35 @@ class KVStore(Channel):
 
     # -- state ----------------------------------------------------------------
     def init_state(self, device=None) -> KVStoreState:
-        """A fresh stacked state on the store's device, or on ``device``
-        (the meta device gives its shapes without allocating)."""
-        P = self.P
+        """A fresh state of the participants held here on the store's
+        device, or on ``device`` (the meta device gives its shapes without
+        allocating)."""
+        n = self.n_local
         dev = self.device if device is None else device
         return KVStoreState(
             locks=self.locks.init_state(device),
             rows=self.rows_region.init_state(device),
-            slot_ctr=torch.zeros((P, self.S), dtype=torch.int64, device=dev),
+            slot_ctr=torch.zeros((n, self.S), dtype=torch.int64, device=dev),
             free_stack=torch.arange(self.S, dtype=torch.int32, device=dev)
-            .expand(P, self.S).clone(),
-            free_top=torch.full((P,), self.S, dtype=torch.int32, device=dev),
-            idx=torch.zeros((P, self.C, 5), dtype=torch.int32, device=dev),
-            idx_overflow=torch.zeros((P,), dtype=torch.bool, device=dev),
+            .expand(n, self.S).clone(),
+            free_top=torch.full((n,), self.S, dtype=torch.int32, device=dev),
+            idx=torch.zeros((n, self.C, 5), dtype=torch.int32, device=dev),
+            idx_overflow=torch.zeros((n,), dtype=torch.bool, device=dev),
             acks=self.acks.init_state(device=device),
             cache=(self.cache.init_state(device) if self.cache is not None
-                   else ReadCache.empty_state(P, self.W + 3, dev)),
+                   else ReadCache.empty_state(n, self.W + 3, dev)),
             heat=(self.hot.init_state(device) if self.hot is not None
-                  else HotTracker.empty_state(P, dev)))
+                  else HotTracker.empty_state(n, dev)))
 
     def _lanes_in(self, ops, keys, values=None):
-        """Caller's (P, B) window → device tensors of the store's types."""
+        """Caller's (n, B) window → device tensors of the store's types."""
         ops = _tensor(ops, torch.int32, self.device)
         B = ops.shape[1]
-        keys = as_u32(keys, self.device).reshape(self.P, B)
+        keys = as_u32(keys, self.device).reshape(self.n_local, B)
         if values is None:
             return ops, keys
         values = _tensor(values, torch.int32, self.device)
-        return ops, keys, values.reshape(self.P, B, self.W)
+        return ops, keys, values.reshape(self.n_local, B, self.W)
 
     # -- local index (open-addressing hash table, DESIGN.md §7) ------------------
     def _probe_window(self, key):
@@ -235,16 +240,16 @@ class KVStore(Channel):
             % self.C
 
     def _probe(self, idx, keys):
-        """One bounded linear-probe pass for (P, B) ``keys`` over each
+        """One bounded linear-probe pass for (n, B) ``keys`` over each
         participant's (C, 5) index → (has_match, match_pos, has_free,
-        free_pos), each (P, B).
+        free_pos), each (n, B).
 
         A *match* is a USED position holding the key with no EMPTY position
         before it in the window (tombstones do not end a chain); a *free*
         position is EMPTY or tombstone, and an insert takes the first one."""
-        pos_w = self._probe_window(keys)                         # (P, B, PROBE)
-        homes = torch.arange(self.P, device=idx.device)[:, None, None]
-        w = idx[homes, pos_w]                                    # (P, B, PROBE, 5)
+        pos_w = self._probe_window(keys)                         # (n, B, PROBE)
+        homes = torch.arange(idx.shape[0], device=idx.device)[:, None, None]
+        w = idx[homes, pos_w]                                    # (n, B, PROBE, 5)
         states = w[..., IDX_STATE]
         emp = (states == _EMPTY).to(torch.int64)
         before_empty = (emp.cumsum(-1) - emp) == 0
@@ -255,7 +260,7 @@ class KVStore(Channel):
                 free.any(-1), _take(pos_w, _first_true(free)))
 
     def _index_lookup(self, st: KVStoreState, keys):
-        """(P, B) keys → (found, pos, node, slot, ctr); the O(PROBE) hash
+        """(n, B) keys → (found, pos, node, slot, ctr); the O(PROBE) hash
         probe, or the O(C) flat scan on a reference-impl store.  A missing
         key reports position 0 in both, as argmax over all-False does."""
         if self.reference_impl:
@@ -264,8 +269,8 @@ class KVStore(Channel):
 
     def _index_row(self, st: KVStoreState, found, pos):
         pos = torch.where(found, pos, torch.zeros_like(pos))
-        homes = torch.arange(self.P, device=pos.device)[:, None]
-        row = st.idx[homes, pos]                                 # (P, B, 5)
+        homes = torch.arange(pos.shape[0], device=pos.device)[:, None]
+        row = st.idx[homes, pos]                                 # (n, B, 5)
         return (found, pos, row[..., IDX_NODE], row[..., IDX_SLOT],
                 i2u(row[..., IDX_CTR]))
 
@@ -278,19 +283,19 @@ class KVStore(Channel):
         specification the hash probe is pinned against: the first USED
         position holding the key."""
         match = (st.idx[:, None, :, IDX_STATE] == _USED) \
-            & (st.idx[:, None, :, IDX_KEY] == u2i(keys)[..., None])  # (P,B,C)
+            & (st.idx[:, None, :, IDX_KEY] == u2i(keys)[..., None])  # (n,B,C)
         return self._index_row(st, match.any(-1), _first_true(match))
 
     # -- lock-free GET (paper Fig. 3 read path) -------------------------------------
     def _get(self, st: KVStoreState, key, pred):
         """The scalar read path — part of the ``_op_round_reference`` spec:
-        key, pred (P,) → (value (P, W), found (P,), tries).  Each live lane
+        key, pred (n,) → (value (n, W), found (n,), tries).  Each live lane
         reads its row with the scalar one-sided verb, re-read while any lane
         anywhere read a torn row (at most :data:`MAX_GET_RETRIES` times).  A
         cache-enabled store routes it through the read tier as a window of
         one (its refills are dropped: this path returns no state)."""
-        key = as_u32(key, self.device).reshape(self.P, 1)
-        pred = torch.as_tensor(pred, device=self.device).expand(self.P)
+        key = as_u32(key, self.device).reshape(self.n_local, 1)
+        pred = torch.as_tensor(pred, device=self.device).expand(self.n_local)
         if self.cache is not None:
             values, found, tries, _st = self._get_window(st, key,
                                                          pred[:, None])
@@ -302,12 +307,12 @@ class KVStore(Channel):
         def read_once():
             row = self.backend.read(st.rows.buf, node, slot, pred=live,
                                     ledger=self.mgr.traffic,
-                                    verb=f"{self.full_name}.get")
+                                    verb=f"{self.full_name}.get", rt=self.rt)
             return self.decode_row(row)
 
         payload, row_ctr, valid, csum_ok = read_once()
         tries = 0
-        while tries < MAX_GET_RETRIES and bool((live & ~csum_ok).any()):
+        while tries < MAX_GET_RETRIES and self.rt.any(live & ~csum_ok):
             payload, row_ctr, valid, csum_ok = read_once()
             tries += 1
         # the Appendix C case analysis
@@ -317,8 +322,8 @@ class KVStore(Channel):
         return value, found, tries
 
     def _get_window(self, st: KVStoreState, keys, pred, look=None):
-        """(P, B) lock-free GETs through the read tier → (values (P, B, W),
-        found (P, B), tries, state).  The returned state carries this
+        """(n, B) lock-free GETs through the read tier → (values (n, B, W),
+        found (n, B), tries, state).  The returned state carries this
         window's heat observations on a heat-tracked store and its refills
         on a cached one, and nothing else."""
         if look is None:
@@ -350,12 +355,12 @@ class KVStore(Channel):
                 st.rows.buf, node.to(torch.int32), slot.to(torch.int32),
                 preds=live, ledger=self.mgr.traffic,
                 verb=f"{self.full_name}.get_batch",
-                coalesce=self.coalesce_reads)                    # (P, B, W+3)
+                coalesce=self.coalesce_reads, rt=self.rt)        # (n, B, W+3)
             return self.decode_row(rows)
 
         payload, row_ctr, valid, csum_ok = read_all()
         tries = 0
-        while tries < MAX_GET_RETRIES and bool((live & ~csum_ok).any()):
+        while tries < MAX_GET_RETRIES and self.rt.any(live & ~csum_ok):
             payload, row_ctr, valid, csum_ok = read_all()
             tries += 1
         found = live & csum_ok & (row_ctr == ctr) & valid
@@ -391,11 +396,11 @@ class KVStore(Channel):
         valid = torch.zeros_like(miss)
         csum_ok = ~miss
         rounds = 0
-        while rounds < 1 + MAX_GET_RETRIES and bool((miss & ~csum_ok).any()):
+        while rounds < 1 + MAX_GET_RETRIES and self.rt.any(miss & ~csum_ok):
             rows = self.backend.read_batch(
                 st.rows.buf, node, slot, preds=miss, ledger=self.mgr.traffic,
                 verb=f"{self.full_name}.get_batch",
-                coalesce=self.coalesce_reads)                    # (P, B, W+3)
+                coalesce=self.coalesce_reads, rt=self.rt)        # (n, B, W+3)
             payload, row_ctr, valid, ok = self.decode_row(rows)
             acc = miss & ok & (row_ctr == ctr) & valid & (node != me)
             cache = self.cache.fill(cache, node, slot, rows, acc)
@@ -416,7 +421,7 @@ class KVStore(Channel):
         """Apply the gathered (N, 5) tracker records at every participant:
         the wave scheduler, or the sequential sweep on a reference-impl
         store (each pairs its own index placement with its own lookup).
-        Returns (state, applied (P, N))."""
+        Returns (state, applied (n, N))."""
         if self.reference_impl:
             return self._apply_tracker_reference(st, recs)
         return self._apply_tracker_vectorized(st, recs)
@@ -432,10 +437,11 @@ class KVStore(Channel):
         counter and forgets its heat.  The records are the same at every
         participant, so they are read to the host once and the sweep takes
         one step per live record."""
-        P, N, S = self.P, recs.shape[0], self.S
+        N, S = recs.shape[0], self.S
         dev = recs.device
-        ar = torch.arange(P, device=dev)
-        applied = torch.zeros((P, N), dtype=torch.bool, device=dev)
+        ar, me = self.local_ids(), self.my_id()
+        applied = torch.zeros((self.n_local, N), dtype=torch.bool,
+                              device=dev)
         idx, free_stack = st.idx.clone(), st.free_stack.clone()
         free_top, slot_ctr = st.free_top, st.slot_ctr
         overflow, heat = st.idx_overflow, st.heat
@@ -445,7 +451,7 @@ class KVStore(Channel):
                 continue
             state, keys = idx[..., IDX_STATE], idx[..., IDX_KEY]
             if kind == 1:
-                free = state == _EMPTY                              # (P, C)
+                free = state == _EMPTY                              # (n, C)
                 do = free.any(1)
                 overflow = overflow | ~do
                 pos = _first_true(free)
@@ -453,9 +459,10 @@ class KVStore(Channel):
                 match = (state == _USED) & (keys == key_b)
                 do = match.any(1)
                 pos = _first_true(match)
-            old = idx[ar, pos]                                      # (P, 5)
+            old = idx[ar, pos]                                      # (n, 5)
             new = torch.tensor([_USED, key_b, node, slot, ctr_b],
-                               dtype=torch.int32, device=dev).expand(P, 5)
+                               dtype=torch.int32,
+                               device=dev).expand(self.n_local, 5)
             if kind == 2:
                 new = torch.cat([torch.zeros_like(old[:, :2]), old[:, 2:]], 1)
             idx[ar, pos] = torch.where(do[:, None], new, old)
@@ -465,7 +472,7 @@ class KVStore(Channel):
             else:
                 gone_node = torch.full_like(old[:, 0], node)
                 gone_slot = torch.full_like(old[:, 0], slot)
-            frees = do & (gone_node == ar) if kind != 1 \
+            frees = do & (gone_node == me) if kind != 1 \
                 else torch.zeros_like(do)
             top = free_top.long().clamp(0, S - 1)
             free_stack[ar, top] = torch.where(frees, gone_slot,
@@ -489,7 +496,7 @@ class KVStore(Channel):
         """Apply the gathered (N, 5) tracker records in record order at every
         participant: rec = [kind (0/1=ins/2=del/3=move), key_bits, node,
         slot, ctr_bits], participant-major, so record order IS
-        participant-then-window order.  Returns (state, applied (P, N)).
+        participant-then-window order.  Returns (state, applied (n, N)).
 
         Wave-scheduled as in the reference: per wave, a record is eligible
         when no earlier record of its key is still pending (and no blocked
@@ -502,8 +509,9 @@ class KVStore(Channel):
         — no (N, N) mask.  The waves run while any participant has a pending
         record; a participant with none is left as it is (nothing is
         eligible, so nothing is written or retired), which is what the
-        reference's per-participant loop does for it."""
-        P, N = self.P, recs.shape[0]
+        reference's per-participant loop does for it.  That test is
+        world-uniform, so every rank runs as many waves."""
+        n, N = self.n_local, recs.shape[0]
         dev = recs.device
         me = self.my_id()[:, None]
         kind, key_b, node, slot, ctr_b = recs.unbind(1)
@@ -511,14 +519,14 @@ class KVStore(Channel):
         live = kind != 0
         is_ins, is_del, is_mov = kind == 1, kind == 2, kind == 3
         is_put = is_ins | is_mov      # records that place a [USED|key|...] row
-        applied = torch.zeros((P, N), dtype=torch.bool, device=dev)
+        applied = torch.zeros((n, N), dtype=torch.bool, device=dev)
         if not bool(live.any()):
             # a dead round (UPDATE/GET only): no wave, and every commit
             # below would be a no-op
             return st, applied
-        pending = live[None].expand(P, N).clone()
-        pos_w = self._probe_window(key)[None].expand(P, N, self.PROBE)
-        homes = torch.arange(P, device=dev)[:, None, None]
+        pending = live[None].expand(n, N).clone()
+        pos_w = self._probe_window(key)[None].expand(n, N, self.PROBE)
+        homes = torch.arange(n, device=dev)[:, None, None]
         # inserts and move-reinserts place [USED|key|node|slot|ctr] (the
         # record's new location), deletes [TOMB|0|node|slot|ctr]
         upd = torch.stack(
@@ -527,12 +535,12 @@ class KVStore(Channel):
              ctr_b], dim=-1)
         key_seg = colls.segments(key)
         idx = st.idx.clone()          # the waves commit into this copy
-        old_node = torch.zeros((P, N), dtype=torch.int32, device=dev)
-        old_slot = torch.zeros((P, N), dtype=torch.int32, device=dev)
-        while bool(pending.any()):
+        old_node = torch.zeros((n, N), dtype=torch.int32, device=dev)
+        old_slot = torch.zeros((n, N), dtype=torch.int32, device=dev)
+        while self.rt.any(pending):
             blocked = colls.count_before_same(key_seg, pending) > 0
             elig = pending & ~blocked & ~colls.exclusive_any(blocked)
-            w = idx[homes, pos_w]                                # (P, N, PROBE, 5)
+            w = idx[homes, pos_w]                                # (n, N, PROBE, 5)
             states = w[..., IDX_STATE]
             emp = (states == _EMPTY).to(torch.int64)
             before_empty = (emp.cumsum(-1) - emp) == 0
@@ -553,7 +561,7 @@ class KVStore(Channel):
             win = cand & ~lost
             fail = elig & ~valid_tgt \
                 & (is_del | is_mov | ~colls.exclusive_any(pending))
-            mrow = w.gather(2, am[..., None, None].expand(P, N, 1, 5))[:, :, 0]
+            mrow = w.gather(2, am[..., None, None].expand(n, N, 1, 5))[:, :, 0]
             mwin = win & is_mov
             old_node = torch.where(mwin, mrow[..., IDX_NODE], old_node)
             old_slot = torch.where(mwin, mrow[..., IDX_SLOT], old_slot)
@@ -603,10 +611,10 @@ class KVStore(Channel):
         acknowledges them through the SST, an UPDATE or DELETE writes its
         row with the scalar one-sided verb, the INSERT sets its row valid
         once every peer acknowledged, and the holder releases its lock.
-        op, key, lock_id, ticket, pending (P,); value (P, W).  Returns
+        op, key, lock_id, ticket, pending (n,); value (n, W).  Returns
         (state, pending, holding, success)."""
-        P, S = self.P, self.S
-        ar = torch.arange(P, device=self.device)
+        S = self.S
+        ar, me = self.local_ids(), self.my_id()
         holding = pending & self.locks.holds(st.locks, lock_id, ticket)
         found, _pos, node, slot, ctr = (
             x[:, 0] for x in self._index_lookup(st, key[:, None]))
@@ -629,25 +637,26 @@ class KVStore(Channel):
 
         # ---- the tracker: P records, one a participant, applied by all
         kind = torch.where(do_ins, 1, torch.where(do_del, 2, 0))
-        recs = torch.stack(
+        rec = torch.stack(
             [kind.to(torch.int32), u2i(key),
-             torch.where(do_ins, ar, node).to(torch.int32),
+             torch.where(do_ins, me, node).to(torch.int32),
              torch.where(do_ins, my_slot, slot).to(torch.int32),
-             u2i(torch.where(do_ins, new_ctr, ctr))], dim=-1)    # (P, 5)
+             u2i(torch.where(do_ins, new_ctr, ctr))], dim=-1)    # (n, 5)
+        recs, inval = self.rt.gather_many(rec, do_upd | do_del)  # (P, 5)
         if self.cache is not None:
             # read-tier coherence (§8.3) on the scalar spec path too
             st = st._replace(cache=self.cache.invalidate(
-                st.cache, recs[:, 2], recs[:, 3], do_upd | do_del))
+                st.cache, recs[:, 2], recs[:, 3], inval))
         n_recs = (recs[:, 0] != 0).sum()
         st, applied = self._apply_tracker(st, recs)
         acks, _a = self.acks.push_accumulate(st.acks, n_recs)
         table = self.acks.rows(acks)
-        all_acked = (table >= table[ar, ar][:, None]).all(1)
+        all_acked = (table >= table[ar, me][:, None]).all(1)
         st = st._replace(acks=acks)
 
         # ---- index overflow: an un-indexed insert fails, returns its slot
-        ins_ok = do_ins & applied[ar, ar]
-        fail = do_ins & ~applied[ar, ar]
+        ins_ok = do_ins & applied[ar, me]
+        fail = do_ins & ~applied[ar, me]
         top = st.free_top.long().clamp(0, S - 1)
         free_stack = st.free_stack.clone()
         free_stack[ar, top] = torch.where(fail, my_slot, free_stack[ar, top])
@@ -678,19 +687,21 @@ class KVStore(Channel):
     # -- the precomputed service schedule ---------------------------------------------
     def _service_schedule(self, op, key, lock_id, ticket, want):
         """Each lane's service round, computed once per window from the
-        gathered lane metadata: (round_no (P, B) int32 — 0 for lanes that
-        take no lock, write_winner (P, B) bool — False for an UPDATE whose
-        row write a later same-key UPDATE in the same round supersedes).
-        The gathered metadata is the same at every participant, so the
-        (P·B)² masks are built once for all of them."""
-        P, B = op.shape
-        g_lock, g_tick = lock_id.reshape(-1), ticket.reshape(-1)
-        g_key, g_op, g_want = key.reshape(-1), op.reshape(-1), want.reshape(-1)
+        gathered lane metadata: (round_no (n, B) int32 — 0 for lanes that
+        take no lock, write_winner (n, B) bool — False for an UPDATE whose
+        row write a later same-key UPDATE in the same round supersedes,
+        the window's round count, a 0-d tensor).  The gathered metadata is
+        the same at every participant, so the (P·B)² masks are built once
+        for all of them, and the round count is world-uniform."""
+        g = self.rt.gather_many(lock_id, ticket, key, op, want)
+        shape = g[0].shape
+        g_lock, g_tick, g_key, g_op, g_want = (t.reshape(-1) for t in g)
         queued = g_want[None, :] & (g_lock[None, :] == g_lock[:, None])
         later = queued & (g_tick[None, :] > g_tick[:, None])     # [i,j]: j>i
         round_all, winner_all = self._schedule_core(g_key, g_op, g_want,
                                                     queued, later)
-        return round_all.reshape(P, B), winner_all.reshape(P, B)
+        return (self.rt.mine(round_all.reshape(shape)),
+                self.rt.mine(winner_all.reshape(shape)), round_all.max())
 
     @staticmethod
     def _schedule_core(g_key, g_op, g_want, queued, later):
@@ -757,10 +768,9 @@ class KVStore(Channel):
         ``look`` is each lane's (found, node, slot, ctr) view of the index;
         it is refreshed from this round's applied records and returned for
         the next round.  Returns (state, pending, holding, success, look)."""
-        P, B = op.shape
+        n, B = op.shape
         S = self.S
-        ar = torch.arange(P, device=op.device)
-        me = ar[:, None]
+        ar, me = self.local_ids(), self.my_id()[:, None]
         holding, write_winner = self._serving(st, pending, serve,
                                               write_winner, lock_id, ticket)
         found, node, slot, ctr = look
@@ -791,23 +801,25 @@ class KVStore(Channel):
             [kind.to(torch.int32), u2i(key),
              torch.where(do_ins, me, node).to(torch.int32),
              torch.where(do_ins, my_slot, slot).to(torch.int32),
-             u2i(torch.where(do_ins, new_ctr, ctr))], dim=-1)   # (P, B, 5)
-        recs = rec.reshape(P * B, 5)                 # the gather, participant-major
+             u2i(torch.where(do_ins, new_ctr, ctr))], dim=-1)   # (n, B, 5)
+        # the gather, participant-major
+        g_rec, g_inval = self.rt.gather_many(rec, do_upd | do_del)
+        recs = g_rec.reshape(-1, 5)                               # (P·B, 5)
         if self.cache is not None:
             # read-tier coherence (§8.3): an UPDATE/DELETE lane's record
             # names the row it is about to write; every participant drops
             # its cached copy (INSERTs need none: slot reuse bumps the
             # counter the hit protocol validates)
             st = st._replace(cache=self.cache.invalidate(
-                st.cache, recs[:, 2], recs[:, 3], (do_upd | do_del).reshape(-1)))
+                st.cache, recs[:, 2], recs[:, 3], g_inval.reshape(-1)))
         n_recs = (recs[:, 0] != 0).sum()
         st, applied = self._apply_tracker(st, recs)
-        my_applied = applied.reshape(P, P, B)[ar, ar]
+        my_applied = applied.reshape(n, self.P, B)[ar, me[:, 0]]
         # acknowledge all applied records through the SST in one push;
         # inserters require every peer caught up before setting valid
         acks, _a = self.acks.push_accumulate(st.acks, n_recs)
         table = self.acks.rows(acks)
-        all_acked = (table >= table[ar, ar][:, None]).all(1)
+        all_acked = (table >= table[ar, me[:, 0]][:, None]).all(1)
         st = st._replace(acks=acks)
 
         # ---- index overflow: un-indexed inserts fail and return their slots
@@ -868,10 +880,9 @@ class KVStore(Channel):
         succeeds with no effect.  ``serve=None`` serves and releases as in
         :meth:`_service_window`.  Returns (state, pending, holding, success,
         look) as :meth:`_service_window` does."""
-        P, B = op.shape
-        S = self.S
-        ar = torch.arange(P, device=op.device)
-        me = ar[:, None]
+        n, B = op.shape
+        P, S = self.P, self.S
+        ar, me = self.local_ids(), self.my_id()[:, None]
         holding, write_winner = self._serving(st, pending, serve,
                                               write_winner, lock_id, ticket)
         found, node, slot, ctr = look
@@ -888,19 +899,20 @@ class KVStore(Channel):
         # (P·B, 2) request gather, one (P·B, 3) grant psum
         N = P * B
         alloc_want = do_ins | do_move
-        grant = torch.zeros((P, N), dtype=torch.bool, device=op.device)
-        a_slot = torch.zeros((P, N), dtype=torch.int32, device=op.device)
+        grant = torch.zeros((n, N), dtype=torch.bool, device=op.device)
+        a_slot = torch.zeros((n, N), dtype=torch.int32, device=op.device)
         aok = torch.zeros_like(do_ins)
-        my_slot = torch.zeros((P, B), dtype=torch.int32, device=op.device)
-        new_ctr = torch.zeros((P, B), dtype=torch.int64, device=op.device)
+        my_slot = torch.zeros((n, B), dtype=torch.int32, device=op.device)
+        new_ctr = torch.zeros((n, B), dtype=torch.int64, device=op.device)
         moved = torch.zeros_like(value)
         if any_alloc:
             moved = self.backend.read_batch(
                 st.rows.buf, node, slot, preds=do_move,
                 ledger=self.mgr.traffic, verb=f"{self.full_name}.move_read",
-                coalesce=False)[..., :self.W]
-            g_want, g_home = alloc_want.reshape(-1), homes.reshape(-1)
-            mine = g_want[None, :] & (g_home[None, :] == me)       # (P, N)
+                coalesce=False, rt=self.rt)[..., :self.W]
+            g_want, g_home = (t.reshape(-1) for t in self.rt.gather_many(
+                alloc_want, homes))
+            mine = g_want[None, :] & (g_home[None, :] == me)       # (n, N)
             mn = mine.to(torch.int64)
             rank = mn.cumsum(1) - mn
             grant = mine & (rank < st.free_top[:, None])
@@ -910,7 +922,7 @@ class KVStore(Channel):
             tbl = torch.where(grant[..., None], torch.stack(
                 [torch.ones_like(a_slot), a_slot, u2i(a_ctr)], -1),
                 torch.zeros((), dtype=torch.int32, device=op.device))
-            tbl = tbl.sum(0, dtype=torch.int32).reshape(P, B, 3)   # the psum
+            tbl = self.rt.psum_scatter(tbl.reshape(n, P, B, 3))   # the psum
             colls.record_rounds(self.mgr.traffic, f"{self.full_name}.alloc",
                                 self.backend.alloc_rounds)
             st = st._replace(
@@ -937,20 +949,23 @@ class KVStore(Channel):
             [kind.to(torch.int32), u2i(key),
              torch.where(placed, homes, node).to(torch.int32),
              torch.where(placed, my_slot, slot).to(torch.int32),
-             u2i(torch.where(placed, new_ctr, ctr))], dim=-1)    # (P, B, 5)
-        recs = rec.reshape(N, 5)                     # the gather, participant-major
+             u2i(torch.where(placed, new_ctr, ctr))], dim=-1)    # (n, B, 5)
+        # the gather, participant-major, with the lanes' pre-mutation views
+        g_rec, g_node, g_slot, g_inval = self.rt.gather_many(
+            rec, node, slot, do_upd | do_del | do_move)
+        recs = g_rec.reshape(N, 5)
         if self.cache is not None:
             # §8.3: invalidate the PRE-mutation location of every mutated
             # row (the lane's index view; a MOVE vacates its old home)
             st = st._replace(cache=self.cache.invalidate(
-                st.cache, node.reshape(-1), slot.reshape(-1),
-                (do_upd | do_del | do_move).reshape(-1)))
+                st.cache, g_node.reshape(-1), g_slot.reshape(-1),
+                g_inval.reshape(-1)))
         n_recs = (recs[:, 0] != 0).sum()
         st, applied = self._apply_tracker(st, recs)
-        my_applied = applied.reshape(P, P, B)[ar, ar]
+        my_applied = applied.reshape(n, P, B)[ar, me[:, 0]]
         acks, _a = self.acks.push_accumulate(st.acks, n_recs)
         table = self.acks.rows(acks)
-        all_acked = (table >= table[ar, ar][:, None]).all(1)
+        all_acked = (table >= table[ar, me[:, 0]][:, None]).all(1)
         st = st._replace(acks=acks)
 
         # ---- failed placements return their slots to the HOME stacks (the
@@ -992,7 +1007,7 @@ class KVStore(Channel):
                 _refresh_look(recs, applied, key, look))
 
     def _lane_homes(self, ops, keys, targets):
-        """(P, B) int32 home nodes under the store's placement policy, or
+        """(n, B) int32 home nodes under the store's placement policy, or
         ``None`` for the writer-local path (placement ``"local"`` with no
         explicit targets).  MOVE lanes home at their explicit target when
         one is given, else at the policy home."""
@@ -1036,8 +1051,8 @@ class KVStore(Channel):
         SST push; any other window falls back to the locked schedule.  Both
         paths commit identical state bits for identical windows.  The
         window's uniform flags (a MOVE or allocating lane anywhere, a
-        lock-wanting lane anywhere, the fast classification) cost one host
-        read together."""
+        lock-wanting lane anywhere, the fast classification) cost one
+        world-uniform host read together."""
         lockfree = self.lockfree if lockfree is None else bool(lockfree)
         if lockfree and self.reference_impl:
             raise ValueError("lockfree op_window requires the scheduled "
@@ -1045,15 +1060,16 @@ class KVStore(Channel):
         ops, keys, values = self._lanes_in(ops, keys, values)
         want_lock = (ops == INSERT) | (ops == UPDATE) | (ops == DELETE) \
             | (ops == MOVE)
-        has_move, any_alloc, any_want, win_fast = torch.stack(
-            [(ops == MOVE).any(), ((ops == INSERT) | (ops == MOVE)).any(),
-             want_lock.any(), ~(want_lock & (ops != UPDATE)).any()]).tolist()
+        has_move, any_alloc, any_want, any_slow = self.rt.any_flags(
+            ops == MOVE, (ops == INSERT) | (ops == MOVE), want_lock,
+            want_lock & (ops != UPDATE))
+        win_fast = not any_slow
         if targets_are_homes:
             homes = _tensor(targets, torch.int32, self.device).reshape(
                 ops.shape).clamp(0, self.P - 1)
         else:
             homes = self._lane_homes(ops, keys, targets)
-        P, B = ops.shape
+        n, B = ops.shape
         lock_id = (keys % self.L).to(torch.int32)
         # one index probe for the whole window; the service rounds keep the
         # per-lane view current from the tracker records
@@ -1075,7 +1091,7 @@ class KVStore(Channel):
                 # totals
                 lock_totals = (lstate.next_ticket - st.locks.next_ticket) \
                     & MASK32
-                round_no, write_winner = self._service_schedule(
+                round_no, write_winner, max_round = self._service_schedule(
                     ops, keys, lock_id, ticket, want_lock)
             st = st._replace(locks=lstate)
         any_alloc = any_alloc or self.reference_impl
@@ -1096,10 +1112,12 @@ class KVStore(Channel):
                     # the §8.3 invalidation the locked round's tracker
                     # records would carry: an UPDATE overwrites the live row
                     # its index view names
+                    g_node, g_slot, g_upd = self.rt.gather_many(
+                        node0.to(torch.int32), slot0.to(torch.int32),
+                        (ops == UPDATE) & found0)
                     st = st._replace(cache=self.cache.invalidate(
-                        st.cache, node0.reshape(-1).to(torch.int32),
-                        slot0.reshape(-1).to(torch.int32),
-                        ((ops == UPDATE) & found0).reshape(-1)))
+                        st.cache, g_node.reshape(-1), g_slot.reshape(-1),
+                        g_upd.reshape(-1)))
                 # the fast serve: commuting UPDATEs are ONE batched
                 # counter-validated write of the rows the index view names;
                 # superseded same-key lanes are winner-masked as in the
@@ -1126,16 +1144,17 @@ class KVStore(Channel):
                 any_alloc=any_alloc, has_move=has_move, **kw)
 
         if self.reference_impl:
-            # rounds while any lane anywhere is pending: a host read a round
-            while bool(pending.any()):
+            # rounds while any lane anywhere is pending: a world-uniform
+            # host read a round
+            while self.rt.any(pending):
                 st, pending, _held, s_now, look = serve_round(
                     st, pending, look, None)
                 succ = succ | s_now
         else:
             # the reference loops while any lane anywhere is pending; every
             # pending lane is served in its scheduled round, so that is
-            # exactly max(round_no) rounds
-            n_rounds = int(round_no.max()) if any_want and not fast else 0
+            # exactly max(round_no) rounds, from the gathered schedule
+            n_rounds = int(max_round) if any_want and not fast else 0
             for r in range(1, n_rounds + 1):
                 st, pending, _held, s_now, look = serve_round(
                     st, pending, look, round_no == r)
@@ -1151,17 +1170,17 @@ class KVStore(Channel):
             value=torch.where(is_get[..., None], get_val,
                               torch.zeros_like(get_val)),
             found=torch.where(is_get, get_found, succ),
-            retries=torch.full((P, B), retries, dtype=torch.int32,
+            retries=torch.full((n, B), retries, dtype=torch.int32,
                                device=ops.device))
 
     def op_round(self, st: KVStoreState, op, key, value):
         """Every participant submits one operation: the B=1 window.
-        op (P,), key (P,), value (P, W) → (state, KVResult of (P,) lanes)."""
+        op (n,), key (n,), value (n, W) → (state, KVResult of (n,) lanes)."""
+        n = self.n_local
         st, res = self.op_window(
-            st, _tensor(op, torch.int32, self.device).reshape(self.P, 1),
-            as_u32(key, self.device).reshape(self.P, 1),
-            _tensor(value, torch.int32, self.device).reshape(self.P, 1,
-                                                              self.W))
+            st, _tensor(op, torch.int32, self.device).reshape(n, 1),
+            as_u32(key, self.device).reshape(n, 1),
+            _tensor(value, torch.int32, self.device).reshape(n, 1, self.W))
         return st, KVResult(value=res.value[:, 0], found=res.found[:, 0],
                             retries=res.retries[:, 0])
 
@@ -1170,19 +1189,19 @@ class KVStore(Channel):
         is pinned against bit for bit: a ticket from the lock stripe's
         scalar acquire, the scalar lock-free GET (:meth:`_get`) against the
         pre-round state, then scalar service rounds (:meth:`_service_round`)
-        until no participant is pending, a host read a round.  op, key (P,);
-        value (P, W) → (state, KVResult of (P,) lanes)."""
-        op = _tensor(op, torch.int32, self.device).reshape(self.P)
-        key = as_u32(key, self.device).reshape(self.P)
-        value = _tensor(value, torch.int32, self.device).reshape(self.P,
-                                                                 self.W)
+        until no participant is pending, a world-uniform host read a round.
+        op, key (n,); value (n, W) → (state, KVResult of (n,) lanes)."""
+        n = self.n_local
+        op = _tensor(op, torch.int32, self.device).reshape(n)
+        key = as_u32(key, self.device).reshape(n)
+        value = _tensor(value, torch.int32, self.device).reshape(n, self.W)
         lock_id = key % self.L
         want_lock = (op == INSERT) | (op == UPDATE) | (op == DELETE)
         lstate, ticket = self.locks.acquire(st.locks, lock_id, want_lock)
         st = st._replace(locks=lstate)
         get_val, get_found, retries = self._get(st, key, op == GET)
         pending, succ = want_lock, torch.zeros_like(want_lock)
-        while bool(pending.any()):
+        while self.rt.any(pending):
             with self.mgr.no_tracking():
                 st, pending, _held, s_now = self._service_round(
                     st, op, key, value, lock_id, ticket, pending)
@@ -1192,46 +1211,46 @@ class KVStore(Channel):
             value=torch.where(is_get[:, None], get_val,
                               torch.zeros_like(get_val)),
             found=torch.where(is_get, get_found, succ),
-            retries=torch.full((self.P,), retries, dtype=torch.int32,
+            retries=torch.full((n,), retries, dtype=torch.int32,
                                device=self.device))
 
     # -- online migration and rebalancing (the §10 locality tier) ----------------
     def migrate_window(self, st: KVStoreState, keys, dests, preds=None):
-        """Re-home a (P, B) lane window of live rows in one round-set: lane
+        """Re-home an (n, B) lane window of live rows in one round-set: lane
         (p, b) moves ``keys[p, b]`` to node ``dests[p, b]``.  MOVE lanes of
         :meth:`op_window`, so migrations take the key's ticket lock and
         linearize with concurrent windows like any mutation.  Returns
-        (state, moved (P, B) bool): a lane fails when the key is absent,
+        (state, moved (n, B) bool): a lane fails when the key is absent,
         the destination's free stack is exhausted or ``preds`` masks it; a
         move to the key's current home succeeds with no effect."""
-        keys = as_u32(keys, self.device).reshape(self.P, -1)
+        n = self.n_local
+        keys = as_u32(keys, self.device).reshape(n, -1)
         B = keys.shape[1]
         if preds is None:
-            preds = torch.ones((self.P, B), dtype=torch.bool,
-                               device=self.device)
+            preds = torch.ones((n, B), dtype=torch.bool, device=self.device)
         preds = torch.as_tensor(preds, device=self.device).to(torch.bool) \
-            .reshape(self.P, B)
+            .reshape(n, B)
         ops = torch.where(preds, MOVE, NOP).to(torch.int32)
         st, res = self.op_window(
             st, ops, keys,
-            torch.zeros((self.P, B, self.W), dtype=torch.int32,
+            torch.zeros((n, B, self.W), dtype=torch.int32,
                         device=self.device),
-            targets=_tensor(dests, torch.int32, self.device).reshape(
-                self.P, B))
+            targets=_tensor(dests, torch.int32, self.device).reshape(n, B))
         return st, res.found
 
     def _migrate_reference(self, st: KVStoreState, keys, dests, preds=None):
-        """The migration specification: the (P, B) lanes run as B
+        """The migration specification: the (n, B) lanes run as B
         single-lane MOVE windows one after the other, lane b of every
         participant in window b.  :meth:`migrate_window` is pinned against
         it result for result (slot choices may differ when several lanes
-        target one destination).  Returns (state, moved (P, B))."""
-        keys = as_u32(keys, self.device).reshape(self.P, -1)
+        target one destination).  Returns (state, moved (n, B))."""
+        n = self.n_local
+        keys = as_u32(keys, self.device).reshape(n, -1)
         B = keys.shape[1]
-        dests = _tensor(dests, torch.int32, self.device).reshape(self.P, B)
-        preds = torch.ones((self.P, B), dtype=torch.bool, device=self.device) \
+        dests = _tensor(dests, torch.int32, self.device).reshape(n, B)
+        preds = torch.ones((n, B), dtype=torch.bool, device=self.device) \
             if preds is None else torch.as_tensor(
-                preds, device=self.device).to(torch.bool).reshape(self.P, B)
+                preds, device=self.device).to(torch.bool).reshape(n, B)
         moved = []
         for b in range(B):
             st, ok = self.migrate_window(st, keys[:, b:b + 1],
@@ -1248,12 +1267,13 @@ class KVStore(Channel):
         (dominant-reader heat − current-home heat) and the top ones are
         taken, ties to the lower index position as ``lax.top_k`` breaks
         them.  The list is the same for every participant, so it is
-        computed once (the index is identical everywhere) and dealt
-        round-robin: proposal j rides lane j // P of participant j % P.
+        computed once from the all-gathered heat (the index is identical
+        everywhere) and dealt round-robin: proposal j rides lane j // P of
+        participant j % P.
 
-        Returns (keys (P, B), dests (P, B), valid (P, B)) with
+        Returns (keys (n, B), dests (n, B), valid (n, B)) with
         B = ceil(max_moves / P); invalid lanes are padding.  ``with_alts``
-        adds (alts (P, B), alt_valid (P, B)): each row's second-hottest
+        adds (alts (n, B), alt_valid (n, B)): each row's second-hottest
         reader, for the backlog spill, valid where it improves locality
         (heat ≥ ``min_heat``, above the current home's, another node)."""
         if self.hot is None:
@@ -1263,7 +1283,7 @@ class KVStore(Channel):
         B = -(-int(max_moves) // P)
         M = min(B * P, self.C)
         B = -(-M // P)
-        g = st.heat.heat                                   # (P, P·S)
+        g = self.hot.all_heat(st.heat)                     # (P, P·S)
         dom = g.argmax(0)                                  # dominant reader
         dom_heat = g.amax(0)
         idx = st.idx[0]
@@ -1306,17 +1326,19 @@ class KVStore(Channel):
         full, key gone) spills to its second-hottest reader in a second
         window when that one improves locality; what still fails is
         deferred, not dropped (its heat persists), and counted in
-        ``st.heat.backlog``.  Returns (state, n_moved (P,) int32 — the
+        ``st.heat.backlog``.  Returns (state, n_moved (n,) int32 — the
         cluster-wide count of executed moves, on every participant)."""
         keys, dests, valid, alts, altv = self.rebalance_proposals(
             st, max_moves, min_heat=min_heat, with_alts=True)
         st, moved = self.migrate_window(st, keys, dests, preds=valid)
         st, spilled = self.migrate_window(st, keys, alts,
                                           preds=valid & ~moved & altv)
+        moved, spilled, valid = self.rt.gather_many(moved, spilled, valid)
         n_moved = (moved.sum() + spilled.sum()).to(torch.int32)
         backlog = valid.sum().to(torch.int32) - n_moved
-        st = st._replace(heat=st.heat._replace(backlog=backlog.repeat(self.P)))
-        return st, n_moved.repeat(self.P)
+        n = self.n_local
+        st = st._replace(heat=st.heat._replace(backlog=backlog.repeat(n)))
+        return st, n_moved.repeat(n)
 
     # -- replication records (the ReplicatedLog's entries, DESIGN.md §9.3) --
     @property
@@ -1326,7 +1348,7 @@ class KVStore(Channel):
         return 3 + self.W
 
     def export_window_records(self, ops, keys, values, targets=None):
-        """Encode a (P, B) window as replication records: (P, B,
+        """Encode an (n, B) window as replication records: (n, B,
         record_width) int32 rows ``[op | key_bits | value… | home]`` with
         non-mutating lanes (NOP/GET) masked to NOP.  The last column is the
         lane's home resolved under the store's placement policy, so a
@@ -1350,14 +1372,14 @@ class KVStore(Channel):
             dim=-1)
 
     def replay_window_records(self, st: KVStoreState, recs, pred=True):
-        """Apply one exported (P, B, record_width) record window through
+        """Apply one exported (n, B, record_width) record window through
         :meth:`op_window` with the records' homes as the per-lane homes
-        (``targets_are_homes``).  ``pred`` ((P,) or a bool) False masks a
+        (``targets_are_homes``).  ``pred`` ((n,) or a bool) False masks a
         participant's whole window to NOP — an absent log entry replays as
         the identity.  Returns (state, KVResult)."""
         recs = _tensor(recs, torch.int32, self.device)
         pred = torch.as_tensor(pred, device=self.device).to(torch.bool) \
-            .expand(self.P)
+            .expand(self.n_local)
         ops = torch.where(pred[:, None], recs[..., 0],
                           torch.full_like(recs[..., 0], NOP))
         return self.op_window(st, ops, i2u(recs[..., 1]),
@@ -1367,8 +1389,8 @@ class KVStore(Channel):
 
     def get_batch(self, st: KVStoreState, keys, pred=None):
         """R lock-free GETs per participant in one collective round.
-        keys (P, R) uint32; ``pred`` optional (P, R) bool lane mask.
-        Returns (state, values (P, R, W), found (P, R))."""
+        keys (n, R) uint32; ``pred`` optional (n, R) bool lane mask.
+        Returns (state, values (n, R, W), found (n, R))."""
         keys = as_u32(keys, self.device)
         if pred is None:
             pred = torch.ones(keys.shape, dtype=torch.bool, device=self.device)

@@ -69,8 +69,9 @@ class TicketLock(Channel):
 
     def acquire(self, state: TicketLockState, want=True):
         """Fetch a ticket (remote fetch-and-add).  Returns (state, tickets
-        (P,) uint32), NO_TICKET for participants that do not want one."""
-        want = colls._per_participant(want, self.P, self.device, torch.bool)
+        (n,) uint32), NO_TICKET for participants that do not want one."""
+        want = colls._per_participant(want, self.n_local, self.device,
+                                      torch.bool)
         nt, my_ticket, _ack = self.next_ticket.fetch_add(
             state.next_ticket, 1, pred=want)
         return state._replace(next_ticket=nt), \
@@ -99,8 +100,8 @@ class TicketLock(Channel):
 
 
 class TicketLockArrayState(NamedTuple):
-    next_ticket: torch.Tensor  # (P, L) uint32 (int64 holder), replicated
-    now_serving: torch.Tensor  # (P, L) uint32 (int64 holder), replicated
+    next_ticket: torch.Tensor  # (n, L) uint32 (int64 holder), replicated
+    now_serving: torch.Tensor  # (n, L) uint32 (int64 holder), replicated
 
 
 class TicketLockArray(Channel):
@@ -119,27 +120,35 @@ class TicketLockArray(Channel):
         self.declare_region("serving", (self.L,), torch.uint32)
 
     def init_state(self, device=None) -> TicketLockArrayState:
-        z = torch.zeros((self.P, self.L), dtype=torch.int64,
+        z = torch.zeros((self.n_local, self.L), dtype=torch.int64,
                         device=self.device if device is None else device)
         return TicketLockArrayState(next_ticket=z, now_serving=z.clone())
 
+    def _resolve(self, lock_ids, flags):
+        """The window's gathered (lock, flag) lanes resolved: (my lanes'
+        ranks (n, B), totals (L,))."""
+        g_lids, g_flags = self.rt.gather_many(lock_ids, flags)
+        rank, totals = window_fifo_ranks(g_lids, g_flags, self.L)
+        return self.rt.mine(rank), totals
+
     def acquire_window(self, state: TicketLockArrayState, lock_ids, want):
         """FAA on next_ticket[lock_ids] for every wanting request.
-        lock_ids (P, B) int; want (P, B) bool.  Returns (state, tickets
-        (P, B) uint32) with NO_TICKET where not wanting."""
-        rank, totals = window_fifo_ranks(lock_ids, want, self.L)
+        lock_ids (n, B) int; want (n, B) bool.  Returns (state, tickets
+        (n, B) uint32) with NO_TICKET where not wanting."""
+        rank, totals = self._resolve(lock_ids, want)
         return self.acquire_window_prepared(state, lock_ids, want, rank,
                                             totals)
 
     def acquire_window_prepared(self, state: TicketLockArrayState, lock_ids,
                                 want, rank, totals):
-        """Apply an already-resolved window acquire: ``(rank (P, B),
-        totals (L,))`` as :func:`window_fifo_ranks` computes them.  The
-        reference's lock-free window plan (DESIGN.md §11) calls it with the
-        ranks its own lane gather resolved; in the stacked port
-        :meth:`acquire_window` resolves them once for every participant and
-        calls it.  Returns (state, tickets (P, B) uint32) with NO_TICKET
-        where not wanting."""
+        """Apply an already-resolved window acquire: ``(rank (n, B),
+        totals (L,))`` as :func:`window_fifo_ranks` computes them on the
+        gathered window, the rank rows those of the participants held
+        here.  The reference's lock-free window plan (DESIGN.md §11) calls
+        it with the ranks its own lane gather resolved; in the port
+        :meth:`acquire_window` resolves them from one gather and calls it.
+        Returns (state, tickets (n, B) uint32) with NO_TICKET where not
+        wanting."""
         ticket = (state.next_ticket.gather(1, lock_ids.long()) + rank) \
             & MASK32
         new = state._replace(
@@ -147,28 +156,29 @@ class TicketLockArray(Channel):
         return new, torch.where(want, ticket, NO_TICKET)
 
     def _one(self, x, dtype):
-        """A single-request argument as (P, 1) lanes."""
-        return colls._per_participant(x, self.P, self.device, dtype)[:, None]
+        """A single-request argument as (n, 1) lanes."""
+        return colls._per_participant(x, self.n_local, self.device,
+                                      dtype)[:, None]
 
     def acquire(self, state: TicketLockArrayState, lock_id, want):
-        """Single-request form, a window of one: lock_id, want (P,).
-        Returns (state, tickets (P,))."""
+        """Single-request form, a window of one: lock_id, want (n,).
+        Returns (state, tickets (n,))."""
         new, ticket = self.acquire_window(
             state, self._one(lock_id, torch.int64),
             self._one(want, torch.bool))
         return new, ticket[:, 0]
 
     def holds(self, state: TicketLockArrayState, lock_id, ticket):
-        """Does each lane hold its lock?  Elementwise over matching (P, ...)
+        """Does each lane hold its lock?  Elementwise over matching (n, ...)
         ``lock_id`` and ``ticket``."""
         lock_id = torch.as_tensor(lock_id, device=self.device)
         serving = state.now_serving.gather(
-            1, lock_id.to(torch.int64).reshape(self.P, -1))
+            1, lock_id.to(torch.int64).reshape(self.n_local, -1))
         return torch.as_tensor(ticket, device=self.device) \
             == serving.reshape(lock_id.shape)
 
     def release(self, state: TicketLockArrayState, lock_id, holding):
-        """Single-request form, a window of one: lock_id, holding (P,)."""
+        """Single-request form, a window of one: lock_id, holding (n,)."""
         return self.release_window(state, self._one(lock_id, torch.int64),
                                    self._one(holding, torch.bool))
 
@@ -176,6 +186,6 @@ class TicketLockArray(Channel):
                        holding):
         """Each holder increments now_serving[lock] for every window slot it
         holds (at most one holder per lock per round)."""
-        _rank, totals = window_fifo_ranks(lock_ids, holding, self.L)
+        _rank, totals = self._resolve(lock_ids, holding)
         return state._replace(
             now_serving=(state.now_serving + totals[None]) & MASK32)

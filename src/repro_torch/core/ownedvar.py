@@ -58,8 +58,8 @@ def checksum(value: torch.Tensor, item_dims: int = 1) -> torch.Tensor:
 
 
 class OwnedVarState(NamedTuple):
-    cached: torch.Tensor  # (P, *shape) local cached copy
-    csum: torch.Tensor    # (P,) uint32 checksum of cached
+    cached: torch.Tensor  # (n, *shape) local cached copy
+    csum: torch.Tensor    # (n,) uint32 checksum of cached
 
 
 class OwnedVar(Channel):
@@ -77,13 +77,13 @@ class OwnedVar(Channel):
         self.declare_region("val", self.shape, dtype)
 
     def _value(self, value):
-        """``value`` as (P, *shape) of the register's type."""
+        """``value`` as (n, *shape) of the register's type."""
         v = torch.as_tensor(value, device=self.device)
         if self.dtype == torch.uint32:
             v = v.to(torch.int64) & MASK32
         else:
             v = v.to(self.dtype)
-        return v.expand((self.P,) + self.shape)
+        return v.expand((self.n_local,) + self.shape)
 
     def _csum(self, cached):
         return checksum(cached, item_dims=len(self.shape))
@@ -97,15 +97,17 @@ class OwnedVar(Channel):
                    pred=True) -> OwnedVarState:
         """Local store into each participant's own copy where ``pred``
         (meaningful at the owner; paper Fig. 1a)."""
-        pred = colls._per_participant(pred, self.P, self.device, torch.bool)
+        pred = colls._per_participant(pred, self.n_local, self.device,
+                                      torch.bool)
         cached = torch.where(colls._lanes(pred, state.cached),
                              self._value(value), state.cached)
         return OwnedVarState(cached=cached, csum=self._csum(cached))
 
     def _from_owner(self, state: OwnedVarState):
         return OwnedVarState(
-            cached=colls.bcast_from(state.cached, self.owner).clone(),
-            csum=colls.bcast_from(state.csum, self.owner).clone())
+            cached=colls.bcast_from(state.cached, self.owner,
+                                    self.rt).clone(),
+            csum=colls.bcast_from(state.csum, self.owner, self.rt).clone())
 
     def push(self, state: OwnedVarState):
         """The owner pushes its copy to every cached copy (one-sided
@@ -124,11 +126,11 @@ class OwnedVar(Channel):
         return new, self.mgr.track(ack)
 
     def load(self, state: OwnedVarState):
-        """Local load of each cached copy → (value (P, *shape),
-        checksum_ok (P,)).  A word-size value is always whole; a larger one
+        """Local load of each cached copy → (value (n, *shape),
+        checksum_ok (n,)).  A word-size value is always whole; a larger one
         is checked against its stored checksum, and a mismatch means the
         read raced a torn update and must be retried (§5.1.1)."""
         if not self.needs_checksum:
-            return state.cached, torch.ones(self.P, dtype=torch.bool,
+            return state.cached, torch.ones(self.n_local, dtype=torch.bool,
                                             device=self.device)
         return state.cached, self._csum(state.cached) == state.csum

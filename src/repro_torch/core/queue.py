@@ -37,7 +37,7 @@ EMPTY_SEQ = 0xFFFFFFFF
 class SharedQueueState(NamedTuple):
     head: AtomicVarState
     tail: AtomicVarState
-    slots: SharedRegionState   # (P, slots, 1 + width): [seq bits, payload...]
+    slots: SharedRegionState   # (n, slots, 1 + width): [seq bits, payload...]
 
 
 class SharedQueue(Channel):
@@ -83,18 +83,18 @@ class SharedQueue(Channel):
         return (t % self.P).to(torch.int32), (t // self.P).to(torch.int32)
 
     def enqueue_window(self, state: SharedQueueState, values, preds=None):
-        """Push a (P, B) lane window of (P, B, width) values in one
+        """Push an (n, B) lane window of (n, B, width) values in one
         round-set.  Returns (state, grant (P, B)): lanes rank in
         (participant, lane) order and the ranks that fit the queue's space
         get tickets, so rejections are a suffix of that order."""
         values = torch.as_tensor(values, device=self.device).to(self.dtype)
-        values = values.reshape(self.P, -1, self.width)
+        values = values.reshape(self.n_local, -1, self.width)
         want = torch.ones(values.shape[:2], dtype=torch.bool,
                           device=self.device) if preds is None else \
             torch.as_tensor(preds, device=self.device).reshape(values.shape[:2])
-        head_now = colls.bcast_from(state.head.official, 0)
-        tail_now = colls.bcast_from(state.tail.official, 0)
-        rank, _total = colls.window_prefix(want.to(torch.int64))
+        head_now = colls.bcast_from(state.head.official, 0, self.rt)
+        tail_now = colls.bcast_from(state.tail.official, 0, self.rt)
+        rank, _total = colls.window_prefix(want.to(torch.int64), self.rt)
         space = self.capacity - u2i(tail_now - head_now).to(torch.int64)
         grant = want & (rank < space[:, None])
         tail_st, tickets, _ack = self.tail.fetch_add_window(state.tail, 1,
@@ -108,13 +108,14 @@ class SharedQueue(Channel):
         return state._replace(tail=tail_st, slots=slots), grant
 
     def dequeue_window(self, state: SharedQueueState, preds):
-        """Pop a (P, B) lane window in one round-set, FIFO in the same
-        (participant, lane) ticket order.  Returns (state, values (P, B,
-        width), ok (P, B)); values of failed lanes are zero."""
-        want = torch.as_tensor(preds, device=self.device).reshape(self.P, -1)
-        head_now = colls.bcast_from(state.head.official, 0)
-        tail_now = colls.bcast_from(state.tail.official, 0)
-        rank, _total = colls.window_prefix(want.to(torch.int64))
+        """Pop an (n, B) lane window in one round-set, FIFO in the same
+        (participant, lane) ticket order.  Returns (state, values (n, B,
+        width), ok (n, B)); values of failed lanes are zero."""
+        want = torch.as_tensor(preds, device=self.device).reshape(
+            self.n_local, -1)
+        head_now = colls.bcast_from(state.head.official, 0, self.rt)
+        tail_now = colls.bcast_from(state.tail.official, 0, self.rt)
+        rank, _total = colls.window_prefix(want.to(torch.int64), self.rt)
         avail = u2i(tail_now - head_now).to(torch.int64)
         grant = want & (rank < avail[:, None])
         head_st, tickets, _ack = self.head.fetch_add_window(state.head, 1,
@@ -133,34 +134,37 @@ class SharedQueue(Channel):
         return state._replace(head=head_st, slots=slots), values, ok
 
     def enqueue(self, state: SharedQueueState, value, want=True):
-        """Push one (P, width) value per participant: the B=1 window.
-        Returns (state, ok (P,))."""
+        """Push one (n, width) value per participant: the B=1 window.
+        Returns (state, ok (n,))."""
+        n = self.n_local
         new, grant = self.enqueue_window(
-            state, torch.as_tensor(value).reshape(self.P, 1, self.width),
-            torch.as_tensor(want).expand(self.P).reshape(self.P, 1))
+            state, torch.as_tensor(value).reshape(n, 1, self.width),
+            torch.as_tensor(want).expand(n).reshape(n, 1))
         return new, grant[:, 0]
 
     def dequeue(self, state: SharedQueueState, want=True):
         """Pop one value per participant: the B=1 window.  Returns (state,
-        value (P, width), ok (P,))."""
+        value (n, width), ok (n,))."""
+        n = self.n_local
         new, values, ok = self.dequeue_window(
-            state, torch.as_tensor(want).expand(self.P).reshape(self.P, 1))
+            state, torch.as_tensor(want).expand(n).reshape(n, 1))
         return new, values[:, 0], ok[:, 0]
 
     def _flow(self, state: SharedQueueState, want):
-        """Scalar flow control: (rank (P,), items (P,)) — each request's
+        """Scalar flow control: (rank (n,), items (n,)) — each request's
         rank in participant order and the queue's item count tail − head."""
-        head_now = colls.bcast_from(state.head.official, 0)
-        tail_now = colls.bcast_from(state.tail.official, 0)
-        rank, _total, _g = colls.prefix_sums(want.to(torch.int64))
+        head_now = colls.bcast_from(state.head.official, 0, self.rt)
+        tail_now = colls.bcast_from(state.tail.official, 0, self.rt)
+        rank, _total, _g = colls.prefix_sums(want.to(torch.int64), self.rt)
         return rank, u2i(tail_now - head_now).to(torch.int64)
 
     def _enqueue_reference(self, state: SharedQueueState, value, want=True):
         """The scalar enqueue — the executable specification the B=1 window
         is pinned against: the tail's fetch-and-add and one scalar
-        one-sided write of (seq, payload).  value (P, width); want (P,).
-        Returns (state, grant (P,))."""
-        want = colls._per_participant(want, self.P, self.device, torch.bool)
+        one-sided write of (seq, payload).  value (n, width); want (n,).
+        Returns (state, grant (n,))."""
+        want = colls._per_participant(want, self.n_local, self.device,
+                                      torch.bool)
         rank, used = self._flow(state, want)
         grant = want & (rank < self.capacity - used)
         tail_st, ticket, _ack = self.tail.fetch_add(state.tail, 1,
@@ -168,7 +172,8 @@ class SharedQueue(Channel):
         node, row = self._slot_of(ticket)
         entry = torch.cat([self._to_lane(ticket)[:, None],
                            torch.as_tensor(value, device=self.device)
-                           .to(self.dtype).reshape(self.P, self.width)], 1)
+                           .to(self.dtype).reshape(self.n_local,
+                                                   self.width)], 1)
         slots, _ack2 = self.region.write(state.slots, node, row, entry,
                                          pred=grant)
         return state._replace(tail=tail_st, slots=slots), grant
@@ -177,9 +182,10 @@ class SharedQueue(Channel):
         """The scalar dequeue — the executable specification: the head's
         fetch-and-add, one scalar one-sided read of the claimed slot (a
         non-granted lane costs nothing on the wire) and one write that
-        clears it.  Returns (state, value (P, width), ok (P,)); a failed
+        clears it.  Returns (state, value (n, width), ok (n,)); a failed
         pop returns zeros."""
-        want = colls._per_participant(want, self.P, self.device, torch.bool)
+        want = colls._per_participant(want, self.n_local, self.device,
+                                      torch.bool)
         rank, avail = self._flow(state, want)
         grant = want & (rank < avail)
         head_st, ticket, _ack = self.head.fetch_add(state.head, 1,

@@ -21,7 +21,7 @@ from .runtime import Manager
 
 
 class SharedRegionState(NamedTuple):
-    buf: torch.Tensor  # (P, slots, *item)
+    buf: torch.Tensor  # (n, slots, *item)
 
 
 class SharedRegion(Channel):
@@ -39,7 +39,7 @@ class SharedRegion(Channel):
 
     def init_state(self, device=None) -> SharedRegionState:
         return SharedRegionState(buf=torch.zeros(
-            (self.P, self.slots, *self.item_shape), dtype=self.dtype,
+            (self.n_local, self.slots, *self.item_shape), dtype=self.dtype,
             device=self.device if device is None else device))
 
     @property
@@ -48,28 +48,29 @@ class SharedRegion(Channel):
             * self.dtype.itemsize
 
     def _local_rows(self, index):
-        """(P,) row indices of my own buffer, as JAX indexes one: a negative
+        """(n,) row indices of my own buffer, as JAX indexes one: a negative
         index counts from the end."""
-        index = colls._per_participant(index, self.P, self.device,
+        index = colls._per_participant(index, self.n_local, self.device,
                                        torch.int64)
         return torch.where(index < 0, index + self.slots, index)
 
     def local_read(self, state: SharedRegionState, index):
         """Each participant's own row ``index`` (no collective), clamped into
-        the buffer as a JAX gather clamps.  Returns (P, *item)."""
+        the buffer as a JAX gather clamps.  Returns (n, *item)."""
         rows = self._local_rows(index).clamp(0, self.slots - 1)
-        return state.buf[self.my_id(), rows]
+        return state.buf[self.local_ids(), rows]
 
     def local_write(self, state: SharedRegionState, index, value,
                     pred=True) -> SharedRegionState:
-        """Each participant stores ``value`` (P, *item) into its own row
+        """Each participant stores ``value`` (n, *item) into its own row
         ``index`` where ``pred``; a row outside the buffer is dropped, as a
         JAX scatter drops it."""
         rows = self._local_rows(index)
-        keep = colls._per_participant(pred, self.P, self.device, torch.bool) \
+        keep = colls._per_participant(pred, self.n_local, self.device,
+                                      torch.bool) \
             & (rows >= 0) & (rows < self.slots)
         value = torch.as_tensor(value, device=self.device).expand(
-            (self.P,) + self.item_shape)
+            (self.n_local,) + self.item_shape)
         return state._replace(buf=colls.put_rows(
             state.buf, rows.clamp(0, self.slots - 1)[:, None],
             value[:, None], keep[:, None]))
@@ -78,7 +79,7 @@ class SharedRegion(Channel):
                           preds=None) -> SharedRegionState:
         """Masked batch of local row writes (no collective, one scatter).
 
-        indices (P, R); values (P, R, *item); preds (P, R) bool.  Enabled
+        indices (n, R); values (n, R, *item); preds (n, R) bool.  Enabled
         rows must be distinct per participant; disabled lanes are dropped."""
         if preds is None:
             preds = torch.ones(indices.shape, dtype=torch.bool,
@@ -89,47 +90,48 @@ class SharedRegion(Channel):
 
     def read(self, state: SharedRegionState, target, index, pred=True):
         """One-sided read of row ``index`` at participant ``target``, one per
-        participant: (P,) ints or one for all.  Returns (values (P, *item),
+        participant: (n,) ints or one for all.  Returns (values (n, *item),
         ack)."""
         val = self.backend.read(state.buf, target, index, pred=pred,
                                 ledger=self.mgr.traffic,
-                                verb=f"{self.full_name}.read")
+                                verb=f"{self.full_name}.read", rt=self.rt)
         ack = make_ack(val, "read", self.full_name, ALL_PEERS,
                        self.item_nbytes)
         return val, self.mgr.track(ack)
 
     def write(self, state: SharedRegionState, target, index, value,
               pred=True):
-        """One-sided write of ``value`` (P, *item) to row ``index`` at
+        """One-sided write of ``value`` (n, *item) to row ``index`` at
         participant ``target``, one per participant; racy writes to one row
         land in participant order.  Returns (state, ack)."""
         buf = self.backend.write(state.buf, target, index, value, pred=pred,
                                  ledger=self.mgr.traffic,
-                                 verb=f"{self.full_name}.write")
+                                 verb=f"{self.full_name}.write", rt=self.rt)
         ack = make_ack(buf, "write", self.full_name, ALL_PEERS,
                        self.item_nbytes)
         return state._replace(buf=buf), self.mgr.track(ack)
 
     def read_batch(self, state: SharedRegionState, targets, indices,
                    preds=None, coalesce=True):
-        """Batched one-sided read of (P, R) lanes; ``coalesce`` dedupes
+        """Batched one-sided read of (n, R) lanes; ``coalesce`` dedupes
         duplicate (target, index) lanes before the wire (DESIGN.md §8.1)."""
         vals = self.backend.read_batch(state.buf, targets, indices,
                                        preds=preds, ledger=self.mgr.traffic,
                                        verb=f"{self.full_name}.read_batch",
-                                       coalesce=coalesce)
+                                       coalesce=coalesce, rt=self.rt)
         ack = make_ack(vals, "read", self.full_name, ALL_PEERS,
                        self.item_nbytes * int(targets.shape[1]))
         return vals, self.mgr.track(ack)
 
     def write_batch(self, state: SharedRegionState, targets, indices, values,
                     preds=None, assume_unique=False):
-        """Batched one-sided write of (P, R) lanes."""
+        """Batched one-sided write of (n, R) lanes."""
         buf = self.backend.write_batch(state.buf, targets, indices, values,
                                        preds=preds,
                                        assume_unique=assume_unique,
                                        ledger=self.mgr.traffic,
-                                       verb=f"{self.full_name}.write_batch")
+                                       verb=f"{self.full_name}.write_batch",
+                                       rt=self.rt)
         new = state._replace(buf=buf)
         ack = make_ack(buf, "write", self.full_name, ALL_PEERS,
                        self.item_nbytes * int(targets.shape[1]))

@@ -38,7 +38,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from . import colls
-from .backends import get_backend
+from .backends import get_backend, refuse_process
 from .channel import Channel
 from .kvstore import KVStore, KVStoreState
 from .ownedvar import checksum
@@ -142,6 +142,7 @@ class ReplicatedLog(Channel):
     def __init__(self, parent, name: str, mgr: Manager, *, store: KVStore,
                  window: int, capacity: int = 4, leader: int = 0,
                  rejoin_chunk: int = 256, backend=None):
+        refuse_process(mgr.runtime, "ReplicatedLog")
         super().__init__(parent, name, mgr)
         # execution protocol of the log's data verbs: the ring publishes and
         # the rejoin snapshot reads (DESIGN.md §14)

@@ -36,7 +36,7 @@ from typing import NamedTuple
 import torch
 
 from .ack import ALL_PEERS, make_ack
-from .backends import get_backend
+from .backends import get_backend, refuse_process
 from .channel import Channel
 from .colls import put_rows
 from .ownedvar import checksum
@@ -85,6 +85,7 @@ class Ringbuffer(Channel):
 
     def __init__(self, parent, name: str, mgr: Manager, *, owner: int,
                  capacity: int, width: int, dtype=torch.int32, backend=None):
+        refuse_process(mgr.runtime, "Ringbuffer")
         super().__init__(parent, name, mgr)
         if dtype.itemsize != 4:
             raise TypeError(f"ring slots hold 4-byte words, got {dtype}")

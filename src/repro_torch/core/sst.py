@@ -23,9 +23,10 @@ from .u32 import MASK32
 
 
 class SSTState(NamedTuple):
-    # cached[p, i]: participant p's cached copy of participant i's register
-    cached: torch.Tensor  # (P, P, *shape) uint32 (int64 holder)
-    csum: torch.Tensor    # (P, P) uint32 (int64 holder)
+    # cached[p, i]: held participant p's cached copy of participant i's
+    # register (p a local position, i a global id)
+    cached: torch.Tensor  # (n, P, *shape) uint32 (int64 holder)
+    csum: torch.Tensor    # (n, P) uint32 (int64 holder)
 
 
 class SST(Channel):
@@ -43,69 +44,76 @@ class SST(Channel):
         return checksum(rows, item_dims=len(self.shape))
 
     def init_state(self, value: int = 0, device=None) -> SSTState:
-        v = torch.full((self.P, self.P) + self.shape, int(value) & MASK32,
+        v = torch.full((self.n_local, self.P) + self.shape,
+                       int(value) & MASK32,
                        dtype=torch.int64,
                        device=self.device if device is None else device)
         return SSTState(cached=v, csum=self._csum(v))
 
+    def _own(self):
+        """(local positions, global ids) of the participants held here: a
+        participant's own register is ``cached[loc, me]``."""
+        return self.local_ids(), self.my_id()
+
     def store_mine(self, state: SSTState, value, pred=True) -> SSTState:
         """Local store of each participant's own register (row ``me``):
-        ``value`` (P, *shape), ``pred`` a (P,) mask or a bool."""
-        me = self.my_id()
+        ``value`` (n, *shape), ``pred`` an (n,) mask or a bool."""
+        loc, me = self._own()
+        n = self.n_local
         value = torch.as_tensor(value, device=self.device).to(torch.int64) \
-            .expand((self.P,) + self.shape) & MASK32
-        pred = torch.as_tensor(pred, device=self.device).expand(self.P)
-        pred = pred.reshape((self.P,) + (1,) * len(self.shape))
-        row = torch.where(pred, value, state.cached[me, me])
+            .expand((n,) + self.shape) & MASK32
+        pred = torch.as_tensor(pred, device=self.device).expand(n)
+        pred = pred.reshape((n,) + (1,) * len(self.shape))
+        row = torch.where(pred, value, state.cached[loc, me])
         cached = state.cached.clone()
         csum = state.csum.clone()
-        cached[me, me] = row
-        csum[me, me] = self._csum(row)
+        cached[loc, me] = row
+        csum[loc, me] = self._csum(row)
         return SSTState(cached=cached, csum=csum)
 
     def push_accumulate(self, state: SSTState, delta, pred=True):
         """Bump each participant's register by ``delta`` (uint32 wrap) and
         push to all peers in one round — the multi-record acknowledgement of
         the kvstore tracker.  Returns (state, ack)."""
-        me = self.my_id()
-        bumped = state.cached[me, me] + torch.as_tensor(
+        loc, me = self._own()
+        bumped = state.cached[loc, me] + torch.as_tensor(
             delta, device=self.device).to(torch.int64)
         return self.push_broadcast(self.store_mine(state, bumped, pred=pred))
 
     def push_broadcast(self, state: SSTState):
         """Push each register to all peers (all owners at once → one
         all-gather): every participant's table becomes the diagonal."""
-        me = self.my_id()
-        rows = state.cached[me, me]
-        csums = state.csum[me, me]
-        new = SSTState(cached=colls.gather_rows(rows).clone(),
-                       csum=colls.gather_rows(csums).clone())
+        new = self._gather_own(state)
         ack = AckKey.empty()
         for i, v in enumerate(self.vars):
-            ack = ack | make_ack((rows[i], csums[i]), "write", v.full_name,
-                                 ALL_PEERS, self.row_nbytes)
+            ack = ack | make_ack((new.cached[:, i], new.csum[:, i]), "write",
+                                 v.full_name, ALL_PEERS, self.row_nbytes)
         return new, self.mgr.track(ack)
 
     def load_row(self, state: SSTState, i):
-        """Local read of cached row ``i`` (an int or a (P,) tensor, one row
-        per participant) → (value (P, *shape), checksum_ok (P,))."""
-        me = self.my_id()
+        """Local read of cached row ``i`` (an int or an (n,) tensor, one row
+        per participant) → (value (n, *shape), checksum_ok (n,))."""
+        loc = self.local_ids()
         i = torch.as_tensor(i, device=self.device).to(torch.int64) \
-            .expand(self.P)
-        val = state.cached[me, i]
-        return val, self._csum(val) == state.csum[me, i]
+            .expand(self.n_local)
+        val = state.cached[loc, i]
+        return val, self._csum(val) == state.csum[loc, i]
 
     def rows(self, state: SSTState):
-        """All cached rows, (P viewers, P, *shape)."""
+        """All cached rows, (n viewers, P, *shape)."""
         return state.cached
+
+    def _gather_own(self, state: SSTState) -> SSTState:
+        """Every owner's register gathered into every viewer's table (one
+        all-gather of the owners' rows and their checksums)."""
+        loc, me = self._own()
+        rows, csums = state.cached[loc, me], state.csum[loc, me]
+        return SSTState(cached=colls.gather_rows(rows, self.rt).clone(),
+                        csum=colls.gather_rows(csums, self.rt).clone())
 
     def pull_all(self, state: SSTState):
         """Refresh all cached rows from their owners (readers' pull)."""
-        me = self.my_id()
-        rows = state.cached[me, me]
-        csums = state.csum[me, me]
-        new = SSTState(cached=colls.gather_rows(rows).clone(),
-                       csum=colls.gather_rows(csums).clone())
-        ack = make_ack((rows, csums), "read", self.full_name, ALL_PEERS,
+        new = self._gather_own(state)
+        ack = make_ack(tuple(new), "read", self.full_name, ALL_PEERS,
                        self.row_nbytes * self.P)
         return new, self.mgr.track(ack)

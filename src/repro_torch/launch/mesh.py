@@ -28,7 +28,9 @@ import torch
 
 from ..core.runtime import resolve_device
 
-#: The reference's axis names: (data, model), with pods before them.
+#: The reference's axis names: (data, model), with pods before them; and
+#: the channel layer's one participant axis.
+AXES_1D = ("nodes",)
 AXES_2D = ("data", "model")
 AXES_3D = ("pod", "data", "model")
 
@@ -141,8 +143,10 @@ def shrink_world(n: int, init_method: str) -> bool:
 class ProcessMesh:
     """This rank's view of a mesh of ``torch.distributed`` ranks.
 
-    ``ProcessMesh(n_data, n_model)`` is a (data, model) mesh and
-    ``ProcessMesh(n_pod, n_data, n_model)`` a (pod, data, model) one; the
+    ``ProcessMesh(n_data, n_model)`` is a (data, model) mesh,
+    ``ProcessMesh(n_pod, n_data, n_model)`` a (pod, data, model) one and
+    ``ProcessMesh(P)`` the channel layer's 1-D ``("nodes",)`` mesh of P
+    participants (``core.runtime.make_manager(P, mesh=...)``); the
     world that :func:`init_distributed` joined must hold exactly that many
     ranks, laid out row-major (the last axis, model, varies fastest).
     ``device`` is where this rank's tensors live: the one
@@ -155,9 +159,10 @@ class ProcessMesh:
             raise RuntimeError("ProcessMesh needs a torch.distributed world: "
                                "call init_distributed first")
         self.sizes = tuple(int(s) for s in sizes)
-        self.axis_names = {2: AXES_2D, 3: AXES_3D}.get(len(self.sizes))
+        self.axis_names = {1: AXES_1D, 2: AXES_2D,
+                           3: AXES_3D}.get(len(self.sizes))
         if self.axis_names is None:
-            raise ValueError(f"a process mesh has 2 or 3 axes, not "
+            raise ValueError(f"a process mesh has 1, 2 or 3 axes, not "
                              f"{self.sizes}")
         StackedMesh(self.sizes, self.axis_names)      # the same checks
         world = dist.get_world_size()
