@@ -9,7 +9,7 @@ toolkit:
 It imports neither JAX nor the JAX package.  Phases, in order; any failure
 exits non-zero and prints no result:
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (twelve
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (thirteen
    sources) with nvcc, one process per source, all at once, and check with
    ``cuobjdump -sass`` that the bf16 flash and grouped-matmul kernels run
    on the tensor cores (HMMA instructions, ``mma.sync``; the grouped
@@ -219,6 +219,24 @@ exits non-zero and prints no result:
    (``repro_torch.examples.process_map``) against the stacked run's by
    digests; each rank's window p50 is printed, labelled as gloo on one
    card and not a number between cards;
+4g. the failover scenario across processes: phase 4b's steps (the same
+   code, ``failover_run``, with the binding a parameter) on the main
+   path's store shape, the fill cut to 24 INSERT windows and the mixed
+   windows to 12 of 20, first stacked in this process (the reference),
+   then one participant a rank on a world of 8 sharing the card over gloo
+   (the leader killed before mixed window 8, detected, a follower
+   promoted, the in-flight window retried, a zombie fenced, the leader
+   revived before window 10 and rejoined by ring-tail replay) and on a
+   world of 1 on NCCL without a death: every rank's blocks of the leader,
+   the followers, the log and the detector the stacked run's rows by
+   digests after the fill, each mixed window, the promotion and the
+   rejoin; the oracle, one failover in the same detection window with the
+   same winner, the zombie fenced in the log and in rank 0's ledger, no
+   acked window lost, the followers equal to the leader, checked in every
+   rank; ``remote_copy_peers`` launched once for each ring publish on
+   every rank; each rank's replicated window p50 / p99, detection,
+   promotion and rejoin ms and GiB beside the stacked run's, labelled as
+   gloo on one card;
 5. the serving paths — ``ServingEngine.generate`` at full published width,
    bf16, random weights drawn on the card from a seeded generator, 8
    requests of 32 generated tokens in batches of 4 — on llama3.2-3b
@@ -370,7 +388,15 @@ and 3 and the timings of phase 6 count nowhere;
 the map kernels' rows carry phase 4d's and 4e's counts beside the KVStore
 path's, and phase 4f's ranks' in ``launches_paths``.
 On every replicated path the remote-copy kernel's launches must equal the
-ring's publishes.
+ring's publishes (``remote_copy_peers``' on every rank of phase 4g).
+Phase 2 also runs the ring hop between processes, ``remote_copy_peers``
+over CUDA IPC, on worlds of 2 and 8 ranks sharing the card over gloo: each
+rank's row and byte counters bitwise its plain version's (and
+``Runtime.bcast``'s where the sender map names ranks only) for broadcasts
+from 0 and 5, no senders, every rank naming itself, a permutation and
+out-of-range entries, at 20,488, 643 and 0 words; rank 0 of the world of 8
+times it at 20,488 words (the wrapper, the device operations, the plain
+version and ``Runtime.bcast`` over the same world) for phase 6's row.
 """
 from __future__ import annotations
 
@@ -1106,6 +1132,202 @@ def phase_copy_kernel(torch, rdma):
         log(f"  remote_copy [{label}]: one device operation per call "
             f"(torch.profiler, 50 calls)")
     return cases, errs
+
+
+# The hop between processes (remote_copy_peers): worlds of 2 and P ranks
+# sharing the card over gloo, each rank one participant, at the log entry's
+# packed shape at P = 8 (20,480 words and their metadata, 20,488), an odd
+# width and zero words.
+PEER_WORLDS = (2, P)
+PEER_SHAPES = (20488, 643, 0)
+PEER_TIMEOUT_S = 300
+PEER_GLOO = "gloo on one card, not a number between cards"
+
+
+def peer_maps(nodes):
+    """(label, sender map) of phase 2's hop between ``nodes`` ranks: a
+    broadcast from 0 and from 5 (the last rank in a smaller world), nobody
+    sending, every rank naming itself, a permutation, out-of-range entries
+    (int32, and an int64 map past int32)."""
+    rng = np.random.default_rng(SEED + 13)
+    five = min(5, nodes - 1)
+
+    def bcast(o):
+        return np.asarray([-1 if q == o else o for q in range(nodes)],
+                          np.int32)
+    oor = np.asarray([nodes, -1, -5, 2 ** 31 - 1, 1, nodes + 3, 0, -2 ** 31]
+                     [:nodes], np.int32)
+    past = np.asarray([2 ** 32 + 1, -1, 2 ** 33, 1, -2 ** 32 + 3, 0, 5,
+                       2 ** 31][:nodes], np.int64)
+    return [("broadcast from 0", bcast(0)),
+            (f"broadcast from {five}", bcast(five)),
+            ("no senders", np.full(nodes, -1, np.int32)),
+            ("every rank itself", np.arange(nodes, dtype=np.int32)),
+            ("permutation", rng.permutation(nodes).astype(np.int32)),
+            ("out of range", oor), ("int64 map past int32", past)]
+
+
+def rank_device_ms(torch, rt, fn, iters):
+    """:func:`device_ms` on one rank of a world whose ranks all call ``fn``
+    (a collective) at once: each rank runs the same profiler sessions, a
+    session is taken when it is whole on every rank (one all-reduce
+    decides, so every rank runs as many sessions).  Returns (device ms a
+    call, {operation: [count, device ms] a call})."""
+    for _session in range(PROFILER_SESSIONS):
+        ops, lead, tail = profiled_calls(torch, fn, iters)
+        whole = bool(lead and tail and ops and not any(
+            n % iters for n, _us in ops.values()))
+        if not rt.any(not whole):
+            per = {k[:60]: [n // iters, us / iters / 1e3]
+                   for k, (n, us) in ops.items()}
+            return sum(ms for _n, ms in per.values()), per
+        SESSIONS_RUN_AGAIN[0] += 1
+    raise SmokeFailure(f"torch.profiler lost device records on some rank "
+                       f"in each of {PROFILER_SESSIONS} sessions")
+
+
+def peer_rank(rank, nodes):
+    """One rank of a phase-2 world (spawned; the kernels built): for each
+    case of :func:`peer_maps` at each of PEER_SHAPES, its row of seeded
+    words and its entry of the map through ``remote_copy_peers`` (one
+    launch) and through its plain version on the same card tensors, and,
+    where every entry names a rank, through ``Runtime.bcast``; in the world
+    of P also the timing of the hop at PEER_SHAPES[0], a broadcast from 0.
+    Returns each case's verdicts and the timing."""
+    import torch
+
+    import repro_torch.core as pt
+    from repro_torch.kernels import remote_dma as rdma
+    from repro_torch.launch.mesh import ProcessMesh
+    mesh = ProcessMesh(nodes)
+    rt = pt.make_manager(nodes, mesh=mesh).runtime
+    windows = rdma.PeerWindows(rt)
+    g = torch.Generator().manual_seed(SEED + 14)
+    cases = []
+    for n in PEER_SHAPES:
+        words = torch.randint(-2 ** 31, 2 ** 31 - 1, (nodes, n), generator=g,
+                              dtype=torch.int32)
+        w = words[rank:rank + 1].to(mesh.device)
+        for label, smap in peer_maps(nodes):
+            s = torch.from_numpy(smap[rank:rank + 1]).to(mesh.device)
+            before = rdma.remote_copy_peers.launches
+            got = rdma.remote_copy_peers(w, s, windows)
+            torch.cuda.synchronize()
+            exp = rdma._remote_copy_peers_ref(w, s, rt)
+            bcast = None
+            if ((smap >= -1) & (smap < nodes)).all():
+                # -1 keeps the rank's own row: the broadcast from itself
+                owner = np.where(smap < 0, np.arange(nodes), smap)
+                bcast = torch.equal(got[0], rt.bcast(w, torch.from_numpy(
+                    owner[rank:rank + 1]).to(mesh.device)))
+            cases.append(dict(label=f"{label} n={n}",
+                              launched=rdma.remote_copy_peers.launches
+                              - before, err=max_abs_err(torch, got, exp),
+                              bcast=bcast))
+    out = dict(rank=rank, cases=cases, hops=windows.hops,
+               transports=dict(mesh.transports))
+    if nodes == P:
+        n = PEER_SHAPES[0]
+        w = torch.randint(-2 ** 31, 2 ** 31 - 1, (1, n), generator=g,
+                          dtype=torch.int32).to(mesh.device)
+        s = torch.tensor([-1 if rank == 0 else 0], dtype=torch.int32,
+                         device=mesh.device)
+        got = rdma.remote_copy_peers(w, s, windows)
+        err = max_abs_err(torch, got, rdma._remote_copy_peers_ref(w, s, rt))
+        dev, ops = rank_device_ms(
+            torch, rt, lambda: rdma.remote_copy_peers(w, s, windows), 50)
+        kernel = [ms for k, (_n, ms) in ops.items()
+                  if "remote_copy_peers_kernel" in k]
+        check(len(kernel) == 1, f"no remote_copy_peers_kernel among the "
+                                f"hop's device operations {ops}")
+        out["timing"] = dict(
+            n=n, err=err, device_ms=dev, kernel_device_ms=kernel[0],
+            device_ops=ops,
+            ms=cuda_ms(lambda: rdma.remote_copy_peers(w, s, windows), 50),
+            plain_ms=cuda_ms(lambda: rdma._remote_copy_peers_ref(w, s, rt),
+                             50),
+            library_ms=cuda_ms(lambda: rt.bcast(w, 0), 50),
+            # one row read (the owner's window), one written, the map read
+            # and the two counters written
+            nbytes=2 * 4 * n + 4 * nodes + 2 * 4)
+    windows.close()
+    return out
+
+
+def phase_peer_copy_kernel(torch, card):
+    """remote_copy_peers against its plain version between processes: for
+    each world of PEER_WORLDS (spawned with the kernel built), every rank's
+    row and both byte counters bitwise the plain version's (a gather and a
+    select, ``Runtime.bcast``) on the same card tensors, and its row
+    ``Runtime.bcast``'s where the map names ranks only; one launch a hop.
+    The first world is the IPC probe: two processes opening each other's
+    windows.  Returns each world's cases and the world of P's rank 0
+    timing."""
+    from repro_torch.launch.world import spawn_world
+    out = {}
+    for nodes in PEER_WORLDS:
+        t0 = time.perf_counter()
+        try:
+            ranks = spawn_world(peer_rank, nodes, backend="gloo",
+                                device=None, args=(nodes,),
+                                timeout_s=PEER_TIMEOUT_S)
+        except RuntimeError as e:
+            raise SmokeFailure(f"phase 2 remote_copy_peers, world of "
+                               f"{nodes}: {e}") from None
+        for r in ranks:
+            for c in r["cases"]:
+                what = f"remote_copy_peers world {nodes} rank {r['rank']} " \
+                       f"[{c['label']}]"
+                check(c["launched"] == 1, f"{what}: {c['launched']} launches")
+                check(c["err"] == 0.0, f"{what}: differs from the plain "
+                                       f"version, max abs err {c['err']}")
+                check(c["bcast"] in (None, True),
+                      f"{what}: differs from Runtime.bcast")
+        n_bcast = sum(c["bcast"] is True for c in ranks[0]["cases"])
+        log(f"  remote_copy_peers, world of {nodes} ({PEER_GLOO}): "
+            f"{len(ranks[0]['cases'])} cases on every rank, rows and byte "
+            f"counters bitwise the plain version's, {n_bcast} of them also "
+            f"Runtime.bcast's; one launch a hop; transports "
+            f"{ranks[0]['transports']}; {time.perf_counter() - t0:.1f} s "
+            f"with start-up; {card}")
+        out[nodes] = ranks
+    return out
+
+
+def peer_copy_report(peer, launches):
+    """remote_copy_peers' row: the hop between processes at the log entry's
+    packed shape at P = 8 (20,488 words), a broadcast from rank 0, timed on
+    rank 0 of phase 2's world of P (over gloo on one card): the wrapper's
+    time (CUDA events, the all-gather of the sender map included), the
+    device time and operations a call (torch.profiler), the plain version's
+    time, and ``Runtime.bcast`` over the same world as the library
+    yardstick (one PyTorch all-gather and a select; the port's hop never
+    calls it on the card).  Bound: one row read and one written, the map and
+    the counters, at the memory rate.  ``launches``: phase 4g's ranks' by
+    path."""
+    t = peer[P][0]["timing"]
+    m = dict(ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+             library_ms=t["library_ms"], nbytes=t["nbytes"], flops=0)
+    paths = {k: v["remote_copy_peers"] for k, v in launches.items()
+             if "remote_copy_peers" in v}
+    row = dict(name="remote_copy_peers", route="cuda",
+               source="src/repro_torch/kernels/csrc/remote_copy_peers.cu",
+               replaces="src/repro/kernels/remote_dma.py:239")
+    row.update(timing_row(m, paths[f"4g gloo world {P} rank 0"], t["err"],
+                          F32_FLOPS))
+    row["kernel_device_ms"] = t["kernel_device_ms"]
+    row["device_ops_per_call"] = {k: n for k, (n, _ms) in
+                                  t["device_ops"].items()}
+    row["launches_paths"] = paths
+    row["shape"] = f"rank 0 of {P}, n={t['n']}, broadcast from 0 " \
+                   f"({PEER_GLOO})"
+    log(f"  remote_copy_peers [{row['shape']}]: {t['ms']:.4f} ms/call "
+        f"(device {t['device_ms']:.5f}, the kernel "
+        f"{t['kernel_device_ms']:.5f}; ops {t['device_ops']}), bound "
+        f"{row['bound_ms']:.6f} ms (bytes; {t['nbytes'] / 1e3:.1f} KB), "
+        f"plain {t['plain_ms']:.4f} ms, Runtime.bcast "
+        f"{t['library_ms']:.4f} ms, launches {paths}")
+    return [row]
 
 
 def copy_nbytes(sender, n):
@@ -2906,16 +3128,17 @@ def zipf_sampler(rng):
                                          KEYS - 1)].astype(np.uint32)
 
 
-def mixed_window(rng, w):
+def mixed_window(rng, w, nodes=P):
     """The examples/kvstore_app.py mix: 60/20/10/10 GET/UPDATE/INSERT/DELETE
-    over P·B distinct uniform keys."""
-    span = P * B
+    over nodes·B distinct uniform keys."""
+    span = nodes * B
     ks = rng.choice(KEYS, size=span, replace=False).astype(np.uint32) + 1
     ops = rng.choice([GET, UPDATE, INSERT, DELETE], size=span,
                      p=[.6, .2, .1, .1]).astype(np.int32)
     vals = np.stack([ks.astype(np.int32) * 5 + w,
                      np.full(span, w, np.int32)], 1)
-    return ops.reshape(P, B), ks.reshape(P, B), vals.reshape(P, B, W)
+    return (ops.reshape(nodes, B), ks.reshape(nodes, B),
+            vals.reshape(nodes, B, W))
 
 
 def zipf_window(zipf, rng, w):
@@ -3311,27 +3534,40 @@ def phase_migration(torch, pt, cfg, st, oracle, slots):
 # phase 4b: the failover scenario on the KVStore path's store
 # ---------------------------------------------------------------------------
 
-def phase_failover(torch, pt, rdma, slots):
-    """Steps 1-7 of benchmarks/bench_failover.py at the KVStore path's size,
-    on the remote-DMA backend: a leader store, two follower stores and a
-    ReplicatedLog(window=B, capacity=4), a FailureDetector(threshold=2).
-    Prefill 80% of K and run MIX_WINDOWS mixed windows, each appended and
-    synced.  Participant 0, the leader, dies before mixed window FO_KILL:
-    the window before it is acked but unsynced; heartbeat windows run until
-    the detector's verdict; a follower is promoted; the followers catch up;
-    the in-flight window is retried through the new leader; a zombie publish
-    at the stale epoch is fenced.  Participant 0 comes back before window
-    FO_REVIVE with a cursor gap of the ring's capacity and rejoins by
-    ring-tail replay.  A participant's slice of a window is NOP while it is
-    dead or behind the log, and in the window before its death: a slice
-    replayed late would commit in another order than on the leader.  Every
-    GET and ``found`` of the leader is checked against the oracle; the
-    followers must equal the leader bitwise at the end.  Returns the
-    metrics and the launches of the path's kernels."""
+def failover_run(torch, pt, rdma, *, nodes=P, mesh=None, fill_windows=None,
+                 mix_windows=MIX_WINDOWS, digests=None):
+    """Steps 1-7 of benchmarks/bench_failover.py at the KVStore path's
+    store shape, on the remote-DMA backend, on one binding: the stacked one
+    (``mesh`` None, the ``nodes`` participants on the card) or one
+    participant a rank of ``mesh`` (a ``ProcessMesh(nodes)``; every rank
+    calls this at once, and the steering reads are world-uniform).
+
+    A leader store, two follower stores and a ReplicatedLog(window=B,
+    capacity=4), a FailureDetector(threshold=2).  Prefill 80% of K (or
+    ``fill_windows`` INSERT windows) and run ``mix_windows`` mixed windows,
+    each appended and synced.  With more than one participant, participant
+    0, the leader, dies before mixed window FO_KILL: the window before it is
+    acked but unsynced; heartbeat windows run until the detector's verdict;
+    a follower is promoted; the followers catch up; the in-flight window is
+    retried through the new leader; a zombie publish at the stale epoch is
+    fenced.  Participant 0 comes back before window FO_REVIVE with a cursor
+    gap of the ring's capacity and rejoins by ring-tail replay.  A
+    participant's slice of a window is NOP while it is dead or behind the
+    log, and in the window before its death: a slice replayed late would
+    commit in another order than on the leader.  Every GET and ``found`` of
+    the leader is checked against the oracle; the followers must equal the
+    leader bitwise at the end.  ``digests`` (a dict) receives, after the
+    fill, every mixed window, the promotion and the rejoin, the digests of
+    every held participant's blocks of the leader, the followers, the log
+    and the detector.  Returns the metrics and the launches of the path's
+    kernels (the ring's hop kernel ``remote_copy`` stacked,
+    ``remote_copy_peers`` between ranks)."""
     from repro_torch.core import (FailureDetector, ReplicatedLog,
                                   diverging_leaves)
-    mgr = pt.make_manager(P, backend="pallas")
+    mgr = pt.make_manager(nodes, backend="pallas", mesh=mesh)
+    rt = mgr.runtime
     mgr.traffic.enable()
+    slots = KEYS // nodes + 4
     kw = dict(slots_per_node=slots, value_width=W, num_locks=4096,
               index_capacity=4 * KEYS)
     lead = pt.KVStore(None, "fo_lead", mgr, **kw)
@@ -3343,51 +3579,68 @@ def phase_failover(torch, pt, rdma, slots):
               fols=tuple(f.init_state() for f in fols),
               log=rlog.init_state(), det=det.init_state())
     torch.cuda.synchronize()
-    log(f"  three stores of P={P} K={KEYS} and a log of {rlog.entry_width}-"
-        f"word entries; device memory "
-        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
-    alive = np.ones(P, bool)
-    oracle = Oracle(KEYS, slots)
+    state_gib = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"  three stores of P={nodes} K={KEYS} and a log of "
+        f"{rlog.entry_width}-word entries; device memory {state_gib:.3f} "
+        f"GiB" + ("" if rt.stacked else f" on rank {rt.rank}"))
+    held = rt.my_id().tolist()
+    alive = np.ones(nodes, bool)
+    oracle = Oracle(KEYS, slots, nodes)
     rng = np.random.default_rng(SEED + 7)
-    kernels = rdma.KERNELS + (rdma.remote_copy,)
+    hop = rdma.remote_copy if rt.stacked else rdma.remote_copy_peers
+    kernels = rdma.KERNELS + (hop,)
     for k in kernels:
         k.launches = 0
     rlog.ring.publishes = 0
     torch.cuda.reset_peak_memory_stats()
+    kill = nodes > 1
+
+    def cut(a):
+        return a[held[0]:held[-1] + 1]
 
     def mask():
         return torch.from_numpy(alive.copy()).cuda()
 
+    def digest(label):
+        if digests is not None:
+            trees = (st["lead"], *st["fols"], st["log"], st["det"])
+            digests[label] = [pm4_digests(torch, trees, p - held[0])
+                              for p in held]
+
     def apply(ops, ks, vals, what):
-        st["lead"], res = lead.op_window(st["lead"], ops, ks, vals)
-        verify(res, oracle.window(ops, ks, vals), what)
+        st["lead"], res = lead.op_window(st["lead"], cut(ops), cut(ks),
+                                         cut(vals))
+        verify(res, tuple(cut(e) for e in oracle.window(ops, ks, vals)),
+               what)
 
     def heartbeat():
         st["log"], st["det"], verdict = rlog.heartbeat_and_detect(
-            st["log"], st["det"], det, pred=mask())
+            st["log"], st["det"], det, pred=rt.mine(mask()))
         return verdict[0].cpu().numpy()
 
     def append(ops, ks, vals):
         a = mask()
-        st["log"], ok = rlog.append(st["log"], ops, ks, vals,
+        st["log"], ok = rlog.append(st["log"], cut(ops), cut(ks), cut(vals),
                                     pred=a[st["log"].ring.owner.long()])
         return bool(ok[0])
 
     def sync():
         st["log"], st["fols"], n = rlog.sync(st["log"], fols, st["fols"],
-                                             max_entries=1, pred=mask())
-        return int(n.cpu().numpy()[alive].min())   # at every live lane
+                                             max_entries=1,
+                                             pred=rt.mine(mask()))
+        return int(rt.gather(n).cpu().numpy()[alive].min())  # live lanes
 
     def lag():
         return int(rlog.lag(st["log"])[0])
 
     def converged(lanes=None):
         sel = None if lanes is None else torch.from_numpy(lanes).cuda()
-        return all(diverging_leaves(st["lead"], f, lanes=sel) == []
-                   for f in st["fols"])
+        return not rt.any(any(diverging_leaves(st["lead"], f, lanes=sel,
+                                               rt=rt)
+                              for f in st["fols"]))
 
     def window(w, quiet=()):
-        ops, ks, vals = mixed_window(rng, w)
+        ops, ks, vals = mixed_window(rng, w, nodes)
         for p in quiet:
             ops[p] = NOP
         return ops, ks, vals
@@ -3400,8 +3653,8 @@ def phase_failover(torch, pt, rdma, slots):
         return out, time.perf_counter() - t0
 
     # -- 1. prefill through the log, each window appended and synced
-    span = P * B
-    n_fill = int(KEYS * FILL)
+    span = nodes * B
+    n_fill = int(KEYS * FILL) if fill_windows is None else fill_windows * span
     fill_keys = np.arange(1, n_fill + 1, dtype=np.uint32)
     t_fill = time.perf_counter()
     n_fill_windows = 0
@@ -3413,8 +3666,8 @@ def phase_failover(torch, pt, rdma, slots):
         ops[:chunk.size] = INSERT
         ks[:chunk.size] = chunk
         vals[:chunk.size, 0] = chunk.astype(np.int32) * 3
-        ops, ks, vals = ops.reshape(P, B), ks.reshape(P, B), \
-            vals.reshape(P, B, W)
+        ops, ks, vals = ops.reshape(nodes, B), ks.reshape(nodes, B), \
+            vals.reshape(nodes, B, W)
         apply(ops, ks, vals, f"replicated prefill window {i // span}")
         check(append(ops, ks, vals), "a prefill window was not acked")
         check(sync() == 1, "a prefill window was not replayed")
@@ -3422,6 +3675,7 @@ def phase_failover(torch, pt, rdma, slots):
     torch.cuda.synchronize()
     t_fill = time.perf_counter() - t_fill
     acked = n_fill_windows
+    digest("fill")
     log(f"  replicated prefill: {n_fill} inserts in {n_fill_windows} windows "
         f"in {t_fill:.1f} s, each appended and synced, oracle-checked")
 
@@ -3437,101 +3691,134 @@ def phase_failover(torch, pt, rdma, slots):
         (ok, n), dt = timed(step)
         check(ok and n == 1 and lag() == 0,
               f"mixed window {w}: ok {ok}, replayed {n}, lag {lag()}")
+        digest(f"mix {w}")
         return dt
 
-    steady_t = [steady(w) for w in range(FO_KILL - 1)]
-    acked += FO_KILL - 1
+    if not kill:
+        steady_t = [steady(w) for w in range(mix_windows)]
+        acked += mix_windows
+        metrics = dict(detection_windows=None, promotion_ms=None,
+                       catchup_syncs=None, retry_ms=None, fenced=None,
+                       ledger_fenced=None, replay_rejoin_entries=None,
+                       replay_rejoin_ms=None)
+        winner = 0
+    else:
+        steady_t = [steady(w) for w in range(FO_KILL - 1)]
+        acked += FO_KILL - 1
 
-    # -- 2. the last window before the crash: acked, not synced
-    ops, ks, vals = window(FO_KILL - 1, quiet=(0,))
-    apply(ops, ks, vals, f"mixed window {FO_KILL - 1}")
-    heartbeat()
-    check(append(ops, ks, vals), "the pre-crash window must be acked")
-    acked += 1
-    check(lag() == 1, "the pre-crash window must stay unsynced")
-
-    # -- 3a. participant 0 dies: heartbeat windows until the verdict
-    alive[0] = False
-    detect = 0
-    verdict = np.ones(P, bool)
-    while verdict[0]:
-        verdict = heartbeat()
-        detect += 1
-        check(detect <= 2 * DETECT_THRESHOLD, "no verdict on participant 0")
-    check(detect == DETECT_THRESHOLD and not verdict[0] and verdict[1:].all(),
-          f"verdict {verdict.tolist()} after {detect} windows")
-
-    # -- 3. promotion, driven by the verdict
-    (st["log"], winner), promote_s = timed(lambda: rlog.promote(
-        st["log"], torch.from_numpy(verdict.copy()).cuda()))
-    winner = int(winner[0])
-    check(winner == 1, f"equal cursors: rank 1 must win, got {winner}")
-
-    # -- 4. bounded catch-up, then zero acked-window loss on the live lanes
-    catchup = 0
-    while lag():
-        sync()
-        catchup += 1
-        check(catchup <= LOG_CAPACITY, "catch-up must be bounded by the ring")
-    check(converged(lanes=alive), "a follower lost acked windows across the "
-                                  "failover")
-
-    # -- 5. the in-flight window retries through the new leader
-    ops, ks, vals = window(FO_KILL, quiet=(0,))
-
-    def retry():
-        apply(ops, ks, vals, f"retried window {FO_KILL}")
+        # -- 2. the last window before the crash: acked, not synced
+        ops, ks, vals = window(FO_KILL - 1, quiet=(0,))
+        apply(ops, ks, vals, f"mixed window {FO_KILL - 1}")
         heartbeat()
-        a = mask()
-        st["log"], st["fols"], ok, _n = rlog.append_with_retry(
-            st["log"], ops, ks, vals, fols, st["fols"], max_attempts=2,
-            pred=a[st["log"].ring.owner.long()], sync_pred=a)
-        return bool(ok[0])
-    ok, retry_s = timed(retry)
-    check(ok and lag() == 0, "the retried window must publish and drain")
-    acked += 1
+        check(append(ops, ks, vals), "the pre-crash window must be acked")
+        acked += 1
+        check(lag() == 1, "the pre-crash window must stay unsynced")
+        digest(f"mix {FO_KILL - 1}")
 
-    # -- 6. a zombie publish from the dead leader is fenced at delivery
-    zops = np.full((P, B), NOP, np.int32)
-    zops[1, 0] = UPDATE
-    zks = np.ones((P, B), np.uint32)
-    zks[1, 0] = 1
-    zvals = np.full((P, B, W), -777, np.int32)
-    st["log"], landed = rlog.zombie_publish(st["log"], zops, zks, zvals,
-                                            zombie=0, stale_epoch=0)
-    check(bool(landed[0]), "the zombie write must land in the ring")
-    check(sync() == 0, "a fenced entry must not apply")
-    fenced = int(st["log"].fenced[0])
-    check(fenced >= 1, "the zombie entry must be counted as fenced")
+        # -- 3a. participant 0 dies: heartbeat windows until the verdict
+        alive[0] = False
+        detect = 0
+        verdict = np.ones(nodes, bool)
+        while verdict[0]:
+            verdict = heartbeat()
+            detect += 1
+            check(detect <= 2 * DETECT_THRESHOLD,
+                  "no verdict on participant 0")
+        check(detect == DETECT_THRESHOLD and not verdict[0]
+              and verdict[1:].all(),
+              f"verdict {verdict.tolist()} after {detect} windows")
 
-    # -- 7. more windows through the new leader, participant 0 still dead
-    steady_t += [steady(w, quiet=(0,)) for w in range(FO_KILL + 1, FO_REVIVE)]
-    acked += FO_REVIVE - FO_KILL - 1
+        # -- 3. promotion, driven by the verdict
+        (st["log"], winner), promote_s = timed(lambda: rlog.promote(
+            st["log"], torch.from_numpy(verdict.copy()).cuda()))
+        winner = int(winner[0])
+        check(winner == 1, f"equal cursors: rank 1 must win, got {winner}")
+        digest("promote")
 
-    # -- participant 0 comes back: replay rejoin from the ring's tail
-    alive[0] = True
-    node = torch.zeros((P,), dtype=torch.int64).cuda()
-    check(not bool(rlog.needs_snapshot(st["log"], node)[0]),
-          "the gap must fit the ring: replay rejoin")
-    gap = int((st["log"].ring.head[1] - st["log"].ring.acks.cached[1, 0])
-              & 0xFFFFFFFF)
-
-    def rejoin():
-        st["log"] = rlog.readmit(st["log"], node)
-        st["det"] = det.readmit(st["det"], 0)
-        n = 0
+        # -- 4. bounded catch-up, then zero acked-window loss on the live
+        # lanes
+        catchup = 0
         while lag():
             sync()
-            n += 1
-            check(n <= LOG_CAPACITY, "replay must be bounded by the ring")
-        return n
-    replayed, rejoin_s = timed(rejoin)
-    check(replayed == gap == LOG_CAPACITY,
-          f"replayed {replayed} entries for a gap of {gap}")
-    check(converged(), "the rejoined participant's replicas differ")
+            catchup += 1
+            check(catchup <= LOG_CAPACITY,
+                  "catch-up must be bounded by the ring")
+        check(converged(lanes=alive), "a follower lost acked windows "
+                                      "across the failover")
 
-    steady_t += [steady(w) for w in range(FO_REVIVE, MIX_WINDOWS)]
-    acked += MIX_WINDOWS - FO_REVIVE
+        # -- 5. the in-flight window retries through the new leader
+        ops, ks, vals = window(FO_KILL, quiet=(0,))
+
+        def retry():
+            apply(ops, ks, vals, f"retried window {FO_KILL}")
+            heartbeat()
+            a = mask()
+            st["log"], st["fols"], ok, _n = rlog.append_with_retry(
+                st["log"], cut(ops), cut(ks), cut(vals), fols, st["fols"],
+                max_attempts=2, pred=a[st["log"].ring.owner.long()],
+                sync_pred=rt.mine(a))
+            return bool(ok[0])
+        ok, retry_s = timed(retry)
+        check(ok and lag() == 0, "the retried window must publish and drain")
+        acked += 1
+        digest(f"mix {FO_KILL}")
+
+        # -- 6. a zombie publish from the dead leader is fenced at delivery
+        zops = np.full((nodes, B), NOP, np.int32)
+        zops[1, 0] = UPDATE
+        zks = np.ones((nodes, B), np.uint32)
+        zks[1, 0] = 1
+        zvals = np.full((nodes, B, W), -777, np.int32)
+        st["log"], landed = rlog.zombie_publish(
+            st["log"], cut(zops), cut(zks), cut(zvals), zombie=0,
+            stale_epoch=0)
+        check(bool(landed[0]), "the zombie write must land in the ring")
+        check(sync() == 0, "a fenced entry must not apply")
+        fenced = int(st["log"].fenced[0])
+        check(fenced >= 1, "the zombie entry must be counted as fenced")
+
+        # -- 7. more windows through the new leader, participant 0 still
+        # dead
+        steady_t += [steady(w, quiet=(0,))
+                     for w in range(FO_KILL + 1, FO_REVIVE)]
+        acked += FO_REVIVE - FO_KILL - 1
+
+        # -- participant 0 comes back: replay rejoin from the ring's tail
+        alive[0] = True
+        check(not bool(rlog.needs_snapshot(st["log"], 0)[0]),
+              "the gap must fit the ring: replay rejoin")
+        # participant 1's view: a live one
+        head, cursor0 = (int(rt.gather(x)[1]) for x in (
+            st["log"].ring.head, st["log"].ring.acks.cached[:, 0]))
+        gap = (head - cursor0) & 0xFFFFFFFF
+
+        def rejoin():
+            st["log"] = rlog.readmit(st["log"], 0)
+            st["det"] = det.readmit(st["det"], 0)
+            n = 0
+            while lag():
+                sync()
+                n += 1
+                check(n <= LOG_CAPACITY, "replay must be bounded by the ring")
+            return n
+        replayed, rejoin_s = timed(rejoin)
+        check(replayed == gap == LOG_CAPACITY,
+              f"replayed {replayed} entries for a gap of {gap}")
+        check(converged(), "the rejoined participant's replicas differ")
+        digest("rejoin")
+
+        steady_t += [steady(w) for w in range(FO_REVIVE, mix_windows)]
+        acked += mix_windows - FO_REVIVE
+        ledger_fenced = sum(mgr.traffic.fenced_summary().values())
+        if rt.lead:
+            check(ledger_fenced >= 1, "the ledger's fenced tier must count "
+                                      "the zombie")
+        metrics = dict(detection_windows=detect,
+                       promotion_ms=promote_s * 1e3, catchup_syncs=catchup,
+                       retry_ms=retry_s * 1e3, fenced=fenced,
+                       ledger_fenced=ledger_fenced,
+                       replay_rejoin_entries=replayed,
+                       replay_rejoin_ms=rejoin_s * 1e3)
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
     publishes = rlog.ring.publishes
@@ -3541,40 +3828,157 @@ def phase_failover(torch, pt, rdma, slots):
     epoch = int(rlog.epoch(lg)[0])
     check(lag() == 0 and converged(),
           "zero acked-window loss: every follower equals the leader")
-    check(epoch == 1 and int(lg.failovers[0]) == 1,
+    check(epoch == int(kill) and int(lg.failovers[0]) == int(kill),
           f"epoch {epoch}, failovers {int(lg.failovers[0])}")
     check(int(lg.dropped[0]) == 0, "an append was dropped")
     check(int(lg.published[0]) == acked,
           f"published {int(lg.published[0])} != acked {acked}")
-    ledger_fenced = sum(mgr.traffic.fenced_summary().values())
-    check(ledger_fenced >= 1, "the ledger's fenced tier must count the "
-                              "zombie")
-    check(launches["remote_copy"] == publishes > 0,
-          f"remote_copy launched {launches['remote_copy']} times for "
+    check(launches[hop.__name__] == publishes > 0,
+          f"{hop.__name__} launched {launches[hop.__name__]} times for "
           f"{publishes} ring publishes")
     for name in ("build_descriptors", "gather_rows", "scatter_rows"):
         check(launches[name] > 0, f"{name} was not launched on the failover "
                                   f"path")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"  failover: epoch 0 -> 1, winner {winner}, detection in {detect} "
-        f"windows, promotion {promote_s * 1e3:.2f} ms, catch-up {catchup} "
-        f"syncs, retry {retry_s * 1e3:.2f} ms, fenced {fenced} (ledger "
-        f"{ledger_fenced}), replay rejoin of {replayed} entries in "
-        f"{rejoin_s * 1e3:.2f} ms; {acked} acked windows, every follower "
-        f"bitwise equal to the leader; {publishes} ring publishes; launches "
-        f"{launches}")
-    return dict(
+    rlog.close()
+    where = "" if rt.stacked else f"rank {rt.rank}: "
+    log(f"  {where}failover: epoch 0 -> {epoch}, winner {winner}, detection "
+        f"in {metrics['detection_windows']} windows, promotion "
+        f"{metrics['promotion_ms']} ms, catch-up {metrics['catchup_syncs']} "
+        f"syncs, retry {metrics['retry_ms']} ms, fenced {metrics['fenced']} "
+        f"(ledger {metrics['ledger_fenced']}), replay rejoin of "
+        f"{metrics['replay_rejoin_entries']} entries in "
+        f"{metrics['replay_rejoin_ms']} ms; {acked} acked windows, every "
+        f"follower bitwise equal to the leader; {publishes} ring publishes; "
+        f"launches {launches}")
+    metrics.update(
         prefill_ops=n_fill, prefill_windows=n_fill_windows,
         prefill_s=t_fill, prefill_ops_per_s=n_fill / t_fill,
         steady_windows=len(steady_t),
         steady_window_p50_ms=float(np.percentile(steady_t, 50)) * 1e3,
         steady_window_p99_ms=float(np.percentile(steady_t, 99)) * 1e3,
-        detection_windows=detect, promotion_ms=promote_s * 1e3,
-        catchup_syncs=catchup, retry_ms=retry_s * 1e3, fenced=fenced,
-        ledger_fenced=ledger_fenced, replay_rejoin_entries=replayed,
-        replay_rejoin_ms=rejoin_s * 1e3, acked_windows=acked,
-        ring_publishes=publishes, epoch=epoch, peak_device_gib=peak), \
-        launches
+        acked_windows=acked, ring_publishes=publishes, epoch=epoch,
+        state_gib=state_gib, peak_device_gib=peak)
+    return metrics, launches
+
+
+def phase_failover(torch, pt, rdma, slots):
+    """Phase 4b: :func:`failover_run` on the stacked binding at the KVStore
+    path's size (P participants, the whole prefill, MIX_WINDOWS mixed
+    windows)."""
+    check(slots == KEYS // P + 4, "4b: the KVStore path's slots")
+    return failover_run(torch, pt, rdma)
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: the failover scenario across processes
+# ---------------------------------------------------------------------------
+
+# Phase 4b's scenario, one participant a rank: a world of P sharing the card
+# over gloo, with the leader's death, and a world of 1 on NCCL without (one
+# participant cannot lose its leader).  The store shape is the main path's;
+# cut are the fill, to FO_PM_FILL INSERT windows (phase 4f's cut), and the
+# mixed windows, to FO_PM_MIX of MIX_WINDOWS.
+FO_PM_WORLDS = (("nccl", 1), ("gloo", P))
+FO_PM_FILL = 24
+FO_PM_MIX = 12
+FO_PM_TIMEOUT_S = 600
+
+
+def fo_rank(rank, nodes):
+    """One rank of a phase-4g world: :func:`failover_run` on
+    ``ProcessMesh(nodes)``, its digests, metrics and launches."""
+    import torch
+
+    import repro_torch.core as pt
+    from repro_torch.kernels import remote_dma as rdma
+    from repro_torch.launch.mesh import ProcessMesh
+    mesh = ProcessMesh(nodes)
+    digests = {}
+    metrics, launches = failover_run(
+        torch, pt, rdma, nodes=nodes, mesh=mesh, fill_windows=FO_PM_FILL,
+        mix_windows=FO_PM_MIX, digests=digests)
+    return dict(rank=rank, device=str(mesh.device), backend=mesh.backend,
+                transports=dict(mesh.transports), digests=digests,
+                metrics=metrics, launches=launches)
+
+
+def phase_failover_processes(torch, pt, rdma, card):
+    """Phase 4g: for each world of FO_PM_WORLDS, :func:`failover_run` on the
+    stacked binding of its node count on the card (the reference: oracle,
+    invariants and each participant's digests after the fill, every mixed
+    window, the promotion and the rejoin), then the world is spawned from
+    this process with the kernels built: every rank's digests the stacked
+    participant's, the same failover (detection window, winner, fenced
+    zombie in the log and in rank 0's ledger, no acked window lost,
+    followers equal to the leader, checked in each rank), and on every rank
+    ``remote_copy_peers`` launched once for each ring publish.  Returns the
+    metrics and each rank's launches by path label."""
+    from repro_torch.launch.world import spawn_world
+    metrics, launches = {}, {}
+    for backend, nodes in FO_PM_WORLDS:
+        label = f"world {nodes} on {backend}" + (
+            f" ({PM4_GLOO})" if nodes > 1 else "")
+        want = {}
+        ref_metrics, _ref_launches = failover_run(
+            torch, pt, rdma, nodes=nodes, fill_windows=FO_PM_FILL,
+            mix_windows=FO_PM_MIX, digests=want)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            ranks = spawn_world(fo_rank, nodes, backend=backend, device=None,
+                                args=(nodes,), timeout_s=FO_PM_TIMEOUT_S)
+        except RuntimeError as e:
+            raise SmokeFailure(f"phase 4g {label}: {e}") from None
+        wall = time.perf_counter() - t0
+        for r in ranks:
+            p, m = r["rank"], r["metrics"]
+            check(sorted(r["digests"]) == sorted(want),
+                  f"4g {label} rank {p}: digests taken at "
+                  f"{sorted(r['digests'])}, the stacked run's at "
+                  f"{sorted(want)}")
+            bad = [k for k in want if r["digests"][k] != [want[k][p]]]
+            check(not bad, f"4g {label} rank {p}: the blocks differ from "
+                           f"the stacked run's rows at {bad}")
+            for key in ("detection_windows", "epoch", "acked_windows",
+                        "ring_publishes", "fenced"):
+                check(m[key] == ref_metrics[key],
+                      f"4g {label} rank {p}: {key} {m[key]}, the stacked "
+                      f"run's {ref_metrics[key]}")
+            check(r["launches"]["remote_copy_peers"] == m["ring_publishes"],
+                  f"4g {label} rank {p}: remote_copy_peers launched "
+                  f"{r['launches']['remote_copy_peers']} times for "
+                  f"{m['ring_publishes']} ring publishes")
+            launches[f"4g {backend} world {nodes} rank {p}"] = r["launches"]
+        if nodes > 1:
+            check(ranks[0]["metrics"]["ledger_fenced"] >= 1,
+                  f"4g {label}: rank 0's ledger must count the zombie")
+        keys = ("steady_window_p50_ms", "steady_window_p99_ms",
+                "detection_windows", "promotion_ms", "replay_rejoin_ms",
+                "prefill_s", "state_gib", "peak_device_gib")
+        metrics[label] = dict(
+            backend=backend, nodes=nodes, card=card, wall_s=wall,
+            transports=ranks[0]["transports"],
+            devices=sorted({r["device"] for r in ranks}),
+            windows=dict(fill=FO_PM_FILL, mix=FO_PM_MIX),
+            stacked={k: ref_metrics[k] for k in keys},
+            ranks=[{k: r["metrics"][k] for k in keys} for r in ranks],
+            launches=[r["launches"] for r in ranks])
+        log(f"  4g {label}: {wall:.1f} s with start-up; transports "
+            f"{ranks[0]['transports']}; every rank's blocks of the leader, "
+            f"the followers, the log and the detector bitwise the stacked "
+            f"run's rows after the fill, each mixed window"
+            + (", the promotion and the rejoin" if nodes > 1 else "")
+            + f"; oracle-checked; {card}")
+        log(f"    stacked, {nodes} participants on the card: "
+            f"{json.dumps(metrics[label]['stacked'])}")
+        for r in ranks:
+            log(f"    rank {r['rank']} ({r['device']}): "
+                f"{json.dumps({k: r['metrics'][k] for k in keys})}"
+                + (f" [{PM4_GLOO}]" if nodes > 1 else "")
+                + f"; launches {r['launches']}")
+    return metrics, launches
 
 
 # ---------------------------------------------------------------------------
@@ -7251,7 +7655,8 @@ def main() -> int:
         _nvcc.build("remote_dma", "flash_attention", "flash_attention_bwd",
                     "flash_attention_bwd_sm90", "decode_attention",
                     "rglru_scan", "wkv6", "wkv6_bwd", "moe_gmm",
-                    "moe_gmm_dx", "moe_gmm_dw", "remote_copy")
+                    "moe_gmm_dx", "moe_gmm_dw", "remote_copy",
+                    "remote_copy_peers")
         for name, out in _nvcc.BUILD_LOGS.items():
             log(f"  nvcc {name}.cu:\n" + "\n".join(
                 "    " + ln for ln in out.strip().splitlines()))
@@ -7297,6 +7702,10 @@ def main() -> int:
         log("phase 2: kernels against their plain versions")
         cases, errs = phase_kernels(torch, rdma, slots)
         copy_cases_, copy_errs = phase_copy_kernel(torch, rdma)
+        t2 = time.perf_counter()
+        peer = phase_peer_copy_kernel(torch, card)
+        log(f"  the hop between processes took {time.perf_counter() - t2:.1f} "
+            f"s")
         _attn_cases, attn_errs = phase_attention_kernels(torch,
                                                          model_kernels)
         _rec_cases, rec_errs = phase_recurrent_kernels(torch, model_kernels)
@@ -7351,6 +7760,14 @@ def main() -> int:
         map_metrics, map_launches = phase_map_processes(torch, pt, rdma,
                                                         card)
         log(f"  map across processes took {time.perf_counter() - t4:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("phase 4g: the failover scenario across processes")
+        t4 = time.perf_counter()
+        fo_pm_metrics, fo_pm_launches = phase_failover_processes(
+            torch, pt, rdma, card)
+        log(f"  failover across processes took "
+            f"{time.perf_counter() - t4:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
         log("phase 5: the serving paths")
@@ -7421,6 +7838,7 @@ def main() -> int:
             "failover": fo_launches["remote_copy"],
             "serving": serve_launches[path_label(SERVE_PATHS[1])][
                 "remote_copy"]})
+        kernels += peer_copy_report(peer, fo_pm_launches)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -7430,6 +7848,7 @@ def main() -> int:
     log(json.dumps(dict(kvstore=metrics, failover=fo_metrics,
                         channels=chan_metrics, spec_store=spec_metrics,
                         map_processes=map_metrics,
+                        failover_processes=fo_pm_metrics,
                         serving=serve_metrics, training=train_metrics,
                         profiler_marks_lost=MARKS_LOST[0],
                         profiler_sessions_run_again=SESSIONS_RUN_AGAIN[0],

@@ -26,9 +26,9 @@ Every verb takes the runtime ``rt`` its channel is bound to (stacked over
 the buffer's leading dimension when None).  On a process runtime each rank
 runs the same verbs on its own block: on ``pallas`` it launches the
 descriptor kernel on its own lanes and the row kernels on its own buffer
-against the gathered lanes of every participant.  The ring's hop between
-ranks is not ported yet: :meth:`CollsBackend.publish_hop` refuses a process
-runtime (ROADMAP item 12(e)).
+against the gathered lanes of every participant, and the ring's hop pulls
+the owner's packed row from the owner's process by CUDA IPC
+(:func:`repro_torch.kernels.remote_dma.remote_copy_peers`).
 """
 from __future__ import annotations
 
@@ -89,17 +89,24 @@ class CollsBackend:
         raise NotImplementedError
 
     def record_publish(self, ledger, verb, slot_nbytes, n_moved):
-        """Ledger model of a ringbuffer publish of ``n_moved`` (P,) slots."""
+        """Ledger model of a ringbuffer publish of ``n_moved`` (P,) slots
+        (every participant's count: the ring files it on the lead binding
+        alone)."""
         raise NotImplementedError
 
-    def publish_hop(self, values, owner, rt=None):
+    def publish_hop(self, values, owner, rt=None, windows=None):
         """The ring publish's wire hop: every participant receives the
-        owner's copy of each (P, ...) tensor in ``values``; ``owner`` is the
-        ring state's (P,) owner.  A view of the owner's row, as
-        :func:`colls.bcast_from` realizes it.  Stacked only (see
-        :func:`refuse_process`)."""
-        refuse_process(rt, "the ring publish's hop")
-        return [colls.bcast_from(v, owner) for v in values]
+        owner's copy of each (n, ...) tensor in ``values``; ``owner`` is the
+        ring state's (n,) owner.  :func:`colls.bcast_from` of each value: a
+        view of the owner's row stacked; between ranks the reference's
+        ``bcast_from`` under ``shard_map``, the values packed bit for bit
+        into one word row so that one gather moves them all.  ``windows``
+        (the ring's :class:`~repro_torch.kernels.remote_dma.PeerWindows`)
+        is the remote-DMA backend's."""
+        if rt is None or rt.stacked:
+            return [colls.bcast_from(v, owner, rt) for v in values]
+        return _packed_hop(values,
+                           lambda words: colls.bcast_from(words, owner, rt))
 
 
 class OneSidedBackend(CollsBackend):
@@ -242,43 +249,43 @@ class PallasDmaBackend(CollsBackend):
                       * torch.as_tensor(n_moved).to(torch.float64))
         colls.record_rounds(ledger, verb, 1.0)
 
-    def publish_hop(self, values, owner, rt=None):
-        """The hop on the remote-copy kernel: the values are packed bit for
-        bit into one (P, n) int32 word buffer (n padded to a multiple of
-        four) and copied from the owner's row into every other row in one
-        launch; the owner keeps its own.  Values are bitwise those of the
-        one-sided hop.  The kernel's measured bytes are not filed: the
-        reference's emulated broadcast files no measured row for a publish
-        either.  Stacked only (see :func:`refuse_process`)."""
-        refuse_process(rt, "the ring publish's hop")
-        words = [to_words(v) for v in values]
-        n = sum(w.shape[1] for w in words)
-        # rows of whole 16-byte units take the kernel's vector path
-        words.append(words[0].new_zeros((words[0].shape[0], -n % 4)))
-        words = torch.cat(words, dim=1)
+    def publish_hop(self, values, owner, rt=None, windows=None):
+        """The hop on the remote-copy kernels: the values are packed bit for
+        bit into one (n, m) int32 word row a participant (m padded to a
+        multiple of four) and the owner's row is copied to every other
+        participant in one launch; the owner keeps its own.  Stacked, the
+        copy runs between the rows of one buffer
+        (:func:`~repro_torch.kernels.remote_dma.remote_copy`); between
+        ranks each rank pulls the owner's row out of the owner's process
+        through ``windows`` (:func:`~repro_torch.kernels.remote_dma.
+        remote_copy_peers`).  Values are bitwise those of the one-sided
+        hop.  The kernel's measured bytes are not filed: the reference's
+        emulated broadcast files no measured row for a publish either."""
+        rt = colls._rt(rt, owner)
         # the map in the owner's dtype (int32): the kernel takes it as is
-        me = torch.arange(owner.shape[0], dtype=owner.dtype,
-                          device=owner.device)
+        me = rt.my_id().to(owner.dtype)
         sender = torch.where(owner == me, -1, owner)
-        out, _sent, _recv = colls._dma().remote_copy(words, words, sender)
-        res, off = [], 0
-        for v in values:
-            k = v[0].numel()
-            res.append(from_words(out[:, off:off + k], v))
-            off += k
-        return res
+        if rt.stacked:
+            return _packed_hop(values, lambda words: colls._dma().remote_copy(
+                words, words, sender)[0])
+        return _packed_hop(values, lambda words: colls._dma()
+                           .remote_copy_peers(words, sender, windows)[0])
 
 
-def refuse_process(rt, what: str):
-    """Raise ``NotImplementedError`` when ``rt`` is a process runtime: the
-    ring, the replicated log and the failure detector (and the ring's hop
-    between ranks) run on the stacked binding only until ROADMAP item
-    12(e) ports the hop between ranks.  No stacked copy is run in their
-    place."""
-    if rt is not None and not rt.stacked:
-        raise NotImplementedError(
-            f"{what} has no process binding yet (ROADMAP item 12(e): the "
-            f"ring hop between ranks); build it on a stacked manager")
+def _packed_hop(values, hop):
+    """``values`` packed bit for bit into one (n, m) int32 word row a
+    participant (m padded to a multiple of four: rows of whole 16-byte
+    units), moved by ``hop`` (words → words) and unpacked."""
+    words = [to_words(v) for v in values]
+    n = sum(w.shape[1] for w in words)
+    words.append(words[0].new_zeros((words[0].shape[0], -n % 4)))
+    out = hop(torch.cat(words, dim=1))
+    res, off = [], 0
+    for v in values:
+        k = v[0].numel()
+        res.append(from_words(out[:, off:off + k], v))
+        off += k
+    return res
 
 
 #: Singleton registry — backends are stateless, one instance each.

@@ -11,7 +11,9 @@ lane reaches the same verdict on the same window.  Deadness is sticky until
 :meth:`FailureDetector.readmit`, which the rejoin protocol calls once a
 revived node holds a consistent state again (§13.3).
 
-States are stacked: every field carries the leading participant dimension.
+Every field carries the leading dimension of the participants held here (P
+stacked, 1 on a rank of a process binding, whose max over participants is a
+``pmax`` over the ranks).
 """
 from __future__ import annotations
 
@@ -19,7 +21,6 @@ from typing import NamedTuple
 
 import torch
 
-from .backends import refuse_process
 from .channel import Channel
 from .runtime import Manager
 from .u32 import MASK32
@@ -28,12 +29,12 @@ _U32_MAX = 0xFFFFFFFF
 
 
 class FailureDetectorState(NamedTuple):
-    last_hb: torch.Tensor      # (P, P) uint32 last observed heartbeat per peer
-    missed: torch.Tensor       # (P, P) uint32 consecutive windows without a bump
-    alive: torch.Tensor        # (P, P) bool current (sticky) verdict
-    detected_at: torch.Tensor  # (P, P) uint32 window clock at the verdict
+    last_hb: torch.Tensor      # (n, P) uint32 last observed heartbeat per peer
+    missed: torch.Tensor       # (n, P) uint32 consecutive windows without a bump
+    alive: torch.Tensor        # (n, P) bool current (sticky) verdict
+    detected_at: torch.Tensor  # (n, P) uint32 window clock at the verdict
     #                          # (0xFFFFFFFF = never)
-    windows: torch.Tensor      # (P,) uint32 observation-window clock
+    windows: torch.Tensor      # (n,) uint32 observation-window clock
 
 
 class FailureDetector(Channel):
@@ -41,34 +42,34 @@ class FailureDetector(Channel):
 
     def __init__(self, parent, name: str, mgr: Manager, *,
                  threshold: int = 2):
-        refuse_process(mgr.runtime, "FailureDetector")
         super().__init__(parent, name, mgr)
         if threshold < 1:
             raise ValueError("detector threshold must be >= 1")
         self.threshold = int(threshold)
 
     def init_state(self) -> FailureDetectorState:
-        P, dev = self.P, self.device
-        z = torch.zeros((P, P), dtype=torch.int64, device=dev)
+        n, P, dev = self.n_local, self.P, self.device
+        z = torch.zeros((n, P), dtype=torch.int64, device=dev)
         return FailureDetectorState(
             last_hb=z, missed=z.clone(),
-            alive=torch.ones((P, P), dtype=torch.bool, device=dev),
-            detected_at=torch.full((P, P), _U32_MAX, dtype=torch.int64,
+            alive=torch.ones((n, P), dtype=torch.bool, device=dev),
+            detected_at=torch.full((n, P), _U32_MAX, dtype=torch.int64,
                                    device=dev),
-            windows=torch.zeros((P,), dtype=torch.int64, device=dev))
+            windows=torch.zeros((n,), dtype=torch.int64, device=dev))
 
     def observe(self, st: FailureDetectorState, heartbeats):
-        """Fold one window's gathered heartbeat column ((P viewers, P)
-        uint32) into the verdict.  Returns (state, alive (P, P) bool), the
+        """Fold one window's gathered heartbeat column ((n viewers, P)
+        uint32) into the verdict.  Returns (state, alive (n, P) bool), the
         sticky verdict, identical at every participant.  Bump first, then
         observe, within a window."""
+        n = self.n_local
         hb = torch.as_tensor(heartbeats, device=self.device).to(torch.int64) \
-            .reshape(self.P, self.P) & MASK32
+            .reshape(n, self.P) & MASK32
         bumped = hb != st.last_hb
         missed = torch.where(bumped, torch.zeros_like(st.missed),
                              (st.missed + 1) & MASK32)
         # the reference's pmax over participants: one verdict everywhere
-        missed = missed.max(0).values.expand(self.P, self.P).clone()
+        missed = self.rt.pmax(missed).expand(n, self.P).clone()
         suspected = missed >= self.threshold
         alive = st.alive & ~suspected          # sticky: dead stays dead
         newly_dead = st.alive & ~alive
@@ -80,23 +81,22 @@ class FailureDetector(Channel):
                                     windows=windows), alive
 
     def readmit(self, st: FailureDetectorState, node):
-        """Re-admit ``node`` (an int or a (P,) tensor) after a completed
+        """Re-admit ``node`` (an int or an (n,) tensor) after a completed
         rejoin: alive again, with a clean miss count."""
-        P = self.P
-        me = self.my_id()
+        loc = self.local_ids()
         node = torch.as_tensor(node, device=self.device).to(torch.int64) \
-            .expand(P)
+            .expand(self.n_local)
         alive, missed = st.alive.clone(), st.missed.clone()
         detected_at = st.detected_at.clone()
-        alive[me, node] = True
-        missed[me, node] = 0
-        detected_at[me, node] = _U32_MAX
+        alive[loc, node] = True
+        missed[loc, node] = 0
+        detected_at[loc, node] = _U32_MAX
         return st._replace(alive=alive, missed=missed,
                            detected_at=detected_at)
 
     def detection_latency(self, st: FailureDetectorState, node):
-        """(P,) observation windows from clock zero to the verdict on
+        """(n,) observation windows from clock zero to the verdict on
         ``node`` (0xFFFFFFFF if never declared dead)."""
         node = torch.as_tensor(node, device=self.device).to(torch.int64) \
-            .expand(self.P)
-        return st.detected_at[self.my_id(), node]
+            .expand(self.n_local)
+        return st.detected_at[self.local_ids(), node]

@@ -26,10 +26,15 @@ into uint32 words, pulled in checksum-validated, version- and epoch-stamped
 chunks through the backend's ``read_batch``; :meth:`ReplicatedLog.readmit`
 is the cheap path when the gap still fits the ring.
 
-Every method takes and returns the port's stacked tensors: a leading
-participant dimension on every state and argument, and a (P,) tensor where
-the reference has a per-participant scalar.  uint32 values are held in int64
-masked to 32 bits (``core/u32.py``).
+Every method takes and returns tensors led by the participants held here
+(``n_local``: P on the stacked binding, 1 on a rank of a process binding,
+one participant a rank), and an (n_local,) tensor where the reference has a
+per-participant scalar.  What the reference computes on the gathered table
+(the window's records, the election from the ptable, the rejoin chunk) it
+computes here on the runtime's gather; its ``psum(x) > 0`` and ``pmax`` over
+the participants are the runtime's device-valued :meth:`~repro_torch.core.
+runtime.Runtime.world_any` and :meth:`~repro_torch.core.runtime.Runtime.
+pmax`.  uint32 values are held in int64 masked to 32 bits (``core/u32.py``).
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from . import colls
-from .backends import get_backend, refuse_process
+from .backends import get_backend
 from .channel import Channel
 from .kvstore import KVStore, KVStoreState
 from .ownedvar import checksum
@@ -83,11 +88,13 @@ def _unflatten(like, leaves):
 
 def diverging_leaves(a: KVStoreState, b: KVStoreState,
                      skip: Sequence[str] = _LOCAL_POLICY_FIELDS,
-                     lanes=None):
-    """Names of the KVStoreState fields on which two stacked states differ
-    bitwise, outside ``skip`` (the read ``cache`` and the ``heat`` tracker
-    are local policy).  ``lanes`` ((P,) bool) restricts the comparison to
-    those participants: a dead process's copy legitimately goes stale."""
+                     lanes=None, rt=None):
+    """Names of the KVStoreState fields on which two states differ bitwise,
+    outside ``skip`` (the read ``cache`` and the ``heat`` tracker are local
+    policy).  ``lanes`` ((P,) bool) restricts the comparison to those
+    participants: a dead process's copy legitimately goes stale.  On a rank
+    of a process binding ``rt`` cuts ``lanes`` to the rank's block, and the
+    answer is the block's."""
     out = []
     for name, la, lb in zip(a._fields, a, b):
         if name in skip:
@@ -96,6 +103,8 @@ def diverging_leaves(a: KVStoreState, b: KVStoreState,
             if lanes is not None:
                 sel = torch.as_tensor(lanes, dtype=torch.bool,
                                       device=xa.device)
+                if rt is not None:
+                    sel = rt.mine(sel)
                 xa, xb = xa[sel], xb[sel]
             if not torch.equal(xa, xb):
                 out.append(name)
@@ -105,31 +114,31 @@ def diverging_leaves(a: KVStoreState, b: KVStoreState,
 
 class ReplicatedLogState(NamedTuple):
     ring: RingbufferState
-    ptable: SSTState              # (P, P, 3): [accepted_epoch, applied_cursor,
+    ptable: SSTState              # (n, P, 3): [accepted_epoch, applied_cursor,
     #                             # heartbeat] per participant
-    published: torch.Tensor       # (P,) uint32 entries appended to the log
-    dropped: torch.Tensor         # (P,) uint32 appends rejected by flow control
-    fenced: torch.Tensor          # (P,) uint32 stale-epoch entries rejected
-    fenced_writes: torch.Tensor   # (P,) uint32 publishes a deposed leader
+    published: torch.Tensor       # (n,) uint32 entries appended to the log
+    dropped: torch.Tensor         # (n,) uint32 appends rejected by flow control
+    fenced: torch.Tensor          # (n,) uint32 stale-epoch entries rejected
+    fenced_writes: torch.Tensor   # (n,) uint32 publishes a deposed leader
     #                             # suppressed
-    failovers: torch.Tensor       # (P,) uint32 promotions executed
-    retries: torch.Tensor         # (P,) uint32 re-append attempts
-    retries_by_attempt: torch.Tensor  # (P, RETRY_STAGES) uint32 appends that
+    failovers: torch.Tensor       # (n,) uint32 promotions executed
+    retries: torch.Tensor         # (n,) uint32 re-append attempts
+    retries_by_attempt: torch.Tensor  # (n, RETRY_STAGES) uint32 appends that
     #                                 # succeeded on attempt i
-    fence_heads: torch.Tensor     # (P, MAX_EPOCHS) uint32 log head recorded
+    fence_heads: torch.Tensor     # (n, MAX_EPOCHS) uint32 log head recorded
     #                             # when each epoch was fenced (0xFFFFFFFF:
     #                             # not yet)
 
 
 class RejoinState(NamedTuple):
     """Progress of one §13.3 snapshot transfer (one per revived node)."""
-    staged: torch.Tensor       # (P, n_chunks * chunk) uint32 validated words
-    cursor: torch.Tensor       # (P,) int32 next chunk to pull
-    active: torch.Tensor       # (P,) bool a transfer is staged
-    base_cursor: torch.Tensor  # (P,) uint32 log head the image matches
-    base_epoch: torch.Tensor   # (P,) uint32 cluster epoch at staging
-    restarts: torch.Tensor     # (P,) uint32 stagings abandoned mid-transfer
-    done: torch.Tensor         # (P,) bool transfer complete and installed
+    staged: torch.Tensor       # (n, n_chunks * chunk) uint32 validated words
+    cursor: torch.Tensor       # (n,) int32 next chunk to pull
+    active: torch.Tensor       # (n,) bool a transfer is staged
+    base_cursor: torch.Tensor  # (n,) uint32 log head the image matches
+    base_epoch: torch.Tensor   # (n,) uint32 cluster epoch at staging
+    restarts: torch.Tensor     # (n,) uint32 stagings abandoned mid-transfer
+    done: torch.Tensor         # (n,) bool transfer complete and installed
 
 
 class ReplicatedLog(Channel):
@@ -142,7 +151,6 @@ class ReplicatedLog(Channel):
     def __init__(self, parent, name: str, mgr: Manager, *, store: KVStore,
                  window: int, capacity: int = 4, leader: int = 0,
                  rejoin_chunk: int = 256, backend=None):
-        refuse_process(mgr.runtime, "ReplicatedLog")
         super().__init__(parent, name, mgr)
         # execution protocol of the log's data verbs: the ring publishes and
         # the rejoin snapshot reads (DESIGN.md §14)
@@ -160,48 +168,55 @@ class ReplicatedLog(Channel):
         self.ptable = SST(self, "ptable", mgr, shape=(3,))
         self._snap_total = None
 
+    def close(self):
+        """Release the ring's exchange windows (every rank at once)."""
+        self.ring.close()
+
     def init_state(self) -> ReplicatedLogState:
-        P, dev = self.P, self.device
-        z = torch.zeros((P,), dtype=torch.int64, device=dev)
+        n, dev = self.n_local, self.device
+        z = torch.zeros((n,), dtype=torch.int64, device=dev)
         return ReplicatedLogState(
             ring=self.ring.init_state(),
             ptable=self.ptable.init_state(),
             published=z, dropped=z.clone(), fenced=z.clone(),
             fenced_writes=z.clone(), failovers=z.clone(), retries=z.clone(),
-            retries_by_attempt=torch.zeros((P, RETRY_STAGES),
+            retries_by_attempt=torch.zeros((n, RETRY_STAGES),
                                            dtype=torch.int64, device=dev),
-            fence_heads=torch.full((P, MAX_EPOCHS), _U32_MAX,
+            fence_heads=torch.full((n, MAX_EPOCHS), _U32_MAX,
                                    dtype=torch.int64, device=dev))
 
-    # -- small helpers of the stacked form --------------------------------------
+    # -- small helpers on the participants held here ---------------------------
     def _my_row(self, st):
-        """Each participant's own ptable row, (P, 3)."""
-        me = self.my_id()
-        return self.ptable.rows(st.ptable)[me, me]
+        """Each held participant's own ptable row, (n, 3)."""
+        return self.ptable.rows(st.ptable)[self.local_ids(), self.my_id()]
 
     def _my_cursor(self, ring: RingbufferState):
-        me = self.my_id()
-        return self.ring.acks.rows(ring.acks)[me, me]
+        return self.ring.acks.rows(ring.acks)[self.local_ids(), self.my_id()]
 
     def _alive(self, alive):
-        return torch.as_tensor(alive, device=self.device).to(torch.bool) \
-            .reshape(self.P, self.P)
+        """An (n, P) liveness view: (n, P) as given, or one (P,) mask for
+        every held participant."""
+        alive = torch.as_tensor(alive, device=self.device).to(torch.bool)
+        if alive.dim() == 1:
+            alive = alive.expand(self.n_local, self.P)
+        return alive.reshape(self.n_local, self.P)
 
     def _node(self, node):
         return torch.as_tensor(node, device=self.device).to(torch.int64) \
-            .expand(self.P)
+            .expand(self.n_local)
 
-    def _any(self, x):
-        """The reference's ``psum(x) > 0`` over participants, (P,)."""
-        return x.any().expand(self.P)
+    def _any(self, *xs):
+        """The reference's ``psum(x) > 0`` over participants of each of
+        ``xs``, (n,) each, on the device (one collective between ranks)."""
+        return self.rt.world_any(*xs)
 
     # -- epoch/leadership accessors (§12.1) ------------------------------------
     def epoch(self, st: ReplicatedLogState):
-        """(P,) cluster epoch: max accepted epoch of each cached table."""
+        """(n,) cluster epoch: max accepted epoch of each cached table."""
         return self.ptable.rows(st.ptable)[..., 0].max(-1).values
 
     def current_leader(self, st: ReplicatedLogState):
-        """The ring-owning participant (client-redirect target), (P,)."""
+        """The ring-owning participant (client-redirect target), (n,)."""
         return st.ring.owner
 
     # -- liveness (DESIGN.md §13.1) --------------------------------------------
@@ -220,7 +235,7 @@ class ReplicatedLog(Channel):
                              pred=True):
         """One liveness window: bump, then observe the gathered heartbeat
         column, and evict detected-dead participants from ring flow control.
-        Returns (state, detector_state, alive (P, P))."""
+        Returns (state, detector_state, alive (n, P))."""
         st = self.heartbeat(st, pred=pred)
         det_st, alive = detector.observe(
             det_st, self.ptable.rows(st.ptable)[..., 2])
@@ -239,42 +254,42 @@ class ReplicatedLog(Channel):
         pt = self.ptable.store_mine(st.ptable, my_row, pred=me == node)
         pt, _ack = self.ptable.push_broadcast(pt)
         alive = st.ring.alive.clone()
-        alive[me, node] = True
+        alive[self.local_ids(), node] = True
         return st._replace(ring=st.ring._replace(alive=alive), ptable=pt)
 
     # -- leader side -----------------------------------------------------------
     def _block(self, ops, keys, values, targets):
         """The window's records gathered into one ring entry per
-        participant: ((P, 1, entry_width) int32, (P, 1) live-record
-        count)."""
-        recs = self.store.export_window_records(ops, keys, values,
-                                                targets=targets)
-        block = recs.reshape(1, 1, self.entry_width).expand(self.P, 1, -1)
+        participant (the reference's ``all_gather`` of the (B, rw)
+        records): ((n, 1, entry_width) int32, (n, 1) live-record count)."""
+        recs = self.rt.gather(self.store.export_window_records(
+            ops, keys, values, targets=targets))           # (P, B, rw)
+        n = self.n_local
+        block = recs.reshape(1, 1, self.entry_width).expand(n, 1, -1)
         n_live = (recs[..., 0] != 0).sum().to(torch.int32)
-        return block, n_live.expand(self.P, 1)
+        return block, n_live.expand(n, 1)
 
     def append(self, st: ReplicatedLogState, ops, keys, values,
                targets=None, pred=True):
-        """Publish one (P, B) mutation window to the log as ONE ring entry
+        """Publish one (n, B) mutation window to the log as ONE ring entry
         stamped with the leader's accepted epoch.  A leader whose cached
         table already shows a higher epoch has been deposed and suppresses
-        the publish (``fenced_writes``).  Returns (state, ok (P,)): False
+        the publish (``fenced_writes``).  Returns (state, ok (n,)): False
         everywhere when the ring had no space or the publish was
         suppressed; the drop is counted."""
-        P, dev = self.P, self.device
+        dev = self.device
         me = self.my_id()
-        rows = self.ptable.rows(st.ptable)
-        my_epoch = rows[me, me, 0]
-        deposed = rows[..., 0].max(-1).values > my_epoch
-        pred = torch.as_tensor(pred, device=dev).to(torch.bool).expand(P)
+        my_epoch = self._my_row(st)[:, 0]
+        deposed = self.epoch(st) > my_epoch
+        pred = torch.as_tensor(pred, device=dev).to(torch.bool) \
+            .expand(self.n_local)
         do = pred & ~deposed
         block, n_live = self._block(ops, keys, values, targets)
         ring, sent, _ack = self.ring.publish_window(
             st.ring, block, n_live, preds=do[:, None], epoch=my_epoch)
         is_owner = me == st.ring.owner
-        ok = self._any(sent[:, 0])
-        tried = self._any(do & is_owner)
-        fenced_w = self._any(pred & deposed & is_owner)
+        ok, tried, fenced_w = self._any(sent[:, 0], do & is_owner,
+                                        pred & deposed & is_owner)
         return st._replace(
             ring=ring,
             published=(st.published + ok.to(torch.int64)) & MASK32,
@@ -293,10 +308,10 @@ class ReplicatedLog(Channel):
         single = isinstance(followers, KVStore)
         fls = [followers] if single else list(followers)
         fsts = [follower_states] if single else list(follower_states)
-        P, dev = self.P, self.device
-        pred = torch.as_tensor(pred, device=dev).to(torch.bool).expand(P)
-        done = torch.zeros((P,), dtype=torch.bool, device=dev)
-        applied = torch.zeros((P,), dtype=torch.int32, device=dev)
+        n, dev = self.n_local, self.device
+        pred = torch.as_tensor(pred, device=dev).to(torch.bool).expand(n)
+        done = torch.zeros((n,), dtype=torch.bool, device=dev)
+        applied = torch.zeros((n,), dtype=torch.int32, device=dev)
         for i in range(int(max_attempts)):
             pending = pred & ~done
             if i:
@@ -327,10 +342,11 @@ class ReplicatedLog(Channel):
         entry is stamped ``stale_epoch`` and lands in every consumer's
         cached slots (one-sided writes ask no permission); followers whose
         accepted epoch moved on fence it at delivery.  Returns (state,
-        landed (P,))."""
+        landed (n,))."""
         block, n_live = self._block(ops, keys, values, targets)
         ring_z = st.ring._replace(owner=torch.full(
-            (self.P,), int(zombie), dtype=torch.int32, device=self.device))
+            (self.n_local,), int(zombie), dtype=torch.int32,
+            device=self.device))
         ring_z, sent, _ack = self.ring.publish_window(
             ring_z, block, n_live, epoch=int(stale_epoch) & MASK32)
         landed = self._any(sent[:, 0])
@@ -343,23 +359,23 @@ class ReplicatedLog(Channel):
         follower store, in log order; entries of an epoch older than my
         accepted one are fenced (consumed, not replayed, counted).  ``pred``
         masks crashed consumers.  Returns (state, follower_states, applied
-        (P,))."""
+        (n,))."""
         single = isinstance(followers, KVStore)
         fls = [followers] if single else list(followers)
         fsts = [follower_states] if single else list(follower_states)
-        P = self.P
-        me = self.my_id()
+        n, P = self.n_local, self.P
+        loc, me = self.local_ids(), self.my_id()
         my_epoch = self._my_row(st)[:, 0]
         ring, entries, _lens, got, fenced = self.ring.recv_window(
             st.ring, max_entries, pred=pred, expect_epoch=my_epoch)
         for k in range(max_entries):
-            block = entries[:, k].reshape(P, P, self.window, self.rec_width)
-            mine = block[me, me]                    # my (B, rw) lane slice
+            block = entries[:, k].reshape(n, P, self.window, self.rec_width)
+            mine = block[loc, me]                   # my (B, rw) lane slice
             for i, fl in enumerate(fls):
                 fsts[i], _res = fl.replay_window_records(fsts[i], mine,
                                                          pred=got[:, k])
         applied = got.sum(1, dtype=torch.int32)
-        n_fenced = fenced.sum(1).max().expand(P)
+        n_fenced = self.rt.pmax(fenced.sum(1)).expand(n)
         out_states = fsts[0] if single else tuple(fsts)
         return st._replace(ring=ring,
                            fenced=(st.fenced + n_fenced) & MASK32), \
@@ -367,8 +383,9 @@ class ReplicatedLog(Channel):
 
     # -- failover (DESIGN.md §12.2, restartable per §13.2) ---------------------
     def _election(self, st: ReplicatedLogState, alive):
-        """(winner, cur_epoch), each (P,): the highest applied cursor among
-        the living (lowest rank breaks ties) and the max live epoch."""
+        """(winner, cur_epoch), each (n,): the highest applied cursor among
+        the living (lowest rank breaks ties) and the max live epoch, from
+        each held participant's gathered ptable."""
         rows = self.ptable.rows(st.ptable)
         epochs_g, cursors_g = rows[..., 0], rows[..., 1]
         zero = torch.zeros_like(cursors_g)
@@ -389,13 +406,12 @@ class ReplicatedLog(Channel):
     def promote_gather(self, st: ReplicatedLogState, alive):
         """Promotion step 1: every live participant refreshes and pushes its
         ``[epoch, cursor, heartbeat]`` row."""
-        me = self.my_id()
         alive = self._alive(alive)
         mine = self._my_row(st)
         pt = self.ptable.store_mine(
             st.ptable, torch.stack([mine[:, 0], self._my_cursor(st.ring),
                                     mine[:, 2]], dim=-1),
-            pred=alive[me, me])
+            pred=alive[self.local_ids(), self.my_id()])
         pt, _ack = self.ptable.push_broadcast(pt)
         return st._replace(ptable=pt)
 
@@ -403,18 +419,18 @@ class ReplicatedLog(Channel):
         """Promotion step 2: every live participant accepts
         ``cur_epoch + 1`` before any ring mutation, and the log head is
         recorded durably for the new epoch in ``fence_heads``."""
-        me = self.my_id()
+        loc, me = self.local_ids(), self.my_id()
         alive = self._alive(alive)
         _winner, cur_epoch = self._election(st, alive)
         new_epoch = (cur_epoch + 1) & MASK32
         fh_idx = new_epoch.clamp(max=MAX_EPOCHS - 1)
         fence_heads = st.fence_heads.clone()
-        fence_heads[me, fh_idx] = self._true_head(st)
+        fence_heads[loc, fh_idx] = self._true_head(st)
         mine = self._my_row(st)
         pt = self.ptable.store_mine(
             st.ptable, torch.stack([new_epoch, self._my_cursor(st.ring),
                                     mine[:, 2]], dim=-1),
-            pred=alive[me, me])
+            pred=alive[loc, me])
         pt, _ack = self.ptable.push_broadcast(pt)
         return st._replace(ptable=pt, fence_heads=fence_heads)
 
@@ -425,9 +441,9 @@ class ReplicatedLog(Channel):
         ``seq < fence_heads[e + 1]`` (the fence-head rule); zombie residue
         keeps its stale stamp and stays fenced.  ``limit`` re-publishes only
         the first ``limit`` suffix lanes (the winner dying mid-re-publish).
-        Returns (state, winner (P,))."""
-        P, cap = self.P, self.ring.capacity
-        me = self.my_id()
+        Returns (state, winner (n,))."""
+        cap = self.ring.capacity
+        loc = self.local_ids()
         alive = self._alive(alive)
         winner, new_epoch = self._election(st, alive)
         old = st.ring
@@ -441,34 +457,32 @@ class ReplicatedLog(Channel):
         k = torch.arange(cap, dtype=torch.int64, device=self.device)
         seqs = (min_live[:, None] + k) & MASK32
         slots = seqs % cap
-        stamps = old.epoch[me[:, None], slots]
+        stamps = old.epoch[loc[:, None], slots]
         fh_next = st.fence_heads[
-            me[:, None], ((stamps + 1) & MASK32).clamp(max=MAX_EPOCHS - 1)]
+            loc[:, None], ((stamps + 1) & MASK32).clamp(max=MAX_EPOCHS - 1)]
         legit = seqs < fh_next
         lane_ep = torch.where(legit, new_epoch[:, None], stamps)
         preds = k[None, :] < suffix[:, None]
         if limit is not None:
             preds = preds & (k[None, :] < int(limit))
         ring, _sent, _ack = self.ring.publish_window(
-            ring, old.payload[me[:, None], slots],
-            old.length[me[:, None], slots], preds=preds, epoch=lane_ep)
+            ring, old.payload[loc[:, None], slots],
+            old.length[loc[:, None], slots], preds=preds, epoch=lane_ep)
         return st._replace(
             ring=ring, failovers=(st.failovers + 1) & MASK32), winner
 
     def promote(self, st: ReplicatedLogState, alive):
         """Elect and install a replacement leader after a crash: ``alive``
-        ((P,) or (P, P) bool) marks the crashed participants False.  Returns
-        (state, winner (P,))."""
-        alive = torch.as_tensor(alive, device=self.device).to(torch.bool)
-        if alive.dim() == 1:
-            alive = alive.expand(self.P, self.P)
+        ((P,) or (n, P) bool) marks the crashed participants False.  Returns
+        (state, winner (n,))."""
+        alive = self._alive(alive)
         st = self.promote_gather(st, alive)
         st = self.promote_fence(st, alive)
         return self.promote_republish(st, alive)
 
     # -- follower rejoin (DESIGN.md §13.3) -------------------------------------
     def _snap_flatten(self, fstate: KVStoreState):
-        """The replicated leaves (local policy skipped) as one (P, total)
+        """The replicated leaves (local policy skipped) as one (n, total)
         uint32 word stream in the reference's leaf order, bit-pattern
         preserving (:func:`~.u32.to_words`)."""
         words = [i2u(to_words(leaf))
@@ -476,12 +490,12 @@ class ReplicatedLog(Channel):
                  if name not in _LOCAL_POLICY_FIELDS
                  for leaf in _leaves(field)]
         if not words:
-            return torch.zeros((self.P, 0), dtype=torch.int64,
+            return torch.zeros((self.n_local, 0), dtype=torch.int64,
                                device=self.device)
         return torch.cat(words, dim=1)
 
     def _snap_unflatten(self, fstate: KVStoreState, words):
-        """``fstate`` with its replicated leaves rebuilt from (P, total)
+        """``fstate`` with its replicated leaves rebuilt from (n, total)
         words; local-policy fields pass through."""
         new_fields = []
         off = 0
@@ -515,24 +529,24 @@ class ReplicatedLog(Channel):
         return total, -(-total // self.rejoin_chunk)
 
     def needs_snapshot(self, st: ReplicatedLogState, node):
-        """(P,) True iff revived ``node``'s cursor gap exceeds the ring
+        """(n,) True iff revived ``node``'s cursor gap exceeds the ring
         capacity, so ring-tail replay cannot catch it up."""
         node = self._node(node)
         gap = (st.ring.head - self.ring.acks.rows(st.ring.acks)[
-            self.my_id(), node]) & MASK32
+            self.local_ids(), node]) & MASK32
         return gap > self.ring.capacity
 
     def rejoin_init(self) -> RejoinState:
         """Fresh transfer-progress state for one rejoining node's snapshot
         (staging padded to whole chunks)."""
-        P, dev = self.P, self.device
+        n, dev = self.n_local, self.device
         _total, n_chunks = self._snap_chunks()
-        z = torch.zeros((P,), dtype=torch.int64, device=dev)
-        f = torch.zeros((P,), dtype=torch.bool, device=dev)
+        z = torch.zeros((n,), dtype=torch.int64, device=dev)
+        f = torch.zeros((n,), dtype=torch.bool, device=dev)
         return RejoinState(
-            staged=torch.zeros((P, n_chunks * self.rejoin_chunk),
+            staged=torch.zeros((n, n_chunks * self.rejoin_chunk),
                                dtype=torch.int64, device=dev),
-            cursor=torch.zeros((P,), dtype=torch.int32, device=dev),
+            cursor=torch.zeros((n,), dtype=torch.int32, device=dev),
             active=f, base_cursor=z, base_epoch=z.clone(),
             restarts=z.clone(), done=f.clone())
 
@@ -555,8 +569,8 @@ class ReplicatedLog(Channel):
         single = isinstance(followers, KVStore)
         fls = [followers] if single else list(followers)
         fsts = [follower_states] if single else list(follower_states)
-        P, dev = self.P, self.device
-        me = self.my_id()
+        n, dev = self.n_local, self.device
+        loc, me = self.local_ids(), self.my_id()
         node = self._node(node)
         chunk = self.rejoin_chunk
         total, n_chunks = self._snap_chunks()
@@ -565,10 +579,10 @@ class ReplicatedLog(Channel):
         # every lane lays out its serve buffer from ITS lane of the leader
         # store: [image words | per-chunk csums | version | epoch]
         words = self._snap_flatten(leader_state)
-        padded = torch.zeros((P, padded_total), dtype=torch.int64,
+        padded = torch.zeros((n, padded_total), dtype=torch.int64,
                              device=dev)
         padded[:, :words.shape[1]] = words
-        csums = checksum(padded.reshape(P, n_chunks, chunk))
+        csums = checksum(padded.reshape(n, n_chunks, chunk))
         src = torch.cat([padded, csums, torch.stack(
             [st.ring.head, self.epoch(st)], dim=-1)], dim=1)
 
@@ -589,22 +603,24 @@ class ReplicatedLog(Channel):
                          torch.full_like(c, padded_total + n_chunks),
                          torch.full_like(c, padded_total + n_chunks + 1)],
                         dim=-1)], dim=1)
-        tgt = torch.cat([node[:, None].expand(P, chunk + 1),
-                         leader[:, None].expand(P, 2)], dim=1)
+        tgt = torch.cat([node[:, None].expand(n, chunk + 1),
+                         leader[:, None].expand(n, 2)], dim=1)
         # the reference reads a uint32 buffer: the wire moves its 4-byte bits
         got = self.backend.read_batch(
             u2i(src), tgt, idx,
-            preds=(me == node)[:, None].expand(P, chunk + 3),
-            ledger=self.mgr.traffic, verb=f"{self.full_name}.rejoin")
-        got = colls.bcast_from(i2u(got), node)
+            preds=(me == node)[:, None].expand(n, chunk + 3),
+            ledger=self.mgr.traffic, verb=f"{self.full_name}.rejoin",
+            rt=self.rt)
+        got = colls.bcast_from(i2u(got), node, self.rt)
         data, r_csum = got[:, :chunk], got[:, chunk]
         r_version, r_epoch = got[:, chunk + 1], got[:, chunk + 2]
 
         stamps_ok = (r_version == base_cursor) & (r_epoch == base_epoch)
         csum_ok = checksum(data) == r_csum
         if self.mgr.traffic.enabled:
-            self.mgr.traffic.record_corrupt(f"{self.full_name}.rejoin",
-                                            stamps_ok & ~csum_ok)
+            self.ring._record_lead((self.mgr.traffic.record_corrupt,
+                                    f"{self.full_name}.rejoin",
+                                    stamps_ok & ~csum_ok))
         advance = stamps_ok & csum_ok & ~rst.done
         restart = ~stamps_ok & ~fresh & ~rst.done
 
@@ -632,7 +648,7 @@ class ReplicatedLog(Channel):
         pt = self.ptable.store_mine(st.ptable, my_row, pred=install)
         pt, _ack = self.ptable.push_broadcast(pt)
         readmitted = st.ring.alive.clone()
-        readmitted[me, node] = True
+        readmitted[loc, node] = True
         ring_alive = torch.where(done_now[:, None], readmitted,
                                  st.ring.alive)
         st = st._replace(ring=st.ring._replace(acks=acks, alive=ring_alive),
@@ -649,7 +665,7 @@ class ReplicatedLog(Channel):
 
     # -- progress --------------------------------------------------------------
     def lag(self, st: ReplicatedLogState):
-        """(P,) int32 entries the slowest live follower is behind the head."""
+        """(n,) int32 entries the slowest live follower is behind the head."""
         return u2i((st.ring.head - self.ring.min_ack(st.ring)) & MASK32)
 
     def entry_nbytes(self) -> int:

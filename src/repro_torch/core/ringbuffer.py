@@ -20,14 +20,19 @@ that fits the slowest live consumer's window; :meth:`Ringbuffer.recv_window`
 drains up to B with one bulk checksum-validated read and one cursor ack.
 ``send``/``recv_one`` are the scalar paths.
 
-Every method takes and returns the port's stacked tensors (leading P); a
-scalar argument of the reference is a (P,) tensor (or a Python scalar, the
-same at every participant).  The owner's push to all consumers — the
-reference's ``colls.bcast_from`` of each published value — is the backend's
-:meth:`~repro_torch.core.backends.CollsBackend.publish_hop`: a view of the
-owner's row on the one-sided and active-message backends, one launch of the
-remote-copy kernel on ``pallas``.  :attr:`Ringbuffer.publishes` counts the
-hops.
+Every method takes and returns tensors led by the participants held here
+(``n_local``: P on the stacked binding, 1 on a rank of a process binding);
+a scalar argument of the reference is an (n_local,) tensor (or a Python
+scalar, the same at every participant).  The owner's push to all consumers
+— the reference's ``colls.bcast_from`` of each published value — is the
+backend's :meth:`~repro_torch.core.backends.CollsBackend.publish_hop`: the
+owner's row on the one-sided and active-message backends (a gather between
+ranks), one launch of a remote-copy kernel on ``pallas``.
+:attr:`Ringbuffer.publishes` counts the hops.  Ledger rows that the stacked
+binding files for every participant at once (the publish's bytes, the
+corrupt and fenced tiers) are filed by the lead binding alone, from every
+participant's counts (:meth:`~repro_torch.core.runtime.Runtime.lead_rows`),
+so that rank 0's ledger is the cluster's.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from typing import NamedTuple
 import torch
 
 from .ack import ALL_PEERS, make_ack
-from .backends import get_backend, refuse_process
+from .backends import get_backend
 from .channel import Channel
 from .colls import put_rows
 from .ownedvar import checksum
@@ -49,20 +54,21 @@ _U32_MAX = 0xFFFFFFFF
 
 
 class RingbufferState(NamedTuple):
-    payload: torch.Tensor  # (P, capacity, width) message words
-    seq: torch.Tensor      # (P, capacity) uint32 slot sequence numbers
-    length: torch.Tensor   # (P, capacity) int32 message lengths (words)
-    epoch: torch.Tensor    # (P, capacity) uint32 producer epoch stamps
-    csum: torch.Tensor     # (P, capacity) uint32 payload+metadata checksums
-    head: torch.Tensor     # (P,) uint32 producer cursor (cached everywhere)
-    owner: torch.Tensor    # (P,) int32 current producer
-    alive: torch.Tensor    # (P, P) bool — crashed participants leave flow
+    payload: torch.Tensor  # (n, capacity, width) message words
+    seq: torch.Tensor      # (n, capacity) uint32 slot sequence numbers
+    length: torch.Tensor   # (n, capacity) int32 message lengths (words)
+    epoch: torch.Tensor    # (n, capacity) uint32 producer epoch stamps
+    csum: torch.Tensor     # (n, capacity) uint32 payload+metadata checksums
+    head: torch.Tensor     # (n,) uint32 producer cursor (cached everywhere)
+    owner: torch.Tensor    # (n,) int32 current producer
+    alive: torch.Tensor    # (n, P) bool — crashed participants leave flow
     #                      # control
     acks: SSTState         # per-consumer read cursors
 
 
 def _per_p(x, P, device, dtype=None):
-    """A Python scalar or a (P,) tensor as a (P,) tensor."""
+    """A Python scalar or a (P,) tensor as a (P,) tensor (P the
+    participants held here)."""
     t = torch.as_tensor(x, device=device)
     if dtype is not None:
         t = t.to(dtype)
@@ -85,7 +91,6 @@ class Ringbuffer(Channel):
 
     def __init__(self, parent, name: str, mgr: Manager, *, owner: int,
                  capacity: int, width: int, dtype=torch.int32, backend=None):
-        refuse_process(mgr.runtime, "Ringbuffer")
         super().__init__(parent, name, mgr)
         if dtype.itemsize != 4:
             raise TypeError(f"ring slots hold 4-byte words, got {dtype}")
@@ -100,19 +105,31 @@ class Ringbuffer(Channel):
         #: publish hops run so far (each is one remote-copy launch on the
         #: ``pallas`` backend)
         self.publishes = 0
+        # the hop's exchange windows between ranks (allocated at the first
+        # hop on the card; stacked, the hop needs none)
+        self.windows = None
+        if not self.rt.stacked:
+            from ..kernels.remote_dma import PeerWindows
+            self.windows = PeerWindows(self.rt)
+
+    def close(self):
+        """Release the hop's exchange windows (every rank at the same
+        point: the release waits for the peers' mappings to close)."""
+        if self.windows is not None:
+            self.windows.close()
 
     def init_state(self) -> RingbufferState:
-        P, C, dev = self.P, self.capacity, self.device
+        n, P, C, dev = self.n_local, self.P, self.capacity, self.device
         return RingbufferState(
-            payload=torch.zeros((P, C, self.width), dtype=self.dtype,
+            payload=torch.zeros((n, C, self.width), dtype=self.dtype,
                                 device=dev),
-            seq=torch.full((P, C), _U32_MAX, dtype=torch.int64, device=dev),
-            length=torch.zeros((P, C), dtype=torch.int32, device=dev),
-            epoch=torch.zeros((P, C), dtype=torch.int64, device=dev),
-            csum=torch.zeros((P, C), dtype=torch.int64, device=dev),
-            head=torch.zeros((P,), dtype=torch.int64, device=dev),
-            owner=torch.full((P,), self.owner, dtype=torch.int32, device=dev),
-            alive=torch.ones((P, P), dtype=torch.bool, device=dev),
+            seq=torch.full((n, C), _U32_MAX, dtype=torch.int64, device=dev),
+            length=torch.zeros((n, C), dtype=torch.int32, device=dev),
+            epoch=torch.zeros((n, C), dtype=torch.int64, device=dev),
+            csum=torch.zeros((n, C), dtype=torch.int64, device=dev),
+            head=torch.zeros((n,), dtype=torch.int64, device=dev),
+            owner=torch.full((n,), self.owner, dtype=torch.int32, device=dev),
+            alive=torch.ones((n, P), dtype=torch.bool, device=dev),
             acks=self.acks.init_state())
 
     # -- slot integrity ---------------------------------------------------------
@@ -136,7 +153,7 @@ class Ringbuffer(Channel):
 
     # -- flow control -----------------------------------------------------------
     def min_ack(self, state: RingbufferState):
-        """Slowest LIVE consumer's cursor, (P,): crashed participants
+        """Slowest LIVE consumer's cursor, (n,): crashed participants
         (masked in ``alive``) never wedge slot reuse."""
         cursors = self.acks.rows(state.acks)
         return torch.where(state.alive, cursors,
@@ -149,39 +166,48 @@ class Ringbuffer(Channel):
 
     def _hop(self, state, values):
         self.publishes += 1
-        return self.backend.publish_hop(values, state.owner)
+        return self.backend.publish_hop(values, state.owner, rt=self.rt,
+                                        windows=self.windows)
+
+    def _record_lead(self, *entries):
+        """File each (record, name, per-participant count) of ``entries``
+        on the lead binding, every participant's rows, gathered in one
+        collective (every rank calls this)."""
+        rows = self.rt.lead_rows(*(count for _r, _n, count in entries))
+        for (record, name, _c), row in zip(entries, rows or ()):
+            record(name, row)
 
     # -- producer ------------------------------------------------------------
     def send(self, state: RingbufferState, msg, msg_len, pred=True,
              epoch=None):
-        """Producer broadcasts ``msg`` ((P, width), ``msg_len`` valid words)
-        stamped with ``epoch`` (default 0).  Returns (state, sent (P,),
+        """Producer broadcasts ``msg`` ((n, width), ``msg_len`` valid words)
+        stamped with ``epoch`` (default 0).  Returns (state, sent (n,),
         ack): ``sent`` is False where the caller is not the owner, ``pred``
         is False, or the ring is full."""
-        P, dev = self.P, self.device
-        me = self.my_id()
+        n, dev = self.n_local, self.device
+        loc, me = self.local_ids(), self.my_id()
         is_owner = me == state.owner
-        do = _per_p(pred, P, dev, torch.bool) & is_owner & self.can_send(state)
+        do = _per_p(pred, n, dev, torch.bool) & is_owner & self.can_send(state)
         msg = torch.as_tensor(msg, device=dev).to(self.dtype) \
-            .reshape(P, self.width)
-        msg_len = _per_p(msg_len, P, dev, torch.int32)
-        ep = _per_p(0 if epoch is None else epoch, P, dev,
+            .reshape(n, self.width)
+        msg_len = _per_p(msg_len, n, dev, torch.int32)
+        ep = _per_p(0 if epoch is None else epoch, n, dev,
                     torch.int64) & MASK32
         slot = state.head % self.capacity
 
-        payload_row = torch.where(do[:, None], msg, state.payload[me, slot])
-        seq_v = torch.where(do, state.head, state.seq[me, slot])
-        len_v = torch.where(do, msg_len, state.length[me, slot])
-        ep_v = torch.where(do, ep, state.epoch[me, slot])
+        payload_row = torch.where(do[:, None], msg, state.payload[loc, slot])
+        seq_v = torch.where(do, state.head, state.seq[loc, slot])
+        len_v = torch.where(do, msg_len, state.length[loc, slot])
+        ep_v = torch.where(do, ep, state.epoch[loc, slot])
         csum_v = torch.where(do, self._slot_csum(msg, state.head, msg_len,
-                                                 ep), state.csum[me, slot])
+                                                 ep), state.csum[loc, slot])
         head_v = torch.where(do, (state.head + 1) & MASK32, state.head)
 
         # one-sided push from the owner to all consumers
-        sent_any = do.any().expand(P)
+        sent_any = self.rt.world_any(do)
         payload_row, seq_v, len_v, ep_v, csum_v, head_b, slot_b = self._hop(
             state, [payload_row, seq_v, len_v, ep_v, csum_v, head_v, slot])
-        keep = torch.ones((P, 1), dtype=torch.bool, device=dev)
+        keep = torch.ones((n, 1), dtype=torch.bool, device=dev)
         rows = slot_b[:, None]
         new = state._replace(
             payload=put_rows(state.payload, rows, payload_row[:, None],
@@ -199,24 +225,24 @@ class Ringbuffer(Channel):
                        epoch=None):
         """Owner broadcasts up to B messages in ONE round-set.
 
-        msgs (P, B, width); lens (P, B) int32; preds (P, B) bool (default
-        all enabled); epoch: a scalar, (P,) or (P, B) uint32 stamps (default
-        0).  Returns (state, sent (P, B), ack): ``sent[p, b]`` is True (at
+        msgs (n, B, width); lens (n, B) int32; preds (n, B) bool (default
+        all enabled); epoch: a scalar, (n,) or (n, B) uint32 stamps (default
+        0).  Returns (state, sent (n, B), ack): ``sent[p, b]`` is True (at
         the owner) iff lane b landed — flow control grants the longest
         rank-prefix of enabled lanes that fits the slowest live consumer's
         window.  Modeled wire bytes (verb ``<name>.publish``) scale with the
         slots moved, per the backend's publish contract."""
-        P, dev = self.P, self.device
+        n, dev = self.n_local, self.device
         msgs = torch.as_tensor(msgs, device=dev).to(self.dtype) \
-            .reshape(P, -1, self.width)
+            .reshape(n, -1, self.width)
         B = msgs.shape[1]
         if preds is None:
             preds = True
         me = self.my_id()
         is_owner = me == state.owner
-        want = _lanes(preds, P, B, dev, torch.bool) & is_owner[:, None]
-        lens = _lanes(lens, P, B, dev, torch.int32)
-        eps = _lanes(0 if epoch is None else epoch, P, B, dev,
+        want = _lanes(preds, n, B, dev, torch.bool) & is_owner[:, None]
+        lens = _lanes(lens, n, B, dev, torch.int32)
+        eps = _lanes(0 if epoch is None else epoch, n, B, dev,
                      torch.int64) & MASK32
         space = self.capacity - u2i(
             (state.head - self.min_ack(state)) & MASK32).to(torch.int64)
@@ -230,7 +256,7 @@ class Ringbuffer(Channel):
         head_v = (state.head + n_moved) & MASK32
 
         # one push from the owner: the whole window's slots + new head
-        sent_any = grant.any().expand(P)
+        sent_any = self.rt.world_any(grant)
         msgs_b, seqs_b, lens_b, eps_b, csums_b, head_b, slots_b, grant_b = \
             self._hop(state, [msgs, seqs, lens, eps, csums, head_v, slots,
                               grant])
@@ -243,9 +269,10 @@ class Ringbuffer(Channel):
             csum=put_rows(state.csum, slots_b, csums_b, grant_b),
             head=head_b)
         if self.mgr.traffic.enabled:
-            self.backend.record_publish(
-                self.mgr.traffic, f"{self.full_name}.publish",
-                self.slot_nbytes, n_moved)
+            self._record_lead((
+                lambda verb, moved: self.backend.record_publish(
+                    self.mgr.traffic, verb, self.slot_nbytes, moved),
+                f"{self.full_name}.publish", n_moved))
         ack = make_ack((msgs_b, head_b), "bcast", self.full_name,
                        ALL_PEERS, self.slot_nbytes * B)
         return new, grant & sent_any[:, None], ack
@@ -253,92 +280,93 @@ class Ringbuffer(Channel):
     # -- failover takeover (DESIGN.md §12.2) ----------------------------------
     def re_own(self, state: RingbufferState, new_owner, alive, head):
         """``new_owner`` claims the ring at cursor ``head`` and the crashed
-        participants in ``~alive`` ((P, P)) leave flow control.  Every
+        participants in ``~alive`` ((n, P)) leave flow control.  Every
         slot's seq is poisoned and its checksum zeroed, so nothing the
         previous owner published validates until the new owner re-publishes
         it; the epoch stamps and the consumer cursors are kept (the
         fence-head rule of §13.2 reads the stamps)."""
-        P, C, dev = self.P, self.capacity, self.device
+        n, P, C, dev = self.n_local, self.P, self.capacity, self.device
         return state._replace(
-            seq=torch.full((P, C), _U32_MAX, dtype=torch.int64, device=dev),
-            csum=torch.zeros((P, C), dtype=torch.int64, device=dev),
-            head=_per_p(head, P, dev, torch.int64) & MASK32,
-            owner=_per_p(new_owner, P, dev, torch.int32).clone(),
+            seq=torch.full((n, C), _U32_MAX, dtype=torch.int64, device=dev),
+            csum=torch.zeros((n, C), dtype=torch.int64, device=dev),
+            head=_per_p(head, n, dev, torch.int64) & MASK32,
+            owner=_per_p(new_owner, n, dev, torch.int32).clone(),
             alive=torch.as_tensor(alive, device=dev).to(torch.bool)
-            .reshape(P, P).clone())
+            .reshape(n, P).clone())
 
     # -- consumer -------------------------------------------------------------
     def recv_one(self, state: RingbufferState, pred=True):
         """Consume the next unread message if available (and ``pred``).
-        Returns (state, msg (P, width), msg_len (P,), got (P,)).  Validates
+        Returns (state, msg (n, width), msg_len (n,), got (n,)).  Validates
         seq (staleness) and checksum (tearing, counted in the ledger's
         corrupt tier); a failed validation does not advance the cursor.
         The advanced cursor is acknowledged through the SST."""
-        P, dev = self.P, self.device
-        me = self.my_id()
-        my_ack = self.acks.rows(state.acks)[me, me]
-        have = _per_p(pred, P, dev, torch.bool) & (my_ack < state.head)
+        n, dev = self.n_local, self.device
+        loc, me = self.local_ids(), self.my_id()
+        my_ack = self.acks.rows(state.acks)[loc, me]
+        have = _per_p(pred, n, dev, torch.bool) & (my_ack < state.head)
         slot = my_ack % self.capacity
-        msg = state.payload[me, slot]
-        seq_ok = state.seq[me, slot] == my_ack
-        ok = seq_ok & (self._slot_csum(msg, state.seq[me, slot],
-                                       state.length[me, slot],
-                                       state.epoch[me, slot])
-                       == state.csum[me, slot])
+        msg = state.payload[loc, slot]
+        seq_ok = state.seq[loc, slot] == my_ack
+        ok = seq_ok & (self._slot_csum(msg, state.seq[loc, slot],
+                                       state.length[loc, slot],
+                                       state.epoch[loc, slot])
+                       == state.csum[loc, slot])
         if self.mgr.traffic.enabled:
-            self.mgr.traffic.record_corrupt(self.full_name,
-                                            have & seq_ok & ~ok)
+            self._record_lead((self.mgr.traffic.record_corrupt,
+                               self.full_name, have & seq_ok & ~ok))
         got = have & ok
         new_ack = torch.where(got, (my_ack + 1) & MASK32, my_ack)
         acks = self.acks.store_mine(state.acks, new_ack)
         acks, _a = self.acks.push_broadcast(acks)
         msg = torch.where(got[:, None], msg, torch.zeros_like(msg))
-        msg_len = torch.where(got, state.length[me, slot],
-                              torch.zeros_like(state.length[me, slot]))
+        msg_len = torch.where(got, state.length[loc, slot],
+                              torch.zeros_like(state.length[loc, slot]))
         return state._replace(acks=acks), msg, msg_len, got
 
     def recv_window(self, state: RingbufferState, window: int, pred=True,
                     expect_epoch=None):
         """Drain up to ``window`` messages in ONE round-set.
 
-        Returns (state, msgs (P, window, width), lens (P, window), got
-        (P, window), fenced (P, window)).  One bulk checksum-validated read
+        Returns (state, msgs (n, window, width), lens (n, window), got
+        (n, window), fenced (n, window)).  One bulk checksum-validated read
         serves the window and one SST push acknowledges it.  Delivery is a
         contiguous prefix: the cursor stalls at the first slot that fails
-        integrity validation.  With ``expect_epoch`` ((P,) or a scalar), a
+        integrity validation.  With ``expect_epoch`` ((n,) or a scalar), a
         valid slot stamped with an older epoch is fenced: consumed, not
         delivered, counted in the ledger's fenced tier."""
-        P, dev = self.P, self.device
-        me = self.my_id()
-        my_ack = self.acks.rows(state.acks)[me, me]
+        n, dev = self.n_local, self.device
+        loc, me = self.local_ids(), self.my_id()
+        my_ack = self.acks.rows(state.acks)[loc, me]
         k = torch.arange(window, dtype=torch.int64, device=dev)
         seqs = (my_ack[:, None] + k) & MASK32
         slots = seqs % self.capacity
-        rows = state.payload[me[:, None], slots]          # (P, window, width)
-        seq_at = state.seq[me[:, None], slots]
-        len_at = state.length[me[:, None], slots]
-        ep_at = state.epoch[me[:, None], slots]
+        rows = state.payload[loc[:, None], slots]         # (n, window, width)
+        seq_at = state.seq[loc[:, None], slots]
+        len_at = state.length[loc[:, None], slots]
+        ep_at = state.epoch[loc[:, None], slots]
         seq_ok = seq_at == seqs
         valid = seq_ok & (self._slot_csum(rows, seq_at, len_at, ep_at)
-                          == state.csum[me[:, None], slots])
+                          == state.csum[loc[:, None], slots])
         avail = (state.head - my_ack) & MASK32
-        pred = _lanes(pred, P, window, dev, torch.bool)
+        pred = _lanes(pred, n, window, dev, torch.bool)
         in_range = pred & (k[None, :] < avail[:, None])
         good = in_range & valid
-        if self.mgr.traffic.enabled:
-            self.mgr.traffic.record_corrupt(
-                self.full_name, (in_range & seq_ok & ~valid).sum(1))
         # contiguous prefix: a lane is consumed iff no earlier lane failed
         bad = (~good).to(torch.int64)
         consumed = good & ((bad.cumsum(1) - bad) == 0)
         if expect_epoch is None:
             fenced = torch.zeros_like(consumed)
         else:
-            exp = _per_p(expect_epoch, P, dev, torch.int64) & MASK32
+            exp = _per_p(expect_epoch, n, dev, torch.int64) & MASK32
             fenced = consumed & (ep_at < exp[:, None])
-            if self.mgr.traffic.enabled:
-                self.mgr.traffic.record_fenced(self.full_name,
-                                               fenced.sum(1))
+        if self.mgr.traffic.enabled:
+            tiers = [(self.mgr.traffic.record_corrupt, self.full_name,
+                      (in_range & seq_ok & ~valid).sum(1))]
+            if expect_epoch is not None:
+                tiers.append((self.mgr.traffic.record_fenced,
+                              self.full_name, fenced.sum(1)))
+            self._record_lead(*tiers)
         got = consumed & ~fenced
         n_consumed = consumed.sum(1)
         msgs = torch.where(got[..., None], rows, torch.zeros_like(rows))

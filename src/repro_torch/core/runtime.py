@@ -25,8 +25,8 @@ notions follow, and channel code keeps them apart:
 
 The collectives (:meth:`Runtime.gather`, :meth:`~Runtime.gather_many`,
 :meth:`~Runtime.mine`, :meth:`~Runtime.with_own`,
-:meth:`~Runtime.psum_scatter`, :meth:`~Runtime.bcast`, :meth:`~Runtime.any`)
-are the identity or the tensor operation the stacked code did before the
+:meth:`~Runtime.psum_scatter`, :meth:`~Runtime.bcast`, :meth:`~Runtime.pmax`,
+:meth:`~Runtime.world_any`, :meth:`~Runtime.any`) are the identity or the tensor operation the stacked code did before the
 process form existed, so the stacked path is bitwise what it was; in the
 process form each is a ``torch.distributed`` collective over the mesh's
 group for ``axis`` (:mod:`repro_torch.distributed.collectives`, gloo moving
@@ -46,7 +46,11 @@ rank's next collective for ever).
 **Ledger.**  Byte rows, cache rows and the measured DMA tier are each
 rank's own and sum over the ranks to the stacked binding's totals; rounds
 and lock-free-window counts are cluster-wide and are added by rank 0 alone
-(the reference counts a round on participant 0 only).
+(the reference counts a round on participant 0 only).  The ring's rows
+that the stacked binding files as one row of every participant's counts
+(the publish's bytes, the corrupt and fenced tiers) rank 0 files from the
+gathered counts (:meth:`Runtime.lead_rows`), so its rows are the
+stacked ledger's.
 """
 from __future__ import annotations
 
@@ -217,6 +221,40 @@ class Runtime:
         if isinstance(owner, torch.Tensor):
             return table[owner.to(torch.int64)]
         return table[owner].expand((value.shape[0],) + tuple(table.shape[1:]))
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """(n_local, ...) → (...): the elementwise max over every
+        participant (the reference's ``pmax``), on the device."""
+        if self.stacked:
+            return x.max(0).values
+        from ..distributed import collectives as DC
+        return DC.pmax(x.max(0).values, self.mesh, self.axis)
+
+    def world_any(self, *xs: torch.Tensor):
+        """For each tensor of flags led by the participants held here,
+        whether any flag of any participant holds (the reference's
+        ``psum(x) > 0``), as an (n_local,) bool tensor on the device; the
+        process form reduces all of them in one collective."""
+        if self.stacked:
+            out = tuple(x.any().expand(self.n_local) for x in xs)
+        else:
+            v = torch.stack([x.any() for x in xs]).to(torch.int32)
+            from ..distributed import collectives as DC
+            v = DC.pmax(v, self.mesh, self.axis) != 0
+            out = tuple(v[i].expand(self.n_local) for i in range(len(xs)))
+        return out if len(xs) > 1 else out[0]
+
+    def lead_rows(self, *xs: torch.Tensor):
+        """Every participant's rows of each integer or bool (n_local, ...)
+        tensor, for a ledger row that the stacked binding files for all P
+        participants at once: the tensors themselves stacked; in the process
+        form gathered in one collective (every rank calls it) and returned
+        on rank 0, None on the others, so that rank 0 files the cluster's
+        row."""
+        if self.stacked:
+            return xs
+        g = self.gather_many(*xs)
+        return g if self.lead else None
 
     def any(self, flag) -> bool:
         """Whether ``flag`` holds anywhere in the cluster — the one

@@ -14,7 +14,6 @@ from typing import NamedTuple
 
 import torch
 
-from . import colls
 from .ack import ALL_PEERS, AckKey, make_ack
 from .channel import Channel
 from .ownedvar import OwnedVar, checksum
@@ -107,9 +106,12 @@ class SST(Channel):
         """Every owner's register gathered into every viewer's table (one
         all-gather of the owners' rows and their checksums)."""
         loc, me = self._own()
-        rows, csums = state.cached[loc, me], state.csum[loc, me]
-        return SSTState(cached=colls.gather_rows(rows, self.rt).clone(),
-                        csum=colls.gather_rows(csums, self.rt).clone())
+        n = self.n_local
+        rows, csums = self.rt.gather_many(state.cached[loc, me],
+                                          state.csum[loc, me])
+        return SSTState(
+            cached=rows[None].expand((n,) + tuple(rows.shape)).clone(),
+            csum=csums[None].expand((n,) + tuple(csums.shape)).clone())
 
     def pull_all(self, state: SSTState):
         """Refresh all cached rows from their owners (readers' pull)."""

@@ -5,16 +5,20 @@ fixed-width transfer *descriptors* (the NIC work-queue-entry analogue), the
 home serves or commits the described rows, and every kernel **counts the
 bytes it moves** from the same masks that drive its copies.
 
-Every function works on the port's stacked tensors: a leading participant
-dimension P, so one launch covers all P requesters or homes.  On a CUDA
-tensor a wrapper launches its hand-written kernel from
-``csrc/remote_dma.cu`` (built with ``nvcc`` for ``sm_90a`` at first use) or
-raises; on a CPU tensor it runs the kernel's plain PyTorch version below,
-which the CPU tests hold against the JAX package.  Each wrapper counts its
+Every function but :func:`remote_copy_peers` works on the port's stacked
+tensors: a leading participant dimension P, so one launch covers all P
+requesters or homes.  On a CUDA tensor a wrapper launches its hand-written
+kernel from ``csrc/remote_dma.cu`` (built with ``nvcc`` for ``sm_90a`` at
+first use) or raises; on a CPU tensor it runs the kernel's plain PyTorch
+version below, which the CPU tests hold against the JAX package.  Each wrapper counts its
 kernel launches in ``<wrapper>.launches``.
 
 :func:`remote_copy` is the ring broadcast's wire hop, the counterpart of the
-TPU-only ``remote_copy_tpu``; its kernel lives in ``csrc/remote_copy.cu``.
+TPU-only ``remote_copy_tpu``, on the stacked binding; its kernel lives in
+``csrc/remote_copy.cu``.  :func:`remote_copy_peers` is the same hop between
+processes, one participant a rank, through exchange windows mapped by CUDA
+IPC (:class:`PeerWindows`); its kernel lives in
+``csrc/remote_copy_peers.cu``.
 
 Descriptor layout (8 × int32 = :data:`DESC_BYTES` bytes)::
 
@@ -57,6 +61,16 @@ _COPY_LIB = _nvcc.Library(
     {"remote_copy": [_P] * 3 + [_I] + [_P] * 3
      + [_I, ctypes.c_longlong, _I, _I, _P]},
     "remote_copy_error_string")
+_PEERS_LIB = _nvcc.Library(
+    "remote_copy_peers",
+    {"remote_copy_peers": [_P, _L, _P, _P, _I, _P, _P, _P, _I, _I, _L, _I,
+                           _I, _P],
+     "rcp_window_alloc": [_L, ctypes.POINTER(_P), _P],
+     "rcp_window_free": [_P],
+     "rcp_window_open": [_P, ctypes.POINTER(_P)],
+     "rcp_window_close": [_P],
+     "rcp_stage": [_P, _P, _L, _P]},
+    "remote_copy_peers_error_string")
 
 
 def _on_card(*tensors) -> bool:
@@ -375,6 +389,176 @@ def remote_copy(src, dst, sender):
 
 
 remote_copy.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the wire hop between processes (the ring broadcast, one participant a rank)
+# ---------------------------------------------------------------------------
+
+#: Bytes of a ``cudaIpcMemHandle_t``.
+IPC_HANDLE_BYTES = 64
+
+
+class PeerWindows:
+    """A rank's two exchange windows of the ring hop's packed word row,
+    mapped into every peer by CUDA IPC, for :func:`remote_copy_peers`.
+
+    ``rt`` is the process runtime of the ring (its ``rank``, ``P``,
+    ``device`` and the all-gather ``rt.gather``).  Nothing is allocated
+    until the first hop on the card; a hop wider than the windows replaces
+    them.  Each allocation is one ``cudaMalloc`` made by the extension
+    (never a piece of PyTorch's caching allocator, whose blocks share a
+    segment), exported with ``cudaIpcGetMemHandle``; the P handles are
+    all-gathered as bytes over the ring's group, each rank opens its P - 1
+    peers' with ``cudaIpcOpenMemHandle`` and keeps the P base addresses in a
+    device table.  Every rank must make each call at the same point (the
+    runtime's collectives are the ranks' rendezvous): the ring's hops are
+    SPMD, so the windows grow at the same hop everywhere.  :meth:`close`
+    releases them."""
+
+    def __init__(self, rt):
+        self.rt = rt
+        self.words = 0          # capacity of one window, in int32 words
+        self.hops = 0           # hops run: hop k writes window k % 2
+        self._own = None        # this rank's allocation
+        self._peers = []        # the peers' mapped allocations
+        self.bases = None       # (P,) int64 window addresses on the device
+
+    def _call(self, fn, *args, what):
+        code = getattr(_PEERS_LIB._handle(), fn)(*args)
+        if code != 0:
+            msg = getattr(_PEERS_LIB._handle(), _PEERS_LIB.error_fn)(code)
+            raise RuntimeError(f"remote_copy_peers: {what} failed on rank "
+                               f"{self.rt.rank}: {msg.decode()} ({code})")
+
+    def ensure(self, n: int) -> None:
+        """Windows of at least ``n`` words each (a collective when they
+        grow)."""
+        if n <= self.words and self.bases is not None:
+            return
+        self.close()
+        words = max(4, -(-n // 4) * 4)         # whole 16-byte units
+        ptr, handle = ctypes.c_void_p(), ctypes.create_string_buffer(
+            IPC_HANDLE_BYTES)
+        self._call("rcp_window_alloc", 2 * words * 4, ctypes.byref(ptr),
+                   handle, what="cudaMalloc / cudaIpcGetMemHandle")
+        self._own = ptr.value
+        mine = torch.frombuffer(bytearray(handle.raw), dtype=torch.uint8)
+        handles = self.rt.gather(mine[None].to(self.rt.device)).cpu()
+        bases = []
+        for r in range(self.rt.P):
+            if r == self.rt.rank:
+                bases.append(self._own)
+                continue
+            peer = ctypes.c_void_p()
+            raw = ctypes.create_string_buffer(bytes(handles[r].tolist()),
+                                              IPC_HANDLE_BYTES)
+            self._call("rcp_window_open", raw, ctypes.byref(peer),
+                       what=f"cudaIpcOpenMemHandle of rank {r}'s window")
+            self._peers.append(peer.value)
+            bases.append(peer.value)
+        self.bases = torch.tensor(bases, dtype=torch.int64,
+                                  device=self.rt.device)
+        self.words = words
+
+    def close(self) -> None:
+        """Unmap the peers' windows, wait until every peer has unmapped
+        this rank's (one all-gather), then free them; every rank calls it at
+        the same point.  A no-op before the first hop on the card."""
+        if self.bases is None:
+            return
+        torch.cuda.synchronize(self.rt.device)  # no pull still reads
+        for peer in self._peers:
+            self._call("rcp_window_close", peer,
+                       what="cudaIpcCloseMemHandle")
+        self.rt.gather(torch.zeros((1, 1), dtype=torch.int32,
+                                   device=self.rt.device))
+        self._call("rcp_window_free", self._own, what="cudaFree")
+        self._own, self._peers, self.bases, self.words = None, [], None, 0
+
+
+def _remote_copy_peers_ref(words, sender, rt):
+    """The plain version: :meth:`Runtime.bcast` as a gather and a select —
+    the rows and the map gathered in one collective, through
+    :func:`_remote_copy_ref`, this rank's row of each result."""
+    table, smap = rt.gather_many(words, sender)
+    out, sent, recv = _remote_copy_ref(table, table, smap)
+    return rt.mine(out), rt.mine(sent), rt.mine(recv)
+
+
+def remote_copy_peers(words, sender, windows):
+    """The wire hop between processes: this rank (one participant, global id
+    ``windows.rt.rank``) receives the packed row of rank ``sender[0]``; a
+    sender of -1, itself or any value outside [0, P) means it receives
+    nothing and keeps its own row.  ``words`` (1, n) int32 is this rank's
+    packed row, ``sender`` (1,) int32 or int64 its view of its sender.
+    Returns (out (1, n) int32, sent_bytes (1,) int32, recv_bytes (1,)
+    int32), the byte counts counted from the gathered sender map as
+    :func:`remote_copy` counts them.  The values are bitwise
+    ``Runtime.bcast`` of the packed rows.
+
+    On the card, one hop k is: this rank's row written into its window
+    k % 2 on the current stream; one all-gather of the (1,) sender views,
+    which gives the whole map and is the fence; one launch of
+    ``remote_copy_peers_kernel``, which pulls window k % 2 of the sender's
+    process.  **Why no rank reads a row before its owner has written it:**
+    the owner's write is enqueued on its stream before its part of the
+    all-gather, and the all-gather completes at a reader only after every
+    rank's part was sent.  Over gloo a card tensor's part is copied to the
+    host after the stream's earlier work (a blocking copy when the
+    transport is "host"; gloo's own stream waits on the current one when it
+    is "native"), so the write has finished before the part leaves; NCCL
+    runs the all-gather on the stream, after the write, and its peers'
+    kernels finish only once the parts arrived.  The reader's pull is
+    enqueued after the all-gather returned (its result reaches the device
+    before the pull, on the stream).  **Why two windows and one fence a hop
+    suffice:** an owner writes window k % 2 again only at hop k + 2, which
+    it issues after returning from the all-gather of hop k + 1; every peer
+    joined that all-gather after enqueueing its pull of hop k, and its part
+    leaves only after that pull finished (the same stream order as above),
+    so no pull of hop k reads a window that hop k + 2 overwrites.
+
+    Replaces the TPU kernel ``remote_copy_tpu`` of
+    ``repro/kernels/remote_dma.py``, a remote-DMA send/wait pair to a peer
+    chip.  On CPU tensors the plain version (:meth:`Runtime.bcast` of the
+    rows, a gather and a select) runs; on the card a failed map or launch
+    raises with the CUDA error and never gives way to the gather."""
+    rt = windows.rt
+    if words.dim() != 2 or words.shape[0] != 1 or words.dtype != torch.int32:
+        raise ValueError(f"words must be (1, n) int32, got {words.dtype} "
+                         f"{tuple(words.shape)}")
+    sender = sender.reshape(-1)
+    if sender.dtype not in (torch.int32, torch.int64):
+        sender = sender.to(torch.int64)
+    if sender.shape[0] != 1:
+        raise ValueError(f"sender must be (1,), got {tuple(sender.shape)}")
+    P, n = rt.P, words.shape[1]
+    row_nbytes = 4 * n
+    _check_counter_range(P, row_nbytes)
+    if not _nvcc.on_card("the remote-DMA kernels", words, sender):
+        return _remote_copy_peers_ref(words, sender, rt)
+    words = words.contiguous()
+    windows.ensure(n)
+    offset = (windows.hops % 2) * windows.words
+    windows.hops += 1
+    stream = _nvcc.stream(words)
+    windows._call("rcp_stage", windows._own + 4 * offset, words.data_ptr(),
+                  row_nbytes, stream, what="the row's write into its window")
+    smap = rt.gather(sender)                       # the map, and the fence
+    buf = torch.empty(n + 2, dtype=torch.int32, device=words.device)
+    out_p = buf.data_ptr()
+    vec = int(n % 4 == 0 and (words.data_ptr() | out_p) % 16 == 0)
+    _PEERS_LIB.call("remote_copy_peers", windows.bases.data_ptr(), offset,
+                    words.data_ptr(), smap.data_ptr(),
+                    int(smap.dtype == torch.int64), out_p, out_p + 4 * n,
+                    out_p + 4 * (n + 1), P, rt.rank, n, row_nbytes, vec,
+                    stream)
+    remote_copy_peers.launches += 1
+    return (buf.as_strided((1, n), (n, 1)), buf.as_strided((1,), (1,), n),
+            buf.as_strided((1,), (1,), n + 1))
+
+
+remote_copy_peers.launches = 0
 
 #: The kernels of the KVStore window path (the ring hop is :func:`remote_copy`).
 KERNELS = (build_descriptors, gather_rows, scatter_rows)

@@ -119,19 +119,10 @@ def ledger_rows(traffic):
 
 
 def _refusals(mgr, mesh, P):
-    """What a process runtime refuses: the ring, the log and the detector
-    (ROADMAP 12(e)), and a mesh axis whose size is not P."""
-    from repro_torch.core import (FailureDetector, KVStore, ReplicatedLog,
-                                  Ringbuffer, make_manager)
+    """What a process runtime refuses: a mesh axis whose size is not P."""
+    from repro_torch.core import make_manager
     said = {}
-    store = KVStore(None, "kv_for_log", mgr, slots_per_node=4,
-                    value_width=2, num_locks=4)
-    tries = {"ringbuffer": lambda: Ringbuffer(None, "ring", mgr, owner=0,
-                                              capacity=4, width=2),
-             "replog": lambda: ReplicatedLog(None, "log", mgr, store=store,
-                                             window=2),
-             "detector": lambda: FailureDetector(None, "fd", mgr),
-             "size": lambda: make_manager(P + 1, mesh=mesh),
+    tries = {"size": lambda: make_manager(P + 1, mesh=mesh),
              "axis": lambda: make_manager(P, mesh=mesh, axis="model")}
     for name, fn in tries.items():
         try:
