@@ -295,7 +295,12 @@ exits non-zero and prints no result:
    each rank's peak memory, prefill ms and decode-step p50 printed with
    the backend, world and mesh, beside the card's name and power limit
    (world 2's labelled as on one card over gloo, not a number between
-   cards);
+   cards); the world of 2 then builds a (2, 1) mesh over its ranks and
+   serves llama3.2-3b cut to 2 layers there with ``fsdp=False`` and
+   ``fsdp=True`` (each rank half the layers' and the embedding's bytes,
+   each layer gathered over ``data`` as it runs): one prefill and 4 decode
+   steps, the fsdp logits bit for bit the others, launches as planned,
+   each run's peak memory beside the other's;
 7. the training path — ``repro_torch.launch.train.run``, the code of
    ``python -m repro_torch.launch.train`` — on llama3.2-3b at full width
    and depth (28 layers, 3,212,749,824 parameters), bf16, 2 x 4096 tokens
@@ -347,7 +352,15 @@ exits non-zero and prints no result:
    first (the first step's dp-mean gradient blocks within ``PT_GRAD_TOL``
    leaf by leaf, losses and grad norms within ``PT_LOSS_TOL``, a bf16
    control meeting both, every parameter element within the AdamW bound
-   of ``PT_STEP_BOUND`` / ``PT_ULPS``);
+   of ``PT_STEP_BOUND`` / ``PT_ULPS``); in the (2, 1) stage-3 world also
+   the smoke whisper and rwkv6 (every leaf fsdp-split over ``data``, each
+   layer gathered inside its ``remat`` region) held to their one-device
+   steps the same way; beside the (1, 1) and (2, 1) meshes the same ranks
+   as a (pod, data, model) mesh, (1, 1, 1) and (2, 1, 1), training the
+   smoke llama4 (world 1) or the dense model (world 2) again from the same
+   weights: every step's losses, grad norms, parameters and moments, and
+   at world 2 the first dp-mean gradient's blocks, bit for bit those of
+   its flat twin (at world 1 of the one-device step);
    each rank's launches of the flash forward and backward and the grouped
    matmul and its backward as ``train_launches`` plans, one profiled step
    in step on every rank (its device operations by kernel row), the
@@ -402,6 +415,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -523,9 +537,20 @@ A2A_NODROP_PROMPT = 64
 # unsharded path rounds one float32 sum), a few bf16 steps apart through
 # the layers, so its logits are held within PM_TP_TOL of the unsharded
 # path's (max |diff| over max(1, max |logit|), as ATTN_TOL's)
+# The world of each key of PM_FSDP also builds the value's mesh over the
+# same ranks and serves llama3.2-3b at full width cut to PM_FSDP_LAYERS of
+# 28 layers there twice, make_serve_steps(cfg, mesh, fsdp=False) then
+# fsdp=True: each rank holds its dp block of every large leaf and gathers
+# each layer's over gloo as the layer runs (the embedding's once a call),
+# so a decode step moves the model's bytes over the host; PM_FSDP_DECODE
+# steps fed the fsdp=False run's greedy tokens.  Its logits must be the
+# fsdp=False run's bit for bit.
 PM_MOE_LAYERS = 2
 PM_DECODE = 32
+PM_FSDP_LAYERS = 2
+PM_FSDP_DECODE = 4
 PM_WORLDS = (("nccl", (1, 1)), ("gloo", (1, 2)))
+PM_FSDP = {(1, 2): (2, 1)}
 PM_TP_TOL = 5e-2
 PM_TIMEOUT_S = 600
 # phase 7c, the training steps across processes (make_train_step on a
@@ -570,9 +595,21 @@ PM_TIMEOUT_S = 600
 # for the bf16 roundings of the parameter itself (a few bf16 steps of
 # 2^-8); the parameters must have moved.  Then a world of 2 on (2, 1)
 # whose rank 1 leaves without a word at step 2 (``run_elastic``).
+# In the (2, 1) stage-3 world the smoke whisper and rwkv6 also train
+# (PT_SMOKE_SEQ tokens, their context synthesized), with FSDP_MIN_ELEMENTS
+# lowered to 1 so that every leaf is split over ``data`` (at 2^20 no smoke
+# leaf is), held to their one-device steps as the dense model is.  Each
+# world in PT_POD, {flat mesh: (pod mesh, label of the model it trains)},
+# also builds that (pod, data, model) mesh over the same ranks and trains
+# the model there again from the same weights: it must step bit for bit
+# as the flat mesh did (one dp group, the same ranks in the same order, so
+# the same reductions).  World 1 takes the smoke llama4 (every collective
+# is the identity there, and the dense model's full-depth digests cost
+# seconds a step), world 2 the dense model.
 PT_STEPS = 3
 PT_LAYERS = 2
 PT_SEQ = 1024
+PT_SMOKE_SEQ = 64
 PT_WORLDS = (("gloo", (2, 1), 2), ("gloo", (2, 1), 3), ("gloo", (1, 2), 2))
 PT_LOSS_TOL = 5e-3
 PT_GRAD_TOL = 3e-2
@@ -584,6 +621,9 @@ PT_TIMEOUT_S = 900
 # remat per block, AdamW, TRAIN_STEPS steps on one repeated batch
 TRAIN_ARCH = "llama3.2-3b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6
+# phase 7c's pod twins (above)
+PT_POD = {(1, 1): ((1, 1, 1), f"{MOE_ARCH} smoke"),
+          (2, 1): ((2, 1, 1), f"{TRAIN_ARCH} {PT_LAYERS} layers")}
 # the other families' training paths, at full width and depth, batches of
 # TRAIN_BATCH: recurrentgemma-2b and rwkv6-7b at train_4k's 4,096-token
 # length; whisper-large-v3 with phase 5's 224-token text over its 1,500
@@ -5218,8 +5258,8 @@ def pm_prompt(cfg):
         np.int32)
 
 
-def pm_planned(cfg):
-    """Each rank's model-kernel launches on one prefill and PM_DECODE
+def pm_planned(cfg, n_decode=PM_DECODE):
+    """Each rank's model-kernel launches on one prefill and ``n_decode``
     decode steps: flash per attention layer, decode attention per layer a
     step, three grouped matmuls per MoE layer a call (on the rank's
     experts)."""
@@ -5227,10 +5267,15 @@ def pm_planned(cfg):
     kinds = layer_kinds(cfg)
     n_moe = sum(k.endswith("_moe") for k in kinds)
     out = {"flash_attention": len(kinds),
-           "decode_attention": len(kinds) * PM_DECODE}
+           "decode_attention": len(kinds) * n_decode}
     if n_moe:
-        out["gmm"] = 3 * n_moe * (1 + PM_DECODE)
+        out["gmm"] = 3 * n_moe * (1 + n_decode)
     return out
+
+
+def pm_fsdp_config():
+    from repro_torch.configs import get_config
+    return get_config(SERVE_ARCH).replace(n_layers=PM_FSDP_LAYERS)
 
 
 def pm_generator(torch, device):
@@ -5307,9 +5352,12 @@ def pm_rank(rank, sizes, tokens):
     kernels = {"flash_attention": flash_attention,
                "decode_attention": decode_attention, "gmm": gmm}
     mesh = ProcessMesh(*sizes)
+    fsdp_mesh = ProcessMesh(*PM_FSDP[sizes]) if sizes in PM_FSDP else None
     out = {"coords": mesh.coords, "device": str(mesh.device),
            "backend": mesh.backend,
            "transports": dict(probe_transports(mesh))}
+    if fsdp_mesh is not None:
+        probe_transports(fsdp_mesh)
     for arch, cfg in pm_configs().items():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -5354,7 +5402,109 @@ def pm_rank(rank, sizes, tokens):
         out[arch] = r
         del params, caches, logits, lg, step
         gc.collect()
+    if fsdp_mesh is not None:
+        out["fsdp"] = pm_fsdp_run(torch, fsdp_mesh, kernels)
     return out
+
+
+def pm_fsdp_run(torch, mesh, kernels):
+    """A phase-5c rank's fsdp comparison on ``mesh`` (the world's second
+    mesh, PM_FSDP): :func:`pm_fsdp_config` served through
+    ``make_serve_steps(cfg, mesh, fsdp=...)``, fsdp=False then fsdp=True,
+    each drawing the rank's blocks of the same seeded weights, one prefill
+    of the global batch and PM_FSDP_DECODE steps of the bound decode fed
+    the fsdp=False run's greedy tokens, the model-kernel launches
+    (``kernels``) counted from 0 over that path.  Returns whether the two
+    runs' logits agree bit for bit and each run's numbers."""
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import MetaGenerator
+    from repro_torch.train import make_serve_steps
+    out = {"coords": mesh.coords, "mesh": list(mesh.sizes), "runs": {}}
+    cfg = pm_fsdp_config()
+    s_max = SERVE_PROMPT + PM_FSDP_DECODE + 1
+    full = build_model(cfg)
+    shapes = (full.init(MetaGenerator()),
+              full.init_cache(SERVE_BATCH, s_max, device="meta"),
+              torch.empty((SERVE_BATCH, 1), dtype=torch.int32,
+                          device="meta"))
+    logits, feed = {}, None
+    for fsdp in (False, True):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, prefill, _decode, jit_decode = make_serve_steps(
+            cfg, mesh, fsdp=fsdp)
+        params = model.init(pm_generator(torch, mesh.device))
+        n_local = sum(t.numel() for t in _leaves(params))
+        step = jit_decode(*shapes)
+        with torch.no_grad():
+            pm_warm(torch, prefill, step, params, cfg, s_max)
+            for k in kernels.values():
+                k.launches = 0
+            (lg, caches, pos), prefill_s = pm_timed(torch, lambda: prefill(
+                params, {"tokens": pm_prompt(cfg)}, s_max))
+            got, steps = [lg.cpu()], []
+            toks = [torch.argmax(lg, -1).to(torch.int32)[:, None]]
+            for i in range(PM_FSDP_DECODE):
+                tok = toks[i] if feed is None else feed[i]
+                (nxt, lg, caches, pos), dt = pm_timed(
+                    torch, lambda: step(params, tok, caches, pos))
+                steps.append(dt)
+                got.append(lg.cpu())
+                toks.append(nxt)
+        logits[fsdp] = got
+        feed = feed or toks
+        out["runs"][fsdp] = dict(
+            launches={n: k.launches for n, k in kernels.items()},
+            finite=all(bool(torch.isfinite(t).all()) for t in got),
+            params_local=n_local, prefill_ms=1e3 * prefill_s,
+            decode_step_p50_ms=1e3 * float(np.percentile(steps, 50)),
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del model, prefill, step, params, caches, lg
+    out["bitwise"] = all(torch.equal(a, b) for a, b in
+                         zip(logits[False], logits[True]))
+    return out
+
+
+def pm_fsdp_check(ranks, backend, card, launches):
+    """Phase 5c's fsdp comparison on the world's second mesh: each rank's
+    ``fsdp`` entry checked (bit for bit, launches as planned, every logit
+    finite) and logged; returns its label and metrics and adds each rank's
+    fsdp launches to ``launches``."""
+    sizes = tuple(ranks[0]["fsdp"]["mesh"])
+    label = (f"world {len(ranks)} on {backend}, mesh {sizes}, fsdp, on one "
+             f"card over gloo, not a cross-card number")
+    cfg = pm_fsdp_config()
+    want = pm_planned(cfg, PM_FSDP_DECODE)
+    log(f"  {label}: {cfg.name} at {cfg.n_layers} layers, fsdp=False then "
+        f"fsdp=True, {PM_FSDP_DECODE} decode steps; {card}")
+    rows = []
+    for r in (x["fsdp"] for x in ranks):
+        where = f"5c {label} rank {r['coords']}"
+        check(r["bitwise"], f"{where}: fsdp=True logits differ from "
+              f"fsdp=False's")
+        for fsdp, n in r["runs"].items():
+            check(n["finite"], f"{where} fsdp={fsdp}: a logit is not finite")
+            got_l = {k: v for k, v in n["launches"].items() if v}
+            check(got_l == want, f"{where} fsdp={fsdp}: launches {got_l}, "
+                  f"planned {want}")
+        a, b = r["runs"][False], r["runs"][True]
+        launches[f"{SERVE_ARCH} {PM_FSDP_LAYERS} layers fsdp {backend} "
+                 f"{sizes} rank {r['coords']['data']}"] = {
+            k: v for k, v in b["launches"].items() if v}
+        rows.append({"coords": r["coords"], "bitwise": r["bitwise"],
+                     "fsdp": b, "whole": a})
+        log(f"    rank {r['coords']}: fsdp {b['params_local']:,} parameters, "
+            f"peak {b['peak_gib']:.2f} GiB, prefill {b['prefill_ms']:.1f} "
+            f"ms, decode step p50 {b['decode_step_p50_ms']:.1f} ms; whole "
+            f"over dp {a['params_local']:,} parameters, peak "
+            f"{a['peak_gib']:.2f} GiB, prefill {a['prefill_ms']:.1f} ms, "
+            f"decode step p50 {a['decode_step_p50_ms']:.1f} ms; logits bit "
+            f"for bit at every call; launches {want}")
+    return label, dict(backend=backend, world=len(ranks), mesh=list(sizes),
+                       fsdp=True, card=card, n_layers=cfg.n_layers,
+                       decode_steps=PM_FSDP_DECODE, planned=want, ranks=rows)
 
 
 def phase_process_mesh(torch, card):
@@ -5363,8 +5513,10 @@ def phase_process_mesh(torch, card):
     then each world of PM_WORLDS spawned from this process with the
     kernels already built, every rank on this card: world 1's logits bit
     for bit the unsharded path's, world 2's within PM_TP_TOL, every logit
-    finite, each rank's launches the planned ones.  Returns the metrics
-    and each rank's launches by path label."""
+    finite, each rank's launches the planned ones; on a world's second
+    mesh (PM_FSDP) the fsdp run's logits bit for bit its fsdp=False run's
+    (:func:`pm_fsdp_check`).
+    Returns the metrics and each rank's launches by path label."""
     from repro_torch.launch.world import spawn_world
     cfgs = pm_configs()
     ref = {}
@@ -5447,6 +5599,9 @@ def phase_process_mesh(torch, card):
             m["models"][arch] = dict(n_layers=cfg.n_layers, ranks=rows,
                                      logits_err=err, planned=want)
         metrics[label] = m
+        if "fsdp" in ranks[0]:
+            fsdp_label, metrics[fsdp_label] = pm_fsdp_check(
+                ranks, backend, card, launches)
     return metrics, launches
 
 
@@ -5934,16 +6089,18 @@ def moe_block_full_width(torch, kernels, arch):
 # phase 7c: the training steps across processes
 # ---------------------------------------------------------------------------
 
-def pt_models(sizes):
-    """Phase 7c's models in a world of ``sizes``: (label, arch, smoke,
-    layers, seq, yardstick).  World 1: llama3.2-3b at full width and
-    depth on TRAIN_BATCH x TRAIN_SEQ and the smoke llama4-maverick on
-    TRAIN_BATCH x MOE_SMOKE_SEQ, each against the one-device step bit for
-    bit; world 2: llama3.2-3b cut to PT_LAYERS on TRAIN_BATCH x PT_SEQ,
-    and on (1, 2) also the smoke llama4, against the reference steps the
-    parent ran (the one-device step; llama4's the stacked binding's on a
-    (1, 2) mesh: its load-balance loss is the mean of the shards', as the
-    reference's ``pmean``)."""
+def pt_models(sizes, stage):
+    """Phase 7c's models in a world of ``sizes`` at ZeRO ``stage``: (label,
+    arch, smoke, layers, seq, yardstick).  World 1: llama3.2-3b at full
+    width and depth on TRAIN_BATCH x TRAIN_SEQ and the smoke
+    llama4-maverick on TRAIN_BATCH x MOE_SMOKE_SEQ, each against the
+    one-device step bit for bit; world 2: llama3.2-3b cut to PT_LAYERS on
+    TRAIN_BATCH x PT_SEQ, on (1, 2) also the smoke llama4, on (2, 1) at
+    stage 3 also the smoke whisper and rwkv6 on TRAIN_BATCH x
+    PT_SMOKE_SEQ, against the reference steps the parent ran (the
+    one-device step; llama4's the stacked binding's on a (1, 2) mesh: its
+    load-balance loss is the mean of the shards', as the reference's
+    ``pmean``)."""
     if sizes == (1, 1):
         return [(TRAIN_ARCH, TRAIN_ARCH, False, 0, TRAIN_SEQ, "bitwise"),
                 (f"{MOE_ARCH} smoke", MOE_ARCH, True, 0, MOE_SMOKE_SEQ,
@@ -5953,6 +6110,9 @@ def pt_models(sizes):
     if sizes[1] > 1:
         out.append((f"{MOE_ARCH} smoke", MOE_ARCH, True, 0, MOE_SMOKE_SEQ,
                     "tolerance"))
+    if sizes == (2, 1) and stage >= 3:
+        out += [(f"{arch} smoke", arch, True, 0, PT_SMOKE_SEQ, "tolerance")
+                for arch in ("whisper-large-v3", "rwkv6-7b")]
     return out
 
 
@@ -6060,13 +6220,66 @@ def pt_kernels():
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.moe_gmm import gmm, gmm_dw, gmm_dx
-    from repro_torch.kernels.rglru_scan import rglru_scan
-    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
     return {"flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd, "gmm": gmm,
             "gmm_dx": gmm_dx, "gmm_dw": gmm_dw,
             "decode_attention": decode_attention, "rglru_scan": rglru_scan,
-            "wkv6": wkv6}
+            "rglru_scan_bwd": rglru_scan_bwd, "wkv6": wkv6,
+            "wkv6_bwd": wkv6_bwd}
+
+
+def pt_capture_push(opt, pushed):
+    """Wrap ``opt``'s ZeRO push so that its first output (the first step's
+    blocks of the dp-mean gradient) lands in ``pushed``, by path; returns
+    the push to put back."""
+    from repro_torch.tree import flatten
+    push = opt.plan.grad_blocks
+
+    def first_push(tree):
+        blocks = push(tree)
+        if not pushed:
+            pushed.update({p: b.detach().clone() for (p, _t), b in
+                           zip(flatten(tree), blocks)})
+        return blocks
+
+    opt.plan.grad_blocks = first_push
+    return push
+
+
+def pt_pod_twin(torch, kernels, pod, cfg, tcfg, batches, flat):
+    """A model trained again on the (pod, data, model) mesh ``pod`` over
+    the same ranks, from the same weights and batches: whether each
+    step's losses, grad norms and digests, and the first dp-mean
+    gradient's blocks (where ``flat`` kept them), are bit for bit
+    ``flat``'s, with the twin's launches and step p50."""
+    from repro_torch.train import make_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, opt, step, _jit = make_train_step(cfg, tcfg, mesh=pod)
+    params = model.init(pt_generator(torch, pod.device))
+    state = opt.init(params)
+    pushed = {}
+    push = pt_capture_push(opt, pushed)
+    for k in kernels.values():
+        k.launches = 0
+    params, state, losses, norms, times, dig = pt_steps(
+        torch, step, params, state, batches, True)
+    launches = {n: k.launches for n, k in kernels.items() if k.launches}
+    opt.plan.grad_blocks = push
+    out = dict(mesh=list(pod.sizes), launches=launches,
+               step_p50_ms=1e3 * float(np.percentile(times, 50)),
+               bitwise_steps=[a == b for a, b in zip(flat["digests"], dig)],
+               bitwise_losses=losses == flat["losses"]
+               and norms == flat["norms"])
+    if flat.get("pushed") is not None:
+        out["bitwise_grads"] = [pt_digest(torch, b) for b in
+                                pushed.values()] == flat["pushed"]
+    del model, opt, step, params, state, pushed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def pt_rank(rank, sizes, stage, ref_file):
@@ -6092,14 +6305,22 @@ def pt_rank(rank, sizes, stage, ref_file):
     from repro_torch.tree import flatten, tree_map
     kernels = pt_kernels()
     mesh = ProcessMesh(*sizes)
+    pod, twin_label = PT_POD.get(sizes, (None, None))
+    pod = ProcessMesh(*pod) if pod is not None else None
     out = {"coords": mesh.coords, "device": str(mesh.device),
            "backend": mesh.backend,
            "transports": dict(probe_transports(mesh)), "models": {}}
+    if pod is not None:
+        out["pod_transports"] = dict(probe_transports(pod))
     refs = torch.load(ref_file, weights_only=False) if ref_file else {}
-    for label, arch, smoke, layers, seq, yard in pt_models(sizes):
+    fsdp_min = SH.FSDP_MIN_ELEMENTS
+    for label, arch, smoke, layers, seq, yard in pt_models(sizes, stage):
         cfg = pt_config(arch, smoke, layers)
         tcfg = TrainConfig(remat="block", zero_stage=stage)
+        # a smoke model at stage 3 splits every leaf (none reaches 2^20)
+        SH.FSDP_MIN_ELEMENTS = 1 if smoke and stage >= 3 else fsdp_min
         batches = pt_batches(cfg, seq)
+        twin = label == twin_label
         r = {}
         gc.collect()
         torch.cuda.empty_cache()
@@ -6120,23 +6341,20 @@ def pt_rank(rank, sizes, stage, ref_file):
         state = opt.init(params)
         pushed, push = {}, opt.plan.grad_blocks
         if yard != "bitwise":
-            def first_push(tree):
-                blocks = push(tree)
-                if not pushed:
-                    pushed.update({p: b.detach().clone() for (p, _t), b in
-                                   zip(flatten(tree), blocks)})
-                return blocks
-            opt.plan.grad_blocks = first_push
+            push = pt_capture_push(opt, pushed)
         for k in kernels.values():
             k.launches = 0
         params, state, losses, norms, times, dig = pt_steps(
-            torch, step, params, state, batches, yard == "bitwise")
+            torch, step, params, state, batches, yard == "bitwise" or twin)
         launches = {n: k.launches for n, k in kernels.items() if k.launches}
         opt.plan.grad_blocks = push
         r.update(losses=losses, grad_norms=norms, launches=launches,
                  step_ms=[1e3 * t for t in times],
                  step_p50_ms=1e3 * float(np.percentile(times, 50)),
                  params_local=sum(t.numel() for _p, t in flatten(params)))
+        flat = dict(digests=dig, losses=losses, norms=norms,
+                    pushed=[pt_digest(torch, b) for b in pushed.values()]
+                    if pushed else None)
         if yard == "bitwise":
             r["bitwise_steps"] = [
                 a == b for a, b in zip(want_d, dig)]
@@ -6168,10 +6386,16 @@ def pt_rank(rank, sizes, stage, ref_file):
         r["profiled"] = pt_groups(pt_profiled(
             torch, mesh, lambda: step(params, state, batches[-1])))
         r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        out["models"][label] = r
         del model, opt, step, params, state
+        if twin:
+            if yard == "bitwise":     # the one-device step's bits
+                flat.update(digests=want_d, losses=want_l, norms=want_n)
+            r["pod"] = pt_pod_twin(torch, kernels, pod, cfg, tcfg, batches,
+                                   flat)
+        out["models"][label] = r
         gc.collect()
         torch.cuda.empty_cache()
+    SH.FSDP_MIN_ELEMENTS = fsdp_min
     return out
 
 
@@ -6238,13 +6462,14 @@ def pt_reference(torch, label, arch, smoke, layers, seq):
     cfg = pt_config(arch, smoke, layers)
     tcfg = TrainConfig(remat="block", zero_stage=2)
     mesh = StackedMesh((1, 2), ("data", "model")) if cfg.moe else None
+    control_too = cfg.moe is None and not smoke
     batches = pt_batches(cfg, seq)
     model, opt, step = make_train_step(cfg, tcfg, "cuda", mesh=mesh)
     params = model.init(pt_generator(torch, "cuda"))
     init = {p: t.detach().cpu() for p, t in flatten(params)}
     grads = pt_grads(torch, model, params, batches[0])
     control = {}
-    if cfg.moe is None:
+    if control_too:
         control["grad_err"], control["grad_leaf"] = pt_grad_err(
             torch, pt_grads(torch, model, params, batches[0], rows=True),
             grads)
@@ -6257,7 +6482,7 @@ def pt_reference(torch, label, arch, smoke, layers, seq):
     del model, opt, step, params, state
     gc.collect()
     torch.cuda.empty_cache()
-    if cfg.moe is None:
+    if control_too:
         model, opt, step = make_train_step(
             cfg, TrainConfig(remat="block", zero_stage=2,
                              microbatch=TRAIN_BATCH), "cuda")
@@ -6362,8 +6587,9 @@ def phase_train_process_mesh(torch, card):
     have = torch.cuda.get_device_properties(0).total_memory
     with tempfile.TemporaryDirectory(prefix="phase7c-") as tmp:
         refs = {}
-        for sizes in {s for _b, s, _z in PT_WORLDS}:
-            for label, arch, smoke, layers, seq, yard in pt_models(sizes):
+        for sizes, stage in sorted({(s, z) for _b, s, z in PT_WORLDS}):
+            for label, arch, smoke, layers, seq, yard in pt_models(sizes,
+                                                                   stage):
                 if yard == "tolerance" and label not in refs:
                     refs[label] = pt_reference(torch, label, arch, smoke,
                                                layers, seq)
@@ -6395,7 +6621,7 @@ def phase_train_process_mesh(torch, card):
                      f"{stage}" + (", on one card over gloo, not a "
                                    "cross-card number" if world > 1 else ""))
             need = 0
-            for _l, arch, smoke, layers, _s, _y in pt_models(sizes):
+            for _l, arch, smoke, layers, _s, _y in pt_models(sizes, stage):
                 cfg = pt_config(arch, smoke, layers)
                 need = max(need, world * memory_reckoning(
                     cfg, TrainConfig(zero_stage=stage),
@@ -6418,7 +6644,8 @@ def phase_train_process_mesh(torch, card):
             m = dict(backend=backend, world=world, mesh=list(sizes),
                      stage=stage, wall_s=wall, need_gb=need / 1e9,
                      transports=ranks[0]["transports"], models={})
-            for mlabel, arch, smoke, layers, seq, yard in pt_models(sizes):
+            for mlabel, arch, smoke, layers, seq, yard in pt_models(sizes,
+                                                                    stage):
                 cfg = pt_config(arch, smoke, layers)
                 per_step, _routes = train_launches(cfg)
                 want = {k: PT_STEPS * n for k, n in per_step.items()}
@@ -6462,6 +6689,28 @@ def phase_train_process_mesh(torch, card):
                             f"rank {r['coords']['data']},"
                             f"{r['coords']['model']}")
                     launches[path] = n["launches"]
+                    if "pod" in n:
+                        t = n["pod"]
+                        check(all(t["bitwise_steps"]) and t["bitwise_losses"]
+                              and t.get("bitwise_grads", True),
+                              f"{where}: the pod mesh {tuple(t['mesh'])} is "
+                              f"not bit for bit its flat twin: steps "
+                              f"{t['bitwise_steps']}, losses "
+                              f"{t['bitwise_losses']}, first gradient "
+                              f"{t.get('bitwise_grads')}")
+                        check(t["launches"] == want, f"{where}: the pod "
+                              f"mesh's launches {t['launches']}, planned "
+                              f"{want}")
+                        launches[path.replace(str(sizes), str(tuple(
+                            t["mesh"])))] = t["launches"]
+                        log(f"    {mlabel} rank {r['coords']} on the pod "
+                            f"mesh {tuple(t['mesh'])}: bit for bit "
+                            + ("the one-device step" if yard == "bitwise"
+                               else f"the {sizes} mesh (its first gradient's "
+                               "blocks too)")
+                            + f" at every step, step p50 "
+                            f"{t['step_p50_ms']:.1f} ms, launches "
+                            f"{t['launches']}")
                     rows.append({k: v for k, v in n.items()} |
                                 {"coords": r["coords"]})
                     log(f"    {mlabel} rank {r['coords']}: "

@@ -7,8 +7,9 @@ and whisper (audio: an encoder-decoder)."""
 from . import (deepseek_v3_671b, gemma_2b, internlm2_20b,
                llama4_maverick_400b_a17b, llama32_3b, llama32_vision_11b,
                qwen3_8b, recurrentgemma_2b, rwkv6_7b, whisper_large_v3)
-from .base import (ArchConfig, CrossAttnConfig, HybridConfig, MLAConfig,
-                   MoEConfig)
+from .base import (LM_SHAPES, ArchConfig, CrossAttnConfig, HybridConfig,
+                   MLAConfig, MoEConfig, ShapeConfig, TrainConfig,
+                   shape_applicable)
 
 _MODULES = {
     "llama3.2-3b": llama32_3b,
@@ -42,5 +43,7 @@ def get_smoke_config(arch_id: str) -> ArchConfig:
     return _module(arch_id).smoke()
 
 
-__all__ = ["ARCH_IDS", "ArchConfig", "CrossAttnConfig", "HybridConfig",
-           "MLAConfig", "MoEConfig", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "LM_SHAPES", "ArchConfig", "CrossAttnConfig",
+           "HybridConfig", "MLAConfig", "MoEConfig", "ShapeConfig",
+           "TrainConfig", "get_config", "get_smoke_config",
+           "shape_applicable"]

@@ -5,9 +5,12 @@ The reference's module imports ``jax.numpy`` for :attr:`ArchConfig.dtype_`,
 so the port keeps its own copy; ``dtype_`` returns a ``torch.dtype``.  The
 fields of every family the port builds (dense, hybrid, ssm, the MoE family
 with GQA or MLA attention, the vlm's cross-attention layers and whisper's
-encoder) are carried over.  :class:`ShapeConfig`,
-:data:`LM_SHAPES` and :class:`TrainConfig` are the reference's, field for
-field; the port's trainer reads ``microbatch``, ``remat``, ``optimizer``,
+encoder) are carried over, with the capability flags ``sub_quadratic``
+and ``has_decoder`` and :meth:`ArchConfig.param_count` (the reference's
+count, which its serving default and dry-run policy read: an arch over
+100B parameters serves under fsdp and trains with factored bf16 moments at
+ZeRO 3).  :class:`ShapeConfig`, :data:`LM_SHAPES`, :func:`shape_applicable`
+and :class:`TrainConfig` are the reference's, field for field; the port's trainer reads ``microbatch``, ``remat``, ``optimizer``,
 ``adam_dtype``, ``xent_chunks``, ``lr``, ``weight_decay``, ``grad_clip``,
 ``seed`` and ``fence_scope``, and the training step across processes
 ``zero_stage`` (ZeRO's sharded moments at 2, fsdp at 3).
@@ -90,6 +93,9 @@ class ArchConfig:
     n_enc_layers: int = 0                  # whisper encoder stack
     mtp_depth: int = 0                     # deepseek multi-token prediction
     scale_embed: bool = False              # gemma-style sqrt(d) embed scale
+    # capability flags for shape-cell applicability
+    sub_quadratic: bool = False            # supports long_500k
+    has_decoder: bool = True
 
     def is_moe_layer(self, i: int) -> bool:
         mo = self.moe
@@ -109,6 +115,52 @@ class ArchConfig:
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
+    # ---- parameter counting (roofline MODEL_FLOPS = 6·N·D) ----------------
+    def param_count(self, active_only: bool = False) -> int:
+        """The reference's count of the parameters (``active_only``: an MoE
+        layer's top-k routed experts only): a closed form over the widths,
+        the hybrid family counted as attention-shaped, as the reference
+        counts it."""
+        d, hd = self.d_model, self.head_dim_
+        L = self.n_layers
+        n = 0
+        # embeddings (+ untied head)
+        n += self.vocab * d * (1 if self.tie_embeddings else 2)
+        per_layer_attn = (
+            d * self.n_heads * hd                  # wq
+            + 2 * d * self.n_kv_heads * hd         # wk, wv
+            + self.n_heads * hd * d)               # wo
+        if self.mla is not None:
+            m = self.mla
+            qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+            per_layer_attn = (
+                d * m.q_lora_rank + m.q_lora_rank * self.n_heads * qk_dim
+                + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                + m.kv_lora_rank * self.n_heads
+                * (m.qk_nope_head_dim + m.v_head_dim)
+                + self.n_heads * m.v_head_dim * d)
+        ffn_dense = 3 * d * self.d_ff              # gate, up, down
+        if self.family == "ssm":                   # rwkv6
+            per_layer_attn = 4 * d * d + 6 * d     # r,k,v,o + decay/bonus
+            ffn_dense = 2 * d * self.d_ff + d * d  # rwkv channel mix
+        if self.moe is not None:
+            mo = self.moe
+            moe_ffn = (mo.n_experts * 3 * d * mo.d_ff_expert
+                       + mo.n_shared_experts * 3 * d * mo.d_ff_shared
+                       + d * mo.n_experts)         # router
+            act_ffn = (3 * d * mo.d_ff_expert * mo.top_k
+                       + mo.n_shared_experts * 3 * d * mo.d_ff_shared
+                       + d * mo.n_experts)
+            n_moe_layers = sum(1 for i in range(L) if self.is_moe_layer(i))
+            n_dense_layers = L - n_moe_layers
+            n += n_dense_layers * (per_layer_attn + 3 * d * mo.d_ff_dense)
+            n += n_moe_layers * (per_layer_attn
+                                 + (act_ffn if active_only else moe_ffn))
+        else:
+            n += L * (per_layer_attn + ffn_dense)
+        n += self.n_enc_layers * (per_layer_attn + ffn_dense)
+        return int(n)
+
 
 @dataclass(frozen=True)
 class ShapeConfig:
@@ -125,6 +177,16 @@ LM_SHAPES: Tuple[ShapeConfig, ...] = (
     ShapeConfig("decode_32k", 32768, 128, "decode"),
     ShapeConfig("long_500k", 524288, 1, "decode"),
 )
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether a shape cell applies to an arch (DESIGN.md §5)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("skip: pure full-attention arch — 512k dense decode "
+                       "needs sub-quadratic attention")
+    if shape.kind in ("decode",) and not cfg.has_decoder:
+        return False, "skip: encoder-only arch has no decode step"
+    return True, ""
 
 
 @dataclass(frozen=True)

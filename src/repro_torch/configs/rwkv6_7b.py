@@ -6,7 +6,7 @@ from .base import ArchConfig
 CONFIG = ArchConfig(
     name="rwkv6-7b", family="ssm",
     n_layers=32, d_model=4096, n_heads=64, n_kv_heads=64, d_ff=14336,
-    vocab=65536, head_dim=64, norm_eps=1e-5,
+    vocab=65536, head_dim=64, sub_quadratic=True, norm_eps=1e-5,
 )
 
 
@@ -14,4 +14,4 @@ def smoke() -> ArchConfig:
     return ArchConfig(
         name="rwkv6-smoke", family="ssm",
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_ff=128, vocab=256,
-        head_dim=16, norm_eps=1e-5)
+        head_dim=16, sub_quadratic=True, norm_eps=1e-5)

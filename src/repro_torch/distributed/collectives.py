@@ -36,8 +36,11 @@ participant leaves with the mean over the dp axes.
 The process binding's collectives: :func:`psum`, :func:`all_gather`,
 :func:`all_to_all`, :func:`reduce_scatter`, :func:`copy_to`,
 :func:`slice_to` and :func:`gather_param` over one named axis of a
-:class:`~repro_torch.launch.mesh.ProcessMesh`, each the identity on an
-axis of size 1 and when no mesh is given, so a path without a mesh runs
+:class:`~repro_torch.launch.mesh.ProcessMesh`, or over a tuple of axes
+taken as one (the flattened data-parallel axes ``("pod", "data")``: one
+group, its ranks in pod-major order, so a sum over it is one reduction,
+as the reference's GSPMD takes it), each the identity on an axis of size
+1 and when no mesh is given, so a path without a mesh runs
 no collective at all.  Where autograd needs their gradient each is a
 ``torch.autograd.Function`` whose backward is its adjoint: ``psum`` (the
 row-parallel sum) passes the gradient through; ``copy_to`` (a
@@ -50,7 +53,8 @@ the gradient back to the shards.  :func:`loss_mean` is a loss term's
 mean over the whole world (the MoE load-balance loss).  Under gloo a
 tensor on the card goes through host memory (``transport`` "host") unless
 :func:`probe_transports` found that gloo takes card tensors for that
-collective ("native"); NCCL always takes them.
+collective ("native"), a verdict that holds for every group of the mesh,
+the flattened dp group among them; NCCL always takes them.
 """
 from __future__ import annotations
 
@@ -61,6 +65,7 @@ import torch
 from ..core.ack import AckKey, join
 from ..optim import compression as C
 from ..tree import leaves, unflatten
+from .sharding import DP, dp_axes
 
 
 def fence_grads(grads):
@@ -231,26 +236,34 @@ def transport(mesh, op: str, x) -> str:
 def probe_transports(mesh) -> dict:
     """Ask gloo, on a few elements of card memory, which collectives take
     card tensors; record "native" for those and "host" for the others on
-    ``mesh.transports``, and return it.  Every rank must call it at the
+    ``mesh.transports``, and return it.  Each collective is asked on the
+    whole world and on the dp axes' group, and is "native" only where both
+    take it.  Every rank must call it at the
     same point (each collective is one).  Other backends and CPU meshes
     need no probe: every collective is "native" there."""
     import torch.distributed as dist
     mesh.transports = dict.fromkeys(_OPS, "native")
     if mesh.backend != "gloo" or mesh.device.type == "cpu":
         return mesh.transports
-    world = dist.get_world_size()
-    x = torch.ones(world, device=mesh.device)
-    calls = {"all_reduce": lambda: dist.all_reduce(x.clone()),
-             "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
-                 x.new_empty(world * world), x),
-             "all_to_all_single": lambda: dist.all_to_all_single(
-                 torch.empty_like(x), x)}
-    for op, call in calls.items():
-        try:
-            call()
-            torch.cuda.synchronize(mesh.device)
-        except (RuntimeError, ValueError, NotImplementedError):
-            mesh.transports[op] = "host"
+    groups = [None]
+    if mesh.axis_size(DP) > 1:
+        groups.append(mesh.group(DP))
+    for group in groups:
+        n = dist.get_world_size(group)
+        x = torch.ones(n, device=mesh.device)
+        calls = {"all_reduce": lambda: dist.all_reduce(x.clone(),
+                                                       group=group),
+                 "all_gather_into_tensor":
+                     lambda: dist.all_gather_into_tensor(
+                         x.new_empty(n * n), x, group=group),
+                 "all_to_all_single": lambda: dist.all_to_all_single(
+                     torch.empty_like(x), x, group=group)}
+        for op, call in calls.items():
+            try:
+                call()
+                torch.cuda.synchronize(mesh.device)
+            except (RuntimeError, ValueError, NotImplementedError):
+                mesh.transports[op] = "host"
     return mesh.transports
 
 
@@ -266,7 +279,7 @@ def _run(mesh, op: str, fn, out, *inputs):
 
 
 def _trivial(mesh, axis) -> bool:
-    return mesh is None or mesh.shape.get(axis, 1) == 1
+    return mesh is None or mesh.axis_size(axis) == 1
 
 
 def _graded(x) -> bool:
@@ -292,21 +305,24 @@ def _all_reduce(x, mesh, axis, op=None):
 
 
 def _gather(x, mesh, axis, dim):
+    """The ranks' ``x`` concatenated on ``dim`` in coordinate order, laid
+    out contiguous (row-major), as the whole tensor is: the ops that read
+    it then take the whole tensor's path, bit for bit."""
     import torch.distributed as dist
-    n = mesh.shape[axis]
+    n = mesh.axis_size(axis)
     xc = x.movedim(dim, 0).contiguous()
     out = xc.new_empty((n * xc.shape[0], *xc.shape[1:]))
     _run(mesh, "all_gather_into_tensor",
          lambda o, i: dist.all_gather_into_tensor(o, i,
                                                   group=mesh.group(axis)),
          out, xc)
-    return out.movedim(0, dim)
+    return out.movedim(0, dim).contiguous()
 
 
 def _own(x, mesh, axis, dim):
     """This rank's slice of ``x`` along ``dim``: block ``coord(axis)`` of
     ``axis``'s size equal blocks (a view)."""
-    n = mesh.shape[axis]
+    n = mesh.axis_size(axis)
     if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                          f"over {axis!r} of {n}")
@@ -428,15 +444,23 @@ class _LossMean(torch.autograd.Function):
         return g * ctx.scale, None, None
 
 
+def reduction_axes(mesh) -> list:
+    """The mesh's axes as a sum over the whole world takes them: the dp
+    axes as one (pod-major), then each other axis."""
+    dp = dp_axes(mesh)
+    rest = [a for a in mesh.axis_names if a not in dp]
+    return ([dp] if dp else []) + rest
+
+
 def _world_mean(x, mesh):
     y = x
-    for axis in mesh.axis_names:
+    for axis in reduction_axes(mesh):
         if not _trivial(mesh, axis):
             y = _all_reduce(y, mesh, axis)
     return y / y.new_tensor(float(mesh.size))
 
 
-def psum(x, mesh, axis: str):
+def psum(x, mesh, axis):
     """The sum of ``x`` over ``axis``'s ranks, on every one of them.  A
     bf16 or fp16 ``x`` is summed in float32 and rounded once.  Under
     autograd the gradient passes through (a row-parallel sum)."""
@@ -447,7 +471,7 @@ def psum(x, mesh, axis: str):
     return _all_reduce(x, mesh, axis)
 
 
-def pmax(x, mesh, axis: str):
+def pmax(x, mesh, axis):
     """The elementwise max of ``x`` over ``axis``'s ranks (no gradient)."""
     if _trivial(mesh, axis):
         return x
@@ -455,24 +479,25 @@ def pmax(x, mesh, axis: str):
     return _all_reduce(x, mesh, axis, dist.ReduceOp.MAX)
 
 
-def pmean(x, mesh, axis: str):
+def pmean(x, mesh, axis):
     """The float mean of ``x`` over ``axis``'s ranks: the sum divided by a
     tensor holding their number (no gradient)."""
     if _trivial(mesh, axis):
         return x
     return _all_reduce(x, mesh, axis) / x.new_tensor(
-        float(mesh.shape[axis]))
+        float(mesh.axis_size(axis)))
 
 
 def psum_axes(x, mesh, axes):
-    """:func:`psum` over each of ``axes`` in turn (no gradient)."""
+    """:func:`psum` over each of ``axes`` in turn (no gradient); an entry
+    may be a tuple of axes, summed over as one."""
     for axis in axes:
         if not _trivial(mesh, axis):
             x = _all_reduce(x, mesh, axis)
     return x
 
 
-def all_gather(x, mesh, axis: str, dim: int = 0):
+def all_gather(x, mesh, axis, dim: int = 0):
     """Every rank's ``x`` along ``axis``, concatenated on ``dim`` in
     coordinate order, on every one of them.  Under autograd each rank
     keeps its own slice of the gradient (the logits' gather over
@@ -484,23 +509,23 @@ def all_gather(x, mesh, axis: str, dim: int = 0):
     return _gather(x, mesh, axis, dim)
 
 
-def all_to_all(x, mesh, axis: str):
+def all_to_all(x, mesh, axis):
     """x (P, ...), P = ``axis``'s size: block j goes to coordinate j, and
     block s of the result came from coordinate s — the reference's
     ``jax.lax.all_to_all(x, axis, 0, 0)``, its own adjoint under
     autograd."""
     if _trivial(mesh, axis):
         return x
-    if x.shape[0] != mesh.shape[axis]:
-        raise ValueError(f"all_to_all over {axis!r} of {mesh.shape[axis]} "
-                         f"takes {mesh.shape[axis]} blocks, got "
-                         f"{x.shape[0]}")
+    n = mesh.axis_size(axis)
+    if x.shape[0] != n:
+        raise ValueError(f"all_to_all over {axis!r} of {n} takes {n} "
+                         f"blocks, got {x.shape[0]}")
     if _graded(x):
         return _AllToAll.apply(x, mesh, axis)
     return _a2a(x, mesh, axis)
 
 
-def reduce_scatter(x, mesh, axis: str, dim: int = 0):
+def reduce_scatter(x, mesh, axis, dim: int = 0):
     """This rank's block along ``dim`` of the sum of ``x`` over ``axis``
     (the ZeRO gradient's push; no gradient)."""
     if _trivial(mesh, axis):
@@ -508,7 +533,7 @@ def reduce_scatter(x, mesh, axis: str, dim: int = 0):
     return _reduce_scatter(x, mesh, axis, dim)
 
 
-def copy_to(x, mesh, axis: str):
+def copy_to(x, mesh, axis):
     """``x`` itself, as the input of a layer whose weight is split over
     ``axis`` (column-parallel): under autograd the ranks' partial input
     gradients are summed over ``axis``."""
@@ -517,7 +542,7 @@ def copy_to(x, mesh, axis: str):
     return _CopyTo.apply(x, mesh, axis)
 
 
-def slice_to(x, mesh, axis: str, dim: int):
+def slice_to(x, mesh, axis, dim: int):
     """This rank's slice of ``x`` along ``dim`` over ``axis`` (a view);
     under autograd the slices' gradients are gathered back."""
     if _trivial(mesh, axis):
@@ -527,9 +552,9 @@ def slice_to(x, mesh, axis: str, dim: int):
     return _own(x, mesh, axis, dim)
 
 
-def gather_param(x, mesh, axis: str, dim: int):
-    """A parameter shard split over ``axis`` on ``dim``, gathered whole
-    (fsdp); under autograd the gradient is summed over ``axis`` and each
+def gather_param(x, mesh, axis, dim: int):
+    """A parameter shard split over ``axis`` (or a tuple of axes, pod-major)
+    on ``dim``, gathered whole (fsdp); under autograd the gradient is summed over ``axis`` and each
     rank keeps its shard's block."""
     if _trivial(mesh, axis):
         return x

@@ -43,11 +43,15 @@ item.
 Over a model axis above 1 the hybrid (RG-LRU, channel-sharded), ssm
 (RWKV6, heads-sharded), MLA (deepseek-v3), audio (whisper) and vlm
 (cross layers) families are refused (:func:`check_supported`); at a model
-axis of 1 every family runs, sharded over the dp axes only.  Parameters
-are replicated over the dp axes, except in training at ``zero_stage`` 3,
-where ``param_layout(..., fsdp=True)`` adds the reference's fsdp split
-and the training step gathers each layer's shards over ``data`` before
-the layer runs (:mod:`repro_torch.train.train_step`).
+axis of 1 every family runs, sharded over the dp axes only, in serving
+and in training at every ZeRO stage.  Parameters are replicated over the
+dp axes, except under fsdp (training at ``zero_stage`` 3, and serving
+with ``make_serve_steps(..., fsdp=True)``, the reference's default for
+archs over 100B parameters), where ``param_layout(..., fsdp=True)`` adds
+the reference's split over the dp axes and the steps gather each layer's
+shards (:class:`FsdpGather`) before the layer runs
+(:mod:`repro_torch.train.train_step`, :mod:`repro_torch.train.
+serve_step`).
 
 Training runs the same layers under autograd: the collectives carry
 their adjoints (:class:`TensorParallel`), and a family's kv heads must
@@ -60,10 +64,10 @@ import re
 import torch
 
 from ..configs.base import ArchConfig
-from ..tree import tree_map
+from ..tree import flatten, tree_map
 from . import collectives as CL
-from .sharding import (TP, Blocks, leaf_cache_pspec, leaf_pspec,
-                       local_shape, map_with_path, shard)
+from .sharding import (DP, TP, Blocks, entry_axes, leaf_cache_pspec,
+                       leaf_pspec, local_shape, map_with_path, shard)
 
 #: Families whose layers have no tensor-parallel form in the port yet.
 REFUSED = {"hybrid": "the RG-LRU recurrence (channel-sharded)",
@@ -163,6 +167,35 @@ def cache_layout(caches, cfg: ArchConfig, mesh):
     return map_with_path(leaf, caches)
 
 
+class FsdpGather:
+    """fsdp's gather, the ``gather`` hook of :func:`~repro_torch.models.
+    build_model`: ``gather(tree)`` is ``tree`` with every leaf whose spec
+    splits over the dp axes gathered whole over them, pod-major
+    (:func:`~repro_torch.distributed.collectives.gather_param`), its model
+    blocks kept.  The layers hand it subtrees, so it knows a leaf by
+    identity: :meth:`bind` maps a step's own parameter leaves to their
+    specs in ``layout`` (of the whole tree ``full``, by path) as the step
+    starts."""
+
+    def __init__(self, mesh, full, layout):
+        self.mesh = mesh
+        specs = []
+        tree_map(lambda _t, spec: specs.append(tuple(spec)), full, layout)
+        self.by_path = dict(zip((p for p, _ in flatten(full)), specs))
+        self.spec_of = {}
+
+    def bind(self, params) -> None:
+        self.spec_of = {id(t): self.by_path[p] for p, t in flatten(params)}
+
+    def __call__(self, tree):
+        def one(t):
+            for dim, e in enumerate(self.spec_of.get(id(t), ())):
+                if set(DP) & set(entry_axes(e)):
+                    return CL.gather_param(t, self.mesh, entry_axes(e), dim)
+            return t
+        return tree_map(one, tree)
+
+
 def shard_tree(tree, layout, mesh):
     """Every leaf of a full ``tree`` cut to this rank's block (copies)."""
     return tree_map(lambda t, spec: shard(t, spec, mesh).clone(), tree,
@@ -219,11 +252,12 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, mesh,
     leaves as it is drawn (an MoE layer's experts are drawn one at a time
     and only the rank's kept), so the peak is one layer's leaves drawn
     whole, its routed experts aside, not the model.  ``fsdp``: the blocks
-    of ``param_layout(..., fsdp=True)``, split over ``data`` too.
-    The same seed gives every rank its block of the same model."""
+    of ``param_layout(..., fsdp=True)``, split over the dp axes too.
+    Every family's ``init`` takes the ``keep`` hook (the encoder-decoder
+    and RWKV draw no experts).  The same seed gives every rank its block
+    of the same model."""
     from ..models.layers import MetaGenerator
     from ..models.model import build_model
-    from .sharding import DP, entry_axes
     model = build_model(cfg)
     n_tp = mesh.shape[TP]
     split_dp = fsdp and any(mesh.shape.get(a, 1) > 1 for a in DP)

@@ -1,17 +1,24 @@
 """ZeRO on the process binding: the optimizer's state sharded over the
-``data`` ranks, the counterpart of what the reference's ``jit_train_step``
-gets from ``opt_state_pspecs`` and GSPMD.
+data-parallel ranks, the counterpart of what the reference's
+``jit_train_step`` gets from ``opt_state_pspecs`` and GSPMD.
+
+The data-parallel axes are the mesh's of ``sharding.DP``, ``("pod",
+"data")`` (:func:`~repro_torch.distributed.sharding.dp_axes`): on a
+(pod, data, model) mesh every collective below runs over both as one
+group, its ranks in pod-major order (the reference's ``P(("pod",
+"data"))``), so a (2, 2, 1) mesh holds the blocks a (4, 1) mesh holds and
+sums them in one reduction over the same four ranks.
 
 Each rank holds its block of every parameter (the tensor-parallel layout,
-and at ``zero_stage`` 3 fsdp's split over ``data``) and runs the
+and at ``zero_stage`` 3 fsdp's split over the dp axes) and runs the
 backward on its own batch rows.  Then, per leaf:
 
 * **the gradient's push**: a leaf whose moments
-  :func:`~repro_torch.optim.optimizer.opt_state_pspecs` splits over
-  ``data`` on a dim z (stage ≥ 2) is reduce-scattered there, so the rank
+  :func:`~repro_torch.optim.optimizer.opt_state_pspecs` splits over the
+  dp axes on a dim z (stage ≥ 2) is reduce-scattered there, so the rank
   receives its block of the dp sum; an fsdp leaf arrives summed already
   (its gather's backward reduce-scatters); any other leaf is all-reduced.
-  The sum is taken in float32, divided by the data ranks' number and
+  The sum is taken in float32, divided by the dp ranks' number and
   rounded once to the gradient's dtype: the dp mean;
 * **the update**: the one-device optimizer
   (:func:`~repro_torch.optim.optimizer.make_optimizer`) runs on the
@@ -21,17 +28,17 @@ backward on its own batch rows.  Then, per leaf:
   ranks hold (replicated over ``model``, say) once; Adafactor's factor
   means over a dimension split across ranks sum over them;
 * **the pull**: the updated blocks of a leaf split on z are all-gathered
-  over ``data`` into the rank's whole local tensor (the reference's
-  ``out_shardings`` keep parameters whole over ``data`` below stage 3).
+  over the dp axes into the rank's whole local tensor (the reference's
+  ``out_shardings`` keep parameters whole over them below stage 3).
 
-At one data rank every collective is the identity and the update sees the
+At one dp rank every collective is the identity and the update sees the
 very tensors the one-device step does, so the step is bitwise that step.
 
 The layout of the moments is ``opt_state_pspecs`` on the port's tree,
 whose stacks are lists of per-layer leaves: a per-layer leaf's moments
 split on its first free dim that divides.  The reference's stacked ``(n,
 …)`` leaf splits on the stack's dim when ``n`` divides, so each of its
-data ranks holds whole layers' moments; the port's rank holds a block of
+dp ranks holds whole layers' moments; the port's rank holds a block of
 every layer's (the same bytes).  Adafactor's factors ``vr`` / ``vc``
 follow the rank's block of their leaf (its rows and columns), where the
 reference splits them on their own first divisible dim: they are a row
@@ -49,9 +56,7 @@ from ..optim.optimizer import (AdamState, FactoredState, _stacked_rows,
                                make_optimizer, opt_state_pspecs)
 from ..tree import flatten, leaves, tree_map, unflatten
 from . import collectives as CL
-from .sharding import _axes, entry_axes
-
-DATA = "data"
+from .sharding import _axes, dp_axes, entry_axes
 
 
 class ZeroPlan:
@@ -63,11 +68,10 @@ class ZeroPlan:
     hold their keys in another order: every lookup goes by path."""
 
     def __init__(self, mesh, params_shape, layout, zero_stage: int):
-        if "pod" in mesh.axis_names:
-            raise ValueError("the sharded training step runs on (data, "
-                             "model) meshes; a pod axis is not supported")
         self.mesh = mesh
-        self.n_dp = mesh.shape[DATA]
+        #: the dp axes (pod before data), taken as one in every collective
+        self.dp = dp_axes(mesh)
+        self.n_dp = mesh.axis_size(self.dp)
         paths = [p for p, _ in flatten(params_shape)]
         specs = _in_order(params_shape, layout)
         state = AdamState(params_shape, params_shape, torch.zeros(()))
@@ -83,13 +87,14 @@ class ZeroPlan:
                       if a is None and b is not None), None)
             block = list(spec)
             if z is not None:
-                block[z] = _axes((DATA,))
+                block[z] = _axes(self.dp)
             splits = {i - t.dim(): tuple(a for a in entry_axes(e)
                                          if mesh.shape[a] > 1)
                       for i, e in enumerate(block)
                       if any(mesh.shape[a] > 1 for a in entry_axes(e))}
             self.spec[path], self.z[path] = tuple(block), z
-            self.fsdp[path] = any(DATA in entry_axes(e) for e in spec)
+            self.fsdp[path] = any(set(self.dp) & set(entry_axes(e))
+                                  for e in spec)
             self.splits[path] = splits
             self.replicated[path] = tuple(
                 a for a in mesh.axis_names if mesh.shape[a] > 1 and
@@ -117,10 +122,10 @@ class ZeroPlan:
                 out.append(self._mean_dp(g, g.float()))
             elif z is not None:
                 out.append(self._mean_dp(g, CL.reduce_scatter(
-                    g.float(), self.mesh, DATA, z)))
+                    g.float(), self.mesh, self.dp, z)))
             else:
                 out.append(self._mean_dp(g, CL.psum(g.float(), self.mesh,
-                                                    DATA)))
+                                                    self.dp)))
         return out
 
     def param_blocks(self, params) -> List[torch.Tensor]:
@@ -129,23 +134,23 @@ class ZeroPlan:
         out = []
         for path, p in flatten(params):
             z = self.z[path]
-            out.append(CL._own(p, self.mesh, DATA, z)
+            out.append(CL._own(p, self.mesh, self.dp, z)
                        if z is not None and self.n_dp > 1 else p)
         return out
 
     def pull(self, params, blocks) -> None:
-        """The updated blocks gathered over ``data`` into each leaf."""
+        """The updated blocks gathered over the dp axes into each leaf."""
         for (path, p), b in zip(flatten(params), blocks):
             z = self.z[path]
             if z is not None and self.n_dp > 1:
-                p.copy_(CL.all_gather(b, self.mesh, DATA, z))
+                p.copy_(CL.all_gather(b, self.mesh, self.dp, z))
 
     # -------------------------------------------------------------- hooks
     def norm(self, grads) -> torch.Tensor:
         """The global norm of the gradient blocks: each block's float32
         sum of squares, a block several ranks hold counted on the one at
         coordinate 0 of those axes, summed in leaf order and then over
-        every axis."""
+        every axis (the dp axes as one)."""
         total = None
         for path, x in flatten(grads):
             if any(self.mesh.coord(a) for a in self.replicated[path]):
@@ -155,12 +160,14 @@ class ZeroPlan:
         if total is None:
             total = torch.zeros((), dtype=torch.float32,
                                 device=self.mesh.device)
-        return CL.psum_axes(total, self.mesh, self.mesh.axis_names).sqrt()
+        return CL.psum_axes(total, self.mesh,
+                            CL.reduction_axes(self.mesh)).sqrt()
 
     def means(self, i: int):
         """Leaf i's (of :attr:`order`) mean for Adafactor's factors:
         ``x.mean(dim)`` where the leaf's dim is whole on the rank, else the
-        sum over the ranks that split it over the whole length."""
+        sum over the ranks that split it (one reduction over their axes)
+        over the whole length."""
         splits = self.splits[self.order[i]]
 
         def mean(x, dim, leaf_dim, keepdim=False):
@@ -168,7 +175,7 @@ class ZeroPlan:
             if not axes:
                 return x.mean(dim, keepdim=keepdim)
             n = x.shape[dim] * math.prod(self.mesh.shape[a] for a in axes)
-            s = CL.psum_axes(x.sum(dim, keepdim=keepdim), self.mesh, axes)
+            s = CL.psum_axes(x.sum(dim, keepdim=keepdim), self.mesh, [axes])
             return s / s.new_tensor(float(n))
 
         return mean

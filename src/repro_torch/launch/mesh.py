@@ -5,13 +5,19 @@ named participant dimensions (:mod:`repro_torch.core.runtime`'s stacked
 form), so a tensor sharded over ``("data", "model")`` carries those two
 leading dimensions on one device.  :class:`StackedMesh` answers what code
 asks of a ``jax.sharding.Mesh`` — ``mesh.shape[name]`` and
-``mesh.axis_names`` — and nothing else.
+``mesh.axis_names`` — and the size of a tuple of axes
+(:meth:`StackedMesh.axis_size`), and nothing else.
 
 On the process binding each rank of a ``torch.distributed`` world is one
 point of the mesh and holds its own shard of every tensor.
 :class:`ProcessMesh` answers the same two questions and adds what a rank's
 program asks: the process group of each axis, this rank's coordinate on
-it, and the device its tensors live on.  It is built on
+it, and the device its tensors live on.  Where code names a tuple of
+axes, such as the reference's flattened data-parallel axes ``("pod",
+"data")`` (its ``DP``), the mesh answers for their product: one group of
+the ranks that share every other coordinate, in the tuple's row-major
+order (index = pod · n_data + data, as JAX's ``P(("pod", "data"))``),
+the rank's index in it and its size.  It is built on
 ``torch.distributed.device_mesh.init_device_mesh`` after
 :func:`init_distributed` has joined the world.  No DTensor is made: the
 port's kernels take local tensors, and the collectives are explicit
@@ -60,6 +66,19 @@ class StackedMesh:
     def shape(self) -> Dict[str, int]:
         """Axis name → size, as ``jax.sharding.Mesh.shape``."""
         return dict(zip(self.axis_names, self.sizes))
+
+    def axis_size(self, axes) -> int:
+        """The size of an axis, or the product over a tuple of axes (those
+        the mesh lacks count 1)."""
+        return _axis_size(self.shape, axes)
+
+
+def _names(axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _axis_size(shape, axes) -> int:
+    return math.prod(shape.get(a, 1) for a in _names(axes))
 
 
 def init_distributed(backend: str, world_size: int, rank: int,
@@ -150,7 +169,15 @@ class ProcessMesh:
     world that :func:`init_distributed` joined must hold exactly that many
     ranks, laid out row-major (the last axis, model, varies fastest).
     ``device`` is where this rank's tensors live: the one
-    :func:`init_distributed` returned."""
+    :func:`init_distributed` returned.
+
+    :meth:`group`, :meth:`coord` and :meth:`axis_size` take an axis name
+    or a tuple of them.  A tuple's axes of size 1 (and those the mesh
+    lacks) drop out; where one axis is left, its own group answers (so
+    ``("pod", "data")`` on a (data, model) mesh, or on a mesh whose pod
+    axis is 1, is the plain ``data`` group); where two or more are left,
+    the group of their product, built in ``__init__`` on every rank in the
+    same order (``dist.new_group`` is a collective call)."""
 
     def __init__(self, *sizes: int):
         import torch.distributed as dist
@@ -179,6 +206,31 @@ class ProcessMesh:
             mesh_dim_names=self.axis_names)
         coords = self.device_mesh.get_coordinate()
         self.coords = dict(zip(self.axis_names, (int(c) for c in coords)))
+        self._groups = {}
+        if len(self.sizes) == 3 and self.sizes[0] > 1 and self.sizes[1] > 1:
+            self._groups[("pod", "data")] = self._flat_group(("pod", "data"))
+
+    def _flat_group(self, axes: Tuple[str, ...]):
+        """The process group of this rank's plane along ``axes``, in their
+        row-major order: every such plane's group is made, on every rank,
+        in one order."""
+        import itertools
+
+        import torch.distributed as dist
+        rest = [a for a in self.axis_names if a not in axes]
+        strides = {a: math.prod(self.sizes[j + 1:])
+                   for j, a in enumerate(self.axis_names)}
+        mine = None
+        for fixed in itertools.product(*(range(self.shape[a])
+                                         for a in rest)):
+            base = sum(c * strides[a] for a, c in zip(rest, fixed))
+            ranks = [base + sum(c * strides[a] for a, c in zip(axes, pt))
+                     for pt in itertools.product(*(range(self.shape[a])
+                                                   for a in axes))]
+            g = dist.new_group(ranks)
+            if all(self.coords[a] == c for a, c in zip(rest, fixed)):
+                mine = g
+        return mine
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -190,15 +242,33 @@ class ProcessMesh:
         """The number of ranks."""
         return math.prod(self.sizes)
 
-    def group(self, axis: str):
-        """The process group of this rank's line along ``axis``: the ranks
-        that differ from it in that coordinate alone, in coordinate
-        order."""
-        return self.device_mesh.get_group(axis)
+    def axis_size(self, axes) -> int:
+        """The size of an axis, or the product over a tuple of axes."""
+        return _axis_size(self.shape, axes)
 
-    def coord(self, axis: str) -> int:
-        """This rank's coordinate on ``axis``."""
-        return self.coords[axis]
+    def group(self, axes):
+        """The process group of this rank's line along ``axes`` (a name or
+        a tuple of names): the ranks that differ from it in those
+        coordinates alone, in their row-major order."""
+        live = tuple(a for a in _names(axes) if self.shape.get(a, 1) > 1)
+        if len(live) > 1:
+            if live not in self._groups:
+                raise ValueError(f"no process group over {live}")
+            return self._groups[live]
+        if not live:          # every axis of size 1: this rank's own line
+            live = tuple(a for a in _names(axes) if a in self.shape)
+        return self.device_mesh.get_group(live[0])
+
+    def coord(self, axes) -> int:
+        """This rank's coordinate on an axis, or its index in the
+        row-major order of a tuple of axes (those the mesh lacks count
+        as axes of 1)."""
+        if isinstance(axes, str):
+            return self.coords[axes]
+        index = 0
+        for a in _names(axes):
+            index = index * self.shape.get(a, 1) + self.coords.get(a, 0)
+        return index
 
 
 def make_production_mesh(*, multi_pod: bool = False, dp: int = 16,

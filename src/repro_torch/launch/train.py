@@ -68,10 +68,11 @@ def memory_reckoning(cfg: ArchConfig, tcfg: TrainConfig, mesh=None) -> dict:
     dtypes, and one float32 copy of the largest leaf (the optimizer's
     per-leaf arithmetic runs in float32).  Activations are not counted, so
     the total is a floor.  With ``mesh`` (anything with the mesh's
-    ``shape``: a ``StackedMesh`` of the process mesh's sizes will do) it is
-    one rank's: its blocks of the parameters and gradients (over ``model``,
-    and over ``data`` at ``zero_stage`` 3) and of the state (ZeRO over
-    ``data`` at stage ≥ 2), as the process step lays them out."""
+    ``shape``: a ``StackedMesh`` of the process mesh's sizes will do, a
+    (pod, data, model) one too) it is one rank's: its blocks of the
+    parameters and gradients (over ``model``, and over the dp axes
+    ``("pod", "data")`` at ``zero_stage`` 3) and of the state (ZeRO over
+    the dp axes at stage ≥ 2), as the process step lays them out."""
     params = build_model(cfg).init(MetaGenerator())
     stacks = param_stacks(cfg)
     state = make_optimizer(tcfg, stacks).init(params)

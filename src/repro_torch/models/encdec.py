@@ -53,26 +53,43 @@ def _init_dec_block(gen, cfg):
             "ffn": init_ffn_nogate(gen, cfg.d_model, cfg.d_ff, cfg.dtype_)}
 
 
-def init_encdec(gen: torch.Generator, cfg: ArchConfig):
-    """Random weights, drawn from ``gen`` on its device."""
+def _kept(path, tree):
+    return tree
+
+
+def init_encdec(gen: torch.Generator, cfg: ArchConfig, keep=None):
+    """Random weights, drawn from ``gen`` on its device.  ``keep(path,
+    tree)``, where given, takes each group of leaves as soon as it is
+    drawn — ``("enc_pos",)``, ``("dec_pos",)``, ``("embed",)``, each
+    layer (``("enc", i)``, ``("dec", i)``), ``("ln_enc",)`` and
+    ``("ln_dec",)`` — and returns what the result holds in its place (the
+    process binding's blocks); the draws are the same either way."""
     dev, dt, d = gen.device, cfg.dtype_, cfg.d_model
+    keep = _kept if keep is None else keep
 
     def positions(n):
         return (torch.randn((n, d), generator=gen, device=dev,
                             dtype=torch.float32) * 0.01).to(dt)
 
-    return {
-        "enc_pos": positions(cfg.cross.n_context_tokens),
-        "dec_pos": positions(DEC_POSITIONS),
-        "embed": embed_init(gen, cfg.vocab, d, dt),
-        "enc": [_init_enc_block(gen, cfg) for _ in range(cfg.n_enc_layers)],
-        "dec": [_init_dec_block(gen, cfg) for _ in range(cfg.n_layers)],
-        "ln_enc": init_layernorm(d, dev),
-        "ln_dec": init_layernorm(d, dev),
-    }
+    out = {"enc_pos": keep(("enc_pos",),
+                           positions(cfg.cross.n_context_tokens))}
+    out["dec_pos"] = keep(("dec_pos",), positions(DEC_POSITIONS))
+    out["embed"] = keep(("embed",), embed_init(gen, cfg.vocab, d, dt))
+    out["enc"] = [keep(("enc", i), _init_enc_block(gen, cfg))
+                  for i in range(cfg.n_enc_layers)]
+    out["dec"] = [keep(("dec", i), _init_dec_block(gen, cfg))
+                  for i in range(cfg.n_layers)]
+    out["ln_enc"] = keep(("ln_enc",), init_layernorm(d, dev))
+    out["ln_dec"] = keep(("ln_dec",), init_layernorm(d, dev))
+    return out
 
 
-def _enc_block(p, cfg, x):
+def _whole(gather, tree):
+    return tree if gather is None else gather(tree)
+
+
+def _enc_block(p, cfg, x, gather=None):
+    p = _whole(gather, p)
     h, _ = A.attention(p["attn"], cfg, layernorm(p["ln1"], x, cfg.norm_eps),
                        causal=False, use_rope=False)
     x = x + h
@@ -93,17 +110,20 @@ def _dec_block(p, cfg, x, enc_out):
     return x, self_kv, cross_kv
 
 
-def _dec_block_out(p, cfg, x, enc_out):
-    return _dec_block(p, cfg, x, enc_out)[0]
+def _dec_block_out(p, cfg, x, enc_out, gather=None):
+    return _dec_block(_whole(gather, p), cfg, x, enc_out)[0]
 
 
-def encode(params, cfg: ArchConfig, frames, remat: str = "none"):
+def encode(params, cfg: ArchConfig, frames, remat: str = "none",
+           gather=None):
     """frames (B, n_ctx, d), the stubbed frame embeddings → the encoder's
     output (B, n_ctx, d); ``remat`` recomputes each block in the backward
-    pass (:func:`~repro_torch.models.layers.remat_call`)."""
+    pass (:func:`~repro_torch.models.layers.remat_call`); ``gather``
+    (fsdp) takes each block's parameters whole inside that region.  The
+    parameters outside the layers must be whole."""
     x = frames + params["enc_pos"][None, :frames.shape[1]]
     for p in params["enc"]:
-        x = remat_call(remat, _enc_block, p, cfg, x)
+        x = remat_call(remat, _enc_block, p, cfg, x, gather)
     return layernorm(params["ln_enc"], x, cfg.norm_eps)
 
 
@@ -118,11 +138,11 @@ def _embed_tokens(params, tokens):
 
 
 def decode_train(params, cfg: ArchConfig, tokens, enc_out,
-                 remat: str = "none"):
+                 remat: str = "none", gather=None):
     """Teacher-forced decoder pass → logits (B, S, vocab)."""
     x = _embed_tokens(params, tokens)
     for p in params["dec"]:
-        x = remat_call(remat, _dec_block_out, p, cfg, x, enc_out)
+        x = remat_call(remat, _dec_block_out, p, cfg, x, enc_out, gather)
     x = layernorm(params["ln_dec"], x, cfg.norm_eps)
     return x @ params["embed"].T
 
@@ -144,32 +164,36 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int,
                        [kv(n_ctx) for _ in range(cfg.n_layers)])
 
 
-def prefill(params, cfg: ArchConfig, tokens, frames, s_max: int):
+def prefill(params, cfg: ArchConfig, tokens, frames, s_max: int,
+            gather=None):
     """Encode, run the decoder over the prompt, and keep its caches: each
     layer's self-attention k/v zero-padded to ``s_max`` slots and its
     cross-attention k/v of the encoder's output.  → (last logits (B,
     vocab), :class:`EncDecCache`).  The reference projects both caches
     again from the block inputs; the port keeps the attention's own (the
-    same values)."""
-    enc_out = encode(params, cfg, frames)
+    same values).  ``gather`` (fsdp) takes each layer's parameters whole
+    as it runs."""
+    enc_out = encode(params, cfg, frames, gather=gather)
     x = _embed_tokens(params, tokens)
     self_kv, cross_kv = [], []
     for p in params["dec"]:
-        x, skv, ckv = _dec_block(p, cfg, x, enc_out)
+        x, skv, ckv = _dec_block(_whole(gather, p), cfg, x, enc_out)
         self_kv.append(_block_prefill_cache(skv, s_max, ring=False))
         cross_kv.append(A.KVCache(*(t.contiguous() for t in ckv)))
     x = layernorm(params["ln_dec"], x[:, -1], cfg.norm_eps)
     return x @ params["embed"].T, EncDecCache(self_kv, cross_kv)
 
 
-def decode_step(params, cfg: ArchConfig, token, cache: EncDecCache, pos):
+def decode_step(params, cfg: ArchConfig, token, cache: EncDecCache, pos,
+                gather=None):
     """token (B, 1), pos (B,) → (logits (B, vocab), cache): the
     self-attention caches are written in place at ``pos``, the cross
-    caches read as they are."""
+    caches read as they are; ``gather`` (fsdp) as :func:`prefill`'s."""
     table = params["dec_pos"]
     x = params["embed"][token] + table[pos.long() % table.shape[0]][:, None]
     ctx_lengths = A.context_lengths(cache.cross_kv[0])
     for p, skv, ckv in zip(params["dec"], cache.self_kv, cache.cross_kv):
+        p = _whole(gather, p)
         h, _ = A.attention_decode(p["self_attn"], cfg,
                                   layernorm(p["ln1"], x, cfg.norm_eps), skv,
                                   pos, use_rope=False)

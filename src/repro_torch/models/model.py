@@ -80,16 +80,17 @@ def build_model(cfg: ArchConfig, *, remat: str = "block",
     (:class:`~repro_torch.distributed.tensor_parallel.TensorParallel`; the
     dense and GQA MoE layers' prefill, decode and training); ``gather``:
     fsdp's per-layer gather on the process binding (``gather(tree)`` →
-    the tree with its data-sharded leaves whole; the LM family's training
-    stack applies it to each layer's parameters inside the layer's
-    ``remat`` region, so the backward gathers them again, and to the
-    embedding and final norm once a step).  Where ``moe_fn`` carries a
-    ``world_aux`` (the process binding's), ``train_loss`` takes the
-    blocks' load-balance loss through it: the mean over the world."""
+    the tree with its dp-sharded leaves whole; every family applies it
+    to each layer's parameters as the layer runs — in training inside the
+    layer's ``remat`` region, so the backward gathers them again — and to
+    the parameters outside the layers once a call: the embeddings,
+    positions, norms and head).  Where ``moe_fn`` carries a ``world_aux``
+    (the process binding's), ``train_loss`` takes the blocks'
+    load-balance loss through it: the mean over the world."""
     if cfg.family == "audio":
-        return _build_encdec(cfg, remat)
+        return _build_encdec(cfg, remat, gather)
     if cfg.family == "ssm":
-        return _build_rwkv(cfg, remat)
+        return _build_rwkv(cfg, remat, gather)
     return _build_lm(cfg, remat, xent_chunks, moe_fn, tp, gather)
 
 
@@ -141,6 +142,22 @@ def _xent_chunked(embed_params, h, labels, tie, n_chunks, tp=None):
                       labels.chunk(n_chunks, dim=1)):
         total = total + remat_call("block", chunk_loss, hi, li)
     return total / (B * S)
+
+
+def _as_drawn(path, tree):
+    """``init``'s default ``keep``: every group of leaves as it was
+    drawn."""
+    return tree
+
+
+def _outside(params, gather, inner=("layers",)):
+    """The parameters outside the layers (every top-level entry but
+    ``inner``) with fsdp's shards gathered, once a call; the layers gather
+    their own as they run."""
+    if gather is None:
+        return params
+    return dict(params, **{k: gather(v) for k, v in params.items()
+                           if k not in inner})
 
 
 def _split_tokens(params, batch):
@@ -208,9 +225,7 @@ def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int,
         place, so a caller that keeps a block of each holds one group whole
         at a time (:func:`repro_torch.distributed.tensor_parallel.
         init_params`)."""
-        if keep is None:
-            def keep(path, tree):
-                return tree
+        keep = keep or _as_drawn
         dev = generator.device
         p = {"embed": keep(("embed",), init_embedding(
             generator, cfg.vocab, cfg.d_model, cfg.dtype_,
@@ -234,14 +249,6 @@ def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int,
         x = embed(params["embed"], tokens, tp)
         return x * embed_scale if embed_scale is not None else x
 
-    def _whole(params):
-        """The parameters outside the layers with fsdp's shards gathered
-        (the layers gather their own inside the stack)."""
-        if gather is None:
-            return params
-        return dict(params, **{k: gather(v) for k, v in params.items()
-                               if k != "layers"})
-
     def _hidden(params, tokens, context):
         x, aux = T.apply_stack_train(params["layers"], cfg,
                                      _embed_in(params, tokens), remat,
@@ -251,7 +258,7 @@ def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int,
         return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
     def logits(params, batch):
-        params = _whole(params)
+        params = _outside(params, gather)
         h, _aux = _hidden(params, _tokens(params, batch),
                           _context(params, batch))
         return unembed(params["embed"], h, cfg.tie_embeddings, tp)
@@ -260,7 +267,7 @@ def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int,
         """batch['tokens'] (B, S + 1) → (loss, metrics): next-token
         cross-entropy (+ MoE aux, + MTP), metrics ``xent``, ``moe_aux``
         and, with MTP, ``mtp``."""
-        params = _whole(params)
+        params = _outside(params, gather)
         tokens, inputs, labels = _split_tokens(params, batch)
         h, aux = _hidden(params, inputs, _context(params, batch))
         if xent_chunks > 1:
@@ -295,19 +302,21 @@ def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int,
                                   resolve_device(device))
 
     def prefill(params, batch, s_max):
+        params = _outside(params, gather)
         tokens = _tokens(params, batch)
         x = _embed_in(params, tokens)
         x, caches = T.fill_stack_cache(params["layers"], cfg, x, s_max,
                                        context=_context(params, batch),
-                                       moe_fn=moe_fn, tp=tp)
+                                       moe_fn=moe_fn, tp=tp, gather=gather)
         h = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
         lg = unembed(params["embed"], h, cfg.tie_embeddings, tp)[:, 0]
         return lg, caches, _last_pos(tokens)
 
     def decode_step(params, token, caches, pos, batch=None):
+        params = _outside(params, gather)
         x = _embed_in(params, _tokens(params, {"tokens": token}))
         x, caches = T.apply_stack_decode(params["layers"], cfg, x, caches,
-                                         pos, moe_fn, tp)
+                                         pos, moe_fn, tp, gather)
         h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         lg = unembed(params["embed"], h, cfg.tie_embeddings, tp)[:, 0]
         return lg, caches
@@ -320,15 +329,19 @@ def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int,
 
 
 # ------------------------------------------------------------------- whisper
-def _build_encdec(cfg: ArchConfig, remat: str) -> Model:
-    def init(generator: torch.Generator):
-        """Random weights, drawn from ``generator`` on its device."""
-        return E.init_encdec(generator, cfg)
+def _build_encdec(cfg: ArchConfig, remat: str, gather=None) -> Model:
+    def init(generator: torch.Generator, experts=None, keep=None):
+        """Random weights, drawn from ``generator`` on its device;
+        ``keep`` as the LM family's (:func:`encdec.init_encdec`), and
+        ``experts`` unread (no MoE layer)."""
+        return E.init_encdec(generator, cfg, keep)
 
     def logits(params, batch):
-        enc_out = E.encode(params, cfg, _context(params, batch), remat)
+        params = _outside(params, gather, ("enc", "dec"))
+        enc_out = E.encode(params, cfg, _context(params, batch), remat,
+                           gather)
         return E.decode_train(params, cfg, _tokens(params, batch), enc_out,
-                              remat)
+                              remat, gather)
 
     def train_loss(params, batch):
         _tokens_all, inputs, labels = _split_tokens(params, batch)
@@ -341,14 +354,17 @@ def _build_encdec(cfg: ArchConfig, remat: str) -> Model:
         return E.init_cache(cfg, batch_size, s_max, resolve_device(device))
 
     def prefill(params, batch, s_max):
+        params = _outside(params, gather, ("enc", "dec"))
         tokens = _tokens(params, batch)
         lg, cache = E.prefill(params, cfg, tokens, _context(params, batch),
-                              s_max)
+                              s_max, gather)
         return lg, cache, _last_pos(tokens)
 
     def decode_step(params, token, cache, pos, batch=None):
+        params = _outside(params, gather, ("enc", "dec"))
         return E.decode_step(params, cfg,
-                             _tokens(params, {"tokens": token}), cache, pos)
+                             _tokens(params, {"tokens": token}), cache, pos,
+                             gather)
 
     def input_specs(shape: ShapeConfig):
         return _input_specs(cfg, shape, init_cache)
@@ -358,15 +374,21 @@ def _build_encdec(cfg: ArchConfig, remat: str) -> Model:
 
 
 # --------------------------------------------------------------------- rwkv6
-def _build_rwkv(cfg: ArchConfig, remat: str) -> Model:
-    def init(generator: torch.Generator):
+def _build_rwkv(cfg: ArchConfig, remat: str, gather=None) -> Model:
+    def init(generator: torch.Generator, experts=None, keep=None):
         """Random weights, drawn from ``generator`` on its device: an untied
-        embedding and head, ``ln0`` before the first block."""
-        return {"embed": init_embedding(generator, cfg.vocab, cfg.d_model,
-                                        cfg.dtype_, False),
-                "ln0": init_layernorm(cfg.d_model, generator.device),
-                "layers": W.init_rwkv_stack(generator, cfg),
-                "final_norm": init_rmsnorm(cfg.d_model, generator.device)}
+        embedding and head, ``ln0`` before the first block.  ``keep`` as
+        the LM family's, on ``("embed",)``, ``("ln0",)``, each
+        ``("layers", i)`` and ``("final_norm",)``; ``experts`` unread."""
+        keep = keep or _as_drawn
+        dev = generator.device
+        p = {"embed": keep(("embed",), init_embedding(
+            generator, cfg.vocab, cfg.d_model, cfg.dtype_, False))}
+        p["ln0"] = keep(("ln0",), init_layernorm(cfg.d_model, dev))
+        p["layers"] = W.init_rwkv_stack(generator, cfg, keep)
+        p["final_norm"] = keep(("final_norm",),
+                               init_rmsnorm(cfg.d_model, dev))
+        return p
 
     def _embed_in(params, tokens):
         return layernorm(params["ln0"], embed(params["embed"], tokens),
@@ -374,18 +396,20 @@ def _build_rwkv(cfg: ArchConfig, remat: str) -> Model:
 
     def _hidden(params, tokens, states=None):
         return W.apply_rwkv_stack(params["layers"], cfg,
-                                  _embed_in(params, tokens), states)
+                                  _embed_in(params, tokens), states, gather)
 
     def _logits(params, tokens):
         x = W.apply_rwkv_train(params["layers"], cfg,
-                               _embed_in(params, tokens), remat)
+                               _embed_in(params, tokens), remat, gather)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return unembed(params["embed"], x, False)
 
     def logits(params, batch):
+        params = _outside(params, gather)
         return _logits(params, _tokens(params, batch))
 
     def train_loss(params, batch):
+        params = _outside(params, gather)
         _tokens_all, inputs, labels = _split_tokens(params, batch)
         loss = _xent(_logits(params, inputs), labels)
         return loss, {"xent": loss}
@@ -394,6 +418,7 @@ def _build_rwkv(cfg: ArchConfig, remat: str) -> Model:
         return W.init_rwkv_caches(cfg, batch_size, resolve_device(device))
 
     def prefill(params, batch, s_max):
+        params = _outside(params, gather)
         tokens = _tokens(params, batch)
         x, states = _hidden(params, tokens)
         x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
@@ -401,6 +426,7 @@ def _build_rwkv(cfg: ArchConfig, remat: str) -> Model:
             _last_pos(tokens)
 
     def decode_step(params, token, states, pos, batch=None):
+        params = _outside(params, gather)
         x, states = _hidden(params, _tokens(params, {"tokens": token}),
                             states)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -173,19 +173,28 @@ def init_rwkv_block(gen, cfg: ArchConfig):
             "chan": init_channel_mix(gen, cfg)}
 
 
-def init_rwkv_stack(gen, cfg: ArchConfig) -> List[dict]:
-    return [init_rwkv_block(gen, cfg) for _ in range(cfg.n_layers)]
+def init_rwkv_stack(gen, cfg: ArchConfig, keep=None) -> List[dict]:
+    """Every block's parameters; ``keep(path, block)``, where given, takes
+    each as soon as it is drawn (path ``("layers", i)``) and returns what
+    the list holds in its place."""
+    return [init_rwkv_block(gen, cfg) if keep is None else
+            keep(("layers", i), init_rwkv_block(gen, cfg))
+            for i in range(cfg.n_layers)]
 
 
 def init_rwkv_caches(cfg: ArchConfig, batch: int, device) -> List[RWKVState]:
     return [init_rwkv_state(cfg, batch, device) for _ in range(cfg.n_layers)]
 
 
-def apply_rwkv_block(p, cfg: ArchConfig, x, state=None, train=False):
+def apply_rwkv_block(p, cfg: ArchConfig, x, state=None, train=False,
+                     gather=None):
     """One block over x (B, S, d): prefill from zero state (``state`` None;
     ``train``: the WKV's training form) or one decode step.  Returns (x',
     RWKVState); the shift states are the *normalised* sublayer inputs' last
-    tokens."""
+    tokens.  ``gather`` (fsdp) takes the block's parameters — the time mix
+    and the channel mix — whole first."""
+    if gather is not None:
+        p = gather(p)
     h, s_fin, sh_t = time_mix(p["time"], layernorm(p["ln1"], x, cfg.norm_eps),
                               cfg, state, train)
     x = x + h
@@ -194,25 +203,30 @@ def apply_rwkv_block(p, cfg: ArchConfig, x, state=None, train=False):
     return x + h, RWKVState(wkv=s_fin, shift_t=sh_t, shift_c=sh_c)
 
 
-def apply_rwkv_stack(layers, cfg: ArchConfig, x, states=None):
+def apply_rwkv_stack(layers, cfg: ArchConfig, x, states=None, gather=None):
     """x (B, S, d), already through ``ln0`` → (hidden, per-layer states):
-    prefill without ``states``, a decode step with them."""
+    prefill without ``states``, a decode step with them; ``gather`` (fsdp)
+    takes each block's parameters whole as it runs."""
     new = []
     for i, p in enumerate(layers):
         x, st = apply_rwkv_block(p, cfg, x,
-                                 None if states is None else states[i])
+                                 None if states is None else states[i],
+                                 gather=gather)
         new.append(st)
     return x, new
 
 
-def _train_block(p, cfg: ArchConfig, x):
-    return apply_rwkv_block(p, cfg, x, train=True)[0]
+def _train_block(p, cfg: ArchConfig, x, gather=None):
+    return apply_rwkv_block(p, cfg, x, train=True, gather=gather)[0]
 
 
-def apply_rwkv_train(layers, cfg: ArchConfig, x, remat: str = "block"):
+def apply_rwkv_train(layers, cfg: ArchConfig, x, remat: str = "block",
+                     gather=None):
     """x (B, S, d), already through ``ln0`` → the final hidden states, each
     block recomputed in the backward pass under ``remat`` ``"block"`` or
-    ``"full"`` (the reference's ``apply_rwkv_train``)."""
+    ``"full"`` (the reference's ``apply_rwkv_train``); ``gather`` (fsdp)
+    runs inside each block's ``remat`` region, so the block's gathered
+    weights are freed after it and gathered again for its backward."""
     for p in layers:
-        x = remat_call(remat, _train_block, p, cfg, x)
+        x = remat_call(remat, _train_block, p, cfg, x, gather)
     return x

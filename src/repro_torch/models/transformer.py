@@ -300,12 +300,17 @@ def init_stack_cache(cfg: ArchConfig, batch: int, s_max: int, device):
 
 
 def apply_stack_decode(params, cfg: ArchConfig, x, caches, pos,
-                       moe_fn=None, tp=None):
+                       moe_fn=None, tp=None, gather=None):
+    """One decode step through every layer; ``gather`` (fsdp) takes each
+    layer's parameters whole as it runs, so one layer is resident at a
+    time."""
     kinds = layer_kinds(cfg)
     ctx_lengths = A.context_lengths(caches[kinds.index("cross")]) \
         if "cross" in kinds else None
     new = []
     for kind, p, c in zip(kinds, params, caches):
+        if gather is not None:
+            p = gather(p)
         x, c = apply_block_decode(p, cfg, kind, x, c, pos, ctx_lengths,
                                   moe_fn, tp)
         new.append(c)
@@ -313,14 +318,18 @@ def apply_stack_decode(params, cfg: ArchConfig, x, caches, pos,
 
 
 def fill_stack_cache(params, cfg: ArchConfig, x, s_max: int,
-                     positions=None, context=None, moe_fn=None, tp=None):
+                     positions=None, context=None, moe_fn=None, tp=None,
+                     gather=None):
     """Prefill: run the stack over the prompt, returning the final hidden
     states and every layer's decode cache: the recurrent state, MLA's
     latents zero-padded to ``s_max`` slots, a cross layer's k/v of the
     whole ``context``, or the k/v laid out in ``s_max`` (``min(s_max,
-    window)`` for a local layer) slots."""
+    window)`` for a local layer) slots.  ``gather`` as
+    :func:`apply_stack_decode`'s."""
     caches = []
     for kind, p in zip(layer_kinds(cfg), params):
+        if gather is not None:
+            p = gather(p)
         x, c = apply_block_train(p, cfg, kind, x, positions, context,
                                  moe_fn, tp)
         if _is_mla(kind):

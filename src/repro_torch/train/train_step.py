@@ -27,27 +27,34 @@ reference's ``jit_train_step`` partitions its step (shardings of its
 ``:108-126``):
 
 * parameters by ``param_pspecs`` through the whole-head
-  ``tensor_parallel.param_layout``, with fsdp's split over ``data`` at
-  ``zero_stage`` 3; ``model.init(generator)`` draws the rank's blocks;
+  ``tensor_parallel.param_layout``, with fsdp's split over the dp axes
+  at ``zero_stage`` 3; ``model.init(generator)`` draws the rank's blocks;
 * the dense and GQA MoE layers tensor- and expert-parallel over
   ``model``, differentiated through the collectives' adjoints
   (:mod:`repro_torch.distributed.collectives`); at stage 3 each layer's
-  data-sharded leaves are gathered inside its ``remat`` region, so they
+  dp-sharded leaves are gathered inside its ``remat`` region, so they
   are freed after it and gathered again in its backward, and their
-  gradients reduce-scattered back to the shards;
+  gradients reduce-scattered back to the shards — in every family, the
+  encoder-decoder's and RWKV's layers too; the leaves outside the layers
+  are gathered once a step;
 * the batch by ``batch_pspecs``: ``train_step`` takes the global batch
   and keeps the rank's rows, microbatches accumulating on the rank
   before one push;
 * the optimizer state by ``opt_state_pspecs`` (ZeRO at stage ≥ 2,
   :mod:`repro_torch.distributed.zero`: the dp-mean gradient
   reduce-scattered, each rank updating its block, the parameters
-  all-gathered over ``data`` below stage 3).
+  all-gathered over the dp axes below stage 3).
+
+The dp axes are ``("pod", "data")``, those the mesh has: on a (pod,
+data, model) mesh the batch, ZeRO's blocks, fsdp's gathers and the
+loss's mean run over both as one group, pod-major, so a (2, 2, 1) mesh
+steps bit for bit as a (4, 1) mesh does.
 
 ``jit_train_step(params_shape, opt_shape, batch_shape)`` — whole shapes,
 meta tensors will do; ``opt_shape`` the one-device optimizer's state of
 ``params_shape`` — binds the step to those layouts: the step it returns
 takes the rank's batch block, and its first call checks the parameter,
-state and batch blocks against them.  ``metrics`` hold the data ranks'
+state and batch blocks against them.  ``metrics`` hold the dp ranks'
 mean of the loss.
 :func:`state_shardings` gives the checkpoint's layouts.  At a world of 1
 every collective is the identity and the step is bitwise the one-device
@@ -60,7 +67,7 @@ make_grad_sync`.  ``act_shard`` is not: the reference's ``make_act_fn``
 pins activation shardings between sublayers, which change layouts, not
 values, and the port's process step keeps activations whole over
 ``model`` between sublayers (row-parallel outputs are summed) and split
-over the dp axes by rows.  A mesh with a pod axis is refused.
+over the dp axes by rows.
 """
 from __future__ import annotations
 
@@ -72,7 +79,7 @@ from ..data.pipeline import place_batch
 from ..launch.mesh import ProcessMesh
 from ..models.model import build_model, param_stacks
 from ..optim.optimizer import make_optimizer
-from ..tree import flatten, leaves, tree_map, unflatten
+from ..tree import leaves, unflatten
 
 
 def build_for_mesh(cfg: ArchConfig, tcfg: TrainConfig, mesh=None):
@@ -131,32 +138,13 @@ def _loss_and_grads(model):
     return loss_and_grads
 
 
-def _fsdp_gather(mesh, layout_of):
-    """fsdp's gather: ``gather(tree)`` with every leaf whose spec in
-    ``layout_of`` (the step's own leaves by identity → spec, filled as a
-    step starts) splits over ``data`` gathered whole
-    (:func:`~repro_torch.distributed.collectives.gather_param`)."""
-    from ..distributed import collectives as CL
-    from ..distributed.sharding import entry_axes
-
-    def gather(tree):
-        def one(t):
-            for dim, e in enumerate(layout_of.get(id(t), ())):
-                if "data" in entry_axes(e):
-                    return CL.gather_param(t, mesh, "data", dim)
-            return t
-        return tree_map(one, tree)
-
-    return gather
-
-
 def _process_train_step(cfg: ArchConfig, tcfg: TrainConfig,
                         mesh: ProcessMesh):
     from ..distributed import collectives as CL
     from ..distributed import sharding as SH
     from ..distributed import tensor_parallel as TPL
-    from ..distributed.zero import (ZeroOptimizer, ZeroPlan, _in_order,
-                                    check_blocks, state_layout)
+    from ..distributed.zero import (ZeroOptimizer, ZeroPlan, check_blocks,
+                                    state_layout)
     from ..models.layers import MetaGenerator
     n_tp = mesh.shape[SH.TP]
     TPL.check_supported(cfg, n_tp, training=True)
@@ -171,16 +159,12 @@ def _process_train_step(cfg: ArchConfig, tcfg: TrainConfig,
         from ..distributed.moe_ep import make_moe_fn
         moe_fn = make_moe_fn(cfg, mesh)
     tp = TPL.TensorParallel(cfg, mesh) if n_tp > 1 else None
-    # each local leaf's spec, looked up by identity when the layers run
-    spec_of = {}
     gather = None
-    if fsdp and mesh.shape["data"] > 1:
-        gather = _fsdp_gather(mesh, spec_of)
+    if fsdp and mesh.axis_size(SH.dp_axes(mesh)) > 1:
+        gather = TPL.FsdpGather(mesh, full, layout)
     model = build_model(cfg, remat=tcfg.remat, xent_chunks=tcfg.xent_chunks,
                         moe_fn=moe_fn, tp=tp, gather=gather)
     loss_and_grads = _loss_and_grads(model)
-    layout_by_path = dict(zip((p for p, _ in flatten(full)),
-                              _in_order(full, layout)))
 
     def init(generator: torch.Generator):
         return TPL.init_params(cfg, generator, mesh, fsdp)
@@ -193,9 +177,8 @@ def _process_train_step(cfg: ArchConfig, tcfg: TrainConfig,
 
     def local_grads(params, batch):
         """(loss, metrics, this rank's gradients) on its batch rows."""
-        spec_of.clear()
-        spec_of.update({id(t): layout_by_path[p]
-                        for p, t in flatten(params)})
+        if gather is not None:
+            gather.bind(params)
         if tcfg.microbatch and tcfg.microbatch > 1:
             grads, loss, metrics = _accumulated_grads(
                 loss_and_grads, params, batch, tcfg.microbatch)
@@ -210,7 +193,7 @@ def _process_train_step(cfg: ArchConfig, tcfg: TrainConfig,
             grads = fence_grads(grads)
         params, opt_state, stats = opt.update(unflatten(params, grads),
                                               opt_state, params)
-        metrics = {k: CL.pmean(v, mesh, "data")
+        metrics = {k: CL.pmean(v, mesh, SH.dp_axes(mesh))
                    for k, v in dict(metrics, loss=loss).items()}
         return params, opt_state, dict(metrics, **stats)
 

@@ -2,8 +2,10 @@
 package's unsharded model.
 
 One module fixture runs ``tests/torch_dist_world.py`` in one child process,
-which spawns gloo worlds laid out as (data, model) meshes (1, 1), (1, 2),
-(2, 2) and (1, 4).  Each rank serves the prompt through
+which spawns gloo worlds of 1, 2 and 4 ranks holding the (data, model)
+meshes (1, 1); (1, 2), (2, 1) and the (pod, data, model) (2, 1, 1); and
+(2, 2) and (1, 4).  On (1, 1), (1, 2), (2, 2) and (1, 4) each rank serves
+the prompt through
 ``make_serve_steps(cfg, ProcessMesh(...))`` with its blocks of the
 parameters (carried over from the reference's with ``params_from_jax`` and
 cut by the binding's layout): a prefill of the global batch of 2, then 4
@@ -24,8 +26,17 @@ greedy decode steps on its own rows.  Held here:
 * a world of 1 bitwise equal to the port's unsharded path (logits, tokens
   and every cache leaf);
 * the refusal of a family without a tensor-parallel form (recurrentgemma)
-  at a model axis of 2."""
+  at a model axis of 2;
+* fsdp in the serving steps on (2, 1), (2, 2) and (2, 1, 1): the smoke
+  config of every arch that runs on the mesh (all ten at a model axis of
+  1, qwen3 and llama4 at 2; float32, ``FSDP_MIN_ELEMENTS`` lowered to 1),
+  its prefill and 4 decode steps' logits with ``fsdp=True`` bit for bit
+  those of ``fsdp=False``, each rank holding about half the elements,
+  its fsdp blocks its block of the same seed's whole init, and
+  ``jit_decode``'s step refusing whole parameters under fsdp; the
+  default ``fsdp`` on for exactly the archs over 100B parameters."""
 import dataclasses
+import math
 import os
 import subprocess
 import sys
@@ -42,18 +53,27 @@ from torch_port_ref import reference_core  # noqa: E402,F401
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
 from repro.models import moe as JM  # noqa: E402
-from repro_torch.configs import MoEConfig, get_smoke_config  # noqa: E402
+from repro_torch.configs import (ARCH_IDS, MoEConfig,  # noqa: E402
+                                 get_config, get_smoke_config)
 from repro_torch.distributed import sharding as SH  # noqa: E402
 from repro_torch.distributed import tensor_parallel as TPL  # noqa: E402
 from repro_torch.launch.mesh import StackedMesh  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.transformer import layer_stacks  # noqa: E402
+from repro_torch.train.serve_step import default_fsdp  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(atol=2e-5, rtol=2e-5)
 CACHE_TOL = dict(atol=1e-5, rtol=1e-5)
 ARCHS = {"qwen3": "qwen3-8b", "llama4": "llama4-maverick-400b-a17b"}
 MESHES = [(1, 2), (2, 2), (1, 4)]
+#: The worlds, each the meshes it holds, built one after the other.
+WORLDS = [[(1, 1)], [(1, 2), (2, 1), (2, 1, 1)], [(2, 2), (1, 4)]]
+FSDP_MESHES = [(2, 1), (2, 2), (2, 1, 1)]
+#: The archs serving on a model axis above 1 (the others are refused).
+TP_ARCHS = ("qwen3-8b", "llama4-maverick-400b-a17b")
+FSDP_CASES = [(sizes, arch) for sizes in FSDP_MESHES for arch in ARCH_IDS
+              if sizes[-1] == 1 or arch in TP_ARCHS]
 B, S, S_MAX, N_DECODE = 2, 8, 16, 4
 
 
@@ -109,8 +129,19 @@ def worlds(tmp_path_factory):
             m.update(moe_x=torch.from_numpy(x), moe_layer=1)
             refs[name]["moe_x"] = x
         models[name] = m
+    fsdp_models = {}
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch).replace(dtype="float32")
+        m = dict(cfg=cfg, s_max=S_MAX, tokens=rng.integers(
+            1, cfg.vocab, (B, S)).astype(np.int32))
+        if cfg.family in ("vlm", "audio"):
+            m["context"] = torch.from_numpy(rng.standard_normal(
+                (B, cfg.cross.n_context_tokens, cfg.d_model)).astype(
+                    np.float32))
+        fsdp_models[arch] = m
     job = dict(models=models, n_decode=N_DECODE, timeout_s=240,
-               meshes=[(1, 1)] + MESHES)
+               worlds=WORLDS, serve_meshes=[(1, 1)] + MESHES,
+               fsdp_meshes=FSDP_MESHES, fsdp_models=fsdp_models)
     torch.save(job, tmp / "in.pt")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -255,3 +286,45 @@ def test_collectives_over_named_axes(worlds, sizes):
                 torch.bfloat16)
             assert torch.equal(g["psum"], want), (axis, c)
             assert g["identity"] is (n == 1), (axis, c)
+
+
+# ------------------------------------------------------------ fsdp serving
+@pytest.mark.parametrize("sizes, arch", FSDP_CASES,
+                         ids=[f"{s}-{a}" for s, a in FSDP_CASES])
+def test_fsdp_serving_gives_the_unsharded_layouts_logits_bit_for_bit(
+        worlds, sizes, arch):
+    """``make_serve_steps(cfg, mesh, fsdp=True)``: each rank draws its dp
+    blocks (its block of the same seed's whole init), gathers each layer's
+    as the layer runs and the rest once a call, and its prefill and decode
+    logits are those of ``fsdp=False`` bit for bit; a rank holds about
+    half the elements."""
+    results, _refs = worlds
+    ranks = results[("fsdp",) + sizes]
+    assert len(ranks) == math.prod(sizes)
+    for r in ranks:
+        got = r[arch]
+        assert got["bitwise"] is True
+        assert got["init_blocks"] is True
+        # every leaf with a dim that divides is split; scalars and a few
+        # odd leaves stay whole
+        assert 0 < got["elements_True"] <= 0.55 * got["elements_False"]
+
+
+@pytest.mark.parametrize("sizes", FSDP_MESHES)
+def test_the_bound_decode_refuses_whole_parameters_under_fsdp(worlds,
+                                                              sizes):
+    results, _refs = worlds
+    seen = 0
+    for r in results[("fsdp",) + sizes]:
+        for arch, got in r.items():
+            assert got["refused_whole"] is True, arch
+            seen += 1
+    assert seen
+
+
+def test_the_default_fsdp_is_on_for_exactly_the_giants():
+    """The reference's default, ``cfg.param_count() > 100e9``: llama4-
+    maverick (397.7 B) and deepseek-v3 (671.0 B); no smoke config."""
+    on = [a for a in ARCH_IDS if default_fsdp(get_config(a))]
+    assert on == ["llama4-maverick-400b-a17b", "deepseek-v3-671b"]
+    assert not any(default_fsdp(get_smoke_config(a)) for a in ARCH_IDS)

@@ -2,9 +2,10 @@
 one-device step, its stacked binding and the JAX package.
 
 One module fixture runs ``tests/torch_dist_train_world.py`` in one child
-process (gloo worlds of 1–4 ranks, see its docstring) and, beside it, one
-JAX subprocess with 8 host devices that runs the reference's
-``jit_train_step``.  Weights are the reference's ``init``, carried over
+process (gloo worlds of 1–4 ranks, each holding several meshes, see its
+docstring) and, beside it, one JAX subprocess with 8 host devices that
+runs the reference's ``jit_train_step`` on a (2, 2) and a (pod, data,
+model) (2, 2, 1) mesh.  Weights are the reference's ``init``, carried over
 with ``params_from_jax``; batches the port's ``SyntheticTokens`` (bitwise
 the reference's).  Float32 smoke configs, two steps a case.  Held here,
 with ``tests/test_torch_train.py``'s tolerances (loss ``rtol`` 1e-5;
@@ -22,23 +23,35 @@ and reductions in other orders, here also across ranks):
   runs with ``FSDP_MIN_ELEMENTS`` lowered to 1, so every leaf with a
   dimension that divides is split over ``data`` (the reference's 2²⁰
   leaves none of a smoke model's);
+* the smoke whisper and rwkv6 at ZeRO 3 on (2, 1), every leaf fsdp-split
+  (their layers gather inside their ``remat`` regions), against the
+  one-device step, and on (4, 1) and (pod, data, model) meshes qwen3 at
+  stages 2 and 3 with both optimizers, and the smoke llama4 on (2, 1, 1)
+  against its stacked binding there;
+* pod meshes bit for bit their flat twins in the same world: (2, 1, 1)
+  as (2, 1), (2, 2, 1) as (4, 1) — losses, the first gradient's blocks,
+  parameters and moments on each rank, the dp groups the same ranks in
+  the same order — and the collectives over ``("pod", "data")``;
 * a world of 1 bitwise the one-device step (losses, every parameter and
-  moment);
-* qwen3 on (2, 2) against the reference's ``jit_train_step`` on the same
-  mesh (losses, every parameter);
+  moment), also as a (1, 1, 1) mesh;
+* qwen3 on (2, 2) and on (2, 2, 1) against the reference's
+  ``jit_train_step`` on the same mesh (losses, every parameter);
 * each collective's gradient against the unsharded function's;
 * the process ``make_grad_sync`` on a (2, 2, 1) pod mesh against the
   stacked channel, the int8 payload bit for bit, the fences equal, the
   compressed within the reference's own bound;
-* ``opt_state_pspecs`` against the reference's for all ten archs at stages
-  0, 2 and 3, and where the port's moment layout differs from the
+* ``param_pspecs`` and ``opt_state_pspecs`` against the reference's for
+  all ten archs at stages 0, 2 and 3 on a (2, 4) and a (2, 2, 2) mesh,
+  and where the port's moment layout differs from the
   reference's stacked tree (the stack's dim);
 * a checkpoint written by a world of 1, restored onto (2, 1) blocks,
-  written by that world and restored whole, leaf for leaf; the launcher
-  on a mesh, resuming;
+  written by that world and restored whole, leaf for leaf, and the
+  (2, 1) one restored onto (2, 1, 1) blocks and written again; the
+  launcher on a mesh, resuming;
 * ``run_elastic`` across processes, as the reference's
   ``test_elastic_remesh_recovers_from_failure``;
-* ``memory_reckoning`` per rank against a hand count."""
+* ``memory_reckoning`` per rank against a hand count, on (data, model)
+  and (pod, data, model) stacked meshes."""
 import dataclasses
 import math
 import os
@@ -70,6 +83,7 @@ from repro_torch.distributed import sharding as SH  # noqa: E402
 from repro_torch.distributed import tensor_parallel as TPL  # noqa: E402
 from repro_torch.distributed.zero import ZeroPlan, state_layout  # noqa: E402
 from repro_torch.launch import train as launcher  # noqa: E402
+from repro_torch.launch.mesh import AXES_2D, AXES_3D  # noqa: E402
 from repro_torch.launch.mesh import StackedMesh  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
@@ -86,19 +100,48 @@ LOSS_TOL = dict(rtol=1e-5, atol=0)
 TOL = dict(atol=1e-4, rtol=1e-5)
 B, S, STEPS = 4, 16, 2
 QWEN, LLAMA4 = "qwen3-8b", "llama4-maverick-400b-a17b"
+WHISPER, RWKV = "whisper-large-v3", "rwkv6-7b"
+ARCHS = (QWEN, LLAMA4, WHISPER, RWKV)
 
 
 def _case(arch, mesh, stage=2, optimizer="adamw", **kw):
     return dict(arch=arch, mesh=mesh, stage=stage, optimizer=optimizer, **kw)
 
 
+def _flat_and_pod():
+    """qwen3 at ZeRO 2 and 3 with both optimizers on (4, 1) and (2, 2, 1),
+    and on (2, 1, 1) beside the (2, 1) cases: each pod case names its flat
+    twin, which it must equal bit for bit."""
+    out = {}
+    for flat, pod in (((2, 1), (2, 1, 1)), ((4, 1), (2, 2, 1))):
+        for stage in (2, 3):
+            for opt in ("adamw", "adafactor"):
+                tail = (" stage 3" if stage == 3 else "") + (
+                    " adafactor" if opt == "adafactor" else "")
+                kw = dict(fsdp_min=1) if stage == 3 else {}
+                twin = f"qwen3 {flat}{tail}"
+                if flat == (4, 1):
+                    out[twin] = _case(QWEN, flat, stage, opt, **kw)
+                elif twin not in ("qwen3 (2, 1)", "qwen3 (2, 1) stage 3",
+                                  "qwen3 (2, 1) adafactor"):
+                    out[twin] = _case(QWEN, flat, stage, opt, **kw)
+                out[f"qwen3 {pod}{tail}"] = _case(
+                    QWEN, pod, stage, opt, twin=twin,
+                    ckpt="pod" if (pod, stage, opt) == ((2, 1, 1), 2,
+                                                        "adamw") else None,
+                    **kw)
+    return out
+
+
 CASES = {
-    "qwen3 (1, 1)": _case(QWEN, (1, 1), ckpt=True),
+    "qwen3 (1, 1)": _case(QWEN, (1, 1), ckpt="write"),
     "llama4 (1, 1)": _case(LLAMA4, (1, 1)),
     "qwen3 (1, 1) adafactor": _case(QWEN, (1, 1), optimizer="adafactor"),
     "qwen3 (1, 1) microbatch": _case(QWEN, (1, 1), microbatch=2),
     "llama4 (1, 1) stage 3": _case(LLAMA4, (1, 1), 3, fsdp_min=1),
-    "qwen3 (2, 1)": _case(QWEN, (2, 1), ckpt=True),
+    "qwen3 (1, 1, 1)": _case(QWEN, (1, 1, 1)),
+    "qwen3 (1, 1, 1) stage 3": _case(QWEN, (1, 1, 1), 3, fsdp_min=1),
+    "qwen3 (2, 1)": _case(QWEN, (2, 1), ckpt="reshard"),
     "qwen3 (2, 1) stage 3": _case(QWEN, (2, 1), 3, fsdp_min=1),
     "llama4 (2, 1)": _case(LLAMA4, (2, 1)),
     "llama4 (2, 1) stage 3": _case(LLAMA4, (2, 1), 3, fsdp_min=1),
@@ -112,11 +155,22 @@ CASES = {
                                              microbatch=2),
     "llama4 (2, 2) stage 3 adafactor": _case(LLAMA4, (2, 2), 3, fsdp_min=1,
                                              optimizer="adafactor"),
+    "whisper (2, 1) stage 3": _case(WHISPER, (2, 1), 3, fsdp_min=1),
+    "rwkv6 (2, 1) stage 3": _case(RWKV, (2, 1), 3, fsdp_min=1),
+    "llama4 (2, 1, 1)": _case(LLAMA4, (2, 1, 1)),
+    **_flat_and_pod(),
 }
-MESHES = [(1, 1), (2, 1), (1, 2), (2, 2)]
-REFERENCE_CASE = "qwen3 (2, 2)"
+#: The worlds, each the meshes it holds, built one after the other.
+WORLDS = [[(1, 1), (1, 1, 1)], [(2, 1), (1, 2), (2, 1, 1)],
+          [(2, 2), (4, 1), (2, 2, 1)]]
+#: The cases held to the reference's ``jit_train_step`` on their mesh.
+REFERENCE_CASES = ("qwen3 (2, 2)", "qwen3 (2, 2, 1)")
 LAUNCH = _case(QWEN, (2, 1))
 ELASTIC = _case(QWEN, (2, 1))
+
+
+def _names(mesh):
+    return AXES_3D if len(mesh) == 3 else AXES_2D
 
 
 def _np(tree):
@@ -143,23 +197,25 @@ REFERENCE_PROGRAM = """
     from repro.train import make_train_step
 
     cfg = get_smoke_config({arch!r}).replace(dtype="float32")
-    mesh = compat_make_mesh({mesh!r}, ("data", "model"))
-    model, opt, _step, jit_train_step = make_train_step(
-        cfg, TrainConfig(lr=1e-3, zero_stage=2), mesh)
-    params = model.init(jax.random.PRNGKey(0))
-    state = opt.init(params)
-    pipe = SyntheticTokens(cfg, batch={B}, seq={S}, seed=0)
-    shape = lambda t: jax.tree.map(  # noqa: E731
-        lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), t)
-    batch0 = jax.tree.map(jnp.asarray, pipe.get_batch(0))
-    step = jit_train_step(shape(params), shape(state), shape(batch0))
     out = {{}}
-    for i in range({steps}):
-        batch = jax.tree.map(jnp.asarray, pipe.get_batch(i))
-        params, state, m = step(params, state, batch)
-        out[f"loss/{{i}}"] = np.asarray(m["loss"])
-    for n, leaf in enumerate(jax.tree.leaves(params)):
-        out[f"param/{{n}}"] = np.asarray(leaf)
+    for k, sizes in enumerate({meshes!r}):
+        names = ("pod", "data", "model")[3 - len(sizes):]
+        mesh = compat_make_mesh(sizes, names)
+        model, opt, _step, jit_train_step = make_train_step(
+            cfg, TrainConfig(lr=1e-3, zero_stage=2), mesh)
+        params = model.init(jax.random.PRNGKey(0))
+        state = opt.init(params)
+        pipe = SyntheticTokens(cfg, batch={B}, seq={S}, seed=0)
+        shape = lambda t: jax.tree.map(  # noqa: E731
+            lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), t)
+        batch0 = jax.tree.map(jnp.asarray, pipe.get_batch(0))
+        step = jit_train_step(shape(params), shape(state), shape(batch0))
+        for i in range({steps}):
+            batch = jax.tree.map(jnp.asarray, pipe.get_batch(i))
+            params, state, m = step(params, state, batch)
+            out[f"{{k}}/loss/{{i}}"] = np.asarray(m["loss"])
+        for n, leaf in enumerate(jax.tree.leaves(params)):
+            out[f"{{k}}/param/{{n}}"] = np.asarray(leaf)
     np.savez({path!r}, **out)
 """
 
@@ -180,16 +236,19 @@ def worlds(tmp_path_factory):
         [str(ROOT / "src")] + [p for p in [env.get("PYTHONPATH")] if p])
     ref_path = tmp / "reference.npz"
     prog = textwrap.dedent(REFERENCE_PROGRAM).format(
-        tests=str(ROOT / "tests"), arch=QWEN, mesh=CASES[REFERENCE_CASE][
-            "mesh"], B=B, S=S, steps=STEPS, path=str(ref_path))
+        tests=str(ROOT / "tests"), arch=QWEN,
+        meshes=[tuple(CASES[n]["mesh"]) for n in REFERENCE_CASES], B=B, S=S,
+        steps=STEPS, path=str(ref_path))
     ref_proc = subprocess.Popen([sys.executable, "-c", prog],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True, env=env)
-    params, moe = {}, {}
-    for arch in (QWEN, LLAMA4):
+    params, moe, batches = {}, {}, {}
+    for arch in ARCHS:
         jcfg, moe[arch] = _configs(arch)
         params[arch] = params_from_jax(
             _np(jax_build(jcfg).init(jax.random.PRNGKey(0))), device="cpu")
+        batches[arch] = _batches(get_smoke_config(arch).replace(
+            dtype="float32"))
     cases = {k: dict(v, moe=moe[v["arch"]]) for k, v in CASES.items()}
     rng = np.random.default_rng(5)
     grads = {"a": rng.standard_normal((2, 2, 8, 4)).astype(np.float32),
@@ -199,12 +258,13 @@ def worlds(tmp_path_factory):
     coll = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
             for k, s in (("x", (4, 8)), ("w", (8, 8)), ("cot", (4, 8)))}
     cfg = get_smoke_config(QWEN).replace(dtype="float32")
-    job = dict(params=params, cases=cases, batches=_batches(cfg),
-               batches_elastic=_batches(cfg, n=5), meshes=MESHES,
+    job = dict(params=params, cases=cases, batches=batches,
+               batches_elastic=_batches(cfg, n=5), worlds=WORLDS,
                timeout_s=240, grads=tree_map(torch.from_numpy, grads),
                collectives=coll, elastic=dict(ELASTIC, moe=None),
                launch=dict(LAUNCH, moe=None),
                ckpt_a=str(tmp / "ckpt_a"), ckpt_b=str(tmp / "ckpt_b"),
+               ckpt_c=str(tmp / "ckpt_c"),
                ckpt_elastic=str(tmp / "ckpt_elastic"),
                ckpt_elastic_silent=str(tmp / "ckpt_elastic_silent"),
                ckpt_launch=str(tmp / "ckpt_launch"))
@@ -245,8 +305,8 @@ def _expected(case, params, batches):
     state, the first step's gradients)."""
     cfg, tcfg = _cfg_tcfg(case)
     mesh = None
-    if cfg.moe is not None and tuple(case["mesh"]) != (1, 1):
-        mesh = StackedMesh(case["mesh"], ("data", "model"))
+    if cfg.moe is not None and math.prod(case["mesh"]) > 1:
+        mesh = StackedMesh(case["mesh"], _names(case["mesh"]))
     model, opt, step = make_train_step(cfg, tcfg, "cpu", mesh=mesh)
     params = tree_map(lambda t: t.clone().requires_grad_(True), params)
     loss, _m = model.train_loss(params, batches[0])
@@ -264,7 +324,7 @@ def _layouts(case):
     """The parameter and state layouts of ``case`` on a stacked mesh of its
     shape, with the whole trees they apply to."""
     cfg, tcfg = _cfg_tcfg(case)
-    mesh = StackedMesh(case["mesh"], ("data", "model"))
+    mesh = StackedMesh(case["mesh"], _names(case["mesh"]))
     full = build_model(cfg).init(MetaGenerator())
     layout = TPL.param_layout(full, cfg, mesh, tcfg.zero_stage >= 3)
     plan = ZeroPlan(mesh, full, layout, tcfg.zero_stage)
@@ -292,8 +352,12 @@ def _cases_of(results, name):
     return [r["cases"][name] for r in results[tuple(case["mesh"])]]
 
 
-SHARDED = [k for k, v in CASES.items() if tuple(v["mesh"]) != (1, 1)]
-ONE = [k for k, v in CASES.items() if tuple(v["mesh"]) == (1, 1)]
+#: The sharded cases held to the one-device (or stacked) step; a pod case
+#: with a flat twin is held to its twin's bits instead.
+SHARDED = [k for k, v in CASES.items()
+           if math.prod(v["mesh"]) > 1 and not v.get("twin")]
+ONE = [k for k, v in CASES.items() if math.prod(v["mesh"]) == 1]
+TWINNED = [k for k, v in CASES.items() if v.get("twin")]
 
 
 def _ill_conditioned(case, grads, path):
@@ -320,7 +384,7 @@ def test_gradients_match_the_ports_unsharded_step(worlds, name, fsdp_min):
     case = dict(CASES[name], moe=job["cases"][name]["moe"])
     fsdp_min(case)
     _l, _p, _s, grads = _expected(case, job["params"][case["arch"]],
-                                  job["batches"][:1])
+                                  job["batches"][case["arch"]][:1])
     mesh, full, _layout, _st, st_layout = _layouts(case)
     got = _assembled(_cases_of(results, name), "grads", full,
                      st_layout.mu, mesh)
@@ -335,7 +399,7 @@ def test_train_steps_match_the_ports_unsharded_step(worlds, name, fsdp_min):
     case = dict(CASES[name], moe=job["cases"][name]["moe"])
     fsdp_min(case)
     losses, params, state, grads = _expected(
-        case, job["params"][case["arch"]], job["batches"])
+        case, job["params"][case["arch"]], job["batches"][case["arch"]])
     ranks = _cases_of(results, name)
     for r in ranks:
         np.testing.assert_allclose([float(x) for x in r["losses"]], losses,
@@ -364,14 +428,19 @@ def test_a_world_of_one_is_bitwise_the_one_device_step(worlds, name):
     assert r["bitwise"] is True
 
 
-def test_one_case_matches_the_references_jit_train_step(worlds):
-    """qwen3 on a (2, 2) mesh, ZeRO stage 2: the reference's
-    ``jit_train_step`` (GSPMD over 8 host devices, 4 used) and the port's
-    four ranks from the same weights and batches."""
+@pytest.mark.parametrize("name", REFERENCE_CASES)
+def test_one_case_matches_the_references_jit_train_step(worlds, name):
+    """qwen3 on a (2, 2) and a (pod, data, model) (2, 2, 1) mesh, ZeRO
+    stage 2: the reference's ``jit_train_step`` (GSPMD over 8 host
+    devices, 4 used; the batch and the moments over ``("pod", "data")``
+    on the pod mesh) and the port's four ranks from the same weights and
+    batches."""
     results, job = worlds
-    ref = results["reference"]
-    case = CASES[REFERENCE_CASE]
-    ranks = _cases_of(results, REFERENCE_CASE)
+    k = REFERENCE_CASES.index(name)
+    ref = {key[len(f"{k}/"):]: v for key, v in results["reference"].items()
+           if key.startswith(f"{k}/")}
+    case = CASES[name]
+    ranks = _cases_of(results, name)
     for r in ranks:
         np.testing.assert_allclose([float(x) for x in r["losses"]],
                                    [float(ref[f"loss/{i}"])
@@ -389,10 +458,60 @@ def test_one_case_matches_the_references_jit_train_step(worlds):
                                    err_msg=path)
 
 
+@pytest.mark.parametrize("name", TWINNED)
+def test_a_pod_mesh_steps_bit_for_bit_as_its_flat_twin(worlds, name):
+    """(2, 1, 1) against (2, 1) and (2, 2, 1) against (4, 1) in the same
+    world: rank by rank the same dp index, the same dp group (its ranks in
+    the same order), and the losses, grad norms, the first dp-mean
+    gradient's blocks, the parameters and the moments bit for bit."""
+    results, _job = worlds
+    case = CASES[name]
+    twin = CASES[case["twin"]]
+    pod = results[tuple(case["mesh"])]
+    flat = results[tuple(twin["mesh"])]
+    for p, f in zip(pod, flat):
+        assert p["dp_group"] == f["dp_group"] == list(
+            range(math.prod(case["mesh"])))
+        assert p["coords"]["pod"] * case["mesh"][1] + \
+            p["coords"]["data"] == f["coords"]["data"]
+        a, b = p["cases"][name], f["cases"][case["twin"]]
+        for key in ("losses", "grad_norms"):
+            assert all(torch.equal(x, y) for x, y in zip(a[key], b[key])), key
+        for key in ("grads", "params", "state"):
+            assert list(a[key]) == list(b[key]), key
+            for path in a[key]:
+                assert torch.equal(a[key][path], b[key][path]), (key, path)
+
+
+def test_collectives_over_the_flattened_dp_axes(worlds):
+    """On (2, 2, 1), ``("pod", "data")`` is one axis of 4, pod-major: the
+    gathers concatenate the ranks in that order on either dim, the bf16
+    sum is taken in float32 and rounded once, the mean divides by 4, and
+    a reduce-scatter leaves each rank its block of the sum."""
+    results, _job = worlds
+    ranks = results[(2, 2, 1)]
+    names = [float(10 * p + d) for p in range(2) for d in range(2)]
+    delta = torch.tensor([0, 1 / 256, 1 / 512, 0], dtype=torch.bfloat16)
+    psum = torch.stack([(torch.full((4,), v, dtype=torch.bfloat16) + delta)
+                        .float() for v in names]).sum(0).to(torch.bfloat16)
+    total = sum(torch.arange(8.0) * (1 + v) for v in names)
+    for r in ranks:
+        got = r["dp_collectives"]
+        i = 2 * r["coords"]["pod"] + r["coords"]["data"]
+        assert got["index"] == i and got["size"] == 4
+        assert torch.equal(got["gather0"], torch.cat(
+            [torch.full((2, 3), v) for v in names], 0))
+        assert torch.equal(got["gather1"], torch.cat(
+            [torch.full((2, 3), v) for v in names], 1))
+        assert torch.equal(got["psum"], psum)
+        assert float(got["pmean"]) == sum(names) / 4
+        assert torch.equal(got["reduce_scatter"], total[2 * i:2 * i + 2])
+
+
 def test_the_bound_step_refuses_blocks_of_another_layout(worlds):
     results, _job = worlds
     seen = 0
-    for name in SHARDED:
+    for name in SHARDED + TWINNED:
         for r in _cases_of(results, name):
             assert r["refused_whole"] is True, name
             seen += 1
@@ -561,15 +680,27 @@ def _jax_state(state):
     return cls(**{k: _as_jax(v) for k, v in state._asdict().items()})
 
 
+def _flat_specs(tree):
+    """A JAX spec tree by the port's paths."""
+    flat = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
+    return {JSH._path_str(p): tuple(s) for p, s in flat}
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 4), (2, 2, 2)])
 @pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
 @pytest.mark.parametrize("stage", [0, 2, 3])
 @pytest.mark.parametrize("arch", ARCH_IDS)
-def test_opt_state_pspecs_match_the_reference(arch, stage, optimizer):
-    """The reference's ``opt_state_pspecs`` and the port's on the port's
-    state tree (its ``param_pspecs`` with fsdp at stage 3), leaf by leaf,
-    on a (2, 4) mesh (``compat_abstract_mesh``)."""
-    jmesh = compat_abstract_mesh((2, 4), ("data", "model"))
-    mesh = StackedMesh((2, 4), ("data", "model"))
+def test_opt_state_pspecs_match_the_reference(arch, stage, optimizer,
+                                              mesh_shape):
+    """The reference's ``param_pspecs`` (fsdp at stage 3) and
+    ``opt_state_pspecs`` and the port's on the port's trees, leaf by leaf,
+    on a (2, 4) and a (pod, data, model) (2, 2, 2) mesh
+    (``compat_abstract_mesh``): on the pod mesh fsdp and ZeRO split over
+    ``("pod", "data")``."""
+    names = _names(mesh_shape)
+    jmesh = compat_abstract_mesh(mesh_shape, names)
+    mesh = StackedMesh(mesh_shape, names)
     cfg = get_smoke_config(arch)
     params = build_model(cfg).init(MetaGenerator())
     tcfg = TrainConfig(optimizer=optimizer)
@@ -578,13 +709,13 @@ def test_opt_state_pspecs_match_the_reference(arch, stage, optimizer):
     got = PO.opt_state_pspecs(state, pspecs, mesh, stage)
     jspecs = JSH.param_pspecs(_as_jax(params), jmesh, fsdp=stage >= 3)
     want = JO.opt_state_pspecs(_jax_state(state), jspecs, jmesh, stage)
-    flat_w = jax.tree_util.tree_flatten_with_path(
-        want, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
-    flat_w = {JSH._path_str(p): tuple(s) for p, s in flat_w}
+    assert dict(zip((p for p, _ in flatten(params)),
+                    _specs(params, pspecs))) == _flat_specs(jspecs)
     flat_g = dict(zip((p for p, _ in flatten(state)), _specs(state, got)))
-    assert flat_g == flat_w
+    assert flat_g == _flat_specs(want)
+    dp = SH.dp_axes(mesh)
     if stage >= 2:
-        assert any("data" in SH.entry_axes(e) for s in flat_g.values()
+        assert any(SH.entry_axes(e) == dp for s in flat_g.values()
                    for e in s)
 
 
@@ -657,6 +788,34 @@ def test_a_checkpoint_round_trips_between_worlds_of_1_and_2(worlds):
                                                    r["coords"])), path
 
 
+def test_a_checkpoint_from_2_1_restores_onto_a_pod_mesh(worlds):
+    """The checkpoint (2, 1) wrote, restored onto (2, 1, 1) blocks — each
+    the block of the whole leaf on the pod mesh's layout (ZeRO's moments
+    over ``("pod", "data")``) — and written by that world: read back
+    whole, leaf for leaf the (2, 1) checkpoint's, bitwise."""
+    results, job = worlds
+    b = CheckpointManager(job["ckpt_b"])
+    c = CheckpointManager(job["ckpt_c"])
+    assert c.steps() == [3]
+    case = CASES["qwen3 (2, 1, 1)"]
+    cfg, tcfg = _cfg_tcfg(case)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    like = {"params": params,
+            "opt": make_optimizer(tcfg, param_stacks(cfg)).init(params)}
+    whole_b, whole_c = b.restore(2, like), c.restore(3, like)
+    for (path, x), y in zip(flatten(whole_b), leaves(whole_c)):
+        assert torch.equal(x, y), path
+    mesh, full, layout, state, st_layout = _layouts(dict(case, moe=None))
+    specs = _specs(full, layout) + _specs(state, st_layout)
+    assert any(SH.entry_axes(e) == ("pod", "data") for sp in specs
+               for e in sp)
+    for r in results[(2, 1, 1)]:
+        got = r["cases"]["qwen3 (2, 1, 1)"]["restored"]
+        for ((path, x), spec) in zip(flatten(whole_b), specs):
+            assert torch.equal(got[path], SH.shard(x, spec, mesh,
+                                                   r["coords"])), path
+
+
 def test_the_launcher_trains_on_a_mesh_and_resumes(worlds, tmp_path):
     """``launch.train.run`` on (2, 1): two steps and a checkpoint, then a
     run to step 3 resuming from it; its losses are the one-device
@@ -714,10 +873,11 @@ def test_run_elastic_recovers_when_the_lost_rank_goes_without_a_word(
 
 
 # ------------------------------------------------------------------ memory
-def _hand_count_llama32(n_data, n_model, stage):
+def _hand_count_llama32(n_dp, n_model, stage):
     """llama3.2-3b's smoke config (d 48, 4 heads and 2 kv heads of 12, d_ff
     96, vocab 256 tied, 2 layers) in float32 with AdamW: one rank's
-    elements of parameters and moments, by hand."""
+    elements of parameters and moments, by hand, ``n_dp`` the product of
+    the dp axes (pod · data); at stage 3 with every leaf fsdp-split."""
     d, hd, f, v = 48, 12, 96, 256
     embed = v * d // n_model
     layer = (2 * d                          # ln1, ln2 (replicated)
@@ -726,19 +886,28 @@ def _hand_count_llama32(n_data, n_model, stage):
              + 4 * hd * d // n_model        # wo: rows over model
              + 3 * d * f // n_model)        # wi_gate, wi_up, wo
     params = embed + 2 * layer + d          # + final_norm
-    # stage 2: every moment leaf here has a dim that divides over data
-    moments = 2 * params // (n_data if stage >= 2 else 1)
+    if stage >= 3:     # every leaf has a free dim that divides over dp
+        return params // n_dp, 2 * params // n_dp
+    # stage 2: every moment leaf here has a dim that divides over dp
+    moments = 2 * params // (n_dp if stage >= 2 else 1)
     return params, moments
 
 
-@pytest.mark.parametrize("mesh", [(1, 1), (2, 1), (1, 2), (2, 2)])
-@pytest.mark.parametrize("stage", [0, 2])
-def test_memory_reckoning_per_rank_matches_a_hand_count(mesh, stage):
+@pytest.mark.parametrize("mesh", [(1, 1), (2, 1), (1, 2), (2, 2),
+                                  (2, 1, 1), (2, 2, 1), (2, 1, 2)])
+@pytest.mark.parametrize("stage", [0, 2, 3])
+def test_memory_reckoning_per_rank_matches_a_hand_count(mesh, stage,
+                                                        monkeypatch):
+    """On (data, model) and stacked (pod, data, model) meshes, the dp
+    blocks over pod · data; stage 3 with ``FSDP_MIN_ELEMENTS`` lowered to
+    1, so every leaf is fsdp-split."""
+    monkeypatch.setattr(SH, "FSDP_MIN_ELEMENTS", 1)
     cfg = get_smoke_config("llama3.2-3b").replace(dtype="float32")
     tcfg = TrainConfig(zero_stage=stage)
     got = launcher.memory_reckoning(cfg, tcfg,
-                                    StackedMesh(mesh, ("data", "model")))
-    params, moments = _hand_count_llama32(*mesh, stage)
+                                    StackedMesh(mesh, _names(mesh)))
+    params, moments = _hand_count_llama32(math.prod(mesh[:-1]), mesh[-1],
+                                          stage)
     assert got["params"] == got["grads"] == 4 * params
     assert got["optimizer_state"] == 4 * moments + 4   # + the int32 count
     assert got["total"] == sum(v for k, v in got.items() if k != "total")

@@ -9,17 +9,21 @@ training cases of each mesh, the gradients of the channel test and two
 checkpoint directories.  Each world is spawned on the CPU over gloo
 (:func:`repro_torch.launch.world.spawn_world`):
 
-* the training worlds, (data, model) meshes (1, 1), (2, 1), (1, 2) and
-  (2, 2): each rank cuts its blocks of the parameters, runs the case's
-  steps through ``make_train_step(cfg, tcfg, mesh=ProcessMesh(...))``
-  (the first step through ``train_step`` on the global batch, the others
-  through ``jit_train_step``'s bound step on the rank's rows) and returns
-  its losses, grad norms, parameter and state blocks, and the first
-  step's blocks of the dp-mean gradient (what the ZeRO plan's push hands
-  the optimizer); the world of 1
-  also runs the one-device step beside it, for a bitwise comparison, and
-  saves a checkpoint that the world (2, 1) restores onto its blocks and
-  saves again; the world (2, 2) also differentiates each collective;
+* the training worlds of 1, 2 and 4 ranks, each holding several meshes
+  over its ranks, one after the other: (1, 1) and (pod, data, model)
+  (1, 1, 1); (2, 1), (1, 2) and (2, 1, 1); (2, 2), (4, 1) and (2, 2, 1).
+  On each mesh each rank cuts its blocks of the parameters, runs the
+  mesh's cases through ``make_train_step(cfg, tcfg,
+  mesh=ProcessMesh(...))`` (the first step through ``train_step`` on the
+  global batch, the others through ``jit_train_step``'s bound step on the
+  rank's rows) and returns its losses, grad norms, parameter and state
+  blocks, and the first step's blocks of the dp-mean gradient (what the
+  ZeRO plan's push hands the optimizer), and the ranks of its dp group;
+  the world of 1 also runs the one-device step beside it, for a bitwise
+  comparison, and saves a checkpoint that (2, 1) restores onto its
+  blocks and saves again, which (2, 1, 1) restores and saves once more;
+  (2, 2) also differentiates each collective, and (2, 2, 1) runs the
+  collectives over the flattened ``("pod", "data")`` axes;
 * a (pod, data, model) = (2, 2, 1) world runs the process gradient
   channel (``make_grad_sync``) on each rank's own gradients, exact and
   int8, under both fences;
@@ -80,7 +84,8 @@ def _whole_steps(case, params, batches):
 
 
 def train_case(mesh, case, params, batches):
-    """One case on this rank: its losses, grad norms and blocks."""
+    """One case on this rank: its losses, grad norms and blocks; ``batches``
+    the case's arch's."""
     from repro_torch.distributed import tensor_parallel as TPL
     from repro_torch.models import build_model
     from repro_torch.models.layers import MetaGenerator
@@ -147,22 +152,30 @@ def train_case(mesh, case, params, batches):
     return out, local, state
 
 
-def train_rank(rank, sizes, job):
-    """One rank of a training world laid out as ``sizes`` (data, model)."""
+#: A checkpoint case's (directory it restores, its step; directory it
+#: writes, its step): the world of 1 writes ``ckpt_a``, (2, 1) restores it
+#: and writes ``ckpt_b``, (2, 1, 1) restores that and writes ``ckpt_c``.
+CKPT = {"write": (None, ("ckpt_a", 1)),
+        "reshard": (("ckpt_a", 1), ("ckpt_b", 2)),
+        "pod": (("ckpt_b", 2), ("ckpt_c", 3))}
+
+
+def mesh_rank(mesh, sizes, job):
+    """This rank's cases on one mesh of its world."""
+    import torch.distributed as dist
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.launch.mesh import ProcessMesh
+    from repro_torch.distributed.sharding import DP
     from repro_torch.train.train_step import state_shardings
-    torch.set_num_threads(1)
-    mesh = ProcessMesh(*sizes)
-    out = {"coords": mesh.coords, "cases": {}}
+    out = {"coords": mesh.coords, "cases": {},
+           "dp_group": dist.get_process_group_ranks(mesh.group(DP))}
     for name, case in job["cases"].items():
         if tuple(case["mesh"]) != tuple(sizes):
             continue
         params = job["params"][case["arch"]]
-        r, local, state = train_case(mesh, case, params, job["batches"])
+        batches = job["batches"][case["arch"]]
+        r, local, state = train_case(mesh, case, params, batches)
         if mesh.size == 1:
-            losses, whole, whole_state = _whole_steps(case, params,
-                                                      job["batches"])
+            losses, whole, whole_state = _whole_steps(case, params, batches)
             r["bitwise"] = all(torch.equal(a, b) for a, b in zip(
                 r["losses"], losses)) and all(
                 torch.equal(a, b) for a, b in zip(
@@ -173,19 +186,49 @@ def train_rank(rank, sizes, job):
             cfg, tcfg = _cfg(case), _tcfg(case)
             sh = state_shardings(cfg, tcfg, mesh)
             tree = {"params": local, "opt": state}
-            if mesh.size == 1:         # written by a world of 1
-                CheckpointManager(job["ckpt_a"]).save(
-                    1, tree, shardings=sh)
-            else:                      # restored onto a world of 2, saved
-                got = CheckpointManager(job["ckpt_a"]).restore(1, tree, sh)
-                r["restored"] = _blocks(got)
-                CheckpointManager(job["ckpt_b"]).save(2, got, shardings=sh)
+            source, (dest, step) = CKPT[case["ckpt"]]
+            if source is not None:     # restored onto this mesh's blocks
+                tree = CheckpointManager(job[source[0]]).restore(
+                    source[1], tree, sh)
+                r["restored"] = _blocks(tree)
+            CheckpointManager(job[dest]).save(step, tree, shardings=sh)
         out["cases"][name] = r
     if tuple(sizes) == (2, 2):
         out["collectives"] = collective_grads(mesh, job["collectives"])
+    if tuple(sizes) == (2, 2, 1):
+        out["dp_collectives"] = dp_collectives(mesh)
     if tuple(sizes) == tuple(job["launch"]["mesh"]):
         out["launch"] = launch_rank(mesh, job)
     return out
+
+
+def train_rank(rank, shapes, job):
+    """One rank of a training world: each mesh of ``shapes`` over the
+    world's ranks in turn (every rank builds them in one order: a mesh's
+    groups are collective calls)."""
+    from repro_torch.launch.mesh import ProcessMesh
+    torch.set_num_threads(1)
+    return {tuple(sizes): mesh_rank(ProcessMesh(*sizes), tuple(sizes), job)
+            for sizes in shapes}
+
+
+def dp_collectives(mesh):
+    """The collectives over the flattened ``("pod", "data")`` axes on values
+    that name their sender: a gather on dim 0 and on dim 1, a bf16 sum, a
+    mean and the rank's own block of a reduce-scatter."""
+    from repro_torch.distributed import collectives as CL
+    from repro_torch.distributed.sharding import DP
+    me = float(10 * mesh.coord("pod") + mesh.coord("data"))
+    x = torch.full((2, 3), me)
+    return {"index": mesh.coord(DP), "size": mesh.axis_size(DP),
+            "gather0": CL.all_gather(x, mesh, DP, 0),
+            "gather1": CL.all_gather(x, mesh, DP, 1),
+            "psum": CL.psum(torch.full((4,), me, dtype=torch.bfloat16)
+                            + torch.tensor([0, 1 / 256, 1 / 512, 0],
+                                           dtype=torch.bfloat16), mesh, DP),
+            "pmean": CL.pmean(torch.tensor([me]), mesh, DP),
+            "reduce_scatter": CL.reduce_scatter(
+                torch.arange(8.0) * (1 + me), mesh, DP, 0)}
 
 
 def launch_rank(mesh, job):
@@ -297,6 +340,7 @@ def elastic_rank(rank, job, silent=False):
     torch.set_num_threads(1)
     case = job["elastic"]
     cfg, tcfg = _cfg(case), _tcfg(case)
+    batches = job["batches_elastic"]
     ckpt = CheckpointManager(job["ckpt_elastic_silent" if silent else
                                  "ckpt_elastic"], keep_last=2)
     spec = ElasticMeshSpec(shapes=[(2, 1), (1, 1)],
@@ -319,8 +363,6 @@ def elastic_rank(rank, job, silent=False):
             return {"params": p, "opt": o}, m
 
         return state, step_fn, lambda m: state_shardings(cfg, tcfg, m)
-
-    batches = job["batches_elastic"]
 
     def get_batch(s):
         if silent and rank == 1 and s == 3:
@@ -347,13 +389,17 @@ def elastic_rank(rank, job, silent=False):
 
 
 def main(inputs, outputs):
+    import math
+
     from repro_torch.launch.world import spawn_world
     job = torch.load(inputs, weights_only=False)
     results = {}
-    for sizes in job["meshes"]:
-        results[tuple(sizes)] = spawn_world(
-            train_rank, sizes[0] * sizes[1], backend="gloo", device="cpu",
-            args=(tuple(sizes), job), timeout_s=job["timeout_s"])
+    for shapes in job["worlds"]:
+        ranks = spawn_world(
+            train_rank, math.prod(shapes[0]), backend="gloo", device="cpu",
+            args=(shapes, job), timeout_s=job["timeout_s"])
+        for sizes in shapes:
+            results[tuple(sizes)] = [r[tuple(sizes)] for r in ranks]
     results["grad_sync"] = spawn_world(
         grad_sync_rank, 4, backend="gloo", device="cpu", args=(job,),
         timeout_s=job["timeout_s"])

@@ -5,15 +5,20 @@ process:
 
 ``inputs.pt`` holds the port's parameters of each smoke model (carried
 over from the reference's with ``params_from_jax``), the prompt tokens
-and the worlds to run.  Each world is spawned on the CPU over gloo
-(:func:`repro_torch.launch.world.spawn_world`); each rank cuts its blocks
-out of the full parameters, serves the prompt through
-``make_serve_steps(cfg, ProcessMesh(...))`` — a prefill of the global
-batch, then greedy decode steps on its own rows — and returns its logits,
-tokens and caches, each MoE rank also the expert-parallel block's output
-on one input; the refusal of a family without a tensor-parallel form is
-asked too.  A world of 1 also runs the unsharded path in the same
-process, for a bitwise comparison.  Every rank's result goes to
+and the worlds to run, each a list of meshes over its ranks built one
+after the other.  Each world is spawned on the CPU over gloo
+(:func:`repro_torch.launch.world.spawn_world`); on each mesh of
+``serve_meshes`` each rank cuts its blocks out of the full parameters,
+serves the prompt through ``make_serve_steps(cfg, ProcessMesh(...))`` — a
+prefill of the global batch, then greedy decode steps on its own rows —
+and returns its logits, tokens and caches, each MoE rank also the
+expert-parallel block's output on one input; the refusal of a family
+without a tensor-parallel form is asked too.  A world of 1 also runs the
+unsharded path in the same process, for a bitwise comparison.  On each
+mesh of ``fsdp_meshes`` each rank serves every smoke family that runs
+there twice, ``fsdp=False`` and ``fsdp=True`` (``FSDP_MIN_ELEMENTS``
+lowered to 1), each drawing its blocks with ``model.init``, and returns
+whether the logits agree bit for bit.  Every rank's result goes to
 ``outputs.pt``.  It imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
@@ -35,17 +40,91 @@ def _serve(steps, params, tokens, n_decode, s_max):
     return logits, toks + [tok], caches
 
 
-def serve_rank(rank, sizes, job):
-    """One rank of a world laid out as ``sizes`` (data, model)."""
+def serve_rank(rank, shapes, job):
+    """One rank of a world: each mesh of ``shapes`` over its ranks in turn
+    (every rank builds them in one order: a mesh's groups are collective
+    calls)."""
+    from repro_torch.launch.mesh import ProcessMesh
+    torch.set_num_threads(1)
+    out = {}
+    for sizes in map(tuple, shapes):
+        mesh = ProcessMesh(*sizes)
+        if sizes in map(tuple, job["serve_meshes"]):
+            out[sizes] = mesh_rank(mesh, job)
+        if sizes in map(tuple, job["fsdp_meshes"]):
+            out[("fsdp",) + sizes] = fsdp_rank(mesh, job)
+    return out
+
+
+def fsdp_rank(mesh, job):
+    """Each smoke family that runs on ``mesh`` served with ``fsdp=False``
+    and ``fsdp=True``: whether the logits agree bit for bit, each rank's
+    parameter elements under both, whether the fsdp blocks ``model.init``
+    drew are the rank's blocks of the whole init, and whether the bound
+    decode refuses whole parameters under fsdp."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tensor_parallel as TPL
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import MetaGenerator
+    from repro_torch.train import make_serve_steps
+    from repro_torch.tree import leaves
+    SH.FSDP_MIN_ELEMENTS = 1
+    out = {}
+    for arch, m in job["fsdp_models"].items():
+        cfg = m["cfg"]
+        if mesh.shape["model"] > 1 and cfg.family in TPL.REFUSED:
+            continue
+        if mesh.shape["model"] > 1 and cfg.mla is not None:
+            continue
+        B, s_max = m["tokens"].shape[0], m["s_max"]
+        batch = {"tokens": m["tokens"]}
+        ctx = {"context": m["context"]} if "context" in m else None
+        batch.update(ctx or {})
+        full = build_model(cfg)
+        shapes = (full.init(MetaGenerator()),
+                  full.init_cache(B, s_max, device="meta"),
+                  torch.empty((B, 1), dtype=torch.int32, device="meta"))
+        r, logits = {}, {}
+        for fsdp in (False, True):
+            model, prefill, _decode, jit_decode = make_serve_steps(
+                cfg, mesh, fsdp=fsdp)
+            params = model.init(torch.Generator().manual_seed(7))
+            bound = jit_decode(*shapes)
+            with torch.no_grad():
+                lg, caches, pos = prefill(params, batch, s_max)
+                got = [lg]
+                tok = torch.argmax(lg, -1).to(torch.int32)[:, None]
+                for _ in range(job["n_decode"]):
+                    tok, lg, caches, pos = bound(params, tok, caches, pos,
+                                                 ctx)
+                    got.append(lg)
+            logits[fsdp] = got
+            r[f"elements_{fsdp}"] = sum(t.numel() for t in leaves(params))
+            if fsdp:
+                whole = full.init(torch.Generator().manual_seed(7))
+                r["init_blocks"] = all(torch.equal(a, b) for a, b in zip(
+                    leaves(params), leaves(TPL.shard_tree(
+                        whole, TPL.param_layout(whole, cfg, mesh, True),
+                        mesh))))
+                try:
+                    jit_decode(*shapes)(whole, tok, caches, pos, ctx)
+                    r["refused_whole"] = False
+                except ValueError:
+                    r["refused_whole"] = True
+        r["bitwise"] = len(logits[True]) == len(logits[False]) and all(
+            torch.equal(a, b) for a, b in zip(logits[True], logits[False]))
+        out[arch] = r
+    return out
+
+
+def mesh_rank(mesh, job):
+    """One rank's serving on a (data, model) mesh."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed import tensor_parallel as TPL
     from repro_torch.distributed.moe_ep import make_moe_fn
-    from repro_torch.launch.mesh import ProcessMesh
     from repro_torch.models import build_model
     from repro_torch.train import make_serve_steps
     from repro_torch.tree import flatten
-    torch.set_num_threads(1)
-    mesh = ProcessMesh(*sizes)
     out = {"coords": mesh.coords}
     for name, m in job["models"].items():
         cfg = m["cfg"]
@@ -123,13 +202,17 @@ def collectives_rank(mesh):
 
 
 def main(inputs, outputs):
+    import math
+
     from repro_torch.launch.world import spawn_world
     job = torch.load(inputs, weights_only=False)
     results = {}
-    for sizes in job["meshes"]:
-        results[tuple(sizes)] = spawn_world(
-            serve_rank, sizes[0] * sizes[1], backend="gloo", device="cpu",
-            args=(tuple(sizes), job), timeout_s=job["timeout_s"])
+    for shapes in job["worlds"]:
+        ranks = spawn_world(
+            serve_rank, math.prod(shapes[0]), backend="gloo", device="cpu",
+            args=(shapes, job), timeout_s=job["timeout_s"])
+        for key in ranks[0]:
+            results[key] = [r[key] for r in ranks]
     torch.save(results, outputs)
 
 
