@@ -177,7 +177,8 @@ exits non-zero and prints no result:
    the migration oracle-checked;
 4b. the failover scenario of ``benchmarks/bench_failover.py`` on that
    store shape: a leader and two follower stores behind a ReplicatedLog,
-   the prefill and 20 mixed windows each appended and synced, the leader
+   the prefill (FO_FILL_WINDOWS windows, 40% of K) and 20 mixed windows
+   each appended and synced, the leader
    killed (detected, a follower promoted, the in-flight window retried, a
    zombie publish fenced) and revived (replay rejoin); the leader's results
    against the oracle, every follower bitwise equal to the leader at the
@@ -289,9 +290,19 @@ exits non-zero and prints no result:
    expert-parallel MoE with its two all-to-alls between the processes —
    whose logits must lie within ``PM_TP_TOL`` of the unsharded path's;
    each rank draws its blocks of the same seeded weights, prefills 4 x
-   512 tokens and runs 32 decode steps of the bound decode fed the
-   unsharded path's tokens; every logit finite; each rank's flash, decode
-   and grouped-matmul launches, counted from 0 over its path, as planned;
+   512 tokens and runs PM_DECODE decode steps of the bound decode fed the
+   unsharded path's tokens; also recurrentgemma-2b (the RG-LRU
+   by channels), rwkv6-7b (the time mix by heads), deepseek-v3 (MLA by
+   heads, its experts' a2a), whisper-large-v3 and llama-3.2-vision-11b
+   (their attention and cross attention by heads, over a seeded context,
+   the cross gates seeded off zero) at published widths, depth cut
+   (PM_CUT); a MoE model's ranks route each token to the unsharded
+   path's experts (:class:`RouteLog`), each expert they would have
+   chosen in place of one a near tie (PM_ROUTE_TIE), and at world 2
+   deepseek-v3 also serves at its published capacity, drops included,
+   held for launches and finite logits; every logit finite; each rank's
+   flash, decode, RG-LRU, WKV6 and grouped-matmul launches, counted from
+   0 over its path, as planned;
    each rank's peak memory, prefill ms and decode-step p50 printed with
    the backend, world and mesh, beside the card's name and power limit
    (world 2's labelled as on one card over gloo, not a number between
@@ -495,6 +506,11 @@ VISION_ARCH = "llama-3.2-vision-11b"
 LOG_CAPACITY = 4
 DETECT_THRESHOLD = 2
 FO_KILL, FO_REVIVE = 8, 10
+# phase 4b's fill, cut to half the main path's 80% of K (410 of
+# 820 INSERT windows, each appended and synced) to keep the script inside
+# its limit as phase 5c grew: the failover's steps run as before, over a
+# store 40% full
+FO_FILL_WINDOWS = -(-int(KEYS * FILL) // (2 * P * B))
 REP_REQUESTS, REP_GEN, REP_KILL, REP_REVIVE = 24, 16, 5, 13
 SERVE_PATHS = [
     dict(arch=SERVE_ARCH, prompt=SERVE_PROMPT),
@@ -545,13 +561,54 @@ A2A_NODROP_PROMPT = 64
 # so a decode step moves the model's bytes over the host; PM_FSDP_DECODE
 # steps fed the fsdp=False run's greedy tokens.  Its logits must be the
 # fsdp=False run's bit for bit.
+# The five families that serve over ``model`` without training
+# there join it at their published widths, depth cut in n_layers alone
+# (PM_CUT: recurrentgemma-2b [rec, rec, local] over RG_PROMPT tokens, past
+# its 2,048-token window; rwkv6-7b 2 blocks; deepseek-v3 [mla_dense] x 3 +
+# [mla_moe]; whisper-large-v3 2 encoder and 2 decoder layers over 1,500
+# frames with WHISPER_PROMPT-token prompts; llama-3.2-vision-11b
+# [attn x 4, cross] over 1,601 context tokens).  The frames and the
+# context are drawn from SEED on the card, and the cross layers' scalar
+# gates from ±[0.3, 1.2] (pm_seed_gates): at the init's zero gates, or
+# over a zero context, a cross layer is the identity and its heads would
+# go unchecked.  Every model takes PM_DECODE decode steps (32 until the
+# five joined; cut for the script's limit).
+# deepseek-v3 is compared at the capacity that drops nothing
+# (capacity_factor n_experts / top_k, so an expert's slots are the call's
+# tokens) over A2A_NODROP_PROMPT-token prompts, as phase 5b's no-drop
+# check: the a2a block sizes its capacity by the rank's tokens and the
+# unsharded path's local block by the call's, so at the published 1.25
+# the two drop different routes (the last prompt tokens first) and the
+# comparison would hold the drops, not the sharding; at 512-token
+# prompts the no-drop slots would be 7.5 GB a call.  On a model axis
+# above 1 each rank then serves it again at the published capacity over
+# SERVE_PROMPT-token prompts on the same weights (pm_capacity_run): one
+# prefill and PM_DECODE steps fed its own greedy tokens, held for
+# launches and finite logits, the drops those of the a2a block.
 PM_MOE_LAYERS = 2
-PM_DECODE = 32
+PM_DECODE = 8
+PM_CUT = {"recurrentgemma-2b": dict(n_layers=3), "rwkv6-7b": dict(n_layers=2),
+          DS_ARCH: dict(n_layers=4),
+          WHISPER_ARCH: dict(n_layers=2, n_enc_layers=2),
+          VISION_ARCH: dict(n_layers=5)}
 PM_FSDP_LAYERS = 2
 PM_FSDP_DECODE = 4
 PM_WORLDS = (("nccl", (1, 1)), ("gloo", (1, 2)))
 PM_FSDP = {(1, 2): (2, 1)}
 PM_TP_TOL = 5e-2
+# A MoE model's routes are a step function of x: at world 2 the bf16 sums
+# over ``model`` run in another order and move x by a few roundings, and
+# where a token's k-th and (k+1)-th router logits lie closer than that, a
+# rank's top-k differs from the unsharded path's (deepseek-v3's top-8 of
+# 256 leaves about 0.06 standard deviations between neighbours there).
+# So that the logits are held to PM_TP_TOL with the same routes, every
+# rank routes each of its tokens to the unsharded path's experts
+# (RouteLog replays them, weighted by the rank's own router logits), and
+# the routes are held apart: wherever the rank's own top-k differs, the
+# replayed expert it would have left out lies within PM_ROUTE_TIE
+# standard deviations of the token's float32 router logits below its own
+# k-th (a wrong x moves routes by whole deviations).
+PM_ROUTE_TIE = 0.05
 PM_TIMEOUT_S = 600
 # phase 7c, the training steps across processes (make_train_step on a
 # ProcessMesh, default TrainConfig: AdamW, lr 3e-4, remat per block): a
@@ -3904,10 +3961,10 @@ def failover_run(torch, pt, rdma, *, nodes=P, mesh=None, fill_windows=None,
 
 def phase_failover(torch, pt, rdma, slots):
     """Phase 4b: :func:`failover_run` on the stacked binding at the KVStore
-    path's size (P participants, the whole prefill, MIX_WINDOWS mixed
-    windows)."""
+    path's size (P participants, FO_FILL_WINDOWS of the prefill's windows,
+    MIX_WINDOWS mixed windows)."""
     check(slots == KEYS // P + 4, "4b: the KVStore path's slots")
-    return failover_run(torch, pt, rdma)
+    return failover_run(torch, pt, rdma, fill_windows=FO_FILL_WINDOWS)
 
 
 # ---------------------------------------------------------------------------
@@ -5246,31 +5303,102 @@ def phase_a2a(torch, kernels, cfg, params, local, local_gmm_launches):
 # ---------------------------------------------------------------------------
 
 def pm_configs():
-    """Phase 5c's models: llama3.2-3b whole, llama4 at PM_MOE_LAYERS."""
+    """Phase 5c's models: llama3.2-3b whole, llama4 at PM_MOE_LAYERS, and
+    the five families of PM_CUT at their published widths, depth cut
+    (deepseek-v3 at the no-drop capacity)."""
     from repro_torch.configs import get_config
-    return {SERVE_ARCH: get_config(SERVE_ARCH),
-            MOE_ARCH: get_config(MOE_ARCH).replace(n_layers=PM_MOE_LAYERS)}
+    out = {SERVE_ARCH: get_config(SERVE_ARCH),
+           MOE_ARCH: get_config(MOE_ARCH).replace(n_layers=PM_MOE_LAYERS)}
+    for arch, cut in PM_CUT.items():
+        out[arch] = get_config(arch).replace(**cut)
+    out[DS_ARCH] = pm_nodrop(out[DS_ARCH])
+    return out
+
+
+def pm_capacity_config():
+    """deepseek-v3 at PM_CUT's depth and its published capacity."""
+    from repro_torch.configs import get_config
+    return get_config(DS_ARCH).replace(**PM_CUT[DS_ARCH])
+
+
+def pm_nodrop(cfg):
+    """``cfg`` at the capacity that drops no routed token: each expert's
+    slots the call's tokens."""
+    import dataclasses
+    mo = cfg.moe
+    return cfg.replace(moe=dataclasses.replace(
+        mo, capacity_factor=mo.n_experts / mo.top_k))
+
+
+def pm_s_max(cfg):
+    return pm_prompt_len(cfg) + PM_DECODE + 1
+
+
+def pm_prompt_len(cfg):
+    """SERVE_PROMPT, where the model allows it: recurrentgemma's RG_PROMPT
+    reaches past its window, whisper's WHISPER_PROMPT fits its text
+    context, and at the no-drop capacity A2A_NODROP_PROMPT keeps the
+    slots (an expert's slots are the call's tokens) small."""
+    mo = cfg.moe
+    if cfg.name == "recurrentgemma-2b":
+        return RG_PROMPT
+    if cfg.family == "audio":
+        return WHISPER_PROMPT
+    if mo is not None and mo.capacity_factor * mo.top_k >= mo.n_experts:
+        return A2A_NODROP_PROMPT
+    return SERVE_PROMPT
 
 
 def pm_prompt(cfg):
     rng = np.random.default_rng(SEED + 13)
-    return rng.integers(1, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(
-        np.int32)
+    return rng.integers(1, cfg.vocab, (SERVE_BATCH, pm_prompt_len(cfg))
+                        ).astype(np.int32)
+
+
+def pm_batch(torch, cfg, device):
+    """The prompt, and for the vlm and whisper a context (B, n_ctx, d)
+    drawn from SEED on ``device``: the same on every rank of the card."""
+    batch = {"tokens": pm_prompt(cfg)}
+    if cfg.family in ("vlm", "audio"):
+        g = torch.Generator(device=device).manual_seed(SEED + 15)
+        batch["context"] = torch.randn(
+            (SERVE_BATCH, cfg.cross.n_context_tokens, cfg.d_model),
+            generator=g, dtype=cfg.dtype_, device=device)
+    return batch
+
+
+def pm_seed_gates(torch, params):
+    """The vlm's cross layers' ``gate_attn`` / ``gate_ffn`` scalars set in
+    place from ±[0.3, 1.2], drawn from SEED in the tree's order (at the
+    init's zero a cross layer is the identity).  Every rank holds the
+    scalars whole, so the unsharded path and every rank set the same."""
+    from repro_torch.tree import flatten
+    rng = np.random.default_rng(SEED + 16)
+    with torch.no_grad():
+        for path, t in flatten(params):
+            if path.rsplit("/", 1)[-1] in ("gate_attn", "gate_ffn"):
+                t.fill_(float(rng.uniform(0.3, 1.2)
+                              * rng.choice([-1.0, 1.0])))
+    return params
 
 
 def pm_planned(cfg, n_decode=PM_DECODE):
     """Each rank's model-kernel launches on one prefill and ``n_decode``
-    decode steps: flash per attention layer, decode attention per layer a
-    step, three grouped matmuls per MoE layer a call (on the rank's
-    experts)."""
-    from repro_torch.models.transformer import layer_kinds
-    kinds = layer_kinds(cfg)
-    n_moe = sum(k.endswith("_moe") for k in kinds)
-    out = {"flash_attention": len(kinds),
-           "decode_attention": len(kinds) * n_decode}
-    if n_moe:
-        out["gmm"] = 3 * n_moe * (1 + n_decode)
-    return out
+    decode steps, as :func:`expected_launches` counts them for one batch:
+    flash per attention layer (a cross layer's and whisper's encoder,
+    self and cross attention among them), rglru per recurrent layer and
+    wkv6 per rwkv block at the prefill, decode attention per attention
+    layer a step, three grouped matmuls per MoE layer a call (on the
+    rank's experts)."""
+    return expected_launches(cfg, SERVE_BATCH, n_decode + 1)
+
+
+def pm_cache_blocks(caches):
+    """The shapes of a rank's cache leaves of its first layer (whisper's
+    first decoder layer's self and cross caches)."""
+    from repro_torch.tree import flatten
+    return {p: list(t.shape) for p, t in flatten(caches)
+            if p.split("/")[0] == "0" or p.split("/")[1:2] == ["0"]}
 
 
 def pm_fsdp_config():
@@ -5282,11 +5410,11 @@ def pm_generator(torch, device):
     return torch.Generator(device=device).manual_seed(SEED + 14)
 
 
-def pm_warm(torch, prefill, decode, params, cfg, s_max):
+def pm_warm(torch, prefill, decode, params, cfg, s_max, device="cuda"):
     """One prefill and one decode step, untimed and uncounted: the first
     calls' one-time costs (handles, module loads) stay out of the
     numbers."""
-    lg, caches, pos = prefill(params, {"tokens": pm_prompt(cfg)}, s_max)
+    lg, caches, pos = prefill(params, pm_batch(torch, cfg, device), s_max)
     decode(params, torch.argmax(lg, -1).to(torch.int32)[:, None], caches,
            pos)
     torch.cuda.synchronize()
@@ -5300,44 +5428,129 @@ def pm_timed(torch, fn):
     return out, time.perf_counter() - t0
 
 
+class RouteLog:
+    """Wraps ``repro_torch.models.moe.route`` (every MoE block routes
+    through it) until :meth:`close`; off, it passes each call on.  On, it
+    records each call's experts (:meth:`take` brings them to the host);
+    given ``replay``, the rank's block of another run's experts, one
+    tensor a route call in call order (:func:`pm_route_block`), it routes
+    each call's tokens to those experts instead, weighted by the softmax
+    of the call's own router logits at them, and keeps on the card the
+    count of tokens whose own top-k differs and the largest gap: how far
+    below its own k-th logit the replayed expert it would have left out
+    lies, in standard deviations of the token's float32 router logits."""
+
+    def __init__(self, replay=()):
+        import torch
+        from repro_torch.models import moe as M
+        self.M, self.orig, self.on, self.calls = M, M.route, False, []
+        self.replay, self.replaying = list(replay), bool(replay)
+        self.differ, self.gap = 0, 0.0
+
+        def route(params, x, mo):
+            w, e, logits = self.orig(params, x, mo)
+            if not self.on:
+                return w, e, logits
+            if not self.replaying:
+                self.calls.append(e.clone())
+                return w, e, logits
+            if not self.replay:
+                raise RuntimeError("a route call past the replayed ones")
+            e_u = self.replay.pop(0)
+            own = logits.gather(-1, e_u)
+            kth = logits.topk(mo.top_k, -1).values[..., -1]
+            gap = (kth - own.min(-1).values) / logits.std(-1)
+            self.gap = torch.maximum(gap.max(), torch.as_tensor(self.gap))
+            self.differ = self.differ + (e.sort(-1).values != e_u.sort(
+                -1).values).any(-1).sum()
+            return torch.softmax(own, -1).to(x.dtype), e_u, logits
+        M.route = route
+
+    def take(self):
+        """The experts of the calls since the last take, on the host."""
+        calls, self.calls = self.calls, []
+        return [e.cpu() for e in calls]
+
+    def summary(self):
+        """{differ, gap, left}: the replay's tokens whose own top-k
+        differed, the largest gap and the replayed calls not reached."""
+        return dict(differ=int(self.differ), gap=float(self.gap),
+                    left=len(self.replay))
+
+    def close(self):
+        self.M.route = self.orig
+
+
+def pm_route_block(calls, coords, sizes):
+    """A rank's block of the unsharded path's routes, one tensor a route
+    call in call order: each call's experts (B·S, k) cut to the rank's
+    rows and, where the call's S divides over ``model``, its slice of S,
+    as ``moe_ep._process_moe_fn`` hands the rank its tokens."""
+    n_dp, n_tp = sizes
+    B, j = SERVE_BATCH, coords["model"]
+    r0, r1 = coords["data"] * B // n_dp, (coords["data"] + 1) * B // n_dp
+    out = []
+    for call in calls:
+        for e in call:
+            S, k = e.shape[0] // B, e.shape[-1]
+            t0, t1 = (0, S) if S % n_tp else \
+                (j * S // n_tp, (j + 1) * S // n_tp)
+            out.append(e.view(B, S, k)[r0:r1, t0:t1].reshape(-1, k))
+    return out
+
+
 def pm_unsharded(torch, cfg):
     """The unsharded path (``make_serve_steps(cfg, None)``) on the weights
     every rank draws its blocks of: the logits of the prefill and of
-    PM_DECODE greedy decode steps and the greedy tokens, on the host, and
-    the prefill's and steps' times (after one warm-up of each)."""
+    PM_DECODE greedy decode steps and the greedy tokens, on the host, the
+    prefill's and steps' times (after one warm-up of each), and each
+    call's routes (:class:`RouteLog`; none but a MoE model's)."""
     from repro_torch.train import make_serve_steps
     model, prefill, decode, _jit = make_serve_steps(cfg, None)
     torch.cuda.reset_peak_memory_stats()
-    params = model.init(pm_generator(torch, "cuda"))
-    s_max = SERVE_PROMPT + PM_DECODE + 1
-    with torch.no_grad():
-        pm_warm(torch, prefill, decode, params, cfg, s_max)
-        (lg, caches, pos), t_prefill = pm_timed(torch, lambda: prefill(
-            params, {"tokens": pm_prompt(cfg)}, s_max))
-        logits = [lg.cpu()]
-        tok = torch.argmax(lg, -1).to(torch.int32)[:, None]
-        toks, steps = [tok.cpu()], []
-        for _ in range(PM_DECODE):
-            (tok, lg, caches, pos), dt = pm_timed(
-                torch, lambda: decode(params, tok, caches, pos))
-            steps.append(dt)
-            logits.append(lg.cpu())
-            toks.append(tok.cpu())
+    params = pm_seed_gates(torch, model.init(pm_generator(torch, "cuda")))
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    s_max = pm_s_max(cfg)
+    routes = RouteLog()
+    try:
+        with torch.no_grad():
+            pm_warm(torch, prefill, decode, params, cfg, s_max)
+            torch.cuda.reset_peak_memory_stats()
+            routes.on = True
+            batch = pm_batch(torch, cfg, "cuda")
+            (lg, caches, pos), t_prefill = pm_timed(
+                torch, lambda: prefill(params, batch, s_max))
+            logits, calls = [lg.cpu()], [routes.take()]
+            tok = torch.argmax(lg, -1).to(torch.int32)[:, None]
+            toks, steps = [tok.cpu()], []
+            for _ in range(PM_DECODE):
+                (tok, lg, caches, pos), dt = pm_timed(
+                    torch, lambda: decode(params, tok, caches, pos))
+                steps.append(dt)
+                logits.append(lg.cpu())
+                calls.append(routes.take())
+                toks.append(tok.cpu())
+    finally:
+        routes.close()
     del params, caches
     return logits, toks, dict(
         prefill_ms=1e3 * t_prefill,
         decode_step_p50_ms=1e3 * float(np.percentile(steps, 50)),
         decode_step_p99_ms=1e3 * float(np.percentile(steps, 99)),
-        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        init_peak_gib=init_peak,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30), calls
 
 
-def pm_rank(rank, sizes, tokens):
+def pm_rank(rank, sizes, tokens, routes):
     """One rank of a phase-5c world (spawned; ``init_distributed`` has
     joined it): each model through ``make_serve_steps(cfg,
     ProcessMesh(*sizes))`` — the rank draws its blocks of the seeded
     weights, prefills the global batch and runs PM_DECODE steps of the
-    bound decode (``jit_decode``), step i fed ``tokens[arch][i]`` — with
-    its model-kernel launches counted from 0 over that path.  Returns its
+    bound decode (``jit_decode``), step i fed ``tokens[arch][i]``, a MoE
+    model's tokens routed to ``routes[arch]``'s experts (the unsharded
+    path's; :class:`RouteLog`) — with its model-kernel launches counted
+    from 0 over that path; on a model axis above 1, deepseek-v3 then at
+    its published capacity (:func:`pm_capacity_run`).  Returns its
     numbers, and on the rank at coordinate 0 the logits, which every model
     rank holds whole."""
     import torch
@@ -5345,12 +5558,13 @@ def pm_rank(rank, sizes, tokens):
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.moe_gmm import gmm
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.launch.mesh import ProcessMesh
-    from repro_torch.models import build_model
-    from repro_torch.models.layers import MetaGenerator
     from repro_torch.train import make_serve_steps
     kernels = {"flash_attention": flash_attention,
-               "decode_attention": decode_attention, "gmm": gmm}
+               "decode_attention": decode_attention, "gmm": gmm,
+               "rglru_scan": rglru_scan, "wkv6": wkv6}
     mesh = ProcessMesh(*sizes)
     fsdp_mesh = ProcessMesh(*PM_FSDP[sizes]) if sizes in PM_FSDP else None
     out = {"coords": mesh.coords, "device": str(mesh.device),
@@ -5364,47 +5578,108 @@ def pm_rank(rank, sizes, tokens):
         torch.cuda.reset_peak_memory_stats()
         model, prefill, _decode, jit_decode = make_serve_steps(cfg, mesh)
         t0 = time.perf_counter()
-        params = model.init(pm_generator(torch, mesh.device))
+        params = pm_seed_gates(torch, model.init(pm_generator(
+            torch, mesh.device)))
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         n_local = sum(t.numel() for t in _leaves(params))
-        s_max = SERVE_PROMPT + PM_DECODE + 1
-        full = build_model(cfg)
-        step = jit_decode(full.init(MetaGenerator()),
-                          full.init_cache(SERVE_BATCH, s_max, device="meta"),
-                          torch.empty((SERVE_BATCH, 1), dtype=torch.int32,
-                                      device="meta"))
-        with torch.no_grad():
-            pm_warm(torch, prefill, step, params, cfg, s_max)
-            for k in kernels.values():
-                k.launches = 0
-            (lg, caches, pos), prefill_s = pm_timed(torch, lambda: prefill(
-                params, {"tokens": pm_prompt(cfg)}, s_max))
-            logits, steps, agree = [lg], [], 0
-            for i in range(PM_DECODE):
-                tok = tokens[arch][i].to(mesh.device)
-                (nxt, lg, caches, pos), dt = pm_timed(
-                    torch, lambda: step(params, tok, caches, pos))
-                steps.append(dt)
-                logits.append(lg)
-                agree += int(torch.equal(nxt.cpu(), tokens[arch][i + 1]))
+        s_max = pm_s_max(cfg)
+        step = pm_bound_decode(torch, cfg, jit_decode, s_max)
+        log_routes = RouteLog([e.to(mesh.device) for e in pm_route_block(
+            routes[arch], mesh.coords, sizes)])
+        try:
+            with torch.no_grad():
+                pm_warm(torch, prefill, step, params, cfg, s_max,
+                        mesh.device)
+                torch.cuda.reset_peak_memory_stats()
+                for k in kernels.values():
+                    k.launches = 0
+                log_routes.on = True
+                batch = pm_batch(torch, cfg, mesh.device)
+                (lg, caches, pos), prefill_s = pm_timed(
+                    torch, lambda: prefill(params, batch, s_max))
+                logits, steps, agree = [lg], [], 0
+                for i in range(PM_DECODE):
+                    tok = tokens[arch][i].to(mesh.device)
+                    (nxt, lg, caches, pos), dt = pm_timed(
+                        torch, lambda: step(params, tok, caches, pos))
+                    steps.append(dt)
+                    logits.append(lg)
+                    agree += int(torch.equal(nxt.cpu(),
+                                             tokens[arch][i + 1]))
+                log_routes.on = False
+        finally:
+            log_routes.close()
         r = dict(
             launches={name: k.launches for name, k in kernels.items()},
             finite=all(bool(torch.isfinite(t).all()) for t in logits),
             greedy_steps_agreeing=agree, params_local=n_local,
-            init_s=init_s, prefill_ms=1e3 * prefill_s,
+            init_s=init_s, init_peak_gib=init_peak,
+            prefill_ms=1e3 * prefill_s,
             decode_step_p50_ms=1e3 * float(np.percentile(steps, 50)),
             decode_step_p99_ms=1e3 * float(np.percentile(steps, 99)),
             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-            kv_heads_local=caches[0].k.shape[1])
+            cache_blocks=pm_cache_blocks(caches),
+            routes=log_routes.summary())
         if all(c == 0 for c in mesh.coords.values()):
             r["logits"] = [t.cpu() for t in logits]
         out[arch] = r
-        del params, caches, logits, lg, step
+        del caches, logits, lg, step
+        if arch == DS_ARCH and sizes[1] > 1:
+            out["capacity"] = pm_capacity_run(torch, mesh, params, kernels)
+        del params
         gc.collect()
     if fsdp_mesh is not None:
         out["fsdp"] = pm_fsdp_run(torch, fsdp_mesh, kernels)
     return out
+
+
+def pm_bound_decode(torch, cfg, jit_decode, s_max):
+    """``jit_decode`` bound to ``cfg``'s full shapes (meta tensors)."""
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import MetaGenerator
+    full = build_model(cfg)
+    return jit_decode(full.init(MetaGenerator()),
+                      full.init_cache(SERVE_BATCH, s_max, device="meta"),
+                      torch.empty((SERVE_BATCH, 1), dtype=torch.int32,
+                                  device="meta"))
+
+
+def pm_capacity_run(torch, mesh, params, kernels):
+    """One rank's deepseek-v3 at its published capacity
+    (:func:`pm_capacity_config`) on ``params``, the rank's blocks of the
+    no-drop run (the capacity changes no weight): one prefill of
+    SERVE_BATCH x SERVE_PROMPT tokens and PM_DECODE steps of the bound
+    decode fed its own greedy tokens (every model rank holds the logits
+    whole, so every one feeds the same), the model-kernel launches
+    counted from 0.  No warm-up: the times include the new shapes' first
+    calls."""
+    from repro_torch.train import make_serve_steps
+    cfg = pm_capacity_config()
+    s_max = pm_s_max(cfg)
+    _model, prefill, _decode, jit_decode = make_serve_steps(cfg, mesh)
+    step = pm_bound_decode(torch, cfg, jit_decode, s_max)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    with torch.no_grad():
+        batch = pm_batch(torch, cfg, mesh.device)
+        (lg, caches, pos), prefill_s = pm_timed(
+            torch, lambda: prefill(params, batch, s_max))
+        logits, steps = [lg], []
+        tok = torch.argmax(lg, -1).to(torch.int32)[:, None]
+        for _ in range(PM_DECODE):
+            (tok, lg, caches, pos), dt = pm_timed(
+                torch, lambda: step(params, tok, caches, pos))
+            steps.append(dt)
+            logits.append(lg)
+    return dict(
+        launches={name: k.launches for name, k in kernels.items()},
+        finite=all(bool(torch.isfinite(t).all()) for t in logits),
+        prefill_ms=1e3 * prefill_s,
+        decode_step_p50_ms=1e3 * float(np.percentile(steps, 50)),
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
 def pm_fsdp_run(torch, mesh, kernels):
@@ -5416,17 +5691,10 @@ def pm_fsdp_run(torch, mesh, kernels):
     the fsdp=False run's greedy tokens, the model-kernel launches
     (``kernels``) counted from 0 over that path.  Returns whether the two
     runs' logits agree bit for bit and each run's numbers."""
-    from repro_torch.models import build_model
-    from repro_torch.models.layers import MetaGenerator
     from repro_torch.train import make_serve_steps
     out = {"coords": mesh.coords, "mesh": list(mesh.sizes), "runs": {}}
     cfg = pm_fsdp_config()
     s_max = SERVE_PROMPT + PM_FSDP_DECODE + 1
-    full = build_model(cfg)
-    shapes = (full.init(MetaGenerator()),
-              full.init_cache(SERVE_BATCH, s_max, device="meta"),
-              torch.empty((SERVE_BATCH, 1), dtype=torch.int32,
-                          device="meta"))
     logits, feed = {}, None
     for fsdp in (False, True):
         gc.collect()
@@ -5437,7 +5705,7 @@ def pm_fsdp_run(torch, mesh, kernels):
             cfg, mesh, fsdp=fsdp)
         params = model.init(pm_generator(torch, mesh.device))
         n_local = sum(t.numel() for t in _leaves(params))
-        step = jit_decode(*shapes)
+        step = pm_bound_decode(torch, cfg, jit_decode, s_max)
         with torch.no_grad():
             pm_warm(torch, prefill, step, params, cfg, s_max)
             for k in kernels.values():
@@ -5509,11 +5777,14 @@ def pm_fsdp_check(ranks, backend, card, launches):
 
 def phase_process_mesh(torch, card):
     """Phase 5c: the unsharded path of each of pm_configs() on the card
-    (its logits and greedy tokens kept on the host, its weights freed),
-    then each world of PM_WORLDS spawned from this process with the
+    (its logits, greedy tokens and routes kept on the host, its weights
+    freed), then each world of PM_WORLDS spawned from this process with the
     kernels already built, every rank on this card: world 1's logits bit
     for bit the unsharded path's, world 2's within PM_TP_TOL, every logit
-    finite, each rank's launches the planned ones; on a world's second
+    finite, each rank's launches the planned ones, a MoE model's routes
+    the unsharded path's with each one the rank would have taken in their
+    place a near tie, deepseek-v3 at its published capacity finite and
+    launched as planned (:func:`pm_capacity_check`); on a world's second
     mesh (PM_FSDP) the fsdp run's logits bit for bit its fsdp=False run's
     (:func:`pm_fsdp_check`).
     Returns the metrics and each rank's launches by path label."""
@@ -5531,9 +5802,11 @@ def phase_process_mesh(torch, card):
             f"{t['prefill_ms']:.1f} ms, decode step p50 "
             f"{t['decode_step_p50_ms']:.2f} / p99 "
             f"{t['decode_step_p99_ms']:.2f} ms, peak {t['peak_gib']:.2f} "
-            f"GiB; the parent holds "
+            f"GiB serving ({t['init_peak_gib']:.2f} drawing the weights); "
+            f"the parent holds "
             f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB after it")
-    tokens = {arch: toks for arch, (_lg, toks, _t) in ref.items()}
+    tokens = {arch: r[1] for arch, r in ref.items()}
+    routes = {arch: r[3] for arch, r in ref.items()}
     metrics = {"unsharded": {arch: r[2] for arch, r in ref.items()}}
     launches = {}
     for backend, sizes in PM_WORLDS:
@@ -5544,7 +5817,7 @@ def phase_process_mesh(torch, card):
         t0 = time.perf_counter()
         try:
             ranks = spawn_world(pm_rank, world, backend=backend, device=None,
-                                args=(sizes, tokens),
+                                args=(sizes, tokens, routes),
                                 timeout_s=PM_TIMEOUT_S)
         except RuntimeError as e:
             raise SmokeFailure(f"phase 5c {label}: {e}") from None
@@ -5568,41 +5841,90 @@ def phase_process_mesh(torch, card):
                       f"{[i for i, x in enumerate(same) if not x]}")
                 err = 0.0
             else:
-                errs = [rel_err(g, e.float()) for g, e in zip(got, exp)]
-                err = max(errs)
+                err = max(rel_err(g, e.float()) for g, e in zip(got, exp))
                 check(err <= PM_TP_TOL, f"5c {label} {arch}: logits "
                       f"{err:.4g} from the unsharded path's > {PM_TP_TOL}")
             rows = []
             for r in ranks:
                 n = r[arch]
-                check(n["finite"], f"5c {label} {arch} rank {r['coords']}: "
-                      f"a logit is not finite")
+                where = f"5c {label} {arch} rank {r['coords']}"
+                check(n["finite"], f"{where}: a logit is not finite")
                 got_l = {k: v for k, v in n["launches"].items() if v}
-                check(got_l == want, f"5c {label} {arch} rank "
-                      f"{r['coords']}: launches {got_l}, planned {want}")
+                check(got_l == want, f"{where}: launches {got_l}, planned "
+                      f"{want}")
+                rt = n["routes"]
+                check(rt["left"] == 0, f"{where}: {rt['left']} replayed "
+                      f"route calls never reached")
+                check(rt["gap"] <= PM_ROUTE_TIE, f"{where}: a route differs "
+                      f"from the unsharded path's by {rt['gap']:.4g} router "
+                      f"deviations > {PM_ROUTE_TIE}: not a near tie")
                 path = f"{arch} {backend} {sizes} rank {r['coords']['model']}"
                 launches[path] = got_l
                 rows.append({k: v for k, v in n.items() if k != "logits"}
                             | {"coords": r["coords"]})
                 log(f"    {arch} rank {r['coords']}: "
-                    f"{n['params_local']:,} parameters "
-                    f"({n['kv_heads_local']} kv heads) drawn in "
-                    f"{n['init_s']:.1f} s, peak {n['peak_gib']:.2f} GiB, "
+                    f"{n['params_local']:,} parameters (first layer's "
+                    f"cache blocks {n['cache_blocks']}) drawn in "
+                    f"{n['init_s']:.1f} s (peak {n['init_peak_gib']:.2f} "
+                    f"GiB), peak {n['peak_gib']:.2f} GiB serving, "
                     f"prefill {n['prefill_ms']:.1f} ms, decode step p50 "
                     f"{n['decode_step_p50_ms']:.2f} / p99 "
                     f"{n['decode_step_p99_ms']:.2f} ms, greedy tokens "
                     f"agreeing at {n['greedy_steps_agreeing']} of "
-                    f"{PM_DECODE} steps, launches {got_l}")
+                    f"{PM_DECODE} steps, launches {got_l}"
+                    + (f"; the unsharded path's routes replayed, the "
+                       f"rank's own top-k differing for {rt['differ']} "
+                       f"tokens, by at most {rt['gap']:.4g} router "
+                       f"deviations (limit {PM_ROUTE_TIE})"
+                       if cfg.moe is not None else ""))
             log(f"    {arch}: logits against the unsharded path's: "
                 + ("bit for bit at every call" if world == 1 else
                    f"max {err:.4g} (tolerance {PM_TP_TOL})"))
             m["models"][arch] = dict(n_layers=cfg.n_layers, ranks=rows,
-                                     logits_err=err, planned=want)
+                                     logits_err=err, planned=want,
+                                     decode_steps=PM_DECODE)
         metrics[label] = m
+        if "capacity" in ranks[0]:
+            cap_label, metrics[cap_label] = pm_capacity_check(
+                ranks, backend, sizes, card, launches)
         if "fsdp" in ranks[0]:
             fsdp_label, metrics[fsdp_label] = pm_fsdp_check(
                 ranks, backend, card, launches)
     return metrics, launches
+
+
+def pm_capacity_check(ranks, backend, sizes, card, launches):
+    """Phase 5c's deepseek-v3 at its published capacity on a model axis
+    above 1: each rank's ``capacity`` entry checked (launches as planned,
+    every logit finite) and logged; returns its label and metrics and adds
+    each rank's launches to ``launches``."""
+    cfg = pm_capacity_config()
+    label = (f"world {len(ranks)} on {backend}, mesh {sizes}, {DS_ARCH} at "
+             f"capacity_factor {cfg.moe.capacity_factor}, on one card over "
+             f"gloo, not a cross-card number")
+    want = pm_planned(cfg)
+    log(f"  {label}: {cfg.n_layers} layers, {SERVE_BATCH} x "
+        f"{pm_prompt_len(cfg)} prompts, {PM_DECODE} decode steps fed its "
+        f"own greedy tokens, drops those of the a2a block; {card}")
+    rows = []
+    for r in ranks:
+        n = r["capacity"]
+        where = f"5c {label} rank {r['coords']}"
+        check(n["finite"], f"{where}: a logit is not finite")
+        got_l = {k: v for k, v in n["launches"].items() if v}
+        check(got_l == want, f"{where}: launches {got_l}, planned {want}")
+        launches[f"{DS_ARCH} capacity {cfg.moe.capacity_factor} {backend} "
+                 f"{sizes} rank {r['coords']['model']}"] = got_l
+        rows.append(n | {"coords": r["coords"]})
+        log(f"    rank {r['coords']}: prefill {n['prefill_ms']:.1f} ms and "
+            f"decode step p50 {n['decode_step_p50_ms']:.2f} ms (first "
+            f"calls at these shapes included), peak {n['peak_gib']:.2f} "
+            f"GiB, every logit finite, launches {got_l}")
+    return label, dict(backend=backend, world=len(ranks), mesh=list(sizes),
+                       card=card, n_layers=cfg.n_layers,
+                       capacity_factor=cfg.moe.capacity_factor,
+                       prompt=pm_prompt_len(cfg), decode_steps=PM_DECODE,
+                       planned=want, ranks=rows)
 
 
 def _leaves(tree):
@@ -7515,6 +7837,8 @@ def recurrent_report(torch, kernels, errs, launches, train):
                               F32_FLOPS))
         row["device_ops_per_call"] = sum(max(1, round(n / 20))
                                          for n in m["ops"].values())
+        row["launches_paths"] = {path: n[name] for path, n in
+                                 launches.items() if n.get(name)}
         extra = ""
         if name == "wkv6":
             n_train = train["rwkv6-7b"]["wkv6"]

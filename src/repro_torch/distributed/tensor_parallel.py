@@ -40,16 +40,30 @@ softmax), so the decode kernel runs unchanged on local heads; a
 sequence-sharded decode, the flash-decode combine across ranks, is a later
 item.
 
-Over a model axis above 1 the hybrid (RG-LRU, channel-sharded), ssm
-(RWKV6, heads-sharded), MLA (deepseek-v3), audio (whisper) and vlm
-(cross layers) families are refused (:func:`check_supported`); at a model
-axis of 1 every family runs, sharded over the dp axes only, in serving
-and in training at every ZeRO stage.  Parameters are replicated over the
-dp axes, except under fsdp (training at ``zero_stage`` 3, and serving
-with ``make_serve_steps(..., fsdp=True)``, the reference's default for
-archs over 100B parameters), where ``param_layout(..., fsdp=True)`` adds
-the reference's split over the dp axes and the steps gather each layer's
-shards (:class:`FsdpGather`) before the layer runs
+Every family serves over a model axis above 1.  The hybrid family's
+RG-LRU branch runs on the rank's channels of the recurrent width
+(``wx_rec`` / ``wx_gate`` / ``conv_w`` columns and the gates' vectors,
+``wo``'s rows summed); RWKV6's time mix on the rank's heads (``wr`` /
+``wk`` / ``wv`` / ``wg`` / ``w_lora_b`` columns, ``w0``, ``u`` and
+``ln_x`` by heads, ``wo`` summed) and its channel mix on the rank's
+columns of ``d_ff`` (``wk`` columns, ``wv`` rows summed; ``wr``'s column
+block of the receptance gathered whole before it gates the sum); MLA on
+the rank's heads of ``wq_b`` / ``wkv_b`` / ``wo`` over the latents, which
+every rank computes whole (``wq_a``, ``wkv_a`` and both norms
+replicated); whisper's and the vision model's attention, cross attention
+included, as the GQA layers, whisper's non-gated FFN as ``mlp`` and its
+bare ``embed`` table by vocabulary rows.  Widths that must split are
+checked whole (:func:`check_supported`): the reference's ``"?:model"``
+keeps a width that does not divide whole on every rank, where the port
+refuses it.  Training over a model axis above 1 still refuses those five
+families (:data:`REFUSED`; ROADMAP item 12(b)'s training half).
+
+Parameters are replicated over the dp axes, except under fsdp (training
+at ``zero_stage`` 3, and serving with ``make_serve_steps(...,
+fsdp=True)``, the reference's default for archs over 100B parameters),
+where ``param_layout(..., fsdp=True)`` adds the reference's split over
+the dp axes and the steps gather each layer's shards
+(:class:`FsdpGather`) before the layer runs
 (:mod:`repro_torch.train.train_step`, :mod:`repro_torch.train.
 serve_step`).
 
@@ -69,50 +83,66 @@ from . import collectives as CL
 from .sharding import (DP, TP, Blocks, entry_axes, leaf_cache_pspec,
                        leaf_pspec, local_shape, map_with_path, shard)
 
-#: Families whose layers have no tensor-parallel form in the port yet.
+#: Families whose layers have no tensor-parallel backward yet: refused
+#: over a model axis above 1 in training, served there.
 REFUSED = {"hybrid": "the RG-LRU recurrence (channel-sharded)",
            "ssm": "the RWKV6 time mix (heads-sharded)",
+           "mla": "MLA (wq_b / wkv_b by heads)",
            "audio": "whisper's encoder-decoder",
            "vlm": "the vision model's cross layers"}
 _KV = re.compile(r"attn/w(k|v)$")
+#: Cache leaves split over ``model`` as the reference's ``cache_pspecs``
+#: splits them: the RG-LRU's channels, RWKV's heads.
+_CACHE_AS_REF = re.compile(r"(\bh|\bconv|\bwkv)$")
+_KV_CACHE = re.compile(r"\b(k|v)$")
 
 
-def check_supported(cfg: ArchConfig, n_tp: int,
-                    training: bool = False) -> None:
-    """Raise ``ValueError`` where ``cfg`` cannot run over a model axis of
-    ``n_tp`` ranks: a refused family, MLA, heads that would be cut, or
-    widths and experts that do not divide; in ``training`` also kv heads
-    that do not split whole (ranks sharing one would each hold part of
-    its gradient)."""
-    if n_tp == 1:
-        return
-    if training and cfg.n_kv_heads % n_tp:
-        raise ValueError(f"{cfg.name}: training over a model axis of {n_tp} "
-                         f"splits the {cfg.n_kv_heads} kv heads whole; they "
-                         f"do not divide")
-    why = REFUSED.get(cfg.family)
-    if why is None and cfg.mla is not None:
-        why = "MLA (wq_b / wkv_b)"
-    if why is not None:
-        raise ValueError(f"{cfg.name}: the tensor-parallel serving steps do "
-                         f"not run {why} over a model axis of {n_tp} yet "
-                         f"(ROADMAP item 12); run it at a model axis of 1")
-    hq, hkv = cfg.n_heads, cfg.n_kv_heads
-    if hq % n_tp or (hkv % n_tp and n_tp % hkv):
-        raise ValueError(f"{cfg.name}: {hq} query / {hkv} kv heads do not "
-                         f"split whole over a model axis of {n_tp}")
+def _widths(cfg: ArchConfig) -> dict:
+    """The widths a model axis must split whole, by name."""
+    if cfg.family == "ssm":
+        return {"n_heads * head_dim": cfg.n_heads * cfg.head_dim_,
+                "d_ff": cfg.d_ff}
     widths = {"d_ff": cfg.d_ff}
+    if cfg.family == "hybrid":
+        widths["hybrid.lru_width"] = cfg.hybrid.lru_width or cfg.d_model
     if cfg.moe is not None:
         mo = cfg.moe
         widths = {"d_ff_dense": mo.d_ff_dense or cfg.d_ff,
                   "n_experts": mo.n_experts}
         if mo.n_shared_experts:
             widths["shared width"] = mo.d_ff_shared * mo.n_shared_experts
-        if mo.router_impl != "a2a":
-            raise ValueError(f"{cfg.name}: experts over a model axis run "
-                             f"the a2a block; router_impl is "
-                             f"{mo.router_impl!r}")
-    for name, w in widths.items():
+    return widths
+
+
+def check_supported(cfg: ArchConfig, n_tp: int,
+                    training: bool = False) -> None:
+    """Raise ``ValueError`` where ``cfg`` cannot run over a model axis of
+    ``n_tp`` ranks: heads that would be cut, or widths and experts that do
+    not divide (:func:`_widths`; MLA's heads among the heads); in
+    ``training`` also a family of :data:`REFUSED` and kv heads that do
+    not split whole (ranks sharing one would each hold part of its
+    gradient)."""
+    if n_tp == 1:
+        return
+    why = REFUSED.get("mla" if cfg.mla is not None else cfg.family)
+    if training and why is not None:
+        raise ValueError(f"{cfg.name}: the tensor-parallel training step "
+                         f"does not run {why} over a model axis of {n_tp} "
+                         f"yet (ROADMAP item 12(b), its training half); "
+                         f"train it at a model axis of 1")
+    if training and cfg.n_kv_heads % n_tp:
+        raise ValueError(f"{cfg.name}: training over a model axis of {n_tp} "
+                         f"splits the {cfg.n_kv_heads} kv heads whole; they "
+                         f"do not divide")
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    if hq % n_tp or (hkv % n_tp and n_tp % hkv):
+        raise ValueError(f"{cfg.name}: {hq} query / {hkv} kv heads do not "
+                         f"split whole over a model axis of {n_tp}")
+    if cfg.moe is not None and cfg.moe.router_impl != "a2a":
+        raise ValueError(f"{cfg.name}: experts over a model axis run "
+                         f"the a2a block; router_impl is "
+                         f"{cfg.moe.router_impl!r}")
+    for name, w in _widths(cfg).items():
         if w % n_tp:
             raise ValueError(f"{cfg.name}: {name} {w} does not split over "
                              f"a model axis of {n_tp}")
@@ -149,18 +179,22 @@ def param_layout(params, cfg: ArchConfig, mesh, fsdp: bool = False):
 
 def cache_layout(caches, cfg: ArchConfig, mesh):
     """The block of each decode-cache leaf a rank holds: the batch over the
-    dp axes where it divides (the reference's ``cache_pspecs``); a KV
-    cache's heads as the rank's kv heads (:func:`kv_entry`) and its
-    sequence whole, where the reference shards the sequence; nothing else
-    over ``model`` (the families whose caches shard otherwise run at a
-    model axis of 1)."""
+    dp axes where it divides (the reference's ``cache_pspecs``); over
+    ``model``, the RG-LRU's ``h`` / ``conv`` by channels and RWKV's
+    ``wkv`` by heads, as the reference lays them out; a KV cache
+    (whisper's ``self_kv`` / ``cross_kv`` and a cross layer's among them)
+    by the rank's kv heads (:func:`kv_entry`) with its sequence whole,
+    where the reference shards the sequence; MLA's ``ckv`` / ``krope``,
+    which every head reads, and RWKV's ``shift_t`` / ``shift_c``, the last
+    whole input, whole on every model rank."""
     n_tp = mesh.shape[TP]
     check_supported(cfg, n_tp)
 
     def leaf(path, t):
         spec = list(leaf_cache_pspec(path, tuple(t.shape), mesh))
-        spec = [None if e == TP else e for e in spec]
-        if n_tp > 1 and re.search(r"\b(k|v)$", path) and t.dim() >= 4:
+        if not _CACHE_AS_REF.search(path):
+            spec = [None if e == TP else e for e in spec]
+        if n_tp > 1 and _KV_CACHE.search(path) and t.dim() >= 4:
             spec[-3] = kv_entry(cfg, n_tp)
         return tuple(spec)
 

@@ -37,7 +37,13 @@ tensor_parallel`), so q, k, v and the cache carry the rank's heads, the
 kernels run on them unchanged, and ``tp.psum`` adds the ranks' partial
 ``wo`` products; in training the projections' input goes through
 ``tp.copy``, which sums its gradient over the ranks.  Head counts are
-read from the weights, not the config.
+read from the weights, not the config.  Cross attention (whisper's
+decoder, the vision model's cross layers) takes the rank's heads of the
+whole context the same way.  MLA's rank holds its heads of ``wq_b``,
+``wkv_b`` and ``wo``; the latents (``wq_a``, ``wkv_a`` and both norms)
+are whole on every rank, and so is its compressed cache, which every
+head reads: prefill's flash and decode's absorbed call run on the rank's
+heads over it, and ``tp.psum`` adds the ``wo`` products.
 """
 from __future__ import annotations
 
@@ -89,7 +95,10 @@ def _project_qkv(params, cfg: ArchConfig, x, kv_x=None, tp=None):
     ranks."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
-    kv_x = x if kv_x is None else kv_x
+    if kv_x is None:
+        kv_x = x
+    elif tp is not None:
+        kv_x = tp.copy(kv_x)
     q = (x @ params["wq"]).reshape(B, S, -1, hd)
     k = (kv_x @ params["wk"]).reshape(B, kv_x.shape[1], -1, hd)
     v = (kv_x @ params["wv"]).reshape(B, kv_x.shape[1], -1, hd)
@@ -165,17 +174,19 @@ def context_lengths(cache: KVCache):
 
 
 def cross_attention_decode(params, cfg: ArchConfig, x, cache: KVCache,
-                           lengths):
+                           lengths, tp=None):
     """One-token cross-attention over a context cache that prefill filled:
     only q is projected (the reference projects the token's k and v too,
     and drops them), no RoPE, nothing is written.  ``lengths`` is
-    :func:`context_lengths` of the cache.  x (B, 1, d) → out (B, 1, d)."""
+    :func:`context_lengths` of the cache.  x (B, 1, d) → out (B, 1, d);
+    with ``tp`` the rank's heads, summed over ``model``."""
     B = x.shape[0]
-    q = (x @ params["wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim_)
+    q = (x @ params["wq"]).reshape(B, 1, -1, cfg.head_dim_)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
     out = decode_attention(q[:, 0], cache.k, cache.v, lengths)
-    return out.reshape(B, 1, -1) @ params["wo"]
+    out = out.reshape(B, 1, -1) @ params["wo"]
+    return out if tp is None else tp.psum(out)
 
 
 # ------------------------------------------------------------------ MLA block
@@ -206,12 +217,13 @@ def _mla_scale(m) -> float:
 
 
 def _mla_query(params, cfg: ArchConfig, x):
-    """x (B, S, d) → q (B, S, H, qk_nope + qk_rope), before RoPE."""
+    """x (B, S, d) → q (B, S, H, qk_nope + qk_rope), before RoPE; H is
+    ``wq_b``'s heads."""
     m = cfg.mla
     B, S, _ = x.shape
     q_a = rmsnorm(params["q_a_norm"], x @ params["wq_a"], cfg.norm_eps)
     return (q_a @ params["wq_b"]).reshape(
-        B, S, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+        B, S, -1, m.qk_nope_head_dim + m.qk_rope_head_dim)
 
 
 def _mla_latents(params, cfg: ArchConfig, x, positions):
@@ -230,8 +242,9 @@ def _mla_qkv(params, cfg: ArchConfig, x, positions):
     ckv (B, S, kv_lora_rank) and krope (B, S, qk_rope)."""
     m = cfg.mla
     B, S, _ = x.shape
-    H, nope = cfg.n_heads, m.qk_nope_head_dim
+    nope = m.qk_nope_head_dim
     q = _mla_query(params, cfg, x)
+    H = q.shape[2]
     q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
     ckv, krope = _mla_latents(params, cfg, x, positions)
     kv = (ckv @ params["wkv_b"]).reshape(B, S, H, nope + m.v_head_dim)
@@ -242,23 +255,26 @@ def _mla_qkv(params, cfg: ArchConfig, x, positions):
     return q, k, kv[..., nope:], ckv, krope
 
 
-def mla_attention(params, cfg: ArchConfig, x, *, positions=None):
+def mla_attention(params, cfg: ArchConfig, x, *, positions=None, tp=None):
     """Prefill MLA (expanded form), causal.  x (B, S, d) → (out (B, S, d),
     MLACache of this call's ckv and krope).  v is zero-padded to q's width
-    for the flash kernel and the output sliced back to ``v_head_dim``."""
+    for the flash kernel and the output sliced back to ``v_head_dim``.
+    With ``tp`` the rank's heads, summed over ``model``."""
     B, S, _ = x.shape
     m = cfg.mla
+    if tp is not None:
+        x = tp.copy(x)
     pos = positions if positions is not None \
         else torch.arange(S, device=x.device)[None, :]
     q, k, v, ckv, krope = _mla_qkv(params, cfg, x, pos)
     v = F.pad(v, (0, q.shape[-1] - m.v_head_dim))
     out = _flash(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                  causal=True, sm_scale=_mla_scale(m))[..., :m.v_head_dim]
-    out = out.transpose(1, 2).reshape(B, S, -1)
-    return out @ params["wo"], MLACache(ckv, krope)
+    out = out.transpose(1, 2).reshape(B, S, -1) @ params["wo"]
+    return (out if tp is None else tp.psum(out)), MLACache(ckv, krope)
 
 
-def mla_decode(params, cfg: ArchConfig, x, cache: MLACache, pos):
+def mla_decode(params, cfg: ArchConfig, x, cache: MLACache, pos, tp=None):
     """Matrix-absorbed MLA decode against the compressed cache.  x (B, 1,
     d); ``pos`` (B,) — the new token's index.  Per head h the score is
     ``q_nope_h · W_UK_h c_t + q_rope_h · k_rope_t``, so the query absorbs
@@ -266,14 +282,17 @@ def mla_decode(params, cfg: ArchConfig, x, cache: MLACache, pos):
     ‖ k_rope).  The new row is written with the reference's masked
     ``where`` (a new cache; a ``pos`` past the cache writes nothing), then
     every query head attends the one latent kv head through the decode
-    kernel with keys ``ckv ‖ krope``.  The reference's values are ``ckv``
+    kernel with keys ``ckv ‖ krope`` (with ``tp`` the rank's heads, whose
+    outputs ``tp.psum`` adds).  The reference's values are ``ckv``
     zero-padded by qk_rope columns; the keys serve as values here, since
     output column c depends on value column c alone and only the first
     kv_lora_rank columns, which are ``ckv`` in both, are kept.  Returns
     (out (B, 1, d), the new MLACache)."""
     m = cfg.mla
-    B, H = x.shape[0], cfg.n_heads
     nope, R = m.qk_nope_head_dim, m.kv_lora_rank
+    B, H = x.shape[0], params["wkv_b"].shape[1] // (nope + m.v_head_dim)
+    if tp is not None:
+        x = tp.copy(x)
     ckv_new, krope_new = _mla_latents(params, cfg, x, pos[:, None])
     S = cache.ckv.shape[1]
     mask = (torch.arange(S, device=x.device)[None, :]
@@ -292,4 +311,5 @@ def mla_decode(params, cfg: ArchConfig, x, cache: MLACache, pos):
     ctx = decode_attention(q_full, keys, keys, pos + 1,
                            sm_scale=_mla_scale(m))[..., :R]
     out = torch.einsum("bhr,rhv->bhv", ctx, w_kv_b[..., nope:])
-    return out.reshape(B, 1, -1) @ params["wo"], cache
+    out = out.reshape(B, 1, -1) @ params["wo"]
+    return (out if tp is None else tp.psum(out)), cache

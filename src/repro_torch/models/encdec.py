@@ -18,6 +18,17 @@ leaves, the port keeps a list, as its LM stack does.  The decode cache,
 ``s_max`` slots and one cross-attention :class:`KVCache` of the encoder's
 ``n_ctx`` positions per decoder layer; prefill projects the cross caches
 once from the encoder's output, and decode never writes them.
+
+Tensor parallelism (the process binding's ``tp``): every attention — the
+encoder's, the decoder's self and cross attention — runs on the rank's
+heads as the GQA layers do, the FFN on the rank's columns of ``d_ff``
+(``wi``'s columns, ``wo``'s rows, summed), and the caches hold the rank's
+heads.  The bare ``embed`` table, (model, None) in the reference, is the
+rank's vocabulary rows where the vocabulary divides: the lookup goes
+through ``tp.embed`` and the tied unembedding's vocabulary slice is
+gathered over ``model`` (:func:`~repro_torch.models.layers.embed` /
+``unembed`` on ``{"table": embed}``).  Where it does not divide, the table
+is whole on every rank, as the reference's rule falls back.
 """
 from __future__ import annotations
 
@@ -27,8 +38,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import attention as A
-from .layers import (embed_init, ffn_nogate, init_ffn_nogate,
-                     init_layernorm, layernorm, remat_call)
+from .layers import (embed, embed_init, ffn_nogate, init_ffn_nogate,
+                     init_layernorm, layernorm, remat_call, unembed)
 from .transformer import _block_prefill_cache
 
 #: Rows of the decoder's learned position table.
@@ -88,63 +99,70 @@ def _whole(gather, tree):
     return tree if gather is None else gather(tree)
 
 
-def _enc_block(p, cfg, x, gather=None):
+def _enc_block(p, cfg, x, gather=None, tp=None):
     p = _whole(gather, p)
     h, _ = A.attention(p["attn"], cfg, layernorm(p["ln1"], x, cfg.norm_eps),
-                       causal=False, use_rope=False)
+                       causal=False, use_rope=False, tp=tp)
     x = x + h
-    return x + ffn_nogate(p["ffn"], layernorm(p["ln2"], x, cfg.norm_eps))
+    return x + ffn_nogate(p["ffn"], layernorm(p["ln2"], x, cfg.norm_eps), tp)
 
 
-def _dec_block(p, cfg, x, enc_out):
+def _dec_block(p, cfg, x, enc_out, tp=None):
     """x (B, S, d) → (x', self-attention k/v, cross-attention k/v)."""
     h, self_kv = A.attention(p["self_attn"], cfg,
                              layernorm(p["ln1"], x, cfg.norm_eps),
-                             use_rope=False)
+                             use_rope=False, tp=tp)
     x = x + h
     h, cross_kv = A.attention(p["cross_attn"], cfg,
                               layernorm(p["ln_x"], x, cfg.norm_eps),
-                              kv_x=enc_out, use_rope=False)
+                              kv_x=enc_out, use_rope=False, tp=tp)
     x = x + h
-    x = x + ffn_nogate(p["ffn"], layernorm(p["ln2"], x, cfg.norm_eps))
+    x = x + ffn_nogate(p["ffn"], layernorm(p["ln2"], x, cfg.norm_eps), tp)
     return x, self_kv, cross_kv
 
 
-def _dec_block_out(p, cfg, x, enc_out, gather=None):
-    return _dec_block(_whole(gather, p), cfg, x, enc_out)[0]
+def _dec_block_out(p, cfg, x, enc_out, gather=None, tp=None):
+    return _dec_block(_whole(gather, p), cfg, x, enc_out, tp)[0]
 
 
 def encode(params, cfg: ArchConfig, frames, remat: str = "none",
-           gather=None):
+           gather=None, tp=None):
     """frames (B, n_ctx, d), the stubbed frame embeddings → the encoder's
     output (B, n_ctx, d); ``remat`` recomputes each block in the backward
     pass (:func:`~repro_torch.models.layers.remat_call`); ``gather``
-    (fsdp) takes each block's parameters whole inside that region.  The
-    parameters outside the layers must be whole."""
+    (fsdp) takes each block's parameters whole inside that region; ``tp``
+    the tensor-parallel path.  The parameters outside the layers must be
+    whole."""
     x = frames + params["enc_pos"][None, :frames.shape[1]]
     for p in params["enc"]:
-        x = remat_call(remat, _enc_block, p, cfg, x, gather)
+        x = remat_call(remat, _enc_block, p, cfg, x, gather, tp)
     return layernorm(params["ln_enc"], x, cfg.norm_eps)
 
 
-def _embed_tokens(params, tokens):
+def _embed_tokens(params, tokens, tp=None):
     """The tokens' embeddings plus the learned positions 0 … S − 1, the
     table tiled where S passes its rows."""
     S = tokens.shape[1]
     table = params["dec_pos"]
     if S > table.shape[0]:       # long prompts pass the learned table
         table = table.repeat(-(-S // table.shape[0]), 1)
-    return params["embed"][tokens] + table[None, :S]
+    return embed({"table": params["embed"]}, tokens, tp) + table[None, :S]
+
+
+def _logits(params, x, tp=None):
+    """``x @ embed.T``, tied to the bare table (with ``tp`` the ranks'
+    vocabulary slices gathered)."""
+    return unembed({"table": params["embed"]}, x, True, tp)
 
 
 def decode_train(params, cfg: ArchConfig, tokens, enc_out,
-                 remat: str = "none", gather=None):
+                 remat: str = "none", gather=None, tp=None):
     """Teacher-forced decoder pass → logits (B, S, vocab)."""
-    x = _embed_tokens(params, tokens)
+    x = _embed_tokens(params, tokens, tp)
     for p in params["dec"]:
-        x = remat_call(remat, _dec_block_out, p, cfg, x, enc_out, gather)
+        x = remat_call(remat, _dec_block_out, p, cfg, x, enc_out, gather, tp)
     x = layernorm(params["ln_dec"], x, cfg.norm_eps)
-    return x @ params["embed"].T
+    return _logits(params, x, tp)
 
 
 class EncDecCache(NamedTuple):
@@ -165,45 +183,47 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int,
 
 
 def prefill(params, cfg: ArchConfig, tokens, frames, s_max: int,
-            gather=None):
+            gather=None, tp=None):
     """Encode, run the decoder over the prompt, and keep its caches: each
     layer's self-attention k/v zero-padded to ``s_max`` slots and its
     cross-attention k/v of the encoder's output.  → (last logits (B,
     vocab), :class:`EncDecCache`).  The reference projects both caches
     again from the block inputs; the port keeps the attention's own (the
     same values).  ``gather`` (fsdp) takes each layer's parameters whole
-    as it runs."""
-    enc_out = encode(params, cfg, frames, gather=gather)
-    x = _embed_tokens(params, tokens)
+    as it runs; ``tp`` the tensor-parallel path."""
+    enc_out = encode(params, cfg, frames, gather=gather, tp=tp)
+    x = _embed_tokens(params, tokens, tp)
     self_kv, cross_kv = [], []
     for p in params["dec"]:
-        x, skv, ckv = _dec_block(_whole(gather, p), cfg, x, enc_out)
+        x, skv, ckv = _dec_block(_whole(gather, p), cfg, x, enc_out, tp)
         self_kv.append(_block_prefill_cache(skv, s_max, ring=False))
         cross_kv.append(A.KVCache(*(t.contiguous() for t in ckv)))
     x = layernorm(params["ln_dec"], x[:, -1], cfg.norm_eps)
-    return x @ params["embed"].T, EncDecCache(self_kv, cross_kv)
+    return _logits(params, x, tp), EncDecCache(self_kv, cross_kv)
 
 
 def decode_step(params, cfg: ArchConfig, token, cache: EncDecCache, pos,
-                gather=None):
+                gather=None, tp=None):
     """token (B, 1), pos (B,) → (logits (B, vocab), cache): the
     self-attention caches are written in place at ``pos``, the cross
-    caches read as they are; ``gather`` (fsdp) as :func:`prefill`'s."""
+    caches read as they are; ``gather`` (fsdp) and ``tp`` as
+    :func:`prefill`'s."""
     table = params["dec_pos"]
-    x = params["embed"][token] + table[pos.long() % table.shape[0]][:, None]
+    x = embed({"table": params["embed"]}, token, tp) \
+        + table[pos.long() % table.shape[0]][:, None]
     ctx_lengths = A.context_lengths(cache.cross_kv[0])
     for p, skv, ckv in zip(params["dec"], cache.self_kv, cache.cross_kv):
         p = _whole(gather, p)
         h, _ = A.attention_decode(p["self_attn"], cfg,
                                   layernorm(p["ln1"], x, cfg.norm_eps), skv,
-                                  pos, use_rope=False)
+                                  pos, use_rope=False, tp=tp)
         x = x + h
         x = x + A.cross_attention_decode(
             p["cross_attn"], cfg, layernorm(p["ln_x"], x, cfg.norm_eps), ckv,
-            ctx_lengths)
-        x = x + ffn_nogate(p["ffn"], layernorm(p["ln2"], x, cfg.norm_eps))
+            ctx_lengths, tp)
+        x = x + ffn_nogate(p["ffn"], layernorm(p["ln2"], x, cfg.norm_eps), tp)
     x = layernorm(params["ln_dec"], x[:, 0], cfg.norm_eps)
-    return x @ params["embed"].T, cache
+    return _logits(params, x, tp), cache
 
 
 __all__ = ["DEC_POSITIONS", "EncDecCache", "decode_step", "decode_train",

@@ -120,10 +120,13 @@ def init_ffn_nogate(gen, d, d_ff, dtype):
             "wo": dense_init(gen, d_ff, d, dtype)}
 
 
-def ffn_nogate(params, x):
+def ffn_nogate(params, x, tp=None):
     """gelu(x W_i) W_o with the tanh-approximate GeLU, as the reference's
-    ``jax.nn.gelu(approximate=True)``."""
-    return F.gelu(x @ params["wi"], approximate="tanh") @ params["wo"]
+    ``jax.nn.gelu(approximate=True)``; with ``tp`` as :func:`mlp`."""
+    if tp is not None:
+        x = tp.copy(x)
+    out = F.gelu(x @ params["wi"], approximate="tanh") @ params["wo"]
+    return out if tp is None else tp.psum(out)
 
 
 # --------------------------------------------------------------- embeddings

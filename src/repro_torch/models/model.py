@@ -77,8 +77,9 @@ def build_model(cfg: ArchConfig, *, remat: str = "block",
     :func:`repro_torch.distributed.moe_ep.make_moe_fn`; the LM family
     only, as in the reference); ``tp``: the process binding's
     tensor-parallel path
-    (:class:`~repro_torch.distributed.tensor_parallel.TensorParallel`; the
-    dense and GQA MoE layers' prefill, decode and training); ``gather``:
+    (:class:`~repro_torch.distributed.tensor_parallel.TensorParallel`;
+    every family's prefill and decode, and the dense and GQA MoE layers'
+    training); ``gather``:
     fsdp's per-layer gather on the process binding (``gather(tree)`` →
     the tree with its dp-sharded leaves whole; every family applies it
     to each layer's parameters as the layer runs — in training inside the
@@ -88,9 +89,9 @@ def build_model(cfg: ArchConfig, *, remat: str = "block",
     (the process binding's), ``train_loss`` takes the blocks'
     load-balance loss through it: the mean over the world."""
     if cfg.family == "audio":
-        return _build_encdec(cfg, remat, gather)
+        return _build_encdec(cfg, remat, gather, tp)
     if cfg.family == "ssm":
-        return _build_rwkv(cfg, remat, gather)
+        return _build_rwkv(cfg, remat, gather, tp)
     return _build_lm(cfg, remat, xent_chunks, moe_fn, tp, gather)
 
 
@@ -329,7 +330,8 @@ def _build_lm(cfg: ArchConfig, remat: str, xent_chunks: int,
 
 
 # ------------------------------------------------------------------- whisper
-def _build_encdec(cfg: ArchConfig, remat: str, gather=None) -> Model:
+def _build_encdec(cfg: ArchConfig, remat: str, gather=None,
+                  tp=None) -> Model:
     def init(generator: torch.Generator, experts=None, keep=None):
         """Random weights, drawn from ``generator`` on its device;
         ``keep`` as the LM family's (:func:`encdec.init_encdec`), and
@@ -339,9 +341,9 @@ def _build_encdec(cfg: ArchConfig, remat: str, gather=None) -> Model:
     def logits(params, batch):
         params = _outside(params, gather, ("enc", "dec"))
         enc_out = E.encode(params, cfg, _context(params, batch), remat,
-                           gather)
+                           gather, tp)
         return E.decode_train(params, cfg, _tokens(params, batch), enc_out,
-                              remat, gather)
+                              remat, gather, tp)
 
     def train_loss(params, batch):
         _tokens_all, inputs, labels = _split_tokens(params, batch)
@@ -357,14 +359,14 @@ def _build_encdec(cfg: ArchConfig, remat: str, gather=None) -> Model:
         params = _outside(params, gather, ("enc", "dec"))
         tokens = _tokens(params, batch)
         lg, cache = E.prefill(params, cfg, tokens, _context(params, batch),
-                              s_max, gather)
+                              s_max, gather, tp)
         return lg, cache, _last_pos(tokens)
 
     def decode_step(params, token, cache, pos, batch=None):
         params = _outside(params, gather, ("enc", "dec"))
         return E.decode_step(params, cfg,
                              _tokens(params, {"tokens": token}), cache, pos,
-                             gather)
+                             gather, tp)
 
     def input_specs(shape: ShapeConfig):
         return _input_specs(cfg, shape, init_cache)
@@ -374,7 +376,8 @@ def _build_encdec(cfg: ArchConfig, remat: str, gather=None) -> Model:
 
 
 # --------------------------------------------------------------------- rwkv6
-def _build_rwkv(cfg: ArchConfig, remat: str, gather=None) -> Model:
+def _build_rwkv(cfg: ArchConfig, remat: str, gather=None,
+                tp=None) -> Model:
     def init(generator: torch.Generator, experts=None, keep=None):
         """Random weights, drawn from ``generator`` on its device: an untied
         embedding and head, ``ln0`` before the first block.  ``keep`` as
@@ -391,18 +394,19 @@ def _build_rwkv(cfg: ArchConfig, remat: str, gather=None) -> Model:
         return p
 
     def _embed_in(params, tokens):
-        return layernorm(params["ln0"], embed(params["embed"], tokens),
+        return layernorm(params["ln0"], embed(params["embed"], tokens, tp),
                          cfg.norm_eps)
 
     def _hidden(params, tokens, states=None):
         return W.apply_rwkv_stack(params["layers"], cfg,
-                                  _embed_in(params, tokens), states, gather)
+                                  _embed_in(params, tokens), states, gather,
+                                  tp)
 
     def _logits(params, tokens):
         x = W.apply_rwkv_train(params["layers"], cfg,
-                               _embed_in(params, tokens), remat, gather)
+                               _embed_in(params, tokens), remat, gather, tp)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return unembed(params["embed"], x, False)
+        return unembed(params["embed"], x, False, tp)
 
     def logits(params, batch):
         params = _outside(params, gather)
@@ -422,7 +426,7 @@ def _build_rwkv(cfg: ArchConfig, remat: str, gather=None) -> Model:
         tokens = _tokens(params, batch)
         x, states = _hidden(params, tokens)
         x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-        return unembed(params["embed"], x, False)[:, 0], states, \
+        return unembed(params["embed"], x, False, tp)[:, 0], states, \
             _last_pos(tokens)
 
     def decode_step(params, token, states, pos, batch=None):
@@ -430,7 +434,7 @@ def _build_rwkv(cfg: ArchConfig, remat: str, gather=None) -> Model:
         x, states = _hidden(params, _tokens(params, {"tokens": token}),
                             states)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return unembed(params["embed"], x, False)[:, 0], states
+        return unembed(params["embed"], x, False, tp)[:, 0], states
 
     def input_specs(shape: ShapeConfig):
         return _input_specs(cfg, shape, init_cache)

@@ -19,6 +19,13 @@ out in float32.  The reference's
 casts are kept: the gates multiply in the model dtype before their float32
 cast, the scan's inputs are cast to the model dtype in prefill, and decode
 keeps ``log_a`` in float32.
+
+Tensor parallelism (the process binding's ``tp``): a rank holds its
+channels of the recurrent width W — ``wx_rec`` / ``wx_gate`` / ``conv_w``
+columns, the gates' and conv's vectors, ``wo``'s rows — so the conv, the
+gates and the scan run on W / P channels, the state is the rank's
+channels, and ``tp.psum`` adds the ranks' partial ``wo`` products; the
+input enters through ``tp.copy``.
 """
 from __future__ import annotations
 
@@ -94,18 +101,26 @@ def _gates(params, xr):
     return log_a, i
 
 
-def rglru_block(params, x):
-    """Full-sequence forward.  x (B, S, d) → (y (B, S, d), RecState)."""
+def rglru_block(params, x, tp=None):
+    """Full-sequence forward.  x (B, S, d) → (y (B, S, d), RecState); with
+    ``tp`` the rank's channels, summed over ``model``."""
+    if tp is not None:
+        x = tp.copy(x)
     xg = F.gelu(x @ params["wx_gate"], approximate="tanh")
     xr, conv_hist = _causal_conv(params, x @ params["wx_rec"])
     log_a, i_gate = _gates(params, xr)
     gated_in = (i_gate * xr.float()).to(x.dtype)
     y, h_fin = RGLRUScan.apply(gated_in, log_a.to(x.dtype))
-    return (y * xg) @ params["wo"], RecState(h=h_fin, conv=conv_hist)
+    out = (y * xg) @ params["wo"]
+    return (out if tp is None else tp.psum(out)), \
+        RecState(h=h_fin, conv=conv_hist)
 
 
-def rglru_block_decode(params, x, state: RecState):
-    """One-token decode.  x (B, 1, d) → (y (B, 1, d), new RecState)."""
+def rglru_block_decode(params, x, state: RecState, tp=None):
+    """One-token decode.  x (B, 1, d) → (y (B, 1, d), new RecState); with
+    ``tp`` as :func:`rglru_block`."""
+    if tp is not None:
+        x = tp.copy(x)
     xg = F.gelu(x @ params["wx_gate"], approximate="tanh")
     xr, conv_hist = _causal_conv(params, x @ params["wx_rec"],
                                  history=state.conv)
@@ -114,5 +129,5 @@ def rglru_block_decode(params, x, state: RecState):
     a = torch.exp(la)
     gate = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * la), min=0.0))
     h = a * state.h + gate * (i_gate[:, 0] * xr[:, 0].float())
-    y = (h.to(x.dtype) * xg[:, 0])[:, None]
-    return y @ params["wo"], RecState(h=h, conv=conv_hist)
+    y = (h.to(x.dtype) * xg[:, 0])[:, None] @ params["wo"]
+    return (y if tp is None else tp.psum(y)), RecState(h=h, conv=conv_hist)

@@ -22,6 +22,17 @@ they are (never rounded to r's dtype), the WKV through
 and its hand-written backward on the card), y cast to r's dtype after it.
 Decode is the one-token recurrence written out in float32 from the carried
 state.
+
+Tensor parallelism (the process binding's ``tp``): the time mix runs on
+the rank's heads — ``wr`` / ``wk`` / ``wv`` / ``wg`` / ``w_lora_b``
+columns, ``w0``, ``u`` and ``ln_x`` of those heads, the WKV and its
+state on them — and ``tp.psum`` adds the ranks' partial ``wo``
+products; the channel mix on the rank's columns of ``d_ff`` (``wk``'s
+columns, ``wv``'s rows, summed) with the receptance, whose ``wr`` the
+rank holds a column block of, gathered whole over ``model`` before it
+gates the sum.  The mixing vectors ``mu`` and ``w_lora_a`` are whole, and
+so is every input (``tp.copy``) and the shift states.  Head counts are
+read from the weights (``u``), not the config.
 """
 from __future__ import annotations
 
@@ -116,14 +127,18 @@ def _wkv6_step(r, k, v, w, u, s):
     return y.to(r.dtype), s
 
 
-def time_mix(params, x, cfg: ArchConfig, state=None, train=False):
+def time_mix(params, x, cfg: ArchConfig, state=None, train=False,
+             tp=None):
     """x (B, S, d) → (out (B, S, d), wkv state (B, H, D, D), x[:, -1]).
     Without ``state`` the WKV starts from zero: in the serving form
     (prefill) through the kernel at r's dtype, with ``train`` in the
     training form (float32, :class:`WKV6Train`); with ``state`` (decode, S
-    = 1) one step runs from ``state``."""
+    = 1) one step runs from ``state``.  With ``tp`` H is the rank's heads
+    and the output is summed over ``model``."""
     B, S, d = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim_
+    H, hd = params["u"].shape
+    if tp is not None:
+        x = tp.copy(x)
     prev = state.shift_t if state is not None else x.new_zeros((B, d))
     xs = _token_shift(x, prev)
     mu = params["mu"]
@@ -148,13 +163,16 @@ def time_mix(params, x, cfg: ArchConfig, state=None, train=False):
                               params["u"], state.wkv)
         y = y[:, None]
     y = _groupnorm_heads(params["ln_x"], y.reshape(B, S, H * hd), H, hd)
-    y = y * F.silu(g)
-    return y @ params["wo"], s_fin, x[:, -1]
+    out = (y * F.silu(g)) @ params["wo"]
+    return (out if tp is None else tp.psum(out)), s_fin, x[:, -1]
 
 
-def channel_mix(params, x, state=None):
-    """x (B, S, d) → (out (B, S, d), x[:, -1])."""
+def channel_mix(params, x, state=None, tp=None):
+    """x (B, S, d) → (out (B, S, d), x[:, -1]); with ``tp`` the rank's
+    columns of ``d_ff`` summed, gated by the receptance gathered whole."""
     B, S, d = x.shape
+    if tp is not None:
+        x = tp.copy(x)
     prev = state.shift_c if state is not None else x.new_zeros((B, d))
     xs = _token_shift(x, prev)
     mu = params["mu"]
@@ -162,7 +180,10 @@ def channel_mix(params, x, state=None):
     xr = x + (xs - x) * mu[1]
     k = torch.square(torch.relu(xk @ params["wk"]))
     r = torch.sigmoid(xr @ params["wr"])
-    return r * (k @ params["wv"]), x[:, -1]
+    kv = k @ params["wv"]
+    if tp is not None:
+        r, kv = tp.gather(r, -1), tp.psum(kv)
+    return r * kv, x[:, -1]
 
 
 # ------------------------------------------------------------------ the stack
@@ -187,46 +208,49 @@ def init_rwkv_caches(cfg: ArchConfig, batch: int, device) -> List[RWKVState]:
 
 
 def apply_rwkv_block(p, cfg: ArchConfig, x, state=None, train=False,
-                     gather=None):
+                     gather=None, tp=None):
     """One block over x (B, S, d): prefill from zero state (``state`` None;
     ``train``: the WKV's training form) or one decode step.  Returns (x',
     RWKVState); the shift states are the *normalised* sublayer inputs' last
     tokens.  ``gather`` (fsdp) takes the block's parameters — the time mix
-    and the channel mix — whole first."""
+    and the channel mix — whole first; ``tp`` runs both tensor-parallel."""
     if gather is not None:
         p = gather(p)
     h, s_fin, sh_t = time_mix(p["time"], layernorm(p["ln1"], x, cfg.norm_eps),
-                              cfg, state, train)
+                              cfg, state, train, tp)
     x = x + h
     h, sh_c = channel_mix(p["chan"], layernorm(p["ln2"], x, cfg.norm_eps),
-                          state)
+                          state, tp)
     return x + h, RWKVState(wkv=s_fin, shift_t=sh_t, shift_c=sh_c)
 
 
-def apply_rwkv_stack(layers, cfg: ArchConfig, x, states=None, gather=None):
+def apply_rwkv_stack(layers, cfg: ArchConfig, x, states=None, gather=None,
+                     tp=None):
     """x (B, S, d), already through ``ln0`` → (hidden, per-layer states):
     prefill without ``states``, a decode step with them; ``gather`` (fsdp)
-    takes each block's parameters whole as it runs."""
+    takes each block's parameters whole as it runs; ``tp`` the
+    tensor-parallel path."""
     new = []
     for i, p in enumerate(layers):
         x, st = apply_rwkv_block(p, cfg, x,
                                  None if states is None else states[i],
-                                 gather=gather)
+                                 gather=gather, tp=tp)
         new.append(st)
     return x, new
 
 
-def _train_block(p, cfg: ArchConfig, x, gather=None):
-    return apply_rwkv_block(p, cfg, x, train=True, gather=gather)[0]
+def _train_block(p, cfg: ArchConfig, x, gather=None, tp=None):
+    return apply_rwkv_block(p, cfg, x, train=True, gather=gather, tp=tp)[0]
 
 
 def apply_rwkv_train(layers, cfg: ArchConfig, x, remat: str = "block",
-                     gather=None):
+                     gather=None, tp=None):
     """x (B, S, d), already through ``ln0`` → the final hidden states, each
     block recomputed in the backward pass under ``remat`` ``"block"`` or
     ``"full"`` (the reference's ``apply_rwkv_train``); ``gather`` (fsdp)
     runs inside each block's ``remat`` region, so the block's gathered
-    weights are freed after it and gathered again for its backward."""
+    weights are freed after it and gathered again for its backward; ``tp``
+    the tensor-parallel path."""
     for p in layers:
-        x = remat_call(remat, _train_block, p, cfg, x, gather)
+        x = remat_call(remat, _train_block, p, cfg, x, gather, tp)
     return x

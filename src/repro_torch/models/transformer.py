@@ -171,20 +171,21 @@ def _gate(params, name, x, out):
 def _block(params, cfg: ArchConfig, kind: str, x, positions, context,
            moe_fn=None, tp=None):
     """x (B, S, d) → (x', the mixer's cache, the FFN's aux loss or None);
-    ``tp`` (the process binding's tensor-parallel path) reaches the GQA
-    attention and the dense FFN, the kinds it runs."""
+    ``tp`` (the process binding's tensor-parallel path) reaches every
+    mixer and the dense FFN.  A cross layer's gates scale the summed
+    output, so they stay whole."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "rec":
-        out, cache = R.rglru_block(params["temporal"], h)
+        out, cache = R.rglru_block(params["temporal"], h, tp)
     elif _is_mla(kind):
         out, cache = A.mla_attention(params["attn"], cfg, h,
-                                     positions=positions)
+                                     positions=positions, tp=tp)
     elif kind == "cross":
         if context is None:
             raise ValueError(f"{cfg.name}: a cross-attention layer needs "
                              f"the batch's context")
         out, cache = A.attention(params["attn"], cfg, h, kv_x=context,
-                                 use_rope=False)
+                                 use_rope=False, tp=tp)
         out = _gate(params, "gate_attn", x, out)
     else:
         out, cache = A.attention(params["attn"], cfg, h, positions=positions,
@@ -252,12 +253,12 @@ def apply_block_decode(params, cfg: ArchConfig, kind: str, x, cache, pos,
     it is."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "rec":
-        out, cache = R.rglru_block_decode(params["temporal"], h, cache)
+        out, cache = R.rglru_block_decode(params["temporal"], h, cache, tp)
     elif _is_mla(kind):
-        out, cache = A.mla_decode(params["attn"], cfg, h, cache, pos)
+        out, cache = A.mla_decode(params["attn"], cfg, h, cache, pos, tp)
     elif kind == "cross":
         out = A.cross_attention_decode(params["attn"], cfg, h, cache,
-                                       ctx_lengths)
+                                       ctx_lengths, tp)
         out = _gate(params, "gate_attn", x, out)
     else:
         out, cache = A.attention_decode(params["attn"], cfg, h, cache, pos,

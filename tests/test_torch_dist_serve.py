@@ -11,25 +11,37 @@ parameters (carried over from the reference's with ``params_from_jax`` and
 cut by the binding's layout): a prefill of the global batch of 2, then 4
 greedy decode steps on its own rows.  Held here:
 
-* the qwen3-8b and llama4-maverick smoke configs in float32 (llama4 with
-  its 4 experts over model 2 and 4, at a capacity that drops nothing):
-  each rank's logits (whole vocabulary, gathered over ``model``) against
-  its rows of the reference's unsharded prefill and 4 decode steps within
-  ``atol = rtol = 2e-5`` (the reference's own a2a tolerance in
-  ``tests/test_distributed.py``), its greedy tokens equal, and each rank's
-  cache leaf within 1e-5 of its block of the reference's cache (the
-  rank's kv heads of its rows; row-parallel sums reorder float32 adds),
-  which is also the shape of the rank's ``model.init_cache`` block;
+* the smoke configs of every family that serves over ``model`` in
+  float32: qwen3-8b, llama4-maverick (its 4 experts over model 2 and 4),
+  recurrentgemma-2b (the RG-LRU by channels, its one kv head whole on
+  every rank), rwkv6-7b (the time mix by heads, the channel mix by
+  columns), deepseek-v3 (MLA by heads over whole latents, 8 experts),
+  whisper-large-v3 (encoder, decoder and cross attention by heads, the
+  bare table by vocabulary rows where they divide, whole on (1, 4)) and
+  llama-3.2-vision (the cross layers' heads over the whole context,
+  gates seeded away from the init's zero, which would make a cross layer
+  the identity), the MoE ones at a
+  capacity that drops nothing, the vlm's and whisper's with a seeded
+  context: each rank's logits (whole vocabulary, gathered over
+  ``model``) against its rows of the reference's unsharded prefill and 4
+  decode steps within ``atol = rtol = 2e-5`` (the reference's own a2a
+  tolerance in ``tests/test_distributed.py``), its greedy tokens equal,
+  and each cache leaf of the rank within 1e-5 of its block of the
+  reference's cache by ``cache_layout`` (row-parallel sums reorder
+  float32 adds), which is also the shape of the rank's
+  ``model.init_cache`` block;
 * the expert-parallel block alone — each rank's ``make_moe_fn`` on its
   experts, the all_to_alls between processes — against the reference's
-  ``moe_block_local`` at that capacity, 2e-5;
+  ``moe_block_local`` at that capacity, 2e-5, for llama4 and deepseek-v3;
 * a world of 1 bitwise equal to the port's unsharded path (logits, tokens
   and every cache leaf);
-* the refusal of a family without a tensor-parallel form (recurrentgemma)
-  at a model axis of 2;
+* the training step's refusal, at a model axis above 1, of a family that
+  serves there but has no tensor-parallel backward yet (recurrentgemma;
+  ROADMAP item 12(b)'s training half);
 * fsdp in the serving steps on (2, 1), (2, 2) and (2, 1, 1): the smoke
   config of every arch that runs on the mesh (all ten at a model axis of
-  1, qwen3 and llama4 at 2; float32, ``FSDP_MIN_ELEMENTS`` lowered to 1),
+  1, the seven of ``TP_ARCHS`` at 2; float32, ``FSDP_MIN_ELEMENTS``
+  lowered to 1),
   its prefill and 4 decode steps' logits with ``fsdp=True`` bit for bit
   those of ``fsdp=False``, each rank holding about half the elements,
   its fsdp blocks its block of the same seed's whole init, and
@@ -58,20 +70,26 @@ from repro_torch.configs import (ARCH_IDS, MoEConfig,  # noqa: E402
 from repro_torch.distributed import sharding as SH  # noqa: E402
 from repro_torch.distributed import tensor_parallel as TPL  # noqa: E402
 from repro_torch.launch.mesh import StackedMesh  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.transformer import layer_stacks  # noqa: E402
 from repro_torch.train.serve_step import default_fsdp  # noqa: E402
+from repro_torch.tree import flatten, leaves, tree_map  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(atol=2e-5, rtol=2e-5)
 CACHE_TOL = dict(atol=1e-5, rtol=1e-5)
-ARCHS = {"qwen3": "qwen3-8b", "llama4": "llama4-maverick-400b-a17b"}
+ARCHS = {"qwen3": "qwen3-8b", "llama4": "llama4-maverick-400b-a17b",
+         "recurrentgemma": "recurrentgemma-2b", "rwkv6": "rwkv6-7b",
+         "deepseek": "deepseek-v3-671b", "whisper": "whisper-large-v3",
+         "vision": "llama-3.2-vision-11b"}
+MOE = ["llama4", "deepseek"]
 MESHES = [(1, 2), (2, 2), (1, 4)]
 #: The worlds, each the meshes it holds, built one after the other.
 WORLDS = [[(1, 1)], [(1, 2), (2, 1), (2, 1, 1)], [(2, 2), (1, 4)]]
 FSDP_MESHES = [(2, 1), (2, 2), (2, 1, 1)]
-#: The archs serving on a model axis above 1 (the others are refused).
-TP_ARCHS = ("qwen3-8b", "llama4-maverick-400b-a17b")
+#: The archs of ``ARCHS``, served here on a model axis above 1.
+TP_ARCHS = tuple(ARCHS.values())
 FSDP_CASES = [(sizes, arch) for sizes in FSDP_MESHES for arch in ARCH_IDS
               if sizes[-1] == 1 or arch in TP_ARCHS]
 B, S, S_MAX, N_DECODE = 2, 8, 16, 4
@@ -81,24 +99,45 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+#: whisper's vocabulary here: like its published 51,866 it splits over a
+#: model axis of 2 and not of 4, so (1, 4) serves the bare table whole.
+WHISPER_VOCAB = 258
+
+
 def _configs(arch):
-    """float32 smoke configs; the MoE one at a capacity with no drops."""
+    """float32 smoke configs; the MoE one at a capacity with no drops,
+    whisper's at WHISPER_VOCAB."""
     jcfg = jax_smoke(arch).replace(dtype="float32")
+    if arch == "whisper-large-v3":
+        jcfg = jcfg.replace(vocab=WHISPER_VOCAB)
     if jcfg.moe is not None:
         jcfg = jcfg.replace(moe=dataclasses.replace(
             jcfg.moe, capacity_factor=float(jcfg.moe.n_experts)))
-    cfg = get_smoke_config(arch).replace(dtype="float32")
+    cfg = get_smoke_config(arch).replace(dtype="float32", vocab=jcfg.vocab)
     if cfg.moe is not None:
         cfg = cfg.replace(moe=MoEConfig(**dataclasses.asdict(jcfg.moe)))
     return jcfg, cfg
 
 
-def _reference(jcfg, jparams, tokens):
+def _seeded_gates(np_params, rng):
+    """The vlm's cross layers' ``gate_attn`` / ``gate_ffn`` drawn from
+    ±[0.3, 1.2] in the numpy tree (at the init's zero a cross layer is the
+    identity and its heads would go unchecked)."""
+    for block in np_params["stack"].super:
+        for name in ("gate_attn", "gate_ffn"):
+            if name in block:
+                g = rng.uniform(0.3, 1.2, block[name].shape)
+                sign = rng.choice([-1.0, 1.0], block[name].shape)
+                block[name] = (g * sign).astype(np.float32)
+    return np_params
+
+
+def _reference(jcfg, jparams, batch):
     """The reference's prefill and greedy decode steps: logits, tokens and
     the final cache."""
     jm = jax_build(jcfg)
     lg, cache, pos = jax.jit(jm.prefill, static_argnums=2)(
-        jparams, {"tokens": jnp.asarray(tokens)}, S_MAX)
+        jparams, jax.tree.map(jnp.asarray, batch), S_MAX)
     logits, toks = [np.asarray(lg)], []
     tok = jnp.argmax(lg, -1).astype(jnp.int32)[:, None]
     dec = jax.jit(jm.decode_step)
@@ -118,12 +157,22 @@ def worlds(tmp_path_factory):
     models, refs = {}, {}
     for name, arch in ARCHS.items():
         jcfg, cfg = _configs(arch)
-        jparams = jax_build(jcfg).init(jax.random.PRNGKey(3))
+        np_params = _np(jax_build(jcfg).init(jax.random.PRNGKey(3)))
+        if cfg.family == "vlm":
+            np_params = _seeded_gates(np_params, rng)
+        jparams = jax.tree.map(jnp.asarray, np_params)
         tokens = rng.integers(1, cfg.vocab, (B, S)).astype(np.int32)
-        m = dict(cfg=cfg, params=params_from_jax(_np(jparams), device="cpu"),
-                 tokens=tokens, s_max=S_MAX)
+        batch = {}
+        if cfg.family in ("vlm", "audio"):
+            batch["context"] = rng.standard_normal(
+                (B, cfg.cross.n_context_tokens, cfg.d_model)).astype(
+                    np.float32)
+        m = dict(cfg=cfg, params=params_from_jax(np_params, device="cpu"),
+                 tokens=tokens, s_max=S_MAX,
+                 batch={k: torch.from_numpy(v) for k, v in batch.items()})
         refs[name] = dict(jcfg=jcfg, jparams=jparams, cfg=cfg,
-                          serve=_reference(jcfg, jparams, tokens))
+                          serve=_reference(jcfg, jparams,
+                                           {"tokens": tokens, **batch}))
         if cfg.moe is not None:
             x = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
             m.update(moe_x=torch.from_numpy(x), moe_layer=1)
@@ -141,7 +190,8 @@ def worlds(tmp_path_factory):
         fsdp_models[arch] = m
     job = dict(models=models, n_decode=N_DECODE, timeout_s=240,
                worlds=WORLDS, serve_meshes=[(1, 1)] + MESHES,
-               fsdp_meshes=FSDP_MESHES, fsdp_models=fsdp_models)
+               fsdp_meshes=FSDP_MESHES, fsdp_models=fsdp_models,
+               fsdp_cases=[[*sizes, arch] for sizes, arch in FSDP_CASES])
     torch.save(job, tmp / "in.pt")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -180,40 +230,81 @@ def test_gathered_logits_and_tokens_match_the_reference(worlds, name, sizes):
                                           err_msg=f"{r['coords']} token {i}")
 
 
+def _reference_cache(cfg, jcache):
+    """The reference's final cache as ``{port path: tensor}``: the LM
+    family's prefix layers, then superblock i's positions in order, then
+    its suffix (the port's layer order); rwkv6's stacked states and
+    whisper's stacked self / cross caches unstacked by layer."""
+    jc = _np(jcache)
+
+    def layer_leaves(i, c):
+        return {f"{i}/{f}": getattr(c, f) for f in c._fields}
+
+    out = {}
+    if cfg.family == "audio":
+        layers = []
+        out = {f"{name}/{i}/{f}": getattr(getattr(jc, name), f)[i]
+               for name in ("self_kv", "cross_kv")
+               for i in range(cfg.n_layers) for f in ("k", "v")}
+    elif cfg.family == "ssm":
+        layers = [jax.tree.map(lambda a, i=i: a[i], jc)
+                  for i in range(cfg.n_layers)]
+    else:
+        n = len(jax.tree.leaves(jc.super[0])[0]) if jc.super else 0
+        per_pos = [[jax.tree.map(lambda a, i=i: a[i], pos) for i in range(n)]
+                   for pos in jc.super]
+        layers = list(jc.prefix) + [c for group in zip(*per_pos)
+                                    for c in group] + list(jc.suffix)
+    assert len(layers) == (0 if out else cfg.n_layers)
+    for i, c in enumerate(layers):
+        out.update(layer_leaves(i, c))
+    return {p: torch.from_numpy(np.array(a)) for p, a in out.items()}
+
+
 @pytest.mark.parametrize("sizes", MESHES)
 @pytest.mark.parametrize("name", list(ARCHS))
 def test_each_ranks_cache_is_its_block_of_the_reference_cache(worlds, name,
                                                               sizes):
-    """Port layer i is the reference's superblock position p's entry n,
-    where ``layer_stacks`` puts i; each rank holds its kv heads of its
-    rows (``cache_layout``)."""
+    """Every cache leaf, the reference's in the port's layer order: each
+    rank holds its block by ``cache_layout`` — its rows; a KV cache's kv
+    heads (whisper's self and cross caches, the vlm's cross caches among
+    them), the RG-LRU's channels, RWKV's heads of ``wkv``; MLA's latents
+    and RWKV's shift states whole."""
     results, refs = worlds
     cfg = refs[name]["cfg"]
-    jcache = refs[name]["serve"][2]
-    where = {i: (p, n) for p, stack in enumerate(layer_stacks(cfg))
-             for n, i in enumerate(stack)}
+    want_full = _reference_cache(cfg, refs[name]["serve"][2])
     mesh = StackedMesh(sizes, ("data", "model"))
+    shapes = build_model(cfg).init_cache(B, S_MAX, device="meta")
+    layout = dict(zip((p for p, _ in flatten(shapes)), _specs(
+        TPL.cache_layout(shapes, cfg, mesh), shapes)))
     for r in results[sizes]:
-        for layer in range(cfg.n_layers):
-            p, n = where[layer]
-            for leaf in ("k", "v"):
-                full = torch.from_numpy(
-                    getattr(jcache.super[p], leaf)[n].copy())
-                spec = TPL.cache_layout({"k": full}, cfg, mesh)["k"]
-                want = SH.shard(full, spec, mesh, r["coords"])
-                got = r[name]["cache"][f"{layer}/{leaf}"]
-                assert got.shape == want.shape
-                assert r[name]["init_cache"][f"{layer}/{leaf}"] == \
-                    tuple(want.shape), "init_cache's block"
-                np.testing.assert_allclose(got.numpy(), want.numpy(),
-                                           **CACHE_TOL,
-                                           err_msg=f"{layer}/{leaf}")
+        got_all = r[name]["cache"]
+        assert sorted(got_all) == sorted(want_full) == sorted(layout)
+        for path, full in want_full.items():
+            want = SH.shard(full, layout[path], mesh, r["coords"])
+            got = got_all[path]
+            assert got.shape == want.shape, path
+            assert r[name]["init_cache"][path] == tuple(want.shape), \
+                f"init_cache's block {path}"
+            np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                       **CACHE_TOL, err_msg=f"{r['coords']} "
+                                       f"{path}")
+
+
+def _specs(specs, like):
+    """A spec tree in ``like``'s leaf order (a spec is a tuple, so the walk
+    follows ``like``)."""
+    out = []
+    tree_map(lambda _t, s: out.append(s), like, specs)
+    return out
 
 
 @pytest.mark.parametrize("sizes", MESHES)
-def test_the_expert_parallel_block_matches_moe_block_local(worlds, sizes):
+@pytest.mark.parametrize("name", MOE)
+def test_the_expert_parallel_block_matches_moe_block_local(worlds, name,
+                                                           sizes):
     results, refs = worlds
-    ref = refs["llama4"]
+    ref = refs[name]
     jparams = ref["jparams"]
     where = {i: (p, n) for p, stack in enumerate(layer_stacks(ref["cfg"]))
              for n, i in enumerate(stack)}
@@ -222,7 +313,7 @@ def test_the_expert_parallel_block_matches_moe_block_local(worlds, sizes):
     want, _aux = JM.moe_block_local(ffn, jnp.asarray(ref["moe_x"]),
                                     ref["jcfg"])
     for r in results[sizes]:
-        np.testing.assert_allclose(r["llama4"]["moe_out"].numpy(),
+        np.testing.assert_allclose(r[name]["moe_out"].numpy(),
                                    np.asarray(want), **TOL,
                                    err_msg=str(r["coords"]))
 
@@ -236,21 +327,34 @@ def test_a_world_of_one_is_bitwise_the_unsharded_path(worlds, name):
 
 @pytest.mark.parametrize("sizes", MESHES)
 def test_a_family_without_a_tensor_parallel_form_is_refused(worlds, sizes):
+    """recurrentgemma serves over ``model`` (above) but has no
+    tensor-parallel backward yet: ``make_train_step`` on the mesh refuses
+    it, naming the RG-LRU and ROADMAP item 12(b)."""
     results, _refs = worlds
     for r in results[sizes]:
         assert r["refusal"] is not None and "RG-LRU" in r["refusal"] and \
-            "model axis of" in r["refusal"], r["refusal"]
+            "model axis of" in r["refusal"] and "12(b)" in r["refusal"], \
+            r["refusal"]
 
 
 @pytest.mark.parametrize("sizes", MESHES)
 def test_the_bound_decode_refuses_blocks_of_another_layout(worlds, sizes):
     """``jit_decode``'s step checks its first call's blocks: the whole
-    cache is not a rank's block on a mesh that splits it."""
-    results, _refs = worlds
-    for r in results[sizes]:
-        for name in ARCHS:
-            assert r[name]["refused_whole_cache"] is True, (name,
-                                                           r["coords"])
+    cache is not a rank's block on a mesh that splits it, and is one
+    where the layout splits no leaf (deepseek's latents, whole over
+    ``model``, on a mesh of one data rank)."""
+    results, refs = worlds
+    mesh = StackedMesh(sizes, ("data", "model"))
+    for name in ARCHS:
+        cfg = refs[name]["cfg"]
+        shapes = build_model(cfg).init_cache(B, S_MAX, device="meta")
+        splits = any(SH.local_shape(t.shape, spec, mesh) != tuple(t.shape)
+                     for t, spec in zip(leaves(shapes), _specs(
+                         TPL.cache_layout(shapes, cfg, mesh), shapes)))
+        assert splits or (cfg.mla is not None and sizes[0] == 1), name
+        for r in results[sizes]:
+            assert r[name]["refused_whole_cache"] is splits, (name,
+                                                             r["coords"])
 
 
 def _coords_along(coords, axis, s):

@@ -17,10 +17,16 @@ process group.
   ``cache_layout``) differs from the reference's specs only where a head
   would be cut — ``wk`` / ``wv`` when the kv heads do not divide over
   ``model`` — and, for the cache, where the reference shards the
-  sequence; the families without a tensor-parallel form are refused;
+  sequence (a KV cache, MLA's latents) or RWKV's shift states' width;
+  the RG-LRU's and RWKV's states split as the reference splits them.
+  Every family serves over ``model``; the hybrid, ssm, MLA, audio and
+  vlm families are refused there in training, and heads and widths that
+  do not split are refused;
 * each rank's sharded init (``init_params``) is bitwise its block of the
   whole model's init from the same seed, an MoE rank's experts among
   them."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -33,7 +39,8 @@ from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.distributed import sharding as JSH  # noqa: E402
 from repro.launch.mesh import compat_abstract_mesh  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
-from repro_torch.configs import ARCH_IDS, get_smoke_config  # noqa: E402
+from repro_torch.configs import (ARCH_IDS, get_config,  # noqa: E402
+                                 get_smoke_config)
 from repro_torch.distributed import sharding as SH  # noqa: E402
 from repro_torch.distributed import tensor_parallel as TPL  # noqa: E402
 from repro_torch.launch.mesh import StackedMesh  # noqa: E402
@@ -45,6 +52,10 @@ from repro_torch.tree import flatten, tree_map  # noqa: E402
 MESHES = {(2, 4): ("data", "model"), (2, 2, 2): ("pod", "data", "model")}
 DENSE = ["llama3.2-3b", "qwen3-8b", "gemma-2b", "internlm2-20b",
          "llama4-maverick-400b-a17b"]
+#: The families that serve over ``model`` and train only at a model axis
+#: of 1 (ROADMAP item 12(b)'s training half).
+SERVE_ONLY = ["recurrentgemma-2b", "rwkv6-7b", "deepseek-v3-671b",
+              "whisper-large-v3", "llama-3.2-vision-11b"]
 PSpec = jax.sharding.PartitionSpec
 
 
@@ -198,8 +209,26 @@ class _Rank(StackedMesh):
 
 
 # --------------------------------------------------- the head-granular layout
+def _cache_leaf_layout(path, ref, lay, cut, cfg):
+    """A cache leaf's port entries against the reference's: a KV cache by
+    kv heads, its sequence whole; MLA's latents and RWKV's shift states
+    whole over ``model``; the RG-LRU's and RWKV's states as the
+    reference's."""
+    tail = path.split("/")[-1]
+    if tail in ("k", "v"):
+        assert ref[0] == lay[0] and ref[2] == "model" and lay[2] is None
+        assert lay[1] == (SH.Blocks("model", cfg.n_kv_heads) if cut
+                          else "model"), path
+    elif tail in ("ckv", "krope", "shift_t", "shift_c"):
+        assert "model" in ref and "model" not in lay, path
+        assert lay == tuple(None if e == "model" else e for e in ref), path
+    else:
+        assert tail in ("h", "conv", "wkv"), path
+        assert "model" in lay and lay == ref, path
+
+
 @pytest.mark.parametrize("sizes", [(1, 2), (2, 2), (1, 4)])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + SERVE_ONLY)
 def test_the_layout_differs_from_the_reference_only_where_a_head_is_cut(
         arch, sizes):
     mesh = StackedMesh(sizes, ("data", "model"))
@@ -222,9 +251,7 @@ def test_the_layout_differs_from_the_reference_only_where_a_head_is_cut(
                                     _port_specs(TPL.cache_layout(cache, cfg,
                                                                  mesh),
                                                 cache)):
-        assert s[0] == lay[0] and s[2] == "model" and lay[2] is None
-        assert lay[1] == (SH.Blocks("model", cfg.n_kv_heads) if cut
-                          else "model"), path
+        _cache_leaf_layout(path, s, lay, cut, cfg)
     # every rank's query heads read the kv heads it holds
     G = cfg.n_heads // cfg.n_kv_heads
     for r in range(tp):
@@ -235,14 +262,67 @@ def test_the_layout_differs_from_the_reference_only_where_a_head_is_cut(
         assert kv == set(range(i * per, (i + 1) * per))
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b",
-                                  "deepseek-v3-671b", "whisper-large-v3",
-                                  "llama-3.2-vision-11b"])
+@pytest.mark.parametrize("arch", SERVE_ONLY)
 def test_families_without_a_tensor_parallel_form_are_refused(arch):
+    """They serve over a model axis of 2 and train only at 1: training
+    over ``model`` is item 12(b)'s second half."""
     cfg = get_smoke_config(arch)
-    TPL.check_supported(cfg, 1)
-    with pytest.raises(ValueError, match="ROADMAP item 12"):
-        TPL.check_supported(cfg, 2)
+    TPL.check_supported(cfg, 1, training=True)
+    TPL.check_supported(cfg, 2)
+    with pytest.raises(ValueError, match=r"ROADMAP item 12\(b\)"):
+        TPL.check_supported(cfg, 2, training=True)
+
+
+def _smoke(arch, **kw):
+    """The smoke config with ``kw`` replaced (``lru_width`` in its hybrid
+    block)."""
+    cfg = get_smoke_config(arch)
+    if "lru_width" in kw:
+        return cfg.replace(hybrid=dataclasses.replace(
+            cfg.hybrid, lru_width=kw.pop("lru_width")), **kw)
+    return cfg.replace(**kw)
+
+
+@pytest.mark.parametrize("cfg, tp, what", [
+    (_smoke("recurrentgemma-2b", lru_width=66), 4, "hybrid.lru_width 66"),
+    (_smoke("recurrentgemma-2b", d_ff=130), 4, "d_ff 130"),
+    (_smoke("rwkv6-7b", d_ff=130), 4, "d_ff 130"),
+    (_smoke("rwkv6-7b"), 8, "heads"),
+    (_smoke("deepseek-v3-671b"), 8, "heads"),
+    (_smoke("whisper-large-v3", d_ff=130), 4, "d_ff 130"),
+    (_smoke("llama-3.2-vision-11b", d_ff=130), 4, "d_ff 130"),
+    (get_config("recurrentgemma-2b"), 4, "10 query"),
+    (get_config("whisper-large-v3"), 8, "20 query"),
+], ids=["rglru-width", "rglru-ff", "rwkv-ff", "rwkv-heads", "mla-heads",
+        "whisper-ff", "vision-ff", "recurrentgemma-heads", "whisper-heads"])
+def test_widths_that_do_not_split_are_refused_by_name(cfg, tp, what):
+    """The reference's ``?:model`` keeps such a width whole; the port
+    refuses to serve it, naming it."""
+    with pytest.raises(ValueError, match=what) as e:
+        TPL.check_supported(cfg, tp)
+    assert cfg.name in str(e.value)
+
+
+@pytest.mark.parametrize("tp, entry", [(2, ("model", None)),
+                                       (4, (None, None))])
+def test_whispers_bare_table_splits_by_vocabulary_rows_where_they_divide(
+        tp, entry):
+    """The published 51,866 rows split over a model axis of 2, not of 4:
+    there the table is whole on every rank, as the reference's
+    ``"?:model"`` falls back, and the lookup and logits run unsharded."""
+    cfg = get_config("whisper-large-v3")
+    mesh = _Rank((1, tp), ("data", "model"), 1)
+    params = build_model(cfg).init(MetaGenerator())
+    assert TPL.param_layout(params, cfg, mesh)["embed"] == entry
+    assert SH.param_pspecs(params, mesh)["embed"] == entry
+    assert TPL.TensorParallel(cfg, mesh).vocab_sharded is (entry[0]
+                                                           is not None)
+
+
+@pytest.mark.parametrize("arch", SERVE_ONLY)
+def test_the_published_widths_serve_over_a_model_axis_of_2(arch):
+    """Phase 5c's models: every published width splits over 2."""
+    TPL.check_supported(get_config(arch), 2)
 
 
 @pytest.mark.parametrize("arch, tp, what", [
@@ -254,7 +334,8 @@ def test_heads_that_would_be_cut_are_refused(arch, tp, what):
 
 
 @pytest.mark.parametrize("sizes", [(1, 2), (2, 2), (1, 4)])
-@pytest.mark.parametrize("arch", ["qwen3-8b", "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "llama4-maverick-400b-a17b"]
+                         + SERVE_ONLY)
 def test_each_ranks_init_is_its_block_of_the_models(arch, sizes):
     cfg = get_smoke_config(arch)
     full = build_model(cfg).init(torch.Generator().manual_seed(7))

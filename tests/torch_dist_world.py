@@ -12,13 +12,15 @@ after the other.  Each world is spawned on the CPU over gloo
 serves the prompt through ``make_serve_steps(cfg, ProcessMesh(...))`` — a
 prefill of the global batch, then greedy decode steps on its own rows —
 and returns its logits, tokens and caches, each MoE rank also the
-expert-parallel block's output on one input; the refusal of a family
-without a tensor-parallel form is asked too.  A world of 1 also runs the
-unsharded path in the same process, for a bitwise comparison.  On each
-mesh of ``fsdp_meshes`` each rank serves every smoke family that runs
-there twice, ``fsdp=False`` and ``fsdp=True`` (``FSDP_MIN_ELEMENTS``
-lowered to 1), each drawing its blocks with ``model.init``, and returns
-whether the logits agree bit for bit.  Every rank's result goes to
+expert-parallel block's output on one input; the training step's refusal
+of a family that serves over ``model`` but does not train there yet is
+asked too.  A world of 1 also runs the unsharded path in the same
+process, for a bitwise comparison.  On each mesh of ``fsdp_meshes`` each
+rank serves each smoke family the job's ``fsdp_cases`` name for that mesh
+twice, ``fsdp=False`` and ``fsdp=True`` (``FSDP_MIN_ELEMENTS`` lowered to
+1), each drawing its blocks with ``model.init``, and returns whether the
+logits agree bit for bit.  A model's ``batch`` (the vlm's and whisper's
+context) goes with its prompt into every prefill.  Every rank's result goes to
 ``outputs.pt``.  It imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
@@ -28,9 +30,9 @@ import sys
 import torch
 
 
-def _serve(steps, params, tokens, n_decode, s_max):
+def _serve(steps, params, batch, n_decode, s_max):
     _model, prefill, decode, _jit = steps
-    lg, caches, pos = prefill(params, {"tokens": tokens}, s_max)
+    lg, caches, pos = prefill(params, batch, s_max)
     logits, toks = [lg], []
     tok = torch.argmax(lg, -1).to(torch.int32)[:, None]
     for _ in range(n_decode):
@@ -72,9 +74,7 @@ def fsdp_rank(mesh, job):
     out = {}
     for arch, m in job["fsdp_models"].items():
         cfg = m["cfg"]
-        if mesh.shape["model"] > 1 and cfg.family in TPL.REFUSED:
-            continue
-        if mesh.shape["model"] > 1 and cfg.mla is not None:
+        if [*mesh.sizes, arch] not in map(list, job["fsdp_cases"]):
             continue
         B, s_max = m["tokens"].shape[0], m["s_max"]
         batch = {"tokens": m["tokens"]}
@@ -119,16 +119,17 @@ def fsdp_rank(mesh, job):
 
 def mesh_rank(mesh, job):
     """One rank's serving on a (data, model) mesh."""
-    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs import TrainConfig, get_smoke_config
     from repro_torch.distributed import tensor_parallel as TPL
     from repro_torch.distributed.moe_ep import make_moe_fn
     from repro_torch.models import build_model
-    from repro_torch.train import make_serve_steps
+    from repro_torch.train import make_serve_steps, make_train_step
     from repro_torch.tree import flatten
     out = {"coords": mesh.coords}
     for name, m in job["models"].items():
         cfg = m["cfg"]
         params = m["params"]
+        batch = {"tokens": m["tokens"], **m.get("batch", {})}
         steps = make_serve_steps(cfg, mesh)
         local = TPL.shard_tree(params, TPL.param_layout(params, cfg, mesh),
                                mesh)
@@ -145,7 +146,7 @@ def mesh_rank(mesh, job):
             refused_whole_cache = True
         with torch.no_grad():
             logits, toks, caches = _serve(
-                (steps[0], steps[1], bound, None), local, m["tokens"],
+                (steps[0], steps[1], bound, None), local, batch,
                 job["n_decode"], m["s_max"])
             r = {"logits": [t.clone() for t in logits], "tokens": toks,
                  "cache": {p: t.clone() for p, t in flatten(caches)},
@@ -160,7 +161,7 @@ def mesh_rank(mesh, job):
                                       m["moe_x"], cfg)[0]
             if mesh.size == 1:
                 plain, plain_toks, plain_cache = _serve(
-                    make_serve_steps(cfg, None, "cpu"), params, m["tokens"],
+                    make_serve_steps(cfg, None, "cpu"), params, batch,
                     job["n_decode"], m["s_max"])
                 r["bitwise"] = all(
                     torch.equal(a, b) for a, b in zip(logits, plain)) and \
@@ -170,7 +171,8 @@ def mesh_rank(mesh, job):
         out[name] = r
     if mesh.shape["model"] > 1:
         try:
-            make_serve_steps(get_smoke_config("recurrentgemma-2b"), mesh)
+            make_train_step(get_smoke_config("recurrentgemma-2b"),
+                            TrainConfig(), mesh=mesh)
             out["refusal"] = None
         except ValueError as e:
             out["refusal"] = str(e)
